@@ -1,0 +1,119 @@
+"""Scene inputs of the port against vpt_tpu: camera matrices, synthetic
+volumes, the transfer function and the environment.
+
+The volumes are built with numpy by the same code on both sides and must be
+equal.  The camera matrices go through tan, a 4×4 product and an inverse,
+whose last bits differ between the libraries: they must agree to 1e-6,
+relative and absolute (the two LU inverses differ by up to 8.6e-7 relative,
+1.2e-5 absolute on entries near 14, measured).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vpt_tpu import environment as jenv
+from vpt_tpu import math3d as jm4
+from vpt_tpu import scene as jscene
+from vpt_tpu import transfer as jtransfer
+from vpt_tpu import volume as jvolume
+from vpt_tpu_torch import environment as tenv
+from vpt_tpu_torch import math3d as tm4
+from vpt_tpu_torch import scene as tscene
+from vpt_tpu_torch import transfer as ttransfer
+from vpt_tpu_torch import volume as tvolume
+
+
+def _cameras(translation, fovy, quat):
+    jcam = jscene.default_camera(translation=translation, fovy=fovy)
+    tcam = tscene.default_camera(translation=translation, fovy=fovy)
+    jvt = jscene.Node().transform
+    tvt = tscene.Node().transform
+    jvt.local_rotation = jnp.asarray(quat, jnp.float32)
+    tvt.local_rotation = quat
+    jvt.local_scale = jnp.asarray([1.0, 1.2, 0.8], jnp.float32)
+    tvt.local_scale = [1.0, 1.2, 0.8]
+    return (jscene.CameraState.from_nodes(jcam, jvt),
+            tscene.CameraState.from_nodes(tcam, tvt))
+
+
+@pytest.mark.parametrize("translation,fovy,quat", [
+    ((0.0, 0.0, 2.0), 1.0, (0.0, 0.0, 0.0, 1.0)),
+    ((0.3, -0.2, 2.5), 0.8, (0.0, 0.38268343, 0.0, 0.9238795)),
+])
+def test_camera_matrices_close(translation, fovy, quat):
+    jcs, tcs = _cameras(translation, fovy, quat)
+    for name in ("mvp_inverse", "model_view", "projection"):
+        got = getattr(tcs, name)
+        assert got.dtype == torch.float32 and got.shape == (4, 4)
+        assert np.allclose(got.numpy(), np.asarray(getattr(jcs, name)),
+                           rtol=1e-6, atol=1e-6), name
+
+
+def test_camera_math_keeps_tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tscene.CameraState.from_nodes(tscene.default_camera())
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_center_matrix_equal():
+    assert np.array_equal(tscene.CENTER_MATRIX, jscene.CENTER_MATRIX)
+
+
+def test_apply_mat4_bitwise():
+    r = np.random.default_rng(0)
+    m = r.normal(size=(4, 4)).astype(np.float32)
+    v = r.normal(size=(128, 4)).astype(np.float32)
+    want = np.asarray(jm4.apply_mat4(jnp.asarray(m), jnp.asarray(v)))
+    got = tm4.apply_mat4(torch.from_numpy(m), torch.from_numpy(v)).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_transform_change_listener_fires():
+    t = tscene.Transform()
+    calls = []
+    t.add_change_listener(lambda: calls.append(1))
+    t.local_translation = [1.0, 2.0, 3.0]
+    assert calls == [1]
+    assert np.allclose(t.local_matrix[:3, 3].numpy(), [1.0, 2.0, 3.0])
+
+
+@pytest.mark.parametrize("n", [8, 17, 32])
+def test_sphere_volume_equal(n):
+    got = tvolume.sphere_volume(n).data.numpy()
+    assert np.array_equal(got, np.asarray(jvolume.sphere_volume(n).data))
+
+
+@pytest.mark.parametrize("n,seed", [(12, 0), (24, 7)])
+def test_blobs_volume_equal(n, seed):
+    got = tvolume.blobs_volume(n, seed=seed).data.numpy()
+    want = np.asarray(jvolume.blobs_volume(n, seed=seed).data)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("height,width,alpha", [(2, 256, 0.8), (3, 200, 1.0)])
+def test_gray_ramp_equal(height, width, alpha):
+    got = ttransfer.gray_ramp(height, width, alpha_scale=alpha).numpy()
+    want = np.asarray(jtransfer.gray_ramp(height, width, alpha_scale=alpha))
+    assert np.array_equal(got, want)
+
+
+def test_to_gl_texture_within_one_ulp():
+    """Quantize and the alpha channel are exact; the sRGB decode goes
+    through pow, which may differ by one ulp."""
+    r = np.random.default_rng(1)
+    tex = r.uniform(-0.1, 1.1, (4, 64, 4)).astype(np.float32)
+    got = ttransfer.to_gl_texture(torch.from_numpy(tex)).numpy()
+    want = np.asarray(jtransfer.to_gl_texture(jnp.asarray(tex)))
+    assert np.array_equal(got[..., 3], want[..., 3])
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1
+
+
+def test_environment_equal():
+    assert np.array_equal(tenv.white().numpy(), np.asarray(jenv.white()))
+    assert np.array_equal(tenv.constant([0.2, 0.4, 0.6], 2, 3).numpy(),
+                          np.asarray(jenv.constant([0.2, 0.4, 0.6], 2, 3)))

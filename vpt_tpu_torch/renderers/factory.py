@@ -1,0 +1,32 @@
+"""Renderer registry: string → renderer, mirroring
+``vpt_tpu/renderers/factory.py``.  The port has the MCM renderer only."""
+
+from __future__ import annotations
+
+from . import base, mcm
+
+MODULES = {"mcm": mcm}
+
+#: renderers of vpt_tpu that the port does not have yet
+NOT_PORTED = ("depth", "dos", "eam", "iso", "lao", "mcs", "mip")
+
+
+def get_module(key: str):
+    if key in NOT_PORTED:
+        raise NotImplementedError(
+            f"renderer {key!r} is not ported to vpt_tpu_torch yet "
+            "(ROADMAP.md queue 1)")
+    if key not in MODULES:
+        raise ValueError(
+            f"unknown renderer {key!r}; available: {sorted(MODULES)}")
+    return MODULES[key]
+
+
+def make_renderer(key: str, params=None, height: int = 512,
+                  width: int = 512) -> base.Renderer:
+    module = get_module(key)
+    cls = type(f"{key.upper()}Renderer", (base.Renderer,), {
+        "module": module,
+        "Params": module.Params,
+    })
+    return cls(params=params, height=height, width=width)

@@ -1,0 +1,68 @@
+"""Volumes: the 3D scalar fields the renderers sample.
+
+Mirrors ``vpt_tpu/volume.py``: a volume is a (D, H, W, C) float32 tensor in
+[0, 1] plus its filter.  The synthetic volumes are built with numpy by the
+same code as the JAX package's, so both packages get identical data.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Volume:
+    """data: (D, H, W, C) float32; ``filter`` in {'linear', 'nearest',
+    'cubic'} (the port renders 'linear' only)."""
+
+    data: torch.Tensor
+    filter: str = "linear"
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return tuple(self.data.shape[:3])
+
+    @property
+    def channels(self) -> int:
+        return self.data.shape[3]
+
+
+def normalized_grid(depth: int, height: int, width: int):
+    """Texture-space coordinates of voxel centers, three (D, H, W) numpy
+    arrays (x, y, z)."""
+    z = (np.arange(depth, dtype=np.float32) + 0.5) / depth
+    y = (np.arange(height, dtype=np.float32) + 0.5) / height
+    x = (np.arange(width, dtype=np.float32) + 0.5) / width
+    zz, yy, xx = np.meshgrid(z, y, x, indexing="ij")
+    return xx, yy, zz
+
+
+def sphere_volume(n: int = 64, center=(0.5, 0.5, 0.5), radius: float = 0.3,
+                  soft: float = 0.1, device="cpu") -> Volume:
+    """Soft-edged spherical density blob."""
+    x, y, z = normalized_grid(n, n, n)
+    r = np.sqrt((x - center[0]) ** 2 + (y - center[1]) ** 2
+                + (z - center[2]) ** 2)
+    t = np.clip((radius - r) / max(soft, 1e-6) + 0.5, 0.0, 1.0)
+    val = (t * t * (3.0 - 2.0 * t)).astype(np.float32)
+    return Volume(torch.from_numpy(val[..., None]).to(device))
+
+
+def blobs_volume(n: int = 64, seed: int = 0, count: int = 5,
+                 device="cpu") -> Volume:
+    """Sum of random Gaussian blobs: an asymmetric test scene."""
+    rng = np.random.default_rng(seed)
+    x, y, z = normalized_grid(n, n, n)
+    val = np.zeros((n, n, n), np.float32)
+    for _ in range(count):
+        c = rng.uniform(0.25, 0.75, size=3)
+        s = rng.uniform(0.05, 0.15)
+        a = rng.uniform(0.4, 1.0)
+        val += a * np.exp(-(((x - c[0]) ** 2 + (y - c[1]) ** 2
+                             + (z - c[2]) ** 2) / (2 * s * s)))
+    val = np.clip(val, 0.0, 1.0).astype(np.float32)
+    return Volume(torch.from_numpy(val[..., None]).to(device))
