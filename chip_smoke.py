@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's MCM forward render once on one GPU.
+"""Drive the PyTorch/CUDA port's MCM forward render and its differentiable
+MCM fit once on one GPU.
 
     python3 chip_smoke.py
 
@@ -9,17 +10,34 @@ prints no result:
 1. the card's name and power limit (nvidia-smi);
 2. build the kernels from ``vpt_tpu_torch/csrc`` (nvcc, sm_90a);
 3. the tone-map kernel against its plain version, all eight curves;
-4. the TF-lookup kernel against its plain version, float32 and bf16 rows;
-5. the MCM event kernel against the plain event loop on the card;
-6. the main path with every launch counter at 0: ``make_scene`` (128³
-   sphere, sRGB gray ramp, cheb-skip auto tracking, bf16 tables),
-   ``make_renderer("mcm")`` frames at 512², steps 8 and 32, ``display``,
-   and the ``reinhard`` tone mapper.  The tracking table is checked against
-   the TF through ``Scene.sample_color``, which launches the standalone
-   TF-lookup kernel; inside frames the same lookup runs as a device
-   function of the event kernel;
-7. every kernel launched in phase 6; the JSON line says which call
-   launched each.
+4. the TF-lookup kernel against its plain version, float32 and bf16 rows,
+   in the bilinear and both ``tf_mxu`` modes;
+5. the MCM event kernel against the plain event loop on the card, the
+   headline's ``tf_mxu`` bf16 mode included;
+6. the corner-gather kernel (K3) against its plain version, bit for bit:
+   the probe's shapes (2^21 × 128 table, 2^17 indices) and the fit's fused
+   fetch (256³ table, 256² photons); the corner-scatter kernel (K4) against
+   ``index_add_``, with indices heavy in duplicates, at the probe's and the
+   fit's shapes: atomics sum in another order, so the two must agree
+   within the float32 bound of reordering each sum (:func:`order_bound`);
+7. one value-and-grad of the fit's loss at 64², ``blobs_volume(32)``, steps
+   8 × 2 frames, the kernels against the plain versions on the card;
+8. the forward main path with every launch counter at 0: ``make_scene``
+   (128³ sphere, sRGB gray ramp, cheb-skip auto tracking, bf16 tables,
+   ``tf_mxu``), ``make_renderer("mcm")`` frames at 512², steps 8 and 32,
+   ``display``, and the ``reinhard`` tone mapper.  The tracking table is
+   checked against the TF through ``Scene.sample_color``, which launches
+   the standalone TF-lookup kernel; inside frames the same lookup runs as a
+   device function of the event kernel;
+9. the fit path with every launch counter at 0 again: BASELINE config 3's
+   256³ volume (``blobs_volume(256)`` as truth, a constant 0.2 volume as
+   init, ``gray_ramp(alpha_scale=0.8)``), a 256² target rendered by the
+   port's ``mcm_expected_image`` under ``no_grad``, one timed value-and-grad
+   (grad events/s, peak memory), then ``train.fit_mc`` with its default
+   Params (extinction 10, steps 16) for 3 Adam steps.  Frames are cut from
+   the fit's default 64 to 16 for this script's time limit;
+10. every kernel launched on its path (8 or 9); the JSON line says which
+    call launched each.
 
 Then one JSON line with each kernel's launches, error and time beside its
 plain version's, and the last line
@@ -99,16 +117,21 @@ def phase_tf1d(dev):
     for dtype in (torch.float32, torch.bfloat16):
         tf = torch.rand(2, 256, 4, generator=g).to(dtype).to(torch.float32)
         table, width = tf1d.pack_table(tf.to(dev))
-        got = tf1d.lookup_1d(table, values, width)
-        want = tf1d.lookup_plain(table, values)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        check(err <= 1e-6, f"tf1d ({dtype} row): max abs err {err}")
-    ms = cuda_ms(lambda: tf1d.lookup_1d(table, values, width), 200)
-    plain_ms = cuda_ms(lambda: tf1d.lookup_plain(table, values), 50)
-    print(f"tf1d: f32 and bf16 rows agree (atol 1e-6), max abs err {worst}; "
-          f"(512, 512) values, TW=256 {ms:.4f} ms, plain {plain_ms:.4f} ms",
+        for mxu in (None, torch.float32, torch.bfloat16):
+            got = tf1d.lookup_1d(table, values, width, mxu)
+            want = tf1d.lookup_plain(table, values, mxu)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            check(err <= 1e-6, f"tf1d ({dtype} row, mode {mxu}): max abs "
+                  f"err {err}")
+    # the headline's mode: a bf16 row with bf16 lerp weights
+    mxu = torch.bfloat16
+    ms = cuda_ms(lambda: tf1d.lookup_1d(table, values, width, mxu), 200)
+    plain_ms = cuda_ms(lambda: tf1d.lookup_plain(table, values, mxu), 50)
+    print(f"tf1d: f32 and bf16 rows, bilinear and tf_mxu f32/bf16 weights "
+          f"agree (atol 1e-6), max abs err {worst}; (512, 512) values, "
+          f"TW=256, bf16 weights {ms:.4f} ms, plain {plain_ms:.4f} ms",
           flush=True)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
@@ -158,18 +181,237 @@ def phase_mcm_event(dev):
 
     params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
     worst = 0.0
-    for tracking in ("none", "auto"):
-        for dtype in (None, torch.bfloat16):
-            scene = make_scene(volume.blobs_volume(32, seed=1),
-                               transfer.gray_ramp(alpha_scale=0.8),
-                               tf_srgb=True, tracking=tracking,
-                               pack_dtype=dtype, device=dev)
-            check((scene.tracking_packed is not None) == (tracking == "auto"),
-                  f"blobs scene, tracking={tracking}: table not as expected")
-            label = f"128^2 blobs32 tracking={tracking} " \
-                    f"{'bf16' if dtype else 'f32'} 8 frames"
-            worst = max(worst, _frames_agree(scene, params, 128, 8, label)[1])
+    for tracking, dtype, tf_mxu in (("none", None, False),
+                                    ("none", torch.bfloat16, False),
+                                    ("auto", None, False),
+                                    ("auto", torch.bfloat16, False),
+                                    ("auto", torch.bfloat16, True)):
+        scene = make_scene(volume.blobs_volume(32, seed=1),
+                           transfer.gray_ramp(alpha_scale=0.8),
+                           tf_srgb=True, tracking=tracking, pack_dtype=dtype,
+                           tf_mxu=tf_mxu, device=dev)
+        check((scene.tracking_packed is not None) == (tracking == "auto"),
+              f"blobs scene, tracking={tracking}: table not as expected")
+        label = f"128^2 blobs32 tracking={tracking} " \
+                f"{'bf16' if dtype else 'f32'}" \
+                f"{' tf_mxu' if tf_mxu else ''} 8 frames"
+        worst = max(worst, _frames_agree(scene, params, 128, 8, label)[1])
     return {"max_abs_err": worst}
+
+
+def order_bound(counts, abs_sums):
+    """Bound on |a - b| for two float32 sums of the same terms in different
+    orders: each lies within (n - 1)·2^-24·Σ|x| of the exact sum of its n
+    terms.  ``counts`` and ``abs_sums`` per output element."""
+    return 2.0 * counts * 2.0 ** -24 * abs_sums
+
+
+def phase_corner_kernels(dev):
+    """K3 and K4 against their plain versions at the probes' and the fit's
+    shapes.  Returns the JSON fields of both; their times are those of the
+    fit's entry points (corner_fetch, corner_grad) at 256³ / 256²."""
+    import torch
+
+    from vpt_tpu_torch import sampling
+    from vpt_tpu_torch.kernels import corner_gather, corner_scatter
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    # K3, the probe: 2^21 rows of 128 lanes (1 GiB), 2^17 indices
+    table = torch.randn(1 << 21, 128, device=dev, generator=g)
+    idx = torch.randint(0, 1 << 21, (1 << 17,), device=dev, generator=g)
+    got = corner_gather.gather_rows(table, idx)
+    want = corner_gather.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "gather_rows differs from table[idx]")
+    probe_ms = cuda_ms(lambda: corner_gather.gather_rows(table, idx), 50)
+    probe_plain = cuda_ms(
+        lambda: corner_gather.gather_rows_plain(table, idx), 50)
+    print(f"corner_gather gather_rows (2^21, 128) table, 2^17 rows: equal; "
+          f"{probe_ms:.4f} ms, plain table[idx] {probe_plain:.4f} ms",
+          flush=True)
+    del table, idx, got, want
+
+    # K3, the fit's fused fetch: a 256³ corner table, one photon per pixel
+    shape = (256, 256, 256, 1)
+    packed = sampling.pack_corner_volume(
+        torch.rand(shape, device=dev, generator=g))
+    pos = torch.rand(256 * 256, 3, device=dev, generator=g) * 1.2 - 0.1
+    cells, f = sampling.corner_cells(pos, shape)
+    got = corner_gather.corner_fetch(packed, cells, f)
+    want = corner_gather.corner_fetch_plain(packed, cells, f)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "corner_fetch is not bit for bit the "
+          "plain gather and lerp")
+    ms = cuda_ms(lambda: corner_gather.corner_fetch(packed, cells, f), 200)
+    plain_ms = cuda_ms(
+        lambda: corner_gather.corner_fetch_plain(packed, cells, f), 50)
+    print(f"corner_gather corner_fetch 256^3 table, 256^2 photons: bit for "
+          f"bit; {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    k3 = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+
+    # K4, the probe: a (2^20, 128) table, 2^15 updates onto 2^10 of its
+    # 2^24 8-lane rows (32 updates per row on average)
+    t4 = torch.zeros(1 << 20, 128, device=dev)
+    idx4 = torch.randint(0, 1 << 10, (1 << 15,), device=dev,
+                         generator=g) * 16381
+    ct4 = torch.randn(1 << 15, 8, device=dev, generator=g)
+    got = corner_scatter.scatter_add_rows8(t4.clone(), idx4, ct4)
+    want = corner_scatter.scatter_add_rows8_plain(t4.clone(), idx4, ct4)
+    # the same sums in another order: within the reordering bound
+    bound = order_bound(
+        torch.bincount(idx4, minlength=1 << 24)[:, None],
+        corner_scatter.scatter_add_rows8_plain(torch.zeros_like(t4), idx4,
+                                               ct4.abs()).view(-1, 8))
+    torch.cuda.synchronize()
+    diff = (got - want).view(-1, 8).abs()
+    err_probe = float(diff.max())
+    check(bool((diff <= bound).all()),
+          f"scatter_add_rows8: max abs err {err_probe} beyond the bound")
+    probe_ms = cuda_ms(
+        lambda: corner_scatter.scatter_add_rows8(t4, idx4, ct4), 200)
+    probe_plain = cuda_ms(
+        lambda: corner_scatter.scatter_add_rows8_plain(t4, idx4, ct4), 50)
+    print(f"corner_scatter scatter_add_rows8 (2^20, 128) table, 2^15 "
+          f"updates on 2^10 rows: max abs err {err_probe} (within the "
+          f"reordering bound, max {float(bound.max()):.3g}); "
+          f"{probe_ms:.4f} ms, plain index_add_ {probe_plain:.4f} ms",
+          flush=True)
+    del t4, got, want
+
+    # K4, the fit's backward: photons crowded into a cube 13 cells a side
+    # (about 2200 cells, ~30 photons a cell), as a frame's entry cells are
+    crowd = 0.45 + 0.05 * torch.rand(256 * 256, 3, device=dev, generator=g)
+    cells, f = sampling.corner_cells(crowd, shape)
+    ct = torch.randn(256 * 256, 1, device=dev, generator=g)
+    rows = packed.shape[0]
+    got = corner_scatter.corner_grad(cells, f, ct, rows, 1)
+    want = corner_scatter.corner_grad_plain(cells, f, ct, rows, 1)
+    bound = order_bound(
+        torch.bincount(cells, minlength=rows)[:, None],
+        corner_scatter.corner_grad_plain(cells, f, ct.abs(), rows, 1))
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= bound).all()),
+          f"corner_grad: max abs err {err} beyond the reordering bound")
+    ms = cuda_ms(lambda: corner_scatter.corner_grad(cells, f, ct, rows, 1),
+                 50)
+    plain_ms = cuda_ms(
+        lambda: corner_scatter.corner_grad_plain(cells, f, ct, rows, 1), 20)
+    print(f"corner_scatter corner_grad 256^3 table, 256^2 photons on "
+          f"{int(cells.unique().numel())} cells: max abs err {err} (within "
+          f"the reordering bound, max {float(bound.max()):.3g}); {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms (both allocate and zero the 512 MiB "
+          "gradient)", flush=True)
+    k4 = {"max_abs_err": max(err, err_probe), "ms": ms, "plain_ms": plain_ms}
+    return k3, k4
+
+
+def phase_fit_check(dev):
+    """One value-and-grad of the fit's loss, the kernels against the plain
+    versions on the card (Scene.kernels=False)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import train, transfer, volume
+    from vpt_tpu_torch.renderers import make_scene, mcm
+
+    scene = make_scene(volume.blobs_volume(32, seed=1),
+                       transfer.gray_ramp(alpha_scale=0.8), device=dev)
+    params = mcm.Params(extinction=10.0, anisotropy=0.3, steps=8)
+    target = torch.rand(64, 64, 3, generator=torch.Generator().manual_seed(
+        4)).to(dev)
+    out = []
+    for kernels in (True, False):
+        vol = torch.full((32, 32, 32, 1), 0.2, device=dev,
+                         requires_grad=True)
+        loss = train.mc_loss({"volume": vol},
+                             dataclasses.replace(scene, kernels=kernels),
+                             target, params, 2, np.float32(0.1))
+        loss.backward()
+        out.append((loss.item(), vol.grad))
+    torch.cuda.synchronize()
+    (loss, grad), (plain_loss, plain_grad) = out
+    check(bool(torch.isfinite(grad).all()), "fit gradient is not finite")
+    check(float(grad.abs().max()) > 0.0, "fit gradient is all zero")
+    rel = float((grad - plain_grad).norm() / plain_grad.norm())
+    # the fetch is bit for bit, so the loss is; the gradients are sums of
+    # atomics in another order
+    check(loss == plain_loss, f"fit loss {loss} != plain {plain_loss}")
+    check(rel <= 1e-4, f"fit gradient: relative L2 error {rel}")
+    print(f"fit value-and-grad 64^2 blobs32 steps 8 x 2 frames: loss "
+          f"{loss!r} equal to the plain version's; volume gradient relative "
+          f"L2 error {rel:.3g} (bound 1e-4)", flush=True)
+
+
+#: the fit path's sizes: BASELINE config 3's volume and image; frames cut
+#: from fit_mc's default 64 for this script's time limit
+FIT_VOLUME, FIT_RES, FIT_FRAMES = 256, 256, 16
+
+
+def phase_fit_path(dev, counters):
+    """The fit at BASELINE config 3's size through ``train.fit_mc``, with
+    every launch counter at 0 first.  Returns each kernel's launches."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import train, transfer, volume
+    from vpt_tpu_torch.renderers import diff_mc, make_scene, mcm
+
+    for module in counters.values():
+        module.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    n, res, frames, steps = FIT_VOLUME, FIT_RES, FIT_FRAMES, 3
+    params = mcm.Params(extinction=train.MC_FIT_EXTINCTION["mcm"], steps=16)
+    t0 = time.perf_counter()
+    truth = make_scene(volume.blobs_volume(n),
+                       transfer.gray_ramp(alpha_scale=0.8), device=dev)
+    with torch.no_grad():
+        target = diff_mc.mcm_expected_image(truth, params, res, res, frames)
+    torch.cuda.synchronize()
+    check(tuple(target.shape) == (res, res, 3)
+          and bool(torch.isfinite(target).all()), "target not finite")
+    print(f"fit target: {n}^3 blobs truth, {res}^2, steps 16 x {frames} "
+          f"frames under no_grad in {time.perf_counter() - t0:.3f} s, mean "
+          f"{float(target.mean()):.6f}", flush=True)
+
+    init = torch.full((n, n, n, 1), 0.2, device=dev)
+    vol = init.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = train.mc_loss({"volume": vol}, truth, target, params, frames,
+                         np.float32(0.1))
+    loss.backward()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(vol.grad).all()),
+          "fit loss or gradient not finite")
+    check(float(vol.grad.abs().max()) > 0.0, "fit gradient is all zero")
+    events = res * res * params.steps * frames
+    peak = torch.cuda.max_memory_allocated()
+    print(f"fit value-and-grad {n}^3 / {res}^2, steps 16 x {frames} frames: "
+          f"{dt * 1e3:.3f} ms, {events / dt:.6g} grad events/s, peak "
+          f"memory {peak / 2 ** 30:.3f} GiB", flush=True)
+    del vol, loss
+
+    t0 = time.perf_counter()
+    fitted, _, losses = train.fit_mc(target, truth, init_volume=init,
+                                     frames=frames, steps=steps)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"fit losses {losses}")
+    check(bool(torch.isfinite(fitted).all()) and float(fitted.min()) >= 0.0
+          and float(fitted.max()) <= 1.0, "fitted volume outside [0, 1]")
+    check(not torch.equal(fitted, init), "fit_mc did not move the volume")
+    print(f"fit_mc {n}^3 / {res}^2, steps 16 x {frames} frames, {steps} Adam "
+          f"steps: losses {losses}; {step_s * 1e3:.3f} ms per step, "
+          f"{events / step_s:.6g} grad events/s per step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
+          flush=True)
+    return {name: m.LAUNCHES for name, m in counters.items()}
 
 
 def print_kernel_device_ms(scene, steps, frames=10):
@@ -315,7 +557,8 @@ def run():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     try:
-        from vpt_tpu_torch.kernels import _build, mcm_event, tf1d
+        from vpt_tpu_torch.kernels import _build, corner_gather
+        from vpt_tpu_torch.kernels import corner_scatter, mcm_event, tf1d
         from vpt_tpu_torch.kernels import tonemap_kernel
     except ImportError as exc:
         raise SmokeFailure(f"vpt_tpu_torch is not importable from {root}: "
@@ -339,6 +582,8 @@ def run():
     k2 = phase_tonemap(dev)
     k1 = phase_tf1d(dev)
     k5 = phase_mcm_event(dev)
+    k3, k4 = phase_corner_kernels(dev)
+    phase_fit_check(dev)
 
     from vpt_tpu_torch import transfer, volume
     from vpt_tpu_torch.renderers import make_scene, mcm
@@ -346,7 +591,7 @@ def run():
     headline = make_scene(volume.sphere_volume(128),
                           transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
                           tracking="auto", pack_dtype=torch.bfloat16,
-                          device=dev)
+                          tf_mxu=True, device=dev)
     k5["ms"], k5["plain_ms"] = time_event_kernel(
         headline, mcm.Params(extinction=40.0, anisotropy=0.3, steps=8))
     for steps in (8, 32):
@@ -354,12 +599,21 @@ def run():
     del headline
 
     counters = {"mcm_event": mcm_event, "tf1d_lookup": tf1d,
-                "tonemap": tonemap_kernel}
-    rates, launches = phase_main_path(dev, counters)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
-    print("launches on the main path: " + ", ".join(
-        f"{k} {v}" for k, v in launches.items()), flush=True)
+                "tonemap": tonemap_kernel, "corner_gather": corner_gather,
+                "corner_scatter": corner_scatter}
+    rates, render_launches = phase_main_path(dev, counters)
+    torch.cuda.empty_cache()
+    fit_launches = phase_fit_path(dev, counters)
+    for path, launches, names in (
+            ("forward render", render_launches,
+             ("mcm_event", "tf1d_lookup", "tonemap")),
+            ("fit", fit_launches,
+             ("corner_gather", "corner_scatter", "tf1d_lookup"))):
+        for name in names:
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+        print(f"launches on the {path} path: " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()), flush=True)
 
     rows = [
         {"name": "mcm_event", "route": "cuda",
@@ -372,13 +626,26 @@ def run():
          "replaces": "vpt_tpu/pallas/tf1d.py:75",
          "launched_by": "Scene.sample_color, called by this script to check "
                         "the tracking table; frames run the lookup inside "
-                        "mcm_event", **k1},
+                        "mcm_event (the fit path launches it too, for the "
+                        "no_grad target render)", **k1},
         {"name": "tonemap", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/tonemap.cu",
          "replaces": "vpt_tpu/pallas/tonemap_kernel.py:36",
          "launched_by": "ToneMapper('reinhard') on the display image", **k2},
+        {"name": "corner_gather", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/corner_gather.cu",
+         "replaces": "benchmarks/pallas_gather.py:26",
+         "launched_by": "train.fit_mc: sampling.CornerFetch forward, one "
+                        "corner_fetch per event (fit path)", **k3},
+        {"name": "corner_scatter", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/corner_scatter.cu",
+         "replaces": "benchmarks/pallas_scatter_bwd.py:41",
+         "launched_by": "train.fit_mc: sampling.CornerFetch backward, one "
+                        "corner_grad per event (fit path)", **k4},
     ]
     for row in rows:
+        launches = fit_launches if row["name"].startswith("corner") \
+            else render_launches
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "launched_by",
             "max_abs_err", "ms", "plain_ms")

@@ -40,7 +40,8 @@ def test_every_module_imports():
 
 
 @pytest.mark.parametrize("source", ["tf1d.cu", "tonemap.cu",
-                                    "mcm_event.cu"])
+                                    "mcm_event.cu", "corner_gather.cu",
+                                    "corner_scatter.cu"])
 def test_kernel_sources_carry_their_note(source):
     """Each kernel names the TPU function it replaces, what bounds it on
     the H100 and what its design does about that."""
@@ -52,8 +53,9 @@ def test_kernel_sources_carry_their_note(source):
 def test_build_flags_and_entry_points():
     from vpt_tpu_torch.kernels import _build
 
-    assert set(_build.SIGNATURES) == {"vpt_tf1d_lookup", "vpt_tonemap",
-                                      "vpt_mcm_event"}
+    assert set(_build.SIGNATURES) == {
+        "vpt_tf1d_lookup", "vpt_tonemap", "vpt_mcm_event", "vpt_gather_rows",
+        "vpt_corner_fetch", "vpt_scatter_add_rows8", "vpt_corner_grad"}
     sources = " ".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))
     for name, argtypes in _build.SIGNATURES.items():
         # ctypes passes exactly the C function's parameters

@@ -56,7 +56,7 @@ struct Args {
   const void* table;     // (D*H*W, 8) float32 or bfloat16 corner rows
   int d, h, w;
   const float4* tf_row;  // (tw, 4)
-  int tw;
+  int tw, tf_mode;       // tf_mode: tf1d.cuh's lookup mode
   const float* env;      // 4 floats: the 1x1 environment texel
   const float* mvp;      // 16 floats, row-major inverse MVP
   const float* ndc;      // (n, 2)
@@ -228,10 +228,10 @@ __global__ void __launch_bounds__(128) mcm_event_kernel(Args a) {
     float cheb_new = 0.0f;
     if (skip) {
       cheb_new = rintf(vpt_nmax(-v, 0.0f));
-      vs = vpt_tf1d_lookup(s_tf, a.tw, vpt_nmax(v, 0.0f));
+      vs = vpt_tf1d_lookup(s_tf, a.tw, vpt_nmax(v, 0.0f), a.tf_mode);
       if (v < -0.5f) vs.w = 0.0f;
     } else {
-      vs = vpt_tf1d_lookup(s_tf, a.tw, v);
+      vs = vpt_tf1d_lookup(s_tf, a.tw, v, a.tf_mode);
     }
 
     // classify (mcm.py:122-133)
@@ -291,10 +291,10 @@ extern "C" int vpt_mcm_event(
     void* position, void* direction, void* bounces, void* transmittance,
     void* radiance, void* samples, void* cheb, const void* table,
     int table_bf16, int d, int h, int w, const void* tf_row, int tw,
-    const void* env, const void* mvp, const void* ndc, float inv_res_x,
-    float inv_res_y, float seed, float extinction, float anisotropy,
-    float blur, float cell, int max_bounces, int steps, int use_skip,
-    int n_pixels, void* stream) {
+    int tf_mode, const void* env, const void* mvp, const void* ndc,
+    float inv_res_x, float inv_res_y, float seed, float extinction,
+    float anisotropy, float blur, float cell, int max_bounces, int steps,
+    int use_skip, int n_pixels, void* stream) {
   if (n_pixels <= 0) return 0;
   Args a;
   a.position = (float*)position;
@@ -308,6 +308,7 @@ extern "C" int vpt_mcm_event(
   a.d = d; a.h = h; a.w = w;
   a.tf_row = (const float4*)tf_row;
   a.tw = tw;
+  a.tf_mode = tf_mode;
   a.env = (const float*)env;
   a.mvp = (const float*)mvp;
   a.ndc = (const float*)ndc;

@@ -12,10 +12,11 @@ import torch
 
 from .renderers.base import Scene, transfer_row
 
-#: the Scene fields that cross (the JAX-only TPU layouts stay behind)
+#: the Scene fields that cross (the JAX-only TPU layouts stay behind, but
+#: the (TW, 4) ``transfer_mxu`` table carries its lookup mode: its dtype)
 SCENE_FIELDS = ("volume", "transfer", "environment", "mvp_inverse",
                 "model_view", "projection", "volume_packed",
-                "transfer_packed", "tracking_packed")
+                "transfer_packed", "tracking_packed", "transfer_mxu")
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -51,11 +52,18 @@ def scene_fields(scene) -> dict:
 def scene_from_numpy(fields: dict, device="cpu") -> Scene:
     """The port's Scene from a JAX Scene's fields as numpy arrays
     (``{name: np.asarray(getattr(scene, name))}`` for the names in
-    :data:`SCENE_FIELDS` that are not None, plus ``filter``)."""
+    :data:`SCENE_FIELDS` that are not None, plus ``filter``).  A
+    ``transfer_mxu`` table becomes the TF row and sets ``Scene.tf_mxu`` to
+    its dtype."""
     t = {k: tensor_from_numpy(fields[k], device)
          for k in SCENE_FIELDS if fields.get(k) is not None}
     transfer = t["transfer"]
-    row = transfer_row(transfer, t.get("transfer_packed"))
+    mxu = t.get("transfer_mxu")
+    if mxu is not None:
+        row = mxu.to(torch.float32).contiguous()
+        mxu = mxu.dtype
+    else:
+        row = transfer_row(transfer, t.get("transfer_packed"))
     return Scene(volume=t["volume"], transfer=transfer,
                  environment=t["environment"],
                  mvp_inverse=t["mvp_inverse"], model_view=t["model_view"],
@@ -63,14 +71,18 @@ def scene_from_numpy(fields: dict, device="cpu") -> Scene:
                  volume_packed=t.get("volume_packed"),
                  transfer_packed=t.get("transfer_packed"),
                  tracking_packed=t.get("tracking_packed"),
-                 filter=fields.get("filter", "linear"))
+                 filter=fields.get("filter", "linear"), tf_mxu=mxu)
 
 
 def state_from_numpy(state: dict, device="cpu") -> dict:
-    """An MCM state dict of numpy arrays → float32 tensors on ``device``."""
+    """A dict of numpy arrays → float32 tensors on ``device``, leaving out
+    None entries: an MCM state, the differentiable machine's state with its
+    ``logw`` (``renderers/diff_mc``), or the fit leaves ``{"volume": ...,
+    "tf": ...}`` that ``vpt_tpu.train.fit_mc`` takes and returns."""
     return {k: tensor_from_numpy(np.asarray(v, np.float32), device)
-            for k, v in state.items()}
+            for k, v in state.items() if v is not None}
 
 
 def state_to_numpy(state: dict) -> dict:
-    return {k: tensor_to_numpy(v) for k, v in state.items()}
+    return {k: tensor_to_numpy(v) for k, v in state.items()
+            if v is not None}

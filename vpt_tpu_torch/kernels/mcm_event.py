@@ -18,6 +18,8 @@ environment maps larger than 1×1.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -43,16 +45,15 @@ def event_frame_plain(state, scene, params, seed):
     rstate = rng.seed_pixels(ndc * 0.5 + 0.5, np.float32(seed))
     use_skip = mcm.uses_skip(state, scene)
     cell = mcm.skip_cell_size(scene) if use_skip else None
+    scene = dataclasses.replace(scene, kernels=False)
     ph = dict(state)
     for _ in range(params.steps):
         rstate, position = mcm.flight_phase(ph, rstate, params, use_skip,
                                             cell)
         if use_skip:
-            vs, cheb_new = scene.sample_color_tracking(
-                position, lookup=tf1d.lookup_plain)
+            vs, cheb_new = scene.sample_color_tracking(position)
         else:
-            vs = scene.sample_color(position, lookup=tf1d.lookup_plain)
-            cheb_new = None
+            vs, cheb_new = scene.sample_color(position), None
         ph, rstate = mcm.interact_phase(ph, rstate, position, vs, cheb_new,
                                         scene, params, ndc, inv_res,
                                         use_skip)
@@ -118,7 +119,8 @@ def event_frame(state, scene, params, seed):
         state["bounces"].data_ptr(), state["transmittance"].data_ptr(),
         state["radiance"].data_ptr(), state["samples"].data_ptr(), cheb,
         table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
-        row.data_ptr(), row.shape[0], env.data_ptr(), mvp.data_ptr(),
+        row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
+        env.data_ptr(), mvp.data_ptr(),
         ndc.data_ptr(), 1.0 / width, 1.0 / height, float(seed),
         params.extinction, params.anisotropy, params.blur,
         mcm.skip_cell_size(scene), params.max_bounces, params.steps,

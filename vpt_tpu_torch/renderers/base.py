@@ -10,11 +10,16 @@ Mirrors ``vpt_tpu/renderers/base.py`` for the MCM slice: ``Scene``,
   frame donates it); the port updates the state tensors in place.
 - ``display(state, scene, params) -> (H, W, 4)``
 
-The single-channel TF lookup always goes through ``kernels/tf1d.py``: the
-JAX package's ``tf_mxu`` (MXU one-hot matmul) and ``tf_banks`` (Pallas lane
-shuffles) are two TPU layouts of that one lookup, so the port accepts both
-flags and routes both to it.  The lookup interpolates in float32 like the
-JAX bilinear path; it does not reproduce ``tf_mxu``'s bf16 lerp weights.
+The single-channel TF lookup of a rendering scene goes through
+``kernels/tf1d.py``: the JAX package's ``tf_banks`` (Pallas lane shuffles)
+is a TPU layout of its bilinear formula, and ``tf_mxu`` (an MXU one-hot
+matmul) is the same lookup with its lerp weights rounded to the table dtype,
+which the scene records as ``Scene.tf_mxu`` and the lookup reproduces.
+
+A scene whose corner tables require grad (the fit's scene,
+``train.fit_mc``) samples through the differentiable route instead: the
+fused fetch of ``sampling.sample_volume_packed`` (K3 forward, K4 backward)
+and the packed bilinear TF texture, as JAX's fit scene does.
 """
 
 from __future__ import annotations
@@ -47,7 +52,13 @@ class Scene:
     TF corner table in the same dtype; ``transfer_1d`` is the (TW, 4)
     float32 y = 0 row that the tf1d lookup reads, rounded through the pack
     dtype when the scene is packed (JAX samples its packed TF table, so a
-    bf16 scene sees bf16 TF values)."""
+    bf16 scene sees bf16 TF values).
+
+    ``tf_mxu``: None for the bilinear TF lookup, or the dtype the
+    ``tf_mxu`` lookup rounds its lerp weights to (``kernels/tf1d.py``).
+    ``kernels``: False runs the plain PyTorch version of every kernel the
+    scene's samplers reach, on any device: the reference the kernels are
+    held against on the card."""
 
     volume: torch.Tensor               # (D, H, W, C) float32
     transfer: torch.Tensor             # (TH, TW, 4) float32
@@ -60,6 +71,8 @@ class Scene:
     transfer_packed: Any = None        # (TH·TW, 16) or None
     tracking_packed: Any = None        # (D·H·W, 8) cheb-skip table or None
     filter: str = "linear"
+    tf_mxu: Any = None                 # None, torch.float32 or bfloat16
+    kernels: bool = True
 
     @property
     def device(self):
@@ -70,23 +83,39 @@ class Scene:
         """The local-majorant grid is not ported; always None."""
         return None
 
+    def _lookup(self, values):
+        lookup = tf1d.lookup if self.kernels else tf1d.lookup_plain
+        return lookup(self.transfer_1d, values.contiguous(), self.tf_mxu)
+
     def sample_volume_rg(self, position):
         """texture(uVolume, p).rg: (value, 0) for a single-channel volume."""
         if self.volume_packed is not None:
             s = sampling.sample_volume_packed(
-                self.volume_packed, tuple(self.volume.shape), position)
+                self.volume_packed, tuple(self.volume.shape), position,
+                fused=self.kernels)
         else:
             s = sampling.sample_volume(self.volume, position)
         return torch.cat([s, torch.zeros_like(s)], dim=-1)
 
-    def sample_color(self, position, lookup=tf1d.lookup):
-        """TF(volume(p)): the single-channel value through the tf1d lookup
-        (the kernel for CUDA positions; ``lookup=tf1d.lookup_plain`` keeps
-        it plain)."""
-        value = self.sample_volume_rg(position)[..., 0]
-        return lookup(self.transfer_1d, value.contiguous())
+    def sample_color(self, position):
+        """TF(volume(p)).  A rendering scene takes the single-channel value
+        through the tf1d lookup (the kernel for CUDA positions); a
+        differentiable scene samples the packed TF texture at (value, 0),
+        so autograd reaches the TF table through the gather and the value
+        through the filter fraction.  A scene is differentiable when
+        autograd records and a corner table requires grad."""
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (self.volume_packed, self.transfer_packed)):
+            if self.transfer_packed is None:
+                raise ValueError("a differentiable scene needs the packed "
+                                 "TF texture (transfer_packed)")
+            return sampling.sample_texture2d_packed(
+                self.transfer_packed, tuple(self.transfer.shape),
+                self.sample_volume_rg(position))
+        return self._lookup(self.sample_volume_rg(position)[..., 0])
 
-    def sample_color_tracking(self, position, lookup=tf1d.lookup):
+    def sample_color_tracking(self, position):
         """Color and Chebyshev distance from the cheb-skip table
         (skipgrid.pack_tracking_volume) in one fetch.  Returns
         ``(color, cheb)``: alpha is 0 in empty cells; cheb is the distance
@@ -97,7 +126,7 @@ class Scene:
             position)[..., 0]
         empty = v < -0.5
         cheb = torch.round(torch.clamp(-v, min=0.0))
-        vs = lookup(self.transfer_1d, torch.clamp(v, min=0.0))
+        vs = self._lookup(torch.clamp(v, min=0.0))
         alpha = torch.where(empty, torch.zeros_like(vs[..., 3]), vs[..., 3])
         return torch.cat([vs[..., :3], alpha[..., None]], dim=-1), cheb
 
@@ -114,14 +143,19 @@ class Scene:
 AUTO_TRACKING_MIN_EMPTY = 0.05
 
 
-def transfer_row(transfer, transfer_packed=None):
+def transfer_row(transfer, transfer_packed=None, mxu=None):
     """The (TW, 4) float32 y = 0 TF row the tf1d lookup reads: taken from
     the packed TF table when there is one, since that (possibly bf16) table
-    is what JAX samples, else from the texture itself."""
+    is what JAX samples, else from the texture itself.  A ``tf_mxu`` lookup
+    reads JAX's (TW, 4) table in the weight dtype ``mxu``, packed or not."""
     if transfer_packed is None:
-        return tf1d.pack_table(transfer)[0]
-    tw = transfer.shape[1]
-    return transfer_packed[:tw, :4].to(torch.float32).contiguous()
+        row = tf1d.pack_table(transfer)[0]
+    else:
+        tw = transfer.shape[1]
+        row = transfer_packed[:tw, :4].to(torch.float32).contiguous()
+    if mxu is not None:
+        row = row.to(mxu).to(torch.float32)
+    return row
 
 
 def make_scene(volume, transfer, camera: Optional[Any] = None,
@@ -141,8 +175,10 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     ``pack``: build the corner-packed tables (default: volumes up to 256³).
     ``pack_dtype``: their dtype, ``torch.float32`` (default) or
     ``torch.bfloat16``.
-    ``tf_banks`` / ``tf_mxu``: accepted for parity with ``vpt_tpu``; both
-    select the one tf1d lookup the port always uses.
+    ``tf_banks``: accepted for parity with ``vpt_tpu``; the bilinear tf1d
+    lookup is the port's only layout of it.
+    ``tf_mxu``: the TF lookup rounds its lerp weights to ``pack_dtype``
+    (float32 by default), as ``vpt_tpu``'s one-hot matmul does.
     ``tf_srgb``: the reference's SRGB8_ALPHA8 TF texture
     (``transfer.to_gl_texture``).
     ``tracking``: ``"none"``, ``"cheb"`` or ``"auto"`` (cheb-skip when at
@@ -153,7 +189,7 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     volumes and the nearest/cubic filters."""
     from ..transfer import to_gl_texture
 
-    del tf_banks, tf_mxu  # one TF lookup path (see the module docstring)
+    del tf_banks  # the bilinear lookup (see the module docstring)
     vol_filter = "linear"
     if isinstance(volume, Volume):
         vol_filter = volume.filter
@@ -195,6 +231,7 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
         if pack_dtype is not None:
             volume_packed = volume_packed.to(pack_dtype)
             transfer_packed = transfer_packed.to(pack_dtype)
+    mxu = (pack_dtype or torch.float32) if tf_mxu else None
     tracking_packed = None
     if tracking in ("cheb", "auto"):
         tracking_packed = skipgrid.pack_tracking_volume(
@@ -218,11 +255,12 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
         mvp_inverse=camera.mvp_inverse.to(device),
         model_view=camera.model_view.to(device),
         projection=camera.projection.to(device),
-        transfer_1d=transfer_row(transfer, transfer_packed),
+        transfer_1d=transfer_row(transfer, transfer_packed, mxu),
         volume_packed=volume_packed,
         transfer_packed=transfer_packed,
         tracking_packed=tracking_packed,
         filter=vol_filter,
+        tf_mxu=mxu,
     )
 
 

@@ -172,7 +172,10 @@ def sphere(state):
 
 
 def exponential(state, rate):
-    """-log(u)/rate, with u clamped away from 0 (vpt_tpu/rng.py:232-238)."""
+    """-log(u)/rate, with u clamped away from 0 (vpt_tpu/rng.py:232-238).
+    The divisor is a tensor: PyTorch's CUDA division by a Python scalar
+    multiplies by the reciprocal, which rounds unlike the true division of
+    JAX and of the event kernel."""
     state, x = uniform(state)
     x = torch.clamp(x, min=float(np.float32(1e-38)))
-    return state, -torch.log(x) / rate
+    return state, -torch.log(x) / torch.full_like(x, rate)

@@ -9,7 +9,13 @@ agree.
 
 The TPU-only layouts are not ported: the scatter fold and two-level fold of
 the corner table (a fix for a TPU scatter cliff) and the MXU one-hot TF
-lookup.  The port's single-channel TF lookup is ``kernels/tf1d.py``.
+matmul.  The port's single-channel TF lookup is ``kernels/tf1d.py``, which
+reproduces the matmul's rounded weights (``tf_mxu``).
+
+A corner table that requires grad is fetched through :class:`CornerFetch`,
+the port of ``vpt_tpu.sampling._select_trilerp`` (the fit's fused VJP): the
+forward is the fused gather and lerp of ``kernels/corner_gather.py`` (K3),
+the backward the corner scatter-add of ``kernels/corner_scatter.py`` (K4).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from . import rng
+from .kernels import corner_gather, corner_scatter
 from .math3d import apply_mat4
 
 EPS = np.float32(1e-5)
@@ -57,12 +64,14 @@ def unproject_rand(state, ndc, mvp_inverse, inverse_resolution, blur):
 
 def pixel_ndc(height, width, device="cpu"):
     """NDC coordinates of pixel centers, (H, W, 2); row 0 is the bottom of
-    the image (y up, OpenGL convention)."""
-    y = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) \
-        / height * 2.0 - 1.0
-    x = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \
-        / width * 2.0 - 1.0
-    yy, xx = torch.meshgrid(y, x, indexing="ij")
+    the image (y up, OpenGL convention).  The true quotient on every device:
+    CUDA divides by a Python scalar through its reciprocal, so the divisor
+    is a tensor (see ``rng.exponential``)."""
+    def centers(n):
+        i = torch.arange(n, dtype=torch.float32, device=device) + 0.5
+        return i / torch.full_like(i, n) * 2.0 - 1.0
+
+    yy, xx = torch.meshgrid(centers(height), centers(width), indexing="ij")
     return torch.stack([xx, yy], dim=-1)
 
 
@@ -153,13 +162,56 @@ def trilerp_chain(rows, f):
     return cy[..., 0, :] * (1 - fz) + cy[..., 1, :] * fz
 
 
-def sample_volume_packed(packed, shape, position):
-    """Trilinear fetch from a corner-packed (D·H·W, 8·C) table, float32 or
-    bfloat16 rows; identical to :func:`sample_volume` on a float32 table."""
-    d, h, w, c = shape
+def corner_cells(position, shape):
+    """The corner-table row (cell) and the filter fractions of each (..., 3)
+    position in a (D, H, W, C) volume: ((...) int64, (..., 3) float32)."""
+    d, h, w = shape[:3]
     i0f, f = _filter_coords(position, (w, h, d))
     i0 = _clamp_index(i0f, (w, h, d))
-    idx = (i0[..., 2] * h + i0[..., 1]) * w + i0[..., 0]
+    return (i0[..., 2] * h + i0[..., 1]) * w + i0[..., 0], f
+
+
+class CornerFetch(torch.autograd.Function):
+    """The differentiable packed volume fetch: forward
+    ``corner_gather.corner_fetch`` (the gather and lerp, bit for bit
+    :func:`trilerp_chain` over the gathered row), backward
+    ``corner_scatter.corner_grad`` (``w8(f) ⊗ ct`` scattered into the
+    table's gradient).  Only the cells and fractions are saved, as
+    ``vpt_tpu.sampling._select_trilerp_fwd`` saves them; positions are
+    detached (no gradient reaches ``f``), the contract of the MC gradient
+    estimators (``vpt_tpu/sampling.py:415-421``)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, f):
+        ctx.save_for_backward(idx, f)
+        ctx.table_shape = tuple(table.shape)
+        return corner_gather.corner_fetch(table, idx, f)
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, f = ctx.saved_tensors
+        rows, lanes = ctx.table_shape
+        grad = corner_scatter.corner_grad(idx, f, ct.contiguous(), rows,
+                                          lanes // 8)
+        return grad, None, None
+
+
+def sample_volume_packed(packed, shape, position, fused: bool = True):
+    """Trilinear fetch from a corner-packed (D·H·W, 8·C) table, float32 or
+    bfloat16 rows; identical to :func:`sample_volume` on a float32 table.
+
+    When autograd records and the table requires grad, the fetch runs
+    through :class:`CornerFetch` (its kernels for CUDA tensors); the fit
+    packs float32 tables in the graph, and a bfloat16 table that requires
+    grad raises.  ``fused=False`` keeps the plain gather and lerp, whose
+    autograd backward is the full-Jacobian reference."""
+    c = shape[3]
+    idx, f = corner_cells(position, shape)
+    if fused and packed.requires_grad and torch.is_grad_enabled():
+        if packed.dtype != torch.float32:
+            raise ValueError("the differentiable fetch takes float32 corner "
+                             f"tables, not {packed.dtype}")
+        return CornerFetch.apply(packed, idx, f.detach())
     rows = packed[idx].to(torch.float32).reshape(idx.shape + (8, c))
     return trilerp_chain(rows, f)
 

@@ -84,8 +84,10 @@ def pack_tracking_volume(volume, transfer, cap: int = CHEB_CAP,
     empty = cell_empty_mask(packed, transfer)
     if min_empty_fraction > 0.0:
         # a float32 count / float32 total, as jnp.mean computes it (the
-        # count is exact in float32 below 2^24 cells)
-        frac = empty.sum().to(torch.float32) / float(empty.numel())
+        # count is exact in float32 below 2^24 cells); a tensor divisor,
+        # since CUDA divides by a Python scalar through its reciprocal
+        count = empty.sum().to(torch.float32)
+        frac = count / torch.full_like(count, empty.numel())
         if float(frac) < min_empty_fraction:
             return None
     occupied = (~empty).reshape(d, h, w)
