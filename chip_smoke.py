@@ -11,9 +11,12 @@ prints no result:
 2. build the kernels from ``vpt_tpu_torch/csrc`` (nvcc, sm_90a);
 3. the tone-map kernel against its plain version, all eight curves;
 4. the TF-lookup kernel against its plain version, float32 and bf16 rows,
-   in the bilinear and both ``tf_mxu`` modes;
+   in the bilinear and both ``tf_mxu`` modes; its bilinear mode timed
+   against ``F.grid_sample`` (border padding, ``align_corners=False``) on
+   the (1, 4, 1, TW) texture;
 5. the MCM event kernel against the plain event loop on the card, the
-   headline's ``tf_mxu`` bf16 mode included;
+   headline's ``tf_mxu`` bf16 mode included; its registers, spills and
+   residency on the headline;
 6. the corner-gather kernel (K3) against its plain version, bit for bit:
    the probe's shapes (2^21 × 128 table, 2^17 indices) and the fit's fused
    fetch (256³ table, 256² photons); the corner-scatter kernel (K4) against
@@ -28,7 +31,11 @@ prints no result:
    ``display``, and the ``reinhard`` tone mapper.  The tracking table is
    checked against the TF through ``Scene.sample_color``, which launches
    the standalone TF-lookup kernel; inside frames the same lookup runs as a
-   device function of the event kernel;
+   device function of the event kernel.  Before this phase the event
+   kernel is held against the plain loop on the headline at 512² and at
+   1024×512 (more photons than the card holds at once) and timed, its
+   bound counting the distinct corner rows a frame fetches.  The entry
+   points build the volumes, TFs and scenes on the card by default;
 9. the fit path with every launch counter at 0 again: BASELINE config 3's
    256³ volume (``blobs_volume(256)`` as truth, a constant 0.2 volume as
    init, ``gray_ramp(alpha_scale=0.8)``), a 256² target rendered by the
@@ -40,7 +47,10 @@ prints no result:
     call launched each.
 
 Then one JSON line with each kernel's launches, error and time beside its
-plain version's, and the last line
+plain version's, its bound (the larger of its bytes over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s, the H100 SXM's data-sheet rates, from
+this run's inputs) and the time of one PyTorch call computing the same
+function where there is one, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -60,6 +70,28 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+#: the H100 SXM's data-sheet rates (700 W): HBM bytes/s, float32 FLOP/s
+#: outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+#: float32 operations of the event kernel (csrc/mcm_event.cu's note): every
+#: event's flight, fetch, TF lookup and classification, and every
+#: deposit's running mean and photon reset without blur (the headline's);
+#: a scatter's ~75 are not counted (the run does not count scatters), so
+#: the bound is a lower one
+K5_OPS_EVENT, K5_OPS_DEPOSIT = 110, 125
+
+
+def roofline(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time of the work on the
+    card, the larger of its bytes over the memory rate and its operations
+    over the float32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
 
 
 def cuda_ms(fn, reps):
@@ -100,10 +132,15 @@ def phase_tonemap(dev):
     ms = cuda_ms(lambda: tonemap_kernel.tonemap(img, "reinhard"), 200)
     plain_ms = cuda_ms(lambda: tonemap_kernel.tonemap_plain(img, "reinhard"),
                        50)
+    # reinhard: exposure, x / (1 + x), max, pow: 5 operations an element;
+    # the image read once and written once
+    bound_ms, bound_by = roofline(2 * img.numel() * 4, 5 * img.numel())
     print(f"tonemap: 8 curves agree (atol 1e-6, rtol 1e-6), max abs err "
-          f"{worst}; reinhard 512x512x4 {ms:.4f} ms, plain {plain_ms:.4f} ms",
-          flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+          f"{worst}; reinhard 512x512x4 {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); no one PyTorch call "
+          "computes it", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def phase_tf1d(dev):
@@ -125,18 +162,46 @@ def phase_tf1d(dev):
             worst = max(worst, err)
             check(err <= 1e-6, f"tf1d ({dtype} row, mode {mxu}): max abs "
                   f"err {err}")
+    # the bilinear mode against its one-call counterpart: grid_sample of
+    # the (1, 4, 1, TW) texture at x = 2v - 1, y = 0 (border padding is
+    # the clamp, align_corners=False the - 0.5); its output is (1, 4, H, W)
+    import torch.nn.functional as F
+
+    tex = table.t().reshape(1, 4, 1, width).contiguous()
+    grid = torch.stack([values * 2.0 - 1.0, torch.zeros_like(values)],
+                       dim=-1)[None]
+
+    def library():
+        return F.grid_sample(tex, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    lib_err = float((library()[0].permute(1, 2, 0)
+                     - tf1d.lookup_1d(table, values, width)).abs().max())
+    check(lib_err <= 1e-4, f"tf1d: grid_sample differs by {lib_err}")
+    ms = cuda_ms(lambda: tf1d.lookup_1d(table, values, width), 200)
+    plain_ms = cuda_ms(lambda: tf1d.lookup_plain(table, values), 50)
+    library_ms = cuda_ms(library, 200)
     # the headline's mode: a bf16 row with bf16 lerp weights
     mxu = torch.bfloat16
-    ms = cuda_ms(lambda: tf1d.lookup_1d(table, values, width, mxu), 200)
-    plain_ms = cuda_ms(lambda: tf1d.lookup_plain(table, values, mxu), 50)
+    mxu_ms = cuda_ms(lambda: tf1d.lookup_1d(table, values, width, mxu), 200)
+    mxu_plain = cuda_ms(lambda: tf1d.lookup_plain(table, values, mxu), 50)
+    # values read once, RGBA written once, the row read once; ~14
+    # operations a value
+    bound_ms, bound_by = roofline(values.numel() * 20 + table.numel() * 4,
+                               14 * values.numel())
     print(f"tf1d: f32 and bf16 rows, bilinear and tf_mxu f32/bf16 weights "
           f"agree (atol 1e-6), max abs err {worst}; (512, 512) values, "
-          f"TW=256, bf16 weights {ms:.4f} ms, plain {plain_ms:.4f} ms",
-          flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+          f"TW=256: bilinear {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"F.grid_sample {library_ms:.4f} ms (within {lib_err:.3g}); bf16 "
+          f"weights {mxu_ms:.4f} ms, plain {mxu_plain:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bf16_weights_ms": mxu_ms,
+            "bf16_weights_plain_ms": mxu_plain}
 
 
-def _frames_agree(scene, params, res, frames, label):
+def _frames_agree(scene, params, height, width, frames, label):
     """Run the kernel and the plain loop from one reset state; return the
     samples-agreement fraction and the max radiance error where the
     samples agree."""
@@ -145,7 +210,7 @@ def _frames_agree(scene, params, res, frames, label):
     from vpt_tpu_torch.kernels import mcm_event
     from vpt_tpu_torch.renderers import mcm
 
-    state = mcm.reset(params, res, res, scene)
+    state = mcm.reset(params, height, width, scene)
     plain = {k: v.clone() for k, v in state.items()}
     for f in range(frames):
         mcm_event.event_frame(state, scene, params, 0.3 + 0.01 * f)
@@ -160,7 +225,7 @@ def _frames_agree(scene, params, res, frames, label):
         check(bool(torch.isfinite(value).all()), f"{label}: {key} not finite")
     # bounds: the kernel runs the plain loop's float32 operations without
     # contraction, and on the H100 every run so far agreed on all pixels
-    # (radiance within 1.2e-7, image means equal).  A last-bit difference
+    # (radiance equal, image means equal).  A last-bit difference
     # in logf/sinf/cosf could still part one pixel's stream: at most one
     # in 10^4 may part, and with radiance in [0, 1] the means stay within
     # 1e-4
@@ -181,6 +246,7 @@ def phase_mcm_event(dev):
 
     params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
     worst = 0.0
+    # the entry points build on the card unless told otherwise
     for tracking, dtype, tf_mxu in (("none", None, False),
                                     ("none", torch.bfloat16, False),
                                     ("auto", None, False),
@@ -189,13 +255,16 @@ def phase_mcm_event(dev):
         scene = make_scene(volume.blobs_volume(32, seed=1),
                            transfer.gray_ramp(alpha_scale=0.8),
                            tf_srgb=True, tracking=tracking, pack_dtype=dtype,
-                           tf_mxu=tf_mxu, device=dev)
+                           tf_mxu=tf_mxu)
+        check(scene.device.type == "cuda", "make_scene did not default to "
+              "the card")
         check((scene.tracking_packed is not None) == (tracking == "auto"),
               f"blobs scene, tracking={tracking}: table not as expected")
         label = f"128^2 blobs32 tracking={tracking} " \
                 f"{'bf16' if dtype else 'f32'}" \
                 f"{' tf_mxu' if tf_mxu else ''} 8 frames"
-        worst = max(worst, _frames_agree(scene, params, 128, 8, label)[1])
+        worst = max(worst, _frames_agree(scene, params, 128, 128, 8,
+                                         label)[1])
     return {"max_abs_err": worst}
 
 
@@ -245,9 +314,19 @@ def phase_corner_kernels(dev):
     ms = cuda_ms(lambda: corner_gather.corner_fetch(packed, cells, f), 200)
     plain_ms = cuda_ms(
         lambda: corner_gather.corner_fetch_plain(packed, cells, f), 50)
+    # the rows the photons need read once (32 bytes each), the int64 cells,
+    # the fractions and the values once; the lerp chain's 21 operations a
+    # photon
+    rows_read = int(cells.unique().numel())
+    k3_bound, k3_by = roofline(rows_read * packed.shape[1] * 4
+                            + cells.numel() * (8 + 12 + 4),
+                            21 * cells.numel())
     print(f"corner_gather corner_fetch 256^3 table, 256^2 photons: bit for "
-          f"bit; {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    k3 = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+          f"bit; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k3_bound:.4f} "
+          f"ms ({k3_by}, {rows_read} rows); no one PyTorch call computes "
+          "it", flush=True)
+    k3 = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None}
 
     # K4, the probe: a (2^20, 128) table, 2^15 updates onto 2^10 of its
     # 2^24 8-lane rows (32 updates per row on average)
@@ -303,7 +382,16 @@ def phase_corner_kernels(dev):
           f"the reordering bound, max {float(bound.max()):.3g}); {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms (both allocate and zero the 512 MiB "
           "gradient)", flush=True)
-    k4 = {"max_abs_err": max(err, err_probe), "ms": ms, "plain_ms": plain_ms}
+    # its contract is a dense (rows, 8) float32 gradient, written once; the
+    # cells, fractions and cotangents read once; the 8 weights and products
+    # are ~20 operations a photon
+    k4_bound, k4_by = roofline(rows * 8 * 4 + cells.numel() * (8 + 12 + 4),
+                            20 * cells.numel())
+    print(f"corner_scatter corner_grad bound {k4_bound:.4f} ms ({k4_by}: "
+          "the dense gradient written once); no one PyTorch call computes "
+          "it", flush=True)
+    k4 = {"max_abs_err": max(err, err_probe), "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None}
     return k3, k4
 
 
@@ -367,7 +455,7 @@ def phase_fit_path(dev, counters):
     params = mcm.Params(extinction=train.MC_FIT_EXTINCTION["mcm"], steps=16)
     t0 = time.perf_counter()
     truth = make_scene(volume.blobs_volume(n),
-                       transfer.gray_ramp(alpha_scale=0.8), device=dev)
+                       transfer.gray_ramp(alpha_scale=0.8))
     with torch.no_grad():
         target = diff_mc.mcm_expected_image(truth, params, res, res, frames)
     torch.cuda.synchronize()
@@ -414,10 +502,51 @@ def phase_fit_path(dev, counters):
     return {name: m.LAUNCHES for name, m in counters.items()}
 
 
+def frame_rows(scene, state, params, seed):
+    """The distinct corner rows that one frame from ``state`` fetches: the
+    plain loop runs that frame on a copy (the kernel's frame is the same,
+    photon for photon), with its flight phase wrapped to record where
+    every event samples."""
+    import torch
+
+    from vpt_tpu_torch import sampling
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.renderers import mcm
+
+    rows, flight = [], mcm.flight_phase
+
+    def recording(*args, **kwargs):
+        rstate, position = flight(*args, **kwargs)
+        rows.append(sampling.corner_cells(position.reshape(-1, 3),
+                                          scene.volume.shape)[0])
+        return rstate, position
+
+    copy = {k: v.clone() for k, v in state.items()}
+    mcm.flight_phase = recording
+    try:
+        mcm_event.event_frame_plain(copy, scene, params, seed)
+    finally:
+        mcm.flight_phase = flight
+    return int(torch.cat(rows).unique().numel())
+
+
+def event_bound(scene, n, steps, deposits, rows):
+    """(ms, by, bytes, operations) of one event-kernel frame of ``n`` pixels
+    with ``deposits`` deposits that fetches ``rows`` distinct corner rows:
+    the state (60 bytes a pixel with cheb) read and written once, each of
+    those rows and the TF row read once; the operations of K5_OPS_EVENT and
+    K5_OPS_DEPOSIT."""
+    table = scene.tracking_packed
+    nbytes = 2 * n * 60 + rows * table.shape[1] * table.element_size() \
+        + scene.transfer_1d.numel() * 4
+    ops = n * steps * K5_OPS_EVENT + deposits * K5_OPS_DEPOSIT
+    return (*roofline(nbytes, ops), nbytes, ops)
+
+
 def print_kernel_device_ms(scene, steps, frames=10):
     """Print the event kernel's own device time per launch, measured by
     torch.profiler (the CUDA-event time of a frame also holds the host's
-    per-frame work)."""
+    per-frame work), and the bound of those frames."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -428,50 +557,87 @@ def print_kernel_device_ms(scene, steps, frames=10):
     state = mcm.reset(params, 512, 512, scene)
     mcm_event.event_frame(state, scene, params, 0.1)
     torch.cuda.synchronize()
+    paths0 = float(state["samples"].sum(dtype=torch.float64))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(frames):
             mcm_event.event_frame(state, scene, params, 0.2 + 0.001 * i)
         torch.cuda.synchronize()
-    total = sum(getattr(e, "device_time_total", 0.0)
-                for e in prof.key_averages() if "mcm_event_kernel" in e.key)
+    deposits = (float(state["samples"].sum(dtype=torch.float64))
+                - paths0) / frames
+    rows = frame_rows(scene, state, params, 0.3)
+    bound_ms, bound_by, nbytes, _ = event_bound(scene, 512 * 512, steps,
+                                                deposits, rows)
+    # the mean over the launches the profiler recorded (it may drop some)
+    kernels = [e for e in prof.key_averages() if "mcm_event_kernel" in e.key]
+    total = sum(getattr(e, "device_time_total", 0.0) for e in kernels)
     if total <= 0.0:
         print(f"mcm_event steps {steps}: device time not measured (the "
               "profiler saw no kernel)", flush=True)
-        return
-    ms = total / 1e3 / frames
+        return None, bound_ms
+    ms = total / 1e3 / sum(e.count for e in kernels)
     print(f"mcm_event 512^2 headline steps {steps}: {ms:.4f} ms device time "
           f"per launch (torch.profiler), {512 * 512 * steps / ms * 1e3:.6g} "
-          "events/s of device time", flush=True)
+          f"events/s of device time; bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{nbytes} bytes with {rows} distinct corner rows, "
+          f"{deposits:.6g} deposits a frame)", flush=True)
+    return ms, bound_ms
 
 
 def time_event_kernel(scene, params):
     """Per-frame ms of the kernel and of the plain loop at the main path's
-    shape, from the same state, plus their samples agreement."""
+    shape, and the bound of the kernel's frame from this run's deposits."""
     import torch
 
     from vpt_tpu_torch.kernels import mcm_event
     from vpt_tpu_torch.renderers import mcm
 
-    state = mcm.reset(params, 512, 512, scene)
+    height = width = 512
+    state = mcm.reset(params, height, width, scene)
     plain = {k: v.clone() for k, v in state.items()}
-    timed = {k: v.clone() for k, v in state.items()}
-    ms = cuda_ms(lambda: mcm_event.event_frame(timed, scene, params, 0.5), 20)
+    paths0 = float(state["samples"].sum(dtype=torch.float64))
+    reps = 20
+    ms = cuda_ms(lambda: mcm_event.event_frame(state, scene, params, 0.5),
+                 reps)
+    deposits = (float(state["samples"].sum(dtype=torch.float64)) - paths0) \
+        / (reps + 1)
     # the plain loop: one warm-up frame and two timed ones
     plain_ms = cuda_ms(
         lambda: mcm_event.event_frame_plain(plain, scene, params, 0.5), 2)
-    for _ in range(3):
-        mcm_event.event_frame(state, scene, params, 0.5)
-    torch.cuda.synchronize()
-    agree = float((state["samples"] == plain["samples"]).float().mean())
-    check(agree >= 0.9999,
-          f"512^2 headline: samples agree on only {agree}")
-    events = 512 * 512 * params.steps
+    events = height * width * params.steps
+    rows = frame_rows(scene, state, params, 0.5)
+    bound_ms, bound_by, nbytes, ops = event_bound(scene, height * width,
+                                                  params.steps, deposits,
+                                                  rows)
     print(f"mcm_event 512^2 headline steps {params.steps}: {ms:.4f} ms/frame "
           f"({events / ms * 1e3:.6g} events/s), plain loop {plain_ms:.4f} "
-          f"ms/frame ({events / plain_ms * 1e3:.6g} events/s); samples "
-          f"agree {agree:.6f} after 3 frames from one state (bound 0.9999)",
+          f"ms/frame ({events / plain_ms * 1e3:.6g} events/s); bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} bytes with {rows} "
+          f"distinct corner rows, {ops:.6g} operations, {deposits:.6g} "
+          "deposits a frame)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "bound_bytes": nbytes,
+            "corner_rows": rows}
+
+
+def print_event_occupancy(scene):
+    """The event kernel's registers, spills and residency for the
+    headline's launch."""
+    from vpt_tpu_torch.kernels import mcm_event
+
+    occ = mcm_event.occupancy(scene.tracking_packed.dtype,
+                              scene.transfer_1d.shape[0])
+    resident = occ["blocks_per_sm"] * occ["threads_per_block"]
+    check(occ["blocks_per_sm"] >= 1, f"mcm_event does not fit an SM: {occ}")
+    print(f"mcm_event launch shape (bf16 table, TW "
+          f"{scene.transfer_1d.shape[0]}): {occ['registers']} registers, "
+          f"{occ['local_bytes']} local (spill) bytes a thread, "
+          f"{occ['blocks_per_sm']} blocks of {occ['threads_per_block']} "
+          f"threads an SM ({resident} resident threads, "
+          f"{occ['blocks_per_sm'] * occ['sms'] * occ['threads_per_block']} "
+          f"on {occ['sms']} SMs), {occ['static_smem_bytes']} static + "
+          f"{occ['dynamic_smem_bytes']} dynamic shared bytes a block",
           flush=True)
-    return ms, plain_ms
+    return occ
 
 
 def phase_main_path(dev, counters):
@@ -486,10 +652,11 @@ def phase_main_path(dev, counters):
     for module in counters.values():
         module.LAUNCHES = 0
     t0 = time.perf_counter()
+    # the entry points' default device: the card
     scene = make_scene(volume.sphere_volume(128),
                        transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
                        tracking="auto", pack_dtype=torch.bfloat16,
-                       tf_mxu=True, device=dev)
+                       tf_mxu=True)
     check(scene.tracking_packed is not None,
           "headline scene: the auto policy built no tracking table")
     check(scene.tracking_packed.dtype == torch.bfloat16,
@@ -591,11 +758,19 @@ def run():
     headline = make_scene(volume.sphere_volume(128),
                           transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
                           tracking="auto", pack_dtype=torch.bfloat16,
-                          tf_mxu=True, device=dev)
-    k5["ms"], k5["plain_ms"] = time_event_kernel(
-        headline, mcm.Params(extinction=40.0, anisotropy=0.3, steps=8))
+                          tf_mxu=True)
+    occupancy = print_event_occupancy(headline)
+    params8 = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    for height, width, frames in ((512, 512, 3), (512, 1024, 2)):
+        err = _frames_agree(headline, params8, height, width, frames,
+                            f"headline {width}x{height} {frames} frames")[1]
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+    k5.update(time_event_kernel(headline, params8))
     for steps in (8, 32):
-        print_kernel_device_ms(headline, steps)
+        k5[f"device_ms_steps{steps}"], k5[f"bound_ms_steps{steps}"] = \
+            print_kernel_device_ms(headline, steps)
+    k5["registers"] = occupancy["registers"]
+    k5["blocks_per_sm"] = occupancy["blocks_per_sm"]
     del headline
 
     counters = {"mcm_event": mcm_event, "tf1d_lookup": tf1d,
@@ -647,10 +822,13 @@ def run():
         launches = fit_launches if row["name"].startswith("corner") \
             else render_launches
         row["launches"] = launches[row["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "launched_by",
-            "max_abs_err", "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in rows]}), flush=True)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the contract's keys first, then what each kernel adds
+    print(json.dumps({"kernels": [
+        {**{k: row[k] for k in keys},
+         **{k: v for k, v in row.items() if k not in keys}}
+        for row in rows]}), flush=True)
     return {"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}

@@ -109,15 +109,86 @@ def assert_frames_agree(state, plain):
     assert torch.equal(state["bounces"][match], plain["bounces"][match])
 
 
+def _headline_scene(n, cuda):
+    """The headline's scene at n³: sphere, sRGB gray ramp, cheb-skip, bf16
+    tables, the bf16-weight TF lookup."""
+    return make_scene(volume.sphere_volume(n, device=cuda),
+                      transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                      tf_srgb=True, tracking="auto",
+                      pack_dtype=torch.bfloat16, tf_mxu=True, device=cuda)
+
+
+def _kernel_and_plain(scene, params, height, width, frames):
+    state = mcm.reset(params, height, width, scene)
+    plain = {k: v.clone() for k, v in state.items()}
+    before = mcm_event.LAUNCHES
+    for f in range(frames):
+        mcm.render_frame(state, scene, params, 0.3 + 0.01 * f)
+        mcm_event.event_frame_plain(plain, scene, params, 0.3 + 0.01 * f)
+    torch.cuda.synchronize()
+    assert mcm_event.LAUNCHES == before + frames
+    return state, plain
+
+
+@pytest.mark.parametrize("height,width,steps,frames", [
+    # a ragged last block (1961 = 15·128 + 41 photons)
+    (37, 53, 8, 3),
+    # 524288 photons: more than the card holds at once, several waves
+    (512, 1024, 8, 2),
+    # one event a frame: every photon reseeds its stream every frame
+    (64, 64, 1, 6),
+], ids=["37x53", "1024x512", "steps1"])
+def test_event_kernel_tiles(cuda, height, width, steps, frames):
+    """The headline's scene on images that fill the grid in every way: the
+    kernel against the plain loop."""
+    scene = _headline_scene(24, cuda)
+    params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=steps)
+    state, plain = _kernel_and_plain(scene, params, height, width, frames)
+    assert_frames_agree(state, plain)
+    assert float(state["samples"].sum()) > 0
+
+
+def test_event_kernel_full_width_row_matches_plain(cuda):
+    """A TF row of MAX_WIDTH texels (48 KiB) beside the MVP and the
+    environment texel: the launch opts in to more than 48 KiB of shared
+    memory, fits fewer blocks an SM, and still agrees with the plain
+    loop."""
+    scene = _headline_scene(24, cuda)
+    row = scene.transfer_1d
+    full = row[torch.arange(tf1d.MAX_WIDTH, device=cuda)
+               * row.shape[0] // tf1d.MAX_WIDTH]
+    scene = dataclasses.replace(scene, transfer_1d=full)
+    params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    state, plain = _kernel_and_plain(scene, params, 96, 96, 2)
+    assert_frames_agree(state, plain)
+    wide = mcm_event.occupancy(torch.bfloat16, tf1d.MAX_WIDTH)
+    narrow = mcm_event.occupancy(torch.bfloat16, row.shape[0])
+    assert wide["dynamic_smem_bytes"] + wide["static_smem_bytes"] \
+        > 48 * 1024
+    assert 1 <= wide["blocks_per_sm"] < narrow["blocks_per_sm"]
+
+
+def test_event_kernel_occupancy(cuda):
+    """The headline's launch: 128 threads a block at 40 registers, 12
+    blocks an SM (nvcc 12.8).  The 32 local bytes are the stack frame of
+    sinf/cosf's large-argument reduction (ptxas: 0 bytes spilled)."""
+    occ = mcm_event.occupancy(torch.bfloat16, 256)
+    assert occ["threads_per_block"] == 128
+    assert occ["registers"] <= 40
+    assert occ["blocks_per_sm"] >= 12
+    assert occ["local_bytes"] <= 32
+
+
 @pytest.mark.parametrize("tracking", ["none", "auto"])
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
 def test_event_kernel_matches_plain_loop(cuda, tracking, dtype):
     """The kernel and the plain loop on the same card and inputs (64², 24³
     blobs, steps 8, 4 frames).  Measured on an H100: samples agree on
     every pixel, radiance within 1.2e-7 where they agree."""
-    scene = make_scene(volume.blobs_volume(24, seed=1),
-                       transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
-                       tracking=tracking, pack_dtype=dtype, device=cuda)
+    scene = make_scene(volume.blobs_volume(24, seed=1, device=cuda),
+                       transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                       tf_srgb=True, tracking=tracking, pack_dtype=dtype,
+                       device=cuda)
     params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
     state = mcm.reset(params, 64, 64, scene)
     plain = {k: v.clone() for k, v in state.items()}
@@ -135,10 +206,7 @@ def test_event_kernel_mxu_matches_plain_loop(cuda):
     kernel's TF device function in the bf16-weight mode against the plain
     loop.  Before the plain flight divided by a tensor (rng.exponential),
     3 of these 4096 pixels parted from the plain loop's streams."""
-    scene = make_scene(volume.sphere_volume(24),
-                       transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
-                       tracking="auto", pack_dtype=torch.bfloat16,
-                       tf_mxu=True, device=cuda)
+    scene = _headline_scene(24, cuda)
     assert scene.tf_mxu == torch.bfloat16
     params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
     state = mcm.reset(params, 64, 64, scene)
@@ -174,8 +242,8 @@ def test_plain_divisions_are_true_quotients(cuda):
                steps=16),
 ], ids=["isotropic", "blur-capped"])
 def test_event_kernel_parameters(cuda, params):
-    scene = make_scene(volume.sphere_volume(16), transfer.gray_ramp(),
-                       device=cuda)
+    scene = make_scene(volume.sphere_volume(16, device=cuda),
+                       transfer.gray_ramp(device=cuda), device=cuda)
     state = mcm.reset(params, 32, 32, scene)
     plain = {k: v.clone() for k, v in state.items()}
     mcm.render_frame(state, scene, params, 0.7)
@@ -185,10 +253,10 @@ def test_event_kernel_parameters(cuda, params):
 
 
 def test_event_kernel_width_cap(cuda):
-    """The TF row is the event kernel's only shared memory: MAX_WIDTH
-    texels launch, one more raises before the launch."""
-    scene = make_scene(volume.sphere_volume(8), transfer.gray_ramp(),
-                       device=cuda)
+    """The TF row fills most of the event kernel's shared memory:
+    MAX_WIDTH texels launch, one more raises before the launch."""
+    scene = make_scene(volume.sphere_volume(8, device=cuda),
+                       transfer.gray_ramp(device=cuda), device=cuda)
     params = mcm.Params(steps=2)
     row = scene.transfer_1d
     full = row[torch.arange(tf1d.MAX_WIDTH, device=cuda)
@@ -206,12 +274,14 @@ def test_event_kernel_width_cap(cuda):
 
 def test_event_kernel_refuses_what_it_does_not_take(cuda):
     params = mcm.Params()
-    scene = make_scene(volume.sphere_volume(8), transfer.gray_ramp(),
-                       pack=False, device=cuda)
+    scene = make_scene(volume.sphere_volume(8, device=cuda),
+                       transfer.gray_ramp(device=cuda), pack=False,
+                       device=cuda)
     state = mcm.reset(params, 8, 8, scene)
     with pytest.raises(NotImplementedError):
         mcm.render_frame(state, scene, params, 0.1)
-    scene = make_scene(volume.sphere_volume(8), transfer.gray_ramp(),
+    scene = make_scene(volume.sphere_volume(8, device=cuda),
+                       transfer.gray_ramp(device=cuda),
                        environment=torch.ones(4, 8, 4), device=cuda)
     state = mcm.reset(params, 8, 8, scene)
     with pytest.raises(NotImplementedError):
@@ -312,8 +382,9 @@ def test_fit_value_and_grad_kernels_match_plain(cuda):
     versions on the card (Scene.kernels=False), 32², blobs 16³: the fetch
     is bit for bit, so the loss agrees to rounding of the backward alone;
     the volume gradients to a relative L2 error of 1e-4."""
-    scene = make_scene(volume.blobs_volume(16, seed=1),
-                       transfer.gray_ramp(alpha_scale=0.8), device=cuda)
+    scene = make_scene(volume.blobs_volume(16, seed=1, device=cuda),
+                       transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                       device=cuda)
     params = mcm.Params(extinction=10.0, anisotropy=0.3, steps=8)
     target = torch.rand(32, 32, 3, generator=torch.Generator().manual_seed(
         9)).to(cuda)

@@ -39,7 +39,8 @@ def _scenes(n=16, tracking="none"):
     jscene = jmake_scene(jvolume.blobs_volume(n, seed=1),
                          jtransfer.gray_ramp(alpha_scale=0.8),
                          tracking=tracking)
-    return jscene, interop.scene_from_numpy(interop.scene_fields(jscene))
+    return jscene, interop.scene_from_numpy(interop.scene_fields(jscene),
+                                            device="cpu")
 
 
 def _np(d):
@@ -65,7 +66,7 @@ def test_render_frame_matches_jax():
     assert sorted(tstate) == sorted(jstate)
     for key, value in _np(jstate).items():
         assert np.allclose(tstate[key].numpy(), value, rtol=0, atol=1e-5)
-    start = interop.state_from_numpy(_np(jstate))
+    start = interop.state_from_numpy(_np(jstate), device="cpu")
     before = {k: v.clone() for k, v in start.items()}
     want = _np(jax.jit(jdiff.mcm_render_frame, static_argnums=(2,))(
         jstate, jscene, JPARAMS, jnp.float32(0.61), 1))
@@ -174,6 +175,7 @@ def test_mcs_is_not_ported():
 def test_diff_state_crosses_interop():
     _, tscene = _scenes(n=8)
     state = diff_mc.mcm_reset(TPARAMS, 4, 6, tscene)
-    back = interop.state_from_numpy(interop.state_to_numpy(state))
+    back = interop.state_from_numpy(interop.state_to_numpy(state),
+                                   device="cpu")
     assert sorted(back) == sorted(state) and "logw" in back
     assert all(torch.equal(back[k], state[k]) for k in state)

@@ -38,7 +38,8 @@ def _scenes(tracking, pack_dtype=None, n=16):
     jscene = jmake_scene(jvolume.sphere_volume(n),
                          jtransfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
                          tracking=tracking, pack_dtype=pack_dtype)
-    return jscene, interop.scene_from_numpy(interop.scene_fields(jscene))
+    return jscene, interop.scene_from_numpy(interop.scene_fields(jscene),
+                                            device="cpu")
 
 
 def _np(d):
@@ -91,7 +92,7 @@ def test_interact_phase_exact_on_identical_inputs(frame_inputs, tracking,
                                     cheb, jscene, jparams, ndc, inv_res,
                                     use_skip)
 
-    tph = interop.state_from_numpy(state)
+    tph = interop.state_from_numpy(state, device="cpu")
     tnew, trs = tmcm.interact_phase(
         tph, torch.from_numpy(rstate.astype(np.int64)),
         torch.tensor(np.asarray(position)), torch.tensor(np.asarray(vs)),
@@ -128,7 +129,8 @@ def test_flight_phase_and_reset_close(frame_inputs, tracking):
     jrs, jpos = jmcm.flight_phase({k: jnp.asarray(v) for k, v in
                                    state.items()}, jnp.asarray(rstate),
                                   JPARAMS, use_skip, cell)
-    trs, tpos = tmcm.flight_phase(interop.state_from_numpy(state),
+    trs, tpos = tmcm.flight_phase(interop.state_from_numpy(state,
+                                                          device="cpu"),
                                   torch.from_numpy(rstate.astype(np.int64)),
                                   TPARAMS, use_skip,
                                   tmcm.skip_cell_size(tscene)
@@ -151,7 +153,7 @@ def test_render_frame_agrees_with_jax(tracking):
     1024 of 1024 pixels in both modes.  Bound: 97%."""
     jscene, tscene = _scenes(tracking)
     state = jmcm.reset(JPARAMS, RES, RES, jscene)
-    tstate = interop.state_from_numpy(_np(state))
+    tstate = interop.state_from_numpy(_np(state), device="cpu")
     jout = _np(jax.jit(jmcm.render_frame, static_argnums=(2,))(
         state, jscene, JPARAMS, jnp.float32(0.37), jnp.int32(1)))
     out = tmcm.render_frame(tstate, tscene, TPARAMS, 0.37, 1)
@@ -180,8 +182,9 @@ def test_golden_through_render_progressive():
 
     golden = np.load(pathlib.Path(__file__).parent / "goldens"
                      / "mcm.npz")["image"]
-    scene = make_scene(volume.blobs_volume(24, seed=7),
-                       transfer.gray_ramp(alpha_scale=0.9), pack=True)
+    scene = make_scene(volume.blobs_volume(24, seed=7, device="cpu"),
+                       transfer.gray_ramp(alpha_scale=0.9, device="cpu"),
+                       pack=True, device="cpu")
     r = make_renderer("mcm", height=48, width=48)
     img = r.render_progressive(scene, frames=4, seed0=11).numpy()
     assert img.shape == golden.shape
@@ -194,11 +197,12 @@ def test_interop_round_trip():
     r = np.random.default_rng(8)
     state = {"position": r.uniform(size=(4, 5, 3)).astype(np.float32),
              "samples": r.uniform(size=(4, 5)).astype(np.float32)}
-    back = interop.state_to_numpy(interop.state_from_numpy(state))
+    back = interop.state_to_numpy(interop.state_from_numpy(state,
+                                                         device="cpu"))
     assert all(np.array_equal(back[k], state[k]) for k in state)
     table = jnp.asarray(r.uniform(size=(64, 8)).astype(np.float32)).astype(
         jnp.bfloat16)
-    t = interop.tensor_from_numpy(np.asarray(table))
+    t = interop.tensor_from_numpy(np.asarray(table), device="cpu")
     assert t.dtype == torch.bfloat16
     assert np.array_equal(t.view(torch.int16).numpy(),
                           np.asarray(table).view(np.int16))
@@ -211,9 +215,10 @@ def test_scene_from_numpy_matches_make_scene(tracking):
     """Building the scene in the port gives the tables JAX builds (bf16
     included) and the bf16-rounded TF row JAX samples."""
     jscene, via_interop = _scenes(tracking, pack_dtype=jnp.bfloat16)
-    own = make_scene(volume.sphere_volume(16),
-                     transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
-                     tracking=tracking, pack_dtype=torch.bfloat16)
+    own = make_scene(volume.sphere_volume(16, device="cpu"),
+                     transfer.gray_ramp(alpha_scale=0.8, device="cpu"),
+                     tf_srgb=True, tracking=tracking,
+                     pack_dtype=torch.bfloat16, device="cpu")
     for name in ("volume_packed", "tracking_packed"):
         a, b = getattr(own, name), getattr(via_interop, name)
         assert (a is None) == (b is None)
@@ -238,8 +243,9 @@ def test_cheb_carry_threads_through_a_non_tracking_scene():
 
 
 def test_renderer_display_and_params():
-    scene = make_scene(volume.sphere_volume(12), transfer.gray_ramp(),
-                       tf_srgb=True, tracking="auto")
+    scene = make_scene(volume.sphere_volume(12, device="cpu"),
+                       transfer.gray_ramp(device="cpu"), tf_srgb=True,
+                       tracking="auto", device="cpu")
     r = make_renderer("mcm", tmcm.Params(steps=4), height=16, width=24)
     img = r.render_progressive(scene, frames=2, seed0=1)
     assert img.shape == (16, 24, 4) and torch.isfinite(img).all()
@@ -254,13 +260,14 @@ def test_renderer_display_and_params():
     {"iso_clamp_min": 0.1}, {"multichannel": True}, {"filter": "nearest"},
 ])
 def test_unported_options_raise(kwargs):
-    vol = volume.sphere_volume(8)
+    vol = volume.sphere_volume(8, device="cpu")
     if kwargs.pop("multichannel", False):
         vol = volume.Volume(torch.cat([vol.data, vol.data], dim=-1))
     if "filter" in kwargs:
         vol = volume.Volume(vol.data, kwargs.pop("filter"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_scene(vol, transfer.gray_ramp(), **kwargs)
+        make_scene(vol, transfer.gray_ramp(device="cpu"), device="cpu",
+                   **kwargs)
 
 
 def test_factory_keys():
@@ -270,12 +277,14 @@ def test_factory_keys():
     with pytest.raises(ValueError):
         factory.get_module("nope")
     with pytest.raises(ValueError):
-        make_scene(volume.sphere_volume(8), transfer.gray_ramp(),
-                   tracking="bogus")
+        make_scene(volume.sphere_volume(8, device="cpu"),
+                   transfer.gray_ramp(device="cpu"), tracking="bogus",
+                   device="cpu")
 
 
 def test_cpu_frame_launches_nothing():
-    scene = make_scene(volume.sphere_volume(8), transfer.gray_ramp())
+    scene = make_scene(volume.sphere_volume(8, device="cpu"),
+                       transfer.gray_ramp(device="cpu"), device="cpu")
     state = tmcm.reset(TPARAMS, 8, 8, scene)
     before = mcm_event.LAUNCHES
     tmcm.render_frame(state, scene, TPARAMS, 0.1)

@@ -55,7 +55,7 @@ def test_sample_volume_equal():
 def test_sample_volume_packed_equal(dtype):
     vol = _volume()
     jpacked = js.pack_corner_volume(vol).astype(dtype)
-    tpacked = interop.tensor_from_numpy(np.asarray(jpacked))
+    tpacked = interop.tensor_from_numpy(np.asarray(jpacked), device="cpu")
     assert tpacked.dtype == getattr(torch, dtype)
     want = np.asarray(js.sample_volume_packed(jpacked, vol.shape,
                                               jnp.asarray(POSITIONS)))

@@ -82,20 +82,21 @@ def test_transform_change_listener_fires():
 
 @pytest.mark.parametrize("n", [8, 17, 32])
 def test_sphere_volume_equal(n):
-    got = tvolume.sphere_volume(n).data.numpy()
+    got = tvolume.sphere_volume(n, device="cpu").data.numpy()
     assert np.array_equal(got, np.asarray(jvolume.sphere_volume(n).data))
 
 
 @pytest.mark.parametrize("n,seed", [(12, 0), (24, 7)])
 def test_blobs_volume_equal(n, seed):
-    got = tvolume.blobs_volume(n, seed=seed).data.numpy()
+    got = tvolume.blobs_volume(n, seed=seed, device="cpu").data.numpy()
     want = np.asarray(jvolume.blobs_volume(n, seed=seed).data)
     assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("height,width,alpha", [(2, 256, 0.8), (3, 200, 1.0)])
 def test_gray_ramp_equal(height, width, alpha):
-    got = ttransfer.gray_ramp(height, width, alpha_scale=alpha).numpy()
+    got = ttransfer.gray_ramp(height, width, alpha_scale=alpha,
+                              device="cpu").numpy()
     want = np.asarray(jtransfer.gray_ramp(height, width, alpha_scale=alpha))
     assert np.array_equal(got, want)
 
@@ -114,6 +115,7 @@ def test_to_gl_texture_within_one_ulp():
 
 
 def test_environment_equal():
-    assert np.array_equal(tenv.white().numpy(), np.asarray(jenv.white()))
-    assert np.array_equal(tenv.constant([0.2, 0.4, 0.6], 2, 3).numpy(),
+    assert np.array_equal(tenv.white(device="cpu").numpy(), np.asarray(jenv.white()))
+    assert np.array_equal(tenv.constant([0.2, 0.4, 0.6], 2, 3,
+                                        device="cpu").numpy(),
                           np.asarray(jenv.constant([0.2, 0.4, 0.6], 2, 3)))

@@ -37,7 +37,8 @@ def test_mxu_lookup_matches_jax(dtype):
     jtable = js.pack_mxu_transfer(jnp.asarray(tf), getattr(jnp, dtype))
     values = _values()
     want = np.asarray(js.sample_transfer_1d_mxu(jtable, jnp.asarray(values)))
-    table = interop.tensor_from_numpy(np.asarray(jtable)).to(torch.float32)
+    table = interop.tensor_from_numpy(np.asarray(jtable),
+                                     device="cpu").to(torch.float32)
     got = tf1d.lookup(table, torch.from_numpy(values),
                       getattr(torch, dtype)).numpy()
     if dtype == "bfloat16":
@@ -59,9 +60,9 @@ def _headline_scenes(n=24):
     jscene = jmake_scene(jvolume.sphere_volume(n),
                          jtransfer.gray_ramp(alpha_scale=0.8),
                          pack_dtype=jnp.bfloat16, **kwargs)
-    tscene = make_scene(volume.sphere_volume(n),
-                        transfer.gray_ramp(alpha_scale=0.8),
-                        pack_dtype=torch.bfloat16, **kwargs)
+    tscene = make_scene(volume.sphere_volume(n, device="cpu"),
+                        transfer.gray_ramp(alpha_scale=0.8, device="cpu"),
+                        pack_dtype=torch.bfloat16, device="cpu", **kwargs)
     return jscene, tscene
 
 
@@ -94,7 +95,8 @@ def test_interop_carries_the_mode(pack_dtype):
                          jtransfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
                          tf_mxu=True, pack_dtype=pack_dtype
                          and getattr(jnp, pack_dtype))
-    tscene = interop.scene_from_numpy(interop.scene_fields(jscene))
+    tscene = interop.scene_from_numpy(interop.scene_fields(jscene),
+                                      device="cpu")
     want_dtype = torch.bfloat16 if pack_dtype else torch.float32
     assert tscene.tf_mxu == want_dtype
     values = _values(seed=3)
@@ -107,16 +109,19 @@ def test_interop_carries_the_mode(pack_dtype):
     else:
         assert np.allclose(got, want, rtol=0, atol=1.2e-7)
     plain = interop.scene_from_numpy(interop.scene_fields(
-        jmake_scene(jvolume.sphere_volume(16), jtransfer.gray_ramp())))
+        jmake_scene(jvolume.sphere_volume(16), jtransfer.gray_ramp())),
+        device="cpu")
     assert plain.tf_mxu is None
 
 
 def test_make_scene_records_the_mode():
-    vol, tf = volume.sphere_volume(8), transfer.gray_ramp()
-    assert make_scene(vol, tf).tf_mxu is None
-    assert make_scene(vol, tf, tf_mxu=True).tf_mxu == torch.float32
+    vol = volume.sphere_volume(8, device="cpu")
+    tf = transfer.gray_ramp(device="cpu")
+    assert make_scene(vol, tf, device="cpu").tf_mxu is None
+    assert make_scene(vol, tf, tf_mxu=True,
+                      device="cpu").tf_mxu == torch.float32
     unpacked = make_scene(vol, tf, tf_mxu=True, pack=False,
-                          pack_dtype=torch.bfloat16)
+                          pack_dtype=torch.bfloat16, device="cpu")
     # JAX's mxu table is bf16 even when the volume is not packed
     assert unpacked.tf_mxu == torch.bfloat16
     row = unpacked.transfer_1d

@@ -27,7 +27,8 @@ from vpt_tpu_torch.renderers import diff_mc, make_scene, mcm
 def test_first_loss_and_update_match_jax():
     jscene = jmake_scene(jvolume.blobs_volume(16, seed=1),
                          jtransfer.gray_ramp(alpha_scale=0.8))
-    tscene = interop.scene_from_numpy(interop.scene_fields(jscene))
+    tscene = interop.scene_from_numpy(interop.scene_fields(jscene),
+                                      device="cpu")
     jparams = jmcm.Params(extinction=10.0, steps=8)
     tparams = mcm.Params(extinction=10.0, steps=8)
     target = np.random.default_rng(0).uniform(0, 1, (16, 16, 3)).astype(
@@ -55,7 +56,7 @@ def test_fit_mc_recovers_tf_alpha():
     target_alpha = 0.45
     tf_target = torch.zeros(2, 2, 4)
     tf_target[..., 3] = target_alpha
-    sc = make_scene(vol, tf_target, pack=False)
+    sc = make_scene(vol, tf_target, pack=False, device="cpu")
     params = mcm.Params(extinction=4.0, steps=24)
     with torch.no_grad():
         target = diff_mc.mcm_expected_image(sc, params, 6, 6, frames=40)
@@ -74,7 +75,8 @@ def test_fit_mc_recovers_tf_alpha():
 
 def test_fit_surface():
     assert train.MC_FIT_EXTINCTION == jtrain.MC_FIT_EXTINCTION
-    sc = make_scene(torch.ones(4, 4, 4, 1), torch.zeros(2, 2, 4), pack=False)
+    sc = make_scene(torch.ones(4, 4, 4, 1), torch.zeros(2, 2, 4), pack=False,
+                    device="cpu")
     target = torch.zeros(4, 4, 3)
     with pytest.raises(ValueError, match="nothing to fit"):
         train.fit_mc(target, sc)
@@ -93,7 +95,7 @@ def test_fit_leaves_cross_interop():
     r = np.random.default_rng(2)
     leaves = {"volume": r.uniform(size=(4, 4, 4, 1)).astype(np.float32),
               "tf": jnp.asarray(r.uniform(size=(2, 8, 4)), jnp.float32)}
-    t = interop.state_from_numpy(dict(leaves, nothing=None))
+    t = interop.state_from_numpy(dict(leaves, nothing=None), device="cpu")
     assert sorted(t) == ["tf", "volume"]
     back = interop.state_to_numpy(dict(t, nothing=None))
     assert all(np.array_equal(back[k], np.asarray(leaves[k]))

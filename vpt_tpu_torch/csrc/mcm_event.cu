@@ -7,23 +7,41 @@
 // It has no Pallas original; its TF lookup is the device function of the
 // tf1d kernel (vpt_tpu/pallas/tf1d.py:74-100, here tf1d.cuh).
 //
-// Bound on the H100: every event makes one dependent 16-byte (bf16) or
-// 32-byte (f32) random read of a corner row, then a few dozen flops and one
-// or two hashes; a 128^3 table of bf16 rows is 32 MiB, so the reads mostly
-// hit the 50 MB L2.  The limit is the latency of that dependent read chain
-// and the branch divergence between a warp's photons, not bandwidth.
+// Bound on the H100: every event runs ~110 float32 operations (flight,
+// one dependent 16-byte (bf16) or 32-byte (f32) corner-row read, the TF
+// lookup, the classification), every deposit ~125 more (the running mean
+// and the photon reset: 15 divisions, a sqrt, and with blur a sin, cos and
+// sqrt more) and every scatter ~75 (the Henyey-Greenstein sample).  IEEE
+// divisions, logf, sinf and cosf take many instructions each, so the kernel
+// issues far more than its operation count.  At 32 events per pixel the
+// bound is the operations at 67 TFLOP/s; at 8 it is the state's 120 bytes
+// per pixel plus the distinct corner rows the frame fetches, each read
+// once, at 3.35 TB/s.
+//
 // Design: one thread per pixel keeps its photon in registers for all
-// `steps` events and touches the state in device memory once per frame;
-// the TF row sits in shared memory, the inverse MVP and the environment
-// texel are read through the read-only cache; a thread draws random numbers
-// only on the branch it takes, so no tentative draws are computed.  Many
-// resident warps hide the read latency.
+// `steps` events and touches the state in device memory once a frame.  The
+// TF row, the inverse MVP and the environment texel sit in shared memory;
+// NDC and the pixel's stream seed are computed from the pixel index.
+// Without blur the reset skips the disk sample: its two draws still advance
+// the stream, and nothing else of it reaches the result.  Blocks of
+// kThreads; 40 registers, no spills, 12 blocks an SM.
+//
+// Measured against it (bench_mcm_event.py; PERF.md has the numbers): a
+// wavefront inside a block (the photons' state in shared memory, dense
+// reset and scatter queues built by ballots, a persistent one-wave grid at
+// 32 registers) gave the same bits but took 14-16% longer: the lanes that
+// a divergent reset or scatter leaves idle cost less than the shared-memory
+// traffic and barriers that remove them.  A 32-register cap (16 blocks an
+// SM, one wave at 512^2) spills and loses 2-5%; staging the state through
+// shared memory coalesces its loads and stores but needs 56 registers and
+// loses at 8 events a frame.
 //
 // Numerics follow the plain PyTorch event (renderers/mcm.py) operation by
 // operation: built with -fmad=false, IEEE division and sqrt, half-to-even
-// rintf for the cheb distance, NaN-propagating min/max.  logf, sinf and cosf
-// are not bitwise equal to other libraries' results, so a pixel's stream
-// may part from the plain version's after a flip in a float comparison.
+// rintf for the cheb distance, NaN-propagating min/max.  logf, sinf and
+// cosf are not bitwise equal to other libraries' results, so a pixel's
+// stream may part from the plain version's after a flip in a float
+// comparison.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -33,16 +51,24 @@ namespace {
 
 #define F32(x) ((float)(x))
 
+constexpr int kThreads = 128;
+
 __device__ __forceinline__ uint32_t pcg(uint32_t x) {
   x = x * 747796405u + 2891336453u;
   x = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
   return (x >> 22u) ^ x;
 }
 
-// state = pcg(state); u = float(state) / float(~0u)
+// state = pcg(state); u = float(state) / float(~0u).  float(~0u) is 2^32,
+// so the quotient is exact and equals the product with 2^-32
 __device__ __forceinline__ float uniform(uint32_t& s) {
   s = pcg(s);
-  return __uint2float_rn(s) / F32(4294967295.0);
+  return __uint2float_rn(s) * F32(2.3283064365386963e-10);
+}
+
+// sampling.pixel_ndc: (i + 0.5) / n * 2 - 1, the IEEE quotient
+__device__ __forceinline__ float pixel_ndc(int i, int n) {
+  return ((float)i + 0.5f) / (float)n * 2.0f - 1.0f;
 }
 
 struct Args {
@@ -59,10 +85,9 @@ struct Args {
   int tw, tf_mode;       // tf_mode: tf1d.cuh's lookup mode
   const float* env;      // 4 floats: the 1x1 environment texel
   const float* mvp;      // 16 floats, row-major inverse MVP
-  const float* ndc;      // (n, 2)
+  int width, height;     // the image; n = width * height
   float inv_res_x, inv_res_y, seed, extinction, anisotropy, blur, cell;
   int max_bounces, steps, use_skip;
-  long long n;
 };
 
 // Trilinear fetch from a corner-packed table (sampling.py:480-510): the
@@ -104,22 +129,28 @@ __device__ __forceinline__ float fetch(const void* table, int d, int h, int w,
 }
 
 // resetPhoton (mcm.py:45-55): stochastic unproject (4 uniforms: disk, then
-// square), normalize, clip to the cube.
+// square), normalize, clip to the cube.  m: the inverse MVP, row-major.
+// Without blur the disk offset is a finite value times 0, so ndc + offset
+// is ndc: its two draws advance the stream and nothing else is computed.
 __device__ __forceinline__ void photon_reset(uint32_t& s, float ndcx,
                                              float ndcy, const Args& a,
-                                             float p[3], float dir[3]) {
-  float r = uniform(s);
-  float ang = F32(6.28318530718) * uniform(s);
-  float radius = sqrtf(r);
-  float diskx = radius * cosf(ang), disky = radius * sinf(ang);
+                                             const float* m, float p[3],
+                                             float dir[3]) {
+  float nx = ndcx, ny = ndcy;
+  if (a.blur == 0.0f) {
+    s = pcg(pcg(s));
+  } else {
+    float r = uniform(s);
+    float ang = F32(6.28318530718) * uniform(s);
+    float radius = sqrtf(r);
+    float diskx = radius * cosf(ang), disky = radius * sinf(ang);
+    nx = ndcx + diskx * a.blur;
+    ny = ndcy + disky * a.blur;
+  }
   float aax = uniform(s), aay = uniform(s);
-  float nx = ndcx + diskx * a.blur, ny = ndcy + disky * a.blur;
   float fx = ndcx + (aax * 2.0f - 1.0f) * a.inv_res_x;
   float fy = ndcy + (aay * 2.0f - 1.0f) * a.inv_res_y;
   // apply_mat4 (math3d.py:152-156): out_i = v0 m[i,0] + v1 m[i,1] + ...
-  float m[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) m[k] = __ldg(a.mvp + k);
   float f4[4], t4[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -184,13 +215,19 @@ __device__ __forceinline__ void henyey_greenstein(uint32_t& s, float g,
 }
 
 template <bool kBf16>
-__global__ void __launch_bounds__(128) mcm_event_kernel(Args a) {
-  // the TF row is the kernel's only shared memory (the wrapper's cap)
+__global__ void __launch_bounds__(kThreads)
+mcm_event_kernel(Args a) {
+  // dynamic: the TF row (tw float4)
   extern __shared__ float4 s_tf[];
+  __shared__ float s_mvp[16];
+  __shared__ float s_env[3];
   for (int i = threadIdx.x; i < a.tw; i += blockDim.x) s_tf[i] = a.tf_row[i];
+  if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
+  if (threadIdx.x < 3) s_env[threadIdx.x] = __ldg(a.env + threadIdx.x);
   __syncthreads();
+  const long long n = (long long)a.width * a.height;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
+  if (i >= n) return;
 
   float p[3], dir[3], tr[3], rad[3];
 #pragma unroll
@@ -204,7 +241,11 @@ __global__ void __launch_bounds__(128) mcm_event_kernel(Args a) {
   float samples = a.samples[i];
   const bool skip = a.use_skip != 0;
   float ch = skip ? a.cheb[i] : 0.0f;
-  const float ndcx = a.ndc[2 * i], ndcy = a.ndc[2 * i + 1];
+  // NDC of the row-major pixel index (row 0 is the bottom of the image);
+  // the wrapper keeps width * height below 2^31
+  const int y = (int)i / a.width;
+  const float ndcx = pixel_ndc((int)i - y * a.width, a.width);
+  const float ndcy = pixel_ndc(y, a.height);
   const float maxb = (float)a.max_bounces;
 
   // per-pixel stream: pcg(19 x + 47 y + 101 seed + 131) over the float bits
@@ -252,11 +293,11 @@ __global__ void __launch_bounds__(128) mcm_event_kernel(Args a) {
       float den = vpt_nmax(samples, 1.0f);
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        float r_new = oob ? tr[k] * __ldg(a.env + k) : 0.0f;
+        float r_new = oob ? tr[k] * s_env[k] : 0.0f;
         rad[k] = rad[k] + (r_new - rad[k]) / den;
         tr[k] = 1.0f;
       }
-      photon_reset(s, ndcx, ndcy, a, p, dir);
+      photon_reset(s, ndcx, ndcy, a, s_mvp, p, dir);
       b = 0.0f;
       ch = 0.0f;
     } else {
@@ -285,17 +326,68 @@ __global__ void __launch_bounds__(128) mcm_event_kernel(Args a) {
   if (skip) a.cheb[i] = ch;
 }
 
+// Without opting in, a block gets 48 KiB of shared memory, static and
+// dynamic together; a TF row near tf1d.MAX_WIDTH (3072 texels, 48 KiB)
+// needs more.  The attribute belongs to the current device, so it is set
+// on every such launch.
+template <bool kBf16>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 47 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(mcm_event_kernel<kBf16>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// The launch shape for a TF row of tw texels (see vpt_mcm_event_info).
+template <bool kBf16>
+cudaError_t info(int tw, int* out) {
+  const size_t smem = (size_t)tw * sizeof(float4);
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t err;
+  if ((err = allow_smem<kBf16>(smem)) != cudaSuccess) return err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, mcm_event_kernel<kBf16>, kThreads, smem)) != cudaSuccess)
+    return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, mcm_event_kernel<kBf16>))
+      != cudaSuccess)
+    return err;
+  out[0] = kThreads;
+  out[1] = per_sm;
+  out[2] = sms;
+  out[3] = attr.numRegs;
+  out[4] = (int)attr.localSizeBytes;
+  out[5] = (int)attr.sharedSizeBytes;
+  out[6] = (int)smem;
+  return cudaSuccess;
+}
+
+template <bool kBf16>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const long long n = (long long)a.width * a.height;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  const size_t smem = (size_t)a.tw * sizeof(float4);
+  cudaError_t err = allow_smem<kBf16>(smem);
+  if (err != cudaSuccess) return err;
+  mcm_event_kernel<kBf16><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int vpt_mcm_event(
     void* position, void* direction, void* bounces, void* transmittance,
     void* radiance, void* samples, void* cheb, const void* table,
     int table_bf16, int d, int h, int w, const void* tf_row, int tw,
-    int tf_mode, const void* env, const void* mvp, const void* ndc,
+    int tf_mode, const void* env, const void* mvp, int width, int height,
     float inv_res_x, float inv_res_y, float seed, float extinction,
     float anisotropy, float blur, float cell, int max_bounces, int steps,
-    int use_skip, int n_pixels, void* stream) {
-  if (n_pixels <= 0) return 0;
+    int use_skip, void* stream) {
+  if (width <= 0 || height <= 0) return 0;
   Args a;
   a.position = (float*)position;
   a.direction = (float*)direction;
@@ -311,19 +403,18 @@ extern "C" int vpt_mcm_event(
   a.tf_mode = tf_mode;
   a.env = (const float*)env;
   a.mvp = (const float*)mvp;
-  a.ndc = (const float*)ndc;
+  a.width = width; a.height = height;
   a.inv_res_x = inv_res_x; a.inv_res_y = inv_res_y;
   a.seed = seed; a.extinction = extinction; a.anisotropy = anisotropy;
   a.blur = blur; a.cell = cell;
   a.max_bounces = max_bounces; a.steps = steps; a.use_skip = use_skip;
-  a.n = n_pixels;
-  const int threads = 128;
-  unsigned blocks = (unsigned)((n_pixels + threads - 1) / threads);
-  size_t smem = (size_t)tw * sizeof(float4);
   cudaStream_t st = (cudaStream_t)stream;
-  if (table_bf16)
-    mcm_event_kernel<true><<<blocks, threads, smem, st>>>(a);
-  else
-    mcm_event_kernel<false><<<blocks, threads, smem, st>>>(a);
-  return (int)cudaGetLastError();
+  return (int)(table_bf16 ? launch<true>(a, st) : launch<false>(a, st));
+}
+
+// The launch shape of the kernel for a TF row of `tw` texels: out[0..6] =
+// threads a block, resident blocks an SM, SMs, registers a thread, local
+// (spilled) bytes a thread, static and dynamic shared bytes a block.
+extern "C" int vpt_mcm_event_info(int table_bf16, int tw, int* out) {
+  return (int)(table_bf16 ? info<true>(tw, out) : info<false>(tw, out));
 }

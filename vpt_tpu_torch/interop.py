@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .renderers.base import Scene, transfer_row
+from .utils import resolve_device
 
 #: the Scene fields that cross (the JAX-only TPU layouts stay behind, but
 #: the (TW, 4) ``transfer_mxu`` table carries its lookup mode: its dtype)
@@ -19,10 +20,12 @@ SCENE_FIELDS = ("volume", "transfer", "environment", "mvp_inverse",
                 "transfer_packed", "tracking_packed", "transfer_mxu")
 
 
-def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
-    """numpy → torch, bfloat16 (``ml_dtypes``) included, bit for bit.  The
-    array is copied: ``np.asarray`` of a JAX array is a view of JAX's own
-    buffer, which the port's in-place updates must not write."""
+def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
+    """numpy → torch on ``device`` (default: the card), bfloat16
+    (``ml_dtypes``) included, bit for bit.  The array is copied:
+    ``np.asarray`` of a JAX array is a view of JAX's own buffer, which the
+    port's in-place updates must not write."""
+    device = resolve_device(device)
     a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
@@ -49,12 +52,14 @@ def scene_fields(scene) -> dict:
     return out
 
 
-def scene_from_numpy(fields: dict, device="cpu") -> Scene:
-    """The port's Scene from a JAX Scene's fields as numpy arrays
+def scene_from_numpy(fields: dict, device=None) -> Scene:
+    """The port's Scene on ``device`` (default: the card) from a JAX Scene's
+    fields as numpy arrays
     (``{name: np.asarray(getattr(scene, name))}`` for the names in
     :data:`SCENE_FIELDS` that are not None, plus ``filter``).  A
     ``transfer_mxu`` table becomes the TF row and sets ``Scene.tf_mxu`` to
     its dtype."""
+    device = resolve_device(device)
     t = {k: tensor_from_numpy(fields[k], device)
          for k in SCENE_FIELDS if fields.get(k) is not None}
     transfer = t["transfer"]
@@ -74,11 +79,13 @@ def scene_from_numpy(fields: dict, device="cpu") -> Scene:
                  filter=fields.get("filter", "linear"), tf_mxu=mxu)
 
 
-def state_from_numpy(state: dict, device="cpu") -> dict:
-    """A dict of numpy arrays → float32 tensors on ``device``, leaving out
+def state_from_numpy(state: dict, device=None) -> dict:
+    """A dict of numpy arrays → float32 tensors on ``device`` (default: the
+    card), leaving out
     None entries: an MCM state, the differentiable machine's state with its
     ``logw`` (``renderers/diff_mc``), or the fit leaves ``{"volume": ...,
     "tf": ...}`` that ``vpt_tpu.train.fit_mc`` takes and returns."""
+    device = resolve_device(device)
     return {k: tensor_from_numpy(np.asarray(v, np.float32), device)
             for k, v in state.items() if v is not None}
 

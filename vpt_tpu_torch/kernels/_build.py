@@ -40,8 +40,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vpt_tf1d_lookup": [_P, _I, _I, _P, _P, _L, _P],
     "vpt_tonemap": [_P, _P, _L, _I, _F, _F, _F, _F, _P],
-    "vpt_mcm_event": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P]
-                      + [_F] * 7 + [_I, _I, _I, _I, _P]),
+    "vpt_mcm_event": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
+                                  _I] + [_F] * 7 + [_I, _I, _I, _P]),
+    "vpt_mcm_event_info": [_I, _I, _P],
     "vpt_gather_rows": [_P, _L, _I, _P, _L, _P, _P],
     "vpt_corner_fetch": [_P, _L, _I, _P, _P, _L, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],

@@ -6,19 +6,25 @@ There is no Pallas original: in ``vpt_tpu`` the frame is an XLA
 
 - :func:`event_frame_plain`, a Python loop over the plain PyTorch phases of
   ``renderers/mcm.py``, on any device;
-- the CUDA kernel ``csrc/mcm_event.cu``: one thread per pixel runs all
-  ``steps`` events with the photon in registers, fetching one corner row
-  per event and looking the TF up in shared memory (``csrc/tf1d.cuh``).
+- the CUDA kernel ``csrc/mcm_event.cu``: one thread a pixel keeps its
+  photon in registers for all ``steps`` events (flight, one corner row, the
+  TF lookup of ``csrc/tf1d.cuh``, classification, then the deposit and
+  reset or the scatter), computing its NDC and stream seed from the pixel
+  index.
 
 :func:`event_frame` takes the plain loop for CPU state and launches the
 kernel for CUDA state; both update the state tensors in place.  For CUDA
-state it raises on what the kernel does not take: unpacked scenes and
-environment maps larger than 1×1.
+state it raises on what the kernel does not take: unpacked scenes,
+environment maps larger than 1×1 and images of 2^31 pixels or more.  What a
+launch needs of the scene it prepares once per (scene, resolution); a frame
+then does no tensor work besides the launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -71,23 +77,46 @@ def _check_state(state, height, width, device):
                              f"float32 {want} tensor on {device}")
 
 
-def event_frame(state, scene, params, seed):
-    """One frame of ``params.steps`` events, in place on ``state``."""
-    position = state["position"]
-    if not position.is_cuda:
-        event_frame_plain(state, scene, params, seed)
-        return
-    from ..renderers import mcm
+@dataclasses.dataclass
+class _Prepared:
+    """What the launches of one (scene, table, resolution) share: the
+    tensors whose pointers they pass (held so the pointers stay valid) and
+    the launch arguments that come from the scene.  It holds the scene
+    weakly: when the scene goes, so does the preparation and what it
+    holds."""
+    scene: weakref.ref
+    fields: tuple
+    tensors: tuple
+    args: tuple
 
-    global LAUNCHES
-    dev = position.device
-    height, width = position.shape[:2]
-    _check_state(state, height, width, dev)
-    if scene.device != dev:
-        raise ValueError(f"the scene lives on {scene.device}, the state on "
-                         f"{dev}")
-    use_skip = mcm.uses_skip(state, scene)
+
+#: the last preparation; a renderer launches one scene at one resolution
+#: frame after frame
+_prepared = None
+
+
+def _forget(ref):
+    global _prepared
+    if _prepared is not None and _prepared.scene is ref:
+        _prepared = None
+
+
+def _scene_fields(scene, table):
+    return (table, scene.transfer_1d, scene.environment, scene.mvp_inverse,
+            scene.tf_mxu)
+
+
+def _prepare(scene, use_skip, height, width):
+    """Check the scene and build the scene's part of the launch arguments,
+    unless the last call did for this scene, table and resolution."""
+    global _prepared
     table = scene.tracking_packed if use_skip else scene.volume_packed
+    p = _prepared
+    if p is not None and p.scene() is scene \
+            and p.args[-2:] == (width, height) \
+            and all(a is b for a, b in zip(p.fields,
+                                           _scene_fields(scene, table))):
+        return p
     if table is None:
         raise NotImplementedError(
             "the MCM event kernel samples corner-packed tables only; build "
@@ -96,6 +125,9 @@ def event_frame(state, scene, params, seed):
         raise NotImplementedError(
             "the MCM event kernel takes 1x1 environment maps only "
             "(ROADMAP.md queue 2, equirect environments in K5)")
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the MCM event kernel indexes "
+                         "pixels with 32-bit integers")
     d, h, w = scene.volume.shape[:3]
     if table.dtype not in (torch.float32, torch.bfloat16) \
             or tuple(table.shape) != (d * h * w, 8):
@@ -103,26 +135,74 @@ def event_frame(state, scene, params, seed):
                          "bfloat16")
     row = scene.transfer_1d
     tf1d.check_width(row.shape[0])
+    fields = _scene_fields(scene, table)
     table = table.contiguous()
     row = row.to(torch.float32).contiguous()
     _build.check_aligned(table, "the corner table")
     _build.check_aligned(row, "the TF row")
     env = scene.environment[0, 0].to(torch.float32).contiguous()
     mvp = scene.mvp_inverse.to(torch.float32).contiguous()
-    ndc = sampling.pixel_ndc(height, width, device=dev)
+    args = (table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
+            row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
+            env.data_ptr(), mvp.data_ptr(), width, height)
+    _prepared = _Prepared(weakref.ref(scene, _forget), fields,
+                          (table, row, env, mvp), args)
+    return _prepared
+
+
+def launch_args(state, scene, params, seed):
+    """The arguments of one ``vpt_mcm_event`` call for CUDA ``state``: the
+    state's pointers, the scene's part (prepared once per scene and
+    resolution), the frame's seed and ``params``, the current stream."""
+    from ..renderers import mcm
+
+    position = state["position"]
+    dev = position.device
+    height, width = position.shape[:2]
+    _check_state(state, height, width, dev)
+    if scene.device != dev:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{dev}")
+    use_skip = mcm.uses_skip(state, scene)
+    prepared = _prepare(scene, use_skip, height, width)
     cheb = state["cheb"].data_ptr() if use_skip else None
-    lib = _build.library()
     # ctypes rounds each Python float to the nearest float32, as
     # np.float32 and JAX's weak types do
-    _build.check("vpt_mcm_event", lib.vpt_mcm_event(
-        state["position"].data_ptr(), state["direction"].data_ptr(),
-        state["bounces"].data_ptr(), state["transmittance"].data_ptr(),
-        state["radiance"].data_ptr(), state["samples"].data_ptr(), cheb,
-        table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
-        row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
-        env.data_ptr(), mvp.data_ptr(),
-        ndc.data_ptr(), 1.0 / width, 1.0 / height, float(seed),
-        params.extinction, params.anisotropy, params.blur,
-        mcm.skip_cell_size(scene), params.max_bounces, params.steps,
-        int(use_skip), height * width, _build.stream_ptr(position)))
+    return (position.data_ptr(), state["direction"].data_ptr(),
+            state["bounces"].data_ptr(), state["transmittance"].data_ptr(),
+            state["radiance"].data_ptr(), state["samples"].data_ptr(), cheb,
+            *prepared.args, 1.0 / width, 1.0 / height, float(seed),
+            params.extinction, params.anisotropy, params.blur,
+            mcm.skip_cell_size(scene), params.max_bounces, params.steps,
+            int(use_skip), _build.stream_ptr(position))
+
+
+def event_frame(state, scene, params, seed):
+    """One frame of ``params.steps`` events, in place on ``state``."""
+    if not state["position"].is_cuda:
+        event_frame_plain(state, scene, params, seed)
+        return
+    global LAUNCHES
+    args = launch_args(state, scene, params, seed)
+    # the stream and the shared-memory opt-in belong to the state's device
+    with torch.cuda.device(state["position"].device):
+        _build.check("vpt_mcm_event", _build.library().vpt_mcm_event(*args))
     LAUNCHES += 1
+
+
+#: the fields of :func:`occupancy`, in the order ``vpt_mcm_event_info``
+#: writes them
+OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
+                    "registers", "local_bytes", "static_smem_bytes",
+                    "dynamic_smem_bytes")
+
+
+def occupancy(table_dtype, tf_width: int) -> dict:
+    """The kernel's launch shape on the current CUDA device for a corner
+    table of ``table_dtype`` and a TF row of ``tf_width`` texels: threads a
+    block, resident blocks an SM, SMs, registers and local (spill) bytes a
+    thread, static and dynamic shared memory a block.  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    _build.check("vpt_mcm_event_info", _build.library().vpt_mcm_event_info(
+        int(table_dtype == torch.bfloat16), tf_width, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))

@@ -27,9 +27,9 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
-#: the largest row a kernel stages in shared memory: the (TW, 4) float32
-#: row is the only shared memory of this kernel and of the MCM event
-#: kernel, and a launch may take 48 KiB of it without opting in
+#: the largest row a kernel stages in shared memory: 48 KiB of (TW, 4)
+#: float32, what a launch may take without opting in (the MCM event kernel
+#: opts in for the MVP and the environment texel beside the row)
 MAX_WIDTH = 48 * 1024 // 16
 
 #: the kernels' code for each lookup mode (``csrc/tf1d.cuh``)

@@ -34,6 +34,7 @@ from .. import environment as envmod
 from .. import sampling, skipgrid
 from ..kernels import tf1d
 from ..scene import CameraState, default_camera
+from ..utils import resolve_device
 from ..volume import Volume
 
 
@@ -167,8 +168,9 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
                tracking: str = "none",
                march_clamp: bool = False,
                iso_clamp_min: float = 0.0,
-               device="cpu") -> Scene:
-    """Assemble a Scene on ``device``.  ``volume`` is a Volume or a
+               device=None) -> Scene:
+    """Assemble a Scene on ``device`` (default: the card; without one,
+    pass ``device="cpu"``).  ``volume`` is a Volume or a
     (D, H, W, C) tensor; ``camera`` a scene-graph Node, a CameraState or
     None (the default camera).
 
@@ -190,6 +192,7 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     from ..transfer import to_gl_texture
 
     del tf_banks  # the bilinear lookup (see the module docstring)
+    device = resolve_device(device)
     vol_filter = "linear"
     if isinstance(volume, Volume):
         vol_filter = volume.filter

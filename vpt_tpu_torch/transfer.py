@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils import resolve_device
+
 DEFAULT_SIZE = 256
 
 
@@ -26,8 +28,10 @@ def to_gl_texture(texture, srgb: bool = True,
 
 
 def gray_ramp(height: int = 2, width: int = DEFAULT_SIZE,
-              alpha_scale: float = 1.0, device="cpu") -> torch.Tensor:
-    """Diagnostic TF: color = value, alpha = value · scale."""
+              alpha_scale: float = 1.0, device=None) -> torch.Tensor:
+    """Diagnostic TF: color = value, alpha = value · scale, on ``device``
+    (default: the card)."""
+    device = resolve_device(device)
     u = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \
         / width
     row = torch.stack([u, u, u, u * alpha_scale], dim=-1)

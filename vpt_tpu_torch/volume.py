@@ -13,6 +13,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .utils import resolve_device
+
 
 @dataclasses.dataclass
 class Volume:
@@ -42,19 +44,22 @@ def normalized_grid(depth: int, height: int, width: int):
 
 
 def sphere_volume(n: int = 64, center=(0.5, 0.5, 0.5), radius: float = 0.3,
-                  soft: float = 0.1, device="cpu") -> Volume:
-    """Soft-edged spherical density blob."""
+                  soft: float = 0.1, device=None) -> Volume:
+    """Soft-edged spherical density blob, on ``device`` (default: the
+    card)."""
     x, y, z = normalized_grid(n, n, n)
     r = np.sqrt((x - center[0]) ** 2 + (y - center[1]) ** 2
                 + (z - center[2]) ** 2)
     t = np.clip((radius - r) / max(soft, 1e-6) + 0.5, 0.0, 1.0)
     val = (t * t * (3.0 - 2.0 * t)).astype(np.float32)
-    return Volume(torch.from_numpy(val[..., None]).to(device))
+    return Volume(torch.from_numpy(val[..., None]).to(
+        resolve_device(device)))
 
 
 def blobs_volume(n: int = 64, seed: int = 0, count: int = 5,
-                 device="cpu") -> Volume:
-    """Sum of random Gaussian blobs: an asymmetric test scene."""
+                 device=None) -> Volume:
+    """Sum of random Gaussian blobs, an asymmetric test scene, on
+    ``device`` (default: the card)."""
     rng = np.random.default_rng(seed)
     x, y, z = normalized_grid(n, n, n)
     val = np.zeros((n, n, n), np.float32)
@@ -65,4 +70,5 @@ def blobs_volume(n: int = 64, seed: int = 0, count: int = 5,
         val += a * np.exp(-(((x - c[0]) ** 2 + (y - c[1]) ** 2
                              + (z - c[2]) ** 2) / (2 * s * s)))
     val = np.clip(val, 0.0, 1.0).astype(np.float32)
-    return Volume(torch.from_numpy(val[..., None]).to(device))
+    return Volume(torch.from_numpy(val[..., None]).to(
+        resolve_device(device)))
