@@ -2,9 +2,16 @@
 MCM fit once on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --launch-path TREE [TREE ...]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
-the CUDA toolkit.  The phases, in order; any failure exits non-zero and
+the CUDA toolkit.  With ``--launch-path`` it times the launch paths of the
+TF-lookup and corner-fetch kernels of each given checkout of the port
+(:func:`launch_path_tree`, one process a tree) and does nothing else; an
+older checkout goes under the git-ignored ``build/``, e.g.
+``mkdir -p build/parent && git archive HEAD~1 | tar -x -C build/parent``
+then ``--launch-path build/parent . . build/parent``.
+Without arguments, the phases, in order; any failure exits non-zero and
 prints no result:
 
 1. the card's name and power limit (nvidia-smi);
@@ -14,12 +21,16 @@ prints no result:
    in the bilinear and both ``tf_mxu`` modes; its bilinear mode timed
    against ``F.grid_sample`` (border padding, ``align_corners=False``) on
    the (1, 4, 1, TW) texture;
-5. the MCM event kernel against the plain event loop on the card, the
+5. the MCM event kernel against the plain event loop on the card (on the
+   scene with ``kernels=False``: the reference launches no kernel), the
    headline's ``tf_mxu`` bf16 mode included; its registers, spills and
    residency on the headline;
 6. the corner-gather kernel (K3) against its plain version, bit for bit:
-   the probe's shapes (2^21 × 128 table, 2^17 indices) and the fit's fused
-   fetch (256³ table, 256² photons); the corner-scatter kernel (K4) against
+   the probe's shapes (2^21 × 128 table, 2^17 indices) and the fit's fetch
+   from positions (256³ table, 256² photons, float32 and bfloat16 rows,
+   NaN and out-of-range positions, the saved cells and fractions), timed
+   against ``F.grid_sample`` of the (1, C, D, H, W) volume; the
+   corner-scatter kernel (K4) against
    ``index_add_``, with indices heavy in duplicates, at the probe's and the
    fit's shapes: atomics sum in another order, so the two must agree
    within the float32 bound of reordering each sum (:func:`order_bound`);
@@ -46,11 +57,13 @@ prints no result:
 10. every kernel launched on its path (8 or 9); the JSON line says which
     call launched each.
 
-Then one JSON line with each kernel's launches, error and time beside its
-plain version's, its bound (the larger of its bytes over 3.35 TB/s and its
-float32 operations over 67 TFLOP/s, the H100 SXM's data-sheet rates, from
-this run's inputs) and the time of one PyTorch call computing the same
-function where there is one, and the last line
+Then one JSON line with each kernel's launches, error, loop time per call
+(``ms``, CUDA events) and device time per launch (``device_ms``,
+torch.profiler) beside its plain version's time, its bound (the larger of
+its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, the
+H100 SXM's data-sheet rates, from this run's inputs) and the time of one
+PyTorch call computing the same function where there is one, and the last
+line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -111,6 +124,48 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def profiler_device_ms(fn, match, reps=50):
+    """Device milliseconds per call of ``fn`` in the kernels whose name
+    holds ``match`` ("" for every kernel it runs), from torch.profiler over
+    ``reps`` calls after one warm-up call: the kernels' own time on the
+    card, which the CUDA events of :func:`cuda_ms` do not give when a call
+    costs the host more than the card.  Each kernel that matches counts
+    once a call, at its mean over the launches the profiler recorded (it
+    may drop some).  None when it recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # the card's own events only: a runtime call (cudaLaunchKernel) carries
+    # its kernel's time too
+    means = [e.device_time_total / e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and match in e.key
+             and e.count and e.device_time_total > 0]
+    return sum(means) / 1e3 if means else None
+
+
+def in_turns(fns, reps, rounds=3):
+    """Median milliseconds per call of each of ``fns`` (name -> callable)
+    by :func:`cuda_ms`, measured in turns (A B ... B A, ``rounds`` times),
+    so that a drift of the host's speed touches every one alike."""
+    times = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(cuda_ms(fns[name], reps))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def phase_tonemap(dev):
     import torch
 
@@ -132,15 +187,19 @@ def phase_tonemap(dev):
     ms = cuda_ms(lambda: tonemap_kernel.tonemap(img, "reinhard"), 200)
     plain_ms = cuda_ms(lambda: tonemap_kernel.tonemap_plain(img, "reinhard"),
                        50)
+    device_ms = profiler_device_ms(
+        lambda: tonemap_kernel.tonemap(img, "reinhard"), "tonemap_kernel")
     # reinhard: exposure, x / (1 + x), max, pow: 5 operations an element;
     # the image read once and written once
     bound_ms, bound_by = roofline(2 * img.numel() * 4, 5 * img.numel())
     print(f"tonemap: 8 curves agree (atol 1e-6, rtol 1e-6), max abs err "
-          f"{worst}; reinhard 512x512x4 {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({bound_by}); no one PyTorch call "
-          "computes it", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+          f"{worst}; reinhard 512x512x4 {ms:.4f} ms a call, device "
+          f"{fmt_ms(device_ms)}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); no one PyTorch call computes it",
+          flush=True)
+    return {"max_abs_err": worst, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def phase_tf1d(dev):
@@ -178,33 +237,51 @@ def phase_tf1d(dev):
     lib_err = float((library()[0].permute(1, 2, 0)
                      - tf1d.lookup_1d(table, values, width)).abs().max())
     check(lib_err <= 1e-4, f"tf1d: grid_sample differs by {lib_err}")
-    ms = cuda_ms(lambda: tf1d.lookup_1d(table, values, width), 200)
+    # both are host-bound: one call costs the host more than the card, so
+    # they are timed in turns and the medians compared
+    turns = in_turns({"kernel": lambda: tf1d.lookup_1d(table, values, width),
+                      "library": library}, 200)
+    ms, library_ms = turns["kernel"], turns["library"]
     plain_ms = cuda_ms(lambda: tf1d.lookup_plain(table, values), 50)
-    library_ms = cuda_ms(library, 200)
+    device_ms = profiler_device_ms(
+        lambda: tf1d.lookup_1d(table, values, width), "tf1d_kernel")
+    library_device_ms = profiler_device_ms(library, "grid_sampler")
     # the headline's mode: a bf16 row with bf16 lerp weights
     mxu = torch.bfloat16
     mxu_ms = cuda_ms(lambda: tf1d.lookup_1d(table, values, width, mxu), 200)
     mxu_plain = cuda_ms(lambda: tf1d.lookup_plain(table, values, mxu), 50)
+    mxu_device = profiler_device_ms(
+        lambda: tf1d.lookup_1d(table, values, width, mxu), "tf1d_kernel")
+    shape = tf1d.launch_shape(width, dev.index or 0)
     # values read once, RGBA written once, the row read once; ~14
     # operations a value
     bound_ms, bound_by = roofline(values.numel() * 20 + table.numel() * 4,
                                14 * values.numel())
     print(f"tf1d: f32 and bf16 rows, bilinear and tf_mxu f32/bf16 weights "
           f"agree (atol 1e-6), max abs err {worst}; (512, 512) values, "
-          f"TW=256: bilinear {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"F.grid_sample {library_ms:.4f} ms (within {lib_err:.3g}); bf16 "
-          f"weights {mxu_ms:.4f} ms, plain {mxu_plain:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "bf16_weights_ms": mxu_ms,
-            "bf16_weights_plain_ms": mxu_plain}
+          f"TW=256: bilinear {ms:.4f} ms a call (median of 6 in turns with "
+          f"F.grid_sample: {ms / library_ms:.3f} of its {library_ms:.4f} "
+          f"ms), device {fmt_ms(device_ms)}, plain {plain_ms:.4f} ms; "
+          f"F.grid_sample device {fmt_ms(library_device_ms)} (within "
+          f"{lib_err:.3g}); bf16 weights {mxu_ms:.4f} ms a call, device "
+          f"{fmt_ms(mxu_device)}, plain {mxu_plain:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}); launch shape {shape}",
+          flush=True)
+    return {"max_abs_err": worst, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "bf16_weights_ms": mxu_ms, "bf16_weights_device_ms": mxu_device,
+            "bf16_weights_plain_ms": mxu_plain,
+            "blocks_per_sm": shape["blocks_per_sm"]}
 
 
 def _frames_agree(scene, params, height, width, frames, label):
     """Run the kernel and the plain loop from one reset state; return the
     samples-agreement fraction and the max radiance error where the
-    samples agree."""
+    samples agree.  The plain loop runs on the scene with
+    ``kernels=False`` and must launch no kernel."""
+    import dataclasses
+
     import torch
 
     from vpt_tpu_torch.kernels import mcm_event
@@ -212,9 +289,13 @@ def _frames_agree(scene, params, height, width, frames, label):
 
     state = mcm.reset(params, height, width, scene)
     plain = {k: v.clone() for k, v in state.items()}
+    reference = dataclasses.replace(scene, kernels=False)
     for f in range(frames):
         mcm_event.event_frame(state, scene, params, 0.3 + 0.01 * f)
-        mcm_event.event_frame_plain(plain, scene, params, 0.3 + 0.01 * f)
+        before = launch_counts()
+        mcm_event.event_frame_plain(plain, reference, params, 0.3 + 0.01 * f)
+        check(launch_counts() == before,
+              f"{label}: the plain loop launched a kernel")
     torch.cuda.synchronize()
     match = state["samples"] == plain["samples"]
     agree = float(match.float().mean())
@@ -268,6 +349,15 @@ def phase_mcm_event(dev):
     return {"max_abs_err": worst}
 
 
+def launch_counts():
+    """Every kernel module's launch count, in one tuple."""
+    from vpt_tpu_torch.kernels import corner_gather, corner_scatter
+    from vpt_tpu_torch.kernels import mcm_event, tf1d, tonemap_kernel
+
+    return tuple(m.LAUNCHES for m in (corner_gather, corner_scatter,
+                                      mcm_event, tf1d, tonemap_kernel))
+
+
 def order_bound(counts, abs_sums):
     """Bound on |a - b| for two float32 sums of the same terms in different
     orders: each lies within (n - 1)·2^-24·Σ|x| of the exact sum of its n
@@ -300,33 +390,86 @@ def phase_corner_kernels(dev):
           flush=True)
     del table, idx, got, want
 
-    # K3, the fit's fused fetch: a 256³ corner table, one photon per pixel
+    # K3, the fit's fetch: a 256³ corner table, one photon per pixel; it
+    # takes positions and computes the cells; float32 (the fit's) and
+    # bfloat16 (the render's) rows, with and without the saved cells
     shape = (256, 256, 256, 1)
-    packed = sampling.pack_corner_volume(
-        torch.rand(shape, device=dev, generator=g))
+    vol = torch.rand(shape, device=dev, generator=g)
+    packed = sampling.pack_corner_volume(vol)
     pos = torch.rand(256 * 256, 3, device=dev, generator=g) * 1.2 - 0.1
-    cells, f = sampling.corner_cells(pos, shape)
-    got = corner_gather.corner_fetch(packed, cells, f)
-    want = corner_gather.corner_fetch_plain(packed, cells, f)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "corner_fetch is not bit for bit the "
-          "plain gather and lerp")
-    ms = cuda_ms(lambda: corner_gather.corner_fetch(packed, cells, f), 200)
-    plain_ms = cuda_ms(
-        lambda: corner_gather.corner_fetch_plain(packed, cells, f), 50)
-    # the rows the photons need read once (32 bytes each), the int64 cells,
-    # the fractions and the values once; the lerp chain's 21 operations a
-    # photon
+    pos[:4] = torch.tensor([[float("nan"), 0.5, 0.5], [-1.0, 2.0, 0.5],
+                            [0.0, 1.0, 1.0 / 512], [1.0, 0.0, 0.5]])
+    for table in (packed, packed.to(torch.bfloat16)):
+        got, cells, f = corner_gather.corner_fetch(table, shape, pos,
+                                                   save=True)
+        want, want_cells, want_f = corner_gather.corner_fetch_plain(
+            table, shape, pos, save=True)
+        alone = corner_gather.corner_fetch(table, shape, pos)
+        torch.cuda.synchronize()
+        check(torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+              and torch.equal(alone.nan_to_num(7.0), want.nan_to_num(7.0))
+              and bool(got[0].isnan().all()) and int(got[1:].isnan().sum())
+              == 0, f"corner_fetch ({table.dtype} rows) is not bit for bit "
+              "the plain gather and lerp")
+        check(torch.equal(cells, want_cells)
+              and torch.equal(f.nan_to_num(7.0), want_f.nan_to_num(7.0)),
+              f"corner_fetch ({table.dtype} rows): saved cells or fractions "
+              "differ from corner_cells")
+    # its one-call counterpart: grid_sample of the (1, C, D, H, W) volume at
+    # 2p - 1 (x over W, as the positions are; border padding is the clamp,
+    # align_corners=False the - 0.5), the value alone; it rounds the filter
+    # coordinate in its own order, so it agrees to float32 rounding, and a
+    # NaN position is its own affair (row 0 is left out)
+    import torch.nn.functional as F
+
+    tex = vol.permute(3, 0, 1, 2)[None]
+    grid = (pos * 2.0 - 1.0).view(1, -1, 1, 1, 3)
+
+    def library():
+        return F.grid_sample(tex, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    lib_err = float((library()[0, :, :, 0, 0].t()[1:]
+                     - corner_gather.corner_fetch(packed, shape, pos)[1:])
+                    .abs().max())
+    check(lib_err <= 1e-4, f"corner_fetch: grid_sample differs by {lib_err}")
+
+    def fetch():
+        return corner_gather.corner_fetch(packed, shape, pos, save=True)
+
+    def alone():
+        return corner_gather.corner_fetch(packed, shape, pos)
+
+    turns = in_turns({"kernel": fetch, "alone": alone, "library": library},
+                     200)
+    ms, alone_ms, library_ms = turns["kernel"], turns["alone"], \
+        turns["library"]
+    device_ms = profiler_device_ms(fetch, "corner_fetch_kernel")
+    alone_device_ms = profiler_device_ms(alone, "corner_fetch_kernel")
+    library_device_ms = profiler_device_ms(library, "grid_sampler_3d")
+    plain_ms = cuda_ms(lambda: corner_gather.corner_fetch_plain(
+        packed, shape, pos, save=True), 50)
+    # the rows the photons need read once (32 bytes each), the positions
+    # once, the values, cells and fractions written once; the coordinates'
+    # ~21 and the lerp chain's 21 operations a photon
     rows_read = int(cells.unique().numel())
     k3_bound, k3_by = roofline(rows_read * packed.shape[1] * 4
-                            + cells.numel() * (8 + 12 + 4),
-                            21 * cells.numel())
-    print(f"corner_gather corner_fetch 256^3 table, 256^2 photons: bit for "
-          f"bit; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {k3_bound:.4f} "
-          f"ms ({k3_by}, {rows_read} rows); no one PyTorch call computes "
-          "it", flush=True)
-    k3 = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None}
+                            + cells.numel() * (12 + 4 + 8 + 12),
+                            42 * cells.numel())
+    print(f"corner_gather corner_fetch 256^3 table, 256^2 positions: bit for "
+          f"bit (f32 and bf16 rows, NaN and out-of-range positions), cells "
+          f"and fractions equal corner_cells; medians of 6 in turns: with "
+          f"save {ms:.4f} ms a call, device {fmt_ms(device_ms)}; without "
+          f"{alone_ms:.4f} ms a call, device {fmt_ms(alone_device_ms)}; "
+          f"F.grid_sample of the volume (the value alone) {library_ms:.4f} "
+          f"ms a call, device {fmt_ms(library_device_ms)} (within "
+          f"{lib_err:.3g}); plain {plain_ms:.4f} ms; bound {k3_bound:.4f} ms "
+          f"({k3_by}, {rows_read} rows)", flush=True)
+    k3 = {"max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+          "plain_ms": plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+          "library_ms": library_ms, "library_device_ms": library_device_ms,
+          "library_max_abs_err": lib_err, "no_save_ms": alone_ms,
+          "no_save_device_ms": alone_device_ms}
 
     # K4, the probe: a (2^20, 128) table, 2^15 updates onto 2^10 of its
     # 2^24 8-lane rows (32 updates per row on average)
@@ -373,25 +516,33 @@ def phase_corner_kernels(dev):
     err = float(diff.max())
     check(bool((diff <= bound).all()),
           f"corner_grad: max abs err {err} beyond the reordering bound")
-    ms = cuda_ms(lambda: corner_scatter.corner_grad(cells, f, ct, rows, 1),
-                 50)
+    def grad():
+        return corner_scatter.corner_grad(cells, f, ct, rows, 1)
+
+    ms = cuda_ms(grad, 50)
+    # the call's whole device time (the zero fill of the dense gradient and
+    # the scatter), which its bound counts; the scatter kernel beside it
+    device_ms = profiler_device_ms(grad, "")
+    scatter_ms = profiler_device_ms(grad, "corner_grad_kernel")
     plain_ms = cuda_ms(
         lambda: corner_scatter.corner_grad_plain(cells, f, ct, rows, 1), 20)
-    print(f"corner_scatter corner_grad 256^3 table, 256^2 photons on "
-          f"{int(cells.unique().numel())} cells: max abs err {err} (within "
-          f"the reordering bound, max {float(bound.max()):.3g}); {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms (both allocate and zero the 512 MiB "
-          "gradient)", flush=True)
     # its contract is a dense (rows, 8) float32 gradient, written once; the
     # cells, fractions and cotangents read once; the 8 weights and products
     # are ~20 operations a photon
     k4_bound, k4_by = roofline(rows * 8 * 4 + cells.numel() * (8 + 12 + 4),
                             20 * cells.numel())
-    print(f"corner_scatter corner_grad bound {k4_bound:.4f} ms ({k4_by}: "
-          "the dense gradient written once); no one PyTorch call computes "
-          "it", flush=True)
-    k4 = {"max_abs_err": max(err, err_probe), "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None}
+    print(f"corner_scatter corner_grad 256^3 table, 256^2 photons on "
+          f"{int(cells.unique().numel())} cells: max abs err {err} (within "
+          f"the reordering bound, max {float(bound.max()):.3g}); {ms:.4f} "
+          f"ms a call, device {fmt_ms(device_ms)} (the zero fill and the "
+          f"scatter; the scatter alone {fmt_ms(scatter_ms)}), plain "
+          f"{plain_ms:.4f} ms (both allocate and zero the 512 MiB "
+          f"gradient); bound {k4_bound:.4f} ms ({k4_by}: the dense gradient "
+          "written once); no one PyTorch call computes it", flush=True)
+    k4 = {"max_abs_err": max(err, err_probe), "ms": ms,
+          "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": k4_bound,
+          "bound_by": k4_by, "library_ms": None,
+          "scatter_device_ms": scatter_ms}
     return k3, k4
 
 
@@ -548,7 +699,6 @@ def print_kernel_device_ms(scene, steps, frames=10):
     torch.profiler (the CUDA-event time of a frame also holds the host's
     per-frame work), and the bound of those frames."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from vpt_tpu_torch.kernels import mcm_event
     from vpt_tpu_torch.renderers import mcm
@@ -558,23 +708,19 @@ def print_kernel_device_ms(scene, steps, frames=10):
     mcm_event.event_frame(state, scene, params, 0.1)
     torch.cuda.synchronize()
     paths0 = float(state["samples"].sum(dtype=torch.float64))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(frames):
-            mcm_event.event_frame(state, scene, params, 0.2 + 0.001 * i)
-        torch.cuda.synchronize()
+    seeds = iter([0.2 + 0.001 * i for i in range(frames + 1)])
+    ms = profiler_device_ms(
+        lambda: mcm_event.event_frame(state, scene, params, next(seeds)),
+        "mcm_event_kernel", frames)
     deposits = (float(state["samples"].sum(dtype=torch.float64))
-                - paths0) / frames
+                - paths0) / (frames + 1)
     rows = frame_rows(scene, state, params, 0.3)
     bound_ms, bound_by, nbytes, _ = event_bound(scene, 512 * 512, steps,
                                                 deposits, rows)
-    # the mean over the launches the profiler recorded (it may drop some)
-    kernels = [e for e in prof.key_averages() if "mcm_event_kernel" in e.key]
-    total = sum(getattr(e, "device_time_total", 0.0) for e in kernels)
-    if total <= 0.0:
+    if ms is None:
         print(f"mcm_event steps {steps}: device time not measured (the "
               "profiler saw no kernel)", flush=True)
         return None, bound_ms
-    ms = total / 1e3 / sum(e.count for e in kernels)
     print(f"mcm_event 512^2 headline steps {steps}: {ms:.4f} ms device time "
           f"per launch (torch.profiler), {512 * 512 * steps / ms * 1e3:.6g} "
           f"events/s of device time; bound {bound_ms:.4f} ms ({bound_by}, "
@@ -769,6 +915,8 @@ def run():
     for steps in (8, 32):
         k5[f"device_ms_steps{steps}"], k5[f"bound_ms_steps{steps}"] = \
             print_kernel_device_ms(headline, steps)
+    # the row's frame is the steps-8 one
+    k5["device_ms"] = k5["device_ms_steps8"]
     k5["registers"] = occupancy["registers"]
     k5["blocks_per_sm"] = occupancy["blocks_per_sm"]
     del headline
@@ -781,7 +929,7 @@ def run():
     fit_launches = phase_fit_path(dev, counters)
     for path, launches, names in (
             ("forward render", render_launches,
-             ("mcm_event", "tf1d_lookup", "tonemap")),
+             ("mcm_event", "tf1d_lookup", "tonemap", "corner_gather")),
             ("fit", fit_launches,
              ("corner_gather", "corner_scatter", "tf1d_lookup"))):
         for name in names:
@@ -801,8 +949,8 @@ def run():
          "replaces": "vpt_tpu/pallas/tf1d.py:75",
          "launched_by": "Scene.sample_color, called by this script to check "
                         "the tracking table; frames run the lookup inside "
-                        "mcm_event (the fit path launches it too, for the "
-                        "no_grad target render)", **k1},
+                        "mcm_event (the fit path launches it too, once an "
+                        "event of the no_grad target render)", **k1},
         {"name": "tonemap", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/tonemap.cu",
          "replaces": "vpt_tpu/pallas/tonemap_kernel.py:36",
@@ -811,7 +959,9 @@ def run():
          "source": "vpt_tpu_torch/csrc/corner_gather.cu",
          "replaces": "benchmarks/pallas_gather.py:26",
          "launched_by": "train.fit_mc: sampling.CornerFetch forward, one "
-                        "corner_fetch per event (fit path)", **k3},
+                        "corner_fetch with saved cells per event, and one "
+                        "per event of the no_grad target render (fit "
+                        "path); Scene.sample_color (render path)", **k3},
         {"name": "corner_scatter", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/corner_scatter.cu",
          "replaces": "benchmarks/pallas_scatter_bwd.py:41",
@@ -823,7 +973,8 @@ def run():
             else render_launches
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     # the contract's keys first, then what each kernel adds
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
@@ -834,7 +985,219 @@ def run():
                                    "count": torch.cuda.device_count()}}
 
 
+def _host_us(fn, reps=10_000):
+    """Host microseconds per call of ``fn`` over ``reps`` calls
+    (perf_counter_ns), after one warm-up call.  For a call that launches
+    work this is the loop time: the larger of its host time and its
+    device time once the launch queue is full."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps / 1e3
+
+
+def _host_turns(fns, reps=10_000, rounds=3):
+    """Median host microseconds per call of each of ``fns`` (name ->
+    callable) by :func:`_host_us`, in turns (A B ... B A, ``rounds``
+    times): alternatives for one piece compared under the same drift."""
+    times = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(_host_us(fns[name], reps))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
+def trace_counts(fn):
+    """Run ``fn()`` once under torch.profiler: the kernels it ran on the
+    card, its host-to-device copies and the stream synchronisations it
+    waited on."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"kernels": [e.name[:80] for e in events
+                        if e.device_type == DeviceType.CUDA
+                        and not e.name.startswith(("Memcpy", "Memset"))],
+            "htod": sum("HtoD" in e.name for e in events),
+            "stream_syncs": sum(e.name == "cudaStreamSynchronize"
+                                for e in events)}
+
+
+def launch_path_tree(tree):
+    """The launch paths of K1 and K3 in the port found at ``tree`` (this
+    checkout or another, such as an archived parent under ``build/``),
+    through calls that every tree with the differentiable fit takes
+    alike: host microseconds a call of the pieces (the output, the stream
+    handle, the library, the TF lookup and ``F.grid_sample`` in turns,
+    ``corner_cells``, the fetch under no_grad and under autograd), loop and
+    device times, one differentiable fetch's trace, ``Scene.sample_color``
+    and the 256³ fit's target render and value-and-grad.  Returns the
+    numbers as a dict."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vpt_tpu_torch import sampling, train, transfer, volume
+    from vpt_tpu_torch.kernels import _build, tf1d
+    from vpt_tpu_torch.renderers import diff_mc, make_scene, mcm
+
+    check(os.path.abspath(sampling.__file__).startswith(
+        os.path.abspath(tree)), f"vpt_tpu_torch not imported from {tree}")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(2)
+    values = (torch.rand(512, 512, generator=g) * 1.2 - 0.1).to(dev)
+    table, width = tf1d.pack_table(torch.rand(2, 256, 4, generator=g).to(dev))
+    host, loop, device = {}, {}, {}
+
+    # the candidates for an output and for the stream, each group in turns
+    host.update(_host_turns({
+        "torch_empty": lambda: torch.empty(
+            values.shape + (4,), dtype=torch.float32, device=values.device),
+        "new_empty": lambda: values.new_empty(values.shape + (4,))}))
+    host.update(_host_turns({
+        "stream_current_stream":
+            lambda: torch.cuda.current_stream(values.device).cuda_stream,
+        "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(0)}))
+    host["library"] = _host_us(_build.library)
+    tex = table.t().reshape(1, 4, 1, width).contiguous()
+    grid = torch.stack([values * 2.0 - 1.0, torch.zeros_like(values)],
+                       dim=-1)[None]
+
+    def library():
+        return F.grid_sample(tex, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    def kernel():
+        return tf1d.lookup_1d(table, values, width)
+
+    host.update(_host_turns({"lookup_1d": kernel, "grid_sample": library}))
+    loop.update(in_turns({"lookup_1d_ms": kernel, "grid_sample_ms": library},
+                         200))
+    device["k1_ms"] = profiler_device_ms(kernel, "tf1d_kernel")
+    device["grid_sample_ms"] = profiler_device_ms(library, "grid_sampler")
+
+    # K3's path at the fit's shape: 256³ float32 table, 256² positions
+    shape = (256, 256, 256, 1)
+    gd = torch.Generator(device=dev).manual_seed(3)
+    packed = sampling.pack_corner_volume(
+        torch.rand(shape, device=dev, generator=gd))
+    pos = torch.rand(256 * 256, 3, device=dev, generator=gd) * 1.2 - 0.1
+    host["corner_cells"] = _host_us(
+        lambda: sampling.corner_cells(pos, shape), 2000)
+
+    def fetch():
+        with torch.no_grad():
+            return sampling.sample_volume_packed(packed, shape, pos)
+
+    host["no_grad_fetch"] = _host_us(fetch, 2000)
+    loop["no_grad_fetch_ms"] = cuda_ms(fetch, 200)
+    device["no_grad_fetch_ms"] = profiler_device_ms(fetch, "")
+    grad_table = packed.clone().requires_grad_(True)
+
+    def diff_fetch():
+        return sampling.sample_volume_packed(grad_table, shape, pos)
+
+    host["differentiable_fetch"] = _host_us(diff_fetch, 2000)
+    device["differentiable_fetch_ms"] = profiler_device_ms(diff_fetch, "")
+    trace = trace_counts(diff_fetch)
+
+    # the render path's sample_color on a 256³ scene, no autograd
+    truth = make_scene(volume.blobs_volume(256),
+                       transfer.gray_ramp(alpha_scale=0.8))
+    with torch.no_grad():
+        loop["sample_color_ms"] = cuda_ms(
+            lambda: truth.sample_color(pos), 200)
+
+    # the fit at 256³ / 256², steps 16, 16 frames: the target under no_grad
+    # and one value-and-grad, host clock, synchronised; each run once
+    # first, so that the caching allocator holds the graph's memory
+    params = mcm.Params(extinction=train.MC_FIT_EXTINCTION["mcm"], steps=16)
+
+    def target_render():
+        with torch.no_grad():
+            return diff_mc.mcm_expected_image(truth, params, 256, 256, 16)
+
+    def value_and_grad():
+        vol = torch.full(shape, 0.2, device=dev, requires_grad=True)
+        loss = train.mc_loss({"volume": vol}, truth, target, params, 16,
+                             np.float32(0.1))
+        loss.backward()
+        return float(loss.detach())
+
+    fit = {}
+    for name, fn in (("target_render_ms", target_render),
+                     ("value_and_grad_ms", value_and_grad)):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            fit[name] = (time.perf_counter() - t0) * 1e3
+        if name == "target_render_ms":
+            target = result
+    fit["loss"] = result
+    return {"tree": tree, "host_us": host, "loop_ms": loop,
+            "device_ms": device, "differentiable_fetch_trace": trace,
+            "fit": fit}
+
+
+def launch_path(trees):
+    """:func:`launch_path_tree` for each tree in turn, each in its own
+    process (two trees' packages cannot share one), then a table of the
+    numbers by tree."""
+    results = []
+    for tree in trees:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--launch-path-tree", tree],
+                              capture_output=True, text=True, timeout=900)
+        sys.stderr.write(proc.stderr[-4000:])
+        check(proc.returncode == 0, f"launch path of {tree} failed")
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        results.append(json.loads(line)["launch_path"])
+    for section in ("host_us", "loop_ms", "device_ms", "fit"):
+        names = sorted({k for r in results for k in r[section]})
+        for name in names:
+            cells = [r[section].get(name) for r in results]
+            print(f"{section:9s} {name:30s} " + " ".join(
+                "-" if v is None else f"{v:12.4f}" for v in cells),
+                flush=True)
+    for r in results:
+        t = r["differentiable_fetch_trace"]
+        print(f"{r['tree']}: one differentiable fetch ran "
+              f"{len(t['kernels'])} kernels, {t['htod']} host-to-device "
+              f"copies, {t['stream_syncs']} stream synchronisations",
+              flush=True)
+    return results
+
+
 def main() -> int:
+    if "--launch-path-tree" in sys.argv:
+        tree = sys.argv[sys.argv.index("--launch-path-tree") + 1]
+        print(json.dumps({"launch_path": launch_path_tree(tree)}),
+              flush=True)
+        return 0
+    if "--launch-path" in sys.argv:
+        import torch
+
+        check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+        launch_path(sys.argv[sys.argv.index("--launch-path") + 1:])
+        return 0
     try:
         result = run()
     except (SmokeFailure, ImportError, RuntimeError, ValueError,

@@ -6,8 +6,12 @@ them (``sampling.CornerFetch``), against vpt_tpu on the CPU.
   (``benchmarks/pallas_gather.py``, ``benchmarks/pallas_scatter_bwd.py``)
   and the probe's XLA baseline: the gather moves values, so it is exact;
   the scatter adds in another order, so atol 1e-5 on sums of O(1) terms.
-- The fused fetch against ``vpt_tpu.sampling.sample_volume_packed``, bit
-  for bit: the same float32 lerp chain in the same order.
+- The corner fetch, which takes positions, against
+  ``vpt_tpu.sampling.sample_volume_packed`` (and its ``fused_vjp=True``
+  value), bit for bit, for float32 and bfloat16 tables and one or two
+  channels: the same float32 filter coordinates and lerp chain in the same
+  order.  Its saved cells and fractions are ``corner_cells``'; edge,
+  out-of-range and NaN positions behave as the module states.
 - Its gradient against ``jax.vjp`` of the packed fetch, atol 1e-6: the
   analytic ``w8 ⊗ ct`` cotangent against JAX's transposed lerp chain,
   equal up to reassociation.
@@ -92,20 +96,68 @@ def test_scatter_add_rows8_matches_the_probe_and_xla():
     assert not np.allclose(table.numpy(), table0, atol=1e-3)
 
 
-def test_corner_fetch_bitwise_against_jax():
-    vol, packed = _table()
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corner_fetch_bitwise_against_jax(dtype, channels):
+    r = np.random.default_rng(7)
+    vol = r.uniform(0, 1, (9, 10, 11, channels)).astype(np.float32)
+    jpacked = js.pack_corner_volume(jnp.asarray(vol)).astype(dtype)
+    packed = torch.from_numpy(np.array(jpacked.astype(jnp.float32))).to(
+        getattr(torch, dtype))
     pos = _positions()
-    want = np.asarray(js.sample_volume_packed(jnp.asarray(packed), vol.shape,
+    want = np.asarray(js.sample_volume_packed(jpacked, vol.shape,
                                               jnp.asarray(pos)))
-    table = torch.from_numpy(packed)
-    got = ts.sample_volume_packed(table, vol.shape, torch.from_numpy(pos))
+    vjp_value = np.asarray(js.sample_volume_packed(
+        jpacked, vol.shape, jnp.asarray(pos), fused_vjp=True))
+    assert np.array_equal(vjp_value, want)
+    got = corner_gather.corner_fetch_plain(packed, vol.shape,
+                                           torch.from_numpy(pos))
+    assert got.dtype == torch.float32
     assert np.array_equal(got.numpy(), want)
-    # the same through the differentiable route (corner_fetch_plain)
-    table.requires_grad_(True)
-    fused = ts.sample_volume_packed(table, vol.shape, torch.from_numpy(pos))
-    assert fused.grad_fn is not None and "CornerFetch" in type(
-        fused.grad_fn).__name__
-    assert np.array_equal(fused.detach().numpy(), want)
+    # the wrapper's CPU route and the sampler's, with and without the saved
+    # cells and fractions
+    value, cells, f = corner_gather.corner_fetch(packed, vol.shape,
+                                                 torch.from_numpy(pos),
+                                                 save=True)
+    assert np.array_equal(value.numpy(), want)
+    idx, frac = ts.corner_cells(torch.from_numpy(pos), vol.shape)
+    assert torch.equal(cells, idx) and torch.equal(f, frac)
+    assert np.array_equal(ts.sample_volume_packed(
+        packed, vol.shape, torch.from_numpy(pos)).numpy(), want)
+    if dtype == "float32":
+        # the same through the differentiable route (CornerFetch)
+        table = packed.clone().requires_grad_(True)
+        fused = ts.sample_volume_packed(table, vol.shape,
+                                        torch.from_numpy(pos))
+        assert fused.grad_fn is not None and "CornerFetch" in type(
+            fused.grad_fn).__name__
+        assert np.array_equal(fused.detach().numpy(), want)
+
+
+def test_corner_fetch_edges_and_nan():
+    """A coordinate below the volume clamps to cell 0 and above it to the
+    last cell, both with fraction 0 (GL CLAMP_TO_EDGE); an exact texel
+    centre has fraction 0; a NaN coordinate takes index 0 on its axis and
+    a NaN fraction, so the value is NaN, as in JAX."""
+    vol, packed = _table(n=8, seed=8, count=2)
+    shape = vol.shape
+    pos = np.array([[-0.5, 0.5, 0.5], [1.5, 0.5, 0.5], [0.5, 0.5, 0.5],
+                    [1.0 / 16, 0.5, 0.5], [np.nan, 0.5, 0.5],
+                    [0.5, np.inf, -np.inf]], np.float32)
+    value, cells, f = corner_gather.corner_fetch_plain(
+        torch.from_numpy(packed), shape, torch.from_numpy(pos), save=True)
+    x = (cells % shape[2]).numpy()
+    assert list(x[:5]) == [0, 7, 3, 0, 0]
+    assert list(f[:4, 0].numpy()) == [0.0, 0.0, 0.5, 0.0]
+    assert np.isnan(f[4, 0].item()) and np.isnan(value[4, 0].item())
+    assert not np.isnan(value.numpy()[[0, 1, 2, 3, 5]]).any()
+    y = (cells // shape[2] % shape[1]).numpy()
+    z = (cells // (shape[2] * shape[1])).numpy()
+    assert (y[5], z[5]) == (7, 0) and list(f[5, 1:].numpy()) == [0.0, 0.0]
+    want = np.asarray(js.sample_volume_packed(jnp.asarray(packed), shape,
+                                              jnp.asarray(pos)))
+    assert np.array_equal(np.isnan(want), np.isnan(value.numpy()))
+    assert np.array_equal(np.nan_to_num(want), value.nan_to_num().numpy())
 
 
 @pytest.mark.parametrize("channels", [1, 2])
@@ -133,8 +185,10 @@ def test_corner_grad_matches_jax_vjp(channels):
 
 
 def test_fetch_contract():
-    """Positions are detached, bf16 tables that require grad raise, and a
-    table without grad (or with autograd off) takes the plain path."""
+    """Positions are detached, bf16 tables that require grad raise, a
+    table without grad (or with autograd off) gives a value without a
+    graph, and positions that alone require grad raise under ``fused``;
+    with ``fused=False`` their gradient reaches them."""
     vol, packed = _table(n=8, seed=5, count=2)
     table = torch.from_numpy(packed).requires_grad_(True)
     pos = torch.tensor([[0.31, 0.47, 0.62]], requires_grad=True)
@@ -148,6 +202,12 @@ def test_fetch_contract():
     bf16 = torch.from_numpy(packed).to(torch.bfloat16).requires_grad_(True)
     with pytest.raises(ValueError, match="float32"):
         ts.sample_volume_packed(bf16, vol.shape, pos)
+    pos.grad = None
+    with pytest.raises(ValueError, match="fused=False"):
+        ts.sample_volume_packed(torch.from_numpy(packed), vol.shape, pos)
+    ts.sample_volume_packed(torch.from_numpy(packed), vol.shape, pos,
+                            fused=False).sum().backward()
+    assert pos.grad is not None and pos.grad.abs().sum() > 0
 
 
 def test_cpu_wrappers_launch_nothing():

@@ -15,7 +15,7 @@ import torch
 from vpt_tpu_torch import rng, sampling, train
 from vpt_tpu_torch import tonemap as tm
 from vpt_tpu_torch import transfer, volume
-from vpt_tpu_torch.kernels import corner_gather, corner_scatter
+from vpt_tpu_torch.kernels import _build, corner_gather, corner_scatter
 from vpt_tpu_torch.kernels import mcm_event, tf1d, tonemap_kernel
 from vpt_tpu_torch.renderers import make_scene
 from vpt_tpu_torch.renderers import mcm
@@ -64,6 +64,66 @@ def test_tf1d_kernel_mxu_modes_match_plain(cuda, mxu):
     # bf16 weights do not
     bilinear = tf1d.lookup_plain(table, values)
     assert torch.equal(got, bilinear) == (mxu == torch.float32)
+
+
+@pytest.mark.parametrize("mxu", [None, torch.float32, torch.bfloat16],
+                         ids=["bilinear", "mxu-f32", "mxu-bf16"])
+@pytest.mark.parametrize("n", [1, 127, 128 * 1023 + 5])
+@pytest.mark.parametrize("offset", [0, 1, 3], ids=["aligned", "off1",
+                                                   "off3"])
+def test_tf1d_kernel_sizes_views_and_modes(cuda, n, offset, mxu):
+    """Ragged counts (one value, less than a warp's 128, a whole grid of
+    chunks and a tail) on views that start 0, 4 or 12 bytes past a
+    16-byte boundary: the vector body, the head and the tail all give the
+    plain version's lookup (atol 1e-6, as the smoke holds it)."""
+    g = torch.Generator().manual_seed(11)
+    table = torch.rand(256, 4, generator=g).to(torch.bfloat16) \
+        .to(torch.float32).to(cuda)
+    base = (torch.rand(n + 3, generator=g) * 1.2 - 0.1).to(cuda)
+    base[0] = float("nan")
+    values = base[offset:offset + n]
+    assert values.data_ptr() % 16 == 4 * offset
+    before = tf1d.LAUNCHES
+    got = tf1d.lookup(table, values, mxu)
+    want = tf1d.lookup_plain(table, values, mxu)
+    torch.cuda.synchronize()
+    assert tf1d.LAUNCHES == before + 1
+    assert got.shape == (n, 4)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.allclose(got.nan_to_num(), want.nan_to_num(), rtol=0,
+                          atol=1e-6)
+
+
+def test_tf1d_kernel_follows_the_current_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` the launch goes to ``s``: the values
+    are written on ``s`` behind a ~10 ms sleep, so a launch on another
+    stream would read them before they exist."""
+    g = torch.Generator().manual_seed(12)
+    table = torch.rand(256, 4, generator=g).to(cuda)
+    src = torch.rand(1 << 20, generator=g).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert _build.current_stream(cuda.index or 0) == side.cuda_stream
+        torch.cuda._sleep(20_000_000)
+        values = src * 1.0
+        got = tf1d.lookup(table, values)
+    side.synchronize()
+    assert _build.current_stream(cuda.index or 0) \
+        == torch.cuda.current_stream().cuda_stream
+    assert torch.allclose(got, tf1d.lookup_plain(table, src), rtol=0,
+                          atol=1e-6)
+
+
+def test_tf1d_kernel_launch_shape(cuda):
+    """The grid's cap: SMs × resident blocks of 256 threads; a TW-256 row
+    leaves room for several blocks an SM."""
+    shape = tf1d.launch_shape(256, cuda.index or 0)
+    assert shape["threads_per_block"] == 256
+    assert shape["sms"] == torch.cuda.get_device_properties(cuda).\
+        multi_processor_count
+    assert shape["blocks_per_sm"] >= 4
+    assert shape["dynamic_smem_bytes"] == 256 * 16
 
 
 def test_tf1d_kernel_width_cap(cuda):
@@ -118,13 +178,27 @@ def _headline_scene(n, cuda):
                       pack_dtype=torch.bfloat16, tf_mxu=True, device=cuda)
 
 
+def _launches():
+    return (corner_gather.LAUNCHES, corner_scatter.LAUNCHES,
+            mcm_event.LAUNCHES, tf1d.LAUNCHES, tonemap_kernel.LAUNCHES)
+
+
+def _plain_frame(plain, scene, params, seed):
+    """The reference frame: the plain loop on the scene with
+    ``kernels=False``, which launches no kernel."""
+    before = _launches()
+    mcm_event.event_frame_plain(plain, dataclasses.replace(
+        scene, kernels=False), params, seed)
+    assert _launches() == before
+
+
 def _kernel_and_plain(scene, params, height, width, frames):
     state = mcm.reset(params, height, width, scene)
     plain = {k: v.clone() for k, v in state.items()}
     before = mcm_event.LAUNCHES
     for f in range(frames):
         mcm.render_frame(state, scene, params, 0.3 + 0.01 * f)
-        mcm_event.event_frame_plain(plain, scene, params, 0.3 + 0.01 * f)
+        _plain_frame(plain, scene, params, 0.3 + 0.01 * f)
     torch.cuda.synchronize()
     assert mcm_event.LAUNCHES == before + frames
     return state, plain
@@ -195,7 +269,7 @@ def test_event_kernel_matches_plain_loop(cuda, tracking, dtype):
     before = mcm_event.LAUNCHES
     for f in range(4):
         mcm.render_frame(state, scene, params, 0.3 + 0.01 * f)
-        mcm_event.event_frame_plain(plain, scene, params, 0.3 + 0.01 * f)
+        _plain_frame(plain, scene, params, 0.3 + 0.01 * f)
     torch.cuda.synchronize()
     assert mcm_event.LAUNCHES == before + 4
     assert_frames_agree(state, plain)
@@ -213,7 +287,7 @@ def test_event_kernel_mxu_matches_plain_loop(cuda):
     plain = {k: v.clone() for k, v in state.items()}
     for f in range(4):
         mcm.render_frame(state, scene, params, 0.3 + 0.01 * f)
-        mcm_event.event_frame_plain(plain, scene, params, 0.3 + 0.01 * f)
+        _plain_frame(plain, scene, params, 0.3 + 0.01 * f)
     torch.cuda.synchronize()
     assert_frames_agree(state, plain)
 
@@ -247,7 +321,7 @@ def test_event_kernel_parameters(cuda, params):
     state = mcm.reset(params, 32, 32, scene)
     plain = {k: v.clone() for k, v in state.items()}
     mcm.render_frame(state, scene, params, 0.7)
-    mcm_event.event_frame_plain(plain, scene, params, 0.7)
+    _plain_frame(plain, scene, params, 0.7)
     torch.cuda.synchronize()
     assert_frames_agree(state, plain)
 
@@ -305,20 +379,106 @@ def test_gather_rows_kernel_equals_plain(cuda, lanes):
     assert bool(torch.isnan(bad).all())
 
 
+@pytest.mark.parametrize("save", [False, True], ids=["value", "save"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("channels", [1, 2])
-def test_corner_fetch_kernel_bitwise(cuda, channels):
-    """The fused gather and lerp runs the plain chain's float32 operations
-    in its order without contraction: equal on the same card."""
+def test_corner_fetch_kernel_bitwise(cuda, channels, dtype, save):
+    """The fetch computes the cells and fractions and runs the plain
+    chain's float32 operations in its order without contraction: equal to
+    the plain version on the same card, for float32 and bfloat16 rows,
+    NaN and out-of-range positions included; the saved cells and
+    fractions equal ``corner_cells``."""
     g = torch.Generator().manual_seed(6)
     vol = torch.rand(20, 24, 28, channels, generator=g).to(cuda)
-    table = sampling.pack_corner_volume(vol)
+    shape = tuple(vol.shape)
+    table = sampling.pack_corner_volume(vol).to(dtype)
     pos = (torch.rand(100_000, 3, generator=g) * 1.4 - 0.2).to(cuda)
-    idx, f = sampling.corner_cells(pos, tuple(vol.shape))
-    got = corner_gather.corner_fetch(table, idx, f)
-    want = corner_gather.corner_fetch_plain(table, idx, f)
+    pos[:3] = torch.tensor([[float("nan"), 0.5, 0.5], [0.5, float("inf"),
+                            -float("inf")], [0.0, 1.0, 0.5 / 20]])
+    before = corner_gather.LAUNCHES
+    got = corner_gather.corner_fetch(table, shape, pos, save=save)
+    want = corner_gather.corner_fetch_plain(table, shape, pos, save=save)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert torch.equal(got, sampling.sample_volume(vol, pos))
+    assert corner_gather.LAUNCHES == before + 1
+    if not save:
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if a.is_floating_point():
+            assert torch.equal(a.isnan(), b.isnan())
+            a, b = a.nan_to_num(), b.nan_to_num()
+        assert torch.equal(a, b)
+    assert bool(got[0][0].isnan().all()) and not got[0][1:].isnan().any()
+    if save:
+        cells, f = sampling.corner_cells(pos, shape)
+        assert torch.equal(got[1], cells)
+        assert torch.equal(got[2].nan_to_num(), f.nan_to_num())
+    if dtype == torch.float32:
+        assert torch.equal(got[0][1:], sampling.sample_volume(vol, pos)[1:])
+
+
+def test_differentiable_fetch_is_one_launch(cuda):
+    """One differentiable ``sample_volume_packed`` call on the card runs
+    exactly one kernel, the corner fetch, and copies nothing from the
+    host (no per-call tensor from Python values, so no stream wait); the
+    differentiable TF fetch copies nothing from the host either."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(13)
+    shape = (32, 32, 32, 1)
+    table = sampling.pack_corner_volume(
+        torch.rand(shape, generator=g).to(cuda)).requires_grad_(True)
+    pos = torch.rand(64, 64, 3, generator=g).to(cuda)
+    tf = torch.rand(4, 64, 4, generator=g).to(cuda)
+    tf_packed = sampling.pack_corner_texture2d(tf).requires_grad_(True)
+
+    def fetch():
+        return sampling.sample_volume_packed(table, shape, pos)
+
+    def tf_fetch():
+        uv = torch.stack([pos[..., 0], torch.zeros_like(pos[..., 0])], -1)
+        return sampling.sample_texture2d_packed(tf_packed, tuple(tf.shape),
+                                                uv)
+
+    for fn in (fetch, tf_fetch):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        assert out.grad_fn is not None
+        events = prof.events()
+        assert not [e.name for e in events if "HtoD" in e.name]
+        assert not [e.name for e in events
+                    if e.name == "cudaStreamSynchronize"]
+        if fn is fetch:
+            kernels = [e.name for e in events
+                       if e.device_type == DeviceType.CUDA
+                       and not e.name.startswith(("Memcpy", "Memset"))]
+            assert len(kernels) == 1 and "corner_fetch" in kernels[0], \
+                kernels
+
+
+def test_no_grad_scene_fetch_launches_the_kernels(cuda):
+    """Without autograd a ``kernels=True`` scene's ``sample_color``
+    launches K3 and K1 once each, f32 and bf16 tables, and agrees with
+    the same scene's plain samplers."""
+    for dtype in (None, torch.bfloat16):
+        scene = make_scene(volume.blobs_volume(16, seed=2, device=cuda),
+                           transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                           pack_dtype=dtype, device=cuda)
+        pos = torch.rand(40, 50, 3, generator=torch.Generator().manual_seed(
+            14)).to(cuda)
+        before = (corner_gather.LAUNCHES, tf1d.LAUNCHES)
+        with torch.no_grad():
+            got = scene.sample_color(pos)
+        assert (corner_gather.LAUNCHES, tf1d.LAUNCHES) == (before[0] + 1,
+                                                           before[1] + 1)
+        want = dataclasses.replace(scene, kernels=False).sample_color(pos)
+        torch.cuda.synchronize()
+        assert torch.allclose(got, want, rtol=0, atol=1e-6)
 
 
 def _order_bound(counts, abs_sums):

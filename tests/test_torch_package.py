@@ -54,7 +54,7 @@ def test_build_flags_and_entry_points():
     from vpt_tpu_torch.kernels import _build
 
     assert set(_build.SIGNATURES) == {
-        "vpt_tf1d_lookup", "vpt_tonemap", "vpt_mcm_event",
+        "vpt_tf1d_lookup", "vpt_tf1d_info", "vpt_tonemap", "vpt_mcm_event",
         "vpt_mcm_event_info", "vpt_gather_rows", "vpt_corner_fetch",
         "vpt_scatter_add_rows8", "vpt_corner_grad"}
     sources = " ".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))

@@ -15,7 +15,7 @@ from vpt_tpu import rng as jrng
 from vpt_tpu import sampling as js
 from vpt_tpu import volume as jvolume
 from vpt_tpu.scene import CameraState, default_camera
-from vpt_tpu_torch import interop
+from vpt_tpu_torch import interop, utils
 from vpt_tpu_torch import rng as trng
 from vpt_tpu_torch import sampling as ts
 
@@ -149,3 +149,36 @@ def test_disk_feeds_unproject_in_glsl_order():
     assert torch.equal(out, s_sq)
     assert np.array_equal(np.asarray(jrng.square(jrng.disk(
         jnp.asarray(STATES[:16]))[0])[0]).astype(np.int64), s_sq.numpy())
+
+
+def _filter_coords_per_call(position, dims):
+    """The filter coordinate with its bounds built at every call (the
+    port's code before the bounds were cached)."""
+    dims_t = torch.tensor(dims, dtype=torch.float32)
+    u = torch.clamp(position * dims_t - 0.5, min=torch.zeros_like(dims_t),
+                    max=dims_t - 1.0)
+    i0 = torch.floor(u)
+    maxi = torch.tensor(dims, dtype=torch.int64) - 1
+    return torch.minimum(torch.clamp(i0.to(torch.int64), min=0), maxi), \
+        u - i0
+
+
+@pytest.mark.parametrize("dims", [(12, 7, 5), (40, 3)])
+def test_cached_bounds_are_the_per_call_ones(dims):
+    """The per-axis bounds come from a cache, built once per (sizes,
+    device); the cells and fractions stay bit for bit those of bounds
+    built at every call, at edges, beyond them, at inf and at NaN."""
+    pos = RNG.uniform(-0.2, 1.2, (2048, len(dims))).astype(np.float32)
+    pos[:4, 0] = [np.nan, np.inf, -np.inf, 0.5 / dims[0]]
+    pos = _t(pos)
+    i0f, f = ts._filter_coords(pos, dims)
+    idx = ts._clamp_index(i0f, dims)
+    want_idx, want_f = _filter_coords_per_call(pos, dims)
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(f.isnan(), want_f.isnan())
+    assert torch.equal(f.nan_to_num(), want_f.nan_to_num())
+    assert idx[0, 0] == 0 and idx[1, 0] == dims[0] - 1 and idx[2, 0] == 0
+    cpu = torch.device("cpu")
+    assert ts._max_index(dims, cpu) is ts._max_index(dims, cpu)
+    assert utils.constant(tuple(dims), torch.float32, cpu) \
+        is utils.constant(tuple(dims), torch.float32, cpu)

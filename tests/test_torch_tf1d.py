@@ -1,8 +1,12 @@
 """The port's 1D TF lookup (kernels/tf1d.py) against the Pallas kernel it
 replaces (vpt_tpu.pallas.tf1d.lookup_1d, interpret mode) and against the
 bilinear 2D lookup at y = 0, at atol 1e-6 as tests/test_pallas.py holds the
-Pallas kernel.  The CUDA kernel against the plain version runs on a GPU
-only."""
+Pallas kernel; the scene's lookup (``Scene.sample_color``, which passes the
+value channel straight to it) against JAX's; the table cache that prepares
+a table's launch arguments once.  The CUDA kernel against the plain version
+runs on a GPU only."""
+
+import gc
 
 import numpy as np
 import jax.numpy as jnp
@@ -11,8 +15,12 @@ import torch
 
 from vpt_tpu import sampling as js
 from vpt_tpu import transfer as jtransfer
+from vpt_tpu import volume as jvolume
 from vpt_tpu.pallas import tf1d as jtf1d
-from vpt_tpu_torch.kernels import tf1d
+from vpt_tpu.renderers import make_scene as jmake_scene
+from vpt_tpu_torch import transfer, volume
+from vpt_tpu_torch.kernels import _build, tf1d
+from vpt_tpu_torch.renderers import make_scene
 
 
 def _bumps_tf():
@@ -74,3 +82,52 @@ def test_cpu_lookup_launches_nothing():
     table, _ = tf1d.pack_table(torch.rand(2, 256, 4))
     tf1d.lookup(table, torch.rand(64))
     assert tf1d.LAUNCHES == before
+
+
+@pytest.mark.parametrize("pack", [(True, None), (True, "bfloat16"),
+                                  (False, None)],
+                         ids=["f32", "bf16", "unpacked"])
+def test_scene_sample_color_matches_jax(pack):
+    """``Scene.sample_color`` on a rendering scene, at a 32² grid of
+    positions (inside, at and beyond the faces), against JAX's: equal."""
+    packed, dtype = pack
+    jscene = jmake_scene(jvolume.blobs_volume(16, seed=3),
+                         jtransfer.gray_ramp(alpha_scale=0.8), pack=packed,
+                         pack_dtype=None if dtype is None
+                         else getattr(jnp, dtype))
+    tscene = make_scene(volume.blobs_volume(16, seed=3, device="cpu"),
+                        transfer.gray_ramp(alpha_scale=0.8, device="cpu"),
+                        pack=packed, pack_dtype=None if dtype is None
+                        else getattr(torch, dtype), device="cpu")
+    pos = np.random.default_rng(4).uniform(-0.05, 1.05, (32, 32, 3)).astype(
+        np.float32)
+    want = np.asarray(jscene.sample_color(jnp.asarray(pos)))
+    got = tscene.sample_color(torch.from_numpy(pos)).numpy()
+    assert got.shape == (32, 32, 4)
+    assert np.array_equal(got, want)
+
+
+def test_table_cache_prepares_once_and_lets_the_table_go():
+    """A table is prepared once per key while it lives; a new storage, a
+    new key or a non-contiguous table (copied, never cached) prepares
+    again; the entry goes with its table."""
+    calls = []
+
+    def prepare(table, key):
+        calls.append(key)
+        return _build.Prepared(ptr=table.data_ptr())
+
+    cache = _build.TableCache(prepare)
+    table = torch.zeros(8, 4)
+    first = cache.get(table, "a")
+    assert cache.get(table, "a") is first and calls == ["a"]
+    assert cache.get(table, "b") is not first and len(cache) == 2
+    table.set_(torch.ones(8, 4))              # the storage moved
+    assert cache.get(table, "a") is not first and len(calls) == 3
+    view = torch.zeros(4, 8).t()
+    copied = cache.get(view, "a")
+    assert copied.ptr != view.data_ptr() and copied.table().is_contiguous()
+    assert cache.get(view, "a") is not copied and len(cache) == 2
+    del table, first
+    gc.collect()
+    assert len(cache) == 0

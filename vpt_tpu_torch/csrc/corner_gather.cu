@@ -1,24 +1,35 @@
-// Corner-row gather (K3): rows of a table by index, alone or fused with the
-// trilinear lerp of the fit's forward volume fetch.
+// Corner-row gather (K3): rows of a table by index (the probe), and the
+// fit's volume fetch, which takes positions and computes the cells itself.
 //
 // Replaces benchmarks/pallas_gather.py:26-69 (make_dma_gather, pallas_call
 // at :62), one async DMA per gathered row on the TPU, and inside the fit it
-// is the forward of the packed volume fetch of vpt_tpu/sampling.py:480-510
-// (sample_volume_packed: the row gather of _take_corner_rows :370-371, then
-// _trilerp_chain :424-432).
+// is the packed volume fetch of vpt_tpu/sampling.py:480-510
+// (sample_volume_packed: the filter coordinates and cell :493-502, the row
+// gather of _take_corner_rows :370-371, then _trilerp_chain :424-432).
 //
-// Bound on the H100: device-memory latency and bytes.  gather_rows moves
-// 2 * lanes * 4 bytes per row (2^17 rows of 128 lanes: 128 MiB, ~40 us at
-// 3.35 TB/s); corner_fetch reads 52 bytes (index, fractions, a 32-byte row
-// at C = 1) and writes 4 per sample, one dependent random row read each.
+// Bound on the H100: device-memory bytes and the latency of one random row
+// read.  gather_rows moves 2 * lanes * 4 bytes per row (2^17 rows of 128
+// lanes: 128 MiB, ~40 us at 3.35 TB/s).  corner_fetch reads 12 bytes of
+// position and writes 4 * C of value per sample, plus 20 when it saves the
+// cell and fractions, and reads each distinct corner row once (32 bytes at
+// C = 1 in float32, 16 in bfloat16).
 // Design: gather_rows gives each thread one 16-byte piece of an output row,
-// so a warp copies 512 contiguous bytes of a 128-lane row; corner_fetch
-// gives each sample one thread that reads its row as float4s and runs the
-// lerp chain of the plain version (kernels/corner_gather.py) operation by
-// operation, built with -fmad=false, so the result is bit for bit the
-// plain one.  Indices outside [0, rows) yield NaN rows instead of a fault.
+// so a warp copies 512 contiguous bytes of a 128-lane row.  corner_fetch
+// gives each sample one thread, which computes the filter coordinate, cell
+// and fractions in registers with the float32 operations of the plain
+// version (kernels/corner_gather.py, sampling._filter_coords and
+// _clamp_index) in their order, so the only dependent memory read is the
+// row: two float4 in float32, one 16-byte vector of bfloat16 widened
+// exactly for C = 1, one value a corner and channel for C > 1.  Then the
+// lerp chain of the plain version operation by operation, built with
+// -fmad=false, so the value is bit for bit the plain one.  A NaN
+// coordinate takes cell index 0 on its axis and a NaN fraction, as the
+// plain version does, so the value is NaN.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"
+#include "tf1d.cuh"
 
 namespace {
 
@@ -51,34 +62,79 @@ __global__ void gather_rows_scalar(const float* __restrict__ table,
                                 : __ldg(table + r * lanes + (e - j * lanes));
 }
 
-// One thread per sample: its (8, c) corner row, then the 3-level lerp
+// bfloat16 bits -> float32, exact
+__device__ __forceinline__ float widen(uint16_t bits) {
+  return __uint_as_float((uint32_t)bits << 16);
+}
+
+__device__ __forceinline__ float load(const float* row, int k) {
+  return __ldg(row + k);
+}
+
+__device__ __forceinline__ float load(const uint16_t* row, int k) {
+  return widen(__ldg(row + k));
+}
+
+// The 8 corners of a C = 1 row.
+__device__ __forceinline__ void load_row1(const float* row, float v[8]) {
+  float4 a = __ldg(reinterpret_cast<const float4*>(row));
+  float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load_row1(const uint16_t* row, float v[8]) {
+  uint4 q = __ldg(reinterpret_cast<const uint4*>(row));
+  const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(words[k] << 16);       // the lower address
+    v[2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
+  }
+}
+
+// One thread per sample: the filter coordinate u = clip(p * dim - 0.5, 0,
+// dim - 1), i0 = floor(u), f = u - i0 and the clamped index on each axis,
+// the cell (z * h + y) * w + x, its (8, c) corner row, then the 3-level lerp
 // cx = r[2m]*(1-fx) + r[2m+1]*fx, cy = cx[2m]*(1-fy) + cx[2m+1]*fy,
 // out = cy0*(1-fz) + cy1*fz per channel.
-__global__ void corner_fetch_kernel(const float* __restrict__ table,
-                                    long long rows, int c,
-                                    const long long* __restrict__ idx,
-                                    const float* __restrict__ f, long long n,
-                                    float* __restrict__ out) {
+template <typename T, bool kOneChannel>
+__global__ void corner_fetch_kernel(const T* __restrict__ table, int c,
+                                    int w, int h, int d,
+                                    const float* __restrict__ position,
+                                    long long n, float* __restrict__ out,
+                                    long long* __restrict__ cells,
+                                    float* __restrict__ fractions) {
   long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  long long r = idx[j];
-  if (r < 0 || r >= rows) {
-    for (int ch = 0; ch < c; ++ch) out[j * c + ch] = nan_f();
-    return;
+  const int dims[3] = {w, h, d};
+  float f[3];
+  int i[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float dim = (float)dims[a];
+    float u = vpt_clip(__ldg(position + 3 * j + a) * dim - 0.5f, 0.0f,
+                       dim - 1.0f);
+    float i0f = floorf(u);
+    f[a] = u - i0f;
+    i[a] = vpt_index(i0f, dims[a] - 1);
   }
-  float fx = f[3 * j], fy = f[3 * j + 1], fz = f[3 * j + 2];
-  float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
-  const float* row = table + r * 8 * c;
-  for (int ch = 0; ch < c; ++ch) {
+  const long long cell = ((long long)i[2] * h + i[1]) * w + i[0];
+  if (cells != nullptr) {
+    cells[j] = cell;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) fractions[3 * j + a] = f[a];
+  }
+  const float fx = f[0], fy = f[1], fz = f[2];
+  const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
+  const T* row = table + cell * 8 * c;
+  for (int ch = 0; ch < (kOneChannel ? 1 : c); ++ch) {
     float v[8];
-    if (c == 1) {
-      float4 a = __ldg((const float4*)row);
-      float4 b = __ldg((const float4*)row + 1);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    if (kOneChannel) {
+      load_row1(row, v);
     } else {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = __ldg(row + k * c + ch);
+      for (int k = 0; k < 8; ++k) v[k] = load(row, k * c + ch);
     }
     float cx0 = v[0] * gx + v[1] * fx;
     float cx1 = v[2] * gx + v[3] * fx;
@@ -92,6 +148,23 @@ __global__ void corner_fetch_kernel(const float* __restrict__ table,
 
 unsigned blocks_for(long long threads_total, int threads) {
   return (unsigned)((threads_total + threads - 1) / threads);
+}
+
+template <typename T>
+void launch_fetch(const void* table, int c, int w, int h, int d,
+                  const void* position, long long n, void* out, void* cells,
+                  void* fractions, cudaStream_t stream) {
+  const int threads = 256;
+  const unsigned blocks = blocks_for(n, threads);
+  if (c == 1) {
+    corner_fetch_kernel<T, true><<<blocks, threads, 0, stream>>>(
+        (const T*)table, c, w, h, d, (const float*)position, n, (float*)out,
+        (long long*)cells, (float*)fractions);
+  } else {
+    corner_fetch_kernel<T, false><<<blocks, threads, 0, stream>>>(
+        (const T*)table, c, w, h, d, (const float*)position, n, (float*)out,
+        (long long*)cells, (float*)fractions);
+  }
 }
 
 }  // namespace
@@ -115,14 +188,31 @@ extern "C" int vpt_gather_rows(const void* table, long long rows, int lanes,
   return (int)cudaGetLastError();
 }
 
-extern "C" int vpt_corner_fetch(const void* table, long long rows, int c,
-                                const void* idx, const void* f, long long n,
-                                void* out, void* stream) {
+// What a fetch needs of the corner table, filled once per table by the
+// wrapper (kernels/corner_gather.py, a ctypes Structure of this layout), so
+// that a call passes one pointer for it.
+struct VptCornerTable {
+  const void* table;  // (w * h * d, 8 * c), 16-byte aligned
+  int bf16;           // 1: bfloat16 rows, 0: float32
+  int c, w, h, d;
+  int device;
+};
+
+// prepared: a VptCornerTable; position (n, 3) float32; out (n, c) float32;
+// cells (n,) int64 and fractions (n, 3) float32 are written when cells is
+// not null.
+extern "C" int vpt_corner_fetch(const void* prepared, const void* position,
+                                long long n, void* out, void* cells,
+                                void* fractions, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  corner_fetch_kernel<<<blocks_for(n, threads), threads, 0,
-                        (cudaStream_t)stream>>>(
-      (const float*)table, rows, c, (const long long*)idx, (const float*)f,
-      n, (float*)out);
+  const VptCornerTable& t = *static_cast<const VptCornerTable*>(prepared);
+  VptDeviceGuard guard(t.device);
+  if (t.bf16) {
+    launch_fetch<uint16_t>(t.table, t.c, t.w, t.h, t.d, position, n, out,
+                           cells, fractions, (cudaStream_t)stream);
+  } else {
+    launch_fetch<float>(t.table, t.c, t.w, t.h, t.d, position, n, out, cells,
+                        fractions, (cudaStream_t)stream);
+  }
   return (int)cudaGetLastError();
 }

@@ -2,10 +2,11 @@
 
 All sources in ``vpt_tpu_torch/csrc/`` compile with ``nvcc`` into one shared
 library with a plain C interface, ``build/vpt_tpu_torch/libvpt_tpu_torch.so``
-at the root of the checkout, loaded with ``ctypes``.  The build runs at the
-first kernel launch and again whenever a hash of the sources and flags
-changes.  Nothing here runs at import time: the CPU tests import every
-module on machines without ``nvcc``.
+at the root of the checkout, loaded with ``ctypes``: one ``nvcc -c`` a
+source, all started together, then one link.  The build runs at the first
+kernel launch and again whenever a hash of the sources and flags changes.
+Nothing here runs at import time: the CPU tests import every module on
+machines without ``nvcc``.
 
 ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into one fused
 multiply-add: the plain PyTorch versions round after every operation, and a
@@ -23,6 +24,10 @@ import subprocess
 import tempfile
 import threading
 import time
+import types
+import weakref
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
@@ -36,15 +41,17 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-#: C entry points: name -> argument types (every one returns cudaError_t)
+#: C entry points: name -> argument types (every one returns 0 or a CUDA
+#: error code)
 SIGNATURES = {
-    "vpt_tf1d_lookup": [_P, _I, _I, _P, _P, _L, _P],
+    "vpt_tf1d_lookup": [_P, _P, _P, _L, _P],
+    "vpt_tf1d_info": [_I, _I, _P],
     "vpt_tonemap": [_P, _P, _L, _I, _F, _F, _F, _F, _P],
     "vpt_mcm_event": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
                                   _I] + [_F] * 7 + [_I, _I, _I, _P]),
     "vpt_mcm_event_info": [_I, _I, _P],
     "vpt_gather_rows": [_P, _L, _I, _P, _L, _P, _P],
-    "vpt_corner_fetch": [_P, _L, _I, _P, _P, _L, _P, _P],
+    "vpt_corner_fetch": [_P, _P, _L, _P, _P, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
 }
@@ -84,16 +91,32 @@ def build() -> pathlib.Path:
             and stamp.read_text().strip() == digest:
         return lib_path
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for source in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, source.stem + ".o")
+            cmd = [_nvcc(), *compile_flags, "-c", "-I", str(CSRC), "-o",
+                   obj, str(source)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib_tmp = os.path.join(tmp, LIB_NAME)
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-shared", "-o", lib_tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(lib_tmp, lib_path)
     stamp.write_text(digest)
     build_seconds = time.perf_counter() - t0
     return lib_path
@@ -125,7 +148,56 @@ def check_aligned(tensor, name: str) -> None:
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def stream_ptr(tensor) -> int:
-    import torch
+#: the raw ``cudaStream_t`` of PyTorch's current stream on a device index:
+#: it follows ``torch.cuda.stream(s)`` and, unlike
+#: ``torch.cuda.current_stream(device).cuda_stream``, builds no Stream object
+#: (None in a CPU-only build of PyTorch, which launches nothing)
+current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+def stream_ptr(tensor) -> int:
+    return current_stream(tensor.get_device())
+
+
+class Prepared(types.SimpleNamespace):
+    """The launch arguments that come from one table: its checked pointer
+    and whatever else a wrapper derives from it once (sizes, mode, device,
+    the bound C function)."""
+
+
+class TableCache:
+    """Preparations of tables, one per live table tensor and key.
+
+    ``prepare(table, key)`` checks a contiguous table and returns a
+    :class:`Prepared` with ``ptr``, its data pointer.  An entry holds its
+    table weakly and goes with it, and a table whose storage moved
+    (``.set_``, ``.data =``) is prepared anew; so an entry always points
+    into its live table and sees in-place updates.  A non-contiguous table
+    is copied and prepared at every call, never cached."""
+
+    def __init__(self, prepare):
+        self._prepare = prepare
+        self._entries = {}
+
+    def __len__(self):
+        return len(self._entries)
+
+    def get(self, table, key=None) -> Prepared:
+        k = (id(table), key)
+        entry = self._entries.get(k)
+        if entry is None or entry.table() is not table \
+                or entry.ptr != table.data_ptr():
+            if not table.is_contiguous():
+                copy = table.contiguous()
+                entry = self._prepare(copy, key)
+                entry.table = lambda: copy      # held for this call only
+                return entry
+            entry = self._prepare(table, key)
+            entry.table = weakref.ref(table, lambda ref: self._drop(k, ref))
+            self._entries[k] = entry
+        return entry
+
+    def _drop(self, k, ref):
+        entry = self._entries.get(k)
+        if entry is not None and entry.table is ref:
+            del self._entries[k]

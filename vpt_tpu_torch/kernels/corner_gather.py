@@ -7,21 +7,33 @@ neighbouring threads read neighbouring 16-byte pieces of a row
 
 - :func:`gather_rows` is the probe's function: float32 rows of any lane
   count, the counterpart of its benchmark;
-- :func:`corner_fetch` is the gather plus the trilinear lerp that the fit's
-  forward runs once per event (``sampling.sample_volume_packed`` on a table
-  that requires grad): it reads cell ``idx[j]``'s corner row from a
-  (rows, 8·C) float32 table and returns ``trilerp_chain(row, f[j])`` (C,),
-  bit for bit the plain version's result: the kernel runs the same float32
-  operations in the same order, built with ``-fmad=false``.  A one-ulp
-  difference would flip MC branches, and the kernel and the plain run
-  would then walk different path trees.
+- :func:`corner_fetch` is the packed volume fetch of
+  ``vpt_tpu.sampling.sample_volume_packed``, which ``sampling`` runs for
+  every fused fetch: it takes (..., 3) positions, computes each one's cell
+  and filter fractions (``sampling.corner_cells``), reads the cell's corner
+  row from a (rows, 8·C) float32 or bfloat16 table and returns
+  ``trilerp_chain(row, f)`` (..., C) in float32, bit for bit the plain
+  version's result: the kernel runs the same float32 operations in the
+  same order, built with ``-fmad=false``.  A one-ulp difference would flip
+  MC branches, and the kernel and the plain run would then walk different
+  path trees.  With ``save=True`` it also returns the cells and fractions,
+  which the fit's backward (``corner_scatter.corner_grad``) takes.
+
+Positions: a coordinate below the volume or above it clamps to the edge
+cell with fraction 0 (GL CLAMP_TO_EDGE); a NaN coordinate takes index 0 on
+its axis and a NaN fraction, so the value is NaN, in the kernel as in the
+plain version.
 
 Each function takes its plain PyTorch version for CPU tensors and launches
 the kernel for CUDA tensors; it never falls back.  An index outside
-``[0, rows)`` gives a NaN row in the kernels (the plain versions raise).
+``[0, rows)`` gives a NaN row in ``gather_rows``'s kernel (the plain
+version raises).  What a fetch needs of its table is prepared once per
+table and volume shape (``_build.TableCache``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -35,26 +47,17 @@ def gather_rows_plain(table, idx):
     return table[idx]
 
 
-def corner_fetch_plain(table, idx, f):
-    """(rows, 8·C) table, (...) int64 cells, (..., 3) fractions → (..., C)."""
-    from ..sampling import trilerp_chain
+def corner_fetch_plain(table, shape, position, save: bool = False):
+    """(rows, 8·C) table, (D, H, W, C) volume shape, (..., 3) positions →
+    (..., C) float32; with ``save`` also the (...) int64 cells and (..., 3)
+    fractions."""
+    from ..sampling import corner_cells, trilerp_chain
 
-    c = table.shape[1] // 8
+    c = shape[3]
+    idx, f = corner_cells(position, shape)
     rows = table[idx].to(torch.float32).reshape(idx.shape + (8, c))
-    return trilerp_chain(rows, f)
-
-
-def _check(table, idx, what):
-    if not (table.is_cuda and idx.device == table.device):
-        raise ValueError(f"{what}: table and indices must be on one CUDA "
-                         "device")
-    if table.dtype != torch.float32 or table.dim() != 2:
-        raise ValueError(f"{what} needs a 2-D float32 table")
-    if idx.dtype != torch.int64:
-        raise ValueError(f"{what} needs int64 indices")
-    table = table.contiguous()
-    _build.check_aligned(table, "the table")
-    return table, idx.contiguous()
+    out = trilerp_chain(rows, f)
+    return (out, idx, f) if save else out
 
 
 def gather_rows(table, idx):
@@ -62,7 +65,15 @@ def gather_rows(table, idx):
     if not table.is_cuda:
         return gather_rows_plain(table, idx)
     global LAUNCHES
-    table, idx = _check(table, idx, "gather_rows")
+    if idx.device != table.device:
+        raise ValueError("gather_rows: table and indices must be on one "
+                         "CUDA device")
+    if table.dtype != torch.float32 or table.dim() != 2:
+        raise ValueError("gather_rows needs a 2-D float32 table")
+    if idx.dtype != torch.int64:
+        raise ValueError("gather_rows needs int64 indices")
+    table, idx = table.contiguous(), idx.contiguous()
+    _build.check_aligned(table, "the table")
     rows, lanes = table.shape
     out = torch.empty(idx.shape + (lanes,), dtype=torch.float32,
                       device=table.device)
@@ -73,26 +84,61 @@ def gather_rows(table, idx):
     return out
 
 
-def corner_fetch(table, idx, f):
-    """Fused corner-row gather and trilinear lerp: (rows, 8·C) float32
-    table, (...) int64 cells, (..., 3) float32 fractions → (..., C)."""
+class _Table(ctypes.Structure):
+    """``VptCornerTable`` of ``csrc/corner_gather.cu``: what a fetch needs
+    of the corner table, passed as one pointer."""
+    _fields_ = [("table", ctypes.c_void_p), ("bf16", ctypes.c_int),
+                ("c", ctypes.c_int), ("w", ctypes.c_int), ("h", ctypes.c_int),
+                ("d", ctypes.c_int), ("device", ctypes.c_int)]
+
+
+def _prepare(table, shape):
+    d, h, w, c = shape
+    if not table.is_cuda or table.dim() != 2 \
+            or table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("corner_fetch needs a 2-D float32 or bfloat16 "
+                         "corner table on the positions' CUDA device")
+    if tuple(table.shape) != (d * h * w, 8 * c):
+        raise ValueError(f"a corner table of the volume {tuple(shape)} has "
+                         f"{(d * h * w, 8 * c)} rows and lanes, not "
+                         f"{tuple(table.shape)}")
+    _build.check_aligned(table, "the corner table")
+    device = table.get_device()
+    args = _Table(table.data_ptr(), int(table.dtype == torch.bfloat16), c, w,
+                  h, d, device)
+    return _build.Prepared(ptr=table.data_ptr(), c=c, device=device,
+                           args=args, address=ctypes.addressof(args),
+                           launch=_build.library().vpt_corner_fetch)
+
+
+_tables = _build.TableCache(_prepare)
+
+
+def corner_fetch(table, shape, position, save: bool = False):
+    """Trilinear fetch from a corner-packed (D·H·W, 8·C) float32 or
+    bfloat16 table at (..., 3) float32 positions → (..., C) float32; with
+    ``save`` also the (...) int64 cells and (..., 3) float32 fractions."""
     if not table.is_cuda:
-        return corner_fetch_plain(table, idx, f)
+        return corner_fetch_plain(table, shape, position, save)
     global LAUNCHES
-    table, idx = _check(table, idx, "corner_fetch")
-    rows, lanes = table.shape
-    if lanes % 8:
-        raise ValueError("a corner table has 8·C lanes")
-    if f.dtype != torch.float32 or f.device != table.device \
-            or tuple(f.shape) != tuple(idx.shape) + (3,):
-        raise ValueError("corner_fetch needs (..., 3) float32 fractions "
-                         "beside (...) indices")
-    f = f.contiguous()
-    c = lanes // 8
-    out = torch.empty(idx.shape + (c,), dtype=torch.float32,
-                      device=table.device)
-    _build.check("vpt_corner_fetch", _build.library().vpt_corner_fetch(
-        table.data_ptr(), rows, c, idx.data_ptr(), f.data_ptr(), idx.numel(),
-        out.data_ptr(), _build.stream_ptr(table)))
+    p = _tables.get(table, tuple(shape))
+    if position.dtype is not torch.float32 or position.shape[-1] != 3 \
+            or position.get_device() != p.device:
+        raise ValueError("corner_fetch needs (..., 3) float32 positions on "
+                         "the table's CUDA device")
+    if not position.is_contiguous():
+        position = position.contiguous()
+    batch = position.shape[:-1]
+    out = position.new_empty(batch + (p.c,))
+    cells = fractions = None
+    if save:
+        cells = position.new_empty(batch, dtype=torch.int64)
+        fractions = position.new_empty(position.shape)
+    err = p.launch(p.address, position.data_ptr(), position.numel() // 3,
+                   out.data_ptr(), None if cells is None else cells.data_ptr(),
+                   None if fractions is None else fractions.data_ptr(),
+                   _build.current_stream(p.device))
+    if err:
+        _build.check("vpt_corner_fetch", err)
     LAUNCHES += 1
-    return out
+    return (out, cells, fractions) if save else out

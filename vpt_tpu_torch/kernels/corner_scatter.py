@@ -83,8 +83,8 @@ def scatter_add_rows8(table, idx, ct):
 
 def corner_grad(idx, f, ct, rows: int, c: int):
     """The (rows, 8·C) float32 gradient of the corner table of
-    ``corner_fetch(table, idx, f)`` for the output cotangent ``ct``
-    (..., C)."""
+    ``corner_fetch(table, shape, position)``, whose cells and fractions are
+    ``idx`` and ``f``, for the output cotangent ``ct`` (..., C)."""
     if not ct.is_cuda:
         return corner_grad_plain(idx, f, ct, rows, c)
     global LAUNCHES

@@ -16,10 +16,16 @@ rounded to bfloat16 before ``w_i0·c[i0] + w_i1·c[i1]`` (float32).  ``None``
 keeps the bilinear formula.
 
 :func:`lookup` takes the plain PyTorch version for a CPU tensor and
-launches the kernel for a CUDA tensor; it never falls back.
+launches the kernel for a CUDA tensor; it never falls back.  What a launch
+needs of the table (its checks, pointer, width, mode, device and the grid's
+cap) is prepared once per table and mode (``_build.TableCache``); a call
+then checks the values, allocates the output and launches on PyTorch's
+current stream.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -76,40 +82,90 @@ def lookup_plain(table, values, mxu=None):
     return w0 * table[i0] + w1 * table[i1]
 
 
+#: the fields of :func:`launch_shape`, in the order ``vpt_tf1d_info``
+#: writes them
+LAUNCH_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
+                 "static_smem_bytes", "dynamic_smem_bytes")
+
+
+def launch_shape(width: int, device: int) -> dict:
+    """The standalone kernel's launch shape for a row of ``width`` texels
+    on CUDA device ``device``: threads a block, resident blocks an SM, SMs,
+    static and dynamic shared memory a block.  Launches nothing."""
+    out = (ctypes.c_int * len(LAUNCH_FIELDS))()
+    _build.check("vpt_tf1d_info",
+                 _build.library().vpt_tf1d_info(width, device, out))
+    return dict(zip(LAUNCH_FIELDS, out))
+
+
+class _Table(ctypes.Structure):
+    """``VptTf1dTable`` of ``csrc/tf1d.cu``: what a launch needs of the
+    table, passed as one pointer."""
+    _fields_ = [("table", ctypes.c_void_p), ("width", ctypes.c_int),
+                ("mode", ctypes.c_int), ("max_blocks", ctypes.c_int),
+                ("device", ctypes.c_int)]
+
+
+def _prepare(table, mxu):
+    mode = mode_code(mxu)
+    if not table.is_cuda or table.dtype != torch.float32 \
+            or table.dim() != 2 or table.shape[1] != 4:
+        raise ValueError("tf1d.lookup needs a (TW, 4) float32 table on the "
+                         "values' CUDA device")
+    width = table.shape[0]
+    check_width(width)
+    _build.check_aligned(table, "the TF table")
+    device = table.get_device()
+    shape = launch_shape(width, device)
+    args = _Table(table.data_ptr(), width, mode,
+                  max(1, shape["blocks_per_sm"] * shape["sms"]), device)
+    return _build.Prepared(ptr=table.data_ptr(), width=width, device=device,
+                           args=args, address=ctypes.addressof(args),
+                           launch=_build.library().vpt_tf1d_lookup)
+
+
+_tables = _build.TableCache(_prepare)
+
+
+def _launch(p, values, n):
+    """The kernel on the ``n`` CUDA ``values`` through the prepared table
+    ``p``."""
+    global LAUNCHES
+    if values.dtype is not torch.float32 or values.get_device() != p.device:
+        raise ValueError("tf1d.lookup needs float32 values on the table's "
+                         "CUDA device")
+    if not values.is_contiguous():
+        values = values.contiguous()
+    out = values.new_empty(values.shape + (4,))
+    err = p.launch(p.address, values.data_ptr(), out.data_ptr(), n,
+                   _build.current_stream(p.device))
+    if err:
+        _build.check("vpt_tf1d_lookup", err)
+    LAUNCHES += 1
+    return out
+
+
 def lookup(table, values, mxu=None):
     """values (...) float32 → (..., 4) float32 through the TF row
     ``table`` (from :func:`pack_table`), in the mode ``mxu``."""
     if not values.is_cuda:
         return lookup_plain(table, values, mxu)
-    global LAUNCHES
-    mode = mode_code(mxu)
-    width = table.shape[0]
-    check_width(width)
-    if table.device != values.device or table.dtype != torch.float32 \
-            or values.dtype != torch.float32 or table.shape[1:] != (4,):
-        raise ValueError("tf1d.lookup needs a (TW, 4) float32 table and "
-                         "float32 values on one CUDA device")
-    table = table.contiguous()
-    _build.check_aligned(table, "the TF table")
-    flat = values.contiguous()
-    out = torch.empty(values.shape + (4,), dtype=torch.float32,
-                      device=values.device)
-    lib = _build.library()
-    _build.check("vpt_tf1d_lookup", lib.vpt_tf1d_lookup(
-        table.data_ptr(), width, mode, flat.data_ptr(), out.data_ptr(),
-        flat.numel(), _build.stream_ptr(values)))
-    LAUNCHES += 1
-    return out
+    return _launch(_tables.get(table, mxu), values, values.numel())
 
 
 def lookup_1d(table, values, width: int, mxu=None):
     """values (H, W) in [0, 1] → (H, W, 4), the signature of
     ``vpt_tpu.pallas.tf1d.lookup_1d``.  Like the Pallas kernel it requires
     a pixel count that is a multiple of 128."""
-    h, w = values.shape
-    if (h * w) % 128 != 0:
-        raise ValueError("pixel count must be a multiple of 128")
-    if width != table.shape[0]:
-        raise ValueError(f"width {width} does not match the table's "
-                         f"{table.shape[0]} texels")
-    return lookup(table, values, mxu)
+    n = values.numel()
+    if values.ndim != 2 or n % 128:
+        raise ValueError("(H, W) values whose pixel count is a multiple of "
+                         "128")
+    # on the card the prepared table knows its width
+    p = _tables.get(table, mxu) if values.is_cuda else None
+    rows = table.shape[0] if p is None else p.width
+    if width != rows:
+        raise ValueError(f"width {width} does not match the table's {rows} "
+                         "texels")
+    return lookup_plain(table, values, mxu) if p is None \
+        else _launch(p, values, n)

@@ -86,21 +86,28 @@ class Scene:
 
     def _lookup(self, values):
         lookup = tf1d.lookup if self.kernels else tf1d.lookup_plain
-        return lookup(self.transfer_1d, values.contiguous(), self.tf_mxu)
+        return lookup(self.transfer_1d, values, self.tf_mxu)
 
-    def sample_volume_rg(self, position):
-        """texture(uVolume, p).rg: (value, 0) for a single-channel volume."""
+    def _sample_value(self, position):
+        """The single-channel volume value at ``position``, (...): the
+        packed corner fetch (K3 for CUDA positions unless
+        ``kernels=False``) or the 8-tap fetch of an unpacked scene."""
         if self.volume_packed is not None:
             s = sampling.sample_volume_packed(
                 self.volume_packed, tuple(self.volume.shape), position,
                 fused=self.kernels)
         else:
             s = sampling.sample_volume(self.volume, position)
+        return s[..., 0]
+
+    def sample_volume_rg(self, position):
+        """texture(uVolume, p).rg: (value, 0) for a single-channel volume."""
+        s = self._sample_value(position)[..., None]
         return torch.cat([s, torch.zeros_like(s)], dim=-1)
 
     def sample_color(self, position):
         """TF(volume(p)).  A rendering scene takes the single-channel value
-        through the tf1d lookup (the kernel for CUDA positions); a
+        straight to the tf1d lookup (the kernels for CUDA positions); a
         differentiable scene samples the packed TF texture at (value, 0),
         so autograd reaches the TF table through the gather and the value
         through the filter fraction.  A scene is differentiable when
@@ -114,7 +121,7 @@ class Scene:
             return sampling.sample_texture2d_packed(
                 self.transfer_packed, tuple(self.transfer.shape),
                 self.sample_volume_rg(position))
-        return self._lookup(self.sample_volume_rg(position)[..., 0])
+        return self._lookup(self._sample_value(position))
 
     def sample_color_tracking(self, position):
         """Color and Chebyshev distance from the cheb-skip table
@@ -124,7 +131,7 @@ class Scene:
         rounding (half to even, as jnp.round)."""
         v = sampling.sample_volume_packed(
             self.tracking_packed, tuple(self.volume.shape[:3]) + (1,),
-            position)[..., 0]
+            position, fused=self.kernels)[..., 0]
         empty = v < -0.5
         cheb = torch.round(torch.clamp(-v, min=0.0))
         vs = self._lookup(torch.clamp(v, min=0.0))

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import rng, sampling
+from ..utils import constant
 from . import mcm
 from .base import Scene, _not_ported
 
@@ -40,7 +41,7 @@ def _ratio(p, eps=1e-8, floor=None):
         return torch.ones_like(p)
     bound = eps if floor is None else max(eps, floor)
     # torch.maximum splits the gradient at a tie as jnp.maximum does
-    p = torch.maximum(p, torch.tensor(bound, dtype=p.dtype, device=p.device))
+    p = torch.maximum(p, constant(bound, p.dtype, p.device))
     return p / p.detach()
 
 

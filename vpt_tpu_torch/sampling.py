@@ -12,10 +12,15 @@ the corner table (a fix for a TPU scatter cliff) and the MXU one-hot TF
 matmul.  The port's single-channel TF lookup is ``kernels/tf1d.py``, which
 reproduces the matmul's rounded weights (``tf_mxu``).
 
-A corner table that requires grad is fetched through :class:`CornerFetch`,
-the port of ``vpt_tpu.sampling._select_trilerp`` (the fit's fused VJP): the
-forward is the fused gather and lerp of ``kernels/corner_gather.py`` (K3),
-the backward the corner scatter-add of ``kernels/corner_scatter.py`` (K4).
+The packed volume fetch (:func:`sample_volume_packed`) is the corner fetch
+of ``kernels/corner_gather.py`` (K3), which takes positions: on a table
+that requires grad it runs through :class:`CornerFetch`, the port of
+``vpt_tpu.sampling._select_trilerp`` (the fit's fused VJP), whose backward
+is the corner scatter-add of ``kernels/corner_scatter.py`` (K4).
+
+The per-axis bounds of the texture fetches are tensors built once per
+(sizes, device) (``utils.constant``): a CUDA tensor built from Python
+values at every call would wait for the stream at every call.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from . import rng
 from .kernels import corner_gather, corner_scatter
 from .math3d import apply_mat4
+from .utils import constant
 
 EPS = np.float32(1e-5)
 INVPI = np.float32(0.31830988618)
@@ -81,16 +87,22 @@ def pixel_ndc(height, width, device="cpu"):
 
 def _filter_coords(position, dims):
     """GL CLAMP_TO_EDGE filter coordinate: (i0 float, fraction)."""
-    dims_t = torch.tensor(dims, dtype=torch.float32, device=position.device)
-    u = torch.clamp(position * dims_t - 0.5, min=torch.zeros_like(dims_t),
-                    max=dims_t - 1.0)
+    dev = position.device
+    size = constant(tuple(dims), torch.float32, dev)
+    lo = constant((0.0,) * len(dims), torch.float32, dev)
+    hi = constant(tuple(float(n - 1) for n in dims), torch.float32, dev)
+    u = torch.clamp(position * size - 0.5, min=lo, max=hi)
     i0 = torch.floor(u)
     return i0, u - i0
 
 
+def _max_index(dims, device):
+    return constant(tuple(n - 1 for n in dims), torch.int64, device)
+
+
 def _clamp_index(i0f, dims):
-    maxi = torch.tensor(dims, dtype=torch.int64, device=i0f.device) - 1
-    return torch.minimum(torch.clamp(i0f.to(torch.int64), min=0), maxi)
+    return torch.minimum(torch.clamp(i0f.to(torch.int64), min=0),
+                         _max_index(dims, i0f.device))
 
 
 def sample_volume(volume, position):
@@ -99,8 +111,7 @@ def sample_volume(volume, position):
     d, h, w, _ = volume.shape
     i0f, f = _filter_coords(position, (w, h, d))
     i0 = _clamp_index(i0f, (w, h, d))
-    i1 = torch.minimum(i0 + 1, torch.tensor([w - 1, h - 1, d - 1],
-                                            device=i0.device))
+    i1 = torch.minimum(i0 + 1, _max_index((w, h, d), i0.device))
     flat = volume.reshape(d * h * w, -1)
 
     def tap(ix, iy, iz):
@@ -123,8 +134,7 @@ def sample_texture2d(texture, uv):
     h, w, _ = texture.shape
     i0f, f = _filter_coords(uv, (w, h))
     i0 = _clamp_index(i0f, (w, h))
-    i1 = torch.minimum(i0 + 1, torch.tensor([w - 1, h - 1],
-                                            device=i0.device))
+    i1 = torch.minimum(i0 + 1, _max_index((w, h), i0.device))
     flat = texture.reshape(h * w, -1)
 
     def tap(ix, iy):
@@ -173,19 +183,22 @@ def corner_cells(position, shape):
 
 class CornerFetch(torch.autograd.Function):
     """The differentiable packed volume fetch: forward
-    ``corner_gather.corner_fetch`` (the gather and lerp, bit for bit
-    :func:`trilerp_chain` over the gathered row), backward
-    ``corner_scatter.corner_grad`` (``w8(f) ⊗ ct`` scattered into the
-    table's gradient).  Only the cells and fractions are saved, as
-    ``vpt_tpu.sampling._select_trilerp_fwd`` saves them; positions are
-    detached (no gradient reaches ``f``), the contract of the MC gradient
-    estimators (``vpt_tpu/sampling.py:415-421``)."""
+    ``corner_gather.corner_fetch`` with ``save=True`` (the cells, the
+    gather and the lerp in one launch, bit for bit :func:`trilerp_chain`
+    over the gathered row), backward ``corner_scatter.corner_grad``
+    (``w8(f) ⊗ ct`` scattered into the table's gradient).  Only the cells
+    and fractions are saved, as ``vpt_tpu.sampling._select_trilerp_fwd``
+    saves them; positions are detached (no gradient reaches them), the
+    contract of the MC gradient estimators
+    (``vpt_tpu/sampling.py:415-421``)."""
 
     @staticmethod
-    def forward(ctx, table, idx, f):
+    def forward(ctx, table, shape, position):
+        out, idx, f = corner_gather.corner_fetch(table, shape, position,
+                                                 save=True)
         ctx.save_for_backward(idx, f)
         ctx.table_shape = tuple(table.shape)
-        return corner_gather.corner_fetch(table, idx, f)
+        return out
 
     @staticmethod
     def backward(ctx, ct):
@@ -200,20 +213,25 @@ def sample_volume_packed(packed, shape, position, fused: bool = True):
     """Trilinear fetch from a corner-packed (D·H·W, 8·C) table, float32 or
     bfloat16 rows; identical to :func:`sample_volume` on a float32 table.
 
-    When autograd records and the table requires grad, the fetch runs
-    through :class:`CornerFetch` (its kernels for CUDA tensors); the fit
-    packs float32 tables in the graph, and a bfloat16 table that requires
-    grad raises.  ``fused=False`` keeps the plain gather and lerp, whose
+    ``fused`` (the default) runs the corner fetch (K3 for CUDA tensors),
+    with or without autograd, and gives no gradient to the positions:
+    through :class:`CornerFetch` when autograd records and the table
+    requires grad (the fit packs float32 tables in the graph; positions are
+    detached, and a bfloat16 table that requires grad raises), else
+    directly.  Positions that alone require grad raise: a caller that needs
+    their gradient passes ``fused=False``, the plain gather and lerp, whose
     autograd backward is the full-Jacobian reference."""
-    c = shape[3]
-    idx, f = corner_cells(position, shape)
-    if fused and packed.requires_grad and torch.is_grad_enabled():
+    if not fused:
+        return corner_gather.corner_fetch_plain(packed, shape, position)
+    if torch.is_grad_enabled() and packed.requires_grad:
         if packed.dtype != torch.float32:
             raise ValueError("the differentiable fetch takes float32 corner "
                              f"tables, not {packed.dtype}")
-        return CornerFetch.apply(packed, idx, f.detach())
-    rows = packed[idx].to(torch.float32).reshape(idx.shape + (8, c))
-    return trilerp_chain(rows, f)
+        return CornerFetch.apply(packed, tuple(shape), position.detach())
+    if torch.is_grad_enabled() and position.requires_grad:
+        raise ValueError("the fused fetch gives no gradient to positions: "
+                         "pass fused=False for one")
+    return corner_gather.corner_fetch(packed, shape, position)
 
 
 def pack_corner_texture2d(texture):
@@ -273,7 +291,7 @@ def henyey_greenstein(state, g, direction):
     if abs(g) < EPS:
         return state, u
     # a float32 scalar tensor, so that g·g and 1 − g round as in float32
-    g = torch.tensor(g, device=direction.device)
+    g = constant(g, torch.float32, direction.device)
     state, hgcos = henyey_greenstein_cosine(state, g)
     proj = _dot3(u, direction)[..., None]
     perp = u - proj * direction

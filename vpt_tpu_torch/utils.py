@@ -1,7 +1,10 @@
 """Interpolation helpers, which mirror the tensor helpers of
-``vpt_tpu/utils.py``, and the port's default device."""
+``vpt_tpu/utils.py``, the port's default device and its cache of constant
+tensors."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,6 +19,18 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
                            "CPU")
     return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=256)
+def constant(value, dtype, device) -> torch.Tensor:
+    """The tensor ``torch.tensor(value, dtype=dtype, device=device)``,
+    built once per (value, dtype, device) and shared: on a CUDA device
+    each build is a host-to-device copy that waits for the stream, which a
+    per-call build would pay at every call.  ``value`` is a number or a
+    tuple of numbers.  Callers must not write to it.  It is built outside
+    inference mode, so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype, device=device)
 
 
 def clamp(x, lo, hi):
