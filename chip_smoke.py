@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's MCM forward render and its differentiable
-MCM fit once on one GPU.
+"""Drive the PyTorch/CUDA port's renderers (MCM, EAM, MIP, Depth, ISO,
+MCS) and its differentiable MCM fit once on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path TREE [TREE ...]
@@ -47,15 +47,27 @@ prints no result:
    1024×512 (more photons than the card holds at once) and timed, its
    bound counting the distinct corner rows a frame fetches.  The entry
    points build the volumes, TFs and scenes on the card by default;
-9. the fit path with every launch counter at 0 again: BASELINE config 3's
+9. the march kernel (K6) in each of its four modes, the ISO shade kernel
+   (K7) and the MCS kernel (K8) against their plain versions on the card
+   (the renderers' plain frames on the scene with ``kernels=False``):
+   the headline scene and a float32 ``blobs_volume(64)`` at 512², default
+   Params, 4 frames; then timed at the headline, each bound counting the
+   samples and distinct corner rows this run's frame takes;
+10. each renderer of that slice through the user's entry points at 512²
+   (``make_renderer``, 10 frames, ``display``, the ``reinhard`` tone
+   mapper) on the headline scene, EAM also on the 256³ sphere, each with
+   every launch counter at 0 just before it and read just after: one K6
+   or K8 launch a frame, one K2 a display, one K7 an ISO display, no K1,
+   K3, K4 or K5 launch;
+11. the fit path with every launch counter at 0 again: BASELINE config 3's
    256³ volume (``blobs_volume(256)`` as truth, a constant 0.2 volume as
    init, ``gray_ramp(alpha_scale=0.8)``), a 256² target rendered by the
    port's ``mcm_expected_image`` under ``no_grad``, one timed value-and-grad
    (grad events/s, peak memory), then ``train.fit_mc`` with its default
    Params (extinction 10, steps 16) for 3 Adam steps.  Frames are cut from
    the fit's default 64 to 16 for this script's time limit;
-10. every kernel launched on its path (8 or 9); the JSON line says which
-    call launched each.
+12. every kernel launched on its path (8, 10 or 11); the JSON line says
+    which call launched each.
 
 Then one JSON line with each kernel's launches, error, loop time per call
 (``ms``, CUDA events) and device time per launch (``device_ms``,
@@ -69,6 +81,7 @@ line
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -131,23 +144,27 @@ def profiler_device_ms(fn, match, reps=50):
     card, which the CUDA events of :func:`cuda_ms` do not give when a call
     costs the host more than the card.  Each kernel that matches counts
     once a call, at its mean over the launches the profiler recorded (it
-    may drop some).  None when it recorded none."""
+    may drop some, and at times records none: then it profiles once
+    more).  None when neither window recorded one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # the card's own events only: a runtime call (cudaLaunchKernel) carries
-    # its kernel's time too
-    means = [e.device_time_total / e.count for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and match in e.key
-             and e.count and e.device_time_total > 0]
-    return sum(means) / 1e3 if means else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        # the card's own events only: a runtime call (cudaLaunchKernel)
+        # carries its kernel's time too
+        means = [e.device_time_total / e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and match in e.key
+                 and e.count and e.device_time_total > 0]
+        if means:
+            return sum(means) / 1e3
+    return None
 
 
 def in_turns(fns, reps, rounds=3):
@@ -352,10 +369,12 @@ def phase_mcm_event(dev):
 def launch_counts():
     """Every kernel module's launch count, in one tuple."""
     from vpt_tpu_torch.kernels import corner_gather, corner_scatter
-    from vpt_tpu_torch.kernels import mcm_event, tf1d, tonemap_kernel
+    from vpt_tpu_torch.kernels import iso_shade, march, mcm_event, mcs_frame
+    from vpt_tpu_torch.kernels import tf1d, tonemap_kernel
 
     return tuple(m.LAUNCHES for m in (corner_gather, corner_scatter,
-                                      mcm_event, tf1d, tonemap_kernel))
+                                      mcm_event, tf1d, tonemap_kernel, march,
+                                      iso_shade, mcs_frame))
 
 
 def order_bound(counts, abs_sums):
@@ -708,12 +727,15 @@ def print_kernel_device_ms(scene, steps, frames=10):
     mcm_event.event_frame(state, scene, params, 0.1)
     torch.cuda.synchronize()
     paths0 = float(state["samples"].sum(dtype=torch.float64))
-    seeds = iter([0.2 + 0.001 * i for i in range(frames + 1)])
-    ms = profiler_device_ms(
-        lambda: mcm_event.event_frame(state, scene, params, next(seeds)),
-        "mcm_event_kernel", frames)
+    seeds = itertools.count()
+
+    def frame():
+        mcm_event.event_frame(state, scene, params, 0.2 + 0.001 * next(seeds))
+
+    ms = profiler_device_ms(frame, "mcm_event_kernel", frames)
+    # the frames run since paths0: the warm-up and each profiled window
     deposits = (float(state["samples"].sum(dtype=torch.float64))
-                - paths0) / (frames + 1)
+                - paths0) / next(seeds)
     rows = frame_rows(scene, state, params, 0.3)
     bound_ms, bound_by, nbytes, _ = event_bound(scene, 512 * 512, steps,
                                                 deposits, rows)
@@ -863,6 +885,410 @@ def phase_main_path(dev, counters):
     return rates, {name: m.LAUNCHES for name, m in counters.items()}
 
 
+# -- the march renderers and MCS (K6, K7, K8) ------------------------------
+
+#: the slice's renderers, each frame one launch of the kernel named
+FRAME_KERNEL = {"eam": "march_frame", "mip": "march_frame",
+                "depth": "march_frame", "iso": "march_frame",
+                "mcs": "mcs_frame"}
+#: float32 operations a march sample (the position's 6, the corner fetch's
+#: ~21, the TF lookup's ~14, the composite's up to ~10) and a pixel's ray
+#: setup (the unproject's 28 with 6 divisions, the slab test's 18 with 6,
+#: the segment's ~12, the integrate's 8); an ISO shade tap (fetch and TF)
+#: and the rest of its shade; an MCS tracking step (the draw's ~8 and its
+#: logf, the division, position, fetch, TF and the carry's ~10)
+MARCH_OPS_SAMPLE, MARCH_OPS_PIXEL = 50, 66
+SHADE_OPS_TAP, SHADE_OPS_PIXEL = 35, 40
+MCS_OPS_STEP, MCS_OPS_PIXEL = 70, 120
+
+
+def renderer_module(key):
+    from vpt_tpu_torch import renderers
+
+    return getattr(renderers, key)
+
+
+def kernel_and_plain_frames(key, scene, params, height, width, frames):
+    """Run ``frames`` frames of renderer ``key`` through its kernel and its
+    plain version on the scene with ``kernels=False`` (which launches no
+    kernel), from one reset state; returns both states."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch.kernels import march, mcs_frame
+
+    module = renderer_module(key)
+    reference = dataclasses.replace(scene, kernels=False)
+    state = module.reset(params, height, width, scene)
+    plain = state.clone()
+    for n in range(1, frames + 1):
+        seed = 0.3 + 0.01 * n
+        module.render_frame(state, scene, params, seed, n)
+        before = launch_counts()
+        if key == "mcs":
+            mcs_frame.mcs_frame_plain(plain, reference, params, seed, n)
+        else:
+            march.march_frame_plain(key, plain, reference, params, seed, n)
+        check(launch_counts() == before,
+              f"{key}: the plain frame launched a kernel")
+    torch.cuda.synchronize()
+    return state, plain
+
+
+def compare_states(label, key, got, want, exact):
+    """The share of pixels whose values are all within 1e-6 and the max
+    abs error; ``exact`` (a hit position or a depth) demands equality,
+    else at least 99.99% of the pixels within 1e-6."""
+    import torch
+
+    check(bool(torch.isfinite(got).all()), f"{label} {key}: not finite")
+    diff = (got - want).abs()
+    pixels = diff <= 1e-6
+    if pixels.dim() == 3:
+        pixels = pixels.all(-1)
+    share = float(pixels.float().mean())
+    err = float(diff.max())
+    if exact:
+        check(torch.equal(got, want), f"{label} {key}: not equal to the "
+              f"plain version (max abs err {err})")
+    else:
+        check(share >= 0.9999, f"{label} {key}: only {share:.6f} of the "
+              "pixels within 1e-6 of the plain version")
+    print(f"{key} {label}: {share:.6f} of the pixels within 1e-6 of the "
+          f"plain version ({'equal required' if exact else 'bound 0.9999'})"
+          f", max abs err {err}", flush=True)
+    return err
+
+
+def phase_frame_kernels(headline, dev):
+    """K6 in each mode, K7 and K8 against their plain versions on the card
+    at 512², default Params, 4 frames: the headline scene and a float32
+    one.  Returns the worst error of each kernel."""
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.kernels import iso_shade
+    from vpt_tpu_torch.renderers import make_scene
+
+    blobs = make_scene(volume.blobs_volume(64), transfer.gray_ramp(
+        alpha_scale=0.8), pack=True, device=dev)
+    worst = {"march_frame": 0.0, "iso_shade": 0.0, "mcs_frame": 0.0}
+    for label, scene in (("headline 512^2", headline),
+                         ("f32 blobs64 512^2", blobs)):
+        for key in FRAME_KERNEL:
+            module = renderer_module(key)
+            state, plain = kernel_and_plain_frames(key, scene,
+                                                   module.Params(), 512, 512,
+                                                   4)
+            err = compare_states(label + " 4 frames", key, state, plain,
+                                 key in ("depth", "iso"))
+            worst[FRAME_KERNEL[key]] = max(worst[FRAME_KERNEL[key]], err)
+            if key == "iso":
+                check(bool((state[..., 3] > 0).any()), f"{label}: no hit")
+                shaded = module.display(state, scene, module.Params())
+                want = iso_shade.iso_shade_plain(state, scene,
+                                                 module.Params())
+                worst["iso_shade"] = max(worst["iso_shade"], compare_states(
+                    label, "iso_shade", shaded, want, True))
+    return worst
+
+
+def march_work(key, scene, params, seed, height, width):
+    """(samples, distinct corner rows) of one march-kernel frame: the plain
+    version's schedule replayed slice by slice with the kernel's exits (a
+    miss samples nothing; EAM and Depth stop when inactive, ISO at the
+    first hit from the near end, MIP never), counting the positions the
+    kernel fetches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import sampling
+    from vpt_tpu_torch.renderers import _march
+
+    module = renderer_module(key)
+    ref = dataclasses.replace(scene, kernels=False)
+    tb, miss, start, end = _march.rays(ref, height, width)
+    seg = end - start
+    first, step = module.schedule(params, seed)
+    slices = params.slices if key in ("eam", "depth") else params.steps
+    rsl = _march.segment_length(start, end) * float(step)
+    active = ~miss
+    acc = torch.zeros_like(rsl)
+    t = torch.full_like(rsl, float(first))
+    cells, samples = [], 0
+    extinction = float(np.float32(getattr(params, "extinction", 0.0)))
+    for s in range(slices):
+        # the kernel's float32 schedule, in the kernel's order
+        if key == "iso":
+            ts = first - np.float32(slices - 1 - s) * step
+        else:
+            ts = first + np.float32(s) * step
+        if key == "mip":
+            ts = np.fmod(ts, np.float32(1.0))
+        if key == "eam":
+            active = active & (acc < 0.99) if ts < 1.0 \
+                else torch.zeros_like(active)
+        elif key == "depth":
+            active = active & (t < 1.0) & (acc < float(params.threshold))
+        ts = float(ts)
+        pos = (start + ts * seg)[active]
+        samples += pos.shape[0]
+        cells.append(sampling.corner_cells(pos, scene.volume.shape)[0])
+        alpha = ref.sample_color(start + ts * seg)[..., 3]
+        if key == "eam":
+            acc = torch.where(active, acc + (1.0 - acc) * (alpha * rsl
+                                                           * extinction),
+                              acc)
+        elif key == "depth":
+            acc = torch.where(active, acc + (1.0 - acc) * alpha * rsl
+                              * extinction, acc)
+            t = torch.where(active, t + float(step), t)
+        elif key == "iso":
+            active = active & ~(alpha >= float(params.isovalue))
+    return samples, int(torch.cat(cells).unique().numel())
+
+
+def shade_work(scene, state, h):
+    """(hits, distinct corner rows) of one ISO shade: the seven fetches of
+    every hit pixel."""
+    import torch
+
+    from vpt_tpu_torch import sampling
+
+    hit = state[..., 3] > 0
+    pos = state[..., :3][hit]
+    taps = [pos]
+    for axis in range(3):
+        offset = torch.zeros(3, device=pos.device)
+        offset[axis] = h
+        taps += [pos + offset, pos - offset]
+    rows = sampling.corner_cells(torch.cat(taps), scene.volume.shape)[0]
+    return int(hit.sum()), int(rows.unique().numel())
+
+
+def mcs_work(scene, params, seed, height, width):
+    """(tracking steps, distinct corner rows) of one MCS-kernel frame,
+    estimated from the plain frame's fetches: a pixel whose position did
+    not move since the previous fetch is done (its carry is frozen), and
+    a position outside the cube is a path that left its segment, which
+    the kernel does not fetch.  A lower estimate (a diffuse fetch at the
+    collision point is not counted)."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import sampling
+
+    ref = dataclasses.replace(scene, kernels=False)
+    last, cells, steps = [None], [], [0]
+    sampler = "sample_color_tracking" if scene.tracking_packed is not None \
+        else "sample_color"
+    original = getattr(ref, sampler)
+
+    def recording(pos):
+        moved = torch.ones_like(pos[..., 0], dtype=torch.bool) \
+            if last[0] is None or last[0].shape != pos.shape \
+            else (pos != last[0]).any(-1)
+        inside = ((pos >= 0.0) & (pos <= 1.0)).all(-1)
+        taken = pos[moved & inside]
+        steps[0] += taken.shape[0]
+        cells.append(sampling.corner_cells(taken, scene.volume.shape)[0])
+        last[0] = pos
+        return original(pos)
+
+    setattr(ref, sampler, recording)
+    renderer_module("mcs").generate(ref, params, seed, height, width)
+    return steps[0], int(torch.cat(cells).unique().numel())
+
+
+def frame_bound(scene, table, pixels, state_bytes, ops, rows):
+    """(ms, by, bytes): the distinct rows of ``table`` read once, the
+    state read and written once, the TF row read once."""
+    nbytes = rows * table.shape[1] * table.element_size() \
+        + 2 * pixels * state_bytes + scene.transfer_1d.numel() * 4
+    return (*roofline(nbytes, ops), nbytes)
+
+
+def time_frame_kernels(scene):
+    """ms (CUDA events over back-to-back frames), device ms (profiler) and
+    the plain version's ms of K6 in each mode, K7 and K8 at the main
+    path's shape (the headline at 512², default Params), with each
+    frame's bound from this run's work.  Returns the three rows' fields."""
+    import dataclasses
+
+    from vpt_tpu_torch.kernels import iso_shade, march, mcs_frame
+
+    n = 512 * 512
+    ref = dataclasses.replace(scene, kernels=False)
+    k6 = {}
+    for key in ("eam", "mip", "depth", "iso"):
+        module = renderer_module(key)
+        params = module.Params()
+        state = module.reset(params, 512, 512, scene)
+        module.render_frame(state, scene, params, 0.4, 1)
+        plain = state.clone()
+
+        def frame():
+            march.march_frame(key, state, scene, params, 0.5, 2)
+
+        ms = cuda_ms(frame, 20)
+        device_ms = profiler_device_ms(frame, "march_kernel", 20)
+        plain_ms = cuda_ms(lambda: march.march_frame_plain(
+            key, plain, ref, params, 0.5, 2), 2)
+        samples, rows = march_work(key, scene, params, 0.5, 512, 512)
+        bound_ms, bound_by, nbytes = frame_bound(
+            scene, scene.volume_packed, n, 4 if key == "mip" else 16,
+            samples * MARCH_OPS_SAMPLE + n * MARCH_OPS_PIXEL, rows)
+        print(f"march_frame {key} 512^2 headline: {ms:.4f} ms a frame, "
+              f"device {fmt_ms(device_ms)}, plain {plain_ms:.4f} ms; "
+              f"{samples} samples ({samples / n:.4g} a pixel), {rows} "
+              f"distinct corner rows; bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{nbytes} bytes)", flush=True)
+        k6[key] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "samples": samples, "corner_rows": rows}
+        if key == "iso":
+            iso_state = state
+    # the row's own numbers are EAM's; every mode's beside them
+    row6 = {k: k6["eam"][k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
+    row6["library_ms"] = None
+    for key, fields in k6.items():
+        for k, v in fields.items():
+            row6[f"{k}_{key}"] = v
+
+    iso = renderer_module("iso")
+    params = iso.Params()
+    ms = cuda_ms(lambda: iso.display(iso_state, scene, params), 20)
+    device_ms = profiler_device_ms(lambda: iso.display(iso_state, scene,
+                                                       params),
+                                   "iso_shade_kernel", 20)
+    plain_ms = cuda_ms(lambda: iso_shade.iso_shade_plain(iso_state, scene,
+                                                         params), 5)
+    hits, rows = shade_work(scene, iso_state, params.gradient_step)
+    bound_ms, bound_by, nbytes = frame_bound(
+        scene, scene.volume_packed, n, 16,
+        hits * (7 * SHADE_OPS_TAP + SHADE_OPS_PIXEL), rows)
+    print(f"iso_shade 512^2 headline: {ms:.4f} ms a display, device "
+          f"{fmt_ms(device_ms)}, plain {plain_ms:.4f} ms; {hits} hits, "
+          f"{rows} distinct corner rows; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes} bytes)", flush=True)
+    row7 = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "hits": hits, "corner_rows": rows}
+
+    mcs = renderer_module("mcs")
+    params = mcs.Params()
+    state = mcs.reset(params, 512, 512, scene)
+    plain = state.clone()
+
+    def frame():
+        mcs_frame.mcs_frame(state, scene, params, 0.5, 2)
+
+    ms = cuda_ms(frame, 20)
+    device_ms = profiler_device_ms(frame, "mcs_frame_kernel", 20)
+    plain_ms = cuda_ms(lambda: mcs_frame.mcs_frame_plain(plain, ref, params,
+                                                         0.5, 2), 2)
+    steps, rows = mcs_work(scene, params, 0.5, 512, 512)
+    bound_ms, bound_by, nbytes = frame_bound(
+        scene, scene.tracking_packed, n, 16,
+        steps * MCS_OPS_STEP + n * MCS_OPS_PIXEL, rows)
+    print(f"mcs_frame 512^2 headline: {ms:.4f} ms a frame, device "
+          f"{fmt_ms(device_ms)}, plain {plain_ms:.4f} ms; {steps} tracking "
+          f"steps ({steps / n:.4g} a pixel), {rows} distinct corner rows; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes)",
+          flush=True)
+    row8 = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "tracking_steps": steps, "corner_rows": rows}
+    return row6, row7, row8
+
+
+def phase_renderer_paths(dev, counters, headline):
+    """Each renderer of the slice through the user's entry points at 512²
+    (make_renderer, render, display, the reinhard tone mapper), EAM also on
+    the 256³ sphere, each with every launch counter at 0 just before it
+    and read just after.  Returns each path's launches."""
+    import torch
+
+    from vpt_tpu_torch import tonemap, transfer, volume
+    from vpt_tpu_torch.renderers import make_renderer, make_scene
+
+    t0 = time.perf_counter()
+    sphere256 = make_scene(volume.sphere_volume(256),
+                           transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                           tracking="auto", pack_dtype=torch.bfloat16,
+                           tf_mxu=True)
+    torch.cuda.synchronize()
+    table_bytes = sphere256.volume_packed.numel() * 2
+    print(f"scene: 256^3 sphere, bf16 tables ({table_bytes} bytes of corner "
+          f"rows), built in {time.perf_counter() - t0:.3f} s", flush=True)
+    paths = {}
+    frames = 10
+    for key, scene, label in (("eam", headline, "128^3"),
+                              ("mip", headline, "128^3"),
+                              ("depth", headline, "128^3"),
+                              ("iso", headline, "128^3"),
+                              ("mcs", headline, "128^3"),
+                              ("eam", sphere256, "256^3")):
+        for module in counters.values():
+            module.LAUNCHES = 0
+        renderer = make_renderer(key, height=512, width=512)
+        renderer.reset(scene)
+        renderer.render(scene, 0.123)                       # warm-up frame
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(frames):
+            renderer.render(scene, 0.2 + 0.001 * i)
+        torch.cuda.synchronize()
+        frame_s = (time.perf_counter() - t0) / frames
+        hdr = renderer.display(scene)
+        image = tonemap.ToneMapper("reinhard")(hdr)
+        torch.cuda.synchronize()
+        launches = {name: m.LAUNCHES for name, m in counters.items()}
+        name = f"{key} {label}"
+        kernel = FRAME_KERNEL[key]
+        check(launches[kernel] == frames + 1,
+              f"{name}: {launches[kernel]} {kernel} launches for "
+              f"{frames + 1} frames")
+        check(launches["tonemap"] == 1, f"{name}: tonemap not launched once")
+        check(launches["iso_shade"] == (1 if key == "iso" else 0),
+              f"{name}: iso_shade launches {launches['iso_shade']}")
+        for other in ("tf1d_lookup", "corner_gather", "corner_scatter",
+                      "mcm_event"):
+            check(launches[other] == 0, f"{name}: {other} launched "
+                  f"{launches[other]} times on the path")
+        check(tuple(image.shape) == (512, 512, 4)
+              and bool(torch.isfinite(image).all())
+              and bool((image[..., 3] == 1.0).all()),
+              f"{name}: display image not finite RGBA with alpha 1")
+        check(0.0 <= float(image[..., :3].min())
+              and float(image[..., :3].max()) <= 1.0,
+              f"{name}: display out of [0, 1]")
+        mean = float(hdr[..., :3].mean())
+        check(float(hdr[..., :3].abs().max()) > 0.0, f"{name}: black image")
+        seeds = itertools.count()
+        device_ms = profiler_device_ms(
+            lambda: renderer.render(scene, 0.3 + 0.001 * next(seeds)),
+            "mcs_frame_kernel" if key == "mcs" else "march_kernel", 20)
+        if key == "mcs":
+            rate = f"{512 * 512 / frame_s:.6g} paths/s"
+        else:
+            slices = getattr(renderer.params, "slices", None) \
+                or renderer.params.steps
+            rate = f"{512 * 512 * slices / frame_s:.6g} samples/s"
+        print(f"path {name} 512^2: {frame_s * 1e3:.4f} ms a frame (host "
+              f"clock, {frames} frames), device {fmt_ms(device_ms)} a "
+              f"frame; {rate}; HDR mean {mean:.6f}; launches: "
+              + ", ".join(f"{k} {v}" for k, v in launches.items()),
+              flush=True)
+        paths[name] = {"frame_ms": frame_s * 1e3, "device_ms": device_ms,
+                       "launches": launches}
+    del sphere256
+    return paths
+
+
 def run():
     import torch
 
@@ -871,7 +1297,8 @@ def run():
     sys.path.insert(0, root)
     try:
         from vpt_tpu_torch.kernels import _build, corner_gather
-        from vpt_tpu_torch.kernels import corner_scatter, mcm_event, tf1d
+        from vpt_tpu_torch.kernels import corner_scatter, iso_shade, march
+        from vpt_tpu_torch.kernels import mcm_event, mcs_frame, tf1d
         from vpt_tpu_torch.kernels import tonemap_kernel
     except ImportError as exc:
         raise SmokeFailure(f"vpt_tpu_torch is not importable from {root}: "
@@ -919,12 +1346,20 @@ def run():
     k5["device_ms"] = k5["device_ms_steps8"]
     k5["registers"] = occupancy["registers"]
     k5["blocks_per_sm"] = occupancy["blocks_per_sm"]
-    del headline
+
+    errors = phase_frame_kernels(headline, dev)
+    k6, k7, k8 = time_frame_kernels(headline)
+    for row, name in ((k6, "march_frame"), (k7, "iso_shade"),
+                      (k8, "mcs_frame")):
+        row["max_abs_err"] = errors[name]
 
     counters = {"mcm_event": mcm_event, "tf1d_lookup": tf1d,
                 "tonemap": tonemap_kernel, "corner_gather": corner_gather,
-                "corner_scatter": corner_scatter}
+                "corner_scatter": corner_scatter, "march_frame": march,
+                "iso_shade": iso_shade, "mcs_frame": mcs_frame}
     rates, render_launches = phase_main_path(dev, counters)
+    paths = phase_renderer_paths(dev, counters, headline)
+    del headline
     torch.cuda.empty_cache()
     fit_launches = phase_fit_path(dev, counters)
     for path, launches, names in (
@@ -967,11 +1402,31 @@ def run():
          "replaces": "benchmarks/pallas_scatter_bwd.py:41",
          "launched_by": "train.fit_mc: sampling.CornerFetch backward, one "
                         "corner_grad per event (fit path)", **k4},
+        {"name": "march_frame", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/march.cu",
+         "replaces": "vpt_tpu/renderers/_march.py:29",
+         "launched_by": "Renderer.render of eam, mip, depth and iso (every "
+                        "frame; the EAM, MIP, Depth and ISO paths); runs "
+                        "the ray.cuh corner fetch and the tf1d.cuh lookup "
+                        "on every sample", **k6},
+        {"name": "iso_shade", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/iso_shade.cu",
+         "replaces": "vpt_tpu/renderers/iso.py:109",
+         "launched_by": "Renderer.display of iso (the ISO path)", **k7},
+        {"name": "mcs_frame", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/mcs_frame.cu",
+         "replaces": "vpt_tpu/renderers/mcs.py:47",
+         "launched_by": "Renderer.render of mcs (every frame; the MCS "
+                        "path)", **k8},
     ]
     for row in rows:
-        launches = fit_launches if row["name"].startswith("corner") \
-            else render_launches
-        row["launches"] = launches[row["name"]]
+        if row["name"].startswith("corner"):
+            row["launches"] = fit_launches[row["name"]]
+        elif row["name"] in ("march_frame", "iso_shade", "mcs_frame"):
+            row["launches"] = sum(p["launches"][row["name"]]
+                                  for p in paths.values())
+        else:
+            row["launches"] = render_launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -16,9 +16,10 @@ from vpt_tpu_torch import rng, sampling, train
 from vpt_tpu_torch import tonemap as tm
 from vpt_tpu_torch import transfer, volume
 from vpt_tpu_torch.kernels import _build, corner_gather, corner_scatter
-from vpt_tpu_torch.kernels import mcm_event, tf1d, tonemap_kernel
+from vpt_tpu_torch.kernels import iso_shade, march, mcm_event, mcs_frame
+from vpt_tpu_torch.kernels import tf1d, tonemap_kernel
 from vpt_tpu_torch.renderers import make_scene
-from vpt_tpu_torch.renderers import mcm
+from vpt_tpu_torch.renderers import depth, eam, iso, mcm, mcs, mip
 
 pytestmark = pytest.mark.cuda
 
@@ -180,7 +181,8 @@ def _headline_scene(n, cuda):
 
 def _launches():
     return (corner_gather.LAUNCHES, corner_scatter.LAUNCHES,
-            mcm_event.LAUNCHES, tf1d.LAUNCHES, tonemap_kernel.LAUNCHES)
+            mcm_event.LAUNCHES, tf1d.LAUNCHES, tonemap_kernel.LAUNCHES,
+            march.LAUNCHES, iso_shade.LAUNCHES, mcs_frame.LAUNCHES)
 
 
 def _plain_frame(plain, scene, params, seed):
@@ -565,3 +567,165 @@ def test_fit_value_and_grad_kernels_match_plain(cuda):
     assert l0 == l1
     assert bool(torch.isfinite(g0).all()) and float(g0.abs().max()) > 0
     assert float((g0 - g1).norm() / g1.norm()) <= 1e-4
+
+
+# -- the march (K6), ISO shade (K7) and MCS (K8) kernels ------------------
+
+RENDERERS = {"eam": eam, "mip": mip, "depth": depth, "iso": iso, "mcs": mcs}
+
+
+def _scene(kind, cuda):
+    """float32 tables (blobs 24³), or the headline's: bf16 tables, the
+    bf16-weight TF lookup, the sRGB TF and a cheb-skip table."""
+    if kind == "f32":
+        return make_scene(volume.blobs_volume(24, seed=3, device=cuda),
+                          transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                          device=cuda)
+    return _headline_scene(24, cuda)
+
+
+def _kernel_frames(key, scene, height, width, frames, params=None):
+    """``frames`` frames of renderer ``key`` through its kernel and
+    through the plain version on the scene with ``kernels=False``, from
+    one reset state; the plain frames launch no kernel."""
+    module = RENDERERS[key]
+    params = params or module.Params()
+    state = module.reset(params, height, width, scene)
+    plain = state.clone()
+    counter = mcs_frame if key == "mcs" else march
+    before = counter.LAUNCHES
+    for n in range(1, frames + 1):
+        module.render_frame(state, scene, params, 0.3 + 0.01 * n, n)
+        launched = _launches()
+        if key == "mcs":
+            mcs_frame.mcs_frame_plain(plain, scene, params, 0.3 + 0.01 * n,
+                                      n)
+        else:
+            march.march_frame_plain(key, plain, scene, params,
+                                    0.3 + 0.01 * n, n)
+        assert _launches() == launched
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == before + frames
+    return state, plain
+
+
+def assert_kernel_agrees(key, state, plain):
+    """The kernels run the plain frames' float32 operations without
+    contraction: at least 99.99% of the values within 1e-6 (EAM, MIP,
+    MCS), and equal where the output is a hit position or a depth (ISO,
+    Depth)."""
+    assert bool(torch.isfinite(state).all())
+    if key in ("iso", "depth"):
+        assert torch.equal(state, plain)
+        return
+    close = ((state - plain).abs() <= 1e-6).float().mean().item()
+    assert close >= 0.9999, close
+
+
+@pytest.mark.parametrize("height,width", [(64, 64), (48, 80)],
+                         ids=["64x64", "48x80"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("key", ["eam", "mip", "depth", "iso", "mcs"])
+def test_frame_kernels_match_plain(cuda, key, kind, height, width):
+    """K6 in each mode and K8 against the renderers' plain frames on the
+    same card, 3 frames (the integrate's replace, then its mean, max or
+    nearer hit), one launch a frame."""
+    scene = _scene(kind, cuda)
+    params = mcs.Params(extinction=8.0) if key == "mcs" else None
+    state, plain = _kernel_frames(key, scene, height, width, 3, params)
+    assert_kernel_agrees(key, state, plain)
+    if key == "iso":
+        assert bool((state[..., 3] > 0).any())
+
+
+@pytest.mark.parametrize("height,width", [(64, 64), (48, 80)],
+                         ids=["64x64", "48x80"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_iso_shade_kernel_matches_plain(cuda, kind, height, width):
+    """K7 on an ISO state with hits and misses: equal to the plain
+    shade, one launch a display."""
+    scene = _scene(kind, cuda)
+    state, _ = _kernel_frames("iso", scene, height, width, 2)
+    before = iso_shade.LAUNCHES
+    got = iso.display(state, scene, iso.Params())
+    want = iso_shade.iso_shade_plain(state, scene, iso.Params())
+    torch.cuda.synchronize()
+    assert iso_shade.LAUNCHES == before + 1
+    hit = state[..., 3] > 0
+    assert bool(hit.any()) and bool((~hit).any())
+    assert torch.equal(got, want)
+
+
+def test_march_kernel_eam_modes_on_a_random_schedule(cuda):
+    """EAM with a fixed schedule (random=False) and a short one (8
+    slices), and Depth with a jittered one: the kernel's exits follow the
+    plain masks."""
+    scene = _scene("bf16", cuda)
+    for key, params in (("eam", eam.Params(slices=8, random=False)),
+                        ("eam", eam.Params(extinction=20.0)),
+                        ("depth", depth.Params(random=True,
+                                               threshold=0.5))):
+        state, plain = _kernel_frames(key, scene, 40, 40, 2, params)
+        assert_kernel_agrees(key, state, plain)
+
+
+@pytest.mark.parametrize("key", ["eam", "iso", "mcs"])
+def test_frame_kernels_follow_the_current_stream(cuda, key):
+    """Under ``torch.cuda.stream(s)`` the launch goes to ``s``: the state
+    is written on ``s`` behind a ~10 ms sleep, so a launch on another
+    stream would read it before it exists."""
+    scene = _scene("f32", cuda)
+    module = RENDERERS[key]
+    params = module.Params()
+    reset = module.reset(params, 64, 64, scene)
+    plain = reset.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        state = reset * 1.0
+        module.render_frame(state, scene, params, 0.4, 1)
+        shaded = iso.display(state, scene, params) if key == "iso" else None
+    side.synchronize()
+    if key == "mcs":
+        mcs_frame.mcs_frame_plain(plain, scene, params, 0.4, 1)
+    else:
+        march.march_frame_plain(key, plain, scene, params, 0.4, 1)
+    torch.cuda.synchronize()
+    assert_kernel_agrees(key, state, plain)
+    if key == "iso":
+        assert torch.equal(shaded, iso_shade.iso_shade_plain(plain, scene,
+                                                             params))
+
+
+def test_frame_kernels_refuse_what_they_do_not_take(cuda):
+    """Unpacked scenes (all three), environment maps larger than 1×1
+    (MCS), and states of another shape or device raise; nothing falls
+    back to the plain versions."""
+    unpacked = make_scene(volume.sphere_volume(8, device=cuda),
+                          transfer.gray_ramp(device=cuda), pack=False,
+                          device=cuda)
+    before = _launches()
+    for key in ("eam", "mip", "depth", "iso", "mcs"):
+        module = RENDERERS[key]
+        state = module.reset(module.Params(), 8, 8, unpacked)
+        with pytest.raises(NotImplementedError):
+            module.render_frame(state, unpacked, module.Params(), 0.1, 1)
+    with pytest.raises(NotImplementedError):
+        iso.display(torch.full((8, 8, 4), 0.5, device=cuda), unpacked,
+                    iso.Params())
+    wide = make_scene(volume.sphere_volume(8, device=cuda),
+                      transfer.gray_ramp(device=cuda),
+                      environment=torch.ones(4, 8, 4), device=cuda)
+    with pytest.raises(NotImplementedError):
+        mcs.render_frame(mcs.reset(mcs.Params(), 8, 8, wide), wide,
+                         mcs.Params(), 0.1, 1)
+    scene = _scene("f32", cuda)
+    with pytest.raises(ValueError):
+        eam.render_frame(torch.zeros(8, 8, device=cuda), scene,
+                         eam.Params(), 0.1, 1)
+    with pytest.raises(ValueError):
+        mip.render_frame(torch.zeros(8, 8, dtype=torch.float64,
+                                     device=cuda), scene, mip.Params(),
+                         0.1, 1)
+    assert _launches() == before

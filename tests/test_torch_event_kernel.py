@@ -182,10 +182,11 @@ def test_event_kernel_preparation_lets_the_scene_go():
 
     scene = make_scene(volume.sphere_volume(8, device="cpu"),
                        transfer.gray_ramp(device="cpu"), device="cpu")
-    prepared = mcm_event._prepare(scene, False, 4, 6)
-    assert mcm_event._prepare(scene, False, 4, 6) is prepared
+    cache = mcm_event._scene_cache
+    prepared = cache.get(scene, (False, 4, 6))
+    assert cache.get(scene, (False, 4, 6)) is prepared
     assert prepared.args[-2:] == (6, 4)
-    assert mcm_event._prepare(scene, False, 4, 5) is not prepared
+    assert cache.get(scene, (False, 4, 5)) is not prepared
     del prepared, scene
     gc.collect()
-    assert mcm_event._prepared is None
+    assert cache._last is None

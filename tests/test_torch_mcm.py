@@ -271,9 +271,12 @@ def test_unported_options_raise(kwargs):
 
 
 def test_factory_keys():
+    from vpt_tpu_torch.renderers import eam
+
     assert factory.get_module("mcm") is tmcm
+    assert factory.get_module("eam") is eam
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_module("eam")
+        factory.get_module("dos")
     with pytest.raises(ValueError):
         factory.get_module("nope")
     with pytest.raises(ValueError):

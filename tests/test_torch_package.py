@@ -41,7 +41,8 @@ def test_every_module_imports():
 
 @pytest.mark.parametrize("source", ["tf1d.cu", "tonemap.cu",
                                     "mcm_event.cu", "corner_gather.cu",
-                                    "corner_scatter.cu"])
+                                    "corner_scatter.cu", "march.cu",
+                                    "iso_shade.cu", "mcs_frame.cu"])
 def test_kernel_sources_carry_their_note(source):
     """Each kernel names the TPU function it replaces, what bounds it on
     the H100 and what its design does about that."""
@@ -56,7 +57,8 @@ def test_build_flags_and_entry_points():
     assert set(_build.SIGNATURES) == {
         "vpt_tf1d_lookup", "vpt_tf1d_info", "vpt_tonemap", "vpt_mcm_event",
         "vpt_mcm_event_info", "vpt_gather_rows", "vpt_corner_fetch",
-        "vpt_scatter_add_rows8", "vpt_corner_grad"}
+        "vpt_scatter_add_rows8", "vpt_corner_grad", "vpt_march_frame",
+        "vpt_iso_shade", "vpt_mcs_frame"}
     sources = " ".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))
     for name, argtypes in _build.SIGNATURES.items():
         # ctypes passes exactly the C function's parameters

@@ -5,7 +5,9 @@
 // (render_frame; flight_phase :85-110, interact_phase :113-184,
 // _photon_reset :45-55, Scene.sample_color_tracking in base.py:187-219).
 // It has no Pallas original; its TF lookup is the device function of the
-// tf1d kernel (vpt_tpu/pallas/tf1d.py:74-100, here tf1d.cuh).
+// tf1d kernel (vpt_tpu/pallas/tf1d.py:74-100, here tf1d.cuh), and its RNG,
+// ray setup and corner fetch are those of ray.cuh, which the march, ISO
+// shade and MCS kernels share.
 //
 // Bound on the H100: every event runs ~110 float32 operations (flight,
 // one dependent 16-byte (bf16) or 32-byte (f32) corner-row read, the TF
@@ -45,31 +47,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tf1d.cuh"
+#include "ray.cuh"
 
 namespace {
 
 #define F32(x) ((float)(x))
 
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ uint32_t pcg(uint32_t x) {
-  x = x * 747796405u + 2891336453u;
-  x = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
-  return (x >> 22u) ^ x;
-}
-
-// state = pcg(state); u = float(state) / float(~0u).  float(~0u) is 2^32,
-// so the quotient is exact and equals the product with 2^-32
-__device__ __forceinline__ float uniform(uint32_t& s) {
-  s = pcg(s);
-  return __uint2float_rn(s) * F32(2.3283064365386963e-10);
-}
-
-// sampling.pixel_ndc: (i + 0.5) / n * 2 - 1, the IEEE quotient
-__device__ __forceinline__ float pixel_ndc(int i, int n) {
-  return ((float)i + 0.5f) / (float)n * 2.0f - 1.0f;
-}
 
 struct Args {
   float* position;       // (n, 3)
@@ -90,44 +74,6 @@ struct Args {
   int max_bounces, steps, use_skip;
 };
 
-// Trilinear fetch from a corner-packed table (sampling.py:480-510): the
-// GL CLAMP_TO_EDGE coordinate, one row of the 8 corners (z, y, x; x minor),
-// then the lerp chain of _trilerp_chain (sampling.py:424-432).
-template <bool kBf16>
-__device__ __forceinline__ float fetch(const void* table, int d, int h, int w,
-                                       float px, float py, float pz) {
-  float ux = vpt_clip(px * (float)w - 0.5f, 0.0f, (float)(w - 1));
-  float uy = vpt_clip(py * (float)h - 0.5f, 0.0f, (float)(h - 1));
-  float uz = vpt_clip(pz * (float)d - 0.5f, 0.0f, (float)(d - 1));
-  float ix = floorf(ux), iy = floorf(uy), iz = floorf(uz);
-  float fx = ux - ix, fy = uy - iy, fz = uz - iz;
-  int64_t row = ((int64_t)vpt_index(iz, d - 1) * h + vpt_index(iy, h - 1))
-                    * w + vpt_index(ix, w - 1);
-  float c[8];
-  if (kBf16) {
-    uint4 q = __ldg((const uint4*)table + row);
-    uint32_t words[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      c[2 * k] = __uint_as_float(words[k] << 16);
-      c[2 * k + 1] = __uint_as_float(words[k] & 0xFFFF0000u);
-    }
-  } else {
-    float4 a = __ldg((const float4*)table + 2 * row);
-    float4 b = __ldg((const float4*)table + 2 * row + 1);
-    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
-    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
-  }
-  float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
-  float cx0 = c[0] * gx + c[1] * fx;
-  float cx1 = c[2] * gx + c[3] * fx;
-  float cx2 = c[4] * gx + c[5] * fx;
-  float cx3 = c[6] * gx + c[7] * fx;
-  float cy0 = cx0 * gy + cx1 * fy;
-  float cy1 = cx2 * gy + cx3 * fy;
-  return cy0 * gz + cy1 * fz;
-}
-
 // resetPhoton (mcm.py:45-55): stochastic unproject (4 uniforms: disk, then
 // square), normalize, clip to the cube.  m: the inverse MVP, row-major.
 // Without blur the disk offset is a finite value times 0, so ndc + offset
@@ -138,46 +84,28 @@ __device__ __forceinline__ void photon_reset(uint32_t& s, float ndcx,
                                              float dir[3]) {
   float nx = ndcx, ny = ndcy;
   if (a.blur == 0.0f) {
-    s = pcg(pcg(s));
+    s = vpt_pcg(vpt_pcg(s));
   } else {
-    float r = uniform(s);
-    float ang = F32(6.28318530718) * uniform(s);
+    float r = vpt_uniform(s);
+    float ang = F32(6.28318530718) * vpt_uniform(s);
     float radius = sqrtf(r);
     float diskx = radius * cosf(ang), disky = radius * sinf(ang);
     nx = ndcx + diskx * a.blur;
     ny = ndcy + disky * a.blur;
   }
-  float aax = uniform(s), aay = uniform(s);
+  float aax = vpt_uniform(s), aay = vpt_uniform(s);
   float fx = ndcx + (aax * 2.0f - 1.0f) * a.inv_res_x;
   float fy = ndcy + (aay * 2.0f - 1.0f) * a.inv_res_y;
-  // apply_mat4 (math3d.py:152-156): out_i = v0 m[i,0] + v1 m[i,1] + ...
-  float f4[4], t4[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f4[i] = nx * m[4 * i] + ny * m[4 * i + 1] + -1.0f * m[4 * i + 2]
-            + 1.0f * m[4 * i + 3];
-    t4[i] = fx * m[4 * i] + fy * m[4 * i + 1] + 1.0f * m[4 * i + 2]
-            + 1.0f * m[4 * i + 3];
-  }
   float from[3], to[3];
+  vpt_unproject(m, nx, ny, fx, fy, from, to);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    from[k] = f4[k] / f4[3];
-    to[k] = t4[k] / t4[3];
-    dir[k] = to[k] - from[k];
-  }
+  for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
   float n2 = dir[0] * dir[0] + dir[1] * dir[1] + dir[2] * dir[2];
   float norm = sqrtf(vpt_nmax(n2, F32(1e-20)));
-  float tnear = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    dir[k] = dir[k] / norm;
-    // intersect_cube (sampling.py:39-47)
-    float tmin = (0.0f - from[k]) / dir[k];
-    float tmax = (1.0f - from[k]) / dir[k];
-    float t1 = vpt_nmin(tmin, tmax);
-    tnear = (k == 0) ? t1 : vpt_nmax(tnear, t1);
-  }
+  for (int k = 0; k < 3; ++k) dir[k] = dir[k] / norm;
+  float tnear, tfar;
+  vpt_intersect_cube(from, dir, &tnear, &tfar);
   float tb = vpt_nmax(tnear, 0.0f);
 #pragma unroll
   for (int k = 0; k < 3; ++k) p[k] = from[k] + tb * dir[k];
@@ -187,8 +115,8 @@ __device__ __forceinline__ void photon_reset(uint32_t& s, float ndcx,
 // plus the HG cosine (1 uniform) unless |g| < EPS.
 __device__ __forceinline__ void henyey_greenstein(uint32_t& s, float g,
                                                   float dir[3]) {
-  float r = uniform(s);
-  float ang = F32(6.28318530718) * uniform(s);
+  float r = vpt_uniform(s);
+  float ang = F32(6.28318530718) * vpt_uniform(s);
   float radius = sqrtf(r);
   float d0 = radius * cosf(ang), d1 = radius * sinf(ang);
   float norm = d0 * d0 + d1 * d1;
@@ -198,7 +126,7 @@ __device__ __forceinline__ void henyey_greenstein(uint32_t& s, float g,
     dir[0] = u[0]; dir[1] = u[1]; dir[2] = u[2];
     return;
   }
-  float uu = uniform(s);
+  float uu = vpt_uniform(s);
   float g2 = g * g;
   float c = (1.0f - g2) / (1.0f - g + 2.0f * g * uu);
   float hgcos = (1.0f + g2 - c * c) / (2.0f * g);
@@ -244,36 +172,26 @@ mcm_event_kernel(Args a) {
   // NDC of the row-major pixel index (row 0 is the bottom of the image);
   // the wrapper keeps width * height below 2^31
   const int y = (int)i / a.width;
-  const float ndcx = pixel_ndc((int)i - y * a.width, a.width);
-  const float ndcy = pixel_ndc(y, a.height);
+  const float ndcx = vpt_pixel_ndc((int)i - y * a.width, a.width);
+  const float ndcy = vpt_pixel_ndc(y, a.height);
   const float maxb = (float)a.max_bounces;
 
   // per-pixel stream: pcg(19 x + 47 y + 101 seed + 131) over the float bits
   // of the mapped position (ndc * 0.5 + 0.5) and the seed (glsl:128)
-  uint32_t s = pcg(19u * __float_as_uint(ndcx * 0.5f + 0.5f)
-                   + 47u * __float_as_uint(ndcy * 0.5f + 0.5f)
-                   + 101u * __float_as_uint(a.seed) + 131u);
+  uint32_t s = vpt_seed_pixel(ndcx, ndcy, a.seed);
 
   for (int step = 0; step < a.steps; ++step) {
     // flight: exponential free path, extended over empty cells in skip mode
-    float x = vpt_nmax(uniform(s), F32(1e-38));
-    float dist = -logf(x) / a.extinction;
+    float dist = vpt_exponential(s, a.extinction);
     if (skip) dist = vpt_nmax(dist, vpt_nmax(ch - 1.0f, 0.0f) * a.cell);
     float q[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) q[k] = p[k] + dist * dir[k];
 
     // sample: one corner row, then the TF row
-    float v = fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1], q[2]);
-    float4 vs;
-    float cheb_new = 0.0f;
-    if (skip) {
-      cheb_new = rintf(vpt_nmax(-v, 0.0f));
-      vs = vpt_tf1d_lookup(s_tf, a.tw, vpt_nmax(v, 0.0f), a.tf_mode);
-      if (v < -0.5f) vs.w = 0.0f;
-    } else {
-      vs = vpt_tf1d_lookup(s_tf, a.tw, v, a.tf_mode);
-    }
+    float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1], q[2]);
+    float4 vs = vpt_color(s_tf, a.tw, a.tf_mode, v, skip);
+    float cheb_new = skip ? rintf(vpt_nmax(-v, 0.0f)) : 0.0f;
 
     // classify (mcm.py:122-133)
     float alpha = vs.w;
@@ -281,7 +199,7 @@ mcm_event_kernel(Args a) {
     float p_scatter = (b >= maxb)
         ? 0.0f : alpha * vpt_nmax(vpt_nmax(vs.x, vs.y), vs.z);
     float p_absorb = 1.0f - p_null - p_scatter;
-    float fortune = uniform(s);
+    float fortune = vpt_uniform(s);
     bool oob = q[0] > 1.0f || q[0] < 0.0f || q[1] > 1.0f || q[1] < 0.0f
                || q[2] > 1.0f || q[2] < 0.0f;
     bool absorb = !oob && fortune < p_absorb;

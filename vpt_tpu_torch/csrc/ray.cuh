@@ -1,0 +1,140 @@
+// Per-pixel ray pieces shared by the kernels that run one thread a pixel:
+// the MCM event kernel (mcm_event.cu), the march kernel (march.cu), the ISO
+// shade kernel (iso_shade.cu) and the MCS delta-tracking kernel
+// (mcs_frame.cu).
+//
+// Each function runs the float32 operations of its plain PyTorch version
+// (vpt_tpu_torch/rng.py, sampling.py) in their order; the kernels are built
+// with -fmad=false, so no product-sum contracts into one rounding.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "tf1d.cuh"
+
+// rng.pcg: the PCG output permutation
+__device__ __forceinline__ uint32_t vpt_pcg(uint32_t x) {
+  x = x * 747796405u + 2891336453u;
+  x = ((x >> ((x >> 28u) + 4u)) ^ x) * 277803737u;
+  return (x >> 22u) ^ x;
+}
+
+// rng.uniform: state = pcg(state); u = float(state) / float(~0u).
+// float(~0u) is 2^32, so the quotient is exact and equals the product with
+// 2^-32
+__device__ __forceinline__ float vpt_uniform(uint32_t& s) {
+  s = vpt_pcg(s);
+  return __uint2float_rn(s) * 2.3283064365386963e-10f;
+}
+
+// rng.exponential: -log(max(u, 1e-38)) / rate, the IEEE quotient
+__device__ __forceinline__ float vpt_exponential(uint32_t& s, float rate) {
+  float x = vpt_nmax(vpt_uniform(s), 1e-38f);
+  return -logf(x) / rate;
+}
+
+// rng.seed_pixels: pcg(19 x + 47 y + 101 seed + 131) over the float bits of
+// the mapped position (ndc * 0.5 + 0.5) and of the seed
+__device__ __forceinline__ uint32_t vpt_seed_pixel(float ndcx, float ndcy,
+                                                   float seed) {
+  return vpt_pcg(19u * __float_as_uint(ndcx * 0.5f + 0.5f)
+                 + 47u * __float_as_uint(ndcy * 0.5f + 0.5f)
+                 + 101u * __float_as_uint(seed) + 131u);
+}
+
+// sampling.pixel_ndc: (i + 0.5) / n * 2 - 1, the IEEE quotient
+__device__ __forceinline__ float vpt_pixel_ndc(int i, int n) {
+  return ((float)i + 0.5f) / (float)n * 2.0f - 1.0f;
+}
+
+// sampling.unproject(_rand): the near point (nx, ny, -1, 1) and the far
+// point (fx, fy, 1, 1) through the row-major inverse MVP m (apply_mat4,
+// math3d.py: out_i = v0 m[i,0] + v1 m[i,1] + v2 m[i,2] + v3 m[i,3], left
+// to right), then the homogeneous divides.
+__device__ __forceinline__ void vpt_unproject(const float* m, float nx,
+                                              float ny, float fx, float fy,
+                                              float from[3], float to[3]) {
+  float f4[4], t4[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f4[i] = nx * m[4 * i] + ny * m[4 * i + 1] + -1.0f * m[4 * i + 2]
+            + 1.0f * m[4 * i + 3];
+    t4[i] = fx * m[4 * i] + fy * m[4 * i + 1] + 1.0f * m[4 * i + 2]
+            + 1.0f * m[4 * i + 3];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    from[k] = f4[k] / f4[3];
+    to[k] = t4[k] / t4[3];
+  }
+}
+
+// sampling.intersect_cube: the slab test against the unit cube, (tnear,
+// tfar), with NaN-propagating min and max as torch.minimum/amax
+__device__ __forceinline__ void vpt_intersect_cube(const float o[3],
+                                                   const float d[3],
+                                                   float* tnear,
+                                                   float* tfar) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float tmin = (0.0f - o[k]) / d[k];
+    float tmax = (1.0f - o[k]) / d[k];
+    float t1 = vpt_nmin(tmin, tmax);
+    float t2 = vpt_nmax(tmin, tmax);
+    *tnear = (k == 0) ? t1 : vpt_nmax(*tnear, t1);
+    *tfar = (k == 0) ? t2 : vpt_nmin(*tfar, t2);
+  }
+}
+
+// Trilinear fetch from a corner-packed (D*H*W, 8) table of float32 or
+// bfloat16 rows (sampling.py, corner_fetch_plain): the GL CLAMP_TO_EDGE
+// coordinate, one row of the 8 corners (z, y, x; x minor), then the lerp
+// chain of trilerp_chain.
+template <bool kBf16>
+__device__ __forceinline__ float vpt_fetch(const void* table, int d, int h,
+                                           int w, float px, float py,
+                                           float pz) {
+  float ux = vpt_clip(px * (float)w - 0.5f, 0.0f, (float)(w - 1));
+  float uy = vpt_clip(py * (float)h - 0.5f, 0.0f, (float)(h - 1));
+  float uz = vpt_clip(pz * (float)d - 0.5f, 0.0f, (float)(d - 1));
+  float ix = floorf(ux), iy = floorf(uy), iz = floorf(uz);
+  float fx = ux - ix, fy = uy - iy, fz = uz - iz;
+  int64_t row = ((int64_t)vpt_index(iz, d - 1) * h + vpt_index(iy, h - 1))
+                    * w + vpt_index(ix, w - 1);
+  float c[8];
+  if (kBf16) {
+    uint4 q = __ldg((const uint4*)table + row);
+    uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[2 * k] = __uint_as_float(words[k] << 16);
+      c[2 * k + 1] = __uint_as_float(words[k] & 0xFFFF0000u);
+    }
+  } else {
+    float4 a = __ldg((const float4*)table + 2 * row);
+    float4 b = __ldg((const float4*)table + 2 * row + 1);
+    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
+    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+  }
+  float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
+  float cx0 = c[0] * gx + c[1] * fx;
+  float cx1 = c[2] * gx + c[3] * fx;
+  float cx2 = c[4] * gx + c[5] * fx;
+  float cx3 = c[6] * gx + c[7] * fx;
+  float cy0 = cx0 * gy + cx1 * fy;
+  float cy1 = cx2 * gy + cx3 * fy;
+  return cy0 * gz + cy1 * fz;
+}
+
+// The color of a fetched value v: the TF row's lookup (Scene.sample_color),
+// or, from a cheb-skip tracking table (Scene.sample_color_tracking), the
+// lookup at max(v, 0) with alpha 0 in empty cells (v < -0.5).
+__device__ __forceinline__ float4 vpt_color(const float4* tf, int tw,
+                                            int tf_mode, float v,
+                                            bool tracking) {
+  if (!tracking) return vpt_tf1d_lookup(tf, tw, v, tf_mode);
+  float4 c = vpt_tf1d_lookup(tf, tw, vpt_nmax(v, 0.0f), tf_mode);
+  if (v < -0.5f) c.w = 0.0f;
+  return c;
+}

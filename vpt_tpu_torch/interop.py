@@ -79,17 +79,25 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
                  filter=fields.get("filter", "linear"), tf_mxu=mxu)
 
 
-def state_from_numpy(state: dict, device=None) -> dict:
-    """A dict of numpy arrays → float32 tensors on ``device`` (default: the
-    card), leaving out
-    None entries: an MCM state, the differentiable machine's state with its
-    ``logw`` (``renderers/diff_mc``), or the fit leaves ``{"volume": ...,
-    "tf": ...}`` that ``vpt_tpu.train.fit_mc`` takes and returns."""
+def state_from_numpy(state, device=None):
+    """A renderer state from numpy to float32 tensors on ``device``
+    (default: the card): one array, the accumulator of EAM, MIP, Depth,
+    ISO or MCS ((H, W, 4) or (H, W)), becomes one tensor; a dict of arrays
+    (an MCM state, the differentiable machine's state with its ``logw``
+    (``renderers/diff_mc``), or the fit leaves ``{"volume": ..., "tf":
+    ...}`` that ``vpt_tpu.train.fit_mc`` takes and returns) becomes a dict
+    of tensors, leaving out None entries."""
     device = resolve_device(device)
+    if not isinstance(state, dict):
+        return tensor_from_numpy(np.asarray(state, np.float32), device)
     return {k: tensor_from_numpy(np.asarray(v, np.float32), device)
             for k, v in state.items() if v is not None}
 
 
-def state_to_numpy(state: dict) -> dict:
+def state_to_numpy(state):
+    """The inverse of :func:`state_from_numpy`: a tensor or a dict of
+    tensors to numpy."""
+    if isinstance(state, torch.Tensor):
+        return tensor_to_numpy(state)
     return {k: tensor_to_numpy(v) for k, v in state.items()
             if v is not None}

@@ -54,6 +54,18 @@ SIGNATURES = {
     "vpt_corner_fetch": [_P, _P, _L, _P, _P, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
+    # state, mode; table, bf16, D, H, W, TF row, TW, TF mode, MVP; width,
+    # height, slices; step, first, extinction, level, mix; stream
+    "vpt_march_frame": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I,
+                         _I, _I] + [_F] * 5 + [_P]),
+    # state, out; table, bf16, D, H, W, TF row, TW, TF mode; width,
+    # height; h, 2h, light xyz; stream
+    "vpt_iso_shade": ([_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I]
+                      + [_F] * 5 + [_P]),
+    # state; table, bf16, D, H, W, TF row, TW, TF mode, MVP, env; width,
+    # height; seed, extinction, cell; use_skip; direction xyz, n; stream
+    "vpt_mcs_frame": ([_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I]
+                      + [_F] * 3 + [_I] + [_F] * 4 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -157,6 +169,100 @@ current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 def stream_ptr(tensor) -> int:
     return current_stream(tensor.get_device())
+
+
+class LastScene:
+    """The scene's part of a kernel's launch arguments, prepared once for
+    the last (scene, key): a renderer launches one scene at one resolution
+    frame after frame.
+
+    ``prepare(scene, key)`` checks the scene and returns what the launches
+    pass (it holds the tensors whose pointers they pass); ``fields(scene)``
+    names the scene's tensors it reads.  The entry holds the scene weakly
+    and goes with it, and is prepared anew when the scene, the key or one
+    of those fields changed."""
+
+    def __init__(self, prepare, fields):
+        self._prepare = prepare
+        self._fields = fields
+        self._last = None
+
+    def get(self, scene, key=None):
+        fields = self._fields(scene)
+        last = self._last
+        if last is not None and last.scene() is scene and last.key == key \
+                and all(a is b for a, b in zip(last.fields, fields)):
+            return last.value
+        value = self._prepare(scene, key)
+        self._last = types.SimpleNamespace(
+            scene=weakref.ref(scene, self._forget), key=key, fields=fields,
+            value=value)
+        return value
+
+    def _forget(self, ref):
+        if self._last is not None and self._last.scene is ref:
+            self._last = None
+
+
+def check_image(state, shape, device, what):
+    """Raise unless ``state`` is a contiguous float32 tensor of ``shape``
+    on ``device`` whose pixels a 32-bit integer indexes."""
+    if state.device != device or state.dtype != torch.float32 \
+            or tuple(state.shape) != tuple(shape) \
+            or not state.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {device}")
+    if shape[0] * shape[1] >= 2 ** 31:
+        raise ValueError(f"{shape[0]}x{shape[1]}: the kernels index pixels "
+                         "with 32-bit integers")
+
+
+def corner_table(table, volume_shape, what):
+    """The (D·H·W, 8) float32 or bfloat16 corner table a per-pixel kernel
+    fetches from: raises for a scene without one (an unpacked scene) or of
+    another shape, and returns it contiguous."""
+    if table is None:
+        raise NotImplementedError(
+            f"the {what} kernel samples corner-packed tables only; build "
+            "the scene with pack=True")
+    d, h, w = volume_shape[:3]
+    if table.dtype not in (torch.float32, torch.bfloat16) \
+            or tuple(table.shape) != (d * h * w, 8):
+        raise ValueError("the corner table must be (D*H*W, 8) float32 or "
+                         "bfloat16")
+    table = table.contiguous()
+    check_aligned(table, "the corner table")
+    return table
+
+
+def scene_args(scene, table, what):
+    """The launch arguments a per-pixel kernel takes from a scene and one
+    of its corner tables: ``(tensors, args)`` with ``args`` = (table,
+    table is bf16, D, H, W, TF row, TW, TF mode, inverse MVP) and
+    ``tensors`` the tensors they point into.  ``what`` names the kernel in
+    the errors."""
+    from . import tf1d
+
+    table = corner_table(table, scene.volume.shape, what)
+    row = scene.transfer_1d.to(torch.float32).contiguous()
+    tf1d.check_width(row.shape[0])
+    check_aligned(row, "the TF row")
+    mvp = scene.mvp_inverse.to(torch.float32).contiguous()
+    d, h, w = scene.volume.shape[:3]
+    args = (table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
+            row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
+            mvp.data_ptr())
+    return (table, row, mvp), args
+
+
+def one_texel_environment(scene, what):
+    """The scene's 1×1 environment texel, 4 contiguous float32 values:
+    the per-pixel kernels take no larger map."""
+    if tuple(scene.environment.shape[:2]) != (1, 1):
+        raise NotImplementedError(
+            f"the {what} kernel takes 1x1 environment maps only (ROADMAP.md "
+            "queue 2, equirect environments)")
+    return scene.environment[0, 0].to(torch.float32).contiguous()
 
 
 class Prepared(types.SimpleNamespace):

@@ -24,13 +24,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import weakref
 
 import numpy as np
 import torch
 
 from .. import rng, sampling
-from . import _build, tf1d
+from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
@@ -77,77 +76,29 @@ def _check_state(state, height, width, device):
                              f"float32 {want} tensor on {device}")
 
 
-@dataclasses.dataclass
-class _Prepared:
-    """What the launches of one (scene, table, resolution) share: the
-    tensors whose pointers they pass (held so the pointers stay valid) and
-    the launch arguments that come from the scene.  It holds the scene
-    weakly: when the scene goes, so does the preparation and what it
-    holds."""
-    scene: weakref.ref
-    fields: tuple
-    tensors: tuple
-    args: tuple
+def _fields(scene):
+    return (scene.volume_packed, scene.tracking_packed, scene.transfer_1d,
+            scene.environment, scene.mvp_inverse, scene.tf_mxu)
 
 
-#: the last preparation; a renderer launches one scene at one resolution
-#: frame after frame
-_prepared = None
-
-
-def _forget(ref):
-    global _prepared
-    if _prepared is not None and _prepared.scene is ref:
-        _prepared = None
-
-
-def _scene_fields(scene, table):
-    return (table, scene.transfer_1d, scene.environment, scene.mvp_inverse,
-            scene.tf_mxu)
-
-
-def _prepare(scene, use_skip, height, width):
-    """Check the scene and build the scene's part of the launch arguments,
-    unless the last call did for this scene, table and resolution."""
-    global _prepared
-    table = scene.tracking_packed if use_skip else scene.volume_packed
-    p = _prepared
-    if p is not None and p.scene() is scene \
-            and p.args[-2:] == (width, height) \
-            and all(a is b for a, b in zip(p.fields,
-                                           _scene_fields(scene, table))):
-        return p
-    if table is None:
-        raise NotImplementedError(
-            "the MCM event kernel samples corner-packed tables only; build "
-            "the scene with pack=True")
-    if tuple(scene.environment.shape[:2]) != (1, 1):
-        raise NotImplementedError(
-            "the MCM event kernel takes 1x1 environment maps only "
-            "(ROADMAP.md queue 2, equirect environments in K5)")
+def _prepare(scene, key):
+    """Check the scene and build the scene's part of the launch arguments
+    for ``key`` = (use_skip, height, width): ``Prepared(tensors, args)``."""
+    use_skip, height, width = key
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the MCM event kernel indexes "
                          "pixels with 32-bit integers")
-    d, h, w = scene.volume.shape[:3]
-    if table.dtype not in (torch.float32, torch.bfloat16) \
-            or tuple(table.shape) != (d * h * w, 8):
-        raise ValueError("the corner table must be (D*H*W, 8) float32 or "
-                         "bfloat16")
-    row = scene.transfer_1d
-    tf1d.check_width(row.shape[0])
-    fields = _scene_fields(scene, table)
-    table = table.contiguous()
-    row = row.to(torch.float32).contiguous()
-    _build.check_aligned(table, "the corner table")
-    _build.check_aligned(row, "the TF row")
-    env = scene.environment[0, 0].to(torch.float32).contiguous()
-    mvp = scene.mvp_inverse.to(torch.float32).contiguous()
-    args = (table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
-            row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
-            env.data_ptr(), mvp.data_ptr(), width, height)
-    _prepared = _Prepared(weakref.ref(scene, _forget), fields,
-                          (table, row, env, mvp), args)
-    return _prepared
+    tensors, args = _build.scene_args(
+        scene, scene.tracking_packed if use_skip else scene.volume_packed,
+        "MCM event")
+    env = _build.one_texel_environment(scene, "MCM event")
+    return _build.Prepared(tensors=(*tensors, env), args=(
+        *args[:-1], env.data_ptr(), args[-1], width, height))
+
+
+#: the last scene's preparation; a renderer launches one scene at one
+#: resolution frame after frame
+_scene_cache = _build.LastScene(_prepare, _fields)
 
 
 def launch_args(state, scene, params, seed):
@@ -164,7 +115,7 @@ def launch_args(state, scene, params, seed):
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{dev}")
     use_skip = mcm.uses_skip(state, scene)
-    prepared = _prepare(scene, use_skip, height, width)
+    prepared = _scene_cache.get(scene, (use_skip, height, width))
     cheb = state["cheb"].data_ptr() if use_skip else None
     # ctypes rounds each Python float to the nearest float32, as
     # np.float32 and JAX's weak types do

@@ -85,3 +85,13 @@ def apply_mat4(m, v4):
     (vpt_tpu/math3d.py:152-156)."""
     return (v4[..., 0:1] * m[:, 0] + v4[..., 1:2] * m[:, 1]
             + v4[..., 2:3] * m[:, 2] + v4[..., 3:4] * m[:, 3])
+
+
+def transform_point(m, p):
+    """Apply a mat4 to (..., 3) points (w = 1) and dehomogenise
+    (vpt_tpu/math3d.py:162-170)."""
+    p = torch.as_tensor(p, dtype=_F32, device=m.device)
+    ph = torch.cat([p, torch.ones(p.shape[:-1] + (1,), dtype=_F32,
+                                  device=m.device)], dim=-1)
+    out = apply_mat4(m, ph)
+    return out[..., :3] / out[..., 3:4]

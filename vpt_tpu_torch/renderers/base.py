@@ -1,8 +1,8 @@
 """Renderer protocol and the scene a renderer samples.
 
-Mirrors ``vpt_tpu/renderers/base.py`` for the MCM slice: ``Scene``,
-``make_scene`` (the same keyword surface), ``Renderer`` and
-``AUTO_TRACKING_MIN_EMPTY``.  A renderer module provides
+Mirrors ``vpt_tpu/renderers/base.py`` for the ported renderers: ``Scene``,
+``make_scene`` (the same keyword surface), ``march_interval``,
+``Renderer`` and ``AUTO_TRACKING_MIN_EMPTY``.  A renderer module provides
 
 - ``reset(params, height, width, scene) -> state``
 - ``render_frame(state, scene, params, seed, frame) -> state``: one
@@ -138,6 +138,11 @@ class Scene:
         alpha = torch.where(empty, torch.zeros_like(vs[..., 3]), vs[..., 3])
         return torch.cat([vs[..., :3], alpha[..., None]], dim=-1), cheb
 
+    def value_gradient(self, position, h):
+        """Central-difference gradient of TF alpha
+        (ISORenderer.glsl:165-177)."""
+        return sampling.central_value_gradient(self.sample_color, position, h)
+
     def sample_env(self, direction):
         """Equirect environment lookup; a 1×1 map is a constant."""
         eh, ew = self.environment.shape[:2]
@@ -149,6 +154,28 @@ class Scene:
 #: tracking="auto" engages cheb-skip when at least this fraction of voxel
 #: cells is TF-empty.
 AUTO_TRACKING_MIN_EMPTY = 0.05
+
+
+def march_interval(scene, ray_from, direction):
+    """The ray segment a march renderer samples: the unit-cube slab test
+    clamped at 0, (..., 2) = (tnear, tfar); tnear >= tfar is a miss.  The
+    occupied-box clamp of ``vpt_tpu`` (``march_clamp``) is not ported, so
+    ``scene`` adds nothing."""
+    del scene
+    return torch.clamp(sampling.intersect_cube(ray_from, direction),
+                       min=0.0)
+
+
+def state_device(scene=None) -> torch.device:
+    """The device of a renderer's state: the scene's, else the port's
+    default (the card)."""
+    return scene.device if scene is not None else resolve_device(None)
+
+
+def frame_weight(frame_number) -> np.float32:
+    """1 / n as the IEEE float32 quotient, the running mean's weight of
+    frame ``n`` (JAX: ``1.0 / frame_number.astype(float32)``)."""
+    return np.float32(1.0) / np.float32(frame_number)
 
 
 def transfer_row(transfer, transfer_packed=None, mxu=None):

@@ -1,14 +1,15 @@
 """Renderer registry: string → renderer, mirroring
-``vpt_tpu/renderers/factory.py``.  The port has the MCM renderer only."""
+``vpt_tpu/renderers/factory.py``.  DOS and LAO are not ported yet."""
 
 from __future__ import annotations
 
-from . import base, mcm
+from . import base, depth, eam, iso, mcm, mcs, mip
 
-MODULES = {"mcm": mcm}
+MODULES = {"mip": mip, "iso": iso, "eam": eam, "mcs": mcs, "mcm": mcm,
+           "depth": depth}
 
 #: renderers of vpt_tpu that the port does not have yet
-NOT_PORTED = ("depth", "dos", "eam", "iso", "lao", "mcs", "mip")
+NOT_PORTED = ("dos", "lao")
 
 
 def get_module(key: str):

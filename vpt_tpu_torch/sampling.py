@@ -1,9 +1,10 @@
-"""Ray/volume sampling primitives for the MCM slice.
+"""Ray/volume sampling primitives of the ported renderers.
 
 Mirrors the main-path subset of ``vpt_tpu/sampling.py``: ray setup
-(``pixel_ndc``, ``intersect_cube``, ``unproject_rand``), the GL LINEAR +
-CLAMP_TO_EDGE volume and texture fetches with their corner-packed tables,
-the equirect environment lookup and Henyey-Greenstein sampling.  Every
+(``pixel_ndc``, ``intersect_cube``, ``unproject``, ``unproject_rand``),
+the GL LINEAR + CLAMP_TO_EDGE volume and texture fetches with their
+corner-packed tables, the equirect environment lookup, ISO's
+central-difference gradient and Henyey-Greenstein sampling.  Every
 operation runs in the JAX package's order so that the float32 results
 agree.
 
@@ -53,6 +54,21 @@ def intersect_cube(origin, direction):
     return torch.stack([tnear, tfar], dim=-1)
 
 
+def _unproject(near_xy, far_xy, mvp_inverse):
+    """The near (z = −1) and far (z = 1) points through the inverse MVP,
+    dehomogenised: (from, to)."""
+    ones = torch.ones(near_xy.shape[:-1] + (1,), dtype=torch.float32,
+                      device=near_xy.device)
+    f = apply_mat4(mvp_inverse, torch.cat([near_xy, -ones, ones], dim=-1))
+    t = apply_mat4(mvp_inverse, torch.cat([far_xy, ones, ones], dim=-1))
+    return f[..., :3] / f[..., 3:4], t[..., :3] / t[..., 3:4]
+
+
+def unproject(ndc, mvp_inverse):
+    """NDC position (..., 2) → (from, to) ray endpoints in texture space."""
+    return _unproject(ndc, ndc, mvp_inverse)
+
+
 def unproject_rand(state, ndc, mvp_inverse, inverse_resolution, blur):
     """Stochastic unproject: disk jitter on the near plane (depth of field),
     square jitter on the far plane (antialiasing).  Consumes 4 uniforms in
@@ -61,11 +77,7 @@ def unproject_rand(state, ndc, mvp_inverse, inverse_resolution, blur):
     state, aa = rng.square(state)
     near_xy = ndc + disk_offset * blur
     far_xy = ndc + (aa * 2.0 - 1.0) * inverse_resolution
-    ones = torch.ones(ndc.shape[:-1] + (1,), dtype=torch.float32,
-                      device=ndc.device)
-    f = apply_mat4(mvp_inverse, torch.cat([near_xy, -ones, ones], dim=-1))
-    t = apply_mat4(mvp_inverse, torch.cat([far_xy, ones, ones], dim=-1))
-    return state, f[..., :3] / f[..., 3:4], t[..., :3] / t[..., 3:4]
+    return (state, *_unproject(near_xy, far_xy, mvp_inverse))
 
 
 def pixel_ndc(height, width, device="cpu"):
@@ -268,6 +280,22 @@ def sample_environment(env, direction):
 # ---------------------------------------------------------------------------
 # Shading helpers
 # ---------------------------------------------------------------------------
+
+def central_value_gradient(sample_color_fn, position, h):
+    """Central-difference gradient of TF alpha through any color sampler
+    (ISORenderer.glsl:165-177), (..., 3).  ``h`` rounds to float32 and the
+    differences divide by the float32 ``2h`` as a tensor: the true
+    quotient on every device."""
+    h = np.float32(h)
+    grads = []
+    for axis in range(3):
+        offset = torch.zeros(3, dtype=torch.float32, device=position.device)
+        offset[axis] = float(h)
+        grads.append(sample_color_fn(position + offset)[..., 3]
+                     - sample_color_fn(position - offset)[..., 3])
+    grad = torch.stack(grads, dim=-1)
+    return grad / torch.full_like(grad, float(2 * h))
+
 
 def henyey_greenstein_cosine(state, g):
     """HG scattering-angle cosine (MCMRenderer.glsl:91-95)."""
