@@ -1,32 +1,51 @@
-"""Time the MCM event kernel (K5) against other builds of it, in turns, on
-the render headline, on one GPU.
+"""Time a per-pixel kernel of the port against other builds of it, in turns,
+on the render headline, on one GPU: the MCM event kernel (K5), the march
+kernel (K6) or the MCS kernel (K8).
 
-    python3 bench_mcm_event.py [--variant NAME=PATH ...] [--frames 30]
+    python3 bench_mcm_event.py [--kernel mcm_event|march|mcs]
+        [--variant NAME=PATH ...] [--frames 30]
+        [--size 512]
 
-``current`` is ``vpt_tpu_torch/csrc/mcm_event.cu`` as it stands.  Each
-``--variant`` is another source of the same kernel that exports the same C
-interface (``vpt_mcm_event`` and ``vpt_mcm_event_info``, as
-``kernels/_build.SIGNATURES`` lists them): a copy with one design lever
-changed, or an older design brought to this interface.  Every source is
-built with the headers beside it first, then those of ``csrc/``, with the
-port's nvcc flags plus ``-Xptxas -v``, all builds at once; every build is
-driven through the port's own wrapper (``kernels/mcm_event.launch_args``).
-A variant that fails to build or to launch is reported and left out.
+``current`` is the kernel's source in ``vpt_tpu_torch/csrc/`` as it
+stands.  Each ``--variant`` is another source of the same kernel that
+exports the same C interface (K5: ``vpt_mcm_event`` and
+``vpt_mcm_event_info``; K6: ``vpt_march_frame``; K8: ``vpt_mcs_frame``, the
+argument lists of ``kernels/_build.SIGNATURES`` that every build since the
+kernel's port exports): an edited copy under ``build/`` with one design
+lever changed (such as ``kChunk`` of ``march.cu``, or the tile constants of
+a ``ray.cuh`` copied beside it), or an older design, such as an older
+commit's from ``git archive COMMIT vpt_tpu_torch/csrc | tar -x -C
+build/NAME`` (made before the run: a copy of the checkout without its git
+history has no commits to archive).  Every source is built with the
+headers beside it first, then those of ``csrc/``, with the port's nvcc
+flags plus ``-Xptxas -v``, all builds at once; a build that fails to build
+or to launch is reported and left out.
 
-The scene is the headline's (``sphere_volume(128)``, sRGB gray ramp at
-alpha 0.8, cheb-skip, bf16 tables, ``tf_mxu``), 512², extinction 40,
-anisotropy 0.3, at steps 0 (a launch that only loads, seeds and stores the
-state), 8 and 32.  For each steps the builds run in a palindromic order
+K5 is driven through the port's wrapper (``kernels/mcm_event.launch_args``)
+on the headline's scene (``sphere_volume(128)``, sRGB gray ramp at alpha
+0.8, cheb-skip, bf16 tables, ``tf_mxu``), 512², extinction 40, anisotropy
+0.3, at steps 0 (a launch that only loads, seeds and stores the state), 8
+and 32.  K6 (in each of its four modes) and K8 are driven through their
+argument lists (:func:`march_args`, :func:`mcs_args`, the float32 frame
+scalars of ``march.frame_scalars`` and ``mcs.scatter_direction``) on the
+same scene at 512² (``--size``) with the renderers' default Params.
+
+For each steps (K5) or mode (K6, K8) the builds run in a palindromic order
 (current, the variants, the variants reversed, current), each from the
 same reset state with the same frame seeds, so each is read twice,
 symmetrically in time.  A reading is the kernel's device time per launch
-(``torch.profiler``), the frame time on the host clock (synchronized, over
-``--frames`` frames), events/s and paths/s on both clocks, mean path events,
-and whether the state after the frames equals ``current``'s bit for bit.
-Prints the card, each build's registers and spills (ptxas) and launch shape
-(``vpt_mcm_event_info``), one JSON line per reading and one ``summary``
-line per (steps, build) with its times over ``current``'s, and writes all of
-it as JSON to ``--out``.
+(``torch.profiler``), the frame time (K5: host clock, synchronized; K6,
+K8: CUDA events over back-to-back launches) and whether the state after
+the frames equals ``current``'s bit for bit.  Prints the card and its SM
+clock, each build's registers and spills (ptxas), its launch shape (the
+info entry point where the build has one), its slice loop's SASS
+instruction count (``cuobjdump -sass``: the largest backward branch's
+body, over the rows it reads ahead) and, for K6, the instruction-issue
+floor of the frame (that count times the slices the warps step through,
+over 132 SMs × 4 warp-instructions a clock) beside the frame's bytes
+bound; one JSON line per reading and one ``summary`` line per (steps or
+mode, build) with its times over the baseline's (``--baseline``, default
+``current``); and writes all of it as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -44,6 +63,18 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HEIGHT = WIDTH = 512
 OCCUPANCY = ("threads_per_block", "blocks_per_sm", "sms", "registers",
              "local_bytes", "static_smem_bytes", "dynamic_smem_bytes")
+#: each kernel: its source, the entry points every build exports, its info
+#: entry point where a build has one, and its kernel's name
+KERNELS = {
+    "mcm_event": ("mcm_event.cu", ("vpt_mcm_event", "vpt_mcm_event_info"),
+                  None, "mcm_event_kernel"),
+    "march": ("march.cu", ("vpt_march_frame",), "vpt_march_info",
+              "march_kernel"),
+    "mcs": ("mcs_frame.cu", ("vpt_mcs_frame",), "vpt_mcs_info",
+            "mcs_frame_kernel"),
+}
+#: the H100's SMs and warp schedulers an SM (one warp-instruction a clock)
+SMS, SCHEDULERS = 132, 4
 
 
 def compile_all(sources: dict, out_dir: pathlib.Path) -> dict:
@@ -71,33 +102,73 @@ def compile_all(sources: dict, out_dir: pathlib.Path) -> dict:
     return built
 
 
-def ptxas_kernel(text: str) -> dict:
-    """Registers and spills of the bf16 event kernel from -Xptxas -v."""
+def ptxas_kernels(text: str, match: str) -> dict:
+    """{mangled kernel name: registers and spills} of every entry function
+    whose name holds ``match``, from -Xptxas -v."""
+    out = {}
     blocks = re.split(r"ptxas info\s*: Compiling entry function", text)
     for block in blocks[1:]:
         head = block.splitlines()[0]
-        if "mcm_event_kernel" in head and "ILb1E" in head:
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", block)
-            regs = re.search(r"Used (\d+) registers", block)
-            return {"registers": int(regs.group(1)) if regs else None,
-                    "spill_stores": int(spill.group(1)) if spill else None,
-                    "spill_loads": int(spill.group(2)) if spill else None}
-    return {"registers": None, "spill_stores": None, "spill_loads": None}
+        name = re.search(r"'([^']+)'", head)
+        if not name or match not in name.group(1):
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        out[name.group(1)] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_stores": int(spill.group(1)) if spill else None,
+            "spill_loads": int(spill.group(2)) if spill else None}
+    return out
 
 
-def load(lib_path):
+def sass_loops(lib_path, match: str) -> dict:
+    """{mangled kernel name: (instructions, largest loop's instructions)}
+    from ``cuobjdump -sass``: a loop is the body of a backward branch."""
+    from vpt_tpu_torch.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
+                           "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300)
+    out, name, addrs, branches = {}, None, [], []
+
+    def close():
+        if name and match in name:
+            loops = [sum(1 for a in addrs if target <= a <= at)
+                     for at, target in branches if target < at]
+            out[name] = (len(addrs), max(loops, default=0))
+
+    for line in proc.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            close()
+            name, addrs, branches = head.group(1), [], []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if not ins:
+            continue
+        at = int(ins.group(1), 16)
+        addrs.append(at)
+        branch = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins.group(2))
+        if branch:
+            branches.append((at, int(branch.group(1), 16)))
+    close()
+    return out
+
+
+def load(lib_path, names):
     from vpt_tpu_torch.kernels import _build
 
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("vpt_mcm_event", "vpt_mcm_event_info"):
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
 
 
-def device_ms(launch, state, frames):
+def device_ms(launch, state, frames, match="mcm_event_kernel"):
     """(kernel device time per launch, launches the profiler recorded) by
     torch.profiler over ``frames`` launches; (None, 0) if it saw none.  The
     mean is over the launches it recorded, which may be fewer."""
@@ -109,7 +180,7 @@ def device_ms(launch, state, frames):
         for i in range(frames):
             launch(state, 0.9 + 0.001 * i)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if "mcm_event_kernel" in e.key]
+    kernels = [e for e in prof.key_averages() if match in e.key]
     total = sum(getattr(e, "device_time_total", 0.0) for e in kernels)
     count = sum(e.count for e in kernels)
     return (total / 1e3 / count, count) if total > 0 else (None, 0)
@@ -145,94 +216,59 @@ def reading(name, launch, start, steps, frames):
     }, after
 
 
-def summarize(readings):
-    """Per (steps, build): the mean of its readings, and its device and
-    host time over ``current``'s."""
+def summarize(readings, key, keys, baseline):
+    """Per (``key``, build): the mean of its readings, and its times over
+    the baseline build's."""
     def mean(values):
         values = [v for v in values if v is not None]
         return sum(values) / len(values) if values else None
 
-    keys = ("device_ms", "host_ms_per_frame", "device_events_per_s",
-            "host_events_per_s", "host_paths_per_s", "mean_path_events")
     rows = {}
     for r in readings:
-        rows.setdefault((r["steps"], r["variant"]), []).append(r)
+        rows.setdefault((r[key], r["variant"]), []).append(r)
     out = []
-    for (steps, name), group in rows.items():
-        line = {"summary": name, "steps": steps, "readings": len(group),
+    for (at, name), group in rows.items():
+        line = {"summary": name, key: at, "readings": len(group),
                 "state_equal_to_current": all(
                     r["state_equal_to_current"] for r in group)}
-        line.update({k: mean([r[k] for r in group]) for k in keys})
+        line.update({k: mean([r.get(k) for r in group]) for k in keys})
         out.append(line)
     for line in out:
-        base = next(x for x in out
-                    if x["steps"] == line["steps"] and x["summary"] == "current")
-        for k in ("device_ms", "host_ms_per_frame"):
-            if line[k] and base[k]:
-                line[f"{k}_over_current"] = line[k] / base[k]
+        base = next((x for x in out if x[key] == line[key]
+                     and x["summary"] == baseline), None)
+        for k in ("device_ms", "host_ms_per_frame", "ms"):
+            if base and line.get(k) and base.get(k):
+                line[f"{k}_over_{baseline}"] = line[k] / base[k]
     return out
 
 
 def variant(text: str):
     name, sep, path = text.partition("=")
-    if not sep or not name or name == "current":
+    if not sep or not name or name == "current" or not path:
         raise argparse.ArgumentTypeError(
             f"{text!r}: expected NAME=PATH, NAME not 'current'")
     return name, pathlib.Path(path).resolve()
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variant", type=variant, action="append", default=[],
-                    help="NAME=PATH of another mcm_event.cu (repeatable)")
-    ap.add_argument("--frames", type=int, default=30,
-                    help="frames of a host-clock reading")
-    ap.add_argument("--out", type=pathlib.Path,
-                    default=ROOT / "build" / "bench_mcm_event.json")
-    args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
+def headline_scene():
     import torch
 
-    if not torch.cuda.is_available():
-        print("bench_mcm_event: no CUDA device", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
-
     from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import make_scene
+
+    return make_scene(volume.sphere_volume(128),
+                      transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                      tracking="auto", pack_dtype=torch.bfloat16,
+                      tf_mxu=True)
+
+
+def bench_mcm_event(libs, frames):
+    import torch
+
     from vpt_tpu_torch.kernels import _build, mcm_event
-    from vpt_tpu_torch.renderers import make_scene, mcm
+    from vpt_tpu_torch.renderers import mcm
 
-    sources = {"current": _build.CSRC / "mcm_event.cu", **dict(args.variant)}
-    t0 = time.perf_counter()
-    built = compile_all(sources, ROOT / "build" / "bench_mcm_event")
-    print(f"built {len(built)} of {len(sources)} libraries in "
-          f"{time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
-    if "current" not in built:
-        return 1
-
-    scene = make_scene(volume.sphere_volume(128),
-                       transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
-                       tracking="auto", pack_dtype=torch.bfloat16,
-                       tf_mxu=True)
-    tw = scene.transfer_1d.shape[0]
-    libs, shapes = {}, {}
-    for name, (path, text) in built.items():
-        lib = load(path)
-        out = (ctypes.c_int * len(OCCUPANCY))()
-        err = lib.vpt_mcm_event_info(1, tw, out)
-        if err:
-            print(f"{name}: vpt_mcm_event_info error {err}, left out",
-                  flush=True)
-            continue
-        libs[name] = lib
-        shape = dict(ptxas_kernel(text), **dict(zip(OCCUPANCY, out)))
-        shape["resident_threads_per_sm"] = \
-            shape["blocks_per_sm"] * shape["threads_per_block"]
-        shapes[name] = shape
-        print(f"{name}: {json.dumps(shape)}", flush=True)
+    scene = headline_scene()
 
     def launcher(lib):
         def launch(state, seed):
@@ -253,7 +289,7 @@ def main() -> int:
                     continue
                 try:
                     r, after = reading(name, launcher(libs[name]), start,
-                                       steps, args.frames)
+                                       steps, frames)
                 except RuntimeError as exc:
                     print(f"{name}: {exc}, left out", flush=True)
                     failed.add(name)
@@ -266,17 +302,312 @@ def main() -> int:
                     (after["samples"] == reference["samples"]).float().mean())
                 readings.append(r)
                 print(json.dumps(r), flush=True)
-    summary = summarize([r for r in readings if r["variant"] not in failed])
+    return [r for r in readings if r["variant"] not in failed], failed
+
+
+# -- K6 and K8 through the argument lists every build exports -------------
+
+def march_args(mode, state, scene, params, seed, frame_number):
+    """The arguments of one ``vpt_march_frame`` call (every build of K6
+    since its port takes them): the state, the mode, the scene's table, TF
+    row and inverse MVP, the image and ``march.frame_scalars``."""
+    from vpt_tpu_torch.kernels import _build, march
+
+    height, width = state.shape[:2]
+    _, args = _build.scene_args(scene, scene.volume_packed, "march")
+    return (state.data_ptr(), march.MODES[mode], *args, width, height,
+            *march.frame_scalars(mode, params, seed, frame_number),
+            _build.stream_ptr(state))
+
+
+def mcs_args(state, scene, params, seed, frame_number):
+    """The arguments of one ``vpt_mcs_frame`` call (every build of K8 since
+    its port takes them), with the frame's ``mcs.scatter_direction``."""
+    import numpy as np
+
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.renderers import mcs
+
+    height, width = state.shape[:2]
+    use_skip = scene.tracking_packed is not None
+    _, args = _build.scene_args(
+        scene, scene.tracking_packed if use_skip else scene.volume_packed,
+        "MCS")
+    env = _build.one_texel_environment(scene, "MCS")
+    cell = mcs.skip_cell_size(scene) if use_skip else 0.0
+    return (state.data_ptr(), *args, env.data_ptr(), width, height,
+            float(np.float32(seed)), float(np.float32(params.extinction)),
+            cell, int(use_skip),
+            *(float(x) for x in mcs.scatter_direction(seed)),
+            float(np.float32(frame_number)), _build.stream_ptr(state))
+
+
+def kernel_name(kind, mode, bf16=True):
+    """The fragment of the mangled name of K6's (mode, dtype) or K8's
+    (dtype, render path) instantiation."""
+    from vpt_tpu_torch.kernels import march
+
+    b = int(bf16)
+    if kind == "march":
+        return f"march_kernelILi{march.MODES[mode]}ELb{b}E"
+    return f"mcs_frame_kernelILb{b}E"
+
+
+def pick(table: dict, fragment: str):
+    """The entry of the render path's instantiation whose name holds
+    ``fragment`` (K8's counting one, ``fragment`` + ``Lb1E``, is not it)."""
+    for name, value in table.items():
+        at = name.find(fragment)
+        if at >= 0 and not name[at + len(fragment):].startswith("Lb1E"):
+            return value
+    return None
+
+
+def pick_kernel(table: dict, kind, mode, bf16, tf):
+    """:func:`pick` of the headline's instantiation: K6's with the TF
+    lookup mode ``tf`` as a template argument where the build has one."""
+    fragment = kernel_name(kind, mode, bf16)
+    if kind == "march":
+        found = pick(table, fragment + f"Li{tf}E")
+        if found is not None:
+            return found
+    return pick(table, fragment)
+
+
+def resident_blocks(registers):
+    """Blocks of 128 threads an SM holds by registers alone (65536 an SM,
+    allocated 256 a warp, 64 warps and 32 blocks at most)."""
+    warp = -(-registers * 32 // 256) * 256
+    warps = min(64, 65536 // warp // 4 * 4)
+    return min(32, warps // 4)
+
+
+def sm_clock_mhz():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    now, peak = (int(v) for v in smi.stdout.split(",")[:2])
+    return now, peak
+
+
+def bench_frames(kind, libs, built, frames):
+    """K6 (each mode) or K8 of every build in turns; returns the readings,
+    the per-(mode, build) shapes and the failed builds."""
+    import torch
+
+    import chip_smoke
+    from vpt_tpu_torch.kernels import _build, march, mcs_frame, tf1d
+    from vpt_tpu_torch.renderers import depth, eam, iso, mcs, mip
+
+    modules = {"eam": eam, "mip": mip, "depth": depth, "iso": iso} \
+        if kind == "march" else {"mcs": mcs}
+    _, _, info_name, match = KERNELS[kind]
+    scene = headline_scene()
+    tw = scene.transfer_1d.shape[0]
+    tf = tf1d.mode_code(scene.tf_mxu)
+    table = scene.volume_packed if kind == "march" else scene.tracking_packed
+    bf16 = table.dtype == torch.bfloat16
+    readings, shapes, failed, clocks = [], {}, set(), []
+    sass_of = {name: sass_loops(built[name][0], match) for name in libs}
+    for mode, module in modules.items():
+        params = module.Params()
+        start = module.reset(params, HEIGHT, WIDTH, scene)
+        work = {}
+        if kind == "march":
+            samples, rows, per_pixel, miss = chip_smoke.march_work(
+                mode, scene, params, 0.5, HEIGHT, WIDTH)
+            work = {"samples": samples, "corner_rows": rows}
+            slices = params.slices if mode in ("eam", "depth") \
+                else params.steps
+            bound_ms, bound_by, _ = chip_smoke.frame_bound(
+                scene, table, HEIGHT * WIDTH, 4 if mode == "mip" else 16,
+                samples * chip_smoke.MARCH_OPS_SAMPLE
+                + HEIGHT * WIDTH * chip_smoke.MARCH_OPS_PIXEL, rows)
+            work.update(bound_ms=bound_ms, bound_by=bound_by)
+        for name, lib in libs.items():
+            shape = {"build": name, "mode": mode}
+            ptx = pick_kernel(ptxas_kernels(built[name][1], match), kind,
+                              mode, bf16, tf)
+            shape.update(ptx or {})
+            # the info entry point, which builds older than it lack
+            info = getattr(lib, info_name, None)
+            if info is not None:
+                fields = (march.OCCUPANCY_FIELDS if kind == "march"
+                          else mcs_frame.OCCUPANCY_FIELDS)
+                out = (ctypes.c_int * len(fields))()
+                info.argtypes = _build.SIGNATURES[info_name]
+                args = ((march.MODES[mode], int(bf16), tw, tf)
+                        if kind == "march" else (int(bf16), tw)) + (0, out)
+                if info(*args) == 0:
+                    shape.update(dict(zip(fields, out)))
+            elif shape.get("registers"):
+                shape["blocks_per_sm"] = resident_blocks(shape["registers"])
+                shape["blocks_per_sm_from"] = "registers"
+            sass = pick_kernel(sass_of[name], kind, mode, bf16, tf)
+            if sass:
+                shape["sass_instructions"], shape["sass_loop"] = sass
+            if kind == "march":
+                chunk = shape.get("chunk", 1)
+                pixels = (_build.tile_pixels(WIDTH, HEIGHT,
+                                             shape["tile_width"],
+                                             shape["tile_height"],
+                                             shape["warp_width"])
+                          if "tile_width" in shape
+                          else row_pixels(WIDTH, HEIGHT))
+                shape["warp_slices"] = chip_smoke.warp_slices(per_pixel,
+                                                              pixels)
+                shape["lane_share"] = samples / 32 / shape["warp_slices"]
+                shape["reads"] = chip_smoke.march_reads(
+                    mode, per_pixel, miss, slices, chunk) \
+                    if "chunk" in shape else samples
+                if shape.get("sass_loop"):
+                    shape["sass_per_slice"] = shape["sass_loop"] / chunk
+            shapes[(mode, name)] = shape
+            print(json.dumps(shape), flush=True)
+
+        def launcher(lib):
+            if kind == "march":
+                def launch(state, seed, n):
+                    _build.check("vpt_march_frame", lib.vpt_march_frame(
+                        *march_args(mode, state, scene, params, seed, n)))
+            else:
+                def launch(state, seed, n):
+                    _build.check("vpt_mcs_frame", lib.vpt_mcs_frame(
+                        *mcs_args(state, scene, params, seed, n)))
+            return launch
+
+        order = [n for n in libs if n != "current"]
+        reference = None
+        for name in ["current", *order, *order[::-1], "current"]:
+            if name in failed:
+                continue
+            launch = launcher(libs[name])
+            state = start.clone()
+            try:
+                for n in range(1, frames + 1):
+                    launch(state, 0.2 + 0.01 * n, n)
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                print(f"{name}: {exc}, left out", flush=True)
+                failed.add(name)
+                continue
+            if reference is None:
+                reference = state.clone()
+            r = {"variant": name, "mode": mode, "frames": frames,
+                 "state_equal_to_current": torch.equal(state, reference)}
+            r["device_ms"] = chip_smoke.profiler_device_ms(
+                lambda: launch(state, 0.5, 2), match, 20)
+            r["ms"] = chip_smoke.cuda_ms(lambda: launch(state, 0.5, 2), 20)
+            clocks.append(sm_clock_mhz())
+            r["sm_clock_mhz"] = clocks[-1][0]
+            shape = shapes[(mode, name)]
+            if kind == "march" and shape.get("sass_per_slice"):
+                hz = clocks[-1][0] * 1e6
+                r["issue_floor_ms"] = shape["sass_per_slice"] \
+                    * shape["warp_slices"] / (SMS * SCHEDULERS * hz) * 1e3
+                r["full_lane_floor_ms"] = shape["sass_per_slice"] \
+                    * work["samples"] / 32 / (SMS * SCHEDULERS * hz) * 1e3
+            r.update(work)
+            readings.append(r)
+            print(json.dumps(r), flush=True)
+    return readings, shapes, failed
+
+
+def row_pixels(width, height):
+    """(x, y, inside) of a launch of 128-thread blocks over the pixels in
+    row-major order (the frame kernels before their pixel tiles)."""
+    import numpy as np
+
+    n = -(-width * height // 128) * 128
+    i = np.arange(n)
+    return i % width, i // width, i < width * height
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="mcm_event")
+    ap.add_argument("--variant", type=variant, action="append", default=[],
+                    help="NAME=PATH of another source of the kernel "
+                         "(repeatable)")
+    ap.add_argument("--frames", type=int, default=30,
+                    help="frames of a reading")
+    ap.add_argument("--size", type=int, default=512,
+                    help="K6/K8: the image's width and height")
+    ap.add_argument("--baseline", default="current",
+                    help="the build the summary divides by")
+    ap.add_argument("--out", type=pathlib.Path)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    global HEIGHT, WIDTH
+    if args.kernel != "mcm_event":
+        HEIGHT = WIDTH = args.size
+    if not torch.cuda.is_available():
+        print("bench_mcm_event: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+
+    from vpt_tpu_torch.kernels import _build
+
+    source, entries, _, _ = KERNELS[args.kernel]
+    sources = {"current": _build.CSRC / source, **dict(args.variant)}
+    t0 = time.perf_counter()
+    built = compile_all(sources, ROOT / "build" / f"bench_{args.kernel}")
+    print(f"built {len(built)} of {len(sources)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
+    if "current" not in built:
+        return 1
+    libs = {name: load(path, entries) for name, (path, _) in built.items()}
+    shapes = {}
+    if args.kernel == "mcm_event":
+        scene = headline_scene()
+        tw = scene.transfer_1d.shape[0]
+        for name in list(libs):
+            out = (ctypes.c_int * len(OCCUPANCY))()
+            err = libs[name].vpt_mcm_event_info(1, tw, out)
+            if err:
+                print(f"{name}: vpt_mcm_event_info error {err}, left out",
+                      flush=True)
+                del libs[name]
+                continue
+            shape = dict(pick(ptxas_kernels(built[name][1],
+                                            "mcm_event_kernel"), "ILb1E")
+                         or {}, **dict(zip(OCCUPANCY, out)))
+            shape["resident_threads_per_sm"] = \
+                shape["blocks_per_sm"] * shape["threads_per_block"]
+            shapes[name] = shape
+            print(f"{name}: {json.dumps(shape)}", flush=True)
+        readings, failed = bench_mcm_event(libs, args.frames)
+        summary = summarize(readings, "steps", (
+            "device_ms", "host_ms_per_frame", "device_events_per_s",
+            "host_events_per_s", "host_paths_per_s", "mean_path_events"),
+            args.baseline)
+    else:
+        readings, frame_shapes, failed = bench_frames(
+            args.kernel, libs, built, args.frames)
+        shapes = {f"{mode} {name}": s
+                  for (mode, name), s in frame_shapes.items()}
+        summary = summarize([r for r in readings
+                             if r["variant"] not in failed], "mode",
+                            ("device_ms", "ms", "issue_floor_ms",
+                             "full_lane_floor_ms", "sm_clock_mhz"),
+                            args.baseline)
     for line in summary:
         print(json.dumps(line), flush=True)
     result = {"card": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "height": HEIGHT, "width": WIDTH,
-              "sources": {k: str(v) for k, v in sources.items()},
+              "cuda": torch.version.cuda, "kernel": args.kernel,
+              "height": HEIGHT, "width": WIDTH,
+              "sources": {k: str(p) for k, p in sources.items()},
               "shapes": shapes, "readings": readings, "summary": summary,
               "failed": sorted(failed)}
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps(result, indent=1))
-    print(f"wrote {args.out}", flush=True)
+    out = args.out or ROOT / "build" / f"bench_{args.kernel}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(f"wrote {out}", flush=True)
     return 0
 
 

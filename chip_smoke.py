@@ -2,13 +2,15 @@
 MCS) and its differentiable MCM fit once on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --launch-path TREE [TREE ...]
+    python3 chip_smoke.py --launch-path [--part frames|fetch] TREE [TREE ...]
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit.  With ``--launch-path`` it times the launch paths of the
-TF-lookup and corner-fetch kernels of each given checkout of the port
-(:func:`launch_path_tree`, one process a tree) and does nothing else; an
-older checkout goes under the git-ignored ``build/``, e.g.
+TF-lookup and corner-fetch kernels (``--part fetch``), of the march and MCS
+kernels (``--part frames``) or of all four (the default) of each given
+checkout of the port (:func:`launch_path_tree`, one process a tree) and
+does nothing else; an older checkout goes under the git-ignored
+``build/``, e.g.
 ``mkdir -p build/parent && git archive HEAD~1 | tar -x -C build/parent``
 then ``--launch-path build/parent . . build/parent``.
 Without arguments, the phases, in order; any failure exits non-zero and
@@ -52,7 +54,11 @@ prints no result:
    (the renderers' plain frames on the scene with ``kernels=False``):
    the headline scene and a float32 ``blobs_volume(64)`` at 512², default
    Params, 4 frames; then timed at the headline, each bound counting the
-   samples and distinct corner rows this run's frame takes;
+   samples and distinct corner rows this run's frame takes (K8's from the
+   kernel's own count of its fetches, checked against the plain frame's
+   estimate), with K6's and K8's host µs a frame, registers and blocks an
+   SM; the printed lines add K6's row reads and share of the warps' lanes,
+   modelled from the plain frame's samples, and K8's estimate;
 10. each renderer of that slice through the user's entry points at 512²
    (``make_renderer``, 10 frames, ``display``, the ``reinhard`` tone
    mapper) on the headline scene, EAM also on the 256³ sphere, each with
@@ -898,6 +904,14 @@ FRAME_KERNEL = {"eam": "march_frame", "mip": "march_frame",
 #: and the rest of its shade; an MCS tracking step (the draw's ~8 and its
 #: logf, the division, position, fetch, TF and the carry's ~10)
 MARCH_OPS_SAMPLE, MARCH_OPS_PIXEL = 50, 66
+#: what the redesign of K6 and K8 for the H100 changed (their rows'
+#: ``redesigned``)
+REDESIGN = {
+    "march_frame": "rows of 4 bf16 / 2 f32 slices read ahead of the fold, "
+                   "8x4 warp tiles, TF mode as a template parameter, one "
+                   "prepared pointer a launch",
+    "mcs_frame": "8x4 warp tiles, the state read first, its own step "
+                 "count, one prepared pointer a launch"}
 SHADE_OPS_TAP, SHADE_OPS_PIXEL = 35, 40
 MCS_OPS_STEP, MCS_OPS_PIXEL = 70, 120
 
@@ -993,11 +1007,12 @@ def phase_frame_kernels(headline, dev):
 
 
 def march_work(key, scene, params, seed, height, width):
-    """(samples, distinct corner rows) of one march-kernel frame: the plain
-    version's schedule replayed slice by slice with the kernel's exits (a
-    miss samples nothing; EAM and Depth stop when inactive, ISO at the
-    first hit from the near end, MIP never), counting the positions the
-    kernel fetches."""
+    """(samples, distinct corner rows, per-pixel samples, misses) of one
+    march-kernel frame: the plain version's schedule replayed slice by
+    slice with the kernel's exits (a miss samples nothing; EAM and Depth
+    stop when inactive, ISO at the first hit from the near end, MIP
+    never), counting the positions the kernel folds; the last two are
+    (H, W) tensors."""
     import dataclasses
 
     import numpy as np
@@ -1017,6 +1032,7 @@ def march_work(key, scene, params, seed, height, width):
     acc = torch.zeros_like(rsl)
     t = torch.full_like(rsl, float(first))
     cells, samples = [], 0
+    per_pixel = torch.zeros_like(rsl, dtype=torch.int32)
     extinction = float(np.float32(getattr(params, "extinction", 0.0)))
     for s in range(slices):
         # the kernel's float32 schedule, in the kernel's order
@@ -1034,6 +1050,7 @@ def march_work(key, scene, params, seed, height, width):
         ts = float(ts)
         pos = (start + ts * seg)[active]
         samples += pos.shape[0]
+        per_pixel += active.to(torch.int32)
         cells.append(sampling.corner_cells(pos, scene.volume.shape)[0])
         alpha = ref.sample_color(start + ts * seg)[..., 3]
         if key == "eam":
@@ -1046,7 +1063,43 @@ def march_work(key, scene, params, seed, height, width):
             t = torch.where(active, t + float(step), t)
         elif key == "iso":
             active = active & ~(alpha >= float(params.isovalue))
-    return samples, int(torch.cat(cells).unique().numel())
+    return samples, int(torch.cat(cells).unique().numel()), per_pixel, miss
+
+
+def march_reads(key, per_pixel, miss, slices, chunk):
+    """Corner-row reads of a frame whose kernel reads ``chunk`` slices
+    ahead of its fold, from :func:`march_work`'s per-pixel samples: MIP
+    reads every slice; EAM and Depth read the chunk in which they find
+    themselves inactive, ISO the chunk of its hit, whole (up to the
+    schedule's end).  The reads past the samples are the price of the
+    overlap."""
+    import torch
+
+    m = per_pixel.to(torch.int64)
+    if key == "mip":
+        reads = torch.full_like(m, slices)
+    elif key == "iso":
+        reads = torch.clamp((m + chunk - 1) // chunk * chunk, max=slices)
+    else:
+        reads = torch.where(m < slices,
+                            torch.clamp((m // chunk + 1) * chunk, max=slices),
+                            m)
+    return int(torch.where(miss, torch.zeros_like(reads), reads).sum())
+
+
+def warp_slices(per_pixel, pixels):
+    """Σ over the launch's warps of the most samples one of its lanes
+    folds, for the thread → pixel map ``pixels`` = (x, y, inside) in launch
+    order (``_build.tile_pixels``): the slices the warps step through, of
+    which the samples are the lanes' useful share."""
+    import numpy as np
+
+    counts = per_pixel.cpu().numpy()
+    x, y, inside = pixels
+    h, w = counts.shape
+    lanes = np.where(inside, counts[np.minimum(y, h - 1),
+                                    np.minimum(x, w - 1)], 0)
+    return int(lanes.reshape(-1, 32).max(1).sum())
 
 
 def shade_work(scene, state, h):
@@ -1068,12 +1121,16 @@ def shade_work(scene, state, h):
 
 
 def mcs_work(scene, params, seed, height, width):
-    """(tracking steps, distinct corner rows) of one MCS-kernel frame,
-    estimated from the plain frame's fetches: a pixel whose position did
-    not move since the previous fetch is done (its carry is frozen), and
-    a position outside the cube is a path that left its segment, which
-    the kernel does not fetch.  A lower estimate (a diffuse fetch at the
-    collision point is not counted)."""
+    """(corner-row fetches, distinct corner rows) of one MCS-kernel frame,
+    estimated from the plain frame's fetches: a pixel whose position does
+    not move between two fetches is done (its carry is frozen), a position
+    outside the open unit cube is a path that left its segment, which the
+    kernel does not fetch, and the shadow segment's fetches (and the
+    diffuse one at its start) count only for pixels whose scattering point
+    lies inside the cube (the others missed or escaped, and the kernel
+    tracks no shadow for them).  A lower estimate of the kernel's own
+    count (``mcs_frame(..., counts=)``): fetches on the cube's faces and at
+    the free path's last step are left out."""
     import dataclasses
 
     import torch
@@ -1081,25 +1138,54 @@ def mcs_work(scene, params, seed, height, width):
     from vpt_tpu_torch import sampling
 
     ref = dataclasses.replace(scene, kernels=False)
-    last, cells, steps = [None], [], [0]
+    last, pending, cells, fetches = [None], [None], [], [0]
+    scattered = [None]
     sampler = "sample_color_tracking" if scene.tracking_packed is not None \
         else "sample_color"
     original = getattr(ref, sampler)
+    intersect, calls = sampling.intersect_cube, [0]
+
+    def inside(pos):
+        return ((pos > 0.0) & (pos < 1.0)).all(-1)
+
+    def take(mask, pos):
+        fetches[0] += int(mask.sum())
+        cells.append(sampling.corner_cells(pos[mask], scene.volume.shape)[0])
 
     def recording(pos):
+        # a done pixel's first position after its collision is new but
+        # never fetched, and stays put from then on: a position counts
+        # once the next call has moved the pixel again
+        if pending[0] is not None:
+            before, mask = pending[0]
+            take(mask & (pos != before).any(-1), before)
         moved = torch.ones_like(pos[..., 0], dtype=torch.bool) \
-            if last[0] is None or last[0].shape != pos.shape \
-            else (pos != last[0]).any(-1)
-        inside = ((pos >= 0.0) & (pos <= 1.0)).all(-1)
-        taken = pos[moved & inside]
-        steps[0] += taken.shape[0]
-        cells.append(sampling.corner_cells(taken, scene.volume.shape)[0])
+            if last[0] is None else (pos != last[0]).any(-1)
+        mask = moved & inside(pos)
+        if scattered[0] is not None:
+            mask &= scattered[0]
+        pending[0] = (pos, mask)
         last[0] = pos
         return original(pos)
 
+    def shadow_start(origin, direction):
+        # generate's second slab test starts the shadow phase, from the
+        # scattering points; their diffuse fetch comes next.  The free
+        # path's last positions are dropped (a lower estimate)
+        calls[0] += 1
+        if calls[0] == 2:
+            scattered[0] = inside(origin)
+            take(scattered[0], origin)
+            last[0], pending[0] = origin, None
+        return intersect(origin, direction)
+
     setattr(ref, sampler, recording)
-    renderer_module("mcs").generate(ref, params, seed, height, width)
-    return steps[0], int(torch.cat(cells).unique().numel())
+    sampling.intersect_cube = shadow_start
+    try:
+        renderer_module("mcs").generate(ref, params, seed, height, width)
+    finally:
+        sampling.intersect_cube = intersect
+    return fetches[0], int(torch.cat(cells).unique().numel())
 
 
 def frame_bound(scene, table, pixels, state_bytes, ops, rows):
@@ -1114,13 +1200,19 @@ def time_frame_kernels(scene):
     """ms (CUDA events over back-to-back frames), device ms (profiler) and
     the plain version's ms of K6 in each mode, K7 and K8 at the main
     path's shape (the headline at 512², default Params), with each
-    frame's bound from this run's work.  Returns the three rows' fields."""
+    frame's bound from this run's work (K8's from its own count of its
+    fetches), and K6's and K8's host µs a frame, registers and residency.
+    Returns the three rows' fields."""
     import dataclasses
 
-    from vpt_tpu_torch.kernels import iso_shade, march, mcs_frame
+    from vpt_tpu_torch.kernels import _build, iso_shade, march, mcs_frame
+    from vpt_tpu_torch.kernels import tf1d
+
+    import torch
 
     n = 512 * 512
     ref = dataclasses.replace(scene, kernels=False)
+    tw = scene.transfer_1d.shape[0]
     k6 = {}
     for key in ("eam", "mip", "depth", "iso"):
         module = renderer_module(key)
@@ -1134,26 +1226,44 @@ def time_frame_kernels(scene):
 
         ms = cuda_ms(frame, 20)
         device_ms = profiler_device_ms(frame, "march_kernel", 20)
+        host_us = _host_call_us(frame)
         plain_ms = cuda_ms(lambda: march.march_frame_plain(
             key, plain, ref, params, 0.5, 2), 2)
-        samples, rows = march_work(key, scene, params, 0.5, 512, 512)
+        occ = march.occupancy(key, scene.volume_packed.dtype, tw,
+                              tf1d.mode_code(scene.tf_mxu))
+        slices = params.slices if key in ("eam", "depth") else params.steps
+        samples, rows, per_pixel, miss = march_work(key, scene, params, 0.5,
+                                                    512, 512)
+        reads = march_reads(key, per_pixel, miss, slices, occ["chunk"])
+        lanes = samples / 32 / warp_slices(per_pixel, _build.tile_pixels(
+            512, 512, occ["tile_width"], occ["tile_height"],
+            occ["warp_width"]))
         bound_ms, bound_by, nbytes = frame_bound(
             scene, scene.volume_packed, n, 4 if key == "mip" else 16,
             samples * MARCH_OPS_SAMPLE + n * MARCH_OPS_PIXEL, rows)
         print(f"march_frame {key} 512^2 headline: {ms:.4f} ms a frame, "
-              f"device {fmt_ms(device_ms)}, plain {plain_ms:.4f} ms; "
-              f"{samples} samples ({samples / n:.4g} a pixel), {rows} "
-              f"distinct corner rows; bound {bound_ms:.4f} ms ({bound_by}, "
-              f"{nbytes} bytes)", flush=True)
+              f"device {fmt_ms(device_ms)}, host {host_us:.2f} us a frame, "
+              f"plain {plain_ms:.4f} ms; {samples} samples ({samples / n:.4g}"
+              f" a pixel), {rows} distinct corner rows; modelled from the "
+              f"samples: {lanes:.4f} of the warps' lanes, {reads} row reads "
+              f"({occ['chunk']} ahead of the fold); bound {bound_ms:.4f} ms ({bound_by}, {nbytes} "
+              f"bytes); {occ['registers']} registers, {occ['local_bytes']} "
+              f"spill bytes, {occ['blocks_per_sm']} blocks of 128 an SM",
+              flush=True)
         k6[key] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
+                   "host_us": host_us, "registers": occ["registers"],
+                   "blocks_per_sm": occ["blocks_per_sm"],
                    "samples": samples, "corner_rows": rows}
         if key == "iso":
             iso_state = state
     # the row's own numbers are EAM's; every mode's beside them
     row6 = {k: k6["eam"][k] for k in ("ms", "device_ms", "plain_ms",
-                                      "bound_ms", "bound_by")}
-    row6["library_ms"] = None
+                                      "bound_ms", "bound_by", "host_us",
+                                      "registers", "blocks_per_sm")}
+    row6.update(library_ms=None, redesigned=REDESIGN["march_frame"],
+                chunk=occ["chunk"], tile=[occ["tile_width"],
+                                          occ["tile_height"]])
     for key, fields in k6.items():
         for k, v in fields.items():
             row6[f"{k}_{key}"] = v
@@ -1188,20 +1298,35 @@ def time_frame_kernels(scene):
 
     ms = cuda_ms(frame, 20)
     device_ms = profiler_device_ms(frame, "mcs_frame_kernel", 20)
+    host_us = _host_call_us(frame)
     plain_ms = cuda_ms(lambda: mcs_frame.mcs_frame_plain(plain, ref, params,
                                                          0.5, 2), 2)
-    steps, rows = mcs_work(scene, params, 0.5, 512, 512)
+    occ = mcs_frame.occupancy(scene.tracking_packed.dtype, tw)
+    # the kernel's own count of this frame, and the plain frame's estimate
+    counts = torch.zeros(2, dtype=torch.int64, device=state.device)
+    mcs_frame.mcs_frame(state.clone(), scene, params, 0.5, 2, counts=counts)
+    steps, fetches = (int(v) for v in counts.tolist())
+    estimate, rows = mcs_work(scene, params, 0.5, 512, 512)
+    check(fetches >= estimate, f"mcs_frame counted {fetches} fetches, "
+          f"fewer than the plain frame's {estimate}")
     bound_ms, bound_by, nbytes = frame_bound(
         scene, scene.tracking_packed, n, 16,
-        steps * MCS_OPS_STEP + n * MCS_OPS_PIXEL, rows)
+        fetches * MCS_OPS_STEP + n * MCS_OPS_PIXEL, rows)
     print(f"mcs_frame 512^2 headline: {ms:.4f} ms a frame, device "
-          f"{fmt_ms(device_ms)}, plain {plain_ms:.4f} ms; {steps} tracking "
-          f"steps ({steps / n:.4g} a pixel), {rows} distinct corner rows; "
-          f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes)",
-          flush=True)
+          f"{fmt_ms(device_ms)}, host {host_us:.2f} us a frame, plain "
+          f"{plain_ms:.4f} ms; the kernel's count: {steps} tracking steps "
+          f"({steps / n:.4g} a pixel), {fetches} corner-row fetches (the "
+          f"plain frame's estimate {estimate}), {rows} distinct corner "
+          f"rows; bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes); "
+          f"{occ['registers']} registers, {occ['local_bytes']} spill bytes, "
+          f"{occ['blocks_per_sm']} blocks of 128 an SM", flush=True)
     row8 = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "tracking_steps": steps, "corner_rows": rows}
+            "host_us": host_us, "registers": occ["registers"],
+            "blocks_per_sm": occ["blocks_per_sm"],
+            "redesigned": REDESIGN["mcs_frame"],
+            "tracking_steps": steps, "fetches": fetches,
+            "corner_rows": rows}
     return row6, row7, row8
 
 
@@ -1492,17 +1617,32 @@ def trace_counts(fn):
                                 for e in events)}
 
 
-def launch_path_tree(tree):
-    """The launch paths of K1 and K3 in the port found at ``tree`` (this
-    checkout or another, such as an archived parent under ``build/``),
-    through calls that every tree with the differentiable fit takes
-    alike: host microseconds a call of the pieces (the output, the stream
-    handle, the library, the TF lookup and ``F.grid_sample`` in turns,
-    ``corner_cells``, the fetch under no_grad and under autograd), loop and
-    device times, one differentiable fetch's trace, ``Scene.sample_color``
-    and the 256³ fit's target render and value-and-grad.  Returns the
-    numbers as a dict."""
+def launch_path_tree(tree, part="all"):
+    """The launch paths in the port found at ``tree`` (this checkout or
+    another, such as an archived parent under ``build/``).  ``part``
+    "frames": those of K6 and K8 (:func:`frame_path_numbers`); "fetch":
+    those of K1 and K3, through calls that every tree with the
+    differentiable fit takes alike: host microseconds a call of the pieces
+    (the output, the stream handle, the library, the TF lookup and
+    ``F.grid_sample`` in turns, ``corner_cells``, the fetch under no_grad
+    and under autograd), loop and device times, one differentiable fetch's
+    trace, ``Scene.sample_color`` and the 256³ fit's target render and
+    value-and-grad; "all": both.  Returns the numbers as a dict."""
     sys.path.insert(0, os.path.abspath(tree))
+    from vpt_tpu_torch import sampling
+
+    check(os.path.abspath(sampling.__file__).startswith(
+        os.path.abspath(tree)), f"vpt_tpu_torch not imported from {tree}")
+    out = {"tree": tree}
+    if part in ("frames", "all"):
+        out["frames"] = frame_path_numbers()
+    if part in ("fetch", "all"):
+        out.update(fetch_path_numbers())
+    return out
+
+
+def fetch_path_numbers():
+    """:func:`launch_path_tree`'s numbers of K1 and K3 and the fit."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1511,8 +1651,6 @@ def launch_path_tree(tree):
     from vpt_tpu_torch.kernels import _build, tf1d
     from vpt_tpu_torch.renderers import diff_mc, make_scene, mcm
 
-    check(os.path.abspath(sampling.__file__).startswith(
-        os.path.abspath(tree)), f"vpt_tpu_torch not imported from {tree}")
     dev = torch.device("cuda", 0)
     g = torch.Generator().manual_seed(2)
     values = (torch.rand(512, 512, generator=g) * 1.2 - 0.1).to(dev)
@@ -1606,26 +1744,137 @@ def launch_path_tree(tree):
         if name == "target_render_ms":
             target = result
     fit["loss"] = result
-    return {"tree": tree, "host_us": host, "loop_ms": loop,
+    return {"host_us": host, "loop_ms": loop,
             "device_ms": device, "differentiable_fetch_trace": trace,
             "fit": fit}
 
 
-def launch_path(trees):
+def _host_call_us(fn, reps=300):
+    """Host microseconds of one call of ``fn`` that finds the launch queue
+    empty (the card synchronised before each), over ``reps`` calls after
+    one warm-up call: what a wrapper costs the host a frame."""
+    import torch
+
+    fn()
+    total = 0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        fn()
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / reps / 1e3
+
+
+def frame_path_numbers():
+    """K6's and K8's launch paths in this process's tree, through
+    ``march.march_frame(mode, state, scene, params, seed, n)`` and
+    ``mcs_frame.mcs_frame(state, scene, params, seed, n)``, which every tree
+    with these renderers takes alike, on the headline scene with default
+    Params: for each renderer at 512² the loop time a frame (``ms``, CUDA
+    events), the device time and the host µs a frame
+    (:func:`_host_call_us`); and the host µs of the wrapper's pieces over
+    10^4 calls each where the tree has them (a wrapper that builds the
+    argument list every frame: ``frame_scalars``, ``_scene_cache.get``,
+    ``check_image``, ``torch.cuda.device``, the ctypes call; one with a
+    prepared launch: its ``first``, ``frame_mix``, the cache and the ctypes
+    call; both: the scatter direction), the launching pieces at 1×1, where
+    the host sets the pace."""
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.kernels import _build, march, mcs_frame
+    from vpt_tpu_torch.renderers import depth, eam, iso, make_scene, mcs, mip
+
+    scene = make_scene(volume.sphere_volume(128),
+                       transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                       tracking="auto", pack_dtype=torch.bfloat16,
+                       tf_mxu=True)
+    frames = {}
+    for key, module in (("eam", eam), ("mip", mip), ("depth", depth),
+                        ("iso", iso), ("mcs", mcs)):
+        params = module.Params()
+        state = module.reset(params, 512, 512, scene)
+        if key == "mcs":
+            def call():
+                mcs_frame.mcs_frame(state, scene, params, 0.5, 2)
+        else:
+            def call():
+                march.march_frame(key, state, scene, params, 0.5, 2)
+        frames[key] = {
+            "ms": cuda_ms(call, 200),
+            "device_ms": profiler_device_ms(
+                call, "mcs_frame_kernel" if key == "mcs" else "march_kernel",
+                50),
+            "host_us": _host_call_us(call)}
+
+    pieces = {}
+    params, mparams = eam.Params(), mcs.Params()
+    state = eam.reset(params, 512, 512, scene)
+    tiny = eam.reset(params, 1, 1, scene)
+    tiny_mcs = mcs.reset(mparams, 1, 1, scene)
+    lib = _build.library()
+    stream = _build.current_stream(0)
+    if hasattr(march, "launch_args"):          # the argument-list wrapper
+        def context():
+            with torch.cuda.device(state.device):
+                pass
+
+        args = march.launch_args("eam", tiny, scene, params, 0.5, 2)
+        pieces.update(
+            frame_scalars=_host_us(
+                lambda: march.frame_scalars("eam", params, 0.5, 2)),
+            scene_cache_get=_host_us(lambda: march._scene_cache.get(scene)),
+            check_image=_host_us(lambda: _build.check_image(
+                state, (512, 512, 4), state.device, "the eam state")),
+            device_context=_host_us(context),
+            launch_args=_host_us(lambda: march.launch_args(
+                "eam", state, scene, params, 0.5, 2)),
+            ctypes_call_1x1=_host_us(lambda: lib.vpt_march_frame(*args)))
+    if hasattr(march, "first_of"):             # the prepared launch
+        key = ("eam", params, 1, 1)
+        p = march._scene_cache.get(scene, key)
+        pieces.update(
+            first=_host_us(lambda: p.first(0.5)),
+            frame_mix=_host_us(lambda: march.frame_mix(2)),
+            scene_cache_get=_host_us(lambda: march._scene_cache.get(scene,
+                                                                    key)),
+            ctypes_call_1x1=_host_us(lambda: p.launch(
+                p.address, tiny.data_ptr(), 0.1, 0.5, stream)))
+    pieces.update(
+        mcs_scatter_direction=_host_us(lambda: mcs.scatter_direction(0.5)),
+        march_frame_1x1=_host_us(lambda: march.march_frame(
+            "eam", tiny, scene, params, 0.5, 2)),
+        mcs_frame_1x1=_host_us(lambda: mcs_frame.mcs_frame(
+            tiny_mcs, scene, mparams, 0.5, 2)))
+    return {"frames": frames, "pieces_host_us": pieces}
+
+
+def launch_path(trees, part="all"):
     """:func:`launch_path_tree` for each tree in turn, each in its own
     process (two trees' packages cannot share one), then a table of the
     numbers by tree."""
     results = []
     for tree in trees:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--launch-path-tree", tree],
+                               "--launch-path-tree", tree, part],
                               capture_output=True, text=True, timeout=900)
         sys.stderr.write(proc.stderr[-4000:])
         check(proc.returncode == 0, f"launch path of {tree} failed")
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results.append(json.loads(line)["launch_path"])
-    for section in ("host_us", "loop_ms", "device_ms", "fit"):
+    tables = []
+    if part in ("frames", "all"):
+        for r in results:
+            for key, row in r["frames"]["frames"].items():
+                for k, v in row.items():
+                    r.setdefault("frame", {})[f"{key} {k}"] = v
+            r["pieces"] = r["frames"]["pieces_host_us"]
+        tables += ["frame", "pieces"]
+    if part in ("fetch", "all"):
+        tables += ["host_us", "loop_ms", "device_ms", "fit"]
+    for section in tables:
         names = sorted({k for r in results for k in r[section]})
         for name in names:
             cells = [r[section].get(name) for r in results]
@@ -1633,6 +1882,8 @@ def launch_path(trees):
                 "-" if v is None else f"{v:12.4f}" for v in cells),
                 flush=True)
     for r in results:
+        if "differentiable_fetch_trace" not in r:
+            continue
         t = r["differentiable_fetch_trace"]
         print(f"{r['tree']}: one differentiable fetch ran "
               f"{len(t['kernels'])} kernels, {t['htod']} host-to-device "
@@ -1643,15 +1894,19 @@ def launch_path(trees):
 
 def main() -> int:
     if "--launch-path-tree" in sys.argv:
-        tree = sys.argv[sys.argv.index("--launch-path-tree") + 1]
-        print(json.dumps({"launch_path": launch_path_tree(tree)}),
+        tree, part = sys.argv[sys.argv.index("--launch-path-tree") + 1:][:2]
+        print(json.dumps({"launch_path": launch_path_tree(tree, part)}),
               flush=True)
         return 0
     if "--launch-path" in sys.argv:
         import torch
 
         check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
-        launch_path(sys.argv[sys.argv.index("--launch-path") + 1:])
+        trees = sys.argv[sys.argv.index("--launch-path") + 1:]
+        part = "all"
+        if trees[:1] == ["--part"]:
+            part, trees = trees[1], trees[2:]
+        launch_path(trees, part)
         return 0
     try:
         result = run()

@@ -729,3 +729,99 @@ def test_frame_kernels_refuse_what_they_do_not_take(cuda):
                                      device=cuda), scene, mip.Params(),
                          0.1, 1)
     assert _launches() == before
+
+
+@pytest.mark.parametrize("height,width", [(1, 1), (47, 33), (512, 1),
+                                          (1, 512)],
+                         ids=["1x1", "33x47", "1x512", "512x1"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("key", ["eam", "mip", "depth", "iso", "mcs"])
+def test_frame_kernels_match_plain_off_the_tiles(cuda, key, kind, height,
+                                                 width):
+    """K6 in each mode and K8 on images that are no whole number of their
+    16×8 pixel tiles: the threads past the edge write nothing, every pixel
+    equals the plain frame's."""
+    scene = _scene(kind, cuda)
+    params = mcs.Params(extinction=8.0) if key == "mcs" else None
+    state, plain = _kernel_frames(key, scene, height, width, 2, params)
+    assert_kernel_agrees(key, state, plain)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_mcs_counter_leaves_the_state_alone(cuda, kind):
+    """The counting instantiation of K8 writes the same state, and counts
+    draws and fetches across frames."""
+    scene = _scene(kind, cuda)
+    params = mcs.Params(extinction=8.0)
+    plain = mcs.reset(params, 40, 56, scene)
+    counted = plain.clone()
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    sums = []
+    for n in range(1, 4):
+        mcs_frame.mcs_frame(plain, scene, params, 0.2 + 0.1 * n, n)
+        mcs_frame.mcs_frame(counted, scene, params, 0.2 + 0.1 * n, n,
+                            counts=counts)
+        sums.append(counts.tolist())
+    assert torch.equal(plain, counted)
+    assert 0 < sums[0][1] <= sums[0][0] + 40 * 56
+    assert sums[0][0] < sums[1][0] < sums[2][0]
+
+
+def test_mcs_counter_covers_the_plain_estimate(cuda):
+    """The kernel's own fetch count is at least chip_smoke.mcs_work's lower
+    estimate from the plain frame's moving positions."""
+    import chip_smoke
+
+    scene = _headline_scene(24, cuda)
+    params = mcs.Params(extinction=8.0)
+    state = mcs.reset(params, 48, 48, scene)
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    mcs_frame.mcs_frame(state, scene, params, 0.4, 1, counts=counts)
+    estimate, rows = chip_smoke.mcs_work(scene, params, 0.4, 48, 48)
+    assert 0 < estimate <= int(counts[1]) and rows > 0
+
+
+@pytest.mark.parametrize("key", ["eam", "mip", "depth", "iso", "mcs"])
+def test_frame_kernels_argument_lists_agree(cuda, key):
+    """vpt_march_frame and vpt_mcs_frame, the argument lists every build
+    since the port exports (bench_mcm_event.py drives them), write what the
+    wrappers' prepared launches write."""
+    import bench_mcm_event
+
+    scene = _scene("bf16", cuda)
+    module = RENDERERS[key]
+    params = module.Params()
+    state = module.reset(params, 40, 56, scene)
+    other = state.clone()
+    lib = _build.library()
+    for n in range(1, 3):
+        module.render_frame(state, scene, params, 0.3 * n, n)
+        if key == "mcs":
+            err = lib.vpt_mcs_frame(*bench_mcm_event.mcs_args(
+                other, scene, params, 0.3 * n, n))
+        else:
+            err = lib.vpt_march_frame(*bench_mcm_event.march_args(
+                key, other, scene, params, 0.3 * n, n))
+        _build.check(key, err)
+    torch.cuda.synchronize()
+    assert torch.equal(state, other)
+
+
+def test_frame_kernels_launch_shapes(cuda):
+    """Each K6 mode and K8 fit an SM, on one pixel tile of a block's
+    threads, which ``_build.tile_pixels`` maps onto every pixel once."""
+    tiles = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = [march.occupancy(mode, dtype, 256) for mode in march.MODES]
+        shapes.append(mcs_frame.occupancy(dtype, 256))
+        for occ in shapes:
+            assert occ["threads_per_block"] == 128
+            assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+            assert occ["tile_width"] * occ["tile_height"] == 128
+            tiles.add((occ["tile_width"], occ["tile_height"],
+                       occ["warp_width"]))
+        assert all(occ["chunk"] >= 1 for occ in shapes[:-1])
+    assert len(tiles) == 1
+    x, y, inside = _build.tile_pixels(33, 47, *tiles.pop())
+    assert torch.equal(torch.from_numpy(y[inside] * 33 + x[inside]).sort()[0],
+                       torch.arange(33 * 47))

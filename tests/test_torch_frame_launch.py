@@ -1,0 +1,147 @@
+"""What the CPU can check of the frame kernels' launch paths (K6
+``kernels/march.py``, K8 ``kernels/mcs_frame.py``) and of what the kernels
+compute from the host's numbers.
+
+- A frame's scalars come from Python floats rounded to float32 one IEEE
+  operation at a time (``_build.f32``), not from numpy: they must equal
+  ``march.frame_scalars``, which the plain frames take, bit for bit.
+- MIP's kernel takes ``x − floor(x)`` for ``fmod(x, 1)`` of its schedule
+  value ``x = offset + s·step``; that is exact on every slice the renderer
+  can make.
+- The kernels map threads to 8×4 warp tiles of 16×8 block tiles
+  (``csrc/ray.cuh``); the Python copy of the map, which takes the tile
+  shape the kernels report, must cover every pixel once.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vpt_tpu_torch import transfer, volume
+from vpt_tpu_torch.kernels import _build, march, mcs_frame
+from vpt_tpu_torch.renderers import depth, eam, iso, make_scene, mcs, mip
+
+F32 = np.float32
+MARCH_PARAMS = [("eam", eam.Params()), ("eam", eam.Params(random=False)),
+                ("eam", eam.Params(slices=7)), ("mip", mip.Params()),
+                ("mip", mip.Params(steps=3)), ("depth", depth.Params()),
+                ("depth", depth.Params(random=True, slices=100)),
+                ("iso", iso.Params()), ("iso", iso.Params(steps=13))]
+
+
+def _bits(x):
+    return int(F32(x).view(np.uint32))
+
+
+@pytest.mark.parametrize("mode,params", MARCH_PARAMS,
+                         ids=[f"{m}-{i}" for i, (m, _) in
+                              enumerate(MARCH_PARAMS)])
+def test_march_frame_scalars_equal_frame_scalars(mode, params):
+    """The launch path's first value and weight equal frame_scalars' for
+    1000 seeds (with the edges 0 and the largest float32 below 1) and every
+    frame number 1..64."""
+    rs = np.random.default_rng(7)
+    seeds = list(rs.random(998, dtype=np.float32)) \
+        + [F32(0.0), np.nextafter(F32(1.0), F32(0.0))]
+    _, step, *_ = march.frame_scalars(mode, params, 0.0, 1)
+    first = march.first_of(mode, params, step)
+    for k, seed in enumerate(seeds):
+        n = 1 + k % 64
+        _, _, want_first, _, _, want_mix = march.frame_scalars(mode, params,
+                                                               seed, n)
+        assert _bits(first(seed)) == _bits(want_first), (seed, n)
+        assert _bits(march.frame_mix(n)) == _bits(want_mix), n
+
+
+def test_mip_wrap_equals_fmod_on_every_slice():
+    """fmod(x, 1) of x = offset + f32(s)·step (float32, no contraction) is
+    x − floor(x), as the kernel computes it: x is never below +0, and
+    floor(x) is 0 or lies in [x/2, x], where the difference is exact.
+    102 400 offsets (400 for each step count, with 0 and 1), every slice
+    of steps 1..256, then 10^5 float32 values up to 2^30."""
+    rs = np.random.default_rng(9)
+
+    def wrap(x):
+        return x - np.floor(x)
+
+    for steps in range(1, 257):
+        offsets = rs.random(400, dtype=np.float32)
+        offsets[:2] = (0.0, 1.0)
+        step = F32(1.0 / steps)
+        x = offsets[:, None] + np.arange(steps, dtype=F32)[None, :] * step
+        assert x.dtype == F32 and bool((x >= 0.0).all())
+        assert np.array_equal(wrap(x).view(np.uint32),
+                              np.fmod(x, F32(1.0)).view(np.uint32))
+    x = (rs.random(100_000) * 2.0 ** rs.integers(0, 31, 100_000)) \
+        .astype(F32)
+    assert np.array_equal(wrap(x).view(np.uint32),
+                          np.fmod(x, F32(1.0)).view(np.uint32))
+
+
+@pytest.mark.parametrize("tile", [(16, 8, 8), (32, 4, 8), (8, 16, 4)],
+                         ids=lambda t: "x".join(map(str, t)))
+@pytest.mark.parametrize("height,width", [(1, 1), (1, 512), (512, 1),
+                                          (48, 80), (511, 513), (512, 1024)],
+                         ids=lambda v: None)
+def test_tile_map_covers_every_pixel_once(height, width, tile):
+    """Every pixel has exactly one thread; each warp's pixels lie in one
+    warp tile.  ``tile`` = (block width, block height, warp width): the
+    kernels' own (16, 8, 8) and two others of 128 threads."""
+    tile_w, tile_h, warp_w = tile
+    x, y, inside = _build.tile_pixels(width, height, tile_w, tile_h, warp_w)
+    assert x.shape[0] % (tile_w * tile_h) == 0
+    index = y[inside] * width + x[inside]
+    assert np.array_equal(np.sort(index), np.arange(height * width))
+    wx, wy = x.reshape(-1, 32), y.reshape(-1, 32)
+    assert bool((wx.max(1) - wx.min(1) == warp_w - 1).all())
+    assert bool((wy.max(1) - wy.min(1) == 32 // warp_w - 1).all())
+
+
+def test_f32_rounds_as_numpy():
+    """_build.f32 is np.float32's rounding (ties to even), and f32_bits its
+    bits, on values near float32's midpoints and edges."""
+    rs = np.random.default_rng(10)
+    values = list(rs.random(2000) * 10.0 ** rs.integers(-40, 38, 2000)) \
+        + [1.0 + 2.0 ** -24, 1.0 + 3 * 2.0 ** -24, -0.0, 0.0, 2.0 ** -149,
+           3.0 * 2.0 ** -150]
+    for v in values:
+        assert _bits(_build.f32(v)) == _bits(v) == _build.f32_bits(v)
+
+
+@pytest.fixture(scope="module")
+def cpu_scene():
+    return make_scene(volume.sphere_volume(8, device="cpu"),
+                      transfer.gray_ramp(device="cpu"), device="cpu")
+
+
+def test_launch_preparation_is_kept_per_mode_params_and_size(cpu_scene):
+    """A frame's preparation is kept while the scene, mode, Params and
+    resolution stay, and made anew when one changes; the prepared
+    arguments carry the scene's table and the frame's static scalars."""
+    cache = march._scene_cache
+    key = ("depth", depth.Params(), 4, 6)
+    p = cache.get(cpu_scene, key)
+    assert cache.get(cpu_scene, ("depth", depth.Params(), 4, 6)) is p
+    assert (p.args.table, p.args.d, p.args.width, p.args.height) == (
+        cpu_scene.volume_packed.data_ptr(), 8, 6, 4)
+    assert (p.args.slices, p.args.mode, tuple(p.shape)) == (64, 2, (4, 6, 4))
+    assert p.args.level == pytest.approx(0.1) and p.first(0.3) == 0.0
+    assert cache.get(cpu_scene, ("depth", depth.Params(), 4, 7)) is not p
+    q = mcs_frame._scene_cache.get(cpu_scene, (mcs.Params(), 5, 5))
+    assert (q.args.width, q.args.use_skip, q.args.extinction) == (5, 0, 1.0)
+
+
+def test_march_refuses_huge_tables():
+    """The march kernel indexes corner rows with 32-bit integers; the
+    largest volume below 2^31 cells passes."""
+    with pytest.raises(ValueError, match="32-bit"):
+        march.check_rows((2 ** 11, 2 ** 10, 2 ** 10))
+    march.check_rows((2 ** 31 - 1, 1, 1))
+
+
+def test_cpu_counts_raise(cpu_scene):
+    """Only the kernel counts its steps."""
+    state = mcs.reset(mcs.Params(), 4, 4, cpu_scene)
+    with pytest.raises(ValueError, match="counts"):
+        mcs_frame.mcs_frame(state, cpu_scene, mcs.Params(), 0.1, 1,
+                            counts=torch.zeros(2, dtype=torch.int64))

@@ -382,13 +382,15 @@ def test_scene_preparation_is_kept_and_lets_the_scene_go(scenes):
     scene = make_scene(volume.sphere_volume(8, device="cpu"),
                        transfer.gray_ramp(device="cpu"), device="cpu")
     cache = march._scene_cache
-    prepared = cache.get(scene)
-    assert cache.get(scene) is prepared
-    tensors, args = prepared
-    assert args[0] == scene.volume_packed.data_ptr() and args[2:5] == (8,) * 3
+    key = ("eam", trenderers.eam.Params(), 4, 4)
+    prepared = cache.get(scene, key)
+    assert cache.get(scene, key) is prepared
+    args = prepared.args
+    assert args.table == scene.volume_packed.data_ptr() \
+        and (args.d, args.h, args.w) == (8,) * 3
     scene.volume_packed = scene.volume_packed.clone()
-    assert cache.get(scene) is not prepared
-    del prepared, tensors, scene
+    assert cache.get(scene, key) is not prepared
+    del prepared, args, scene
     gc.collect()
     assert cache._last is None
 
@@ -400,4 +402,5 @@ def test_unpacked_scene_raises_for_the_kernels():
                        transfer.gray_ramp(device="cpu"), pack=False,
                        device="cpu")
     with pytest.raises(NotImplementedError, match="pack=True"):
-        march._scene_cache.get(scene)
+        march._scene_cache.get(scene,
+                               ("eam", trenderers.eam.Params(), 4, 4))

@@ -117,7 +117,7 @@ __global__ void corner_fetch_kernel(const T* __restrict__ table, int c,
                        dim - 1.0f);
     float i0f = floorf(u);
     f[a] = u - i0f;
-    i[a] = vpt_index(i0f, dims[a] - 1);
+    i[a] = vpt_index(i0f);
   }
   const long long cell = ((long long)i[2] * h + i[1]) * w + i[0];
   if (cells != nullptr) {

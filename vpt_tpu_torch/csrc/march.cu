@@ -8,71 +8,150 @@
 // ray.cuh and tf1d.cuh (vpt_tpu/pallas/tf1d.py:74-100, and the corner row of
 // benchmarks/pallas_gather.py).
 //
-// Bound on the H100: a slice is one dependent 16-byte (bf16) or 32-byte
-// (f32) corner-row read and ~50 operations (coordinates and lerps ~21,
-// the TF lookup ~14, the composite up to ~10); a pixel's ray setup is ~66
-// operations.  On the 512^2 headline a frame takes ~5 M samples (~0.27 G
-// operations, 0.004 ms at 67 TFLOP/s) from ~1 M distinct corner rows,
-// which with the state (16 bytes a pixel, read and written once) are
-// ~25 MB (0.0075 ms at 3.35 TB/s): bytes bound it.  In practice each
-// thread's chain of dependent row reads sets the time.
+// Bound on the H100: a slice is one 16-byte (bf16) or 32-byte (f32)
+// corner-row read and ~100-125 instructions (SASS of the bf16 slice loop:
+// the position and cell ~30, the lerps ~30, the TF lookup ~25-35, the
+// composite and the exit test up to ~20); a pixel's ray setup is ~66 float
+// operations with 14 IEEE divisions.  On the 512^2 headline a frame takes
+// ~5 M samples from ~1 M distinct corner rows, which with the state (16
+// bytes a pixel, read and written once) are ~25 MB: 0.0071-0.0077 ms at
+// 3.35 TB/s.  Issuing the slices' instructions takes longer, ~0.015-0.021
+// ms at 1.98 GHz (the slices the warps step through, over 132 SMs x 4
+// warp-instructions a clock).  Measured, the kernel runs at about twice
+// that issue floor, and neither fewer instructions (-15-25% a slice), nor
+// more rows in flight (3 to 16 a chunk), nor more residency moved it much;
+// tiles did (PERF.md §6): what is left is each warp's chain of dependent
+// work a slice (exit test, lerps, the TF lookup's shared loads, composite)
+// with 5-7 warps a scheduler, and the L1 requests of ~10 sectors a warp
+// read.
 //
 // Design: one thread a pixel keeps its ray and its composite's carry in
-// registers and touches the state once a frame.  The TF row and the inverse
-// MVP sit in shared memory; NDC comes from the pixel index.  The composite
-// is a template parameter.  A pixel whose ray misses the cube samples
-// nothing (its frame is fixed); EAM and Depth leave the slice loop once the
-// pixel goes inactive (its carry never changes after that); ISO marches its
-// schedule from the near end and stops at the first hit, which is the JAX
-// backward march's last write; MIP runs every slice.  Blocks of kThreads.
+// registers and touches the state once a frame, reading it first so that
+// its latency overlaps the march.  A slice's position depends on its index
+// alone, so the kernel computes the cells of the next kChunk slices and
+// issues all their row reads before it folds the first: the reads of a
+// chunk overlap one another instead of each waiting for the last.  The
+// fold then runs slice by slice in schedule order with the renderer's exit
+// test, so a chunk's reads past the pixel's exit are issued and dropped
+// (~1% more reads on the headline, as chip_smoke.py models them from the
+// plain frame's samples).  Rows are indexed with 32-bit integers, which
+// kernels/march.py allows for tables below 2^31 rows.
+// Warps cover 8 x 4 pixel tiles of 16 x 8 blocks (ray.cuh), so that a
+// warp's rays read neighbouring rows (rows of 128 pixels took 1.3-1.9x the
+// time) and leave their loops at similar slices.  The composite and the TF
+// lookup mode are template parameters, so a slice carries no branch but
+// its exit test; the register allocation allows 6 blocks of 128 an SM.
+// The TF row and the inverse MVP sit in shared memory; NDC comes from the
+// pixel index.  A pixel whose ray misses the cube samples nothing (its
+// frame is fixed); EAM and Depth leave once the pixel goes inactive (the
+// carry never changes after that); ISO marches its schedule from the near
+// end and stops at the first hit, which is the JAX backward march's last
+// write; MIP runs every slice.  The launch takes its scene, Params and
+// resolution as one pointer to a VptMarchArgs that the wrapper prepares
+// once, and the frame's two scalars by value.
 //
 // Numerics follow the plain PyTorch frame (renderers/eam.py, mip.py,
 // depth.py, iso.py) operation by operation: built with -fmad=false, IEEE
-// division and sqrt, NaN-propagating min/max, fmodf for MIP's schedule
-// (exact, as JAX's mod on these non-negative values).
+// division and sqrt, NaN-propagating min/max.  MIP's fmod(x, 1) of its
+// schedule x = offset + s*step, never below +0, is x - floor(x): exact, as
+// fmod is, since floor(x) is 0 or lies in [x/2, x] (Sterbenz's lemma).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
 #include "ray.cuh"
 
-namespace {
-
-constexpr int kThreads = 128;
-
-enum Mode { kEam = 0, kMip = 1, kDepth = 2, kIso = 3 };
-
-struct Args {
-  float* state;          // (n, 4), or (n,) for MIP
+// What a launch takes of its scene, Params and resolution, filled once by
+// the wrapper (kernels/march.py, a ctypes Structure of this layout).
+struct VptMarchArgs {
   const void* table;     // (D*H*W, 8) float32 or bfloat16 corner rows
-  int d, h, w;
   const float4* tf_row;  // (tw, 4)
-  int tw, tf_mode;       // tf_mode: tf1d.cuh's lookup mode
   const float* mvp;      // 16 floats, row-major inverse MVP
+  int table_bf16;
+  int d, h, w;
+  int tw, tf_mode;       // tf_mode: tf1d.cuh's lookup mode
+  int mode;              // kEam, kMip, kDepth, kIso
   int width, height;     // the image; n = width * height
   int slices;
   float step;            // the schedule's step
-  float first;           // EAM, Depth: t0; MIP: the offset; ISO: 1 - o*step
   float extinction;      // EAM, Depth
   float level;           // Depth: the threshold; ISO: the isovalue
-  float mix;             // EAM, Depth: the running mean's weight 1/n
+  int device;
 };
 
-template <int kMode, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-march_kernel(Args a) {
+namespace {
+
+enum Mode { kEam = 0, kMip = 1, kDepth = 2, kIso = 3 };
+
+// corner rows read ahead of the fold: 4 bf16 rows, or 2 float32 rows (they
+// take twice the registers)
+template <bool kBf16>
+constexpr int kChunk = kBf16 ? 4 : 2;
+// resident blocks an SM that the register allocation must allow
+constexpr int kMinBlocks = 6;
+
+// the cell of a slice, its row indexed with 32 bits
+using Cell = VptCell<int>;
+
+// MIP's slice: fmod(x, 1) of its schedule value x >= +0 (see the note
+// above)
+__device__ __forceinline__ float wrap_unit(float x) {
+  return x - floorf(x);
+}
+
+// The n slices j = 0 .. n-1 at schedule value t_of(j), a chunk of C at a
+// time: the chunk's rows are read first, then fold(t, get) runs on each
+// slice in order until it returns false (the pixel leaves its loop); get()
+// is the slice's color(row, cell), looked up only where the fold asks.
+template <bool kBf16, class Schedule, class Color, class Fold>
+__device__ __forceinline__ void march_slices(const VptMarchArgs& a, int n,
+                                             const float start[3],
+                                             const float seg[3],
+                                             Schedule t_of, Color color,
+                                             Fold fold) {
+  constexpr int C = kChunk<kBf16>;
+  for (int j0 = 0; j0 < n; j0 += C) {
+    float ts[C];
+    Cell cell[C];
+    VptRow<kBf16> row[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      ts[k] = t_of(j0 + k);
+      cell[k] = vpt_cell<int>(a.d, a.h, a.w, start[0] + ts[k] * seg[0],
+                              start[1] + ts[k] * seg[1],
+                              start[2] + ts[k] * seg[2]);
+      if (j0 + k < n) row[k] = vpt_load_row<kBf16>(a.table, cell[k].row);
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      if (j0 + k >= n
+          || !fold(ts[k], [&] { return color(row[k], cell[k]); }))
+        return;
+    }
+  }
+}
+
+template <int kMode, bool kBf16, int kTf>
+__global__ void __launch_bounds__(kVptTileThreads, kMinBlocks)
+march_kernel(const VptMarchArgs a, float* __restrict__ state, float first,
+             float mix) {
   // dynamic: the TF row (tw float4)
   extern __shared__ float4 s_tf[];
   __shared__ float s_mvp[16];
   for (int i = threadIdx.x; i < a.tw; i += blockDim.x) s_tf[i] = a.tf_row[i];
   if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
   __syncthreads();
-  const int n = a.width * a.height;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  int x, y;
+  if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
+  const int i = y * a.width + x;
+  // the state, read first, so that its latency overlaps the march's
+  float4* st = reinterpret_cast<float4*>(state) + i;
+  float4 s0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float m0 = 0.0f;
+  if (kMode == kMip) m0 = state[i]; else s0 = *st;
 
   // the pixel's ray (_march.rays): unproject, slab test clamped at 0
-  const int y = i / a.width;
-  const float ndcx = vpt_pixel_ndc(i - y * a.width, a.width);
+  const float ndcx = vpt_pixel_ndc(x, a.width);
   const float ndcy = vpt_pixel_ndc(y, a.height);
   float from[3], to[3], dir[3];
   vpt_unproject(s_mvp, ndcx, ndcy, ndcx, ndcy, from, to);
@@ -88,35 +167,39 @@ march_kernel(Args a) {
     start[k] = from[k] + tb0 * dir[k];
     seg[k] = (from[k] + tb1 * dir[k]) - start[k];
   }
+  const int n = miss ? 0 : a.slices;
+  const float step = a.step;
 
   if (kMode == kEam || kMode == kDepth) {
     const float len = sqrtf(seg[0] * seg[0] + seg[1] * seg[1]
                             + seg[2] * seg[2]);
-    const float rsl = len * a.step;
+    const float rsl = len * step;
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // EAM's carry
-    float t = a.first, dacc = 0.0f;                    // Depth's carry
-    for (int s = 0; s < (miss ? 0 : a.slices); ++s) {
-      const float ts = a.first + (float)s * a.step;
-      // inactive for good: the carry never changes after this
-      if (kMode == kEam && !(ts < 1.0f && acc.w < 0.99f)) break;
-      if (kMode == kDepth && !(t < 1.0f && dacc < a.level)) break;
-      const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w,
-                                       start[0] + ts * seg[0],
-                                       start[1] + ts * seg[1],
-                                       start[2] + ts * seg[2]);
-      const float4 c = vpt_tf1d_lookup(s_tf, a.tw, v, a.tf_mode);
-      if (kMode == kEam) {
-        const float alpha = c.w * rsl * a.extinction;
-        const float k = 1.0f - acc.w;
-        acc.x = acc.x + k * (c.x * alpha);
-        acc.y = acc.y + k * (c.y * alpha);
-        acc.z = acc.z + k * (c.z * alpha);
-        acc.w = acc.w + k * alpha;
-      } else {
-        dacc = dacc + (1.0f - dacc) * c.w * rsl * a.extinction;
-        t = t + a.step;
-      }
-    }
+    float t = first, dacc = 0.0f;                      // Depth's carry
+    march_slices<kBf16>(
+        a, n, start, seg, [&](int s) { return first + (float)s * step; },
+        [&](const VptRow<kBf16>& row, const Cell& cell) {
+          return vpt_tf1d_lookup(s_tf, a.tw, vpt_lerp_row<kBf16>(row, cell),
+                                 kTf);
+        },
+        [&](float ts, auto get) {
+          // inactive for good: the carry never changes after this
+          if (kMode == kEam && !(ts < 1.0f && acc.w < 0.99f)) return false;
+          if (kMode == kDepth && !(t < 1.0f && dacc < a.level)) return false;
+          const float4 c = get();
+          if (kMode == kEam) {
+            const float alpha = c.w * rsl * a.extinction;
+            const float k = 1.0f - acc.w;
+            acc.x = acc.x + k * (c.x * alpha);
+            acc.y = acc.y + k * (c.y * alpha);
+            acc.z = acc.z + k * (c.z * alpha);
+            acc.w = acc.w + k * alpha;
+          } else {
+            dacc = dacc + (1.0f - dacc) * c.w * rsl * a.extinction;
+            t = t + step;
+          }
+          return true;
+        });
     float4 frame;
     if (kMode == kEam) {
       if (acc.w > 1.0f) {
@@ -133,100 +216,171 @@ march_kernel(Args a) {
       frame = make_float4(depth, 0.0f, 0.0f, 1.0f);
     }
     // the running mean: state + (frame - state) * (1/n)
-    float4* st = reinterpret_cast<float4*>(a.state) + i;
-    float4 s0 = *st;
-    s0.x = s0.x + (frame.x - s0.x) * a.mix;
-    s0.y = s0.y + (frame.y - s0.y) * a.mix;
-    s0.z = s0.z + (frame.z - s0.z) * a.mix;
-    s0.w = s0.w + (frame.w - s0.w) * a.mix;
+    s0.x = s0.x + (frame.x - s0.x) * mix;
+    s0.y = s0.y + (frame.y - s0.y) * mix;
+    s0.z = s0.z + (frame.z - s0.z) * mix;
+    s0.w = s0.w + (frame.w - s0.w) * mix;
     *st = s0;
   } else if (kMode == kMip) {
     float val = 0.0f;
-    for (int s = 0; s < (miss ? 0 : a.slices); ++s) {
-      const float ts = fmodf(a.first + (float)s * a.step, 1.0f);
-      const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w,
-                                       start[0] + ts * seg[0],
-                                       start[1] + ts * seg[1],
-                                       start[2] + ts * seg[2]);
-      val = vpt_nmax(val, vpt_tf1d_lookup(s_tf, a.tw, v, a.tf_mode).w);
-    }
-    a.state[i] = vpt_nmax(a.state[i], val);
+    march_slices<kBf16>(
+        a, n, start, seg,
+        [&](int s) { return wrap_unit(first + (float)s * step); },
+        [&](const VptRow<kBf16>& row, const Cell& cell) {
+          return vpt_tf1d_lookup(s_tf, a.tw, vpt_lerp_row<kBf16>(row, cell),
+                                 kTf).w;
+        },
+        [&](float, auto get) {
+          val = vpt_nmax(val, get());
+          return true;
+        });
+    state[i] = vpt_nmax(m0, val);
   } else {  // kIso
-    // the nearest hit: the schedule (1 - o*step) - s*step from its near
-    // end (the largest s), stopping at the first hit
+    // the nearest hit: the schedule first - s*step from its near end (the
+    // largest s), stopping at the first hit
     float4 hit = make_float4(-1.0f, -1.0f, -1.0f, -1.0f);
-    if (!miss) {
-      for (int s = a.slices - 1; s >= 0; --s) {
-        const float ts = a.first - (float)s * a.step;
-        const float px = start[0] + ts * seg[0];
-        const float py = start[1] + ts * seg[1];
-        const float pz = start[2] + ts * seg[2];
-        const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, px, py, pz);
-        if (vpt_tf1d_lookup(s_tf, a.tw, v, a.tf_mode).w >= a.level) {
-          hit = make_float4(px, py, pz, ts);
-          break;
-        }
-      }
-    }
+    march_slices<kBf16>(
+        a, n, start, seg,
+        [&](int j) { return first - (float)(n - 1 - j) * step; },
+        [&](const VptRow<kBf16>& row, const Cell& cell) {
+          return vpt_tf1d_lookup(s_tf, a.tw, vpt_lerp_row<kBf16>(row, cell),
+                                 kTf).w;
+        },
+        [&](float ts, auto get) {
+          if (get() >= a.level) {
+            hit = make_float4(start[0] + ts * seg[0], start[1] + ts * seg[1],
+                              start[2] + ts * seg[2], ts);
+            return false;
+          }
+          return true;
+        });
     // keep the nearer of the frame's and the accumulated hits
-    float4* st = reinterpret_cast<float4*>(a.state) + i;
-    const float4 s0 = *st;
     const bool take = (hit.w > 0.0f && s0.w > 0.0f) ? hit.w < s0.w
                                                    : hit.w > 0.0f;
     if (take) *st = hit;
   }
 }
 
-// Without opting in, a block gets 48 KiB of shared memory, static and
-// dynamic together; a TF row near tf1d.MAX_WIDTH needs more.  The attribute
-// belongs to the current device, so it is set on every such launch.
+size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
+
+// The instantiation for a launch's mode, table type and TF lookup mode
+// (tf1d.cuh's: a compile-time constant, so the lookup carries no branch).
+using Kernel = void (*)(const VptMarchArgs, float*, float, float);
+
 template <int kMode, bool kBf16>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int n = a.width * a.height;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  const size_t smem = (size_t)a.tw * sizeof(float4);
-  if (smem > 47 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        march_kernel<kMode, kBf16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+Kernel pick_tf(int tf_mode) {
+  switch (tf_mode) {
+    case 0: return march_kernel<kMode, kBf16, 0>;
+    case 1: return march_kernel<kMode, kBf16, 1>;
+    case 2: return march_kernel<kMode, kBf16, 2>;
+    default: return nullptr;
   }
-  march_kernel<kMode, kBf16><<<blocks, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 template <bool kBf16>
-cudaError_t launch_mode(int mode, const Args& a, cudaStream_t stream) {
+Kernel pick_mode(int mode, int tf_mode) {
   switch (mode) {
-    case kEam: return launch<kEam, kBf16>(a, stream);
-    case kMip: return launch<kMip, kBf16>(a, stream);
-    case kDepth: return launch<kDepth, kBf16>(a, stream);
-    case kIso: return launch<kIso, kBf16>(a, stream);
-    default: return cudaErrorInvalidValue;
+    case kEam: return pick_tf<kEam, kBf16>(tf_mode);
+    case kMip: return pick_tf<kMip, kBf16>(tf_mode);
+    case kDepth: return pick_tf<kDepth, kBf16>(tf_mode);
+    case kIso: return pick_tf<kIso, kBf16>(tf_mode);
+    default: return nullptr;
   }
+}
+
+Kernel pick(int mode, int table_bf16, int tf_mode) {
+  return table_bf16 ? pick_mode<true>(mode, tf_mode)
+                    : pick_mode<false>(mode, tf_mode);
+}
+
+// Without opting in, a block gets 48 KiB of shared memory, static and
+// dynamic together; a TF row near tf1d.MAX_WIDTH needs more.  The attribute
+// belongs to the current device, so it is set on every such launch.
+cudaError_t allow_smem(Kernel kernel, int tw) {
+  if (dynamic_smem(tw) <= 47 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)dynamic_smem(tw));
+}
+
+cudaError_t launch(const VptMarchArgs& a, void* state, float first,
+                   float mix, void* stream) {
+  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
+  const Kernel kernel = pick(a.mode, a.table_bf16, a.tf_mode);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, a.tw);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
+  kernel<<<blocks, kVptTileThreads, dynamic_smem(a.tw),
+           (cudaStream_t)stream>>>(a, (float*)state, first, mix);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// One frame: prepared is the VptMarchArgs of the scene, Params and
+// resolution; first is the schedule's first value (EAM, Depth: t0; MIP: the
+// offset; ISO: 1 - offset*step), mix the running mean's weight 1/n.
+extern "C" int vpt_march_launch(const void* prepared, void* state,
+                                float first, float mix, void* stream) {
+  const VptMarchArgs& a = *static_cast<const VptMarchArgs*>(prepared);
+  VptDeviceGuard guard(a.device);
+  return (int)launch(a, state, first, mix, stream);
+}
+
+// The same frame through the argument list the march kernel has taken
+// since it was ported (every build of it exports this), on the current
+// device.
 extern "C" int vpt_march_frame(
     void* state, int mode, const void* table, int table_bf16, int d, int h,
     int w, const void* tf_row, int tw, int tf_mode, const void* mvp,
     int width, int height, int slices, float step, float first,
     float extinction, float level, float mix, void* stream) {
-  if (width <= 0 || height <= 0) return 0;
-  Args a;
-  a.state = (float*)state;
+  VptMarchArgs a;
   a.table = table;
-  a.d = d; a.h = h; a.w = w;
   a.tf_row = (const float4*)tf_row;
+  a.mvp = (const float*)mvp;
+  a.table_bf16 = table_bf16;
+  a.d = d; a.h = h; a.w = w;
   a.tw = tw;
   a.tf_mode = tf_mode;
-  a.mvp = (const float*)mvp;
+  a.mode = mode;
   a.width = width; a.height = height;
   a.slices = slices;
-  a.step = step; a.first = first; a.extinction = extinction;
-  a.level = level; a.mix = mix;
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(table_bf16 ? launch_mode<true>(mode, a, st)
-                          : launch_mode<false>(mode, a, st));
+  a.step = step;
+  a.extinction = extinction;
+  a.level = level;
+  a.device = 0;
+  return (int)launch(a, state, first, mix, stream);
+}
+
+// The launch shape of mode `mode` for a table of bf16 (or float32) rows
+// and a TF row of `tw` texels in lookup mode `tf_mode` on `device`: out =
+// threads a block, resident blocks an SM, SMs, registers a thread, local
+// (spilled) bytes a thread, static and dynamic shared bytes a block, rows
+// read ahead, the block's tile width and height and the warp's tile width
+// in pixels.  Launches nothing.
+extern "C" int vpt_march_info(int mode, int table_bf16, int tw, int tf_mode,
+                              int device, int* out) {
+  VptDeviceGuard guard(device);
+  const Kernel kernel = pick(mode, table_bf16, tf_mode);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, tw);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kVptTileThreads, dynamic_smem(tw));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
+                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                        (int)dynamic_smem(tw),
+                        table_bf16 ? kChunk<true> : kChunk<false>,
+                        kVptTileW, kVptTileH, kVptWarpW};
+  for (int k = 0; k < 11; ++k) out[k] = values[k];
+  return 0;
 }

@@ -10,22 +10,33 @@
 // Bound on the H100: a tracking step is one exponential draw (a logf), a
 // division, one dependent corner-row read and a TF lookup, ~70 operations;
 // a pixel runs ~1 + extinction x (path length) of them along its ray and
-// as many along its shadow segment, plus ~120 of ray setup.  The state is
-// 16 bytes a pixel, read and written once.  With the default extinction
-// (1) on the 512^2 headline a frame takes ~0.1 M tracking steps, far
-// fewer operations (~0.04 G) than the bytes of the state and the ~80 k
-// distinct rows take (~10 MB, 0.003 ms at 3.35 TB/s): bytes bound it.
-// The dependent reads and the divergence of the per-pixel loops hold it
-// above.
+// as many along its shadow segment, plus ~120 of ray setup with 14 IEEE
+// divisions (20 where it scatters).  The state is 16 bytes a pixel, read
+// and written once.  With the default extinction (1) on the 512^2 headline
+// a frame takes 0.16 M draws and 0.06 M fetches of ~0.06 M distinct rows
+// (its own count): ~9.3 MB, 0.0028 ms at 3.35 TB/s, above its ~0.04 G
+// operations.  It runs at ~4x that: the ray setup's divisions and the
+// state's round trip are each pixel's chain of dependent latencies, and the
+// frame is one short wave (~2048 blocks of 128 at 9 an SM).  Tiles,
+// residency and reading the state first moved it by a few per cent
+// (PERF.md §6); the frame's cost to the host, ~2x the card's, is what the
+// launch path below cuts.
 //
 // Design: one thread a pixel runs both tracking loops in registers, each
 // to the pixel's own exit (the JAX loop's done mask, pixel by pixel); a
 // pixel whose ray misses the cube or escapes writes the environment texel
-// without tracking the shadow segment.  The TF row, the inverse MVP and
-// the 1x1 environment texel sit in shared memory; NDC and the stream seed
-// come from the pixel index; the frame's scatter direction comes from the
-// host.  With a cheb-skip tracking table the free paths extend over empty
-// cells and colors come from that table, as in the MCM event kernel.
+// without tracking the shadow segment.  The state is read first, so that
+// its latency overlaps the tracking.  Warps cover 8 x 4 pixel tiles
+// (ray.cuh), as in the march kernel.  The TF row, the inverse MVP and the
+// 1x1 environment texel sit in shared memory; NDC and the stream seed come
+// from the pixel index; the frame's scatter direction comes from the host.
+// With a cheb-skip tracking table the free paths extend over empty cells
+// and colors come from that table, as in the MCM event kernel.  The launch
+// takes its scene, Params and resolution as one pointer to a VptMcsArgs
+// that the wrapper prepares once, and the frame's five scalars by value.
+// Given a counter, a second instantiation of the kernel adds up its draws
+// and corner-row fetches (one atomic a warp); the render path launches the
+// one without.
 //
 // Numerics follow the plain PyTorch frame (renderers/mcs.py) operation by
 // operation: built with -fmad=false, IEEE division and sqrt, NaN-
@@ -35,32 +46,42 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
 #include "ray.cuh"
 
-namespace {
-
-constexpr int kThreads = 128;
-// mcs._MAX_TRACKING_ITERS, the tracking loops' backstop
-constexpr int kMaxIters = 100000;
-
-struct Args {
-  float4* state;         // (n, 4): the running mean
+// What a launch takes of its scene, Params and resolution, filled once by
+// the wrapper (kernels/mcs_frame.py, a ctypes Structure of this layout).
+struct VptMcsArgs {
   const void* table;     // (D*H*W, 8) corner rows: tracking or volume
-  int d, h, w;
   const float4* tf_row;  // (tw, 4)
-  int tw, tf_mode;
-  const float* env;      // 4 floats: the 1x1 environment texel
   const float* mvp;      // 16 floats, row-major inverse MVP
+  const float* env;      // 4 floats: the 1x1 environment texel
+  int table_bf16;
+  int d, h, w;
+  int tw, tf_mode;
   int width, height;
-  float seed, extinction, cell;
+  float extinction, cell;
   int use_skip;
+  int device;
+};
+
+// The frame's scalars, by value.
+struct VptMcsFrame {
+  float seed;
   float sx, sy, sz;      // the frame's scatter direction
   float frame_number;    // n of the running mean
 };
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-mcs_frame_kernel(Args a) {
+namespace {
+
+// mcs._MAX_TRACKING_ITERS, the tracking loops' backstop
+constexpr int kMaxIters = 100000;
+
+template <bool kBf16, bool kCount>
+__global__ void __launch_bounds__(kVptTileThreads)
+mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
+                 float4* __restrict__ state,
+                 unsigned long long* __restrict__ counts) {
   extern __shared__ float4 s_tf[];
   __shared__ float s_mvp[16];
   __shared__ float4 s_env;
@@ -70,152 +91,241 @@ mcs_frame_kernel(Args a) {
     s_env = make_float4(__ldg(a.env), __ldg(a.env + 1), __ldg(a.env + 2),
                         __ldg(a.env + 3));
   __syncthreads();
-  const int n = a.width * a.height;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const bool skip = a.use_skip != 0;
-  const float4 env = s_env;
+  int x, y;
+  const bool inside = vpt_tile_pixel(a.width, a.height, &x, &y);
+  // tracking steps (draws) and corner-row fetches of this thread
+  unsigned steps = 0, fetches = 0;
+  if (inside) {
+    const int i = y * a.width + x;
+    // the state, read first, so that its latency overlaps the tracking's
+    float4 acc = state[i];
+    const bool skip = a.use_skip != 0;
+    const float4 env = s_env;
 
-  const int y = i / a.width;
-  const float ndcx = vpt_pixel_ndc(i - y * a.width, a.width);
-  const float ndcy = vpt_pixel_ndc(y, a.height);
-  float from[3], to[3], dir[3];
-  vpt_unproject(s_mvp, ndcx, ndcy, ndcx, ndcy, from, to);
+    const float ndcx = vpt_pixel_ndc(x, a.width);
+    const float ndcy = vpt_pixel_ndc(y, a.height);
+    float from[3], to[3], dir[3];
+    vpt_unproject(s_mvp, ndcx, ndcy, ndcx, ndcy, from, to);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
-  float tnear, tfar;
-  vpt_intersect_cube(from, dir, &tnear, &tfar);
-  const float tb0 = vpt_nmax(tnear, 0.0f), tb1 = vpt_nmax(tfar, 0.0f);
+    for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
+    float tnear, tfar;
+    vpt_intersect_cube(from, dir, &tnear, &tfar);
+    const float tb0 = vpt_nmax(tnear, 0.0f), tb1 = vpt_nmax(tfar, 0.0f);
 
-  // the 1x1 environment: what a miss or an escaped path sees
-  float4 frame = env;
-  if (!(tb0 >= tb1)) {
-    float start[3], seg[3];
+    // the 1x1 environment: what a miss or an escaped path sees
+    float4 frame = env;
+    if (!(tb0 >= tb1)) {
+      float start[3], seg[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      start[k] = from[k] + tb0 * dir[k];
-      seg[k] = (from[k] + tb1 * dir[k]) - start[k];
-    }
-    const float maxd = sqrtf(seg[0] * seg[0] + seg[1] * seg[1]
-                             + seg[2] * seg[2]);
-    const float maxc = vpt_nmax(maxd, 1e-20f);
-    uint32_t s = vpt_seed_pixel(ndcx, ndcy, a.seed);
-
-    // sampleDistance: a path that leaves the segment takes 1 draw in that
-    // iteration, one that stays takes 2
-    float dist = 0.0f, cheb = 0.0f;
-    for (int it = 0; it < kMaxIters; ++it) {
-      uint32_t s1 = s;
-      float d = vpt_exponential(s1, a.extinction);
-      if (skip) d = vpt_nmax(d, vpt_nmax(cheb - 1.0f, 0.0f) * a.cell);
-      const float ndist = dist + d;
-      dist = ndist;
-      if (ndist > maxc) {
-        s = s1;
-        break;
+      for (int k = 0; k < 3; ++k) {
+        start[k] = from[k] + tb0 * dir[k];
+        seg[k] = (from[k] + tb1 * dir[k]) - start[k];
       }
-      const float f = ndist / maxc;
-      const float u = vpt_uniform(s1);
-      s = s1;
-      const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w,
-                                       start[0] + f * seg[0],
-                                       start[1] + f * seg[1],
-                                       start[2] + f * seg[2]);
-      const float alpha = vpt_color(s_tf, a.tw, a.tf_mode, v, skip).w;
-      if (skip) cheb = rintf(vpt_nmax(-v, 0.0f));
-      if (u < alpha) break;                  // a collision
-    }
+      const float maxd = sqrtf(seg[0] * seg[0] + seg[1] * seg[1]
+                               + seg[2] * seg[2]);
+      const float maxc = vpt_nmax(maxd, 1e-20f);
+      uint32_t s = vpt_seed_pixel(ndcx, ndcy, f.seed);
 
-    if (!(dist > maxd)) {
-      // the scattering point and its shadow segment to the cube
-      const float t = dist / maxc;
-      float sp[3], sseg[3];
-      const float sdir[3] = {a.sx, a.sy, a.sz};
-#pragma unroll
-      for (int k = 0; k < 3; ++k) sp[k] = start[k] + t * seg[k];
-      float tn2, tf2;
-      vpt_intersect_cube(sp, sdir, &tn2, &tf2);
-      tf2 = vpt_nmax(tf2, 0.0f);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) sseg[k] = (sp[k] + sdir[k] * tf2) - sp[k];
-      const float sd = sqrtf(sseg[0] * sseg[0] + sseg[1] * sseg[1]
-                             + sseg[2] * sseg[2]);
-      const float sdc = vpt_nmax(sd, 1e-20f);
-      const float4 diffuse = vpt_color(
-          s_tf, a.tw, a.tf_mode,
-          vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, sp[0], sp[1], sp[2]),
-          skip);
-
-      // sampleTransmittance: one draw an iteration
-      float dist2 = 0.0f, trans = 1.0f;
-      cheb = 0.0f;
+      // sampleDistance: a path that leaves the segment takes 1 draw in
+      // that iteration, one that stays takes 2
+      float dist = 0.0f, cheb = 0.0f;
       for (int it = 0; it < kMaxIters; ++it) {
-        float d = vpt_exponential(s, a.extinction);
+        uint32_t s1 = s;
+        float d = vpt_exponential(s1, a.extinction);
         if (skip) d = vpt_nmax(d, vpt_nmax(cheb - 1.0f, 0.0f) * a.cell);
-        const float ndist = dist2 + d;
-        dist2 = ndist;
-        if (ndist > sdc) break;
-        const float f = ndist / sdc;
+        const float ndist = dist + d;
+        dist = ndist;
+        if (kCount) ++steps;
+        if (ndist > maxc) {
+          s = s1;
+          break;
+        }
+        const float fr = ndist / maxc;
+        const float u = vpt_uniform(s1);
+        s = s1;
         const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w,
-                                         sp[0] + f * sseg[0],
-                                         sp[1] + f * sseg[1],
-                                         sp[2] + f * sseg[2]);
-        trans = trans * (1.0f - vpt_color(s_tf, a.tw, a.tf_mode, v, skip).w);
+                                         start[0] + fr * seg[0],
+                                         start[1] + fr * seg[1],
+                                         start[2] + fr * seg[2]);
+        if (kCount) ++fetches;
+        const float alpha = vpt_color(s_tf, a.tw, a.tf_mode, v, skip).w;
         if (skip) cheb = rintf(vpt_nmax(-v, 0.0f));
+        if (u < alpha) break;                  // a collision
       }
-      frame = make_float4(diffuse.x * env.x * trans, diffuse.y * env.y * trans,
-                          diffuse.z * env.z * trans,
-                          diffuse.w * env.w * trans);
+
+      if (!(dist > maxd)) {
+        // the scattering point and its shadow segment to the cube
+        const float t = dist / maxc;
+        float sp[3], sseg[3];
+        const float sdir[3] = {f.sx, f.sy, f.sz};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) sp[k] = start[k] + t * seg[k];
+        float tn2, tf2;
+        vpt_intersect_cube(sp, sdir, &tn2, &tf2);
+        tf2 = vpt_nmax(tf2, 0.0f);
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          sseg[k] = (sp[k] + sdir[k] * tf2) - sp[k];
+        const float sd = sqrtf(sseg[0] * sseg[0] + sseg[1] * sseg[1]
+                               + sseg[2] * sseg[2]);
+        const float sdc = vpt_nmax(sd, 1e-20f);
+        const float4 diffuse = vpt_color(
+            s_tf, a.tw, a.tf_mode,
+            vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, sp[0], sp[1], sp[2]),
+            skip);
+        if (kCount) ++fetches;
+
+        // sampleTransmittance: one draw an iteration
+        float dist2 = 0.0f, trans = 1.0f;
+        cheb = 0.0f;
+        for (int it = 0; it < kMaxIters; ++it) {
+          float d = vpt_exponential(s, a.extinction);
+          if (skip) d = vpt_nmax(d, vpt_nmax(cheb - 1.0f, 0.0f) * a.cell);
+          const float ndist = dist2 + d;
+          dist2 = ndist;
+          if (kCount) ++steps;
+          if (ndist > sdc) break;
+          const float fr = ndist / sdc;
+          const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w,
+                                           sp[0] + fr * sseg[0],
+                                           sp[1] + fr * sseg[1],
+                                           sp[2] + fr * sseg[2]);
+          if (kCount) ++fetches;
+          trans = trans * (1.0f - vpt_color(s_tf, a.tw, a.tf_mode, v,
+                                            skip).w);
+          if (skip) cheb = rintf(vpt_nmax(-v, 0.0f));
+        }
+        frame = make_float4(diffuse.x * env.x * trans,
+                            diffuse.y * env.y * trans,
+                            diffuse.z * env.z * trans,
+                            diffuse.w * env.w * trans);
+      }
+    }
+
+    // the running mean: acc + (frame - acc) / n, the IEEE quotient
+    acc.x = acc.x + (frame.x - acc.x) / f.frame_number;
+    acc.y = acc.y + (frame.y - acc.y) / f.frame_number;
+    acc.z = acc.z + (frame.z - acc.z) / f.frame_number;
+    acc.w = acc.w + (frame.w - acc.w) / f.frame_number;
+    state[i] = acc;
+  }
+  if (kCount) {
+    // every lane of the block reaches this: a warp's sums, one atomic each
+    steps = __reduce_add_sync(0xFFFFFFFFu, steps);
+    fetches = __reduce_add_sync(0xFFFFFFFFu, fetches);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(counts, (unsigned long long)steps);
+      atomicAdd(counts + 1, (unsigned long long)fetches);
     }
   }
-
-  // the running mean: acc + (frame - acc) / n, the IEEE quotient
-  float4 acc = a.state[i];
-  acc.x = acc.x + (frame.x - acc.x) / a.frame_number;
-  acc.y = acc.y + (frame.y - acc.y) / a.frame_number;
-  acc.z = acc.z + (frame.z - acc.z) / a.frame_number;
-  acc.w = acc.w + (frame.w - acc.w) / a.frame_number;
-  a.state[i] = acc;
 }
 
-template <bool kBf16>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int n = a.width * a.height;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  const size_t smem = (size_t)a.tw * sizeof(float4);
-  if (smem > 47 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mcs_frame_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  mcs_frame_kernel<kBf16><<<blocks, kThreads, smem, stream>>>(a);
+size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
+
+template <bool kBf16, bool kCount>
+cudaError_t allow_smem(int tw) {
+  if (dynamic_smem(tw) <= 47 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(mcs_frame_kernel<kBf16, kCount>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)dynamic_smem(tw));
+}
+
+template <bool kBf16, bool kCount>
+cudaError_t launch(const VptMcsArgs& a, const VptMcsFrame& f, void* state,
+                   void* counts, cudaStream_t stream) {
+  cudaError_t err = allow_smem<kBf16, kCount>(a.tw);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
+  mcs_frame_kernel<kBf16, kCount>
+      <<<blocks, kVptTileThreads, dynamic_smem(a.tw), stream>>>(
+          a, f, (float4*)state, (unsigned long long*)counts);
   return cudaGetLastError();
+}
+
+cudaError_t launch_any(const VptMcsArgs& a, const VptMcsFrame& f,
+                       void* state, void* counts, void* stream) {
+  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (counts)
+    return a.table_bf16 ? launch<true, true>(a, f, state, counts, st)
+                        : launch<false, true>(a, f, state, counts, st);
+  return a.table_bf16 ? launch<true, false>(a, f, state, nullptr, st)
+                      : launch<false, false>(a, f, state, nullptr, st);
+}
+
+// out: threads a block, resident blocks an SM, SMs, registers a thread,
+// local (spilled) bytes a thread, static and dynamic shared bytes a block,
+// the block's tile width and height and the warp's tile width in pixels
+// (the render path's instantiation, without the counter)
+template <bool kBf16>
+cudaError_t info(int tw, int device, int* out) {
+  cudaError_t err = allow_smem<kBf16, false>(tw);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, mcs_frame_kernel<kBf16, false>, kVptTileThreads,
+      dynamic_smem(tw));
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, mcs_frame_kernel<kBf16, false>);
+  if (err != cudaSuccess) return err;
+  const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
+                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                        (int)dynamic_smem(tw), kVptTileW, kVptTileH,
+                        kVptWarpW};
+  for (int k = 0; k < 10; ++k) out[k] = values[k];
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// One frame: prepared is the VptMcsArgs of the scene, Params and
+// resolution; seed, the scatter direction and n are the frame's; counts is
+// null, or two zeroed-or-running unsigned 64-bit sums (tracking steps,
+// corner-row fetches) that the frame adds to.
+extern "C" int vpt_mcs_launch(const void* prepared, void* state, float seed,
+                              float sx, float sy, float sz,
+                              float frame_number, void* counts,
+                              void* stream) {
+  const VptMcsArgs& a = *static_cast<const VptMcsArgs*>(prepared);
+  VptDeviceGuard guard(a.device);
+  const VptMcsFrame f = {seed, sx, sy, sz, frame_number};
+  return (int)launch_any(a, f, state, counts, stream);
+}
+
+// The same frame through the argument list the MCS kernel has taken since
+// it was ported (every build of it exports this), on the current device,
+// without the counter.
 extern "C" int vpt_mcs_frame(
     void* state, const void* table, int table_bf16, int d, int h, int w,
     const void* tf_row, int tw, int tf_mode, const void* mvp,
     const void* env, int width, int height, float seed, float extinction,
     float cell, int use_skip, float sx, float sy, float sz,
     float frame_number, void* stream) {
-  if (width <= 0 || height <= 0) return 0;
-  Args a;
-  a.state = (float4*)state;
+  VptMcsArgs a;
   a.table = table;
-  a.d = d; a.h = h; a.w = w;
   a.tf_row = (const float4*)tf_row;
+  a.mvp = (const float*)mvp;
+  a.env = (const float*)env;
+  a.table_bf16 = table_bf16;
+  a.d = d; a.h = h; a.w = w;
   a.tw = tw;
   a.tf_mode = tf_mode;
-  a.env = (const float*)env;
-  a.mvp = (const float*)mvp;
   a.width = width; a.height = height;
-  a.seed = seed; a.extinction = extinction; a.cell = cell;
+  a.extinction = extinction;
+  a.cell = cell;
   a.use_skip = use_skip;
-  a.sx = sx; a.sy = sy; a.sz = sz;
-  a.frame_number = frame_number;
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(table_bf16 ? launch<true>(a, st) : launch<false>(a, st));
+  a.device = 0;
+  const VptMcsFrame f = {seed, sx, sy, sz, frame_number};
+  return (int)launch_any(a, f, state, nullptr, stream);
+}
+
+// The launch shape for a TF row of `tw` texels on `device`: the ten
+// values of info() above.  Launches nothing.
+extern "C" int vpt_mcs_info(int table_bf16, int tw, int device, int* out) {
+  VptDeviceGuard guard(device);
+  return (int)(table_bf16 ? info<true>(tw, device, out)
+                          : info<false>(tw, device, out));
 }

@@ -1,7 +1,7 @@
 // Per-pixel ray pieces shared by the kernels that run one thread a pixel:
 // the MCM event kernel (mcm_event.cu), the march kernel (march.cu), the ISO
 // shade kernel (iso_shade.cu) and the MCS delta-tracking kernel
-// (mcs_frame.cu).
+// (mcs_frame.cu), and the pixel tiles of the frame kernels.
 //
 // Each function runs the float32 operations of its plain PyTorch version
 // (vpt_tpu_torch/rng.py, sampling.py) in their order; the kernels are built
@@ -90,33 +90,72 @@ __device__ __forceinline__ void vpt_intersect_cube(const float o[3],
 // Trilinear fetch from a corner-packed (D*H*W, 8) table of float32 or
 // bfloat16 rows (sampling.py, corner_fetch_plain): the GL CLAMP_TO_EDGE
 // coordinate, one row of the 8 corners (z, y, x; x minor), then the lerp
-// chain of trilerp_chain.
+// chain of trilerp_chain.  In three pieces, so that a kernel can issue
+// several rows' reads before it folds any of them: vpt_cell (the row and
+// the fractions), vpt_load_row (the read), vpt_lerp_row (the lerps).
+// Row is the row index's type: int64_t takes any table; int takes tables
+// below 2^31 rows, and its wrapper raises for larger ones.
+template <class Row>
+struct VptCell {
+  Row row;
+  float fx, fy, fz;
+};
+
+template <class Row>
+__device__ __forceinline__ VptCell<Row> vpt_cell(int d, int h, int w,
+                                                 float px, float py,
+                                                 float pz) {
+  const float ux = vpt_clip(px * (float)w - 0.5f, 0.0f, (float)(w - 1));
+  const float uy = vpt_clip(py * (float)h - 0.5f, 0.0f, (float)(h - 1));
+  const float uz = vpt_clip(pz * (float)d - 0.5f, 0.0f, (float)(d - 1));
+  const float ix = floorf(ux), iy = floorf(uy), iz = floorf(uz);
+  VptCell<Row> c;
+  c.row = ((Row)vpt_index(iz) * h + vpt_index(iy)) * w + vpt_index(ix);
+  c.fx = ux - ix;
+  c.fy = uy - iy;
+  c.fz = uz - iz;
+  return c;
+}
+
+// One corner row as read: 8 bf16 in a uint4, or 8 float32 in two float4.
 template <bool kBf16>
-__device__ __forceinline__ float vpt_fetch(const void* table, int d, int h,
-                                           int w, float px, float py,
-                                           float pz) {
-  float ux = vpt_clip(px * (float)w - 0.5f, 0.0f, (float)(w - 1));
-  float uy = vpt_clip(py * (float)h - 0.5f, 0.0f, (float)(h - 1));
-  float uz = vpt_clip(pz * (float)d - 0.5f, 0.0f, (float)(d - 1));
-  float ix = floorf(ux), iy = floorf(uy), iz = floorf(uz);
-  float fx = ux - ix, fy = uy - iy, fz = uz - iz;
-  int64_t row = ((int64_t)vpt_index(iz, d - 1) * h + vpt_index(iy, h - 1))
-                    * w + vpt_index(ix, w - 1);
+struct VptRow;
+template <>
+struct VptRow<true> {
+  uint4 q;
+};
+template <>
+struct VptRow<false> {
+  float4 a, b;
+};
+
+template <bool kBf16, class Row>
+__device__ __forceinline__ VptRow<kBf16> vpt_load_row(const void* table,
+                                                      Row row) {
+  if constexpr (kBf16) {
+    return {__ldg(static_cast<const uint4*>(table) + row)};
+  } else {
+    const float4* p = static_cast<const float4*>(table) + 2 * (int64_t)row;
+    return {__ldg(p), __ldg(p + 1)};
+  }
+}
+
+template <bool kBf16, class Row>
+__device__ __forceinline__ float vpt_lerp_row(const VptRow<kBf16>& r,
+                                              const VptCell<Row>& cell) {
   float c[8];
-  if (kBf16) {
-    uint4 q = __ldg((const uint4*)table + row);
-    uint32_t words[4] = {q.x, q.y, q.z, q.w};
+  if constexpr (kBf16) {
+    const uint32_t words[4] = {r.q.x, r.q.y, r.q.z, r.q.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       c[2 * k] = __uint_as_float(words[k] << 16);
       c[2 * k + 1] = __uint_as_float(words[k] & 0xFFFF0000u);
     }
   } else {
-    float4 a = __ldg((const float4*)table + 2 * row);
-    float4 b = __ldg((const float4*)table + 2 * row + 1);
-    c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
-    c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+    c[0] = r.a.x; c[1] = r.a.y; c[2] = r.a.z; c[3] = r.a.w;
+    c[4] = r.b.x; c[5] = r.b.y; c[6] = r.b.z; c[7] = r.b.w;
   }
+  const float fx = cell.fx, fy = cell.fy, fz = cell.fz;
   float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
   float cx0 = c[0] * gx + c[1] * fx;
   float cx1 = c[2] * gx + c[3] * fx;
@@ -125,6 +164,47 @@ __device__ __forceinline__ float vpt_fetch(const void* table, int d, int h,
   float cy0 = cx0 * gy + cx1 * fy;
   float cy1 = cx2 * gy + cx3 * fy;
   return cy0 * gz + cy1 * fz;
+}
+
+// The whole fetch, with a 64-bit row index (any table).
+template <bool kBf16>
+__device__ __forceinline__ float vpt_fetch(const void* table, int d, int h,
+                                           int w, float px, float py,
+                                           float pz) {
+  const VptCell<int64_t> cell = vpt_cell<int64_t>(d, h, w, px, py, pz);
+  return vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(table, cell.row), cell);
+}
+
+// The pixel tiles of the per-pixel frame kernels (march.cu, mcs_frame.cu):
+// a block of 128 threads covers 16 x 8 pixels, each warp an 8 x 4 part of
+// it, so that a warp's rays are neighbours in both directions: they read
+// neighbouring corner rows at a slice and leave their loops at similar
+// slices.  Blocks run over the tiles row-major; threads past the image's
+// edge have no pixel.  The kernels' info entry points report the shape.
+constexpr int kVptTileThreads = 128;
+constexpr int kVptTileW = 16;
+constexpr int kVptTileH = kVptTileThreads / kVptTileW;
+constexpr int kVptWarpW = 8;
+constexpr int kVptWarpH = 32 / kVptWarpW;
+static_assert(kVptTileW % kVptWarpW == 0 && kVptTileH % kVptWarpH == 0,
+              "a block tile is a whole number of warp tiles");
+
+__host__ __device__ __forceinline__ long long vpt_tile_blocks(int width,
+                                                              int height) {
+  return (long long)((width + kVptTileW - 1) / kVptTileW)
+         * ((height + kVptTileH - 1) / kVptTileH);
+}
+
+// (x, y) of this thread's pixel; false past the image's edge.
+__device__ __forceinline__ bool vpt_tile_pixel(int width, int height, int* x,
+                                               int* y) {
+  const int tiles_x = (width + kVptTileW - 1) / kVptTileW;
+  const int by = blockIdx.x / tiles_x, bx = blockIdx.x - by * tiles_x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kWarpsX = kVptTileW / kVptWarpW;
+  *x = bx * kVptTileW + (warp % kWarpsX) * kVptWarpW + lane % kVptWarpW;
+  *y = by * kVptTileH + (warp / kWarpsX) * kVptWarpH + lane / kVptWarpW;
+  return *x < width && *y < height;
 }
 
 // The color of a fetched value v: the TF row's lookup (Scene.sample_color),

@@ -27,11 +27,11 @@ __device__ __forceinline__ float vpt_clip(float x, float lo, float hi) {
   return vpt_nmin(vpt_nmax(x, lo), hi);
 }
 
-// Index of a clipped filter coordinate, clamped to [0, hi]; NaN maps to 0
-// like the plain version's int64 conversion followed by a clamp.
-__device__ __forceinline__ int vpt_index(float i0f, int hi) {
-  int i = (i0f == i0f) ? (int)i0f : 0;
-  return min(max(i, 0), hi);
+// Index of the floor of a filter coordinate clipped to [0, hi]: it lies in
+// [0, hi] already, and NaN converts to 0 (cvt.rzi), like the plain
+// version's int64 conversion followed by a clamp.
+__device__ __forceinline__ int vpt_index(float i0f) {
+  return __float2int_rz(i0f);
 }
 
 // table: (width, 4) float32 rows in shared memory; mode as above.
@@ -40,7 +40,7 @@ __device__ __forceinline__ float4 vpt_tf1d_lookup(const float4* table,
                                                  int mode) {
   float u = vpt_clip(v * (float)width - 0.5f, 0.0f, (float)(width - 1));
   float i0f = floorf(u);
-  int i0 = vpt_index(i0f, width - 1);
+  int i0 = vpt_index(i0f);
   int i1 = min(i0 + 1, width - 1);
   float4 c0 = table[i0];
   float4 c1 = table[i1];

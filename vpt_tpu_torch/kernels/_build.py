@@ -20,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import struct
 import subprocess
 import tempfile
 import threading
@@ -54,16 +55,26 @@ SIGNATURES = {
     "vpt_corner_fetch": [_P, _P, _L, _P, _P, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
-    # state, mode; table, bf16, D, H, W, TF row, TW, TF mode, MVP; width,
-    # height, slices; step, first, extinction, level, mix; stream
+    # prepared VptMarchArgs, state; first, mix; stream
+    "vpt_march_launch": [_P, _P, _F, _F, _P],
+    # mode, bf16, TW, TF mode, device, out
+    "vpt_march_info": [_I, _I, _I, _I, _I, _P],
+    # the argument list every build since the port exports: state, mode;
+    # table, bf16, D, H, W, TF row, TW, TF mode, MVP; width, height,
+    # slices; step, first, extinction, level, mix; stream
     "vpt_march_frame": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I,
                          _I, _I] + [_F] * 5 + [_P]),
     # state, out; table, bf16, D, H, W, TF row, TW, TF mode; width,
     # height; h, 2h, light xyz; stream
     "vpt_iso_shade": ([_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I]
                       + [_F] * 5 + [_P]),
-    # state; table, bf16, D, H, W, TF row, TW, TF mode, MVP, env; width,
-    # height; seed, extinction, cell; use_skip; direction xyz, n; stream
+    # prepared VptMcsArgs, state; seed, direction xyz, n; counts; stream
+    "vpt_mcs_launch": [_P, _P] + [_F] * 5 + [_P, _P],
+    # bf16, TW, device, out
+    "vpt_mcs_info": [_I, _I, _I, _P],
+    # the argument list every build since the port exports: state; table,
+    # bf16, D, H, W, TF row, TW, TF mode, MVP, env; width, height; seed,
+    # extinction, cell; use_skip; direction xyz, n; stream
     "vpt_mcs_frame": ([_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I]
                       + [_F] * 3 + [_I] + [_F] * 4 + [_P]),
 }
@@ -169,6 +180,51 @@ current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 def stream_ptr(tensor) -> int:
     return current_stream(tensor.get_device())
+
+
+_F32 = struct.Struct("<f")
+_U32 = struct.Struct("<I")
+
+
+def f32(x) -> float:
+    """``x`` rounded to the nearest float32 (ties to even), as a Python
+    float: the value ``np.float32(x)`` holds, at a fraction of numpy's
+    per-scalar cost.  One IEEE operation on float32 values done in float64
+    and rounded so gives the float32 operation's result: float64 carries
+    more than 2·24 + 2 bits, which makes the double rounding innocuous for
+    +, −, ×, ÷ and √."""
+    return _F32.unpack(_F32.pack(x))[0]
+
+
+def f32_bits(x) -> int:
+    """The bits of float32(x) as an int (``np.float32(x).view(uint32)``)."""
+    return _U32.unpack(_F32.pack(x))[0]
+
+
+def tile_pixels(width: int, height: int, tile_w: int, tile_h: int,
+                warp_w: int):
+    """(x, y, inside) of every thread of a frame kernel's launch over a
+    ``width`` × ``height`` image, in launch order (block by block, thread
+    by thread): ``vpt_tile_pixel`` of ``csrc/ray.cuh`` for block tiles
+    ``tile_w`` × ``tile_h`` pixels and warp tiles ``warp_w`` wide, as the
+    kernels' info entry points report them (``march.occupancy``,
+    ``mcs_frame.occupancy``).  Three numpy arrays; ``inside`` is False past
+    the image's edge."""
+    import numpy as np
+
+    threads = tile_w * tile_h
+    warp_h = 32 // warp_w
+    tiles_x = -(-width // tile_w)
+    tiles_y = -(-height // tile_h)
+    block = np.arange(tiles_x * tiles_y)[:, None]
+    thread = np.arange(threads)[None, :]
+    warp, lane = thread >> 5, thread & 31
+    warps_x = tile_w // warp_w
+    by, bx = block // tiles_x, block % tiles_x
+    x = bx * tile_w + (warp % warps_x) * warp_w + lane % warp_w
+    y = by * tile_h + (warp // warps_x) * warp_h + lane // warp_w
+    x, y = x.ravel(), y.ravel()
+    return x, y, (x < width) & (y < height)
 
 
 class LastScene:

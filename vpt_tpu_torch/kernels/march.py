@@ -6,23 +6,26 @@ slices, folding the renderer's composite, then its integrate.  Here it is
 
 - :func:`march_frame_plain`, the renderer's plain PyTorch ``generate`` and
   ``integrate`` on the scene with ``kernels=False``, on any device;
-- the CUDA kernel ``csrc/march.cu``: one thread a pixel computes its ray
-  from the pixel index, runs the slice loop (the corner fetch of
+- the CUDA kernel ``csrc/march.cu``: one thread a pixel of an 8×4 warp
+  tile computes its ray from the pixel index, reads the corner rows of
+  several slices ahead and folds them in order (the corner fetch of
   ``csrc/ray.cuh`` and the TF lookup of ``csrc/tf1d.cuh``) with the
   renderer's composite in registers, and integrates into the state in
   place, reading and writing it once.
 
 :func:`march_frame` takes the plain version for CPU state and launches the
 kernel for CUDA state; it raises on what the kernel does not take
-(unpacked scenes, images of 2^31 pixels or more) and never falls back.
-What a launch needs of the scene it prepares once per scene; the frame's
-scalars (the schedule's first parameter and step, the running
-mean's weight) are float32 values computed on the host, the ones the plain
-version uses.
+(unpacked scenes, images of 2^31 pixels or more, tables of 2^31 rows or
+more: it indexes both with 32-bit integers) and never falls back.  What a launch takes of the scene, the Params
+and the resolution it prepares once (``VptMarchArgs``, passed as one
+pointer); a frame then computes its two scalars, the schedule's first value
+and the running mean's weight 1/n, the float32 values of
+:func:`frame_scalars` that the plain version uses, without numpy.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -57,18 +60,6 @@ def march_frame_plain(mode, state, scene, params, seed, frame_number):
     module.integrate(state, frame, frame_number)
 
 
-def _fields(scene):
-    return (scene.volume_packed, scene.transfer_1d, scene.mvp_inverse,
-            scene.tf_mxu)
-
-
-def _prepare(scene, key):
-    return _build.scene_args(scene, scene.volume_packed, "march")
-
-
-_scene_cache = _build.LastScene(_prepare, _fields)
-
-
 def frame_scalars(mode, params, seed, frame_number):
     """(slices, step, first t, extinction, level, mix) of one frame: the
     schedule of the renderer's ``schedule``, the extinction (EAM, Depth),
@@ -85,18 +76,86 @@ def frame_scalars(mode, params, seed, frame_number):
             float(np.float32(level)), float(frame_weight(frame_number)))
 
 
-def launch_args(mode, state, scene, params, seed, frame_number):
-    """The arguments of one ``vpt_march_frame`` call for CUDA ``state``."""
-    height, width = state.shape[:2]
-    _build.check_image(state, state_shape(mode, height, width), state.device,
-                       f"the {mode} state")
-    if scene.device != state.device:
-        raise ValueError(f"the scene lives on {scene.device}, the state on "
-                         f"{state.device}")
-    _, args = _scene_cache.get(scene)
-    return (state.data_ptr(), MODES[mode], *args, width, height,
-            *frame_scalars(mode, params, seed, frame_number),
-            _build.stream_ptr(state))
+def first_of(mode, params, step):
+    """The frame's first schedule value as a function of the seed, in the
+    float32 operations of the renderer's ``schedule`` on Python floats
+    (``_build.f32``): EAM and Depth ``step · offset`` (0 unless
+    ``random``), MIP the offset, ISO ``1 − offset · step``, where the
+    offset is ``_march.frame_offset``: ``pcg(pcg(bits of float32(seed)))``
+    rounded to float32, times 2^-32 (exact)."""
+    from ..renderers._march import pcg
+
+    f32, bits = _build.f32, _build.f32_bits
+
+    def offset(seed):
+        return f32(float(pcg(pcg(bits(seed))))) * 2.0 ** -32
+
+    if mode == "mip":
+        return offset
+    if mode == "iso":
+        return lambda seed: f32(1.0 - f32(offset(seed) * step))
+    if params.random:
+        return lambda seed: f32(step * offset(seed))
+    return lambda seed: 0.0
+
+
+def frame_mix(frame_number) -> float:
+    """``base.frame_weight``: float32(1) / float32(n), as a Python float."""
+    return _build.f32(1.0 / _build.f32(float(frame_number)))
+
+
+class _Args(ctypes.Structure):
+    """``VptMarchArgs`` of ``csrc/march.cu``."""
+    _fields_ = [("table", ctypes.c_void_p), ("tf_row", ctypes.c_void_p),
+                ("mvp", ctypes.c_void_p), ("table_bf16", ctypes.c_int),
+                ("d", ctypes.c_int), ("h", ctypes.c_int), ("w", ctypes.c_int),
+                ("tw", ctypes.c_int), ("tf_mode", ctypes.c_int),
+                ("mode", ctypes.c_int), ("width", ctypes.c_int),
+                ("height", ctypes.c_int), ("slices", ctypes.c_int),
+                ("step", ctypes.c_float), ("extinction", ctypes.c_float),
+                ("level", ctypes.c_float), ("device", ctypes.c_int)]
+
+
+def _fields(scene):
+    return (scene.volume_packed, scene.transfer_1d, scene.mvp_inverse,
+            scene.tf_mxu)
+
+
+def check_rows(volume_shape):
+    """Raise for a volume of 2^31 cells or more: the kernel indexes its
+    corner rows with 32-bit integers."""
+    d, h, w = volume_shape[:3]
+    if d * h * w >= 2 ** 31:
+        raise ValueError(f"{d}x{h}x{w}: the march kernel indexes corner "
+                         "rows with 32-bit integers")
+
+
+def _prepare(scene, key):
+    """What every frame of ``key`` = (mode, params, height, width) takes of
+    the scene: the checked tensors, the ``VptMarchArgs`` and the seed's
+    schedule function."""
+    mode, params, height, width = key
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the march kernel indexes "
+                         "pixels with 32-bit integers")
+    check_rows(scene.volume.shape)
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp) = \
+        _build.scene_args(scene, scene.volume_packed, "march")
+    slices, step, _, extinction, level, _ = frame_scalars(mode, params, 0.0,
+                                                          1)
+    device = scene.volume.get_device()
+    args = _Args(table, row, mvp, bf16, d, h, w, tw, tf_mode, MODES[mode],
+                 width, height, slices, step, extinction, level, device)
+    return _build.Prepared(
+        tensors=tensors, args=args, address=ctypes.addressof(args),
+        device=device, shape=torch.Size(state_shape(mode, height, width)),
+        align=4 if mode == "mip" else 16, first=first_of(mode, params, step),
+        launch=_build.library().vpt_march_launch if device >= 0 else None)
+
+
+#: the last (scene, mode, params, resolution)'s preparation: a renderer
+#: launches one scene at one resolution frame after frame
+_scene_cache = _build.LastScene(_prepare, _fields)
 
 
 def march_frame(mode, state, scene, params, seed, frame_number):
@@ -108,9 +167,40 @@ def march_frame(mode, state, scene, params, seed, frame_number):
         march_frame_plain(mode, state, scene, params, seed, frame_number)
         return
     global LAUNCHES
-    args = launch_args(mode, state, scene, params, seed, frame_number)
-    # the stream and the shared-memory opt-in belong to the state's device
-    with torch.cuda.device(state.device):
-        _build.check("vpt_march_frame",
-                     _build.library().vpt_march_frame(*args))
+    p = _scene_cache.get(scene, (mode, params) + tuple(state.shape[:2]))
+    if state.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{state.device}")
+    if state.dtype is not torch.float32 or state.shape != p.shape \
+            or not state.is_contiguous() or state.data_ptr() % p.align:
+        raise ValueError(f"the {mode} state must be a contiguous float32 "
+                         f"{tuple(p.shape)} tensor on a {p.align}-byte "
+                         "boundary")
+    err = p.launch(p.address, state.data_ptr(), p.first(seed),
+                   frame_mix(frame_number), _build.current_stream(p.device))
+    if err:
+        _build.check("vpt_march_launch", err)
     LAUNCHES += 1
+
+
+#: the fields of :func:`occupancy`, in the order ``vpt_march_info`` writes
+#: them
+OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
+                    "registers", "local_bytes", "static_smem_bytes",
+                    "dynamic_smem_bytes", "chunk", "tile_width",
+                    "tile_height", "warp_width")
+
+
+def occupancy(mode, table_dtype, tf_width: int, tf_mode: int = 0,
+              device: int = 0) -> dict:
+    """The kernel's launch shape in ``mode`` on CUDA ``device`` for a corner
+    table of ``table_dtype``, a TF row of ``tf_width`` texels and the TF
+    lookup mode ``tf_mode`` (``tf1d.mode_code``): threads a block, resident
+    blocks an SM, SMs, registers and local (spill) bytes a thread, static
+    and dynamic shared memory a block, the rows it reads ahead of the fold
+    and its pixel tile.  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    _build.check("vpt_march_info", _build.library().vpt_march_info(
+        MODES[mode], int(table_dtype == torch.bfloat16), tf_width, tf_mode,
+        device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))

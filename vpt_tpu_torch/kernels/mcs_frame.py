@@ -7,23 +7,26 @@ Here it is
 
 - :func:`mcs_frame_plain`, ``renderers/mcs.generate`` and ``integrate`` on
   the scene with ``kernels=False``, on any device;
-- the CUDA kernel ``csrc/mcs_frame.cu``: one thread a pixel runs both
-  tracking loops to its own exit (the RNG, ray setup, corner fetch and TF
-  lookup of ``csrc/ray.cuh`` and ``csrc/tf1d.cuh``), then the incremental
-  mean, reading and writing its state once.
+- the CUDA kernel ``csrc/mcs_frame.cu``: one thread a pixel of an 8×4 warp
+  tile runs both tracking loops to its own exit (the RNG, ray setup,
+  corner fetch and TF lookup of ``csrc/ray.cuh`` and ``csrc/tf1d.cuh``),
+  then the incremental mean, reading and writing its state once.
 
 :func:`mcs_frame` takes the plain version for CPU state and launches the
 kernel for CUDA state; it raises on what the kernel does not take
 (unpacked scenes, environment maps larger than 1×1, images of 2^31 pixels
-or more).  The frame's scatter direction is ``mcs.scatter_direction``,
-computed on the host, where the plain version takes it too.
+or more).  What a launch takes of the scene, the Params and the resolution
+it prepares once (``VptMcsArgs``, passed as one pointer); a frame passes
+its seed, its scatter direction (``mcs.scatter_direction``, which the plain
+version takes too) and n.  Given ``counts``, the frame also adds its
+tracking steps and corner-row fetches to it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
-import numpy as np
 import torch
 
 from . import _build
@@ -42,53 +45,102 @@ def mcs_frame_plain(state, scene, params, seed, frame_number):
     mcs.integrate(state, frame, frame_number)
 
 
+class _Args(ctypes.Structure):
+    """``VptMcsArgs`` of ``csrc/mcs_frame.cu``."""
+    _fields_ = [("table", ctypes.c_void_p), ("tf_row", ctypes.c_void_p),
+                ("mvp", ctypes.c_void_p), ("env", ctypes.c_void_p),
+                ("table_bf16", ctypes.c_int), ("d", ctypes.c_int),
+                ("h", ctypes.c_int), ("w", ctypes.c_int),
+                ("tw", ctypes.c_int), ("tf_mode", ctypes.c_int),
+                ("width", ctypes.c_int), ("height", ctypes.c_int),
+                ("extinction", ctypes.c_float), ("cell", ctypes.c_float),
+                ("use_skip", ctypes.c_int), ("device", ctypes.c_int)]
+
+
 def _fields(scene):
     return (scene.volume_packed, scene.tracking_packed, scene.transfer_1d,
             scene.mvp_inverse, scene.tf_mxu, scene.environment)
 
 
 def _prepare(scene, key):
+    """What every frame of ``key`` = (params, height, width) takes of the
+    scene: the checked tensors and the ``VptMcsArgs``."""
     from ..renderers import mcs
 
+    params, height, width = key
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the MCS kernel indexes pixels "
+                         "with 32-bit integers")
     env = _build.one_texel_environment(scene, "MCS")
     use_skip = scene.tracking_packed is not None
-    tensors, args = _build.scene_args(
-        scene, scene.tracking_packed if use_skip else scene.volume_packed,
-        "MCS")
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp) = \
+        _build.scene_args(scene, scene.tracking_packed if use_skip
+                          else scene.volume_packed, "MCS")
     cell = mcs.skip_cell_size(scene) if use_skip else 0.0
-    return (*tensors, env), (*args, env.data_ptr()), (cell, int(use_skip))
+    device = scene.volume.get_device()
+    # ctypes rounds each Python float to the nearest float32
+    args = _Args(table, row, mvp, env.data_ptr(), bf16, d, h, w, tw, tf_mode,
+                 width, height, params.extinction, cell, int(use_skip),
+                 device)
+    return _build.Prepared(
+        tensors=(*tensors, env), args=args, address=ctypes.addressof(args),
+        device=device, shape=torch.Size((height, width, 4)),
+        direction=mcs.scatter_direction,
+        launch=_build.library().vpt_mcs_launch if device >= 0 else None)
 
 
+#: the last (scene, params, resolution)'s preparation
 _scene_cache = _build.LastScene(_prepare, _fields)
 
 
-def launch_args(state, scene, params, seed, frame_number):
-    """The arguments of one ``vpt_mcs_frame`` call for CUDA ``state``."""
-    from ..renderers import mcs
+def mcs_frame(state, scene, params, seed, frame_number, counts=None):
+    """One frame of MCS, generate and integrate, in place on ``state``.
 
-    height, width = state.shape[:2]
-    _build.check_image(state, (height, width, 4), state.device,
-                       "the mcs state")
-    _build.check_aligned(state, "the mcs state")
-    if scene.device != state.device:
-        raise ValueError(f"the scene lives on {scene.device}, the state on "
-                         f"{state.device}")
-    _, args, (cell, use_skip) = _scene_cache.get(scene)
-    direction = [float(x) for x in mcs.scatter_direction(seed)]
-    # ctypes rounds each Python float to the nearest float32
-    return (state.data_ptr(), *args, width, height, float(np.float32(seed)),
-            float(np.float32(params.extinction)), cell, use_skip,
-            *direction, float(np.float32(frame_number)),
-            _build.stream_ptr(state))
-
-
-def mcs_frame(state, scene, params, seed, frame_number):
-    """One frame of MCS, generate and integrate, in place on ``state``."""
+    ``counts``: None, or a CUDA int64 tensor of 2 on the state's device to
+    which the kernel adds the frame's tracking steps (draws) and corner-row
+    fetches; the plain version takes none."""
     if not state.is_cuda:
+        if counts is not None:
+            raise ValueError("the plain MCS frame counts nothing")
         mcs_frame_plain(state, scene, params, seed, frame_number)
         return
     global LAUNCHES
-    args = launch_args(state, scene, params, seed, frame_number)
-    with torch.cuda.device(state.device):
-        _build.check("vpt_mcs_frame", _build.library().vpt_mcs_frame(*args))
+    p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2]))
+    if state.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{state.device}")
+    if state.dtype is not torch.float32 or state.shape != p.shape \
+            or not state.is_contiguous() or state.data_ptr() % 16:
+        raise ValueError("the mcs state must be a contiguous float32 "
+                         f"{tuple(p.shape)} tensor on a 16-byte boundary")
+    if counts is not None and (
+            counts.dtype is not torch.int64 or counts.shape != (2,)
+            or counts.get_device() != p.device
+            or not counts.is_contiguous()):
+        raise ValueError("counts must be a contiguous int64 (2,) tensor on "
+                         "the state's device")
+    sx, sy, sz = p.direction(seed)
+    err = p.launch(p.address, state.data_ptr(), seed, sx, sy, sz,
+                   frame_number, None if counts is None
+                   else counts.data_ptr(), _build.current_stream(p.device))
+    if err:
+        _build.check("vpt_mcs_launch", err)
     LAUNCHES += 1
+
+
+#: the fields of :func:`occupancy`, in the order ``vpt_mcs_info`` writes
+#: them
+OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
+                    "registers", "local_bytes", "static_smem_bytes",
+                    "dynamic_smem_bytes", "tile_width", "tile_height",
+                    "warp_width")
+
+
+def occupancy(table_dtype, tf_width: int, device: int = 0) -> dict:
+    """The kernel's launch shape (the render path's, without the counter)
+    on CUDA ``device`` for a corner table of ``table_dtype`` and a TF row
+    of ``tf_width`` texels.  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    _build.check("vpt_mcs_info", _build.library().vpt_mcs_info(
+        int(table_dtype == torch.bfloat16), tf_width, device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
