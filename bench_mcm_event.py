@@ -1,17 +1,18 @@
 """Time a per-pixel kernel of the port against other builds of it, in turns,
 on the render headline, on one GPU: the MCM event kernel (K5), the march
-kernel (K6) or the MCS kernel (K8).
+kernel (K6), the ISO shade kernel (K7) or the MCS kernel (K8).
 
-    python3 bench_mcm_event.py [--kernel mcm_event|march|mcs]
+    python3 bench_mcm_event.py [--kernel mcm_event|march|iso_shade|mcs]
         [--variant NAME=PATH ...] [--frames 30]
         [--size 512]
 
 ``current`` is the kernel's source in ``vpt_tpu_torch/csrc/`` as it
 stands.  Each ``--variant`` is another source of the same kernel that
 exports the same C interface (K5: ``vpt_mcm_event`` and
-``vpt_mcm_event_info``; K6: ``vpt_march_frame``; K8: ``vpt_mcs_frame``, the
-argument lists of ``kernels/_build.SIGNATURES`` that every build since the
-kernel's port exports): an edited copy under ``build/`` with one design
+``vpt_mcm_event_info``; K6: ``vpt_march_frame``; K7: ``vpt_iso_shade``;
+K8: ``vpt_mcs_frame``, the argument lists of ``kernels/_build.SIGNATURES``
+that every build since the kernel's port exports): an edited copy under
+``build/`` with one design
 lever changed (such as ``kChunk`` of ``march.cu``, or the tile constants of
 a ``ray.cuh`` copied beside it), or an older design, such as an older
 commit's from ``git archive COMMIT vpt_tpu_torch/csrc | tar -x -C
@@ -28,10 +29,15 @@ on the headline's scene (``sphere_volume(128)``, sRGB gray ramp at alpha
 and 32.  K6 (in each of its four modes) and K8 are driven through their
 argument lists (:func:`march_args`, :func:`mcs_args`, the float32 frame
 scalars of ``march.frame_scalars`` and ``mcs.scatter_direction``) on the
-same scene at 512² (``--size``) with the renderers' default Params.
+same scene at 512² (``--size``) with the renderers' default Params.  K7
+is driven through its argument list (:func:`iso_args`) on the display of
+one ISO frame's hits at 512², on three scenes (:data:`SHADE_SCENES`: the
+headline's, float32 rows, and a TF row of 3072 texels) and of a state that
+hits in every pixel, with L2 warm and flushed.
 
-For each steps (K5) or mode (K6, K8) the builds run in a palindromic order
-(current, the variants, the variants reversed, current), each from the
+For each steps (K5), mode (K6, K8) or scene (K7) the builds run in a
+palindromic order (current, the variants, the variants reversed, current;
+K7 ``--rounds`` times), each from the
 same reset state with the same frame seeds, so each is read twice,
 symmetrically in time.  A reading is the kernel's device time per launch
 (``torch.profiler``), the frame time (K5: host clock, synchronized; K6,
@@ -72,6 +78,8 @@ KERNELS = {
               "march_kernel"),
     "mcs": ("mcs_frame.cu", ("vpt_mcs_frame",), "vpt_mcs_info",
             "mcs_frame_kernel"),
+    "iso_shade": ("iso_shade.cu", ("vpt_iso_shade",), "vpt_iso_shade_info",
+                  "iso_shade_kernel"),
 }
 #: the H100's SMs and warp schedulers an SM (one warp-instruction a clock)
 SMS, SCHEDULERS = 132, 4
@@ -236,7 +244,7 @@ def summarize(readings, key, keys, baseline):
     for line in out:
         base = next((x for x in out if x[key] == line[key]
                      and x["summary"] == baseline), None)
-        for k in ("device_ms", "host_ms_per_frame", "ms"):
+        for k in ("device_ms", "device_ms_cold", "host_ms_per_frame", "ms"):
             if base and line.get(k) and base.get(k):
                 line[f"{k}_over_{baseline}"] = line[k] / base[k]
     return out
@@ -342,14 +350,32 @@ def mcs_args(state, scene, params, seed, frame_number):
             float(np.float32(frame_number)), _build.stream_ptr(state))
 
 
+def iso_args(state, out, scene, params):
+    """The arguments of one ``vpt_iso_shade`` call (every build of K7 since
+    its port takes them): the ISO state, the image, the scene's table and
+    TF row, h and the float32 2h, and ``iso.light_direction``."""
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.renderers import iso
+
+    height, width = state.shape[:2]
+    _, args = _build.scene_args(scene, scene.volume_packed, "ISO shade")
+    step = _build.f32(params.gradient_step)
+    return (state.data_ptr(), out.data_ptr(), *args[:-1], width, height,
+            step, _build.f32(2.0 * step),
+            *iso.light_direction(scene, params).tolist(),
+            _build.stream_ptr(state))
+
+
 def kernel_name(kind, mode, bf16=True):
-    """The fragment of the mangled name of K6's (mode, dtype) or K8's
-    (dtype, render path) instantiation."""
+    """The fragment of the mangled name of K6's (mode, dtype), K7's (dtype)
+    or K8's (dtype, render path) instantiation."""
     from vpt_tpu_torch.kernels import march
 
     b = int(bf16)
     if kind == "march":
         return f"march_kernelILi{march.MODES[mode]}ELb{b}E"
+    if kind == "iso_shade":
+        return f"iso_shade_kernelILb{b}E"
     return f"mcs_frame_kernelILb{b}E"
 
 
@@ -364,10 +390,11 @@ def pick(table: dict, fragment: str):
 
 
 def pick_kernel(table: dict, kind, mode, bf16, tf):
-    """:func:`pick` of the headline's instantiation: K6's with the TF
-    lookup mode ``tf`` as a template argument where the build has one."""
+    """:func:`pick` of the headline's instantiation: K6's or K7's with the
+    TF lookup mode ``tf`` as a template argument where the build has
+    one."""
     fragment = kernel_name(kind, mode, bf16)
-    if kind == "march":
+    if kind in ("march", "iso_shade"):
         found = pick(table, fragment + f"Li{tf}E")
         if found is not None:
             return found
@@ -513,6 +540,155 @@ def bench_frames(kind, libs, built, frames):
     return readings, shapes, failed
 
 
+#: K7's scenes: the headline's (bf16 rows, the bf16-weight TF lookup), one
+#: of float32 rows (``blobs_volume(64)``, chip_smoke.py's second scene),
+#: the headline's with a TF row as wide as the kernels take, and the
+#: headline's with a state that hits in every pixel (:func:`dense_hits`)
+SHADE_SCENES = ("headline", "f32", "tw3072", "dense")
+
+
+def shade_scene(label):
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.kernels import tf1d
+    from vpt_tpu_torch.renderers import make_scene
+
+    if label in ("headline", "dense"):
+        return headline_scene()
+    if label == "f32":
+        return make_scene(volume.blobs_volume(64),
+                          transfer.gray_ramp(alpha_scale=0.8), pack=True)
+    return make_scene(volume.sphere_volume(128),
+                      transfer.gray_ramp(width=tf1d.MAX_WIDTH,
+                                         alpha_scale=0.8),
+                      tf_srgb=True, tracking="auto",
+                      pack_dtype=torch.bfloat16, tf_mxu=True)
+
+
+def dense_hits(height, width, device):
+    """An ISO state that hits in every pixel, on a smooth surface across
+    the volume (x, y from the pixel, z = 0.35 + 0.3·x·y): the display of
+    an isosurface that fills the view, with neighbouring pixels' taps on
+    neighbouring corner rows as in a rendered one."""
+    import torch
+
+    y, x = torch.meshgrid(
+        (torch.arange(height, device=device) + 0.5) / height,
+        (torch.arange(width, device=device) + 0.5) / width, indexing="ij")
+    return torch.stack([x, y, 0.35 + 0.3 * x * y, torch.full_like(x, 0.5)],
+                       dim=-1).contiguous()
+
+
+def bench_shade(libs, built, frames, rounds):
+    """K7 of every build in turns (``rounds`` palindromes), on each of
+    :data:`SHADE_SCENES`: the display of one ISO frame's hits at
+    ``HEIGHT`` × ``WIDTH``, timed with the state and image in L2 (the loop)
+    and with L2 flushed before each display by a 64 MiB fill
+    (``device_ms_cold``), beside the device time of a copy of the state
+    into the image (``copy_device_ms``, warm and cold: the bytes every
+    pixel moves, with no fetch); returns the readings, the per-(scene,
+    build) shapes and the failed builds."""
+    import torch
+
+    import chip_smoke
+    from vpt_tpu_torch.kernels import _build, iso_shade, tf1d
+    from vpt_tpu_torch.renderers import iso
+
+    _, _, info_name, match = KERNELS["iso_shade"]
+    sass_of = {name: sass_loops(built[name][0], match) for name in libs}
+    readings, shapes, failed = [], {}, set()
+    params = iso.Params()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for label in SHADE_SCENES:
+        scene = shade_scene(label)
+        tf = tf1d.mode_code(scene.tf_mxu)
+        bf16 = scene.volume_packed.dtype == torch.bfloat16
+        if label == "dense":
+            state = dense_hits(HEIGHT, WIDTH, scene.device)
+        else:
+            state = iso.reset(params, HEIGHT, WIDTH, scene)
+            iso.render_frame(state, scene, params, 0.4, 1)
+        hits, rows = chip_smoke.shade_work(scene, state,
+                                           params.gradient_step)
+        bound_ms, bound_by, _ = chip_smoke.frame_bound(
+            scene, scene.volume_packed, HEIGHT * WIDTH, 16,
+            hits * (7 * chip_smoke.SHADE_OPS_TAP
+                    + chip_smoke.SHADE_OPS_PIXEL), rows)
+        image = torch.empty_like(state)
+
+        def copy():
+            image.copy_(state)
+
+        def copy_cold():
+            flush.zero_()
+            copy()
+
+        work = {"hits": hits, "corner_rows": rows, "bound_ms": bound_ms,
+                "bound_by": bound_by, "tw": scene.transfer_1d.shape[0],
+                "copy_device_ms": chip_smoke.profiler_device_ms(
+                    copy, "Memcpy", frames),
+                "copy_device_ms_cold": chip_smoke.profiler_device_ms(
+                    copy_cold, "Memcpy", frames)}
+        for name, lib in libs.items():
+            shape = {"build": name, "mode": label}
+            shape.update(pick_kernel(ptxas_kernels(built[name][1], match),
+                                     "iso_shade", label, bf16, tf) or {})
+            # the info entry point, which builds older than it lack; a
+            # variant's may write more fields than this tree's reads
+            info = getattr(lib, info_name, None)
+            if info is not None:
+                out = (ctypes.c_int * 16)()
+                info.argtypes = _build.SIGNATURES[info_name]
+                if info(int(bf16), tf, 0, out) == 0:
+                    shape.update(dict(zip(iso_shade.OCCUPANCY_FIELDS, out)))
+            elif shape.get("registers"):
+                shape["blocks_per_sm"] = resident_blocks(shape["registers"])
+                shape["blocks_per_sm_from"] = "registers"
+            sass = pick_kernel(sass_of[name], "iso_shade", label, bf16, tf)
+            if sass:
+                shape["sass_instructions"] = sass[0]
+            shapes[(label, name)] = shape
+            print(json.dumps(shape), flush=True)
+
+        order = [n for n in libs if n != "current"]
+        reference = None
+        for name in ["current", *order, *order[::-1], "current"] * rounds:
+            if name in failed:
+                continue
+            image = torch.empty_like(state)
+            args = iso_args(state, image, scene, params)
+
+            def launch(lib=libs[name], args=args):
+                _build.check("vpt_iso_shade", lib.vpt_iso_shade(*args))
+
+            def cold(launch=launch):
+                flush.zero_()
+                launch()
+
+            try:
+                launch()
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                print(f"{name}: {exc}, left out", flush=True)
+                failed.add(name)
+                continue
+            if reference is None:
+                reference = image.clone()
+            r = {"variant": name, "mode": label, "frames": frames,
+                 "state_equal_to_current": torch.equal(image, reference),
+                 "device_ms": chip_smoke.profiler_device_ms(launch, match,
+                                                            frames),
+                 "device_ms_cold": chip_smoke.profiler_device_ms(
+                     cold, match, frames),
+                 "ms": chip_smoke.cuda_ms(launch, frames),
+                 "sm_clock_mhz": sm_clock_mhz()[0]}
+            r.update(work)
+            readings.append(r)
+            print(json.dumps(r), flush=True)
+    return readings, shapes, failed
+
+
 def row_pixels(width, height):
     """(x, y, inside) of a launch of 128-thread blocks over the pixels in
     row-major order (the frame kernels before their pixel tiles)."""
@@ -533,6 +709,8 @@ def main() -> int:
                     help="frames of a reading")
     ap.add_argument("--size", type=int, default=512,
                     help="K6/K8: the image's width and height")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="K7: palindromic rounds of readings")
     ap.add_argument("--baseline", default="current",
                     help="the build the summary divides by")
     ap.add_argument("--out", type=pathlib.Path)
@@ -587,14 +765,20 @@ def main() -> int:
             "host_events_per_s", "host_paths_per_s", "mean_path_events"),
             args.baseline)
     else:
-        readings, frame_shapes, failed = bench_frames(
-            args.kernel, libs, built, args.frames)
+        if args.kernel == "iso_shade":
+            readings, frame_shapes, failed = bench_shade(
+                libs, built, args.frames, args.rounds)
+            keys = ("device_ms", "device_ms_cold", "ms", "copy_device_ms",
+                    "copy_device_ms_cold", "sm_clock_mhz")
+        else:
+            readings, frame_shapes, failed = bench_frames(
+                args.kernel, libs, built, args.frames)
+            keys = ("device_ms", "ms", "issue_floor_ms",
+                    "full_lane_floor_ms", "sm_clock_mhz")
         shapes = {f"{mode} {name}": s
                   for (mode, name), s in frame_shapes.items()}
         summary = summarize([r for r in readings
-                             if r["variant"] not in failed], "mode",
-                            ("device_ms", "ms", "issue_floor_ms",
-                             "full_lane_floor_ms", "sm_clock_mhz"),
+                             if r["variant"] not in failed], "mode", keys,
                             args.baseline)
     for line in summary:
         print(json.dumps(line), flush=True)

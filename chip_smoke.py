@@ -6,8 +6,9 @@ MCS) and its differentiable MCM fit once on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit.  With ``--launch-path`` it times the launch paths of the
-TF-lookup and corner-fetch kernels (``--part fetch``), of the march and MCS
-kernels (``--part frames``) or of all four (the default) of each given
+TF-lookup and corner-fetch kernels (``--part fetch``), of the march, ISO
+shade and MCS kernels (``--part frames``) or of all five (the default) of
+each given
 checkout of the port (:func:`launch_path_tree`, one process a tree) and
 does nothing else; an older checkout goes under the git-ignored
 ``build/``, e.g.
@@ -56,8 +57,9 @@ prints no result:
    Params, 4 frames; then timed at the headline, each bound counting the
    samples and distinct corner rows this run's frame takes (K8's from the
    kernel's own count of its fetches, checked against the plain frame's
-   estimate), with K6's and K8's host µs a frame, registers and blocks an
-   SM; the printed lines add K6's row reads and share of the warps' lanes,
+   estimate), with K6's and K8's host µs a frame, K7's a display, and
+   their registers and blocks an SM; the printed lines add K6's row reads
+   and share of the warps' lanes,
    modelled from the plain frame's samples, and K8's estimate;
 10. each renderer of that slice through the user's entry points at 512²
    (``make_renderer``, 10 frames, ``display``, the ``reinhard`` tone
@@ -904,12 +906,17 @@ FRAME_KERNEL = {"eam": "march_frame", "mip": "march_frame",
 #: and the rest of its shade; an MCS tracking step (the draw's ~8 and its
 #: logf, the division, position, fetch, TF and the carry's ~10)
 MARCH_OPS_SAMPLE, MARCH_OPS_PIXEL = 50, 66
-#: what the redesign of K6 and K8 for the H100 changed (their rows'
+#: what the redesign of K6, K7 and K8 for the H100 changed (their rows'
 #: ``redesigned``)
 REDESIGN = {
     "march_frame": "rows of 4 bf16 / 2 f32 slices read ahead of the fold, "
                    "8x4 warp tiles, TF mode as a template parameter, one "
                    "prepared pointer a launch",
+    "iso_shade": "the seven rows read before the fold, the TF row through "
+                 "the read-only cache with no block prologue, misses leave "
+                 "at once, TF mode as a template parameter, pixels in "
+                 "row-major order (8x4 tiles measured slower), one prepared "
+                 "pointer a launch",
     "mcs_frame": "8x4 warp tiles, the state read first, its own step "
                  "count, one prepared pointer a launch"}
 SHADE_OPS_TAP, SHADE_OPS_PIXEL = 35, 40
@@ -1201,8 +1208,8 @@ def time_frame_kernels(scene):
     the plain version's ms of K6 in each mode, K7 and K8 at the main
     path's shape (the headline at 512², default Params), with each
     frame's bound from this run's work (K8's from its own count of its
-    fetches), and K6's and K8's host µs a frame, registers and residency.
-    Returns the three rows' fields."""
+    fetches), and each one's host µs a call (a frame, K7's a display),
+    registers and residency.  Returns the three rows' fields."""
     import dataclasses
 
     from vpt_tpu_torch.kernels import _build, iso_shade, march, mcs_frame
@@ -1270,23 +1277,33 @@ def time_frame_kernels(scene):
 
     iso = renderer_module("iso")
     params = iso.Params()
-    ms = cuda_ms(lambda: iso.display(iso_state, scene, params), 20)
-    device_ms = profiler_device_ms(lambda: iso.display(iso_state, scene,
-                                                       params),
-                                   "iso_shade_kernel", 20)
+
+    def display():
+        return iso.display(iso_state, scene, params)
+
+    ms = cuda_ms(display, 20)
+    device_ms = profiler_device_ms(display, "iso_shade_kernel", 20)
+    host_us = _host_call_us(display)
     plain_ms = cuda_ms(lambda: iso_shade.iso_shade_plain(iso_state, scene,
                                                          params), 5)
+    occ = iso_shade.occupancy(scene.volume_packed.dtype,
+                              tf1d.mode_code(scene.tf_mxu))
     hits, rows = shade_work(scene, iso_state, params.gradient_step)
     bound_ms, bound_by, nbytes = frame_bound(
         scene, scene.volume_packed, n, 16,
         hits * (7 * SHADE_OPS_TAP + SHADE_OPS_PIXEL), rows)
     print(f"iso_shade 512^2 headline: {ms:.4f} ms a display, device "
-          f"{fmt_ms(device_ms)}, plain {plain_ms:.4f} ms; {hits} hits, "
-          f"{rows} distinct corner rows; bound {bound_ms:.4f} ms "
-          f"({bound_by}, {nbytes} bytes)", flush=True)
+          f"{fmt_ms(device_ms)}, host {host_us:.2f} us a display, plain "
+          f"{plain_ms:.4f} ms; {hits} hits, {rows} distinct corner rows; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes); "
+          f"{occ['registers']} registers, {occ['local_bytes']} spill bytes, "
+          f"{occ['blocks_per_sm']} blocks of 128 an SM", flush=True)
     row7 = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "hits": hits, "corner_rows": rows}
+            "host_us": host_us, "registers": occ["registers"],
+            "blocks_per_sm": occ["blocks_per_sm"],
+            "redesigned": REDESIGN["iso_shade"], "hits": hits,
+            "corner_rows": rows}
 
     mcs = renderer_module("mcs")
     params = mcs.Params()
@@ -1620,7 +1637,7 @@ def trace_counts(fn):
 def launch_path_tree(tree, part="all"):
     """The launch paths in the port found at ``tree`` (this checkout or
     another, such as an archived parent under ``build/``).  ``part``
-    "frames": those of K6 and K8 (:func:`frame_path_numbers`); "fetch":
+    "frames": those of K6, K7 and K8 (:func:`frame_path_numbers`); "fetch":
     those of K1 and K3, through calls that every tree with the
     differentiable fit takes alike: host microseconds a call of the pieces
     (the output, the stream handle, the library, the TF lookup and
@@ -1767,23 +1784,24 @@ def _host_call_us(fn, reps=300):
 
 
 def frame_path_numbers():
-    """K6's and K8's launch paths in this process's tree, through
-    ``march.march_frame(mode, state, scene, params, seed, n)`` and
-    ``mcs_frame.mcs_frame(state, scene, params, seed, n)``, which every tree
-    with these renderers takes alike, on the headline scene with default
-    Params: for each renderer at 512² the loop time a frame (``ms``, CUDA
-    events), the device time and the host µs a frame
+    """K6's, K7's and K8's launch paths in this process's tree, through
+    ``march.march_frame(mode, state, scene, params, seed, n)``,
+    ``iso.display(state, scene, params)`` and ``mcs_frame.mcs_frame(state,
+    scene, params, seed, n)``, which every tree with these renderers takes
+    alike, on the headline scene with default Params: for each renderer at
+    512², and ISO's display of one ISO frame's hits, the loop time a call
+    (``ms``, CUDA events), the device time and the host µs a call
     (:func:`_host_call_us`); and the host µs of the wrapper's pieces over
     10^4 calls each where the tree has them (a wrapper that builds the
     argument list every frame: ``frame_scalars``, ``_scene_cache.get``,
     ``check_image``, ``torch.cuda.device``, the ctypes call; one with a
     prepared launch: its ``first``, ``frame_mix``, the cache and the ctypes
-    call; both: the scatter direction), the launching pieces at 1×1, where
-    the host sets the pace."""
+    call; both: the scatter direction, K7's argument list), the launching
+    pieces at 1×1, where the host sets the pace."""
     import torch
 
     from vpt_tpu_torch import transfer, volume
-    from vpt_tpu_torch.kernels import _build, march, mcs_frame
+    from vpt_tpu_torch.kernels import _build, iso_shade, march, mcs_frame
     from vpt_tpu_torch.renderers import depth, eam, iso, make_scene, mcs, mip
 
     scene = make_scene(volume.sphere_volume(128),
@@ -1807,6 +1825,18 @@ def frame_path_numbers():
                 call, "mcs_frame_kernel" if key == "mcs" else "march_kernel",
                 50),
             "host_us": _host_call_us(call)}
+    # ISO's display of one ISO frame's hits
+    iso_params = iso.Params()
+    hits = iso.reset(iso_params, 512, 512, scene)
+    march.march_frame("iso", hits, scene, iso_params, 0.4, 1)
+
+    def display():
+        return iso.display(hits, scene, iso_params)
+
+    frames["iso_display"] = {
+        "ms": cuda_ms(display, 200),
+        "device_ms": profiler_device_ms(display, "iso_shade_kernel", 50),
+        "host_us": _host_call_us(display)}
 
     pieces = {}
     params, mparams = eam.Params(), mcs.Params()
@@ -1841,12 +1871,36 @@ def frame_path_numbers():
                                                                     key)),
             ctypes_call_1x1=_host_us(lambda: p.launch(
                 p.address, tiny.data_ptr(), 0.1, 0.5, stream)))
+    # K7 at 1x1: the argument list every build exports, and the prepared
+    # launch where the tree has one
+    tiny_iso = iso.reset(iso_params, 1, 1, scene)
+    tiny_out = torch.empty_like(tiny_iso)
+    _, sargs = _build.scene_args(scene, scene.volume_packed, "ISO shade")
+    light = iso.light_direction(scene, iso_params).tolist()
+    legacy = (tiny_iso.data_ptr(), tiny_out.data_ptr(), *sargs[:-1], 1, 1,
+              _build.f32(iso_params.gradient_step),
+              _build.f32(2.0 * _build.f32(iso_params.gradient_step)), *light,
+              stream)
+    pieces["iso_argument_list_1x1"] = _host_us(
+        lambda: lib.vpt_iso_shade(*legacy))
+    if hasattr(iso_shade, "occupancy"):        # the prepared launch
+        key = (iso_params, 1, 1)
+        p = iso_shade._scene_cache.get(scene, key)
+        pieces.update(
+            iso_scene_cache_get=_host_us(
+                lambda: iso_shade._scene_cache.get(scene, key)),
+            iso_new_empty=_host_us(lambda: tiny_iso.new_empty(p.shape)),
+            iso_ctypes_call_1x1=_host_us(lambda: p.launch(
+                p.address, tiny_iso.data_ptr(), tiny_out.data_ptr(),
+                stream)))
     pieces.update(
         mcs_scatter_direction=_host_us(lambda: mcs.scatter_direction(0.5)),
         march_frame_1x1=_host_us(lambda: march.march_frame(
             "eam", tiny, scene, params, 0.5, 2)),
         mcs_frame_1x1=_host_us(lambda: mcs_frame.mcs_frame(
-            tiny_mcs, scene, mparams, 0.5, 2)))
+            tiny_mcs, scene, mparams, 0.5, 2)),
+        iso_display_1x1=_host_us(lambda: iso.display(tiny_iso, scene,
+                                                     iso_params)))
     return {"frames": frames, "pieces_host_us": pieces}
 
 

@@ -656,6 +656,111 @@ def test_iso_shade_kernel_matches_plain(cuda, kind, height, width):
     assert torch.equal(got, want)
 
 
+def _assert_shade_equals_plain(state, scene, params=None):
+    """K7's display of ``state`` is the plain shade's on the same card,
+    one launch."""
+    params = params or iso.Params()
+    before = iso_shade.LAUNCHES
+    got = iso.display(state, scene, params)
+    want = iso_shade.iso_shade_plain(state, scene, params)
+    torch.cuda.synchronize()
+    assert iso_shade.LAUNCHES == before + 1
+    assert got.shape == state.shape and got.data_ptr() != state.data_ptr()
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("mxu", [None, torch.float32, torch.bfloat16],
+                         ids=["bilinear", "mxu-f32", "mxu-bf16"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_iso_shade_kernel_in_every_tf_mode(cuda, kind, mxu):
+    """Each table type in each TF lookup mode (an instantiation each),
+    with hits and misses."""
+    scene = dataclasses.replace(_scene(kind, cuda), tf_mxu=mxu)
+    state, _ = _kernel_frames("iso", scene, 48, 80, 2)
+    hit = state[..., 3] > 0
+    assert bool(hit.any()) and bool((~hit).any())
+    _assert_shade_equals_plain(state, scene)
+
+
+@pytest.mark.parametrize("height,width", [(1, 1), (37, 53), (512, 1)],
+                         ids=["1x1", "37x53", "512x1"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_iso_shade_kernel_off_the_blocks(cuda, kind, height, width):
+    """Images that are no whole number of 128-pixel blocks: the threads
+    past the end write nothing, every pixel is the plain shade's."""
+    scene = _scene(kind, cuda)
+    state, _ = _kernel_frames("iso", scene, height, width, 2)
+    _assert_shade_equals_plain(state, scene)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_iso_shade_kernel_all_miss_and_all_hit(cuda, kind):
+    """A state without a hit is white; a state where every pixel hit, at
+    positions all over the cube and on its faces (seeded), is shaded in
+    every pixel as the plain shade does, at a light and h of its own."""
+    scene = _scene(kind, cuda)
+    miss = torch.full((40, 56, 4), -1.0, device=cuda)
+    assert torch.equal(_assert_shade_equals_plain(miss, scene),
+                       torch.ones_like(miss))
+    g = torch.Generator().manual_seed(21)
+    pos = torch.rand(40, 56, 3, generator=g) * 1.1 - 0.05
+    pos[0, :8] = torch.tensor([0.0, 1.0, 0.5])
+    state = torch.cat([pos, torch.full((40, 56, 1), 0.5)], -1).to(cuda)
+    params = iso.Params(light=(-1.0, 4.0, 0.5), gradient_step=0.013)
+    got = _assert_shade_equals_plain(state, scene, params)
+    assert not torch.equal(got[..., :3], torch.ones_like(got[..., :3]))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_iso_shade_kernel_at_the_widest_tf_row(cuda, kind):
+    """A TF row of tf1d.MAX_WIDTH texels, read through the read-only
+    cache."""
+    base = _scene(kind, cuda)
+    scene = dataclasses.replace(base, transfer_1d=transfer.gray_ramp(
+        width=tf1d.MAX_WIDTH, alpha_scale=0.8, device=cuda)[0])
+    assert scene.transfer_1d.shape == (tf1d.MAX_WIDTH, 4)
+    state, _ = _kernel_frames("iso", scene, 48, 80, 2)
+    assert bool((state[..., 3] > 0).any())
+    _assert_shade_equals_plain(state, scene)
+
+
+def test_iso_shade_kernel_refuses_what_it_does_not_take(cuda):
+    """States of another shape, type, device, layout or alignment raise
+    before any launch, as does a scene on another device; nothing falls
+    back to the plain shade."""
+    scene = _scene("f32", cuda)
+    good = torch.full((8, 8, 4), -1.0, device=cuda)
+    before = _launches()
+    for state in (torch.zeros(8, 8, 3, device=cuda),
+                  torch.zeros(8, 8, 4, dtype=torch.float64, device=cuda),
+                  torch.zeros(8, 4, 8, device=cuda).transpose(1, 2),
+                  torch.zeros(8 * 8 * 4 + 1, device=cuda)[1:].view(8, 8, 4)):
+        with pytest.raises(ValueError):
+            iso.display(state, scene, iso.Params())
+    cpu_scene = make_scene(volume.sphere_volume(8, device="cpu"),
+                           transfer.gray_ramp(device="cpu"), device="cpu")
+    with pytest.raises(ValueError):
+        iso.display(good, cpu_scene, iso.Params())
+    assert _launches() == before
+
+
+def test_iso_shade_argument_list_agrees(cuda):
+    """vpt_iso_shade, the argument list every build since the port
+    exports (bench_mcm_event.py drives it), writes what the prepared
+    launch writes."""
+    import bench_mcm_event
+
+    scene = _scene("bf16", cuda)
+    state, _ = _kernel_frames("iso", scene, 40, 56, 2)
+    want = iso.display(state, scene, iso.Params())
+    got = torch.empty_like(state)
+    _build.check("vpt_iso_shade", _build.library().vpt_iso_shade(
+        *bench_mcm_event.iso_args(state, got, scene, iso.Params())))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_march_kernel_eam_modes_on_a_random_schedule(cuda):
     """EAM with a fixed schedule (random=False) and a short one (8
     slices), and Depth with a jittered one: the kernel's exits follow the
@@ -809,9 +914,15 @@ def test_frame_kernels_argument_lists_agree(cuda, key):
 
 def test_frame_kernels_launch_shapes(cuda):
     """Each K6 mode and K8 fit an SM, on one pixel tile of a block's
-    threads, which ``_build.tile_pixels`` maps onto every pixel once."""
+    threads, which ``_build.tile_pixels`` maps onto every pixel once; K7
+    fits in each TF mode without spilling."""
     tiles = set()
     for dtype in (torch.float32, torch.bfloat16):
+        for tf in range(3):
+            occ = iso_shade.occupancy(dtype, tf)
+            assert occ["threads_per_block"] == 128
+            assert occ["blocks_per_sm"] >= 1 and occ["registers"] > 0
+            assert occ["local_bytes"] == 0
         shapes = [march.occupancy(mode, dtype, 256) for mode in march.MODES]
         shapes.append(mcs_frame.occupancy(dtype, 256))
         for occ in shapes:

@@ -1,10 +1,13 @@
 """What the CPU can check of the frame kernels' launch paths (K6
-``kernels/march.py``, K8 ``kernels/mcs_frame.py``) and of what the kernels
-compute from the host's numbers.
+``kernels/march.py``, K7 ``kernels/iso_shade.py``, K8
+``kernels/mcs_frame.py``) and of what the kernels compute from the host's
+numbers.
 
 - A frame's scalars come from Python floats rounded to float32 one IEEE
   operation at a time (``_build.f32``), not from numpy: they must equal
-  ``march.frame_scalars``, which the plain frames take, bit for bit.
+  ``march.frame_scalars``, which the plain frames take, bit for bit; so
+  must K7's h and 2h the plain gradient's, and its light the plain
+  shade's.
 - MIP's kernel takes ``x − floor(x)`` for ``fmod(x, 1)`` of its schedule
   value ``x = offset + s·step``; that is exact on every slice the renderer
   can make.
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 from vpt_tpu_torch import transfer, volume
-from vpt_tpu_torch.kernels import _build, march, mcs_frame
+from vpt_tpu_torch.kernels import _build, iso_shade, march, mcs_frame
 from vpt_tpu_torch.renderers import depth, eam, iso, make_scene, mcs, mip
 
 F32 = np.float32
@@ -129,6 +132,104 @@ def test_launch_preparation_is_kept_per_mode_params_and_size(cpu_scene):
     assert cache.get(cpu_scene, ("depth", depth.Params(), 4, 7)) is not p
     q = mcs_frame._scene_cache.get(cpu_scene, (mcs.Params(), 5, 5))
     assert (q.args.width, q.args.use_skip, q.args.extinction) == (5, 0, 1.0)
+
+
+def test_iso_shade_preparation_is_kept_per_params_and_size(cpu_scene):
+    """K7's preparation is kept while the scene, Params and resolution
+    stay, and made anew when the light, the gradient step or the size
+    changes; it carries the scene's table, TF row and lookup mode."""
+    cache = iso_shade._scene_cache
+    p = cache.get(cpu_scene, (iso.Params(), 4, 6))
+    assert cache.get(cpu_scene, (iso.Params(), 4, 6)) is p
+    assert (p.args.table, p.args.tf_row, p.args.d, p.args.tw) == (
+        cpu_scene.volume_packed.data_ptr(),
+        cpu_scene.transfer_1d.data_ptr(), 8, 256)
+    assert (p.args.width, p.args.height, p.args.tf_mode, p.device) == (
+        6, 4, 0, -1)
+    assert tuple(p.shape) == (4, 6, 4) and p.launch is None
+    for key in ((iso.Params(light=(1.0, 2.0, 3.0)), 4, 6),
+                (iso.Params(gradient_step=0.01), 4, 6),
+                (iso.Params(), 4, 7), (iso.Params(), 5, 6)):
+        q = cache.get(cpu_scene, key)
+        assert q is not p and cache.get(cpu_scene, key) is q
+        p = cache.get(cpu_scene, (iso.Params(), 4, 6))
+    assert (q.args.width, q.args.height) == (6, 5)
+
+
+@pytest.mark.parametrize("field", ["volume_packed", "transfer_1d",
+                                   "model_view", "tf_mxu"])
+def test_iso_shade_preparation_follows_the_scene(field):
+    """A new table, TF row, camera or TF lookup mode makes a new
+    preparation, with the new pointer, mode or light."""
+    scene = make_scene(volume.sphere_volume(8, device="cpu"),
+                       transfer.gray_ramp(device="cpu"), device="cpu")
+    key = (iso.Params(), 3, 3)
+    p = iso_shade._scene_cache.get(scene, key)
+    if field == "tf_mxu":
+        scene.tf_mxu = torch.bfloat16
+    elif field == "model_view":
+        scene.model_view = scene.model_view @ torch.diag(
+            torch.tensor([1.0, -1.0, -1.0, 1.0]))
+    else:
+        setattr(scene, field, getattr(scene, field).clone())
+    light = (p.args.lx, p.args.ly, p.args.lz)
+    q = iso_shade._scene_cache.get(scene, key)
+    assert q is not p
+    assert (q.args.table, q.args.tf_row, q.args.tf_mode) == (
+        scene.volume_packed.data_ptr(), scene.transfer_1d.data_ptr(),
+        2 if field == "tf_mxu" else 0)
+    assert (q.args.lx, q.args.ly, q.args.lz) == tuple(
+        iso.light_direction(scene, iso.Params()).tolist())
+    assert ((q.args.lx, q.args.ly, q.args.lz) != light) \
+        == (field == "model_view")
+
+
+def test_iso_shade_prepared_steps_are_float32(cpu_scene):
+    """h and 2h as the plain gradient takes them: np.float32(h) and
+    np.float32(2·np.float32(h)), bit for bit, in the Structure the kernel
+    reads, for 300 steps across six decades and the edges of float32's
+    rounding."""
+    rs = np.random.default_rng(12)
+    steps = list(rs.random(294) * 10.0 ** rs.integers(-6, 0, 294)) + [
+        0.005, 1e-3, 0.1, 1.0 / 3.0, 1.0 + 2.0 ** -24, 3.0 * 2.0 ** -150]
+    for h in steps:
+        p = iso_shade._scene_cache.get(
+            cpu_scene, (iso.Params(gradient_step=h), 2, 2))
+        assert _bits(p.args.step) == _bits(F32(h)), h
+        assert _bits(p.args.two_step) == _bits(F32(2 * F32(h))), h
+
+
+@pytest.mark.parametrize("light", [(2.0, -3.0, -5.0), (0.0, 0.0, 1.0),
+                                   (-1.5, 4.0, 0.25)])
+def test_iso_shade_prepared_light_is_the_plain_one(cpu_scene, light):
+    """The prepared light is ``iso.light_direction`` on the scene's device,
+    carried unrounded by the Structure the kernel reads."""
+    params = iso.Params(light=light)
+    p = iso_shade._scene_cache.get(cpu_scene, (params, 2, 2))
+    want = iso.light_direction(cpu_scene, params)
+    assert torch.equal(torch.tensor([p.args.lx, p.args.ly, p.args.lz]),
+                       want)
+
+
+def test_iso_cpu_display_is_the_plain_shade(cpu_scene):
+    """A CPU state takes the plain shade and launches nothing; what the
+    kernel would not take raises before any launch."""
+    params = iso.Params()
+    state = iso.reset(params, 12, 10, cpu_scene)
+    iso.render_frame(state, cpu_scene, params, 0.3, 1)
+    assert bool((state[..., 3] > 0).any())
+    before = iso_shade.LAUNCHES
+    got = iso.display(state, cpu_scene, params)
+    assert torch.equal(got, iso_shade.iso_shade_plain(state, cpu_scene,
+                                                      params))
+    assert iso_shade.LAUNCHES == before
+    with pytest.raises(ValueError, match="32-bit"):
+        iso_shade._scene_cache.get(cpu_scene, (params, 2 ** 16, 2 ** 15))
+    unpacked = make_scene(volume.sphere_volume(8, device="cpu"),
+                          transfer.gray_ramp(device="cpu"), pack=False,
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="pack=True"):
+        iso_shade._scene_cache.get(unpacked, (params, 2, 2))
 
 
 def test_march_refuses_huge_tables():

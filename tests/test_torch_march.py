@@ -310,10 +310,15 @@ def test_display_shapes_and_alpha(sphere32):
         assert img.data_ptr() != r.state.data_ptr()
 
 
-def test_iso_display_matches_jax(scenes):
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_iso_display_matches_jax(scenes, kind):
     """ISO's display (the deferred shade) on the same hit buffer: the
-    port's plain shade against vpt_tpu's display."""
-    jscene, tscene = scenes["f32"]
+    port's plain shade against vpt_tpu's display, within 1e-5 and
+    :func:`assert_close`'s bounds.  Measured at 32²: float32 tables equal;
+    bf16 tables with ``tf_mxu`` and sRGB at most 3.0e-8 apart (99.93% of
+    the values equal): each tap's difference is divided by 2h = 0.01, but
+    no fetch differs by enough to leave the bounds."""
+    jscene, tscene = scenes[kind]
     jm = jrenderers.iso
     state = jm.render_frame(jm.reset(jm.Params(), 32, 32, jscene), jscene,
                             jm.Params(), jnp.float32(0.4), jnp.int32(1))
@@ -323,6 +328,7 @@ def test_iso_display_matches_jax(scenes):
         trenderers.iso.Params())
     assert (np.asarray(state)[..., 3] > 0).any()
     assert np.abs(got.numpy() - want).max() <= 1e-5
+    assert_close(got, want, kind)
 
 
 def test_light_direction_matches_jax(scenes):

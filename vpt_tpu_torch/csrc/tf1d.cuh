@@ -5,7 +5,8 @@
 // _lookup :28-44) and, in the tf_mxu modes, the one-hot matmul of
 // vpt_tpu/sampling.py:529-562 (sample_transfer_1d_mxu).  On the TPU the
 // table sat in 128-lane register banks and every tap was a lane shuffle per
-// bank.  Here the (TW, 4) row lives in shared memory (4 KiB at TW = 256) and
+// bank.  Here the (TW, 4) row lives in shared memory (4 KiB at TW = 256), or
+// in L1 behind the read-only cache (the ISO shade kernel, iso_shade.cu), and
 // a tap is one float4 load; the lookup is bound by the loads of its value
 // and its output, not by the table.
 //
@@ -34,7 +35,9 @@ __device__ __forceinline__ int vpt_index(float i0f) {
   return __float2int_rz(i0f);
 }
 
-// table: (width, 4) float32 rows in shared memory; mode as above.
+// table: (width, 4) float32 rows in shared memory, or with kGlobal in
+// global memory, read through the read-only cache; mode as above.
+template <bool kGlobal = false>
 __device__ __forceinline__ float4 vpt_tf1d_lookup(const float4* table,
                                                  int width, float v,
                                                  int mode) {
@@ -42,8 +45,14 @@ __device__ __forceinline__ float4 vpt_tf1d_lookup(const float4* table,
   float i0f = floorf(u);
   int i0 = vpt_index(i0f);
   int i1 = min(i0 + 1, width - 1);
-  float4 c0 = table[i0];
-  float4 c1 = table[i1];
+  float4 c0, c1;
+  if constexpr (kGlobal) {
+    c0 = __ldg(table + i0);
+    c1 = __ldg(table + i1);
+  } else {
+    c0 = table[i0];
+    c1 = table[i1];
+  }
   if (mode == 0) {
     float f = u - i0f;
     float g = 1.0f - f;

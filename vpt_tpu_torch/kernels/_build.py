@@ -64,8 +64,13 @@ SIGNATURES = {
     # slices; step, first, extinction, level, mix; stream
     "vpt_march_frame": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I,
                          _I, _I] + [_F] * 5 + [_P]),
-    # state, out; table, bf16, D, H, W, TF row, TW, TF mode; width,
-    # height; h, 2h, light xyz; stream
+    # prepared VptIsoShadeArgs, state, out; stream
+    "vpt_iso_shade_launch": [_P, _P, _P, _P],
+    # bf16, TF mode, device, out
+    "vpt_iso_shade_info": [_I, _I, _I, _P],
+    # the argument list every build since the port exports: state, out;
+    # table, bf16, D, H, W, TF row, TW, TF mode; width, height; h, 2h,
+    # light xyz; stream
     "vpt_iso_shade": ([_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I]
                       + [_F] * 5 + [_P]),
     # prepared VptMcsArgs, state; seed, direction xyz, n; counts; stream

@@ -7,22 +7,26 @@ texture-space light and the material color at the hit.  Here it is
 
 - :func:`iso_shade_plain`, ``renderers/iso.shade`` on the scene with
   ``kernels=False``, on any device;
-- the CUDA kernel ``csrc/iso_shade.cu``: one thread a pixel, the seven
-  fetches and TF lookups of ``csrc/ray.cuh`` and ``csrc/tf1d.cuh``, white
-  where nothing was hit.
+- the CUDA kernel ``csrc/iso_shade.cu``: one thread a pixel, in
+  row-major order, issues the seven corner-row reads of a hit before it
+  folds them (the fetch of ``csrc/ray.cuh``, the TF lookup of
+  ``csrc/tf1d.cuh`` through the read-only cache), and writes white where
+  nothing was hit.
 
 :func:`shade` takes the plain version for CPU state and launches the kernel
 for CUDA state; it raises on what the kernel does not take (unpacked
-scenes, images of 2^31 pixels or more).  The light direction is computed
-once per (scene, light) by the plain version's own function on the scene's
-device.
+scenes, images of 2^31 pixels or more) and never falls back.  What a
+display takes of the scene, the Params and the resolution it prepares once
+(``VptIsoShadeArgs``, passed as one pointer): the table, the TF row, h and
+the float32 2h from ``_build.f32`` arithmetic, and the light direction that
+the plain version's own function computes on the scene's device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
-import numpy as np
 import torch
 
 from . import _build
@@ -39,20 +43,50 @@ def iso_shade_plain(state, scene, params):
                      params)
 
 
+class _Args(ctypes.Structure):
+    """``VptIsoShadeArgs`` of ``csrc/iso_shade.cu``."""
+    _fields_ = [("table", ctypes.c_void_p), ("tf_row", ctypes.c_void_p),
+                ("table_bf16", ctypes.c_int), ("d", ctypes.c_int),
+                ("h", ctypes.c_int), ("w", ctypes.c_int),
+                ("tw", ctypes.c_int), ("tf_mode", ctypes.c_int),
+                ("width", ctypes.c_int), ("height", ctypes.c_int),
+                ("step", ctypes.c_float), ("two_step", ctypes.c_float),
+                ("lx", ctypes.c_float), ("ly", ctypes.c_float),
+                ("lz", ctypes.c_float), ("device", ctypes.c_int)]
+
+
 def _fields(scene):
-    return (scene.volume_packed, scene.transfer_1d, scene.mvp_inverse,
-            scene.tf_mxu, scene.model_view)
+    return (scene.volume_packed, scene.transfer_1d, scene.tf_mxu,
+            scene.model_view)
 
 
-def _prepare(scene, light):
+def _prepare(scene, key):
+    """What every display of ``key`` = (params, height, width) takes of the
+    scene: the checked tensors and the ``VptIsoShadeArgs`` with h, the
+    float32 2h (``central_value_gradient``'s) and the light direction."""
     from ..renderers import iso
 
-    tensors, args = _build.scene_args(scene, scene.volume_packed,
-                                      "ISO shade")
-    direction = iso.light_direction(scene, iso.Params(light=light))
-    return tensors, args[:-1], tuple(float(x) for x in direction.tolist())
+    params, height, width = key
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the ISO shade kernel indexes "
+                         "pixels with 32-bit integers")
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, _) = \
+        _build.scene_args(scene, scene.volume_packed, "ISO shade")
+    step = _build.f32(params.gradient_step)
+    two_step = _build.f32(2.0 * step)
+    light = tuple(iso.light_direction(scene, params).tolist())
+    device = scene.volume.get_device()
+    args = _Args(table, row, bf16, d, h, w, tw, tf_mode, width, height, step,
+                 two_step, *light, device)
+    return _build.Prepared(
+        tensors=tensors, args=args, address=ctypes.addressof(args),
+        device=device, shape=torch.Size((height, width, 4)),
+        launch=_build.library().vpt_iso_shade_launch if device >= 0
+        else None)
 
 
+#: the last (scene, params, resolution)'s preparation: a renderer displays
+#: one scene at one resolution again and again
 _scene_cache = _build.LastScene(_prepare, _fields)
 
 
@@ -62,19 +96,36 @@ def shade(state, scene, params):
     if not state.is_cuda:
         return iso_shade_plain(state, scene, params)
     global LAUNCHES
-    height, width = state.shape[:2]
-    _build.check_image(state, (height, width, 4), state.device,
-                       "the iso state")
-    _build.check_aligned(state, "the iso state")
-    if scene.device != state.device:
+    p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2]))
+    if state.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{state.device}")
-    _, args, light = _scene_cache.get(scene, tuple(params.light))
-    out = state.new_empty((height, width, 4))
-    step = np.float32(params.gradient_step)
-    with torch.cuda.device(state.device):
-        _build.check("vpt_iso_shade", _build.library().vpt_iso_shade(
-            state.data_ptr(), out.data_ptr(), *args, width, height,
-            float(step), float(2 * step), *light, _build.stream_ptr(state)))
+    if state.dtype is not torch.float32 or state.shape != p.shape \
+            or not state.is_contiguous() or state.data_ptr() % 16:
+        raise ValueError("the iso state must be a contiguous float32 "
+                         f"{tuple(p.shape)} tensor on a 16-byte boundary")
+    out = state.new_empty(p.shape)
+    err = p.launch(p.address, state.data_ptr(), out.data_ptr(),
+                   _build.current_stream(p.device))
+    if err:
+        _build.check("vpt_iso_shade_launch", err)
     LAUNCHES += 1
     return out
+
+
+#: the fields of :func:`occupancy`, in the order ``vpt_iso_shade_info``
+#: writes them
+OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
+                    "registers", "local_bytes", "static_smem_bytes")
+
+
+def occupancy(table_dtype, tf_mode: int = 0, device: int = 0) -> dict:
+    """The kernel's launch shape on CUDA ``device`` for a corner table of
+    ``table_dtype`` and the TF lookup mode ``tf_mode``
+    (``tf1d.mode_code``): threads a block, resident blocks an SM, SMs,
+    registers and local (spill) bytes a thread, static shared memory a
+    block.  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    _build.check("vpt_iso_shade_info", _build.library().vpt_iso_shade_info(
+        int(table_dtype == torch.bfloat16), tf_mode, device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
