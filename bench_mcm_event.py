@@ -1,8 +1,9 @@
 """Time a per-pixel kernel of the port against other builds of it, in turns,
 on the render headline, on one GPU: the MCM event kernel (K5), the march
-kernel (K6), the ISO shade kernel (K7) or the MCS kernel (K8).
+kernel (K6), the ISO shade kernel (K7), the MCS kernel (K8) or the LAO
+march kernel (K10).
 
-    python3 bench_mcm_event.py [--kernel mcm_event|march|iso_shade|mcs]
+    python3 bench_mcm_event.py [--kernel mcm_event|march|iso_shade|mcs|lao]
         [--variant NAME=PATH ...] [--frames 30]
         [--size 512]
 
@@ -11,7 +12,8 @@ stands.  Each ``--variant`` is another source of the same kernel that
 exports the same C interface (K5: ``vpt_mcm_event`` and
 ``vpt_mcm_event_info``; K6: ``vpt_march_frame``; K7: ``vpt_iso_shade``;
 K8: ``vpt_mcs_frame``, the argument lists of ``kernels/_build.SIGNATURES``
-that every build since the kernel's port exports): an edited copy under
+that every build since the kernel's port exports; K10: ``vpt_lao_launch``,
+which takes the tree's prepared ``VptLaoArgs``): an edited copy under
 ``build/`` with one design
 lever changed (such as ``kChunk`` of ``march.cu``, or the tile constants of
 a ``ray.cuh`` copied beside it), or an older design, such as an older
@@ -33,7 +35,10 @@ same scene at 512² (``--size``) with the renderers' default Params.  K7
 is driven through its argument list (:func:`iso_args`) on the display of
 one ISO frame's hits at 512², on three scenes (:data:`SHADE_SCENES`: the
 headline's, float32 rows, and a TF row of 3072 texels) and of a state that
-hits in every pixel, with L2 warm and flushed.
+hits in every pixel, with L2 warm and flushed.  K10 is driven through
+``vpt_lao_launch`` with the tree's prepared arguments
+(``kernels/lao_march``) on the headline's scene and a float32
+``blobs_volume(64)`` at 512², default Params.
 
 For each steps (K5), mode (K6, K8) or scene (K7) the builds run in a
 palindromic order (current, the variants, the variants reversed, current;
@@ -80,6 +85,8 @@ KERNELS = {
             "mcs_frame_kernel"),
     "iso_shade": ("iso_shade.cu", ("vpt_iso_shade",), "vpt_iso_shade_info",
                   "iso_shade_kernel"),
+    "lao": ("lao_march.cu", ("vpt_lao_launch",), "vpt_lao_info",
+            "lao_kernel"),
 }
 #: the H100's SMs and warp schedulers an SM (one warp-instruction a clock)
 SMS, SCHEDULERS = 132, 4
@@ -689,6 +696,66 @@ def bench_shade(libs, built, frames, rounds):
     return readings, shapes, failed
 
 
+def bench_lao(libs, built, frames, rounds):
+    """K10 of every build in turns (``rounds`` palindromes) on the
+    headline's scene and a float32 one, one frame a launch from the tree's
+    prepared arguments; returns the readings, the per-(scene, build)
+    shapes and the failed builds."""
+    import torch
+
+    import chip_smoke
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.kernels import _build, lao_march
+    from vpt_tpu_torch.renderers import lao, make_scene
+
+    _, _, _, match = KERNELS["lao"]
+    readings, shapes, failed = [], {}, set()
+    params = lao.Params()
+    scenes = {"headline": headline_scene(),
+              "blobs64 f32": make_scene(volume.blobs_volume(64),
+                                        transfer.gray_ramp(alpha_scale=0.8),
+                                        pack=True)}
+    for label, scene in scenes.items():
+        bf16 = scene.volume_packed.dtype == torch.bfloat16
+        p = lao_march._scene_cache.get(scene, (params, HEIGHT, WIDTH))
+        for name in libs:
+            shape = {"build": name, "mode": label}
+            shape.update(pick(ptxas_kernels(built[name][1], match),
+                              f"ILb{int(bf16)}ELb{int(bf16)}E") or {})
+            shapes[(label, name)] = shape
+            print(json.dumps(shape), flush=True)
+        order = [n for n in libs if n != "current"]
+        reference = None
+        for name in ["current", *order, *order[::-1], "current"] * rounds:
+            if name in failed:
+                continue
+            state = torch.empty((HEIGHT, WIDTH, 4), device="cuda")
+
+            def launch(lib=libs[name], state=state):
+                _build.check("vpt_lao_launch", lib.vpt_lao_launch(
+                    p.address, state.data_ptr(),
+                    _build.current_stream(p.device)))
+
+            try:
+                launch()
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                print(f"{name}: {exc}, left out", flush=True)
+                failed.add(name)
+                continue
+            if reference is None:
+                reference = state.clone()
+            r = {"variant": name, "mode": label, "frames": frames,
+                 "state_equal_to_current": torch.equal(state, reference),
+                 "device_ms": chip_smoke.profiler_device_ms(launch, match,
+                                                            frames),
+                 "ms": chip_smoke.cuda_ms(launch, frames),
+                 "sm_clock_mhz": sm_clock_mhz()[0]}
+            readings.append(r)
+            print(json.dumps(r), flush=True)
+    return readings, shapes, failed
+
+
 def row_pixels(width, height):
     """(x, y, inside) of a launch of 128-thread blocks over the pixels in
     row-major order (the frame kernels before their pixel tiles)."""
@@ -710,7 +777,7 @@ def main() -> int:
     ap.add_argument("--size", type=int, default=512,
                     help="K6/K8: the image's width and height")
     ap.add_argument("--rounds", type=int, default=1,
-                    help="K7: palindromic rounds of readings")
+                    help="K7, K10: palindromic rounds of readings")
     ap.add_argument("--baseline", default="current",
                     help="the build the summary divides by")
     ap.add_argument("--out", type=pathlib.Path)
@@ -770,6 +837,10 @@ def main() -> int:
                 libs, built, args.frames, args.rounds)
             keys = ("device_ms", "device_ms_cold", "ms", "copy_device_ms",
                     "copy_device_ms_cold", "sm_clock_mhz")
+        elif args.kernel == "lao":
+            readings, frame_shapes, failed = bench_lao(
+                libs, built, args.frames, args.rounds)
+            keys = ("device_ms", "ms", "sm_clock_mhz")
         else:
             readings, frame_shapes, failed = bench_frames(
                 args.kernel, libs, built, args.frames)

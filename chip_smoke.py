@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port's renderers (MCM, EAM, MIP, Depth, ISO,
-MCS) and its differentiable MCM fit once on one GPU.
+MCS, DOS, LAO) and its differentiable MCM fit once on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path [--part frames|fetch] TREE [TREE ...]
@@ -61,12 +61,18 @@ prints no result:
    their registers and blocks an SM; the printed lines add K6's row reads
    and share of the warps' lanes,
    modelled from the plain frame's samples, and K8's estimate;
-10. each renderer of that slice through the user's entry points at 512²
-   (``make_renderer``, 10 frames, ``display``, the ``reinhard`` tone
-   mapper) on the headline scene, EAM also on the 256³ sphere, each with
-   every launch counter at 0 just before it and read just after: one K6
-   or K8 launch a frame, one K2 a display, one K7 an ISO display, no K1,
-   K3, K4 or K5 launch;
+   then the DOS slice kernel (K9) and the LAO march kernel (K10) against
+   their plain versions on the same two scenes at 512², default Params
+   (DOS over its whole sweep, LAO one frame), timed at the headline (K9
+   over a sweep: ``dos.reset`` and the frames until the depth passes the
+   far depth), their bounds from this run's written pixels, active
+   pixel-slices and distinct corner rows, registers and residency;
+10. each renderer through the user's entry points at 512²
+   (``make_renderer``, 10 frames, a DOS sweep, ``display``, the
+   ``reinhard`` tone mapper) on the headline scene, EAM also on the 256³
+   sphere, each with every launch counter at 0 just before it and read
+   just after: one K6, K8 or K10 launch a frame, ``steps`` K9 launches a
+   DOS frame, one K2 a display, one K7 an ISO display, no other launch;
 11. the fit path with every launch counter at 0 again: BASELINE config 3's
    256³ volume (``blobs_volume(256)`` as truth, a constant 0.2 volume as
    init, ``gray_ramp(alpha_scale=0.8)``), a 256² target rendered by the
@@ -377,12 +383,14 @@ def phase_mcm_event(dev):
 def launch_counts():
     """Every kernel module's launch count, in one tuple."""
     from vpt_tpu_torch.kernels import corner_gather, corner_scatter
-    from vpt_tpu_torch.kernels import iso_shade, march, mcm_event, mcs_frame
-    from vpt_tpu_torch.kernels import tf1d, tonemap_kernel
+    from vpt_tpu_torch.kernels import dos_sweep, iso_shade, lao_march, march
+    from vpt_tpu_torch.kernels import mcm_event, mcs_frame, tf1d
+    from vpt_tpu_torch.kernels import tonemap_kernel
 
     return tuple(m.LAUNCHES for m in (corner_gather, corner_scatter,
                                       mcm_event, tf1d, tonemap_kernel, march,
-                                      iso_shade, mcs_frame))
+                                      iso_shade, mcs_frame, dos_sweep,
+                                      lao_march))
 
 
 def order_bound(counts, abs_sums):
@@ -920,6 +928,12 @@ REDESIGN = {
     "mcs_frame": "8x4 warp tiles, the state read first, its own step "
                  "count, one prepared pointer a launch"}
 SHADE_OPS_TAP, SHADE_OPS_PIXEL = 35, 40
+#: the kernel each renderer's path launches, and each kernel's symbol in
+#: the profiler's names
+PATH_KERNEL = {**FRAME_KERNEL, "dos": "dos_sweep", "lao": "lao_march"}
+KERNEL_SYMBOL = {"march_frame": "march_kernel",
+                 "mcs_frame": "mcs_frame_kernel",
+                 "dos_sweep": "dos_slice_kernel", "lao_march": "lao_kernel"}
 MCS_OPS_STEP, MCS_OPS_PIXEL = 70, 120
 
 
@@ -1347,6 +1361,270 @@ def time_frame_kernels(scene):
     return row6, row7, row8
 
 
+# -- DOS and LAO (K9, K10) -------------------------------------------------
+
+#: float32 operations of K9 (csrc/dos_sweep.cu): a pixel of an active slice
+#: (the unproject's 28 with 3 divisions, the cube test's 6), a written
+#: pixel (the fetch's ~21, the TF lookup's ~14, exp and the composite's ~15)
+#: and each of its disk taps (~14)
+DOS_OPS_ACTIVE, DOS_OPS_WRITTEN, DOS_OPS_TAP = 34, 50, 14
+#: float32 operations of K10 (csrc/lao_march.cu): a corner-row fetch (the
+#: cell's ~9, the lerp's ~21), an AO tap's half-vector (~20), an active
+#: pixel-slice's rest (the position, gradient norm, AO and shadow terms,
+#: the 2D TF lookup's ~40, the tints and the composite: ~80) and a pixel's
+#: ray and random-value setup (~90)
+LAO_OPS_FETCH, LAO_OPS_TAP, LAO_OPS_SLICE, LAO_OPS_PIXEL = 30, 20, 80, 90
+
+
+def dos_sweep_frames(scene, params, height, width):
+    """The frames of one DOS sweep: until the carried depth passes the far
+    depth (``slices / steps`` frames, one more when the last slice's float32
+    depth still lies at the far depth)."""
+    from vpt_tpu_torch.renderers import dos
+
+    state = dos.reset(params, height, width, scene)
+    frames = 0
+    while float(state["depth"]) <= float(state["max_depth"]):
+        dos.advance_depth(state, dos.slice_table(state, scene, params))
+        frames += 1
+        check(frames <= params.slices, "the DOS sweep does not advance")
+    return frames
+
+
+def dos_sweep_run(scene, params, height, width, frames, plain=False):
+    """One sweep from ``dos.reset``: ``frames`` frames of K9 (or of the
+    plain sweep); returns the state."""
+    from vpt_tpu_torch.kernels import dos_sweep
+    from vpt_tpu_torch.renderers import dos
+
+    state = dos.reset(params, height, width, scene)
+    for n in range(1, frames + 1):
+        if plain:
+            dos_sweep.sweep_frame_plain(state, scene, params)
+        else:
+            dos.render_frame(state, scene, params, 0.1, n)
+    return state
+
+
+def dos_work(scene, params, height, width, frames):
+    """(bytes, operations, written pixels, active slices, launches) of one
+    DOS sweep on K9, from the sweep's own slice tables: an active slice
+    reads and writes the colour of the pixels it writes (those inside the
+    cube), reads the previous occlusion and writes the new (every pixel),
+    reads the distinct corner rows of its written pixels once and the TF
+    row; an inactive slice copies the occlusion."""
+    import torch
+
+    from vpt_tpu_torch import math3d, sampling
+    from vpt_tpu_torch.renderers import dos
+
+    n = height * width
+    state = dos.reset(params, height, width, scene)
+    ndc = sampling.pixel_ndc(height, width, device=scene.device)
+    ones = torch.ones((height, width, 1), device=scene.device)
+    row_bytes = scene.volume_packed.shape[1] \
+        * scene.volume_packed.element_size()
+    tf_bytes = scene.transfer_1d.numel() * 4
+    nbytes = ops = written = active = launches = 0
+    for _ in range(frames):
+        table = dos.slice_table(state, scene, params)
+        for row in table:
+            launches += 1
+            if float(row[1]) <= 0.0:
+                nbytes += 8 * n
+                continue
+            active += 1
+            pos = math3d.apply_mat4(scene.mvp_inverse, torch.cat(
+                [ndc, row[0].expand(height, width, 1), ones], dim=-1))
+            pos = pos[..., :3] / pos[..., 3:4]
+            inside = ~((pos > 1.0) | (pos < 0.0)).any(dim=-1)
+            w = int(inside.sum())
+            rows = int(sampling.corner_cells(
+                pos[inside], scene.volume.shape)[0].unique().numel())
+            written += w
+            nbytes += 32 * w + 8 * n + rows * row_bytes + tf_bytes
+            ops += DOS_OPS_ACTIVE * n \
+                + (DOS_OPS_WRITTEN + DOS_OPS_TAP * params.samples) * w
+        dos.advance_depth(state, table)
+    return nbytes, ops, written, active, launches
+
+
+def lao_work(scene, params, height, width):
+    """(samples, fetches, distinct corner rows, hit pixels) of one K10
+    frame: the plain frame replayed slice by slice, counting the active
+    pixel-slices (the kernel leaves its loop at the first inactive one) and
+    the corner rows their fetches read (a bitmap over the table's rows)."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import sampling
+    from vpt_tpu_torch.renderers import lao
+
+    ref = dataclasses.replace(scene, kernels=False)
+    ctx = lao.setup(ref, params, height, width)
+    seen = torch.zeros(scene.volume_packed.shape[0], dtype=torch.bool,
+                       device=scene.device)
+    taps = []
+    original = ref.sample_value
+
+    def recording(pos):
+        taps.append(pos)
+        return original(pos)
+
+    ref.sample_value = recording
+    acc = torch.zeros((height, width, 4), device=scene.device)
+    samples = fetches = 0
+    for i in range(params.slices):
+        _, active = lao.slice_active(ctx, acc, i)
+        active = active & ~ctx.miss
+        taps.clear()
+        acc = lao.march_slice(ref, params, ctx, acc, i)
+        k = int(active.sum())
+        if k == 0:
+            break
+        samples += k
+        fetches += k * len(taps)
+        for pos in taps:
+            seen[sampling.corner_cells(pos[active],
+                                       scene.volume.shape)[0]] = True
+    return samples, fetches, int(seen.sum()), int((~ctx.miss).sum())
+
+
+def phase_dos_lao(headline):
+    """K9 and K10 against their plain versions on the card at 512², default
+    Params (DOS over its whole sweep, LAO one frame): the headline scene and
+    a float32 one; then timed at the headline, each bound from this run's
+    work.  Returns the two rows' fields."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.kernels import dos_sweep, lao_march, tf1d
+    from vpt_tpu_torch.renderers import dos, lao, make_scene
+
+    blobs = make_scene(volume.blobs_volume(64), transfer.gray_ramp(
+        alpha_scale=0.8), pack=True)
+    dparams, lparams = dos.Params(), lao.Params()
+    n = 512 * 512
+    worst = {"dos_sweep": 0.0, "lao_march": 0.0}
+    for label, scene in (("headline 512^2", headline),
+                         ("f32 blobs64 512^2", blobs)):
+        ref = dataclasses.replace(scene, kernels=False)
+        frames = dos_sweep_frames(scene, dparams, 512, 512)
+        state = dos_sweep_run(scene, dparams, 512, 512, frames)
+        before = launch_counts()
+        plain = dos_sweep_run(ref, dparams, 512, 512, frames, plain=True)
+        check(launch_counts() == before, "dos: the plain sweep launched")
+        torch.cuda.synchronize()
+        check(torch.equal(state["depth"], plain["depth"]),
+              f"{label} dos: the sweeps' depths differ")
+        check(float(state["depth"]) > float(state["max_depth"]),
+              f"{label} dos: the sweep did not end in {frames} frames")
+        for key in ("color", "occlusion"):
+            worst["dos_sweep"] = max(worst["dos_sweep"], compare_states(
+                f"{label} sweep of {frames} frames", f"dos_sweep {key}",
+                state[key], plain[key], False))
+        check(float(state["color"][..., 3].max()) > 0.0,
+              f"{label} dos: nothing composited")
+        state = lao.reset(lparams, 512, 512, scene)
+        lao.render_frame(state, scene, lparams, 0.4, 1)
+        plain = state.clone()
+        before = launch_counts()
+        lao_march.lao_frame_plain(plain, ref, lparams)
+        check(launch_counts() == before, "lao: the plain frame launched")
+        torch.cuda.synchronize()
+        worst["lao_march"] = max(worst["lao_march"], compare_states(
+            label, "lao_march", state, plain, False))
+
+    # K9 over the headline's sweep
+    scene, ref = headline, dataclasses.replace(headline, kernels=False)
+    frames = dos_sweep_frames(scene, dparams, 512, 512)
+
+    def sweep():
+        dos_sweep_run(scene, dparams, 512, 512, frames)
+
+    ms = cuda_ms(sweep, 10)
+    slice_ms = profiler_device_ms(sweep, "dos_slice_kernel", 5)
+    launches = frames * dparams.steps
+    device_ms = None if slice_ms is None else slice_ms * launches
+    state = dos.reset(dparams, 512, 512, scene)
+    host_us = _host_call_us(lambda: dos.render_frame(state, scene, dparams,
+                                                     0.1, 1), 100)
+    # the frame call's share that builds the slice table
+    table_us = _host_call_us(lambda: dos.slice_table(state, scene, dparams),
+                             100)
+    plain_ms = cuda_ms(lambda: dos_sweep_run(ref, dparams, 512, 512, frames,
+                                             plain=True), 1)
+    tf_mode = tf1d.mode_code(scene.tf_mxu)
+    occ = dos_sweep.occupancy(scene.volume_packed.dtype, tf_mode)
+    nbytes, ops, written, active, counted = dos_work(scene, dparams, 512,
+                                                     512, frames)
+    check(counted == launches, f"dos_work counted {counted} launches")
+    bound_ms, bound_by = roofline(nbytes, ops)
+    print(f"dos_sweep 512^2 headline: {ms:.4f} ms a sweep (reset and "
+          f"{frames} frames, {launches} slice launches), device "
+          f"{fmt_ms(device_ms)} a sweep ({fmt_ms(slice_ms)} a slice), host "
+          f"{host_us:.2f} us a frame call ({table_us:.2f} of them the slice "
+          f"table), plain {plain_ms:.4f} ms; "
+          f"{active} active slices, {written} written pixels; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes, {ops} operations)"
+          f"; {occ['registers']} registers, {occ['local_bytes']} spill "
+          f"bytes, {occ['blocks_per_sm']} blocks of 128 an SM", flush=True)
+    row9 = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "unit": "one sweep: dos.reset and the frames until the depth "
+                    "passes the far depth",
+            "sweep_frames": frames, "slice_launches": launches,
+            "device_ms_slice": slice_ms, "host_us_frame": host_us,
+            "host_us_slice_table": table_us,
+            "active_slices": active, "written_pixels": written,
+            "registers": occ["registers"],
+            "blocks_per_sm": occ["blocks_per_sm"]}
+
+    # K10, one frame at the headline
+    state = lao.reset(lparams, 512, 512, scene)
+
+    def frame():
+        lao.render_frame(state, scene, lparams, 0.5, 1)
+
+    ms = cuda_ms(frame, 20)
+    device_ms = profiler_device_ms(frame, "lao_kernel", 20)
+    host_us = _host_call_us(frame, 100)
+    plain_ms = cuda_ms(lambda: lao_march.lao_frame_plain(
+        state.clone(), ref, lparams), 1)
+    occ = lao_march.occupancy(scene.volume_packed.dtype,
+                              scene.transfer_packed.dtype)
+    samples, fetches, rows, hits = lao_work(scene, lparams, 512, 512)
+    taps = len(lao.lao_taps(lparams))
+    nbytes = rows * scene.volume_packed.shape[1] \
+        * scene.volume_packed.element_size() + 20 * n \
+        + scene.transfer_packed.numel() * scene.transfer_packed.element_size()
+    ops = fetches * LAO_OPS_FETCH + samples * (taps * LAO_OPS_TAP
+                                               + LAO_OPS_SLICE) \
+        + hits * LAO_OPS_PIXEL
+    bound_ms, bound_by = roofline(nbytes, ops)
+    print(f"lao_march 512^2 headline: {ms:.4f} ms a frame, device "
+          f"{fmt_ms(device_ms)}, host {host_us:.2f} us a frame, plain "
+          f"{plain_ms:.4f} ms; {hits} hit pixels, {samples} active "
+          f"pixel-slices ({samples / max(hits, 1):.4g} a hit pixel), "
+          f"{fetches} corner-row fetches of {rows} distinct rows; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes, {ops} "
+          f"operations); {occ['registers']} registers, {occ['local_bytes']} "
+          f"spill bytes, {occ['blocks_per_sm']} blocks of 128 an SM, "
+          f"{occ['group']} AO taps read ahead", flush=True)
+    row10 = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "host_us": host_us, "samples": samples, "fetches": fetches,
+             "corner_rows": rows, "registers": occ["registers"],
+             "blocks_per_sm": occ["blocks_per_sm"]}
+    row9["max_abs_err"] = worst["dos_sweep"]
+    row10["max_abs_err"] = worst["lao_march"]
+    del blobs
+    return row9, row10
+
+
 def phase_renderer_paths(dev, counters, headline):
     """Each renderer of the slice through the user's entry points at 512²
     (make_renderer, render, display, the reinhard tone mapper), EAM also on
@@ -1373,34 +1651,42 @@ def phase_renderer_paths(dev, counters, headline):
                               ("depth", headline, "128^3"),
                               ("iso", headline, "128^3"),
                               ("mcs", headline, "128^3"),
+                              ("dos", headline, "128^3"),
+                              ("lao", headline, "128^3"),
                               ("eam", sphere256, "256^3")):
+        renderer = make_renderer(key, height=512, width=512)
+        kernel = PATH_KERNEL[key]
+        # DOS runs sweeps: reset and the frames until the depth passes the
+        # far depth, each frame `steps` launches of K9
+        sweep = dos_sweep_frames(scene, renderer.params, 512, 512) \
+            if key == "dos" else None
         for module in counters.values():
             module.LAUNCHES = 0
-        renderer = make_renderer(key, height=512, width=512)
         renderer.reset(scene)
-        renderer.render(scene, 0.123)                       # warm-up frame
+        for i in range(sweep or 1):                    # warm-up frame/sweep
+            renderer.render(scene, 0.123)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(frames):
+        if sweep:
+            renderer.reset(scene)
+        for i in range(sweep or frames):
             renderer.render(scene, 0.2 + 0.001 * i)
         torch.cuda.synchronize()
-        frame_s = (time.perf_counter() - t0) / frames
+        run_s = time.perf_counter() - t0
+        frame_s = run_s / (sweep or frames)
         hdr = renderer.display(scene)
         image = tonemap.ToneMapper("reinhard")(hdr)
         torch.cuda.synchronize()
         launches = {name: m.LAUNCHES for name, m in counters.items()}
         name = f"{key} {label}"
-        kernel = FRAME_KERNEL[key]
-        check(launches[kernel] == frames + 1,
-              f"{name}: {launches[kernel]} {kernel} launches for "
-              f"{frames + 1} frames")
-        check(launches["tonemap"] == 1, f"{name}: tonemap not launched once")
-        check(launches["iso_shade"] == (1 if key == "iso" else 0),
-              f"{name}: iso_shade launches {launches['iso_shade']}")
-        for other in ("tf1d_lookup", "corner_gather", "corner_scatter",
-                      "mcm_event"):
-            check(launches[other] == 0, f"{name}: {other} launched "
-                  f"{launches[other]} times on the path")
+        expected = {kernel: 2 * sweep * renderer.params.steps if sweep
+                    else frames + 1, "tonemap": 1}
+        if key == "iso":
+            expected["iso_shade"] = 1
+        for other, count in launches.items():
+            check(count == expected.get(other, 0), f"{name}: {other} "
+                  f"launched {count} times on the path, not "
+                  f"{expected.get(other, 0)}")
         check(tuple(image.shape) == (512, 512, 4)
               and bool(torch.isfinite(image).all())
               and bool((image[..., 3] == 1.0).all()),
@@ -1410,23 +1696,40 @@ def phase_renderer_paths(dev, counters, headline):
               f"{name}: display out of [0, 1]")
         mean = float(hdr[..., :3].mean())
         check(float(hdr[..., :3].abs().max()) > 0.0, f"{name}: black image")
+        if key == "dos":
+            check(0.0 < mean < 1.0, f"{name}: nothing occludes the white")
         seeds = itertools.count()
-        device_ms = profiler_device_ms(
-            lambda: renderer.render(scene, 0.3 + 0.001 * next(seeds)),
-            "mcs_frame_kernel" if key == "mcs" else "march_kernel", 20)
+
+        def one():
+            if sweep:
+                renderer.reset(scene)
+            for _ in range(sweep or 1):
+                renderer.render(scene, 0.3 + 0.001 * next(seeds))
+
+        device_ms = profiler_device_ms(one, KERNEL_SYMBOL[kernel],
+                                       5 if sweep else 20)
+        if sweep and device_ms is not None:
+            device_ms *= renderer.params.steps * sweep   # a sweep's slices
         if key == "mcs":
             rate = f"{512 * 512 / frame_s:.6g} paths/s"
         else:
             slices = getattr(renderer.params, "slices", None) \
                 or renderer.params.steps
-            rate = f"{512 * 512 * slices / frame_s:.6g} samples/s"
+            rate = f"{512 * 512 * slices / (run_s if sweep else frame_s):.6g}"\
+                " samples/s"
+        unit = f"a sweep ({sweep} frames and the reset)" if sweep \
+            else "a frame"
         print(f"path {name} 512^2: {frame_s * 1e3:.4f} ms a frame (host "
-              f"clock, {frames} frames), device {fmt_ms(device_ms)} a "
-              f"frame; {rate}; HDR mean {mean:.6f}; launches: "
+              f"clock, {sweep or frames} frames"
+              + (f"; {run_s * 1e3:.4f} ms {unit}" if sweep else "")
+              + f"), device {fmt_ms(device_ms)} {unit}; {rate}; HDR mean "
+              f"{mean:.6f}; launches: "
               + ", ".join(f"{k} {v}" for k, v in launches.items()),
               flush=True)
         paths[name] = {"frame_ms": frame_s * 1e3, "device_ms": device_ms,
                        "launches": launches}
+        if sweep:
+            paths[name]["sweep_ms"] = run_s * 1e3
     del sphere256
     return paths
 
@@ -1439,7 +1742,8 @@ def run():
     sys.path.insert(0, root)
     try:
         from vpt_tpu_torch.kernels import _build, corner_gather
-        from vpt_tpu_torch.kernels import corner_scatter, iso_shade, march
+        from vpt_tpu_torch.kernels import corner_scatter, dos_sweep
+        from vpt_tpu_torch.kernels import iso_shade, lao_march, march
         from vpt_tpu_torch.kernels import mcm_event, mcs_frame, tf1d
         from vpt_tpu_torch.kernels import tonemap_kernel
     except ImportError as exc:
@@ -1494,11 +1798,13 @@ def run():
     for row, name in ((k6, "march_frame"), (k7, "iso_shade"),
                       (k8, "mcs_frame")):
         row["max_abs_err"] = errors[name]
+    k9, k10 = phase_dos_lao(headline)
 
     counters = {"mcm_event": mcm_event, "tf1d_lookup": tf1d,
                 "tonemap": tonemap_kernel, "corner_gather": corner_gather,
                 "corner_scatter": corner_scatter, "march_frame": march,
-                "iso_shade": iso_shade, "mcs_frame": mcs_frame}
+                "iso_shade": iso_shade, "mcs_frame": mcs_frame,
+                "dos_sweep": dos_sweep, "lao_march": lao_march}
     rates, render_launches = phase_main_path(dev, counters)
     paths = phase_renderer_paths(dev, counters, headline)
     del headline
@@ -1560,11 +1866,23 @@ def run():
          "replaces": "vpt_tpu/renderers/mcs.py:47",
          "launched_by": "Renderer.render of mcs (every frame; the MCS "
                         "path)", **k8},
+        {"name": "dos_sweep", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/dos_sweep.cu",
+         "replaces": "vpt_tpu/renderers/dos.py:126",
+         "launched_by": "Renderer.render of dos (steps launches a frame, "
+                        "one a slice; the DOS path); runs the ray.cuh "
+                        "corner fetch and the tf1d.cuh lookup", **k9},
+        {"name": "lao_march", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/lao_march.cu",
+         "replaces": "vpt_tpu/renderers/lao.py:63",
+         "launched_by": "Renderer.render of lao (every frame; the LAO "
+                        "path); runs the ray.cuh corner fetch", **k10},
     ]
     for row in rows:
         if row["name"].startswith("corner"):
             row["launches"] = fit_launches[row["name"]]
-        elif row["name"] in ("march_frame", "iso_shade", "mcs_frame"):
+        elif row["name"] in ("march_frame", "iso_shade", "mcs_frame",
+                             "dos_sweep", "lao_march"):
             row["launches"] = sum(p["launches"][row["name"]]
                                   for p in paths.values())
         else:

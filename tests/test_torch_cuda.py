@@ -16,10 +16,10 @@ from vpt_tpu_torch import rng, sampling, train
 from vpt_tpu_torch import tonemap as tm
 from vpt_tpu_torch import transfer, volume
 from vpt_tpu_torch.kernels import _build, corner_gather, corner_scatter
-from vpt_tpu_torch.kernels import iso_shade, march, mcm_event, mcs_frame
-from vpt_tpu_torch.kernels import tf1d, tonemap_kernel
+from vpt_tpu_torch.kernels import dos_sweep, iso_shade, lao_march, march
+from vpt_tpu_torch.kernels import mcm_event, mcs_frame, tf1d, tonemap_kernel
 from vpt_tpu_torch.renderers import make_scene
-from vpt_tpu_torch.renderers import depth, eam, iso, mcm, mcs, mip
+from vpt_tpu_torch.renderers import depth, dos, eam, iso, lao, mcm, mcs, mip
 
 pytestmark = pytest.mark.cuda
 
@@ -182,7 +182,8 @@ def _headline_scene(n, cuda):
 def _launches():
     return (corner_gather.LAUNCHES, corner_scatter.LAUNCHES,
             mcm_event.LAUNCHES, tf1d.LAUNCHES, tonemap_kernel.LAUNCHES,
-            march.LAUNCHES, iso_shade.LAUNCHES, mcs_frame.LAUNCHES)
+            march.LAUNCHES, iso_shade.LAUNCHES, mcs_frame.LAUNCHES,
+            dos_sweep.LAUNCHES, lao_march.LAUNCHES)
 
 
 def _plain_frame(plain, scene, params, seed):
@@ -936,3 +937,241 @@ def test_frame_kernels_launch_shapes(cuda):
     x, y, inside = _build.tile_pixels(33, 47, *tiles.pop())
     assert torch.equal(torch.from_numpy(y[inside] * 33 + x[inside]).sort()[0],
                        torch.arange(33 * 47))
+
+
+# -- the DOS slice kernel (K9) and the LAO march kernel (K10) --------------
+
+MXU = [None, torch.float32, torch.bfloat16]
+MXU_IDS = ["bilinear", "mxu-f32", "mxu-bf16"]
+
+
+def _dos_frames(scene, params, height, width, frames):
+    """``frames`` DOS frames through K9 and through the plain sweep on the
+    scene with ``kernels=False`` (which launches nothing), from one reset
+    state; ``steps`` launches a frame."""
+    state = dos.reset(params, height, width, scene)
+    plain = {k: v.clone() for k, v in state.items()}
+    reference = dataclasses.replace(scene, kernels=False)
+    before = dos_sweep.LAUNCHES
+    for n in range(1, frames + 1):
+        dos.render_frame(state, scene, params, 0.1 * n, n)
+        launched = _launches()
+        dos_sweep.sweep_frame_plain(plain, reference, params)
+        assert _launches() == launched
+    torch.cuda.synchronize()
+    assert dos_sweep.LAUNCHES == before + frames * params.steps
+    return state, plain
+
+
+def assert_dos_agrees(state, plain):
+    """K9 runs the plain slices' float32 operations without contraction:
+    at least 99.99% of the colour and occlusion values within 1e-6; the
+    depth equal."""
+    for key in ("color", "occlusion"):
+        assert bool(torch.isfinite(state[key]).all()), key
+        close = ((state[key] - plain[key]).abs() <= 1e-6).float().mean()
+        assert float(close) >= 0.9999, (key, float(close))
+    assert torch.equal(state["depth"], plain["depth"])
+
+
+@pytest.mark.parametrize("mxu", MXU, ids=MXU_IDS)
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_dos_kernel_matches_plain(cuda, kind, mxu):
+    """Each table type in each TF lookup mode, 48×80 (the width clamp of
+    the y shift), 2 frames of 50 slices."""
+    scene = dataclasses.replace(_scene(kind, cuda), tf_mxu=mxu)
+    state, plain = _dos_frames(scene, dos.Params(), 48, 80, 2)
+    assert_dos_agrees(state, plain)
+    assert float(state["color"][..., 3].max()) > 0.0
+    assert float(state["occlusion"].min()) < 1.0
+
+
+@pytest.mark.parametrize("height,width", [(1, 1), (37, 53), (512, 1),
+                                          (1, 512), (80, 48)],
+                         ids=["1x1", "37x53", "512x1", "1x512", "80x48"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_dos_kernel_off_the_blocks(cuda, kind, height, width):
+    """Images that are no whole number of 128-pixel blocks, and tall
+    ones: every pixel is the plain sweep's."""
+    state, plain = _dos_frames(_scene(kind, cuda), dos.Params(), height,
+                               width, 2)
+    assert_dos_agrees(state, plain)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_dos_kernel_odd_steps_over_the_whole_sweep(cuda, kind):
+    """An odd ``steps`` (7 of 30 slices, 3 taps, a wide aperture): the
+    state ends on the scratch buffer every frame, the sweep ends within
+    the 6 frames, and the frames after it change nothing."""
+    params = dos.Params(steps=7, slices=30, samples=3, aperture=50.0)
+    state, plain = _dos_frames(_scene(kind, cuda), params, 40, 56, 6)
+    assert_dos_agrees(state, plain)
+    assert float(state["depth"]) > float(state["max_depth"])
+    done = {k: v.clone() for k, v in state.items()}
+    dos.render_frame(state, _scene(kind, cuda), params, 0.9, 7)
+    torch.cuda.synchronize()
+    assert all(torch.equal(done[k], state[k]) for k in state)
+
+
+def test_dos_kernel_follows_the_current_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` the frame's launches go to ``s``,
+    behind a ~10 ms sleep that precedes the state's last write."""
+    scene = _scene("f32", cuda)
+    params = dos.Params()
+    reset = dos.reset(params, 64, 64, scene)
+    plain = {k: v.clone() for k, v in reset.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        state = {k: v * 1.0 for k, v in reset.items()}
+        dos.render_frame(state, scene, params, 0.4, 1)
+    side.synchronize()
+    dos_sweep.sweep_frame_plain(plain, scene, params)
+    torch.cuda.synchronize()
+    assert_dos_agrees(state, plain)
+
+
+def test_dos_kernel_refuses_what_it_does_not_take(cuda):
+    """Unpacked scenes, states of another shape, type or device and
+    offsets of another count raise before any launch."""
+    unpacked = make_scene(volume.sphere_volume(8, device=cuda),
+                          transfer.gray_ramp(device=cuda), pack=False,
+                          device=cuda)
+    params = dos.Params()
+    before = _launches()
+    with pytest.raises(NotImplementedError):
+        dos.render_frame(dos.reset(params, 8, 8, unpacked), unpacked,
+                         params, 0.1, 1)
+    scene = _scene("f32", cuda)
+    for key, bad in (("color", torch.zeros(8, 8, 3, device=cuda)),
+                     ("occlusion", torch.ones(8, 8, dtype=torch.float64,
+                                              device=cuda)),
+                     ("offsets", torch.zeros(3, 2, device=cuda))):
+        state = dos.reset(params, 8, 8, scene)
+        state[key] = bad
+        with pytest.raises(ValueError):
+            dos.render_frame(state, scene, params, 0.1, 1)
+    cpu_scene = make_scene(volume.sphere_volume(8, device="cpu"),
+                           transfer.gray_ramp(device="cpu"), device="cpu")
+    with pytest.raises(ValueError):
+        dos.render_frame(dos.reset(params, 8, 8, scene), cpu_scene, params,
+                         0.1, 1)
+    assert _launches() == before
+
+
+def _lao_frame(scene, params, height, width):
+    """One LAO frame through K10 and through the plain frame on the scene
+    with ``kernels=False`` (which launches nothing)."""
+    state = lao.reset(params, height, width, scene)
+    plain = state.clone()
+    before = lao_march.LAUNCHES
+    lao.render_frame(state, scene, params, 0.1, 1)
+    launched = _launches()
+    lao_march.lao_frame_plain(plain, scene, params)
+    assert _launches() == launched
+    torch.cuda.synchronize()
+    assert lao_march.LAUNCHES == before + 1
+    return state, plain
+
+
+def assert_lao_agrees(state, plain):
+    """K10 runs the plain frame's float32 operations without contraction:
+    at least 99.99% of the values within 1e-6."""
+    assert bool(torch.isfinite(state).all())
+    close = ((state - plain).abs() <= 1e-6).float().mean()
+    assert float(close) >= 0.9999, float(close)
+
+
+LAO_PARAMS = [lao.Params(), lao.Params(num_lao_samples=3,
+                                       light_coefficient=0.7),
+              lao.Params(local_ambient_occlusion=False),
+              lao.Params(soft_shadows=False, lao_step_size=0.13),
+              lao.Params(slices=17, extinction=40.0,
+                         light_position=(-1.0, 3.0, 0.5))]
+
+
+@pytest.mark.parametrize("params", LAO_PARAMS,
+                         ids=["default", "samples3", "no-ao", "no-shadow",
+                              "slices17"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_lao_kernel_matches_plain(cuda, kind, params):
+    """Each table type, the Params that change the kernel's path, 64×64."""
+    state, plain = _lao_frame(_scene(kind, cuda), params, 64, 64)
+    assert_lao_agrees(state, plain)
+    assert float(state[..., :3].max()) > 0.0
+
+
+@pytest.mark.parametrize("mxu", MXU, ids=MXU_IDS)
+def test_lao_kernel_ignores_the_tf_lookup_mode(cuda, mxu):
+    """LAO's 2D TF lookup never rounds its weights: every mode gives the
+    same frame, and a float32 TF table beside bf16 corner rows takes the
+    mixed instantiation."""
+    scene = dataclasses.replace(_scene("bf16", cuda), tf_mxu=mxu)
+    state, plain = _lao_frame(scene, lao.Params(), 40, 56)
+    assert_lao_agrees(state, plain)
+    mixed = dataclasses.replace(
+        scene, transfer_packed=scene.transfer_packed.to(torch.float32))
+    state, plain = _lao_frame(mixed, lao.Params(), 40, 56)
+    assert_lao_agrees(state, plain)
+
+
+@pytest.mark.parametrize("height,width", [(1, 1), (37, 53), (512, 1)],
+                         ids=["1x1", "37x53", "512x1"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_lao_kernel_off_the_tiles(cuda, kind, height, width):
+    state, plain = _lao_frame(_scene(kind, cuda), lao.Params(), height,
+                              width)
+    assert_lao_agrees(state, plain)
+
+
+def test_lao_kernel_follows_the_current_stream(cuda):
+    scene = _scene("f32", cuda)
+    params = lao.Params()
+    plain = lao.reset(params, 64, 64, scene)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        state = lao.reset(params, 64, 64, scene)
+        lao.render_frame(state, scene, params, 0.4, 1)
+        shown = lao.display(state, scene, params)
+    side.synchronize()
+    lao_march.lao_frame_plain(plain, scene, params)
+    torch.cuda.synchronize()
+    assert_lao_agrees(shown, plain)
+
+
+def test_lao_kernel_refuses_what_it_does_not_take(cuda):
+    unpacked = make_scene(volume.sphere_volume(8, device=cuda),
+                          transfer.gray_ramp(device=cuda), pack=False,
+                          device=cuda)
+    params = lao.Params()
+    before = _launches()
+    with pytest.raises(NotImplementedError):
+        lao.render_frame(lao.reset(params, 8, 8, unpacked), unpacked,
+                         params, 0.1, 1)
+    scene = _scene("f32", cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lao.render_frame(lao.reset(params, 8, 8, scene), scene,
+                         lao.Params(baked_gradient=True), 0.1, 1)
+    for state in (torch.zeros(8, 8, 3, device=cuda),
+                  torch.zeros(8, 8, 4, dtype=torch.float64, device=cuda),
+                  torch.zeros(8, 4, 8, device=cuda).transpose(1, 2)):
+        with pytest.raises(ValueError):
+            lao.render_frame(state, scene, params, 0.1, 1)
+    assert _launches() == before
+
+
+def test_dos_and_lao_kernels_launch_shapes(cuda):
+    """K9 fits 128-thread blocks without spilling in each mode; K10 fits
+    an SM on the march kernels' pixel tile."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for tf in range(3):
+            occ = dos_sweep.occupancy(dtype, tf)
+            assert occ["threads_per_block"] == 128
+            assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0
+        occ = lao_march.occupancy(dtype)
+        assert occ["threads_per_block"] == 128 and occ["blocks_per_sm"] >= 1
+        assert occ["tile_width"] * occ["tile_height"] == 128
+        assert occ["group"] >= 1

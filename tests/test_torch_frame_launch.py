@@ -1,6 +1,7 @@
 """What the CPU can check of the frame kernels' launch paths (K6
 ``kernels/march.py``, K7 ``kernels/iso_shade.py``, K8
-``kernels/mcs_frame.py``) and of what the kernels compute from the host's
+``kernels/mcs_frame.py``, K9 ``kernels/dos_sweep.py``, K10
+``kernels/lao_march.py``) and of what the kernels compute from the host's
 numbers.
 
 - A frame's scalars come from Python floats rounded to float32 one IEEE
@@ -8,6 +9,10 @@ numbers.
   ``march.frame_scalars``, which the plain frames take, bit for bit; so
   must K7's h and 2h the plain gradient's, and its light the plain
   shade's.
+- K9 reads the frame's per-slice constants from ``dos.slice_table``, which
+  must hold, bit for bit, what vpt_tpu's frame computes in its own order;
+  K10 reads ``rx``, ``rconst``, the light and the AO taps that the plain
+  frame computes, prepared once.
 - MIP's kernel takes ``x − floor(x)`` for ``fmod(x, 1)`` of its schedule
   value ``x = offset + s·step``; that is exact on every slice the renderer
   can make.
@@ -20,9 +25,11 @@ import numpy as np
 import pytest
 import torch
 
-from vpt_tpu_torch import transfer, volume
-from vpt_tpu_torch.kernels import _build, iso_shade, march, mcs_frame
-from vpt_tpu_torch.renderers import depth, eam, iso, make_scene, mcs, mip
+from vpt_tpu_torch import math3d, transfer, volume
+from vpt_tpu_torch.kernels import _build, dos_sweep, iso_shade, lao_march
+from vpt_tpu_torch.kernels import march, mcs_frame
+from vpt_tpu_torch.renderers import depth, dos, eam, iso, lao, make_scene
+from vpt_tpu_torch.renderers import mcs, mip
 
 F32 = np.float32
 MARCH_PARAMS = [("eam", eam.Params()), ("eam", eam.Params(random=False)),
@@ -246,3 +253,146 @@ def test_cpu_counts_raise(cpu_scene):
     with pytest.raises(ValueError, match="counts"):
         mcs_frame.mcs_frame(state, cpu_scene, mcs.Params(), 0.1, 1,
                             counts=torch.zeros(2, dtype=torch.int64))
+
+
+# -- K9 (DOS) and K10 (LAO) ---------------------------------------------
+
+
+@pytest.mark.parametrize("params,size", [
+    (dos.Params(), (16, 16)), (dos.Params(steps=7, samples=3), (12, 20)),
+    (dos.Params(aperture=55.0, slices=31), (20, 9))],
+    ids=["default", "odd", "wide-aperture"])
+def test_dos_slice_table_equals_the_plain_constants(cpu_scene, params,
+                                                    size):
+    """Each column of the table, after one frame moved the depth, equals
+    the constant recomputed as vpt_tpu's frame computes it (depths = depth
+    + i·Δ, the projected [1, 1, −depth] for the NDC depth and the
+    occlusion scale, the taps' clipped floor and fraction), bit for bit."""
+    h, w = size
+    state = dos.reset(params, h, w, cpu_scene)
+    dos.render_frame(state, cpu_scene, params, 0.2, 1)
+    table = dos.slice_table(state, cpu_scene, params)
+    n, taps = params.steps, params.samples
+    assert table.shape == (n, dos.TABLE_HEAD + 4 * taps)
+    assert table.dtype == torch.float32 and table.is_contiguous()
+    sd = state["slice_distance"]
+    depths = state["depth"] + torch.arange(n, dtype=torch.float32) * sd
+    corr = math3d.transform_point(cpu_scene.projection, torch.stack(
+        [torch.ones(n), torch.ones(n), -depths], dim=-1))
+    rad = F32(F32(params.aperture) * F32(np.pi)) / F32(180.0)
+    extent = sd * torch.tan(torch.tensor(rad))
+    scale = corr[:, :2] * extent
+    dd = state["offsets"][None] * scale[:, None, :] * torch.tensor(
+        [float(w), float(h)])
+    base = torch.clamp(torch.floor(dd), -(w + 1), w + 1)
+    assert torch.equal(table[:, 0], corr[:, 2])
+    assert torch.equal(table[:, 1], (depths <= state["max_depth"]).float())
+    assert torch.equal(table[:, 2], sd.expand(n))
+    rows = table[:, dos.TABLE_HEAD:].reshape(n, taps, 4)
+    assert torch.equal(rows[..., :2], base)
+    assert torch.equal(rows[..., 2:], dd - base)
+    assert float(rows[..., :2].abs().max()) <= w + 1
+
+
+def test_dos_preparation_is_kept_per_params_and_size(cpu_scene):
+    """K9's preparation is kept while the scene, Params and resolution
+    stay, and made anew when one changes; it carries the scene's table, TF
+    row, MVP and lookup mode, the tap count and the float32 extinction."""
+    cache = dos_sweep._scene_cache
+    p = cache.get(cpu_scene, (dos.Params(), 4, 6))
+    assert cache.get(cpu_scene, (dos.Params(), 4, 6)) is p
+    assert (p.args.table, p.args.tf_row) == (
+        cpu_scene.volume_packed.data_ptr(), cpu_scene.transfer_1d.data_ptr())
+    assert torch.equal(p.tensors[2], cpu_scene.mvp_inverse)
+    assert p.args.mvp == p.tensors[2].data_ptr()
+    assert (p.args.width, p.args.height, p.args.samples, p.args.tf_mode,
+            p.device, p.launch) == (6, 4, 8, 0, -1, None)
+    assert tuple(p.color_shape) == (4, 6, 4)
+    assert tuple(p.occlusion_shape) == (4, 6)
+    for key in ((dos.Params(samples=3), 4, 6), (dos.Params(), 4, 7),
+                (dos.Params(extinction=1.1), 4, 6)):
+        q = cache.get(cpu_scene, key)
+        assert q is not p and cache.get(cpu_scene, key) is q
+        p = cache.get(cpu_scene, (dos.Params(), 4, 6))
+    assert _bits(q.args.extinction) == _bits(F32(1.1))
+    with pytest.raises(ValueError, match="32-bit"):
+        cache.get(cpu_scene, (dos.Params(), 2 ** 16, 2 ** 15))
+    unpacked = make_scene(volume.sphere_volume(8, device="cpu"),
+                          transfer.gray_ramp(device="cpu"), pack=False,
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="pack=True"):
+        cache.get(unpacked, (dos.Params(), 2, 2))
+
+
+def test_dos_cpu_frame_is_the_plain_sweep(cpu_scene):
+    """A CPU state takes the plain sweep and launches nothing."""
+    params = dos.Params(steps=5, slices=10, samples=4)
+    state = dos.reset(params, 10, 12, cpu_scene)
+    plain = {k: v.clone() for k, v in state.items()}
+    before = dos_sweep.LAUNCHES
+    for n in range(1, 3):
+        dos.render_frame(state, cpu_scene, params, 0.1, n)
+        dos_sweep.sweep_frame_plain(plain, cpu_scene, params)
+    assert dos_sweep.LAUNCHES == before
+    assert all(torch.equal(state[k], plain[k]) for k in state)
+    assert float(state["color"][..., 3].max()) > 0.0
+
+
+@pytest.mark.parametrize("size", [(16, 16), (9, 20)])
+def test_lao_preparation_holds_the_plain_values(cpu_scene, size):
+    """K10's prepared rx is the plain frame's (``lao.pixel_random`` on the
+    scene's device), bit for bit; rconst, the light and the AO taps in the
+    Structure are the plain values unrounded; the step is float32(1 /
+    slices); the preparation is kept per (scene, Params, resolution)."""
+    h, w = size
+    params = lao.Params()
+    cache = lao_march._scene_cache
+    p = cache.get(cpu_scene, (params, h, w))
+    assert cache.get(cpu_scene, (params, h, w)) is p
+    ctx = lao.setup(cpu_scene, params, h, w)
+    assert torch.equal(p.rx, lao.pixel_random(h, w, "cpu"))
+    assert torch.equal(ctx.t0, torch.clamp(p.rx * float(ctx.step) * 1.5,
+                                           0.0, 1.0))
+    assert p.args.rx == p.rx.data_ptr() and p.rx.shape == (h, w)
+    assert p.args.rconst == float(lao.random_constant("cpu"))
+    assert torch.equal(torch.tensor([p.args.lx, p.args.ly, p.args.lz]),
+                       lao.light_of(cpu_scene, params))
+    taps = p.tensors[-1]
+    assert taps.shape == (20, 4)
+    assert torch.equal(taps[:, :3], torch.from_numpy(lao.lao_taps(params)))
+    assert p.args.n_taps == 20 and p.args.lao_samples == 1
+    assert _bits(p.args.step) == _bits(F32(1.0 / 64))
+    assert (p.args.table, p.args.tf_table, p.args.tw, p.args.th) == (
+        cpu_scene.volume_packed.data_ptr(),
+        cpu_scene.transfer_packed.data_ptr(), 256, 2)
+    assert (p.args.width, p.args.height, p.device, p.launch) == (w, h, -1,
+                                                                 None)
+    other = lao.Params(light_position=(1.0, 0.0, 0.0), soft_shadows=False)
+    q = cache.get(cpu_scene, (other, h, w))
+    assert q is not p and q.args.soft_on == 0
+    assert torch.equal(torch.tensor([q.args.lx, q.args.ly, q.args.lz]),
+                       lao.light_of(cpu_scene, other))
+
+
+def test_lao_cpu_frame_is_the_plain_frame_and_refusals(cpu_scene):
+    """A CPU state takes the plain frame and launches nothing; what the
+    kernel would not take raises before any launch."""
+    params = lao.Params(slices=16)
+    state = lao.reset(params, 8, 10, cpu_scene)
+    before = lao_march.LAUNCHES
+    lao.render_frame(state, cpu_scene, params, 0.3, 1)
+    plain = torch.zeros_like(state)
+    lao_march.lao_frame_plain(plain, cpu_scene, params)
+    assert torch.equal(state, plain) and lao_march.LAUNCHES == before
+    with pytest.raises(ValueError, match="32-bit"):
+        lao_march._scene_cache.get(cpu_scene, (params, 2 ** 16, 2 ** 15))
+    unpacked = make_scene(volume.sphere_volume(8, device="cpu"),
+                          transfer.gray_ramp(device="cpu"), pack=False,
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="pack=True"):
+        lao_march._scene_cache.get(unpacked, (params, 2, 2))
+    # the plain frame takes the unpacked scene (the texture fetches)
+    frame = lao.generate(unpacked, params, 0.0, 6, 6)
+    assert bool(torch.isfinite(frame).all())
+    assert torch.allclose(frame, lao.generate(cpu_scene, params, 0.0, 6, 6),
+                          rtol=0, atol=1e-6)

@@ -357,12 +357,10 @@ def test_interop_carries_each_state(scenes, key):
 
 
 def test_factory_makes_every_ported_renderer():
-    for key in ("mcm", "eam", "mip", "depth", "iso", "mcs"):
+    for key in ("mcm", "eam", "mip", "depth", "iso", "mcs", "dos", "lao"):
         r = factory.make_renderer(key, height=4, width=4)
         assert r.module is factory.get_module(key)
-    for key in ("dos", "lao"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            factory.make_renderer(key)
+    assert factory.NOT_PORTED == ()
 
 
 def test_cpu_frames_launch_nothing(sphere32):

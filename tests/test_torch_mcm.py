@@ -271,12 +271,17 @@ def test_unported_options_raise(kwargs):
 
 
 def test_factory_keys():
+    """Every renderer key of vpt_tpu resolves in the port."""
+    import vpt_tpu.renderers as jrenderers
     from vpt_tpu_torch.renderers import eam
 
     assert factory.get_module("mcm") is tmcm
     assert factory.get_module("eam") is eam
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        factory.get_module("dos")
+    assert factory.NOT_PORTED == ()
+    assert set(jrenderers.MODULES) <= set(factory.MODULES)
+    for key in jrenderers.MODULES:
+        assert factory.get_module(key).__name__ \
+            == f"vpt_tpu_torch.renderers.{key}"
     with pytest.raises(ValueError):
         factory.get_module("nope")
     with pytest.raises(ValueError):

@@ -59,7 +59,9 @@ def test_build_flags_and_entry_points():
         "vpt_mcm_event_info", "vpt_gather_rows", "vpt_corner_fetch",
         "vpt_scatter_add_rows8", "vpt_corner_grad", "vpt_march_frame",
         "vpt_march_launch", "vpt_march_info", "vpt_iso_shade",
-        "vpt_iso_shade_launch", "vpt_iso_shade_info", "vpt_mcs_frame", "vpt_mcs_launch", "vpt_mcs_info"}
+        "vpt_iso_shade_launch", "vpt_iso_shade_info", "vpt_mcs_frame",
+        "vpt_mcs_launch", "vpt_mcs_info", "vpt_dos_sweep_launch",
+        "vpt_dos_sweep_info", "vpt_lao_launch", "vpt_lao_info"}
     sources = " ".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))
     for name, argtypes in _build.SIGNATURES.items():
         # ctypes passes exactly the C function's parameters

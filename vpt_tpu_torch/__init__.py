@@ -6,8 +6,10 @@ with three hand-written CUDA kernels (``kernels/``): the MCM event machine,
 the 1D transfer-function lookup and the tone-map display pass.  The second
 is the differentiable MCM fit, ``train.fit_mc`` over
 ``renderers/diff_mc``, whose volume fetch runs the corner-gather kernel
-forward and the corner-scatter kernel backward.  Every kernel has a plain
-PyTorch version in the same module, which CPU tensors take.
+forward and the corner-scatter kernel backward.  The other renderers of
+``vpt_tpu`` (EAM, MIP, Depth, ISO, MCS, DOS, LAO) run on kernels of their
+own, one a frame (DOS: one a slice).  Every kernel has a plain PyTorch
+version in the same module, which CPU tensors take.
 
 The package imports ``torch`` and never ``jax``; ``vpt_tpu`` is its
 reference in the tests.

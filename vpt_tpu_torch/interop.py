@@ -82,11 +82,13 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
 def state_from_numpy(state, device=None):
     """A renderer state from numpy to float32 tensors on ``device``
     (default: the card): one array, the accumulator of EAM, MIP, Depth,
-    ISO or MCS ((H, W, 4) or (H, W)), becomes one tensor; a dict of arrays
-    (an MCM state, the differentiable machine's state with its ``logw``
+    ISO, MCS or LAO ((H, W, 4) or (H, W)), becomes one tensor; a dict of
+    arrays and 0-d scalars (an MCM state, a DOS state with its 0-d
+    ``depth``, ``max_depth`` and ``slice_distance`` and its (N, 2)
+    ``offsets``, the differentiable machine's state with its ``logw``
     (``renderers/diff_mc``), or the fit leaves ``{"volume": ..., "tf":
     ...}`` that ``vpt_tpu.train.fit_mc`` takes and returns) becomes a dict
-    of tensors, leaving out None entries."""
+    of tensors (0-d ones for the scalars), leaving out None entries."""
     device = resolve_device(device)
     if not isinstance(state, dict):
         return tensor_from_numpy(np.asarray(state, np.float32), device)

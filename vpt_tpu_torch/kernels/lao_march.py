@@ -1,0 +1,173 @@
+"""The LAO march kernel (K10): one frame of the LAO renderer.
+
+There is no Pallas original: in ``vpt_tpu`` the frame is an XLA
+``lax.scan`` over 64 slices (``vpt_tpu/renderers/lao.py:63-183``).  Here it
+is
+
+- :func:`lao_frame_plain`, ``renderers/lao.generate`` on the scene with
+  ``kernels=False``, on any device;
+- the CUDA kernel ``csrc/lao_march.cu``: one thread a pixel of an 8×4 warp
+  tile marches its ray in registers, each slice taking the value and the
+  six-tap raw gradient, the AO taps along the half-vector, the soft-shadow
+  tap (the corner fetch of ``csrc/ray.cuh``), the 2D TF lookup of (value,
+  |∇|) from the packed TF table and the composite, and leaves its loop once
+  the pixel is inactive; it writes the frame into the state.
+
+:func:`lao_frame` takes the plain version for CPU state and launches the
+kernel for CUDA state; it raises on what the kernel does not take
+(unpacked scenes, ``baked_gradient``, images of 2^31 pixels or more) and
+never falls back.  What a launch takes of the scene, the Params and the
+resolution it prepares once (``VptLaoArgs``, passed as one pointer),
+computing with the plain version's own functions on the scene's device what
+it needs of them: the per-pixel random value ``rx`` (an (H, W) tensor), the
+constant ``rconst``, the light and the AO taps, so that the kernel reads
+the bits the plain version computes and evaluates no ``cos``/``sin`` itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import _build
+
+#: kernel launches since the last reset (set to 0 to reset)
+LAUNCHES = 0
+
+
+def lao_frame_plain(state, scene, params):
+    """One frame in plain PyTorch, written into ``state``."""
+    from ..renderers import lao
+
+    height, width = state.shape[:2]
+    state.copy_(lao.generate(dataclasses.replace(scene, kernels=False),
+                             params, 0.0, height, width))
+
+
+class _Args(ctypes.Structure):
+    """``VptLaoArgs`` of ``csrc/lao_march.cu``."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in
+                 ("table", "tf_table", "mvp", "rx", "taps")]
+                + [(name, ctypes.c_int) for name in
+                   ("table_bf16", "tf_bf16", "d", "h", "w", "tw", "th",
+                    "width", "height", "slices", "n_taps", "lao_samples",
+                    "lao_on", "soft_on")]
+                + [(name, ctypes.c_float) for name in
+                   ("step", "extinction", "lao_weight", "soft_weight",
+                    "light_radius", "light_coefficient", "lx", "ly", "lz",
+                    "rconst")]
+                + [("device", ctypes.c_int)])
+
+
+def _fields(scene):
+    return (scene.volume_packed, scene.transfer_packed, scene.mvp_inverse)
+
+
+def _transfer_table(scene):
+    """The scene's packed (TH·TW, 16) float32 or bfloat16 TF table, checked
+    and contiguous: the kernel's 2D TF lookup reads no other."""
+    table = scene.transfer_packed
+    if table is None:
+        raise NotImplementedError(
+            "the LAO kernel reads the packed TF table only; build the scene "
+            "with pack=True")
+    th, tw = scene.transfer.shape[:2]
+    if table.dtype not in (torch.float32, torch.bfloat16) \
+            or tuple(table.shape) != (th * tw, 16):
+        raise ValueError("the packed TF table must be (TH*TW, 16) float32 "
+                         "or bfloat16")
+    table = table.contiguous()
+    _build.check_aligned(table, "the packed TF table")
+    return table
+
+
+def _prepare(scene, key):
+    """What every frame of ``key`` = (params, height, width) takes of the
+    scene: the checked tensors, the plain version's ``rx``, ``rconst``,
+    light and AO taps, and the ``VptLaoArgs``."""
+    from ..renderers import lao
+
+    params, height, width = key
+    lao.check_params(params)
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the LAO kernel indexes pixels "
+                         "with 32-bit integers")
+    tensors, (table, bf16, d, h, w, _, _, _, mvp) = \
+        _build.scene_args(scene, scene.volume_packed, "LAO")
+    tf = _transfer_table(scene)
+    th, tw = scene.transfer.shape[:2]
+    device = scene.device
+    rx = lao.pixel_random(height, width, device).contiguous()
+    rconst = float(lao.random_constant(device))
+    light = lao.light_of(scene, params).tolist()
+    rows = lao.lao_taps(params)
+    taps = torch.zeros((max(len(rows), 1), 4), dtype=torch.float32)
+    taps[:len(rows), :3] = torch.from_numpy(rows)
+    taps = taps.to(device)
+
+    def f32(v):
+        return float(np.float32(v))
+
+    args = _Args(table, tf.data_ptr(), mvp, rx.data_ptr(), taps.data_ptr(),
+                 bf16, int(tf.dtype == torch.bfloat16), d, h, w, tw, th,
+                 width, height, params.slices, len(rows),
+                 params.num_lao_samples, int(params.local_ambient_occlusion),
+                 int(params.soft_shadows), f32(1.0 / params.slices),
+                 f32(params.extinction), f32(params.lao_weight),
+                 f32(params.soft_shadows_weight), f32(params.light_radius),
+                 f32(params.light_coefficient), *light, rconst,
+                 scene.volume.get_device())
+    return _build.Prepared(
+        tensors=(*tensors, tf, rx, taps), args=args,
+        address=ctypes.addressof(args), device=args.device,
+        shape=torch.Size((height, width, 4)), rx=rx,
+        launch=_build.library().vpt_lao_launch if args.device >= 0
+        else None)
+
+
+#: the last (scene, params, resolution)'s preparation
+_scene_cache = _build.LastScene(_prepare, _fields)
+
+
+def lao_frame(state, scene, params):
+    """One LAO frame written into ``state`` (H, W, 4)."""
+    if not state.is_cuda:
+        lao_frame_plain(state, scene, params)
+        return
+    global LAUNCHES
+    p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2]))
+    if state.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{state.device}")
+    _build.check_image(state, p.shape, state.device, "the lao state")
+    _build.check_aligned(state, "the lao state")
+    err = p.launch(p.address, state.data_ptr(),
+                   _build.current_stream(p.device))
+    if err:
+        _build.check("vpt_lao_launch", err)
+    LAUNCHES += 1
+
+
+#: the fields of :func:`occupancy`, in the order ``vpt_lao_info`` writes
+#: them
+OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
+                    "registers", "local_bytes", "static_smem_bytes",
+                    "tile_width", "tile_height", "warp_width", "group")
+
+
+def occupancy(table_dtype, tf_dtype=None, device: int = 0) -> dict:
+    """The kernel's launch shape on CUDA ``device`` for a corner table of
+    ``table_dtype`` and a packed TF table of ``tf_dtype`` (default: the
+    same): threads a block, resident blocks an SM, SMs, registers and
+    local (spill) bytes a thread, static shared memory a block, its pixel
+    tile and the AO taps it reads ahead of their fold.  Launches
+    nothing."""
+    tf_dtype = table_dtype if tf_dtype is None else tf_dtype
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    _build.check("vpt_lao_info", _build.library().vpt_lao_info(
+        int(table_dtype == torch.bfloat16), int(tf_dtype == torch.bfloat16),
+        device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))

@@ -88,10 +88,11 @@ class Scene:
         lookup = tf1d.lookup if self.kernels else tf1d.lookup_plain
         return lookup(self.transfer_1d, values, self.tf_mxu)
 
-    def _sample_value(self, position):
-        """The single-channel volume value at ``position``, (...): the
-        packed corner fetch (K3 for CUDA positions unless
-        ``kernels=False``) or the 8-tap fetch of an unpacked scene."""
+    def sample_value(self, position):
+        """The raw channel-0 value at ``position``, (...) (LAO's
+        sampleVolume): the packed corner fetch (K3 for CUDA positions
+        unless ``kernels=False``) or the 8-tap fetch of an unpacked
+        scene."""
         if self.volume_packed is not None:
             s = sampling.sample_volume_packed(
                 self.volume_packed, tuple(self.volume.shape), position,
@@ -102,8 +103,18 @@ class Scene:
 
     def sample_volume_rg(self, position):
         """texture(uVolume, p).rg: (value, 0) for a single-channel volume."""
-        s = self._sample_value(position)[..., None]
+        s = self.sample_value(position)[..., None]
         return torch.cat([s, torch.zeros_like(s)], dim=-1)
+
+    def sample_transfer(self, uv):
+        """The 2D bilinear TF lookup at (..., 2) ``uv`` = (value, y), (...,
+        4): the packed (TH·TW, 16) TF table when the scene has one (its
+        dtype's values, float32 weights: never the ``tf_mxu`` rounding),
+        else the (TH, TW, 4) texture."""
+        if self.transfer_packed is not None:
+            return sampling.sample_texture2d_packed(
+                self.transfer_packed, tuple(self.transfer.shape), uv)
+        return sampling.sample_texture2d(self.transfer, uv)
 
     def sample_color(self, position):
         """TF(volume(p)).  A rendering scene takes the single-channel value
@@ -121,7 +132,7 @@ class Scene:
             return sampling.sample_texture2d_packed(
                 self.transfer_packed, tuple(self.transfer.shape),
                 self.sample_volume_rg(position))
-        return self._lookup(self._sample_value(position))
+        return self._lookup(self.sample_value(position))
 
     def sample_color_tracking(self, position):
         """Color and Chebyshev distance from the cheb-skip table
@@ -142,6 +153,12 @@ class Scene:
         """Central-difference gradient of TF alpha
         (ISORenderer.glsl:165-177)."""
         return sampling.central_value_gradient(self.sample_color, position, h)
+
+    def raw_gradient(self, position, voxel_size):
+        """LAO's negated central difference of the raw value
+        (LAORenderer.glsl:73-80)."""
+        return sampling.central_raw_gradient(self.sample_value, position,
+                                             voxel_size)
 
     def sample_env(self, direction):
         """Equirect environment lookup; a 1×1 map is a constant."""

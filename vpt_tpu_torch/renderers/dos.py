@@ -1,0 +1,240 @@
+"""DOS: directional occlusion shading by a view-aligned slice sweep.
+
+Mirrors ``vpt_tpu/renderers/dos.py`` (DOSRenderer.glsl integrate:66-82 and
+occlusion:56-64, DOSRenderer.js): the volume is swept front to back in
+view-aligned slices; each slice composites ``1 − exp(−σ·Δs)`` opacity
+modulated by the occlusion buffer, and the occlusion buffer becomes the mean
+of N disk taps of the previous buffer times the slice transmittance.  One
+``render_frame`` advances ``steps`` slices of the ``slices``-slice sweep;
+slices past the far depth change nothing.
+
+The state is a dict: ``color`` (H, W, 4), ``occlusion`` (H, W), the 0-d
+``depth``, ``max_depth`` and ``slice_distance``, and the (N, 2) disk
+``offsets``.  :func:`render_frame` runs the frame through
+``kernels/dos_sweep.py``: the plain slices of :func:`composite_slices` on
+the CPU, one launch of the slice kernel (K9) a slice on the card.  Both
+take the frame's per-slice constants from :func:`slice_table`, which
+computes them on the state's device.
+
+The sharding hooks of ``vpt_tpu`` (``ndc=``, ``sample_occlusion=``, for
+``parallel/dos_halo.py``) are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import math3d, rng, sampling
+from ..kernels import dos_sweep
+from ..utils import constant
+from .base import Scene, _not_ported
+
+
+@dataclasses.dataclass(frozen=True)
+class Params:
+    extinction: float = 100.0
+    aperture: float = 30.0        # degrees
+    steps: int = 50               # slices advanced per frame
+    slices: int = 200             # total sweep resolution
+    samples: int = 8              # occlusion disk taps
+
+
+def _occlusion_samples(count: int, device="cpu"):
+    """Centred disk samples (DOSRenderer.js:105-128), deterministic, (N, 2)
+    float32."""
+    state = rng.pcg(torch.arange(2 * count, dtype=torch.int64,
+                                 device=device) + 17)
+    _, sq = rng.square(state[:count])
+    radius = torch.sqrt(sq[:, 0])
+    angle = sq[:, 1] * 2.0 * float(np.float32(np.pi))
+    pts = radius[:, None] * torch.stack([torch.cos(angle), torch.sin(angle)],
+                                        dim=-1)
+    return pts - pts.mean(dim=0, keepdim=True)
+
+
+_CORNERS = np.array(
+    [[0, 0, 0], [0, 0, 1], [0, 1, 0], [0, 1, 1],
+     [1, 0, 0], [1, 0, 1], [1, 1, 0], [1, 1, 1]], np.float32)
+
+
+def _depth_range(model_view):
+    """[min, max] of −(V·M·C · corner).z over the 8 cube corners
+    (calculateDepth, DOSRenderer.js:140-164); min clamped to 0.  Two 0-d
+    tensors."""
+    cam = math3d.transform_point(model_view, _CORNERS)
+    depths = -cam[:, 2]
+    return torch.clamp(depths.min(), min=0.0), depths.max()
+
+
+def reset(params: Params, height: int, width: int, scene: Scene = None):
+    if scene is None:
+        raise ValueError("DOS reset needs the scene (depth range)")
+    min_depth, max_depth = _depth_range(scene.model_view)
+    device = scene.device
+    occlusion = torch.ones((height, width), dtype=torch.float32,
+                           device=device)
+    return {
+        "color": torch.zeros((height, width, 4), dtype=torch.float32,
+                             device=device),
+        "occlusion": occlusion,
+        "depth": min_depth,
+        "max_depth": max_depth,
+        # the true quotient on every device (a tensor divisor)
+        "slice_distance": (max_depth - min_depth)
+        / torch.full_like(max_depth, params.slices),
+        "offsets": _occlusion_samples(params.samples, device),
+    }
+
+
+def tap_shifts(offsets, occlusion_scale, height: int, width: int):
+    """The integer texel shift and bilinear fraction of every disk tap,
+    ``(base, frac)``, each (..., N, 2) float32 (x, y), for the occlusion
+    scales (..., 2).  ``base = clip(floor(dd), −(W+1), W+1)`` clips BOTH axes
+    by the width, as ``vpt_tpu`` does; ``frac = dd − base``."""
+    dims = constant((float(width), float(height)), torch.float32,
+                    offsets.device)
+    dd = offsets * occlusion_scale[..., None, :] * dims
+    base = torch.clamp(torch.floor(dd), -(width + 1), width + 1)
+    return base, dd - base
+
+
+def occlusion_taps(occlusion, base, frac):
+    """Mean of the N bilinear taps of ``occlusion`` (H, W) shifted by the
+    (N, 2) texel shifts ``base`` with the (N, 2) fractions ``frac``: reads
+    clamped at the edges, ``fx`` zeroed unless ``0 <= p + bx <= W − 2``
+    (``fy`` likewise with H), the taps summed in order, then divided by N
+    (``vpt_tpu``'s ``_shifted_occlusion_taps``)."""
+    h, w = occlusion.shape
+    n = base.shape[0]
+    dev = occlusion.device
+    b = base.to(torch.int64)
+    xs = torch.arange(w, device=dev)[None, :] + b[:, 0:1]        # (N, W)
+    ys = torch.arange(h, device=dev)[None, :] + b[:, 1:2]        # (N, H)
+    x0, x1 = xs.clamp(0, w - 1), (xs + 1).clamp(0, w - 1)
+    y0, y1 = ys.clamp(0, h - 1), (ys + 1).clamp(0, h - 1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    fx = torch.where((xs >= 0) & (xs <= w - 2), frac[:, 0:1], zero)
+    fy = torch.where((ys >= 0) & (ys <= h - 2), frac[:, 1:2], zero)
+    fx, fy = fx[:, None, :], fy[:, :, None]
+    a00 = occlusion[y0[:, :, None], x0[:, None, :]]
+    a10 = occlusion[y0[:, :, None], x1[:, None, :]]
+    a01 = occlusion[y1[:, :, None], x0[:, None, :]]
+    a11 = occlusion[y1[:, :, None], x1[:, None, :]]
+    c0 = a00 * (1 - fx) + a10 * fx
+    c1 = a01 * (1 - fx) + a11 * fx
+    taps = c0 * (1 - fy) + c1 * fy
+    total = taps[0]
+    for k in range(1, n):
+        total = total + taps[k]
+    return total / torch.full_like(total, n)
+
+
+def _shifted_occlusion_taps(occlusion, offsets, occlusion_scale):
+    """``vpt_tpu``'s function of the same name: the mean of the disk taps
+    at the offsets ``offsets`` (N, 2) times ``occlusion_scale`` (2,)."""
+    h, w = occlusion.shape
+    base, frac = tap_shifts(offsets, occlusion_scale, h, w)
+    return occlusion_taps(occlusion, base, frac)
+
+
+def _tan_aperture(params: Params, device):
+    """tan(aperture · π / 180) in float32: the product and the quotient
+    rounded in float32 on the host, the tangent on ``device``."""
+    x = np.float32(np.float32(params.aperture) * np.float32(np.pi)) \
+        / np.float32(180.0)
+    return torch.tan(constant(float(x), torch.float32, device))
+
+
+#: the leading columns of a row of :func:`slice_table`; the taps follow
+TABLE_HEAD = 4
+
+
+def slice_table(state, scene: Scene, params: Params):
+    """The frame's per-slice constants, (steps, 4 + 4·N) float32 on the
+    state's device: per slice its NDC depth, 1.0 where it is active
+    (``depth_k <= max_depth``) else 0.0, the slice distance, 0.0, then per
+    tap (bx, by, fx, fy) of :func:`tap_shifts`.  ``depth_k = depth + k·Δ``
+    and the NDC depth and occlusion scale come from ``transform_point
+    (projection, [1, 1, −depth_k])`` (DOSRenderer.js:240-248), in
+    ``vpt_tpu``'s order.  The plain slices and the kernel read the same
+    table; building it reads nothing back to the host."""
+    color = state["color"]
+    h, w = color.shape[:2]
+    n = params.steps
+    sd = state["slice_distance"]
+    idx = torch.arange(n, dtype=torch.float32, device=color.device)
+    depths = state["depth"] + idx * sd
+    ones = torch.ones_like(depths)
+    corr = math3d.transform_point(scene.projection,
+                                  torch.stack([ones, ones, -depths], dim=-1))
+    active = (depths <= state["max_depth"]).to(torch.float32)
+    scale = corr[:, :2] * (sd * _tan_aperture(params, color.device))
+    base, frac = tap_shifts(state["offsets"], scale, h, w)      # (n, N, 2)
+    head = torch.stack([corr[:, 2], active, sd.expand(n),
+                        torch.zeros_like(depths)], dim=-1)
+    return torch.cat([head, torch.cat([base, frac], dim=-1).reshape(n, -1)],
+                     dim=1).contiguous()
+
+
+def advance_depth(state, table):
+    """``depth + n_active·Δ`` (not repeated additions), in the state."""
+    n_active = table[:, 1].sum()
+    state["depth"] = state["depth"] + n_active * state["slice_distance"]
+
+
+def composite_slices(state, scene: Scene, params: Params, table):
+    """The frame's slices in plain PyTorch, in place on the state's color
+    and occlusion (``vpt_tpu``'s ``chunk_step``, a slice at a time)."""
+    color, occlusion = state["color"], state["occlusion"]
+    h, w = color.shape[:2]
+    dev = color.device
+    ndc = sampling.pixel_ndc(h, w, device=dev)
+    ones = torch.ones((h, w, 1), dtype=torch.float32, device=dev)
+    extinction = float(np.float32(params.extinction))
+    sd = state["slice_distance"]
+    n_taps = state["offsets"].shape[0]
+    for k in range(params.steps):
+        row = table[k]
+        pos = math3d.apply_mat4(scene.mvp_inverse, torch.cat(
+            [ndc, row[0].expand(h, w, 1), ones], dim=-1))
+        pos = pos[..., :3] / pos[..., 3:4]
+        ts = scene.sample_color(pos)
+        e = ts[..., 3] * extinction
+        transmittance = torch.exp(-e * sd)
+        alpha = 1.0 - transmittance
+        contrib = ts[..., :3] * occlusion[..., None] * alpha[..., None]
+        rgb = color[..., :3] + contrib * (1.0 - color[..., 3:4])
+        a = torch.clamp(color[..., 3] + alpha, max=1.0)
+        taps = row[TABLE_HEAD:].reshape(n_taps, 4)
+        new_occlusion = occlusion_taps(occlusion, taps[:, :2],
+                                       taps[:, 2:]) * transmittance
+        outside = ((pos > 1.0) | (pos < 0.0)).any(dim=-1)
+        write = (row[1] > 0.0) & ~outside
+        color = torch.where(write[..., None],
+                            torch.cat([rgb, a[..., None]], dim=-1), color)
+        occlusion = torch.where(write, new_occlusion, occlusion)
+    state["color"].copy_(color)
+    state["occlusion"].copy_(occlusion)
+
+
+def render_frame(state, scene: Scene, params: Params, seed, frame_number,
+                 *, ndc=None, sample_occlusion=None):
+    """``steps`` slices of the sweep, in the state (a dict, updated in
+    place; its ``occlusion`` entry may be replaced by the kernel's other
+    buffer)."""
+    del seed, frame_number
+    if ndc is not None or sample_occlusion is not None:
+        raise _not_ported("DOS's sharding hooks (ndc=, sample_occlusion=)",
+                          "queue 1 item 16")
+    dos_sweep.sweep_frame(state, scene, params)
+    return state
+
+
+def display(state, scene: Scene, params: Params):
+    """mix(white, color, alpha) (DOS render fragment:113-116)."""
+    color = state["color"]
+    rgb = 1.0 + (color[..., :3] - 1.0) * color[..., 3:4]
+    return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)

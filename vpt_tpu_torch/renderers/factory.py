@@ -1,15 +1,15 @@
 """Renderer registry: string → renderer, mirroring
-``vpt_tpu/renderers/factory.py``.  DOS and LAO are not ported yet."""
+``vpt_tpu/renderers/factory.py``.  Every renderer of vpt_tpu is ported."""
 
 from __future__ import annotations
 
-from . import base, depth, eam, iso, mcm, mcs, mip
+from . import base, depth, dos, eam, iso, lao, mcm, mcs, mip
 
-MODULES = {"mip": mip, "iso": iso, "eam": eam, "mcs": mcs, "mcm": mcm,
-           "depth": depth}
+MODULES = {"mip": mip, "iso": iso, "eam": eam, "dos": dos, "mcs": mcs,
+           "mcm": mcm, "lao": lao, "depth": depth}
 
-#: renderers of vpt_tpu that the port does not have yet
-NOT_PORTED = ("dos", "lao")
+#: renderers of vpt_tpu that the port does not have yet (none)
+NOT_PORTED = ()
 
 
 def get_module(key: str):

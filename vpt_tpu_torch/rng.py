@@ -179,3 +179,26 @@ def exponential(state, rate):
     state, x = uniform(state)
     x = torch.clamp(x, min=float(np.float32(1e-38)))
     return state, -torch.log(x) / torch.full_like(x, rate)
+
+
+# Legacy trig hash used only by the LAO renderer (mixins/rand.glsl:3-14,
+# vpt_tpu/rng.py:242-250).
+_RAND_M = np.array([[23.14069263277926, 12.98987893203892],
+                    [2.665144142690225, 78.23376739376591]], np.float32)
+_RAND_D = np.array([1235.6789, 4378.5453], np.float32)
+
+
+def rand_vec2(p):
+    """fract(vec2(cos(p·m0), sin(p·m1)) · d), (..., 2) of (..., 2) float32,
+    in float32 and JAX's order: the two products summed, ``cos``/``sin``,
+    times ``d``, then the floored modulo by 1 (``torch.remainder``, as
+    ``jnp.mod``)."""
+    p = torch.as_tensor(p, dtype=torch.float32)
+    m = [[float(v) for v in row] for row in _RAND_M]
+    d = [float(v) for v in _RAND_D]
+    x, y = p[..., 0], p[..., 1]
+    dotted0 = x * m[0][0] + y * m[0][1]
+    dotted1 = x * m[1][0] + y * m[1][1]
+    mapped = torch.stack([torch.cos(dotted0) * d[0],
+                          torch.sin(dotted1) * d[1]], dim=-1)
+    return torch.remainder(mapped, 1.0)

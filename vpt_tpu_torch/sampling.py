@@ -3,8 +3,8 @@
 Mirrors the main-path subset of ``vpt_tpu/sampling.py``: ray setup
 (``pixel_ndc``, ``intersect_cube``, ``unproject``, ``unproject_rand``),
 the GL LINEAR + CLAMP_TO_EDGE volume and texture fetches with their
-corner-packed tables, the equirect environment lookup, ISO's
-central-difference gradient and Henyey-Greenstein sampling.  Every
+corner-packed tables, the equirect environment lookup, ISO's and LAO's
+central-difference gradients and Henyey-Greenstein sampling.  Every
 operation runs in the JAX package's order so that the float32 results
 agree.
 
@@ -295,6 +295,20 @@ def central_value_gradient(sample_color_fn, position, h):
                      - sample_color_fn(position - offset)[..., 3])
     grad = torch.stack(grads, dim=-1)
     return grad / torch.full_like(grad, float(2 * h))
+
+
+def central_raw_gradient(sample_value_fn, position, voxel_size):
+    """LAO's negated central difference of the raw value
+    (LAORenderer.glsl:73-80), (..., 3): ``value(p − e_i·vs) − value(p +
+    e_i·vs)`` with the offsets ``eye(3) · vs`` in float32."""
+    vs = float(np.float32(voxel_size))
+    grads = []
+    for axis in range(3):
+        offset = torch.zeros(3, dtype=torch.float32, device=position.device)
+        offset[axis] = vs
+        grads.append(sample_value_fn(position - offset)
+                     - sample_value_fn(position + offset))
+    return torch.stack(grads, dim=-1)
 
 
 def henyey_greenstein_cosine(state, g):
