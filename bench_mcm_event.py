@@ -13,7 +13,8 @@ exports the same C interface (K5: ``vpt_mcm_event`` and
 ``vpt_mcm_event_info``; K6: ``vpt_march_frame``; K7: ``vpt_iso_shade``;
 K8: ``vpt_mcs_frame``, the argument lists of ``kernels/_build.SIGNATURES``
 that every build since the kernel's port exports; K10: ``vpt_lao_launch``,
-which takes the tree's prepared ``VptLaoArgs``): an edited copy under
+which takes the tree's prepared ``VptLaoArgs``, whose fields are only ever
+appended): an edited copy under
 ``build/`` with one design
 lever changed (such as ``kChunk`` of ``march.cu``, or the tile constants of
 a ``ray.cuh`` copied beside it), or an older design, such as an older
@@ -36,9 +37,11 @@ is driven through its argument list (:func:`iso_args`) on the display of
 one ISO frame's hits at 512², on three scenes (:data:`SHADE_SCENES`: the
 headline's, float32 rows, and a TF row of 3072 texels) and of a state that
 hits in every pixel, with L2 warm and flushed.  K10 is driven through
-``vpt_lao_launch`` with the tree's prepared arguments
-(``kernels/lao_march``) on the headline's scene and a float32
-``blobs_volume(64)`` at 512², default Params.
+its build's entry point with the tree's prepared arguments
+(``kernels/lao_march``, :func:`lao_launcher`) on the headline's scene and
+a float32 ``blobs_volume(64)`` at 512², default Params; each build's
+shape adds its SASS a slice, warp-slices, lanes' busy share and issue
+floor (:func:`bench_lao`).
 
 For each steps (K5), mode (K6, K8) or scene (K7) the builds run in a
 palindromic order (current, the variants, the variants reversed, current;
@@ -137,39 +140,49 @@ def ptxas_kernels(text: str, match: str) -> dict:
     return out
 
 
-def sass_loops(lib_path, match: str) -> dict:
-    """{mangled kernel name: (instructions, largest loop's instructions)}
-    from ``cuobjdump -sass``: a loop is the body of a backward branch."""
+def sass_functions(lib_path, match: str) -> dict:
+    """{mangled kernel name: (instruction addresses, backward branches)}
+    of the functions whose name holds ``match``, from ``cuobjdump -sass``;
+    the branches as {target: the last address that branches back to
+    it}."""
     from vpt_tpu_torch.kernels import _build
 
     tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
     proc = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
                            "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300)
-    out, name, addrs, branches = {}, None, [], []
-
-    def close():
-        if name and match in name:
-            loops = [sum(1 for a in addrs if target <= a <= at)
-                     for at, target in branches if target < at]
-            out[name] = (len(addrs), max(loops, default=0))
-
+    out, name = {}, None
     for line in proc.stdout.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            close()
-            name, addrs, branches = head.group(1), [], []
+            name = head.group(1)
+            if match in name:
+                out[name] = ([], {})
             continue
         ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
-        if not ins:
+        if not ins or name not in out:
             continue
+        addrs, back = out[name]
         at = int(ins.group(1), 16)
         addrs.append(at)
         branch = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins.group(2))
-        if branch:
-            branches.append((at, int(branch.group(1), 16)))
-    close()
+        if branch and int(branch.group(1), 16) < at:
+            target = int(branch.group(1), 16)
+            back[target] = max(back.get(target, 0), at)
     return out
+
+
+def _span(addrs, span):
+    return sum(1 for a in addrs if span[0] <= a <= span[1])
+
+
+def sass_loops(lib_path, match: str) -> dict:
+    """{mangled kernel name: (instructions, largest loop's instructions)}
+    from ``cuobjdump -sass``: a loop is the body of a backward branch."""
+    return {name: (len(addrs), max((_span(addrs, span)
+                                    for span in back.items()), default=0))
+            for name, (addrs, back) in sass_functions(lib_path,
+                                                      match).items()}
 
 
 def load(lib_path, names):
@@ -696,11 +709,58 @@ def bench_shade(libs, built, frames, rounds):
     return readings, shapes, failed
 
 
+def sass_slice(lib_path, match: str, trips: int) -> dict:
+    """{mangled kernel name: warp instructions of one slice} for K10's
+    builds from ``cuobjdump -sass``: the body of the largest loop (the
+    slice loop, or a persistent warp loop whose iteration is one slice)
+    with the largest loop inside it (the AO tap loop) counted ``trips``
+    times and every other instruction of the body once.  Code that a
+    branch skips (a miss, the slow path of a division) counts as run, so
+    this is an upper estimate of the issued instructions."""
+    out = {}
+    for name, (addrs, back) in sass_functions(lib_path, match).items():
+        loops = sorted(back.items(), key=lambda span: span[1] - span[0],
+                       reverse=True)
+        if not loops:
+            continue
+        outer = loops[0]
+        inner = [span for span in loops[1:]
+                 if outer[0] <= span[0] and span[1] <= outer[1]]
+        out[name] = _span(addrs, outer) + (
+            (trips - 1) * _span(addrs, inner[0]) if inner else 0)
+    return out
+
+
+def lao_launcher(lib, p, state, counts=None):
+    """One K10 frame of build ``lib`` from the tree's preparation ``p``:
+    ``vpt_lao_launch``, or with ``counts`` the build's ``vpt_lao_count``."""
+    from vpt_tpu_torch.kernels import _build
+
+    stream = _build.current_stream(p.device)
+    if counts is not None:
+        lib.vpt_lao_count.argtypes = _build.SIGNATURES["vpt_lao_count"]
+
+        def launch():
+            _build.check("vpt_lao_count", lib.vpt_lao_count(
+                p.address, state.data_ptr(), counts.data_ptr(), stream))
+    else:
+        def launch():
+            _build.check("vpt_lao_launch", lib.vpt_lao_launch(
+                p.address, state.data_ptr(), stream))
+    return launch
+
+
 def bench_lao(libs, built, frames, rounds):
     """K10 of every build in turns (``rounds`` palindromes) on the
     headline's scene and a float32 one, one frame a launch from the tree's
     prepared arguments; returns the readings, the per-(scene, build)
-    shapes and the failed builds."""
+    shapes and the failed builds.  A build's shape holds its kernel's
+    registers, its SASS a slice (:func:`sass_slice`), its warp-slices (the
+    kernel's own count where it exports ``vpt_lao_count``, else those of
+    one thread a pixel on the 8x4 tiles, modelled from the plain frame's
+    per-pixel slices), the lanes' busy share and the frame's issue floor:
+    SASS a slice times warp-slices over 4 schedulers x 132 SMs at the SM
+    clock."""
     import torch
 
     import chip_smoke
@@ -708,20 +768,51 @@ def bench_lao(libs, built, frames, rounds):
     from vpt_tpu_torch.kernels import _build, lao_march
     from vpt_tpu_torch.renderers import lao, make_scene
 
-    _, _, _, match = KERNELS["lao"]
     readings, shapes, failed = [], {}, set()
     params = lao.Params()
+    trips = -(-len(lao.lao_taps(params)) // 2)
     scenes = {"headline": headline_scene(),
               "blobs64 f32": make_scene(volume.blobs_volume(64),
                                         transfer.gray_ramp(alpha_scale=0.8),
                                         pack=True)}
+    sass_of = {name: sass_slice(built[name][0], "lao_kernel", trips)
+               for name in libs}
     for label, scene in scenes.items():
         bf16 = scene.volume_packed.dtype == torch.bfloat16
         p = lao_march._scene_cache.get(scene, (params, HEIGHT, WIDTH))
+        samples, _, _, _, per_pixel = chip_smoke.lao_work(scene, params,
+                                                          HEIGHT, WIDTH)
+        occ = lao_march.occupancy(scene.volume_packed.dtype)
+        tile = chip_smoke.warp_slices(per_pixel, _build.tile_pixels(
+            WIDTH, HEIGHT, occ["tile_width"], occ["tile_height"],
+            occ["warp_width"]))
+        clock = sm_clock_mhz()[0]
         for name in libs:
-            shape = {"build": name, "mode": label}
-            shape.update(pick(ptxas_kernels(built[name][1], match),
-                              f"ILb{int(bf16)}ELb{int(bf16)}E") or {})
+            shape = {"build": name, "mode": label, "samples": samples}
+            # the 32-bit row instantiation where the build has one
+            fragment = f"ILb{int(bf16)}ELb{int(bf16)}E"
+            shape.update(pick(ptxas_kernels(built[name][1], "lao_kernel"),
+                              fragment + "i") or pick(
+                ptxas_kernels(built[name][1], "lao_kernel"), fragment) or {})
+            sass = pick(sass_of[name], fragment + "i") \
+                or pick(sass_of[name], fragment)
+            state = torch.empty((HEIGHT, WIDTH, 4), device="cuda")
+            if hasattr(libs[name], "vpt_lao_count"):
+                counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+                lao_launcher(libs[name], p, state, counts)()
+                lanes, warps = counts.tolist()
+                shape["warp_slices_from"] = "the kernel's count"
+            else:
+                lanes, warps = samples, tile
+                shape["warp_slices_from"] = "one thread a pixel on the tiles"
+            shape.update(lane_slices=lanes, warp_slices=warps,
+                         lane_share=lanes / 32 / max(warps, 1))
+            if sass:
+                shape["sass_per_slice"] = sass
+                shape["issue_floor_ms"] = sass * warps / (
+                    SMS * SCHEDULERS * clock * 1e6) * 1e3
+                shape["full_lane_floor_ms"] = sass * samples / 32 / (
+                    SMS * SCHEDULERS * clock * 1e6) * 1e3
             shapes[(label, name)] = shape
             print(json.dumps(shape), flush=True)
         order = [n for n in libs if n != "current"]
@@ -730,12 +821,7 @@ def bench_lao(libs, built, frames, rounds):
             if name in failed:
                 continue
             state = torch.empty((HEIGHT, WIDTH, 4), device="cuda")
-
-            def launch(lib=libs[name], state=state):
-                _build.check("vpt_lao_launch", lib.vpt_lao_launch(
-                    p.address, state.data_ptr(),
-                    _build.current_stream(p.device)))
-
+            launch = lao_launcher(libs[name], p, state)
             try:
                 launch()
                 torch.cuda.synchronize()
@@ -747,7 +833,7 @@ def bench_lao(libs, built, frames, rounds):
                 reference = state.clone()
             r = {"variant": name, "mode": label, "frames": frames,
                  "state_equal_to_current": torch.equal(state, reference),
-                 "device_ms": chip_smoke.profiler_device_ms(launch, match,
+                 "device_ms": chip_smoke.profiler_device_ms(launch, "lao_",
                                                             frames),
                  "ms": chip_smoke.cuda_ms(launch, frames),
                  "sm_clock_mhz": sm_clock_mhz()[0]}

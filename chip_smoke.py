@@ -2,13 +2,15 @@
 MCS, DOS, LAO) and its differentiable MCM fit once on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --launch-path [--part frames|fetch] TREE [TREE ...]
+    python3 chip_smoke.py --launch-path [--part frames|fetch|sweep] TREE ...
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit.  With ``--launch-path`` it times the launch paths of the
 TF-lookup and corner-fetch kernels (``--part fetch``), of the march, ISO
-shade and MCS kernels (``--part frames``) or of all five (the default) of
-each given
+shade and MCS kernels (``--part frames``), of all five (the default), or
+the DOS and LAO paths (``--part sweep``: a DOS sweep on the host clock and
+on the card, the host µs of a DOS frame call, a LAO frame's loop and
+device time) of each given
 checkout of the port (:func:`launch_path_tree`, one process a tree) and
 does nothing else; an older checkout goes under the git-ignored
 ``build/``, e.g.
@@ -63,16 +65,20 @@ prints no result:
    modelled from the plain frame's samples, and K8's estimate;
    then the DOS slice kernel (K9) and the LAO march kernel (K10) against
    their plain versions on the same two scenes at 512², default Params
-   (DOS over its whole sweep, LAO one frame), timed at the headline (K9
-   over a sweep: ``dos.reset`` and the frames until the depth passes the
-   far depth), their bounds from this run's written pixels, active
-   pixel-slices and distinct corner rows, registers and residency;
+   (DOS over its whole sweep, LAO one frame), K9's own table of each
+   frame against ``dos.slice_table`` bit for bit, timed at the headline
+   (K9 over a sweep: ``dos.reset`` and the frames until the depth passes
+   the far depth), their bounds from this run's written pixels, active
+   pixel-slices and distinct corner rows, registers and residency, K10's
+   count of its lane-slices (equal to the plain frame's active
+   pixel-slices) and warp-slices beside those modelled from the plain
+   frame;
 10. each renderer through the user's entry points at 512²
    (``make_renderer``, 10 frames, a DOS sweep, ``display``, the
    ``reinhard`` tone mapper) on the headline scene, EAM also on the 256³
    sphere, each with every launch counter at 0 just before it and read
-   just after: one K6, K8 or K10 launch a frame, ``steps`` K9 launches a
-   DOS frame, one K2 a display, one K7 an ISO display, no other launch;
+   just after: one K6, K8, K9 or K10 launch a frame, one K2 a display,
+   one K7 an ISO display, no other launch;
 11. the fit path with every launch counter at 0 again: BASELINE config 3's
    256³ volume (``blobs_volume(256)`` as truth, a constant 0.2 volume as
    init, ``gray_ramp(alpha_scale=0.8)``), a 256² target rendered by the
@@ -933,7 +939,7 @@ SHADE_OPS_TAP, SHADE_OPS_PIXEL = 35, 40
 PATH_KERNEL = {**FRAME_KERNEL, "dos": "dos_sweep", "lao": "lao_march"}
 KERNEL_SYMBOL = {"march_frame": "march_kernel",
                  "mcs_frame": "mcs_frame_kernel",
-                 "dos_sweep": "dos_slice_kernel", "lao_march": "lao_kernel"}
+                 "dos_sweep": "dos_sweep_kernel", "lao_march": "lao_"}
 MCS_OPS_STEP, MCS_OPS_PIXEL = 70, 120
 
 
@@ -1407,12 +1413,12 @@ def dos_sweep_run(scene, params, height, width, frames, plain=False):
 
 
 def dos_work(scene, params, height, width, frames):
-    """(bytes, operations, written pixels, active slices, launches) of one
-    DOS sweep on K9, from the sweep's own slice tables: an active slice
-    reads and writes the colour of the pixels it writes (those inside the
-    cube), reads the previous occlusion and writes the new (every pixel),
-    reads the distinct corner rows of its written pixels once and the TF
-    row; an inactive slice copies the occlusion."""
+    """(bytes, operations, written pixels, active slices) of one DOS sweep
+    on K9, from the sweep's own slice tables: an active slice reads and
+    writes the colour of the pixels it writes (those inside the cube),
+    reads the previous occlusion and writes the new (every pixel), reads
+    the distinct corner rows of its written pixels once and the TF row; an
+    inactive slice does nothing."""
     import torch
 
     from vpt_tpu_torch import math3d, sampling
@@ -1425,13 +1431,11 @@ def dos_work(scene, params, height, width, frames):
     row_bytes = scene.volume_packed.shape[1] \
         * scene.volume_packed.element_size()
     tf_bytes = scene.transfer_1d.numel() * 4
-    nbytes = ops = written = active = launches = 0
+    nbytes = ops = written = active = 0
     for _ in range(frames):
         table = dos.slice_table(state, scene, params)
         for row in table:
-            launches += 1
             if float(row[1]) <= 0.0:
-                nbytes += 8 * n
                 continue
             active += 1
             pos = math3d.apply_mat4(scene.mvp_inverse, torch.cat(
@@ -1446,14 +1450,15 @@ def dos_work(scene, params, height, width, frames):
             ops += DOS_OPS_ACTIVE * n \
                 + (DOS_OPS_WRITTEN + DOS_OPS_TAP * params.samples) * w
         dos.advance_depth(state, table)
-    return nbytes, ops, written, active, launches
+    return nbytes, ops, written, active
 
 
 def lao_work(scene, params, height, width):
-    """(samples, fetches, distinct corner rows, hit pixels) of one K10
-    frame: the plain frame replayed slice by slice, counting the active
-    pixel-slices (the kernel leaves its loop at the first inactive one) and
-    the corner rows their fetches read (a bitmap over the table's rows)."""
+    """(samples, fetches, distinct corner rows, hit pixels, per-pixel
+    samples) of one K10 frame: the plain frame replayed slice by slice,
+    counting the active pixel-slices (the kernel leaves its loop at the
+    first inactive one), each pixel's, and the corner rows their fetches
+    read (a bitmap over the table's rows)."""
     import dataclasses
 
     import torch
@@ -1474,6 +1479,8 @@ def lao_work(scene, params, height, width):
 
     ref.sample_value = recording
     acc = torch.zeros((height, width, 4), device=scene.device)
+    per_pixel = torch.zeros((height, width), dtype=torch.int32,
+                            device=scene.device)
     samples = fetches = 0
     for i in range(params.slices):
         _, active = lao.slice_active(ctx, acc, i)
@@ -1483,25 +1490,56 @@ def lao_work(scene, params, height, width):
         k = int(active.sum())
         if k == 0:
             break
+        per_pixel += active.to(torch.int32)
         samples += k
         fetches += k * len(taps)
         for pos in taps:
             seen[sampling.corner_cells(pos[active],
                                        scene.volume.shape)[0]] = True
-    return samples, fetches, int(seen.sum()), int((~ctx.miss).sum())
+    return samples, fetches, int(seen.sum()), int((~ctx.miss).sum()), \
+        per_pixel
+
+
+def dos_tables_agree(scene, params, label):
+    """K9's own rows of every frame of a sweep from ``dos.reset`` (the
+    table buffer the kernel writes) against ``dos.slice_table`` of the
+    state before the frame, bit for bit, one frame past the far depth
+    included; one launch a frame."""
+    import torch
+
+    from vpt_tpu_torch.kernels import dos_sweep
+    from vpt_tpu_torch.renderers import dos
+
+    state = dos.reset(params, 512, 512, scene)
+    frames = dos_sweep_frames(scene, params, 512, 512) + 1
+    table = torch.full((params.steps, dos.TABLE_HEAD + 4 * params.samples),
+                       float("nan"), device=scene.device)
+    before = dos_sweep.LAUNCHES
+    for n in range(frames):
+        want = dos.slice_table(state, scene, params)
+        dos_sweep.sweep_frame(state, scene, params, table)
+        check(torch.equal(table.view(torch.int32), want.view(torch.int32)),
+              f"{label} dos: the kernel's table of frame {n + 1} is not "
+              "dos.slice_table's")
+    torch.cuda.synchronize()
+    check(dos_sweep.LAUNCHES == before + frames,
+          f"{label} dos: not one launch a frame")
+    print(f"dos_sweep {label}: the kernel's rows of {frames} frames equal "
+          "dos.slice_table's bit for bit; one launch a frame", flush=True)
 
 
 def phase_dos_lao(headline):
     """K9 and K10 against their plain versions on the card at 512², default
-    Params (DOS over its whole sweep, LAO one frame): the headline scene and
-    a float32 one; then timed at the headline, each bound from this run's
+    Params (DOS over its whole sweep, LAO one frame), and K9's own table
+    against ``dos.slice_table`` bit for bit: the headline scene and a
+    float32 one; then timed at the headline, each bound from this run's
     work.  Returns the two rows' fields."""
     import dataclasses
 
     import torch
 
     from vpt_tpu_torch import transfer, volume
-    from vpt_tpu_torch.kernels import dos_sweep, lao_march, tf1d
+    from vpt_tpu_torch.kernels import _build, dos_sweep, lao_march, tf1d
     from vpt_tpu_torch.renderers import dos, lao, make_scene
 
     blobs = make_scene(volume.blobs_volume(64), transfer.gray_ramp(
@@ -1528,6 +1566,7 @@ def phase_dos_lao(headline):
                 state[key], plain[key], False))
         check(float(state["color"][..., 3].max()) > 0.0,
               f"{label} dos: nothing composited")
+        dos_tables_agree(scene, dparams, label)
         state = lao.reset(lparams, 512, 512, scene)
         lao.render_frame(state, scene, lparams, 0.4, 1)
         plain = state.clone()
@@ -1546,41 +1585,42 @@ def phase_dos_lao(headline):
         dos_sweep_run(scene, dparams, 512, 512, frames)
 
     ms = cuda_ms(sweep, 10)
-    slice_ms = profiler_device_ms(sweep, "dos_slice_kernel", 5)
-    launches = frames * dparams.steps
-    device_ms = None if slice_ms is None else slice_ms * launches
+    # the launches differ (4 frames of 50 slices, then 1 slice): the
+    # profiler's mean a launch times the frames
+    frame_ms = profiler_device_ms(sweep, "dos_sweep_kernel", 5)
+    device_ms = None if frame_ms is None else frame_ms * frames
     state = dos.reset(dparams, 512, 512, scene)
     host_us = _host_call_us(lambda: dos.render_frame(state, scene, dparams,
                                                      0.1, 1), 100)
-    # the frame call's share that builds the slice table
-    table_us = _host_call_us(lambda: dos.slice_table(state, scene, dparams),
-                             100)
+    # the sweep's other host work: its reset
+    reset_us = _host_call_us(lambda: dos.reset(dparams, 512, 512, scene), 50)
     plain_ms = cuda_ms(lambda: dos_sweep_run(ref, dparams, 512, 512, frames,
                                              plain=True), 1)
     tf_mode = tf1d.mode_code(scene.tf_mxu)
-    occ = dos_sweep.occupancy(scene.volume_packed.dtype, tf_mode)
-    nbytes, ops, written, active, counted = dos_work(scene, dparams, 512,
-                                                     512, frames)
-    check(counted == launches, f"dos_work counted {counted} launches")
+    occ = dos_sweep.occupancy(scene.volume_packed.dtype, tf_mode,
+                              dparams.samples, dparams.steps)
+    nbytes, ops, written, active = dos_work(scene, dparams, 512, 512, frames)
+    slice_ms = None if device_ms is None else device_ms / active
     bound_ms, bound_by = roofline(nbytes, ops)
     print(f"dos_sweep 512^2 headline: {ms:.4f} ms a sweep (reset and "
-          f"{frames} frames, {launches} slice launches), device "
-          f"{fmt_ms(device_ms)} a sweep ({fmt_ms(slice_ms)} a slice), host "
-          f"{host_us:.2f} us a frame call ({table_us:.2f} of them the slice "
-          f"table), plain {plain_ms:.4f} ms; "
-          f"{active} active slices, {written} written pixels; bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes, {ops} operations)"
-          f"; {occ['registers']} registers, {occ['local_bytes']} spill "
-          f"bytes, {occ['blocks_per_sm']} blocks of 128 an SM", flush=True)
+          f"{frames} frames, one launch each), device {fmt_ms(device_ms)} a "
+          f"sweep ({fmt_ms(slice_ms)} an active slice), host {host_us:.2f} "
+          f"us a frame call and {reset_us:.2f} us the reset, plain "
+          f"{plain_ms:.4f} ms; {active} active "
+          f"slices, {written} written pixels; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes} bytes, {ops} operations); "
+          f"{occ['registers']} registers, {occ['local_bytes']} spill bytes, "
+          f"{occ['blocks_per_sm']} blocks of {occ['threads_per_block']} an "
+          f"SM ({occ['blocks_per_sm'] * occ['sms']} cooperative blocks)",
+          flush=True)
     row9 = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "unit": "one sweep: dos.reset and the frames until the depth "
                     "passes the far depth",
-            "sweep_frames": frames, "slice_launches": launches,
-            "device_ms_slice": slice_ms, "host_us_frame": host_us,
-            "host_us_slice_table": table_us,
-            "active_slices": active, "written_pixels": written,
-            "registers": occ["registers"],
+            "sweep_frames": frames, "device_ms_slice": slice_ms,
+            "host_us_frame": host_us, "host_us_reset": reset_us,
+            "active_slices": active,
+            "written_pixels": written, "registers": occ["registers"],
             "blocks_per_sm": occ["blocks_per_sm"]}
 
     # K10, one frame at the headline
@@ -1590,13 +1630,22 @@ def phase_dos_lao(headline):
         lao.render_frame(state, scene, lparams, 0.5, 1)
 
     ms = cuda_ms(frame, 20)
-    device_ms = profiler_device_ms(frame, "lao_kernel", 20)
+    device_ms = profiler_device_ms(frame, "lao_", 20)
     host_us = _host_call_us(frame, 100)
     plain_ms = cuda_ms(lambda: lao_march.lao_frame_plain(
         state.clone(), ref, lparams), 1)
     occ = lao_march.occupancy(scene.volume_packed.dtype,
                               scene.transfer_packed.dtype)
-    samples, fetches, rows, hits = lao_work(scene, lparams, 512, 512)
+    samples, fetches, rows, hits, per_pixel = lao_work(scene, lparams, 512,
+                                                       512)
+    counts = torch.zeros(2, dtype=torch.int64, device=scene.device)
+    lao_march.lao_frame(state, scene, lparams, counts=counts)
+    lanes, warps = counts.tolist()
+    check(lanes == samples, f"lao: the kernel ran {lanes} lane-slices, the "
+          f"plain frame {samples} active pixel-slices")
+    # modelled: a warp steps through its longest pixel's slices
+    tile_warps = warp_slices(per_pixel, _build.tile_pixels(
+        512, 512, occ["tile_width"], occ["tile_height"], occ["warp_width"]))
     taps = len(lao.lao_taps(lparams))
     nbytes = rows * scene.volume_packed.shape[1] \
         * scene.volume_packed.element_size() + 20 * n \
@@ -1609,15 +1658,21 @@ def phase_dos_lao(headline):
           f"{fmt_ms(device_ms)}, host {host_us:.2f} us a frame, plain "
           f"{plain_ms:.4f} ms; {hits} hit pixels, {samples} active "
           f"pixel-slices ({samples / max(hits, 1):.4g} a hit pixel), "
-          f"{fetches} corner-row fetches of {rows} distinct rows; bound "
+          f"{fetches} corner-row fetches of {rows} distinct rows; {warps} "
+          f"warp-slices counted, lanes busy {lanes / 32 / max(warps, 1):.4f}"
+          f" (modelled from the plain frame on the tiles: {tile_warps} "
+          f"warp-slices, {samples / 32 / max(tile_warps, 1):.4f}); bound "
           f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes, {ops} "
-          f"operations); {occ['registers']} registers, {occ['local_bytes']} "
-          f"spill bytes, {occ['blocks_per_sm']} blocks of 128 an SM, "
-          f"{occ['group']} AO taps read ahead", flush=True)
+          f"operations); {occ['registers']} registers, "
+          f"{occ['local_bytes']} spill bytes, {occ['blocks_per_sm']} blocks "
+          f"of 128 an SM, {occ['group']} AO taps read ahead", flush=True)
     row10 = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
              "host_us": host_us, "samples": samples, "fetches": fetches,
-             "corner_rows": rows, "registers": occ["registers"],
+             "corner_rows": rows, "warp_slices": warps,
+             "lane_share": lanes / 32 / max(warps, 1),
+             "tile_warp_slices": tile_warps,
+             "registers": occ["registers"],
              "blocks_per_sm": occ["blocks_per_sm"]}
     row9["max_abs_err"] = worst["dos_sweep"]
     row10["max_abs_err"] = worst["lao_march"]
@@ -1657,7 +1712,7 @@ def phase_renderer_paths(dev, counters, headline):
         renderer = make_renderer(key, height=512, width=512)
         kernel = PATH_KERNEL[key]
         # DOS runs sweeps: reset and the frames until the depth passes the
-        # far depth, each frame `steps` launches of K9
+        # far depth, each frame one launch of K9
         sweep = dos_sweep_frames(scene, renderer.params, 512, 512) \
             if key == "dos" else None
         for module in counters.values():
@@ -1679,8 +1734,8 @@ def phase_renderer_paths(dev, counters, headline):
         torch.cuda.synchronize()
         launches = {name: m.LAUNCHES for name, m in counters.items()}
         name = f"{key} {label}"
-        expected = {kernel: 2 * sweep * renderer.params.steps if sweep
-                    else frames + 1, "tonemap": 1}
+        expected = {kernel: 2 * sweep if sweep else frames + 1,
+                    "tonemap": 1}
         if key == "iso":
             expected["iso_shade"] = 1
         for other, count in launches.items():
@@ -1709,7 +1764,7 @@ def phase_renderer_paths(dev, counters, headline):
         device_ms = profiler_device_ms(one, KERNEL_SYMBOL[kernel],
                                        5 if sweep else 20)
         if sweep and device_ms is not None:
-            device_ms *= renderer.params.steps * sweep   # a sweep's slices
+            device_ms *= sweep                     # a sweep's frames
         if key == "mcs":
             rate = f"{512 * 512 / frame_s:.6g} paths/s"
         else:
@@ -1869,9 +1924,9 @@ def run():
         {"name": "dos_sweep", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/dos_sweep.cu",
          "replaces": "vpt_tpu/renderers/dos.py:126",
-         "launched_by": "Renderer.render of dos (steps launches a frame, "
-                        "one a slice; the DOS path); runs the ray.cuh "
-                        "corner fetch and the tf1d.cuh lookup", **k9},
+         "launched_by": "Renderer.render of dos (one cooperative launch a "
+                        "frame; the DOS path); runs the ray.cuh corner "
+                        "fetch and the tf1d.cuh lookup", **k9},
         {"name": "lao_march", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/lao_march.cu",
          "replaces": "vpt_tpu/renderers/lao.py:63",
@@ -1969,10 +2024,97 @@ def launch_path_tree(tree, part="all"):
     check(os.path.abspath(sampling.__file__).startswith(
         os.path.abspath(tree)), f"vpt_tpu_torch not imported from {tree}")
     out = {"tree": tree}
+    if part == "sweep":
+        out["sweep"] = sweep_path_numbers()
+        return out
     if part in ("frames", "all"):
         out["frames"] = frame_path_numbers()
     if part in ("fetch", "all"):
         out.update(fetch_path_numbers())
+    return out
+
+
+def _device_ms_per_call(fn, match, reps):
+    """Device milliseconds a call of ``fn`` in the kernels whose name holds
+    ``match``: torch.profiler's sum over ``reps`` calls (after one warm-up
+    call) over ``reps``; None when it recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and match in e.key)
+    return total / reps / 1e3 if total > 0 else None
+
+
+def sweep_path_numbers():
+    """The DOS and LAO paths in this process's tree, through
+    ``make_renderer`` and ``dos``/``lao.render_frame``, which every tree
+    since DOS and LAO were ported takes alike, on the headline scene at
+    512² with default Params: a DOS sweep (``reset`` and the frames until
+    the depth passes the far depth) on the host clock (the median of 5)
+    and on the card (the profiler's sum of the DOS kernels over 3 sweeps),
+    the host µs of one DOS frame call that finds the queue empty, the
+    device time of a sweep's first frame at 1², 64² and 512², and a LAO
+    frame's loop and device time."""
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import dos, lao, make_renderer, make_scene
+
+    scene = make_scene(volume.sphere_volume(128),
+                       transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                       tracking="auto", pack_dtype=torch.bfloat16,
+                       tf_mxu=True)
+    renderer = make_renderer("dos", height=512, width=512)
+    params = renderer.params
+    frames = dos_sweep_frames(scene, params, 512, 512)
+
+    def sweep():
+        renderer.reset(scene)
+        for i in range(frames):
+            renderer.render(scene, 0.2 + 0.001 * i)
+
+    sweep()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    state = dos.reset(params, 512, 512, scene)
+    out = {"dos sweep_ms": sorted(times)[2],
+           "dos sweep_device_ms": _device_ms_per_call(sweep, "dos_", 3),
+           "dos host_us_frame": _host_call_us(
+               lambda: dos.render_frame(state, scene, params, 0.1, 1), 200)}
+    # a sweep's first frame (its slices all active) at three sizes: what a
+    # slice costs with next to no pixels is the per-slice floor of the
+    # design (a launch, or a grid barrier)
+    for size in (1, 64, 512):
+        start = dos.reset(params, size, size, scene)
+
+        def first_frame():
+            dos.render_frame({k: v.clone() for k, v in start.items()}, scene,
+                             params, 0.1, 1)
+
+        out[f"dos first_frame_device_ms {size}^2"] = _device_ms_per_call(
+            first_frame, "dos_", 10)
+    lparams = lao.Params()
+    lstate = lao.reset(lparams, 512, 512, scene)
+
+    def frame():
+        lao.render_frame(lstate, scene, lparams, 0.5, 1)
+
+    out["lao frame_ms"] = cuda_ms(frame, 20)
+    out["lao frame_device_ms"] = _device_ms_per_call(frame, "lao_", 20)
+    out["lao host_us_frame"] = _host_call_us(frame, 100)
     return out
 
 
@@ -2236,7 +2378,7 @@ def launch_path(trees, part="all"):
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results.append(json.loads(line)["launch_path"])
-    tables = []
+    tables = ["sweep"] if part == "sweep" else []
     if part in ("frames", "all"):
         for r in results:
             for key, row in r["frames"]["frames"].items():

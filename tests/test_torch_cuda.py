@@ -948,7 +948,7 @@ MXU_IDS = ["bilinear", "mxu-f32", "mxu-bf16"]
 def _dos_frames(scene, params, height, width, frames):
     """``frames`` DOS frames through K9 and through the plain sweep on the
     scene with ``kernels=False`` (which launches nothing), from one reset
-    state; ``steps`` launches a frame."""
+    state; one launch a frame."""
     state = dos.reset(params, height, width, scene)
     plain = {k: v.clone() for k, v in state.items()}
     reference = dataclasses.replace(scene, kernels=False)
@@ -959,7 +959,7 @@ def _dos_frames(scene, params, height, width, frames):
         dos_sweep.sweep_frame_plain(plain, reference, params)
         assert _launches() == launched
     torch.cuda.synchronize()
-    assert dos_sweep.LAUNCHES == before + frames * params.steps
+    assert dos_sweep.LAUNCHES == before + frames
     return state, plain
 
 
@@ -1001,8 +1001,9 @@ def test_dos_kernel_off_the_blocks(cuda, kind, height, width):
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 def test_dos_kernel_odd_steps_over_the_whole_sweep(cuda, kind):
     """An odd ``steps`` (7 of 30 slices, 3 taps, a wide aperture): the
-    state ends on the scratch buffer every frame, the sweep ends within
-    the 6 frames, and the frames after it change nothing."""
+    last slice's buffer is copied back into the state's every frame, the
+    sweep ends within the 6 frames, and the frames after it change
+    nothing."""
     params = dos.Params(steps=7, slices=30, samples=3, aperture=50.0)
     state, plain = _dos_frames(_scene(kind, cuda), params, 40, 56, 6)
     assert_dos_agrees(state, plain)
@@ -1011,6 +1012,51 @@ def test_dos_kernel_odd_steps_over_the_whole_sweep(cuda, kind):
     dos.render_frame(state, _scene(kind, cuda), params, 0.9, 7)
     torch.cuda.synchronize()
     assert all(torch.equal(done[k], state[k]) for k in state)
+
+
+@pytest.mark.parametrize("steps,slices,samples", [(50, 200, 8), (7, 30, 3),
+                                                   (8, 30, 5), (1, 4, 8),
+                                                   (9, 20, 300)],
+                         ids=["default", "odd", "even-undivided", "one",
+                              "rows-in-chunks"])
+def test_dos_kernel_frame_by_frame(cuda, steps, slices, samples):
+    """Frame by frame over the whole sweep and two frames past it (with
+    300 taps a block holds 6 rows at once, so a frame builds its rows in
+    chunks): one launch a frame; the kernel's table equals
+    ``dos.slice_table`` of the
+    state before the frame and the scalar mirror, bit for bit; the state
+    keeps its occlusion tensor, which holds the plain sweep's occlusion;
+    the depth is the plain one; a frame past the far depth changes
+    nothing."""
+    params = dos.Params(steps=steps, slices=slices, samples=samples)
+    scene = _scene("bf16", cuda)
+    reference = dataclasses.replace(scene, kernels=False)
+    state = dos.reset(params, 40, 56, scene)
+    plain = {k: v.clone() for k, v in state.items()}
+    buffer = state["occlusion"]
+    tan = float(dos._tan_aperture(params, cuda))
+    table = torch.full((steps, dos.TABLE_HEAD + 4 * samples), float("nan"),
+                       device=cuda)
+    frames = -(-slices // steps) + 3
+    for n in range(frames):
+        want = dos.slice_table(state, scene, params)
+        mirror = dos_sweep.slice_rows_plain(
+            float(state["depth"]), float(state["max_depth"]),
+            float(state["slice_distance"]), scene.projection.cpu(),
+            state["offsets"].cpu(), tan, steps, 40, 56)
+        done = {k: v.clone() for k, v in state.items()}
+        before = dos_sweep.LAUNCHES
+        dos_sweep.sweep_frame(state, scene, params, table)
+        torch.cuda.synchronize()
+        assert dos_sweep.LAUNCHES == before + 1
+        assert torch.equal(table.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(table.cpu(), torch.from_numpy(mirror))
+        assert state["occlusion"] is buffer
+        dos_sweep.sweep_frame_plain(plain, reference, params)
+        assert_dos_agrees(state, plain)
+        if float(want[:, 1].sum()) == 0.0:
+            assert all(torch.equal(done[k], state[k]) for k in state)
+    assert float(state["depth"]) > float(state["max_depth"])
 
 
 def test_dos_kernel_follows_the_current_stream(cuda):
@@ -1163,14 +1209,94 @@ def test_lao_kernel_refuses_what_it_does_not_take(cuda):
     assert _launches() == before
 
 
+def _plain_lane_slices(scene, params, height, width):
+    """The plain frame's active pixel-slices: the slices each hit pixel's
+    loop runs."""
+    reference = dataclasses.replace(scene, kernels=False)
+    ctx = lao.setup(reference, params, height, width)
+    acc = torch.zeros((height, width, 4), device=scene.device)
+    total = 0
+    for i in range(params.slices):
+        _, active = lao.slice_active(ctx, acc, i)
+        total += int((active & ~ctx.miss).sum())
+        acc = lao.march_slice(reference, params, ctx, acc, i)
+    return total
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_lao_kernel_counts_its_lane_slices(cuda, kind):
+    """``counts=`` adds the frame's active lane-slices, which equal the
+    plain frame's active pixel-slices, and the slices the warps step
+    through, which hold them at 32 lanes a warp-slice at most."""
+    scene, params = _scene(kind, cuda), lao.Params()
+    state = lao.reset(params, 64, 64, scene)
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    lao_march.lao_frame(state, scene, params, counts=counts)
+    lao_march.lao_frame(state, scene, params, counts=counts)
+    torch.cuda.synchronize()
+    lanes, warps = counts.tolist()
+    want = _plain_lane_slices(scene, params, 64, 64)
+    assert want > 0 and lanes == 2 * want
+    assert 32 * warps >= lanes and warps > 0
+    plain = state.clone()
+    lao_march.lao_frame_plain(plain, scene, params)
+    assert_lao_agrees(state, plain)
+    with pytest.raises(ValueError):
+        lao_march.lao_frame(state, scene, params,
+                            counts=torch.zeros(2, device=cuda))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_lao_kernel_row_index_widths(cuda, kind, monkeypatch):
+    """The 64-bit row index (taken for tables of 2^31 rows or more: here
+    forced by lowering the limit) gives the 32-bit path's frame."""
+    scene, params = _scene(kind, cuda), lao.Params()
+    state, plain = _lao_frame(scene, params, 40, 56)
+    assert lao_march._scene_cache.get(scene, (params, 40, 56)).args.rows64 \
+        == 0
+    monkeypatch.setattr(lao_march, "ROWS32", 0)
+    wide = lao.reset(params, 40, 56, scene)
+    lao_march.lao_frame(wide, dataclasses.replace(scene), params)
+    torch.cuda.synchronize()
+    assert torch.equal(wide, state)
+    assert_lao_agrees(wide, plain)
+    occ = lao_march.occupancy(scene.volume_packed.dtype, rows64=True)
+    assert occ["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("where", ["all-miss", "all-hit"])
+def test_lao_kernel_all_miss_and_all_hit(cuda, where):
+    """A camera beside the cube (every pixel a miss, written at once) and
+    one close in (every pixel a hit)."""
+    from vpt_tpu_torch.scene import default_camera
+
+    translation = (5.0, 0.0, 2.0) if where == "all-miss" else (0.0, 0.0, 2.0)
+    scene = make_scene(volume.blobs_volume(24, seed=3, device=cuda),
+                       transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                       camera=default_camera(translation, fovy=0.2),
+                       device=cuda)
+    params = lao.Params()
+    ctx = lao.setup(dataclasses.replace(scene, kernels=False), params, 48,
+                    40)
+    assert bool(ctx.miss.all() if where == "all-miss"
+                else (~ctx.miss).all())
+    state, plain = _lao_frame(scene, params, 48, 40)
+    assert_lao_agrees(state, plain)
+    if where == "all-miss":
+        black = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda)
+        assert bool((state == black).all())
+
+
 def test_dos_and_lao_kernels_launch_shapes(cuda):
-    """K9 fits 128-thread blocks without spilling in each mode; K10 fits
+    """K9 fits 512-thread blocks without spilling in each mode; K10 fits
     an SM on the march kernels' pixel tile."""
     for dtype in (torch.float32, torch.bfloat16):
         for tf in range(3):
             occ = dos_sweep.occupancy(dtype, tf)
-            assert occ["threads_per_block"] == 128
+            assert occ["threads_per_block"] == 512
             assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0
+            assert occ["dynamic_smem_bytes"] == 50 * 4 * (4 + 4 * 8)
+            assert occ["rows_at_once"] == 50
         occ = lao_march.occupancy(dtype)
         assert occ["threads_per_block"] == 128 and occ["blocks_per_sm"] >= 1
         assert occ["tile_width"] * occ["tile_height"] == 128

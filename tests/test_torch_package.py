@@ -42,7 +42,8 @@ def test_every_module_imports():
 @pytest.mark.parametrize("source", ["tf1d.cu", "tonemap.cu",
                                     "mcm_event.cu", "corner_gather.cu",
                                     "corner_scatter.cu", "march.cu",
-                                    "iso_shade.cu", "mcs_frame.cu"])
+                                    "iso_shade.cu", "mcs_frame.cu",
+                                    "dos_sweep.cu", "lao_march.cu"])
 def test_kernel_sources_carry_their_note(source):
     """Each kernel names the TPU function it replaces, what bounds it on
     the H100 and what its design does about that."""
@@ -60,8 +61,9 @@ def test_build_flags_and_entry_points():
         "vpt_scatter_add_rows8", "vpt_corner_grad", "vpt_march_frame",
         "vpt_march_launch", "vpt_march_info", "vpt_iso_shade",
         "vpt_iso_shade_launch", "vpt_iso_shade_info", "vpt_mcs_frame",
-        "vpt_mcs_launch", "vpt_mcs_info", "vpt_dos_sweep_launch",
-        "vpt_dos_sweep_info", "vpt_lao_launch", "vpt_lao_info"}
+        "vpt_mcs_launch", "vpt_mcs_info", "vpt_dos_frame",
+        "vpt_dos_sweep_info", "vpt_lao_launch", "vpt_lao_count",
+        "vpt_lao_info"}
     sources = " ".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))
     for name, argtypes in _build.SIGNATURES.items():
         # ctypes passes exactly the C function's parameters

@@ -1,19 +1,23 @@
-// DOS slice kernel (K9): one slice of DOS's front-to-back sweep, one thread
-// a pixel; one C call launches a frame's slices in order.
+// DOS slice kernel (K9): one frame of DOS's front-to-back sweep, the
+// frame's slices in one cooperative launch.
 //
 // Replaces the XLA lax.scan of vpt_tpu/renderers/dos.py:126-212 (chunk_step
 // :157-203) with the gather-free disk taps of _shifted_occlusion_taps
 // (:43-86).  It has no Pallas original; its corner fetch and TF lookup are
 // the device functions of ray.cuh and tf1d.cuh.
 //
-// Per pixel and slice: unproject (ndc, ndc_depth_k, 1) through the inverse
-// MVP and divide by w; where the slice is active (depth_k <= max_depth) and
-// the point lies in the unit cube, one colour fetch (the corner row and the
-// 1D TF in the scene's mode), alpha = 1 - exp(-a*sigma*ds) composited front
-// to back into the colour state (alpha min-clamped at 1), and the new
-// occlusion: the mean of N bilinear taps of the PREVIOUS occlusion buffer at
-// shifts that are the same for every pixel, times exp(-a*sigma*ds).  Pixels
-// that write nothing carry their previous occlusion into the new buffer.
+// Per slice, its constants (renderers/dos.slice_table): depth_k = depth +
+// k*sd, the NDC depth and occlusion scale from the projection of (1, 1,
+// -depth_k), active = depth_k <= max_depth, and each disk tap's integer
+// shift and fraction.  Per pixel and active slice: unproject (ndc,
+// ndc_depth_k, 1) through the inverse MVP and divide by w; where the point
+// lies in the unit cube, one colour fetch (the corner row and the 1D TF in
+// the scene's mode), alpha = 1 - exp(-a*sigma*ds) composited front to back
+// into the colour state (alpha min-clamped at 1), and the new occlusion:
+// the mean of N bilinear taps of the PREVIOUS occlusion buffer at shifts
+// that are the same for every pixel, times exp(-a*sigma*ds).  Pixels that
+// write nothing carry their previous occlusion into the new buffer.  Then
+// the depth advances by n_active*sd (dos.advance_depth).
 //
 // Bound on the H100: an active slice reads and writes the 16-byte colour of
 // every pixel it writes (those whose point lies in the cube), reads the
@@ -21,149 +25,327 @@
 // and reads the distinct corner rows (16 bytes, bf16) of its written
 // pixels and the TF row; the taps' 4N reads a pixel fall on neighbouring
 // texels of a 1 MB buffer (at 512^2) and hit L1/L2.  A written pixel costs
-// ~160 float32 operations (unproject, fetch, TF, exp, composite, 8 taps):
-// bytes bound it.  On the 512^2 headline (chip_smoke.py's count from the
-// sweep's own slice tables) a sweep is 5 frames of 50 launches, 201 active
-// slices writing 11.8 M pixels: 955 MB, 0.285 ms at 3.35 TB/s.  Measured
-// (PERF.md §6): ~6 us of device time a slice, ~5x the bound over a sweep,
-// but ~1 ms of host a frame (the slice table's ~45 small PyTorch ops about
-// half of it, the 50 launches of the one C call most of the rest): the
-// host sets the sweep's time.
+// ~160 float32 operations: bytes bound it, ~1.1 us an active slice on
+// average over the 512^2 headline's sweep.  Measured (PERF.md §6): ~5.7 us
+// an active slice, of which ~3 us is the design's floor a slice (the grid
+// barrier and one pixel's dependent chain: a 1-pixel image takes it).
 //
-// Design (right and simple first): pixels in row-major order, 128 a block,
-// so that a warp streams 512 contiguous bytes of colour and the taps of a
-// warp's pixels fall on neighbouring texels.  The per-slice constants (NDC
-// depth, the active flag, the slice distance, each tap's integer shift and
-// fraction) come from one row of a table that the wrapper builds on the
-// card with the same PyTorch function as the plain version
-// (renderers/dos.slice_table), so both hold the same bits and no
-// transcendental of the schedule is evaluated here.  Each slice is one
-// launch (a slice reads its neighbours' previous occlusion, so it is a step
-// across the whole image), two occlusion buffers ping-pong, and the C entry
-// point issues all of a frame's launches in one call, checking
-// cudaGetLastError() after each.  The TF row is read through the read-only
-// cache; the tap rows are 16-byte reads of the table.
+// Design: a slice reads its neighbours' previous occlusion, so it is a step
+// across the whole image.  One cooperative launch runs all of a frame's
+// slices: a persistent grid (the SMs times the blocks an SM holds, which
+// cudaLaunchCooperativeKernel refuses to exceed) strides over the pixels in
+// row-major order, and a grid-wide barrier separates slice k's taps from
+// slice k+1's.  A thread's first pixel fetches slice k+1's colour (the
+// unproject, the inside test, the corner row, the TF and the
+// transmittance, which read no occlusion) before that barrier, so the
+// barrier's wait hides the fetch's latency; only the composite and the taps
+// wait for it.  Every block builds the frame's rows itself at its start,
+// all at once where they fit in 32 KB of shared memory (in chunks
+// otherwise), a warp a row, with the operations of dos.slice_table in
+// PyTorch's order (the tangent of the aperture comes in from the wrapper,
+// computed once with torch.tan), so no table is built on the host and the
+// frame reads nothing back.  Active
+// slices are a prefix of the frame's (depth_k only grows): the loop stops at
+// the first inactive one, so slices past the far depth cost nothing.  The
+// two occlusion buffers ping-pong from the state's; when an odd number of
+// slices ran, the last one's buffer is copied back after one more barrier,
+// so the state's occlusion tensor always holds the result.  The depth is
+// advanced in place by one thread after the last barrier; given a table
+// buffer, the grid also writes the frame's rows there, one a warp.
 //
-// Numerics follow renderers/dos.composite_slices and occlusion_taps
-// operation by operation: built with -fmad=false, IEEE division, expf
-// (PyTorch's exp on the card), NaN-propagating min, the taps summed in order
-// k = 0..N-1 then divided by N, reads clamped at the edges, a tap's x
-// fraction zeroed unless 0 <= x + bx <= W-2 (y likewise with H).
+// Numerics follow renderers/dos.slice_table, composite_slices and
+// occlusion_taps operation by operation: built with -fmad=false, IEEE
+// division, expf (PyTorch's exp on the card), NaN-propagating min and
+// clamp, the taps summed in order k = 0..N-1 then divided by N, reads
+// clamped at the edges, a tap's x fraction zeroed unless 0 <= x + bx <=
+// W-2 (y likewise with H), both tap shifts clamped by the width.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "device_guard.cuh"
 #include "ray.cuh"
 
+namespace cg = cooperative_groups;
+
 // What a frame takes of its scene, Params and resolution, filled once by the
 // wrapper (kernels/dos_sweep.py, a ctypes Structure of this layout).
 struct VptDosArgs {
-  const void* table;     // (D*H*W, 8) float32 or bfloat16 corner rows
-  const float4* tf_row;  // (tw, 4)
-  const float* mvp;      // 16 floats, row-major inverse MVP
+  const void* table;       // (D*H*W, 8) float32 or bfloat16 corner rows
+  const float4* tf_row;    // (tw, 4)
+  const float* mvp;        // 16 floats, row-major inverse MVP
+  const float* projection; // 16 floats, row-major projection
   int table_bf16;
   int d, h, w;
-  int tw, tf_mode;       // tf_mode: tf1d.cuh's lookup mode
-  int width, height;     // the image
-  int samples;           // N, the disk taps
+  int tw, tf_mode;         // tf_mode: tf1d.cuh's lookup mode
+  int width, height;       // the image
+  int samples;             // N, the disk taps
+  int steps;               // slices a frame
   float extinction;
+  float tan_aperture;      // float32 tan(aperture * pi / 180), torch.tan
+  int blocks;              // the cooperative grid
   int device;
+};
+
+// What a frame call passes: the state's tensors and the optional table.
+struct VptDosFrame {
+  float4* color;                // (height, width, 4), in place
+  float* occlusion;             // (height, width), in place
+  float* scratch;               // (height, width), the other buffer
+  float* depth;                 // 0-d, advanced in place
+  const float* max_depth;       // 0-d
+  const float* slice_distance;  // 0-d
+  const float* offsets;         // (N, 2) disk offsets
+  float* rows;                  // null, or (steps, 4 + 4N): the table
 };
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 512;
+// blocks an SM that the register allocation must allow: 2 (64 registers)
+// measured fastest over a sweep, against 1 (106 registers), 3 and 4 (which
+// spill) and one block of 1024 threads (PERF.md §6)
+constexpr int kMinBlocks = 2;
 // the leading floats of a slice's row (dos.TABLE_HEAD): NDC depth, active,
 // slice distance, 0; then (bx, by, fx, fy) a tap
 constexpr int kHead = 4;
+// the shared memory a block's rows may take
+constexpr int kRowBytes = 32 * 1024;
+
+// The slices whose rows a block holds at once: all of the frame's where
+// they fit in kRowBytes.
+__host__ __device__ __forceinline__ int dos_chunk(int steps, int samples) {
+  const int fit = kRowBytes / (int)((kHead + 4 * samples) * sizeof(float));
+  return max(1, min(steps, fit));
+}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+// Row k of dos.slice_table into row[0 .. 4 + 4N), by the 32 lanes of a
+// warp: every lane projects the slice, lane 0 writes the head and the
+// lanes write the taps in turn.
+__device__ __forceinline__ void dos_row(const VptDosArgs& a, float depth,
+                                        float sd, float max_depth,
+                                        const float* offsets, int k,
+                                        float* row, int lane) {
+  const float dk = depth + (float)k * sd;
+  const float* m = a.projection;
+  float out[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // math3d.apply_mat4 of (1, 1, -dk, 1), left to right
+    out[r] = 1.0f * __ldg(m + 4 * r) + 1.0f * __ldg(m + 4 * r + 1)
+             + -dk * __ldg(m + 4 * r + 2) + 1.0f * __ldg(m + 4 * r + 3);
+  }
+  const float corr[3] = {out[0] / out[3], out[1] / out[3], out[2] / out[3]};
+  const float extent = sd * a.tan_aperture;
+  const float scale[2] = {corr[0] * extent, corr[1] * extent};
+  const float dims[2] = {(float)a.width, (float)a.height};
+  const float lim = (float)(a.width + 1);
+  if (lane == 0) {
+    row[0] = corr[2];
+    row[1] = dk <= max_depth ? 1.0f : 0.0f;
+    row[2] = sd;
+    row[3] = 0.0f;
+  }
+  for (int j = lane; j < a.samples; j += 32) {
+    float* tap = row + kHead + 4 * j;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float dd = __ldg(offsets + 2 * j + c) * scale[c] * dims[c];
+      const float base = vpt_clip(floorf(dd), -lim, lim);
+      tap[c] = base;
+      tap[2 + c] = dd - base;
+    }
+  }
+}
+
+// The colour a pixel takes at a slice, before the occlusion is known.
+struct DosFetch {
+  bool write;
+  float r, g, b, alpha, transmittance;
+};
+
+// The NDC of pixel i (sampling.pixel_ndc).
+__device__ __forceinline__ float2 dos_ndc(const VptDosArgs& a, int i) {
+  const int x = i % a.width, y = i / a.width;
+  return make_float2(vpt_pixel_ndc(x, a.width), vpt_pixel_ndc(y, a.height));
+}
+
 template <bool kBf16, int kTf>
-__global__ void __launch_bounds__(kThreads)
-dos_slice_kernel(const VptDosArgs a, const float* __restrict__ row,
-                 float4* __restrict__ color, const float* __restrict__ src,
-                 float* __restrict__ dst) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int width = a.width, height = a.height;
-  if (i >= width * height) return;
-  const float prev = __ldg(src + i);
-  bool write = false;
+__device__ __forceinline__ DosFetch dos_fetch(const VptDosArgs& a,
+                                              float2 ndc, const float* row) {
+  const float nz = row[0];
+  float h4[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    h4[r] = ndc.x * __ldg(a.mvp + 4 * r) + ndc.y * __ldg(a.mvp + 4 * r + 1)
+            + nz * __ldg(a.mvp + 4 * r + 2) + 1.0f * __ldg(a.mvp + 4 * r + 3);
+  }
   float p[3];
-  if (__ldg(row + 1) > 0.0f) {
-    const int x = i % width, y = i / width;
-    const float nx = vpt_pixel_ndc(x, width), ny = vpt_pixel_ndc(y, height);
-    const float nz = __ldg(row);
-    float h4[4];
+  bool outside = false;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      h4[r] = nx * __ldg(a.mvp + 4 * r) + ny * __ldg(a.mvp + 4 * r + 1)
-              + nz * __ldg(a.mvp + 4 * r + 2)
-              + 1.0f * __ldg(a.mvp + 4 * r + 3);
-    }
-    bool outside = false;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      p[k] = h4[k] / h4[3];
-      outside = outside || p[k] > 1.0f || p[k] < 0.0f;
-    }
-    write = !outside;
+  for (int k = 0; k < 3; ++k) {
+    p[k] = h4[k] / h4[3];
+    outside = outside || p[k] > 1.0f || p[k] < 0.0f;
   }
-  if (!write) {
-    dst[i] = prev;
-    return;
-  }
-  const int x = i % width, y = i / width;
-  const float sd = __ldg(row + 2);
+  DosFetch f;
+  f.write = !outside;
+  if (!f.write) return f;
   const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, p[0], p[1], p[2]);
   const float4 c = vpt_tf1d_lookup<true>(a.tf_row, a.tw, v, kTf);
   const float e = c.w * a.extinction;
-  const float transmittance = expf(-e * sd);
-  const float alpha = 1.0f - transmittance;
+  f.transmittance = expf(-e * row[2]);
+  f.alpha = 1.0f - f.transmittance;
+  f.r = c.x;
+  f.g = c.y;
+  f.b = c.z;
+  return f;
+}
+
+// The slice's composite and new occlusion at pixel i, from the previous
+// buffer src into dst.
+__device__ __forceinline__ void dos_finish(const VptDosArgs& a,
+                                           const float* row,
+                                           const DosFetch& f, int i,
+                                           float4* color, const float* src,
+                                           float* dst) {
+  const int width = a.width, height = a.height;
+  const float prev = src[i];
+  if (!f.write) {
+    dst[i] = prev;
+    return;
+  }
   float4 col = color[i];
   const float keep = 1.0f - col.w;
-  col.x = col.x + c.x * prev * alpha * keep;
-  col.y = col.y + c.y * prev * alpha * keep;
-  col.z = col.z + c.z * prev * alpha * keep;
-  col.w = vpt_nmin(col.w + alpha, 1.0f);
+  col.x = col.x + f.r * prev * f.alpha * keep;
+  col.y = col.y + f.g * prev * f.alpha * keep;
+  col.z = col.z + f.b * prev * f.alpha * keep;
+  col.w = vpt_nmin(col.w + f.alpha, 1.0f);
 
   // the disk taps of the previous buffer
+  const int x = i % width, y = i / width;
   const float4* taps = reinterpret_cast<const float4*>(row + kHead);
   float total = 0.0f;
+#pragma unroll 4
   for (int k = 0; k < a.samples; ++k) {
-    const float4 t = __ldg(taps + k);
+    const float4 t = taps[k];
     const int xs = x + (int)t.x, ys = y + (int)t.y;
     const int x0 = clampi(xs, 0, width - 1), x1 = clampi(xs + 1, 0, width - 1);
     const int y0 = clampi(ys, 0, height - 1);
     const int y1 = clampi(ys + 1, 0, height - 1);
     const float fx = (xs >= 0 && xs <= width - 2) ? t.z : 0.0f;
     const float fy = (ys >= 0 && ys <= height - 2) ? t.w : 0.0f;
-    const float a00 = __ldg(src + y0 * width + x0);
-    const float a10 = __ldg(src + y0 * width + x1);
-    const float a01 = __ldg(src + y1 * width + x0);
-    const float a11 = __ldg(src + y1 * width + x1);
+    const float a00 = src[y0 * width + x0];
+    const float a10 = src[y0 * width + x1];
+    const float a01 = src[y1 * width + x0];
+    const float a11 = src[y1 * width + x1];
     const float c0 = a00 * (1.0f - fx) + a10 * fx;
     const float c1 = a01 * (1.0f - fx) + a11 * fx;
     const float tap = c0 * (1.0f - fy) + c1 * fy;
     total = (k == 0) ? tap : total + tap;
   }
-  dst[i] = total / (float)a.samples * transmittance;
+  dst[i] = total / (float)a.samples * f.transmittance;
   color[i] = col;
+}
+
+// Rows k0 .. k0 + count - 1 into rows[0 ..), a warp a row in turn.
+__device__ __forceinline__ void dos_rows(const VptDosArgs& a, float depth,
+                                         float sd, float max_depth,
+                                         const float* offsets, int k0,
+                                         int count, float* rows) {
+  const int row_floats = kHead + 4 * a.samples;
+  for (int k = threadIdx.x >> 5; k < count; k += kThreads >> 5) {
+    dos_row(a, depth, sd, max_depth, offsets, k0 + k, rows + k * row_floats,
+            threadIdx.x & 31);
+  }
+}
+
+template <bool kBf16, int kTf>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dos_sweep_kernel(const VptDosArgs a, const VptDosFrame f) {
+  cg::grid_group grid = cg::this_grid();
+  // the rows of slices [k0, k0 + chunk) of the frame, built by the block
+  // at once (slice k's at (k - k0) * row_floats)
+  extern __shared__ float s_rows[];
+  const int row_floats = kHead + 4 * a.samples;
+  const int chunk = dos_chunk(a.steps, a.samples);
+  const int n = a.width * a.height;
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  // read before the first barrier; written after the last
+  const float depth = *f.depth, sd = *f.slice_distance;
+  const float max_depth = *f.max_depth;
+
+  if (f.rows != nullptr) {
+    for (int k = tid >> 5; k < a.steps; k += stride >> 5) {
+      dos_row(a, depth, sd, max_depth, f.offsets, k,
+              f.rows + (long long)k * row_floats, threadIdx.x & 31);
+    }
+  }
+  dos_rows(a, depth, sd, max_depth, f.offsets, 0, min(chunk, a.steps),
+           s_rows);
+  __syncthreads();
+  bool active = a.steps > 0 && s_rows[1] > 0.0f;
+
+  // the thread's first pixel: its NDC and its fetch of the next slice
+  float2 ndc = make_float2(0.0f, 0.0f);
+  DosFetch ahead;
+  const bool first = tid < n;
+  if (first) {
+    ndc = dos_ndc(a, tid);
+    if (active) ahead = dos_fetch<kBf16, kTf>(a, ndc, s_rows);
+  }
+  float* src = f.occlusion;
+  float* dst = f.scratch;
+  int ran = 0;
+  while (active) {
+    if (ran > 0) grid.sync();
+    const float* row = s_rows + (ran % chunk) * row_floats;
+    if (first) dos_finish(a, row, ahead, tid, f.color, src, dst);
+    for (int i = tid + stride; i < n; i += stride) {
+      dos_finish(a, row, dos_fetch<kBf16, kTf>(a, dos_ndc(a, i), row), i,
+                 f.color, src, dst);
+    }
+    ran += 1;
+    float* written = dst;
+    dst = src;
+    src = written;
+    active = false;
+    if (ran < a.steps) {
+      if (ran % chunk == 0) {
+        // the next chunk of rows, once every thread is done with this one
+        __syncthreads();
+        dos_rows(a, depth, sd, max_depth, f.offsets, ran,
+                 min(chunk, a.steps - ran), s_rows);
+        __syncthreads();
+      }
+      const float* next = s_rows + (ran % chunk) * row_floats;
+      active = next[1] > 0.0f;
+      if (active && first) ahead = dos_fetch<kBf16, kTf>(a, ndc, next);
+    }
+  }
+  // the last slice's buffer back into the state's (an odd number ran), and
+  // a barrier after every thread's read of the depth
+  if (ran % 2 == 1 || ran == 0) grid.sync();
+  if (ran % 2 == 1) {
+    for (int i = tid; i < n; i += stride) f.occlusion[i] = f.scratch[i];
+  }
+  if (tid == 0) *f.depth = depth + (float)ran * sd;
 }
 
 // The instantiation for a table type and TF lookup mode (tf1d.cuh's: a
 // compile-time constant, so the lookup carries no branch).
-using Kernel = void (*)(const VptDosArgs, const float*, float4*, const float*,
-                        float*);
+using Kernel = void (*)(const VptDosArgs, const VptDosFrame);
 
 template <bool kBf16>
 Kernel pick_tf(int tf_mode) {
   switch (tf_mode) {
-    case 0: return dos_slice_kernel<kBf16, 0>;
-    case 1: return dos_slice_kernel<kBf16, 1>;
-    case 2: return dos_slice_kernel<kBf16, 2>;
+    case 0: return dos_sweep_kernel<kBf16, 0>;
+    case 1: return dos_sweep_kernel<kBf16, 1>;
+    case 2: return dos_sweep_kernel<kBf16, 2>;
     default: return nullptr;
   }
 }
@@ -172,53 +354,63 @@ Kernel pick(int table_bf16, int tf_mode) {
   return table_bf16 ? pick_tf<true>(tf_mode) : pick_tf<false>(tf_mode);
 }
 
+size_t shared_bytes(int steps, int samples) {
+  return (size_t)dos_chunk(steps, samples) * (kHead + 4 * samples)
+         * sizeof(float);
+}
+
 }  // namespace
 
 // One frame: prepared is the VptDosArgs of the scene, Params and
-// resolution; color the (height, width, 4) colour state (updated in place),
-// occlusion the state's (height, width) occlusion buffer and scratch another
-// of its shape; slices the (steps, 4 + 4N) float32 rows of dos.slice_table.
-// Slice k reads the buffer slice k-1 wrote (occlusion for k = 0) and writes
-// the other, so the last slice's is scratch when steps is odd.
-extern "C" int vpt_dos_sweep_launch(const void* prepared, void* color,
-                                    void* occlusion, void* scratch,
-                                    const void* slices, int steps,
-                                    void* stream) {
+// resolution; color, occlusion and depth the state's, updated in place;
+// scratch another buffer of the occlusion's shape; max_depth, the slice
+// distance and the (N, 2) offsets the state's; rows null or a (steps, 4 +
+// 4N) float32 buffer that receives the frame's table.  One cooperative
+// launch; it fails (cudaErrorCooperativeLaunchTooLarge) rather than run a
+// grid that the card cannot hold at once.
+extern "C" int vpt_dos_frame(const void* prepared, void* color,
+                             void* occlusion, void* scratch, void* depth,
+                             const void* max_depth,
+                             const void* slice_distance, const void* offsets,
+                             void* rows, void* stream) {
   const VptDosArgs& a = *static_cast<const VptDosArgs*>(prepared);
   VptDeviceGuard guard(a.device);
-  if (a.width <= 0 || a.height <= 0) return 0;
   const Kernel kernel = pick(a.table_bf16, a.tf_mode);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)(
-      ((long long)a.width * a.height + kThreads - 1) / kThreads);
-  const int row_floats = kHead + 4 * a.samples;
-  const float* src = static_cast<const float*>(occlusion);
-  float* dst = static_cast<float*>(scratch);
-  for (int k = 0; k < steps; ++k) {
-    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        a, static_cast<const float*>(slices) + (long long)k * row_floats,
-        static_cast<float4*>(color), src, dst);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    float* written = dst;
-    dst = const_cast<float*>(src);
-    src = written;
-  }
-  return 0;
+  if (kernel == nullptr || a.blocks <= 0) return (int)cudaErrorInvalidValue;
+  VptDosArgs args = a;
+  VptDosFrame frame = {static_cast<float4*>(color),
+                       static_cast<float*>(occlusion),
+                       static_cast<float*>(scratch),
+                       static_cast<float*>(depth),
+                       static_cast<const float*>(max_depth),
+                       static_cast<const float*>(slice_distance),
+                       static_cast<const float*>(offsets),
+                       static_cast<float*>(rows)};
+  void* params[] = {&args, &frame};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)kernel, dim3((unsigned)a.blocks),
+      dim3(kThreads), params, shared_bytes(a.steps, a.samples),
+      (cudaStream_t)stream);
 }
 
-// The launch shape for a table of bf16 (or float32) rows and the TF lookup
-// mode `tf_mode` on `device`: out = threads a block, resident blocks an SM,
-// SMs, registers a thread, local (spilled) bytes a thread, static shared
-// bytes a block.  Launches nothing.
-extern "C" int vpt_dos_sweep_info(int table_bf16, int tf_mode, int device,
-                                  int* out) {
+// The launch shape for a table of bf16 (or float32) rows, the TF lookup
+// mode `tf_mode`, `steps` slices a frame and N = samples disk taps on
+// `device`: out = threads a block, resident blocks an SM, SMs, registers a
+// thread, local (spilled) bytes a thread, static shared bytes a block,
+// dynamic shared bytes a block (the rows it holds), the slices whose rows
+// it holds at once.  Launches nothing.
+extern "C" int vpt_dos_sweep_info(int table_bf16, int tf_mode, int steps,
+                                  int samples, int device, int* out) {
   VptDeviceGuard guard(device);
   const Kernel kernel = pick(table_bf16, tf_mode);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (kernel == nullptr || samples < 1 || steps < 1
+      || (kHead + 4 * samples) * sizeof(float) > kRowBytes) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = shared_bytes(steps, samples);
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kThreads, 0);
+      &per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
@@ -226,7 +418,8 @@ extern "C" int vpt_dos_sweep_info(int table_bf16, int tf_mode, int device,
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   const int values[] = {kThreads, per_sm, sms, attr.numRegs,
-                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes};
-  for (int k = 0; k < 6; ++k) out[k] = values[k];
+                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                        (int)smem, dos_chunk(steps, samples)};
+  for (int k = 0; k < 8; ++k) out[k] = values[k];
   return 0;
 }

@@ -14,39 +14,37 @@
 // never the tf_mxu rounding), two tints and the composite.
 //
 // Bound on the H100: a hit pixel's active slice reads 28 corner rows (7 +
-// 20 + 1) of 16 bytes (bf16), with ~30 float32 operations a read (cell and
-// lerp), ~20 more an AO tap (its half-vector, norm and division) and ~80 a
-// slice (gradient norm, AO and shadow terms, the 2D TF lookup, tints,
-// composite).  On the 512^2 headline (chip_smoke.py's count from the plain
-// frame): 97,344 hit pixels, 5.4 M active pixel-slices, 1.5e8 reads of 2.1 M
-// distinct rows (the whole 33.5 MB table, which the 50 MB L2 holds): ~7.2e9
-// operations, 0.107 ms at 67 TFLOP/s, against 39 MB (0.012 ms at 3.35
-// TB/s): operations bound it.  Measured (PERF.md §6) about 10x that: the
-// IEEE divisions and square roots of the 20 normalisations a slice, and one
-// warp's chain of dependent reads and folds with 7 (bf16) or 5 (float32)
-// blocks an SM, set its time.
+// 20 + 1) of 16 bytes (bf16) from a table that the 50 MB L2 holds; its
+// float32 operations (~7.2e9 a 512^2 headline frame, 0.107 ms at 67
+// TFLOP/s) bound it on paper, but built with -fmad=false, with an IEEE
+// division sequence for each of an AO tap's three divisions and a square
+// root sequence for its norm, the floor that holds is the issue rate of
+// its instructions: ~3,600 SASS an active slice times the warp-slices over
+// 4 schedulers x 132 SMs a clock, ~0.6 ms a frame (PERF.md §6).
 //
-// Design (right and simple first): one thread a pixel on the 8 x 4 warp
-// tiles of ray.cuh (the march kernel measured tiles faster than rows: a
-// warp's rays read neighbouring rows and leave the loop at similar slices).
-// The ray, the random value rx, the AO direction and the shadow offset stay
-// in registers; rx comes from an (H, W) tensor that the wrapper prepares
-// once with the plain version's own function (no cosf/sinf here), as do
-// rconst, the light and the AO taps' (t2, light_radius*t2, (1-t2)^2).  A
-// slice issues its seven gradient and value reads before folding them, then
-// the AO taps in groups of kGroup (the taps do not depend on one another),
-// each group's reads issued before its fold, which keeps the plain order of
-// the sum (see kGroup: neither no grouping, nor larger groups, nor register
-// caps for more resident blocks moved it by more than 10%).  The packed TF
-// table is read through the read-only cache (the ISO shade kernel measured
-// that faster than a shared copy).  The loop breaks once the pixel is
-// inactive: t only grows and the state stops changing once alpha exceeds
-// 0.9, so this is exact.  A miss writes (0, 0, 0, 1) at once.
+// Design: one thread a pixel on the 8 x 4 warp tiles of ray.cuh (a warp's
+// rays read neighbouring rows and leave the loop at similar slices: 95% of
+// a warp's lane-slices are busy on the headline, counts= shows it).  The
+// ray, the random value rx, the AO direction and the shadow offset stay in
+// registers; rx comes from an (H, W) tensor that the wrapper prepares once
+// with the plain version's own function (no cosf/sinf here), as do rconst,
+// the light and the AO taps' (t2, light_radius*t2, (1-t2)^2).  A slice
+// computes each axis's clip, floor, fraction and row offset once for
+// p - v, p and p + v (9 axis computations, not the 21 of seven separate
+// cells), issues its seven reads before folding them, then the AO taps in
+// groups of kGroup, each group's reads before its fold.  Rows are indexed
+// with 32 bits where the table has fewer than 2^31 rows (the wrapper's
+// choice), else with 64.  The packed TF table is read through the
+// read-only cache.  The loop breaks once the pixel is inactive: t only
+// grows and the state stops changing once alpha exceeds 0.9, so this is
+// exact.  A miss writes (0, 0, 0, 1) at once.  A ray pass that lists the
+// hits for a persistent grid whose lanes refill (Aila and Laine, HPG 2009)
+// was built and measured slower on the float32 scene in four forms
+// (PERF.md §6), so it is not here.
 //
 // Numerics follow renderers/lao.py (setup, march_slice, finish) operation
 // by operation: built with -fmad=false, IEEE division and sqrt,
-// NaN-propagating min/max, sums of three left to right, rows indexed with
-// 64 bits.
+// NaN-propagating min/max, sums of three left to right.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -54,7 +52,8 @@
 #include "ray.cuh"
 
 // What a frame takes of its scene, Params and resolution, filled once by the
-// wrapper (kernels/lao_march.py, a ctypes Structure of this layout).
+// wrapper (kernels/lao_march.py, a ctypes Structure of this layout; fields
+// are only appended, so that an older build reads the prefix it knows).
 struct VptLaoArgs {
   const void* table;     // (D*H*W, 8) float32 or bfloat16 corner rows
   const void* tf_table;  // (TH*TW, 16) float32 or bfloat16 packed TF
@@ -72,6 +71,7 @@ struct VptLaoArgs {
   float lx, ly, lz;      // the light, inverse MVP times (light, 1), no /w
   float rconst;
   int device;
+  int rows64;            // 1: index corner rows with 64 bits
 };
 
 namespace {
@@ -79,8 +79,7 @@ namespace {
 // AO taps read ahead of their fold: groups of 1 to 10, and register caps
 // for 6 or 8 blocks an SM (which spill), measured in turns at 512^2 on the
 // headline and a float32 scene (bench_mcm_event.py --kernel lao, PERF.md
-// §6), stay within about 10% of one another; 2 is kept (the readings are
-// in PERF.md)
+// §6), stay within about 10% of one another; 2 is kept
 constexpr int kGroup = 2;
 constexpr float kVoxel = 1.0f / 32.0f;
 // float32(sqrt(3)), the divisor of the AO direction
@@ -132,9 +131,38 @@ __device__ __forceinline__ float norm3(float x, float y, float z) {
   return sqrtf(vpt_nmax(x * x + y * y + z * z, 1e-20f));
 }
 
-template <bool kBf16, bool kTfBf16>
+// One axis of the seven gradient and value cells: for p - v, p and p + v
+// the clip, floor, fraction f, 1 - f and the row offset index * stride
+// (vpt_cell's operations on the same floats).
+template <class Row>
+struct LaoAxis {
+  Row off[3];
+  float f[3], g[3];
+};
+
+template <class Row>
+__device__ __forceinline__ LaoAxis<Row> lao_axis(float p, int n,
+                                                 Row stride) {
+  const float v[3] = {p - kVoxel, p, p + kVoxel};
+  LaoAxis<Row> out;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float u = vpt_clip(v[j] * (float)n - 0.5f, 0.0f, (float)(n - 1));
+    const float i = floorf(u);
+    out.f[j] = u - i;
+    out.g[j] = 1.0f - out.f[j];
+    out.off[j] = (Row)vpt_index(i) * stride;
+  }
+  return out;
+}
+
+// One frame; with kCount, counts gets the pixels' active slices and the
+// slices their warps step through (the leader of each group of lanes that
+// runs a slice together counts one).
+template <bool kBf16, bool kTfBf16, class Row, bool kCount>
 __global__ void __launch_bounds__(kVptTileThreads)
-lao_kernel(const VptLaoArgs a, float4* __restrict__ state) {
+lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
+           unsigned long long* __restrict__ counts) {
   int x, y;
   if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
   const int i = y * a.width + x;
@@ -183,36 +211,51 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state) {
                            + sdir[2] * sdir[2]);
 
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int s = 0; s < a.slices; ++s) {
+  int s = 0;
+  for (; s < a.slices; ++s) {
     const float t = t0 + (float)s * a.step;
     if (!(t < 1.0f && acc.w <= 0.9f)) break;
+    if constexpr (kCount) {
+      const unsigned group = __activemask();
+      if ((threadIdx.x & 31) == __ffs(group) - 1) atomicAdd(counts + 1, 1ull);
+    }
     float p[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) p[k] = start[k] + t * seg[k];
 
-    // the raw gradient (p - e_k vs minus p + e_k vs) and the value
-    VptCell<int64_t> cell[7];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      float lo[3] = {p[0], p[1], p[2]}, hi[3] = {p[0], p[1], p[2]};
-      lo[k] = p[k] - kVoxel;
-      hi[k] = p[k] + kVoxel;
-      cell[2 * k] = vpt_cell<int64_t>(a.d, a.h, a.w, lo[0], lo[1], lo[2]);
-      cell[2 * k + 1] = vpt_cell<int64_t>(a.d, a.h, a.w, hi[0], hi[1], hi[2]);
-    }
-    cell[6] = vpt_cell<int64_t>(a.d, a.h, a.w, p[0], p[1], p[2]);
+    // the raw gradient (p - e_k vs minus p + e_k vs) and the value: the
+    // cells ((iz h + iy) w + ix) from the axes' shared offsets
+    const LaoAxis<Row> ax = lao_axis<Row>(p[0], a.w, (Row)1);
+    const LaoAxis<Row> ay = lao_axis<Row>(p[1], a.h, (Row)a.w);
+    const LaoAxis<Row> az = lao_axis<Row>(p[2], a.d, (Row)a.h * a.w);
+    const Row zy = az.off[1] + ay.off[1];
+    const Row rows[7] = {zy + ax.off[0], zy + ax.off[2],
+                         az.off[1] + ay.off[0] + ax.off[1],
+                         az.off[1] + ay.off[2] + ax.off[1],
+                         az.off[0] + ay.off[1] + ax.off[1],
+                         az.off[2] + ay.off[1] + ax.off[1],
+                         zy + ax.off[1]};
     VptRow<kBf16> row[7];
 #pragma unroll
-    for (int j = 0; j < 7; ++j) row[j] = vpt_load_row<kBf16>(a.table,
-                                                             cell[j].row);
-    float g[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      g[k] = vpt_lerp_row<kBf16>(row[2 * k], cell[2 * k])
-             - vpt_lerp_row<kBf16>(row[2 * k + 1], cell[2 * k + 1]);
-    }
+    for (int j = 0; j < 7; ++j) row[j] = vpt_load_row<kBf16>(a.table, rows[j]);
+    // cell j's coordinate on each axis: 0 (p - v), 1 (p) or 2 (p + v)
+    const float g[3] = {
+        vpt_lerp_row_fg<kBf16>(row[0], ax.f[0], ax.g[0], ay.f[1], ay.g[1],
+                               az.f[1], az.g[1])
+            - vpt_lerp_row_fg<kBf16>(row[1], ax.f[2], ax.g[2], ay.f[1],
+                                     ay.g[1], az.f[1], az.g[1]),
+        vpt_lerp_row_fg<kBf16>(row[2], ax.f[1], ax.g[1], ay.f[0], ay.g[0],
+                               az.f[1], az.g[1])
+            - vpt_lerp_row_fg<kBf16>(row[3], ax.f[1], ax.g[1], ay.f[2],
+                                     ay.g[2], az.f[1], az.g[1]),
+        vpt_lerp_row_fg<kBf16>(row[4], ax.f[1], ax.g[1], ay.f[1], ay.g[1],
+                               az.f[0], az.g[0])
+            - vpt_lerp_row_fg<kBf16>(row[5], ax.f[1], ax.g[1], ay.f[1],
+                                     ay.g[1], az.f[2], az.g[2])};
     const float grad_mag = sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
-    const float value = vpt_lerp_row<kBf16>(row[6], cell[6]);
+    const float value = vpt_lerp_row_fg<kBf16>(row[6], ax.f[1], ax.g[1],
+                                                ay.f[1], ay.g[1], az.f[1],
+                                                az.g[1]);
 
     // local ambient occlusion: the taps' reads a group at a time, each
     // group folded in order
@@ -220,7 +263,7 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state) {
     if (a.lao_on) {
       float inner = 0.0f;
       for (int j0 = 0; j0 < a.n_taps; j0 += kGroup) {
-        VptCell<int64_t> tc[kGroup];
+        VptCell<Row> tc[kGroup];
         VptRow<kBf16> tr[kGroup];
         float tw[kGroup];
 #pragma unroll
@@ -233,8 +276,8 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state) {
           const float hn = norm3(half[0], half[1], half[2]);
 #pragma unroll
           for (int k = 0; k < 3; ++k) half[k] = p[k] + half[k] / hn * tap.x;
-          tc[j] = vpt_cell<int64_t>(a.d, a.h, a.w, half[0], half[1],
-                                    half[2]);
+          tc[j] = vpt_cell<Row>(a.d, a.h, a.w, half[0], half[1],
+                                half[2]);
           tr[j] = vpt_load_row<kBf16>(a.table, tc[j].row);
           tw[j] = tap.z;
         }
@@ -256,8 +299,9 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state) {
     // the soft shadow
     float soft = 0.0f;
     if (a.soft_on) {
-      const float vs = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, p[0] + soff[0],
-                                        p[1] + soff[1], p[2] + soff[2]);
+      const float vs = vpt_fetch<kBf16, Row>(a.table, a.d, a.h, a.w,
+                                             p[0] + soff[0], p[1] + soff[1],
+                                             p[2] + soff[2]);
       float contrib = vs * (vs * 0.2f) * slen;
       contrib = vpt_clip(contrib * 20.0f, 0.0f, 1.0f);
       soft = vpt_clip((-0.2f + 1.2f * contrib) / 1.3f, 0.0f, 1.0f);
@@ -279,6 +323,7 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state) {
     acc.z = acc.z + keep * c.z * value;
     acc.w = acc.w + keep * value * a.extinction / 100.0f;
   }
+  if constexpr (kCount) atomicAdd(counts, (unsigned long long)s);
   if (acc.w > 1.0f) {
     const float den = vpt_nmax(acc.w, 1e-6f);
     acc.x = acc.x / den;
@@ -288,14 +333,39 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state) {
   state[i] = make_float4(acc.x, acc.y, acc.z, 1.0f);
 }
 
-// The instantiation for the table types.
-using Kernel = void (*)(const VptLaoArgs, float4*);
+// The instantiation for the table types, the row index and counting.
+using Kernel = void (*)(const VptLaoArgs, float4*, unsigned long long*);
 
-Kernel pick(int table_bf16, int tf_bf16) {
+template <class Row, bool kCount>
+Kernel pick_row(int table_bf16, int tf_bf16) {
   if (table_bf16) {
-    return tf_bf16 ? lao_kernel<true, true> : lao_kernel<true, false>;
+    return tf_bf16 ? lao_kernel<true, true, Row, kCount>
+                   : lao_kernel<true, false, Row, kCount>;
   }
-  return tf_bf16 ? lao_kernel<false, true> : lao_kernel<false, false>;
+  return tf_bf16 ? lao_kernel<false, true, Row, kCount>
+                 : lao_kernel<false, false, Row, kCount>;
+}
+
+Kernel pick(int table_bf16, int tf_bf16, int rows64, bool count) {
+  if (count) {
+    return rows64 ? pick_row<int64_t, true>(table_bf16, tf_bf16)
+                  : pick_row<int, true>(table_bf16, tf_bf16);
+  }
+  return rows64 ? pick_row<int64_t, false>(table_bf16, tf_bf16)
+                : pick_row<int, false>(table_bf16, tf_bf16);
+}
+
+int launch(const void* prepared, void* state, void* counts, void* stream) {
+  const VptLaoArgs& a = *static_cast<const VptLaoArgs*>(prepared);
+  VptDeviceGuard guard(a.device);
+  if (a.width <= 0 || a.height <= 0) return 0;
+  const Kernel kernel = pick(a.table_bf16, a.tf_bf16, a.rows64,
+                             counts != nullptr);
+  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
+  kernel<<<blocks, kVptTileThreads, 0, (cudaStream_t)stream>>>(
+      a, static_cast<float4*>(state),
+      static_cast<unsigned long long*>(counts));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -304,26 +374,26 @@ Kernel pick(int table_bf16, int tf_bf16) {
 // resolution; state the (height, width, 4) frame it writes.
 extern "C" int vpt_lao_launch(const void* prepared, void* state,
                               void* stream) {
-  const VptLaoArgs& a = *static_cast<const VptLaoArgs*>(prepared);
-  VptDeviceGuard guard(a.device);
-  if (a.width <= 0 || a.height <= 0) return 0;
-  const Kernel kernel = pick(a.table_bf16, a.tf_bf16);
-  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
-  kernel<<<blocks, kVptTileThreads, 0, (cudaStream_t)stream>>>(
-      a, static_cast<float4*>(state));
-  return (int)cudaGetLastError();
+  return launch(prepared, state, nullptr, stream);
 }
 
-// The launch shape for a corner table of bf16 (or float32) rows and a
-// packed TF table of bf16 (or float32) on `device`: out = threads a block,
-// resident blocks an SM, SMs, registers a thread, local (spilled) bytes a
-// thread, static shared bytes a block, the block's tile width and height,
-// the warp's tile width in pixels and the AO taps read ahead of their fold.
-// Launches nothing.
-extern "C" int vpt_lao_info(int table_bf16, int tf_bf16, int device,
-                            int* out) {
+// One frame that also adds to counts (2 int64) its pixels' active slices
+// and the slices their warps step through.
+extern "C" int vpt_lao_count(const void* prepared, void* state,
+                             void* counts, void* stream) {
+  return launch(prepared, state, counts, stream);
+}
+
+// The launch shape for a corner table of bf16 (or float32) rows, a packed
+// TF table of bf16 (or float32) and 64-bit (or 32-bit) row indices on
+// `device`: out = threads a block, resident blocks an SM, SMs, registers a
+// thread, local (spilled) bytes a thread, static shared bytes a block, the
+// block's tile width and height, the warp's tile width in pixels and the
+// AO taps read ahead of their fold.  Launches nothing.
+extern "C" int vpt_lao_info(int table_bf16, int tf_bf16, int rows64,
+                            int device, int* out) {
   VptDeviceGuard guard(device);
-  const Kernel kernel = pick(table_bf16, tf_bf16);
+  const Kernel kernel = pick(table_bf16, tf_bf16, rows64, false);
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, kVptTileThreads, 0);

@@ -140,9 +140,14 @@ __device__ __forceinline__ VptRow<kBf16> vpt_load_row(const void* table,
   }
 }
 
-template <bool kBf16, class Row>
-__device__ __forceinline__ float vpt_lerp_row(const VptRow<kBf16>& r,
-                                              const VptCell<Row>& cell) {
+// The lerp chain from the fractions f and their complements g = 1 - f of
+// the three axes (a kernel that shares one axis's coordinate between
+// several fetches computes each g once).
+template <bool kBf16>
+__device__ __forceinline__ float vpt_lerp_row_fg(const VptRow<kBf16>& r,
+                                                 float fx, float gx,
+                                                 float fy, float gy,
+                                                 float fz, float gz) {
   float c[8];
   if constexpr (kBf16) {
     const uint32_t words[4] = {r.q.x, r.q.y, r.q.z, r.q.w};
@@ -155,8 +160,6 @@ __device__ __forceinline__ float vpt_lerp_row(const VptRow<kBf16>& r,
     c[0] = r.a.x; c[1] = r.a.y; c[2] = r.a.z; c[3] = r.a.w;
     c[4] = r.b.x; c[5] = r.b.y; c[6] = r.b.z; c[7] = r.b.w;
   }
-  const float fx = cell.fx, fy = cell.fy, fz = cell.fz;
-  float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
   float cx0 = c[0] * gx + c[1] * fx;
   float cx1 = c[2] * gx + c[3] * fx;
   float cx2 = c[4] * gx + c[5] * fx;
@@ -166,12 +169,20 @@ __device__ __forceinline__ float vpt_lerp_row(const VptRow<kBf16>& r,
   return cy0 * gz + cy1 * fz;
 }
 
-// The whole fetch, with a 64-bit row index (any table).
-template <bool kBf16>
+template <bool kBf16, class Row>
+__device__ __forceinline__ float vpt_lerp_row(const VptRow<kBf16>& r,
+                                              const VptCell<Row>& cell) {
+  return vpt_lerp_row_fg<kBf16>(r, cell.fx, 1.0f - cell.fx, cell.fy,
+                                1.0f - cell.fy, cell.fz, 1.0f - cell.fz);
+}
+
+// The whole fetch, with a 64-bit row index (any table) unless Row says
+// otherwise.
+template <bool kBf16, class Row = int64_t>
 __device__ __forceinline__ float vpt_fetch(const void* table, int d, int h,
                                            int w, float px, float py,
                                            float pz) {
-  const VptCell<int64_t> cell = vpt_cell<int64_t>(d, h, w, px, py, pz);
+  const VptCell<Row> cell = vpt_cell<Row>(d, h, w, px, py, pz);
   return vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(table, cell.row), cell);
 }
 

@@ -82,15 +82,17 @@ SIGNATURES = {
     # extinction, cell; use_skip; direction xyz, n; stream
     "vpt_mcs_frame": ([_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I, _I]
                       + [_F] * 3 + [_I] + [_F] * 4 + [_P]),
-    # prepared VptDosArgs, color, occlusion, scratch occlusion, the frame's
-    # slice rows, steps; stream
-    "vpt_dos_sweep_launch": [_P, _P, _P, _P, _P, _I, _P],
-    # bf16, TF mode, device, out
-    "vpt_dos_sweep_info": [_I, _I, _I, _P],
+    # prepared VptDosArgs; color, occlusion, scratch occlusion, depth,
+    # max depth, slice distance, offsets, the table's rows or null; stream
+    "vpt_dos_frame": [_P] * 10,
+    # bf16, TF mode, steps, disk taps, device, out
+    "vpt_dos_sweep_info": [_I, _I, _I, _I, _I, _P],
     # prepared VptLaoArgs, state; stream
     "vpt_lao_launch": [_P, _P, _P],
-    # bf16 corner table, bf16 TF table, device, out
-    "vpt_lao_info": [_I, _I, _I, _P],
+    # prepared VptLaoArgs, state, counts; stream
+    "vpt_lao_count": [_P, _P, _P, _P],
+    # bf16 corner table, bf16 TF table, 64-bit rows, device, out
+    "vpt_lao_info": [_I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -4,30 +4,34 @@ There is no Pallas original: in ``vpt_tpu`` a frame is an XLA ``lax.scan``
 over the slices (``vpt_tpu/renderers/dos.py:126-212``, the taps of
 ``_shifted_occlusion_taps`` ``:43-86``).  Here it is
 
-- :func:`sweep_frame_plain`, ``renderers/dos.composite_slices`` on the
-  scene with ``kernels=False``, on any device;
-- the CUDA kernel ``csrc/dos_sweep.cu``: one launch a slice, one thread a
-  pixel, which unprojects the pixel at the slice's NDC depth, takes one
-  colour fetch (the corner fetch of ``csrc/ray.cuh``, the TF lookup of
-  ``csrc/tf1d.cuh``), composites it into the colour state in place and
-  writes the new occlusion (the mean of the disk taps of the previous
-  buffer times the slice transmittance) into the other of two occlusion
-  buffers.  One C call issues the frame's ``steps`` launches.
-
-Every slice reads its neighbours' previous occlusion, so a slice is a step
-across the whole image: the launches ping-pong the state's occlusion buffer
-and a scratch buffer of the same shape, and the state ends with the buffer
-that holds the last slice's (the scratch one when ``steps`` is odd).
+- :func:`sweep_frame_plain`, ``renderers/dos.slice_table``,
+  ``composite_slices`` on the scene with ``kernels=False`` and
+  ``advance_depth``, on any device;
+- the CUDA kernel ``csrc/dos_sweep.cu``: one cooperative launch a frame, a
+  persistent grid over the pixels that runs the frame's slices with a
+  grid-wide barrier between them.  Each block computes each slice's row of
+  the table (NDC depth, active flag, slice distance, each tap's shift and
+  fraction) itself, with :func:`slice_table`'s operations; a pixel
+  unprojects at the slice's NDC depth, takes one colour fetch (the corner
+  fetch of ``csrc/ray.cuh``, the TF lookup of ``csrc/tf1d.cuh``) before the
+  barrier, then composites it into the colour state in place and writes the
+  new occlusion (the mean of the disk taps of the previous buffer times the
+  slice transmittance) into the other of two occlusion buffers.  The loop
+  stops at the first slice past the far depth; the state's occlusion
+  tensor ends holding the last slice's buffer (copied back after an odd
+  number of slices), and the kernel advances the state's depth in place by
+  the active slices.
 
 :func:`sweep_frame` takes the plain version for CPU state and launches the
 kernel for CUDA state; it raises on what the kernel does not take
-(unpacked scenes, images of 2^31 pixels or more) and never falls back.
-Both read the frame's per-slice constants (NDC depth, active flag, slice
-distance, each tap's shift and fraction) from ``dos.slice_table``, built on
-the state's device, so they hold the same bits and the frame reads nothing
-back to the host.  What a launch takes of the scene, the Params and the
-resolution it prepares once (``VptDosArgs``, passed as one pointer).
-:data:`LAUNCHES` counts kernel launches: ``steps`` a frame.
+(unpacked scenes, images of 2^31 pixels or more, a grid the card cannot
+hold at once) and never falls back.  A frame reads nothing back to the
+host.  What a launch takes of the scene, the Params and the resolution it
+prepares once (``VptDosArgs``, passed as one pointer), with
+``tan(aperture)`` from ``dos._tan_aperture`` on the scene's device, so that
+the kernel's rows equal :func:`slice_table`'s bit for bit;
+:func:`slice_rows_plain` is the kernel's row computation in numpy float32
+scalars.  :data:`LAUNCHES` counts kernel launches: one a frame.
 """
 
 from __future__ import annotations
@@ -40,8 +44,13 @@ import torch
 
 from . import _build
 
-#: kernel launches (one a slice) since the last reset (set to 0 to reset)
+#: kernel launches (one a frame) since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: the leading floats of a table row (``dos.TABLE_HEAD``)
+_HEAD = 4
+#: the most disk taps the kernel takes: a block holds at least one row of
+#: 4 + 4·N floats in its 32 KB of rows (``kRowBytes``)
+MAX_SAMPLES = (32 * 1024 // 4 - _HEAD) // 4
 
 
 def sweep_frame_plain(state, scene, params):
@@ -54,93 +63,165 @@ def sweep_frame_plain(state, scene, params):
     dos.advance_depth(state, table)
 
 
+def slice_rows_plain(depth, max_depth, slice_distance, projection, offsets,
+                     tan_aperture, steps: int, height: int, width: int):
+    """The kernel's rows of a frame (``dos_row`` of ``csrc/dos_sweep.cu``)
+    in numpy float32 scalars, one operation at a time in its order: a
+    (steps, 4 + 4·N) float32 array that equals ``dos.slice_table`` bit for
+    bit.  ``projection`` is the 4×4 row-major projection, ``offsets`` the
+    (N, 2) disk offsets, ``tan_aperture`` the float32 of
+    ``dos._tan_aperture``."""
+    f = np.float32
+    m = np.asarray(projection, np.float32).reshape(4, 4)
+    off = np.asarray(offsets, np.float32).reshape(-1, 2)
+    depth, max_depth, sd = f(depth), f(max_depth), f(slice_distance)
+    one, lim = f(1.0), f(width + 1)
+    dims = (f(width), f(height))
+    extent = sd * f(tan_aperture)
+    rows = np.zeros((steps, _HEAD + 4 * len(off)), np.float32)
+    for k in range(steps):
+        dk = depth + f(k) * sd
+        out = [one * m[r, 0] + one * m[r, 1] + -dk * m[r, 2]
+               + one * m[r, 3] for r in range(4)]
+        corr = [out[j] / out[3] for j in range(3)]
+        scale = (corr[0] * extent, corr[1] * extent)
+        rows[k, :_HEAD] = (corr[2], one if dk <= max_depth else f(0.0), sd,
+                           f(0.0))
+        for j in range(len(off)):
+            for c in range(2):
+                dd = off[j, c] * scale[c] * dims[c]
+                base = np.minimum(np.maximum(np.floor(dd), -lim), lim)
+                rows[k, _HEAD + 4 * j + c] = base
+                rows[k, _HEAD + 4 * j + 2 + c] = dd - base
+    return rows
+
+
 class _Args(ctypes.Structure):
     """``VptDosArgs`` of ``csrc/dos_sweep.cu``."""
-    _fields_ = [("table", ctypes.c_void_p), ("tf_row", ctypes.c_void_p),
-                ("mvp", ctypes.c_void_p), ("table_bf16", ctypes.c_int),
-                ("d", ctypes.c_int), ("h", ctypes.c_int), ("w", ctypes.c_int),
-                ("tw", ctypes.c_int), ("tf_mode", ctypes.c_int),
-                ("width", ctypes.c_int), ("height", ctypes.c_int),
-                ("samples", ctypes.c_int), ("extinction", ctypes.c_float),
-                ("device", ctypes.c_int)]
+    _fields_ = ([(name, ctypes.c_void_p) for name in
+                 ("table", "tf_row", "mvp", "projection")]
+                + [(name, ctypes.c_int) for name in
+                   ("table_bf16", "d", "h", "w", "tw", "tf_mode", "width",
+                    "height", "samples", "steps")]
+                + [(name, ctypes.c_float) for name in
+                   ("extinction", "tan_aperture")]
+                + [(name, ctypes.c_int) for name in ("blocks", "device")])
 
 
 def _fields(scene):
     return (scene.volume_packed, scene.transfer_1d, scene.mvp_inverse,
-            scene.tf_mxu)
+            scene.projection, scene.tf_mxu)
 
 
 def _prepare(scene, key):
     """What every frame of ``key`` = (params, height, width) takes of the
-    scene: the checked tensors and the ``VptDosArgs``."""
+    scene: the checked tensors, ``tan(aperture)`` and the ``VptDosArgs``
+    with the cooperative grid."""
+    from ..renderers import dos
+
     params, height, width = key
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the DOS kernel indexes pixels "
                          "with 32-bit integers")
+    if not 1 <= params.samples <= MAX_SAMPLES or params.steps < 1:
+        raise ValueError(f"the DOS kernel takes 1 to {MAX_SAMPLES} disk "
+                         "taps and at least one slice a frame")
     tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp) = \
         _build.scene_args(scene, scene.volume_packed, "DOS")
+    projection = scene.projection.to(torch.float32).contiguous()
+    tan_aperture = float(dos._tan_aperture(params, scene.device))
     device = scene.volume.get_device()
-    args = _Args(table, row, mvp, bf16, d, h, w, tw, tf_mode, width, height,
-                 params.samples, float(np.float32(params.extinction)), device)
+    blocks = 0
+    if device >= 0:
+        occ = occupancy(tensors[0].dtype, tf_mode, params.samples,
+                        params.steps, device)
+        blocks = occ["blocks_per_sm"] * occ["sms"]
+        if blocks == 0:
+            raise RuntimeError("the DOS kernel fits no block on an SM")
+    args = _Args(table, row, mvp, projection.data_ptr(), bf16, d, h, w, tw,
+                 tf_mode, width, height, params.samples, params.steps,
+                 float(np.float32(params.extinction)), tan_aperture, blocks,
+                 device)
     return _build.Prepared(
-        tensors=tensors, args=args, address=ctypes.addressof(args),
-        device=device, color_shape=torch.Size((height, width, 4)),
+        tensors=(*tensors, projection), args=args,
+        address=ctypes.addressof(args), device=device,
+        color_shape=torch.Size((height, width, 4)),
         occlusion_shape=torch.Size((height, width)),
-        launch=_build.library().vpt_dos_sweep_launch if device >= 0
-        else None)
+        table_shape=(params.steps, _HEAD + 4 * params.samples), scratch={},
+        launch=_build.library().vpt_dos_frame if device >= 0 else None)
 
 
 #: the last (scene, params, resolution)'s preparation
 _scene_cache = _build.LastScene(_prepare, _fields)
 
 
-def sweep_frame(state, scene, params):
-    """``params.steps`` slices of the sweep, in place on the DOS state
-    (whose ``occlusion`` entry may become the other buffer), then the
-    depth advanced by the active slices."""
-    from ..renderers import dos
+def _check_tensor(tensor, shape, device, what):
+    if tensor.device != device or tensor.dtype != torch.float32 \
+            or tuple(tensor.shape) != tuple(shape) \
+            or not tensor.is_contiguous():
+        raise ValueError(f"the DOS {what} must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {device}")
 
+
+def sweep_frame(state, scene, params, table=None):
+    """``params.steps`` slices of the sweep, in place on the DOS state
+    (its colour, occlusion and depth), in one launch.  ``table``: None, or
+    a CUDA float32 (steps, 4 + 4·N) tensor that receives the frame's rows
+    as the kernel computed them (``dos.slice_table``'s)."""
     color, occlusion = state["color"], state["occlusion"]
     if not color.is_cuda:
+        if table is not None:
+            raise ValueError("the plain sweep writes no table")
         sweep_frame_plain(state, scene, params)
         return
     global LAUNCHES
     p = _scene_cache.get(scene, (params,) + tuple(color.shape[:2]))
+    device = color.device
     if color.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
-                         f"{color.device}")
-    _build.check_image(color, p.color_shape, color.device, "the DOS color")
-    _build.check_image(occlusion, p.occlusion_shape, color.device,
+                         f"{device}")
+    _build.check_image(color, p.color_shape, device, "the DOS color")
+    _build.check_image(occlusion, p.occlusion_shape, device,
                        "the DOS occlusion")
     _build.check_aligned(color, "the DOS color")
-    if tuple(state["offsets"].shape) != (params.samples, 2):
-        raise ValueError(f"the DOS offsets must be ({params.samples}, 2)")
-    table = dos.slice_table(state, scene, params)
-    scratch = occlusion.new_empty(occlusion.shape)
+    offsets = state["offsets"]
+    _check_tensor(offsets, (params.samples, 2), device, "offsets")
+    scalars = [state[k] for k in ("depth", "max_depth", "slice_distance")]
+    for key, value in zip(("depth", "max_depth", "slice_distance"), scalars):
+        _check_tensor(value, (), device, key)
+    if table is not None:
+        _check_tensor(table, p.table_shape, device, "table")
+    stream = _build.current_stream(p.device)
+    scratch = p.scratch.get(stream)
+    if scratch is None:
+        scratch = p.scratch[stream] = occlusion.new_empty(occlusion.shape)
     err = p.launch(p.address, color.data_ptr(), occlusion.data_ptr(),
-                   scratch.data_ptr(), table.data_ptr(), params.steps,
-                   _build.current_stream(p.device))
+                   scratch.data_ptr(), *(v.data_ptr() for v in scalars),
+                   offsets.data_ptr(),
+                   None if table is None else table.data_ptr(), stream)
     if err:
-        _build.check("vpt_dos_sweep_launch", err)
-    LAUNCHES += params.steps
-    if params.steps % 2:
-        state["occlusion"] = scratch
-    dos.advance_depth(state, table)
+        _build.check("vpt_dos_frame", err)
+    LAUNCHES += 1
 
 
 #: the fields of :func:`occupancy`, in the order ``vpt_dos_sweep_info``
 #: writes them
 OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
-                    "registers", "local_bytes", "static_smem_bytes")
+                    "registers", "local_bytes", "static_smem_bytes",
+                    "dynamic_smem_bytes", "rows_at_once")
 
 
-def occupancy(table_dtype, tf_mode: int = 0, device: int = 0) -> dict:
-    """The slice kernel's launch shape on CUDA ``device`` for a corner
-    table of ``table_dtype`` and the TF lookup mode ``tf_mode``
-    (``tf1d.mode_code``): threads a block, resident blocks an SM, SMs,
-    registers and local (spill) bytes a thread, static shared memory a
-    block.  Launches nothing."""
+def occupancy(table_dtype, tf_mode: int = 0, samples: int = 8,
+              steps: int = 50, device: int = 0) -> dict:
+    """The kernel's launch shape on CUDA ``device`` for a corner table of
+    ``table_dtype``, the TF lookup mode ``tf_mode`` (``tf1d.mode_code``),
+    ``samples`` disk taps and ``steps`` slices a frame: threads a block,
+    resident blocks an SM (the cooperative grid is that times the SMs),
+    SMs, registers and local (spill) bytes a thread, static and dynamic
+    shared memory a block, and the slices whose rows a block holds at
+    once.  Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
     _build.check("vpt_dos_sweep_info", _build.library().vpt_dos_sweep_info(
-        int(table_dtype == torch.bfloat16), tf_mode, device, out))
+        int(table_dtype == torch.bfloat16), tf_mode, steps, samples, device,
+        out))
     return dict(zip(OCCUPANCY_FIELDS, out))

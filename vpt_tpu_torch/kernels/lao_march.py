@@ -8,8 +8,9 @@ is
   ``kernels=False``, on any device;
 - the CUDA kernel ``csrc/lao_march.cu``: one thread a pixel of an 8×4 warp
   tile marches its ray in registers, each slice taking the value and the
-  six-tap raw gradient, the AO taps along the half-vector, the soft-shadow
-  tap (the corner fetch of ``csrc/ray.cuh``), the 2D TF lookup of (value,
+  six-tap raw gradient (the seven cells from each axis's coordinates
+  computed once), the AO taps along the half-vector, the soft-shadow tap
+  (the corner fetch of ``csrc/ray.cuh``), the 2D TF lookup of (value,
   |∇|) from the packed TF table and the composite, and leaves its loop once
   the pixel is inactive; it writes the frame into the state.
 
@@ -22,6 +23,8 @@ computing with the plain version's own functions on the scene's device what
 it needs of them: the per-pixel random value ``rx`` (an (H, W) tensor), the
 constant ``rconst``, the light and the AO taps, so that the kernel reads
 the bits the plain version computes and evaluates no ``cos``/``sin`` itself.
+Corner rows are indexed with 32-bit integers in tables of fewer than
+:data:`ROWS32` rows, else with 64.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: corner tables of fewer rows than this index them with 32-bit integers,
+#: larger ones with 64
+ROWS32 = 2 ** 31
 
 
 def lao_frame_plain(state, scene, params):
@@ -59,7 +65,7 @@ class _Args(ctypes.Structure):
                    ("step", "extinction", "lao_weight", "soft_weight",
                     "light_radius", "light_coefficient", "lx", "ly", "lz",
                     "rconst")]
-                + [("device", ctypes.c_int)])
+                + [(name, ctypes.c_int) for name in ("device", "rows64")])
 
 
 def _fields(scene):
@@ -119,22 +125,29 @@ def _prepare(scene, key):
                  f32(params.extinction), f32(params.lao_weight),
                  f32(params.soft_shadows_weight), f32(params.light_radius),
                  f32(params.light_coefficient), *light, rconst,
-                 scene.volume.get_device())
+                 scene.volume.get_device(), int(d * h * w >= ROWS32))
+    lib = _build.library() if args.device >= 0 else None
     return _build.Prepared(
         tensors=(*tensors, tf, rx, taps), args=args,
         address=ctypes.addressof(args), device=args.device,
         shape=torch.Size((height, width, 4)), rx=rx,
-        launch=_build.library().vpt_lao_launch if args.device >= 0
-        else None)
+        launch=lib.vpt_lao_launch if lib else None,
+        count=lib.vpt_lao_count if lib else None)
 
 
 #: the last (scene, params, resolution)'s preparation
 _scene_cache = _build.LastScene(_prepare, _fields)
 
 
-def lao_frame(state, scene, params):
-    """One LAO frame written into ``state`` (H, W, 4)."""
+def lao_frame(state, scene, params, counts=None):
+    """One LAO frame written into ``state`` (H, W, 4).  ``counts``: None,
+    or a CUDA int64 tensor of 2 on the state's device to which the frame
+    adds its pixels' active slices (the lane-slices that do work) and the
+    slices its warps step through (lane-slices over 32 times those is the
+    share of the lanes that work)."""
     if not state.is_cuda:
+        if counts is not None:
+            raise ValueError("the plain LAO frame counts nothing")
         lao_frame_plain(state, scene, params)
         return
     global LAUNCHES
@@ -144,8 +157,17 @@ def lao_frame(state, scene, params):
                          f"{state.device}")
     _build.check_image(state, p.shape, state.device, "the lao state")
     _build.check_aligned(state, "the lao state")
-    err = p.launch(p.address, state.data_ptr(),
-                   _build.current_stream(p.device))
+    if counts is not None and (
+            counts.dtype is not torch.int64 or counts.shape != (2,)
+            or counts.get_device() != p.device
+            or not counts.is_contiguous()):
+        raise ValueError("counts must be a contiguous int64 (2,) tensor on "
+                         "the state's device")
+    stream = _build.current_stream(p.device)
+    if counts is None:
+        err = p.launch(p.address, state.data_ptr(), stream)
+    else:
+        err = p.count(p.address, state.data_ptr(), counts.data_ptr(), stream)
     if err:
         _build.check("vpt_lao_launch", err)
     LAUNCHES += 1
@@ -158,16 +180,17 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
                     "tile_width", "tile_height", "warp_width", "group")
 
 
-def occupancy(table_dtype, tf_dtype=None, device: int = 0) -> dict:
+def occupancy(table_dtype, tf_dtype=None, rows64: bool = False,
+              device: int = 0) -> dict:
     """The kernel's launch shape on CUDA ``device`` for a corner table of
-    ``table_dtype`` and a packed TF table of ``tf_dtype`` (default: the
-    same): threads a block, resident blocks an SM, SMs, registers and
-    local (spill) bytes a thread, static shared memory a block, its pixel
-    tile and the AO taps it reads ahead of their fold.  Launches
-    nothing."""
+    ``table_dtype``, a packed TF table of ``tf_dtype`` (default: the same)
+    and 32-bit (or, ``rows64``, 64-bit) row indices: threads a block,
+    resident blocks an SM, SMs, registers and local (spill) bytes a thread,
+    static shared memory a block, its pixel tile and the AO taps it reads
+    ahead of their fold.  Launches nothing."""
     tf_dtype = table_dtype if tf_dtype is None else tf_dtype
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
     _build.check("vpt_lao_info", _build.library().vpt_lao_info(
         int(table_dtype == torch.bfloat16), int(tf_dtype == torch.bfloat16),
-        device, out))
+        int(rows64), device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

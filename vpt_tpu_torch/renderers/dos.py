@@ -12,9 +12,9 @@ The state is a dict: ``color`` (H, W, 4), ``occlusion`` (H, W), the 0-d
 ``depth``, ``max_depth`` and ``slice_distance``, and the (N, 2) disk
 ``offsets``.  :func:`render_frame` runs the frame through
 ``kernels/dos_sweep.py``: the plain slices of :func:`composite_slices` on
-the CPU, one launch of the slice kernel (K9) a slice on the card.  Both
-take the frame's per-slice constants from :func:`slice_table`, which
-computes them on the state's device.
+the CPU, which take the frame's per-slice constants from
+:func:`slice_table`, and one launch of the slice kernel (K9) a frame on
+the card, which computes the same constants itself, bit for bit.
 
 The sharding hooks of ``vpt_tpu`` (``ndc=``, ``sample_occlusion=``, for
 ``parallel/dos_halo.py``) are not ported and raise.
@@ -23,6 +23,7 @@ The sharding hooks of ``vpt_tpu`` (``ndc=``, ``sample_occlusion=``, for
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -64,7 +65,11 @@ def _depth_range(model_view):
     """[min, max] of −(V·M·C · corner).z over the 8 cube corners
     (calculateDepth, DOSRenderer.js:140-164); min clamped to 0.  Two 0-d
     tensors."""
-    cam = math3d.transform_point(model_view, _CORNERS)
+    # the corners as a cached device constant: a host array would be a
+    # copy that waits for the card's queue at every reset
+    corners = constant(tuple(map(tuple, _CORNERS.tolist())), torch.float32,
+                       model_view.device)
+    cam = math3d.transform_point(model_view, corners)
     depths = -cam[:, 2]
     return torch.clamp(depths.min(), min=0.0), depths.max()
 
@@ -85,8 +90,16 @@ def reset(params: Params, height: int, width: int, scene: Scene = None):
         # the true quotient on every device (a tensor divisor)
         "slice_distance": (max_depth - min_depth)
         / torch.full_like(max_depth, params.slices),
-        "offsets": _occlusion_samples(params.samples, device),
+        "offsets": _samples_on(params.samples, device).clone(),
     }
+
+
+@functools.lru_cache(maxsize=16)
+def _samples_on(count: int, device):
+    """:func:`_occlusion_samples` once per (count, device), which a reset
+    would otherwise run as ~60 small tensor ops; callers copy it."""
+    with torch.inference_mode(False):
+        return _occlusion_samples(count, device)
 
 
 def tap_shifts(offsets, occlusion_scale, height: int, width: int):
@@ -159,8 +172,9 @@ def slice_table(state, scene: Scene, params: Params):
     tap (bx, by, fx, fy) of :func:`tap_shifts`.  ``depth_k = depth + k·Δ``
     and the NDC depth and occlusion scale come from ``transform_point
     (projection, [1, 1, −depth_k])`` (DOSRenderer.js:240-248), in
-    ``vpt_tpu``'s order.  The plain slices and the kernel read the same
-    table; building it reads nothing back to the host."""
+    ``vpt_tpu``'s order.  The plain slices read it; the kernel computes
+    the same rows itself (``kernels/dos_sweep.slice_rows_plain`` is its
+    scalar twin); building it reads nothing back to the host."""
     color = state["color"]
     h, w = color.shape[:2]
     n = params.steps
@@ -223,8 +237,7 @@ def composite_slices(state, scene: Scene, params: Params, table):
 def render_frame(state, scene: Scene, params: Params, seed, frame_number,
                  *, ndc=None, sample_occlusion=None):
     """``steps`` slices of the sweep, in the state (a dict, updated in
-    place; its ``occlusion`` entry may be replaced by the kernel's other
-    buffer)."""
+    place)."""
     del seed, frame_number
     if ndc is not None or sample_occlusion is not None:
         raise _not_ported("DOS's sharding hooks (ndc=, sample_occlusion=)",
