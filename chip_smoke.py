@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's renderers (MCM, EAM, MIP, Depth, ISO,
-MCS, DOS, LAO) and its differentiable MCM fit once on one GPU.
+MCS, DOS, LAO), its ``cli render`` and its differentiable MCM fit once on
+one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path [--part frames|fetch|sweep] TREE ...
@@ -79,15 +80,29 @@ prints no result:
    sphere, each with every launch counter at 0 just before it and read
    just after: one K6, K8, K9 or K10 launch a frame, one K2 a display,
    one K7 an ISO display, no other launch;
-11. the fit path with every launch counter at 0 again: BASELINE config 3's
+11. the serving entry point, ``vpt_tpu_torch.cli.main(["render", ...])``
+   in-process (:func:`phase_cli_path`): a 256³ uint8 BVP written by the
+   port's ``write_bvp``, MCM at 512², 32 spp, ``--precision fast``, cheb-skip,
+   the sRGB TF, reinhard, a PNG and a checkpoint, with the stage seconds
+   on the host clock (load, scene build, frames, display, PNG write), ms a
+   frame and events/s; checked bit for bit against the renderer driven
+   directly on the context's scene and seeds, a 16 + 16-frame resume and
+   the PNG's zlib-decoded pixels; then the eight renderers through
+   ``cli render`` on the same BVP (10 spp, DOS one sweep), and
+   ``blobs:320``, a volume above the 256³ packing rule, on float32 corner
+   tables; each ``cli.main`` with every launch counter at 0 just before it
+   and read just after (one launch of the renderer's kernel a frame, one
+   K2 a display, one K7 an ISO display, no other);
+12. the fit path with every launch counter at 0 again: BASELINE config 3's
    256³ volume (``blobs_volume(256)`` as truth, a constant 0.2 volume as
    init, ``gray_ramp(alpha_scale=0.8)``), a 256² target rendered by the
    port's ``mcm_expected_image`` under ``no_grad``, one timed value-and-grad
    (grad events/s, peak memory), then ``train.fit_mc`` with its default
    Params (extinction 10, steps 16) for 3 Adam steps.  Frames are cut from
    the fit's default 64 to 16 for this script's time limit;
-12. every kernel launched on its path (8, 10 or 11); the JSON line says
-    which call launched each.
+13. every kernel launched on its path (8, 10, 11 or 12); the JSON line
+    says which call launched each, and ``launches_cli`` its launches on
+    the ``cli render`` calls of 11.
 
 Then one JSON line with each kernel's launches, error, loop time per call
 (``ms``, CUDA events) and device time per launch (``device_ms``,
@@ -1789,6 +1804,270 @@ def phase_renderer_paths(dev, counters, headline):
     return paths
 
 
+# -- the serving entry point: cli render (the slice's main path) -----------
+
+def png_pixels(path):
+    """The (H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use
+    filter 0 (what ``io.image.write_png`` writes), decoded with zlib."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, size = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            size = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    check(size is not None and size[2:] == (8, 2), f"{path}: not 8-bit RGB")
+    w, h = size[:2]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)),
+                         np.uint8).reshape(h, 1 + 3 * w)
+    check(bool((rows[:, 0] == 0).all()), f"{path}: a row not in filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def run_cli(argv, counters):
+    """``vpt_tpu_torch.cli.main(argv)`` in-process with every launch
+    counter at 0 just before and read just after, and the scenes it built
+    (``make_scene`` watched for the call).  Returns (its output lines, the
+    launches, the scenes)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from vpt_tpu_torch import cli
+    from vpt_tpu_torch.renderers import base
+
+    built = []
+    make_scene = base.make_scene
+
+    def watched(*args, **kwargs):
+        built.append(make_scene(*args, **kwargs))
+        return built[-1]
+
+    text = io.StringIO()
+    base.make_scene = watched
+    try:
+        for module in counters.values():
+            module.LAUNCHES = 0
+        with contextlib.redirect_stdout(text):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        launches = {name: m.LAUNCHES for name, m in counters.items()}
+    finally:
+        base.make_scene = make_scene
+    return text.getvalue().splitlines(), launches, built
+
+
+def cli_seconds(lines):
+    """The stage seconds that ``cli render`` prints."""
+    import re
+
+    for line in lines:
+        m = re.match(r"seconds \(cuda\): load (\S+), scene (\S+), frames "
+                     r"(\S+) \((\S+) ms a frame, (\S+) events/s\), display "
+                     r"(\S+), png (\S+)$", line)
+        if m:
+            return dict(zip(("load", "scene", "frames", "frame_ms",
+                             "events_per_s", "display", "png"),
+                            map(float, m.groups())))
+    raise SmokeFailure(f"cli render printed no stage seconds: {lines}")
+
+
+def check_cli_launches(name, launches, expected):
+    for kernel, count in launches.items():
+        check(count == expected.get(kernel, 0),
+              f"{name}: {kernel} launched {count} times, not "
+              f"{expected.get(kernel, 0)}")
+
+
+def phase_cli_path(dev, counters):
+    """The serving entry point, ``cli render``, in-process on the card:
+
+    1. ``build/smoke/blobs256.bvp``: the port's ``blobs_volume(256)``
+       through its ``write_bvp`` (256³ uint8, stored);
+    2. MCM at 512², 32 spp, bf16 tables and TF weights, cheb-skip, the sRGB
+       TF, reinhard, a PNG and a checkpoint; the stage seconds on the host
+       clock after a synchronize each, ms a frame and events/s;
+    3. checked bit for bit: (a) a context built from the same arguments
+       renders the CLI's state, and its HDR image is
+       ``make_renderer("mcm")``'s on ``ctx.get_scene()`` with
+       ``ctx._frame_seed(1..32)``; (b) 16 frames, a checkpoint, a fresh
+       context's load and 16 more give the 32 frames' image; (c) the PNG's
+       pixels are ``to_uint8`` of the display;
+    4. each of the eight renderers through ``cli render`` on the BVP at
+       512², default Params, 10 spp (DOS: one sweep);
+    5. ``blobs:320`` through MCM, 4 spp: a volume above the 256³ packing
+       rule, on float32 corner tables.
+
+    Every ``cli.main`` call runs with the launch counters at 0 just before
+    it and read just after.  Returns the launches of each kernel over the
+    calls of 2 and 4."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import cli, volume
+    from vpt_tpu_torch.io import readers, to_uint8
+    from vpt_tpu_torch.renderers import dos, make_renderer
+    from vpt_tpu_torch.runtime import checkpoint
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke")
+    os.makedirs(out, exist_ok=True)
+    bvp = os.path.join(out, "blobs256.bvp")
+    t0 = time.perf_counter()
+    readers.write_bvp(bvp, volume.blobs_volume(256))
+    print(f"path cli: wrote {bvp}, {os.path.getsize(bvp)} bytes, in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    png, npz = os.path.join(out, "mcm.png"), os.path.join(out, "mcm.npz")
+    argv = ["render", "--volume", bvp, "--renderer", "mcm", "--resolution",
+            "512", "--spp", "32", "--tf-alpha", "0.8", "--tf-srgb",
+            "--precision", "fast", "--tracking", "auto", "--tonemap",
+            "reinhard", "-o", png, "--checkpoint", npz]
+    lines, launches, scenes = run_cli(argv, counters)
+    sec = cli_seconds(lines)
+    check(len(scenes) == 1 and scenes[0].volume_packed.dtype
+          == torch.bfloat16 and scenes[0].tracking_packed is not None,
+          "path cli: not one bf16 scene with a tracking table")
+    check_cli_launches("path cli mcm", launches, {"mcm_event": 32,
+                                                  "tonemap": 1})
+    print(f"path cli mcm 256^3 BVP 512^2 32 spp: load {sec['load']:.4f} s, "
+          f"scene build {sec['scene']:.4f} s, frames {sec['frames']:.4f} s "
+          f"({sec['frame_ms']:.4f} ms a frame, {sec['events_per_s']:.6g} "
+          f"events/s), display {sec['display']:.4f} s, PNG write "
+          f"{sec['png']:.4f} s (host clock, each after "
+          "torch.cuda.synchronize()); launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    totals = dict(launches)
+
+    args = cli.build_parser().parse_args(argv)
+    ctx = cli._build_context(args, dev)
+    ctx.render(frames=32)
+    _, saved, frame, _ = checkpoint.load(npz, device=dev)
+    check(frame == 32 and len(saved) == len(ctx.renderer.state)
+          and all(torch.equal(a, ctx.renderer.state[k]) for a, k in
+                  zip(saved, sorted(ctx.renderer.state))),
+          "path cli: the CLI's state is not a context's of its arguments")
+    scene = ctx.get_scene()
+    direct = make_renderer("mcm", params=ctx.renderer.params, height=512,
+                           width=512)
+    direct.reset(scene)
+    for n in range(1, 33):
+        direct.render(scene, ctx._frame_seed(n))
+    hdr = ctx.get_hdr_image()
+    check(torch.equal(hdr, direct.display(scene)),
+          "path cli (a): the context's HDR image is not the renderer's")
+    part = cli._build_context(args, dev)
+    part.render(frames=16)
+    part.save_checkpoint(os.path.join(out, "half.npz"))
+    resumed = cli._build_context(args, dev)
+    resumed.load_checkpoint(os.path.join(out, "half.npz"))
+    resumed.render(frames=16)
+    check(resumed.renderer.frame_number == 32
+          and torch.equal(resumed.get_hdr_image(), hdr),
+          "path cli (b): 16 + 16 resumed frames are not 32 frames")
+    pixels = png_pixels(png)
+    check(np.array_equal(pixels, to_uint8(ctx.get_display_image())),
+          "path cli (c): the PNG is not to_uint8 of the display")
+    check(bool(torch.isfinite(hdr).all()) and pixels.max() > 0,
+          "path cli: image not finite or black")
+    print(f"path cli checks: (a) HDR equals make_renderer('mcm') on "
+          f"ctx.get_scene() with ctx._frame_seed(1..32), bit for bit; (b) "
+          f"16 + checkpoint + 16 frames equal 32, bit for bit; (c) PNG "
+          f"{pixels.shape} equals to_uint8(display); HDR mean "
+          f"{float(hdr[..., :3].mean()):.6f}", flush=True)
+    # where a cli render's frames go on this scene: the same call again in
+    # a warm process, then MCM's reset, frames from a warm state and K5's
+    # own time, each on the context's renderer
+    lines, _, _ = run_cli(argv[:-4] + ["-o", os.path.join(out, "again.png")],
+                          counters)
+    again = cli_seconds(lines)
+    renderer = ctx.renderer
+    seeds = itertools.count(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renderer.reset(scene)
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    renderer.render(scene, ctx._frame_seed(next(seeds)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(32):
+        renderer.render(scene, ctx._frame_seed(next(seeds)))
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3 / 32
+    device_ms = profiler_device_ms(
+        lambda: renderer.render(scene, ctx._frame_seed(next(seeds))),
+        "mcm_event_kernel", 20)
+    steps = renderer.params.steps
+    print(f"path cli mcm, where the frames go: the same cli render again "
+          f"{again['frame_ms']:.4f} ms a frame (load {again['load']:.4f} s, "
+          f"scene build {again['scene']:.4f} s); mcm.reset "
+          f"{reset_ms:.4f} ms; frames from a warm state {warm_ms:.4f} ms "
+          f"a frame ({512 * 512 * steps / warm_ms * 1e3:.6g} events/s, "
+          f"host clock); K5 {fmt_ms(device_ms)} a frame on the card",
+          flush=True)
+    sweep = dos_sweep_frames(scene, dos.Params(), 512, 512)
+    del ctx, part, resumed, direct, renderer, scene, hdr, scenes
+    torch.cuda.empty_cache()
+
+    for key, kernel in sorted({**PATH_KERNEL, "mcm": "mcm_event"}.items()):
+        spp = sweep if key == "dos" else 10
+        png, npz = (os.path.join(out, f"{key}.{ext}") for ext in ("png",
+                                                                  "npz"))
+        lines, launches, _ = run_cli(
+            ["render", "--volume", bvp, "--renderer", key, "--resolution",
+             "512", "--spp", str(spp), "--tf-alpha", "0.8", "--tf-srgb",
+             "-o", png, "--checkpoint", npz], counters)
+        sec = cli_seconds(lines)
+        expected = {kernel: spp, "tonemap": 1}
+        if key == "iso":
+            expected["iso_shade"] = 1
+        check_cli_launches(f"path cli {key}", launches, expected)
+        _, state, _, _ = checkpoint.load(npz, device="cpu")
+        check(all(bool(torch.isfinite(t).all()) for t in state)
+              and png_pixels(png).max() > 0,
+              f"path cli {key}: state not finite or image black")
+        for name, count in launches.items():
+            totals[name] += count
+        print(f"path cli {key} 512^2 {spp} spp: {sec['frame_ms']:.4f} ms a "
+              f"frame (host clock), frames {sec['frames']:.4f} s, scene "
+              f"build {sec['scene']:.4f} s; launches {kernel} "
+              f"{launches[kernel]}, tonemap {launches['tonemap']}",
+              flush=True)
+    torch.cuda.empty_cache()
+
+    lines, launches, scenes = run_cli(
+        ["render", "--volume", "blobs:320", "--renderer", "mcm", "--spp",
+         "4", "--tf-alpha", "0.8", "--tf-srgb", "-o",
+         os.path.join(out, "mcm320.png")], counters)
+    sec = cli_seconds(lines)
+    check(len(scenes) == 1 and scenes[0].volume_packed.dtype
+          == torch.float32 and scenes[0].transfer_packed.dtype
+          == torch.float32 and scenes[0].tf_mxu == torch.bfloat16,
+          "path cli 320^3: not float32 tables with bf16 TF weights")
+    check_cli_launches("path cli 320^3", launches, {"mcm_event": 4,
+                                                    "tonemap": 1})
+    table = scenes[0].volume_packed
+    print(f"path cli mcm blobs:320 512^2 4 spp: float32 corner tables "
+          f"({table.numel() * 4} bytes), tracking table "
+          f"{scenes[0].tracking_packed.dtype}; scene build "
+          f"{sec['scene']:.4f} s, {sec['frame_ms']:.4f} ms a frame",
+          flush=True)
+    del scenes, table
+    torch.cuda.empty_cache()
+    return totals
+
+
 def run():
     import torch
 
@@ -1864,6 +2143,7 @@ def run():
     paths = phase_renderer_paths(dev, counters, headline)
     del headline
     torch.cuda.empty_cache()
+    cli_launches = phase_cli_path(dev, counters)
     fit_launches = phase_fit_path(dev, counters)
     for path, launches, names in (
             ("forward render", render_launches,
@@ -1942,6 +2222,7 @@ def run():
                                   for p in paths.values())
         else:
             row["launches"] = render_launches[row["name"]]
+        row["launches_cli"] = cli_launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

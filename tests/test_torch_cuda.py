@@ -18,8 +18,10 @@ from vpt_tpu_torch import transfer, volume
 from vpt_tpu_torch.kernels import _build, corner_gather, corner_scatter
 from vpt_tpu_torch.kernels import dos_sweep, iso_shade, lao_march, march
 from vpt_tpu_torch.kernels import mcm_event, mcs_frame, tf1d, tonemap_kernel
-from vpt_tpu_torch.renderers import make_scene
+from vpt_tpu_torch.renderers import base as renderer_base
+from vpt_tpu_torch.renderers import make_renderer, make_scene
 from vpt_tpu_torch.renderers import depth, dos, eam, iso, lao, mcm, mcs, mip
+from vpt_tpu_torch.runtime import RenderingContext
 
 pytestmark = pytest.mark.cuda
 
@@ -1301,3 +1303,113 @@ def test_dos_and_lao_kernels_launch_shapes(cuda):
         assert occ["threads_per_block"] == 128 and occ["blocks_per_sm"] >= 1
         assert occ["tile_width"] * occ["tile_height"] == 128
         assert occ["group"] >= 1
+
+
+# -- the serving layer: the context, checkpoints, the large-volume rule ------
+
+#: the kernel each renderer launches once a frame
+FRAME_KERNEL = {"mcm": mcm_event, "eam": march, "mip": march, "depth": march,
+                "iso": march, "mcs": mcs_frame, "dos": dos_sweep,
+                "lao": lao_march}
+
+
+def _context(cuda, key, res=64):
+    """The CLI's context at ``res``²: 'fast' (bf16 tables and TF weights),
+    the sRGB TF, cheb-skip auto, blobs 24³."""
+    ctx = RenderingContext(resolution=res, tf_srgb=True, device=cuda)
+    ctx.set_volume(volume.blobs_volume(24, seed=3, device=cuda))
+    ctx.set_transfer_function(transfer.gray_ramp(alpha_scale=0.8,
+                                                 device=cuda))
+    ctx.choose_renderer(key)
+    ctx.choose_tone_mapper("reinhard")
+    return ctx
+
+
+@pytest.mark.parametrize("key", ["mcm", "eam", "dos"])
+def test_context_equals_the_direct_renderer(cuda, key):
+    """The context's HDR image after 4 frames is the renderer's driven on
+    ``ctx.get_scene()`` with ``ctx._frame_seed(1..4)``, bit for bit, one
+    kernel launch a frame; a camera move gives the scene new matrices on
+    the card and changes the next image."""
+    ctx = _context(cuda, key)
+    counter = FRAME_KERNEL[key]
+    before = counter.LAUNCHES
+    ctx.render(frames=4)
+    hdr = ctx.get_hdr_image()
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == before + 4
+    scene = ctx.get_scene()
+    assert scene.volume_packed.dtype == torch.bfloat16
+    direct = make_renderer(key, params=ctx.renderer.params, height=64,
+                           width=64)
+    direct.reset(scene)
+    for n in range(1, 5):
+        direct.render(scene, ctx._frame_seed(n))
+    assert torch.equal(hdr, direct.display(scene))
+    ctx.camera_animator.rotate(0.3, 0.1)
+    ctx.render(frames=1)
+    moved = ctx.get_scene()
+    assert moved is not scene and moved.mvp_inverse.is_cuda
+    assert moved.volume_packed is scene.volume_packed
+    assert not torch.equal(moved.mvp_inverse, scene.mvp_inverse)
+    direct.reset(scene)
+    direct.render(scene, ctx._frame_seed(1))
+    assert not torch.equal(ctx.get_hdr_image(), direct.display(scene))
+
+
+@pytest.mark.parametrize("key", ["mcm", "dos"])
+def test_context_resumes_bit_for_bit(cuda, key, tmp_path):
+    """2 frames, a checkpoint, a fresh context's load, 2 more: the image
+    of 4 uninterrupted frames."""
+    whole = _context(cuda, key)
+    whole.render(frames=4)
+    part = _context(cuda, key)
+    part.render(frames=2)
+    part.save_checkpoint(tmp_path / "c.npz")
+    resumed = _context(cuda, key)
+    resumed.load_checkpoint(tmp_path / "c.npz")
+    assert all(t.is_cuda for t in resumed.renderer.state.values())
+    resumed.render(frames=2)
+    assert torch.equal(resumed.get_hdr_image(), whole.get_hdr_image())
+
+
+def test_cli_renders_on_the_card(cuda, tmp_path):
+    """``cli render`` without ``--platform``: the card, one K5 launch a
+    frame and one K2 launch for the display, and a PNG."""
+    from vpt_tpu_torch import cli
+
+    before = (mcm_event.LAUNCHES, tonemap_kernel.LAUNCHES)
+    cli.main(["render", "--volume", "sphere:24", "--resolution", "64",
+              "--spp", "3", "--tf-srgb", "-o", str(tmp_path / "r.png"),
+              "--checkpoint", str(tmp_path / "r.npz")])
+    assert (mcm_event.LAUNCHES, tonemap_kernel.LAUNCHES) \
+        == (before[0] + 3, before[1] + 1)
+    assert (tmp_path / "r.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert (tmp_path / "r.npz").exists()
+
+
+def test_large_volume_rule_builds_float32_tables(cuda, monkeypatch):
+    """Above the packing threshold (lowered to 24³ − 1 voxels here) a CUDA
+    scene packs float32 corner tables, keeps the bf16 TF weights and
+    tracking table, and every renderer renders on it through its kernel;
+    MCM's and EAM's frames equal their plain versions'."""
+    monkeypatch.setattr(renderer_base, "PACK_MAX_VOXELS", 24 ** 3 - 1)
+    scene = _headline_scene(24, cuda)
+    assert scene.volume_packed.dtype == torch.float32
+    assert scene.transfer_packed.dtype == torch.float32
+    assert scene.tracking_packed.dtype == torch.bfloat16
+    assert scene.tf_mxu == torch.bfloat16
+    for key, counter in FRAME_KERNEL.items():
+        renderer = make_renderer(key, height=64, width=64)
+        before = counter.LAUNCHES
+        renderer.reset(scene)
+        renderer.render(scene, 0.3)
+        image = tm.ToneMapper("reinhard")(renderer.display(scene))
+        torch.cuda.synchronize()
+        assert counter.LAUNCHES == before + 1, key
+        assert bool(torch.isfinite(image).all()), key
+    state, plain = _kernel_and_plain(scene, mcm.Params(extinction=40.0,
+                                                       steps=8), 64, 64, 2)
+    assert_frames_agree(state, plain)
+    state, plain = _kernel_frames("eam", scene, 64, 64, 2)
+    assert_kernel_agrees("eam", state, plain)

@@ -1,0 +1,356 @@
+"""Command-line interface of the port.
+
+Mirrors ``vpt_tpu/cli.py``.  The renderer Params dataclasses are
+introspected into flags (``--mcm-extinction``, ``--iso-isovalue``, …), the
+counterpart of the reference's PropertyBag settings dialogs.  Every command
+renders on the CUDA card unless ``--platform cpu`` is given; without a card
+it raises.
+
+    python -m vpt_tpu_torch.cli render --platform cpu --volume sphere:32 \\
+        --renderer eam --resolution 64 --spp 4 -o /tmp/r.png
+
+Subcommands:
+  render   — progressive render of a volume to PNG (sample-counted)
+  serve    — static file server with HTTP Range support (BVP streaming)
+  info     — list renderers / tone mappers / parameters, or the
+             modalities of a BVP archive
+  animate, fit, view — registered; not ported yet (they raise, naming
+             their ROADMAP.md items)
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import sys
+import time
+from pathlib import Path
+
+
+def _add_params_args(parser, key, params_cls):
+    for f in dataclasses.fields(params_cls):
+        name = f"--{key}-{f.name.replace('_', '-')}"
+        default = f.default if f.default is not dataclasses.MISSING else None
+        if isinstance(default, bool):
+            parser.add_argument(name, type=lambda s: s.lower() in
+                                ("1", "true", "yes"), default=None,
+                                metavar="BOOL")
+        elif isinstance(default, int):
+            parser.add_argument(name, type=int, default=None)
+        elif isinstance(default, float):
+            parser.add_argument(name, type=float, default=None)
+        elif isinstance(default, tuple):
+            parser.add_argument(name, type=lambda s: tuple(
+                float(x) for x in s.split(",")), default=None,
+                metavar="X,Y,Z")
+
+
+def _collect_params(args, key, params_cls):
+    kwargs = {}
+    for f in dataclasses.fields(params_cls):
+        val = getattr(args, f"{key}_{f.name}", None)
+        if val is not None:
+            kwargs[f.name] = val
+    return params_cls(**kwargs) if kwargs else params_cls()
+
+
+def _device(args):
+    """The render device: the CPU for ``--platform cpu``, else the card
+    (``utils.resolve_device`` raises without one)."""
+    from .utils import resolve_device
+
+    platform = getattr(args, "platform", None)
+    if platform not in (None, "cpu", "cuda", "gpu"):
+        raise SystemExit(f"unknown --platform {platform!r} (cpu, cuda or "
+                         "gpu)")
+    return resolve_device("cpu" if platform == "cpu" else None)
+
+
+def _load_volume(args, device):
+    from . import volume as vol_mod
+    from .io import readers
+
+    spec = args.volume
+    if spec.startswith("sphere:"):
+        return vol_mod.sphere_volume(int(spec.split(":")[1]), device=device)
+    if spec.startswith("shell:"):
+        return vol_mod.shell_volume(int(spec.split(":")[1]), device=device)
+    if spec.startswith("blobs:"):
+        return vol_mod.blobs_volume(int(spec.split(":")[1]), device=device)
+    if spec.endswith(".bvp") or spec.endswith(".zip"):
+        return readers.load_volume(readers.BVPReader(spec),
+                                   modality=args.modality, device=device)
+    if spec.endswith(".raw"):
+        if not args.raw_dims:
+            raise SystemExit("--raw-dims WIDTH,HEIGHT,DEPTH required "
+                             "for raw volumes")
+        w, h, d = (int(x) for x in args.raw_dims.split(","))
+        gl_type = {"uint8": 5121, "uint16": 5123,
+                   "float32": 5126}[args.raw_type]
+        reader = readers.RAWReader(spec, w, h, d, gl_type=gl_type)
+        return readers.load_volume(reader, device=device)
+    raise SystemExit(f"unrecognized volume spec: {spec}")
+
+
+def _build_context(args, device):
+    from .runtime import RenderingContext
+    from .transfer import TransferFunctionBumps, gray_ramp, rasterize
+
+    ctx = RenderingContext(resolution=args.resolution,
+                           precision=args.precision,
+                           tracking=getattr(args, "tracking", "auto"),
+                           tf_srgb=getattr(args, "tf_srgb", False),
+                           device=device)
+    ctx.set_volume(_load_volume(args, device))
+
+    if args.tf:
+        with open(args.tf) as f:
+            ctx.set_transfer_function(rasterize(
+                TransferFunctionBumps.from_json(f.read(), device)))
+    else:
+        ctx.set_transfer_function(gray_ramp(alpha_scale=args.tf_alpha,
+                                            device=device))
+
+    if args.envmap:
+        from . import environment as env_mod
+        from .io.image import read_image
+        ctx.set_environment_map(env_mod.from_image(read_image(args.envmap),
+                                                   device=device))
+
+    from .renderers import factory
+    params = _collect_params(args, args.renderer,
+                             factory.get_module(args.renderer).Params)
+    ctx.choose_renderer(args.renderer, params=params)
+    ctx.choose_tone_mapper(args.tonemap,
+                           **({"exposure": args.exposure,
+                               "gamma": args.gamma}
+                              if args.tonemap not in ("artistic", "range")
+                              else {}))
+
+    # volume TRS (RenderingContextDialog parity)
+    from . import math3d as m4
+    if getattr(args, "volume_translate", None):
+        ctx.volume_transform.local_translation = args.volume_translate
+    if getattr(args, "volume_rotate", None):
+        ctx.volume_transform.local_rotation = m4.quat_from_euler(
+            *args.volume_rotate)
+    if getattr(args, "volume_scale", None):
+        ctx.volume_transform.local_scale = args.volume_scale
+
+    # camera pose
+    ctx.camera_animator.distance = args.camera_distance
+    ctx.camera_animator.yaw = args.yaw
+    ctx.camera_animator.pitch = args.pitch
+    ctx.camera_animator._update_camera()
+    return ctx
+
+
+def _add_common_args(p):
+    from .renderers import factory
+    from .tonemap import TONE_MAPPERS
+
+    p.add_argument("--volume", required=True,
+                   help="sphere:N | shell:N | blobs:N | file.raw | file.bvp")
+    p.add_argument("--modality", default="default",
+                   help="modality name inside a BVP archive "
+                        "(list with: vpt_tpu_torch info --volume FILE)")
+    p.add_argument("--raw-dims", help="W,H,D for raw volumes")
+    p.add_argument("--raw-type", default="uint8",
+                   choices=["uint8", "uint16", "float32"])
+    p.add_argument("--renderer", default="mcm",
+                   choices=sorted(factory.MODULES))
+    p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--spp", type=int, default=32,
+                   help="progressive samples (frames) to accumulate")
+    p.add_argument("--tf", help="transfer-function JSON (widget format)")
+    p.add_argument("--tf-alpha", type=float, default=1.0,
+                   help="alpha scale of the default gray-ramp TF")
+    p.add_argument("--envmap", help="equirectangular environment image")
+    p.add_argument("--tonemap", default="reinhard",
+                   choices=sorted(TONE_MAPPERS))
+    p.add_argument("--exposure", type=float, default=1.0)
+    p.add_argument("--gamma", type=float, default=2.2)
+    p.add_argument("--camera-distance", type=float, default=2.0)
+    p.add_argument("--yaw", type=float, default=0.0)
+    p.add_argument("--pitch", type=float, default=0.0)
+    p.add_argument("--volume-translate", metavar="X,Y,Z",
+                   type=lambda s: tuple(float(x) for x in s.split(",")))
+    p.add_argument("--volume-rotate", metavar="XDEG,YDEG,ZDEG",
+                   type=lambda s: tuple(float(x) for x in s.split(",")),
+                   help="euler rotation of the volume (degrees)")
+    p.add_argument("--volume-scale", metavar="X,Y,Z",
+                   type=lambda s: tuple(float(x) for x in s.split(",")))
+    p.add_argument("--platform", default=None,
+                   help="cpu: render on the CPU (default: the CUDA card)")
+    p.add_argument("--precision", default="fast",
+                   choices=["fast", "exact"],
+                   help="fast: bf16 sampling tables and TF weights; "
+                        "exact: float32")
+    p.add_argument("--tracking", default="auto",
+                   choices=["none", "cheb", "grid", "auto"],
+                   help="empty-space tracking for the MC renderers: "
+                        "cheb-skip rides the corner fetch (auto engages "
+                        "it on scenes with TF-empty cells); none = the "
+                        "exact GLSL-stream machine; grid (the coarse "
+                        "majorant grid) is not ported")
+    p.add_argument("--tf-srgb", action="store_true",
+                   help="run the TF through the reference's SRGB8_ALPHA8 "
+                        "texture semantics (8-bit quantize + sRGB decode)")
+    for key, module in sorted(factory.MODULES.items()):
+        _add_params_args(p, key, module.Params)
+
+
+def cmd_render(args):
+    """Render ``--spp`` frames and write the display image as a PNG.
+    Prints the seconds of each stage on the host clock, each ended by a
+    synchronize on the card: the context's build (the volume's load), the
+    scene build, the frames, the display and the PNG write."""
+    import torch
+
+    from .io.image import write_png
+
+    device = _device(args)
+    seconds = {}
+
+    def timed(stage, work):
+        t0 = time.perf_counter()
+        out = work()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds[stage] = time.perf_counter() - t0
+        return out
+
+    def load():
+        ctx = _build_context(args, device)
+        if args.resume:
+            ctx.load_checkpoint(args.resume)
+        return ctx
+
+    ctx = timed("load", load)
+    trace = contextlib.nullcontext()
+    if args.trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        trace = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+    with trace:
+        timed("scene", ctx.get_scene)
+        timed("frames", lambda: ctx.render(frames=args.spp))
+        image = timed("display", ctx.get_display_image)
+    dt = seconds["scene"] + seconds["frames"] + seconds["display"]
+    if args.trace:
+        Path(args.trace).mkdir(parents=True, exist_ok=True)
+        trace.export_chrome_trace(str(Path(args.trace) / "trace.json"))
+    timed("png", lambda: write_png(args.output, image))
+    if args.checkpoint:
+        ctx.save_checkpoint(args.checkpoint)
+    events = args.resolution ** 2 * getattr(ctx.renderer.params, "steps", 1) \
+        * args.spp
+    print(f"rendered {args.spp} spp at {args.resolution}^2 in {dt:.2f}s "
+          f"-> {args.output}")
+    print(f"seconds ({device.type}): load {seconds['load']:.4f}, scene "
+          f"{seconds['scene']:.4f}, frames {seconds['frames']:.4f} "
+          f"({1e3 * seconds['frames'] / max(args.spp, 1):.4f} ms a frame, "
+          f"{events / max(seconds['frames'], 1e-12):.6g} events/s), display "
+          f"{seconds['display']:.4f}, png {seconds['png']:.4f}")
+    print(ctx.profiler.summary())
+
+
+def cmd_serve(args):
+    from .io.server import serve
+
+    serve(args.dir, args.port)
+
+
+def cmd_info(args):
+    from .renderers import factory
+    from .tonemap import TONE_MAPPERS
+
+    if getattr(args, "volume", None):
+        import os
+
+        from .io import readers
+
+        if not args.volume.endswith((".bvp", ".zip")):
+            raise SystemExit(
+                f"info --volume expects a .bvp/.zip archive with a "
+                f"manifest, got: {args.volume}")
+        if not os.path.exists(args.volume):
+            raise SystemExit(f"no such file: {args.volume}")
+        mods = readers.list_modalities(readers.BVPReader(args.volume))
+        print(f"modalities in {args.volume}:")
+        for m in mods:
+            dims = m["dimensions"]
+            print(f"  {m['name']:16s} {dims['width']}x{dims['height']}"
+                  f"x{dims['depth']}  format={m['format']} type={m['type']}")
+        return
+
+    print("renderers (Params defaults):")
+    for key, module in sorted(factory.MODULES.items()):
+        fields = ", ".join(
+            f"{f.name}={f.default}" for f in
+            dataclasses.fields(module.Params))
+        print(f"  {key:6s} {fields}")
+    print("tone mappers:", ", ".join(sorted(TONE_MAPPERS)))
+
+
+#: the subcommands of vpt_tpu that the port does not have yet
+NOT_PORTED = {
+    "animate": ("render an animation sequence",
+                "queue 1 item 15, rest (animate, io/video.py)"),
+    "fit": ("inverse-render a volume from images",
+            "queue 1 items 11 and 14 (the EAM fit, inpaint.py)"),
+    "view": ("interactive browser viewer",
+             "queue 1 item 15, rest (runtime/viewer.py)"),
+}
+
+
+def _not_ported(args):
+    raise NotImplementedError(
+        f"cli {args.command} is not ported to vpt_tpu_torch yet "
+        f"(ROADMAP.md {NOT_PORTED[args.command][1]})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="vpt_tpu_torch",
+                                     description=__doc__)
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("render", help="progressive render to PNG")
+    _add_common_args(p)
+    p.add_argument("--output", "-o", default="render.png")
+    p.add_argument("--checkpoint", help="save progressive state here")
+    p.add_argument("--resume", help="resume progressive state from here")
+    p.add_argument("--trace", help="write a torch.profiler trace (Chrome "
+                                   "trace format, trace.json) of the render "
+                                   "to this directory")
+    p.set_defaults(func=cmd_render)
+
+    for name, (text, _) in NOT_PORTED.items():
+        p = sub.add_parser(name, help=f"{text} (not ported yet)")
+        p.set_defaults(func=_not_ported)
+
+    p = sub.add_parser("serve", help="range-request static server")
+    p.add_argument("--dir", default=".")
+    p.add_argument("--port", type=int, default=3000)
+    p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("info", help="list renderers and parameters, or "
+                                    "the modalities of a BVP archive")
+    p.add_argument("--volume", help="BVP archive to inspect")
+    p.set_defaults(func=cmd_info)
+    return parser
+
+
+def main(argv=None):
+    parser = build_parser()
+    # an unported command raises whatever its arguments
+    args, unknown = parser.parse_known_args(argv)
+    if unknown and args.func is not _not_ported:
+        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,19 +1,24 @@
 """Small 3D math (mat4 / quat / vec3) in PyTorch, float32.
 
-Mirrors the subset of ``vpt_tpu/math3d.py`` that the scene graph needs.
-Matrices are row-major and applied as ``M @ v`` with ``v`` a column vector,
+Mirrors ``vpt_tpu/math3d.py``: the vec3 helpers, the mat4 constructors, the
+quaternion helpers after gl-matrix 3.4.1 and ``look_at``.  Arguments may
+be numbers, sequences, numpy arrays or tensors; results are float32 tensors
+on the argument's device (the CPU for anything but a tensor).  Matrices are
+row-major and applied as ``M @ v`` with ``v`` a column vector,
 the mathematical convention of gl-matrix.
 
 Camera math must stay exact float32: TF32 products corrupt the near/far-plane
-terms and give NaN rays.  :func:`matmul` and :func:`invert` therefore switch
-TF32 off for CUDA matrix products and cuDNN before they run
+terms and give NaN rays.  :func:`matmul` therefore switches TF32 off for
+CUDA matrix products and cuDNN before it runs
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
-``torch.backends.cudnn.allow_tf32 = False``), and :func:`apply_mat4` is an
+``torch.backends.cudnn.allow_tf32 = False``), :func:`invert` runs LAPACK's
+float32 LU on the host, as ``vpt_tpu`` does, and :func:`apply_mat4` is an
 elementwise sum in a fixed left-to-right order.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _F32 = torch.float32
@@ -22,6 +27,33 @@ _F32 = torch.float32
 def _exact_float32():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def _f32(x):
+    return torch.as_tensor(x, dtype=_F32)
+
+
+def vec3(x, y=None, z=None):
+    if y is None:
+        return _f32(x)
+    return torch.tensor([x, y, z], dtype=_F32)
+
+
+def normalize(v, eps=1e-12):
+    return v / torch.sqrt(torch.clamp(dot(v, v)[..., None], min=eps))
+
+
+def cross(a, b):
+    return torch.linalg.cross(_f32(a), _f32(b))
+
+
+def dot(a, b):
+    """The sum over the last axis of ``a·b``, left to right."""
+    p = _f32(a) * _f32(b)
+    out = p[..., 0]
+    for i in range(1, p.shape[-1]):
+        out = out + p[..., i]
+    return out
 
 
 def identity(device="cpu"):
@@ -41,8 +73,66 @@ def perspective(fovy, aspect, near, far, device="cpu"):
     return m
 
 
+def translation(t):
+    """Translation matrix (gl-matrix mat4.fromTranslation)."""
+    t = _f32(t)
+    m = torch.eye(4, dtype=_F32, device=t.device)
+    m[:3, 3] = t
+    return m
+
+
+def scaling(s):
+    s = _f32(s)
+    return torch.diag(torch.cat([s, torch.ones(1, dtype=_F32,
+                                                device=s.device)]))
+
+
 def quat_identity(device="cpu"):
     return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=_F32, device=device)
+
+
+def quat_from_axis_angle(axis, angle):
+    axis = normalize(_f32(axis))
+    half = torch.as_tensor(angle, dtype=_F32, device=axis.device) / 2.0
+    return torch.cat([axis * torch.sin(half), torch.cos(half)[None]])
+
+
+def quat_multiply(a, b):
+    """Hamilton product a*b with (x, y, z, w) storage (gl-matrix order)."""
+    ax, ay, az, aw = _f32(a)
+    bx, by, bz, bw = _f32(b)
+    return torch.stack([
+        ax * bw + aw * bx + ay * bz - az * by,
+        ay * bw + aw * by + az * bx - ax * bz,
+        az * bw + aw * bz + ax * by - ay * bx,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ])
+
+
+def quat_normalize(q):
+    q = _f32(q)
+    return q / torch.sqrt(torch.clamp(dot(q, q), min=1e-20))
+
+
+def quat_invert(q):
+    q = _f32(q)
+    conj = torch.stack([-q[0], -q[1], -q[2], q[3]])
+    return conj / torch.clamp(dot(q, q), min=1e-20)
+
+
+def quat_from_euler(x_deg, y_deg, z_deg):
+    """gl-matrix quat.fromEuler (degrees, ZYX application order)."""
+    d2r = torch.tensor(np.pi / 360.0, dtype=_F32)    # half-angle in radians
+    x, y, z = (_f32(v) * d2r for v in (x_deg, y_deg, z_deg))
+    sx, cx = torch.sin(x), torch.cos(x)
+    sy, cy = torch.sin(y), torch.cos(y)
+    sz, cz = torch.sin(z), torch.cos(z)
+    return torch.stack([
+        sx * cy * cz - cx * sy * sz,
+        cx * sy * cz + sx * cy * sz,
+        cx * cy * sz - sx * sy * cz,
+        cx * cy * cz + sx * sy * sz,
+    ])
 
 
 def mat4_from_quat(q):
@@ -76,8 +166,16 @@ def matmul(a, b):
 
 
 def invert(m):
-    _exact_float32()
-    return torch.linalg.inv(m).to(_F32)
+    """The inverse of a (4, 4) matrix as ``vpt_tpu`` takes it on the CPU:
+    LAPACK's LU with partial pivoting in float32 (``getrf``), then the two
+    triangular solves of the identity (``getrs``), through scipy's LAPACK,
+    which jaxlib calls too.  On the host, whatever ``m``'s device; the
+    result goes back to it."""
+    from scipy.linalg import lu_factor, lu_solve
+
+    a = m.detach().cpu().numpy().astype(np.float32)
+    inv = lu_solve(lu_factor(a), np.eye(a.shape[0], dtype=np.float32))
+    return torch.from_numpy(inv.astype(np.float32)).to(m.device)
 
 
 def apply_mat4(m, v4):
@@ -95,3 +193,22 @@ def transform_point(m, p):
                                   device=m.device)], dim=-1)
     out = apply_mat4(m, ph)
     return out[..., :3] / out[..., 3:4]
+
+
+def transform_homogeneous(m, p4):
+    """Apply a mat4 to homogeneous (..., 4) vectors."""
+    return apply_mat4(m, torch.as_tensor(p4, dtype=_F32, device=m.device))
+
+
+def look_at(eye, center, up):
+    """View matrix (gl-matrix mat4.lookAt)."""
+    eye = _f32(eye)
+    f = normalize(_f32(center) - eye)
+    s = normalize(cross(f, up))
+    u = cross(s, f)
+    return torch.stack([
+        torch.cat([s, -dot(s, eye)[None]]),
+        torch.cat([u, -dot(u, eye)[None]]),
+        torch.cat([-f, dot(f, eye)[None]]),
+        torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=_F32, device=eye.device),
+    ])

@@ -172,6 +172,17 @@ class Scene:
 #: cells is TF-empty.
 AUTO_TRACKING_MIN_EMPTY = 0.05
 
+#: ``make_scene(pack=None)`` packs volumes of up to this many voxels in
+#: ``pack_dtype``, as ``vpt_tpu`` does; above it ``vpt_tpu`` samples the
+#: unpacked float32 volume.
+PACK_MAX_VOXELS = 256 ** 3
+
+
+def kernels_sample(device) -> bool:
+    """Whether frames on ``device`` run the CUDA kernels, which sample
+    corner-packed tables only."""
+    return torch.device(device).type == "cuda"
+
 
 def march_interval(scene, ray_from, direction):
     """The ray segment a march renderer samples: the unit-cube slab test
@@ -225,8 +236,14 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     (D, H, W, C) tensor; ``camera`` a scene-graph Node, a CameraState or
     None (the default camera).
 
-    ``pack``: build the corner-packed tables (default: volumes up to 256³).
-    ``pack_dtype``: their dtype, ``torch.float32`` (default) or
+    ``pack``: build the corner-packed tables.  The default packs volumes
+    of up to :data:`PACK_MAX_VOXELS` voxels in ``pack_dtype``.  Above it
+    ``vpt_tpu`` samples the unpacked float32 volume: the port does so on
+    the CPU, and on the card, whose kernels sample corner tables only, it
+    packs the volume and the TF in float32 (their values are the unpacked
+    ones), while the ``tf_mxu`` weights and the tracking table keep
+    ``pack_dtype``, as ``vpt_tpu`` keeps them unpacked.
+    ``pack_dtype``: the tables' dtype, ``torch.float32`` (default) or
     ``torch.bfloat16``.
     ``tf_banks``: accepted for parity with ``vpt_tpu``; the bilinear tf1d
     lookup is the port's only layout of it.
@@ -275,16 +292,19 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
         transfer = to_gl_texture(transfer, srgb=True, quantize=True)
     volume = volume.to(device)
     transfer = transfer.to(device)
+    table_dtype = pack_dtype
     if pack is None:
         pack = volume.shape[0] * volume.shape[1] * volume.shape[2] \
-            <= 256 ** 3
+            <= PACK_MAX_VOXELS
+        if not pack and kernels_sample(device):
+            pack, table_dtype = True, None
     volume_packed = transfer_packed = None
     if pack:
         volume_packed = sampling.pack_corner_volume(volume)
         transfer_packed = sampling.pack_corner_texture2d(transfer)
-        if pack_dtype is not None:
-            volume_packed = volume_packed.to(pack_dtype)
-            transfer_packed = transfer_packed.to(pack_dtype)
+        if table_dtype is not None:
+            volume_packed = volume_packed.to(table_dtype)
+            transfer_packed = transfer_packed.to(table_dtype)
     mxu = (pack_dtype or torch.float32) if tf_mxu else None
     tracking_packed = None
     if tracking in ("cheb", "auto"):

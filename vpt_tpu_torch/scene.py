@@ -1,9 +1,10 @@
 """Scene graph: nodes, TRS transforms, perspective camera.
 
-Mirrors the subset of ``vpt_tpu/scene.py`` the MCM slice needs: ``Transform``,
-``Node``, ``PerspectiveCamera``, ``default_camera``, ``CENTER_MATRIX`` and
-``CameraState.from_nodes``.  Camera math runs on the CPU in float32 (see
-``math3d``); ``make_scene`` moves the three matrices to the render device.
+Mirrors ``vpt_tpu/scene.py`` without the traversal helpers: ``Transform``,
+``Node``, ``PerspectiveCamera``, ``default_camera``, ``CENTER_MATRIX``,
+``mvp_inverse`` and ``CameraState.from_nodes``.  Camera math runs on the
+CPU in float32 (see ``math3d``); ``make_scene`` moves the three matrices to
+the render device.
 """
 
 from __future__ import annotations
@@ -149,6 +150,14 @@ def model_view_matrix(camera: Node, volume_transform: Optional[Transform]):
         else m4.identity()
     view = camera.transform.inverse_global_matrix
     return m4.matmul(m4.matmul(view, model), torch.from_numpy(CENTER_MATRIX))
+
+
+def mvp_inverse(camera: Node, volume_transform: Optional[Transform] = None):
+    """``inv(P @ V @ M @ center)``: the inverse MVP the reference builds per
+    frame (``MCMRenderer.js:164-175``)."""
+    proj = camera.get_component(PerspectiveCamera).projection_matrix
+    return m4.invert(m4.matmul(proj,
+                               model_view_matrix(camera, volume_transform)))
 
 
 @dataclasses.dataclass

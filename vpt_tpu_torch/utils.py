@@ -1,10 +1,12 @@
-"""Interpolation helpers, which mirror the tensor helpers of
-``vpt_tpu/utils.py``, the port's default device and its cache of constant
-tensors."""
+"""Small shared utilities, which mirror ``vpt_tpu/utils.py`` (hex↔rgb
+colors, interpolation helpers, JSON file round trips), the port's default
+device and its cache of constant tensors."""
 
 from __future__ import annotations
 
 import functools
+import json
+from pathlib import Path
 
 import torch
 
@@ -48,3 +50,25 @@ def step(edge, x):
 def smoothstep(edge0, edge1, x):
     t = torch.clamp((x - edge0) / (edge1 - edge0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
+
+
+def hex2rgb(s: str):
+    """'#rrggbb' → (r, g, b) floats in [0, 1] (CommonUtils.hex2rgb)."""
+    s = s.lstrip("#")
+    return tuple(int(s[i:i + 2], 16) / 255.0 for i in (0, 2, 4))
+
+
+def rgb2hex(r: float, g: float, b: float) -> str:
+    def byte(x):
+        return int(max(0.0, min(1.0, x)) * 255.0 + 0.5)
+
+    return "#{:02x}{:02x}{:02x}".format(byte(r), byte(g), byte(b))
+
+
+def download_json(obj, path):
+    """Write an object as JSON (CommonUtils.downloadJSON counterpart)."""
+    Path(path).write_text(json.dumps(obj, indent=2))
+
+
+def read_json(path):
+    return json.loads(Path(path).read_text())

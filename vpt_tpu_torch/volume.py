@@ -56,6 +56,16 @@ def sphere_volume(n: int = 64, center=(0.5, 0.5, 0.5), radius: float = 0.3,
         resolve_device(device)))
 
 
+def shell_volume(n: int = 64, radius: float = 0.35,
+                 thickness: float = 0.08, device=None) -> Volume:
+    """Hollow spherical shell, on ``device`` (default: the card)."""
+    x, y, z = normalized_grid(n, n, n)
+    r = np.sqrt((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2)
+    val = np.exp(-((r - radius) / thickness) ** 2).astype(np.float32)
+    return Volume(torch.from_numpy(val[..., None]).to(
+        resolve_device(device)))
+
+
 def blobs_volume(n: int = 64, seed: int = 0, count: int = 5,
                  device=None) -> Volume:
     """Sum of random Gaussian blobs, an asymmetric test scene, on
@@ -71,4 +81,17 @@ def blobs_volume(n: int = 64, seed: int = 0, count: int = 5,
                              + (z - c[2]) ** 2) / (2 * s * s)))
     val = np.clip(val, 0.0, 1.0).astype(np.float32)
     return Volume(torch.from_numpy(val[..., None]).to(
+        resolve_device(device)))
+
+
+def from_raw_bytes(data: bytes, depth: int, height: int, width: int,
+                   dtype=np.uint8, device=None) -> Volume:
+    """Decode a headerless RAW volume (one scalar per voxel, z-major) on
+    ``device`` (default: the card); integer types normalize to [0, 1] by
+    their maximum (readers/RAWReader.js:15-71)."""
+    arr = np.frombuffer(data, dtype=dtype, count=depth * height * width)
+    arr = arr.reshape(depth, height, width).astype(np.float32)
+    if np.issubdtype(dtype, np.integer):
+        arr = arr / float(np.iinfo(dtype).max)
+    return Volume(torch.from_numpy(arr[..., None]).to(
         resolve_device(device)))
