@@ -5,7 +5,7 @@ march kernel (K10).
 
     python3 bench_mcm_event.py [--kernel mcm_event|march|iso_shade|mcs|lao]
         [--variant NAME=PATH ...] [--frames 30]
-        [--size 512]
+        [--size 512] [--registers]
 
 ``current`` is the kernel's source in ``vpt_tpu_torch/csrc/`` as it
 stands.  Each ``--variant`` is another source of the same kernel that
@@ -25,7 +25,8 @@ headers beside it first, then those of ``csrc/``, with the port's nvcc
 flags plus ``-Xptxas -v``, all builds at once; a build that fails to build
 or to launch is reported and left out.
 
-K5 is driven through the port's wrapper (``kernels/mcm_event.launch_args``)
+K5 is driven through the port's wrapper (``kernels/mcm_event.launch_args``,
+cut to ``vpt_mcm_event``'s list by :func:`mcm_event_args`)
 on the headline's scene (``sphere_volume(128)``, sRGB gray ramp at alpha
 0.8, cheb-skip, bf16 tables, ``tf_mxu``), 512², extinction 40, anisotropy
 0.3, at steps 0 (a launch that only loads, seeds and stores the state), 8
@@ -59,7 +60,10 @@ floor of the frame (that count times the slices the warps step through,
 over 132 SMs × 4 warp-instructions a clock) beside the frame's bytes
 bound; one JSON line per reading and one ``summary`` line per (steps or
 mode, build) with its times over the baseline's (``--baseline``, default
-``current``); and writes all of it as JSON to ``--out``.
+``current``); and writes all of it as JSON to ``--out``.  With
+``--registers`` it builds the sources and prints each build's registers
+and spills per kernel instance (ptxas), launching nothing: a build whose
+C interface differs from the tree's can be compared so.
 """
 
 from __future__ import annotations
@@ -290,10 +294,24 @@ def headline_scene():
                       tf_mxu=True)
 
 
+def mcm_event_args(state, scene, params, seed):
+    """``vpt_mcm_event``'s arguments (a 1x1 environment texel, no grid):
+    the wrapper's ``vpt_mcm_event_frame`` list without EH, EW, the grid
+    and its N."""
+    from vpt_tpu_torch.kernels import mcm_event
+
+    args = mcm_event.launch_args(state, scene, params, seed)
+    env = 15                        # 7 state pointers, 8 of the table's
+    if args[env + 1:env + 5] != (1, 1, None, 0):
+        raise ValueError("vpt_mcm_event takes a 1x1 environment texel and "
+                         "no majorant grid")
+    return (*args[:env + 1], *args[env + 5:])
+
+
 def bench_mcm_event(libs, frames):
     import torch
 
-    from vpt_tpu_torch.kernels import _build, mcm_event
+    from vpt_tpu_torch.kernels import _build
     from vpt_tpu_torch.renderers import mcm
 
     scene = headline_scene()
@@ -301,7 +319,7 @@ def bench_mcm_event(libs, frames):
     def launcher(lib):
         def launch(state, seed):
             _build.check("vpt_mcm_event", lib.vpt_mcm_event(
-                *mcm_event.launch_args(state, scene, params, seed)))
+                *mcm_event_args(state, scene, params, seed)))
         return launch
 
     readings, failed = [], set()
@@ -361,7 +379,9 @@ def mcs_args(state, scene, params, seed, frame_number):
     _, args = _build.scene_args(
         scene, scene.tracking_packed if use_skip else scene.volume_packed,
         "MCS")
-    env = _build.one_texel_environment(scene, "MCS")
+    env, eh, ew = _build.environment_map(scene)
+    if (eh, ew) != (1, 1):
+        raise ValueError("vpt_mcs_frame takes a 1x1 environment texel")
     cell = mcs.skip_cell_size(scene) if use_skip else 0.0
     return (state.data_ptr(), *args, env.data_ptr(), width, height,
             float(np.float32(seed)), float(np.float32(params.extinction)),
@@ -867,6 +887,9 @@ def main() -> int:
     ap.add_argument("--baseline", default="current",
                     help="the build the summary divides by")
     ap.add_argument("--out", type=pathlib.Path)
+    ap.add_argument("--registers", action="store_true",
+                    help="print each build's registers and spills per "
+                         "kernel instance and launch nothing")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -892,6 +915,13 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (parallel nvcc)", flush=True)
     if "current" not in built:
         return 1
+    if args.registers:
+        for name, (_, text) in built.items():
+            for kernel, regs in sorted(ptxas_kernels(
+                    text, KERNELS[args.kernel][3]).items()):
+                print(json.dumps({"build": name, "kernel": kernel, **regs}),
+                      flush=True)
+        return 0
     libs = {name: load(path, entries) for name, (path, _) in built.items()}
     shapes = {}
     if args.kernel == "mcm_event":

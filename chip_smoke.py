@@ -80,6 +80,25 @@ prints no result:
    sphere, each with every launch counter at 0 just before it and read
    just after: one K6, K8, K9 or K10 launch a frame, one K2 a display,
    one K7 an ISO display, no other launch;
+10a. the scene options, each path with every launch counter at 0
+   just before it and read just after:
+   ``path grid``: K5's majorant-grid machine (``tracking="grid"``, a 16³
+   grid) against the plain grid loop at 512² on the headline's float32
+   twin and on the headline, then the headline's MCM path with the grid
+   (steps 8 × 30 and 32 × 15 frames, ``display``, ``reinhard``):
+   events/s, paths/s, mean path events and K5's device ms a frame beside
+   the cheb headline's of this run (medians in turns), the bound (state, distinct rows of
+   the collisions, the grid) and the share of hop events;
+   ``path env``: K5 and K8 with ``gradient_sky(64, 128)`` and a random
+   1024×2048 map against their plain versions on the float32 twin, their
+   device ms on the headline against the 1×1 map in turns, the MCM and
+   MCS paths with the sky, and ``cli render --envmap`` on a PNG written
+   by ``write_png`` (read back by ``read_image``);
+   ``path clamp``: K6 with ``march_clamp=True`` (EAM, MIP, Depth, ISO)
+   and ISO with ``iso_clamp_min=0.1`` at isovalues 0.05 and 0.5 against
+   the plain clamped frames on the float32 twin, their device ms on the
+   headline against the unclamped frames in turns, and each clamped
+   renderer's path;
 11. the serving entry point, ``vpt_tpu_torch.cli.main(["render", ...])``
    in-process (:func:`phase_cli_path`): a 256³ uint8 BVP written by the
    port's ``write_bvp``, MCM at 512², 32 spp, ``--precision fast``, cheb-skip,
@@ -90,9 +109,10 @@ prints no result:
    the PNG's zlib-decoded pixels; then the eight renderers through
    ``cli render`` on the same BVP (10 spp, DOS one sweep), and
    ``blobs:320``, a volume above the 256³ packing rule, on float32 corner
-   tables; each ``cli.main`` with every launch counter at 0 just before it
-   and read just after (one launch of the renderer's kernel a frame, one
-   K2 a display, one K7 an ISO display, no other);
+   tables, and MCM with ``--tracking grid`` on the BVP, held to the plain
+   grid loop; each ``cli.main`` with every launch counter at 0 just
+   before it and read just after (one launch of the renderer's kernel a
+   frame, one K2 a display, one K7 an ISO display, no other);
 12. the fit path with every launch counter at 0 again: BASELINE config 3's
    256³ volume (``blobs_volume(256)`` as truth, a constant 0.2 volume as
    init, ``gray_ramp(alpha_scale=0.8)``), a 256² target rendered by the
@@ -100,7 +120,7 @@ prints no result:
    (grad events/s, peak memory), then ``train.fit_mc`` with its default
    Params (extinction 10, steps 16) for 3 Adam steps.  Frames are cut from
    the fit's default 64 to 16 for this script's time limit;
-13. every kernel launched on its path (8, 10, 11 or 12); the JSON line
+13. every kernel launched on its path (8, 10, 10a, 11 or 12); the JSON line
     says which call launched each, and ``launches_cli`` its launches on
     the ``cli render`` calls of 11.
 
@@ -212,6 +232,23 @@ def in_turns(fns, reps, rounds=3):
         for name in order:
             times[name].append(cuda_ms(fns[name], reps))
     return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
+def device_turns(fns, match, reps=50, rounds=3):
+    """Median device milliseconds per call of each of ``fns`` (name ->
+    callable) by :func:`profiler_device_ms` over ``reps`` calls, measured
+    in turns as :func:`in_turns` (A B ... B A, ``rounds`` times): a window
+    whose profiler dropped launches moves one of 2 × ``rounds`` readings,
+    not the median.  None for a callable that no window measured."""
+    times = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            ms = profiler_device_ms(fns[name], match, reps)
+            if ms is not None:
+                times[name].append(ms)
+    return {name: sorted(t)[len(t) // 2] if t else None
+            for name, t in times.items()}
 
 
 def fmt_ms(ms):
@@ -709,51 +746,127 @@ def phase_fit_path(dev, counters):
     return {name: m.LAUNCHES for name, m in counters.items()}
 
 
-def frame_rows(scene, state, params, seed):
-    """The distinct corner rows that one frame from ``state`` fetches: the
-    plain loop runs that frame on a copy (the kernel's frame is the same,
-    photon for photon), with its flight phase wrapped to record where
-    every event samples."""
+def env_texels(direction, environment):
+    """The flat indices of the texels that equirect lookups at
+    ``direction`` (..., 3) read: ``sampling.sample_environment``'s
+    coordinates, the 2×2 corners of each bilinear CLAMP_TO_EDGE fetch."""
+    import torch
+
+    from vpt_tpu_torch import sampling
+
+    eh, ew = environment.shape[:2]
+    uv = sampling.environment_uv(direction.reshape(-1, 3))
+    i0f, _ = sampling._filter_coords(uv, (ew, eh))
+    i0 = sampling._clamp_index(i0f, (ew, eh))
+    i1 = torch.minimum(i0 + 1, sampling._max_index((ew, eh), i0.device))
+    return torch.cat([iy * ew + ix for ix in (i0[:, 0], i1[:, 0])
+                      for iy in (i0[:, 1], i1[:, 1])])
+
+
+def event_work(scene, state, params, seed):
+    """What one event-kernel frame from ``state`` reads and does: the plain
+    loop runs that frame on a copy (the kernel's frame is the same, photon
+    for photon), its phases wrapped to record where every event samples
+    (a hop of the grid machine samples nothing) and where photons escape.
+    Returns the distinct corner rows, the hop events, the escapes and the
+    distinct environment texels the escapes read (0 for a 1×1 map, which
+    the kernel keeps in shared memory)."""
     import torch
 
     from vpt_tpu_torch import sampling
     from vpt_tpu_torch.kernels import mcm_event
     from vpt_tpu_torch.renderers import mcm
 
-    rows, flight = [], mcm.flight_phase
+    rows, texels, counts = [], [], {"hops": 0, "escapes": 0}
+    flight, grid_flight = mcm.flight_phase, mcm.grid_flight_phase
+    interact = mcm.interact_phase
+    env_map = tuple(scene.environment.shape[:2]) != (1, 1)
 
-    def recording(*args, **kwargs):
-        rstate, position = flight(*args, **kwargs)
+    def cells(position):
         rows.append(sampling.corner_cells(position.reshape(-1, 3),
                                           scene.volume.shape)[0])
+
+    def flight_recording(*args, **kwargs):
+        rstate, position = flight(*args, **kwargs)
+        cells(position)
         return rstate, position
 
+    def grid_recording(*args, **kwargs):
+        rstate, position, mu, collide = grid_flight(*args, **kwargs)
+        counts["hops"] += int((~collide).sum())
+        cells(position[collide])
+        return rstate, position, mu, collide
+
+    def interact_recording(ph, rstate, position, *args, **kwargs):
+        oob = ((position > 1.0) | (position < 0.0)).any(-1)
+        counts["escapes"] += int(oob.sum())
+        if env_map:
+            texels.append(env_texels(ph["direction"][oob],
+                                     scene.environment))
+        return interact(ph, rstate, position, *args, **kwargs)
+
     copy = {k: v.clone() for k, v in state.items()}
-    mcm.flight_phase = recording
+    mcm.flight_phase, mcm.grid_flight_phase = flight_recording, \
+        grid_recording
+    mcm.interact_phase = interact_recording
     try:
         mcm_event.event_frame_plain(copy, scene, params, seed)
     finally:
-        mcm.flight_phase = flight
-    return int(torch.cat(rows).unique().numel())
+        mcm.flight_phase, mcm.grid_flight_phase = flight, grid_flight
+        mcm.interact_phase = interact
+    return {"rows": int(torch.cat(rows).unique().numel()), **counts,
+            "texels": int(torch.cat(texels).unique().numel())
+            if texels else 0}
 
 
-def event_bound(scene, n, steps, deposits, rows):
+def frame_rows(scene, state, params, seed):
+    """The distinct corner rows that one frame from ``state`` fetches
+    (:func:`event_work`)."""
+    return event_work(scene, state, params, seed)["rows"]
+
+
+#: float32 operations of the grid machine's flight beyond the exact
+#: flight's (the nudged cell, the DDA boundary's 6 divisions and
+#: subtractions, the hop, the collision distance), and of the fetch and
+#: TF lookup that a hop skips; of one equirect lookup (atan2f and asinf,
+#: the coordinates, the bilinear lerp)
+K5_OPS_GRID_FLIGHT, K5_OPS_FETCH_TF, ENV_OPS_LOOKUP = 35, 35, 70
+
+
+def event_bound(scene, n, steps, deposits, rows, hops=0, escapes=0,
+                texels=0, state_bytes=60):
     """(ms, by, bytes, operations) of one event-kernel frame of ``n`` pixels
     with ``deposits`` deposits that fetches ``rows`` distinct corner rows:
-    the state (60 bytes a pixel with cheb) read and written once, each of
-    those rows and the TF row read once; the operations of K5_OPS_EVENT and
-    K5_OPS_DEPOSIT."""
-    table = scene.tracking_packed
-    nbytes = 2 * n * 60 + rows * table.shape[1] * table.element_size() \
-        + scene.transfer_1d.numel() * 4
+    the state (``state_bytes`` a pixel: 60 with cheb) read and written
+    once, each of those rows and the TF row read once, and on a grid scene
+    the grid, and ``texels`` environment texels; the operations of
+    K5_OPS_EVENT and K5_OPS_DEPOSIT, on a grid scene K5_OPS_GRID_FLIGHT
+    more an event and K5_OPS_FETCH_TF fewer for each of its ``hops``, and
+    ENV_OPS_LOOKUP for each escape of a map scene."""
+    grid = scene.majorant is not None
+    table = scene.volume_packed if grid or scene.tracking_packed is None \
+        else scene.tracking_packed
+    nbytes = 2 * n * state_bytes \
+        + rows * table.shape[1] * table.element_size() \
+        + scene.transfer_1d.numel() * 4 + texels * 16 \
+        + (scene.majorant.numel() * 4 if grid else 0)
     ops = n * steps * K5_OPS_EVENT + deposits * K5_OPS_DEPOSIT
+    if grid:
+        ops += n * steps * K5_OPS_GRID_FLIGHT - hops * K5_OPS_FETCH_TF
+    if texels:
+        ops += escapes * ENV_OPS_LOOKUP
     return (*roofline(nbytes, ops), nbytes, ops)
 
 
-def print_kernel_device_ms(scene, steps, frames=10):
-    """Print the event kernel's own device time per launch, measured by
-    torch.profiler (the CUDA-event time of a frame also holds the host's
-    per-frame work), and the bound of those frames."""
+def print_kernel_device_ms(scene, steps, frames=10, label="headline",
+                           timed=True):
+    """Print the event kernel's own device time per launch on ``scene`` at
+    512², measured by torch.profiler (the CUDA-event time of a frame also
+    holds the host's per-frame work), and the bound of those frames (on a
+    grid scene with its hop events, on a map scene with the texels its
+    escapes read).  Returns (ms, bound ms, the frame's work); with
+    ``timed=False`` the frames run unprofiled (the caller times the
+    kernel in turns) and ms is None."""
     import torch
 
     from vpt_tpu_torch.kernels import mcm_event
@@ -769,23 +882,44 @@ def print_kernel_device_ms(scene, steps, frames=10):
     def frame():
         mcm_event.event_frame(state, scene, params, 0.2 + 0.001 * next(seeds))
 
-    ms = profiler_device_ms(frame, "mcm_event_kernel", frames)
+    if timed:
+        ms = profiler_device_ms(frame, "mcm_event_kernel", frames)
+    else:
+        ms = None
+        for _ in range(frames):
+            frame()
     # the frames run since paths0: the warm-up and each profiled window
     deposits = (float(state["samples"].sum(dtype=torch.float64))
                 - paths0) / next(seeds)
-    rows = frame_rows(scene, state, params, 0.3)
-    bound_ms, bound_by, nbytes, _ = event_bound(scene, 512 * 512, steps,
-                                                deposits, rows)
+    work = event_work(scene, state, params, 0.3)
+    work["deposits"] = deposits
+    bound_ms, bound_by, nbytes, _ = event_bound(
+        scene, 512 * 512, steps, deposits, work["rows"], work["hops"],
+        work["escapes"], work["texels"], 60 if "cheb" in state else 56)
+    work.update(bound_by=bound_by, bound_bytes=nbytes)
+    events = 512 * 512 * steps
+    extra = ""
+    if scene.majorant is not None:
+        extra += f", {work['hops'] / events:.4f} of the events hops"
+    if work["texels"]:
+        extra += (f", {work['escapes']} escapes reading "
+                  f"{work['texels']} distinct map texels")
+    if not timed:
+        print(f"mcm_event 512^2 {label} steps {steps}: bound {bound_ms:.4f} "
+              f"ms ({bound_by}, {nbytes} bytes with {work['rows']} distinct "
+              f"corner rows, {deposits:.6g} deposits a frame{extra})",
+              flush=True)
+        return None, bound_ms, work
     if ms is None:
-        print(f"mcm_event steps {steps}: device time not measured (the "
-              "profiler saw no kernel)", flush=True)
-        return None, bound_ms
-    print(f"mcm_event 512^2 headline steps {steps}: {ms:.4f} ms device time "
-          f"per launch (torch.profiler), {512 * 512 * steps / ms * 1e3:.6g} "
+        print(f"mcm_event {label} steps {steps}: device time not measured "
+              "(the profiler saw no kernel)", flush=True)
+        return None, bound_ms, work
+    print(f"mcm_event 512^2 {label} steps {steps}: {ms:.4f} ms device time "
+          f"per launch (torch.profiler), {events / ms * 1e3:.6g} "
           f"events/s of device time; bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{nbytes} bytes with {rows} distinct corner rows, "
-          f"{deposits:.6g} deposits a frame)", flush=True)
-    return ms, bound_ms
+          f"{nbytes} bytes with {work['rows']} distinct corner rows, "
+          f"{deposits:.6g} deposits a frame{extra})", flush=True)
+    return ms, bound_ms, work
 
 
 def time_event_kernel(scene, params):
@@ -845,6 +979,40 @@ def print_event_occupancy(scene):
     return occ
 
 
+def render_rates(scene, label):
+    """The headline's rates on ``scene`` through ``make_renderer("mcm")``
+    at 512², steps 8 × 30 and 32 × 15 frames after a warm-up frame each, on
+    the host clock: events/s, paths/s and mean path events.  Returns
+    ({steps: (events/s, paths/s)}, the last renderer)."""
+    import torch
+
+    from vpt_tpu_torch.renderers import make_renderer, mcm
+
+    rates = {}
+    for steps, frames in ((8, 30), (32, 15)):
+        params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=steps)
+        renderer = make_renderer("mcm", params, height=512, width=512)
+        renderer.reset(scene)
+        renderer.render(scene, 0.123)                       # warm-up frame
+        torch.cuda.synchronize()
+        paths0 = float(renderer.state["samples"].sum(dtype=torch.float64))
+        t0 = time.perf_counter()
+        for i in range(frames):
+            renderer.render(scene, 0.2 + 0.001 * i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        paths1 = float(renderer.state["samples"].sum(dtype=torch.float64))
+        events = 512 * 512 * steps * frames / dt
+        paths = (paths1 - paths0) / dt
+        check(paths > 0, f"{label} steps {steps}: no photon path completed")
+        rates[steps] = (events, paths)
+        print(f"{label} steps={steps}: {events:.6g} events/s", flush=True)
+        print(f"{label} steps={steps}: {paths:.6g} paths/s", flush=True)
+        print(f"{label} steps={steps}: {events / paths:.6g} mean path "
+              f"events ({frames} frames, {dt * 1e3:.3f} ms)", flush=True)
+    return rates, renderer
+
+
 def phase_main_path(dev, counters):
     """The port's main path through the user's entry points, with every
     launch counter at 0 first.  Returns the headline rates and each
@@ -852,7 +1020,7 @@ def phase_main_path(dev, counters):
     import torch
 
     from vpt_tpu_torch import skipgrid, tonemap, transfer, volume
-    from vpt_tpu_torch.renderers import make_renderer, make_scene, mcm
+    from vpt_tpu_torch.renderers import make_scene
 
     for module in counters.values():
         module.LAUNCHES = 0
@@ -884,29 +1052,7 @@ def phase_main_path(dev, counters):
           f"empty-cell centers; build {time.perf_counter() - t0:.3f} s",
           flush=True)
 
-    rates = {}
-    for steps, frames in ((8, 30), (32, 15)):
-        params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=steps)
-        renderer = make_renderer("mcm", params, height=512, width=512)
-        renderer.reset(scene)
-        renderer.render(scene, 0.123)                       # warm-up frame
-        torch.cuda.synchronize()
-        paths0 = float(renderer.state["samples"].sum(dtype=torch.float64))
-        t0 = time.perf_counter()
-        for i in range(frames):
-            renderer.render(scene, 0.2 + 0.001 * i)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        paths1 = float(renderer.state["samples"].sum(dtype=torch.float64))
-        events = 512 * 512 * steps * frames / dt
-        paths = (paths1 - paths0) / dt
-        check(paths > 0, f"steps {steps}: no photon path completed")
-        rates[steps] = (events, paths)
-        print(f"headline steps={steps}: {events:.6g} events/s", flush=True)
-        print(f"headline steps={steps}: {paths:.6g} paths/s", flush=True)
-        print(f"headline steps={steps}: {events / paths:.6g} mean path "
-              f"events ({frames} frames, {dt * 1e3:.3f} ms)", flush=True)
-
+    rates, renderer = render_rates(scene, "headline")
     hdr = renderer.display(scene)
     image = tonemap.ToneMapper("reinhard")(hdr)
     torch.cuda.synchronize()
@@ -1065,7 +1211,12 @@ def march_work(key, scene, params, seed, height, width):
 
     module = renderer_module(key)
     ref = dataclasses.replace(scene, kernels=False)
-    tb, miss, start, end = _march.rays(ref, height, width)
+    # the renderer's interval: the cube clamped to the boxes that hold
+    interval = None
+    if key == "iso":
+        def interval(ray_from, direction):
+            return module.march_interval(ref, params, ray_from, direction)
+    tb, miss, start, end = _march.rays(ref, height, width, interval)
     seg = end - start
     first, step = module.schedule(params, seed)
     slices = params.slices if key in ("eam", "depth") else params.steps
@@ -1804,6 +1955,450 @@ def phase_renderer_paths(dev, counters, headline):
     return paths
 
 
+# -- the scene options: the majorant grid, maps, clamps (K5, K6, K8) -------
+
+def _path_launches(counters, name, expected):
+    """The launches since the counters' reset, checked: ``expected`` of
+    the kernels named there, none of any other."""
+    launches = {k: m.LAUNCHES for k, m in counters.items()}
+    check_cli_launches(name, launches, expected)
+    return launches
+
+
+def _check_display(name, hdr, image):
+    import torch
+
+    check(tuple(image.shape) == (512, 512, 4)
+          and bool(torch.isfinite(image).all())
+          and bool((image[..., 3] == 1.0).all()),
+          f"{name}: display image not finite RGBA with alpha 1")
+    check(float(hdr[..., :3].abs().max()) > 0.0, f"{name}: black image")
+
+
+def phase_grid_path(dev, counters, headline, cheb_rates):
+    """K5's majorant-grid machine (``tracking="grid"``, N = 16): the kernel
+    against the plain grid loop at 512² on the float32 twin of the
+    headline and on the headline itself (bf16 tables, ``tf_mxu``); then
+    the headline's MCM path with the grid, with every launch counter at 0
+    just before it and read just after (``make_renderer("mcm")``, steps
+    8 × 30 and 32 × 15 frames, ``display``, ``reinhard``): events/s,
+    paths/s and mean path events beside the cheb headline's of this run,
+    K5's device ms a frame on the grid scene and on the cheb headline,
+    in turns, with the grid frame's bound (the state, the distinct rows
+    its collisions fetch, the grid) and the share of hop events.  Returns
+    the K5 row's grid fields and the path's launches."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import tonemap, transfer, volume
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.renderers import make_scene, mcm
+
+    params8 = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    fields = {}
+    worst = 0.0
+    for label, dtype in (("f32 twin", None), ("headline", torch.bfloat16)):
+        scene = make_scene(volume.sphere_volume(128),
+                           transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                           tracking="grid", pack_dtype=dtype,
+                           tf_mxu=dtype is not None)
+        check(scene.majorant is not None
+              and tuple(scene.majorant.shape) == (16, 16, 16, 2)
+              and scene.tracking_packed is None,
+              f"grid {label}: not a 16^3 grid without a tracking table")
+        worst = max(worst, _frames_agree(scene, params8, 512, 512, 3,
+                                         f"grid {label} 512^2 3 frames")[1])
+    occ = mcm_event.occupancy(torch.bfloat16, scene.transfer_1d.shape[0],
+                              grid=True)
+    empty = float((scene.majorant[..., 0] == 0).float().mean())
+    for module in counters.values():
+        module.LAUNCHES = 0
+    rates, renderer = render_rates(scene, "path grid")
+    hdr = renderer.display(scene)
+    image = tonemap.ToneMapper("reinhard")(hdr)
+    torch.cuda.synchronize()
+    launches = _path_launches(counters, "path grid",
+                              {"mcm_event": 47, "tonemap": 1})
+    _check_display("path grid", hdr, image)
+    for steps in (8, 32):
+        params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=steps)
+        seeds = itertools.count()
+        turns = {}
+        for name, s in (("cheb", headline), ("grid", scene)):
+            state = mcm.reset(params, 512, 512, s)
+            turns[name] = (lambda state=state, s=s: mcm_event.event_frame(
+                state, s, params, 0.2 + 0.001 * next(seeds)))
+        times = device_turns(turns, "mcm_event_kernel")
+        ms, cheb_ms = times["grid"], times["cheb"]
+        _, bound, work = print_kernel_device_ms(scene, steps, timed=False,
+                                                label="grid headline")
+        events, paths = rates[steps]
+        cheb_events, cheb_paths = cheb_rates[steps]
+        hops = work["hops"] / (512 * 512 * steps)
+        print(f"path grid steps {steps}: K5 {fmt_ms(ms)} a frame on the card "
+              f"(cheb headline {fmt_ms(cheb_ms)}, medians in turns"
+              + (f", {ms / cheb_ms:.4f}x" if ms and cheb_ms else "")
+              + f"); {events:.6g} events/s (cheb {cheb_events:.6g}), "
+              f"{paths:.6g} paths/s (cheb {cheb_paths:.6g}, "
+              f"{paths / cheb_paths:.4f}x), {events / paths:.6g} mean path "
+              f"events (cheb {cheb_events / cheb_paths:.6g}); {hops:.4f} of "
+              f"the events hops; bound {bound:.4f} ms ({work['bound_by']}, "
+              f"{work['bound_bytes']} bytes)", flush=True)
+        fields.update({f"grid_device_ms_steps{steps}": ms,
+                       f"grid_cheb_device_ms_steps{steps}": cheb_ms,
+                       f"grid_bound_ms_steps{steps}": bound,
+                       f"grid_hop_share_steps{steps}": hops,
+                       f"grid_paths_per_s_steps{steps}": paths,
+                       f"grid_events_per_s_steps{steps}": events})
+    plain = mcm.reset(params8, 512, 512, scene)
+    reference = dataclasses.replace(scene, kernels=False)
+    plain_ms = cuda_ms(lambda: mcm_event.event_frame_plain(
+        plain, reference, params8, 0.5), 2)
+    print(f"path grid: 16^3 grid, {empty:.4f} of its cells empty; the "
+          f"plain grid loop {plain_ms:.4f} ms a frame at steps 8; K5 grid "
+          f"instance {occ['registers']} registers, {occ['local_bytes']} "
+          f"local bytes, {occ['blocks_per_sm']} blocks of 128 an SM; "
+          "launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()),
+          flush=True)
+    fields.update(grid_max_abs_err=worst, grid_registers=occ["registers"],
+                  grid_plain_ms=plain_ms,
+                  launches_grid=launches["mcm_event"])
+    del scene, renderer
+    return fields, launches
+
+
+def _maps(dev):
+    """The maps of ``path env``: ``gradient_sky(64, 128)`` and a random
+    1024×2048 map (32 MB, every texel different), made from a seed."""
+    import torch
+
+    from vpt_tpu_torch import environment
+
+    g = torch.Generator().manual_seed(11)
+    return {"sky": environment.gradient_sky(64, 128),
+            "1024x2048": torch.rand(1024, 2048, 4, generator=g).to(dev)}
+
+
+def mcs_env_texels(scene, height, width):
+    """The distinct texels that an MCS frame's map lookups read at least:
+    the view rays of the pixels that miss the cube (the escapes' are left
+    out, a lower count) and the frame's light (4)."""
+    import torch
+
+    from vpt_tpu_torch import sampling
+    from vpt_tpu_torch.renderers import _march
+
+    ndc = sampling.pixel_ndc(height, width, device=scene.device)
+    ray_from, ray_to = sampling.unproject(ndc, scene.mvp_inverse)
+    ray = ray_to - ray_from
+    tb = torch.clamp(sampling.intersect_cube(ray_from, ray), min=0.0)
+    miss = tb[..., 0] >= tb[..., 1]
+    unit = ray / torch.sqrt(torch.clamp(_march.dot3(ray, ray),
+                                        min=1e-20))[..., None]
+    return int(env_texels(unit[miss], scene.environment).unique().numel()) \
+        + 4
+
+
+def phase_env_path(dev, counters, headline):
+    """Environment maps larger than 1×1 in K5 and K8: each kernel against
+    its plain version on the float32 twin of the headline (512²; K5 3
+    frames of steps 8, K8 4 frames) with ``gradient_sky(64, 128)`` and a
+    random 1024×2048 map; K5's and K8's device ms a frame on the headline
+    with each map against the 1×1 map, in turns, with bounds that add the
+    texels the frame reads; then the MCM and MCS paths with the sky
+    (``make_renderer``, 10 frames, ``display``, ``reinhard``), each with
+    every launch counter at 0 just before it and read just after.
+    Returns the K5 and K8 rows' map fields and the paths' launches."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import tonemap, transfer, volume
+    from vpt_tpu_torch.kernels import mcm_event, mcs_frame
+    from vpt_tpu_torch.renderers import make_renderer, make_scene, mcm, mcs
+
+    maps = _maps(dev)
+    params8 = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    k5, k8 = {}, {}
+    worst5 = worst8 = 0.0
+    twin = make_scene(volume.sphere_volume(128),
+                      transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                      tracking="auto")
+    for name, env in maps.items():
+        scene = dataclasses.replace(twin, environment=env)
+        worst5 = max(worst5, _frames_agree(
+            scene, params8, 512, 512, 3, f"env {name} f32 twin 512^2 "
+            "3 frames")[1])
+        state, plain = kernel_and_plain_frames("mcs", scene, mcs.Params(),
+                                               512, 512, 4)
+        worst8 = max(worst8, compare_states(f"env {name} f32 twin 4 frames",
+                                            "mcs", state, plain, False))
+    del twin, scene, state, plain
+    # device ms on the headline, medians in turns (1x1, maps, maps, 1x1)
+    scenes = {"1x1": headline, **{name: dataclasses.replace(
+        headline, environment=env) for name, env in maps.items()}}
+    frames5, frames8 = {}, {}
+    for name, scene in scenes.items():
+        state = mcm.reset(params8, 512, 512, scene)
+        frames5[name] = (lambda state=state, scene=scene:
+                         mcm_event.event_frame(state, scene, params8, 0.4))
+        acc = mcs.reset(mcs.Params(), 512, 512, scene)
+        frames8[name] = (lambda acc=acc, scene=scene: mcs_frame.mcs_frame(
+            acc, scene, mcs.Params(), 0.4, 1))
+    times5 = device_turns(frames5, "mcm_event_kernel")
+    times8 = device_turns(frames8, "mcs_frame_kernel")
+    del frames5, frames8
+    ref5, ref8 = times5["1x1"], times8["1x1"]
+    tw = headline.transfer_1d.shape[0]
+    for name, scene in scenes.items():
+        ms5, ms8 = times5[name], times8[name]
+        _, bound5, work = print_kernel_device_ms(scene, 8, timed=False,
+                                                 label=f"env {name}")
+        bound8, by8 = mcs_bound(scene)
+        reference = dataclasses.replace(scene, kernels=False)
+        state = mcm.reset(params8, 512, 512, scene)
+        plain5 = cuda_ms(lambda: mcm_event.event_frame_plain(
+            state, reference, params8, 0.4), 2)
+        acc = mcs.reset(mcs.Params(), 512, 512, scene)
+        plain8 = cuda_ms(lambda: mcs_frame.mcs_frame_plain(
+            acc, reference, mcs.Params(), 0.4, 1), 2)
+        occ5 = mcm_event.occupancy(torch.bfloat16, tw,
+                                   env_map=name != "1x1")
+        occ8 = mcs_frame.occupancy(torch.bfloat16, tw, env_map=name != "1x1")
+        print(f"path env {name}: K5 {fmt_ms(ms5)} a frame on the card at "
+              f"steps 8, median in turns" + (f" ({ms5 / ref5:.4f}x the 1x1 "
+                                             "map's)"
+                            if ms5 and ref5 else "")
+              + f", bound {bound5:.4f} ms ({work['texels']} texels); K8 "
+              f"{fmt_ms(ms8)} a frame"
+              + (f" ({ms8 / ref8:.4f}x)" if ms8 and ref8 else "")
+              + f", bound {bound8:.4f} ms ({by8}); plain frames K5 "
+              f"{plain5:.4f} ms, K8 {plain8:.4f} ms; registers K5 "
+              f"{occ5['registers']}, K8 "
+              f"{occ8['registers']}", flush=True)
+        if name != "1x1":
+            k5.update({f"env_{name}_device_ms": ms5,
+                       f"env_{name}_bound_ms": bound5,
+                       f"env_{name}_plain_ms": plain5,
+                       f"env_{name}_registers": occ5["registers"]})
+            k8.update({f"env_{name}_device_ms": ms8,
+                       f"env_{name}_bound_ms": bound8,
+                       f"env_{name}_plain_ms": plain8,
+                       f"env_{name}_registers": occ8["registers"]})
+    k5.update(env_1x1_device_ms=ref5, env_max_abs_err=worst5)
+    k8.update(env_1x1_device_ms=ref8, env_max_abs_err=worst8)
+    sky = scenes["sky"]
+    launches = {}
+    for key, kernel in (("mcm", "mcm_event"), ("mcs", "mcs_frame")):
+        renderer = make_renderer(key, height=512, width=512)
+        for module in counters.values():
+            module.LAUNCHES = 0
+        renderer.reset(sky)
+        for i in range(10):
+            renderer.render(sky, 0.2 + 0.001 * i)
+        hdr = renderer.display(sky)
+        image = tonemap.ToneMapper("reinhard")(hdr)
+        torch.cuda.synchronize()
+        launches[key] = _path_launches(counters, f"path env {key}",
+                                       {kernel: 10, "tonemap": 1})
+        _check_display(f"path env {key}", hdr, image)
+        print(f"path env {key} sky 512^2: 10 frames, HDR mean "
+              f"{float(hdr[..., :3].mean()):.6f}; launches: "
+              + ", ".join(f"{k} {v}" for k, v in launches[key].items()),
+              flush=True)
+    k5["launches_env"] = launches["mcm"]["mcm_event"]
+    k8["launches_env"] = launches["mcs"]["mcs_frame"]
+
+    # cli render --envmap on a PNG of write_png, read back by read_image
+    import numpy as np
+
+    from vpt_tpu_torch import environment
+    from vpt_tpu_torch.io import read_image, write_png
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke")
+    os.makedirs(out, exist_ok=True)
+    sky_png = os.path.join(out, "sky.png")
+    write_png(sky_png, maps["sky"])
+    want = environment.from_image(read_image(sky_png), device=dev)
+    lines, cli_launches, built = run_cli(
+        ["render", "--volume", "sphere:128", "--renderer", "mcm",
+         "--resolution", "512", "--spp", "8", "--tf-alpha", "0.8",
+         "--tf-srgb", "--envmap", sky_png, "-o",
+         os.path.join(out, "sky_mcm.png")], counters)
+    check_cli_launches("path env cli", cli_launches, {"mcm_event": 8,
+                                                      "tonemap": 1})
+    check(len(built) == 1 and torch.equal(built[0].environment, want)
+          and tuple(want.shape) == (64, 128, 4),
+          "path env cli: the scene's map is not the PNG's pixels")
+    pixels = png_pixels(os.path.join(out, "sky_mcm.png"))
+    check(pixels.max() > 0
+          and len(np.unique(pixels.reshape(-1, 3), axis=0)) > 8,
+          "path env cli: the image is black or flat")
+    sec = cli_seconds(lines)
+    print(f"path env cli: cli render --envmap {sky_png} (64x128 PNG): the "
+          f"scene's map equals the decoded PNG; MCM "
+          f"512^2 8 spp {sec['frame_ms']:.4f} ms a frame (host clock); "
+          f"launches mcm_event {cli_launches['mcm_event']}, tonemap "
+          f"{cli_launches['tonemap']}", flush=True)
+    launches["cli"] = cli_launches
+    return k5, k8, launches
+
+
+def mcs_bound(scene):
+    """(ms, by) of one K8 frame at 512² with default Params, as
+    :func:`time_frame_kernels` bounds it (the kernel's own count of its
+    fetches, the distinct rows of the plain frame), plus, with a map
+    larger than 1×1, one lookup a pixel and the texels
+    :func:`mcs_env_texels` counts."""
+    import torch
+
+    from vpt_tpu_torch.kernels import mcs_frame
+    from vpt_tpu_torch.renderers import mcs
+
+    n = 512 * 512
+    counts = torch.zeros(2, dtype=torch.int64, device=scene.device)
+    state = mcs.reset(mcs.Params(), 512, 512, scene)
+    mcs_frame.mcs_frame(state, scene, mcs.Params(), 0.4, 1, counts=counts)
+    _, fetches = (int(v) for v in counts.tolist())
+    _, rows = mcs_work(scene, mcs.Params(), 0.4, 512, 512)
+    ops = fetches * MCS_OPS_STEP + n * MCS_OPS_PIXEL
+    texels = 0
+    if tuple(scene.environment.shape[:2]) != (1, 1):
+        texels = mcs_env_texels(scene, 512, 512)
+        ops += n * ENV_OPS_LOOKUP
+    table = scene.tracking_packed if scene.tracking_packed is not None \
+        else scene.volume_packed
+    nbytes = rows * table.shape[1] * table.element_size() + 2 * n * 16 \
+        + scene.transfer_1d.numel() * 4 + texels * 16
+    return roofline(nbytes, ops)
+
+
+def phase_clamp_path(dev, counters, headline):
+    """K6's clamp boxes: EAM, MIP, Depth and ISO with ``march_clamp=True``,
+    and ISO with ``iso_clamp_min=0.1`` at isovalues 0.05 (the box does not
+    hold) and 0.5 (it does), against the plain clamped frames on the
+    float32 twin of the headline at 512², 4 frames (Depth and ISO equal,
+    EAM and MIP 99.99% of the pixels within 1e-6); K6's device ms a frame
+    on the headline with and without the boxes, in turns, with the clamped
+    frame's bound from its samples and distinct rows and the instances'
+    registers; then each clamped renderer's path (``make_renderer``, 10
+    frames, ``display``, ``reinhard``) with every launch counter at 0 just
+    before it and read just after.  Returns the K6 row's clamp fields and
+    the paths' launches."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import tonemap, transfer, volume
+    from vpt_tpu_torch.kernels import march, tf1d
+    from vpt_tpu_torch.renderers import iso, make_renderer, make_scene
+
+    def built(headline=False, **kw):
+        """The headline's scene (bf16, ``tf_mxu``, cheb-skip) or its
+        float32 twin, with the clamp options ``kw``."""
+        extra = dict(tracking="auto", pack_dtype=torch.bfloat16,
+                     tf_mxu=True) if headline else {}
+        return make_scene(volume.sphere_volume(128),
+                          transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                          **extra, **kw)
+
+    cases = [(key, {"march_clamp": True}, renderer_module(key).Params())
+             for key in ("eam", "mip", "depth", "iso")]
+    cases += [("iso", {"iso_clamp_min": 0.1}, iso.Params(isovalue=v))
+              for v in (0.05, 0.5)]
+    fields, worst = {}, 0.0
+    for key, kw, params in cases:
+        twin = built(**kw)
+        label = f"clamp {kw} f32 twin 512^2 4 frames"
+        if key == "iso":
+            label += f" isovalue {params.isovalue}"
+        state, plain = kernel_and_plain_frames(key, twin, params, 512, 512,
+                                               4)
+        worst = max(worst, compare_states(label, key, state, plain,
+                                          key in ("depth", "iso")))
+    del twin, state, plain
+    tw, tf_mode = headline.transfer_1d.shape[0], tf1d.mode_code(
+        headline.tf_mxu)
+    clamped = {"march_clamp": built(True, march_clamp=True),
+               "iso_clamp_min": built(True, iso_clamp_min=0.1)}
+    check(clamped["march_clamp"].occupied_aabb is not None
+          and clamped["iso_clamp_min"].iso_aabb is not None,
+          "path clamp: the headline has no box")
+    print(f"path clamp: occupied box "
+          f"{clamped['march_clamp'].occupied_aabb.tolist()}, iso box (0.1) "
+          f"{clamped['iso_clamp_min'].iso_aabb.tolist()}", flush=True)
+    for key, kw, params in cases:
+        scene = clamped[next(iter(kw))]
+        name = key if key != "iso" or "march_clamp" in kw \
+            else f"iso{params.isovalue}"
+        boxes = len(march.clamp_boxes(key, scene, params))
+        runs = {}
+        for label, s in (("bare", headline), ("clamp", scene)):
+            state = renderer_module(key).reset(params, 512, 512, s)
+            runs[label] = (state, s)
+        times = device_turns({
+            label: (lambda state=state, s=s, key=key, params=params:
+                    march.march_frame(key, state, s, params, 0.5, 2))
+            for label, (state, s) in runs.items()}, "march_kernel")
+        ms, bare_ms = times["clamp"], times["bare"]
+        plain = renderer_module(key).reset(params, 512, 512, scene)
+        reference = dataclasses.replace(scene, kernels=False)
+        plain_ms = cuda_ms(lambda: march.march_frame_plain(
+            key, plain, reference, params, 0.5, 2), 2)
+        samples, rows, _, _ = march_work(key, scene, params, 0.5, 512, 512)
+        bare_samples = march_work(key, headline, params, 0.5, 512, 512)[0]
+        bound, by, nbytes = frame_bound(
+            scene, scene.volume_packed, 512 * 512, 4 if key == "mip" else 16,
+            samples * MARCH_OPS_SAMPLE + 512 * 512 * MARCH_OPS_PIXEL, rows)
+        occ = march.occupancy(key, scene.volume_packed.dtype, tw, tf_mode,
+                              clamp=True)
+        bare_occ = march.occupancy(key, scene.volume_packed.dtype, tw,
+                                   tf_mode)
+        print(f"path clamp {name} 512^2 headline ({boxes} boxes): K6 "
+              f"{fmt_ms(ms)} a frame on the card against {fmt_ms(bare_ms)} "
+              "unclamped (medians in turns)"
+              + (f" ({ms / bare_ms:.4f}x)" if ms and bare_ms else "")
+              + f"; {samples} samples ({bare_samples} unclamped), {rows} "
+              f"distinct corner rows; bound {bound:.4f} ms ({by}, {nbytes} "
+              f"bytes); plain {plain_ms:.4f} ms; registers "
+              f"{occ['registers']} clamped, "
+              f"{bare_occ['registers']} unclamped, {occ['blocks_per_sm']} / "
+              f"{bare_occ['blocks_per_sm']} blocks of 128 an SM", flush=True)
+        fields.update({f"clamp_{name}_device_ms": ms,
+                       f"clamp_{name}_unclamped_device_ms": bare_ms,
+                       f"clamp_{name}_bound_ms": bound,
+                       f"clamp_{name}_plain_ms": plain_ms,
+                       f"clamp_{name}_registers": occ["registers"]})
+    fields["clamp_max_abs_err"] = worst
+    launches, total = {}, 0
+    for key in ("eam", "mip", "depth", "iso"):
+        scene = clamped["march_clamp"]
+        renderer = make_renderer(key, height=512, width=512)
+        for module in counters.values():
+            module.LAUNCHES = 0
+        renderer.reset(scene)
+        for i in range(10):
+            renderer.render(scene, 0.2 + 0.001 * i)
+        hdr = renderer.display(scene)
+        image = tonemap.ToneMapper("reinhard")(hdr)
+        torch.cuda.synchronize()
+        expected = {"march_frame": 10, "tonemap": 1}
+        if key == "iso":
+            expected["iso_shade"] = 1
+        launches[key] = _path_launches(counters, f"path clamp {key}",
+                                       expected)
+        _check_display(f"path clamp {key}", hdr, image)
+        total += launches[key]["march_frame"]
+        print(f"path clamp {key} 512^2: 10 frames, HDR mean "
+              f"{float(hdr[..., :3].mean()):.6f}; launches: "
+              + ", ".join(f"{k} {v}" for k, v in launches[key].items()),
+              flush=True)
+    fields["launches_clamp"] = total
+    return fields, launches
+
+
 # -- the serving entry point: cli render (the slice's main path) -----------
 
 def png_pixels(path):
@@ -1890,6 +2485,67 @@ def check_cli_launches(name, launches, expected):
               f"{expected.get(kernel, 0)}")
 
 
+def cli_grid_path(dev, counters, bvp, out):
+    """``cli render --tracking grid`` on the BVP ``bvp`` (MCM 512², 16 spp,
+    bf16, the sRGB TF, a PNG and a checkpoint in ``out``), with the launch
+    counters at 0 just before it and read just after: its scene holds a
+    16³ grid and no tracking table, and its state agrees with the plain
+    grid loop replayed from the same reset with the context's seeds, to
+    K5's bounds.  Returns the call's launches."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import cli
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.renderers import mcm
+    from vpt_tpu_torch.runtime import checkpoint
+
+    # 256 divides by 16, so the scene has a 16^3 grid
+    png, npz = (os.path.join(out, f"grid.{ext}") for ext in ("png", "npz"))
+    argv = ["render", "--volume", bvp, "--renderer", "mcm", "--resolution",
+            "512", "--spp", "16", "--tf-alpha", "0.8", "--tf-srgb",
+            "--precision", "fast", "--tracking", "grid", "--tonemap",
+            "reinhard", "-o", png, "--checkpoint", npz]
+    lines, launches, scenes = run_cli(argv, counters)
+    sec = cli_seconds(lines)
+    check(len(scenes) == 1 and scenes[0].majorant is not None
+          and tuple(scenes[0].majorant.shape) == (16, 16, 16, 2)
+          and scenes[0].tracking_packed is None,
+          "path cli grid: not one scene with a 16^3 grid and no table")
+    check_cli_launches("path cli grid", launches, {"mcm_event": 16,
+                                                   "tonemap": 1})
+    ctx = cli._build_context(cli.build_parser().parse_args(argv), dev)
+    scene = dataclasses.replace(ctx.get_scene(), kernels=False)
+    params = ctx.renderer.params
+    plain = mcm.reset(params, 512, 512, scene)
+    for n in range(1, 17):
+        mcm_event.event_frame_plain(plain, scene, params,
+                                    ctx._frame_seed(n))
+    _, saved, frame, _ = checkpoint.load(npz, device=dev)
+    got = dict(zip(sorted(plain), saved))
+    check(frame == 16 and len(saved) == len(plain),
+          "path cli grid: the checkpoint is not the 16 frames' state")
+    match = got["samples"] == plain["samples"]
+    agree = float(match.float().mean())
+    err = float((got["radiance"] - plain["radiance"])[match].abs().max())
+    gap = abs(float(got["radiance"].mean())
+              - float(plain["radiance"].mean()))
+    check(agree >= 0.9999 and err <= 1e-6 and gap <= 1e-4,
+          f"path cli grid: samples agree {agree}, radiance err {err}, "
+          f"means {gap} apart (bounds 0.9999, 1e-6, 1e-4)")
+    print(f"path cli grid 256^3 BVP 512^2 16 spp: {sec['frame_ms']:.4f} ms "
+          f"a frame ({sec['events_per_s']:.6g} events/s, host clock), "
+          f"scene build {sec['scene']:.4f} s; against the plain grid loop "
+          f"from the same reset: samples agree {agree:.6f} (bound 0.9999), "
+          f"radiance max abs err {err} (bound 1e-6), means {gap:.3g} apart "
+          f"(bound 1e-4); launches mcm_event {launches['mcm_event']}, "
+          f"tonemap {launches['tonemap']}", flush=True)
+    del ctx, scene, plain, saved, got, scenes
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_cli_path(dev, counters):
     """The serving entry point, ``cli render``, in-process on the card:
 
@@ -1905,7 +2561,9 @@ def phase_cli_path(dev, counters):
        context's load and 16 more give the 32 frames' image; (c) the PNG's
        pixels are ``to_uint8`` of the display;
     4. each of the eight renderers through ``cli render`` on the BVP at
-       512², default Params, 10 spp (DOS: one sweep);
+       512², default Params, 10 spp (DOS: one sweep), and MCM with
+       ``--tracking grid`` (16 spp), held to the plain grid loop replayed
+       from the same reset with the context's seeds;
     5. ``blobs:320`` through MCM, 4 spp: a volume above the 256³ packing
        rule, on float32 corner tables.
 
@@ -2020,6 +2678,9 @@ def phase_cli_path(dev, counters):
     del ctx, part, resumed, direct, renderer, scene, hdr, scenes
     torch.cuda.empty_cache()
 
+    for name, count in cli_grid_path(dev, counters, bvp, out).items():
+        totals[name] += count
+
     for key, kernel in sorted({**PATH_KERNEL, "mcm": "mcm_event"}.items()):
         spp = sweep if key == "dos" else 10
         png, npz = (os.path.join(out, f"{key}.{ext}") for ext in ("png",
@@ -2120,7 +2781,7 @@ def run():
         k5["max_abs_err"] = max(k5["max_abs_err"], err)
     k5.update(time_event_kernel(headline, params8))
     for steps in (8, 32):
-        k5[f"device_ms_steps{steps}"], k5[f"bound_ms_steps{steps}"] = \
+        k5[f"device_ms_steps{steps}"], k5[f"bound_ms_steps{steps}"], _ = \
             print_kernel_device_ms(headline, steps)
     # the row's frame is the steps-8 one
     k5["device_ms"] = k5["device_ms_steps8"]
@@ -2141,6 +2802,16 @@ def run():
                 "dos_sweep": dos_sweep, "lao_march": lao_march}
     rates, render_launches = phase_main_path(dev, counters)
     paths = phase_renderer_paths(dev, counters, headline)
+    grid5, _ = phase_grid_path(dev, counters, headline, rates)
+    env5, env8, _ = phase_env_path(dev, counters, headline)
+    clamp6, _ = phase_clamp_path(dev, counters, headline)
+    for row, extra, keys in ((k5, {**grid5, **env5}, ("grid_max_abs_err",
+                                                      "env_max_abs_err")),
+                             (k8, env8, ("env_max_abs_err",)),
+                             (k6, clamp6, ("clamp_max_abs_err",))):
+        row.update(extra)
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [extra[k] for k in keys])
     del headline
     torch.cuda.empty_cache()
     cli_launches = phase_cli_path(dev, counters)

@@ -12,7 +12,7 @@ import dataclasses
 import pytest
 import torch
 
-from vpt_tpu_torch import rng, sampling, train
+from vpt_tpu_torch import environment, rng, sampling, train
 from vpt_tpu_torch import tonemap as tm
 from vpt_tpu_torch import transfer, volume
 from vpt_tpu_torch.kernels import _build, corner_gather, corner_scatter
@@ -352,19 +352,182 @@ def test_event_kernel_width_cap(cuda):
 
 
 def test_event_kernel_refuses_what_it_does_not_take(cuda):
+    """An unpacked scene raises; nothing falls back to the plain loop."""
     params = mcm.Params()
     scene = make_scene(volume.sphere_volume(8, device=cuda),
                        transfer.gray_ramp(device=cuda), pack=False,
                        device=cuda)
     state = mcm.reset(params, 8, 8, scene)
+    before = _launches()
     with pytest.raises(NotImplementedError):
         mcm.render_frame(state, scene, params, 0.1)
-    scene = make_scene(volume.sphere_volume(8, device=cuda),
-                       transfer.gray_ramp(device=cuda),
-                       environment=torch.ones(4, 8, 4), device=cuda)
-    state = mcm.reset(params, 8, 8, scene)
-    with pytest.raises(NotImplementedError):
-        mcm.render_frame(state, scene, params, 0.1)
+    assert _launches() == before
+
+
+def _maps(cuda):
+    """Environment maps larger than 1×1: the smooth sky, a random map
+    (every texel differs, so a wrong texel or weight shows), and a
+    1024×2048 map (32 MB, read from device memory)."""
+    g = torch.Generator().manual_seed(21)
+    return {"sky": environment.gradient_sky(16, 32, device=cuda),
+            "random": torch.rand(7, 13, 4, generator=g).to(cuda),
+            "1024x2048": torch.rand(1024, 2048, 4, generator=g).to(cuda)}
+
+
+@pytest.mark.parametrize("env", ["sky", "random", "1024x2048"])
+@pytest.mark.parametrize("tracking", ["none", "auto"])
+def test_event_kernel_environment_map_matches_plain(cuda, tracking, env):
+    """K5's map instance against the plain loop on the same card: the map
+    is read at an escape deposit, so the samples and bounces are those of
+    the plain loop's streams and the radiance is within 1e-6."""
+    scene = make_scene(volume.blobs_volume(24, seed=1, device=cuda),
+                       transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                       tf_srgb=True, tracking=tracking,
+                       pack_dtype=torch.bfloat16, tf_mxu=True,
+                       environment=_maps(cuda)[env], device=cuda)
+    params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    state, plain = _kernel_and_plain(scene, params, 64, 64, 4)
+    assert_frames_agree(state, plain)
+    assert int(torch.unique(state["radiance"][..., 0]).numel()) > 64
+
+
+def _grid_scene(cuda, dtype=None, environment_map=None, **kw):
+    return make_scene(volume.blobs_volume(32, seed=1, device=cuda),
+                      transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                      tf_srgb=True, pack_dtype=dtype, tf_mxu=dtype is not None,
+                      environment=environment_map, device=cuda, **kw)
+
+
+@pytest.mark.parametrize("grid", [{"tracking": "grid"},
+                                  {"majorant_grid": 8}],
+                         ids=["grid16", "grid8"])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_event_kernel_grid_matches_plain(cuda, dtype, grid):
+    """K5's majorant-grid machine against the plain grid loop on the same
+    card (64², blobs 32³, steps 8, 4 frames), float32 and bf16 tables;
+    the frames go through hops and collisions, deposits and scatters."""
+    scene = _grid_scene(cuda, dtype, **grid)
+    assert scene.majorant is not None and scene.tracking_packed is None
+    params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    state, plain = _kernel_and_plain(scene, params, 64, 64, 4)
+    assert "cheb" not in state
+    assert_frames_agree(state, plain)
+    assert float(state["samples"].sum()) > 64 * 64
+    assert float(state["bounces"].max()) > 0
+
+
+def test_event_kernel_grid_with_a_map_and_a_stale_carry(cuda):
+    """The grid machine with an environment map (both template choices
+    at once), on a state that carries a tracking-era ``cheb``: the carry
+    is left as it was, the rest agrees with the plain loop."""
+    scene = _grid_scene(cuda, torch.bfloat16, _maps(cuda)["random"],
+                        tracking="grid")
+    params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=16)
+    state = mcm.reset(params, 48, 80, scene)
+    state["cheb"] = torch.full((48, 80), 2.0, device=cuda)
+    plain = {k: v.clone() for k, v in state.items()}
+    for f in range(3):
+        mcm.render_frame(state, scene, params, 0.6 + 0.01 * f)
+        _plain_frame(plain, scene, params, 0.6 + 0.01 * f)
+    torch.cuda.synchronize()
+    assert torch.equal(state["cheb"], torch.full((48, 80), 2.0,
+                                                 device=cuda))
+    assert_frames_agree(state, plain)
+
+
+def test_event_kernel_instances_launch_shapes(cuda):
+    """The headline's instance keeps its 40 registers; the grid and map
+    instances fit an SM with the headline's local bytes (its stack frame,
+    no spills) and not one more."""
+    headline = mcm_event.occupancy(torch.bfloat16, 256)
+    for grid in (False, True):
+        for env_map in (False, True):
+            occ = mcm_event.occupancy(torch.bfloat16, 256, grid, env_map)
+            assert occ["threads_per_block"] == 128
+            assert occ["blocks_per_sm"] >= 1
+            assert occ["local_bytes"] == headline["local_bytes"]
+    assert headline["registers"] <= 40
+
+
+@pytest.mark.parametrize("env", ["sky", "random", "1024x2048"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_mcs_kernel_environment_map_matches_plain(cuda, kind, env):
+    """K8's map instance (the light along the scatter direction, the map
+    along the view ray for misses and escapes) against the plain frame,
+    3 frames; its counter instance counts the same work with or without
+    a map."""
+    base = _scene(kind, cuda)
+    scene = dataclasses.replace(base, environment=_maps(cuda)[env])
+    params = mcs.Params(extinction=8.0)
+    state, plain = _kernel_frames("mcs", scene, 64, 64, 3, params)
+    assert_kernel_agrees("mcs", state, plain)
+    assert int(torch.unique(state[..., 0]).numel()) > 64
+    counts = [torch.zeros(2, dtype=torch.int64, device=cuda)
+              for _ in range(2)]
+    for s, c in zip((scene, base), counts):
+        mcs_frame.mcs_frame(mcs.reset(params, 64, 64, s), s, params, 0.5, 1,
+                            counts=c)
+    torch.cuda.synchronize()
+    assert torch.equal(counts[0], counts[1])
+
+
+def _clamp_scene(kind, cuda, **kw):
+    """blobs 24³ under the sRGB TF (alpha 0 for the low values), so the
+    boxes cut the rays; float32 or bf16 tables with ``tf_mxu``."""
+    dtype = torch.bfloat16 if kind == "bf16" else None
+    return make_scene(volume.blobs_volume(24, seed=7, device=cuda),
+                      transfer.gray_ramp(alpha_scale=0.9, device=cuda),
+                      tf_srgb=True, pack_dtype=dtype, tf_mxu=dtype is not None,
+                      device=cuda, **kw)
+
+
+CLAMP_PARAMS = {"eam": eam.Params(), "mip": mip.Params(),
+                "depth": depth.Params(threshold=0.02), "iso": iso.Params()}
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("key", ["eam", "mip", "depth", "iso"])
+def test_march_kernel_clamp_matches_plain(cuda, key, kind):
+    """K6's clamp instance (``march_clamp``, plus the ISO box of
+    ``iso_clamp_min=0.1``) against the plain clamped frames, 3 frames at
+    48×80; the clamped frame differs from the unclamped one."""
+    scene = _clamp_scene(kind, cuda, march_clamp=True, iso_clamp_min=0.1)
+    assert scene.occupied_aabb is not None and scene.iso_aabb is not None
+    params = CLAMP_PARAMS[key]
+    assert len(march.clamp_boxes(key, scene, params)) \
+        == (2 if key == "iso" else 1)
+    state, plain = _kernel_frames(key, scene, 48, 80, 3, params)
+    assert_kernel_agrees(key, state, plain)
+    bare = dataclasses.replace(scene, occupied_aabb=None, iso_aabb=None)
+    unclamped, _ = _kernel_frames(key, bare, 48, 80, 3, params)
+    assert not torch.equal(state, unclamped)
+
+
+@pytest.mark.parametrize("isovalue,boxes", [(0.05, 0), (0.5, 1)])
+def test_march_kernel_iso_box_by_isovalue(cuda, isovalue, boxes):
+    """``iso_clamp_min=0.1`` alone: at isovalue 0.05 the box does not hold
+    and the kernel runs the headline's instance, at 0.5 it clamps; both
+    equal the plain frames."""
+    scene = _clamp_scene("bf16", cuda, iso_clamp_min=0.1)
+    params = iso.Params(isovalue=isovalue)
+    assert len(march.clamp_boxes("iso", scene, params)) == boxes
+    state, plain = _kernel_frames("iso", scene, 64, 64, 2, params)
+    assert_kernel_agrees("iso", state, plain)
+    assert bool((state[..., 3] > 0).any())
+
+
+def test_march_kernel_clamp_launch_shapes(cuda):
+    """The clamp instances fit an SM in every mode with the local bytes of
+    the unclamped instances (ISO's bf16 instances have a 16-byte stack
+    frame either way, no spills), which keep their residency."""
+    for mode in march.MODES:
+        for dtype in (torch.float32, torch.bfloat16):
+            occ = march.occupancy(mode, dtype, 256, 2, clamp=True)
+            bare = march.occupancy(mode, dtype, 256, 2)
+            assert occ["blocks_per_sm"] >= 1
+            assert occ["local_bytes"] == bare["local_bytes"]
+            assert bare["blocks_per_sm"] >= 6
 
 
 @pytest.mark.parametrize("lanes", [128, 5])
@@ -807,9 +970,8 @@ def test_frame_kernels_follow_the_current_stream(cuda, key):
 
 
 def test_frame_kernels_refuse_what_they_do_not_take(cuda):
-    """Unpacked scenes (all three), environment maps larger than 1×1
-    (MCS), and states of another shape or device raise; nothing falls
-    back to the plain versions."""
+    """Unpacked scenes (all three) and states of another shape or device
+    raise; nothing falls back to the plain versions."""
     unpacked = make_scene(volume.sphere_volume(8, device=cuda),
                           transfer.gray_ramp(device=cuda), pack=False,
                           device=cuda)
@@ -822,12 +984,6 @@ def test_frame_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(NotImplementedError):
         iso.display(torch.full((8, 8, 4), 0.5, device=cuda), unpacked,
                     iso.Params())
-    wide = make_scene(volume.sphere_volume(8, device=cuda),
-                      transfer.gray_ramp(device=cuda),
-                      environment=torch.ones(4, 8, 4), device=cuda)
-    with pytest.raises(NotImplementedError):
-        mcs.render_frame(mcs.reset(mcs.Params(), 8, 8, wide), wide,
-                         mcs.Params(), 0.1, 1)
     scene = _scene("f32", cuda)
     with pytest.raises(ValueError):
         eam.render_frame(torch.zeros(8, 8, device=cuda), scene,

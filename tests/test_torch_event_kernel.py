@@ -190,3 +190,45 @@ def test_event_kernel_preparation_lets_the_scene_go():
     del prepared, scene
     gc.collect()
     assert cache._last is None
+
+
+def c_struct_fields(name):
+    """The ``(name, ctypes kind, count)`` of each member of ``struct name``
+    as declared in ``csrc/*.cu``, a base struct's members first (pointers
+    as void*, ``x[n]`` arrays with their count)."""
+    sources = " ".join(p.read_text() for p in sorted(CSRC.glob("*.cu")))
+    found = re.findall(r"struct " + name + r"(?: : (\w+))? \{(.*?)\n\};",
+                       sources, re.S)
+    assert len(found) == 1, f"{name}: {len(found)} definitions"
+    base, body = found[0]
+    fields = c_struct_fields(base) if base else []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        decl = " ".join(decl.split())
+        if not decl:
+            continue
+        ctype, names = re.match(r"((?:const )?\w+\*?) (.*)", decl).groups()
+        kind = _KINDS["void*" if ctype.endswith("*") else ctype]
+        for member in names.split(", "):
+            array = re.match(r"(\w+)\[(\d+)\]", member)
+            fields.append((array.group(1), kind, int(array.group(2)))
+                          if array else (member, kind, 1))
+    return fields
+
+
+@pytest.mark.parametrize("module,struct", [
+    ("march", "VptMarchClamp"), ("mcs_frame", "VptMcsArgs"),
+    ("iso_shade", "VptIsoShadeArgs"), ("dos_sweep", "VptDosArgs"),
+    ("lao_march", "VptLaoArgs")])
+def test_prepared_structs_match_the_c_layouts(module, struct):
+    """Each prepared ctypes Structure declares the C struct's members in
+    its order, with its kinds and array counts; a mismatch would show
+    only on the card."""
+    import importlib
+
+    args = importlib.import_module(f"vpt_tpu_torch.kernels.{module}")._Args
+    mirror = []
+    for name, ctype in args._fields_:
+        count = getattr(ctype, "_length_", 1)
+        mirror.append((name, getattr(ctype, "_type_", ctype)
+                       if count > 1 else ctype, count))
+    assert mirror == c_struct_fields(struct)

@@ -141,6 +141,61 @@ def test_launch_preparation_is_kept_per_mode_params_and_size(cpu_scene):
     assert (q.args.width, q.args.use_skip, q.args.extinction) == (5, 0, 1.0)
 
 
+@pytest.fixture(scope="module")
+def option_scene():
+    """A scene with every option of the scene: both clamp boxes (the sRGB
+    TF gives the low values alpha 0), a majorant grid and a sky map."""
+    from vpt_tpu_torch import environment
+
+    return make_scene(volume.sphere_volume(16, device="cpu"),
+                      transfer.gray_ramp(alpha_scale=0.8, device="cpu"),
+                      tf_srgb=True, march_clamp=True, iso_clamp_min=0.1,
+                      majorant_grid=4,
+                      environment=environment.gradient_sky(8, 16,
+                                                           device="cpu"),
+                      device="cpu")
+
+
+@pytest.mark.parametrize("mode,params,boxes", [
+    ("eam", eam.Params(), ("occupied_aabb",)),
+    ("mip", mip.Params(), ("occupied_aabb",)),
+    ("depth", depth.Params(), ("occupied_aabb",)),
+    ("iso", iso.Params(), ("occupied_aabb", "iso_aabb")),
+    ("iso", iso.Params(isovalue=0.05), ("occupied_aabb",)),
+    ("iso", iso.Params(isovalue=0.0), ())])
+def test_march_preparation_carries_the_boxes_that_hold(option_scene, mode,
+                                                       params, boxes):
+    """K6's prepared arguments list the boxes the renderer's plain interval
+    clamps to, in its order, with their float32 corners (lo, then hi)."""
+    p = march._scene_cache.get(option_scene, (mode, params, 4, 4))
+    assert p.args.boxes == len(boxes)
+    want = [v for name in boxes
+            for v in getattr(option_scene, name).reshape(-1).tolist()]
+    assert list(p.args.box)[:len(want)] == want
+    assert [b is getattr(option_scene, n) for b, n in zip(
+        march.clamp_boxes(mode, option_scene, params), boxes)] \
+        == [True] * len(boxes)
+
+
+def test_mc_preparations_carry_the_map_and_the_grid(option_scene):
+    """K5's and K8's prepared arguments point at the whole map with its
+    size (no 1×1 texel is cut from it); K5's at the (N³, 2) grid."""
+    from vpt_tpu_torch.kernels import mcm_event
+
+    p = mcm_event._scene_cache.get(option_scene, (False, 4, 4))
+    env, grid = p.tensors[-2], p.tensors[-1]
+    assert tuple(env.shape) == (8, 16, 4) and tuple(grid.shape) == (64, 2)
+    assert torch.equal(grid.reshape(4, 4, 4, 2), option_scene.majorant)
+    assert p.args[8:13] == (env.data_ptr(), 8, 16, grid.data_ptr(), 4)
+    q = mcs_frame._scene_cache.get(option_scene, (mcs.Params(), 4, 4))
+    assert (q.args.env, q.args.env_h, q.args.env_w) == (
+        q.tensors[-1].data_ptr(), 8, 16)
+    plain = make_scene(volume.sphere_volume(8, device="cpu"),
+                       transfer.gray_ramp(device="cpu"), device="cpu")
+    p = mcm_event._scene_cache.get(plain, (False, 4, 4))
+    assert p.args[9:13] == (1, 1, None, 0)
+
+
 def test_iso_shade_preparation_is_kept_per_params_and_size(cpu_scene):
     """K7's preparation is kept while the scene, Params and resolution
     stay, and made anew when the light, the gradient step or the size

@@ -166,3 +166,21 @@ def test_synthetic_volumes_and_environments_match_jax(tmp_path):
     for image in (img, img.astype(np.float32) / 255.0):
         assert np.array_equal(tenv.from_image(image, device="cpu").numpy(),
                               np.asarray(jenv.from_image(image)))
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "P"])
+def test_read_image_matches_jax(tmp_path, mode):
+    """An environment map's PNG in each of Pillow's common modes reads to
+    JAX's RGBA pixels, flipped or not, and to JAX's environment."""
+    rgba = np.random.default_rng(3).integers(0, 256, (12, 20, 4),
+                                             dtype=np.uint8)
+    Image.fromarray(rgba, "RGBA").convert(mode).save(tmp_path / "map.png")
+    for flip in (True, False):
+        got = read_image(tmp_path / "map.png", flip=flip)
+        assert got.dtype == np.float32 and got.shape == (12, 20, 4)
+        assert np.array_equal(got, jimage.read_image(tmp_path / "map.png",
+                                                     flip=flip))
+    assert np.array_equal(
+        tenv.from_image(read_image(tmp_path / "map.png"),
+                        device="cpu").numpy(),
+        np.asarray(jenv.from_image(jimage.read_image(tmp_path / "map.png"))))

@@ -239,3 +239,31 @@ def test_integrate_divides_by_a_tensor():
     want = (state + ((frame - state).double() / 7.0).float())
     tmcs.integrate(state, frame, 7)
     assert torch.equal(state, want)
+
+
+def test_gradient_sky_frames_agree_with_jax():
+    """An equirect map larger than 1×1 (``gradient_sky(16, 32)``) lights
+    the scattered paths along the frame's scatter direction and colors
+    the misses and escapes along the view ray: 3 frames at 32² on a 16³
+    sphere against vpt_tpu's jitted frames (32² moves no NDC), every
+    value within 2e-6 (measured: within 1.2e-7)."""
+    import jax
+
+    sky = jenvironment.gradient_sky(16, 32)
+    jscene = jmake_scene(jvolume.sphere_volume(16),
+                         jtransfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                         environment=sky)
+    tscene = _port(jscene)
+    assert tuple(tscene.environment.shape) == (16, 32, 4)
+    params = jmcs.Params(extinction=8.0)
+    jstate = jmcs.reset(params, 32, 32, jscene)
+    tstate = tmcs.reset(tmcs.Params(extinction=8.0), 32, 32, tscene)
+    frame = jax.jit(jmcs.render_frame)
+    for n, seed in enumerate((0.23, 0.57, 0.91), start=1):
+        jstate = frame(jstate, jscene, params, jnp.float32(seed),
+                       jnp.int32(n))
+        tmcs.render_frame(tstate, tscene, tmcs.Params(extinction=8.0), seed,
+                          n)
+    diff = np.abs(tstate.numpy() - np.asarray(jstate))
+    assert diff.max() <= 2e-6, diff.max()
+    assert np.unique(np.asarray(jstate)[..., 2]).size > 100

@@ -191,9 +191,9 @@ def _add_common_args(p):
                    choices=["none", "cheb", "grid", "auto"],
                    help="empty-space tracking for the MC renderers: "
                         "cheb-skip rides the corner fetch (auto engages "
-                        "it on scenes with TF-empty cells); none = the "
-                        "exact GLSL-stream machine; grid (the coarse "
-                        "majorant grid) is not ported")
+                        "it on scenes with TF-empty cells); grid = the "
+                        "coarse local-majorant grid (MCM); none = the "
+                        "exact GLSL-stream machine")
     p.add_argument("--tf-srgb", action="store_true",
                    help="run the TF through the reference's SRGB8_ALPHA8 "
                         "texture semantics (8-bit quantize + sRGB decode)")

@@ -3,7 +3,9 @@
 //
 // Replaces the XLA lax.scan of vpt_tpu/renderers/_march.py:29-55 (march)
 // with the composites of eam.py:61-67, mip.py:44-46, depth.py:60-67 and
-// iso.py:83-90 and the integrates of their render_frame.  It has no Pallas
+// iso.py:83-90 and the integrates of their render_frame, and the clamps of
+// base.py:460-477 (march_interval) and iso.py:38-66
+// (_march_interval_iso).  It has no Pallas
 // original; its corner fetch and TF lookup are the device functions of
 // ray.cuh and tf1d.cuh (vpt_tpu/pallas/tf1d.py:74-100, and the corner row of
 // benchmarks/pallas_gather.py).
@@ -42,12 +44,17 @@
 // lookup mode are template parameters, so a slice carries no branch but
 // its exit test; the register allocation allows 6 blocks of 128 an SM.
 // The TF row and the inverse MVP sit in shared memory; NDC comes from the
-// pixel index.  A pixel whose ray misses the cube samples nothing (its
+// pixel index.  A scene with an occupied box (march_clamp) or an ISO box
+// (iso_clamp_min) launches the clamp instance: the host lists the boxes
+// that hold for the frame's Params (ISO's depend on the isovalue), and the
+// kernel intersects the cube's interval with each after the slab test.
+// Positions still depend on the slice index alone, so the read-ahead
+// holds; a launch without a box runs the headline's code as it was.  A pixel whose ray misses the cube samples nothing (its
 // frame is fixed); EAM and Depth leave once the pixel goes inactive (the
 // carry never changes after that); ISO marches its schedule from the near
 // end and stops at the first hit, which is the JAX backward march's last
 // write; MIP runs every slice.  The launch takes its scene, Params and
-// resolution as one pointer to a VptMarchArgs that the wrapper prepares
+// resolution as one pointer to a VptMarchClamp that the wrapper prepares
 // once, and the frame's two scalars by value.
 //
 // Numerics follow the plain PyTorch frame (renderers/eam.py, mip.py,
@@ -56,6 +63,7 @@
 // schedule x = offset + s*step, never below +0, is x - floor(x): exact, as
 // fmod is, since floor(x) is 0 or lies in [x/2, x] (Sterbenz's lemma).
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "device_guard.cuh"
@@ -77,6 +85,15 @@ struct VptMarchArgs {
   float extinction;      // EAM, Depth
   float level;           // Depth: the threshold; ISO: the isovalue
   int device;
+};
+
+// The prepared arguments with the clamp boxes that hold for the launch's
+// Params.  Only the clamp instances take it: the others take the base, so
+// their argument, and with it their code, is the one they had before the
+// boxes.
+struct VptMarchClamp : VptMarchArgs {
+  int boxes;             // clamp boxes that apply: 0, 1 or 2
+  float box[12];         // box b: lo xyz at 6b, hi xyz at 6b + 3
 };
 
 namespace {
@@ -131,9 +148,13 @@ __device__ __forceinline__ void march_slices(const VptMarchArgs& a, int n,
   }
 }
 
-template <int kMode, bool kBf16, int kTf>
+// the argument a launch of the clamp instance or of the others takes
+template <bool kClamp>
+using ArgsOf = std::conditional_t<kClamp, VptMarchClamp, VptMarchArgs>;
+
+template <int kMode, bool kBf16, int kTf, bool kClamp>
 __global__ void __launch_bounds__(kVptTileThreads, kMinBlocks)
-march_kernel(const VptMarchArgs a, float* __restrict__ state, float first,
+march_kernel(const ArgsOf<kClamp> a, float* __restrict__ state, float first,
              float mix) {
   // dynamic: the TF row (tw float4)
   extern __shared__ float4 s_tf[];
@@ -159,7 +180,24 @@ march_kernel(const VptMarchArgs a, float* __restrict__ state, float first,
   for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
   float tnear, tfar;
   vpt_intersect_cube(from, dir, &tnear, &tfar);
-  const float tb0 = vpt_nmax(tnear, 0.0f), tb1 = vpt_nmax(tfar, 0.0f);
+  float tb0 = vpt_nmax(tnear, 0.0f), tb1 = vpt_nmax(tfar, 0.0f);
+  if constexpr (kClamp) {
+    // the interval intersected with each box's, clamped at 0, in the
+    // order the host lists them (base.march_interval, iso.march_interval)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      if (b < a.boxes) {
+        const float lo[3] = {a.box[6 * b], a.box[6 * b + 1],
+                             a.box[6 * b + 2]};
+        const float hi[3] = {a.box[6 * b + 3], a.box[6 * b + 4],
+                             a.box[6 * b + 5]};
+        float bn, bf;
+        vpt_intersect_box(from, dir, lo, hi, &bn, &bf);
+        tb0 = vpt_nmax(tb0, vpt_nmax(bn, 0.0f));
+        tb1 = vpt_nmin(tb1, vpt_nmax(bf, 0.0f));
+      }
+    }
+  }
   const bool miss = tb0 >= tb1;
   float start[3], seg[3];
 #pragma unroll
@@ -265,67 +303,107 @@ size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
 
 // The instantiation for a launch's mode, table type and TF lookup mode
 // (tf1d.cuh's: a compile-time constant, so the lookup carries no branch).
-using Kernel = void (*)(const VptMarchArgs, float*, float, float);
+// With kClamp the interval is clamped to the launch's boxes; without, the
+// headline's code runs as it was.
+template <bool kClamp>
+using Kernel = void (*)(const ArgsOf<kClamp>, float*, float, float);
 
-template <int kMode, bool kBf16>
-Kernel pick_tf(int tf_mode) {
+template <int kMode, bool kBf16, bool kClamp>
+Kernel<kClamp> pick_tf(int tf_mode) {
   switch (tf_mode) {
-    case 0: return march_kernel<kMode, kBf16, 0>;
-    case 1: return march_kernel<kMode, kBf16, 1>;
-    case 2: return march_kernel<kMode, kBf16, 2>;
+    case 0: return march_kernel<kMode, kBf16, 0, kClamp>;
+    case 1: return march_kernel<kMode, kBf16, 1, kClamp>;
+    case 2: return march_kernel<kMode, kBf16, 2, kClamp>;
     default: return nullptr;
   }
 }
 
-template <bool kBf16>
-Kernel pick_mode(int mode, int tf_mode) {
+template <bool kBf16, bool kClamp>
+Kernel<kClamp> pick_mode(int mode, int tf_mode) {
   switch (mode) {
-    case kEam: return pick_tf<kEam, kBf16>(tf_mode);
-    case kMip: return pick_tf<kMip, kBf16>(tf_mode);
-    case kDepth: return pick_tf<kDepth, kBf16>(tf_mode);
-    case kIso: return pick_tf<kIso, kBf16>(tf_mode);
+    case kEam: return pick_tf<kEam, kBf16, kClamp>(tf_mode);
+    case kMip: return pick_tf<kMip, kBf16, kClamp>(tf_mode);
+    case kDepth: return pick_tf<kDepth, kBf16, kClamp>(tf_mode);
+    case kIso: return pick_tf<kIso, kBf16, kClamp>(tf_mode);
     default: return nullptr;
   }
 }
 
-Kernel pick(int mode, int table_bf16, int tf_mode) {
-  return table_bf16 ? pick_mode<true>(mode, tf_mode)
-                    : pick_mode<false>(mode, tf_mode);
+template <bool kClamp>
+Kernel<kClamp> pick(int mode, int table_bf16, int tf_mode) {
+  return table_bf16 ? pick_mode<true, kClamp>(mode, tf_mode)
+                    : pick_mode<false, kClamp>(mode, tf_mode);
 }
 
 // Without opting in, a block gets 48 KiB of shared memory, static and
 // dynamic together; a TF row near tf1d.MAX_WIDTH needs more.  The attribute
 // belongs to the current device, so it is set on every such launch.
-cudaError_t allow_smem(Kernel kernel, int tw) {
+template <class K>
+cudaError_t allow_smem(K kernel, int tw) {
   if (dynamic_smem(tw) <= 47 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)dynamic_smem(tw));
 }
 
-cudaError_t launch(const VptMarchArgs& a, void* state, float first,
-                   float mix, void* stream) {
-  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
-  const Kernel kernel = pick(a.mode, a.table_bf16, a.tf_mode);
+template <bool kClamp>
+cudaError_t launch_as(const VptMarchClamp& p, void* state, float first,
+                      float mix, void* stream) {
+  const Kernel<kClamp> kernel = pick<kClamp>(p.mode, p.table_bf16,
+                                             p.tf_mode);
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(kernel, a.tw);
+  cudaError_t err = allow_smem(kernel, p.tw);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
-  kernel<<<blocks, kVptTileThreads, dynamic_smem(a.tw),
+  const ArgsOf<kClamp>& a = p;
+  const unsigned blocks = (unsigned)vpt_tile_blocks(p.width, p.height);
+  kernel<<<blocks, kVptTileThreads, dynamic_smem(p.tw),
            (cudaStream_t)stream>>>(a, (float*)state, first, mix);
   return cudaGetLastError();
 }
 
+cudaError_t launch(const VptMarchClamp& p, void* state, float first,
+                   float mix, void* stream) {
+  if (p.width <= 0 || p.height <= 0) return cudaSuccess;
+  if (p.boxes < 0 || p.boxes > 2) return cudaErrorInvalidValue;
+  return p.boxes > 0 ? launch_as<true>(p, state, first, mix, stream)
+                     : launch_as<false>(p, state, first, mix, stream);
+}
+
+// The launch shape of a kernel for a TF row of tw texels on device: the
+// values vpt_march_info writes.
+template <class K>
+cudaError_t info(K kernel, int table_bf16, int tw, int device, int* out) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, tw);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kVptTileThreads, dynamic_smem(tw));
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
+                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                        (int)dynamic_smem(tw),
+                        table_bf16 ? kChunk<true> : kChunk<false>,
+                        kVptTileW, kVptTileH, kVptWarpW};
+  for (int k = 0; k < 11; ++k) out[k] = values[k];
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// One frame: prepared is the VptMarchArgs of the scene, Params and
+// One frame: prepared is the VptMarchClamp of the scene, Params and
 // resolution; first is the schedule's first value (EAM, Depth: t0; MIP: the
 // offset; ISO: 1 - offset*step), mix the running mean's weight 1/n.
 extern "C" int vpt_march_launch(const void* prepared, void* state,
                                 float first, float mix, void* stream) {
-  const VptMarchArgs& a = *static_cast<const VptMarchArgs*>(prepared);
-  VptDeviceGuard guard(a.device);
-  return (int)launch(a, state, first, mix, stream);
+  const VptMarchClamp& p = *static_cast<const VptMarchClamp*>(prepared);
+  VptDeviceGuard guard(p.device);
+  return (int)launch(p, state, first, mix, stream);
 }
 
 // The same frame through the argument list the march kernel has taken
@@ -336,7 +414,7 @@ extern "C" int vpt_march_frame(
     int w, const void* tf_row, int tw, int tf_mode, const void* mvp,
     int width, int height, int slices, float step, float first,
     float extinction, float level, float mix, void* stream) {
-  VptMarchArgs a;
+  VptMarchClamp a;
   a.table = table;
   a.tf_row = (const float4*)tf_row;
   a.mvp = (const float*)mvp;
@@ -351,36 +429,24 @@ extern "C" int vpt_march_frame(
   a.extinction = extinction;
   a.level = level;
   a.device = 0;
+  a.boxes = 0;
   return (int)launch(a, state, first, mix, stream);
 }
 
-// The launch shape of mode `mode` for a table of bf16 (or float32) rows
-// and a TF row of `tw` texels in lookup mode `tf_mode` on `device`: out =
+// The launch shape of mode `mode` for the instance `flags` (1: a table of
+// bf16 rows, else float32; 2: the clamp instance) and a TF row of `tw`
+// texels in lookup mode `tf_mode` on `device`: out =
 // threads a block, resident blocks an SM, SMs, registers a thread, local
 // (spilled) bytes a thread, static and dynamic shared bytes a block, rows
 // read ahead, the block's tile width and height and the warp's tile width
 // in pixels.  Launches nothing.
-extern "C" int vpt_march_info(int mode, int table_bf16, int tw, int tf_mode,
+extern "C" int vpt_march_info(int mode, int flags, int tw, int tf_mode,
                               int device, int* out) {
   VptDeviceGuard guard(device);
-  const Kernel kernel = pick(mode, table_bf16, tf_mode);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(kernel, tw);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kVptTileThreads, dynamic_smem(tw));
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
-                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
-                        (int)dynamic_smem(tw),
-                        table_bf16 ? kChunk<true> : kChunk<false>,
-                        kVptTileW, kVptTileH, kVptWarpW};
-  for (int k = 0; k < 11; ++k) out[k] = values[k];
-  return 0;
+  const int bf16 = flags & 1;
+  return (int)((flags & 2)
+                   ? info(pick<true>(mode, bf16, tf_mode), bf16, tw, device,
+                          out)
+                   : info(pick<false>(mode, bf16, tf_mode), bf16, tw,
+                          device, out));
 }

@@ -3,7 +3,9 @@
 //
 // Replaces the XLA fori_loop of vpt_tpu/renderers/mcm.py:197-310
 // (render_frame; flight_phase :85-110, interact_phase :113-184,
-// _photon_reset :45-55, Scene.sample_color_tracking in base.py:187-219).
+// _photon_reset :45-55, Scene.sample_color_tracking in base.py:187-219;
+// the majorant-grid branch :224-307 with skipgrid.flight_step; the
+// equirect Scene.sample_env at an escape).
 // It has no Pallas original; its TF lookup is the device function of the
 // tf1d kernel (vpt_tpu/pallas/tf1d.py:74-100, here tf1d.cuh), and its RNG,
 // ray setup and corner fetch are those of ray.cuh, which the march, ISO
@@ -27,6 +29,17 @@
 // Without blur the reset skips the disk sample: its two draws still advance
 // the stream, and nothing else of it reaches the result.  Blocks of
 // kThreads; 40 registers, no spills, 12 blocks an SM.
+//
+// The majorant-grid machine (make_scene(tracking="grid")) and an
+// environment map larger than 1x1 are template instances beside the
+// headline's, whose code they leave as it was.  A grid event reads one
+// float2 of the (N^3, 2) grid (32 KB at N = 16, L1- and L2-resident),
+// computes the DDA boundary and flies against extinction * maxalpha.  A
+// hop (no collision inside the cell) does not fetch the volume: its color
+// reaches no result, since only a collision inside the cube can absorb or
+// scatter, and the classification's uniform is drawn regardless.  A map
+// is read at an escape deposit only, through the read-only cache
+// (ray.cuh's vpt_sample_environment).
 //
 // Measured against it (bench_mcm_event.py; PERF.md has the numbers): a
 // wavefront inside a block (the photons' state in shared memory, dense
@@ -67,7 +80,10 @@ struct Args {
   int d, h, w;
   const float4* tf_row;  // (tw, 4)
   int tw, tf_mode;       // tf_mode: tf1d.cuh's lookup mode
-  const float* env;      // 4 floats: the 1x1 environment texel
+  const float* env;      // the (env_h, env_w, 4) environment map
+  int env_h, env_w;
+  const float2* grid;    // (N^3,) [maxalpha, chebdist] cells, or null
+  int grid_n;            // N
   const float* mvp;      // 16 floats, row-major inverse MVP
   int width, height;     // the image; n = width * height
   float inv_res_x, inv_res_y, seed, extinction, anisotropy, blur, cell;
@@ -142,7 +158,42 @@ __device__ __forceinline__ void henyey_greenstein(uint32_t& s, float g,
   for (int k = 0; k < 3; ++k) dir[k] = st * (perp[k] / pn) + hgcos * dir[k];
 }
 
-template <bool kBf16>
+// skipgrid.flight_step: the majorant of the cell that holds p (nudged along
+// dir by EPS_NUDGE) and, in *t_bound, the distance along dir to the cell's
+// boundary (the DDA crossing), extended to a (chebdist - 1)-cell hop in
+// exactly-empty space, at least 0.  One float2 of the (N^3, 2) grid, 32 KB
+// at N = 16, so it stays in L1 and L2.
+__device__ __forceinline__ float grid_flight(const float2* grid, int n,
+                                             const float p[3],
+                                             const float dir[3],
+                                             float* t_bound) {
+  const float fn = (float)n;
+  int c[3];
+  float t = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float pk = p[k] + F32(1e-5) * dir[k];
+    c[k] = min(max(__float2int_rz(floorf(pk * fn)), 0), n - 1);
+    // divide only where the component is non-zero: inf otherwise
+    const float boundary = ((float)c[k] + (dir[k] > 0.0f ? 1.0f : 0.0f))
+                           / fn;
+    const float tk = dir[k] != 0.0f ? (boundary - p[k]) / dir[k]
+                                    : __int_as_float(0x7f800000);
+    t = (k == 0) ? tk : vpt_nmin(t, tk);
+  }
+  const float2 cell = __ldg(grid + ((int64_t)c[2] * n + c[1]) * n + c[0]);
+  if (cell.x == 0.0f && cell.y >= 2.0f)
+    t = vpt_nmax(t, vpt_nmax(cell.y - 1.0f, 0.0f) / fn);
+  *t_bound = vpt_nmax(t, 0.0f);
+  return cell.x;
+}
+
+// The three machines are template instances: kGrid the majorant grid's
+// flight (the exact and cheb-skip flights otherwise, by use_skip), kMap an
+// environment map larger than 1x1 (the headline's 1x1 texel sits in
+// shared memory otherwise).  The headline's instance is <bf16, false,
+// false>.
+template <bool kBf16, bool kGrid, bool kMap>
 __global__ void __launch_bounds__(kThreads)
 mcm_event_kernel(Args a) {
   // dynamic: the TF row (tw float4)
@@ -151,7 +202,8 @@ mcm_event_kernel(Args a) {
   __shared__ float s_env[3];
   for (int i = threadIdx.x; i < a.tw; i += blockDim.x) s_tf[i] = a.tf_row[i];
   if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
-  if (threadIdx.x < 3) s_env[threadIdx.x] = __ldg(a.env + threadIdx.x);
+  if (!kMap && threadIdx.x < 3)
+    s_env[threadIdx.x] = __ldg(a.env + threadIdx.x);
   __syncthreads();
   const long long n = (long long)a.width * a.height;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -167,7 +219,7 @@ mcm_event_kernel(Args a) {
   }
   float b = a.bounces[i];
   float samples = a.samples[i];
-  const bool skip = a.use_skip != 0;
+  const bool skip = !kGrid && a.use_skip != 0;
   float ch = skip ? a.cheb[i] : 0.0f;
   // NDC of the row-major pixel index (row 0 is the bottom of the image);
   // the wrapper keeps width * height below 2^31
@@ -181,17 +233,45 @@ mcm_event_kernel(Args a) {
   uint32_t s = vpt_seed_pixel(ndcx, ndcy, a.seed);
 
   for (int step = 0; step < a.steps; ++step) {
-    // flight: exponential free path, extended over empty cells in skip mode
-    float dist = vpt_exponential(s, a.extinction);
-    if (skip) dist = vpt_nmax(dist, vpt_nmax(ch - 1.0f, 0.0f) * a.cell);
     float q[3];
+    float4 vs;
+    float cheb_new = 0.0f;
+    bool collide = true;   // a hop of the grid machine collides with nothing
+    if constexpr (kGrid) {
+      // flight against the cell's majorant mu; a tentative collision past
+      // the cell's boundary becomes a hop just beyond it (mcm.py:224-241)
+      float t_bound;
+      const float mu = grid_flight(a.grid, a.grid_n, p, dir, &t_bound);
+      const float tau = vpt_exponential(s, 1.0f);
+      const float sigma = a.extinction * mu;
+      const float t_coll = sigma > 0.0f ? tau / vpt_nmax(sigma, F32(1e-30))
+                                        : __int_as_float(0x7f800000);
+      collide = t_coll < t_bound;
+      const float dist = collide ? t_coll : t_bound + F32(1e-5);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) q[k] = p[k] + dist * dir[k];
+      for (int k = 0; k < 3; ++k) q[k] = p[k] + dist * dir[k];
+      // only a collision reads the volume: a hop's color reaches nothing
+      vs = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (collide) {
+        vs = vpt_color(s_tf, a.tw, a.tf_mode,
+                       vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1],
+                                        q[2]), false);
+      }
+      // the collision's rate relative to the local majorant
+      vs.w = mu > 0.0f ? vpt_nmin(vs.w / mu, 1.0f) : 0.0f;
+    } else {
+      // flight: exponential free path, extended over empty cells in skip
+      // mode
+      float dist = vpt_exponential(s, a.extinction);
+      if (skip) dist = vpt_nmax(dist, vpt_nmax(ch - 1.0f, 0.0f) * a.cell);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) q[k] = p[k] + dist * dir[k];
 
-    // sample: one corner row, then the TF row
-    float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1], q[2]);
-    float4 vs = vpt_color(s_tf, a.tw, a.tf_mode, v, skip);
-    float cheb_new = skip ? rintf(vpt_nmax(-v, 0.0f)) : 0.0f;
+      // sample: one corner row, then the TF row
+      float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1], q[2]);
+      vs = vpt_color(s_tf, a.tw, a.tf_mode, v, skip);
+      cheb_new = skip ? rintf(vpt_nmax(-v, 0.0f)) : 0.0f;
+    }
 
     // classify (mcm.py:122-133)
     float alpha = vs.w;
@@ -202,16 +282,28 @@ mcm_event_kernel(Args a) {
     float fortune = vpt_uniform(s);
     bool oob = q[0] > 1.0f || q[0] < 0.0f || q[1] > 1.0f || q[1] < 0.0f
                || q[2] > 1.0f || q[2] < 0.0f;
-    bool absorb = !oob && fortune < p_absorb;
-    bool scatter = !oob && !absorb && fortune < p_absorb + p_scatter;
+    bool absorb = !oob && collide && fortune < p_absorb;
+    bool scatter = !oob && collide && !absorb
+                   && fortune < p_absorb + p_scatter;
 
     if (oob || absorb) {
-      // deposit into the running mean, then re-seed the photon
+      // deposit into the running mean, then re-seed the photon; an escape
+      // deposits the environment along the photon's direction
+      float env[3];
+      if constexpr (kMap) {
+        const float4 e = oob ? vpt_sample_environment(
+                                   reinterpret_cast<const float4*>(a.env),
+                                   a.env_h, a.env_w, dir[0], dir[1], dir[2])
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        env[0] = e.x; env[1] = e.y; env[2] = e.z;
+      } else {
+        env[0] = s_env[0]; env[1] = s_env[1]; env[2] = s_env[2];
+      }
       samples = samples + 1.0f;
       float den = vpt_nmax(samples, 1.0f);
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        float r_new = oob ? tr[k] * s_env[k] : 0.0f;
+        float r_new = oob ? tr[k] * env[k] : 0.0f;
         rad[k] = rad[k] + (r_new - rad[k]) / den;
         tr[k] = 1.0f;
       }
@@ -248,31 +340,46 @@ mcm_event_kernel(Args a) {
 // dynamic together; a TF row near tf1d.MAX_WIDTH (3072 texels, 48 KiB)
 // needs more.  The attribute belongs to the current device, so it is set
 // on every such launch.
+using Kernel = void (*)(Args);
+
+// The instance for a table type (flags & 1), the grid machine (flags & 2)
+// and an environment map larger than 1x1 (flags & 4).
 template <bool kBf16>
-cudaError_t allow_smem(size_t smem) {
+Kernel pick_machine(int flags) {
+  switch (flags & 6) {
+    case 0: return mcm_event_kernel<kBf16, false, false>;
+    case 2: return mcm_event_kernel<kBf16, true, false>;
+    case 4: return mcm_event_kernel<kBf16, false, true>;
+    default: return mcm_event_kernel<kBf16, true, true>;
+  }
+}
+
+Kernel pick(int flags) {
+  return (flags & 1) ? pick_machine<true>(flags) : pick_machine<false>(flags);
+}
+
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 47 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(mcm_event_kernel<kBf16>,
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
 // The launch shape for a TF row of tw texels (see vpt_mcm_event_info).
-template <bool kBf16>
-cudaError_t info(int tw, int* out) {
+cudaError_t info(Kernel kernel, int tw, int* out) {
   const size_t smem = (size_t)tw * sizeof(float4);
   int dev = 0, per_sm = 0, sms = 0;
   cudaError_t err;
-  if ((err = allow_smem<kBf16>(smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, mcm_event_kernel<kBf16>, kThreads, smem)) != cudaSuccess)
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
     return err;
   cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, mcm_event_kernel<kBf16>))
-      != cudaSuccess)
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
     return err;
   out[0] = kThreads;
   out[1] = per_sm;
@@ -284,27 +391,31 @@ cudaError_t info(int tw, int* out) {
   return cudaSuccess;
 }
 
-template <bool kBf16>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, const Args& a, cudaStream_t stream) {
   const long long n = (long long)a.width * a.height;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   const size_t smem = (size_t)a.tw * sizeof(float4);
-  cudaError_t err = allow_smem<kBf16>(smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  mcm_event_kernel<kBf16><<<blocks, kThreads, smem, stream>>>(a);
+  kernel<<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int vpt_mcm_event(
+// One frame of any instance.  env: the (env_h, env_w, 4) float32
+// environment map (1x1: the headline's shared texel); grid: null, or the
+// (grid_n^3, 2) float32 majorant grid, which selects the grid machine
+// (use_skip is then 0).
+extern "C" int vpt_mcm_event_frame(
     void* position, void* direction, void* bounces, void* transmittance,
     void* radiance, void* samples, void* cheb, const void* table,
     int table_bf16, int d, int h, int w, const void* tf_row, int tw,
-    int tf_mode, const void* env, const void* mvp, int width, int height,
-    float inv_res_x, float inv_res_y, float seed, float extinction,
-    float anisotropy, float blur, float cell, int max_bounces, int steps,
-    int use_skip, void* stream) {
+    int tf_mode, const void* env, int env_h, int env_w, const void* grid,
+    int grid_n, const void* mvp, int width, int height, float inv_res_x,
+    float inv_res_y, float seed, float extinction, float anisotropy,
+    float blur, float cell, int max_bounces, int steps, int use_skip,
+    void* stream) {
   if (width <= 0 || height <= 0) return 0;
   Args a;
   a.position = (float*)position;
@@ -320,19 +431,43 @@ extern "C" int vpt_mcm_event(
   a.tw = tw;
   a.tf_mode = tf_mode;
   a.env = (const float*)env;
+  a.env_h = env_h; a.env_w = env_w;
+  a.grid = (const float2*)grid;
+  a.grid_n = grid_n;
   a.mvp = (const float*)mvp;
   a.width = width; a.height = height;
   a.inv_res_x = inv_res_x; a.inv_res_y = inv_res_y;
   a.seed = seed; a.extinction = extinction; a.anisotropy = anisotropy;
   a.blur = blur; a.cell = cell;
   a.max_bounces = max_bounces; a.steps = steps; a.use_skip = use_skip;
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(table_bf16 ? launch<true>(a, st) : launch<false>(a, st));
+  const int flags = (table_bf16 ? 1 : 0) | (grid ? 2 : 0)
+                    | (env_h == 1 && env_w == 1 ? 0 : 4);
+  return (int)launch(pick(flags), a, (cudaStream_t)stream);
 }
 
-// The launch shape of the kernel for a TF row of `tw` texels: out[0..6] =
-// threads a block, resident blocks an SM, SMs, registers a thread, local
-// (spilled) bytes a thread, static and dynamic shared bytes a block.
-extern "C" int vpt_mcm_event_info(int table_bf16, int tw, int* out) {
-  return (int)(table_bf16 ? info<true>(tw, out) : info<false>(tw, out));
+// The same frame through the argument list the event kernel has taken
+// since its redesign (every build of it exports this: env is a 1x1 texel,
+// no grid), so that builds can be timed against each other.
+extern "C" int vpt_mcm_event(
+    void* position, void* direction, void* bounces, void* transmittance,
+    void* radiance, void* samples, void* cheb, const void* table,
+    int table_bf16, int d, int h, int w, const void* tf_row, int tw,
+    int tf_mode, const void* env, const void* mvp, int width, int height,
+    float inv_res_x, float inv_res_y, float seed, float extinction,
+    float anisotropy, float blur, float cell, int max_bounces, int steps,
+    int use_skip, void* stream) {
+  return vpt_mcm_event_frame(
+      position, direction, bounces, transmittance, radiance, samples, cheb,
+      table, table_bf16, d, h, w, tf_row, tw, tf_mode, env, 1, 1, nullptr,
+      0, mvp, width, height, inv_res_x, inv_res_y, seed, extinction,
+      anisotropy, blur, cell, max_bounces, steps, use_skip, stream);
+}
+
+// The launch shape of the instance `flags` (1: a bf16 table, 2: the grid
+// machine, 4: an environment map larger than 1x1) for a TF row of `tw`
+// texels: out[0..6] = threads a block, resident blocks an SM, SMs,
+// registers a thread, local (spilled) bytes a thread, static and dynamic
+// shared bytes a block.
+extern "C" int vpt_mcm_event_info(int flags, int tw, int* out) {
+  return (int)info(pick(flags), tw, out);
 }

@@ -2,8 +2,9 @@
 // delta tracking, generate and integrate, one thread a pixel.
 //
 // Replaces the XLA lax.while_loops of vpt_tpu/renderers/mcs.py:47-178
-// (generate: sample_distance :86-118, sample_transmittance :120-152) and
-// its integrate (:181-185).  It has no Pallas original; its RNG, ray setup,
+// (generate: sample_distance :86-118, sample_transmittance :120-152, the
+// equirect Scene.sample_env of :169 and :174) and its integrate
+// (:181-185).  It has no Pallas original; its RNG, ray setup,
 // corner fetch and TF lookup are the device functions of ray.cuh and
 // tf1d.cuh, which the MCM event kernel shares.
 //
@@ -30,6 +31,11 @@
 // (ray.cuh), as in the march kernel.  The TF row, the inverse MVP and the
 // 1x1 environment texel sit in shared memory; NDC and the stream seed come
 // from the pixel index; the frame's scatter direction comes from the host.
+// An environment map larger than 1x1 is a template instance beside the
+// headline's, which reads the map (ray.cuh's vpt_sample_environment,
+// through the read-only cache) for the light along the scatter direction
+// where a pixel scatters and along the unit view ray where it misses or
+// escapes.
 // With a cheb-skip tracking table the free paths extend over empty cells
 // and colors come from that table, as in the MCM event kernel.  The launch
 // takes its scene, Params and resolution as one pointer to a VptMcsArgs
@@ -55,7 +61,7 @@ struct VptMcsArgs {
   const void* table;     // (D*H*W, 8) corner rows: tracking or volume
   const float4* tf_row;  // (tw, 4)
   const float* mvp;      // 16 floats, row-major inverse MVP
-  const float* env;      // 4 floats: the 1x1 environment texel
+  const float* env;      // the (env_h, env_w, 4) environment map
   int table_bf16;
   int d, h, w;
   int tw, tf_mode;
@@ -63,6 +69,7 @@ struct VptMcsArgs {
   float extinction, cell;
   int use_skip;
   int device;
+  int env_h, env_w;
 };
 
 // The frame's scalars, by value.
@@ -77,7 +84,7 @@ namespace {
 // mcs._MAX_TRACKING_ITERS, the tracking loops' backstop
 constexpr int kMaxIters = 100000;
 
-template <bool kBf16, bool kCount>
+template <bool kBf16, bool kCount, bool kMap>
 __global__ void __launch_bounds__(kVptTileThreads)
 mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
                  float4* __restrict__ state,
@@ -87,7 +94,7 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
   __shared__ float4 s_env;
   for (int i = threadIdx.x; i < a.tw; i += blockDim.x) s_tf[i] = a.tf_row[i];
   if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
-  if (threadIdx.x == 0)
+  if (!kMap && threadIdx.x == 0)
     s_env = make_float4(__ldg(a.env), __ldg(a.env + 1), __ldg(a.env + 2),
                         __ldg(a.env + 3));
   __syncthreads();
@@ -100,7 +107,7 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
     // the state, read first, so that its latency overlaps the tracking's
     float4 acc = state[i];
     const bool skip = a.use_skip != 0;
-    const float4 env = s_env;
+    const float4 env = kMap ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : s_env;
 
     const float ndcx = vpt_pixel_ndc(x, a.width);
     const float ndcy = vpt_pixel_ndc(y, a.height);
@@ -114,6 +121,7 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
 
     // the 1x1 environment: what a miss or an escaped path sees
     float4 frame = env;
+    bool scattered = false;
     if (!(tb0 >= tb1)) {
       float start[3], seg[3];
 #pragma unroll
@@ -195,11 +203,26 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
                                             skip).w);
           if (skip) cheb = rintf(vpt_nmax(-v, 0.0f));
         }
-        frame = make_float4(diffuse.x * env.x * trans,
-                            diffuse.y * env.y * trans,
-                            diffuse.z * env.z * trans,
-                            diffuse.w * env.w * trans);
+        // the light along the scatter direction
+        const float4 light =
+            kMap ? vpt_sample_environment(
+                       reinterpret_cast<const float4*>(a.env), a.env_h,
+                       a.env_w, f.sx, f.sy, f.sz)
+                 : env;
+        frame = make_float4(diffuse.x * light.x * trans,
+                            diffuse.y * light.y * trans,
+                            diffuse.z * light.z * trans,
+                            diffuse.w * light.w * trans);
+        scattered = true;
       }
+    }
+    if (kMap && !scattered) {
+      // the map along the unit view ray (mcs.py's env_color)
+      const float norm = sqrtf(vpt_nmax(
+          dir[0] * dir[0] + dir[1] * dir[1] + dir[2] * dir[2], 1e-20f));
+      frame = vpt_sample_environment(reinterpret_cast<const float4*>(a.env),
+                                     a.env_h, a.env_w, dir[0] / norm,
+                                     dir[1] / norm, dir[2] / norm);
     }
 
     // the running mean: acc + (frame - acc) / n, the IEEE quotient
@@ -222,54 +245,64 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
 
 size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
 
+using Kernel = void (*)(const VptMcsArgs, const VptMcsFrame, float4*,
+                        unsigned long long*);
+
+// The instance for a table type (flags & 1), the counter (flags & 2) and
+// an environment map larger than 1x1 (flags & 4).
 template <bool kBf16, bool kCount>
-cudaError_t allow_smem(int tw) {
-  if (dynamic_smem(tw) <= 47 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(mcs_frame_kernel<kBf16, kCount>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)dynamic_smem(tw));
+Kernel pick_map(int flags) {
+  return (flags & 4) ? mcs_frame_kernel<kBf16, kCount, true>
+                     : mcs_frame_kernel<kBf16, kCount, false>;
 }
 
-template <bool kBf16, bool kCount>
-cudaError_t launch(const VptMcsArgs& a, const VptMcsFrame& f, void* state,
-                   void* counts, cudaStream_t stream) {
-  cudaError_t err = allow_smem<kBf16, kCount>(a.tw);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
-  mcs_frame_kernel<kBf16, kCount>
-      <<<blocks, kVptTileThreads, dynamic_smem(a.tw), stream>>>(
-          a, f, (float4*)state, (unsigned long long*)counts);
-  return cudaGetLastError();
+Kernel pick(int flags) {
+  switch (flags & 3) {
+    case 0: return pick_map<false, false>(flags);
+    case 1: return pick_map<true, false>(flags);
+    case 2: return pick_map<false, true>(flags);
+    default: return pick_map<true, true>(flags);
+  }
+}
+
+cudaError_t allow_smem(Kernel kernel, int tw) {
+  if (dynamic_smem(tw) <= 47 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)dynamic_smem(tw));
 }
 
 cudaError_t launch_any(const VptMcsArgs& a, const VptMcsFrame& f,
                        void* state, void* counts, void* stream) {
   if (a.width <= 0 || a.height <= 0) return cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (counts)
-    return a.table_bf16 ? launch<true, true>(a, f, state, counts, st)
-                        : launch<false, true>(a, f, state, counts, st);
-  return a.table_bf16 ? launch<true, false>(a, f, state, nullptr, st)
-                      : launch<false, false>(a, f, state, nullptr, st);
+  const int flags = (a.table_bf16 ? 1 : 0) | (counts ? 2 : 0)
+                    | (a.env_h == 1 && a.env_w == 1 ? 0 : 4);
+  const Kernel kernel = pick(flags);
+  cudaError_t err = allow_smem(kernel, a.tw);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
+  kernel<<<blocks, kVptTileThreads, dynamic_smem(a.tw),
+           (cudaStream_t)stream>>>(a, f, (float4*)state,
+                                   (unsigned long long*)counts);
+  return cudaGetLastError();
 }
 
 // out: threads a block, resident blocks an SM, SMs, registers a thread,
 // local (spilled) bytes a thread, static and dynamic shared bytes a block,
 // the block's tile width and height and the warp's tile width in pixels
 // (the render path's instantiation, without the counter)
-template <bool kBf16>
-cudaError_t info(int tw, int device, int* out) {
-  cudaError_t err = allow_smem<kBf16, false>(tw);
+cudaError_t info(int flags, int tw, int device, int* out) {
+  const Kernel kernel = pick(flags & 5);
+  cudaError_t err = allow_smem(kernel, tw);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mcs_frame_kernel<kBf16, false>, kVptTileThreads,
-      dynamic_smem(tw));
+      &per_sm, kernel, kVptTileThreads, dynamic_smem(tw));
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, mcs_frame_kernel<kBf16, false>);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
   const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
                         (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
@@ -296,8 +329,8 @@ extern "C" int vpt_mcs_launch(const void* prepared, void* state, float seed,
 }
 
 // The same frame through the argument list the MCS kernel has taken since
-// it was ported (every build of it exports this), on the current device,
-// without the counter.
+// it was ported (every build of it exports this: env is a 1x1 texel), on
+// the current device, without the counter.
 extern "C" int vpt_mcs_frame(
     void* state, const void* table, int table_bf16, int d, int h, int w,
     const void* tf_row, int tw, int tf_mode, const void* mvp,
@@ -318,14 +351,15 @@ extern "C" int vpt_mcs_frame(
   a.cell = cell;
   a.use_skip = use_skip;
   a.device = 0;
+  a.env_h = a.env_w = 1;
   const VptMcsFrame f = {seed, sx, sy, sz, frame_number};
   return (int)launch_any(a, f, state, nullptr, stream);
 }
 
-// The launch shape for a TF row of `tw` texels on `device`: the ten
-// values of info() above.  Launches nothing.
-extern "C" int vpt_mcs_info(int table_bf16, int tw, int device, int* out) {
+// The launch shape of the instance `flags` (1: a bf16 table, 4: an
+// environment map larger than 1x1) for a TF row of `tw` texels on
+// `device`: the ten values of info() above.  Launches nothing.
+extern "C" int vpt_mcs_info(int flags, int tw, int device, int* out) {
   VptDeviceGuard guard(device);
-  return (int)(table_bf16 ? info<true>(tw, device, out)
-                          : info<false>(tw, device, out));
+  return (int)info(flags, tw, device, out);
 }

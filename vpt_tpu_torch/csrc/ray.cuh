@@ -1,7 +1,8 @@
 // Per-pixel ray pieces shared by the kernels that run one thread a pixel:
 // the MCM event kernel (mcm_event.cu), the march kernel (march.cu), the ISO
 // shade kernel (iso_shade.cu) and the MCS delta-tracking kernel
-// (mcs_frame.cu), and the pixel tiles of the frame kernels.
+// (mcs_frame.cu), the equirect environment lookup of the MC kernels, and
+// the pixel tiles of the frame kernels.
 //
 // Each function runs the float32 operations of its plain PyTorch version
 // (vpt_tpu_torch/rng.py, sampling.py) in their order; the kernels are built
@@ -85,6 +86,60 @@ __device__ __forceinline__ void vpt_intersect_cube(const float o[3],
     *tnear = (k == 0) ? t1 : vpt_nmax(*tnear, t1);
     *tfar = (k == 0) ? t2 : vpt_nmin(*tfar, t2);
   }
+}
+
+// sampling.intersect_box: the slab test against the box [lo, hi] (the march
+// clamp's boxes), as vpt_intersect_cube
+__device__ __forceinline__ void vpt_intersect_box(const float o[3],
+                                                  const float d[3],
+                                                  const float lo[3],
+                                                  const float hi[3],
+                                                  float* tnear,
+                                                  float* tfar) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float tmin = (lo[k] - o[k]) / d[k];
+    float tmax = (hi[k] - o[k]) / d[k];
+    float t1 = vpt_nmin(tmin, tmax);
+    float t2 = vpt_nmax(tmin, tmax);
+    *tnear = (k == 0) ? t1 : vpt_nmax(*tnear, t1);
+    *tfar = (k == 0) ? t2 : vpt_nmin(*tfar, t2);
+  }
+}
+
+// sampling.sample_environment: the equirect lookup of direction d in an
+// (eh, ew) RGBA float32 map, u = atan2(d.x, -d.z)/pi/2 + 0.5 and
+// v = asin(clip(-d.y, -1, 1))*2/pi/2 + 0.5 in the plain order, then
+// sample_texture2d's bilinear CLAMP_TO_EDGE fetch with its lerp order.  The
+// map is read through the read-only cache from global memory (a 2048 x
+// 1024 map is 32 MB).  atan2f and asinf are CUDA's: torch's CUDA atan2 and
+// asin call the same functions, other libraries may differ in the last
+// bit.
+__device__ __forceinline__ float4 vpt_lerp4(float4 a, float4 b, float f) {
+  const float g = 1.0f - f;
+  return make_float4(a.x * g + b.x * f, a.y * g + b.y * f,
+                     a.z * g + b.z * f, a.w * g + b.w * f);
+}
+
+__device__ __forceinline__ float4 vpt_sample_environment(const float4* map,
+                                                         int eh, int ew,
+                                                         float dx, float dy,
+                                                         float dz) {
+  const float invpi = 0.31830988618f;
+  const float u = atan2f(dx, -dz) * invpi * 0.5f + 0.5f;
+  const float v = asinf(vpt_clip(-dy, -1.0f, 1.0f)) * 2.0f * invpi * 0.5f
+                  + 0.5f;
+  const float ux = vpt_clip(u * (float)ew - 0.5f, 0.0f, (float)(ew - 1));
+  const float uy = vpt_clip(v * (float)eh - 0.5f, 0.0f, (float)(eh - 1));
+  const float ix = floorf(ux), iy = floorf(uy);
+  const int x0 = vpt_index(ix), y0 = vpt_index(iy);
+  const int x1 = min(x0 + 1, ew - 1), y1 = min(y0 + 1, eh - 1);
+  const float fx = ux - ix, fy = uy - iy;
+  const float4 c0 = vpt_lerp4(__ldg(map + (int64_t)y0 * ew + x0),
+                              __ldg(map + (int64_t)y0 * ew + x1), fx);
+  const float4 c1 = vpt_lerp4(__ldg(map + (int64_t)y1 * ew + x0),
+                              __ldg(map + (int64_t)y1 * ew + x1), fx);
+  return vpt_lerp4(c0, c1, fy);
 }
 
 // Trilinear fetch from a corner-packed (D*H*W, 8) table of float32 or

@@ -1,8 +1,9 @@
 """Environment maps (equirectangular RGBA textures).
 
-Mirrors ``vpt_tpu/environment.py``.  The MCM and MCS kernels take a 1×1
-map only and raise for larger ones (ROADMAP.md queue 2, equirect
-environments); the plain versions on the CPU take any.
+Mirrors ``vpt_tpu/environment.py``.  The MCM and MCS renderers look a
+map up at a direction (``sampling.sample_environment``); their kernels keep
+a 1×1 map's texel in shared memory and read a larger map from device
+memory.
 """
 
 from __future__ import annotations

@@ -14,10 +14,12 @@ from .renderers.base import Scene, transfer_row
 from .utils import resolve_device
 
 #: the Scene fields that cross (the JAX-only TPU layouts stay behind, but
-#: the (TW, 4) ``transfer_mxu`` table carries its lookup mode: its dtype)
+#: the (TW, 4) ``transfer_mxu`` table carries its lookup mode: its dtype),
+#: besides ``filter`` and ``iso_clamp_min``
 SCENE_FIELDS = ("volume", "transfer", "environment", "mvp_inverse",
                 "model_view", "projection", "volume_packed",
-                "transfer_packed", "tracking_packed", "transfer_mxu")
+                "transfer_packed", "tracking_packed", "transfer_mxu",
+                "majorant", "occupied_aabb", "iso_aabb")
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -43,12 +45,13 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def scene_fields(scene) -> dict:
     """The crossing fields of any scene object as numpy arrays (None where
-    the scene has none), plus its ``filter``."""
+    the scene has none), plus its ``filter`` and ``iso_clamp_min``."""
     out = {}
     for k in SCENE_FIELDS:
         v = getattr(scene, k, None)
         out[k] = None if v is None else np.asarray(v)
     out["filter"] = getattr(scene, "filter", "linear")
+    out["iso_clamp_min"] = float(getattr(scene, "iso_clamp_min", 0.0))
     return out
 
 
@@ -56,7 +59,8 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
     """The port's Scene on ``device`` (default: the card) from a JAX Scene's
     fields as numpy arrays
     (``{name: np.asarray(getattr(scene, name))}`` for the names in
-    :data:`SCENE_FIELDS` that are not None, plus ``filter``).  A
+    :data:`SCENE_FIELDS` that are not None, plus ``filter`` and
+    ``iso_clamp_min``).  A
     ``transfer_mxu`` table becomes the TF row and sets ``Scene.tf_mxu`` to
     its dtype."""
     device = resolve_device(device)
@@ -76,6 +80,10 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
                  volume_packed=t.get("volume_packed"),
                  transfer_packed=t.get("transfer_packed"),
                  tracking_packed=t.get("tracking_packed"),
+                 majorant=t.get("majorant"),
+                 occupied_aabb=t.get("occupied_aabb"),
+                 iso_aabb=t.get("iso_aabb"),
+                 iso_clamp_min=float(fields.get("iso_clamp_min", 0.0)),
                  filter=fields.get("filter", "linear"), tf_mxu=mxu)
 
 

@@ -48,16 +48,23 @@ SIGNATURES = {
     "vpt_tf1d_lookup": [_P, _P, _P, _L, _P],
     "vpt_tf1d_info": [_I, _I, _P],
     "vpt_tonemap": [_P, _P, _L, _I, _F, _F, _F, _F, _P],
+    # the argument list every build since K5's redesign exports: state (7);
+    # table, bf16, D, H, W, TF row, TW, TF mode; the 1x1 env texel; MVP,
+    # width, height; 7 floats; max bounces, steps, use_skip; stream
     "vpt_mcm_event": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
                                   _I] + [_F] * 7 + [_I, _I, _I, _P]),
+    # the same with an (EH, EW, 4) env map: env, EH, EW; grid or null, N
+    "vpt_mcm_event_frame": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P,
+                                        _I, _I, _P, _I, _P, _I, _I]
+                            + [_F] * 7 + [_I, _I, _I, _P]),
     "vpt_mcm_event_info": [_I, _I, _P],
     "vpt_gather_rows": [_P, _L, _I, _P, _L, _P, _P],
     "vpt_corner_fetch": [_P, _P, _L, _P, _P, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
-    # prepared VptMarchArgs, state; first, mix; stream
+    # prepared VptMarchClamp, state; first, mix; stream
     "vpt_march_launch": [_P, _P, _F, _F, _P],
-    # mode, bf16, TW, TF mode, device, out
+    # mode, flags (1 bf16, 2 clamp boxes), TW, TF mode, device, out
     "vpt_march_info": [_I, _I, _I, _I, _I, _P],
     # the argument list every build since the port exports: state, mode;
     # table, bf16, D, H, W, TF row, TW, TF mode, MVP; width, height,
@@ -75,7 +82,7 @@ SIGNATURES = {
                       + [_F] * 5 + [_P]),
     # prepared VptMcsArgs, state; seed, direction xyz, n; counts; stream
     "vpt_mcs_launch": [_P, _P] + [_F] * 5 + [_P, _P],
-    # bf16, TW, device, out
+    # flags (1 bf16, 4 an environment map), TW, device, out
     "vpt_mcs_info": [_I, _I, _I, _P],
     # the argument list every build since the port exports: state; table,
     # bf16, D, H, W, TF row, TW, TF mode, MVP, env; width, height; seed,
@@ -327,14 +334,16 @@ def scene_args(scene, table, what):
     return (table, row, mvp), args
 
 
-def one_texel_environment(scene, what):
-    """The scene's 1×1 environment texel, 4 contiguous float32 values:
-    the per-pixel kernels take no larger map."""
-    if tuple(scene.environment.shape[:2]) != (1, 1):
-        raise NotImplementedError(
-            f"the {what} kernel takes 1x1 environment maps only (ROADMAP.md "
-            "queue 2, equirect environments)")
-    return scene.environment[0, 0].to(torch.float32).contiguous()
+def environment_map(scene):
+    """``(map, EH, EW)``: the scene's (EH, EW, 4) equirect environment as a
+    contiguous float32 tensor that the MC kernels read as float4 texels (a
+    1×1 map is one texel, which they keep in shared memory)."""
+    env = scene.environment
+    if env.dim() != 3 or env.shape[-1] != 4:
+        raise ValueError("the environment map must be (EH, EW, 4)")
+    env = env.to(torch.float32).contiguous()
+    check_aligned(env, "the environment map")
+    return env, env.shape[0], env.shape[1]
 
 
 class Prepared(types.SimpleNamespace):

@@ -10,14 +10,15 @@ There is no Pallas original: in ``vpt_tpu`` the frame is an XLA
   photon in registers for all ``steps`` events (flight, one corner row, the
   TF lookup of ``csrc/tf1d.cuh``, classification, then the deposit and
   reset or the scatter), computing its NDC and stream seed from the pixel
-  index.
+  index.  A scene with a majorant grid runs the kernel's grid machine, an
+  environment map larger than 1×1 its map instance.
 
 :func:`event_frame` takes the plain loop for CPU state and launches the
 kernel for CUDA state; both update the state tensors in place.  For CUDA
-state it raises on what the kernel does not take: unpacked scenes,
-environment maps larger than 1×1 and images of 2^31 pixels or more.  What a
-launch needs of the scene it prepares once per (scene, resolution); a frame
-then does no tensor work besides the launch.
+state it raises on what the kernel does not take: unpacked scenes and
+images of 2^31 pixels or more.  What a launch needs of the scene it
+prepares once per (scene, resolution); a frame then does no tensor work
+besides the launch.
 """
 
 from __future__ import annotations
@@ -53,15 +54,20 @@ def event_frame_plain(state, scene, params, seed):
     scene = dataclasses.replace(scene, kernels=False)
     ph = dict(state)
     for _ in range(params.steps):
-        rstate, position = mcm.flight_phase(ph, rstate, params, use_skip,
-                                            cell)
+        majorant = None
+        if scene.majorant is not None:
+            rstate, position, *majorant = mcm.grid_flight_phase(
+                ph, rstate, scene, params)
+        else:
+            rstate, position = mcm.flight_phase(ph, rstate, params,
+                                                use_skip, cell)
         if use_skip:
             vs, cheb_new = scene.sample_color_tracking(position)
         else:
             vs, cheb_new = scene.sample_color(position), None
         ph, rstate = mcm.interact_phase(ph, rstate, position, vs, cheb_new,
                                         scene, params, ndc, inv_res,
-                                        use_skip)
+                                        use_skip, majorant)
     for key, value in state.items():
         value.copy_(ph[key])
 
@@ -78,7 +84,22 @@ def _check_state(state, height, width, device):
 
 def _fields(scene):
     return (scene.volume_packed, scene.tracking_packed, scene.transfer_1d,
-            scene.environment, scene.mvp_inverse, scene.tf_mxu)
+            scene.environment, scene.mvp_inverse, scene.tf_mxu,
+            scene.majorant)
+
+
+def majorant_grid(scene):
+    """The scene's majorant grid as the kernel reads it, an (N³, 2)
+    contiguous float32 tensor, or None without one."""
+    grid = scene.majorant
+    if grid is None:
+        return None
+    n = grid.shape[0]
+    if grid.dtype != torch.float32 or tuple(grid.shape) != (n, n, n, 2):
+        raise ValueError("the majorant grid must be (N, N, N, 2) float32")
+    grid = grid.contiguous().reshape(n ** 3, 2)
+    _build.check_aligned(grid, "the majorant grid")
+    return grid
 
 
 def _prepare(scene, key):
@@ -91,9 +112,13 @@ def _prepare(scene, key):
     tensors, args = _build.scene_args(
         scene, scene.tracking_packed if use_skip else scene.volume_packed,
         "MCM event")
-    env = _build.one_texel_environment(scene, "MCM event")
-    return _build.Prepared(tensors=(*tensors, env), args=(
-        *args[:-1], env.data_ptr(), args[-1], width, height))
+    env, eh, ew = _build.environment_map(scene)
+    grid = majorant_grid(scene)
+    grid_args = (None, 0) if grid is None \
+        else (grid.data_ptr(), scene.majorant.shape[0])
+    return _build.Prepared(tensors=(*tensors, env, grid), args=(
+        *args[:-1], env.data_ptr(), eh, ew, *grid_args, args[-1], width,
+        height))
 
 
 #: the last scene's preparation; a renderer launches one scene at one
@@ -102,9 +127,10 @@ _scene_cache = _build.LastScene(_prepare, _fields)
 
 
 def launch_args(state, scene, params, seed):
-    """The arguments of one ``vpt_mcm_event`` call for CUDA ``state``: the
-    state's pointers, the scene's part (prepared once per scene and
-    resolution), the frame's seed and ``params``, the current stream."""
+    """The arguments of one ``vpt_mcm_event_frame`` call for CUDA
+    ``state``: the state's pointers, the scene's part (prepared once per
+    scene and resolution), the frame's seed and ``params``, the current
+    stream."""
     from ..renderers import mcm
 
     position = state["position"]
@@ -137,7 +163,8 @@ def event_frame(state, scene, params, seed):
     args = launch_args(state, scene, params, seed)
     # the stream and the shared-memory opt-in belong to the state's device
     with torch.cuda.device(state["position"].device):
-        _build.check("vpt_mcm_event", _build.library().vpt_mcm_event(*args))
+        _build.check("vpt_mcm_event_frame",
+                     _build.library().vpt_mcm_event_frame(*args))
     LAUNCHES += 1
 
 
@@ -148,12 +175,16 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
                     "dynamic_smem_bytes")
 
 
-def occupancy(table_dtype, tf_width: int) -> dict:
-    """The kernel's launch shape on the current CUDA device for a corner
-    table of ``table_dtype`` and a TF row of ``tf_width`` texels: threads a
-    block, resident blocks an SM, SMs, registers and local (spill) bytes a
-    thread, static and dynamic shared memory a block.  Launches nothing."""
+def occupancy(table_dtype, tf_width: int, grid: bool = False,
+              env_map: bool = False) -> dict:
+    """The launch shape on the current CUDA device of the kernel's instance
+    for a corner table of ``table_dtype``, a TF row of ``tf_width`` texels,
+    the grid machine or not and an environment map larger than 1×1 or not:
+    threads a block, resident blocks an SM, SMs, registers and local
+    (spill) bytes a thread, static and dynamic shared memory a block.
+    Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) | 2 * grid | 4 * env_map
     _build.check("vpt_mcm_event_info", _build.library().vpt_mcm_event_info(
-        int(table_dtype == torch.bfloat16), tf_width, out))
+        flags, tf_width, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

@@ -13,9 +13,9 @@ Here it is
   then the incremental mean, reading and writing its state once.
 
 :func:`mcs_frame` takes the plain version for CPU state and launches the
-kernel for CUDA state; it raises on what the kernel does not take
-(unpacked scenes, environment maps larger than 1×1, images of 2^31 pixels
-or more).  What a launch takes of the scene, the Params and the resolution
+kernel for CUDA state (its map instance for an environment map larger than
+1×1); it raises on what the kernel does not take (unpacked scenes, images
+of 2^31 pixels or more).  What a launch takes of the scene, the Params and the resolution
 it prepares once (``VptMcsArgs``, passed as one pointer); a frame passes
 its seed, its scatter direction (``mcs.scatter_direction``, which the plain
 version takes too) and n.  Given ``counts``, the frame also adds its
@@ -54,7 +54,8 @@ class _Args(ctypes.Structure):
                 ("tw", ctypes.c_int), ("tf_mode", ctypes.c_int),
                 ("width", ctypes.c_int), ("height", ctypes.c_int),
                 ("extinction", ctypes.c_float), ("cell", ctypes.c_float),
-                ("use_skip", ctypes.c_int), ("device", ctypes.c_int)]
+                ("use_skip", ctypes.c_int), ("device", ctypes.c_int),
+                ("env_h", ctypes.c_int), ("env_w", ctypes.c_int)]
 
 
 def _fields(scene):
@@ -71,7 +72,7 @@ def _prepare(scene, key):
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the MCS kernel indexes pixels "
                          "with 32-bit integers")
-    env = _build.one_texel_environment(scene, "MCS")
+    env, eh, ew = _build.environment_map(scene)
     use_skip = scene.tracking_packed is not None
     tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp) = \
         _build.scene_args(scene, scene.tracking_packed if use_skip
@@ -81,7 +82,7 @@ def _prepare(scene, key):
     # ctypes rounds each Python float to the nearest float32
     args = _Args(table, row, mvp, env.data_ptr(), bf16, d, h, w, tw, tf_mode,
                  width, height, params.extinction, cell, int(use_skip),
-                 device)
+                 device, eh, ew)
     return _build.Prepared(
         tensors=(*tensors, env), args=args, address=ctypes.addressof(args),
         device=device, shape=torch.Size((height, width, 4)),
@@ -136,11 +137,14 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
                     "warp_width")
 
 
-def occupancy(table_dtype, tf_width: int, device: int = 0) -> dict:
+def occupancy(table_dtype, tf_width: int, device: int = 0,
+              env_map: bool = False) -> dict:
     """The kernel's launch shape (the render path's, without the counter)
-    on CUDA ``device`` for a corner table of ``table_dtype`` and a TF row
-    of ``tf_width`` texels.  Launches nothing."""
+    on CUDA ``device`` for a corner table of ``table_dtype``, a TF row of
+    ``tf_width`` texels and an environment map larger than 1×1 or not.
+    Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) | 4 * env_map
     _build.check("vpt_mcs_info", _build.library().vpt_mcs_info(
-        int(table_dtype == torch.bfloat16), tf_width, device, out))
+        flags, tf_width, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

@@ -61,14 +61,19 @@ def dot3(a, b):
         + a[..., 2] * b[..., 2]
 
 
-def rays(scene, height: int, width: int):
+def rays(scene, height: int, width: int, interval=None):
     """Every pixel's clipped segment: ``(tb, miss, start, end)`` with
-    ``tb`` the (H, W, 2) march interval, ``miss`` where it is empty and
-    ``start``/``end`` its (H, W, 3) end points."""
+    ``tb`` the (H, W, 2) interval, ``miss`` where it is empty and
+    ``start``/``end`` its (H, W, 3) end points.  ``interval(ray_from,
+    direction)`` gives ``tb``: by default ``base.march_interval`` (the cube,
+    clamped to the scene's occupied box), ISO's and LAO's their own."""
     ndc = sampling.pixel_ndc(height, width, device=scene.device)
     ray_from, ray_to = sampling.unproject(ndc, scene.mvp_inverse)
     direction = ray_to - ray_from
-    tb = march_interval(scene, ray_from, direction)
+    if interval is None:
+        tb = march_interval(scene, ray_from, direction)
+    else:
+        tb = interval(ray_from, direction)
     miss = tb[..., 0] >= tb[..., 1]
     start = ray_from + tb[..., 0:1] * direction
     end = ray_from + tb[..., 1:2] * direction

@@ -71,6 +71,12 @@ class Scene:
     volume_packed: Any = None          # (D·H·W, 8·C) or None
     transfer_packed: Any = None        # (TH·TW, 16) or None
     tracking_packed: Any = None        # (D·H·W, 8) cheb-skip table or None
+    majorant: Any = None               # (N, N, N, 2) [maxalpha, chebdist]
+    occupied_aabb: Any = None          # (2, 3) [lo, hi] march clamp box
+    iso_aabb: Any = None               # (2, 3) ISO clamp box
+    #: the alpha floor ``iso_aabb`` was built at: the box holds for
+    #: isovalues of at least this (renderers/iso.py)
+    iso_clamp_min: float = 0.0
     filter: str = "linear"
     tf_mxu: Any = None                 # None, torch.float32 or bfloat16
     kernels: bool = True
@@ -78,11 +84,6 @@ class Scene:
     @property
     def device(self):
         return self.volume.device
-
-    @property
-    def majorant(self):
-        """The local-majorant grid is not ported; always None."""
-        return None
 
     def _lookup(self, values):
         lookup = tf1d.lookup if self.kernels else tf1d.lookup_plain
@@ -184,14 +185,32 @@ def kernels_sample(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def march_interval(scene, ray_from, direction):
-    """The ray segment a march renderer samples: the unit-cube slab test
-    clamped at 0, (..., 2) = (tnear, tfar); tnear >= tfar is a miss.  The
-    occupied-box clamp of ``vpt_tpu`` (``march_clamp``) is not ported, so
-    ``scene`` adds nothing."""
-    del scene
+def cube_interval(ray_from, direction):
+    """The unit-cube slab test clamped at 0, (..., 2) = (tnear, tfar);
+    tnear >= tfar is a miss."""
     return torch.clamp(sampling.intersect_cube(ray_from, direction),
                        min=0.0)
+
+
+def clamp_to_box(tb, ray_from, direction, box):
+    """The interval ``tb`` intersected with the box's slab interval
+    clamped at 0 (the box may poke out of the cube by the CLAMP_TO_EDGE
+    half-texel; the cube bounds stay authoritative)."""
+    tbb = torch.clamp(sampling.intersect_box(ray_from, direction, box[0],
+                                             box[1]), min=0.0)
+    return torch.stack([torch.maximum(tb[..., 0], tbb[..., 0]),
+                        torch.minimum(tb[..., 1], tbb[..., 1])], dim=-1)
+
+
+def march_interval(scene, ray_from, direction):
+    """The ray segment EAM, MIP and Depth sample: :func:`cube_interval`,
+    clamped to the scene's occupied box when it has one (``march_clamp``:
+    samples outside it are provably TF-invisible, so the slices
+    concentrate on the visible support)."""
+    tb = cube_interval(ray_from, direction)
+    if scene.occupied_aabb is None:
+        return tb
+    return clamp_to_box(tb, ray_from, direction, scene.occupied_aabb)
 
 
 def state_device(scene=None) -> torch.device:
@@ -251,12 +270,21 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     (float32 by default), as ``vpt_tpu``'s one-hot matmul does.
     ``tf_srgb``: the reference's SRGB8_ALPHA8 TF texture
     (``transfer.to_gl_texture``).
-    ``tracking``: ``"none"``, ``"cheb"`` or ``"auto"`` (cheb-skip when at
+    ``tracking``: ``"none"``, ``"cheb"``, ``"grid"`` (the majorant grid,
+    ``majorant_grid=16`` unless given) or ``"auto"`` (cheb-skip when at
     least :data:`AUTO_TRACKING_MIN_EMPTY` of the cells are TF-empty).
+    ``majorant_grid``: N for an N³ local-majorant grid
+    (``skipgrid.build_majorant_grid``); a volume it does not tile falls
+    back to the exact machine, with ``vpt_tpu``'s warning under
+    ``tracking="grid"``.
+    ``march_clamp``: EAM, MIP, Depth and ISO march the part of each ray
+    inside the occupied box (``skipgrid.occupied_aabb``).
+    ``iso_clamp_min``: ISO marches inside the box of the cells whose alpha
+    can reach this floor (``skipgrid.iso_value_aabb``) at isovalues of at
+    least it.
 
-    Not ported, and raising ``NotImplementedError``: ``majorant_grid`` and
-    ``tracking="grid"``, ``march_clamp``, ``iso_clamp_min``, multi-channel
-    volumes and the nearest/cubic filters."""
+    Not ported, and raising ``NotImplementedError``: multi-channel volumes
+    and the nearest/cubic filters."""
     from ..transfer import to_gl_texture
 
     del tf_banks  # the bilinear lookup (see the module docstring)
@@ -268,15 +296,13 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     if vol_filter != "linear":
         raise _not_ported(f"the {vol_filter!r} volume filter",
                           "queue 2, volume filters")
-    if majorant_grid or tracking == "grid":
-        raise _not_ported("the majorant grid (tracking='grid')",
-                          "queue 2, K5 majorant-grid branch")
-    if march_clamp:
-        raise _not_ported("march_clamp", "queue 1 item 13")
-    if iso_clamp_min > 0.0:
-        raise _not_ported("iso_clamp_min", "queue 1 item 13")
-    if tracking not in ("none", "cheb", "auto"):
+    if tracking not in ("none", "cheb", "grid", "auto"):
         raise ValueError(f"unknown tracking mode {tracking!r}")
+    if tracking == "cheb" and majorant_grid:
+        raise ValueError("tracking='cheb' conflicts with majorant_grid — "
+                         "the tracking machines are mutually exclusive")
+    if tracking == "grid" and not majorant_grid:
+        majorant_grid = 16
     volume = torch.as_tensor(volume, dtype=torch.float32)
     if volume.shape[-1] != 1:
         raise _not_ported("multi-channel volumes",
@@ -306,8 +332,20 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
             volume_packed = volume_packed.to(table_dtype)
             transfer_packed = transfer_packed.to(table_dtype)
     mxu = (pack_dtype or torch.float32) if tf_mxu else None
+    majorant = None
+    if majorant_grid:
+        majorant = skipgrid.build_majorant_grid(volume, transfer,
+                                                majorant_grid)
+        if majorant is None and tracking == "grid":
+            import warnings
+
+            warnings.warn(
+                "tracking='grid' requested but the majorant grid is "
+                "unsupported for this volume (multi-channel, or dims not "
+                "divisible by the grid size) — falling back to the exact "
+                "machine", stacklevel=2)
     tracking_packed = None
-    if tracking in ("cheb", "auto"):
+    if tracking in ("cheb", "auto") and majorant is None:
         tracking_packed = skipgrid.pack_tracking_volume(
             volume, transfer,
             min_empty_fraction=(AUTO_TRACKING_MIN_EMPTY
@@ -333,6 +371,12 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
         volume_packed=volume_packed,
         transfer_packed=transfer_packed,
         tracking_packed=tracking_packed,
+        majorant=majorant,
+        occupied_aabb=(skipgrid.occupied_aabb(volume, transfer)
+                       if march_clamp else None),
+        iso_aabb=(skipgrid.iso_value_aabb(volume, transfer, iso_clamp_min)
+                  if iso_clamp_min > 0.0 else None),
+        iso_clamp_min=float(iso_clamp_min),
         filter=vol_filter,
         tf_mxu=mxu,
     )

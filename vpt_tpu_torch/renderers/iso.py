@@ -10,8 +10,8 @@ point, then normalised (ISORenderer.js:150-165).
 
 :func:`render_frame` runs the frame through ``kernels/march.py`` and
 :func:`display` through ``kernels/iso_shade.py``: the plain versions on the
-CPU, one launch of each kernel on the card.  The empty-space boxes of
-``vpt_tpu`` (``march_clamp``, ``iso_clamp_min``) are not ported.
+CPU, one launch of each kernel on the card.  The march clamps to the
+scene's empty-space boxes where they hold (:func:`boxes`).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from .. import math3d
 from ..kernels import iso_shade
 from ..kernels import march as march_kernel
 from . import _march
-from .base import Scene, state_device
+from .base import Scene, clamp_to_box, cube_interval, state_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,9 +49,38 @@ def schedule(params: Params, seed):
     return np.float32(1.0) - _march.frame_offset(seed) * step, step
 
 
+def boxes(scene: Scene, params: Params):
+    """The clamp boxes that hold for ``params.isovalue``, in the order they
+    apply: the occupied box (``march_clamp``) where the isovalue is above
+    0, since a hit needs alpha >= isovalue and the box leaves out only
+    alpha ≡ 0; the iso box (``iso_clamp_min``) where the isovalue is at
+    least its floor.  Float32 comparisons, as JAX's traced isovalue
+    against its weakly typed floats."""
+    isovalue = np.float32(params.isovalue)
+    out = []
+    if scene.occupied_aabb is not None and isovalue > np.float32(0.0):
+        out.append(scene.occupied_aabb)
+    if scene.iso_aabb is not None \
+            and isovalue >= np.float32(scene.iso_clamp_min):
+        out.append(scene.iso_aabb)
+    return out
+
+
+def march_interval(scene: Scene, params: Params, ray_from, direction):
+    """ISO's marched segment (``vpt_tpu``'s ``_march_interval_iso``): the
+    cube slab test clamped to each of :func:`boxes` in turn."""
+    tb = cube_interval(ray_from, direction)
+    for box in boxes(scene, params):
+        tb = clamp_to_box(tb, ray_from, direction, box)
+    return tb
+
+
 def generate(scene: Scene, params: Params, seed, height: int, width: int):
     """The frame's nearest hit (position, t), (H, W, 4); −1 where none."""
-    _, miss, start, end = _march.rays(scene, height, width)
+    _, miss, start, end = _march.rays(
+        scene, height, width,
+        lambda ray_from, direction: march_interval(scene, params, ray_from,
+                                                   direction))
     first, step = schedule(params, seed)
     isovalue = float(np.float32(params.isovalue))
     seg = end - start

@@ -31,7 +31,7 @@ from .. import math3d, rng, sampling
 from ..kernels import lao_march
 from ..utils import constant
 from . import _march
-from .base import Scene, _not_ported, state_device
+from .base import Scene, _not_ported, cube_interval, state_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +113,8 @@ def setup(scene: Scene, params: Params, height: int, width: int):
     value and what it fixes (the first ``t``, the AO direction, the shadow
     tap's offset and length), the light, the AO taps."""
     check_params(params)
-    _, miss, start, end = _march.rays(scene, height, width)
+    # the cube alone: vpt_tpu's LAO clamps to no box
+    _, miss, start, end = _march.rays(scene, height, width, cube_interval)
     rx = pixel_random(height, width, scene.device)
     rconst = random_constant(scene.device)
     light = light_of(scene, params)

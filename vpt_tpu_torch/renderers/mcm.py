@@ -16,10 +16,11 @@ cheb-skip distance ``cheb`` when the scene has a tracking table), advanced by
 RNG draws follow the GLSL stream: the state advances only by the draws the
 taken branch consumes (flight 1, fortune 1, reset 4, scatter 2 or 3).
 
-:func:`flight_phase` and :func:`interact_phase` are the plain PyTorch event,
-with one classify/deposit/commit ladder (the JAX file repeats it for the
-majorant-grid branch, which is not ported).  :func:`render_frame` runs the
-frame through ``kernels/mcm_event.py``: a Python loop over the two phases on
+:func:`flight_phase` (or, on a scene with a majorant grid,
+:func:`grid_flight_phase`) and :func:`interact_phase` are the plain PyTorch
+event, with one classify/deposit/commit ladder for the three machines (the
+JAX file repeats it for the majorant-grid branch).  :func:`render_frame`
+runs the frame through ``kernels/mcm_event.py``: a Python loop over the two phases on
 the CPU, one launch of the CUDA event kernel on the GPU.  Unlike JAX, the
 port updates the state tensors in place.
 """
@@ -31,7 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import rng, sampling
+from .. import rng, sampling, skipgrid
 from ..kernels import mcm_event
 from .base import Scene
 
@@ -88,7 +89,7 @@ def reset(params: Params, height: int, width: int, scene: Scene = None,
                                device=dev),
         "samples": torch.zeros(shape, dtype=torch.float32, device=dev),
     }
-    if scene.tracking_packed is not None:
+    if scene.tracking_packed is not None and scene.majorant is None:
         # cheb-skip carry; 0 = unknown/occupied, so the first event after a
         # reset tracks exactly
         out["cheb"] = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -108,13 +109,39 @@ def flight_phase(ph, rstate, params: Params, use_skip: bool, cell):
     return rstate, ph["position"] + dist[..., None] * ph["direction"]
 
 
+def grid_flight_phase(ph, rstate, scene, params: Params):
+    """The local-majorant flight (``skipgrid.flight_step``): an exponential
+    flight against the current cell's majorant ``mu`` = extinction ·
+    maxalpha; a tentative collision past the cell's boundary becomes a hop
+    to just beyond it (``EPS_NUDGE``, so that the photon leaves the cell,
+    and the cube from its far face), valid by memorylessness.  Returns
+    ``(rstate, position, mu, collide)``."""
+    mu, t_bound = skipgrid.flight_step(scene.majorant, ph["position"],
+                                       ph["direction"])
+    rstate, tau = rng.exponential(rstate, 1.0)
+    sigma = float(np.float32(params.extinction)) * mu
+    t_coll = torch.where(sigma > 0.0, tau / torch.clamp(sigma, min=1e-30),
+                         torch.full_like(tau, float("inf")))
+    collide = t_coll < t_bound
+    dist = torch.where(collide, t_coll, t_bound + skipgrid.EPS_NUDGE)
+    return (rstate, ph["position"] + dist[..., None] * ph["direction"], mu,
+            collide)
+
+
 def interact_phase(ph, rstate, position, vs, cheb_new, scene, params: Params,
-                   ndc, inv_res, use_skip: bool):
+                   ndc, inv_res, use_skip: bool, majorant=None):
     """Classify the collision at ``position`` given the sampled color ``vs``
     (and, in skip mode, the landing cell's cheb distance), commit the branch
     and advance the RNG by exactly the draws the taken branch consumes
-    (MCMRenderer.glsl:135-165).  Returns ``(new_ph, new_rstate)``."""
+    (MCMRenderer.glsl:135-165).  ``majorant``: the grid flight's ``(mu,
+    collide)``; a hop interacts with nothing, and a collision's alpha is
+    the ratio ``min(alpha / mu, 1)`` to the local majorant.  Returns
+    ``(new_ph, new_rstate)``."""
     alpha = vs[..., 3]
+    if majorant is not None:
+        mu, collide = majorant
+        alpha = torch.where(mu > 0.0, torch.clamp(alpha / mu, max=1.0),
+                            torch.zeros_like(alpha))
     p_null = 1.0 - alpha
     capped = ph["bounces"] >= params.max_bounces
     p_scatter = torch.where(capped, torch.zeros_like(alpha),
@@ -123,7 +150,7 @@ def interact_phase(ph, rstate, position, vs, cheb_new, scene, params: Params,
 
     rstate, fortune = rng.uniform(rstate)
     oob = ((position > 1.0) | (position < 0.0)).any(-1)
-    interact = ~oob
+    interact = ~oob if majorant is None else ~oob & collide
     absorb = interact & (fortune < p_absorb)
     scatter = interact & (~absorb) & (fortune < p_absorb + p_scatter)
     deposit = oob | absorb
@@ -182,7 +209,8 @@ def skip_cell_size(scene) -> float:
 
 
 def uses_skip(state, scene) -> bool:
-    return scene.tracking_packed is not None and "cheb" in state
+    return scene.majorant is None and scene.tracking_packed is not None \
+        and "cheb" in state
 
 
 def render_frame(state, scene: Scene, params: Params, seed, frame_number=0):

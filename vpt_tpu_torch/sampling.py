@@ -1,10 +1,11 @@
 """Ray/volume sampling primitives of the ported renderers.
 
 Mirrors the main-path subset of ``vpt_tpu/sampling.py``: ray setup
-(``pixel_ndc``, ``intersect_cube``, ``unproject``, ``unproject_rand``),
-the GL LINEAR + CLAMP_TO_EDGE volume and texture fetches with their
-corner-packed tables, the equirect environment lookup, ISO's and LAO's
-central-difference gradients and Henyey-Greenstein sampling.  Every
+(``pixel_ndc``, ``intersect_cube``, ``intersect_box``, ``unproject``,
+``unproject_rand``), the GL LINEAR + CLAMP_TO_EDGE volume and texture
+fetches with their corner-packed tables, the equirect environment lookup,
+ISO's and LAO's central-difference gradients and Henyey-Greenstein
+sampling.  Every
 operation runs in the JAX package's order so that the float32 results
 agree.
 
@@ -47,6 +48,20 @@ def intersect_cube(origin, direction):
     propagate NaN, as ``jnp.minimum``/``jnp.maximum`` do."""
     tmin = (0.0 - origin) / direction
     tmax = (1.0 - origin) / direction
+    t1 = torch.minimum(tmin, tmax)
+    t2 = torch.maximum(tmin, tmax)
+    tnear = torch.amax(t1, dim=-1)
+    tfar = torch.amin(t2, dim=-1)
+    return torch.stack([tnear, tfar], dim=-1)
+
+
+def intersect_box(origin, direction, lo, hi):
+    """Slab test against the box [lo, hi] → (..., 2) = (tnear, tfar);
+    ``lo`` and ``hi`` are (3,) corners in the space of ``origin`` (the
+    march clamp's box, ``skipgrid.occupied_aabb``), with the NaN-propagating
+    min and max of :func:`intersect_cube`."""
+    tmin = (lo - origin) / direction
+    tmax = (hi - origin) / direction
     t1 = torch.minimum(tmin, tmax)
     t2 = torch.maximum(tmin, tmax)
     tnear = torch.amax(t1, dim=-1)
@@ -268,13 +283,19 @@ def sample_texture2d_packed(packed, shape, uv):
     return cx[..., 0, :] * (1 - fy) + cx[..., 1, :] * fy
 
 
-def sample_environment(env, direction):
-    """Equirectangular environment lookup (MCMRenderer.glsl:80-83)."""
+def environment_uv(direction):
+    """The equirect map coordinates (..., 2) of a direction
+    (MCMRenderer.glsl:80-83)."""
     d = direction
     u = torch.atan2(d[..., 0], -d[..., 2]) * float(INVPI) * 0.5 + 0.5
     v = torch.asin(torch.clamp(-d[..., 1], -1.0, 1.0)) * 2.0 \
         * float(INVPI) * 0.5 + 0.5
-    return sample_texture2d(env, torch.stack([u, v], dim=-1))
+    return torch.stack([u, v], dim=-1)
+
+
+def sample_environment(env, direction):
+    """Equirectangular environment lookup (MCMRenderer.glsl:80-83)."""
+    return sample_texture2d(env, environment_uv(direction))
 
 
 # ---------------------------------------------------------------------------
