@@ -916,9 +916,10 @@ def main() -> int:
     if "current" not in built:
         return 1
     if args.registers:
+        # the headline's instances and the ext ones (name_ext_kernel)
+        stem = KERNELS[args.kernel][3].removesuffix("_kernel")
         for name, (_, text) in built.items():
-            for kernel, regs in sorted(ptxas_kernels(
-                    text, KERNELS[args.kernel][3]).items()):
+            for kernel, regs in sorted(ptxas_kernels(text, stem).items()):
                 print(json.dumps({"build": name, "kernel": kernel, **regs}),
                       flush=True)
         return 0

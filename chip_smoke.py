@@ -99,6 +99,24 @@ prints no result:
    the plain clamped frames on the float32 twin, their device ms on the
    headline against the unclamped frames in turns, and each clamped
    renderer's path;
+10b. two-channel and filtered volumes, the ext instances of K5-K8
+   (``csrc/ray.cuh``), each path with every launch counter at 0 just
+   before it and read just after (:func:`phase_channels_path`,
+   :func:`phase_filters_path`):
+   ``path channels``: ``with_gradient_magnitude(blobs_volume(256))`` as a
+   256³ RG uint8 BVP and ``TransferFunctionBumps.default()`` as the
+   ``--tf`` JSON through ``cli render``: MCM 512², 32 spp, then EAM, MIP,
+   Depth, ISO and MCS at 10 spp (bf16 tables and 2D TF);
+   ``path filters``: the headline's ``sphere_volume(128)`` through
+   ``RenderingContext.set_filter("nearest")`` and ``("cubic")``: MCM steps
+   8 × 30 frames, with the global majorant and ``tracking="grid"``, and
+   EAM, MIP, Depth, ISO and MCS, 10 frames each.
+   Each ext instance is held to its plain version on the path's scene and
+   a float32 twin (K5 3 frames, K6 and K8 4, K7 on the ISO state; K5's
+   and the frame kernels' bounds) and timed against the linear
+   single-channel instance on the same scene (medians of
+   :func:`device_turns`; ``path channels``: its volume with a three-bump
+   2D TF, where ISO hits), with its bound from this run's rows;
 11. the serving entry point, ``vpt_tpu_torch.cli.main(["render", ...])``
    in-process (:func:`phase_cli_path`): a 256³ uint8 BVP written by the
    port's ``write_bvp``, MCM at 512², 32 spp, ``--precision fast``, cheb-skip,
@@ -763,6 +781,53 @@ def env_texels(direction, environment):
                       for iy in (i0[:, 1], i1[:, 1])])
 
 
+def fetch_cells(scene, pos):
+    """The rows that the kernels' fetches at (N, 3) ``pos`` read: the
+    corner cell of each position (of its cubic warp on a cubic scene; a
+    nearest fetch reads the linear cell's row), and on a two-channel scene
+    also the packed 2D TF row of each fetched (value, channel 1), offset
+    past the corner rows (a TF row has the corner row's 16 lanes and
+    dtype, so the two count alike)."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import sampling
+
+    shape = scene.volume.shape
+    d, h, w = shape[:3]
+    warped = sampling.cubic_warp(pos, (w, h, d)) if scene.filter == "cubic" \
+        else pos
+    cells = sampling.corner_cells(warped, shape)[0]
+    if scene.channels != 2:
+        return cells
+    th, tw = scene.transfer.shape[:2]
+    rg = dataclasses.replace(scene, kernels=False).sample_volume_rg(pos)
+    i0f, _ = sampling._filter_coords(rg, (tw, th))
+    i0 = sampling._clamp_index(i0f, (tw, th))
+    return torch.cat([cells, d * h * w + i0[:, 1] * tw + i0[:, 0]])
+
+
+#: float32 operations that an ext instance's fetch adds to the headline's:
+#: the second channel's lerp chain and the 2D TF lookup's second axis; the
+#: cubic warp of three axes
+EXT_OPS_CHANNEL, EXT_OPS_CUBIC = 26, 33
+
+
+def ext_ops(scene):
+    """The operations an ext fetch (``csrc/ray.cuh``) adds to a headline
+    fetch on ``scene``: none on a linear single-channel one."""
+    return (EXT_OPS_CHANNEL if scene.channels == 2 else 0) \
+        + (EXT_OPS_CUBIC if scene.filter == "cubic" else 0)
+
+
+def tf_row_bytes(scene):
+    """The bytes of the TF row that a bound reads once: the (TW, 4)
+    float32 row of a single-channel scene; a two-channel one's 2D TF rows
+    are counted with its corner rows (:func:`fetch_cells`)."""
+    return 0 if scene.channels == 2 else scene.transfer_1d.numel() * 4
+
+
 def event_work(scene, state, params, seed):
     """What one event-kernel frame from ``state`` reads and does: the plain
     loop runs that frame on a copy (the kernel's frame is the same, photon
@@ -783,8 +848,7 @@ def event_work(scene, state, params, seed):
     env_map = tuple(scene.environment.shape[:2]) != (1, 1)
 
     def cells(position):
-        rows.append(sampling.corner_cells(position.reshape(-1, 3),
-                                          scene.volume.shape)[0])
+        rows.append(fetch_cells(scene, position.reshape(-1, 3)))
 
     def flight_recording(*args, **kwargs):
         rstate, position = flight(*args, **kwargs)
@@ -848,9 +912,10 @@ def event_bound(scene, n, steps, deposits, rows, hops=0, escapes=0,
         else scene.tracking_packed
     nbytes = 2 * n * state_bytes \
         + rows * table.shape[1] * table.element_size() \
-        + scene.transfer_1d.numel() * 4 + texels * 16 \
+        + tf_row_bytes(scene) + texels * 16 \
         + (scene.majorant.numel() * 4 if grid else 0)
-    ops = n * steps * K5_OPS_EVENT + deposits * K5_OPS_DEPOSIT
+    ops = n * steps * K5_OPS_EVENT + deposits * K5_OPS_DEPOSIT \
+        + (n * steps - hops) * ext_ops(scene)
     if grid:
         ops += n * steps * K5_OPS_GRID_FLIGHT - hops * K5_OPS_FETCH_TF
     if texels:
@@ -1244,7 +1309,7 @@ def march_work(key, scene, params, seed, height, width):
         pos = (start + ts * seg)[active]
         samples += pos.shape[0]
         per_pixel += active.to(torch.int32)
-        cells.append(sampling.corner_cells(pos, scene.volume.shape)[0])
+        cells.append(fetch_cells(scene, pos))
         alpha = ref.sample_color(start + ts * seg)[..., 3]
         if key == "eam":
             acc = torch.where(active, acc + (1.0 - acc) * (alpha * rsl
@@ -1309,7 +1374,7 @@ def shade_work(scene, state, h):
         offset = torch.zeros(3, device=pos.device)
         offset[axis] = h
         taps += [pos + offset, pos - offset]
-    rows = sampling.corner_cells(torch.cat(taps), scene.volume.shape)[0]
+    rows = fetch_cells(scene, torch.cat(taps))
     return int(hit.sum()), int(rows.unique().numel())
 
 
@@ -1343,7 +1408,7 @@ def mcs_work(scene, params, seed, height, width):
 
     def take(mask, pos):
         fetches[0] += int(mask.sum())
-        cells.append(sampling.corner_cells(pos[mask], scene.volume.shape)[0])
+        cells.append(fetch_cells(scene, pos[mask]))
 
     def recording(pos):
         # a done pixel's first position after its collision is new but
@@ -1385,7 +1450,7 @@ def frame_bound(scene, table, pixels, state_bytes, ops, rows):
     """(ms, by, bytes): the distinct rows of ``table`` read once, the
     state read and written once, the TF row read once."""
     nbytes = rows * table.shape[1] * table.element_size() \
-        + 2 * pixels * state_bytes + scene.transfer_1d.numel() * 4
+        + 2 * pixels * state_bytes + tf_row_bytes(scene)
     return (*roofline(nbytes, ops), nbytes)
 
 
@@ -2263,7 +2328,7 @@ def mcs_bound(scene):
     mcs_frame.mcs_frame(state, scene, mcs.Params(), 0.4, 1, counts=counts)
     _, fetches = (int(v) for v in counts.tolist())
     _, rows = mcs_work(scene, mcs.Params(), 0.4, 512, 512)
-    ops = fetches * MCS_OPS_STEP + n * MCS_OPS_PIXEL
+    ops = fetches * (MCS_OPS_STEP + ext_ops(scene)) + n * MCS_OPS_PIXEL
     texels = 0
     if tuple(scene.environment.shape[:2]) != (1, 1):
         texels = mcs_env_texels(scene, 512, 512)
@@ -2271,7 +2336,7 @@ def mcs_bound(scene):
     table = scene.tracking_packed if scene.tracking_packed is not None \
         else scene.volume_packed
     nbytes = rows * table.shape[1] * table.element_size() + 2 * n * 16 \
-        + scene.transfer_1d.numel() * 4 + texels * 16
+        + tf_row_bytes(scene) + texels * 16
     return roofline(nbytes, ops)
 
 
@@ -2397,6 +2462,417 @@ def phase_clamp_path(dev, counters, headline):
               flush=True)
     fields["launches_clamp"] = total
     return fields, launches
+
+
+# -- two-channel and filtered volumes: the ext instances of K5-K8 ---------
+
+#: the 2D TF of the float32 twins that hold the two-channel instances:
+#: three bumps over (value, gradient magnitude)
+BUMPS = [
+    {"position": {"x": 0.3, "y": 0.05}, "size": {"x": 0.25, "y": 0.1},
+     "color": {"r": 0.9, "g": 0.6, "b": 0.2, "a": 0.8}},
+    {"position": {"x": 0.6, "y": 0.1}, "size": {"x": 0.3, "y": 0.1},
+     "color": {"r": 0.2, "g": 0.7, "b": 0.9, "a": 1.0}},
+    {"position": {"x": 0.85, "y": 0.02}, "size": {"x": 0.2, "y": 0.05},
+     "color": {"r": 1.0, "g": 1.0, "b": 1.0, "a": 0.6}},
+]
+EXT_NAMES = ("mcm_event", "march_frame", "iso_shade", "mcs_frame")
+#: rounds of :func:`device_turns` for an ext instance: 4 readings each
+EXT_ROUNDS = 2
+
+
+def hold_ext(label, scene, params8, hits=True):
+    """Each kernel's ext instance on ``scene`` against its plain version
+    on the same scene at 512²: K5 3 frames of steps 8 (K5's bounds; none
+    when ``params8`` is None), K6 in each mode and K8 4 frames (99.99% of
+    the pixels within 1e-6, Depth and ISO equal), K7 on the ISO state
+    (equal), which must hold hits where ``hits``.  Returns each kernel's
+    worst error."""
+    from vpt_tpu_torch.kernels import iso_shade
+
+    worst = dict.fromkeys(EXT_NAMES, 0.0)
+    if params8 is not None:
+        worst["mcm_event"] = _frames_agree(scene, params8, 512, 512, 3,
+                                           f"{label} 512^2 3 frames")[1]
+    for key in FRAME_KERNEL:
+        module = renderer_module(key)
+        state, plain = kernel_and_plain_frames(key, scene, module.Params(),
+                                               512, 512, 4)
+        name = FRAME_KERNEL[key]
+        worst[name] = max(worst[name], compare_states(
+            f"{label} 512^2 4 frames", key, state, plain,
+            key in ("depth", "iso")))
+        if key == "iso":
+            check(not hits or bool((state[..., 3] > 0).any()),
+                  f"{label}: no ISO hit")
+            shaded = module.display(state, scene, module.Params())
+            want = iso_shade.iso_shade_plain(state, scene, module.Params())
+            worst["iso_shade"] = compare_states(label, "iso_shade", shaded,
+                                                want, True)
+    return worst
+
+
+def time_ext(label, prefix, scene, base, event=True, frames=True):
+    """The ext instances on ``scene`` timed against the headline's
+    instances on ``base`` (the same scene read as one linear channel) at
+    512², default Params (K5: extinction 40, steps 8): device medians of
+    :func:`device_turns`, the loop ms, the plain version's ms, the bound
+    from this run's work (the distinct corner rows, and a two-channel
+    scene's 2D TF rows, read once; the operations with :func:`ext_ops`)
+    and the registers.  ``event`` times K5, ``frames`` K6 in each mode, K7
+    and K8.  Returns each kernel's fields, keyed ``{prefix}_...``."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch.kernels import iso_shade, march, mcm_event, mcs_frame
+    from vpt_tpu_torch.kernels import tf1d
+    from vpt_tpu_torch.renderers import iso, mcm, mcs
+
+    fields = {name: {} for name in EXT_NAMES}
+    ref = dataclasses.replace(scene, kernels=False)
+    dtype, tw = scene.volume_packed.dtype, scene.transfer_1d.shape[0]
+    ext = dict(channels=scene.channels, filtered=scene.filter != "linear")
+    n = 512 * 512
+    if event:
+        params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+        seeds = itertools.count()
+        turns = {}
+        for name, s in (("ext", scene), ("linear", base)):
+            state = mcm.reset(params, 512, 512, s)
+            turns[name] = (lambda state=state, s=s: mcm_event.event_frame(
+                state, s, params, 0.2 + 0.001 * next(seeds)))
+        t = device_turns(turns, "mcm_event", rounds=EXT_ROUNDS)
+        _, bound, work = print_kernel_device_ms(scene, 8, timed=False,
+                                                label=label)
+        state = mcm.reset(params, 512, 512, scene)
+        ms = cuda_ms(lambda: mcm_event.event_frame(state, scene, params,
+                                                   0.5), 10)
+        plain = mcm.reset(params, 512, 512, scene)
+        plain_ms = cuda_ms(lambda: mcm_event.event_frame_plain(
+            plain, ref, params, 0.5), 1)
+        occ = mcm_event.occupancy(dtype, tw, scene.majorant is not None,
+                                  **ext)
+        print(f"{label} K5 steps 8: {fmt_ms(t['ext'])} a frame on the card "
+              f"against {fmt_ms(t['linear'])} linear single-channel "
+              "(medians in turns)"
+              + (f" ({t['ext'] / t['linear']:.4f}x)"
+                 if t["ext"] and t["linear"] else "")
+              + f"; loop {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{bound:.4f} ms ({work['bound_by']}, {work['bound_bytes']} "
+              f"bytes, {work['rows']} distinct rows); {occ['registers']} "
+              f"registers, {occ['local_bytes']} local bytes, "
+              f"{occ['blocks_per_sm']} blocks an SM", flush=True)
+        fields["mcm_event"] = {
+            f"{prefix}_device_ms": t["ext"],
+            f"{prefix}_linear_device_ms": t["linear"],
+            f"{prefix}_ms": ms, f"{prefix}_plain_ms": plain_ms,
+            f"{prefix}_bound_ms": bound,
+            f"{prefix}_registers": occ["registers"]}
+    if not frames:
+        return fields
+    tf_mode = tf1d.mode_code(scene.tf_mxu)
+    for key in ("eam", "mip", "depth", "iso"):
+        module = renderer_module(key)
+        params = module.Params()
+        states = {name: module.reset(params, 512, 512, s)
+                  for name, s in (("ext", scene), ("linear", base))}
+        t = device_turns({
+            name: (lambda st=st, s=s: march.march_frame(key, st, s, params,
+                                                        0.5, 2))
+            for (name, st), s in zip(states.items(), (scene, base))},
+            "march", rounds=EXT_ROUNDS)
+        st = states["ext"]
+        ms = cuda_ms(lambda: march.march_frame(key, st, scene, params, 0.5,
+                                               2), 10)
+        plain = module.reset(params, 512, 512, scene)
+        plain_ms = cuda_ms(lambda: march.march_frame_plain(
+            key, plain, ref, params, 0.5, 2), 1)
+        samples, rows, _, _ = march_work(key, scene, params, 0.5, 512, 512)
+        bound, by, nbytes = frame_bound(
+            scene, scene.volume_packed, n, 4 if key == "mip" else 16,
+            samples * (MARCH_OPS_SAMPLE + ext_ops(scene))
+            + n * MARCH_OPS_PIXEL, rows)
+        occ = march.occupancy(key, dtype, tw, tf_mode, **ext)
+        print(f"{label} K6 {key}: {fmt_ms(t['ext'])} a frame on the card "
+              f"against {fmt_ms(t['linear'])} linear single-channel"
+              + (f" ({t['ext'] / t['linear']:.4f}x)"
+                 if t["ext"] and t["linear"] else "")
+              + f"; loop {ms:.4f} ms; plain {plain_ms:.4f} ms; {samples} "
+              f"samples, {rows} distinct rows; bound {bound:.4f} ms ({by}, "
+              f"{nbytes} bytes); {occ['registers']} registers, "
+              f"{occ['local_bytes']} local bytes, {occ['blocks_per_sm']} "
+              f"blocks an SM, {occ['chunk']} rows read ahead", flush=True)
+        fields["march_frame"].update({
+            f"{prefix}_{key}_device_ms": t["ext"],
+            f"{prefix}_{key}_linear_device_ms": t["linear"],
+            f"{prefix}_{key}_ms": ms, f"{prefix}_{key}_plain_ms": plain_ms,
+            f"{prefix}_{key}_bound_ms": bound,
+            f"{prefix}_{key}_registers": occ["registers"]})
+        if key == "iso":
+            hits = states
+    params = iso.Params()
+    t = device_turns({name: (lambda st=st, s=s: iso.display(st, s, params))
+                      for (name, st), s in zip(hits.items(),
+                                               (scene, base))}, "iso_shade",
+                     rounds=EXT_ROUNDS)
+    ms = cuda_ms(lambda: iso.display(hits["ext"], scene, params), 10)
+    plain_ms = cuda_ms(lambda: iso_shade.iso_shade_plain(hits["ext"], scene,
+                                                         params), 1)
+    count, rows = shade_work(scene, hits["ext"], float(params.gradient_step))
+    bound, by, nbytes = frame_bound(
+        scene, scene.volume_packed, n, 16,
+        count * (7 * (SHADE_OPS_TAP + ext_ops(scene)) + SHADE_OPS_PIXEL),
+        rows)
+    occ = iso_shade.occupancy(dtype, tf_mode, **ext)
+    print(f"{label} K7: {fmt_ms(t['ext'])} a display on the card against "
+          f"{fmt_ms(t['linear'])} linear single-channel"
+          + (f" ({t['ext'] / t['linear']:.4f}x)" if t["ext"] and t["linear"]
+             else "")
+          + f"; loop {ms:.4f} ms; plain {plain_ms:.4f} ms; {count} hits, "
+          f"{rows} distinct rows; bound {bound:.4f} ms ({by}); "
+          f"{occ['registers']} registers, {occ['blocks_per_sm']} blocks an "
+          "SM", flush=True)
+    fields["iso_shade"] = {
+        f"{prefix}_device_ms": t["ext"],
+        f"{prefix}_linear_device_ms": t["linear"], f"{prefix}_ms": ms,
+        f"{prefix}_plain_ms": plain_ms, f"{prefix}_bound_ms": bound,
+        f"{prefix}_registers": occ["registers"]}
+    params = mcs.Params()
+    states = {name: mcs.reset(params, 512, 512, s)
+              for name, s in (("ext", scene), ("linear", base))}
+    t = device_turns({name: (lambda st=st, s=s: mcs_frame.mcs_frame(
+        st, s, params, 0.4, 2)) for (name, st), s in zip(states.items(),
+                                                          (scene, base))},
+        "mcs_frame", rounds=EXT_ROUNDS)
+    ms = cuda_ms(lambda: mcs_frame.mcs_frame(states["ext"], scene, params,
+                                             0.4, 2), 10)
+    plain = mcs.reset(params, 512, 512, scene)
+    plain_ms = cuda_ms(lambda: mcs_frame.mcs_frame_plain(plain, ref, params,
+                                                         0.4, 2), 1)
+    bound, by = mcs_bound(scene)
+    occ = mcs_frame.occupancy(dtype, tw, **ext)
+    print(f"{label} K8: {fmt_ms(t['ext'])} a frame on the card against "
+          f"{fmt_ms(t['linear'])} linear single-channel"
+          + (f" ({t['ext'] / t['linear']:.4f}x)" if t["ext"] and t["linear"]
+             else "")
+          + f"; loop {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({by}); {occ['registers']} registers, "
+          f"{occ['blocks_per_sm']} blocks an SM", flush=True)
+    fields["mcs_frame"] = {
+        f"{prefix}_device_ms": t["ext"],
+        f"{prefix}_linear_device_ms": t["linear"], f"{prefix}_ms": ms,
+        f"{prefix}_plain_ms": plain_ms, f"{prefix}_bound_ms": bound,
+        f"{prefix}_registers": occ["registers"]}
+    torch.cuda.synchronize()
+    return fields
+
+
+def merge_ext(rows, worst, fields, key):
+    """Fold a phase's worst errors (under ``{key}_max_abs_err``) and
+    fields into each kernel's row of the JSON line."""
+    for name in EXT_NAMES:
+        row = rows.setdefault(name, {})
+        row.update(fields.get(name, {}))
+        err = worst.get(name, 0.0)
+        row[f"{key}_max_abs_err"] = max(row.get(f"{key}_max_abs_err", 0.0),
+                                        err)
+
+
+def phase_channels_path(dev, counters):
+    """``path channels``: a two-channel volume through ``cli render``.
+
+    ``volume.with_gradient_magnitude(blobs_volume(256))`` is written as a
+    256³ RG uint8 BVP by the port's ``write_bvp``, and
+    ``TransferFunctionBumps.default()`` as the widget JSON that ``--tf``
+    takes (rasterized to 256×256); MCM renders it at 512², 32 spp
+    (``--precision fast``: bf16 tables and 2D TF), then EAM, MIP, Depth,
+    ISO and MCS at 10 spp, each ``cli.main`` with every launch counter at
+    0 just before it and read just after.  The ext instances are held to
+    their plain versions on the path's bf16 scene and on a float32 twin of
+    it with a three-bump 2D TF (:data:`BUMPS`), and timed on the volume
+    the path wrote (bf16 tables) with :data:`BUMPS` against the
+    single-channel instances on its channel 0 with the same TF.  Returns
+    each kernel's row fields, worst errors and the path's launches."""
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.io import readers
+    from vpt_tpu_torch.renderers import make_scene, mcm
+
+    t0 = time.perf_counter()
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke")
+    os.makedirs(out, exist_ok=True)
+    bvp = os.path.join(out, "rg256.bvp")
+    vol = volume.with_gradient_magnitude(volume.blobs_volume(256))
+    readers.write_bvp(bvp, vol)
+    tf_json = os.path.join(out, "tf_default.json")
+    with open(tf_json, "w") as f:
+        f.write(transfer.TransferFunctionBumps.default().to_json())
+    print(f"path channels: wrote {bvp}, {os.path.getsize(bvp)} bytes, and "
+          f"the default bump as {tf_json}, in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    launches, scene = {}, None
+    for key, spp in (("mcm", 32), ("eam", 10), ("mip", 10), ("depth", 10),
+                     ("iso", 10), ("mcs", 10)):
+        png = os.path.join(out, f"rg_{key}.png")
+        argv = ["render", "--volume", bvp, "--tf", tf_json, "--renderer",
+                key, "--resolution", "512", "--spp", str(spp),
+                "--precision", "fast", "--tonemap", "reinhard", "-o", png]
+        lines, got, scenes = run_cli(argv, counters)
+        sec = cli_seconds(lines)
+        s = scenes[0]
+        check(len(scenes) == 1 and s.channels == 2
+              and tuple(s.volume_packed.shape) == (256 ** 3, 16)
+              and s.volume_packed.dtype == torch.bfloat16
+              and s.transfer_packed.dtype == torch.bfloat16
+              and tuple(s.transfer.shape) == (256, 256, 4)
+              and s.tf_mxu is None and s.tracking_packed is None,
+              f"path channels {key}: not one bf16 two-channel scene with "
+              "a 256x256 TF")
+        kernel = "mcm_event" if key == "mcm" else PATH_KERNEL[key]
+        expected = {kernel: spp, "tonemap": 1}
+        if key == "iso":
+            expected["iso_shade"] = 1
+        check_cli_launches(f"path channels {key}", got, expected)
+        pixels = png_pixels(png)
+        check(pixels.shape == (512, 512, 3),
+              f"path channels {key}: PNG {pixels.shape}")
+        launches[key] = got
+        print(f"path channels {key} 256^3 RG BVP 512^2 {spp} spp: load "
+              f"{sec['load']:.4f} s, scene build {sec['scene']:.4f} s, "
+              f"{sec['frame_ms']:.4f} ms a frame (host clock), display "
+              f"{sec['display']:.4f} s, PNG {sec['png']:.4f} s, mean pixel "
+              f"{float(pixels.mean()):.4f}; launches: "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v),
+              flush=True)
+        scene = s
+    params8 = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    # the default bump lies at gradient magnitude 0.5, which few voxels
+    # reach: the path's ISO frames may hit nothing, the twin's must hit
+    worst = hold_ext("path channels bf16", scene, params8, hits=False)
+    bumps = transfer.rasterize(transfer.TransferFunctionBumps.from_list(
+        BUMPS))
+    twin = make_scene(volume.Volume(scene.volume), bumps)
+    check(twin.volume_packed.dtype == torch.float32 and twin.channels == 2,
+          "path channels: the twin is not a float32 two-channel scene")
+    for name, err in hold_ext("path channels f32 twin", twin,
+                              params8).items():
+        worst[name] = max(worst[name], err)
+    del twin, scene
+    torch.cuda.empty_cache()
+    # timed on the path's volume and tables with the bumps' TF, where ISO
+    # hits, against its channel 0 with the same TF
+    timed = make_scene(volume.Volume(vol.data), bumps,
+                       pack_dtype=torch.bfloat16)
+    base = make_scene(volume.Volume(vol.data[..., :1]), bumps,
+                      pack_dtype=torch.bfloat16)
+    fields = time_ext("path channels bumps", "channels", timed, base)
+    del base, timed
+    torch.cuda.empty_cache()
+    return fields, worst, launches
+
+
+def phase_filters_path(dev, counters):
+    """``path filters``: the render headline's ``sphere_volume(128)``
+    (sRGB gray ramp, alpha 0.8) through ``RenderingContext`` at 512²,
+    ``precision="fast"``, with ``set_filter("nearest")`` and then
+    ``"cubic"``: MCM steps 8 × 30 frames (``tracking="auto"``, which a
+    filtered volume takes as the global majorant) and with
+    ``tracking="grid"``, then EAM, MIP, Depth, ISO and MCS, 10 frames
+    each, a ``reinhard`` display each, every launch counter at 0 just
+    before each and read just after.  The ext instances are held to their
+    plain versions on each filter's float32 twin and on the context's
+    scene (float32 tables, bf16 TF weights), and timed on the context's
+    scene against the linear instances on the same tables.  Returns each
+    kernel's row fields, worst errors and the path's launches."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import make_scene, mcm
+    from vpt_tpu_torch.runtime import RenderingContext
+
+    params8 = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    fields = {name: {} for name in EXT_NAMES}
+    worst = dict.fromkeys(EXT_NAMES, 0.0)
+    launches = {}
+    for filt in ("nearest", "cubic"):
+        for tracking in ("auto", "grid"):
+            ctx = RenderingContext(resolution=512, precision="fast",
+                                   tracking=tracking, tf_srgb=True,
+                                   device=dev)
+            ctx.set_volume(volume.sphere_volume(128))
+            ctx.set_transfer_function(transfer.gray_ramp(alpha_scale=0.8))
+            ctx.choose_tone_mapper("reinhard")
+            ctx.set_filter(filt)
+            keys = ("mcm",) if tracking == "grid" else \
+                ("mcm", "eam", "mip", "depth", "iso", "mcs")
+            for key in keys:
+                frames = 30 if key == "mcm" else 10
+                ctx.choose_renderer(key, params=params8 if key == "mcm"
+                                    else None)
+                for module in counters.values():
+                    module.LAUNCHES = 0
+                t0 = time.perf_counter()
+                ctx.render(frames)
+                image = ctx.get_display_image()
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                kernel = "mcm_event" if key == "mcm" else PATH_KERNEL[key]
+                expected = {kernel: frames, "tonemap": 1}
+                if key == "iso":
+                    expected["iso_shade"] = 1
+                name = f"path filters {filt} {key}" \
+                    + (" grid" if tracking == "grid" else "")
+                got = _path_launches(counters, name, expected)
+                _check_display(name, ctx.get_hdr_image(), image)
+                launches[name] = got
+                print(f"{name} 512^2: {frames} frames and the display in "
+                      f"{dt:.3f} ms (host clock); launches: "
+                      + ", ".join(f"{k} {v}" for k, v in got.items() if v),
+                      flush=True)
+            scene = ctx.get_scene()
+            check(scene.filter == filt
+                  and scene.volume_packed.dtype == torch.float32
+                  and scene.tf_mxu == torch.bfloat16
+                  and scene.tracking_packed is None
+                  and (scene.majorant is not None) == (tracking == "grid"),
+                  f"path filters {filt} {tracking}: not a float32 filtered "
+                  "scene with bf16 TF weights")
+            label = f"path filters {filt}" + (" grid" if tracking == "grid"
+                                              else "")
+            twin = make_scene(volume.Volume(volume.sphere_volume(128).data,
+                                            filt),
+                              transfer.gray_ramp(alpha_scale=0.8),
+                              tf_srgb=True, tracking=tracking)
+            grid = tracking == "grid"
+            # K5 on the context's scene (bf16 TF weights) and the twin;
+            # the frame kernels on the twin
+            err = {"mcm_event": _frames_agree(
+                scene, params8, 512, 512, 3,
+                f"{label} headline 512^2 3 frames")[1]}
+            if grid:
+                err["mcm_event"] = max(err["mcm_event"], _frames_agree(
+                    twin, params8, 512, 512, 3,
+                    f"{label} f32 twin 512^2 3 frames")[1])
+            else:
+                twin_err = hold_ext(f"{label} f32 twin", twin, params8)
+                err = {k: max(v, err.get(k, 0.0))
+                       for k, v in twin_err.items()}
+            for name, e in err.items():
+                worst[name] = max(worst[name], e)
+            prefix = f"{filt}_grid" if grid else filt
+            got = time_ext(label, prefix, scene,
+                           dataclasses.replace(scene, filter="linear"),
+                           frames=not grid)
+            for name in EXT_NAMES:
+                fields[name].update(got[name])
+            del ctx, scene, twin
+            torch.cuda.empty_cache()
+    return fields, worst, launches
 
 
 # -- the serving entry point: cli render (the slice's main path) -----------
@@ -2733,6 +3209,7 @@ def run():
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     try:
@@ -2814,6 +3291,24 @@ def run():
                                  + [extra[k] for k in keys])
     del headline
     torch.cuda.empty_cache()
+    ext_rows = {}
+    for key, phase in (("channels", phase_channels_path),
+                       ("filters", phase_filters_path)):
+        t0 = time.perf_counter()
+        fields, worst, launches = phase(dev, counters)
+        merge_ext(ext_rows, worst, fields, key)
+        for name in EXT_NAMES:
+            total = sum(got[name] for got in launches.values())
+            check(total > 0, f"kernel {name} was not launched on path {key}")
+            ext_rows[name][f"launches_{key}"] = total
+        print(f"path {key}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for row, name in ((k5, "mcm_event"), (k6, "march_frame"),
+                      (k7, "iso_shade"), (k8, "mcs_frame")):
+        row.update(ext_rows[name])
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 row["channels_max_abs_err"],
+                                 row["filters_max_abs_err"])
+    torch.cuda.empty_cache()
     cli_launches = phase_cli_path(dev, counters)
     fit_launches = phase_fit_path(dev, counters)
     for path, launches, names in (
@@ -2894,6 +3389,8 @@ def run():
         else:
             row["launches"] = render_launches[row["name"]]
         row["launches_cli"] = cli_launches[row["name"]]
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
+          "build included", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1569,3 +1569,164 @@ def test_large_volume_rule_builds_float32_tables(cuda, monkeypatch):
     assert_frames_agree(state, plain)
     state, plain = _kernel_frames("eam", scene, 64, 64, 2)
     assert_kernel_agrees("eam", state, plain)
+
+
+# -- two-channel and filtered volumes: the ext instances of K5-K8 ----------
+
+#: a 2D TF of three bumps over (value, gradient magnitude)
+BUMPS = [
+    {"position": {"x": 0.3, "y": 0.15}, "size": {"x": 0.25, "y": 0.3},
+     "color": {"r": 0.9, "g": 0.6, "b": 0.2, "a": 0.8}},
+    {"position": {"x": 0.6, "y": 0.5}, "size": {"x": 0.3, "y": 0.4},
+     "color": {"r": 0.2, "g": 0.7, "b": 0.9, "a": 1.0}},
+    {"position": {"x": 0.85, "y": 0.1}, "size": {"x": 0.2, "y": 0.2},
+     "color": {"r": 1.0, "g": 1.0, "b": 1.0, "a": 0.6}},
+]
+
+#: the scenes: "rg" a two-channel volume (float32 or, "-bf16", bf16
+#: tables), a filter alone ("nearest", "cubic"), both ("rg-nearest",
+#: "rg-cubic"), the filtered headline options ("cubic-mxu": bf16 pack_dtype
+#: and tf_mxu, which a filtered scene takes as float32 tables and bf16
+#: weights)
+EXT = ["rg", "rg-bf16", "nearest", "cubic", "rg-nearest", "rg-cubic",
+       "cubic-mxu"]
+
+
+def _ext_scene(kind, cuda, **kw):
+    vol = volume.blobs_volume(24, seed=3, device=cuda)
+    parts = kind.split("-")
+    if parts[0] == "rg":
+        vol = volume.with_gradient_magnitude(vol)
+        tf = transfer.rasterize(transfer.TransferFunctionBumps.from_list(
+            BUMPS, cuda))
+        parts = parts[1:]
+    else:
+        tf = transfer.gray_ramp(alpha_scale=0.8, device=cuda)
+    filt = next((p for p in parts if p in ("nearest", "cubic")), "linear")
+    fast = "bf16" in parts or "mxu" in parts
+    return make_scene(volume.Volume(vol.data, filt), tf,
+                      pack_dtype=torch.bfloat16 if fast else None,
+                      tf_mxu="mxu" in parts, device=cuda, **kw)
+
+
+@pytest.mark.parametrize("kind", EXT)
+def test_ext_scenes_pack_what_the_kernels_take(cuda, kind):
+    """A two-channel scene packs (D·H·W, 16) rows and its 2D TF in
+    ``pack_dtype``; a filtered one float32 tables whatever ``pack_dtype``
+    is, with the ``tf_mxu`` weights in ``pack_dtype``."""
+    scene = _ext_scene(kind, cuda)
+    rg = kind.startswith("rg")
+    assert tuple(scene.volume_packed.shape) == (24 ** 3, 16 if rg else 8)
+    want = torch.bfloat16 if kind == "rg-bf16" else torch.float32
+    assert scene.volume_packed.dtype == want
+    assert scene.transfer_packed.dtype == want
+    assert scene.tf_mxu == (torch.bfloat16 if kind == "cubic-mxu" else None)
+    assert scene.tracking_packed is None and scene.majorant is None
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["none", "grid"])
+@pytest.mark.parametrize("kind", EXT)
+def test_event_kernel_ext_matches_plain(cuda, kind, grid):
+    """K5's ext instances against the plain loop on the same card (64²,
+    steps 8, 4 frames), with the global majorant or an 8³ grid: samples
+    equal, radiance within 1e-6.  A two-channel volume builds no grid (it
+    warns), so it runs the global machine there."""
+    if grid and kind.startswith("rg"):
+        with pytest.warns(UserWarning, match="majorant grid"):
+            scene = _ext_scene(kind, cuda, tracking="grid")
+        assert scene.majorant is None
+    else:
+        scene = _ext_scene(kind, cuda, majorant_grid=8 if grid else None)
+        assert (scene.majorant is not None) == grid
+    params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    state, plain = _kernel_and_plain(scene, params, 64, 64, 4)
+    assert_frames_agree(state, plain)
+    assert float(state["samples"].sum()) > 64 * 64
+
+
+@pytest.mark.parametrize("kind", EXT)
+@pytest.mark.parametrize("key", ["eam", "mip", "depth", "iso", "mcs"])
+def test_frame_kernels_ext_match_plain(cuda, key, kind):
+    """K6's ext instances in each mode and K8's against the plain frames
+    (48×80, 3 frames), to the headline instances' bounds."""
+    scene = _ext_scene(kind, cuda)
+    params = mcs.Params(extinction=8.0) if key == "mcs" else None
+    state, plain = _kernel_frames(key, scene, 48, 80, 3, params)
+    assert_kernel_agrees(key, state, plain)
+    if key == "iso":
+        assert bool((state[..., 3] > 0).any())
+        _assert_shade_equals_plain(state, scene)
+
+
+def test_ext_instances_launch_shapes(cuda):
+    """Every ext instance fits an SM; K5's and K7's keep the headline's
+    local bytes (no spills); K6's and K8's read their rows ahead as the
+    headline's do, two-channel ones half as many."""
+    k5 = mcm_event.occupancy(torch.bfloat16, 256)
+    for dtype, grid, env_map, channels in (
+            (torch.float32, False, False, 1), (torch.float32, True, True, 1),
+            (torch.bfloat16, False, False, 2),
+            (torch.float32, False, True, 2)):
+        occ = mcm_event.occupancy(dtype, 256, grid, env_map, channels,
+                                  filtered=channels == 1)
+        assert occ["blocks_per_sm"] >= 1
+        assert occ["local_bytes"] == k5["local_bytes"]
+    assert occ["dynamic_smem_bytes"] == 0      # two channels: no TF row
+    for mode in march.MODES:
+        for dtype, channels in ((torch.float32, 1), (torch.bfloat16, 2),
+                                (torch.float32, 2)):
+            occ = march.occupancy(mode, dtype, 256, channels=channels,
+                                  filtered=channels == 1)
+            base = march.occupancy(mode, dtype, 256)
+            assert occ["blocks_per_sm"] >= 1
+            assert occ["chunk"] == base["chunk"] // channels
+    for dtype, channels in ((torch.float32, 1), (torch.bfloat16, 2)):
+        occ = iso_shade.occupancy(dtype, channels=channels,
+                                  filtered=channels == 1)
+        assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0
+        occ = mcs_frame.occupancy(dtype, 256, channels=channels,
+                                  filtered=channels == 1)
+        assert occ["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("kind", ["rg", "nearest"])
+@pytest.mark.parametrize("key", ["dos", "lao"])
+def test_dos_and_lao_raise_for_ext_scenes(cuda, key, kind):
+    """DOS and LAO take no two-channel or filtered scene yet: they raise,
+    citing ROADMAP.md item 13d, before any launch."""
+    scene = _ext_scene(kind, cuda)
+    module = {"dos": dos, "lao": lao}[key]
+    state = module.reset(module.Params(), 16, 16, scene)
+    before = _launches()
+    with pytest.raises(NotImplementedError, match="item 13d"):
+        module.render_frame(state, scene, module.Params(), 0.1, 1)
+    assert _launches() == before
+
+
+def test_filtered_bf16_tables_raise_before_a_launch(cuda):
+    """The kernels filter float32 rows only; a filtered scene with bf16
+    rows (which make_scene never builds) raises, launching nothing."""
+    scene = _ext_scene("cubic", cuda)
+    scene = dataclasses.replace(
+        scene, volume_packed=scene.volume_packed.to(torch.bfloat16))
+    before = _launches()
+    with pytest.raises(ValueError, match="float32"):
+        eam.render_frame(eam.reset(eam.Params(), 8, 8, scene), scene,
+                         eam.Params(), 0.1, 1)
+    assert _launches() == before
+
+
+def test_context_set_filter_renders_on_the_card(cuda):
+    """RenderingContext.set_filter: the next frame builds the filtered
+    scene and launches K5's ext instance once."""
+    ctx = RenderingContext(resolution=32, device=cuda)
+    ctx.set_volume(volume.blobs_volume(24, seed=3, device=cuda))
+    ctx.choose_renderer("mcm")
+    ctx.set_filter("cubic")
+    before = mcm_event.LAUNCHES
+    ctx.render(1)
+    image = ctx.get_display_image()
+    torch.cuda.synchronize()
+    assert ctx.get_scene().filter == "cubic"
+    assert mcm_event.LAUNCHES == before + 1
+    assert bool(torch.isfinite(image).all())

@@ -216,8 +216,8 @@ def c_struct_fields(name):
 
 
 @pytest.mark.parametrize("module,struct", [
-    ("march", "VptMarchClamp"), ("mcs_frame", "VptMcsArgs"),
-    ("iso_shade", "VptIsoShadeArgs"), ("dos_sweep", "VptDosArgs"),
+    ("march", "VptMarchExt"), ("mcs_frame", "VptMcsExt"),
+    ("iso_shade", "VptIsoShadeExt"), ("dos_sweep", "VptDosArgs"),
     ("lao_march", "VptLaoArgs")])
 def test_prepared_structs_match_the_c_layouts(module, struct):
     """Each prepared ctypes Structure declares the C struct's members in

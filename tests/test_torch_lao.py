@@ -218,8 +218,8 @@ def test_lao_num_samples_changes_output():
 def test_baked_gradient_raises(scenes):
     _, tscene = scenes["f32"]
     params = lao.Params(baked_gradient=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, "
-                                                  "multi-channel volumes"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
+                                                  "item 13d"):
         lao.generate(tscene, params, 0.0, 4, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lao_march._prepare(tscene, (params, 4, 4))

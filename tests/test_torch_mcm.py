@@ -259,14 +259,34 @@ def test_renderer_display_and_params():
     {"multichannel": True}, {"filter": "nearest"},
 ])
 def test_unported_options_raise(kwargs):
-    vol = volume.sphere_volume(8, device="cpu")
-    if kwargs.pop("multichannel", False):
-        vol = volume.Volume(torch.cat([vol.data, vol.data], dim=-1))
-    if "filter" in kwargs:
-        vol = volume.Volume(vol.data, kwargs.pop("filter"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_scene(vol, transfer.gray_ramp(device="cpu"), device="cpu",
-                   **kwargs)
+    """The two options that raised before they were ported, a two-channel
+    volume and the nearest filter, now build vpt_tpu's scene (the same
+    tables, or none) and render its MCM frame: ``samples`` agree on at
+    least 97% of the pixels, :func:`test_render_frame_agrees_with_jax`'s
+    bound."""
+    jvol = jvolume.sphere_volume(8)
+    if kwargs.get("multichannel"):
+        jvol = jvolume.with_gradient_magnitude(jvol)
+    jvol = jvolume.Volume(jvol.data, kwargs.get("filter", "linear"))
+    jscene = jmake_scene(jvol, jtransfer.gray_ramp(alpha_scale=0.8),
+                         tf_srgb=True)
+    tscene = make_scene(
+        volume.Volume(torch.from_numpy(np.array(jvol.data)), jvol.filter),
+        transfer.gray_ramp(alpha_scale=0.8, device="cpu"), tf_srgb=True,
+        device="cpu")
+    assert tscene.filter == jscene.filter
+    assert tuple(tscene.volume.shape) == tuple(jscene.volume.shape)
+    assert (tscene.volume_packed is None) == (jscene.volume_packed is None)
+    if jscene.volume_packed is not None:
+        assert np.array_equal(tscene.volume_packed.numpy(),
+                              np.asarray(jscene.volume_packed))
+    state = jmcm.reset(JPARAMS, 16, 16, jscene)
+    tstate = interop.state_from_numpy(_np(state), device="cpu")
+    jout = _np(jax.jit(jmcm.render_frame, static_argnums=(2,))(
+        state, jscene, JPARAMS, jnp.float32(0.37), jnp.int32(1)))
+    tmcm.render_frame(tstate, tscene, TPARAMS, 0.37, 1)
+    match = interop.state_to_numpy(tstate)["samples"] == jout["samples"]
+    assert match.mean() >= 0.97, match.mean()
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -85,47 +85,6 @@ constexpr float kVoxel = 1.0f / 32.0f;
 // float32(sqrt(3)), the divisor of the AO direction
 constexpr float kSqrt3 = 1.7320508075688772f;
 
-// The 2D bilinear lookup of sampling.sample_texture2d_packed at uv = (u, v)
-// from one (16,) row of 2 x 2 texel corners (x minor), four channels each.
-template <bool kTfBf16>
-__device__ __forceinline__ float4 tf2d(const void* table, int tw, int th,
-                                       float u, float v) {
-  const float ux = vpt_clip(u * (float)tw - 0.5f, 0.0f, (float)(tw - 1));
-  const float uy = vpt_clip(v * (float)th - 0.5f, 0.0f, (float)(th - 1));
-  const float ix = floorf(ux), iy = floorf(uy);
-  const float fx = ux - ix, fy = uy - iy;
-  const int64_t row = (int64_t)vpt_index(iy) * tw + vpt_index(ix);
-  float c[16];
-  if constexpr (kTfBf16) {
-    const uint4* p = static_cast<const uint4*>(table) + 2 * row;
-    const uint4 q0 = __ldg(p), q1 = __ldg(p + 1);
-    const uint32_t words[8] = {q0.x, q0.y, q0.z, q0.w,
-                               q1.x, q1.y, q1.z, q1.w};
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      c[2 * k] = __uint_as_float(words[k] << 16);
-      c[2 * k + 1] = __uint_as_float(words[k] & 0xFFFF0000u);
-    }
-  } else {
-    const float4* p = static_cast<const float4*>(table) + 4 * row;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float4 q = __ldg(p + k);
-      c[4 * k] = q.x; c[4 * k + 1] = q.y; c[4 * k + 2] = q.z;
-      c[4 * k + 3] = q.w;
-    }
-  }
-  const float gx = 1.0f - fx, gy = 1.0f - fy;
-  float out[4];
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) {
-    const float cx0 = c[ch] * gx + c[4 + ch] * fx;
-    const float cx1 = c[8 + ch] * gx + c[12 + ch] * fx;
-    out[ch] = cx0 * gy + cx1 * fy;
-  }
-  return make_float4(out[0], out[1], out[2], out[3]);
-}
-
 // sqrt(max(x*x + y*y + z*z, 1e-20)), the norm of lao.py's _norm
 __device__ __forceinline__ float norm3(float x, float y, float z) {
   return sqrtf(vpt_nmax(x * x + y * y + z * z, 1e-20f));
@@ -307,7 +266,7 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
       soft = vpt_clip((-0.2f + 1.2f * contrib) / 1.3f, 0.0f, 1.0f);
     }
 
-    float4 c = tf2d<kTfBf16>(a.tf_table, a.tw, a.th, value, grad_mag);
+    float4 c = vpt_tf2d<kTfBf16>(a.tf_table, a.tw, a.th, value, grad_mag);
     const float w1 = lao * a.lao_weight;
     c.x = c.x * (1.0f - w1) + c.x * 0.15f * w1;
     c.y = c.y * (1.0f - w1) + c.y * 0.18f * w1;

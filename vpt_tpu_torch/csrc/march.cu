@@ -54,8 +54,12 @@
 // carry never changes after that); ISO marches its schedule from the near
 // end and stops at the first hit, which is the JAX backward march's last
 // write; MIP runs every slice.  The launch takes its scene, Params and
-// resolution as one pointer to a VptMarchClamp that the wrapper prepares
-// once, and the frame's two scalars by value.
+// resolution as one pointer to a VptMarchExt that the wrapper prepares
+// once, and the frame's two scalars by value.  Two-channel and filtered
+// volumes run march_ext_kernel, the same body (march) with ray.cuh's ext
+// fetch (the filter a warp-uniform argument; 64 bytes of rows read ahead,
+// so half the rows of two channels) and, for two channels, the 2D TF rows
+// through the read-only cache; make_scene builds no clamp box for them.
 //
 // Numerics follow the plain PyTorch frame (renderers/eam.py, mip.py,
 // depth.py, iso.py) operation by operation: built with -fmad=false, IEEE
@@ -96,6 +100,15 @@ struct VptMarchClamp : VptMarchArgs {
   float box[12];         // box b: lo xyz at 6b, hi xyz at 6b + 3
 };
 
+// The prepared arguments with what the ext instances (two-channel and
+// filtered scenes, ray.cuh) take besides; only they read it.
+struct VptMarchExt : VptMarchClamp {
+  const void* tf_table;  // (th*tw, 16) packed TF of the table's type
+  int th;
+  int channels;          // 1 or 2: with filter 0 and 1 channel, no ext
+  int filter;            // ray.cuh's VptFilter
+};
+
 namespace {
 
 enum Mode { kEam = 0, kMip = 1, kDepth = 2, kIso = 3 };
@@ -104,6 +117,9 @@ enum Mode { kEam = 0, kMip = 1, kDepth = 2, kIso = 3 };
 // take twice the registers)
 template <bool kBf16>
 constexpr int kChunk = kBf16 ? 4 : 2;
+// the same 64 bytes of rows of kC channels (kC = 0: the headline's)
+template <bool kBf16, int kC>
+constexpr int kChunkOf = kC == 2 ? kChunk<kBf16> / 2 : kChunk<kBf16>;
 // resident blocks an SM that the register allocation must allow
 constexpr int kMinBlocks = 6;
 
@@ -120,24 +136,33 @@ __device__ __forceinline__ float wrap_unit(float x) {
 // time: the chunk's rows are read first, then fold(t, get) runs on each
 // slice in order until it returns false (the pixel leaves its loop); get()
 // is the slice's color(row, cell), looked up only where the fold asks.
-template <bool kBf16, class Schedule, class Color, class Fold>
-__device__ __forceinline__ void march_slices(const VptMarchArgs& a, int n,
+// kC is 0 for the headline's linear single-channel fetch, else an ext
+// instance's channels, whose cells take the filter.
+template <bool kBf16, int kC, class Schedule, class Color, class Fold>
+__device__ __forceinline__ void march_slices(const VptMarchArgs& a,
+                                             int filter, int n,
                                              const float start[3],
                                              const float seg[3],
                                              Schedule t_of, Color color,
                                              Fold fold) {
-  constexpr int C = kChunk<kBf16>;
+  constexpr int C = kChunkOf<kBf16, kC>;
   for (int j0 = 0; j0 < n; j0 += C) {
     float ts[C];
     Cell cell[C];
-    VptRow<kBf16> row[C];
+    VptRowOf<kBf16, kC> row[C];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       ts[k] = t_of(j0 + k);
-      cell[k] = vpt_cell<int>(a.d, a.h, a.w, start[0] + ts[k] * seg[0],
-                              start[1] + ts[k] * seg[1],
-                              start[2] + ts[k] * seg[2]);
-      if (j0 + k < n) row[k] = vpt_load_row<kBf16>(a.table, cell[k].row);
+      const float px = start[0] + ts[k] * seg[0];
+      const float py = start[1] + ts[k] * seg[1];
+      const float pz = start[2] + ts[k] * seg[2];
+      if constexpr (kC == 0) {
+        cell[k] = vpt_cell<int>(a.d, a.h, a.w, px, py, pz);
+      } else {
+        cell[k] = vpt_cell_filtered<int>(a.d, a.h, a.w, px, py, pz, filter);
+      }
+      if (j0 + k < n)
+        row[k] = vpt_load_rows<kBf16, kC>(a.table, cell[k].row);
     }
 #pragma unroll
     for (int k = 0; k < C; ++k) {
@@ -152,14 +177,17 @@ __device__ __forceinline__ void march_slices(const VptMarchArgs& a, int n,
 template <bool kClamp>
 using ArgsOf = std::conditional_t<kClamp, VptMarchClamp, VptMarchArgs>;
 
-template <int kMode, bool kBf16, int kTf, bool kClamp>
-__global__ void __launch_bounds__(kVptTileThreads, kMinBlocks)
-march_kernel(const ArgsOf<kClamp> a, float* __restrict__ state, float first,
-             float mix) {
-  // dynamic: the TF row (tw float4)
+// One frame of mode kMode; kC as in march_slices.
+template <int kMode, bool kBf16, int kTf, bool kClamp, int kC, class A>
+__device__ __forceinline__ void march(const A& a, float* __restrict__ state,
+                                      float first, float mix) {
+  // dynamic: the TF row (tw float4); a two-channel scene reads the 2D TF
+  // table instead
   extern __shared__ float4 s_tf[];
   __shared__ float s_mvp[16];
-  for (int i = threadIdx.x; i < a.tw; i += blockDim.x) s_tf[i] = a.tf_row[i];
+  if (kC != 2)
+    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
+      s_tf[i] = a.tf_row[i];
   if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
   __syncthreads();
   int x, y;
@@ -207,6 +235,19 @@ march_kernel(const ArgsOf<kClamp> a, float* __restrict__ state, float first,
   }
   const int n = miss ? 0 : a.slices;
   const float step = a.step;
+  using Row = VptRowOf<kBf16, kC>;
+  // the slice's color: the headline's lookup, or an ext instance's
+  const auto lookup = [&](const Row& row, const Cell& cell) {
+    if constexpr (kC == 0) {
+      return vpt_tf1d_lookup(s_tf, a.tw, vpt_lerp_row<kBf16>(row, cell),
+                             kTf);
+    } else {
+      return vpt_color_rg<kBf16, kC>(s_tf, a.tw, kTf, a.tf_table, a.th,
+                                     vpt_lerp_rg<kBf16, kC>(row, cell));
+    }
+  };
+  int filter = 0;
+  if constexpr (kC != 0) filter = a.filter;
 
   if (kMode == kEam || kMode == kDepth) {
     const float len = sqrtf(seg[0] * seg[0] + seg[1] * seg[1]
@@ -214,12 +255,9 @@ march_kernel(const ArgsOf<kClamp> a, float* __restrict__ state, float first,
     const float rsl = len * step;
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // EAM's carry
     float t = first, dacc = 0.0f;                      // Depth's carry
-    march_slices<kBf16>(
-        a, n, start, seg, [&](int s) { return first + (float)s * step; },
-        [&](const VptRow<kBf16>& row, const Cell& cell) {
-          return vpt_tf1d_lookup(s_tf, a.tw, vpt_lerp_row<kBf16>(row, cell),
-                                 kTf);
-        },
+    march_slices<kBf16, kC>(
+        a, filter, n, start, seg,
+        [&](int s) { return first + (float)s * step; }, lookup,
         [&](float ts, auto get) {
           // inactive for good: the carry never changes after this
           if (kMode == kEam && !(ts < 1.0f && acc.w < 0.99f)) return false;
@@ -261,12 +299,11 @@ march_kernel(const ArgsOf<kClamp> a, float* __restrict__ state, float first,
     *st = s0;
   } else if (kMode == kMip) {
     float val = 0.0f;
-    march_slices<kBf16>(
-        a, n, start, seg,
+    march_slices<kBf16, kC>(
+        a, filter, n, start, seg,
         [&](int s) { return wrap_unit(first + (float)s * step); },
-        [&](const VptRow<kBf16>& row, const Cell& cell) {
-          return vpt_tf1d_lookup(s_tf, a.tw, vpt_lerp_row<kBf16>(row, cell),
-                                 kTf).w;
+        [&](const Row& row, const Cell& cell) {
+          return lookup(row, cell).w;
         },
         [&](float, auto get) {
           val = vpt_nmax(val, get());
@@ -277,12 +314,11 @@ march_kernel(const ArgsOf<kClamp> a, float* __restrict__ state, float first,
     // the nearest hit: the schedule first - s*step from its near end (the
     // largest s), stopping at the first hit
     float4 hit = make_float4(-1.0f, -1.0f, -1.0f, -1.0f);
-    march_slices<kBf16>(
-        a, n, start, seg,
+    march_slices<kBf16, kC>(
+        a, filter, n, start, seg,
         [&](int j) { return first - (float)(n - 1 - j) * step; },
-        [&](const VptRow<kBf16>& row, const Cell& cell) {
-          return vpt_tf1d_lookup(s_tf, a.tw, vpt_lerp_row<kBf16>(row, cell),
-                                 kTf).w;
+        [&](const Row& row, const Cell& cell) {
+          return lookup(row, cell).w;
         },
         [&](float ts, auto get) {
           if (get() >= a.level) {
@@ -299,6 +335,23 @@ march_kernel(const ArgsOf<kClamp> a, float* __restrict__ state, float first,
   }
 }
 
+template <int kMode, bool kBf16, int kTf, bool kClamp>
+__global__ void __launch_bounds__(kVptTileThreads, kMinBlocks)
+march_kernel(const ArgsOf<kClamp> a, float* __restrict__ state, float first,
+             float mix) {
+  march<kMode, kBf16, kTf, kClamp, 0>(a, state, first, mix);
+}
+
+// The ext instances: kC channels (1: a filtered volume, float32 rows, the
+// TF lookup mode kTf; 2: a two-channel volume and the 2D TF table), no
+// boxes (make_scene builds none for these scenes).
+template <int kMode, bool kBf16, int kTf, int kC>
+__global__ void __launch_bounds__(kVptTileThreads, kMinBlocks)
+march_ext_kernel(const VptMarchExt a, float* __restrict__ state,
+                 float first, float mix) {
+  march<kMode, kBf16, kTf, false, kC>(a, state, first, mix);
+}
+
 size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
 
 // The instantiation for a launch's mode, table type and TF lookup mode
@@ -307,6 +360,7 @@ size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
 // headline's code runs as it was.
 template <bool kClamp>
 using Kernel = void (*)(const ArgsOf<kClamp>, float*, float, float);
+using KernelExt = void (*)(const VptMarchExt, float*, float, float);
 
 template <int kMode, bool kBf16, bool kClamp>
 Kernel<kClamp> pick_tf(int tf_mode) {
@@ -335,50 +389,92 @@ Kernel<kClamp> pick(int mode, int table_bf16, int tf_mode) {
                     : pick_mode<false, kClamp>(mode, tf_mode);
 }
 
+// The ext instance: one channel (a filtered volume) in float32 rows with
+// each TF lookup mode, or two channels in either row type (the 2D TF
+// lookup has no mode); null for anything else.
+template <int kMode>
+KernelExt pick_ext_tf(int channels, int table_bf16, int tf_mode) {
+  if (channels == 2)
+    return table_bf16 ? march_ext_kernel<kMode, true, 0, 2>
+                      : march_ext_kernel<kMode, false, 0, 2>;
+  if (channels != 1 || table_bf16) return nullptr;
+  switch (tf_mode) {
+    case 0: return march_ext_kernel<kMode, false, 0, 1>;
+    case 1: return march_ext_kernel<kMode, false, 1, 1>;
+    case 2: return march_ext_kernel<kMode, false, 2, 1>;
+    default: return nullptr;
+  }
+}
+
+KernelExt pick_ext(int mode, int channels, int table_bf16, int tf_mode) {
+  switch (mode) {
+    case kEam: return pick_ext_tf<kEam>(channels, table_bf16, tf_mode);
+    case kMip: return pick_ext_tf<kMip>(channels, table_bf16, tf_mode);
+    case kDepth: return pick_ext_tf<kDepth>(channels, table_bf16, tf_mode);
+    case kIso: return pick_ext_tf<kIso>(channels, table_bf16, tf_mode);
+    default: return nullptr;
+  }
+}
+
 // Without opting in, a block gets 48 KiB of shared memory, static and
 // dynamic together; a TF row near tf1d.MAX_WIDTH needs more.  The attribute
 // belongs to the current device, so it is set on every such launch.
 template <class K>
-cudaError_t allow_smem(K kernel, int tw) {
-  if (dynamic_smem(tw) <= 47 * 1024) return cudaSuccess;
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 47 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)dynamic_smem(tw));
+                              (int)smem);
 }
 
-template <bool kClamp>
-cudaError_t launch_as(const VptMarchClamp& p, void* state, float first,
-                      float mix, void* stream) {
-  const Kernel<kClamp> kernel = pick<kClamp>(p.mode, p.table_bf16,
-                                             p.tf_mode);
+template <class K, class A>
+cudaError_t launch_kernel(K kernel, const A& a, size_t smem, void* state,
+                          float first, float mix, void* stream) {
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(kernel, p.tw);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const ArgsOf<kClamp>& a = p;
-  const unsigned blocks = (unsigned)vpt_tile_blocks(p.width, p.height);
-  kernel<<<blocks, kVptTileThreads, dynamic_smem(p.tw),
-           (cudaStream_t)stream>>>(a, (float*)state, first, mix);
+  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
+  kernel<<<blocks, kVptTileThreads, smem, (cudaStream_t)stream>>>(
+      a, (float*)state, first, mix);
   return cudaGetLastError();
 }
 
-cudaError_t launch(const VptMarchClamp& p, void* state, float first,
+// whether a launch runs an ext instance
+bool is_ext(const VptMarchExt& p) {
+  return p.channels != 1 || p.filter != 0;
+}
+
+cudaError_t launch(const VptMarchExt& p, void* state, float first,
                    float mix, void* stream) {
   if (p.width <= 0 || p.height <= 0) return cudaSuccess;
   if (p.boxes < 0 || p.boxes > 2) return cudaErrorInvalidValue;
-  return p.boxes > 0 ? launch_as<true>(p, state, first, mix, stream)
-                     : launch_as<false>(p, state, first, mix, stream);
+  if (is_ext(p)) {
+    if (p.boxes != 0 || p.filter < 0 || p.filter > 2)
+      return cudaErrorInvalidValue;
+    return launch_kernel(
+        pick_ext(p.mode, p.channels, p.table_bf16, p.tf_mode), p,
+        p.channels == 2 ? 0 : dynamic_smem(p.tw), state, first, mix, stream);
+  }
+  if (p.boxes > 0) {
+    const VptMarchClamp& a = p;
+    return launch_kernel(pick<true>(p.mode, p.table_bf16, p.tf_mode), a,
+                         dynamic_smem(p.tw), state, first, mix, stream);
+  }
+  const VptMarchArgs& a = p;
+  return launch_kernel(pick<false>(p.mode, p.table_bf16, p.tf_mode), a,
+                       dynamic_smem(p.tw), state, first, mix, stream);
 }
 
-// The launch shape of a kernel for a TF row of tw texels on device: the
-// values vpt_march_info writes.
+// The launch shape of a kernel for smem dynamic bytes on device: the
+// values vpt_march_info writes, with chunk the rows it reads ahead.
 template <class K>
-cudaError_t info(K kernel, int table_bf16, int tw, int device, int* out) {
+cudaError_t info(K kernel, size_t smem, int chunk, int device, int* out) {
   if (kernel == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(kernel, tw);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kVptTileThreads, dynamic_smem(tw));
+      &per_sm, kernel, kVptTileThreads, smem);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -387,21 +483,19 @@ cudaError_t info(K kernel, int table_bf16, int tw, int device, int* out) {
   if (err != cudaSuccess) return err;
   const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
                         (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
-                        (int)dynamic_smem(tw),
-                        table_bf16 ? kChunk<true> : kChunk<false>,
-                        kVptTileW, kVptTileH, kVptWarpW};
+                        (int)smem, chunk, kVptTileW, kVptTileH, kVptWarpW};
   for (int k = 0; k < 11; ++k) out[k] = values[k];
   return cudaSuccess;
 }
 
 }  // namespace
 
-// One frame: prepared is the VptMarchClamp of the scene, Params and
+// One frame: prepared is the VptMarchExt of the scene, Params and
 // resolution; first is the schedule's first value (EAM, Depth: t0; MIP: the
 // offset; ISO: 1 - offset*step), mix the running mean's weight 1/n.
 extern "C" int vpt_march_launch(const void* prepared, void* state,
                                 float first, float mix, void* stream) {
-  const VptMarchClamp& p = *static_cast<const VptMarchClamp*>(prepared);
+  const VptMarchExt& p = *static_cast<const VptMarchExt*>(prepared);
   VptDeviceGuard guard(p.device);
   return (int)launch(p, state, first, mix, stream);
 }
@@ -414,7 +508,7 @@ extern "C" int vpt_march_frame(
     int w, const void* tf_row, int tw, int tf_mode, const void* mvp,
     int width, int height, int slices, float step, float first,
     float extinction, float level, float mix, void* stream) {
-  VptMarchClamp a;
+  VptMarchExt a;
   a.table = table;
   a.tf_row = (const float4*)tf_row;
   a.mvp = (const float*)mvp;
@@ -430,23 +524,34 @@ extern "C" int vpt_march_frame(
   a.level = level;
   a.device = 0;
   a.boxes = 0;
+  a.tf_table = nullptr;
+  a.th = 0;
+  a.channels = 1;
+  a.filter = 0;
   return (int)launch(a, state, first, mix, stream);
 }
 
 // The launch shape of mode `mode` for the instance `flags` (1: a table of
-// bf16 rows, else float32; 2: the clamp instance) and a TF row of `tw`
-// texels in lookup mode `tf_mode` on `device`: out =
-// threads a block, resident blocks an SM, SMs, registers a thread, local
-// (spilled) bytes a thread, static and dynamic shared bytes a block, rows
-// read ahead, the block's tile width and height and the warp's tile width
-// in pixels.  Launches nothing.
+// bf16 rows, else float32; 2: the clamp instance; 4: an ext instance of
+// one channel, 8: of two) and a TF row of `tw` texels in lookup mode
+// `tf_mode` on `device`: out = threads a block, resident blocks an SM,
+// SMs, registers a thread, local (spilled) bytes a thread, static and
+// dynamic shared bytes a block, rows read ahead, the block's tile width
+// and height and the warp's tile width in pixels.  Launches nothing.
 extern "C" int vpt_march_info(int mode, int flags, int tw, int tf_mode,
                               int device, int* out) {
   VptDeviceGuard guard(device);
   const int bf16 = flags & 1;
+  const int chunk = bf16 ? kChunk<true> : kChunk<false>;
+  if (flags & 12) {
+    const int channels = (flags & 8) ? 2 : 1;
+    return (int)info(pick_ext(mode, channels, bf16, tf_mode),
+                     channels == 2 ? 0 : dynamic_smem(tw),
+                     channels == 2 ? chunk / 2 : chunk, device, out);
+  }
   return (int)((flags & 2)
-                   ? info(pick<true>(mode, bf16, tf_mode), bf16, tw, device,
-                          out)
-                   : info(pick<false>(mode, bf16, tf_mode), bf16, tw,
-                          device, out));
+                   ? info(pick<true>(mode, bf16, tf_mode), dynamic_smem(tw),
+                          chunk, device, out)
+                   : info(pick<false>(mode, bf16, tf_mode), dynamic_smem(tw),
+                          chunk, device, out));
 }

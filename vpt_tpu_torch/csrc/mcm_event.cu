@@ -39,7 +39,13 @@
 // reaches no result, since only a collision inside the cube can absorb or
 // scatter, and the classification's uniform is drawn regardless.  A map
 // is read at an escape deposit only, through the read-only cache
-// (ray.cuh's vpt_sample_environment).
+// (ray.cuh's vpt_sample_environment).  Two-channel and filtered volumes
+// run mcm_event_ext_kernel, the same body (mcm_event) with ray.cuh's ext
+// fetch: the filter a warp-uniform argument, the channels a template
+// parameter; a two-channel scene reads its 2D TF rows through the
+// read-only cache and copies no TF row into shared memory.  The body's
+// kC = 0 branches are the headline's code, so its instances keep their
+// registers (bench_mcm_event.py --registers against the parent tree).
 //
 // Measured against it (bench_mcm_event.py; PERF.md has the numbers): a
 // wavefront inside a block (the photons' state in shared memory, dense
@@ -88,6 +94,14 @@ struct Args {
   int width, height;     // the image; n = width * height
   float inv_res_x, inv_res_y, seed, extinction, anisotropy, blur, cell;
   int max_bounces, steps, use_skip;
+};
+
+// The ext instances' argument (two-channel and filtered scenes, ray.cuh):
+// the headline's instances take Args, so their code is the one they had.
+struct ArgsExt : Args {
+  const void* tf_table;  // (th*tw, 16) packed TF of the table's type
+  int th;
+  int filter;            // ray.cuh's VptFilter
 };
 
 // resetPhoton (mcm.py:45-55): stochastic unproject (4 uniforms: disk, then
@@ -191,16 +205,20 @@ __device__ __forceinline__ float grid_flight(const float2* grid, int n,
 // The three machines are template instances: kGrid the majorant grid's
 // flight (the exact and cheb-skip flights otherwise, by use_skip), kMap an
 // environment map larger than 1x1 (the headline's 1x1 texel sits in
-// shared memory otherwise).  The headline's instance is <bf16, false,
-// false>.
-template <bool kBf16, bool kGrid, bool kMap>
-__global__ void __launch_bounds__(kThreads)
-mcm_event_kernel(Args a) {
-  // dynamic: the TF row (tw float4)
+// shared memory otherwise).  kC is 0 for the headline's fetch (one
+// channel, linear), else the channels of an ext instance (ray.cuh's
+// two-channel and filtered fetch, with no cheb-skip table).  The
+// headline's instance is <bf16, false, false, 0>.
+template <bool kBf16, bool kGrid, bool kMap, int kC, class A>
+__device__ __forceinline__ void mcm_event(const A& a) {
+  // dynamic: the TF row (tw float4); a two-channel scene reads the 2D TF
+  // table instead
   extern __shared__ float4 s_tf[];
   __shared__ float s_mvp[16];
   __shared__ float s_env[3];
-  for (int i = threadIdx.x; i < a.tw; i += blockDim.x) s_tf[i] = a.tf_row[i];
+  if (kC != 2)
+    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
+      s_tf[i] = a.tf_row[i];
   if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
   if (!kMap && threadIdx.x < 3)
     s_env[threadIdx.x] = __ldg(a.env + threadIdx.x);
@@ -219,7 +237,7 @@ mcm_event_kernel(Args a) {
   }
   float b = a.bounces[i];
   float samples = a.samples[i];
-  const bool skip = !kGrid && a.use_skip != 0;
+  const bool skip = !kGrid && kC == 0 && a.use_skip != 0;
   float ch = skip ? a.cheb[i] : 0.0f;
   // NDC of the row-major pixel index (row 0 is the bottom of the image);
   // the wrapper keeps width * height below 2^31
@@ -253,9 +271,15 @@ mcm_event_kernel(Args a) {
       // only a collision reads the volume: a hop's color reaches nothing
       vs = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (collide) {
-        vs = vpt_color(s_tf, a.tw, a.tf_mode,
-                       vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1],
-                                        q[2]), false);
+        if constexpr (kC == 0) {
+          vs = vpt_color(s_tf, a.tw, a.tf_mode,
+                         vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0],
+                                          q[1], q[2]), false);
+        } else {
+          vs = vpt_fetch_color<kBf16, kC>(a.table, a.d, a.h, a.w, a.filter,
+                                          q[0], q[1], q[2], s_tf, a.tw,
+                                          a.tf_mode, a.tf_table, a.th);
+        }
       }
       // the collision's rate relative to the local majorant
       vs.w = mu > 0.0f ? vpt_nmin(vs.w / mu, 1.0f) : 0.0f;
@@ -268,9 +292,16 @@ mcm_event_kernel(Args a) {
       for (int k = 0; k < 3; ++k) q[k] = p[k] + dist * dir[k];
 
       // sample: one corner row, then the TF row
-      float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1], q[2]);
-      vs = vpt_color(s_tf, a.tw, a.tf_mode, v, skip);
-      cheb_new = skip ? rintf(vpt_nmax(-v, 0.0f)) : 0.0f;
+      if constexpr (kC == 0) {
+        float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1],
+                                   q[2]);
+        vs = vpt_color(s_tf, a.tw, a.tf_mode, v, skip);
+        cheb_new = skip ? rintf(vpt_nmax(-v, 0.0f)) : 0.0f;
+      } else {
+        vs = vpt_fetch_color<kBf16, kC>(a.table, a.d, a.h, a.w, a.filter,
+                                        q[0], q[1], q[2], s_tf, a.tw,
+                                        a.tf_mode, a.tf_table, a.th);
+      }
     }
 
     // classify (mcm.py:122-133)
@@ -336,11 +367,26 @@ mcm_event_kernel(Args a) {
   if (skip) a.cheb[i] = ch;
 }
 
+template <bool kBf16, bool kGrid, bool kMap>
+__global__ void __launch_bounds__(kThreads)
+mcm_event_kernel(Args a) {
+  mcm_event<kBf16, kGrid, kMap, 0>(a);
+}
+
+// The ext instances: kC channels (1: a filtered volume, float32 rows; 2: a
+// two-channel volume, no grid).
+template <bool kBf16, bool kGrid, bool kMap, int kC>
+__global__ void __launch_bounds__(kThreads)
+mcm_event_ext_kernel(ArgsExt a) {
+  mcm_event<kBf16, kGrid, kMap, kC>(a);
+}
+
 // Without opting in, a block gets 48 KiB of shared memory, static and
 // dynamic together; a TF row near tf1d.MAX_WIDTH (3072 texels, 48 KiB)
 // needs more.  The attribute belongs to the current device, so it is set
 // on every such launch.
 using Kernel = void (*)(Args);
+using KernelExt = void (*)(ArgsExt);
 
 // The instance for a table type (flags & 1), the grid machine (flags & 2)
 // and an environment map larger than 1x1 (flags & 4).
@@ -358,16 +404,50 @@ Kernel pick(int flags) {
   return (flags & 1) ? pick_machine<true>(flags) : pick_machine<false>(flags);
 }
 
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
+// The ext instance (flags & 8) for the same bits and two channels (flags &
+// 16); null for what make_scene never builds: a grid with two channels,
+// a filtered volume in bf16 rows.
+template <bool kBf16, int kC>
+KernelExt pick_ext_machine(int flags) {
+  if constexpr (kC == 2) {
+    if (flags & 2) return nullptr;
+    return (flags & 4) ? mcm_event_ext_kernel<kBf16, false, true, 2>
+                       : mcm_event_ext_kernel<kBf16, false, false, 2>;
+  } else {
+    switch (flags & 6) {
+      case 0: return mcm_event_ext_kernel<kBf16, false, false, 1>;
+      case 2: return mcm_event_ext_kernel<kBf16, true, false, 1>;
+      case 4: return mcm_event_ext_kernel<kBf16, false, true, 1>;
+      default: return mcm_event_ext_kernel<kBf16, true, true, 1>;
+    }
+  }
+}
+
+KernelExt pick_ext(int flags) {
+  if (flags & 16)
+    return (flags & 1) ? pick_ext_machine<true, 2>(flags)
+                       : pick_ext_machine<false, 2>(flags);
+  return (flags & 1) ? nullptr : pick_ext_machine<false, 1>(flags);
+}
+
+// the dynamic shared memory of an instance: the TF row, which a
+// two-channel instance does not copy
+size_t tf_smem(int flags, int tw) {
+  return (flags & 16) ? 0 : (size_t)tw * sizeof(float4);
+}
+
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 47 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
-// The launch shape for a TF row of tw texels (see vpt_mcm_event_info).
-cudaError_t info(Kernel kernel, int tw, int* out) {
-  const size_t smem = (size_t)tw * sizeof(float4);
+// The launch shape for smem dynamic bytes (see vpt_mcm_event_info).
+template <class K>
+cudaError_t info(K kernel, size_t smem, int* out) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   int dev = 0, per_sm = 0, sms = 0;
   cudaError_t err;
   if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
@@ -391,10 +471,11 @@ cudaError_t info(Kernel kernel, int tw, int* out) {
   return cudaSuccess;
 }
 
-cudaError_t launch(Kernel kernel, const Args& a, cudaStream_t stream) {
+template <class K, class A>
+cudaError_t launch(K kernel, const A& a, size_t smem, cudaStream_t stream) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   const long long n = (long long)a.width * a.height;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  const size_t smem = (size_t)a.tw * sizeof(float4);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, smem, stream>>>(a);
@@ -406,7 +487,9 @@ cudaError_t launch(Kernel kernel, const Args& a, cudaStream_t stream) {
 // One frame of any instance.  env: the (env_h, env_w, 4) float32
 // environment map (1x1: the headline's shared texel); grid: null, or the
 // (grid_n^3, 2) float32 majorant grid, which selects the grid machine
-// (use_skip is then 0).
+// (use_skip is then 0).  channels 2 (a two-channel table of (D*H*W, 16)
+// rows and the packed (th*tw, 16) TF table tf_table of its type) or a
+// filter other than linear (0) select an ext instance (use_skip 0).
 extern "C" int vpt_mcm_event_frame(
     void* position, void* direction, void* bounces, void* transmittance,
     void* radiance, void* samples, void* cheb, const void* table,
@@ -415,9 +498,9 @@ extern "C" int vpt_mcm_event_frame(
     int grid_n, const void* mvp, int width, int height, float inv_res_x,
     float inv_res_y, float seed, float extinction, float anisotropy,
     float blur, float cell, int max_bounces, int steps, int use_skip,
-    void* stream) {
+    const void* tf_table, int th, int channels, int filter, void* stream) {
   if (width <= 0 || height <= 0) return 0;
-  Args a;
+  ArgsExt a;
   a.position = (float*)position;
   a.direction = (float*)direction;
   a.bounces = (float*)bounces;
@@ -440,14 +523,26 @@ extern "C" int vpt_mcm_event_frame(
   a.seed = seed; a.extinction = extinction; a.anisotropy = anisotropy;
   a.blur = blur; a.cell = cell;
   a.max_bounces = max_bounces; a.steps = steps; a.use_skip = use_skip;
+  a.tf_table = tf_table;
+  a.th = th;
+  a.filter = filter;
+  const bool ext = channels == 2 || filter != 0;
   const int flags = (table_bf16 ? 1 : 0) | (grid ? 2 : 0)
-                    | (env_h == 1 && env_w == 1 ? 0 : 4);
-  return (int)launch(pick(flags), a, (cudaStream_t)stream);
+                    | (env_h == 1 && env_w == 1 ? 0 : 4) | (ext ? 8 : 0)
+                    | (channels == 2 ? 16 : 0);
+  if ((channels != 1 && channels != 2) || filter < 0 || filter > 2
+      || (ext && use_skip))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = tf_smem(flags, tw);
+  if (ext) return (int)launch(pick_ext(flags), a, smem, (cudaStream_t)stream);
+  const Args& base = a;
+  return (int)launch(pick(flags), base, smem, (cudaStream_t)stream);
 }
 
 // The same frame through the argument list the event kernel has taken
 // since its redesign (every build of it exports this: env is a 1x1 texel,
-// no grid), so that builds can be timed against each other.
+// no grid, one channel, linear), so that builds can be timed against each
+// other.
 extern "C" int vpt_mcm_event(
     void* position, void* direction, void* bounces, void* transmittance,
     void* radiance, void* samples, void* cheb, const void* table,
@@ -460,14 +555,17 @@ extern "C" int vpt_mcm_event(
       position, direction, bounces, transmittance, radiance, samples, cheb,
       table, table_bf16, d, h, w, tf_row, tw, tf_mode, env, 1, 1, nullptr,
       0, mvp, width, height, inv_res_x, inv_res_y, seed, extinction,
-      anisotropy, blur, cell, max_bounces, steps, use_skip, stream);
+      anisotropy, blur, cell, max_bounces, steps, use_skip, nullptr, 0, 1, 0,
+      stream);
 }
 
 // The launch shape of the instance `flags` (1: a bf16 table, 2: the grid
-// machine, 4: an environment map larger than 1x1) for a TF row of `tw`
-// texels: out[0..6] = threads a block, resident blocks an SM, SMs,
-// registers a thread, local (spilled) bytes a thread, static and dynamic
-// shared bytes a block.
+// machine, 4: an environment map larger than 1x1, 8: an ext instance, 16:
+// with two channels) for a TF row of `tw` texels: out[0..6] = threads a
+// block, resident blocks an SM, SMs, registers a thread, local (spilled)
+// bytes a thread, static and dynamic shared bytes a block.
 extern "C" int vpt_mcm_event_info(int flags, int tw, int* out) {
-  return (int)info(pick(flags), tw, out);
+  const size_t smem = tf_smem(flags, tw);
+  return (int)((flags & 8) ? info(pick_ext(flags), smem, out)
+                           : info(pick(flags), smem, out));
 }

@@ -38,8 +38,12 @@
 // escapes.
 // With a cheb-skip tracking table the free paths extend over empty cells
 // and colors come from that table, as in the MCM event kernel.  The launch
-// takes its scene, Params and resolution as one pointer to a VptMcsArgs
+// takes its scene, Params and resolution as one pointer to a VptMcsExt
 // that the wrapper prepares once, and the frame's five scalars by value.
+// Two-channel and filtered volumes run mcs_frame_ext_kernel, the same body
+// (mcs_frame) with ray.cuh's ext fetch at its three fetch sites (the
+// filter a warp-uniform argument) and, for two channels, the 2D TF
+// lookup; they have no tracking table.
 // Given a counter, a second instantiation of the kernel adds up its draws
 // and corner-row fetches (one atomic a warp); the render path launches the
 // one without.
@@ -72,6 +76,15 @@ struct VptMcsArgs {
   int env_h, env_w;
 };
 
+// The prepared arguments with what the ext instances (two-channel and
+// filtered scenes, ray.cuh) take besides; only they read it.
+struct VptMcsExt : VptMcsArgs {
+  const void* tf_table;  // (th*tw, 16) packed TF of the table's type
+  int th;
+  int channels;          // 1 or 2: with filter 0 and 1 channel, no ext
+  int filter;            // ray.cuh's VptFilter
+};
+
 // The frame's scalars, by value.
 struct VptMcsFrame {
   float seed;
@@ -84,15 +97,36 @@ namespace {
 // mcs._MAX_TRACKING_ITERS, the tracking loops' backstop
 constexpr int kMaxIters = 100000;
 
-template <bool kBf16, bool kCount, bool kMap>
-__global__ void __launch_bounds__(kVptTileThreads)
-mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
-                 float4* __restrict__ state,
-                 unsigned long long* __restrict__ counts) {
+// The color at p: the headline's fetch and lookup (kC = 0, with the
+// cheb-skip table's empty cells when skip), or an ext instance's (kC
+// channels, the filter; no tracking table).  v: the fetched value, which
+// the cheb distance reads.
+template <bool kBf16, int kC, class A>
+__device__ __forceinline__ float4 color_at(const A& a, const float4* s_tf,
+                                           float px, float py, float pz,
+                                           bool skip, float* v) {
+  if constexpr (kC == 0) {
+    *v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, px, py, pz);
+    return vpt_color(s_tf, a.tw, a.tf_mode, *v, skip);
+  } else {
+    *v = 0.0f;
+    return vpt_fetch_color<kBf16, kC>(a.table, a.d, a.h, a.w, a.filter, px,
+                                      py, pz, s_tf, a.tw, a.tf_mode,
+                                      a.tf_table, a.th);
+  }
+}
+
+// kC as in color_at.
+template <bool kBf16, bool kCount, bool kMap, int kC, class A>
+__device__ __forceinline__ void mcs_frame(
+    const A& a, const VptMcsFrame& f, float4* __restrict__ state,
+    unsigned long long* __restrict__ counts) {
   extern __shared__ float4 s_tf[];
   __shared__ float s_mvp[16];
   __shared__ float4 s_env;
-  for (int i = threadIdx.x; i < a.tw; i += blockDim.x) s_tf[i] = a.tf_row[i];
+  if (kC != 2)
+    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
+      s_tf[i] = a.tf_row[i];
   if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
   if (!kMap && threadIdx.x == 0)
     s_env = make_float4(__ldg(a.env), __ldg(a.env + 1), __ldg(a.env + 2),
@@ -106,7 +140,7 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
     const int i = y * a.width + x;
     // the state, read first, so that its latency overlaps the tracking's
     float4 acc = state[i];
-    const bool skip = a.use_skip != 0;
+    const bool skip = kC == 0 && a.use_skip != 0;
     const float4 env = kMap ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : s_env;
 
     const float ndcx = vpt_pixel_ndc(x, a.width);
@@ -151,12 +185,13 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
         const float fr = ndist / maxc;
         const float u = vpt_uniform(s1);
         s = s1;
-        const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w,
-                                         start[0] + fr * seg[0],
-                                         start[1] + fr * seg[1],
-                                         start[2] + fr * seg[2]);
+        float v;
+        const float alpha = color_at<kBf16, kC>(a, s_tf,
+                                                start[0] + fr * seg[0],
+                                                start[1] + fr * seg[1],
+                                                start[2] + fr * seg[2], skip,
+                                                &v).w;
         if (kCount) ++fetches;
-        const float alpha = vpt_color(s_tf, a.tw, a.tf_mode, v, skip).w;
         if (skip) cheb = rintf(vpt_nmax(-v, 0.0f));
         if (u < alpha) break;                  // a collision
       }
@@ -177,10 +212,9 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
         const float sd = sqrtf(sseg[0] * sseg[0] + sseg[1] * sseg[1]
                                + sseg[2] * sseg[2]);
         const float sdc = vpt_nmax(sd, 1e-20f);
-        const float4 diffuse = vpt_color(
-            s_tf, a.tw, a.tf_mode,
-            vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, sp[0], sp[1], sp[2]),
-            skip);
+        float vd;
+        const float4 diffuse = color_at<kBf16, kC>(a, s_tf, sp[0], sp[1],
+                                                   sp[2], skip, &vd);
         if (kCount) ++fetches;
 
         // sampleTransmittance: one draw an iteration
@@ -194,13 +228,14 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
           if (kCount) ++steps;
           if (ndist > sdc) break;
           const float fr = ndist / sdc;
-          const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w,
-                                           sp[0] + fr * sseg[0],
-                                           sp[1] + fr * sseg[1],
-                                           sp[2] + fr * sseg[2]);
+          float v;
+          const float alpha = color_at<kBf16, kC>(a, s_tf,
+                                                  sp[0] + fr * sseg[0],
+                                                  sp[1] + fr * sseg[1],
+                                                  sp[2] + fr * sseg[2], skip,
+                                                  &v).w;
           if (kCount) ++fetches;
-          trans = trans * (1.0f - vpt_color(s_tf, a.tw, a.tf_mode, v,
-                                            skip).w);
+          trans = trans * (1.0f - alpha);
           if (skip) cheb = rintf(vpt_nmax(-v, 0.0f));
         }
         // the light along the scatter direction
@@ -243,10 +278,30 @@ mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
   }
 }
 
+template <bool kBf16, bool kCount, bool kMap>
+__global__ void __launch_bounds__(kVptTileThreads)
+mcs_frame_kernel(const VptMcsArgs a, const VptMcsFrame f,
+                 float4* __restrict__ state,
+                 unsigned long long* __restrict__ counts) {
+  mcs_frame<kBf16, kCount, kMap, 0>(a, f, state, counts);
+}
+
+// The ext instances: kC channels (1: a filtered volume, float32 rows; 2: a
+// two-channel volume and the 2D TF table).
+template <bool kBf16, bool kCount, bool kMap, int kC>
+__global__ void __launch_bounds__(kVptTileThreads)
+mcs_frame_ext_kernel(const VptMcsExt a, const VptMcsFrame f,
+                     float4* __restrict__ state,
+                     unsigned long long* __restrict__ counts) {
+  mcs_frame<kBf16, kCount, kMap, kC>(a, f, state, counts);
+}
+
 size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
 
 using Kernel = void (*)(const VptMcsArgs, const VptMcsFrame, float4*,
                         unsigned long long*);
+using KernelExt = void (*)(const VptMcsExt, const VptMcsFrame, float4*,
+                           unsigned long long*);
 
 // The instance for a table type (flags & 1), the counter (flags & 2) and
 // an environment map larger than 1x1 (flags & 4).
@@ -265,39 +320,81 @@ Kernel pick(int flags) {
   }
 }
 
-cudaError_t allow_smem(Kernel kernel, int tw) {
-  if (dynamic_smem(tw) <= 47 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)dynamic_smem(tw));
+// The ext instance (flags & 8) for the same bits, of two channels (flags &
+// 16) in either row type or of one (a filtered volume) in float32 rows;
+// null for a filtered volume in bf16 rows, which make_scene never builds.
+template <bool kBf16, int kC>
+KernelExt pick_ext_map(int flags) {
+  if (flags & 2)
+    return (flags & 4) ? mcs_frame_ext_kernel<kBf16, true, true, kC>
+                       : mcs_frame_ext_kernel<kBf16, true, false, kC>;
+  return (flags & 4) ? mcs_frame_ext_kernel<kBf16, false, true, kC>
+                     : mcs_frame_ext_kernel<kBf16, false, false, kC>;
 }
 
-cudaError_t launch_any(const VptMcsArgs& a, const VptMcsFrame& f,
-                       void* state, void* counts, void* stream) {
-  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
-  const int flags = (a.table_bf16 ? 1 : 0) | (counts ? 2 : 0)
-                    | (a.env_h == 1 && a.env_w == 1 ? 0 : 4);
-  const Kernel kernel = pick(flags);
-  cudaError_t err = allow_smem(kernel, a.tw);
+KernelExt pick_ext(int flags) {
+  if (flags & 16)
+    return (flags & 1) ? pick_ext_map<true, 2>(flags)
+                       : pick_ext_map<false, 2>(flags);
+  return (flags & 1) ? nullptr : pick_ext_map<false, 1>(flags);
+}
+
+// the dynamic shared memory of an instance: the TF row, which a
+// two-channel instance does not copy
+size_t tf_smem(int flags, int tw) {
+  return (flags & 16) ? 0 : dynamic_smem(tw);
+}
+
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 47 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <class K, class A>
+cudaError_t launch_kernel(K kernel, const A& a, size_t smem,
+                          const VptMcsFrame& f, void* state, void* counts,
+                          void* stream) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
-  kernel<<<blocks, kVptTileThreads, dynamic_smem(a.tw),
-           (cudaStream_t)stream>>>(a, f, (float4*)state,
-                                   (unsigned long long*)counts);
+  kernel<<<blocks, kVptTileThreads, smem, (cudaStream_t)stream>>>(
+      a, f, (float4*)state, (unsigned long long*)counts);
   return cudaGetLastError();
+}
+
+cudaError_t launch_any(const VptMcsExt& a, const VptMcsFrame& f,
+                       void* state, void* counts, void* stream) {
+  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
+  const bool ext = a.channels != 1 || a.filter != 0;
+  if ((a.channels != 1 && a.channels != 2) || a.filter < 0 || a.filter > 2
+      || (ext && a.use_skip))
+    return cudaErrorInvalidValue;
+  const int flags = (a.table_bf16 ? 1 : 0) | (counts ? 2 : 0)
+                    | (a.env_h == 1 && a.env_w == 1 ? 0 : 4)
+                    | (ext ? 8 : 0) | (a.channels == 2 ? 16 : 0);
+  const size_t smem = tf_smem(flags, a.tw);
+  if (ext)
+    return launch_kernel(pick_ext(flags), a, smem, f, state, counts, stream);
+  const VptMcsArgs& base = a;
+  return launch_kernel(pick(flags), base, smem, f, state, counts, stream);
 }
 
 // out: threads a block, resident blocks an SM, SMs, registers a thread,
 // local (spilled) bytes a thread, static and dynamic shared bytes a block,
 // the block's tile width and height and the warp's tile width in pixels
 // (the render path's instantiation, without the counter)
-cudaError_t info(int flags, int tw, int device, int* out) {
-  const Kernel kernel = pick(flags & 5);
-  cudaError_t err = allow_smem(kernel, tw);
+template <class K>
+cudaError_t info(K kernel, size_t smem, int device, int* out) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kVptTileThreads, dynamic_smem(tw));
+      &per_sm, kernel, kVptTileThreads, smem);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -306,15 +403,14 @@ cudaError_t info(int flags, int tw, int device, int* out) {
   if (err != cudaSuccess) return err;
   const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
                         (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
-                        (int)dynamic_smem(tw), kVptTileW, kVptTileH,
-                        kVptWarpW};
+                        (int)smem, kVptTileW, kVptTileH, kVptWarpW};
   for (int k = 0; k < 10; ++k) out[k] = values[k];
   return cudaSuccess;
 }
 
 }  // namespace
 
-// One frame: prepared is the VptMcsArgs of the scene, Params and
+// One frame: prepared is the VptMcsExt of the scene, Params and
 // resolution; seed, the scatter direction and n are the frame's; counts is
 // null, or two zeroed-or-running unsigned 64-bit sums (tracking steps,
 // corner-row fetches) that the frame adds to.
@@ -322,7 +418,7 @@ extern "C" int vpt_mcs_launch(const void* prepared, void* state, float seed,
                               float sx, float sy, float sz,
                               float frame_number, void* counts,
                               void* stream) {
-  const VptMcsArgs& a = *static_cast<const VptMcsArgs*>(prepared);
+  const VptMcsExt& a = *static_cast<const VptMcsExt*>(prepared);
   VptDeviceGuard guard(a.device);
   const VptMcsFrame f = {seed, sx, sy, sz, frame_number};
   return (int)launch_any(a, f, state, counts, stream);
@@ -337,7 +433,7 @@ extern "C" int vpt_mcs_frame(
     const void* env, int width, int height, float seed, float extinction,
     float cell, int use_skip, float sx, float sy, float sz,
     float frame_number, void* stream) {
-  VptMcsArgs a;
+  VptMcsExt a;
   a.table = table;
   a.tf_row = (const float4*)tf_row;
   a.mvp = (const float*)mvp;
@@ -352,14 +448,22 @@ extern "C" int vpt_mcs_frame(
   a.use_skip = use_skip;
   a.device = 0;
   a.env_h = a.env_w = 1;
+  a.tf_table = nullptr;
+  a.th = 0;
+  a.channels = 1;
+  a.filter = 0;
   const VptMcsFrame f = {seed, sx, sy, sz, frame_number};
   return (int)launch_any(a, f, state, nullptr, stream);
 }
 
 // The launch shape of the instance `flags` (1: a bf16 table, 4: an
-// environment map larger than 1x1) for a TF row of `tw` texels on
-// `device`: the ten values of info() above.  Launches nothing.
+// environment map larger than 1x1, 8: an ext instance, 16: with two
+// channels) for a TF row of `tw` texels on `device`: the ten values of
+// info() above.  Launches nothing.
 extern "C" int vpt_mcs_info(int flags, int tw, int device, int* out) {
   VptDeviceGuard guard(device);
-  return (int)info(flags, tw, device, out);
+  const int render = flags & ~2;
+  const size_t smem = tf_smem(render, tw);
+  return (int)((flags & 8) ? info(pick_ext(render), smem, device, out)
+                           : info(pick(render & 5), smem, device, out));
 }

@@ -1,8 +1,10 @@
 // Per-pixel ray pieces shared by the kernels that run one thread a pixel:
 // the MCM event kernel (mcm_event.cu), the march kernel (march.cu), the ISO
 // shade kernel (iso_shade.cu) and the MCS delta-tracking kernel
-// (mcs_frame.cu), the equirect environment lookup of the MC kernels, and
-// the pixel tiles of the frame kernels.
+// (mcs_frame.cu), the equirect environment lookup of the MC kernels, the
+// pixel tiles of the frame kernels, the 2D TF lookup (also the LAO
+// kernel's, lao_march.cu) and the fetch of two-channel and filtered
+// volumes.
 //
 // Each function runs the float32 operations of its plain PyTorch version
 // (vpt_tpu_torch/rng.py, sampling.py) in their order; the kernels are built
@@ -10,6 +12,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "tf1d.cuh"
@@ -283,4 +286,207 @@ __device__ __forceinline__ float4 vpt_color(const float4* tf, int tw,
   float4 c = vpt_tf1d_lookup(tf, tw, vpt_nmax(v, 0.0f), tf_mode);
   if (v < -0.5f) c.w = 0.0f;
   return c;
+}
+
+// The 2D bilinear lookup of sampling.sample_texture2d_packed at uv = (u, v)
+// from one (16,) row of 2 x 2 texel corners (x minor), four channels each,
+// of the packed (TH*TW, 16) TF table, read through the read-only cache.
+template <bool kTfBf16>
+__device__ __forceinline__ float4 vpt_tf2d(const void* table, int tw, int th,
+                                           float u, float v) {
+  const float ux = vpt_clip(u * (float)tw - 0.5f, 0.0f, (float)(tw - 1));
+  const float uy = vpt_clip(v * (float)th - 0.5f, 0.0f, (float)(th - 1));
+  const float ix = floorf(ux), iy = floorf(uy);
+  const float fx = ux - ix, fy = uy - iy;
+  const int64_t row = (int64_t)vpt_index(iy) * tw + vpt_index(ix);
+  float c[16];
+  if constexpr (kTfBf16) {
+    const uint4* p = static_cast<const uint4*>(table) + 2 * row;
+    const uint4 q0 = __ldg(p), q1 = __ldg(p + 1);
+    const uint32_t words[8] = {q0.x, q0.y, q0.z, q0.w,
+                               q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      c[2 * k] = __uint_as_float(words[k] << 16);
+      c[2 * k + 1] = __uint_as_float(words[k] & 0xFFFF0000u);
+    }
+  } else {
+    const float4* p = static_cast<const float4*>(table) + 4 * row;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 q = __ldg(p + k);
+      c[4 * k] = q.x; c[4 * k + 1] = q.y; c[4 * k + 2] = q.z;
+      c[4 * k + 3] = q.w;
+    }
+  }
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+  float out[4];
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    const float cx0 = c[ch] * gx + c[4 + ch] * fx;
+    const float cx1 = c[8 + ch] * gx + c[12 + ch] * fx;
+    out[ch] = cx0 * gy + cx1 * fy;
+  }
+  return make_float4(out[0], out[1], out[2], out[3]);
+}
+
+// The fetch of a two-channel or filtered scene (make_scene of a
+// multi-channel volume, Volume.filter "nearest" or "cubic"): the kernels'
+// ext instances, beside the headline's linear single-channel ones, whose
+// code stays as it was.  Scene.sample_color there is TF(volume_rg(p)):
+//
+// - the filter (sampling.FILTERS, a warp-uniform argument): "cubic" warps
+//   the position as sampling.cubic_warp does, (floor(u) + (f*f)*(3-2f) -
+//   0.5) / N of u = p*N + 0.5, then fetches linearly.  "nearest" takes the
+//   linear cell and snaps each fraction to 0 or 1, so the lerp chain
+//   returns one corner exactly (c*1 + c'*0): the +1 corner iff f >= 0.5.
+//   That is sample_volume_nearest's texel int(clip(x, 0, N - 0.5)) of
+//   x = p*N: for 0.5 <= x <= N - 0.5, x - 0.5 is exact in float32 (x <
+//   2^23), the cell is floor(x - 0.5) and floor(x) is one more iff the
+//   fraction is >= 0.5; below 0.5 both read texel 0 and above N - 0.5
+//   both read N - 1 (the linear coordinate clips to N - 1 with f = 0).
+//   tests/test_torch_filters.py holds this twin to sampling bit for bit.
+// - two channels: a row holds the 8 corners' (value, channel 1) pairs,
+//   corner-major, channel minor (pack_corner_volume's (8, C) lanes): 32
+//   bytes in bf16, 64 in float32; the lerp chain runs on each channel.
+// - the color: one channel looks the value up in the TF row (tf1d.cuh);
+//   two look (value, channel 1) up in the packed 2D TF table (vpt_tf2d),
+//   which has the corner table's type (make_scene packs both alike).
+enum VptFilter { kVptLinear = 0, kVptNearest = 1, kVptCubic = 2 };
+
+// sampling.cubic_warp of one axis of n texels
+__device__ __forceinline__ float vpt_cubic_axis(float p, int n) {
+  const float fn = (float)n;
+  const float u = p * fn + 0.5f;
+  const float fl = floorf(u);
+  const float f = u - fl;
+  return ((fl + f * f * (3.0f - 2.0f * f)) - 0.5f) / fn;
+}
+
+template <class Row>
+__device__ __forceinline__ VptCell<Row> vpt_cell_filtered(int d, int h,
+                                                          int w, float px,
+                                                          float py, float pz,
+                                                          int filter) {
+  if (filter == kVptCubic) {
+    px = vpt_cubic_axis(px, w);
+    py = vpt_cubic_axis(py, h);
+    pz = vpt_cubic_axis(pz, d);
+  }
+  VptCell<Row> c = vpt_cell<Row>(d, h, w, px, py, pz);
+  if (filter == kVptNearest) {
+    c.fx = c.fx >= 0.5f ? 1.0f : 0.0f;
+    c.fy = c.fy >= 0.5f ? 1.0f : 0.0f;
+    c.fz = c.fz >= 0.5f ? 1.0f : 0.0f;
+  }
+  return c;
+}
+
+// A row of two-channel corners as read: 16 bf16 in two uint4, or 16
+// float32 in four float4.
+template <bool kBf16>
+struct VptRow2;
+template <>
+struct VptRow2<true> {
+  uint4 a, b;
+};
+template <>
+struct VptRow2<false> {
+  float4 a, b, c, d;
+};
+
+// the row of kC = 1 or 2 channels
+template <bool kBf16, int kC>
+using VptRowOf = std::conditional_t<kC == 2, VptRow2<kBf16>, VptRow<kBf16>>;
+
+template <bool kBf16, int kC, class Row>
+__device__ __forceinline__ VptRowOf<kBf16, kC> vpt_load_rows(
+    const void* table, Row row) {
+  if constexpr (kC == 2) {
+    if constexpr (kBf16) {
+      const uint4* p = static_cast<const uint4*>(table) + 2 * (int64_t)row;
+      return {__ldg(p), __ldg(p + 1)};
+    } else {
+      const float4* p = static_cast<const float4*>(table) + 4 * (int64_t)row;
+      return {__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
+    }
+  } else {
+    return vpt_load_row<kBf16>(table, row);
+  }
+}
+
+// the lerp chain of trilerp_chain over the 8 corners c[0..7]:
+// vpt_lerp_row_fg's, kept apart so that the headline's instances keep
+// their code
+__device__ __forceinline__ float vpt_lerp8(const float c[8], float fx,
+                                           float fy, float fz) {
+  const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
+  const float cx0 = c[0] * gx + c[1] * fx;
+  const float cx1 = c[2] * gx + c[3] * fx;
+  const float cx2 = c[4] * gx + c[5] * fx;
+  const float cx3 = c[6] * gx + c[7] * fx;
+  const float cy0 = cx0 * gy + cx1 * fy;
+  const float cy1 = cx2 * gy + cx3 * fy;
+  return cy0 * gz + cy1 * fz;
+}
+
+// (value, channel 1) of a row at its cell's fractions; channel 1 reads 0
+// for one channel (volume_rg)
+template <bool kBf16, int kC, class Row>
+__device__ __forceinline__ float2 vpt_lerp_rg(const VptRowOf<kBf16, kC>& r,
+                                              const VptCell<Row>& cell) {
+  if constexpr (kC == 2) {
+    float v[8], g[8];
+    if constexpr (kBf16) {
+      const uint32_t words[8] = {r.a.x, r.a.y, r.a.z, r.a.w,
+                                 r.b.x, r.b.y, r.b.z, r.b.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] = __uint_as_float(words[k] << 16);
+        g[k] = __uint_as_float(words[k] & 0xFFFF0000u);
+      }
+    } else {
+      const float4 q[4] = {r.a, r.b, r.c, r.d};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[2 * k] = q[k].x; g[2 * k] = q[k].y;
+        v[2 * k + 1] = q[k].z; g[2 * k + 1] = q[k].w;
+      }
+    }
+    return make_float2(vpt_lerp8(v, cell.fx, cell.fy, cell.fz),
+                       vpt_lerp8(g, cell.fx, cell.fy, cell.fz));
+  } else {
+    return make_float2(vpt_lerp_row<kBf16>(r, cell), 0.0f);
+  }
+}
+
+// The color of (value, channel 1): the tf1d lookup of the value in the
+// (tw, 4) row (in shared memory, or with kGlobal through the read-only
+// cache) in lookup mode tf_mode, or for two channels the 2D lookup of the
+// packed (th*tw, 16) TF table of the corner table's type.
+template <bool kBf16, int kC, bool kGlobal = false>
+__device__ __forceinline__ float4 vpt_color_rg(const float4* tf_row, int tw,
+                                               int tf_mode,
+                                               const void* tf_table, int th,
+                                               float2 rg) {
+  if constexpr (kC == 2) {
+    return vpt_tf2d<kBf16>(tf_table, tw, th, rg.x, rg.y);
+  } else {
+    return vpt_tf1d_lookup<kGlobal>(tf_row, tw, rg.x, tf_mode);
+  }
+}
+
+// The whole fetch and color at p, with a 64-bit row index unless Row says
+// otherwise.
+template <bool kBf16, int kC, bool kGlobal = false, class Row = int64_t>
+__device__ __forceinline__ float4 vpt_fetch_color(
+    const void* table, int d, int h, int w, int filter, float px, float py,
+    float pz, const float4* tf_row, int tw, int tf_mode,
+    const void* tf_table, int th) {
+  const VptCell<Row> cell = vpt_cell_filtered<Row>(d, h, w, px, py, pz,
+                                                   filter);
+  return vpt_color_rg<kBf16, kC, kGlobal>(
+      tf_row, tw, tf_mode, tf_table, th,
+      vpt_lerp_rg<kBf16, kC>(vpt_load_rows<kBf16, kC>(table, cell.row),
+                             cell));
 }

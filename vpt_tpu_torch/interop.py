@@ -62,10 +62,16 @@ def scene_from_numpy(fields: dict, device=None) -> Scene:
     :data:`SCENE_FIELDS` that are not None, plus ``filter`` and
     ``iso_clamp_min``).  A
     ``transfer_mxu`` table becomes the TF row and sets ``Scene.tf_mxu`` to
-    its dtype."""
+    its dtype.  A (D·H·W, 8·C) corner table of C > 2 channels crosses as
+    its channels 0:2, the port's table of such a volume."""
     device = resolve_device(device)
     t = {k: tensor_from_numpy(fields[k], device)
          for k in SCENE_FIELDS if fields.get(k) is not None}
+    packed = t.get("volume_packed")
+    channels = t["volume"].shape[-1]
+    if packed is not None and channels > 2:
+        t["volume_packed"] = packed.reshape(-1, 8, channels)[..., :2] \
+            .reshape(-1, 16).contiguous()
     transfer = t["transfer"]
     mxu = t.get("transfer_mxu")
     if mxu is not None:

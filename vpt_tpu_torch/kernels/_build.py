@@ -53,36 +53,39 @@ SIGNATURES = {
     # width, height; 7 floats; max bounces, steps, use_skip; stream
     "vpt_mcm_event": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I,
                                   _I] + [_F] * 7 + [_I, _I, _I, _P]),
-    # the same with an (EH, EW, 4) env map: env, EH, EW; grid or null, N
+    # the same with an (EH, EW, 4) env map: env, EH, EW; grid or null, N;
+    # and before the stream the 2D TF table, TH, channels and filter
     "vpt_mcm_event_frame": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P,
                                         _I, _I, _P, _I, _P, _I, _I]
-                            + [_F] * 7 + [_I, _I, _I, _P]),
+                            + [_F] * 7 + [_I, _I, _I, _P, _I, _I, _I, _P]),
     "vpt_mcm_event_info": [_I, _I, _P],
     "vpt_gather_rows": [_P, _L, _I, _P, _L, _P, _P],
     "vpt_corner_fetch": [_P, _P, _L, _P, _P, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
-    # prepared VptMarchClamp, state; first, mix; stream
+    # prepared VptMarchExt, state; first, mix; stream
     "vpt_march_launch": [_P, _P, _F, _F, _P],
-    # mode, flags (1 bf16, 2 clamp boxes), TW, TF mode, device, out
+    # mode, flags (1 bf16, 2 clamp boxes, 4 ext of one channel, 8 of two),
+    # TW, TF mode, device, out
     "vpt_march_info": [_I, _I, _I, _I, _I, _P],
     # the argument list every build since the port exports: state, mode;
     # table, bf16, D, H, W, TF row, TW, TF mode, MVP; width, height,
     # slices; step, first, extinction, level, mix; stream
     "vpt_march_frame": ([_P, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I,
                          _I, _I] + [_F] * 5 + [_P]),
-    # prepared VptIsoShadeArgs, state, out; stream
+    # prepared VptIsoShadeExt, state, out; stream
     "vpt_iso_shade_launch": [_P, _P, _P, _P],
-    # bf16, TF mode, device, out
+    # flags (1 bf16, 2 ext of one channel, 4 of two), TF mode, device, out
     "vpt_iso_shade_info": [_I, _I, _I, _P],
     # the argument list every build since the port exports: state, out;
     # table, bf16, D, H, W, TF row, TW, TF mode; width, height; h, 2h,
     # light xyz; stream
     "vpt_iso_shade": ([_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I]
                       + [_F] * 5 + [_P]),
-    # prepared VptMcsArgs, state; seed, direction xyz, n; counts; stream
+    # prepared VptMcsExt, state; seed, direction xyz, n; counts; stream
     "vpt_mcs_launch": [_P, _P] + [_F] * 5 + [_P, _P],
-    # flags (1 bf16, 4 an environment map), TW, device, out
+    # flags (1 bf16, 4 an environment map, 8 ext, 16 two channels), TW,
+    # device, out
     "vpt_mcs_info": [_I, _I, _I, _P],
     # the argument list every build since the port exports: state; table,
     # bf16, D, H, W, TF row, TW, TF mode, MVP, env; width, height; seed,
@@ -296,33 +299,54 @@ def check_image(state, shape, device, what):
                          "with 32-bit integers")
 
 
-def corner_table(table, volume_shape, what):
-    """The (D·H·W, 8) float32 or bfloat16 corner table a per-pixel kernel
-    fetches from: raises for a scene without one (an unpacked scene) or of
-    another shape, and returns it contiguous."""
+def corner_table(table, volume_shape, what, channels: int = 1):
+    """The (D·H·W, 8·channels) float32 or bfloat16 corner table a
+    per-pixel kernel fetches from: raises for a scene without one (an
+    unpacked scene) or of another shape, and returns it contiguous."""
     if table is None:
         raise NotImplementedError(
             f"the {what} kernel samples corner-packed tables only; build "
             "the scene with pack=True")
     d, h, w = volume_shape[:3]
     if table.dtype not in (torch.float32, torch.bfloat16) \
-            or tuple(table.shape) != (d * h * w, 8):
-        raise ValueError("the corner table must be (D*H*W, 8) float32 or "
-                         "bfloat16")
+            or tuple(table.shape) != (d * h * w, 8 * channels):
+        raise ValueError(f"the corner table must be (D*H*W, {8 * channels}) "
+                         "float32 or bfloat16")
     table = table.contiguous()
     check_aligned(table, "the corner table")
     return table
 
 
-def scene_args(scene, table, what):
+def scene_args(scene, table, what, ext: bool = False):
     """The launch arguments a per-pixel kernel takes from a scene and one
     of its corner tables: ``(tensors, args)`` with ``args`` = (table,
     table is bf16, D, H, W, TF row, TW, TF mode, inverse MVP) and
     ``tensors`` the tensors they point into.  ``what`` names the kernel in
-    the errors."""
+    the errors.
+
+    ``ext``: the kernel has ext instances for two-channel and filtered
+    scenes (K5–K8); ``args`` then ends with (2D TF table or None, TH,
+    channels, filter).  A two-channel scene passes its packed (TH·TW, 16)
+    TF table, which must have the corner table's dtype; a filtered one
+    must have float32 rows.  A kernel without them raises for such
+    scenes, before any launch.  The cheb-skip table is always a
+    single-channel linear fetch; (1, 0) is the headline's fetch, anything
+    else runs a kernel's ext instances (``csrc/ray.cuh``)."""
+    from .. import sampling
     from . import tf1d
 
-    table = corner_table(table, scene.volume.shape, what)
+    if scene.filter not in sampling.FILTERS:
+        raise ValueError(f"unknown volume filter {scene.filter!r}: one of "
+                         f"{sorted(sampling.FILTERS)}")
+    channels, filt = (1, 0) if table is scene.tracking_packed \
+        and table is not None \
+        else (scene.channels, sampling.FILTERS[scene.filter])
+    if (channels, filt) != (1, 0) and not ext:
+        raise NotImplementedError(
+            f"the {what} kernel takes single-channel linear-filter volumes "
+            f"only, not {channels} channels with the {scene.filter!r} "
+            "filter")
+    table = corner_table(table, scene.volume.shape, what, channels)
     row = scene.transfer_1d.to(torch.float32).contiguous()
     tf1d.check_width(row.shape[0])
     check_aligned(row, "the TF row")
@@ -331,7 +355,27 @@ def scene_args(scene, table, what):
     args = (table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
             row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
             mvp.data_ptr())
-    return (table, row, mvp), args
+    tensors = (table, row, mvp)
+    if not ext:
+        return tensors, args
+    if filt and table.dtype != torch.float32:
+        raise ValueError(f"the {what} kernel filters float32 corner tables "
+                         f"only, not {table.dtype}")
+    tf_table, th = None, 0
+    if channels == 2:
+        tf_table = scene.transfer_packed
+        th, tw = scene.transfer.shape[:2]
+        if tf_table is None or tf_table.dtype != table.dtype \
+                or tuple(tf_table.shape) != (th * tw, 16):
+            raise ValueError("a two-channel scene's kernels take the packed "
+                             "(TH*TW, 16) TF table in the corner table's "
+                             "dtype")
+        tf_table = tf_table.contiguous()
+        check_aligned(tf_table, "the packed TF table")
+        tensors += (tf_table,)
+    return tensors, args + (
+        None if tf_table is None else tf_table.data_ptr(), th, channels,
+        filt)
 
 
 def environment_map(scene):

@@ -11,13 +11,15 @@ texture-space light and the material color at the hit.  Here it is
   row-major order, issues the seven corner-row reads of a hit before it
   folds them (the fetch of ``csrc/ray.cuh``, the TF lookup of
   ``csrc/tf1d.cuh`` through the read-only cache), and writes white where
-  nothing was hit.
+  nothing was hit; a two-channel or filtered volume runs its ext instance
+  (``csrc/ray.cuh``: the filtered fetch, the two-channel row, the 2D TF
+  lookup).
 
 :func:`shade` takes the plain version for CPU state and launches the kernel
 for CUDA state; it raises on what the kernel does not take (unpacked
 scenes, images of 2^31 pixels or more) and never falls back.  What a
 display takes of the scene, the Params and the resolution it prepares once
-(``VptIsoShadeArgs``, passed as one pointer): the table, the TF row, h and
+(``VptIsoShadeExt``, passed as one pointer): the table, the TF row, h and
 the float32 2h from ``_build.f32`` arithmetic, and the light direction that
 the plain version's own function computes on the scene's device.
 """
@@ -44,7 +46,8 @@ def iso_shade_plain(state, scene, params):
 
 
 class _Args(ctypes.Structure):
-    """``VptIsoShadeArgs`` of ``csrc/iso_shade.cu``."""
+    """``VptIsoShadeExt`` of ``csrc/iso_shade.cu``: the ``VptIsoShadeArgs``
+    fields, then the ext instances'."""
     _fields_ = [("table", ctypes.c_void_p), ("tf_row", ctypes.c_void_p),
                 ("table_bf16", ctypes.c_int), ("d", ctypes.c_int),
                 ("h", ctypes.c_int), ("w", ctypes.c_int),
@@ -52,17 +55,19 @@ class _Args(ctypes.Structure):
                 ("width", ctypes.c_int), ("height", ctypes.c_int),
                 ("step", ctypes.c_float), ("two_step", ctypes.c_float),
                 ("lx", ctypes.c_float), ("ly", ctypes.c_float),
-                ("lz", ctypes.c_float), ("device", ctypes.c_int)]
+                ("lz", ctypes.c_float), ("device", ctypes.c_int),
+                ("tf_table", ctypes.c_void_p), ("th", ctypes.c_int),
+                ("channels", ctypes.c_int), ("filter", ctypes.c_int)]
 
 
 def _fields(scene):
     return (scene.volume_packed, scene.transfer_1d, scene.tf_mxu,
-            scene.model_view)
+            scene.model_view, scene.transfer_packed, scene.filter)
 
 
 def _prepare(scene, key):
     """What every display of ``key`` = (params, height, width) takes of the
-    scene: the checked tensors and the ``VptIsoShadeArgs`` with h, the
+    scene: the checked tensors and the ``VptIsoShadeExt`` with h, the
     float32 2h (``central_value_gradient``'s) and the light direction."""
     from ..renderers import iso
 
@@ -70,14 +75,14 @@ def _prepare(scene, key):
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the ISO shade kernel indexes "
                          "pixels with 32-bit integers")
-    tensors, (table, bf16, d, h, w, row, tw, tf_mode, _) = \
-        _build.scene_args(scene, scene.volume_packed, "ISO shade")
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, _, *ext) = \
+        _build.scene_args(scene, scene.volume_packed, "ISO shade", ext=True)
     step = _build.f32(params.gradient_step)
     two_step = _build.f32(2.0 * step)
     light = tuple(iso.light_direction(scene, params).tolist())
     device = scene.volume.get_device()
     args = _Args(table, row, bf16, d, h, w, tw, tf_mode, width, height, step,
-                 two_step, *light, device)
+                 two_step, *light, device, *ext)
     return _build.Prepared(
         tensors=tensors, args=args, address=ctypes.addressof(args),
         device=device, shape=torch.Size((height, width, 4)),
@@ -119,13 +124,17 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
                     "registers", "local_bytes", "static_smem_bytes")
 
 
-def occupancy(table_dtype, tf_mode: int = 0, device: int = 0) -> dict:
+def occupancy(table_dtype, tf_mode: int = 0, device: int = 0,
+              channels: int = 1, filtered: bool = False) -> dict:
     """The kernel's launch shape on CUDA ``device`` for a corner table of
-    ``table_dtype`` and the TF lookup mode ``tf_mode``
-    (``tf1d.mode_code``): threads a block, resident blocks an SM, SMs,
-    registers and local (spill) bytes a thread, static shared memory a
-    block.  Launches nothing."""
+    ``table_dtype``, the TF lookup mode ``tf_mode`` (``tf1d.mode_code``)
+    and the fetch (``channels`` 2, or ``filtered``: an ext instance):
+    threads a block, resident blocks an SM, SMs, registers and local
+    (spill) bytes a thread, static shared memory a block.  Launches
+    nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) \
+        | 2 * (filtered and channels == 1) | 4 * (channels == 2)
     _build.check("vpt_iso_shade_info", _build.library().vpt_iso_shade_info(
-        int(table_dtype == torch.bfloat16), tf_mode, device, out))
+        flags, tf_mode, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

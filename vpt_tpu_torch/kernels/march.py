@@ -14,13 +14,15 @@ slices, folding the renderer's composite, then its integrate.  Here it is
   place, reading and writing it once.  Its clamp instance first
   intersects each ray's interval with the scene's boxes that hold for the
   frame (:func:`clamp_boxes`: ``march_clamp``'s occupied box, ISO's
-  ``iso_clamp_min`` box).
+  ``iso_clamp_min`` box).  A two-channel or filtered volume runs its ext
+  instance (``csrc/ray.cuh``: the filtered fetch, the two-channel row, the
+  2D TF lookup).
 
 :func:`march_frame` takes the plain version for CPU state and launches the
 kernel for CUDA state; it raises on what the kernel does not take
 (unpacked scenes, images of 2^31 pixels or more, tables of 2^31 rows or
 more: it indexes both with 32-bit integers) and never falls back.  What a launch takes of the scene, the Params
-and the resolution it prepares once (``VptMarchClamp``, passed as one
+and the resolution it prepares once (``VptMarchExt``, passed as one
 pointer); a frame then computes its two scalars, the schedule's first value
 and the running mean's weight 1/n, the float32 values of
 :func:`frame_scalars` that the plain version uses, without numpy.
@@ -108,8 +110,8 @@ def frame_mix(frame_number) -> float:
 
 
 class _Args(ctypes.Structure):
-    """``VptMarchClamp`` of ``csrc/march.cu``: the ``VptMarchArgs`` fields,
-    then the boxes."""
+    """``VptMarchExt`` of ``csrc/march.cu``: the ``VptMarchArgs`` fields,
+    the boxes (``VptMarchClamp``), then the ext instances' fields."""
     _fields_ = [("table", ctypes.c_void_p), ("tf_row", ctypes.c_void_p),
                 ("mvp", ctypes.c_void_p), ("table_bf16", ctypes.c_int),
                 ("d", ctypes.c_int), ("h", ctypes.c_int), ("w", ctypes.c_int),
@@ -118,12 +120,15 @@ class _Args(ctypes.Structure):
                 ("height", ctypes.c_int), ("slices", ctypes.c_int),
                 ("step", ctypes.c_float), ("extinction", ctypes.c_float),
                 ("level", ctypes.c_float), ("device", ctypes.c_int),
-                ("boxes", ctypes.c_int), ("box", ctypes.c_float * 12)]
+                ("boxes", ctypes.c_int), ("box", ctypes.c_float * 12),
+                ("tf_table", ctypes.c_void_p), ("th", ctypes.c_int),
+                ("channels", ctypes.c_int), ("filter", ctypes.c_int)]
 
 
 def _fields(scene):
     return (scene.volume_packed, scene.transfer_1d, scene.mvp_inverse,
-            scene.tf_mxu, scene.occupied_aabb, scene.iso_aabb)
+            scene.tf_mxu, scene.occupied_aabb, scene.iso_aabb,
+            scene.transfer_packed, scene.filter)
 
 
 def clamp_boxes(mode, scene, params):
@@ -146,15 +151,15 @@ def check_rows(volume_shape):
 
 def _prepare(scene, key):
     """What every frame of ``key`` = (mode, params, height, width) takes of
-    the scene: the checked tensors, the ``VptMarchClamp`` and the seed's
+    the scene: the checked tensors, the ``VptMarchExt`` and the seed's
     schedule function."""
     mode, params, height, width = key
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the march kernel indexes "
                          "pixels with 32-bit integers")
     check_rows(scene.volume.shape)
-    tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp) = \
-        _build.scene_args(scene, scene.volume_packed, "march")
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp, *ext) = \
+        _build.scene_args(scene, scene.volume_packed, "march", ext=True)
     slices, step, _, extinction, level, _ = frame_scalars(mode, params, 0.0,
                                                           1)
     device = scene.volume.get_device()
@@ -162,7 +167,7 @@ def _prepare(scene, key):
     corners = [float(v) for box in boxes for v in box.reshape(-1).tolist()]
     args = _Args(table, row, mvp, bf16, d, h, w, tw, tf_mode, MODES[mode],
                  width, height, slices, step, extinction, level, device,
-                 len(boxes), (ctypes.c_float * 12)(*corners))
+                 len(boxes), (ctypes.c_float * 12)(*corners), *ext)
     return _build.Prepared(
         tensors=tensors, args=args, address=ctypes.addressof(args),
         device=device, shape=torch.Size(state_shape(mode, height, width)),
@@ -209,16 +214,19 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
 
 
 def occupancy(mode, table_dtype, tf_width: int, tf_mode: int = 0,
-              device: int = 0, clamp: bool = False) -> dict:
+              device: int = 0, clamp: bool = False, channels: int = 1,
+              filtered: bool = False) -> dict:
     """The kernel's launch shape in ``mode`` on CUDA ``device`` for a corner
     table of ``table_dtype``, a TF row of ``tf_width`` texels, the TF
-    lookup mode ``tf_mode`` (``tf1d.mode_code``) and the clamp instance or
-    not: threads a block, resident blocks an SM, SMs, registers and local
+    lookup mode ``tf_mode`` (``tf1d.mode_code``), the clamp instance or not
+    and the fetch (``channels`` 2, or ``filtered``: an ext instance):
+    threads a block, resident blocks an SM, SMs, registers and local
     (spill) bytes a thread, static and dynamic shared memory a block, the
     rows it reads ahead of the fold and its pixel tile.  Launches
     nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
-    flags = int(table_dtype == torch.bfloat16) | 2 * clamp
+    flags = int(table_dtype == torch.bfloat16) | 2 * clamp \
+        | 4 * (filtered and channels == 1) | 8 * (channels == 2)
     _build.check("vpt_march_info", _build.library().vpt_march_info(
         MODES[mode], flags, tf_width, tf_mode, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

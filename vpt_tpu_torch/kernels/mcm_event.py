@@ -11,12 +11,15 @@ There is no Pallas original: in ``vpt_tpu`` the frame is an XLA
   TF lookup of ``csrc/tf1d.cuh``, classification, then the deposit and
   reset or the scatter), computing its NDC and stream seed from the pixel
   index.  A scene with a majorant grid runs the kernel's grid machine, an
-  environment map larger than 1×1 its map instance.
+  environment map larger than 1×1 its map instance, a two-channel or
+  filtered volume an ext instance (``csrc/ray.cuh``: the filtered fetch,
+  the two-channel row, the 2D TF lookup).
 
 :func:`event_frame` takes the plain loop for CPU state and launches the
 kernel for CUDA state; both update the state tensors in place.  For CUDA
-state it raises on what the kernel does not take: unpacked scenes and
-images of 2^31 pixels or more.  What a launch needs of the scene it
+state it raises on what the kernel does not take: unpacked scenes, images
+of 2^31 pixels or more, and filtered volumes in bfloat16 rows (make_scene
+builds them in float32).  What a launch needs of the scene it
 prepares once per (scene, resolution); a frame then does no tensor work
 besides the launch.
 """
@@ -85,7 +88,7 @@ def _check_state(state, height, width, device):
 def _fields(scene):
     return (scene.volume_packed, scene.tracking_packed, scene.transfer_1d,
             scene.environment, scene.mvp_inverse, scene.tf_mxu,
-            scene.majorant)
+            scene.majorant, scene.transfer_packed, scene.filter)
 
 
 def majorant_grid(scene):
@@ -111,14 +114,14 @@ def _prepare(scene, key):
                          "pixels with 32-bit integers")
     tensors, args = _build.scene_args(
         scene, scene.tracking_packed if use_skip else scene.volume_packed,
-        "MCM event")
+        "MCM event", ext=True)
     env, eh, ew = _build.environment_map(scene)
     grid = majorant_grid(scene)
     grid_args = (None, 0) if grid is None \
         else (grid.data_ptr(), scene.majorant.shape[0])
     return _build.Prepared(tensors=(*tensors, env, grid), args=(
-        *args[:-1], env.data_ptr(), eh, ew, *grid_args, args[-1], width,
-        height))
+        *args[:8], env.data_ptr(), eh, ew, *grid_args, args[8], width,
+        height), ext=args[9:])
 
 
 #: the last scene's preparation; a renderer launches one scene at one
@@ -151,7 +154,7 @@ def launch_args(state, scene, params, seed):
             *prepared.args, 1.0 / width, 1.0 / height, float(seed),
             params.extinction, params.anisotropy, params.blur,
             mcm.skip_cell_size(scene), params.max_bounces, params.steps,
-            int(use_skip), _build.stream_ptr(position))
+            int(use_skip), *prepared.ext, _build.stream_ptr(position))
 
 
 def event_frame(state, scene, params, seed):
@@ -176,15 +179,18 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
 
 
 def occupancy(table_dtype, tf_width: int, grid: bool = False,
-              env_map: bool = False) -> dict:
+              env_map: bool = False, channels: int = 1,
+              filtered: bool = False) -> dict:
     """The launch shape on the current CUDA device of the kernel's instance
     for a corner table of ``table_dtype``, a TF row of ``tf_width`` texels,
-    the grid machine or not and an environment map larger than 1×1 or not:
-    threads a block, resident blocks an SM, SMs, registers and local
-    (spill) bytes a thread, static and dynamic shared memory a block.
-    Launches nothing."""
+    the grid machine or not, an environment map larger than 1×1 or not and
+    the fetch (``channels`` 2, or ``filtered``: an ext instance): threads a
+    block, resident blocks an SM, SMs, registers and local (spill) bytes a
+    thread, static and dynamic shared memory a block.  Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
-    flags = int(table_dtype == torch.bfloat16) | 2 * grid | 4 * env_map
+    ext = channels == 2 or filtered
+    flags = int(table_dtype == torch.bfloat16) | 2 * grid | 4 * env_map \
+        | 8 * ext | 16 * (channels == 2)
     _build.check("vpt_mcm_event_info", _build.library().vpt_mcm_event_info(
         flags, tf_width, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

@@ -14,9 +14,11 @@ Here it is
 
 :func:`mcs_frame` takes the plain version for CPU state and launches the
 kernel for CUDA state (its map instance for an environment map larger than
-1×1); it raises on what the kernel does not take (unpacked scenes, images
-of 2^31 pixels or more).  What a launch takes of the scene, the Params and the resolution
-it prepares once (``VptMcsArgs``, passed as one pointer); a frame passes
+1×1, its ext instance for a two-channel or filtered volume); it raises on
+what the kernel does not take (unpacked scenes, images of 2^31 pixels or
+more, filtered volumes in bfloat16 rows).  What a launch takes of the
+scene, the Params and the resolution it prepares once (``VptMcsExt``,
+passed as one pointer); a frame passes
 its seed, its scatter direction (``mcs.scatter_direction``, which the plain
 version takes too) and n.  Given ``counts``, the frame also adds its
 tracking steps and corner-row fetches to it.
@@ -46,7 +48,8 @@ def mcs_frame_plain(state, scene, params, seed, frame_number):
 
 
 class _Args(ctypes.Structure):
-    """``VptMcsArgs`` of ``csrc/mcs_frame.cu``."""
+    """``VptMcsExt`` of ``csrc/mcs_frame.cu``: the ``VptMcsArgs`` fields,
+    then the ext instances'."""
     _fields_ = [("table", ctypes.c_void_p), ("tf_row", ctypes.c_void_p),
                 ("mvp", ctypes.c_void_p), ("env", ctypes.c_void_p),
                 ("table_bf16", ctypes.c_int), ("d", ctypes.c_int),
@@ -55,17 +58,20 @@ class _Args(ctypes.Structure):
                 ("width", ctypes.c_int), ("height", ctypes.c_int),
                 ("extinction", ctypes.c_float), ("cell", ctypes.c_float),
                 ("use_skip", ctypes.c_int), ("device", ctypes.c_int),
-                ("env_h", ctypes.c_int), ("env_w", ctypes.c_int)]
+                ("env_h", ctypes.c_int), ("env_w", ctypes.c_int),
+                ("tf_table", ctypes.c_void_p), ("th", ctypes.c_int),
+                ("channels", ctypes.c_int), ("filter", ctypes.c_int)]
 
 
 def _fields(scene):
     return (scene.volume_packed, scene.tracking_packed, scene.transfer_1d,
-            scene.mvp_inverse, scene.tf_mxu, scene.environment)
+            scene.mvp_inverse, scene.tf_mxu, scene.environment,
+            scene.transfer_packed, scene.filter)
 
 
 def _prepare(scene, key):
     """What every frame of ``key`` = (params, height, width) takes of the
-    scene: the checked tensors and the ``VptMcsArgs``."""
+    scene: the checked tensors and the ``VptMcsExt``."""
     from ..renderers import mcs
 
     params, height, width = key
@@ -74,15 +80,15 @@ def _prepare(scene, key):
                          "with 32-bit integers")
     env, eh, ew = _build.environment_map(scene)
     use_skip = scene.tracking_packed is not None
-    tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp) = \
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp, *ext) = \
         _build.scene_args(scene, scene.tracking_packed if use_skip
-                          else scene.volume_packed, "MCS")
+                          else scene.volume_packed, "MCS", ext=True)
     cell = mcs.skip_cell_size(scene) if use_skip else 0.0
     device = scene.volume.get_device()
     # ctypes rounds each Python float to the nearest float32
     args = _Args(table, row, mvp, env.data_ptr(), bf16, d, h, w, tw, tf_mode,
                  width, height, params.extinction, cell, int(use_skip),
-                 device, eh, ew)
+                 device, eh, ew, *ext)
     return _build.Prepared(
         tensors=(*tensors, env), args=args, address=ctypes.addressof(args),
         device=device, shape=torch.Size((height, width, 4)),
@@ -138,13 +144,16 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
 
 
 def occupancy(table_dtype, tf_width: int, device: int = 0,
-              env_map: bool = False) -> dict:
+              env_map: bool = False, channels: int = 1,
+              filtered: bool = False) -> dict:
     """The kernel's launch shape (the render path's, without the counter)
     on CUDA ``device`` for a corner table of ``table_dtype``, a TF row of
-    ``tf_width`` texels and an environment map larger than 1×1 or not.
+    ``tf_width`` texels, an environment map larger than 1×1 or not and
+    the fetch (``channels`` 2, or ``filtered``: an ext instance).
     Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
-    flags = int(table_dtype == torch.bfloat16) | 4 * env_map
+    flags = int(table_dtype == torch.bfloat16) | 4 * env_map \
+        | 8 * (channels == 2 or filtered) | 16 * (channels == 2)
     _build.check("vpt_mcs_info", _build.library().vpt_mcs_info(
         flags, tf_width, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

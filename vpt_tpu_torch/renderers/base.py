@@ -43,13 +43,23 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to vpt_tpu_torch yet (ROADMAP.md {item})")
 
 
+def check_linear_single(scene, renderer: str):
+    """Raise for a two-channel or filtered scene, which ``renderer`` does
+    not take yet, on every device and before any launch."""
+    if scene.volume.shape[-1] > 1 or scene.filter != "linear":
+        raise _not_ported(f"{renderer} on multi-channel volumes and the "
+                          "nearest/cubic filters", "queue 1 item 13d")
+
+
 @dataclasses.dataclass
 class Scene:
     """The volume, the transfer function, the environment map and the camera
     matrices, all on one device.
 
-    ``volume_packed`` and ``tracking_packed`` are corner-packed (D·H·W, 8)
-    tables in float32 or bfloat16; ``transfer_packed`` is the (TH·TW, 16)
+    ``volume_packed`` is the corner-packed (D·H·W, 8·C) table of channels
+    0:C (C = 1, or 2 for a multi-channel volume) and ``tracking_packed``
+    the (D·H·W, 8) cheb-skip table, in float32 or bfloat16;
+    ``transfer_packed`` is the (TH·TW, 16)
     TF corner table in the same dtype; ``transfer_1d`` is the (TW, 4)
     float32 y = 0 row that the tf1d lookup reads, rounded through the pack
     dtype when the scene is packed (JAX samples its packed TF table, so a
@@ -68,7 +78,7 @@ class Scene:
     model_view: torch.Tensor           # (4, 4)
     projection: torch.Tensor           # (4, 4)
     transfer_1d: torch.Tensor          # (TW, 4) float32
-    volume_packed: Any = None          # (D·H·W, 8·C) or None
+    volume_packed: Any = None          # (D·H·W, 8·min(C, 2)) or None
     transfer_packed: Any = None        # (TH·TW, 16) or None
     tracking_packed: Any = None        # (D·H·W, 8) cheb-skip table or None
     majorant: Any = None               # (N, N, N, 2) [maxalpha, chebdist]
@@ -85,27 +95,49 @@ class Scene:
     def device(self):
         return self.volume.device
 
+    @property
+    def channels(self) -> int:
+        """The channels the samplers read: 1, or 2 (value, gradient
+        magnitude) for a multi-channel volume, whose channels past the
+        second no sampler reads."""
+        return min(self.volume.shape[-1], 2)
+
     def _lookup(self, values):
         lookup = tf1d.lookup if self.kernels else tf1d.lookup_plain
         return lookup(self.transfer_1d, values, self.tf_mxu)
 
+    def _sample_packed(self, position):
+        """The linear fetch of the corner table, (..., channels): K3 for
+        CUDA positions unless ``kernels=False``."""
+        return sampling.sample_volume_packed(
+            self.volume_packed,
+            tuple(self.volume.shape[:3]) + (self.channels,), position,
+            fused=self.kernels)
+
+    def _packed_samples(self) -> bool:
+        """Whether the samplers read the corner table: a linear scene that
+        has one.  A filtered scene's samplers read the volume through its
+        filter (``sampling.volume_rg``), as ``vpt_tpu`` does; on the card
+        its float32 corner table is the kernels' alone."""
+        return self.volume_packed is not None and self.filter == "linear"
+
     def sample_value(self, position):
         """The raw channel-0 value at ``position``, (...) (LAO's
-        sampleVolume): the packed corner fetch (K3 for CUDA positions
-        unless ``kernels=False``) or the 8-tap fetch of an unpacked
-        scene."""
-        if self.volume_packed is not None:
-            s = sampling.sample_volume_packed(
-                self.volume_packed, tuple(self.volume.shape), position,
-                fused=self.kernels)
-        else:
-            s = sampling.sample_volume(self.volume, position)
-        return s[..., 0]
+        sampleVolume): the packed corner fetch or the filtered fetch of the
+        volume."""
+        if self._packed_samples():
+            return self._sample_packed(position)[..., 0]
+        return sampling.volume_rg(self.volume, position, self.filter)[..., 0]
 
     def sample_volume_rg(self, position):
-        """texture(uVolume, p).rg: (value, 0) for a single-channel volume."""
-        s = self.sample_value(position)[..., None]
-        return torch.cat([s, torch.zeros_like(s)], dim=-1)
+        """texture(uVolume, p).rg: (value, channel 1), (..., 2); channel 1
+        reads 0 for a single-channel volume."""
+        if self._packed_samples():
+            s = self._sample_packed(position)
+            if s.shape[-1] >= 2:
+                return s
+            return torch.cat([s, torch.zeros_like(s)], dim=-1)
+        return sampling.volume_rg(self.volume, position, self.filter)
 
     def sample_transfer(self, uv):
         """The 2D bilinear TF lookup at (..., 2) ``uv`` = (value, y), (...,
@@ -118,12 +150,14 @@ class Scene:
         return sampling.sample_texture2d(self.transfer, uv)
 
     def sample_color(self, position):
-        """TF(volume(p)).  A rendering scene takes the single-channel value
-        straight to the tf1d lookup (the kernels for CUDA positions); a
-        differentiable scene samples the packed TF texture at (value, 0),
-        so autograd reaches the TF table through the gather and the value
-        through the filter fraction.  A scene is differentiable when
-        autograd records and a corner table requires grad."""
+        """TF(volume(p)).  A rendering scene takes a single-channel value
+        straight to the tf1d lookup (the kernels for CUDA positions), and
+        a multi-channel volume's (value, channel 1) to the 2D TF lookup
+        (:meth:`sample_transfer`), as ``vpt_tpu`` does; a differentiable
+        scene samples the packed TF texture at (value, 0), so autograd
+        reaches the TF table through the gather and the value through the
+        filter fraction.  A scene is differentiable when autograd records
+        and a corner table requires grad."""
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad
                 for t in (self.volume_packed, self.transfer_packed)):
@@ -133,6 +167,8 @@ class Scene:
             return sampling.sample_texture2d_packed(
                 self.transfer_packed, tuple(self.transfer.shape),
                 self.sample_volume_rg(position))
+        if self.channels == 2:
+            return self.sample_transfer(self.sample_volume_rg(position))
         return self._lookup(self.sample_value(position))
 
     def sample_color_tracking(self, position):
@@ -261,13 +297,17 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     the CPU, and on the card, whose kernels sample corner tables only, it
     packs the volume and the TF in float32 (their values are the unpacked
     ones), while the ``tf_mxu`` weights and the tracking table keep
-    ``pack_dtype``, as ``vpt_tpu`` keeps them unpacked.
+    ``pack_dtype``, as ``vpt_tpu`` keeps them unpacked.  A volume whose
+    filter is not ``"linear"`` is never packed for the samplers
+    (``vpt_tpu``'s rule); on the card it gets float32 tables all the same,
+    which only the kernels read.
     ``pack_dtype``: the tables' dtype, ``torch.float32`` (default) or
     ``torch.bfloat16``.
     ``tf_banks``: accepted for parity with ``vpt_tpu``; the bilinear tf1d
     lookup is the port's only layout of it.
-    ``tf_mxu``: the TF lookup rounds its lerp weights to ``pack_dtype``
-    (float32 by default), as ``vpt_tpu``'s one-hot matmul does.
+    ``tf_mxu``: the TF lookup of a single-channel volume rounds its lerp
+    weights to ``pack_dtype`` (float32 by default), as ``vpt_tpu``'s
+    one-hot matmul does.
     ``tf_srgb``: the reference's SRGB8_ALPHA8 TF texture
     (``transfer.to_gl_texture``).
     ``tracking``: ``"none"``, ``"cheb"``, ``"grid"`` (the majorant grid,
@@ -283,8 +323,15 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     can reach this floor (``skipgrid.iso_value_aabb``) at isovalues of at
     least it.
 
-    Not ported, and raising ``NotImplementedError``: multi-channel volumes
-    and the nearest/cubic filters."""
+    A multi-channel volume (a two-channel BVP, or
+    ``volume.with_gradient_magnitude``) samples its TF in 2D at (value,
+    channel 1), with no grid, tracking table, clamp box or ``tf_mxu``
+    (``vpt_tpu`` warns where they were asked for); its corner table holds
+    channels 0:2 only, the channels ``vpt_tpu``'s samplers read.  A
+    ``"nearest"`` or ``"cubic"`` volume gets no tracking table and no
+    clamp box (with the same warnings); its majorant grid is built."""
+    import warnings
+
     from ..transfer import to_gl_texture
 
     del tf_banks  # the bilinear lookup (see the module docstring)
@@ -293,9 +340,6 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     if isinstance(volume, Volume):
         vol_filter = volume.filter
         volume = volume.data
-    if vol_filter != "linear":
-        raise _not_ported(f"the {vol_filter!r} volume filter",
-                          "queue 2, volume filters")
     if tracking not in ("none", "cheb", "grid", "auto"):
         raise ValueError(f"unknown tracking mode {tracking!r}")
     if tracking == "cheb" and majorant_grid:
@@ -304,9 +348,8 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     if tracking == "grid" and not majorant_grid:
         majorant_grid = 16
     volume = torch.as_tensor(volume, dtype=torch.float32)
-    if volume.shape[-1] != 1:
-        raise _not_ported("multi-channel volumes",
-                          "queue 2, multi-channel volumes")
+    channels = volume.shape[-1]
+    linear = vol_filter == "linear"
     if camera is None:
         camera = default_camera()
     if not isinstance(camera, CameraState):
@@ -324,41 +367,58 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
             <= PACK_MAX_VOXELS
         if not pack and kernels_sample(device):
             pack, table_dtype = True, None
+    if not linear:
+        # packed tables implement the linear filter only; the kernels
+        # filter a float32 table of the unpacked values
+        pack, table_dtype = kernels_sample(device), None
     volume_packed = transfer_packed = None
     if pack:
-        volume_packed = sampling.pack_corner_volume(volume)
+        volume_packed = sampling.pack_corner_volume(volume[..., :2])
         transfer_packed = sampling.pack_corner_texture2d(transfer)
         if table_dtype is not None:
             volume_packed = volume_packed.to(table_dtype)
             transfer_packed = transfer_packed.to(table_dtype)
-    mxu = (pack_dtype or torch.float32) if tf_mxu else None
+    mxu = (pack_dtype or torch.float32) if tf_mxu and channels == 1 \
+        else None
     majorant = None
     if majorant_grid:
         majorant = skipgrid.build_majorant_grid(volume, transfer,
                                                 majorant_grid)
         if majorant is None and tracking == "grid":
-            import warnings
-
             warnings.warn(
                 "tracking='grid' requested but the majorant grid is "
                 "unsupported for this volume (multi-channel, or dims not "
                 "divisible by the grid size) — falling back to the exact "
                 "machine", stacklevel=2)
     tracking_packed = None
-    if tracking in ("cheb", "auto") and majorant is None:
+    if tracking in ("cheb", "auto") and majorant is None and linear:
         tracking_packed = skipgrid.pack_tracking_volume(
             volume, transfer,
             min_empty_fraction=(AUTO_TRACKING_MIN_EMPTY
                                 if tracking == "auto" else 0.0))
         if tracking_packed is None and tracking == "cheb":
-            import warnings
-
             warnings.warn(
                 "tracking='cheb' requested but the tracking table is "
-                "unsupported for this volume (negative values) — "
-                "rendering with the exact machine", stacklevel=2)
+                "unsupported for this volume (multi-channel, or negative "
+                "values) — falling back to the exact machine",
+                stacklevel=2)
         if tracking_packed is not None and pack_dtype is not None:
             tracking_packed = tracking_packed.to(pack_dtype)
+    elif tracking == "cheb" and not linear:
+        warnings.warn(
+            "tracking='cheb' requested but the tracking table implements "
+            "the linear filter only (volume filter is "
+            f"{vol_filter!r}) — falling back to the exact machine",
+            stacklevel=2)
+    boxed = channels == 1 and linear
+    for asked, what, name in ((march_clamp, "occupied", "march_clamp"),
+                              (iso_clamp_min > 0.0, "value",
+                               "iso_clamp_min")):
+        if asked and not boxed:
+            warnings.warn(
+                f"{name} requested but the {what}-AABB derivation "
+                "supports single-channel linear-filter volumes only — "
+                "marching the full segment", stacklevel=2)
     return Scene(
         volume=volume,
         transfer=transfer,
@@ -373,9 +433,9 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
         tracking_packed=tracking_packed,
         majorant=majorant,
         occupied_aabb=(skipgrid.occupied_aabb(volume, transfer)
-                       if march_clamp else None),
+                       if march_clamp and boxed else None),
         iso_aabb=(skipgrid.iso_value_aabb(volume, transfer, iso_clamp_min)
-                  if iso_clamp_min > 0.0 else None),
+                  if iso_clamp_min > 0.0 and boxed else None),
         iso_clamp_min=float(iso_clamp_min),
         filter=vol_filter,
         tf_mxu=mxu,

@@ -31,7 +31,8 @@ from .. import math3d, rng, sampling
 from ..kernels import lao_march
 from ..utils import constant
 from . import _march
-from .base import Scene, _not_ported, cube_interval, state_device
+from .base import (Scene, _not_ported, check_linear_single, cube_interval,
+                   state_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +70,7 @@ def reset(params: Params, height: int, width: int, scene: Scene = None):
 def check_params(params: Params):
     if params.baked_gradient:
         raise _not_ported("LAO's baked_gradient (a two-channel volume)",
-                          "queue 2, multi-channel volumes")
+                          "queue 1 item 13d")
 
 
 def lao_taps(params: Params):
@@ -217,6 +218,7 @@ def generate(scene: Scene, params: Params, seed, height: int, width: int):
 def render_frame(state, scene: Scene, params: Params, seed, frame_number):
     """LAO's integrate replaces the accumulator with the frame (integrate
     fragment:226), in place."""
+    check_linear_single(scene, "LAO")
     lao_march.lao_frame(state, scene, params)
     return state
 

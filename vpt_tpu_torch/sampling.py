@@ -3,7 +3,8 @@
 Mirrors the main-path subset of ``vpt_tpu/sampling.py``: ray setup
 (``pixel_ndc``, ``intersect_cube``, ``intersect_box``, ``unproject``,
 ``unproject_rand``), the GL LINEAR + CLAMP_TO_EDGE volume and texture
-fetches with their corner-packed tables, the equirect environment lookup,
+fetches with their corner-packed tables, the nearest and cubic volume
+filters (``volume_rg``), the equirect environment lookup,
 ISO's and LAO's central-difference gradients and Henyey-Greenstein
 sampling.  Every
 operation runs in the JAX package's order so that the float32 results
@@ -154,6 +155,69 @@ def sample_volume(volume, position):
     c0 = c00 * (1 - fy) + c10 * fy
     c1 = c01 * (1 - fy) + c11 * fy
     return c0 * (1 - fz) + c1 * fz
+
+
+def sample_volume_nearest(volume, position):
+    """NEAREST + CLAMP_TO_EDGE fetch of a (D, H, W, C) texture
+    (Volume.setFilter('nearest')): texel ``int(clip(p·N, 0, N − 0.5))``
+    on each axis."""
+    d, h, w, _ = volume.shape
+    dev = position.device
+    size = constant((w, h, d), torch.float32, dev)
+    lo = constant((0.0, 0.0, 0.0), torch.float32, dev)
+    hi = constant((w - 0.5, h - 0.5, d - 0.5), torch.float32, dev)
+    u = torch.clamp(position * size, min=lo, max=hi)
+    i = torch.minimum(torch.clamp(u.to(torch.int64), min=0),
+                      _max_index((w, h, d), dev))
+    flat = volume.reshape(d * h * w, -1)
+    return flat[(i[..., 2] * h + i[..., 1]) * w + i[..., 0]]
+
+
+def cubic_warp(position, dims):
+    """The smoothstep warp of ``sample_volume_cubic``
+    (mixins/quasiCubicSampling.glsl:3-9) of (..., 3) positions in a
+    volume of ``dims`` = (W, H, D): u = p·N + 0.5, f = u − floor(u),
+    ``(floor(u) + (f·f)·(3 − 2f) − 0.5) / N``, the true quotient."""
+    size = constant(tuple(dims), torch.float32, position.device)
+    u = position * size + 0.5
+    fl = torch.floor(u)
+    f = u - fl
+    u = fl + f * f * (3.0 - 2.0 * f)
+    return (u - 0.5) / size
+
+
+def sample_volume_cubic(volume, position):
+    """Smoothstep-warped trilinear ≈ cubic filter: the linear fetch at
+    :func:`cubic_warp` of the position."""
+    d, h, w, _ = volume.shape
+    return sample_volume(volume, cubic_warp(position, (w, h, d)))
+
+
+#: the volume filters of ``Volume.filter``, by the code the kernels take
+FILTERS = {"linear": 0, "nearest": 1, "cubic": 2}
+
+
+def volume_rg(volume, position, filter="linear"):
+    """``texture(uVolume, p).rg``: the (value, gradient-magnitude) pair
+    (..., 2) through the volume's filter; the second channel reads 0 for a
+    single-channel volume (GL RED format), and channels past the second
+    are not read."""
+    if filter == "nearest":
+        s = sample_volume_nearest(volume, position)
+    elif filter == "cubic":
+        s = sample_volume_cubic(volume, position)
+    else:
+        s = sample_volume(volume, position)
+    if s.shape[-1] >= 2:
+        return s[..., :2]
+    return torch.cat([s, torch.zeros_like(s)], dim=-1)
+
+
+def sample_volume_color(volume, tf, position, filter="linear"):
+    """The shared composite sampler: the 3D fetch feeding the bilinear 2D
+    transfer-function lookup at (value, channel 1)
+    (MCMRenderer.glsl:85-89 et al.) → (..., 4)."""
+    return sample_texture2d(tf, volume_rg(volume, position, filter))
 
 
 def sample_texture2d(texture, uv):

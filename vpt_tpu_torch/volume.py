@@ -19,7 +19,7 @@ from .utils import resolve_device
 @dataclasses.dataclass
 class Volume:
     """data: (D, H, W, C) float32; ``filter`` in {'linear', 'nearest',
-    'cubic'} (the port renders 'linear' only)."""
+    'cubic'}."""
 
     data: torch.Tensor
     filter: str = "linear"
@@ -82,6 +82,37 @@ def blobs_volume(n: int = 64, seed: int = 0, count: int = 5,
     val = np.clip(val, 0.0, 1.0).astype(np.float32)
     return Volume(torch.from_numpy(val[..., None]).to(
         resolve_device(device)))
+
+
+def gradient_magnitude(values: torch.Tensor) -> torch.Tensor:
+    """Central-difference gradient magnitude of a (D, H, W) scalar field in
+    voxel units, one-sided at the boundaries, ``clip(2·|g|, 0, 1)``: the
+    second channel of a 2D-TF volume, as ``vpt_tpu.volume`` computes it."""
+    def diff(axis):
+        n = values.shape[axis]
+        d = (torch.roll(values, -1, dims=axis)
+             - torch.roll(values, 1, dims=axis)) * 0.5
+        d.narrow(axis, 0, 1).copy_(values.narrow(axis, 1, 1)
+                                   - values.narrow(axis, 0, 1))
+        d.narrow(axis, n - 1, 1).copy_(values.narrow(axis, n - 1, 1)
+                                       - values.narrow(axis, n - 2, 1))
+        return d
+
+    gx, gy, gz = diff(2), diff(1), diff(0)
+    # the three-term sum left to right, as jnp.sum reduces it; the square
+    # root in float64 rounded to float32 is the correctly rounded float32
+    # root (torch's vectorised CPU sqrt is not, in the last bit)
+    mag = torch.sqrt((gx * gx + gy * gy + gz * gz).to(torch.float64)).to(
+        torch.float32)
+    return torch.clamp(mag * 2.0, 0.0, 1.0)
+
+
+def with_gradient_magnitude(volume: Volume) -> Volume:
+    """The volume with its gradient magnitude as channel 1, for 2D transfer
+    functions (value, |∇|); the filter is kept."""
+    values = volume.data[..., 0]
+    return Volume(torch.stack([values, gradient_magnitude(values)], dim=-1),
+                  volume.filter)
 
 
 def from_raw_bytes(data: bytes, depth: int, height: int, width: int,
