@@ -6,6 +6,7 @@ march kernel (K10).
     python3 bench_mcm_event.py [--kernel mcm_event|march|iso_shade|mcs|lao]
         [--variant NAME=PATH ...] [--frames 30]
         [--size 512] [--registers]
+    python3 bench_mcm_event.py --kernel dos --registers [--variant ...]
 
 ``current`` is the kernel's source in ``vpt_tpu_torch/csrc/`` as it
 stands.  Each ``--variant`` is another source of the same kernel that
@@ -63,7 +64,9 @@ mode, build) with its times over the baseline's (``--baseline``, default
 ``current``); and writes all of it as JSON to ``--out``.  With
 ``--registers`` it builds the sources and prints each build's registers
 and spills per kernel instance (ptxas), launching nothing: a build whose
-C interface differs from the tree's can be compared so.
+C interface differs from the tree's can be compared so.  The DOS slice
+kernel (K9) takes ``--registers`` only; ``chip_smoke.py --launch-path
+--part sweep`` times its trees.
 """
 
 from __future__ import annotations
@@ -94,6 +97,8 @@ KERNELS = {
                   "iso_shade_kernel"),
     "lao": ("lao_march.cu", ("vpt_lao_launch",), "vpt_lao_info",
             "lao_kernel"),
+    "dos": ("dos_sweep.cu", ("vpt_dos_frame",), "vpt_dos_sweep_info",
+            "dos_sweep_kernel"),
 }
 #: the H100's SMs and warp schedulers an SM (one warp-instruction a clock)
 SMS, SCHEDULERS = 132, 4
@@ -891,6 +896,9 @@ def main() -> int:
                     help="print each build's registers and spills per "
                          "kernel instance and launch nothing")
     args = ap.parse_args()
+    if args.kernel == "dos" and not args.registers:
+        ap.error("--kernel dos takes --registers only (chip_smoke.py "
+                 "--launch-path --part sweep times K9)")
     sys.path.insert(0, str(ROOT))
     import torch
 

@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's renderers (MCM, EAM, MIP, Depth, ISO,
-MCS, DOS, LAO), its ``cli render`` and its differentiable MCM fit once on
-one GPU.
+MCS, DOS, LAO), its ``cli render`` and its differentiable MCM and MCS fits
+once on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path [--part frames|fetch|sweep] TREE ...
@@ -106,17 +106,25 @@ prints no result:
    ``path channels``: ``with_gradient_magnitude(blobs_volume(256))`` as a
    256³ RG uint8 BVP and ``TransferFunctionBumps.default()`` as the
    ``--tf`` JSON through ``cli render``: MCM 512², 32 spp, then EAM, MIP,
-   Depth, ISO and MCS at 10 spp (bf16 tables and 2D TF);
+   Depth, ISO, MCS, DOS and LAO at 10 spp (bf16 tables and 2D TF);
    ``path filters``: the headline's ``sphere_volume(128)`` through
    ``RenderingContext.set_filter("nearest")`` and ``("cubic")``: MCM steps
    8 × 30 frames, with the global majorant and ``tracking="grid"``, and
-   EAM, MIP, Depth, ISO and MCS, 10 frames each.
+   EAM, MIP, Depth, ISO, MCS, DOS and LAO, 10 frames each.
    Each ext instance is held to its plain version on the path's scene and
-   a float32 twin (K5 3 frames, K6 and K8 4, K7 on the ISO state; K5's
-   and the frame kernels' bounds) and timed against the linear
-   single-channel instance on the same scene (medians of
-   :func:`device_turns`; ``path channels``: its volume with a three-bump
-   2D TF, where ISO hits), with its bound from this run's rows;
+   a float32 twin (K5 3 frames, K6 and K8 4, K7 on the ISO state, K9 a
+   whole sweep, K10 a frame and on two channels its baked instance; the
+   kernels' bounds) and timed against the linear single-channel instance
+   on the same scene (medians of :func:`device_turns`; K9 a sweep's first
+   frame; ``path channels``: its volume with a three-bump 2D TF, where
+   ISO hits), with its bound from this run's rows;
+10c. ``path baked``: ``volume.with_lao_gradient(blobs_volume(256))`` (the
+   bake timed on the card) with the three-bump 2D TF through
+   ``RenderingContext`` (bf16 tables), LAO with ``baked_gradient=True``
+   at 512², 2 frames and the display; K10's baked instance held to its
+   plain frame on that scene and a float32 twin, timed in turns against
+   the seven-tap instance on the same scene, and the baked image against
+   the exact seven-tap one within ``tests/test_lao_baked.py``'s bounds;
 11. the serving entry point, ``vpt_tpu_torch.cli.main(["render", ...])``
    in-process (:func:`phase_cli_path`): a 256³ uint8 BVP written by the
    port's ``write_bvp``, MCM at 512², 32 spp, ``--precision fast``, cheb-skip,
@@ -138,9 +146,20 @@ prints no result:
    (grad events/s, peak memory), then ``train.fit_mc`` with its default
    Params (extinction 10, steps 16) for 3 Adam steps.  Frames are cut from
    the fit's default 64 to 16 for this script's time limit;
-13. every kernel launched on its path (8, 10, 10a, 11 or 12); the JSON line
-    says which call launched each, and ``launches_cli`` its launches on
-    the ``cli render`` calls of 11.
+12a. ``path fit mcs`` with every launch counter at 0: the value and the
+   volume gradient of ``mcs_expected_image`` at 64² with the kernels
+   against ``kernels=False`` (loss equal, gradient within 1e-4 relative
+   L2); then BASELINE.json's MCS configuration, a 256³ ``blobs_volume``
+   and a 256² target rendered by the port under ``no_grad``, a TF fit
+   from a flat 0.2 init through ``train.fit_mc(renderer="mcs")``, 3 Adam
+   steps at lr 0.02, frames cut from the fit's default 64 to 16 for this
+   script's time limit (:data:`FIT_MCS_FRAMES`; the peak memory must stay
+   under half of the card's); the seconds an Adam step, the peak memory
+   and the K3/K4 launches a step; one profiled value-and-grad, and one
+   with the early exit against one with the full tracking budget;
+13. every kernel launched on its path (8, 10, 10a–c, 11, 12 or 12a); the
+    JSON line says which call launched each, and ``launches_cli`` its
+    launches on the ``cli render`` calls of 11.
 
 Then one JSON line with each kernel's launches, error, loop time per call
 (``ms``, CUDA events) and device time per launch (``device_ms``,
@@ -781,6 +800,19 @@ def env_texels(direction, environment):
                       for iy in (i0[:, 1], i1[:, 1])])
 
 
+def corner_rows(scene, pos):
+    """The corner rows that the kernels' fetches at (N, 3) ``pos`` read:
+    the cell of each position (of its cubic warp on a cubic scene; a
+    nearest fetch reads the linear cell's row)."""
+    from vpt_tpu_torch import sampling
+
+    shape = scene.volume.shape
+    d, h, w = shape[:3]
+    warped = sampling.cubic_warp(pos, (w, h, d)) if scene.filter == "cubic" \
+        else pos
+    return sampling.corner_cells(warped, shape)[0]
+
+
 def fetch_cells(scene, pos):
     """The rows that the kernels' fetches at (N, 3) ``pos`` read: the
     corner cell of each position (of its cubic warp on a cubic scene; a
@@ -794,11 +826,8 @@ def fetch_cells(scene, pos):
 
     from vpt_tpu_torch import sampling
 
-    shape = scene.volume.shape
-    d, h, w = shape[:3]
-    warped = sampling.cubic_warp(pos, (w, h, d)) if scene.filter == "cubic" \
-        else pos
-    cells = sampling.corner_cells(warped, shape)[0]
+    d, h, w = scene.volume.shape[:3]
+    cells = corner_rows(scene, pos)
     if scene.channels != 2:
         return cells
     th, tw = scene.transfer.shape[:2]
@@ -1644,12 +1673,14 @@ def dos_sweep_run(scene, params, height, width, frames, plain=False):
 
 
 def dos_work(scene, params, height, width, frames):
-    """(bytes, operations, written pixels, active slices) of one DOS sweep
-    on K9, from the sweep's own slice tables: an active slice reads and
-    writes the colour of the pixels it writes (those inside the cube),
-    reads the previous occlusion and writes the new (every pixel), reads
-    the distinct corner rows of its written pixels once and the TF row; an
-    inactive slice does nothing."""
+    """(bytes, operations, written pixels, active slices) of ``frames``
+    DOS frames on K9 from ``dos.reset``, from the sweep's own slice tables:
+    an active slice reads and writes the colour of the pixels it writes
+    (those inside the cube), reads the previous occlusion and writes the
+    new (every pixel), reads the distinct rows of its written pixels'
+    fetches once (:func:`fetch_cells`: the corner rows and, on a
+    two-channel scene, the 2D TF rows) and the TF row; an inactive slice
+    does nothing.  An ext fetch adds :func:`ext_ops`."""
     import torch
 
     from vpt_tpu_torch import math3d, sampling
@@ -1661,7 +1692,7 @@ def dos_work(scene, params, height, width, frames):
     ones = torch.ones((height, width, 1), device=scene.device)
     row_bytes = scene.volume_packed.shape[1] \
         * scene.volume_packed.element_size()
-    tf_bytes = scene.transfer_1d.numel() * 4
+    tf_bytes = tf_row_bytes(scene)
     nbytes = ops = written = active = 0
     for _ in range(frames):
         table = dos.slice_table(state, scene, params)
@@ -1674,12 +1705,11 @@ def dos_work(scene, params, height, width, frames):
             pos = pos[..., :3] / pos[..., 3:4]
             inside = ~((pos > 1.0) | (pos < 0.0)).any(dim=-1)
             w = int(inside.sum())
-            rows = int(sampling.corner_cells(
-                pos[inside], scene.volume.shape)[0].unique().numel())
+            rows = int(fetch_cells(scene, pos[inside]).unique().numel())
             written += w
             nbytes += 32 * w + 8 * n + rows * row_bytes + tf_bytes
-            ops += DOS_OPS_ACTIVE * n \
-                + (DOS_OPS_WRITTEN + DOS_OPS_TAP * params.samples) * w
+            ops += DOS_OPS_ACTIVE * n + (DOS_OPS_WRITTEN + ext_ops(scene)
+                                         + DOS_OPS_TAP * params.samples) * w
         dos.advance_depth(state, table)
     return nbytes, ops, written, active
 
@@ -1689,7 +1719,9 @@ def lao_work(scene, params, height, width):
     samples) of one K10 frame: the plain frame replayed slice by slice,
     counting the active pixel-slices (the kernel leaves its loop at the
     first inactive one), each pixel's, and the corner rows their fetches
-    read (a bitmap over the table's rows)."""
+    read (a bitmap over the table's rows; :func:`corner_rows`, so a cubic
+    fetch counts its warped cell), a baked slice's two-channel fetch
+    included."""
     import dataclasses
 
     import torch
@@ -1708,7 +1740,14 @@ def lao_work(scene, params, height, width):
         taps.append(pos)
         return original(pos)
 
+    original_rg = ref.sample_volume_rg
+
+    def recording_rg(pos):
+        taps.append(pos)
+        return original_rg(pos)
+
     ref.sample_value = recording
+    ref.sample_volume_rg = recording_rg
     acc = torch.zeros((height, width, 4), device=scene.device)
     per_pixel = torch.zeros((height, width), dtype=torch.int32,
                             device=scene.device)
@@ -1725,8 +1764,7 @@ def lao_work(scene, params, height, width):
         samples += k
         fetches += k * len(taps)
         for pos in taps:
-            seen[sampling.corner_cells(pos[active],
-                                       scene.volume.shape)[0]] = True
+            seen[corner_rows(scene, pos[active])] = True
     return samples, fetches, int(seen.sum()), int((~ctx.miss).sum()), \
         per_pixel
 
@@ -1759,6 +1797,53 @@ def dos_tables_agree(scene, params, label):
           "dos.slice_table's bit for bit; one launch a frame", flush=True)
 
 
+def dos_lao_agree(label, scene, baked=False):
+    """K9 over a whole DOS sweep from ``dos.reset`` and K10 over one LAO
+    frame (and with ``baked`` its baked-gradient instance too) against
+    their plain versions on ``scene`` at 512², default Params: 99.99% of
+    the values within 1e-6, the sweeps' depths equal and past the far
+    depth.  Returns each kernel's worst error."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch.kernels import lao_march
+    from vpt_tpu_torch.renderers import dos, lao
+
+    dparams = dos.Params()
+    worst = {"dos_sweep": 0.0, "lao_march": 0.0}
+    ref = dataclasses.replace(scene, kernels=False)
+    frames = dos_sweep_frames(scene, dparams, 512, 512)
+    state = dos_sweep_run(scene, dparams, 512, 512, frames)
+    before = launch_counts()
+    plain = dos_sweep_run(ref, dparams, 512, 512, frames, plain=True)
+    check(launch_counts() == before, "dos: the plain sweep launched")
+    torch.cuda.synchronize()
+    check(torch.equal(state["depth"], plain["depth"]),
+          f"{label} dos: the sweeps' depths differ")
+    check(float(state["depth"]) > float(state["max_depth"]),
+          f"{label} dos: the sweep did not end in {frames} frames")
+    for key in ("color", "occlusion"):
+        worst["dos_sweep"] = max(worst["dos_sweep"], compare_states(
+            f"{label} sweep of {frames} frames", f"dos_sweep {key}",
+            state[key], plain[key], False))
+    check(float(state["color"][..., 3].max()) > 0.0,
+          f"{label} dos: nothing composited")
+    for lparams in (lao.Params(),) + ((lao.Params(baked_gradient=True),)
+                                      if baked else ()):
+        state = lao.reset(lparams, 512, 512, scene)
+        lao.render_frame(state, scene, lparams, 0.4, 1)
+        plain = state.clone()
+        before = launch_counts()
+        lao_march.lao_frame_plain(plain, ref, lparams)
+        check(launch_counts() == before, "lao: the plain frame launched")
+        torch.cuda.synchronize()
+        worst["lao_march"] = max(worst["lao_march"], compare_states(
+            label + (" baked" if lparams.baked_gradient else ""),
+            "lao_march", state, plain, False))
+    return worst
+
+
 def phase_dos_lao(headline):
     """K9 and K10 against their plain versions on the card at 512², default
     Params (DOS over its whole sweep, LAO one frame), and K9's own table
@@ -1780,33 +1865,9 @@ def phase_dos_lao(headline):
     worst = {"dos_sweep": 0.0, "lao_march": 0.0}
     for label, scene in (("headline 512^2", headline),
                          ("f32 blobs64 512^2", blobs)):
-        ref = dataclasses.replace(scene, kernels=False)
-        frames = dos_sweep_frames(scene, dparams, 512, 512)
-        state = dos_sweep_run(scene, dparams, 512, 512, frames)
-        before = launch_counts()
-        plain = dos_sweep_run(ref, dparams, 512, 512, frames, plain=True)
-        check(launch_counts() == before, "dos: the plain sweep launched")
-        torch.cuda.synchronize()
-        check(torch.equal(state["depth"], plain["depth"]),
-              f"{label} dos: the sweeps' depths differ")
-        check(float(state["depth"]) > float(state["max_depth"]),
-              f"{label} dos: the sweep did not end in {frames} frames")
-        for key in ("color", "occlusion"):
-            worst["dos_sweep"] = max(worst["dos_sweep"], compare_states(
-                f"{label} sweep of {frames} frames", f"dos_sweep {key}",
-                state[key], plain[key], False))
-        check(float(state["color"][..., 3].max()) > 0.0,
-              f"{label} dos: nothing composited")
+        for name, err in dos_lao_agree(label, scene).items():
+            worst[name] = max(worst[name], err)
         dos_tables_agree(scene, dparams, label)
-        state = lao.reset(lparams, 512, 512, scene)
-        lao.render_frame(state, scene, lparams, 0.4, 1)
-        plain = state.clone()
-        before = launch_counts()
-        lao_march.lao_frame_plain(plain, ref, lparams)
-        check(launch_counts() == before, "lao: the plain frame launched")
-        torch.cuda.synchronize()
-        worst["lao_march"] = max(worst["lao_march"], compare_states(
-            label, "lao_march", state, plain, False))
 
     # K9 over the headline's sweep
     scene, ref = headline, dataclasses.replace(headline, kernels=False)
@@ -2476,7 +2537,8 @@ BUMPS = [
     {"position": {"x": 0.85, "y": 0.02}, "size": {"x": 0.2, "y": 0.05},
      "color": {"r": 1.0, "g": 1.0, "b": 1.0, "a": 0.6}},
 ]
-EXT_NAMES = ("mcm_event", "march_frame", "iso_shade", "mcs_frame")
+EXT_NAMES = ("mcm_event", "march_frame", "iso_shade", "mcs_frame",
+             "dos_sweep", "lao_march")
 #: rounds of :func:`device_turns` for an ext instance: 4 readings each
 EXT_ROUNDS = 2
 
@@ -2486,11 +2548,14 @@ def hold_ext(label, scene, params8, hits=True):
     on the same scene at 512²: K5 3 frames of steps 8 (K5's bounds; none
     when ``params8`` is None), K6 in each mode and K8 4 frames (99.99% of
     the pixels within 1e-6, Depth and ISO equal), K7 on the ISO state
-    (equal), which must hold hits where ``hits``.  Returns each kernel's
-    worst error."""
+    (equal), which must hold hits where ``hits``, K9 over a DOS sweep and
+    K10 over a LAO frame, baked too on two channels (:func:`dos_lao_agree`).
+    Returns each kernel's worst error."""
     from vpt_tpu_torch.kernels import iso_shade
 
     worst = dict.fromkeys(EXT_NAMES, 0.0)
+    worst.update(dos_lao_agree(f"{label} 512^2", scene,
+                               baked=scene.channels == 2))
     if params8 is not None:
         worst["mcm_event"] = _frames_agree(scene, params8, 512, 512, 3,
                                            f"{label} 512^2 3 frames")[1]
@@ -2664,8 +2729,132 @@ def time_ext(label, prefix, scene, base, event=True, frames=True):
         f"{prefix}_linear_device_ms": t["linear"], f"{prefix}_ms": ms,
         f"{prefix}_plain_ms": plain_ms, f"{prefix}_bound_ms": bound,
         f"{prefix}_registers": occ["registers"]}
+    fields["dos_sweep"] = time_dos(label, prefix, scene, base)
+    fields["lao_march"] = time_lao(label, prefix, scene, base)
     torch.cuda.synchronize()
     return fields
+
+
+def lao_ops(scene, params, samples, fetches, hits):
+    """K10's float32 operations on ``scene``: the headline's count
+    (LAO_OPS_*) plus what an ext fetch adds: a cubic scene's warps (9 axis
+    coordinates a slice for the seven gradient cells, 3 a fetch for the
+    others; :data:`EXT_OPS_CUBIC` is three of them), a baked slice's
+    second channel."""
+    from vpt_tpu_torch.renderers import lao
+
+    taps = len(lao.lao_taps(params))
+    ops = fetches * LAO_OPS_FETCH + samples * (taps * LAO_OPS_TAP
+                                               + LAO_OPS_SLICE) \
+        + hits * LAO_OPS_PIXEL
+    if scene.filter == "cubic":
+        gradient = 0 if params.baked_gradient else 6
+        ops += (fetches - samples * gradient) * EXT_OPS_CUBIC \
+            + samples * 2 * EXT_OPS_CUBIC * gradient // 6
+    if params.baked_gradient:
+        ops += samples * EXT_OPS_CHANNEL
+    return ops
+
+
+def time_dos(label, prefix, scene, base):
+    """K9 on ``scene`` (one DOS frame of 50 slices from ``dos.reset``)
+    timed against the same frame on ``base`` at 512², default Params
+    (device medians of :func:`device_turns`), with the loop ms, the plain
+    version's ms, the bound from this run's work (:func:`dos_work`) and
+    the registers and residency.  Returns K9's fields, keyed
+    ``{prefix}_...``."""
+    import dataclasses
+
+    from vpt_tpu_torch.kernels import dos_sweep, tf1d
+    from vpt_tpu_torch.renderers import dos
+
+    ref = dataclasses.replace(scene, kernels=False)
+    ext = dict(channels=scene.channels, filtered=scene.filter != "linear")
+    dparams = dos.Params()
+
+    def dos_frame(s):
+        return lambda: dos.render_frame(dos.reset(dparams, 512, 512, s), s,
+                                        dparams, 0.1, 1)
+
+    t = device_turns({"ext": dos_frame(scene), "linear": dos_frame(base)},
+                     "dos_sweep", rounds=EXT_ROUNDS)
+    ms = cuda_ms(dos_frame(scene), 10)
+    plain_ms = cuda_ms(lambda: dos_sweep.sweep_frame_plain(
+        dos.reset(dparams, 512, 512, scene), ref, dparams), 1)
+    nbytes, ops, written, active = dos_work(scene, dparams, 512, 512, 1)
+    bound, by = roofline(nbytes, ops)
+    occ = dos_sweep.occupancy(scene.volume_packed.dtype,
+                              tf1d.mode_code(scene.tf_mxu), dparams.samples,
+                              dparams.steps, **ext)
+    print(f"{label} K9 first frame ({active} active slices, {written} "
+          f"written pixels): {fmt_ms(t['ext'])} on the card against "
+          f"{fmt_ms(t['linear'])} linear single-channel"
+          + (f" ({t['ext'] / t['linear']:.4f}x)" if t["ext"] and t["linear"]
+             else "")
+          + f"; loop {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({by}, {nbytes} bytes, {ops} operations); "
+          f"{occ['registers']} registers, {occ['local_bytes']} spill bytes,"
+          f" {occ['blocks_per_sm']} blocks of 512 an SM "
+          f"({occ['blocks_per_sm'] * occ['sms']} cooperative blocks)",
+          flush=True)
+    return {f"{prefix}_device_ms": t["ext"],
+            f"{prefix}_linear_device_ms": t["linear"], f"{prefix}_ms": ms,
+            f"{prefix}_plain_ms": plain_ms, f"{prefix}_bound_ms": bound,
+            f"{prefix}_registers": occ["registers"],
+            f"{prefix}_local_bytes": occ["local_bytes"],
+            f"{prefix}_blocks_per_sm": occ["blocks_per_sm"]}
+
+
+def time_lao(label, prefix, scene, base, baked=False):
+    """K10 on ``scene`` (one LAO frame, or with ``baked`` the
+    baked-gradient frame) timed against the same frame on ``base`` (with
+    ``baked``: the seven-tap frame) at 512², default Params, as
+    :func:`time_dos`, the bound from :func:`lao_work`.  Returns K10's
+    fields, keyed ``{prefix}_...``."""
+    import dataclasses
+
+    from vpt_tpu_torch.kernels import lao_march
+    from vpt_tpu_torch.renderers import lao
+
+    ref = dataclasses.replace(scene, kernels=False)
+    ext = dict(channels=scene.channels, filtered=scene.filter != "linear")
+    params = lao.Params(baked_gradient=baked)
+    base_params = lao.Params() if baked else params
+    states = {name: lao.reset(params, 512, 512, s)
+              for name, s in (("ext", scene), ("linear", base))}
+    frames = {"ext": lambda: lao.render_frame(states["ext"], scene, params,
+                                              0.5, 1),
+              "linear": lambda: lao.render_frame(states["linear"], base,
+                                                 base_params, 0.5, 1)}
+    t = device_turns(frames, "lao_", rounds=EXT_ROUNDS)
+    ms = cuda_ms(frames["ext"], 10)
+    plain_ms = cuda_ms(lambda: lao_march.lao_frame_plain(
+        states["ext"].clone(), ref, params), 1)
+    samples, fetches, rows, hits, _ = lao_work(scene, params, 512, 512)
+    nbytes = rows * scene.volume_packed.shape[1] \
+        * scene.volume_packed.element_size() + 20 * 512 * 512 \
+        + scene.transfer_packed.numel() * scene.transfer_packed.element_size()
+    ops = lao_ops(scene, params, samples, fetches, hits)
+    bound, by = roofline(nbytes, ops)
+    occ = lao_march.occupancy(scene.volume_packed.dtype,
+                              scene.transfer_packed.dtype, **ext,
+                              baked=baked)
+    print(f"{label} K10{' baked' if baked else ''}: {fmt_ms(t['ext'])} a "
+          f"frame on the card against {fmt_ms(t['linear'])} "
+          + ("seven-tap" if baked else "linear single-channel")
+          + (f" ({t['ext'] / t['linear']:.4f}x)" if t["ext"] and t["linear"]
+             else "")
+          + f"; loop {ms:.4f} ms; plain {plain_ms:.4f} ms; {samples} active "
+          f"pixel-slices, {fetches} fetches of {rows} distinct rows; bound "
+          f"{bound:.4f} ms ({by}, {nbytes} bytes, {ops} operations); "
+          f"{occ['registers']} registers, {occ['local_bytes']} spill bytes,"
+          f" {occ['blocks_per_sm']} blocks an SM", flush=True)
+    return {f"{prefix}_device_ms": t["ext"],
+            f"{prefix}_{'seven_tap' if baked else 'linear'}_device_ms":
+                t["linear"], f"{prefix}_ms": ms,
+            f"{prefix}_plain_ms": plain_ms, f"{prefix}_bound_ms": bound,
+            f"{prefix}_registers": occ["registers"],
+            f"{prefix}_local_bytes": occ["local_bytes"]}
 
 
 def merge_ext(rows, worst, fields, key):
@@ -2715,7 +2904,7 @@ def phase_channels_path(dev, counters):
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     launches, scene = {}, None
     for key, spp in (("mcm", 32), ("eam", 10), ("mip", 10), ("depth", 10),
-                     ("iso", 10), ("mcs", 10)):
+                     ("iso", 10), ("mcs", 10), ("dos", 10), ("lao", 10)):
         png = os.path.join(out, f"rg_{key}.png")
         argv = ["render", "--volume", bvp, "--tf", tf_json, "--renderer",
                 key, "--resolution", "512", "--spp", str(spp),
@@ -2809,7 +2998,7 @@ def phase_filters_path(dev, counters):
             ctx.choose_tone_mapper("reinhard")
             ctx.set_filter(filt)
             keys = ("mcm",) if tracking == "grid" else \
-                ("mcm", "eam", "mip", "depth", "iso", "mcs")
+                ("mcm", "eam", "mip", "depth", "iso", "mcs", "dos", "lao")
             for key in keys:
                 frames = 30 if key == "mcm" else 10
                 ctx.choose_renderer(key, params=params8 if key == "mcm"
@@ -2873,6 +3062,294 @@ def phase_filters_path(dev, counters):
             del ctx, scene, twin
             torch.cuda.empty_cache()
     return fields, worst, launches
+
+
+def phase_baked_path(dev, counters):
+    """``path baked``: LAO's baked gradient on
+    ``volume.with_lao_gradient(blobs_volume(256))`` (the bake's seconds on
+    the card) with the three-bump 2D TF (:data:`BUMPS`, so that |∇|
+    selects colours) through ``RenderingContext`` at 512²,
+    ``precision="fast"`` (bf16 tables), ``lao.Params(baked_gradient=True)``,
+    2 frames and a ``reinhard`` display, every launch counter at 0 just
+    before and read just after.  K10's baked instance is held to its plain
+    frame on the context's scene and on a float32 twin (99.99% of the
+    values within 1e-6), the baked image to the exact seven-tap one within
+    ``tests/test_lao_baked.py``'s bounds (max |Δ| 0.03, mean 0.004), and
+    its device time taken in turns against the seven-tap instance on the
+    same scene.  Returns K10's row fields, worst error and the path's
+    launches."""
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import lao, make_scene
+    from vpt_tpu_torch.runtime import RenderingContext
+
+    vol = volume.blobs_volume(256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baked = volume.with_lao_gradient(vol)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    check(tuple(baked.data.shape) == (256, 256, 256, 2)
+          and bool(torch.isfinite(baked.data).all())
+          and float(baked.data[..., 1].max()) > 0.0,
+          "path baked: the baked volume is not finite (256^3, 2)")
+    print(f"path baked: with_lao_gradient(blobs_volume(256)) in "
+          f"{bake_s:.4f} s on the card, |grad| up to "
+          f"{float(baked.data[..., 1].max()):.6f}", flush=True)
+    bumps = transfer.rasterize(transfer.TransferFunctionBumps.from_list(
+        BUMPS))
+    params = lao.Params(baked_gradient=True)
+    ctx = RenderingContext(resolution=512, precision="fast", device=dev)
+    ctx.set_volume(baked)
+    ctx.set_transfer_function(bumps)
+    ctx.choose_tone_mapper("reinhard")
+    ctx.choose_renderer("lao", params=params)
+    for module in counters.values():
+        module.LAUNCHES = 0
+    t0 = time.perf_counter()
+    ctx.render(2)
+    image = ctx.get_display_image()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3
+    launches = _path_launches(counters, "path baked lao",
+                              {"lao_march": 2, "tonemap": 1})
+    hdr = ctx.get_hdr_image()
+    _check_display("path baked lao", hdr, image)
+    scene = ctx.get_scene()
+    check(scene.channels == 2 and scene.volume_packed.dtype == torch.bfloat16
+          and scene.transfer_packed.dtype == torch.bfloat16,
+          "path baked: not a bf16 two-channel scene")
+    print(f"path baked lao 256^3 512^2: 2 frames and the display in "
+          f"{dt:.3f} ms (host clock); launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v),
+          flush=True)
+    twin = make_scene(volume.Volume(baked.data), bumps)
+    check(twin.volume_packed.dtype == torch.float32,
+          "path baked: the twin is not a float32 scene")
+    worst = 0.0
+    for label, s in (("path baked bf16", scene), ("path baked f32 twin",
+                                                   twin)):
+        worst = max(worst, dos_lao_agree(label, s, baked=True)["lao_march"])
+    # the baked image against the exact seven-tap one, both on the card
+    exact = lao.reset(lao.Params(), 512, 512, scene)
+    lao.render_frame(exact, scene, lao.Params(), 0.5, 1)
+    diff = (hdr - exact).abs()
+    err_max, err_mean = float(diff.max()), float(diff.mean())
+    check(err_max < 0.03 and err_mean < 0.004,
+          f"path baked: the baked image is {err_max} (max) / {err_mean} "
+          "(mean) from the seven-tap one (bounds 0.03 / 0.004)")
+    print(f"path baked: baked image against the seven-tap image: max |d| "
+          f"{err_max}, mean {err_mean} (bounds 0.03, 0.004)", flush=True)
+    del twin, exact
+    fields = time_lao("path baked", "baked", scene, scene, baked=True)
+    fields.update({"baked_bake_s": bake_s, "baked_vs_seven_tap_max":
+                   err_max, "baked_vs_seven_tap_mean": err_mean})
+    del ctx, scene, baked, vol
+    torch.cuda.empty_cache()
+    return fields, worst, launches
+
+
+#: ``path fit mcs``: BASELINE.json's MCS configuration (a 256³ volume,
+#: differentiable TF parameters) at a 256² target; frames cut from
+#: fit_mc's default 64 to 16 for this script's time limit (at 64 an Adam
+#: step took 28.3 s on an H100 80GB HBM3 at 700 W, with a peak memory of
+#: 6.7 GiB, under half the card's, so memory forces no cut)
+FIT_MCS_VOLUME, FIT_MCS_RES, FIT_MCS_FRAMES = 256, 256, 16
+
+
+def phase_fit_mcs_path(dev, counters):
+    """``path fit mcs``: ``train.fit_mc(renderer="mcs")``, every launch
+    counter at 0 first.  At 64² (blobs 32³), the value and the volume
+    gradient of ``mcs_expected_image`` with the kernels against
+    ``kernels=False`` (loss equal, gradient within 1e-4 relative L2: K3
+    forward, K4 backward).  Then BASELINE's size: ``blobs_volume(256)``
+    with ``gray_ramp(alpha_scale=0.8)`` as truth, a 256² target rendered
+    by the port under ``no_grad``, and a TF fit from a flat 0.2 init, 3
+    Adam steps at lr 0.02, the frames cut as :data:`FIT_MCS_FRAMES` says;
+    the peak memory must stay under half of the card's.  Prints the
+    seconds an Adam step, the peak memory and the K3/K4 launches a
+    step, then :func:`fit_mcs_profile` and :func:`fit_mcs_exit`.  Returns
+    the path's launches and K3's and K4's fields."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import train, transfer, volume
+    from vpt_tpu_torch.renderers import diff_mc, make_scene, mcs
+
+    for module in counters.values():
+        module.LAUNCHES = 0
+    params = mcs.Params(extinction=train.MC_FIT_EXTINCTION["mcs"])
+    small = make_scene(volume.blobs_volume(32, seed=1),
+                       transfer.gray_ramp(alpha_scale=0.8), device=dev)
+    target = torch.rand(64, 64, 3, generator=torch.Generator().manual_seed(
+        4)).to(dev)
+    out = []
+    for kernels in (True, False):
+        vol = torch.full((32, 32, 32, 1), 0.2, device=dev,
+                         requires_grad=True)
+        loss = train.mc_loss({"volume": vol},
+                             dataclasses.replace(small, kernels=kernels),
+                             target, params, 2, np.float32(0.1))
+        loss.backward()
+        out.append((loss.item(), vol.grad))
+    torch.cuda.synchronize()
+    (loss, grad), (plain_loss, plain_grad) = out
+    check(bool(torch.isfinite(grad).all())
+          and float(grad.abs().max()) > 0.0,
+          "fit mcs: the volume gradient is not finite or all zero")
+    rel = float((grad - plain_grad).norm() / plain_grad.norm())
+    check(loss == plain_loss, f"fit mcs loss {loss} != plain {plain_loss}")
+    check(rel <= 1e-4, f"fit mcs gradient: relative L2 error {rel}")
+    print(f"fit mcs value-and-grad 64^2 blobs32 2 frames: loss {loss!r} "
+          "equal to the plain version's; volume gradient relative L2 error "
+          f"{rel:.3g} (bound 1e-4)", flush=True)
+    held = {name: m.LAUNCHES for name, m in counters.items()}
+
+    n, res, frames = FIT_MCS_VOLUME, FIT_MCS_RES, FIT_MCS_FRAMES
+    truth = make_scene(volume.blobs_volume(n),
+                       transfer.gray_ramp(alpha_scale=0.8))
+    init = torch.full(tuple(truth.transfer.shape), 0.2, device=dev)
+    half = torch.cuda.get_device_properties(0).total_memory / 2 ** 31
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        target = diff_mc.mcs_expected_image(truth, params, res, res, frames)
+    torch.cuda.synchronize()
+    check(tuple(target.shape) == (res, res, 4)
+          and bool(torch.isfinite(target).all()), "fit mcs: target not finite")
+    print(f"fit mcs target: {n}^3 blobs truth, {res}^2, {frames} frames "
+          f"under no_grad in {time.perf_counter() - t0:.3f} s, mean "
+          f"{float(target.mean()):.6f}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = {name: m.LAUNCHES for name, m in counters.items()}
+    steps = 3
+    t0 = time.perf_counter()
+    _, fitted, losses = train.fit_mc(target, truth, init_tf=init,
+                                     renderer="mcs", frames=frames,
+                                     steps=steps, learning_rate=0.02)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {name: (m.LAUNCHES - before[name]) / steps
+                for name, m in counters.items()}
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"fit mcs losses {losses}")
+    check(bool(torch.isfinite(fitted).all()) and float(fitted.min()) >= 0.0
+          and float(fitted.max()) <= 1.0, "fit mcs: TF outside [0, 1]")
+    check(not torch.equal(fitted, init), "fit mcs did not move the TF")
+    check(peak < half, f"fit mcs: peak memory {peak:.3f} GiB is not under "
+          f"half the card's ({half:.3f} GiB)")
+    print(f"fit_mc mcs {n}^3 / {res}^2, {frames} frames, {steps} Adam steps "
+          f"at lr 0.02 from a flat TF: losses {losses}; {step_s:.4f} s per "
+          f"step (host clock), peak memory {peak:.3f} GiB; launches a step: "
+          f"corner_gather {per_step['corner_gather']:.1f}, corner_scatter "
+          f"{per_step['corner_scatter']:.1f}, tf1d_lookup "
+          f"{per_step['tf1d_lookup']:.1f}", flush=True)
+    launches = {name: m.LAUNCHES for name, m in counters.items()}
+    busy = fit_mcs_profile(truth, init, target, params)
+    exit_s, full_s, exit_err = fit_mcs_exit(truth, init, target, params)
+    rows = {name: {"launches_fit_mcs": launches[name],
+                   "launches_fit_mcs_step": per_step[name],
+                   "launches_fit_mcs_grad_check": held[name]}
+            for name in ("corner_gather", "corner_scatter")}
+    rows["corner_gather"].update({
+        "fit_mcs_frames": frames, "fit_mcs_step_s": step_s,
+        "fit_mcs_peak_gib": peak, "fit_mcs_losses": losses,
+        "fit_mcs_grad_rel_l2": rel, "fit_mcs_device_busy": busy,
+        "fit_mcs_exit_early_s": exit_s, "fit_mcs_full_budget_s": full_s,
+        "fit_mcs_full_budget_grad_rel_l2": exit_err})
+    del truth, target, fitted
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def fit_mcs_profile(truth, init, target, params, frames=2):
+    """Where an MCS TF fit's value-and-grad spends its time: one at
+    ``frames`` frames under torch.profiler, its wall time, the card's
+    busy time (the kernels' device time summed) and the five operators
+    with the most device time and with the most host time.  Returns the
+    card's busy share of the wall time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vpt_tpu_torch import train
+
+    def step():
+        leaf = init.clone().requires_grad_(True)
+        train.mc_loss({"tf": leaf}, truth, target, params, frames,
+                      np.float32(0.1)).backward()
+        torch.cuda.synchronize()
+
+    step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    top_device = sorted((e for e in events
+                         if e.device_type == DeviceType.CPU),
+                        key=lambda e: -e.device_time_total)[:5]
+    top_host = sorted((e for e in events
+                       if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:5]
+    print(f"fit mcs profile, one value-and-grad of {frames} frames: "
+          f"{wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernels on the card "
+          f"({busy_ms / wall_ms:.4f} busy); most device time: "
+          + ", ".join(f"{e.key} {e.device_time_total / 1e3:.3f} ms "
+                      f"({e.count} calls)" for e in top_device)
+          + "; most host time: "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms "
+                      f"({e.count} calls)" for e in top_host), flush=True)
+    return busy_ms / wall_ms
+
+
+def fit_mcs_exit(truth, init, target, params, frames=2):
+    """One value-and-grad of an MCS TF fit at ``frames`` frames with the
+    tracking scans left once every pixel is done, as ``diff_mc`` runs
+    them, then with the full ``track_steps`` budget, as JAX runs them
+    (``diff_mc._EXIT_EARLY`` off): the losses must be equal and the TF
+    gradients within 1e-4 relative L2.  Returns the two wall times in
+    seconds (host clock) and the gradients' relative L2 difference."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import train
+    from vpt_tpu_torch.renderers import diff_mc
+
+    out = []
+    try:
+        for exit_early in (True, False):
+            diff_mc._EXIT_EARLY = exit_early
+            leaf = init.clone().requires_grad_(True)
+            t0 = time.perf_counter()
+            loss = train.mc_loss({"tf": leaf}, truth, target, params, frames,
+                                 np.float32(0.1))
+            loss.backward()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0, loss.item(), leaf.grad))
+    finally:
+        diff_mc._EXIT_EARLY = True
+    (exit_s, exit_loss, exit_grad), (full_s, full_loss, full_grad) = out
+    rel = float((exit_grad - full_grad).norm() / full_grad.norm())
+    check(exit_loss == full_loss, f"fit mcs: the early exit's loss "
+          f"{exit_loss} != the full budget's {full_loss}")
+    check(rel <= 1e-4, f"fit mcs: the early exit's TF gradient is {rel} "
+          "relative L2 from the full budget's")
+    print(f"fit mcs early exit, one value-and-grad of {frames} frames: "
+          f"{exit_s:.4f} s with the exit, {full_s:.4f} s with the full "
+          f"budget (host clock, {full_s / exit_s:.2f}x); loss equal, TF "
+          f"gradient relative L2 difference {rel:.3g}, "
+          f"{'equal' if torch.equal(exit_grad, full_grad) else 'not equal'}"
+          " bit for bit", flush=True)
+    return exit_s, full_s, rel
 
 
 # -- the serving entry point: cli render (the slice's main path) -----------
@@ -3303,19 +3780,36 @@ def run():
             ext_rows[name][f"launches_{key}"] = total
         print(f"path {key}: {time.perf_counter() - t0:.1f} s", flush=True)
     for row, name in ((k5, "mcm_event"), (k6, "march_frame"),
-                      (k7, "iso_shade"), (k8, "mcs_frame")):
+                      (k7, "iso_shade"), (k8, "mcs_frame"),
+                      (k9, "dos_sweep"), (k10, "lao_march")):
         row.update(ext_rows[name])
         row["max_abs_err"] = max(row["max_abs_err"],
                                  row["channels_max_abs_err"],
                                  row["filters_max_abs_err"])
+    t0 = time.perf_counter()
+    baked10, baked_err, baked_launches = phase_baked_path(dev, counters)
+    check(baked_launches["lao_march"] > 0,
+          "kernel lao_march was not launched on path baked")
+    k10.update(baked10)
+    k10["baked_max_abs_err"] = baked_err
+    k10["max_abs_err"] = max(k10["max_abs_err"], baked_err)
+    k10["launches_baked"] = baked_launches["lao_march"]
+    print(f"path baked: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     cli_launches = phase_cli_path(dev, counters)
     fit_launches = phase_fit_path(dev, counters)
+    t0 = time.perf_counter()
+    fit_mcs_launches, fit_mcs_rows = phase_fit_mcs_path(dev, counters)
+    print(f"path fit mcs: {time.perf_counter() - t0:.1f} s", flush=True)
+    k3.update(fit_mcs_rows["corner_gather"])
+    k4.update(fit_mcs_rows["corner_scatter"])
     for path, launches, names in (
             ("forward render", render_launches,
              ("mcm_event", "tf1d_lookup", "tonemap", "corner_gather")),
             ("fit", fit_launches,
-             ("corner_gather", "corner_scatter", "tf1d_lookup"))):
+             ("corner_gather", "corner_scatter", "tf1d_lookup")),
+            ("fit mcs", fit_mcs_launches,
+             ("corner_gather", "corner_scatter"))):
         for name in names:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -3345,12 +3839,18 @@ def run():
          "launched_by": "train.fit_mc: sampling.CornerFetch forward, one "
                         "corner_fetch with saved cells per event, and one "
                         "per event of the no_grad target render (fit "
-                        "path); Scene.sample_color (render path)", **k3},
+                        "path); train.fit_mc(renderer='mcs'): the no-grad "
+                        "fetch of every tracking step of the TF fit, and "
+                        "CornerFetch in its 64^2 volume-gradient check "
+                        "(fit mcs path); Scene.sample_color (render path)",
+         **k3},
         {"name": "corner_scatter", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/corner_scatter.cu",
          "replaces": "benchmarks/pallas_scatter_bwd.py:41",
          "launched_by": "train.fit_mc: sampling.CornerFetch backward, one "
-                        "corner_grad per event (fit path)", **k4},
+                        "corner_grad per event (fit path); the backward of "
+                        "mcs_expected_image's volume gradient, one a "
+                        "tracking step (fit mcs path)", **k4},
         {"name": "march_frame", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/march.cu",
          "replaces": "vpt_tpu/renderers/_march.py:29",
@@ -3371,17 +3871,22 @@ def run():
          "source": "vpt_tpu_torch/csrc/dos_sweep.cu",
          "replaces": "vpt_tpu/renderers/dos.py:126",
          "launched_by": "Renderer.render of dos (one cooperative launch a "
-                        "frame; the DOS path); runs the ray.cuh corner "
-                        "fetch and the tf1d.cuh lookup", **k9},
+                        "frame; the DOS path, and the ext instance on the "
+                        "channels and filters paths); runs the ray.cuh "
+                        "corner fetch and the tf1d.cuh lookup", **k9},
         {"name": "lao_march", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/lao_march.cu",
          "replaces": "vpt_tpu/renderers/lao.py:63",
          "launched_by": "Renderer.render of lao (every frame; the LAO "
-                        "path); runs the ray.cuh corner fetch", **k10},
+                        "path, the ext instance on the channels and filters "
+                        "paths, the baked instance on the baked path); runs "
+                        "the ray.cuh corner fetch", **k10},
     ]
     for row in rows:
         if row["name"].startswith("corner"):
-            row["launches"] = fit_launches[row["name"]]
+            row["launches"] = fit_launches[row["name"]] \
+                + fit_mcs_launches[row["name"]]
+            row["launches_fit_mcm"] = fit_launches[row["name"]]
         elif row["name"] in ("march_frame", "iso_shade", "mcs_frame",
                              "dos_sweep", "lao_march"):
             row["launches"] = sum(p["launches"][row["name"]]

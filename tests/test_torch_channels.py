@@ -17,8 +17,8 @@ vpt_tpu's.
   ``test_torch_march.py``, ``test_torch_mcs.py``).
 - ``cli render`` of a two-channel BVP written by ``write_bvp`` with a
   ``--tf`` widget JSON, against ``vpt_tpu.cli``'s PNG.
-- DOS and LAO raise for two-channel and filtered scenes, citing
-  ``ROADMAP.md`` item 13d, before any launch.
+- DOS and LAO through the public path (``make_renderer``) on two-channel
+  and filtered scenes, against vpt_tpu's Renderer.
 """
 
 import dataclasses
@@ -304,15 +304,34 @@ def test_cli_renders_a_two_channel_bvp_with_a_tf(tmp_path, renderer):
 @pytest.mark.parametrize("kind", ["rg", "nearest", "cubic"])
 @pytest.mark.parametrize("key", ["dos", "lao"])
 def test_dos_and_lao_raise_for_these_scenes(key, kind):
-    """DOS and LAO take no two-channel or filtered scene yet: they raise,
-    citing ROADMAP.md item 13d, on the CPU as on the card."""
+    """DOS and LAO render two-channel and filtered scenes (they raised
+    before item 13d was ported): the port's public path (its own volume
+    and ``make_scene``, ``make_renderer``, one frame, ``display``) against
+    vpt_tpu's jitted Renderer on the same volume at 8², to the bounds of
+    the golden tests through the same path (``tests/test_torch_dos.py``:
+    every pixel within 2e-5; ``tests/test_torch_lao.py``: 93% of the
+    pixels within 2e-5, all within 2e-3, the jitted NDCs' other random
+    values)."""
     vol = volume.blobs_volume(8, seed=1, device="cpu")
+    jvol = jvolume.blobs_volume(8, seed=1)
     if kind == "rg":
         vol = volume.with_gradient_magnitude(vol)
+        jvol = jvolume.with_gradient_magnitude(jvol)
     else:
         vol = volume.Volume(vol.data, kind)
+        jvol = jvolume.Volume(jvol.data, kind)
     scene = make_scene(vol, transfer.gray_ramp(device="cpu"), device="cpu")
-    renderer = make_renderer(key, height=8, width=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item "
-                                                  "13d"):
-        renderer.render_progressive(scene, frames=1)
+    assert (scene.channels, scene.filter) == (
+        (2, "linear") if kind == "rg" else (1, kind))
+    got = make_renderer(key, height=8, width=8).render_progressive(
+        scene, frames=1).numpy()
+    want = np.asarray(jrenderers.make_renderer(
+        key, height=8, width=8).render_progressive(
+            jmake_scene(jvol, jtransfer.gray_ramp()), frames=1))
+    assert got.shape == want.shape == (8, 8, 4)
+    diff = np.abs(got - want).max(-1)
+    if key == "dos":
+        assert diff.max() <= 2e-5, diff.max()
+    else:
+        assert (diff <= 2e-5).mean() >= 0.93, (diff <= 2e-5).mean()
+        assert diff.max() <= 2e-3, diff.max()

@@ -1356,7 +1356,7 @@ def test_lao_kernel_refuses_what_it_does_not_take(cuda):
         lao.render_frame(lao.reset(params, 8, 8, unpacked), unpacked,
                          params, 0.1, 1)
     scene = _scene("f32", cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="2-channel"):
         lao.render_frame(lao.reset(params, 8, 8, scene), scene,
                          lao.Params(baked_gradient=True), 0.1, 1)
     for state in (torch.zeros(8, 8, 3, device=cuda),
@@ -1459,6 +1459,18 @@ def test_dos_and_lao_kernels_launch_shapes(cuda):
         assert occ["threads_per_block"] == 128 and occ["blocks_per_sm"] >= 1
         assert occ["tile_width"] * occ["tile_height"] == 128
         assert occ["group"] >= 1
+        # the ext instances: two channels (baked or not) in either row
+        # type, one filtered channel in float32
+        for baked in (False, True):
+            occ = lao_march.occupancy(dtype, channels=2, baked=baked)
+            assert occ["blocks_per_sm"] >= 1
+        occ = dos_sweep.occupancy(dtype, 0, channels=2)
+        assert occ["blocks_per_sm"] >= 1
+    for tf in range(3):
+        assert dos_sweep.occupancy(torch.float32, tf,
+                                   filtered=True)["blocks_per_sm"] >= 1
+    assert lao_march.occupancy(torch.float32,
+                               filtered=True)["blocks_per_sm"] >= 1
 
 
 # -- the serving layer: the context, checkpoints, the large-volume rule ------
@@ -1689,18 +1701,68 @@ def test_ext_instances_launch_shapes(cuda):
         assert occ["blocks_per_sm"] >= 1
 
 
-@pytest.mark.parametrize("kind", ["rg", "nearest"])
+@pytest.mark.parametrize("kind", EXT)
 @pytest.mark.parametrize("key", ["dos", "lao"])
-def test_dos_and_lao_raise_for_ext_scenes(cuda, key, kind):
-    """DOS and LAO take no two-channel or filtered scene yet: they raise,
-    citing ROADMAP.md item 13d, before any launch."""
+def test_dos_and_lao_kernels_ext_match_plain(cuda, key, kind):
+    """K9's and K10's ext instances against the plain frames on the same
+    card, to the headline instances' bounds: DOS 2 frames of 50 slices at
+    48×80, LAO one frame at 64×64 (and, on two channels, the baked
+    gradient of the same rows)."""
     scene = _ext_scene(kind, cuda)
-    module = {"dos": dos, "lao": lao}[key]
-    state = module.reset(module.Params(), 16, 16, scene)
-    before = _launches()
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        module.render_frame(state, scene, module.Params(), 0.1, 1)
-    assert _launches() == before
+    if key == "dos":
+        state, plain = _dos_frames(scene, dos.Params(), 48, 80, 2)
+        assert_dos_agrees(state, plain)
+        assert float(state["color"][..., 3].max()) > 0.0
+        return
+    for baked in (False, True) if kind.startswith("rg") else (False,):
+        state, plain = _lao_frame(scene, lao.Params(baked_gradient=baked),
+                                  64, 64)
+        assert_lao_agrees(state, plain)
+        assert float(state[..., :3].max()) > 0.0
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "nearest", "cubic"])
+def test_lao_kernel_baked_matches_plain(cuda, kind):
+    """K10's baked instance on ``with_lao_gradient`` of blobs 24³ (float32
+    or bf16 rows, or a filter) with the three-bump 2D TF, against the
+    plain frame: 64×64, the headline's bound.  The baked image stays near
+    the exact seven-tap one within tests/test_lao_baked.py's bounds (max
+    |Δ| below 0.03, mean below 0.004; measured on the CPU on this scene at
+    most 0.0194 and 2.0e-4, with nearest)."""
+    vol = volume.with_lao_gradient(volume.blobs_volume(24, seed=3,
+                                                       device=cuda))
+    filt = kind if kind in ("nearest", "cubic") else "linear"
+    tf = transfer.rasterize(transfer.TransferFunctionBumps.from_list(
+        BUMPS, cuda))
+    scene = make_scene(volume.Volume(vol.data, filt), tf,
+                       pack_dtype=torch.bfloat16 if kind == "bf16" else None,
+                       device=cuda)
+    state, plain = _lao_frame(scene, lao.Params(baked_gradient=True), 64, 64)
+    assert_lao_agrees(state, plain)
+    exact, _ = _lao_frame(scene, lao.Params(), 64, 64)
+    diff = (state - exact).abs()
+    assert float(diff.max()) < 0.03 and float(diff.mean()) < 0.004
+
+
+@pytest.mark.parametrize("kind", EXT)
+def test_dos_ext_grid_fits_its_occupancy(cuda, kind):
+    """The cooperative grid of an ext scene comes from the ext instance's
+    own residency, which may hold fewer blocks an SM than the headline's:
+    the prepared grid is exactly its blocks an SM times the SMs, and a
+    frame launches."""
+    scene = _ext_scene(kind, cuda)
+    params = dos.Params()
+    p = dos_sweep._scene_cache.get(scene, (params, 32, 32))
+    occ = dos_sweep.occupancy(
+        scene.volume_packed.dtype, tf1d.mode_code(scene.tf_mxu),
+        params.samples, params.steps, channels=scene.channels,
+        filtered=scene.filter != "linear")
+    assert occ["blocks_per_sm"] >= 1
+    assert p.args.blocks == occ["blocks_per_sm"] * occ["sms"]
+    assert (p.args.channels, p.args.filter) == (
+        scene.channels, sampling.FILTERS[scene.filter])
+    state, plain = _dos_frames(scene, params, 32, 32, 1)
+    assert_dos_agrees(state, plain)
 
 
 def test_filtered_bf16_tables_raise_before_a_launch(cuda):

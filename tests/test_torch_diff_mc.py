@@ -29,7 +29,7 @@ from vpt_tpu.renderers import diff_mc as jdiff
 from vpt_tpu.renderers import make_scene as jmake_scene
 from vpt_tpu.renderers import mcm as jmcm
 from vpt_tpu_torch import interop, train
-from vpt_tpu_torch.renderers import diff_mc, mcm
+from vpt_tpu_torch.renderers import diff_mc, mcm, mcs
 
 JPARAMS = jmcm.Params(extinction=10.0, anisotropy=0.3, steps=8)
 TPARAMS = mcm.Params(extinction=10.0, anisotropy=0.3, steps=8)
@@ -166,10 +166,17 @@ def test_score_floor_one_drops_the_score_term():
 
 
 def test_mcs_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        diff_mc.mcs_expected_image(None, None, 8, 8, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        diff_mc.mcs_generate(None, None, 0.0, 8, 8)
+    """The MCS estimator is ported (item 10): its frame is the analog MCS
+    frame in value, and ``mcs_expected_image`` of one frame is that frame
+    (its running mean divides by 1); ``tests/test_torch_diff_mcs.py``
+    holds it to vpt_tpu's."""
+    _, tscene = _scenes(n=8)
+    params = mcs.Params(extinction=5.0)
+    seed = diff_mc.frame_seed(0, 0.2)
+    frame = diff_mc.mcs_generate(tscene, params, seed, 8, 8)
+    assert torch.equal(frame, mcs.generate(tscene, params, seed, 8, 8))
+    image = diff_mc.mcs_expected_image(tscene, params, 8, 8, 1, seed0=0.2)
+    assert torch.equal(image, frame)
 
 
 def test_diff_state_crosses_interop():

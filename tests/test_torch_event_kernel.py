@@ -217,8 +217,8 @@ def c_struct_fields(name):
 
 @pytest.mark.parametrize("module,struct", [
     ("march", "VptMarchExt"), ("mcs_frame", "VptMcsExt"),
-    ("iso_shade", "VptIsoShadeExt"), ("dos_sweep", "VptDosArgs"),
-    ("lao_march", "VptLaoArgs")])
+    ("iso_shade", "VptIsoShadeExt"), ("dos_sweep", "VptDosExt"),
+    ("lao_march", "VptLaoExt")])
 def test_prepared_structs_match_the_c_layouts(module, struct):
     """Each prepared ctypes Structure declares the C struct's members in
     its order, with its kinds and array counts; a mismatch would show

@@ -18,7 +18,8 @@
 - The reference's sequential GLSL emulation of LAO
   (``tests/test_glsl_emulation.py``) with the port's ``generate`` in
   vpt_tpu's place, at that file's 1e-4; the port of
-  ``test_lao_num_samples_changes_output``; ``baked_gradient`` raises.
+  ``test_lao_num_samples_changes_output``; ``baked_gradient`` raises
+  vpt_tpu's ValueError on a one-channel volume.
 
 JAX's frame is computed once per scene (module-scope fixtures).
 """
@@ -216,12 +217,16 @@ def test_lao_num_samples_changes_output():
 
 
 def test_baked_gradient_raises(scenes):
-    _, tscene = scenes["f32"]
+    """``baked_gradient`` on a one-channel volume raises vpt_tpu's
+    ValueError, from the plain frame and from the kernel's preparation."""
+    jscene, tscene = scenes["f32"]
     params = lao.Params(baked_gradient=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 "
-                                                  "item 13d"):
+    with pytest.raises(ValueError, match="2-channel"):
+        jlao.generate(jscene, jlao.Params(baked_gradient=True),
+                      jnp.float32(0.0), 4, 4)
+    with pytest.raises(ValueError, match="2-channel"):
         lao.generate(tscene, params, 0.0, 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="2-channel"):
         lao_march._prepare(tscene, (params, 4, 4))
 
 

@@ -52,6 +52,13 @@
 // so the state's occlusion tensor always holds the result.  The depth is
 // advanced in place by one thread after the last barrier; given a table
 // buffer, the grid also writes the frame's rows there, one a warp.
+// Two-channel and filtered volumes run dos_sweep_ext_kernel, the same body
+// (dos_sweep) with ray.cuh's ext fetch (vpt_fetch_color: the filter a
+// warp-uniform argument, the row of the scene's channels, the 1D TF of one
+// channel or the packed 2D TF of two); only the instances make_scene's
+// rules reach are built.  Each instance holds its own number of blocks an
+// SM, and the wrapper sizes the cooperative grid from the instance that
+// will run (vpt_dos_sweep_info's flags).
 //
 // Numerics follow renderers/dos.slice_table, composite_slices and
 // occlusion_taps operation by operation: built with -fmad=false, IEEE
@@ -85,6 +92,15 @@ struct VptDosArgs {
   float tan_aperture;      // float32 tan(aperture * pi / 180), torch.tan
   int blocks;              // the cooperative grid
   int device;
+};
+
+// The prepared arguments with what the ext instances (two-channel and
+// filtered scenes, ray.cuh's fetch) take besides; only they read it.
+struct VptDosExt : VptDosArgs {
+  const void* tf_table;    // (th*tw, 16) packed TF of the table's type
+  int th;
+  int channels;            // 1 or 2: with filter 0 and 1 channel, no ext
+  int filter;              // ray.cuh's VptFilter
 };
 
 // What a frame call passes: the state's tensors and the optional table.
@@ -174,9 +190,12 @@ __device__ __forceinline__ float2 dos_ndc(const VptDosArgs& a, int i) {
   return make_float2(vpt_pixel_ndc(x, a.width), vpt_pixel_ndc(y, a.height));
 }
 
-template <bool kBf16, int kTf>
-__device__ __forceinline__ DosFetch dos_fetch(const VptDosArgs& a,
-                                              float2 ndc, const float* row) {
+// kC is 0 for the headline's linear single-channel fetch (A is
+// VptDosArgs), else an ext instance's channels (A is VptDosExt): the
+// filtered cell, the row of kC channels and vpt_color_rg's colour.
+template <bool kBf16, int kTf, int kC, class A>
+__device__ __forceinline__ DosFetch dos_fetch(const A& a, float2 ndc,
+                                              const float* row) {
   const float nz = row[0];
   float h4[4];
 #pragma unroll
@@ -194,8 +213,16 @@ __device__ __forceinline__ DosFetch dos_fetch(const VptDosArgs& a,
   DosFetch f;
   f.write = !outside;
   if (!f.write) return f;
-  const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, p[0], p[1], p[2]);
-  const float4 c = vpt_tf1d_lookup<true>(a.tf_row, a.tw, v, kTf);
+  float4 c;
+  if constexpr (kC == 0) {
+    const float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, p[0], p[1],
+                                     p[2]);
+    c = vpt_tf1d_lookup<true>(a.tf_row, a.tw, v, kTf);
+  } else {
+    c = vpt_fetch_color<kBf16, kC, true>(a.table, a.d, a.h, a.w, a.filter,
+                                         p[0], p[1], p[2], a.tf_row, a.tw,
+                                         kTf, a.tf_table, a.th);
+  }
   const float e = c.w * a.extinction;
   f.transmittance = expf(-e * row[2]);
   f.alpha = 1.0f - f.transmittance;
@@ -263,9 +290,9 @@ __device__ __forceinline__ void dos_rows(const VptDosArgs& a, float depth,
   }
 }
 
-template <bool kBf16, int kTf>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-dos_sweep_kernel(const VptDosArgs a, const VptDosFrame f) {
+// One frame; kC and A as in dos_fetch.
+template <bool kBf16, int kTf, int kC, class A>
+__device__ __forceinline__ void dos_sweep(const A& a, const VptDosFrame& f) {
   cg::grid_group grid = cg::this_grid();
   // the rows of slices [k0, k0 + chunk) of the frame, built by the block
   // at once (slice k's at (k - k0) * row_floats)
@@ -296,7 +323,7 @@ dos_sweep_kernel(const VptDosArgs a, const VptDosFrame f) {
   const bool first = tid < n;
   if (first) {
     ndc = dos_ndc(a, tid);
-    if (active) ahead = dos_fetch<kBf16, kTf>(a, ndc, s_rows);
+    if (active) ahead = dos_fetch<kBf16, kTf, kC>(a, ndc, s_rows);
   }
   float* src = f.occlusion;
   float* dst = f.scratch;
@@ -306,8 +333,8 @@ dos_sweep_kernel(const VptDosArgs a, const VptDosFrame f) {
     const float* row = s_rows + (ran % chunk) * row_floats;
     if (first) dos_finish(a, row, ahead, tid, f.color, src, dst);
     for (int i = tid + stride; i < n; i += stride) {
-      dos_finish(a, row, dos_fetch<kBf16, kTf>(a, dos_ndc(a, i), row), i,
-                 f.color, src, dst);
+      dos_finish(a, row, dos_fetch<kBf16, kTf, kC>(a, dos_ndc(a, i), row),
+                 i, f.color, src, dst);
     }
     ran += 1;
     float* written = dst;
@@ -324,7 +351,7 @@ dos_sweep_kernel(const VptDosArgs a, const VptDosFrame f) {
       }
       const float* next = s_rows + (ran % chunk) * row_floats;
       active = next[1] > 0.0f;
-      if (active && first) ahead = dos_fetch<kBf16, kTf>(a, ndc, next);
+      if (active && first) ahead = dos_fetch<kBf16, kTf, kC>(a, ndc, next);
     }
   }
   // the last slice's buffer back into the state's (an odd number ran), and
@@ -336,22 +363,64 @@ dos_sweep_kernel(const VptDosArgs a, const VptDosFrame f) {
   if (tid == 0) *f.depth = depth + (float)ran * sd;
 }
 
+template <bool kBf16, int kTf>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dos_sweep_kernel(const VptDosArgs a, const VptDosFrame f) {
+  dos_sweep<kBf16, kTf, 0>(a, f);
+}
+
+// The ext instances: kC channels (1: a filtered volume, float32 rows, the
+// TF lookup mode kTf; 2: a two-channel volume and the 2D TF table), the
+// filter a warp-uniform argument.
+template <bool kBf16, int kTf, int kC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dos_sweep_ext_kernel(const VptDosExt a, const VptDosFrame f) {
+  dos_sweep<kBf16, kTf, kC>(a, f);
+}
+
 // The instantiation for a table type and TF lookup mode (tf1d.cuh's: a
 // compile-time constant, so the lookup carries no branch).
-using Kernel = void (*)(const VptDosArgs, const VptDosFrame);
-
 template <bool kBf16>
-Kernel pick_tf(int tf_mode) {
+const void* pick_tf(int tf_mode) {
   switch (tf_mode) {
-    case 0: return dos_sweep_kernel<kBf16, 0>;
-    case 1: return dos_sweep_kernel<kBf16, 1>;
-    case 2: return dos_sweep_kernel<kBf16, 2>;
+    case 0: return (const void*)dos_sweep_kernel<kBf16, 0>;
+    case 1: return (const void*)dos_sweep_kernel<kBf16, 1>;
+    case 2: return (const void*)dos_sweep_kernel<kBf16, 2>;
     default: return nullptr;
   }
 }
 
-Kernel pick(int table_bf16, int tf_mode) {
-  return table_bf16 ? pick_tf<true>(tf_mode) : pick_tf<false>(tf_mode);
+// The ext instance: one channel (a filtered volume) in float32 rows with
+// each TF lookup mode, or two channels in either row type (the 2D TF
+// lookup has no mode); the instances make_scene's rules can reach, null
+// for anything else.
+const void* pick_ext(int channels, int table_bf16, int tf_mode) {
+  if (channels == 2)
+    return table_bf16 ? (const void*)dos_sweep_ext_kernel<true, 0, 2>
+                      : (const void*)dos_sweep_ext_kernel<false, 0, 2>;
+  if (channels != 1 || table_bf16) return nullptr;
+  switch (tf_mode) {
+    case 0: return (const void*)dos_sweep_ext_kernel<false, 0, 1>;
+    case 1: return (const void*)dos_sweep_ext_kernel<false, 1, 1>;
+    case 2: return (const void*)dos_sweep_ext_kernel<false, 2, 1>;
+    default: return nullptr;
+  }
+}
+
+// flags: 1 bf16 rows, 2 the ext instance of one channel (a filtered
+// volume), 4 of two channels
+const void* pick(int flags, int tf_mode) {
+  const int bf16 = flags & 1;
+  if (flags & 4) return pick_ext(2, bf16, tf_mode);
+  if (flags & 2) return pick_ext(1, bf16, tf_mode);
+  return bf16 ? pick_tf<true>(tf_mode) : pick_tf<false>(tf_mode);
+}
+
+// whether a launch runs an ext instance
+bool is_ext(const VptDosExt& a) { return a.channels != 1 || a.filter != 0; }
+
+int flags_of(const VptDosExt& a) {
+  return a.table_bf16 | (is_ext(a) ? (a.channels == 2 ? 4 : 2) : 0);
 }
 
 size_t shared_bytes(int steps, int samples) {
@@ -361,7 +430,7 @@ size_t shared_bytes(int steps, int samples) {
 
 }  // namespace
 
-// One frame: prepared is the VptDosArgs of the scene, Params and
+// One frame: prepared is the VptDosExt of the scene, Params and
 // resolution; color, occlusion and depth the state's, updated in place;
 // scratch another buffer of the occlusion's shape; max_depth, the slice
 // distance and the (N, 2) offsets the state's; rows null or a (steps, 4 +
@@ -373,11 +442,15 @@ extern "C" int vpt_dos_frame(const void* prepared, void* color,
                              const void* max_depth,
                              const void* slice_distance, const void* offsets,
                              void* rows, void* stream) {
-  const VptDosArgs& a = *static_cast<const VptDosArgs*>(prepared);
+  const VptDosExt& a = *static_cast<const VptDosExt*>(prepared);
   VptDeviceGuard guard(a.device);
-  const Kernel kernel = pick(a.table_bf16, a.tf_mode);
+  if (is_ext(a) && (a.filter < 0 || a.filter > 2))
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = pick(flags_of(a), a.tf_mode);
   if (kernel == nullptr || a.blocks <= 0) return (int)cudaErrorInvalidValue;
+  // the headline's instances take the VptDosArgs prefix, as before the ext
   VptDosArgs args = a;
+  VptDosExt ext = a;
   VptDosFrame frame = {static_cast<float4*>(color),
                        static_cast<float*>(occlusion),
                        static_cast<float*>(scratch),
@@ -386,23 +459,25 @@ extern "C" int vpt_dos_frame(const void* prepared, void* color,
                        static_cast<const float*>(slice_distance),
                        static_cast<const float*>(offsets),
                        static_cast<float*>(rows)};
-  void* params[] = {&args, &frame};
+  void* params[] = {is_ext(a) ? (void*)&ext : (void*)&args, &frame};
   return (int)cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3((unsigned)a.blocks),
+      kernel, dim3((unsigned)a.blocks),
       dim3(kThreads), params, shared_bytes(a.steps, a.samples),
       (cudaStream_t)stream);
 }
 
-// The launch shape for a table of bf16 (or float32) rows, the TF lookup
-// mode `tf_mode`, `steps` slices a frame and N = samples disk taps on
-// `device`: out = threads a block, resident blocks an SM, SMs, registers a
+// The launch shape of the instance for `flags` (1 bf16 rows, 2 the ext
+// instance of one channel, 4 of two channels), the TF lookup mode
+// `tf_mode`, `steps` slices a frame and N = samples disk taps on `device`:
+// the cooperative grid is that instance's resident blocks times the SMs.
+// out = threads a block, resident blocks an SM, SMs, registers a
 // thread, local (spilled) bytes a thread, static shared bytes a block,
 // dynamic shared bytes a block (the rows it holds), the slices whose rows
 // it holds at once.  Launches nothing.
-extern "C" int vpt_dos_sweep_info(int table_bf16, int tf_mode, int steps,
+extern "C" int vpt_dos_sweep_info(int flags, int tf_mode, int steps,
                                   int samples, int device, int* out) {
   VptDeviceGuard guard(device);
-  const Kernel kernel = pick(table_bf16, tf_mode);
+  const void* kernel = pick(flags, tf_mode);
   if (kernel == nullptr || samples < 1 || steps < 1
       || (kHead + 4 * samples) * sizeof(float) > kRowBytes) {
     return (int)cudaErrorInvalidValue;

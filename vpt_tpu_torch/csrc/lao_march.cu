@@ -42,6 +42,17 @@
 // was built and measured slower on the float32 scene in four forms
 // (PERF.md §6), so it is not here.
 //
+// Two-channel and filtered volumes run lao_ext_kernel, the same body (lao)
+// with ray.cuh's ext fetch: each of a slice's 28 reads goes through the
+// filter (a warp-uniform argument; the seven gradient cells keep their 9
+// shared axis computations, cubic warping each axis coordinate once and
+// nearest snapping the shared fractions) and reads channel 0 of a row of
+// the scene's channels (corner-major, channels interleaved: 32 bytes in
+// bf16, 64 in float32 for two channels).  With lao.Params.baked_gradient
+// (a volume.with_lao_gradient volume) one two-channel row at p gives
+// (value, |grad|) in place of the seven gradient reads; the AO and shadow
+// taps stay.  Only the instances make_scene's rules reach are built.
+//
 // Numerics follow renderers/lao.py (setup, march_slice, finish) operation
 // by operation: built with -fmad=false, IEEE division and sqrt,
 // NaN-propagating min/max, sums of three left to right.
@@ -74,6 +85,15 @@ struct VptLaoArgs {
   int rows64;            // 1: index corner rows with 64 bits
 };
 
+// The prepared arguments with what the ext instances (two-channel and
+// filtered scenes, LAO's baked gradient) take besides; only they read it.
+struct VptLaoExt : VptLaoArgs {
+  int channels;          // 1 or 2: with filter 0, 1 channel and no baked
+                         // gradient, no ext
+  int filter;            // ray.cuh's VptFilter
+  int baked;             // 1: channel 1 is |grad| (lao.Params.baked_gradient)
+};
+
 namespace {
 
 // AO taps read ahead of their fold: groups of 1 to 10, and register caps
@@ -92,36 +112,73 @@ __device__ __forceinline__ float norm3(float x, float y, float z) {
 
 // One axis of the seven gradient and value cells: for p - v, p and p + v
 // the clip, floor, fraction f, 1 - f and the row offset index * stride
-// (vpt_cell's operations on the same floats).
+// (vpt_cell's operations on the same floats).  kC is 0 for the headline's
+// linear single-channel fetch, else an ext instance's channels, whose axes
+// take the filter as vpt_cell_filtered does: cubic warps each of the three
+// coordinates once (not once a cell), nearest snaps the shared fractions.
 template <class Row>
 struct LaoAxis {
   Row off[3];
   float f[3], g[3];
 };
 
-template <class Row>
-__device__ __forceinline__ LaoAxis<Row> lao_axis(float p, int n,
-                                                 Row stride) {
-  const float v[3] = {p - kVoxel, p, p + kVoxel};
+template <class Row, int kC>
+__device__ __forceinline__ LaoAxis<Row> lao_axis(float p, int n, Row stride,
+                                                 int filter) {
+  float v[3] = {p - kVoxel, p, p + kVoxel};
+  if constexpr (kC != 0) {
+    if (filter == kVptCubic) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) v[j] = vpt_cubic_axis(v[j], n);
+    }
+  }
   LaoAxis<Row> out;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const float u = vpt_clip(v[j] * (float)n - 0.5f, 0.0f, (float)(n - 1));
     const float i = floorf(u);
     out.f[j] = u - i;
+    if constexpr (kC != 0) {
+      if (filter == kVptNearest) out.f[j] = out.f[j] >= 0.5f ? 1.0f : 0.0f;
+    }
     out.g[j] = 1.0f - out.f[j];
     out.off[j] = (Row)vpt_index(i) * stride;
   }
   return out;
 }
 
+// The cell of a tap at p: the headline's linear cell, or the filtered one.
+template <class Row, int kC>
+__device__ __forceinline__ VptCell<Row> lao_cell(const VptLaoArgs& a,
+                                                 int filter, float px,
+                                                 float py, float pz) {
+  if constexpr (kC == 0) {
+    return vpt_cell<Row>(a.d, a.h, a.w, px, py, pz);
+  } else {
+    return vpt_cell_filtered<Row>(a.d, a.h, a.w, px, py, pz, filter);
+  }
+}
+
+// Channel 0 at a tap's cell.
+template <bool kBf16, int kC, class Row>
+__device__ __forceinline__ float lao_tap(const VptRowOf<kBf16, kC>& r,
+                                         const VptCell<Row>& c) {
+  return vpt_lerp_row_fg<kBf16>(r, c.fx, 1.0f - c.fx, c.fy, 1.0f - c.fy,
+                                c.fz, 1.0f - c.fz);
+}
+
 // One frame; with kCount, counts gets the pixels' active slices and the
 // slices their warps step through (the leader of each group of lanes that
-// runs a slice together counts one).
-template <bool kBf16, bool kTfBf16, class Row, bool kCount>
-__global__ void __launch_bounds__(kVptTileThreads)
-lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
-           unsigned long long* __restrict__ counts) {
+// runs a slice together counts one).  kC as in lao_axis; with kBaked (kC =
+// 2) one fetch of the two-channel row at p gives (value, |grad|) in place
+// of the seven-cell gradient.
+template <bool kBf16, bool kTfBf16, class Row, bool kCount, int kC,
+          bool kBaked>
+__device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
+                                    float4* __restrict__ state,
+                                    unsigned long long* __restrict__ counts) {
+  static_assert(!kBaked || kC == 2, "the baked gradient is channel 1");
+  using RowT = VptRowOf<kBf16, kC>;
   int x, y;
   if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
   const int i = y * a.width + x;
@@ -182,39 +239,52 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
 #pragma unroll
     for (int k = 0; k < 3; ++k) p[k] = start[k] + t * seg[k];
 
-    // the raw gradient (p - e_k vs minus p + e_k vs) and the value: the
-    // cells ((iz h + iy) w + ix) from the axes' shared offsets
-    const LaoAxis<Row> ax = lao_axis<Row>(p[0], a.w, (Row)1);
-    const LaoAxis<Row> ay = lao_axis<Row>(p[1], a.h, (Row)a.w);
-    const LaoAxis<Row> az = lao_axis<Row>(p[2], a.d, (Row)a.h * a.w);
-    const Row zy = az.off[1] + ay.off[1];
-    const Row rows[7] = {zy + ax.off[0], zy + ax.off[2],
-                         az.off[1] + ay.off[0] + ax.off[1],
-                         az.off[1] + ay.off[2] + ax.off[1],
-                         az.off[0] + ay.off[1] + ax.off[1],
-                         az.off[2] + ay.off[1] + ax.off[1],
-                         zy + ax.off[1]};
-    VptRow<kBf16> row[7];
+    float value, grad_mag;
+    if constexpr (kBaked) {
+      // (value, baked |grad|) from one two-channel row at p
+      const VptCell<Row> cell = lao_cell<Row, kC>(a, filter, p[0], p[1],
+                                                  p[2]);
+      const float2 rg = vpt_lerp_rg<kBf16, 2>(
+          vpt_load_rows<kBf16, 2>(a.table, cell.row), cell);
+      value = rg.x;
+      grad_mag = rg.y;
+    } else {
+      // the raw gradient (p - e_k vs minus p + e_k vs) and the value: the
+      // cells ((iz h + iy) w + ix) from the axes' shared offsets
+      const LaoAxis<Row> ax = lao_axis<Row, kC>(p[0], a.w, (Row)1, filter);
+      const LaoAxis<Row> ay = lao_axis<Row, kC>(p[1], a.h, (Row)a.w,
+                                                filter);
+      const LaoAxis<Row> az = lao_axis<Row, kC>(p[2], a.d, (Row)a.h * a.w,
+                                                filter);
+      const Row zy = az.off[1] + ay.off[1];
+      const Row rows[7] = {zy + ax.off[0], zy + ax.off[2],
+                           az.off[1] + ay.off[0] + ax.off[1],
+                           az.off[1] + ay.off[2] + ax.off[1],
+                           az.off[0] + ay.off[1] + ax.off[1],
+                           az.off[2] + ay.off[1] + ax.off[1],
+                           zy + ax.off[1]};
+      RowT row[7];
 #pragma unroll
-    for (int j = 0; j < 7; ++j) row[j] = vpt_load_row<kBf16>(a.table, rows[j]);
-    // cell j's coordinate on each axis: 0 (p - v), 1 (p) or 2 (p + v)
-    const float g[3] = {
-        vpt_lerp_row_fg<kBf16>(row[0], ax.f[0], ax.g[0], ay.f[1], ay.g[1],
-                               az.f[1], az.g[1])
-            - vpt_lerp_row_fg<kBf16>(row[1], ax.f[2], ax.g[2], ay.f[1],
-                                     ay.g[1], az.f[1], az.g[1]),
-        vpt_lerp_row_fg<kBf16>(row[2], ax.f[1], ax.g[1], ay.f[0], ay.g[0],
-                               az.f[1], az.g[1])
-            - vpt_lerp_row_fg<kBf16>(row[3], ax.f[1], ax.g[1], ay.f[2],
-                                     ay.g[2], az.f[1], az.g[1]),
-        vpt_lerp_row_fg<kBf16>(row[4], ax.f[1], ax.g[1], ay.f[1], ay.g[1],
-                               az.f[0], az.g[0])
-            - vpt_lerp_row_fg<kBf16>(row[5], ax.f[1], ax.g[1], ay.f[1],
-                                     ay.g[1], az.f[2], az.g[2])};
-    const float grad_mag = sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
-    const float value = vpt_lerp_row_fg<kBf16>(row[6], ax.f[1], ax.g[1],
-                                                ay.f[1], ay.g[1], az.f[1],
-                                                az.g[1]);
+      for (int j = 0; j < 7; ++j)
+        row[j] = vpt_load_rows<kBf16, kC>(a.table, rows[j]);
+      // cell j's coordinate on each axis: 0 (p - v), 1 (p) or 2 (p + v)
+      const float g[3] = {
+          vpt_lerp_row_fg<kBf16>(row[0], ax.f[0], ax.g[0], ay.f[1], ay.g[1],
+                                 az.f[1], az.g[1])
+              - vpt_lerp_row_fg<kBf16>(row[1], ax.f[2], ax.g[2], ay.f[1],
+                                       ay.g[1], az.f[1], az.g[1]),
+          vpt_lerp_row_fg<kBf16>(row[2], ax.f[1], ax.g[1], ay.f[0], ay.g[0],
+                                 az.f[1], az.g[1])
+              - vpt_lerp_row_fg<kBf16>(row[3], ax.f[1], ax.g[1], ay.f[2],
+                                       ay.g[2], az.f[1], az.g[1]),
+          vpt_lerp_row_fg<kBf16>(row[4], ax.f[1], ax.g[1], ay.f[1], ay.g[1],
+                                 az.f[0], az.g[0])
+              - vpt_lerp_row_fg<kBf16>(row[5], ax.f[1], ax.g[1], ay.f[1],
+                                       ay.g[1], az.f[2], az.g[2])};
+      grad_mag = sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+      value = vpt_lerp_row_fg<kBf16>(row[6], ax.f[1], ax.g[1], ay.f[1],
+                                     ay.g[1], az.f[1], az.g[1]);
+    }
 
     // local ambient occlusion: the taps' reads a group at a time, each
     // group folded in order
@@ -223,7 +293,7 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
       float inner = 0.0f;
       for (int j0 = 0; j0 < a.n_taps; j0 += kGroup) {
         VptCell<Row> tc[kGroup];
-        VptRow<kBf16> tr[kGroup];
+        RowT tr[kGroup];
         float tw[kGroup];
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) {
@@ -235,15 +305,14 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
           const float hn = norm3(half[0], half[1], half[2]);
 #pragma unroll
           for (int k = 0; k < 3; ++k) half[k] = p[k] + half[k] / hn * tap.x;
-          tc[j] = vpt_cell<Row>(a.d, a.h, a.w, half[0], half[1],
-                                half[2]);
-          tr[j] = vpt_load_row<kBf16>(a.table, tc[j].row);
+          tc[j] = lao_cell<Row, kC>(a, filter, half[0], half[1], half[2]);
+          tr[j] = vpt_load_rows<kBf16, kC>(a.table, tc[j].row);
           tw[j] = tap.z;
         }
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) {
           if (j0 + j >= a.n_taps) break;
-          inner = inner + vpt_lerp_row<kBf16>(tr[j], tc[j]) * tw[j];
+          inner = inner + lao_tap<kBf16, kC>(tr[j], tc[j]) * tw[j];
         }
       }
       float carried = 0.0f, total = 0.0f;
@@ -258,9 +327,10 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
     // the soft shadow
     float soft = 0.0f;
     if (a.soft_on) {
-      const float vs = vpt_fetch<kBf16, Row>(a.table, a.d, a.h, a.w,
-                                             p[0] + soff[0], p[1] + soff[1],
-                                             p[2] + soff[2]);
+      const VptCell<Row> sc = lao_cell<Row, kC>(
+          a, filter, p[0] + soff[0], p[1] + soff[1], p[2] + soff[2]);
+      const float vs = lao_tap<kBf16, kC>(
+          vpt_load_rows<kBf16, kC>(a.table, sc.row), sc);
       float contrib = vs * (vs * 0.2f) * slen;
       contrib = vpt_clip(contrib * 20.0f, 0.0f, 1.0f);
       soft = vpt_clip((-0.2f + 1.2f * contrib) / 1.3f, 0.0f, 1.0f);
@@ -292,8 +362,28 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
   state[i] = make_float4(acc.x, acc.y, acc.z, 1.0f);
 }
 
+template <bool kBf16, bool kTfBf16, class Row, bool kCount>
+__global__ void __launch_bounds__(kVptTileThreads)
+lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
+           unsigned long long* __restrict__ counts) {
+  lao_pixel<kBf16, kTfBf16, Row, kCount, 0, false>(a, 0, state, counts);
+}
+
+// The ext instances: kC channels (1: a filtered volume, float32 rows; 2: a
+// two-channel volume, whose packed TF has the rows' type), the filter a
+// warp-uniform argument, rows indexed with 32 bits (the wrapper raises for
+// larger tables).
+template <bool kBf16, bool kCount, int kC, bool kBaked>
+__global__ void __launch_bounds__(kVptTileThreads)
+lao_ext_kernel(const VptLaoExt a, float4* __restrict__ state,
+               unsigned long long* __restrict__ counts) {
+  lao_pixel<kBf16, kBf16, int, kCount, kC, kBaked>(a, a.filter, state,
+                                                   counts);
+}
+
 // The instantiation for the table types, the row index and counting.
 using Kernel = void (*)(const VptLaoArgs, float4*, unsigned long long*);
+using KernelExt = void (*)(const VptLaoExt, float4*, unsigned long long*);
 
 template <class Row, bool kCount>
 Kernel pick_row(int table_bf16, int tf_bf16) {
@@ -314,22 +404,63 @@ Kernel pick(int table_bf16, int tf_bf16, int rows64, bool count) {
                 : pick_row<int, false>(table_bf16, tf_bf16);
 }
 
+// The ext instance: one channel (a filtered volume) of float32 rows and a
+// float32 TF, or two channels, baked or not, whose TF has the rows' type;
+// the instances make_scene's rules can reach, null for anything else.
+template <bool kCount>
+KernelExt pick_ext_count(int channels, int table_bf16, int tf_bf16,
+                         int baked) {
+  if (channels == 2 && table_bf16 == tf_bf16) {
+    if (table_bf16)
+      return baked ? lao_ext_kernel<true, kCount, 2, true>
+                   : lao_ext_kernel<true, kCount, 2, false>;
+    return baked ? lao_ext_kernel<false, kCount, 2, true>
+                 : lao_ext_kernel<false, kCount, 2, false>;
+  }
+  if (channels == 1 && !table_bf16 && !tf_bf16 && !baked)
+    return lao_ext_kernel<false, kCount, 1, false>;
+  return nullptr;
+}
+
+KernelExt pick_ext(int channels, int table_bf16, int tf_bf16, int baked,
+                   bool count) {
+  return count ? pick_ext_count<true>(channels, table_bf16, tf_bf16, baked)
+               : pick_ext_count<false>(channels, table_bf16, tf_bf16, baked);
+}
+
+// whether a launch runs an ext instance
+bool is_ext(const VptLaoExt& a) {
+  return a.channels != 1 || a.filter != 0 || a.baked != 0;
+}
+
 int launch(const void* prepared, void* state, void* counts, void* stream) {
-  const VptLaoArgs& a = *static_cast<const VptLaoArgs*>(prepared);
+  const VptLaoExt& a = *static_cast<const VptLaoExt*>(prepared);
   VptDeviceGuard guard(a.device);
   if (a.width <= 0 || a.height <= 0) return 0;
+  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
+  if (is_ext(a)) {
+    const KernelExt kernel = pick_ext(a.channels, a.table_bf16, a.tf_bf16,
+                                      a.baked, counts != nullptr);
+    if (kernel == nullptr || a.rows64 || a.filter < 0 || a.filter > 2)
+      return (int)cudaErrorInvalidValue;
+    kernel<<<blocks, kVptTileThreads, 0, (cudaStream_t)stream>>>(
+        a, static_cast<float4*>(state),
+        static_cast<unsigned long long*>(counts));
+    return (int)cudaGetLastError();
+  }
+  // the headline's instances take the VptLaoArgs prefix, as before the ext
+  const VptLaoArgs& base = a;
   const Kernel kernel = pick(a.table_bf16, a.tf_bf16, a.rows64,
                              counts != nullptr);
-  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
   kernel<<<blocks, kVptTileThreads, 0, (cudaStream_t)stream>>>(
-      a, static_cast<float4*>(state),
+      base, static_cast<float4*>(state),
       static_cast<unsigned long long*>(counts));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One frame: prepared is the VptLaoArgs of the scene, Params and
+// One frame: prepared is the VptLaoExt of the scene, Params and
 // resolution; state the (height, width, 4) frame it writes.
 extern "C" int vpt_lao_launch(const void* prepared, void* state,
                               void* stream) {
@@ -343,16 +474,24 @@ extern "C" int vpt_lao_count(const void* prepared, void* state,
   return launch(prepared, state, counts, stream);
 }
 
-// The launch shape for a corner table of bf16 (or float32) rows, a packed
-// TF table of bf16 (or float32) and 64-bit (or 32-bit) row indices on
-// `device`: out = threads a block, resident blocks an SM, SMs, registers a
-// thread, local (spilled) bytes a thread, static shared bytes a block, the
-// block's tile width and height, the warp's tile width in pixels and the
-// AO taps read ahead of their fold.  Launches nothing.
-extern "C" int vpt_lao_info(int table_bf16, int tf_bf16, int rows64,
-                            int device, int* out) {
+// The launch shape for `flags` (1 a corner table of bf16 rows, else
+// float32; 2 the ext instance of one channel, 4 of two channels, 8 baked),
+// a packed TF table of bf16 (or float32) and 64-bit (or 32-bit) row indices
+// on `device`: out = threads a block, resident blocks an SM, SMs, registers
+// a thread, local (spilled) bytes a thread, static shared bytes a block,
+// the block's tile width and height, the warp's tile width in pixels and
+// the AO taps read ahead of their fold.  Launches nothing.
+extern "C" int vpt_lao_info(int flags, int tf_bf16, int rows64, int device,
+                            int* out) {
   VptDeviceGuard guard(device);
-  const Kernel kernel = pick(table_bf16, tf_bf16, rows64, false);
+  const int bf16 = flags & 1;
+  const void* kernel =
+      (flags & 14) ? (rows64 ? nullptr
+                             : (const void*)pick_ext(
+                                   (flags & 4) ? 2 : 1, bf16, tf_bf16,
+                                   (flags & 8) ? 1 : 0, false))
+                   : (const void*)pick(bf16, tf_bf16, rows64, false);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, kVptTileThreads, 0);

@@ -399,6 +399,36 @@ struct VptRow2<false> {
 template <bool kBf16, int kC>
 using VptRowOf = std::conditional_t<kC == 2, VptRow2<kBf16>, VptRow<kBf16>>;
 
+// Channel 0 of a two-channel row: vpt_lerp_row_fg's chain on the corners'
+// first channel (the low bf16 of each word, or .x and .z of each float4).
+template <bool kBf16>
+__device__ __forceinline__ float vpt_lerp_row_fg(const VptRow2<kBf16>& r,
+                                                 float fx, float gx,
+                                                 float fy, float gy,
+                                                 float fz, float gz) {
+  float c[8];
+  if constexpr (kBf16) {
+    const uint32_t words[8] = {r.a.x, r.a.y, r.a.z, r.a.w,
+                               r.b.x, r.b.y, r.b.z, r.b.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) c[k] = __uint_as_float(words[k] << 16);
+  } else {
+    const float4 q[4] = {r.a, r.b, r.c, r.d};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      c[2 * k] = q[k].x;
+      c[2 * k + 1] = q[k].z;
+    }
+  }
+  const float cx0 = c[0] * gx + c[1] * fx;
+  const float cx1 = c[2] * gx + c[3] * fx;
+  const float cx2 = c[4] * gx + c[5] * fx;
+  const float cx3 = c[6] * gx + c[7] * fx;
+  const float cy0 = cx0 * gy + cx1 * fy;
+  const float cy1 = cx2 * gy + cx3 * fy;
+  return cy0 * gz + cy1 * fz;
+}
+
 template <bool kBf16, int kC, class Row>
 __device__ __forceinline__ VptRowOf<kBf16, kC> vpt_load_rows(
     const void* table, Row row) {

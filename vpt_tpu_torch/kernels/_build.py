@@ -95,13 +95,15 @@ SIGNATURES = {
     # prepared VptDosArgs; color, occlusion, scratch occlusion, depth,
     # max depth, slice distance, offsets, the table's rows or null; stream
     "vpt_dos_frame": [_P] * 10,
-    # bf16, TF mode, steps, disk taps, device, out
+    # flags (1 bf16, 2 ext of one channel, 4 of two), TF mode, steps, disk
+    # taps, device, out
     "vpt_dos_sweep_info": [_I, _I, _I, _I, _I, _P],
     # prepared VptLaoArgs, state; stream
     "vpt_lao_launch": [_P, _P, _P],
     # prepared VptLaoArgs, state, counts; stream
     "vpt_lao_count": [_P, _P, _P, _P],
-    # bf16 corner table, bf16 TF table, 64-bit rows, device, out
+    # flags (1 bf16 corner table, 2 ext of one channel, 4 of two, 8
+    # baked), bf16 TF table, 64-bit rows, device, out
     "vpt_lao_info": [_I, _I, _I, _I, _P],
 }
 
@@ -325,7 +327,7 @@ def scene_args(scene, table, what, ext: bool = False):
     the errors.
 
     ``ext``: the kernel has ext instances for two-channel and filtered
-    scenes (K5–K8); ``args`` then ends with (2D TF table or None, TH,
+    scenes (K5–K10); ``args`` then ends with (2D TF table or None, TH,
     channels, filter).  A two-channel scene passes its packed (TH·TW, 16)
     TF table, which must have the corner table's dtype; a filtered one
     must have float32 rows.  A kernel without them raises for such

@@ -20,7 +20,10 @@ over the slices (``vpt_tpu/renderers/dos.py:126-212``, the taps of
   stops at the first slice past the far depth; the state's occlusion
   tensor ends holding the last slice's buffer (copied back after an odd
   number of slices), and the kernel advances the state's depth in place by
-  the active slices.
+  the active slices.  A two-channel or filtered scene runs the kernel's
+  ext instance (the filtered fetch of ``csrc/ray.cuh``, its row of two
+  channels and the packed 2D TF), whose cooperative grid comes from that
+  instance's own residency.
 
 :func:`sweep_frame` takes the plain version for CPU state and launches the
 kernel for CUDA state; it raises on what the kernel does not take
@@ -97,7 +100,8 @@ def slice_rows_plain(depth, max_depth, slice_distance, projection, offsets,
 
 
 class _Args(ctypes.Structure):
-    """``VptDosArgs`` of ``csrc/dos_sweep.cu``."""
+    """``VptDosExt`` of ``csrc/dos_sweep.cu``: the ``VptDosArgs`` fields,
+    then the ext instances'."""
     _fields_ = ([(name, ctypes.c_void_p) for name in
                  ("table", "tf_row", "mvp", "projection")]
                 + [(name, ctypes.c_int) for name in
@@ -105,12 +109,16 @@ class _Args(ctypes.Structure):
                     "height", "samples", "steps")]
                 + [(name, ctypes.c_float) for name in
                    ("extinction", "tan_aperture")]
-                + [(name, ctypes.c_int) for name in ("blocks", "device")])
+                + [(name, ctypes.c_int) for name in ("blocks", "device")]
+                + [("tf_table", ctypes.c_void_p)]
+                + [(name, ctypes.c_int) for name in
+                   ("th", "channels", "filter")])
 
 
 def _fields(scene):
     return (scene.volume_packed, scene.transfer_1d, scene.mvp_inverse,
-            scene.projection, scene.tf_mxu)
+            scene.projection, scene.tf_mxu, scene.transfer_packed,
+            scene.filter)
 
 
 def _prepare(scene, key):
@@ -126,22 +134,26 @@ def _prepare(scene, key):
     if not 1 <= params.samples <= MAX_SAMPLES or params.steps < 1:
         raise ValueError(f"the DOS kernel takes 1 to {MAX_SAMPLES} disk "
                          "taps and at least one slice a frame")
-    tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp) = \
-        _build.scene_args(scene, scene.volume_packed, "DOS")
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, mvp, *ext) = \
+        _build.scene_args(scene, scene.volume_packed, "DOS", ext=True)
+    channels, filt = ext[2:]
     projection = scene.projection.to(torch.float32).contiguous()
     tan_aperture = float(dos._tan_aperture(params, scene.device))
     device = scene.volume.get_device()
     blocks = 0
     if device >= 0:
+        # the grid of the instance that will run: an ext instance may hold
+        # fewer blocks an SM than the headline's
         occ = occupancy(tensors[0].dtype, tf_mode, params.samples,
-                        params.steps, device)
+                        params.steps, device, channels=channels,
+                        filtered=filt != 0)
         blocks = occ["blocks_per_sm"] * occ["sms"]
         if blocks == 0:
             raise RuntimeError("the DOS kernel fits no block on an SM")
     args = _Args(table, row, mvp, projection.data_ptr(), bf16, d, h, w, tw,
                  tf_mode, width, height, params.samples, params.steps,
                  float(np.float32(params.extinction)), tan_aperture, blocks,
-                 device)
+                 device, *ext)
     return _build.Prepared(
         tensors=(*tensors, projection), args=args,
         address=ctypes.addressof(args), device=device,
@@ -212,16 +224,19 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
 
 
 def occupancy(table_dtype, tf_mode: int = 0, samples: int = 8,
-              steps: int = 50, device: int = 0) -> dict:
+              steps: int = 50, device: int = 0, channels: int = 1,
+              filtered: bool = False) -> dict:
     """The kernel's launch shape on CUDA ``device`` for a corner table of
     ``table_dtype``, the TF lookup mode ``tf_mode`` (``tf1d.mode_code``),
-    ``samples`` disk taps and ``steps`` slices a frame: threads a block,
+    ``samples`` disk taps, ``steps`` slices a frame and the fetch
+    (``channels`` 2, or ``filtered``: an ext instance): threads a block,
     resident blocks an SM (the cooperative grid is that times the SMs),
     SMs, registers and local (spill) bytes a thread, static and dynamic
     shared memory a block, and the slices whose rows a block holds at
     once.  Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) \
+        | 2 * (filtered and channels == 1) | 4 * (channels == 2)
     _build.check("vpt_dos_sweep_info", _build.library().vpt_dos_sweep_info(
-        int(table_dtype == torch.bfloat16), tf_mode, steps, samples, device,
-        out))
+        flags, tf_mode, steps, samples, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

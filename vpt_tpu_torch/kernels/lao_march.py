@@ -12,13 +12,18 @@ is
   computed once), the AO taps along the half-vector, the soft-shadow tap
   (the corner fetch of ``csrc/ray.cuh``), the 2D TF lookup of (value,
   |∇|) from the packed TF table and the composite, and leaves its loop once
-  the pixel is inactive; it writes the frame into the state.
+  the pixel is inactive; it writes the frame into the state.  A
+  two-channel or filtered scene, or ``baked_gradient``, runs the kernel's
+  ext instance: every read through the scene's filter, channel 0 of a row
+  of its channels, and with ``baked_gradient`` one two-channel read for
+  (value, |∇|) in place of the seven gradient reads.
 
 :func:`lao_frame` takes the plain version for CPU state and launches the
 kernel for CUDA state; it raises on what the kernel does not take
-(unpacked scenes, ``baked_gradient``, images of 2^31 pixels or more) and
-never falls back.  What a launch takes of the scene, the Params and the
-resolution it prepares once (``VptLaoArgs``, passed as one pointer),
+(unpacked scenes, ``baked_gradient`` on one channel, images of 2^31 pixels
+or more, ext scenes of :data:`ROWS32` rows or more) and never falls back.
+What a launch takes of the scene, the Params and the resolution it
+prepares once (``VptLaoArgs``, passed as one pointer),
 computing with the plain version's own functions on the scene's device what
 it needs of them: the per-pixel random value ``rx`` (an (H, W) tensor), the
 constant ``rconst``, the light and the AO taps, so that the kernel reads
@@ -65,11 +70,14 @@ class _Args(ctypes.Structure):
                    ("step", "extinction", "lao_weight", "soft_weight",
                     "light_radius", "light_coefficient", "lx", "ly", "lz",
                     "rconst")]
-                + [(name, ctypes.c_int) for name in ("device", "rows64")])
+                + [(name, ctypes.c_int) for name in ("device", "rows64")]
+                + [(name, ctypes.c_int) for name in
+                   ("channels", "filter", "baked")])
 
 
 def _fields(scene):
-    return (scene.volume_packed, scene.transfer_packed, scene.mvp_inverse)
+    return (scene.volume_packed, scene.transfer_packed, scene.mvp_inverse,
+            scene.filter)
 
 
 def _transfer_table(scene):
@@ -97,14 +105,25 @@ def _prepare(scene, key):
     from ..renderers import lao
 
     params, height, width = key
-    lao.check_params(params)
+    lao.check_params(params, scene)
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the LAO kernel indexes pixels "
                          "with 32-bit integers")
-    tensors, (table, bf16, d, h, w, _, _, _, mvp) = \
-        _build.scene_args(scene, scene.volume_packed, "LAO")
+    tensors, (table, bf16, d, h, w, _, _, _, mvp, _, _, channels, filt) = \
+        _build.scene_args(scene, scene.volume_packed, "LAO", ext=True)
     tf = _transfer_table(scene)
     th, tw = scene.transfer.shape[:2]
+    rows64 = int(d * h * w >= ROWS32)
+    if (channels, filt, params.baked_gradient) != (1, 0, False):
+        # the ext instances: 32-bit rows, and a TF of the rows' type
+        if rows64:
+            raise ValueError(f"{d}x{h}x{w}: the LAO kernel's two-channel "
+                             "and filtered instances index corner rows "
+                             "with 32-bit integers")
+        if tf.dtype != tensors[0].dtype:
+            raise ValueError("the LAO kernel's two-channel and filtered "
+                             "instances take a packed TF table of the "
+                             "corner table's dtype")
     device = scene.device
     rx = lao.pixel_random(height, width, device).contiguous()
     rconst = float(lao.random_constant(device))
@@ -125,7 +144,8 @@ def _prepare(scene, key):
                  f32(params.extinction), f32(params.lao_weight),
                  f32(params.soft_shadows_weight), f32(params.light_radius),
                  f32(params.light_coefficient), *light, rconst,
-                 scene.volume.get_device(), int(d * h * w >= ROWS32))
+                 scene.volume.get_device(), rows64, channels, filt,
+                 int(params.baked_gradient))
     lib = _build.library() if args.device >= 0 else None
     return _build.Prepared(
         tensors=(*tensors, tf, rx, taps), args=args,
@@ -181,16 +201,20 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
 
 
 def occupancy(table_dtype, tf_dtype=None, rows64: bool = False,
-              device: int = 0) -> dict:
+              device: int = 0, channels: int = 1, filtered: bool = False,
+              baked: bool = False) -> dict:
     """The kernel's launch shape on CUDA ``device`` for a corner table of
-    ``table_dtype``, a packed TF table of ``tf_dtype`` (default: the same)
-    and 32-bit (or, ``rows64``, 64-bit) row indices: threads a block,
+    ``table_dtype``, a packed TF table of ``tf_dtype`` (default: the same),
+    32-bit (or, ``rows64``, 64-bit) row indices and the fetch (``channels``
+    2, ``filtered`` or ``baked``: an ext instance): threads a block,
     resident blocks an SM, SMs, registers and local (spill) bytes a thread,
     static shared memory a block, its pixel tile and the AO taps it reads
     ahead of their fold.  Launches nothing."""
     tf_dtype = table_dtype if tf_dtype is None else tf_dtype
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) \
+        | 2 * (filtered and channels == 1) | 4 * (channels == 2) \
+        | 8 * bool(baked)
     _build.check("vpt_lao_info", _build.library().vpt_lao_info(
-        int(table_dtype == torch.bfloat16), int(tf_dtype == torch.bfloat16),
-        int(rows64), device, out))
+        flags, int(tf_dtype == torch.bfloat16), int(rows64), device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

@@ -43,14 +43,6 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to vpt_tpu_torch yet (ROADMAP.md {item})")
 
 
-def check_linear_single(scene, renderer: str):
-    """Raise for a two-channel or filtered scene, which ``renderer`` does
-    not take yet, on every device and before any launch."""
-    if scene.volume.shape[-1] > 1 or scene.filter != "linear":
-        raise _not_ported(f"{renderer} on multi-channel volumes and the "
-                          "nearest/cubic filters", "queue 1 item 13d")
-
-
 @dataclasses.dataclass
 class Scene:
     """The volume, the transfer function, the environment map and the camera

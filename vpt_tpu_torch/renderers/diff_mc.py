@@ -1,24 +1,25 @@
-"""Differentiable Monte-Carlo estimator for the MCM renderer.
+"""Differentiable Monte-Carlo estimators for the MCM and MCS renderers.
 
-Mirrors the MCM half of ``vpt_tpu/renderers/diff_mc.py``.  The forward MC
-machine samples discrete events, which have no pathwise derivative; this
-module re-runs the same event chains (same RNG streams, same branch
-outcomes) but multiplies each path's contribution by ratio weights
+Mirrors ``vpt_tpu/renderers/diff_mc.py``.  The forward MC machines sample
+discrete events, which have no pathwise derivative; this module re-runs
+the same event chains (same RNG streams, same branch outcomes) but
+multiplies each path's contribution by ratio weights
 ``w_k = p_k / detach(p_k)`` for every decision ``k`` with a probability that
 depends on the scene.  Each weight is 1 in value, so the image is the analog
 estimator's, and its gradient carries the score-function term: the gradient
 of the *expected* radiance, pathwise through the tints and TF colours and
 score through the weights.
 
-The frame is a Python loop of plain PyTorch events over the pixel grid.
-Unlike ``renderers/mcm.py`` it updates the state functionally, since
-autograd keeps the tensors of every event.  The scene's samplers put the
-kernels on the path: the volume fetch of a table that requires grad is the
-fused corner gather forward and the corner scatter backward
-(``sampling.CornerFetch``).  Positions are detached, as in JAX.
-
-Not ported: the MCS estimator (``mcs_generate``, ``mcs_expected_image``),
-which waits for the MCS renderer.
+An MCM frame is a Python loop of plain PyTorch events over the pixel grid;
+an MCS frame (:func:`mcs_generate`) its two tracking loops, masked scans
+of at most ``track_steps`` steps with the weights on the collision
+decisions.  Unlike ``renderers/mcm.py`` and ``mcs.py`` they update their
+state functionally, since autograd keeps the tensors of every event.  The
+scene's samplers put the kernels on the path: the volume fetch of a table
+that requires grad is the fused corner gather forward and the corner
+scatter backward (``sampling.CornerFetch``), and a table that does not
+(a TF fit) is read by the no-grad fused gather.  Positions are detached,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -28,9 +29,13 @@ import torch
 
 from .. import rng, sampling
 from ..utils import constant
-from . import mcm
-from .base import Scene, _not_ported
+from . import _march, mcm, mcs
+from .base import Scene
 
+#: leave a tracking scan of :func:`mcs_generate` once every pixel is done;
+#: off, the scans run all ``track_steps`` as JAX's do (the tests switch it
+#: off to hold the two equal)
+_EXIT_EARLY = True
 
 def _ratio(p, eps=1e-8, floor=None):
     """p / detach(p): value 1, gradient d log p.  ``floor`` drops the score
@@ -177,11 +182,117 @@ def mcm_expected_image(scene: Scene, params: mcm.Params, height: int,
     return state["radiance"]
 
 
-def mcs_generate(*args, **kwargs):
-    raise _not_ported("the differentiable MCS estimator (mcs_generate)",
-                      "queue 1 items 10 and 12")
+def mcs_generate(scene: Scene, params: mcs.Params, seed, height: int,
+                 width: int, track_steps: int = 128,
+                 score_floor: float | None = None):
+    """Differentiable twin of ``mcs.generate``, (H, W, 4): the same
+    tracking loops and RNG streams, with ratio weights on the collision
+    decisions (collide with probability α, continue with 1 − α) folded
+    into the colour; the collision-product transmittance's (1 − α) factors
+    are pathwise already.  ``score_floor``: see :func:`_ratio`.
+
+    Reverse-mode autograd needs a bounded loop, so each tracking loop is a
+    masked scan of ``track_steps`` steps, as in JAX: exact while every path
+    ends within the budget.  A scan ends once every pixel is done
+    (:data:`_EXIT_EARLY`): the steps after that change no value and add
+    zero cotangents, so values and gradients equal the full budget's
+    (``tests/test_torch_diff_mcs.py`` holds them equal); it reads one bool
+    back to the host a step."""
+    dev = scene.device
+    ndc = sampling.pixel_ndc(height, width, device=dev)
+    ray_from, ray_to = sampling.unproject(ndc, scene.mvp_inverse)
+    direction = ray_to - ray_from
+    dir_unit = direction / torch.sqrt(torch.clamp(
+        _march.dot3(direction, direction), min=1e-20))[..., None]
+    tb = torch.clamp(sampling.intersect_cube(ray_from, direction), min=0.0)
+    miss = tb[..., 0] >= tb[..., 1]
+    start = ray_from + tb[..., 0:1] * direction
+    end = ray_from + tb[..., 1:2] * direction
+    max_distance = torch.clamp(_march.segment_length(start, end), min=1e-20)
+    extinction = float(np.float32(params.extinction))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def alpha_at(pos):
+        return scene.sample_color(pos)[..., 3]
+
+    def sample_distance(state):
+        dist = torch.zeros_like(max_distance)
+        logw = torch.zeros_like(max_distance)
+        done = torch.zeros_like(max_distance, dtype=torch.bool)
+        for _ in range(track_steps):
+            if _EXIT_EARLY and bool(done.all()):
+                break
+            s1, d = rng.exponential(state, extinction)
+            ndist = dist + d
+            over = ndist > max_distance
+            pos = start + (ndist / max_distance)[..., None] * (end - start)
+            a = alpha_at(pos)
+            s2, u = rng.uniform(s1)
+            collide = ~over & (u < a.detach())
+            # decision weight: collide with probability a, continue 1 - a
+            p_taken = torch.where(collide, a, 1.0 - a)
+            step_logw = torch.log(_ratio(p_taken, floor=score_floor))
+            logw = logw + torch.where(~done & ~over, step_logw, zero)
+            state = torch.where(done, state, torch.where(over, s1, s2))
+            dist = torch.where(done, dist, ndist)
+            done = done | over | collide
+        return state, dist, logw
+
+    def sample_transmittance(state, seg_from, seg_to, max_dist):
+        dist = torch.zeros_like(max_dist)
+        trans = torch.ones_like(max_dist)
+        done = torch.zeros_like(max_dist, dtype=torch.bool)
+        for _ in range(track_steps):
+            if _EXIT_EARLY and bool(done.all()):
+                break
+            s1, d = rng.exponential(state, extinction)
+            ndist = dist + d
+            over = ndist > max_dist
+            pos = seg_from + (ndist / max_dist)[..., None] \
+                * (seg_to - seg_from)
+            active = ~done & ~over
+            state = torch.where(done, state, s1)
+            dist = torch.where(done, dist, ndist)
+            trans = torch.where(active, trans * (1.0 - alpha_at(pos)), trans)
+            done = done | over
+        return state, trans
+
+    scatter_dir = torch.tensor([float(x) for x in mcs.scatter_direction(
+        seed)], dtype=torch.float32, device=dev)
+    state = rng.seed_pixels(ndc * 0.5 + 0.5, np.float32(seed))
+    state, dist, logw = sample_distance(state)
+    escaped = dist > max_distance
+
+    # the scattering point and its shadow segment along the direction
+    spoint = start + (dist.detach() / max_distance)[..., None] \
+        * (end - start)
+    tb2 = torch.clamp(sampling.intersect_cube(spoint, scatter_dir), min=0.0)
+    sto = spoint + scatter_dir * tb2[..., 1:2]
+    sdist = torch.clamp(_march.segment_length(spoint, sto), min=1e-20)
+    diffuse = scene.sample_color(spoint)
+    light = scene.sample_env(scatter_dir)
+    state, trans = sample_transmittance(state, spoint, sto, sdist)
+
+    # the path weight: exp(logw) == 1 in value, carries the score gradient
+    w = torch.exp(logw)[..., None]
+    scatter_color = diffuse * light * trans[..., None] * w
+    env_color = scene.sample_env(dir_unit) * w
+    return torch.where((miss | escaped)[..., None], env_color, scatter_color)
 
 
-def mcs_expected_image(*args, **kwargs):
-    raise _not_ported("the differentiable MCS estimator "
-                      "(mcs_expected_image)", "queue 1 items 10 and 12")
+def mcs_expected_image(scene: Scene, params: mcs.Params, height: int,
+                       width: int, frames: int, seed0: float = 0.0,
+                       track_steps: int = 128,
+                       score_floor: float | None = None):
+    """Mean colour (H, W, 4) of ``frames`` :func:`mcs_generate` frames,
+    differentiable w.r.t. the scene's tables; frame ``i`` takes
+    :func:`frame_seed` ``(i, seed0)``, and the running mean divides by the
+    float32 ``i + 1``, as ``vpt_tpu``'s ``mcs_expected_image``."""
+    acc = torch.zeros((height, width, 4), dtype=torch.float32,
+                      device=scene.device)
+    for i in range(frames):
+        color = mcs_generate(scene, params, frame_seed(i, seed0), height,
+                             width, track_steps=track_steps,
+                             score_floor=score_floor)
+        acc = acc + (color - acc) / torch.full_like(acc, float(i + 1))
+    return acc

@@ -31,7 +31,7 @@ import torch
 from .. import math3d, rng, sampling
 from ..kernels import dos_sweep
 from ..utils import constant
-from .base import Scene, _not_ported, check_linear_single
+from .base import Scene, _not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,7 +242,6 @@ def render_frame(state, scene: Scene, params: Params, seed, frame_number,
     if ndc is not None or sample_occlusion is not None:
         raise _not_ported("DOS's sharding hooks (ndc=, sample_occlusion=)",
                           "queue 1 item 16")
-    check_linear_single(scene, "DOS")
     dos_sweep.sweep_frame(state, scene, params)
     return state
 

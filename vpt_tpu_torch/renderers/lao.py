@@ -15,8 +15,9 @@ not progressive: a frame replaces the state.
 (:func:`setup`, :func:`slice_active`, :func:`march_slice`, :func:`finish`);
 :func:`render_frame` runs the frame through ``kernels/lao_march.py`` (the
 plain frame on the CPU, one launch of the LAO kernel, K10, on the card),
-writing the state in place.  ``baked_gradient`` needs a two-channel volume,
-which the port does not take yet.
+writing the state in place.  ``baked_gradient`` reads (value, |∇|) from a
+two-channel volume baked with ``volume.with_lao_gradient`` in one fetch in
+place of the seven of the gradient.
 """
 
 from __future__ import annotations
@@ -31,8 +32,7 @@ from .. import math3d, rng, sampling
 from ..kernels import lao_march
 from ..utils import constant
 from . import _march
-from .base import (Scene, _not_ported, check_linear_single, cube_interval,
-                   state_device)
+from .base import Scene, cube_interval, state_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +49,10 @@ class Params:
     soft_shadows: bool = True
     num_shadow_samples: int = 10
     slices: int = 64
+    #: read (value, |∇|) from a two-channel volume baked with
+    #: ``volume.with_lao_gradient`` instead of the seven-tap central
+    #: difference a sample (the baked |∇| is the stencil's at voxel
+    #: centres, trilinearly interpolated between them)
     baked_gradient: bool = False
 
 
@@ -67,10 +71,13 @@ def reset(params: Params, height: int, width: int, scene: Scene = None):
     return acc
 
 
-def check_params(params: Params):
-    if params.baked_gradient:
-        raise _not_ported("LAO's baked_gradient (a two-channel volume)",
-                          "queue 1 item 13d")
+def check_params(params: Params, scene: Scene):
+    """Raise, before any launch, for ``baked_gradient`` on a volume of
+    fewer than two channels, as ``vpt_tpu`` does."""
+    if params.baked_gradient and scene.volume.shape[-1] < 2:
+        raise ValueError(
+            "baked_gradient needs a 2-channel (value, |grad|) volume — "
+            "bake one with volume.with_lao_gradient")
 
 
 def lao_taps(params: Params):
@@ -113,7 +120,7 @@ def setup(scene: Scene, params: Params, height: int, width: int):
     """What every slice of a frame reads: the rays, the per-pixel random
     value and what it fixes (the first ``t``, the AO direction, the shadow
     tap's offset and length), the light, the AO taps."""
-    check_params(params)
+    check_params(params, scene)
     # the cube alone: vpt_tpu's LAO clamps to no box
     _, miss, start, end = _march.rays(scene, height, width, cube_interval)
     rx = pixel_random(height, width, scene.device)
@@ -145,9 +152,14 @@ def march_slice(scene: Scene, params: Params, ctx, acc, i: int):
     accumulator."""
     t, active = slice_active(ctx, acc, i)
     position = ctx.start + t[..., None] * (ctx.end - ctx.start)
-    grad = scene.raw_gradient(position, VOXEL_SIZE)
-    grad_mag = torch.sqrt(_march.dot3(grad, grad))
-    value = scene.sample_value(position)
+    if params.baked_gradient:
+        # one fetch gives (value, baked |∇|)
+        rg = scene.sample_volume_rg(position)
+        value, grad_mag = rg[..., 0], rg[..., 1]
+    else:
+        grad = scene.raw_gradient(position, VOXEL_SIZE)
+        grad_mag = torch.sqrt(_march.dot3(grad, grad))
+        value = scene.sample_value(position)
 
     lao = torch.zeros_like(value)
     if params.local_ambient_occlusion:
@@ -218,7 +230,6 @@ def generate(scene: Scene, params: Params, seed, height: int, width: int):
 def render_frame(state, scene: Scene, params: Params, seed, frame_number):
     """LAO's integrate replaces the accumulator with the frame (integrate
     fragment:226), in place."""
-    check_linear_single(scene, "LAO")
     lao_march.lao_frame(state, scene, params)
     return state
 

@@ -396,6 +396,14 @@ def central_raw_gradient(sample_value_fn, position, voxel_size):
     return torch.stack(grads, dim=-1)
 
 
+def raw_gradient(volume, position, voxel_size):
+    """:func:`central_raw_gradient` of channel 0 of a (D, H, W, C) volume
+    through the GL trilinear sampler (:func:`sample_volume`), LAO's
+    convention: ``vpt_tpu.sampling.raw_gradient``."""
+    return central_raw_gradient(
+        lambda p: sample_volume(volume, p)[..., 0], position, voxel_size)
+
+
 def henyey_greenstein_cosine(state, g):
     """HG scattering-angle cosine (MCMRenderer.glsl:91-95)."""
     state, u = rng.uniform(state)

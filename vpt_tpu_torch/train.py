@@ -1,16 +1,16 @@
 """Inverse rendering through the Monte-Carlo estimator: fit voxel densities
 and/or the transfer-function texture to a target image.
 
-Mirrors ``fit_mc(renderer="mcm")`` of ``vpt_tpu/train.py:95-190``, with
-``optax.adam`` replaced by ``torch.optim.Adam`` (the same defaults: betas
-0.9 and 0.999, eps 1e-8).  The corner tables are packed inside the
-differentiated graph at fold 0: one corner-row gather per event forward
-(K3) and one corner scatter-add per event backward (K4).  The scatter fold
-of the JAX fit (``sampling.scatter_fold_log2``) is a TPU layout and is not
-ported.
+Mirrors ``fit_mc`` of ``vpt_tpu/train.py:95-190`` (``renderer="mcm"`` and
+``"mcs"``), with ``optax.adam`` replaced by ``torch.optim.Adam`` (the same
+defaults: betas 0.9 and 0.999, eps 1e-8).  The corner tables are packed
+inside the differentiated graph at fold 0: one corner-row gather per event
+forward (K3) and one corner scatter-add per event backward (K4).  The
+scatter fold of the JAX fit (``sampling.scatter_fold_log2``) is a TPU
+layout and is not ported.
 
 Not ported yet: the EAM fit (``fit``, ``make_train_step``, ``render_eam``),
-which waits for the EAM renderer, and ``fit_mc(renderer="mcs")``.
+which waits for the EAM renderer.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from . import sampling
 from .renderers import diff_mc
 from .renderers import mcm as mcm_mod
+from .renderers import mcs as mcs_mod
 from .renderers.base import _not_ported, transfer_row
 
 #: default estimator extinctions fit_mc uses when no Params are passed
@@ -46,13 +47,15 @@ def fit_scene(scene_template, volume=None, tf=None):
 
 
 def mc_loss(leaves, scene_template, target, params, frames, seed0):
-    """Mean squared error of the expected MC image against ``target``'s
-    RGB, for the fit leaves ``{"volume": ..., "tf": ...}``."""
+    """Mean squared error of the expected MC image (MCM's for
+    ``mcm.Params``, MCS's for ``mcs.Params``) against ``target``'s RGB,
+    for the fit leaves ``{"volume": ..., "tf": ...}``."""
     sc = fit_scene(scene_template, leaves.get("volume"), leaves.get("tf"))
     height, width = target.shape[:2]
-    img = diff_mc.mcm_expected_image(sc, params, height, width, frames,
-                                     seed0=seed0)
-    return torch.mean((img - target[..., :3]) ** 2)
+    expected = diff_mc.mcs_expected_image \
+        if isinstance(params, mcs_mod.Params) else diff_mc.mcm_expected_image
+    img = expected(sc, params, height, width, frames, seed0=seed0)
+    return torch.mean((img[..., :3] - target[..., :3]) ** 2)
 
 
 def _float32(x, device):
@@ -65,18 +68,21 @@ def fit_mc(target, scene_template, init_volume=None, init_tf=None,
            renderer: str = "mcm", params=None, frames: int = 64,
            steps: int = 50, learning_rate: float = 0.02,
            verbose: bool = False):
-    """Inverse rendering through the MC estimator (BASELINE config 3:
-    voxel-density gradients through MCM).  Optimizes the voxel grid and/or
-    the TF texture so that the expected MCM radiance matches ``target``,
-    with the ratio-weight estimator of :mod:`renderers.diff_mc`, on the
-    device of ``scene_template``.  Each step draws a fresh seed stream,
-    takes one Adam step and clips the leaves to [0, 1].  Returns
+    """Inverse rendering through the MC estimators (BASELINE config 3:
+    voxel-density gradients through MCM; ``renderer="mcs"``: BASELINE's
+    MCS single scattering with differentiable TF parameters).  Optimizes
+    the voxel grid and/or the TF texture so that the expected MC radiance
+    matches ``target``, with the ratio-weight estimators of
+    :mod:`renderers.diff_mc`, on the device of ``scene_template``.  Each
+    step draws a fresh seed stream, takes one Adam step and clips the
+    leaves to [0, 1].  Returns
     ``(volume, tf, losses)``; a leaf that was not fitted comes back None."""
     if renderer == "mcm":
         params = params or mcm_mod.Params(
             extinction=MC_FIT_EXTINCTION["mcm"], steps=16)
     elif renderer == "mcs":
-        raise _not_ported("fit_mc(renderer='mcs')", "queue 1 items 10 and 12")
+        params = params or mcs_mod.Params(
+            extinction=MC_FIT_EXTINCTION["mcs"])
     else:
         raise ValueError("fit_mc supports 'mcm' and 'mcs'")
     if init_volume is None and init_tf is None:
