@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's renderers (MCM, EAM, MIP, Depth, ISO,
-MCS, DOS, LAO), its ``cli render`` and its differentiable MCM and MCS fits
+MCS, DOS, LAO), its ``cli render``, its differentiable MCM and MCS fits
+and its ``cli fit`` (EAM, ISO depth, MCM with the occlusion completion)
 once on one GPU.
 
     python3 chip_smoke.py
@@ -157,8 +158,29 @@ prints no result:
    under half of the card's); the seconds an Adam step, the peak memory
    and the K3/K4 launches a step; one profiled value-and-grad, and one
    with the early exit against one with the full tracking budget;
-13. every kernel launched on its path (8, 10, 10a–c, 11, 12 or 12a); the
-    JSON line says which call launched each, and ``launches_cli`` its
+12b. the inverse-rendering entry point, ``cli fit`` in-process, each
+   path with every launch counter at 0 first (:func:`phase_fit_eam_path`,
+   :func:`phase_fit_iso_path`, :func:`phase_inpaint_path`):
+   ``path fit eam`` (BASELINE config 1): ``blobs_volume(64)`` and 256²
+   PNG targets from 4 orbit views by ``train.render_eam`` under
+   ``no_grad``; one value-and-grad of the 4-view loss with the kernels
+   against ``kernels=False`` (loss within 1e-6 relative, gradient within
+   1e-4 relative L2, K3 and K4 launched, K1 not); then ``cli fit --grid
+   64 --eam-slices 64 --steps 5 --inpaint-blind``;
+   ``path fit iso`` (BASELINE config 2): ``sphere_volume(128)``, a 256²
+   depth ``.npy`` by ``diff_iso.render`` under ``no_grad``; the same check
+   of ``depth_loss`` at 64² and at 256² with the isovalue as a leaf; then
+   ``cli fit --method iso-depth --grid 128 --steps 5``;
+   ``path inpaint`` (config 3): a 256² PNG of ``blobs_volume(256)`` by
+   ``mcm_expected_image``, then ``cli fit --method mcm --grid 256
+   --mc-frames 16 --steps 3 --inpaint``;
+   each prints the seconds an Adam step, the peak memory and the K3/K4
+   launches a step (:class:`StepWatch`), ``path fit eam`` the blind tau
+   table, ``path inpaint`` the seconds of ``complete_occluded`` on the
+   256³ fitted volume and the filled share.  Cuts: Adam steps 200 → 5, 5
+   and 3, MC frames 32 → 16, for this script's time limit;
+13. every kernel launched on its path (8, 10, 10a–c, 11, 12, 12a or 12b);
+    the JSON line says which call launched each, and ``launches_cli`` its
     launches on the ``cli render`` calls of 11.
 
 Then one JSON line with each kernel's launches, error, loop time per call
@@ -3268,14 +3290,9 @@ def phase_fit_mcs_path(dev, counters):
 
 def fit_mcs_profile(truth, init, target, params, frames=2):
     """Where an MCS TF fit's value-and-grad spends its time: one at
-    ``frames`` frames under torch.profiler, its wall time, the card's
-    busy time (the kernels' device time summed) and the five operators
-    with the most device time and with the most host time.  Returns the
-    card's busy share of the wall time."""
+    ``frames`` frames under :func:`profile_busy`.  Returns the card's busy
+    share of the wall time."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from vpt_tpu_torch import train
 
@@ -3283,13 +3300,29 @@ def fit_mcs_profile(truth, init, target, params, frames=2):
         leaf = init.clone().requires_grad_(True)
         train.mc_loss({"tf": leaf}, truth, target, params, frames,
                       np.float32(0.1)).backward()
+
+    return profile_busy(f"fit mcs profile, one value-and-grad of {frames} "
+                        "frames", step)
+
+
+def profile_busy(label, step):
+    """One call of ``step`` (after a warm-up call) under torch.profiler:
+    its wall time, the card's busy time (the kernels' device time summed)
+    and the five operators with the most device time and with the most
+    host time.  Returns the card's busy share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        step()
         torch.cuda.synchronize()
 
-    step()
+    run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -3300,9 +3333,8 @@ def fit_mcs_profile(truth, init, target, params, frames=2):
     top_host = sorted((e for e in events
                        if e.device_type == DeviceType.CPU),
                       key=lambda e: -e.self_cpu_time_total)[:5]
-    print(f"fit mcs profile, one value-and-grad of {frames} frames: "
-          f"{wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernels on the card "
-          f"({busy_ms / wall_ms:.4f} busy); most device time: "
+    print(f"{label}: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernels on "
+          f"the card ({busy_ms / wall_ms:.4f} busy); most device time: "
           + ", ".join(f"{e.key} {e.device_time_total / 1e3:.3f} ms "
                       f"({e.count} calls)" for e in top_device)
           + "; most host time: "
@@ -3350,6 +3382,404 @@ def fit_mcs_exit(truth, init, target, params, frames=2):
           f"{'equal' if torch.equal(exit_grad, full_grad) else 'not equal'}"
           " bit for bit", flush=True)
     return exit_s, full_s, rel
+
+
+# -- the inverse-rendering entry point: cli fit (eam, iso-depth, --inpaint) --
+
+#: ``path fit eam``: BASELINE config 1's EAM fit (a 64³ volume, 256²
+#: images); Adam steps cut from cli fit's default 200 to 5
+FIT_EAM_VOLUME, FIT_EAM_RES, FIT_EAM_STEPS = 64, 256, 5
+#: ``path fit iso``: BASELINE config 2's ISO depth fit (128³, a 256² depth
+#: map); Adam steps cut from 200 to 5
+FIT_ISO_VOLUME, FIT_ISO_RES, FIT_ISO_STEPS = 128, 256, 5
+#: ``--inpaint``: config 3's MCM fit and completion (256³, 256²); Adam
+#: steps cut from 200 to 3, MC frames from cli fit's default 32 to 16
+INPAINT_VOLUME, INPAINT_RES, INPAINT_STEPS, INPAINT_FRAMES = 256, 256, 3, 16
+
+
+class StepWatch:
+    """Wrap ``module.<name>`` (a fit's loss, called once an Adam step) for
+    a ``with`` block: at each call, after a synchronize, record the host
+    clock and every launch counter.  The intervals between calls are whole
+    steps (the loss, its backward and the Adam update)."""
+
+    def __init__(self, module, name, counters):
+        self.module, self.name, self.counters = module, name, counters
+        self.marks = []
+
+    def __enter__(self):
+        import torch
+
+        self.orig = getattr(self.module, self.name)
+
+        def watched(*args, **kwargs):
+            torch.cuda.synchronize()
+            self.marks.append((time.perf_counter(),
+                               {k: m.LAUNCHES
+                                for k, m in self.counters.items()}))
+            return self.orig(*args, **kwargs)
+
+        setattr(self.module, self.name, watched)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def per_step(self):
+        """(seconds a step, {kernel: launches a step}) over the intervals
+        between the recorded calls."""
+        check(len(self.marks) >= 2, f"{self.name} ran fewer than 2 steps")
+        (t0, c0), (t1, c1) = self.marks[0], self.marks[-1]
+        n = len(self.marks) - 1
+        return (t1 - t0) / n, {k: (c1[k] - c0[k]) / n for k in c0}
+
+
+def fit_grad_check(label, loss_fn, leaves, counters):
+    """One value-and-grad of ``loss_fn(leaves, kernels)`` with the kernels
+    and with ``kernels=False`` on the card: the loss within 1e-6 relative,
+    each leaf's gradient finite, not all zero and within 1e-4 relative L2;
+    K3 and K4 launched, K1 (no gradient) not.  Returns the largest
+    gradient error and the kernels' launches."""
+    import torch
+
+    out = []
+    for kernels in (True, False):
+        grads = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in leaves.items()}
+        before = {k: m.LAUNCHES for k, m in counters.items()}
+        loss = loss_fn(grads, kernels)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: m.LAUNCHES - before[k] for k, m in counters.items()}
+        out.append((loss.item(), {k: g.grad for k, g in grads.items()},
+                    launched))
+    (loss, grads, launched), (plain_loss, plain_grads, plain_launched) = out
+    check(abs(loss - plain_loss) <= 1e-6 * abs(plain_loss),
+          f"{label}: loss {loss} against {plain_loss} with kernels=False")
+    check(launched["corner_gather"] > 0 and launched["corner_scatter"] > 0,
+          f"{label}: K3/K4 not launched: {launched}")
+    check(launched["tf1d_lookup"] == 0,
+          f"{label}: the TF-lookup kernel (no gradient) was launched")
+    check(not any(plain_launched.values()),
+          f"{label}: kernels=False launched {plain_launched}")
+    errs = {}
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"{label}: the {k} gradient is not finite or all zero")
+        want = plain_grads[k]
+        errs[k] = float((g - want).norm() / want.norm())
+        check(errs[k] <= 1e-4, f"{label}: {k} gradient relative L2 error "
+              f"{errs[k]}")
+    print(f"{label}: loss {loss!r}, kernels=False {plain_loss!r} (relative "
+          f"{abs(loss - plain_loss) / abs(plain_loss):.3g}, bound 1e-6); "
+          "gradients relative L2 "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + " (bound 1e-4); launches corner_gather "
+          f"{launched['corner_gather']}, corner_scatter "
+          f"{launched['corner_scatter']}, tf1d_lookup 0", flush=True)
+    return max(errs.values()), launched
+
+
+def _fit_out():
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke", "fit")
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
+def _fitted(path, shape, label):
+    import numpy as np
+
+    vol = np.load(path)
+    check(vol.shape == shape and bool(np.isfinite(vol).all())
+          and float(vol.min()) >= 0.0 and float(vol.max()) <= 1.0,
+          f"{label}: {path} is not a finite {shape} volume in [0, 1]")
+    return vol
+
+
+def phase_fit_eam_path(dev, counters):
+    """``path fit eam`` (BASELINE config 1), every launch counter at 0
+    first: ``blobs_volume(64)`` with ``gray_ramp(alpha_scale=1.0)`` as
+    truth, 256² targets from 4 orbit views (yaw 0/90/180/270, cli fit's
+    camera) rendered by ``train.render_eam`` under ``no_grad`` (64
+    slices) and written as PNGs; one value-and-grad of the 4-view loss
+    from cli fit's flat 0.1 init with the kernels against
+    ``kernels=False``; then ``cli fit --grid 64 --eam-slices 64 --steps 5
+    --inpaint-blind`` on the PNGs in-process (3 fit views, the last held
+    out): seconds an Adam step, peak memory, K3/K4 launches a step and the
+    blind tau table.  Returns the path's launches and K3's and K4's
+    fields."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import train, transfer, volume
+    from vpt_tpu_torch.io.image import write_png
+    from vpt_tpu_torch.renderers import eam
+    from vpt_tpu_torch.runtime.animators import OrbitCameraAnimator
+    from vpt_tpu_torch.scene import CameraState, default_camera
+
+    for module in counters.values():
+        module.LAUNCHES = 0
+    n, res, steps = FIT_EAM_VOLUME, FIT_EAM_RES, FIT_EAM_STEPS
+    out = _fit_out()
+    truth = volume.blobs_volume(n).data
+    tf = transfer.gray_ramp(alpha_scale=1.0)
+    params = eam.Params(slices=64, random=False)
+    cam = default_camera()
+    orbit = OrbitCameraAnimator(cam)
+    views, targets, pngs = [], [], []
+    t0 = time.perf_counter()
+    for i, yaw in enumerate((0.0, 90.0, 180.0, 270.0)):
+        orbit.yaw = math.radians(yaw)
+        orbit.pitch = 0.0
+        orbit._update_camera()
+        cs = CameraState.from_nodes(cam)
+        views.append((cs.mvp_inverse, cs.model_view, cs.projection))
+        with torch.no_grad():
+            targets.append(train.render_eam(truth, tf, views[-1], params,
+                                            np.float32(0.0), res, res))
+        pngs.append(os.path.join(out, f"eam_view{i}.png"))
+        write_png(pngs[-1], targets[-1])
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) and float(t[..., :3].max()) > 0
+              for t in targets), "fit eam: a target is not finite or black")
+    print(f"fit eam targets: {n}^3 blobs, 4 views {res}^2, 64 slices, under "
+          f"no_grad in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    init = torch.full((n, n, n, 1), 0.1, device=dev)
+    err, _ = fit_grad_check(
+        f"fit eam value-and-grad 4 views {res}^2 {n}^3",
+        lambda leaves, kernels: train.multiview_loss(
+            leaves["volume"], tf, views, targets, params, np.float32(0.0),
+            kernels=kernels),
+        {"volume": init}, counters)
+
+    def value_and_grad():
+        leaf = init.clone().requires_grad_(True)
+        train.multiview_loss(leaf, tf, views[:3], targets[:3], params,
+                             np.float32(0.0)).backward()
+
+    busy = profile_busy(f"fit eam profile, one value-and-grad of 3 views "
+                        f"{res}^2 {n}^3", value_and_grad)
+    held = {name: m.LAUNCHES for name, m in counters.items()}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["fit", "--target", *pngs, "--grid", str(n), "--eam-slices", "64",
+            "--steps", str(steps), "--inpaint-blind", "-o",
+            os.path.join(out, "eam")]
+    t0 = time.perf_counter()
+    with StepWatch(train, "multiview_loss", counters) as watch:
+        lines, launches, _ = run_cli(argv, counters)
+    call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s, per_step = watch.per_step()
+    check(per_step["tf1d_lookup"] == 0 and per_step["corner_gather"] > 0
+          and per_step["corner_scatter"] > 0,
+          f"fit eam: launches a step {per_step}")
+    _fitted(os.path.join(out, "eam.npy"), (n, n, n, 1), "fit eam")
+    check(os.path.getsize(os.path.join(out, "eam.png")) > 0,
+          "fit eam: no PNG")
+    table = next((ln for ln in lines if ln.startswith("blind tau")), None)
+    chosen = next((ln for ln in lines if ln.startswith("chosen tau")), None)
+    final = next((ln for ln in lines if ln.startswith("final loss")), None)
+    check(table is not None and chosen is not None and final is not None,
+          f"fit eam: cli fit printed {lines}")
+    print(f"path fit eam: cli fit {n}^3, 3 fit views + 1 held out at "
+          f"{res}^2, 64 slices, {steps} Adam steps, --inpaint-blind: "
+          f"{call_s:.3f} s the call, {step_s:.4f} s an Adam step (host "
+          f"clock), peak memory {peak:.3f} GiB; launches a step: "
+          f"corner_gather {per_step['corner_gather']:.1f}, corner_scatter "
+          f"{per_step['corner_scatter']:.1f}, tf1d_lookup 0; {final}; "
+          f"{table}; {chosen}", flush=True)
+    launches = {k: launches[k] + held[k] for k in launches}
+    rows = {name: {"launches_fit_eam": launches[name],
+                   "launches_fit_eam_step": per_step[name],
+                   "launches_fit_eam_checks": held[name]}
+            for name in ("corner_gather", "corner_scatter")}
+    rows["corner_gather"].update({
+        "fit_eam_step_s": step_s, "fit_eam_peak_gib": peak,
+        "fit_eam_call_s": call_s, "fit_eam_grad_rel_l2": err,
+        "fit_eam_device_busy": busy, "fit_eam_blind": chosen})
+    return launches, rows
+
+
+def phase_fit_iso_path(dev, counters):
+    """``path fit iso`` (BASELINE config 2), every launch counter at 0
+    first: ``sphere_volume(128)`` truth with ``gray_ramp(alpha_scale=1.0)``,
+    a 256² depth map from ``diff_iso.render`` under ``no_grad`` saved as
+    ``.npy``; one value-and-grad of ``diff_iso.depth_loss`` at 64² and one
+    at 256² (the fit's own shape) with the volume and a tensor isovalue as
+    leaves, the kernels against ``kernels=False``; then ``cli fit --method iso-depth --grid 128
+    --steps 5``: seconds an Adam step, peak memory, K3/K4 launches a step.
+    Returns the path's launches and K3's and K4's fields."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import diff_iso, make_scene
+
+    for module in counters.values():
+        module.LAUNCHES = 0
+    n, res, steps = FIT_ISO_VOLUME, FIT_ISO_RES, FIT_ISO_STEPS
+    out = _fit_out()
+    tf = transfer.gray_ramp(alpha_scale=1.0)
+    truth = make_scene(volume.sphere_volume(n), tf, pack=False)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        depth = diff_iso.render(truth, diff_iso.Params(), res, res)["depth"]
+        small = diff_iso.render(truth, diff_iso.Params(), 64, 64)["depth"]
+    torch.cuda.synchronize()
+    hits = float((depth >= 0).float().mean())
+    check(bool(torch.isfinite(depth).all()) and 0.0 < hits < 1.0,
+          "fit iso: the depth map is not finite or has no hit")
+    npy = os.path.join(out, "depth.npy")
+    np.save(npy, depth.cpu().numpy())
+    print(f"fit iso target: {n}^3 sphere, {res}^2 depth map under no_grad "
+          f"in {time.perf_counter() - t0:.3f} s, {hits:.4f} of the pixels "
+          "in the cube", flush=True)
+
+    template = make_scene(torch.full((n, n, n, 1), 0.1, device=dev), tf,
+                          pack=False)
+    init = 0.1 + 0.8 * volume.blobs_volume(n, seed=5).data
+    isovalue = torch.tensor(0.45, device=dev)
+
+    def loss_fn(target):
+        def fn(leaves, kernels):
+            params = diff_iso.Params(isovalue=leaves["isovalue"])
+            sc = dataclasses.replace(template, kernels=kernels)
+            return diff_iso.depth_loss(leaves["volume"], sc, params, target,
+                                       *target.shape)
+        return fn
+
+    # at 64² and at the fit's own 256², the shapes cli fit's steps give K3
+    # and K4
+    err = max(fit_grad_check(
+        f"fit iso value-and-grad {t.shape[0]}^2 {n}^3", loss_fn(t),
+        {"volume": init, "isovalue": isovalue}, counters)[0]
+        for t in (small, depth))
+    held = {name: m.LAUNCHES for name, m in counters.items()}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["fit", "--target", npy, "--method", "iso-depth", "--grid",
+            str(n), "--steps", str(steps), "-o", os.path.join(out, "iso")]
+    t0 = time.perf_counter()
+    with StepWatch(diff_iso, "depth_loss", counters) as watch:
+        lines, launches, _ = run_cli(argv, counters)
+    call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s, per_step = watch.per_step()
+    check(per_step["tf1d_lookup"] == 0 and per_step["corner_gather"] > 0
+          and per_step["corner_scatter"] > 0,
+          f"fit iso: launches a step {per_step}")
+    _fitted(os.path.join(out, "iso.npy"), (n, n, n, 1), "fit iso")
+    final = next((ln for ln in lines if ln.startswith("final depth")), None)
+    check(final is not None, f"fit iso: cli fit printed {lines}")
+    print(f"path fit iso: cli fit --method iso-depth {n}^3, {res}^2, "
+          f"{steps} Adam steps: {call_s:.3f} s the call, {step_s:.4f} s an "
+          f"Adam step (host clock), peak memory {peak:.3f} GiB; launches a "
+          f"step: corner_gather {per_step['corner_gather']:.1f}, "
+          f"corner_scatter {per_step['corner_scatter']:.1f}, tf1d_lookup 0; "
+          f"{final}", flush=True)
+    launches = {k: launches[k] + held[k] for k in launches}
+    rows = {name: {"launches_fit_iso": launches[name],
+                   "launches_fit_iso_step": per_step[name],
+                   "launches_fit_iso_checks": held[name]}
+            for name in ("corner_gather", "corner_scatter")}
+    rows["corner_gather"].update({
+        "fit_iso_step_s": step_s, "fit_iso_peak_gib": peak,
+        "fit_iso_call_s": call_s, "fit_iso_grad_rel_l2": err})
+    return launches, rows
+
+
+def phase_inpaint_path(dev, counters):
+    """``--inpaint`` (config 3's completion), every launch counter at 0
+    first: a 256² PNG of ``blobs_volume(256)`` under
+    ``gray_ramp(alpha_scale=1.0)`` (``mcm_expected_image`` at fit_mc's
+    default Params, 16 frames, under ``no_grad``), then ``cli fit --method
+    mcm --grid 256 --mc-frames 16 --steps 3 --inpaint``: seconds an Adam
+    step, peak memory, the seconds of ``inpaint.complete_occluded`` on the
+    256³ fitted volume and the filled share.  Returns the path's launches
+    and K3's and K4's fields."""
+    import torch
+
+    from vpt_tpu_torch import inpaint, train, transfer, volume
+    from vpt_tpu_torch.io.image import write_png
+    from vpt_tpu_torch.renderers import diff_mc, make_scene, mcm
+
+    for module in counters.values():
+        module.LAUNCHES = 0
+    n, res, steps, frames = (INPAINT_VOLUME, INPAINT_RES, INPAINT_STEPS,
+                             INPAINT_FRAMES)
+    out = _fit_out()
+    truth = make_scene(volume.blobs_volume(n),
+                       transfer.gray_ramp(alpha_scale=1.0))
+    params = mcm.Params(extinction=train.MC_FIT_EXTINCTION["mcm"], steps=16)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        target = diff_mc.mcm_expected_image(truth, params, res, res, frames)
+    png = os.path.join(out, "mcm_target.png")
+    write_png(png, target)
+    print(f"inpaint target: {n}^3 blobs, {res}^2, steps 16 x {frames} "
+          f"frames under no_grad and a PNG in {time.perf_counter() - t0:.3f} "
+          f"s", flush=True)
+    del truth, target
+    torch.cuda.empty_cache()
+
+    fill = {}
+    complete = inpaint.complete_occluded
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = complete(*args, **kwargs)
+        torch.cuda.synchronize()
+        fill["s"] = time.perf_counter() - t
+        fill["share"] = float(result[1].float().mean())
+        return result
+
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["fit", "--target", png, "--method", "mcm", "--grid", str(n),
+            "--mc-frames", str(frames), "--steps", str(steps), "--inpaint",
+            "-o", os.path.join(out, "mcm")]
+    inpaint.complete_occluded = timed
+    t0 = time.perf_counter()
+    try:
+        with StepWatch(train, "mc_loss", counters) as watch:
+            lines, launches, _ = run_cli(argv, counters)
+    finally:
+        inpaint.complete_occluded = complete
+    call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s, per_step = watch.per_step()
+    check("s" in fill, "inpaint: cli fit did not complete the volume")
+    check(per_step["corner_gather"] > 0 and per_step["corner_scatter"] > 0,
+          f"inpaint: launches a step {per_step}")
+    _fitted(os.path.join(out, "mcm.npy"), (n, n, n, 1), "inpaint")
+    said = next((ln for ln in lines if ln.startswith("inpainted")), None)
+    check(said is not None, f"inpaint: cli fit printed {lines}")
+    print(f"path inpaint: cli fit --method mcm {n}^3, {res}^2, {frames} "
+          f"frames, {steps} Adam steps, --inpaint: {call_s:.3f} s the call, "
+          f"{step_s:.4f} s an Adam step (host clock), peak memory "
+          f"{peak:.3f} GiB; complete_occluded on the {n}^3 fitted volume "
+          f"{fill['s']:.4f} s, {fill['share']:.6f} of the voxels filled "
+          f"({said}); launches a step: corner_gather "
+          f"{per_step['corner_gather']:.1f}, corner_scatter "
+          f"{per_step['corner_scatter']:.1f}", flush=True)
+    rows = {name: {"launches_inpaint": launches[name],
+                   "launches_inpaint_step": per_step[name]}
+            for name in ("corner_gather", "corner_scatter")}
+    rows["corner_gather"].update({
+        "inpaint_step_s": step_s, "inpaint_peak_gib": peak,
+        "inpaint_call_s": call_s, "inpaint_fill_s": fill["s"],
+        "inpaint_filled_share": fill["share"]})
+    torch.cuda.empty_cache()
+    return launches, rows
 
 
 # -- the serving entry point: cli render (the slice's main path) -----------
@@ -3803,13 +4233,24 @@ def run():
     print(f"path fit mcs: {time.perf_counter() - t0:.1f} s", flush=True)
     k3.update(fit_mcs_rows["corner_gather"])
     k4.update(fit_mcs_rows["corner_scatter"])
+    inverse = {}
+    for key, phase in (("fit eam", phase_fit_eam_path),
+                       ("fit iso", phase_fit_iso_path),
+                       ("inpaint", phase_inpaint_path)):
+        t0 = time.perf_counter()
+        inverse[key], rows_of = phase(dev, counters)
+        k3.update(rows_of["corner_gather"])
+        k4.update(rows_of["corner_scatter"])
+        print(f"path {key}: {time.perf_counter() - t0:.1f} s", flush=True)
     for path, launches, names in (
             ("forward render", render_launches,
              ("mcm_event", "tf1d_lookup", "tonemap", "corner_gather")),
             ("fit", fit_launches,
              ("corner_gather", "corner_scatter", "tf1d_lookup")),
             ("fit mcs", fit_mcs_launches,
-             ("corner_gather", "corner_scatter"))):
+             ("corner_gather", "corner_scatter")),
+            *((key, launches, ("corner_gather", "corner_scatter"))
+              for key, launches in inverse.items())):
         for name in names:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -3842,7 +4283,11 @@ def run():
                         "path); train.fit_mc(renderer='mcs'): the no-grad "
                         "fetch of every tracking step of the TF fit, and "
                         "CornerFetch in its 64^2 volume-gradient check "
-                        "(fit mcs path); Scene.sample_color (render path)",
+                        "(fit mcs path); cli fit: CornerFetch forward, one "
+                        "a chunk of 8 slices a view (fit eam path), one a "
+                        "diff_iso render (fit iso path), one an event of "
+                        "the MCM fit (inpaint path); Scene.sample_color "
+                        "(render path)",
          **k3},
         {"name": "corner_scatter", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/corner_scatter.cu",
@@ -3850,7 +4295,9 @@ def run():
          "launched_by": "train.fit_mc: sampling.CornerFetch backward, one "
                         "corner_grad per event (fit path); the backward of "
                         "mcs_expected_image's volume gradient, one a "
-                        "tracking step (fit mcs path)", **k4},
+                        "tracking step (fit mcs path); cli fit: the "
+                        "backward of each CornerFetch above (fit eam, fit "
+                        "iso and inpaint paths)", **k4},
         {"name": "march_frame", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/march.cu",
          "replaces": "vpt_tpu/renderers/_march.py:29",
@@ -3885,7 +4332,8 @@ def run():
     for row in rows:
         if row["name"].startswith("corner"):
             row["launches"] = fit_launches[row["name"]] \
-                + fit_mcs_launches[row["name"]]
+                + fit_mcs_launches[row["name"]] \
+                + sum(got[row["name"]] for got in inverse.values())
             row["launches_fit_mcm"] = fit_launches[row["name"]]
         elif row["name"] in ("march_frame", "iso_shade", "mcs_frame",
                              "dos_sweep", "lao_march"):

@@ -43,6 +43,18 @@ from vpt_tpu_torch.kernels import iso_shade, march, mcm_event, mcs_frame
 from vpt_tpu_torch.renderers import make_renderer, make_scene
 import vpt_tpu_torch.renderers as trenderers
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RES = 32#: a 2D TF of three bumps over (value, gradient magnitude)
 BUMPS = [
     {"position": {"x": 0.3, "y": 0.15}, "size": {"x": 0.25, "y": 0.3},

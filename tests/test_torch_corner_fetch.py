@@ -31,6 +31,18 @@ from vpt_tpu import volume as jvolume
 from vpt_tpu_torch import sampling as ts
 from vpt_tpu_torch.kernels import corner_gather, corner_scatter
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BENCH = pathlib.Path(__file__).resolve().parent.parent / "benchmarks"
 
 

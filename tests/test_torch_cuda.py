@@ -1792,3 +1792,115 @@ def test_context_set_filter_renders_on_the_card(cuda):
     assert ctx.get_scene().filter == "cubic"
     assert mcm_event.LAUNCHES == before + 1
     assert bool(torch.isfinite(image).all())
+
+
+# -- the inverse-rendering entry point: the EAM fit, diff_iso, inpaint -----
+
+def _orbit_views(yaws):
+    import math
+
+    from vpt_tpu_torch.runtime.animators import OrbitCameraAnimator
+    from vpt_tpu_torch.scene import CameraState, default_camera
+
+    cam = default_camera()
+    orbit = OrbitCameraAnimator(cam)
+    views = []
+    for yaw in yaws:
+        orbit.yaw = math.radians(yaw)
+        orbit._update_camera()
+        cs = CameraState.from_nodes(cam)
+        views.append((cs.mvp_inverse, cs.model_view, cs.projection))
+    return views
+
+
+def test_eam_fit_loss_kernels_match_plain(cuda):
+    """One value-and-grad of the multi-view EAM loss (3 views at 32²,
+    16³ volume and TF leaves), the kernels against kernels=False on the
+    card: K3 a chunk of slices, K4 its backward, no TF-lookup launch; the
+    loss within 1e-6 relative, each gradient within 1e-4 relative L2."""
+    params = eam.Params(slices=32, random=False, extinction=50.0)
+    views = _orbit_views((0.0, 120.0, 240.0))
+    truth = volume.blobs_volume(16, seed=2, device=cuda).data
+    tf = transfer.gray_ramp(alpha_scale=1.0, device=cuda)
+    with torch.no_grad():
+        targets = [train.render_eam(truth, tf, v, params, 0.0, 32, 32)
+                   for v in views]
+    out = []
+    for kernels in (True, False):
+        vol = torch.full((16, 16, 16, 1), 0.3, device=cuda,
+                         requires_grad=True)
+        tex = tf.clone().requires_grad_(True)
+        before = (corner_gather.LAUNCHES, corner_scatter.LAUNCHES,
+                  tf1d.LAUNCHES)
+        loss = train.multiview_loss(vol, tex, views, targets, params, 0.0,
+                                    kernels=kernels)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (corner_gather.LAUNCHES - before[0],
+                    corner_scatter.LAUNCHES - before[1],
+                    tf1d.LAUNCHES - before[2])
+        assert launched == ((12, 12, 0) if kernels else (0, 0, 0))
+        out.append((loss.item(), vol.grad, tex.grad))
+    (l0, gv0, gt0), (l1, gv1, gt1) = out
+    assert abs(l0 - l1) <= 1e-6 * l1 and l1 > 0
+    for g0, g1 in ((gv0, gv1), (gt0, gt1)):
+        assert bool(torch.isfinite(g0).all()) and float(g0.abs().max()) > 0
+        assert float((g0 - g1).norm() / g1.norm()) <= 1e-4
+
+
+def test_depth_loss_kernels_match_plain(cuda):
+    """One value-and-grad of diff_iso.depth_loss at 32², 48 steps, the
+    volume and a tensor isovalue as leaves, the kernels against
+    kernels=False: one K3 launch for the steps, one K4 for their
+    backward, no TF-lookup launch (its kernel has no gradient); the loss
+    within 1e-6 relative, the gradients within 1e-4 relative L2."""
+    from vpt_tpu_torch.renderers import diff_iso
+
+    tf = transfer.gray_ramp(alpha_scale=1.0, device=cuda)
+    template = make_scene(volume.sphere_volume(16, device=cuda), tf,
+                          pack=False, device=cuda)
+    with torch.no_grad():
+        target = diff_iso.render(template, diff_iso.Params(), 32, 32)[
+            "depth"]
+    out = []
+    for kernels in (True, False):
+        vol = torch.full((16, 16, 16, 1), 0.45, device=cuda)
+        vol = (vol + 0.1 * volume.blobs_volume(16, seed=5, device=cuda)
+               .data).requires_grad_(True)
+        isovalue = torch.tensor(0.45, device=cuda, requires_grad=True)
+        params = diff_iso.Params(isovalue=isovalue, tau=0.05, steps=48)
+        before = (corner_gather.LAUNCHES, corner_scatter.LAUNCHES,
+                  tf1d.LAUNCHES)
+        loss = diff_iso.depth_loss(
+            vol, dataclasses.replace(template, kernels=kernels), params,
+            target, 32, 32)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (corner_gather.LAUNCHES - before[0],
+                    corner_scatter.LAUNCHES - before[1],
+                    tf1d.LAUNCHES - before[2])
+        assert launched == ((1, 1, 0) if kernels else (0, 0, 0))
+        out.append((loss.item(), vol.grad, isovalue.grad))
+    (l0, gv0, gi0), (l1, gv1, gi1) = out
+    assert abs(l0 - l1) <= 1e-6 * l1 and l1 > 0
+    assert bool(torch.isfinite(gv0).all()) and float(gv0.abs().max()) > 0
+    assert float((gv0 - gv1).norm() / gv1.norm()) <= 1e-4
+    assert abs(float(gi0 - gi1)) <= 1e-4 * abs(float(gi1))
+
+
+def test_biharmonic_fill_on_the_card_matches_the_cpu(cuda):
+    """inpaint.biharmonic_fill of a damaged 32³ blobs volume, coarse to
+    fine from 8³ at 50 CG iterations a level, on the card and on the CPU:
+    the masks equal and the fills within 1e-5 (CG's float32 dot products
+    sum in another order on each)."""
+    from vpt_tpu_torch import inpaint
+
+    truth = volume.blobs_volume(32, seed=3, count=6, device="cpu").data
+    mask = inpaint.unobserved_mask(truth, 25.0, 2.0)
+    damaged = torch.where(mask[..., None], 0.45 * truth, truth)
+    got, gmask = inpaint.complete_occluded(damaged.to(cuda), extinction=25.0,
+                                           tau=2.0, coarsest=8, cg_iters=50)
+    want, wmask = inpaint.complete_occluded(damaged, extinction=25.0,
+                                            tau=2.0, coarsest=8, cg_iters=50)
+    assert bool(wmask.any()) and torch.equal(gmask.cpu(), wmask)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5

@@ -39,6 +39,18 @@ from vpt_tpu.renderers import mcs as jmcs
 from vpt_tpu_torch import interop, train
 from vpt_tpu_torch.renderers import diff_mc, mcs
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 JPARAMS = jmcs.Params(extinction=5.0)
 TPARAMS = mcs.Params(extinction=5.0)
 

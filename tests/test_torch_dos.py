@@ -41,6 +41,18 @@ from vpt_tpu_torch import interop, sampling, transfer, volume
 from vpt_tpu_torch.kernels import dos_sweep
 from vpt_tpu_torch.renderers import dos, factory, make_renderer, make_scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GOLDENS = pathlib.Path(__file__).parent / "goldens"
 RES = 32
 

@@ -28,6 +28,18 @@ from vpt_tpu_torch import utils, volume
 from vpt_tpu_torch.kernels import _build
 from vpt_tpu_torch.renderers import make_scene
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "vpt_tpu_torch" \
     / "csrc"
 F32 = np.float32

@@ -42,6 +42,18 @@ from vpt_tpu_torch.renderers import make_scene
 import vpt_tpu_torch.renderers as trenderers
 from vpt_tpu_torch.runtime import RenderingContext
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FILTERS = ("nearest", "cubic")
 RES = 32
 

@@ -31,6 +31,18 @@ from vpt_tpu_torch.kernels import march, mcs_frame
 from vpt_tpu_torch.renderers import depth, dos, eam, iso, lao, make_scene
 from vpt_tpu_torch.renderers import mcs, mip
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32 = np.float32
 MARCH_PARAMS = [("eam", eam.Params()), ("eam", eam.Params(random=False)),
                 ("eam", eam.Params(slices=7)), ("mip", mip.Params()),

@@ -29,6 +29,17 @@ from vpt_tpu_torch.io import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_file_and_bytes_loaders(tmp_path):
     p = tmp_path / "data.bin"
     p.write_bytes(bytes(range(256)))

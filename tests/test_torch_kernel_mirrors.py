@@ -19,6 +19,17 @@ from vpt_tpu_torch.kernels import dos_sweep, lao_march
 from vpt_tpu_torch.renderers import dos, lao, make_scene
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def cpu_scene():
     return make_scene(volume.sphere_volume(8, device="cpu"),

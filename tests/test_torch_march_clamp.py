@@ -34,6 +34,18 @@ from vpt_tpu_torch.renderers import iso, make_scene
 
 from test_torch_march import assert_close
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MARCH = ("eam", "mip", "depth", "iso")
 
 

@@ -29,6 +29,18 @@ from vpt_tpu_torch.kernels import mcm_event
 from vpt_tpu_torch.renderers import factory, make_renderer, make_scene
 from vpt_tpu_torch.renderers import mcm as tmcm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RES = 32
 JPARAMS = jmcm.Params(extinction=20.0, anisotropy=0.3, steps=8)
 TPARAMS = tmcm.Params(extinction=20.0, anisotropy=0.3, steps=8)

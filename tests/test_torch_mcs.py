@@ -40,6 +40,17 @@ from vpt_tpu_torch.renderers import make_renderer, make_scene
 from vpt_tpu_torch.renderers import mcs as tmcs
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port(jscene):
     return interop.scene_from_numpy(interop.scene_fields(jscene),
                                     device="cpu")

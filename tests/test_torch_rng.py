@@ -16,6 +16,18 @@ import torch
 from vpt_tpu import rng as jrng
 from vpt_tpu_torch import rng as trng
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N = 1 << 16
 
 

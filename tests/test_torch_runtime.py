@@ -63,6 +63,18 @@ from vpt_tpu_torch.runtime import RenderingContext as TContext
 from vpt_tpu_torch.runtime import checkpoint as tcheckpoint
 from vpt_tpu_torch.runtime import profiler as tprofiler
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RES = 32
 THREE_BUMPS = [
     {"position": {"x": 0.2, "y": 0.3}, "size": {"x": 0.1, "y": 0.4},

@@ -19,6 +19,18 @@ from vpt_tpu_torch import interop, utils
 from vpt_tpu_torch import rng as trng
 from vpt_tpu_torch import sampling as ts
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RNG = np.random.default_rng(5)
 POSITIONS = RNG.uniform(-0.1, 1.1, (2048, 3)).astype(np.float32)
 STATES = RNG.integers(0, 1 << 32, 2048, dtype=np.uint64).astype(np.uint32)

@@ -25,6 +25,17 @@ from vpt_tpu_torch import transfer as ttransfer
 from vpt_tpu_torch import volume as tvolume
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cameras(translation, fovy, quat):
     jcam = jscene.default_camera(translation=translation, fovy=fovy)
     tcam = tscene.default_camera(translation=translation, fovy=fovy)

@@ -14,6 +14,17 @@ from vpt_tpu import volume as jvolume
 from vpt_tpu_torch import skipgrid as tskip
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _srgb_ramp(alpha=0.8):
     return np.asarray(jtransfer.to_gl_texture(
         jtransfer.gray_ramp(alpha_scale=alpha), srgb=True, quantize=True))

@@ -23,6 +23,17 @@ from vpt_tpu_torch.kernels import tf1d
 from vpt_tpu_torch.renderers import make_scene
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _values(n=4096, seed=0):
     r = np.random.default_rng(seed)
     v = r.uniform(-0.1, 1.1, n).astype(np.float32)

@@ -15,6 +15,18 @@ from vpt_tpu.pallas import tonemap_kernel as jkernel
 from vpt_tpu_torch import tonemap as ttm
 from vpt_tpu_torch.kernels import tonemap_kernel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 IMG = np.random.default_rng(0).uniform(0, 4, (16, 32, 4)).astype(np.float32)
 
 

@@ -24,6 +24,17 @@ from vpt_tpu_torch import interop, sampling, train
 from vpt_tpu_torch.renderers import diff_mc, make_scene, mcm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tensors here are small, and torch's intra-op threads only spin
+    against the other workers of a parallel test run: one thread is
+    faster there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_first_loss_and_update_match_jax():
     jscene = jmake_scene(jvolume.blobs_volume(16, seed=1),
                          jtransfer.gray_ramp(alpha_scale=0.8))
@@ -88,9 +99,25 @@ def test_fit_surface():
         (2, 2, 4), 0.5), renderer="mcs", frames=1, steps=1)
     assert tf.shape == (2, 2, 4) and len(losses) == 1
     assert np.isfinite(losses[0]) and losses[0] > 0.0
-    for fn in (train.fit, train.make_train_step, train.render_eam):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    # the EAM fit is ported (tests/test_torch_fit_eam.py holds it to JAX's)
+    from vpt_tpu_torch.renderers import eam
+    from vpt_tpu_torch.scene import CameraState, default_camera
+
+    cs = CameraState.from_nodes(default_camera())
+    mats = (cs.mvp_inverse, cs.model_view, cs.projection)
+    params = eam.Params(slices=4, random=False)
+    step = train.make_train_step(lambda p: torch.optim.Adam(p, lr=0.05),
+                                 params=params, height=4, width=4)
+    loss, vol, tf_out, state = step(torch.full((4, 4, 4, 1), 0.5),
+                                    torch.full((2, 2, 4), 0.5), None, mats,
+                                    torch.zeros(4, 4, 4), 0.0)
+    assert loss.item() > 0.0 and sorted(state) == ["volume"]
+    assert int(state["volume"]["step"]) == 1
+    vol, _, losses = train.fit(torch.zeros(4, 4, 4), mats,
+                               torch.full((4, 4, 4, 1), 0.5),
+                               torch.full((2, 2, 4), 0.5), steps=1,
+                               params=params)
+    assert len(losses) == 1 and float(vol.max()) <= 1.0
 
 
 def test_fit_leaves_cross_interop():

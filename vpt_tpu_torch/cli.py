@@ -9,13 +9,20 @@ it raises.
     python -m vpt_tpu_torch.cli render --platform cpu --volume sphere:32 \\
         --renderer eam --resolution 64 --spp 4 -o /tmp/r.png
 
+    python -m vpt_tpu_torch.cli fit --platform cpu --target a.png b.png \
+        c.png --grid 16 --steps 20 --eam-slices 32 --inpaint-blind
+
 Subcommands:
   render   — progressive render of a volume to PNG (sample-counted)
+  fit      — inverse-render a volume from images: multi-view EAM, the
+             MCM/MCS estimators, or ISO depth (``--method``), with the
+             occlusion completion of ``inpaint`` (``--inpaint``,
+             ``--inpaint-blind``)
   serve    — static file server with HTTP Range support (BVP streaming)
   info     — list renderers / tone mappers / parameters, or the
              modalities of a BVP archive
-  animate, fit, view — registered; not ported yet (they raise, naming
-             their ROADMAP.md items)
+  animate, view — registered; not ported yet (they raise, naming their
+             ROADMAP.md items)
 """
 
 from __future__ import annotations
@@ -257,6 +264,179 @@ def cmd_render(args):
     print(ctx.profiler.summary())
 
 
+def cmd_fit(args):
+    """``vpt_tpu``'s ``cli fit``: fit a ``--grid``³ volume (init 0.1, the
+    gray ramp TF at alpha scale 1) to the targets by ``--method`` and save
+    it as ``<output>.npy`` (eam: also ``<output>.png``, the fitted volume
+    rendered from the first view), with the same flags, messages and
+    outputs.  On the card unless ``--platform cpu``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from .io.image import read_image, write_png
+    from .renderers import eam
+    from .scene import CameraState, default_camera
+    from .train import fit
+    from .transfer import gray_ramp
+
+    device = _device(args)
+    if args.method != "eam" and getattr(args, "inpaint_blind", False):
+        raise SystemExit("--inpaint-blind is eam-only (multi-view "
+                         "targets); mcm/mcs fits use --inpaint")
+    if args.method != "eam" and len(args.target) > 1:
+        raise SystemExit(f"--method {args.method} takes a single --target; "
+                         "multi-view fitting is eam-only")
+    n = args.grid
+    init = torch.full((n, n, n, 1), 0.1, dtype=torch.float32, device=device)
+    tf = gray_ramp(alpha_scale=1.0, device=device)
+    if args.method == "iso-depth":
+        # inverse isosurface geometry from a depth map (BASELINE config 1)
+        if args.inpaint:
+            print("warning: --inpaint applies to the density-fitting "
+                  "methods (eam/mcm/mcs) only — ignored for iso-depth")
+        from .renderers import diff_iso, make_scene
+
+        if not args.target[0].endswith(".npy"):
+            raise SystemExit(
+                "--method iso-depth expects an .npy depth map (H, W) "
+                "float32 with -1 marking invalid pixels — e.g. "
+                "np.save of diff_iso.render(...)['depth']")
+        target_depth = torch.from_numpy(np.asarray(
+            np.load(args.target[0]), np.float32)).to(device)
+        h, w = target_depth.shape
+        params = diff_iso.Params()
+        template = make_scene(init, tf, pack=False, device=device)
+        vol = init.clone().requires_grad_(True)
+        opt = torch.optim.Adam([vol], lr=args.lr)
+        for i in range(args.steps):
+            opt.zero_grad(set_to_none=True)
+            loss = diff_iso.depth_loss(vol, template, params, target_depth,
+                                       h, w)
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                vol.clamp_(0.0, 1.0)
+            if i % 25 == 0:
+                print(f"step {i}: depth MSE {loss.item():.6f}")
+        np.save(args.output, vol.detach().cpu().numpy())
+        print(f"final depth MSE {loss.item():.6f}; wrote {args.output}.npy")
+        return
+
+    def maybe_inpaint(vol, extinction):
+        """Occlusion-aware completion of the fit's null space
+        (``inpaint``): voxels optically thick from every axis direction
+        are filled with the log-domain biharmonic continuation of the
+        recovered material, at ``--inpaint-tau``."""
+        if not args.inpaint:
+            return vol
+        from . import inpaint as inpaint_mod
+
+        filled, mask = inpaint_mod.complete_occluded(
+            vol[..., 0], extinction=float(extinction),
+            tau=args.inpaint_tau)
+        print(f"inpainted {float(mask.to(torch.float32).mean()) * 100:.2f}% "
+              f"of voxels (tau={args.inpaint_tau:g}, "
+              f"extinction={extinction:g})")
+        return torch.clamp(filled, 0.0, 1.0)[..., None]
+
+    if args.method in ("mcm", "mcs"):
+        # Monte-Carlo inverse rendering through the detached-decision
+        # estimators (BASELINE config 3)
+        from . import train as fit_mc_mod
+        from .renderers import make_scene
+        from .train import fit_mc
+
+        target = torch.from_numpy(read_image(args.target[0])).to(device)
+        template = make_scene(init, tf, pack=False, device=device)
+        vol, _, losses = fit_mc(
+            target, template, init_volume=init, renderer=args.method,
+            frames=args.mc_frames, steps=args.steps,
+            learning_rate=args.lr, verbose=True)
+        vol = maybe_inpaint(vol, fit_mc_mod.MC_FIT_EXTINCTION[args.method])
+        np.save(args.output, vol.cpu().numpy())
+        print(f"final loss {losses[-1]:.6f}; wrote {args.output}.npy")
+        return
+    # multi-view EAM fitting: one camera per target image (single-view
+    # reconstruction is ill-posed along the view axis)
+    from .runtime.animators import OrbitCameraAnimator
+
+    targets = [torch.from_numpy(read_image(t)).to(device)
+               for t in args.target]
+    n_views = len(targets)
+    yaws = args.view_yaw
+    if yaws is None:
+        # default: spread views evenly over a full horizontal orbit
+        yaws = [360.0 * i / n_views for i in range(n_views)]
+    pitches = args.view_pitch or [0.0] * n_views
+    if len(yaws) != n_views or len(pitches) != n_views:
+        raise SystemExit("--view-yaw/--view-pitch must match the number "
+                         "of --target images")
+
+    cam = default_camera()
+    orbit = OrbitCameraAnimator(cam)
+    orbit.distance = args.camera_distance
+    views = []
+    for yaw, pitch in zip(yaws, pitches):
+        orbit.yaw = math.radians(yaw)
+        orbit.pitch = math.radians(pitch)
+        orbit._update_camera()
+        cs = CameraState.from_nodes(cam)
+        views.append((cs.mvp_inverse, cs.model_view, cs.projection))
+
+    params = eam.Params(slices=args.eam_slices or 64, random=False)
+
+    # truth-blind completion (--inpaint-blind): withhold the LAST target
+    # from the fit and use it to select the completion threshold by
+    # reprojection (inpaint.select_tau_blind); needs >= 3 views so that
+    # the fit keeps at least two
+    blind = args.inpaint_blind
+    if blind and n_views < 3:
+        raise SystemExit("--inpaint-blind needs at least 3 --target views "
+                         "(the last is withheld for tau selection)")
+    fit_targets = targets[:-1] if blind else targets
+    fit_views = views[:-1] if blind else views
+
+    vol, _, losses = fit(fit_targets, fit_views, init, tf,
+                         steps=args.steps, learning_rate=args.lr,
+                         params=params, verbose=True)
+    from .train import render_eam
+
+    if blind:
+        from . import inpaint as inpaint_mod
+
+        h_t, w_t = targets[-1].shape[:2]
+        cam_pos = torch.stack([inpaint_mod.camera_position(mv)
+                               for (_, mv, _) in fit_views])
+        depth = inpaint_mod.optical_depth_views(
+            vol[..., 0], float(params.extinction), cam_pos)
+
+        def render_heldout(v):
+            with torch.no_grad():
+                return [render_eam(v[..., None], tf, views[-1], params,
+                                   np.float32(0.0), h_t, w_t)]
+
+        taus = tuple(float(t) for t in args.blind_taus.split(","))
+        tau_blind, completed, table = inpaint_mod.select_tau_blind(
+            vol[..., 0], taus, [targets[-1]], render_heldout,
+            depth=depth)
+        print("blind tau selection: " + "; ".join(
+            f"tau={r['tau']}: fill={r['filled_frac']:.3f} "
+            f"heldout={r['heldout_mse']:.2e}" for r in table))
+        print(f"chosen tau = {tau_blind}")
+        vol = torch.clamp(completed, 0.0, 1.0)[..., None]
+    else:
+        vol = maybe_inpaint(vol, params.extinction)
+    np.save(args.output, vol.cpu().numpy())
+    with torch.no_grad():
+        pred = render_eam(vol, tf, views[0], params, np.float32(0.0),
+                          *targets[0].shape[:2])
+    write_png(args.output + ".png", pred)
+    print(f"final loss {losses[-1]:.6f} over {n_views} view(s); "
+          f"volume -> {args.output}.npy")
+
+
 def cmd_serve(args):
     from .io.server import serve
 
@@ -299,8 +479,6 @@ def cmd_info(args):
 NOT_PORTED = {
     "animate": ("render an animation sequence",
                 "queue 1 item 15, rest (animate, io/video.py)"),
-    "fit": ("inverse-render a volume from images",
-            "queue 1 items 11 and 14 (the EAM fit, inpaint.py)"),
     "view": ("interactive browser viewer",
              "queue 1 item 15, rest (runtime/viewer.py)"),
 }
@@ -326,6 +504,53 @@ def build_parser() -> argparse.ArgumentParser:
                                    "trace format, trace.json) of the render "
                                    "to this directory")
     p.set_defaults(func=cmd_render)
+
+    p = sub.add_parser("fit", help="inverse-render a volume from images")
+    p.add_argument("--target", required=True, nargs="+",
+                   help="target image(s) (PNG); several targets fit "
+                        "multi-view (eam method only)")
+    p.add_argument("--view-yaw", type=float, nargs="+", default=None,
+                   help="per-target camera yaw in degrees (default: even "
+                        "spread over a full orbit)")
+    p.add_argument("--view-pitch", type=float, nargs="+", default=None,
+                   help="per-target camera pitch in degrees (default 0)")
+    p.add_argument("--camera-distance", type=float, default=2.0)
+    p.add_argument("--grid", type=int, default=32)
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--eam-slices", type=int, default=None)
+    p.add_argument("--method", default="eam",
+                   choices=["eam", "mcm", "mcs", "iso-depth"],
+                   help="differentiable path: eam (deterministic image), "
+                        "mcm/mcs (Monte-Carlo expected-value estimators), "
+                        "iso-depth (soft isosurface depth fitting; .npy "
+                        "target)")
+    p.add_argument("--mc-frames", type=int, default=32,
+                   help="MC frames averaged per optimization step")
+    p.add_argument("--inpaint", action="store_true",
+                   help="complete the fit's occluded null space after "
+                        "optimization (inpaint: optical-depth visibility "
+                        "+ log-domain biharmonic CG fill; eam/mcm/mcs "
+                        "methods)")
+    p.add_argument("--inpaint-blind", action="store_true",
+                   help="truth-free completion for the multi-view eam "
+                        "fit: the LAST --target view is withheld from "
+                        "the fit; per-voxel visibility integrates along "
+                        "the fit views' capture rays and the threshold "
+                        "is chosen by held-out reprojection "
+                        "(inpaint.select_tau_blind)")
+    p.add_argument("--blind-taus", default="0.05,0.1,0.15,0.25,0.5,1.0",
+                   help="candidate thresholds for --inpaint-blind")
+    p.add_argument("--inpaint-tau", type=float, default=0.15,
+                   help="visibility threshold of the six-axis proxy, "
+                        "vpt_tpu's default; the mask thresholds "
+                        "extinction-scaled optical depth, so re-sweep "
+                        "(or scale) tau when fitting at another "
+                        "extinction or scene family")
+    p.add_argument("--output", "-o", default="fitted_volume")
+    p.add_argument("--platform", default=None,
+                   help="cpu: fit on the CPU (default: the CUDA card)")
+    p.set_defaults(func=cmd_fit)
 
     for name, (text, _) in NOT_PORTED.items():
         p = sub.add_parser(name, help=f"{text} (not ported yet)")

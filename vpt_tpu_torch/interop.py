@@ -1,4 +1,5 @@
-"""Carry scenes and renderer state between ``vpt_tpu`` and the port.
+"""Carry scenes, renderer state and fit state between ``vpt_tpu`` and the
+port.
 
 Both sides meet as numpy arrays, so this module imports no JAX.  A JAX
 ``Scene``'s fields go through ``np.asarray``; its bfloat16 tables arrive as
@@ -117,3 +118,58 @@ def state_to_numpy(state):
         return tensor_to_numpy(state)
     return {k: tensor_to_numpy(v) for k, v in state.items()
             if v is not None}
+
+
+def adam_state_from_numpy(count, mu, nu, device=None):
+    """``optax.adam``'s state as numpy (``ScaleByAdamState``'s ``count``,
+    and ``mu``, ``nu``: {leaf name: array}) → the port's Adam state
+    (``train.make_train_step``'s ``opt_state``): {leaf name: {"step",
+    "exp_avg", "exp_avg_sq"}} as ``torch.optim.Adam`` keeps it, the step a
+    0-d float32 tensor on the host and the moments on ``device`` (default:
+    the card).  Both run the same update from this state."""
+    device = resolve_device(device)
+    return {name: {"step": torch.tensor(float(np.asarray(count)),
+                                        dtype=torch.float32),
+                   "exp_avg": tensor_from_numpy(
+                       np.asarray(mu[name], np.float32), device),
+                   "exp_avg_sq": tensor_from_numpy(
+                       np.asarray(nu[name], np.float32), device)}
+            for name in mu}
+
+
+def adam_state_to_numpy(opt_state):
+    """The inverse of :func:`adam_state_from_numpy`: ``(count, mu, nu)``,
+    the count an int32 (every leaf's Adam step is the same)."""
+    steps = {int(s["step"]) for s in opt_state.values()}
+    if len(steps) != 1:
+        raise ValueError(f"the leaves' Adam steps differ: {sorted(steps)}")
+    return (np.int32(steps.pop()),
+            {k: tensor_to_numpy(s["exp_avg"]) for k, s in opt_state.items()},
+            {k: tensor_to_numpy(s["exp_avg_sq"])
+             for k, s in opt_state.items()})
+
+
+def fit_state_from_numpy(fields: dict, device=None):
+    """A ``vpt_tpu.train.FitState`` as numpy (``volume_data``,
+    ``tf_texture``, ``step``, and its optax Adam state's ``count``, ``mu``
+    and ``nu``) → the port's ``train.FitState`` on ``device`` (default:
+    the card)."""
+    from .train import FitState
+
+    device = resolve_device(device)
+    return FitState(
+        volume_data=tensor_from_numpy(
+            np.asarray(fields["volume_data"], np.float32), device),
+        tf_texture=tensor_from_numpy(
+            np.asarray(fields["tf_texture"], np.float32), device),
+        opt_state=adam_state_from_numpy(fields["count"], fields["mu"],
+                                        fields["nu"], device),
+        step=int(fields.get("step", 0)))
+
+
+def fit_state_to_numpy(state) -> dict:
+    """The inverse of :func:`fit_state_from_numpy`."""
+    count, mu, nu = adam_state_to_numpy(state.opt_state)
+    return {"volume_data": tensor_to_numpy(state.volume_data),
+            "tf_texture": tensor_to_numpy(state.tf_texture),
+            "count": count, "mu": mu, "nu": nu, "step": int(state.step)}

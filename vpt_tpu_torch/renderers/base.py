@@ -16,10 +16,11 @@ is a TPU layout of its bilinear formula, and ``tf_mxu`` (an MXU one-hot
 matmul) is the same lookup with its lerp weights rounded to the table dtype,
 which the scene records as ``Scene.tf_mxu`` and the lookup reproduces.
 
-A scene whose corner tables require grad (the fit's scene,
-``train.fit_mc``) samples through the differentiable route instead: the
-fused fetch of ``sampling.sample_volume_packed`` (K3 forward, K4 backward)
-and the packed bilinear TF texture, as JAX's fit scene does.
+A scene whose corner tables require grad (:func:`fit_scene`: the fits of
+``train`` and ``diff_iso.depth_loss``) samples through the differentiable
+route instead: the fused fetch of ``sampling.sample_volume_packed`` (K3
+forward, K4 backward) and the packed bilinear TF texture, as JAX's fit
+scene does.
 """
 
 from __future__ import annotations
@@ -266,6 +267,24 @@ def transfer_row(transfer, transfer_packed=None, mxu=None):
     if mxu is not None:
         row = row.to(mxu).to(torch.float32)
     return row
+
+
+def fit_scene(scene_template, volume=None, tf=None):
+    """The fits' differentiable scene: ``scene_template`` with the given
+    volume and/or TF texture and their float32 corner tables packed from
+    them (in the graph, so gradients reach the leaves), sampled through the
+    bilinear packed TF (``transfer_mxu=None`` in JAX's fit scenes).  The
+    packing is bit for bit the unpacked fetch, which ``vpt_tpu``'s EAM and
+    ISO fits sample."""
+    vol = scene_template.volume if volume is None else volume
+    tf_tex = scene_template.transfer if tf is None else tf
+    transfer_packed = sampling.pack_corner_texture2d(tf_tex)
+    return dataclasses.replace(
+        scene_template, volume=vol, transfer=tf_tex,
+        volume_packed=sampling.pack_corner_volume(vol[..., :2]),
+        transfer_packed=transfer_packed,
+        transfer_1d=transfer_row(tf_tex, transfer_packed),
+        tracking_packed=None, tf_mxu=None)
 
 
 def make_scene(volume, transfer, camera: Optional[Any] = None,
