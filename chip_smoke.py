@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's renderers (MCM, EAM, MIP, Depth, ISO,
-MCS, DOS, LAO), its ``cli render``, its differentiable MCM and MCS fits
-and its ``cli fit`` (EAM, ISO depth, MCM with the occlusion completion)
-once on one GPU.
+MCS, DOS, LAO), its ``cli render``, its differentiable MCM and MCS fits,
+its ``cli fit`` (EAM, ISO depth, MCM with the occlusion completion), its
+``cli view`` server, its ``cli animate`` and its config-3 recipe once on
+one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path [--part frames|fetch|sweep] TREE ...
@@ -179,9 +180,28 @@ prints no result:
    table, ``path inpaint`` the seconds of ``complete_occluded`` on the
    256³ fitted volume and the filled share.  Cuts: Adam steps 200 → 5, 5
    and 3, MC frames 32 → 16, for this script's time limit;
-13. every kernel launched on its path (8, 10, 10a–c, 11, 12, 12a or 12b);
-    the JSON line says which call launched each, and ``launches_cli`` its
-    launches on the ``cli render`` calls of 11.
+12c. the last entry points, each path with every launch counter at 0
+   first: ``path view`` (:func:`phase_view_path`): ``python -m
+   vpt_tpu_torch.cli view`` on 11's BVP (MCM, 512²) as a subprocess,
+   stopped by its PID, and the same server in this process on a context
+   built from the same arguments, both sent the page, /info, /histogram,
+   8 /frame requests of 4 spp at one pose, a pose change, a Params and a
+   static Params change, a switch to each other renderer, a POST /tf with
+   a /frame and /tf.png, a resolution and a filter change; every status
+   200, the two servers' bodies equal bit for bit, each request's
+   launches counted on this process's server (its renderer's kernel once
+   a sample, K2 once a /frame, no other), the 8th /frame equal to 8 direct
+   renders, the subprocess's latencies on the host clock; ``path
+   animate`` (:func:`phase_animate_path`): ``cli animate`` in-process on
+   the BVP, MCM 512², 16 spp, 8 orbit frames, ``--video`` a GIF then an
+   ``.mp4`` (a GIF without OpenCV); ``path config3``
+   (:func:`phase_config3_path`): the port's config-3 recipe at its full
+   size with ``--inpaint-blind``, cut to 3 Adam steps a stage and 64-spp
+   targets;
+13. every kernel launched on its path (8, 10, 10a–c, 11, 12, 12a–c);
+    the JSON line says which call launched each, and ``launches_cli``,
+    ``launches_view``, ``launches_animate`` and ``launches_config3`` its
+    launches on the calls of 11 and 12c.
 
 Then one JSON line with each kernel's launches, error, loop time per call
 (``ms``, CUDA events) and device time per launch (``device_ms``,
@@ -3784,17 +3804,16 @@ def phase_inpaint_path(dev, counters):
 
 # -- the serving entry point: cli render (the slice's main path) -----------
 
-def png_pixels(path):
-    """The (H, W, 3) uint8 pixels of an 8-bit RGB PNG whose rows all use
-    filter 0 (what ``io.image.write_png`` writes), decoded with zlib."""
+def png_decode(data, channels=3, what="PNG"):
+    """The (H, W, channels) uint8 pixels of 8-bit RGB (3) or RGBA (4) PNG
+    bytes whose rows all use filter 0 (what ``io.image.png_bytes``
+    writes), decoded with zlib; ``what`` names them in a failure."""
     import struct
     import zlib
 
     import numpy as np
 
-    with open(path, "rb") as f:
-        data = f.read()
-    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{what}: not a PNG")
     pos, idat, size = 8, [], None
     while pos < len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -3804,12 +3823,20 @@ def png_pixels(path):
         elif kind == b"IDAT":
             idat.append(body)
         pos += 12 + n
-    check(size is not None and size[2:] == (8, 2), f"{path}: not 8-bit RGB")
+    color_type = {3: 2, 4: 6}[channels]
+    check(size is not None and size[2:] == (8, color_type),
+          f"{what}: not 8-bit of {channels} channels: {size}")
     w, h = size[:2]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)),
-                         np.uint8).reshape(h, 1 + 3 * w)
-    check(bool((rows[:, 0] == 0).all()), f"{path}: a row not in filter 0")
-    return rows[:, 1:].reshape(h, w, 3)
+                         np.uint8).reshape(h, 1 + channels * w)
+    check(bool((rows[:, 0] == 0).all()), f"{what}: a row not in filter 0")
+    return rows[:, 1:].reshape(h, w, channels)
+
+
+def png_pixels(path):
+    """The (H, W, 3) uint8 pixels of the 8-bit RGB PNG file at ``path``."""
+    with open(path, "rb") as f:
+        return png_decode(f.read(), what=path)
 
 
 def run_cli(argv, counters):
@@ -4112,6 +4139,427 @@ def phase_cli_path(dev, counters):
     return totals
 
 
+# -- the last entry points: cli view, cli animate, the config-3 recipe ------
+
+#: the viewer's request size and its samples a /frame
+VIEW_RES, VIEW_SPP = 512, 4
+#: the seven renderers a viewer path switches to after MCM
+VIEW_SWITCHES = ("eam", "mip", "depth", "iso", "mcs", "dos", "lao")
+VIEW_BUMPS = [{"position": {"x": 0.45, "y": 0.5},
+               "size": {"x": 0.3, "y": 0.4},
+               "color": {"r": 0.9, "g": 0.6, "b": 0.3, "a": 0.8}}]
+
+
+def http_request(url, data=None):
+    """(the body, seconds on the host clock) of one request; any status
+    but 200 fails the smoke (the viewer turns exceptions into 500s)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data,
+                                 method="POST" if data else "GET")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        raise SmokeFailure(f"{url}: HTTP {exc.code} {exc.reason}") from exc
+    check(status == 200, f"{url}: HTTP {status}")
+    return body, time.perf_counter() - t0
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_viewer(argv):
+    """Start ``python -m vpt_tpu_torch.cli`` + argv from the checkout's
+    root and wait (120 s at most) for its "viewer on http://" line.
+    Returns (the process, its base URL)."""
+    import queue
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vpt_tpu_torch.cli", *argv], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": root + os.pathsep
+             + os.environ.get("PYTHONPATH", "")})
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    deadline = time.perf_counter() + 120
+    said = []
+    while time.perf_counter() < deadline:
+        try:
+            line = lines.get(timeout=1)
+        except queue.Empty:
+            check(proc.poll() is None, f"cli view exited {proc.returncode}: "
+                  + "".join(said)[-2000:])
+            continue
+        said.append(line)
+        if "viewer on http://" in line:
+            return proc, line.split("viewer on ")[1].strip()
+    proc.kill()
+    raise SmokeFailure("cli view printed no 'viewer on http://' line in "
+                       "120 s: " + "".join(said)[-2000:])
+
+
+def view_requests():
+    """The path's requests, in order: (kind, path, POST body or None)."""
+    import urllib.parse
+
+    pose = "yaw=0.3&pitch=0.2&distance=2"
+    frame = f"/frame?{pose}&spp={VIEW_SPP}&tonemap=reinhard&renderer="
+    out = [("page", "/", None), ("info", "/info", None),
+           ("histogram", "/histogram", None)]
+    out += [("first" if i == 0 else "warm", frame + "mcm", None)
+            for i in range(8)]
+    moved = f"/frame?yaw=0.9&pitch=-0.3&distance=2&spp={VIEW_SPP}"
+    out.append(("pose", moved + "&renderer=mcm", None))
+    for rp, kind in (({"extinction": 30}, "params"),
+                     ({"extinction": 30, "steps": 16}, "static")):
+        out.append((kind, moved + "&renderer=mcm&rp="
+                    + urllib.parse.quote(json.dumps(rp)), None))
+    # each renderer twice: its first use in the server's process, then a
+    # switch back to it
+    out += [(f"{turn} {key}", moved + f"&renderer={key}", None)
+            for turn in ("switch", "again") for key in VIEW_SWITCHES]
+    out += [("tf", "/tf", json.dumps(VIEW_BUMPS).encode()),
+            ("tf frame", moved + "&renderer=mcm", None),
+            ("tf.png", "/tf.png", None),
+            ("resolution", moved + "&renderer=mcm&resolution=256", None),
+            ("filter", moved + "&renderer=mcm&resolution=256"
+             "&filter=nearest", None)]
+    return out
+
+
+def view_expected(kind, path):
+    """The launches one request makes: its renderer's kernel once a
+    sample and K2 once a /frame (and K7 once an ISO /frame), no other."""
+    if not path.startswith("/frame"):
+        return {}
+    key = path.split("renderer=")[1].split("&")[0]
+    expected = {PATH_KERNEL.get(key, "mcm_event"): VIEW_SPP, "tonemap": 1}
+    if key == "iso":
+        expected["iso_shade"] = 1
+    return expected
+
+
+def phase_view_path(dev, counters, bvp, card):
+    """``cli view`` on the card, the user's entry point, as a subprocess
+    (``python -m vpt_tpu_torch.cli view --volume <bvp> --renderer mcm
+    --resolution 512 --port <free>``), stopped by its PID at the end, and
+    the same ``ViewerServer`` in this process on a context built from the
+    same arguments (``cli._build_context``), serving the same requests in
+    the same order (:func:`view_requests`) with every launch counter at 0
+    just before each and read just after.  Every response of either is
+    200, and the subprocess's bodies equal this process's bit for bit, so
+    the counted launches are the subprocess's: each /frame launches its
+    renderer's kernel once a sample and K2 once, and nothing else does.
+    Each /frame PNG decodes to the requested size; the 8th MCM /frame
+    equals, in every pixel, a third context driven directly (the pose set
+    on its orbit animator, ``render(4)`` eight times, ``to_uint8`` of the
+    display).  Prints the host-clock latency of the subprocess's first,
+    warm (the median of requests 2-8), pose-change and renderer-switch
+    requests, and of a second switch to each renderer.  Returns the
+    launches over the path."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import cli
+    from vpt_tpu_torch.io import to_uint8
+    from vpt_tpu_torch.renderers import mcm
+    from vpt_tpu_torch.runtime.viewer import ViewerServer
+
+    argv = ["view", "--volume", bvp, "--renderer", "mcm", "--resolution",
+            str(VIEW_RES)]
+    t0 = time.perf_counter()
+    proc, base = start_viewer(argv + ["--port", str(free_port())])
+    started = time.perf_counter() - t0
+    server = None
+    try:
+        ctx = cli._build_context(cli.build_parser().parse_args(
+            argv + ["--port", "0"]), dev)
+        server = ViewerServer(ctx, port=0)
+        local = f"http://127.0.0.1:{server.serve_background()}"
+        totals = {name: 0 for name in counters}
+        seconds, frames = {}, []
+        for kind, path, body in view_requests():
+            got, sec = http_request(base + path, body)
+            seconds.setdefault(kind, []).append(sec)
+            for module in counters.values():
+                module.LAUNCHES = 0
+            want, _ = http_request(local + path, body)
+            torch.cuda.synchronize()
+            launches = {name: m.LAUNCHES for name, m in counters.items()}
+            check(got == want, f"path view {kind} {path}: the subprocess's "
+                  "body differs from this process's server's")
+            check_cli_launches(f"path view {kind}", launches,
+                               view_expected(kind, path))
+            for name, count in launches.items():
+                totals[name] += count
+            if path.startswith("/frame"):
+                res = 256 if "resolution=256" in path else VIEW_RES
+                pixels = png_decode(got)
+                check(pixels.shape == (res, res, 3) and pixels.max() > 0,
+                      f"path view {kind}: a {pixels.shape} PNG")
+                frames.append(pixels)
+            elif path == "/tf.png":
+                check(png_decode(got, 4).shape[2] == 4, "tf.png not RGBA")
+            elif path == "/":
+                check(b"vpt_tpu_torch viewer" in got, "the page's title")
+            elif path == "/info":
+                info = json.loads(got)
+                check(len(info["renderers"]) == 8
+                      and "frame_cost_ms_512" not in info,
+                      f"/info: {sorted(info)}")
+            elif path == "/histogram":
+                check(len(json.loads(got)) == 96, "/histogram not 96 bins")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        if server is not None:
+            server.shutdown()
+
+    direct = cli._build_context(cli.build_parser().parse_args(
+        argv + ["--port", "0"]), dev)
+    direct.choose_renderer("mcm", params=mcm.Params())
+    orbit = direct.camera_animator
+    orbit.yaw, orbit.pitch, orbit.roll, orbit.distance = 0.3, 0.2, 0.0, 2.0
+    orbit.focus = np.zeros(3, np.float32)
+    orbit._update_camera()
+    for _ in range(8):
+        direct.render(frames=VIEW_SPP)
+    want = to_uint8(direct.get_display_image())
+    check(np.array_equal(frames[7], want),
+          "path view: 8 /frame requests differ from 8 direct renders, in "
+          f"{int((frames[7] != want).any(-1).sum())} pixels")
+    median = sorted(seconds["warm"])[len(seconds["warm"]) // 2]
+    switches = {k.split()[1]: v[0] for k, v in seconds.items()
+                if k.startswith("switch")}
+    again = {k.split()[1]: v[0] for k, v in seconds.items()
+             if k.startswith("again")}
+    print(f"path view ({card}): cli view 256^3 BVP MCM {VIEW_RES}^2, "
+          f"{VIEW_SPP} spp a /frame, {len(seconds)} request kinds, every "
+          f"response 200; up in {started:.3f} s; host-clock latency: first "
+          f"/frame {seconds['first'][0] * 1e3:.3f} ms, warm "
+          f"{median * 1e3:.3f} ms (median of 7), pose change "
+          f"{seconds['pose'][0] * 1e3:.3f} ms, Params "
+          f"{seconds['params'][0] * 1e3:.3f} ms, static rebuild "
+          f"{seconds['static'][0] * 1e3:.3f} ms, renderer switch (first "
+          "use in the process) "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in switches.items())
+          + ", switch back "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in again.items())
+          + f", resolution 256 {seconds['resolution'][0] * 1e3:.3f} ms, "
+          f"filter {seconds['filter'][0] * 1e3:.3f} ms; the 8th /frame "
+          "equals 8 direct renders in every pixel; launches: "
+          + ", ".join(f"{k} {v}" for k, v in totals.items()), flush=True)
+    del ctx, direct
+    torch.cuda.empty_cache()
+    return totals
+
+
+ANIMATE_FRAMES, ANIMATE_SPP = 8, 16
+
+
+def phase_animate_path(dev, counters, bvp):
+    """``cli animate`` in-process (``run_cli``: every launch counter at 0
+    just before, read just after) on the BVP: MCM at 512², 16 spp, 8
+    orbit frames, ``--video anim.gif``, then the same with ``--video
+    anim.mp4`` (OpenCV's ``mp4v``; without OpenCV, or without the codec,
+    it falls back to a GIF and says so).  Checks 8 PNGs, the GIF's 8
+    frames equal to the PNGs, consecutive frames that differ, and K5 =
+    frames × spp, K2 = frames launches a call.  Returns the launches."""
+    import importlib.util
+
+    import numpy as np
+    from PIL import Image
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke", "animate")
+    os.makedirs(out, exist_ok=True)
+    totals, said = {name: 0 for name in counters}, {}
+    for ext in ("gif", "mp4"):
+        folder, video = (os.path.join(out, ext),
+                         os.path.join(out, f"anim.{ext}"))
+        t0 = time.perf_counter()
+        lines, launches, _ = run_cli(
+            ["animate", "--volume", bvp, "--renderer", "mcm",
+             "--resolution", "512", "--spp", str(ANIMATE_SPP), "--frames",
+             str(ANIMATE_FRAMES), "-o", folder, "--video", video], counters)
+        call_s = time.perf_counter() - t0
+        check_cli_launches(f"path animate {ext}", launches, {
+            "mcm_event": ANIMATE_FRAMES * ANIMATE_SPP,
+            "tonemap": ANIMATE_FRAMES})
+        for name, count in launches.items():
+            totals[name] += count
+        pngs = sorted(p for p in os.listdir(folder) if p.endswith(".png"))
+        check(len(pngs) == ANIMATE_FRAMES, f"path animate: {len(pngs)} PNGs")
+        frames = [png_pixels(os.path.join(folder, p)) for p in pngs]
+        check(all(not np.array_equal(a, b)
+                  for a, b in zip(frames, frames[1:])),
+              "path animate: two consecutive frames are equal")
+        wrote = [ln for ln in lines if "wrote video" in ln]
+        check(len(wrote) == 1, f"path animate: {lines}")
+        written = wrote[0].split("wrote video ")[1].strip()
+        said[ext] = (written, call_s, [ln for ln in lines
+                                       if ln.startswith("write_video")])
+        if written.endswith(".gif"):
+            gif = Image.open(written)
+            check(gif.n_frames == ANIMATE_FRAMES,
+                  f"path animate: the GIF has {gif.n_frames} frames")
+            for i, pixels in enumerate(frames):
+                gif.seek(i)
+                check(np.array_equal(np.asarray(gif.convert("RGB")),
+                                     pixels),
+                      f"path animate: GIF frame {i} is not its PNG")
+    cv2 = importlib.util.find_spec("cv2") is not None
+    check(cv2 or said["mp4"][0].endswith(".gif"),
+          "path animate: no OpenCV, yet the .mp4 request wrote no GIF")
+    print(f"path animate: cli animate 256^3 BVP MCM 512^2, "
+          f"{ANIMATE_FRAMES} orbit frames x {ANIMATE_SPP} spp: --video "
+          f"anim.gif {said['gif'][1]:.3f} s -> {said['gif'][0]}; --video "
+          f"anim.mp4 {said['mp4'][1]:.3f} s -> {said['mp4'][0]} (cv2 "
+          f"{'present' if cv2 else 'absent'}"
+          + (f"; {said['mp4'][2][0]}" if said["mp4"][2] else "")
+          + f"); launches a call: mcm_event {ANIMATE_FRAMES * ANIMATE_SPP}, "
+          f"tonemap {ANIMATE_FRAMES}", flush=True)
+    return totals
+
+
+#: the recipe's cuts for this script's time limit: the Adam steps of each
+#: stage (300/200/150/160 in the recipe) and the targets' samples a pixel
+#: (2048; 64 is the recipe's own --quick value); of 3 steps, the first
+#: carries the stage's logging and first use, the second is steady
+CONFIG3_STEPS = 3
+
+
+def phase_config3_path(dev, counters):
+    """The port's config-3 recipe (``vpt_tpu_torch.examples.config3_mcm256``)
+    at its full size through its own ``run`` with every launch counter at
+    0 first: ``blobs_volume(256)`` truth, 256² images, 10 views,
+    extinctions 25 and 5, the four stages, ``--inpaint-blind`` (views 3
+    and 7 held out), the cache off; cut: :data:`CONFIG3_STEPS` Adam steps a
+    stage and 64-spp targets.  Prints the seconds a stage and an Adam step
+    (the host clock between the loss's calls, each after a synchronize:
+    the second step, and the first, which carries the stage's logging),
+    the peak memory, K3/K4 launches a step, the voxel MSE before and after
+    and the blind tau table; checks the JSON summary line and the
+    gallery.  Returns the path's launches and K3's and K4's fields."""
+    import contextlib
+    import io
+
+    import torch
+
+    from vpt_tpu_torch.examples import config3_mcm256 as c3
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke", "config3")
+    os.makedirs(out, exist_ok=True)
+    gallery = os.path.join(out, "gallery.png")
+    args = c3.build_parser().parse_args(
+        ["--inpaint-blind", "--out", gallery, "--cache", ""])
+    n, res, full_spp, n_views = c3.sizes(False)
+    min_spp = c3.sizes(True)[2]
+    full = c3.stage_table(args, n)
+    stages = [(g, CONFIG3_STEPS, f, lr, d) for g, _, f, lr, d in full]
+    print(f"path config3: cut the Adam steps {[s[1] for s in full]} -> "
+          f"{[s[1] for s in stages]} and the targets' spp {full_spp} -> "
+          f"{min_spp} (the recipe's --quick value); {n}^3, {res}^2, "
+          f"{n_views} views, extinctions {args.exts}, --inpaint-blind",
+          flush=True)
+
+    marks = []
+    loss_fn = c3.loss_fn
+
+    def watched(voxels, *rest, **kwargs):
+        torch.cuda.synchronize()
+        marks.append((voxels.shape[0], time.perf_counter(),
+                      {k: m.LAUNCHES for k, m in counters.items()}))
+        return loss_fn(voxels, *rest, **kwargs)
+
+    for module in counters.values():
+        module.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    c3.loss_fn = watched
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            summary = c3.run(args, stages, n, res, min_spp, n_views)
+        torch.cuda.synchronize()
+    finally:
+        c3.loss_fn = loss_fn
+    call_s = time.perf_counter() - t0
+    launches = {name: m.LAUNCHES for name, m in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lines = text.getvalue().splitlines()
+    check(json.loads(lines[-1]) == summary,
+          "path config3: the last line is not the JSON summary")
+    check(summary["inpaint_tau_blind"] is None
+          or summary["inpaint_tau_blind"] in
+          [float(t) for t in args.blind_taus.split(",")],
+          f"path config3: tau {summary['inpaint_tau_blind']}")
+    for key in ("image_mse_first", "image_mse_last", "voxel_mse_init",
+                "voxel_mse_fitted", "voxel_mse_inpaint_blind"):
+        check(summary[key] == summary[key] and abs(summary[key]) < 1e3,
+              f"path config3: {key} {summary[key]}")
+    pixels = png_pixels(gallery)
+    check(pixels.shape == (3 * res, 3 * res, 3) and pixels.max() > 0,
+          f"path config3: a {pixels.shape} gallery")
+    check(launches["mcm_event"] > 0 and launches["corner_gather"] > 0
+          and launches["corner_scatter"] > 0 and launches["tonemap"] == 9,
+          f"path config3: launches {launches}")
+    stage_s = [ln.strip() for ln in lines if "stage done in" in ln]
+    per_stage = []
+    for g, *_ in stages:
+        got = [(t, c) for grid, t, c in marks if grid == g]
+        check(len(got) == CONFIG3_STEPS, f"path config3: {len(got)} loss "
+              f"calls at {g}^3")
+        (t_0, _), (t_1, c_1), (t_2, c_2) = got
+        per_stage.append((g, t_2 - t_1, t_1 - t_0,
+                          {k: c_2[k] - c_1[k]
+                           for k in ("corner_gather", "corner_scatter")}))
+    for ln in lines:
+        if ln.startswith("config 3:") or "voxel MSE by truth" in ln \
+                or "chosen tau" in ln or "stage done" in ln:
+            print(f"path config3 | {ln.strip()}", flush=True)
+    print("path config3: " + "; ".join(
+        f"{g}^3 {s:.4f} s an Adam step (the stage's first {s0:.4f} s), "
+        f"corner_gather {c['corner_gather']} / corner_scatter "
+        f"{c['corner_scatter']} a step" for g, s, s0, c in per_stage)
+        + f"; peak memory {peak:.3f} GiB; voxel MSE "
+        f"{summary['voxel_mse_init']:.6f} init -> "
+        f"{summary['voxel_mse_fitted']:.6f} fitted -> "
+        f"{summary['voxel_mse_inpaint_blind']:.6f} blind-inpainted (tau "
+        f"{summary['inpaint_tau_blind']}); blind table "
+        + json.dumps(summary["inpaint_blind_table"])
+        + f"; the blind completion {summary['inpaint_seconds']} s; fit "
+        f"{summary['fit_seconds']} s, the run {call_s:.3f} s; "
+        "launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()),
+        flush=True)
+    check(len(stage_s) == len(stages), f"path config3: {stage_s}")
+    rows = {name: {"launches_config3": launches[name],
+                   "launches_config3_step": {
+                       str(g): c[name] for g, _, _, c in per_stage}}
+            for name in ("corner_gather", "corner_scatter")}
+    rows["corner_gather"].update({
+        "config3_step_s": {str(g): s for g, s, _, _ in per_stage},
+        "config3_peak_gib": peak, "config3_call_s": call_s})
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 def run():
     import torch
 
@@ -4133,7 +4581,8 @@ def run():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -4242,6 +4691,18 @@ def run():
         k3.update(rows_of["corner_gather"])
         k4.update(rows_of["corner_scatter"])
         print(f"path {key}: {time.perf_counter() - t0:.1f} s", flush=True)
+    bvp = os.path.join(root, "build", "smoke", "blobs256.bvp")
+    t0 = time.perf_counter()
+    view_launches = phase_view_path(dev, counters, bvp, card)
+    print(f"path view: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    animate_launches = phase_animate_path(dev, counters, bvp)
+    print(f"path animate: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    config3_launches, rows_of = phase_config3_path(dev, counters)
+    k3.update(rows_of["corner_gather"])
+    k4.update(rows_of["corner_scatter"])
+    print(f"path config3: {time.perf_counter() - t0:.1f} s", flush=True)
     for path, launches, names in (
             ("forward render", render_launches,
              ("mcm_event", "tf1d_lookup", "tonemap", "corner_gather")),
@@ -4250,7 +4711,13 @@ def run():
             ("fit mcs", fit_mcs_launches,
              ("corner_gather", "corner_scatter")),
             *((key, launches, ("corner_gather", "corner_scatter"))
-              for key, launches in inverse.items())):
+              for key, launches in inverse.items()),
+            ("view", view_launches, ("mcm_event", "tonemap", "march_frame",
+                                     "iso_shade", "mcs_frame", "dos_sweep",
+                                     "lao_march")),
+            ("animate", animate_launches, ("mcm_event", "tonemap")),
+            ("config3", config3_launches,
+             ("mcm_event", "corner_gather", "corner_scatter", "tonemap"))):
         for name in names:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -4342,6 +4809,9 @@ def run():
         else:
             row["launches"] = render_launches[row["name"]]
         row["launches_cli"] = cli_launches[row["name"]]
+        row["launches_view"] = view_launches[row["name"]]
+        row["launches_animate"] = animate_launches[row["name"]]
+        row["launches_config3"] = config3_launches[row["name"]]
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           "build included", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

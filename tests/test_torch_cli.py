@@ -1,7 +1,8 @@
 """The port's command-line interface against ``vpt_tpu.cli``, on the CPU.
 
 ``render --platform cpu`` of MIP at 24² writes a PNG within 1/255 of
-vpt_tpu's in every pixel (measured: equal).  The ``render`` parser takes
+vpt_tpu's in every pixel (measured: equal).  ``animate`` and ``view`` run
+(``tests/test_torch_animate.py``, ``tests/test_torch_viewer.py``).  The ``render`` parser takes
 the option strings of vpt_tpu's, with the same defaults.  ``info`` lists
 every renderer and tone mapper and prints no time.  Without a card and
 without ``--platform cpu`` the CLI raises.
@@ -149,7 +150,14 @@ def test_render_without_a_card_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("command,item", [("animate", "item 15, rest"),
                                           ("view", "item 15, rest")])
-def test_unported_subcommands_raise(command, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 "
-                                                  f"{item}"):
-        tcli.main([command, "--volume", "sphere:8", "--frames", "3"])
+def test_unported_subcommands_raise(command, item, monkeypatch):
+    """``animate`` and ``view`` were the subcommands that raised
+    NotImplementedError for ROADMAP item 15, rest; both are ported now, so
+    without a card they reach the device and raise as ``render`` does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [command, "--volume", "sphere:8"]
+    if command == "animate":
+        argv += ["--frames", "3"]
+    with pytest.raises(RuntimeError, match="no CUDA device") as err:
+        tcli.main(argv)
+    assert item not in str(err.value)

@@ -9,6 +9,7 @@ JAX conftest:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -1904,3 +1905,121 @@ def test_biharmonic_fill_on_the_card_matches_the_cpu(cuda):
                                             tau=2.0, coarsest=8, cg_iters=50)
     assert bool(wmask.any()) and torch.equal(gmask.cpu(), wmask)
     assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+# -- the last entry points: the viewer, animate, the config-3 recipe -------
+
+def _viewer_context(device, resolution=128):
+    ctx = RenderingContext(resolution=resolution, device=device)
+    ctx.set_volume(volume.blobs_volume(64, seed=2, device=device))
+    ctx.set_transfer_function(transfer.gray_ramp(alpha_scale=0.9,
+                                                 device=device))
+    ctx.choose_renderer("mcm")
+    ctx.choose_tone_mapper("reinhard")
+    return ctx
+
+
+def test_viewer_frame_on_the_card_equals_the_context(cuda):
+    """One /frame request (4 spp at a pose) to an in-process ViewerServer
+    on the card: its handler thread launches K5 once a sample and K2 once,
+    and the PNG's pixels equal to_uint8 of a second context driven through
+    the same calls directly."""
+    import io
+    import urllib.request
+
+    Image = pytest.importorskip("PIL.Image")
+    from vpt_tpu_torch.io import to_uint8
+    from vpt_tpu_torch.runtime.viewer import ViewerServer
+
+    server = ViewerServer(_viewer_context(cuda), port=0)
+    port = server.serve_background()
+    before = (mcm_event.LAUNCHES, tonemap_kernel.LAUNCHES)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/frame?yaw=0.3&pitch=0.2&spp=4"
+                "&renderer=mcm&tonemap=reinhard", timeout=300) as resp:
+            assert resp.status == 200
+            png = resp.read()
+    finally:
+        server.shutdown()
+    assert (mcm_event.LAUNCHES - before[0],
+            tonemap_kernel.LAUNCHES - before[1]) == (4, 1)
+    got = np.asarray(Image.open(io.BytesIO(png)))
+    direct = _viewer_context(cuda)
+    direct.camera_animator.yaw = 0.3
+    direct.camera_animator.pitch = 0.2
+    direct.camera_animator._update_camera()
+    direct.render(frames=4)
+    want = to_uint8(direct.get_display_image())
+    assert got.shape == want.shape == (128, 128, 3)
+    assert np.array_equal(got, want) and want.max() > 0
+
+
+def test_record_animation_gif_on_the_card(cuda, tmp_path):
+    """record_animation(video=".gif") of 3 EAM frames at 64², 2 spp: one
+    K6 launch a sample, one K2 a frame, and the GIF's frames are the
+    PNGs'."""
+    Image = pytest.importorskip("PIL.Image")
+
+    ctx = _viewer_context(cuda, resolution=64)
+    ctx.choose_renderer("eam")
+    before = (march.LAUNCHES, tonemap_kernel.LAUNCHES)
+    ctx.record_animation(tmp_path / "frames", frames=3, spp=2,
+                         video=tmp_path / "anim.gif")
+    assert (march.LAUNCHES - before[0],
+            tonemap_kernel.LAUNCHES - before[1]) == (6, 3)
+    gif = Image.open(tmp_path / "anim.gif")
+    assert gif.n_frames == 3
+    pngs = sorted((tmp_path / "frames").glob("frame_*.png"))
+    assert len(pngs) == 3
+    for i, path in enumerate(pngs):
+        gif.seek(i)
+        assert np.array_equal(np.asarray(gif.convert("RGB")),
+                              np.asarray(Image.open(path)))
+
+
+def test_config3_helpers_on_the_card_match_the_cpu(cuda):
+    """The recipe's box_blur, resize_volume and priors on the card against
+    the CPU's (within 1e-6 relative: reductions and contractions sum in
+    another order), and one value-and-grad of its loss_fn at 16³, 16², 2
+    frames, both extinctions: K3 and K4 launched, the loss within 1e-6
+    relative and the gradient within 1e-4 relative L2 of the CPU's plain
+    fetch."""
+    from vpt_tpu_torch.examples import config3_mcm256 as c3
+    from vpt_tpu_torch.scene import CameraState, default_camera
+
+    truth = volume.blobs_volume(16, seed=3, count=6, device="cpu").data
+    blurred = c3.box_blur(truth, 13)
+    assert torch.allclose(c3.box_blur(truth.to(cuda), 13).cpu(), blurred,
+                          rtol=1e-6, atol=0)
+    up = c3.resize_volume(blurred, 32)
+    got = c3.resize_volume(blurred.to(cuda), 32).cpu()
+    assert float((got - up).abs().max()) <= 1e-6 * float(up.abs().max())
+    init = torch.clamp(0.55 * blurred, 0.0, 1.0)
+    for prior in ("tv", "curv", "logcurv", "lap", "loglap"):
+        want = float(c3.prior_penalty(init, prior))
+        got = float(c3.prior_penalty(init.to(cuda), prior))
+        assert abs(got - want) <= 1e-6 * want, prior
+
+    cam = CameraState.from_nodes(default_camera())
+    g = torch.Generator().manual_seed(6)
+    tgts = [torch.rand(16, 16, 3, generator=g) * 0.5 for _ in range(2)]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        tmpl = make_scene(truth.to(dev), transfer.gray_ramp(
+            alpha_scale=0.9, device=dev), camera=cam, pack=False,
+            device=dev)
+        vox = init.to(dev).requires_grad_(True)
+        before = (corner_gather.LAUNCHES, corner_scatter.LAUNCHES)
+        loss = c3.loss_fn(vox, tmpl, [t.to(dev) for t in tgts],
+                          0.31 + 16000.0, 2, (25.0, 5.0), 30.0,
+                          c3._base_params(), 16, "lap")
+        loss.backward()
+        launched = (corner_gather.LAUNCHES - before[0],
+                    corner_scatter.LAUNCHES - before[1])
+        out.append((loss.item(), vox.grad.cpu(), launched))
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert n0[0] > 0 and n0[1] > 0 and n1 == (0, 0)
+    assert abs(l0 - l1) <= 1e-6 * abs(l1)
+    assert bool(torch.isfinite(g0).all()) and float(g1.abs().max()) > 0
+    assert float((g0 - g1).norm() / g1.norm()) <= 1e-4

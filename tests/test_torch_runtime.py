@@ -489,6 +489,9 @@ def test_checkpoint_load_and_refusals(tmp_path):
 
 
 def test_record_animation_writes_png_frames(tmp_path):
+    """PNG frames, and since ``io/video.py`` is ported a video of them
+    (``video=`` raised NotImplementedError before): the GIF holds the
+    frames' pixels."""
     from PIL import Image
 
     t = _port_context("eam", res=12)
@@ -496,9 +499,12 @@ def test_record_animation_writes_png_frames(tmp_path):
     files = sorted(p.name for p in out.iterdir())
     assert files == ["frame_0000.png", "frame_0001.png", "frame_0002.png"]
     assert np.asarray(Image.open(out / files[0])).shape == (12, 12, 3)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t.record_animation(tmp_path / "v", frames=2, spp=1,
-                           video=tmp_path / "v.mp4")
+    t.record_animation(tmp_path / "v", frames=2, spp=1,
+                       video=tmp_path / "v.gif")
+    gif = Image.open(tmp_path / "v.gif")
+    assert gif.n_frames == 2
+    assert np.array_equal(np.asarray(gif.convert("RGB")), np.asarray(
+        Image.open(tmp_path / "v" / "frame_0000.png")))
 
 
 # -- make_scene above the packing threshold ----------------------------------

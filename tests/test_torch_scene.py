@@ -1,5 +1,6 @@
-"""Scene inputs of the port against vpt_tpu: camera matrices, synthetic
-volumes, the transfer function and the environment.
+"""Scene inputs of the port against vpt_tpu: camera matrices, the scene
+graph's traversal, synthetic volumes, the transfer function and the
+environment.
 
 The volumes are built with numpy by the same code on both sides and must be
 equal.  The camera matrices go through tan, a 4×4 product and an inverse;
@@ -89,6 +90,34 @@ def test_transform_change_listener_fires():
     t.local_translation = [1.0, 2.0, 3.0]
     assert calls == [1]
     assert np.allclose(t.local_matrix[:3, 3].numpy(), [1.0, 2.0, 3.0])
+
+
+def _tree(mod):
+    """A root with two children, the first with two children of its own
+    and the second with one: six nodes, named by the order they joined."""
+    nodes = [mod.Node() for _ in range(6)]
+    for parent, child in ((0, 1), (1, 2), (1, 3), (0, 4), (4, 5)):
+        nodes[parent].add_child(nodes[child])
+    return nodes
+
+
+def test_traverse_visits_nodes_in_jax_order():
+    """``Node.traverse`` calls ``before`` in pre-order and ``after`` in
+    post-order, as vpt_tpu's does, with either callback left out."""
+    orders = []
+    for mod in (jscene, tscene):
+        nodes = _tree(mod)
+        name = {id(n): i for i, n in enumerate(nodes)}
+        seen = []
+        nodes[0].traverse(lambda n: seen.append(("in", name[id(n)])),
+                          lambda n: seen.append(("out", name[id(n)])))
+        nodes[0].traverse(after=lambda n: seen.append(("after", name[id(n)])))
+        nodes[1].traverse(before=lambda n: seen.append(("sub", name[id(n)])))
+        orders.append(seen)
+    assert orders[1] == orders[0]
+    assert [i for kind, i in orders[1] if kind == "in"] == [0, 1, 2, 3, 4, 5]
+    assert [i for kind, i in orders[1] if kind == "out"] == [2, 3, 1, 5, 4, 0]
+    assert [i for kind, i in orders[1] if kind == "sub"] == [1, 2, 3]
 
 
 @pytest.mark.parametrize("n", [8, 17, 32])

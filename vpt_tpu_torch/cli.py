@@ -9,20 +9,27 @@ it raises.
     python -m vpt_tpu_torch.cli render --platform cpu --volume sphere:32 \\
         --renderer eam --resolution 64 --spp 4 -o /tmp/r.png
 
-    python -m vpt_tpu_torch.cli fit --platform cpu --target a.png b.png \
+    python -m vpt_tpu_torch.cli fit --platform cpu --target a.png b.png \\
         c.png --grid 16 --steps 20 --eam-slices 32 --inpaint-blind
+
+    python -m vpt_tpu_torch.cli animate --platform cpu --volume sphere:32 \\
+        --renderer eam --resolution 64 --spp 4 --frames 8 -o /tmp/anim \\
+        --video /tmp/anim.gif
+
+    python -m vpt_tpu_torch.cli view --volume blobs:128 --port 8000
 
 Subcommands:
   render   — progressive render of a volume to PNG (sample-counted)
+  animate  — render an orbit or circle animation to PNG frames, and with
+             ``--video`` to .mp4/.webm/.avi (OpenCV) or .gif (PIL)
   fit      — inverse-render a volume from images: multi-view EAM, the
              MCM/MCS estimators, or ISO depth (``--method``), with the
              occlusion completion of ``inpaint`` (``--inpaint``,
              ``--inpaint-blind``)
+  view     — the interactive browser viewer (``runtime.viewer``)
   serve    — static file server with HTTP Range support (BVP streaming)
   info     — list renderers / tone mappers / parameters, or the
              modalities of a BVP archive
-  animate, view — registered; not ported yet (they raise, naming their
-             ROADMAP.md items)
 """
 
 from __future__ import annotations
@@ -264,6 +271,23 @@ def cmd_render(args):
     print(ctx.profiler.summary())
 
 
+def cmd_animate(args):
+    """Render ``--frames`` frames along the orbit (or a ``--path circle``)
+    to ``<output>/frame_NNNN.png``, ``--spp`` samples each, and with
+    ``--video`` also encode them; on the card unless ``--platform cpu``."""
+    from .runtime.animators import CircleAnimator
+
+    ctx = _build_context(args, _device(args))
+    animator = None
+    if args.path == "circle":
+        animator = CircleAnimator(ctx.camera, radius=args.orbit_radius)
+    ctx.record_animation(args.output, frames=args.frames, spp=args.spp,
+                         animator=animator, video=args.video, fps=args.fps,
+                         progress=lambda p: print(f"\r{p * 100:.0f}%",
+                                                  end="", flush=True))
+    print(f"\nwrote {args.frames} frames to {args.output}")
+
+
 def cmd_fit(args):
     """``vpt_tpu``'s ``cli fit``: fit a ``--grid``³ volume (init 0.1, the
     gray ramp TF at alpha scale 1) to the targets by ``--method`` and save
@@ -443,6 +467,15 @@ def cmd_serve(args):
     serve(args.dir, args.port)
 
 
+def cmd_view(args):
+    """Serve the interactive viewer on ``--port``: every ``/frame``
+    request renders on the card unless ``--platform cpu``."""
+    from .runtime.viewer import ViewerServer
+
+    ctx = _build_context(args, _device(args))
+    ViewerServer(ctx, port=args.port).serve_forever()
+
+
 def cmd_info(args):
     from .renderers import factory
     from .tonemap import TONE_MAPPERS
@@ -475,21 +508,6 @@ def cmd_info(args):
     print("tone mappers:", ", ".join(sorted(TONE_MAPPERS)))
 
 
-#: the subcommands of vpt_tpu that the port does not have yet
-NOT_PORTED = {
-    "animate": ("render an animation sequence",
-                "queue 1 item 15, rest (animate, io/video.py)"),
-    "view": ("interactive browser viewer",
-             "queue 1 item 15, rest (runtime/viewer.py)"),
-}
-
-
-def _not_ported(args):
-    raise NotImplementedError(
-        f"cli {args.command} is not ported to vpt_tpu_torch yet "
-        f"(ROADMAP.md {NOT_PORTED[args.command][1]})")
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="vpt_tpu_torch",
                                      description=__doc__)
@@ -504,6 +522,19 @@ def build_parser() -> argparse.ArgumentParser:
                                    "trace format, trace.json) of the render "
                                    "to this directory")
     p.set_defaults(func=cmd_render)
+
+    p = sub.add_parser("animate", help="render an animation sequence")
+    _add_common_args(p)
+    p.add_argument("--output", "-o", default="frames")
+    p.add_argument("--frames", type=int, default=36)
+    p.add_argument("--path", default="orbit", choices=["orbit", "circle"])
+    p.add_argument("--orbit-radius", type=float, default=0.5)
+    p.add_argument("--video", help="also encode the animation to video "
+                                   "(.mp4/.webm/.avi via OpenCV, .gif via "
+                                   "PIL; degrades to GIF with a message "
+                                   "when no encoder exists)")
+    p.add_argument("--fps", type=int, default=25)
+    p.set_defaults(func=cmd_animate)
 
     p = sub.add_parser("fit", help="inverse-render a volume from images")
     p.add_argument("--target", required=True, nargs="+",
@@ -552,9 +583,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cpu: fit on the CPU (default: the CUDA card)")
     p.set_defaults(func=cmd_fit)
 
-    for name, (text, _) in NOT_PORTED.items():
-        p = sub.add_parser(name, help=f"{text} (not ported yet)")
-        p.set_defaults(func=_not_ported)
+    p = sub.add_parser("view", help="interactive browser viewer")
+    _add_common_args(p)
+    p.add_argument("--port", type=int, default=8000)
+    p.set_defaults(func=cmd_view)
 
     p = sub.add_parser("serve", help="range-request static server")
     p.add_argument("--dir", default=".")
@@ -569,11 +601,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    parser = build_parser()
-    # an unported command raises whatever its arguments
-    args, unknown = parser.parse_known_args(argv)
-    if unknown and args.func is not _not_ported:
-        parser.error(f"unrecognized arguments: {' '.join(unknown)}")
+    args = build_parser().parse_args(argv)
     return args.func(args)
 
 

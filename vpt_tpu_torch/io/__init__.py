@@ -1,5 +1,6 @@
 """Volume and image I/O of the port: byte-range loaders, the streaming ZIP
-reader, BVP/RAW readers, PNG output and the range-request file server."""
+reader, BVP/RAW readers, PNG output, video encoding and the range-request
+file server."""
 
 from .image import read_image, to_uint8, write_png  # noqa: F401
 from .loaders import (  # noqa: F401

@@ -39,6 +39,13 @@ from ..utils import resolve_device
 from ..volume import Volume
 
 
+def static_field(**kwargs):
+    """A Params field marked ``static``, as ``vpt_tpu`` marks its
+    structural knobs (loop trip counts, branches): the viewer rebuilds the
+    renderer when one changes and swaps the Params for any other."""
+    return dataclasses.field(metadata={"static": True}, **kwargs)
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to vpt_tpu_torch yet (ROADMAP.md {item})")

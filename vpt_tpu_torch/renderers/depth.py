@@ -20,15 +20,15 @@ import torch
 
 from ..kernels import march as march_kernel
 from . import _march
-from .base import Scene, frame_weight, state_device
+from .base import Scene, frame_weight, state_device, static_field
 
 
 @dataclasses.dataclass(frozen=True)
 class Params:
     extinction: float = 100.0
-    slices: int = 64
+    slices: int = static_field(default=64)
     threshold: float = 0.1
-    random: bool = False
+    random: bool = static_field(default=False)
 
 
 def reset(params: Params, height: int, width: int, scene: Scene = None):

@@ -39,7 +39,7 @@ import torch
 
 from .. import math3d as m4
 from .. import sampling
-from .base import Scene, fit_scene
+from .base import Scene, fit_scene, static_field
 
 #: soft steps sampled in one fetch: bounds the (steps, H, W, 3) positions
 #: and the (steps, H, W, 4) colours that one fetch holds
@@ -52,7 +52,7 @@ class Params:
     light: tuple = (2.0, -3.0, -5.0)
     gradient_step: float = 0.005
     tau: float = 0.02                  # crossing softness; -> 0: hard ISO
-    steps: int = 50
+    steps: int = static_field(default=50)
 
 
 def _scalar(x, device):

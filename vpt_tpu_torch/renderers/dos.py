@@ -31,16 +31,16 @@ import torch
 from .. import math3d, rng, sampling
 from ..kernels import dos_sweep
 from ..utils import constant
-from .base import Scene, _not_ported
+from .base import Scene, _not_ported, static_field
 
 
 @dataclasses.dataclass(frozen=True)
 class Params:
     extinction: float = 100.0
     aperture: float = 30.0        # degrees
-    steps: int = 50               # slices advanced per frame
-    slices: int = 200             # total sweep resolution
-    samples: int = 8              # occlusion disk taps
+    steps: int = static_field(default=50)     # slices advanced per frame
+    slices: int = static_field(default=200)   # total sweep resolution
+    samples: int = static_field(default=8)    # occlusion disk taps
 
 
 def _occlusion_samples(count: int, device="cpu"):

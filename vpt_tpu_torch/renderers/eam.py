@@ -20,14 +20,14 @@ import torch
 from ..kernels import march as march_kernel
 from ..utils import constant
 from . import _march
-from .base import Scene, frame_weight, state_device
+from .base import Scene, frame_weight, state_device, static_field
 
 
 @dataclasses.dataclass(frozen=True)
 class Params:
     extinction: float = 100.0
-    slices: int = 64
-    random: bool = True
+    slices: int = static_field(default=64)
+    random: bool = static_field(default=True)
 
 
 def reset(params: Params, height: int, width: int, scene: Scene = None):

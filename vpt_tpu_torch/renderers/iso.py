@@ -25,7 +25,8 @@ from .. import math3d
 from ..kernels import iso_shade
 from ..kernels import march as march_kernel
 from . import _march
-from .base import Scene, clamp_to_box, cube_interval, state_device
+from .base import (Scene, clamp_to_box, cube_interval, state_device,
+                   static_field)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +34,7 @@ class Params:
     isovalue: float = 0.5
     light: tuple = (2.0, -3.0, -5.0)
     gradient_step: float = 0.005
-    steps: int = 50
+    steps: int = static_field(default=50)
 
 
 def reset(params: Params, height: int, width: int, scene: Scene = None):

@@ -32,7 +32,7 @@ from .. import math3d, rng, sampling
 from ..kernels import lao_march
 from ..utils import constant
 from . import _march
-from .base import Scene, cube_interval, state_device
+from .base import Scene, cube_interval, state_device, static_field
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,17 +43,17 @@ class Params:
     light_radius: float = 0.19
     light_position: tuple = (2.0, 12.0, 3.0)
     light_coefficient: float = 1.0
-    local_ambient_occlusion: bool = True
-    num_lao_samples: int = 1
-    lao_step_size: float = 0.05
-    soft_shadows: bool = True
-    num_shadow_samples: int = 10
-    slices: int = 64
+    local_ambient_occlusion: bool = static_field(default=True)
+    num_lao_samples: int = static_field(default=1)
+    lao_step_size: float = static_field(default=0.05)
+    soft_shadows: bool = static_field(default=True)
+    num_shadow_samples: int = static_field(default=10)
+    slices: int = static_field(default=64)
     #: read (value, |∇|) from a two-channel volume baked with
     #: ``volume.with_lao_gradient`` instead of the seven-tap central
     #: difference a sample (the baked |∇| is the stencil's at voxel
     #: centres, trilinearly interpolated between them)
-    baked_gradient: bool = False
+    baked_gradient: bool = static_field(default=False)
 
 
 VOXEL_SIZE = 1.0 / 32.0   # LAORenderer.glsl:59 (the reference hard-codes it)

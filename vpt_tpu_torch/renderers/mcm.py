@@ -34,7 +34,7 @@ import torch
 
 from .. import rng, sampling, skipgrid
 from ..kernels import mcm_event
-from .base import Scene
+from .base import Scene, static_field
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,8 +42,8 @@ class Params:
     extinction: float = 1.0
     anisotropy: float = 0.0
     blur: float = 0.0
-    max_bounces: int = 8
-    steps: int = 8
+    max_bounces: int = static_field(default=8)
+    steps: int = static_field(default=8)
 
 
 def inverse_resolution(height: int, width: int, device) -> torch.Tensor:

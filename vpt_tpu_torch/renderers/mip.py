@@ -18,12 +18,12 @@ import torch
 
 from ..kernels import march as march_kernel
 from . import _march
-from .base import Scene, state_device
+from .base import Scene, state_device, static_field
 
 
 @dataclasses.dataclass(frozen=True)
 class Params:
-    steps: int = 64
+    steps: int = static_field(default=64)
 
 
 def reset(params: Params, height: int, width: int, scene: Scene = None):

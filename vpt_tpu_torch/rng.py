@@ -1,9 +1,12 @@
 """Counter/hash-based RNG reproducing the reference's GLSL random library.
 
-Mirrors ``vpt_tpu/rng.py``: the seven scalar hashes, the ``squash_linear``
-combiner, per-pixel seeding and the distributions the MCM renderer draws
-from.  The per-pixel state is a uint32 stream threaded explicitly through the
-renderer, bit for bit the same as the JAX package's.
+Mirrors ``vpt_tpu/rng.py``: the seven scalar hashes, the three vector
+combiners (``squash_linear``, ``squash_nested``, ``squash_xor``), per-pixel
+seeding, the GLSL distributions (uniform by division and by bit cast,
+square, circle, disk, sphere, hemisphere, ball, normal, exponential) and
+the legacy float RNGs ``rand_vec2`` and ``btrand``.  The per-pixel state
+is a uint32 stream threaded explicitly through the renderer, bit for bit
+the same as the JAX package's.
 
 PyTorch on the CPU has no right shift for ``torch.uint32``, so a state here
 is an int64 tensor that holds a uint32 value; every operation that can carry
@@ -46,6 +49,12 @@ def float_bits_to_uint(x: torch.Tensor) -> torch.Tensor:
     """GLSL floatBitsToUint: the float32 bits as a uint32 value."""
     return x.to(torch.float32).contiguous().view(torch.int32).to(
         torch.int64) & _MASK
+
+
+def uint_bits_to_float(x) -> torch.Tensor:
+    """GLSL uintBitsToFloat: a uint32 value's bits as a float32."""
+    x = u32(x)
+    return (x - ((x >> 31) << 32)).to(torch.int32).view(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +135,22 @@ def squash_linear(parts, hash_fn=pcg):
     return hash_fn((acc + offset[len(parts)]) & _MASK)
 
 
+def squash_nested(parts, hash_fn=pcg):
+    """hash(hash(hash(p0) + p1) + p2 ...) of squashnested.glsl."""
+    acc = hash_fn(u32(parts[0]))
+    for p in parts[1:]:
+        acc = hash_fn((acc + u32(p)) & _MASK)
+    return acc
+
+
+def squash_xor(parts, hash_fn=pcg):
+    """hash(p0 ^ hash(p1) ^ hash(p2) ...) of squashxor.glsl."""
+    acc = u32(parts[0])
+    for p in parts[1:]:
+        acc = acc ^ hash_fn(u32(p))
+    return hash_fn(acc)
+
+
 def seed_pixels(ndc_xy: torch.Tensor, rand_seed, hash_fn=pcg):
     """hash(uvec3(floatBitsToUint(pos.xy), floatBitsToUint(seed))), the
     per-pixel seeding of MCMRenderer.glsl:128.  ``ndc_xy`` is (..., 2)
@@ -147,10 +172,24 @@ def uniform(state, hash_fn=pcg):
     return state, state.to(torch.float32) / float(_INV_MAX)
 
 
+def uniform_cast(state, hash_fn=pcg):
+    """uniformcast.glsl: the state's 23 low bits as the mantissa of a
+    float32 in [1, 2), minus 1."""
+    state = hash_fn(state)
+    bits = (state & 0x007FFFFF) | 0x3F800000
+    return state, uint_bits_to_float(bits) - 1.0
+
+
 def square(state):
     state, x = uniform(state)
     state, y = uniform(state)
     return state, torch.stack([x, y], dim=-1)
+
+
+def circle(state):
+    state, a = uniform(state)
+    angle = float(TWOPI) * a
+    return state, torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1)
 
 
 def disk(state):
@@ -169,6 +208,39 @@ def sphere(state):
     radius = 2.0 * torch.sqrt(torch.clamp(1.0 - norm, min=0.0))
     z = 1.0 - 2.0 * norm
     return state, torch.cat([radius[..., None] * d, z[..., None]], dim=-1)
+
+
+def hemisphere(state):
+    state, z = uniform(state)
+    state, a = uniform(state)
+    radius = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    angle = float(TWOPI) * a
+    return state, torch.stack(
+        [radius * torch.cos(angle), radius * torch.sin(angle), z], dim=-1)
+
+
+def ball(state):
+    """A uniform point in the unit ball.  PyTorch has no ``cbrt``: the
+    cube root is taken in float64 and rounded to float32."""
+    state, uz = uniform(state)
+    state, ua = uniform(state)
+    state, ur = uniform(state)
+    z = 1.0 - 2.0 * uz
+    angle = float(TWOPI) * ua
+    radius = torch.pow(ur.to(torch.float64), 1.0 / 3.0).to(torch.float32)
+    height = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return state, radius[..., None] * torch.stack(
+        [height * torch.cos(angle), height * torch.sin(angle), z], dim=-1)
+
+
+def normal(state):
+    """Box-Muller (1958), the cosine branch only, as normal.glsl; ``r`` is
+    clamped away from 0 as in :func:`exponential`."""
+    state, r = uniform(state)
+    state, a = uniform(state)
+    radius = torch.sqrt(-2.0 * torch.log(
+        torch.clamp(r, min=float(np.float32(1e-38)))))
+    return state, radius * torch.cos(float(TWOPI) * a)
 
 
 def exponential(state, rate):
@@ -202,3 +274,27 @@ def rand_vec2(p):
     mapped = torch.stack([torch.cos(dotted0) * d[0],
                           torch.sin(dotted1) * d[1]], dim=-1)
     return torch.remainder(mapped, 1.0)
+
+
+# 4-lane LCG float RNG (mixins/btrand.glsl:3-17, vpt_tpu/rng.py:253-267;
+# no renderer uses it)
+_BT_Q = (1225.0, 1585.0, 2457.0, 2098.0)
+_BT_R = (1112.0, 367.0, 92.0, 265.0)
+_BT_A = (3423.0, 2646.0, 1707.0, 1999.0)
+_BT_M = (4194287.0, 4194277.0, 4194191.0, 4194167.0)
+
+
+def btrand(n):
+    """One step of the four lanes ``n`` (..., 4) float32: returns the new
+    lanes and their combined value in [0, 1) (..., ), summed in lane
+    order."""
+    n = torch.as_tensor(n, dtype=torch.float32)
+    q, r, a, m = (torch.tensor(c, dtype=torch.float32, device=n.device)
+                  for c in (_BT_Q, _BT_R, _BT_A, _BT_M))
+    beta = torch.floor(n / q)
+    p = a * (n - beta * q) - beta * r
+    beta = (torch.sign(-p) + 1.0) * 0.5 * m
+    n = p + beta
+    t = n / m
+    total = t[..., 0] - t[..., 1] + t[..., 2] - t[..., 3]
+    return n, torch.remainder(total, 1.0)

@@ -85,7 +85,7 @@ class Component:
 
 
 class Node:
-    """Scene-graph node: children and components."""
+    """Scene-graph node: children, traversal, component lookup."""
 
     def __init__(self):
         self.parent: Optional[Node] = None
@@ -103,6 +103,16 @@ class Node:
         if child in self.children:
             self.children.remove(child)
             child.parent = None
+
+    def traverse(self, before=None, after=None):
+        """Depth first: ``before(node)`` on the way down, ``after(node)``
+        on the way up (Node.js:14-44)."""
+        if before:
+            before(self)
+        for child in self.children:
+            child.traverse(before, after)
+        if after:
+            after(self)
 
     def get_component(self, cls):
         for comp in self.components:
