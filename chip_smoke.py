@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port's renderers (MCM, EAM, MIP, Depth, ISO,
 MCS, DOS, LAO), its ``cli render``, its differentiable MCM and MCS fits,
 its ``cli fit`` (EAM, ISO depth, MCM with the occlusion completion), its
-``cli view`` server, its ``cli animate`` and its config-3 recipe once on
-one GPU.
+``cli view`` server, its ``cli animate``, its config-3 recipe, its
+data-parallel ``parallel`` package and its three demos once on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path [--part frames|fetch|sweep] TREE ...
@@ -76,6 +76,12 @@ prints no result:
    count of its lane-slices (equal to the plain frame's active
    pixel-slices) and warp-slices beside those modelled from the plain
    frame;
+9a. the row window of K5, K6 (four modes), K8 and K10 at 512² on the
+   headline (:func:`phase_window_checks`): each frame rendered as two
+   equal bands of rows and as three uneven ones (137, 202 and 173 rows),
+   each band with its ``window=(row0, 512)``, stacked and held against
+   the unwindowed frame, bit for bit (K10 within its 99.99%-within-1e-6
+   bound);
 10. each renderer through the user's entry points at 512²
    (``make_renderer``, 10 frames, a DOS sweep, ``display``, the
    ``reinhard`` tone mapper) on the headline scene, EAM also on the 256³
@@ -127,6 +133,11 @@ prints no result:
    plain frame on that scene and a float32 twin, timed in turns against
    the seven-tap instance on the same scene, and the baked image against
    the exact seven-tap one within ``tests/test_lao_baked.py``'s bounds;
+10d. ``path unpacked`` (:func:`phase_unpacked_path`): a ``pack=False``
+   64³ blobs scene (the samplers unpacked, float32 corner tables for the
+   kernels), one frame of each of the eight renderers at 256² through its
+   kernel against its plain frame within the packed rows' bounds, ISO's
+   display through K7, every launch counter at 0 first;
 11. the serving entry point, ``vpt_tpu_torch.cli.main(["render", ...])``
    in-process (:func:`phase_cli_path`): a 256³ uint8 BVP written by the
    port's ``write_bvp``, MCM at 512², 32 spp, ``--precision fast``, cheb-skip,
@@ -198,10 +209,38 @@ prints no result:
    (:func:`phase_config3_path`): the port's config-3 recipe at its full
    size with ``--inpaint-blind``, cut to 3 Adam steps a stage and 64-spp
    targets;
-13. every kernel launched on its path (8, 10, 10a–c, 11, 12, 12a–c);
+12d. ``path parallel`` (:func:`phase_parallel_path`): config 4's full
+   shapes (``examples/config4_pod512.py:86-96``: ``blobs_volume(512,
+   seed=3)``, ``gray_ramp(alpha_scale=0.9)``, MCM extinction 30,
+   anisotropy 0.2, steps 8, 1024²) in a world of one over ``nccl``
+   (``parallel.distributed.initialize`` on a free local port):
+   ``make_mesh``, ``sharded_scene``, ``place_state``, 32 frames of
+   ``shard_render_frame`` (K5), ``shard_display`` and ``reinhard`` (K2),
+   one frame on the volume z-sharded between frames against the
+   replicated frame, two ``overlap.bucketed_train_step`` steps of the
+   data-parallel EAM fit at ``path fit eam``'s size (K3, K4; the second
+   timed), ``save_sharded(wait=False)`` / ``load_sharded`` of the state;
+   the frame time, events/s, the step time and the peak memory; after
+   the counts are read, one ``shard_render_frame`` from the reset state
+   against the plain loop (``_frames_agree``'s bounds) and the 1024²
+   display's K2 against ``tonemap_plain``; then ``path parallel gloo``
+   (:func:`phase_parallel_gloo`): two spawned ranks on the card over
+   ``gloo`` (its collectives take CUDA tensors), MCM 512² × 4 frames with
+   the rows split in two and an EAM frame on a 128³ volume z-sharded over
+   ``space``, assembled and held bit for bit against this process's
+   world-one frames, and ``shard.eam_value_and_grad`` with one
+   ``shard.data_parallel_train_step`` (rows over ``data``: an all-reduce;
+   z slabs over ``space``: a reduce-scatter) against one process's
+   ``train.render_eam`` gradient; ``path demos``
+   (:func:`phase_demos_path`): ``render_demo``, ``inverse_demo`` and
+   ``depth_fit_demo`` at their default sizes, every launch counter at 0
+   before each, then ``render_demo``'s eight images against their plain
+   versions;
+13. every kernel launched on its path (8, 10, 10a–d, 11, 12, 12a–d);
     the JSON line says which call launched each, and ``launches_cli``,
-    ``launches_view``, ``launches_animate`` and ``launches_config3`` its
-    launches on the calls of 11 and 12c.
+    ``launches_view``, ``launches_animate``, ``launches_config3``,
+    ``launches_unpacked``, ``launches_parallel`` and ``launches_demos``
+    its launches on the calls of 10d, 11, 12c and 12d.
 
 Then one JSON line with each kernel's launches, error, loop time per call
 (``ms``, CUDA events) and device time per launch (``device_ms``,
@@ -443,11 +482,13 @@ def phase_tf1d(dev):
             "blocks_per_sm": shape["blocks_per_sm"]}
 
 
-def _frames_agree(scene, params, height, width, frames, label):
+def _frames_agree(scene, params, height, width, frames, label,
+                  render=None):
     """Run the kernel and the plain loop from one reset state; return the
     samples-agreement fraction and the max radiance error where the
     samples agree.  The plain loop runs on the scene with
-    ``kernels=False`` and must launch no kernel."""
+    ``kernels=False`` and must launch no kernel.  ``render(state, seed)``
+    is the kernel's frame (default ``event_frame`` on ``scene``)."""
     import dataclasses
 
     import torch
@@ -455,11 +496,15 @@ def _frames_agree(scene, params, height, width, frames, label):
     from vpt_tpu_torch.kernels import mcm_event
     from vpt_tpu_torch.renderers import mcm
 
+    if render is None:
+        def render(state, seed):
+            mcm_event.event_frame(state, scene, params, seed)
+
     state = mcm.reset(params, height, width, scene)
     plain = {k: v.clone() for k, v in state.items()}
     reference = dataclasses.replace(scene, kernels=False)
     for f in range(frames):
-        mcm_event.event_frame(state, scene, params, 0.3 + 0.01 * f)
+        render(state, 0.3 + 0.01 * f)
         before = launch_counts()
         mcm_event.event_frame_plain(plain, reference, params, 0.3 + 0.01 * f)
         check(launch_counts() == before,
@@ -2133,10 +2178,10 @@ def _path_launches(counters, name, expected):
     return launches
 
 
-def _check_display(name, hdr, image):
+def _check_display(name, hdr, image, res=512):
     import torch
 
-    check(tuple(image.shape) == (512, 512, 4)
+    check(tuple(image.shape) == (res, res, 4)
           and bool(torch.isfinite(image).all())
           and bool((image[..., 3] == 1.0).all()),
           f"{name}: display image not finite RGBA with alpha 1")
@@ -4560,6 +4605,664 @@ def phase_config3_path(dev, counters):
     return launches, rows
 
 
+# -- this slice: unpacked scenes, the row window, parallel/, the demos -----
+
+UNPACKED_KEYS = ("mcm", "eam", "mip", "depth", "iso", "mcs", "dos", "lao")
+
+
+def plain_frame(key, plain, scene, params, seed, n):
+    """Renderer ``key``'s plain frame in place on ``plain``, on the scene
+    with ``kernels=False``; checks that it launched nothing."""
+    import dataclasses
+
+    from vpt_tpu_torch.kernels import dos_sweep, lao_march, march
+    from vpt_tpu_torch.kernels import mcm_event, mcs_frame
+
+    reference = dataclasses.replace(scene, kernels=False)
+    before = launch_counts()
+    if key == "mcm":
+        mcm_event.event_frame_plain(plain, reference, params, seed)
+    elif key == "mcs":
+        mcs_frame.mcs_frame_plain(plain, reference, params, seed, n)
+    elif key == "dos":
+        dos_sweep.sweep_frame_plain(plain, reference, params)
+    elif key == "lao":
+        lao_march.lao_frame_plain(plain, reference, params)
+    else:
+        march.march_frame_plain(key, plain, reference, params, seed, n)
+    check(launch_counts() == before, f"{key}: the plain frame launched a "
+          "kernel")
+
+
+def _clone(state):
+    if isinstance(state, dict):
+        return {k: v.clone() for k, v in state.items()}
+    return state.clone()
+
+
+def states_agree(label, key, got, want):
+    """Kernel against plain frame within the packed rows' bounds (MCM:
+    ``_frames_agree``'s; Depth and ISO equal; DOS its colour and
+    occlusion, the others their state, 99.99% of the pixels within
+    1e-6); returns the max abs error."""
+    import torch
+
+    if key == "mcm":
+        match = got["samples"] == want["samples"]
+        agree = float(match.float().mean())
+        err = float((got["radiance"] - want["radiance"])[match].abs().max())
+        check(agree >= 0.9999 and err <= 1e-6, f"{label} mcm: samples "
+              f"agree {agree}, radiance err {err}")
+        print(f"mcm {label}: samples agree {agree:.6f} (bound 0.9999), "
+              f"radiance max abs err {err} (bound 1e-6)", flush=True)
+        return err
+    if key == "dos":
+        check(torch.equal(got["depth"], want["depth"]),
+              f"{label} dos: depth differs")
+        return max(compare_states(label, "dos " + k, got[k], want[k], False)
+                   for k in ("color", "occlusion"))
+    return compare_states(label, key, got, want, key in ("depth", "iso"))
+
+
+def phase_unpacked_path(dev, counters):
+    """``path unpacked``: a ``pack=False`` 64³ blobs scene on the card
+    (the samplers unpacked, float32 corner tables for the kernels), one
+    frame of each renderer at 256² through its kernel, every launch
+    counter at 0 first, against its plain frame; ISO's display through
+    K7 against its plain shade.  Returns (launches, {kernel: max abs
+    err})."""
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.kernels import iso_shade
+    from vpt_tpu_torch.renderers import factory, iso, make_scene, mcm
+
+    t0 = time.perf_counter()
+    scene = make_scene(volume.blobs_volume(64, seed=1),
+                       transfer.gray_ramp(alpha_scale=0.8), pack=False)
+    check(scene.kernel_tables and not scene._packed_samples()
+          and scene.volume_packed.dtype == torch.float32
+          and scene.transfer_packed.dtype == torch.float32,
+          "path unpacked: the scene lacks its float32 kernel tables")
+    for module in counters.values():
+        module.LAUNCHES = 0
+    errors = {}
+    for key in UNPACKED_KEYS:
+        module = factory.get_module(key)
+        params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8) \
+            if key == "mcm" else module.Params()
+        state = module.reset(params, 256, 256, scene)
+        plain = _clone(state)
+        module.render_frame(state, scene, params, 0.37, 1)
+        plain_frame(key, plain, scene, params, 0.37, 1)
+        torch.cuda.synchronize()
+        name = PATH_KERNEL.get(key, "mcm_event")
+        errors[name] = max(errors.get(name, 0.0), states_agree(
+            "unpacked 64^3 256^2", key, state, plain))
+        if key == "iso":
+            shown = iso.display(state, scene, params)
+            check(torch.equal(shown, iso_shade.iso_shade_plain(
+                state, scene, params)), "path unpacked: K7 differs")
+            errors["iso_shade"] = 0.0
+    launches = {k: m.LAUNCHES for k, m in counters.items()}
+    check_cli_launches("path unpacked", launches, {
+        "mcm_event": 1, "march_frame": 4, "iso_shade": 1, "mcs_frame": 1,
+        "dos_sweep": 1, "lao_march": 1})
+    print(f"path unpacked: pack=False blobs 64^3 (float32 kernel tables, "
+          f"{scene.volume_packed.numel() * 4} bytes), each renderer one "
+          f"frame at 256^2 through its kernel; launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, errors
+
+
+#: the row-window checks' bands of a 512-row frame: two equal ones, and
+#: three uneven ones that are no multiple of a block's rows
+WINDOW_BANDS = {"two bands": [(0, 256), (256, 512)],
+                "three uneven bands": [(0, 137), (137, 339), (339, 512)]}
+
+
+def phase_window_checks(headline):
+    """The row window of K5, K6 (four modes), K8 and K10 at 512² on the
+    headline: the whole frame rendered as two equal bands and as three
+    uneven ones, each band with its window, stacked and held against the
+    unwindowed frame: bit for bit (K5, K6, K8; every state field), K10
+    within its bound (99.99% of the values within 1e-6).  Returns
+    {kernel: max abs err}."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch.renderers import factory, mcm
+
+    errors = {}
+    for key in ("mcm", "eam", "mip", "depth", "iso", "mcs", "lao"):
+        module = factory.get_module(key)
+        params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8) \
+            if key == "mcm" else module.Params()
+        frames = 1 if key == "lao" else 2
+        name = PATH_KERNEL.get(key, "mcm_event")
+        whole = module.reset(params, 512, 512, headline)
+        for n in range(1, frames + 1):
+            module.render_frame(whole, headline, params,
+                                np.float32(0.3 + 0.01 * n), n)
+        for label, bands in WINDOW_BANDS.items():
+            parts = []
+            for r0, r1 in bands:
+                kw = {"window": (r0, 512)} if key == "mcm" else {}
+                part = module.reset(params, r1 - r0, 512, headline, **kw)
+                for n in range(1, frames + 1):
+                    module.render_frame(part, headline, params,
+                                        np.float32(0.3 + 0.01 * n), n,
+                                        window=(r0, 512))
+                parts.append(part)
+            torch.cuda.synchronize()
+            if isinstance(whole, dict):
+                for k in whole:
+                    check(torch.equal(torch.cat([p[k] for p in parts]),
+                                      whole[k]),
+                          f"window {key} {label}: {k} differs")
+                err = 0.0
+            elif key == "lao":
+                err = compare_states(f"window {label}", key,
+                                     torch.cat(parts), whole, False)
+            else:
+                check(torch.equal(torch.cat(parts), whole),
+                      f"window {key} {label}: the bands differ")
+                err = 0.0
+            errors[name] = max(errors.get(name, 0.0), err)
+            print(f"window {name} {key} 512^2 {label} "
+                  f"{[r1 - r0 for r0, r1 in bands]}: "
+                  + ("max abs err " + str(err) if key == "lao"
+                     else "equal bit for bit") + " to the whole frame",
+                  flush=True)
+    return errors
+
+
+#: config 4 (``examples/config4_pod512.py:86-96``, ``--full``): the volume,
+#: the image and the frames of ``path parallel``
+PARALLEL_VOLUME, PARALLEL_RES, PARALLEL_SPP = 512, 1024, 32
+
+
+def eam_fit_views(truth, count=4, res=256):
+    """``path fit eam``'s inputs: 256² targets of ``truth`` from ``count``
+    orbit views, rendered by ``train.render_eam`` under no_grad, the
+    views' matrices, the TF and Params (64 slices, no jitter)."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import transfer, train
+    from vpt_tpu_torch.examples.inverse_demo import orbit_views
+    from vpt_tpu_torch.renderers import eam
+
+    tf = transfer.gray_ramp(alpha_scale=1.0)
+    params = eam.Params(slices=64, random=False)
+    views = [tuple(m.to(truth.device) for m in v) for v in orbit_views(count)]
+    with torch.no_grad():
+        targets = [train.render_eam(truth, tf, v, params, np.float32(0.0),
+                                    res, res) for v in views]
+    return tf, params, views, targets
+
+
+def phase_parallel_path(dev, counters):
+    """``path parallel``: config 4's full shapes on one card, in a world
+    of one over ``nccl``: ``distributed.initialize``, ``make_mesh``,
+    ``sharded_scene``, ``place_state``, 32 frames of
+    ``shard_render_frame`` (K5), ``shard_display`` and ``reinhard`` (K2);
+    one frame on the volume z-sharded between frames against the
+    replicated frame; one ``bucketed_train_step`` of the data-parallel EAM
+    fit at ``path fit eam``'s size (K3, K4); ``save_sharded`` /
+    ``load_sharded`` of the state.  Every launch counter at 0 first.
+    Prints the frame time, events/s, the step time and the peak memory.
+    After the counts are read: one frame from the reset state through
+    ``shard_render_frame`` against the plain loop, and the display's K2
+    against ``tonemap_plain``.  Returns the launches and those two
+    comparisons' max abs errors by kernel."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vpt_tpu_torch import tonemap, transfer, volume
+    from vpt_tpu_torch.kernels import tonemap_kernel
+    from vpt_tpu_torch.parallel import (distributed, make_mesh,
+                                        place_state, shard_display,
+                                        shard_render_frame, sharded_scene)
+    from vpt_tpu_torch.parallel import mesh as meshmod
+    from vpt_tpu_torch.parallel import overlap, shard
+    from vpt_tpu_torch.renderers import make_scene, mcm
+    from vpt_tpu_torch.runtime import checkpoint
+
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    check(distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                                 retries=2, retry_delay=1.0),
+          "path parallel: no process group")
+    try:
+        check("nccl" in dist.get_backend(), "path parallel: not nccl")
+        print(f"path parallel: {distributed.topology_summary()}",
+              flush=True)
+        grid = make_mesh(1)
+        t0 = time.perf_counter()
+        scene = make_scene(volume.blobs_volume(PARALLEL_VOLUME, seed=3),
+                           transfer.gray_ramp(alpha_scale=0.9))
+        torch.cuda.synchronize()
+        scene_s = time.perf_counter() - t0
+        params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
+        for module in counters.values():
+            module.LAUNCHES = 0
+        sc = sharded_scene(scene, grid)
+        whole = mcm.reset(params, PARALLEL_RES, PARALLEL_RES, sc)
+        state = place_state(whole, grid)
+        frame = shard_render_frame(mcm, grid, whole)
+        rs = np.random.default_rng(4)
+        seeds = [np.float32(rs.random(dtype=np.float32))
+                 for _ in range(PARALLEL_SPP)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for n, seed in enumerate(seeds, 1):
+            frame(state, sc, params, seed, n)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        shown = shard_display(mcm, grid, whole)(state, sc, params)
+        image = tonemap.ToneMapper("reinhard")(shown)
+        torch.cuda.synchronize()
+        _check_display("path parallel", shown, image, PARALLEL_RES)
+        events = PARALLEL_RES * PARALLEL_RES * params.steps * PARALLEL_SPP
+        samples = float(state["samples"].mean())
+        check(samples > 1.0, f"path parallel: {samples} samples a pixel")
+
+        # the volume z-sharded between frames: the replicated frame
+        slabs = sharded_scene(scene, grid, shard_volume=True)
+        a, b = _clone(state), _clone(state)
+        frame(a, sc, params, np.float32(0.77), PARALLEL_SPP + 1)
+        frame(b, slabs, params, np.float32(0.77), PARALLEL_SPP + 1)
+        torch.cuda.synchronize()
+        for k in a:
+            check(torch.equal(a[k], b[k]), f"path parallel: the z-sharded "
+                  f"frame's {k} differs from the replicated one")
+        del slabs, a, b
+
+        # the data-parallel EAM step, its gradient bucketed over data
+        truth = volume.blobs_volume(64, seed=1).data
+        tf, eparams, views, targets = eam_fit_views(truth)
+
+        def loss_of_volume(v):
+            return sum(shard.eam_loss_rows(v, tf, cams, target, eparams,
+                                           np.float32(0.0), grid)
+                       for cams, target in zip(views, targets)) / len(views)
+
+        step = overlap.bucketed_train_step(
+            lambda p: torch.optim.Adam(p, lr=0.05), loss_of_volume, 4,
+            group=meshmod.axis_group(grid, "data"))
+        vol = torch.full_like(truth, 0.2)
+        before = (counters["corner_gather"].LAUNCHES,
+                  counters["corner_scatter"].LAUNCHES)
+        step_s = []
+        opt_state = None
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, vol, opt_state = step(vol, opt_state)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(loss)), "path parallel: loss")
+        k3 = (counters["corner_gather"].LAUNCHES - before[0]) // 2
+        k4 = (counters["corner_scatter"].LAUNCHES - before[1]) // 2
+
+        # a sharded checkpoint of the state, written in the background
+        ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "smoke", "parallel_ckpt")
+        t0 = time.perf_counter()
+        pending = checkpoint.save_sharded(ckpt, "mcm", state, PARALLEL_SPP,
+                                          params, extra={"seed0": 4},
+                                          wait=False, mesh=grid,
+                                          height=PARALLEL_RES)
+        issued_s = time.perf_counter() - t0
+        pending.wait_until_finished()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        key, loaded, frame_number, _ = checkpoint.load_sharded(ckpt,
+                                                               mesh=grid)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(key == "mcm" and frame_number == PARALLEL_SPP,
+              "path parallel: checkpoint metadata")
+        for k in state:
+            check(torch.equal(loaded[k], state[k]),
+                  f"path parallel: checkpoint leaf {k} differs")
+        state_bytes = sum(v.numel() * 4 for v in state.values())
+        launches = {k: m.LAUNCHES for k, m in counters.items()}
+        check(launches["mcm_event"] == PARALLEL_SPP + 2,
+              f"path parallel: {launches['mcm_event']} K5 launches")
+        check(launches["tonemap"] == 1, "path parallel: K2 launches")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # K5 at config 4's shapes against the plain loop, from the reset
+        # state, through shard_render_frame; K2's 1024² display against
+        # its plain tone map (comparison launches: not the path's)
+        def sharded(st, seed):
+            frame(st, sc, params, seed, 1)
+
+        agree, k5_err = _frames_agree(sc, params, PARALLEL_RES, PARALLEL_RES,
+                                      1, "path parallel config 4",
+                                      render=sharded)
+        plain_image = tonemap_kernel.tonemap_plain(shown, "reinhard")
+        torch.cuda.synchronize()
+        k2_err = float((image - plain_image).abs().max())
+        # powf differs from PyTorch's by a few ulps on O(1) values, as in
+        # phase_tonemap
+        check(torch.allclose(image, plain_image, rtol=1e-6, atol=1e-6),
+              f"path parallel: K2's {PARALLEL_RES}^2 display max abs err "
+              f"{k2_err} against tonemap_plain")
+        print(f"path parallel: config 4 full ({PARALLEL_VOLUME}^3 blobs, "
+              f"float32 tables {scene.volume_packed.numel() * 4} bytes, "
+              f"built in {scene_s:.3f} s), MCM {PARALLEL_RES}^2 steps 8 x "
+              f"{PARALLEL_SPP} frames through shard_render_frame: "
+              f"{run_s * 1e3 / PARALLEL_SPP:.4f} ms a frame (host clock), "
+              f"{events / run_s:.6g} events/s, mean samples {samples:.4f}; "
+              f"the z-sharded frame equal to the replicated one; from the "
+              f"reset state against the plain loop: samples agree {agree}, "
+              f"radiance max abs err {k5_err}; K2's display against "
+              f"tonemap_plain max abs err {k2_err} (atol 1e-6, rtol 1e-6); "
+              f"bucketed "
+              f"EAM step (64^3, 4 views 256^2, 64 slices) {step_s[0]:.4f} s "
+              f"first, {step_s[1]:.4f} s second, {k3} K3 and {k4} K4 a "
+              f"step, loss {float(loss):.6g}; save_sharded "
+              f"{state_bytes} bytes {save_s:.3f} s ({issued_s:.3f} s to "
+              f"return), load_sharded {load_s:.3f} s; peak memory "
+              f"{peak:.3f} GiB; launches: "
+              + ", ".join(f"{k} {v}" for k, v in launches.items())
+              + f"; {time.perf_counter() - t_all:.1f} s", flush=True)
+    finally:
+        dist.destroy_process_group()
+    del scene, sc, state, loaded
+    torch.cuda.empty_cache()
+    return launches, {"mcm_event": k5_err, "tonemap": k2_err}
+
+
+#: the two-rank check's image and frames, on the one card over gloo
+GLOO_RES, GLOO_FRAMES = 512, 4
+
+
+def gloo_scene():
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import make_scene
+
+    return make_scene(volume.blobs_volume(128, seed=3),
+                      transfer.gray_ramp(alpha_scale=0.9))
+
+
+def gloo_frames(mesh, scene, shard_volume):
+    """The MCM frames (config 4's Params; rows over ``data``) and one EAM
+    frame (the volume z-sharded over ``space`` when ``shard_volume``) of
+    the two-rank check, gathered: ``(mcm state, eam image)``; with
+    ``mesh`` None, the renderers' own frames in one process."""
+    import numpy as np
+
+    from vpt_tpu_torch.parallel import (gather_state, place_state,
+                                        shard_render_frame, sharded_scene)
+    from vpt_tpu_torch.renderers import eam, mcm
+
+    params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
+    state = mcm.reset(params, GLOO_RES, GLOO_RES, scene)
+    image = eam.reset(eam.Params(), GLOO_RES, GLOO_RES, scene)
+    if mesh is None:
+        for n in range(1, GLOO_FRAMES + 1):
+            mcm.render_frame(state, scene, params, np.float32(0.1 * n), n)
+        return state, eam.render_frame(image, scene, eam.Params(),
+                                       np.float32(0.5), 1)
+    frame = shard_render_frame(mcm, mesh, state)
+    rows = place_state(state, mesh)
+    for n in range(1, GLOO_FRAMES + 1):
+        frame(rows, scene, params, np.float32(0.1 * n), n)
+    sc = sharded_scene(scene, mesh, shard_volume=shard_volume)
+    band = shard_render_frame(eam, mesh, image)(
+        place_state(image, mesh), sc, eam.Params(), np.float32(0.5), 1)
+    return (gather_state(rows, mesh, GLOO_RES),
+            gather_state(band, mesh, GLOO_RES))
+
+
+#: the two-rank check's EAM fit: one 128² view of a 64³ volume, and its
+#: SGD rate (the gradient's largest entry is ~3e-6: a step of up to ~0.03)
+GLOO_FIT_RES, GLOO_FIT_LR = 128, 1e4
+
+
+def gloo_fit(mesh, shard_volume):
+    """The EAM fit's loss, whole volume gradient and the whole volume after
+    one step of ``torch.optim.SGD(lr=GLOO_FIT_LR)`` (clipped to [0, 1]):
+    through ``shard.eam_value_and_grad``
+    and ``shard.data_parallel_train_step`` on ``mesh`` (the volume this
+    rank's z slab when ``shard_volume``; then also the step's loss), or
+    with ``mesh`` None in one process through ``train.render_eam``'s
+    autograd.  Every input is made from seeds on the card, alike in every
+    process."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import train, volume
+    from vpt_tpu_torch.parallel import mesh as meshmod
+    from vpt_tpu_torch.parallel import shard
+
+    truth = volume.blobs_volume(64, seed=1).data
+    tf, params, views, targets = eam_fit_views(truth, count=1,
+                                               res=GLOO_FIT_RES)
+    cams, target = views[0], targets[0]
+    vol = volume.blobs_volume(64, seed=2).data
+    seed = np.float32(0.0)
+    if mesh is None:
+        leaf = vol.clone().requires_grad_(True)
+        loss = train.mse_rgb(train.render_eam(
+            leaf, tf, cams, params, seed, GLOO_FIT_RES, GLOO_FIT_RES),
+            target)
+        grad, = torch.autograd.grad(loss, leaf)
+        stepped = torch.add(vol, grad, alpha=-GLOO_FIT_LR)
+        return float(loss.detach()), grad, torch.clamp(stepped, 0.0, 1.0)
+    depth = vol.shape[0]
+    z0, z1 = meshmod.block_of(depth, mesh, ("space",))
+    mine = vol[z0:z1] if shard_volume else vol
+    loss, grads = shard.eam_value_and_grad(
+        mine, tf, cams, target, params, seed, mesh,
+        shard_volume=shard_volume)
+    step = shard.data_parallel_train_step(
+        lambda p: torch.optim.SGD(p, lr=GLOO_FIT_LR), mesh, params=params,
+        shard_volume=shard_volume)
+    step_loss, stepped, _, _ = step(mine, tf, None, cams, target, seed)
+    grad = grads["volume"]
+    if shard_volume:
+        grad = shard.gather_blocks(grad, depth, mesh, ("space",))
+        stepped = shard.gather_blocks(stepped, depth, mesh, ("space",))
+    return float(loss), grad, stepped, float(step_loss)
+
+
+def gloo_rank(rank, world, store, out):
+    """One rank of the two-rank check: a ``gloo`` group whose collectives
+    take the card's tensors; rank 0 writes the gathered frames to
+    ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        scene = gloo_scene()
+        rows = make_mesh(world, axes=("data",))
+        mcm_event.LAUNCHES = 0
+        state, _ = gloo_frames(rows, scene, False)
+        k5 = mcm_event.LAUNCHES
+        slabs = make_mesh(world, space=world)
+        _, image = gloo_frames(slabs, scene, True)
+        # the data-parallel EAM step: all-reduced over data, and
+        # reduce-scattered into z slabs over space
+        fits = {"rows": gloo_fit(rows, False), "slabs": gloo_fit(slabs, True)}
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save({"state": {k: v.cpu() for k, v in state.items()},
+                        "image": image.cpu(), "k5": k5,
+                        "fits": {k: tuple(x.cpu() if torch.is_tensor(x)
+                                          else x for x in v)
+                                 for k, v in fits.items()}}, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_gloo(dev):
+    """Two ranks on the one card over ``gloo`` (whose collectives take
+    CUDA tensors): the MCM frames with their rows split in two and an EAM
+    frame on the volume z-sharded over ``space``, assembled, against the
+    world-one frames of this process, bit for bit; the data-parallel EAM
+    gradient and step (:func:`gloo_fit`) against this process's."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    scene = gloo_scene()
+    want_state, want_image = gloo_frames(None, scene, False)
+    want_loss, want_grad, want_step = (
+        x.cpu() if torch.is_tensor(x) else x for x in gloo_fit(None, False))
+    torch.cuda.synchronize()
+    del scene
+    torch.cuda.empty_cache()
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke")
+    os.makedirs(folder, exist_ok=True)
+    store = tempfile.mktemp(dir=folder, prefix="gloo_store_")
+    out = os.path.join(folder, "gloo_frames.pt")
+    mp.start_processes(gloo_rank, args=(2, store, out), nprocs=2,
+                       start_method="spawn")
+    got = torch.load(out, weights_only=False)
+    for k, v in want_state.items():
+        check(torch.equal(got["state"][k], v.cpu()),
+              f"path parallel gloo: MCM {k} differs from the world-one "
+              "frame")
+    check(torch.equal(got["image"], want_image.cpu()),
+          "path parallel gloo: the z-sharded EAM frame differs")
+    # the loss within 1e-6 (tests/test_parallel.py's bound); the gradient
+    # within 1e-5 of its largest entry (each rank's K4 scatters its rows'
+    # share, summed over the group, in another order than one process's),
+    # so the stepped volume within GLOO_FIT_LR times that, plus 1e-6 for
+    # its own rounding
+    gmax = float(want_grad.abs().max())
+    check(gmax > 0.0, "path parallel gloo: the fit's gradient is 0")
+    grad_bound = 1e-5 * gmax
+    step_bound = GLOO_FIT_LR * grad_bound + 1e-6
+    fit_errs = {}
+    for name, (loss, grad, stepped, step_loss) in got["fits"].items():
+        errs = (abs(loss - want_loss), float((grad - want_grad).abs().max()),
+                float((stepped - want_step).abs().max()),
+                abs(step_loss - want_loss))
+        fit_errs[name] = errs
+        check(errs[0] <= 1e-6 and errs[3] <= 1e-6,
+              f"path parallel gloo: the {name} EAM loss {loss} / "
+              f"{step_loss} against {want_loss}")
+        check(errs[1] <= grad_bound, f"path parallel gloo: the {name} "
+              f"gradient max abs err {errs[1]} (bound {grad_bound})")
+        check(errs[2] <= step_bound, f"path parallel gloo: the {name} SGD "
+              f"step's volume max abs err {errs[2]} (bound {step_bound})")
+    print(f"path parallel gloo: 2 ranks on one card over gloo (CUDA "
+          f"tensors): MCM {GLOO_RES}^2 x {GLOO_FRAMES} frames, rows split "
+          f"in two ({got['k5']} K5 launches on rank 0), and an EAM frame on "
+          f"the 128^3 volume z-sharded over space: equal bit for bit to the "
+          f"world-one frames; data_parallel_train_step (64^3, one "
+          f"{GLOO_FIT_RES}^2 view, SGD lr {GLOO_FIT_LR:g}) against one "
+          f"process's "
+          f"train.render_eam gradient (max |grad| {gmax:.6g}), rows over "
+          f"data (all-reduce) / z slabs over space (reduce-scatter): loss "
+          f"err {fit_errs['rows'][0]:.3g} / {fit_errs['slabs'][0]:.3g}, "
+          f"gradient max abs err {fit_errs['rows'][1]:.3g} / "
+          f"{fit_errs['slabs'][1]:.3g}, stepped volume "
+          f"{fit_errs['rows'][2]:.3g} / {fit_errs['slabs'][2]:.3g} (bounds "
+          f"1e-6, {grad_bound:.3g}, {step_bound:.3g}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+#: the demos at their default sizes, and the kernels each must launch
+DEMOS = (("render_demo", ("mcm_event", "march_frame", "iso_shade",
+                          "mcs_frame", "dos_sweep", "lao_march", "tonemap")),
+         ("inverse_demo", ("corner_gather", "corner_scatter")),
+         ("depth_fit_demo", ("corner_gather", "corner_scatter")))
+
+
+def phase_demos_path(dev, counters):
+    """``path demos``: the three demos' ``main`` at their default sizes on
+    the card, each with every launch counter at 0 first and read after.
+    Returns the launches summed over the three."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    totals = {name: 0 for name in counters}
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke", "render_demo.png")
+    for name, kernels in DEMOS:
+        demo = importlib.import_module(f"vpt_tpu_torch.examples.{name}")
+        argv = ["--out", out] if name == "render_demo" else []
+        for module in counters.values():
+            module.LAUNCHES = 0
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            demo.main(argv)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = {k: m.LAUNCHES for k, m in counters.items()}
+        for kernel in kernels:
+            check(launches[kernel] > 0, f"path demos {name}: {kernel} not "
+                  "launched")
+        for k, v in launches.items():
+            totals[k] += v
+        last = text.getvalue().strip().splitlines()[-1]
+        print(f"path demos {name}: {call_s:.3f} s; {last}; launches: "
+              + ", ".join(f"{k} {v}" for k, v in launches.items() if v),
+              flush=True)
+    check(png_pixels(out).shape == (384, 768, 3),
+          "path demos: the montage is not 2 x 4 panels of 192^2")
+    demo_panels_agree()
+    return totals
+
+
+def demo_panels_agree():
+    """``render_demo``'s eight HDR images at 192² (before the tone map)
+    against the same progressive renders through each kernel's plain
+    version (:func:`plain_frame`, the seeds of ``render_progressive``;
+    ISO's display through ``iso_shade_plain``), within
+    ``compare_states``' bounds (Depth and ISO equal); its launches come
+    after ``path demos``' counts were read."""
+    import numpy as np
+
+    from vpt_tpu_torch.examples import render_demo
+    from vpt_tpu_torch.kernels import iso_shade
+    from vpt_tpu_torch.renderers import make_renderer
+
+    t0 = time.perf_counter()
+    res = 192
+    scene = render_demo.demo_scene()
+    got = render_demo.render_images(scene, res, verbose=False)
+    before = launch_counts()
+    for key in sorted(got):
+        r = make_renderer(key, height=res, width=res)
+        rs = np.random.default_rng(1)
+        state = r.module.reset(r.params, res, res, scene)
+        for n in range(1, render_demo.FRAMES.get(key, 4) + 1):
+            plain_frame(key, state, scene, r.params,
+                        np.float32(rs.random(dtype=np.float32)), n)
+        want = iso_shade.iso_shade_plain(state, scene, r.params) \
+            if key == "iso" else r.module.display(state, scene, r.params)
+        check(launch_counts() == before,
+              f"path demos: the plain {key} render launched a kernel")
+        compare_states("render_demo 192^2", key, got[key], want,
+                       key in ("depth", "iso"))
+    print(f"path demos render_demo: the eight images against their plain "
+          f"versions; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def run():
     import torch
 
@@ -4627,6 +5330,11 @@ def run():
                       (k8, "mcs_frame")):
         row["max_abs_err"] = errors[name]
     k9, k10 = phase_dos_lao(headline)
+    window_errors = phase_window_checks(headline)
+    for row, name in ((k5, "mcm_event"), (k6, "march_frame"),
+                      (k8, "mcs_frame"), (k10, "lao_march")):
+        row["window_max_abs_err"] = window_errors[name]
+        row["max_abs_err"] = max(row["max_abs_err"], window_errors[name])
 
     counters = {"mcm_event": mcm_event, "tf1d_lookup": tf1d,
                 "tonemap": tonemap_kernel, "corner_gather": corner_gather,
@@ -4635,6 +5343,7 @@ def run():
                 "dos_sweep": dos_sweep, "lao_march": lao_march}
     rates, render_launches = phase_main_path(dev, counters)
     paths = phase_renderer_paths(dev, counters, headline)
+    unpacked_launches, unpacked_errors = phase_unpacked_path(dev, counters)
     grid5, _ = phase_grid_path(dev, counters, headline, rates)
     env5, env8, _ = phase_env_path(dev, counters, headline)
     clamp6, _ = phase_clamp_path(dev, counters, headline)
@@ -4703,6 +5412,16 @@ def run():
     k3.update(rows_of["corner_gather"])
     k4.update(rows_of["corner_scatter"])
     print(f"path config3: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    parallel_launches, parallel_errors = phase_parallel_path(dev, counters)
+    for row, name in ((k5, "mcm_event"), (k2, "tonemap")):
+        row["parallel_max_abs_err"] = parallel_errors[name]
+        row["max_abs_err"] = max(row["max_abs_err"], parallel_errors[name])
+    print(f"path parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_parallel_gloo(dev)
+    t0 = time.perf_counter()
+    demos_launches = phase_demos_path(dev, counters)
+    print(f"path demos: {time.perf_counter() - t0:.1f} s", flush=True)
     for path, launches, names in (
             ("forward render", render_launches,
              ("mcm_event", "tf1d_lookup", "tonemap", "corner_gather")),
@@ -4717,7 +5436,16 @@ def run():
                                      "lao_march")),
             ("animate", animate_launches, ("mcm_event", "tonemap")),
             ("config3", config3_launches,
-             ("mcm_event", "corner_gather", "corner_scatter", "tonemap"))):
+             ("mcm_event", "corner_gather", "corner_scatter", "tonemap")),
+            ("unpacked", unpacked_launches,
+             ("mcm_event", "march_frame", "iso_shade", "mcs_frame",
+              "dos_sweep", "lao_march")),
+            ("parallel", parallel_launches,
+             ("mcm_event", "tonemap", "corner_gather", "corner_scatter")),
+            ("demos", demos_launches,
+             ("mcm_event", "march_frame", "iso_shade", "mcs_frame",
+              "dos_sweep", "lao_march", "tonemap", "corner_gather",
+              "corner_scatter"))):
         for name in names:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -4812,6 +5540,13 @@ def run():
         row["launches_view"] = view_launches[row["name"]]
         row["launches_animate"] = animate_launches[row["name"]]
         row["launches_config3"] = config3_launches[row["name"]]
+        row["launches_unpacked"] = unpacked_launches[row["name"]]
+        row["launches_parallel"] = parallel_launches[row["name"]]
+        row["launches_demos"] = demos_launches[row["name"]]
+        if row["name"] in unpacked_errors:
+            row["unpacked_max_abs_err"] = unpacked_errors[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     unpacked_errors[row["name"]])
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           "build included", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

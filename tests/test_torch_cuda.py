@@ -353,15 +353,22 @@ def test_event_kernel_width_cap(cuda):
 
 
 def test_event_kernel_refuses_what_it_does_not_take(cuda):
-    """An unpacked scene raises; nothing falls back to the plain loop."""
+    """An unpacked scene (``pack=False``) carries the float32 corner tables
+    that ``make_scene`` gives every scene on the card: its frame launches
+    K5 and equals the plain frame.  A hand-built scene without tables
+    raises; nothing falls back to the plain loop."""
     params = mcm.Params()
     scene = make_scene(volume.sphere_volume(8, device=cuda),
                        transfer.gray_ramp(device=cuda), pack=False,
                        device=cuda)
-    state = mcm.reset(params, 8, 8, scene)
+    assert scene.kernel_tables and scene.volume_packed.dtype == torch.float32
+    state, plain = _kernel_and_plain(scene, params, 8, 8, 1)
+    assert_frames_agree(state, plain)
+    bare = _tableless(cuda)
+    state = mcm.reset(params, 8, 8, bare)
     before = _launches()
     with pytest.raises(NotImplementedError):
-        mcm.render_frame(state, scene, params, 0.1)
+        mcm.render_frame(state, bare, params, 0.1)
     assert _launches() == before
 
 
@@ -970,12 +977,22 @@ def test_frame_kernels_follow_the_current_stream(cuda, key):
                                                              params))
 
 
+def _tableless(cuda):
+    """A hand-built scene without corner tables: ``make_scene`` gives
+    every scene on the card its tables, a ``pack=False`` one included."""
+    scene = make_scene(volume.sphere_volume(8, device=cuda),
+                       transfer.gray_ramp(device=cuda), pack=False,
+                       device=cuda)
+    return dataclasses.replace(scene, volume_packed=None,
+                               transfer_packed=None, kernel_tables=False)
+
+
 def test_frame_kernels_refuse_what_they_do_not_take(cuda):
-    """Unpacked scenes (all three) and states of another shape or device
-    raise; nothing falls back to the plain versions."""
-    unpacked = make_scene(volume.sphere_volume(8, device=cuda),
-                          transfer.gray_ramp(device=cuda), pack=False,
-                          device=cuda)
+    """Scenes without corner tables (all three kernels; since
+    ``pack=False`` scenes on the card carry them, a hand-built one) and
+    states of another shape or device raise; nothing falls back to the
+    plain versions."""
+    unpacked = _tableless(cuda)
     before = _launches()
     for key in ("eam", "mip", "depth", "iso", "mcs"):
         module = RENDERERS[key]
@@ -1238,11 +1255,10 @@ def test_dos_kernel_follows_the_current_stream(cuda):
 
 
 def test_dos_kernel_refuses_what_it_does_not_take(cuda):
-    """Unpacked scenes, states of another shape, type or device and
-    offsets of another count raise before any launch."""
-    unpacked = make_scene(volume.sphere_volume(8, device=cuda),
-                          transfer.gray_ramp(device=cuda), pack=False,
-                          device=cuda)
+    """Scenes without corner tables (a hand-built one), states of another
+    shape, type or device and offsets of another count raise before any
+    launch."""
+    unpacked = _tableless(cuda)
     params = dos.Params()
     before = _launches()
     with pytest.raises(NotImplementedError):
@@ -1348,9 +1364,9 @@ def test_lao_kernel_follows_the_current_stream(cuda):
 
 
 def test_lao_kernel_refuses_what_it_does_not_take(cuda):
-    unpacked = make_scene(volume.sphere_volume(8, device=cuda),
-                          transfer.gray_ramp(device=cuda), pack=False,
-                          device=cuda)
+    """Scenes without tables (a hand-built one), Params the scene cannot
+    take and states of another shape, type or device raise."""
+    unpacked = _tableless(cuda)
     params = lao.Params()
     before = _launches()
     with pytest.raises(NotImplementedError):
@@ -2023,3 +2039,211 @@ def test_config3_helpers_on_the_card_match_the_cpu(cuda):
     assert abs(l0 - l1) <= 1e-6 * abs(l1)
     assert bool(torch.isfinite(g0).all()) and float(g1.abs().max()) > 0
     assert float((g0 - g1).norm() / g1.norm()) <= 1e-4
+
+
+UNPACKED = {"mcm": mcm.Params(extinction=20.0, steps=8), "eam": eam.Params(),
+            "mip": mip.Params(), "depth": depth.Params(), "iso": iso.Params(),
+            "mcs": mcs.Params(extinction=20.0), "dos": dos.Params(),
+            "lao": lao.Params()}
+
+
+@pytest.mark.parametrize("key", sorted(UNPACKED))
+def test_unpacked_scene_renders_through_its_kernel(cuda, key):
+    """A ``pack=False`` scene on the card: the samplers read the unpacked
+    volume (``vpt_tpu``'s rule), the kernels its float32 corner tables of
+    the same values; one frame through the renderer's kernel equals the
+    plain frame on the scene within the packed scenes' bounds (ISO's
+    display through K7 too)."""
+    scene = make_scene(volume.blobs_volume(32, seed=1, device=cuda),
+                       transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                       pack=False, device=cuda)
+    assert scene.kernel_tables and not scene._packed_samples()
+    assert scene.volume_packed.dtype == scene.transfer_packed.dtype \
+        == torch.float32
+    params = UNPACKED[key]
+    if key == "mcm":
+        state, plain = _kernel_and_plain(scene, params, 40, 48, 2)
+        assert_frames_agree(state, plain)
+    elif key == "dos":
+        state, plain = _dos_frames(scene, params, 40, 48, 2)
+        assert_dos_agrees(state, plain)
+    elif key == "lao":
+        state, plain = _lao_frame(scene, params, 40, 48)
+        assert_lao_agrees(state, plain)
+    else:
+        state, plain = _kernel_frames(key, scene, 40, 48, 2, params)
+        assert_kernel_agrees(key, state, plain)
+    if key == "iso":
+        before = iso_shade.LAUNCHES
+        shown = iso.display(state, scene, params)
+        torch.cuda.synchronize()
+        assert iso_shade.LAUNCHES == before + 1
+        assert torch.equal(shown, iso_shade.iso_shade_plain(state, scene,
+                                                            params))
+
+
+#: bands of a 77-row frame: two equal ones (a frame of 78 rows), and
+#: three uneven ones that are no multiple of a block's rows
+BANDS = {"two": (78, [(0, 39), (39, 78)]),
+         "three": (77, [(0, 13), (13, 50), (50, 77)])}
+
+
+def _banded(module, scene, params, height, width, bands, frames=2,
+            **reset_kw):
+    """The whole frame's state and the bands' states stacked, each band
+    rendered with its row window (``frames`` frames)."""
+    whole = module.reset(params, height, width, scene)
+    parts = []
+    for r0, r1 in bands:
+        kw = {"window": (r0, height)} if module is mcm else {}
+        parts.append(module.reset(params, r1 - r0, width, scene, **kw))
+    for n in range(1, frames + 1):
+        seed = np.float32(0.3 + 0.01 * n)
+        module.render_frame(whole, scene, params, seed, n)
+        for (r0, _), part in zip(bands, parts):
+            module.render_frame(part, scene, params, seed, n,
+                                window=(r0, height))
+    torch.cuda.synchronize()
+    if isinstance(whole, dict):
+        return whole, {k: torch.cat([p[k] for p in parts]) for k in whole}
+    return whole, torch.cat(parts)
+
+
+@pytest.mark.parametrize("bands", sorted(BANDS))
+@pytest.mark.parametrize("key", ["mcm", "eam", "mip", "depth", "iso",
+                                 "mcs", "lao"])
+def test_row_window_bands_equal_the_whole_frame(cuda, key, bands):
+    """K5, K6 (four modes), K8 and K10 launched on bands of rows with
+    their windows: the stacked bands equal the whole frame bit for bit
+    (K10 within its bound: 99.99% of the values within 1e-6), one launch
+    a band and frame; the headline's bf16 scene (cheb-skip for MCM)."""
+    module = {"mcm": mcm, "eam": eam, "mip": mip, "depth": depth,
+              "iso": iso, "mcs": mcs, "lao": lao}[key]
+    params = UNPACKED[key]
+    height, ranges = BANDS[bands]
+    counter = {"mcm": mcm_event, "mcs": mcs_frame,
+               "lao": lao_march}.get(key, march)
+    frames = 1 if key == "lao" else 2
+    before = counter.LAUNCHES
+    whole, stacked = _banded(module, _headline_scene(24, cuda), params,
+                             height, 64, ranges, frames)
+    assert counter.LAUNCHES == before + frames * (1 + len(ranges))
+    if key == "lao":
+        assert_lao_agrees(stacked, whole)
+    elif isinstance(whole, dict):
+        for k in whole:
+            assert torch.equal(stacked[k], whole[k]), k
+    else:
+        assert torch.equal(stacked, whole)
+
+
+def test_row_window_refusals(cuda):
+    """A window whose rows leave the image raises before any launch."""
+    scene = _headline_scene(16, cuda)
+    state = eam.reset(eam.Params(), 8, 8, scene)
+    before = _launches()
+    with pytest.raises(ValueError, match="do not lie"):
+        eam.render_frame(state, scene, eam.Params(), 0.3, 1, window=(4, 10))
+    assert _launches() == before
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_parallel_world_of_one_over_nccl(cuda, tmp_path):
+    """``path parallel``'s steps at a small size, in a world of one over
+    ``nccl``: the sharded MCM frames equal the renderer's and agree with
+    the plain loop's, the display, the data-parallel EAM step (bucketed,
+    and ``shard.data_parallel_train_step`` on z slabs against the
+    single-process gradient) and a sharded checkpoint round trip."""
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.parallel import (distributed, gather_state,
+                                        make_mesh, place_state,
+                                        shard_display, shard_render_frame,
+                                        sharded_scene)
+    from vpt_tpu_torch.parallel import mesh as meshmod
+    from vpt_tpu_torch.parallel import overlap, shard
+    from vpt_tpu_torch.runtime import checkpoint
+
+    assert distributed.initialize(f"localhost:{_free_port()}", 1, 0,
+                                  retries=1)
+    try:
+        assert "nccl" in dist.get_backend()
+        grid = make_mesh(1)
+        scene = _headline_scene(32, cuda)
+        params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
+        whole = mcm.reset(params, 64, 48, scene)
+        want = {k: v.clone() for k, v in whole.items()}
+        plain = {k: v.clone() for k, v in whole.items()}
+        sc = sharded_scene(scene, grid, shard_volume=True)
+        state = place_state(whole, grid)
+        frame = shard_render_frame(mcm, grid, whole)
+        before = mcm_event.LAUNCHES
+        for n in range(1, 5):
+            frame(state, sc, params, np.float32(0.1 * n), n)
+            mcm.render_frame(want, scene, params, np.float32(0.1 * n), n)
+            _plain_frame(plain, scene, params, np.float32(0.1 * n))
+        torch.cuda.synchronize()
+        assert mcm_event.LAUNCHES == before + 8
+        got = gather_state(state, grid, 64)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert_frames_agree(got, plain)
+        shown = shard_display(mcm, grid, whole)(state, sc, params)
+        assert torch.equal(shown, mcm.display(want, scene, params))
+
+        tf = transfer.gray_ramp(alpha_scale=1.0, device=cuda)
+        vol = volume.blobs_volume(16, seed=2, device=cuda).data
+        cams = (scene.mvp_inverse, scene.model_view, scene.projection)
+        target = torch.zeros((32, 32, 4), device=cuda)
+        ep = eam.Params(slices=8, random=False)
+
+        def loss_of_volume(v):
+            return shard.eam_loss_rows(v, tf, cams, target, ep,
+                                       np.float32(0.0), grid)
+
+        step = overlap.bucketed_train_step(
+            lambda p: torch.optim.Adam(p, lr=0.05), loss_of_volume, 4,
+            group=meshmod.axis_group(grid, "data"))
+        l1, vol1, opt_state = step(vol, None)
+        l2, _, _ = step(vol1, opt_state)
+        assert float(l2) < float(l1)
+        leaf = vol.clone().requires_grad_(True)
+        want_loss = train.mse_rgb(train.render_eam(
+            leaf, tf, cams, ep, np.float32(0.0), 32, 32), target)
+        want_grad, = torch.autograd.grad(want_loss, leaf)
+        want_loss = want_loss.detach()
+        assert abs(float(l1) - float(want_loss)) <= 1e-6
+
+        # the z-slab step: a frame all-gathers the slabs over space, the
+        # gradient is reduce-scattered into them (tests/test_parallel.py's
+        # bounds: the loss within 1e-6, the gradient within 1e-5)
+        loss, grads = shard.eam_value_and_grad(
+            vol, tf, cams, target, ep, np.float32(0.0), grid,
+            shard_volume=True)
+        assert float(want_grad.abs().max()) > 1e-4
+        assert abs(float(loss) - float(want_loss)) <= 1e-6
+        assert float((grads["volume"] - want_grad).abs().max()) <= 1e-5
+        sgd = shard.data_parallel_train_step(
+            lambda p: torch.optim.SGD(p, lr=1.0), grid, params=ep,
+            shard_volume=True)
+        l3, stepped, _, _ = sgd(vol, tf, None, cams, target, np.float32(0.0))
+        assert abs(float(l3) - float(want_loss)) <= 1e-6
+        assert float((stepped - torch.clamp(vol - want_grad, 0.0, 1.0))
+                     .abs().max()) <= 1e-5
+
+        checkpoint.save_sharded(tmp_path / "ck", "mcm", state, 4, params,
+                                mesh=grid, height=64)
+        _, loaded, frame_number, _ = checkpoint.load_sharded(tmp_path / "ck",
+                                                             mesh=grid)
+        assert frame_number == 4
+        for k in want:
+            assert torch.equal(loaded[k], want[k]), k
+    finally:
+        dist.destroy_process_group()

@@ -483,9 +483,13 @@ def test_checkpoint_load_and_refusals(tmp_path):
     tcheckpoint.save(tmp_path / "bare.npz", "mcm", t.renderer.state, 1)
     with pytest.raises(ValueError, match="state_keys"):
         tcheckpoint.resume_renderer(tmp_path / "bare.npz", device="cpu")
-    for fn in (tcheckpoint.save_sharded, tcheckpoint.load_sharded):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn(tmp_path, "mcm", None, 0)
+    # the sharded checkpoint (torch.distributed.checkpoint), one process
+    tcheckpoint.save_sharded(tmp_path / "sharded", "mcm", t.renderer.state,
+                             1, extra={"seed0": 0})
+    key, sharded, frame, meta = tcheckpoint.load_sharded(
+        tmp_path / "sharded", device="cpu")
+    assert (key, frame, meta["extra"]) == ("mcm", 1, {"seed0": 0})
+    assert all(torch.equal(sharded[k], t.renderer.state[k]) for k in state)
 
 
 def test_record_animation_writes_png_frames(tmp_path):

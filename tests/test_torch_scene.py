@@ -159,3 +159,73 @@ def test_environment_equal():
     assert np.array_equal(tenv.constant([0.2, 0.4, 0.6], 2, 3,
                                         device="cpu").numpy(),
                           np.asarray(jenv.constant([0.2, 0.4, 0.6], 2, 3)))
+
+
+@pytest.fixture(scope="module")
+def unpacked_scenes():
+    """``pack=False`` scenes of a 16³ blobs volume: the CPU's (no tables)
+    and one built under the card's rule (``base.kernels_sample`` True, so
+    on CPU tensors), with bf16 asked for the tables."""
+    from vpt_tpu_torch.renderers import base, make_scene
+
+    def build():
+        return make_scene(tvolume.blobs_volume(16, seed=7, device="cpu"),
+                          ttransfer.gray_ramp(alpha_scale=0.9,
+                                              device="cpu"),
+                          pack=False, pack_dtype=torch.bfloat16,
+                          tracking="cheb", device="cpu")
+
+    cpu = build()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(base, "kernels_sample", lambda device: True)
+        card = build()
+    return cpu, card
+
+
+def test_unpacked_scene_on_the_card_gets_float32_kernel_tables(
+        unpacked_scenes):
+    """The card's ``pack=False`` scene: float32 corner tables of the
+    unpacked values for the kernels (whatever ``pack_dtype``), samplers
+    that read the unpacked volume and texture as the CPU's scene does, bit
+    for bit; a fit scene built from it samples its own tables."""
+    from vpt_tpu_torch import sampling
+    from vpt_tpu_torch.renderers import base
+
+    cpu, card = unpacked_scenes
+    assert cpu.volume_packed is None and not cpu.kernel_tables
+    assert card.kernel_tables and not card._packed_samples()
+    assert torch.equal(card.volume_packed,
+                       sampling.pack_corner_volume(card.volume[..., :2]))
+    assert torch.equal(card.transfer_packed,
+                       sampling.pack_corner_texture2d(card.transfer))
+    assert torch.equal(card.transfer_1d, cpu.transfer_1d)
+    assert torch.equal(card.tracking_packed, cpu.tracking_packed)
+    pos = torch.from_numpy(np.random.default_rng(3).uniform(
+        -0.1, 1.1, (64, 3)).astype(np.float32))
+    assert torch.equal(card.sample_color(pos), cpu.sample_color(pos))
+    uv = torch.rand(64, 2, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(card.sample_transfer(uv), cpu.sample_transfer(uv))
+    fit = base.fit_scene(card)
+    assert not fit.kernel_tables and fit._packed_samples()
+
+
+@pytest.mark.parametrize("key", ["mcm", "eam", "mip", "depth", "iso", "mcs",
+                                 "dos", "lao"])
+def test_unpacked_scene_on_the_card_renders_the_unpacked_frame(
+        unpacked_scenes, key):
+    """Every renderer's plain frame on the card's ``pack=False`` scene
+    equals the frame on the CPU's, bit for bit: the tables are the
+    kernels' alone."""
+    from vpt_tpu_torch.renderers import factory
+
+    cpu, card = unpacked_scenes
+    module = factory.get_module(key)
+    params = module.Params(steps=4) if key == "mcm" else module.Params()
+    got, want = (module.render_frame(module.reset(params, 12, 10, sc), sc,
+                                     params, np.float32(0.3), 1)
+                 for sc in (card, cpu))
+    if isinstance(want, dict):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    else:
+        assert torch.equal(got, want)

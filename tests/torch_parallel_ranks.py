@@ -1,0 +1,231 @@
+"""Rank bodies of the port's data-parallel tests, and the launcher that
+runs them as a ``gloo`` (CPU) process group.
+
+No JAX here: the spawned ranks import only torch and the port, so they
+start in seconds.  ``tests/test_torch_parallel.py`` spawns one group and
+holds what rank 0 returns against the single-process port and against
+``vpt_tpu``; a run on the card can call the same bodies.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import traceback
+
+import numpy as np
+import torch
+
+#: the image the frames render (the JAX tests' 32² on 8 devices) and an
+#: uneven one (4 ranks: blocks of 8, 8, 8, 6 rows)
+SIZE = 32
+UNEVEN = 30
+
+
+def _entry(rank, world, init_file, out_dir, body, args):
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(1)
+    path = pathlib.Path(out_dir) / f"rank{rank}.pt"
+    try:
+        assert distributed.initialize(init_method=f"file://{init_file}",
+                                      num_processes=world, process_id=rank,
+                                      retries=1, device="cpu")
+        result = body(rank, world, *args)
+        dist.barrier()
+        torch.save({"ok": True, "result": result}, path)
+    except Exception:  # noqa: BLE001 — reported to the parent
+        torch.save({"ok": False, "error": traceback.format_exc()}, path)
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(body, world: int, tmp_dir, *args):
+    """Run ``body(rank, world, *args)`` in ``world`` spawned processes
+    joined by a ``gloo`` group through a ``file://`` store under
+    ``tmp_dir`` (so parallel test workers never share a port); returns
+    each rank's result, and raises with a rank's traceback if one
+    failed."""
+    import torch.multiprocessing as mp
+
+    tmp_dir = pathlib.Path(tmp_dir)
+    out_dir = tmp_dir / "ranks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    init_file = tmp_dir / "store"
+    try:
+        mp.start_processes(_entry, args=(world, str(init_file), str(out_dir),
+                                         body, args),
+                           nprocs=world, start_method="spawn")
+    finally:
+        results = []
+        for rank in range(world):
+            path = out_dir / f"rank{rank}.pt"
+            got = torch.load(path, weights_only=False) if path.exists() \
+                else {"ok": False, "error": f"rank {rank} wrote nothing"}
+            if not got["ok"]:
+                raise RuntimeError(f"rank {rank}:\n{got['error']}")
+            results.append(got["result"])
+    return results
+
+
+def _np(state):
+    if isinstance(state, dict):
+        return {k: v.detach().cpu().numpy() for k, v in state.items()}
+    return state.detach().cpu().numpy()
+
+
+def cases():
+    """(name, renderer key, Params kwargs, scene kind, height) of every
+    sharded frame the group renders; the scene kinds are the fields the
+    parent passes (``plain`` and ``cheb``)."""
+    return [
+        ("mcm", "mcm", dict(extinction=20.0, steps=8), "plain", SIZE),
+        ("mcm_cheb", "mcm", dict(extinction=30.0, steps=8), "cheb", SIZE),
+        ("mcm_uneven", "mcm", dict(extinction=20.0, steps=8), "plain",
+         UNEVEN),
+        ("mcs", "mcs", dict(extinction=20.0), "plain", SIZE),
+        ("eam", "eam", dict(slices=16), "plain", SIZE),
+        ("mip", "mip", dict(steps=16), "plain", SIZE),
+        ("depth", "depth", dict(slices=16), "plain", SIZE),
+        ("iso", "iso", dict(steps=16, isovalue=0.3), "plain", SIZE),
+        ("lao", "lao", dict(slices=16), "plain", SIZE),
+    ]
+
+
+def render_case(module, params, scene, height, width, seed=0.3, frame=1):
+    """The whole-image state of one frame in one process."""
+    state = module.reset(params, height, width, scene)
+    return module.render_frame(state, scene, params, np.float32(seed),
+                               frame)
+
+
+def eam_setup(scene_fields):
+    """The EAM fit's inputs the gradient cases share: the volume, TF,
+    camera matrices, a 16² target and Params."""
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.renderers import eam
+
+    scene = interop.scene_from_numpy(scene_fields, device="cpu")
+    mats = (scene.mvp_inverse, scene.model_view, scene.projection)
+    target = torch.zeros((16, 16, 4), dtype=torch.float32)
+    params = eam.Params(slices=8, random=False)
+    return scene.volume, scene.transfer, mats, target, params
+
+
+def everything(rank, world, fields, ckpt_dir):
+    """Every sharded case on one ``gloo`` group of ``world`` ranks (4):
+    the frames of :func:`cases`, the z-sharded EAM frame, the
+    data-parallel and bucketed gradients and steps, and a sharded
+    checkpoint saved from every rank and loaded on 2 and on 1.  Rank 0's
+    results (numpy, whole images) go back to the parent."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.parallel import (gather_state, make_mesh,
+                                        place_state, shard_render_frame,
+                                        sharded_scene)
+    from vpt_tpu_torch.parallel import mesh as meshmod
+    from vpt_tpu_torch.parallel import overlap, shard
+    from vpt_tpu_torch.renderers import eam, factory
+    from vpt_tpu_torch.runtime import checkpoint
+
+    out = {}
+    scenes = {k: interop.scene_from_numpy(v, device="cpu")
+              for k, v in fields.items()}
+    mesh = make_mesh(world, axes=("data",), device="cpu")
+    out["coordinate"] = mesh.get_coordinate()
+    for name, key, kwargs, kind, height in cases():
+        module = factory.get_module(key)
+        params = module.Params(**kwargs)
+        sc = sharded_scene(scenes[kind], mesh)
+        whole = module.reset(params, height, SIZE, sc)
+        local = place_state(whole, mesh)
+        frame = shard_render_frame(module, mesh, whole, donate=False)
+        local = frame(local, sc, params, np.float32(0.3), 1)
+        out[name] = _np(gather_state(local, mesh, height))
+
+    # the volume z-sharded over space: the replicated frame
+    grid = make_mesh(world, space=2, device="cpu")
+    sc_sh = sharded_scene(scenes["plain"], grid, shard_volume=True)
+    params = eam.Params(slices=16, random=False)
+    whole = eam.reset(params, SIZE, SIZE, sc_sh)
+    local = shard_render_frame(eam, grid, whole)(
+        place_state(whole, grid), sc_sh, params, np.float32(0.0), 1)
+    out["eam_space"] = _np(gather_state(local, grid, SIZE))
+    out["slab_depth"] = sc_sh.volume.shape[0]
+
+    # the data-parallel gradient, the volume sharded over space
+    vol, tf, mats, target, params = eam_setup(fields["plain"])
+    z0, z1 = meshmod.block_of(vol.shape[0], grid, ("space",))
+    loss, grads = shard.eam_value_and_grad(
+        vol[z0:z1], tf, mats, target, params, np.float32(0.0), grid,
+        shard_volume=True)
+    out["space_loss"] = float(loss)
+    out["space_grad"] = _np(shard.gather_blocks(grads["volume"],
+                                                vol.shape[0], grid,
+                                                ("space",)))
+    # and replicated, rows over data only
+    loss, grads = shard.eam_value_and_grad(vol, tf, mats, target, params,
+                                           np.float32(0.0), mesh)
+    out["data_grad"] = _np(grads["volume"])
+
+    # two steps of the data-parallel train step on the slabs
+    step = shard.data_parallel_train_step(
+        lambda p: torch.optim.SGD(p, lr=0.1), grid, params=params,
+        shard_volume=True)
+    slab, opt_state, losses = vol[z0:z1], None, []
+    for _ in range(2):
+        loss, slab, _, opt_state = step(slab, tf, opt_state, mats, target,
+                                        np.float32(0.0))
+        losses.append(float(loss))
+    out["train_losses"] = losses
+
+    # bucketed: per-bucket all-reduce over data from the grad hooks
+    def loss_of_volume(volume_data):
+        return shard.eam_loss_rows(volume_data, tf, mats, target, params,
+                                   np.float32(0.0), mesh)
+
+    group = meshmod.axis_group(mesh, "data")
+    _, bucket_grads = overlap.value_and_grad_bucketed(
+        loss_of_volume, overlap.split_volume(vol, 4), group=group)
+    out["bucket_grad"] = _np(overlap.join_volume(bucket_grads))
+    bstep = overlap.bucketed_train_step(
+        lambda p: torch.optim.SGD(p, lr=0.5), loss_of_volume, 4, group=group)
+    volume, opt_state, losses = vol, None, []
+    for _ in range(2):
+        loss, volume, opt_state = bstep(volume, opt_state)
+        losses.append(float(shard._all_reduce(loss.clone(), mesh)))
+    out["bucket_losses"] = losses
+
+    # a sharded checkpoint: saved from every rank, loaded on 2 and on 1
+    from vpt_tpu_torch.renderers import mcm
+
+    params = mcm.Params(extinction=20.0, steps=8)
+    whole = mcm.reset(params, UNEVEN, SIZE, scenes["plain"])
+    local = shard_render_frame(mcm, mesh, whole)(
+        place_state(whole, mesh), scenes["plain"], params,
+        np.float32(0.3), 1)
+    pending = checkpoint.save_sharded(ckpt_dir, "mcm", local, 7, params,
+                                      extra={"seed0": 3}, wait=False,
+                                      mesh=mesh, height=UNEVEN)
+    pending.wait_until_finished()
+    dist.barrier()
+    out["saved"] = _np(gather_state(local, mesh, UNEVEN))
+    two = DeviceMesh("cpu", torch.tensor([0, 1]), mesh_dim_names=("data",))
+    if rank < 2:
+        key, got, frame_number, meta = checkpoint.load_sharded(ckpt_dir,
+                                                               mesh=two)
+        out["loaded_rows"] = {k: v.shape[0] for k, v in got.items()}
+        out["loaded2"] = _np(gather_state(got, two, UNEVEN))
+        out["loaded2_meta"] = (key, frame_number, meta["extra"],
+                               meta["params"])
+    if rank == 0:
+        key, got, frame_number, _ = checkpoint.load_sharded(ckpt_dir,
+                                                            device="cpu")
+        out["loaded1"] = _np(got)
+    dist.barrier()
+    return out if rank == 0 else {"coordinate": out["coordinate"]}

@@ -92,6 +92,9 @@ struct VptLaoExt : VptLaoArgs {
                          // gradient, no ext
   int filter;            // ray.cuh's VptFilter
   int baked;             // 1: channel 1 is |grad| (lao.Params.baked_gradient)
+  int row0, full_height; // the launch's rows of the image: [row0,
+                         // row0 + height) of full_height rows; every
+                         // instance takes them as its int2 window argument
 };
 
 namespace {
@@ -175,6 +178,7 @@ __device__ __forceinline__ float lao_tap(const VptRowOf<kBf16, kC>& r,
 template <bool kBf16, bool kTfBf16, class Row, bool kCount, int kC,
           bool kBaked>
 __device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
+                                    int2 window,
                                     float4* __restrict__ state,
                                     unsigned long long* __restrict__ counts) {
   static_assert(!kBaked || kC == 2, "the baked gradient is channel 1");
@@ -188,7 +192,7 @@ __device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
 #pragma unroll
   for (int k = 0; k < 16; ++k) m[k] = __ldg(a.mvp + k);
   const float ndcx = vpt_pixel_ndc(x, a.width);
-  const float ndcy = vpt_pixel_ndc(y, a.height);
+  const float ndcy = vpt_pixel_ndc(window.x + y, window.y);
   float from[3], to[3], dir[3];
   vpt_unproject(m, ndcx, ndcy, ndcx, ndcy, from, to);
 #pragma unroll
@@ -364,9 +368,10 @@ __device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
 
 template <bool kBf16, bool kTfBf16, class Row, bool kCount>
 __global__ void __launch_bounds__(kVptTileThreads)
-lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
+lao_kernel(const VptLaoArgs a, int2 window, float4* __restrict__ state,
            unsigned long long* __restrict__ counts) {
-  lao_pixel<kBf16, kTfBf16, Row, kCount, 0, false>(a, 0, state, counts);
+  lao_pixel<kBf16, kTfBf16, Row, kCount, 0, false>(a, 0, window, state,
+                                                   counts);
 }
 
 // The ext instances: kC channels (1: a filtered volume, float32 rows; 2: a
@@ -375,15 +380,17 @@ lao_kernel(const VptLaoArgs a, float4* __restrict__ state,
 // larger tables).
 template <bool kBf16, bool kCount, int kC, bool kBaked>
 __global__ void __launch_bounds__(kVptTileThreads)
-lao_ext_kernel(const VptLaoExt a, float4* __restrict__ state,
+lao_ext_kernel(const VptLaoExt a, int2 window, float4* __restrict__ state,
                unsigned long long* __restrict__ counts) {
-  lao_pixel<kBf16, kBf16, int, kCount, kC, kBaked>(a, a.filter, state,
-                                                   counts);
+  lao_pixel<kBf16, kBf16, int, kCount, kC, kBaked>(a, a.filter, window,
+                                                   state, counts);
 }
 
 // The instantiation for the table types, the row index and counting.
-using Kernel = void (*)(const VptLaoArgs, float4*, unsigned long long*);
-using KernelExt = void (*)(const VptLaoExt, float4*, unsigned long long*);
+using Kernel = void (*)(const VptLaoArgs, int2, float4*,
+                        unsigned long long*);
+using KernelExt = void (*)(const VptLaoExt, int2, float4*,
+                           unsigned long long*);
 
 template <class Row, bool kCount>
 Kernel pick_row(int table_bf16, int tf_bf16) {
@@ -437,6 +444,9 @@ int launch(const void* prepared, void* state, void* counts, void* stream) {
   const VptLaoExt& a = *static_cast<const VptLaoExt*>(prepared);
   VptDeviceGuard guard(a.device);
   if (a.width <= 0 || a.height <= 0) return 0;
+  if (a.row0 < 0 || a.full_height < a.row0 + a.height)
+    return (int)cudaErrorInvalidValue;
+  const int2 window = make_int2(a.row0, a.full_height);
   const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
   if (is_ext(a)) {
     const KernelExt kernel = pick_ext(a.channels, a.table_bf16, a.tf_bf16,
@@ -444,7 +454,7 @@ int launch(const void* prepared, void* state, void* counts, void* stream) {
     if (kernel == nullptr || a.rows64 || a.filter < 0 || a.filter > 2)
       return (int)cudaErrorInvalidValue;
     kernel<<<blocks, kVptTileThreads, 0, (cudaStream_t)stream>>>(
-        a, static_cast<float4*>(state),
+        a, window, static_cast<float4*>(state),
         static_cast<unsigned long long*>(counts));
     return (int)cudaGetLastError();
   }
@@ -453,7 +463,7 @@ int launch(const void* prepared, void* state, void* counts, void* stream) {
   const Kernel kernel = pick(a.table_bf16, a.tf_bf16, a.rows64,
                              counts != nullptr);
   kernel<<<blocks, kVptTileThreads, 0, (cudaStream_t)stream>>>(
-      base, static_cast<float4*>(state),
+      base, window, static_cast<float4*>(state),
       static_cast<unsigned long long*>(counts));
   return (int)cudaGetLastError();
 }

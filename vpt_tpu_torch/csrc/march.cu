@@ -89,6 +89,8 @@ struct VptMarchArgs {
   float extinction;      // EAM, Depth
   float level;           // Depth: the threshold; ISO: the isovalue
   int device;
+  int row0, full_height; // the launch's rows of the image: [row0,
+                         // row0 + height) of full_height rows
 };
 
 // The prepared arguments with the clamp boxes that hold for the launch's
@@ -201,7 +203,7 @@ __device__ __forceinline__ void march(const A& a, float* __restrict__ state,
 
   // the pixel's ray (_march.rays): unproject, slab test clamped at 0
   const float ndcx = vpt_pixel_ndc(x, a.width);
-  const float ndcy = vpt_pixel_ndc(y, a.height);
+  const float ndcy = vpt_pixel_ndc(a.row0 + y, a.full_height);
   float from[3], to[3], dir[3];
   vpt_unproject(s_mvp, ndcx, ndcy, ndcx, ndcy, from, to);
 #pragma unroll
@@ -447,7 +449,9 @@ bool is_ext(const VptMarchExt& p) {
 cudaError_t launch(const VptMarchExt& p, void* state, float first,
                    float mix, void* stream) {
   if (p.width <= 0 || p.height <= 0) return cudaSuccess;
-  if (p.boxes < 0 || p.boxes > 2) return cudaErrorInvalidValue;
+  if (p.boxes < 0 || p.boxes > 2 || p.row0 < 0
+      || p.full_height < p.row0 + p.height)
+    return cudaErrorInvalidValue;
   if (is_ext(p)) {
     if (p.boxes != 0 || p.filter < 0 || p.filter > 2)
       return cudaErrorInvalidValue;
@@ -523,6 +527,8 @@ extern "C" int vpt_march_frame(
   a.extinction = extinction;
   a.level = level;
   a.device = 0;
+  a.row0 = 0;
+  a.full_height = height;
   a.boxes = 0;
   a.tf_table = nullptr;
   a.th = 0;

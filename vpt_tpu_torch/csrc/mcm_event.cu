@@ -94,6 +94,8 @@ struct Args {
   int width, height;     // the image; n = width * height
   float inv_res_x, inv_res_y, seed, extinction, anisotropy, blur, cell;
   int max_bounces, steps, use_skip;
+  int row0, full_height; // the launch's rows of the image: [row0,
+                         // row0 + height) of full_height rows
 };
 
 // The ext instances' argument (two-channel and filtered scenes, ray.cuh):
@@ -239,11 +241,12 @@ __device__ __forceinline__ void mcm_event(const A& a) {
   float samples = a.samples[i];
   const bool skip = !kGrid && kC == 0 && a.use_skip != 0;
   float ch = skip ? a.cheb[i] : 0.0f;
-  // NDC of the row-major pixel index (row 0 is the bottom of the image);
-  // the wrapper keeps width * height below 2^31
+  // NDC of the row-major pixel index (row 0 is the bottom of the image),
+  // the row taken in the window's image; the wrapper keeps width * height
+  // below 2^31
   const int y = (int)i / a.width;
   const float ndcx = vpt_pixel_ndc((int)i - y * a.width, a.width);
-  const float ndcy = vpt_pixel_ndc(y, a.height);
+  const float ndcy = vpt_pixel_ndc(a.row0 + y, a.full_height);
   const float maxb = (float)a.max_bounces;
 
   // per-pixel stream: pcg(19 x + 47 y + 101 seed + 131) over the float bits
@@ -489,7 +492,10 @@ cudaError_t launch(K kernel, const A& a, size_t smem, cudaStream_t stream) {
 // (grid_n^3, 2) float32 majorant grid, which selects the grid machine
 // (use_skip is then 0).  channels 2 (a two-channel table of (D*H*W, 16)
 // rows and the packed (th*tw, 16) TF table tf_table of its type) or a
-// filter other than linear (0) select an ext instance (use_skip 0).
+// filter other than linear (0) select an ext instance (use_skip 0).  The
+// launch renders rows [row0, row0 + height) of a full_height-row image:
+// their NDCs and streams are those rows' of the whole image (inv_res_y is
+// 1 / full_height).
 extern "C" int vpt_mcm_event_frame(
     void* position, void* direction, void* bounces, void* transmittance,
     void* radiance, void* samples, void* cheb, const void* table,
@@ -498,8 +504,11 @@ extern "C" int vpt_mcm_event_frame(
     int grid_n, const void* mvp, int width, int height, float inv_res_x,
     float inv_res_y, float seed, float extinction, float anisotropy,
     float blur, float cell, int max_bounces, int steps, int use_skip,
-    const void* tf_table, int th, int channels, int filter, void* stream) {
+    const void* tf_table, int th, int channels, int filter, int row0,
+    int full_height, void* stream) {
   if (width <= 0 || height <= 0) return 0;
+  if (row0 < 0 || full_height < row0 + height)
+    return (int)cudaErrorInvalidValue;
   ArgsExt a;
   a.position = (float*)position;
   a.direction = (float*)direction;
@@ -523,6 +532,7 @@ extern "C" int vpt_mcm_event_frame(
   a.seed = seed; a.extinction = extinction; a.anisotropy = anisotropy;
   a.blur = blur; a.cell = cell;
   a.max_bounces = max_bounces; a.steps = steps; a.use_skip = use_skip;
+  a.row0 = row0; a.full_height = full_height;
   a.tf_table = tf_table;
   a.th = th;
   a.filter = filter;
@@ -556,7 +566,7 @@ extern "C" int vpt_mcm_event(
       table, table_bf16, d, h, w, tf_row, tw, tf_mode, env, 1, 1, nullptr,
       0, mvp, width, height, inv_res_x, inv_res_y, seed, extinction,
       anisotropy, blur, cell, max_bounces, steps, use_skip, nullptr, 0, 1, 0,
-      stream);
+      0, height, stream);
 }
 
 // The launch shape of the instance `flags` (1: a bf16 table, 2: the grid

@@ -74,6 +74,8 @@ struct VptMcsArgs {
   int use_skip;
   int device;
   int env_h, env_w;
+  int row0, full_height; // the launch's rows of the image: [row0,
+                         // row0 + height) of full_height rows
 };
 
 // The prepared arguments with what the ext instances (two-channel and
@@ -144,7 +146,7 @@ __device__ __forceinline__ void mcs_frame(
     const float4 env = kMap ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : s_env;
 
     const float ndcx = vpt_pixel_ndc(x, a.width);
-    const float ndcy = vpt_pixel_ndc(y, a.height);
+    const float ndcy = vpt_pixel_ndc(a.row0 + y, a.full_height);
     float from[3], to[3], dir[3];
     vpt_unproject(s_mvp, ndcx, ndcy, ndcx, ndcy, from, to);
 #pragma unroll
@@ -371,7 +373,8 @@ cudaError_t launch_any(const VptMcsExt& a, const VptMcsFrame& f,
   if (a.width <= 0 || a.height <= 0) return cudaSuccess;
   const bool ext = a.channels != 1 || a.filter != 0;
   if ((a.channels != 1 && a.channels != 2) || a.filter < 0 || a.filter > 2
-      || (ext && a.use_skip))
+      || (ext && a.use_skip) || a.row0 < 0
+      || a.full_height < a.row0 + a.height)
     return cudaErrorInvalidValue;
   const int flags = (a.table_bf16 ? 1 : 0) | (counts ? 2 : 0)
                     | (a.env_h == 1 && a.env_w == 1 ? 0 : 4)
@@ -448,6 +451,8 @@ extern "C" int vpt_mcs_frame(
   a.use_skip = use_skip;
   a.device = 0;
   a.env_h = a.env_w = 1;
+  a.row0 = 0;
+  a.full_height = height;
   a.tf_table = nullptr;
   a.th = 0;
   a.channels = 1;

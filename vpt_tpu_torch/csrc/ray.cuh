@@ -47,7 +47,8 @@ __device__ __forceinline__ uint32_t vpt_seed_pixel(float ndcx, float ndcy,
                  + 101u * __float_as_uint(seed) + 131u);
 }
 
-// sampling.pixel_ndc: (i + 0.5) / n * 2 - 1, the IEEE quotient
+// sampling.pixel_ndc: (i + 0.5) / n * 2 - 1, the IEEE quotient; a launch
+// over a window of rows passes the row in the whole image and its height
 __device__ __forceinline__ float vpt_pixel_ndc(int i, int n) {
   return ((float)i + 0.5f) / (float)n * 2.0f - 1.0f;
 }

@@ -57,7 +57,8 @@ SIGNATURES = {
     # and before the stream the 2D TF table, TH, channels and filter
     "vpt_mcm_event_frame": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P,
                                         _I, _I, _P, _I, _P, _I, _I]
-                            + [_F] * 7 + [_I, _I, _I, _P, _I, _I, _I, _P]),
+                            + [_F] * 7 + [_I, _I, _I, _P, _I, _I, _I, _I, _I,
+                                          _P]),
     "vpt_mcm_event_info": [_I, _I, _P],
     "vpt_gather_rows": [_P, _L, _I, _P, _L, _P, _P],
     "vpt_corner_fetch": [_P, _P, _L, _P, _P, _P, _P],
@@ -301,14 +302,26 @@ def check_image(state, shape, device, what):
                          "with 32-bit integers")
 
 
+def window_key(window, height):
+    """What a row window adds to a wrapper's preparation key: nothing for
+    the whole image (None or ``(0, height)``), else ``(row0,
+    full_height)`` (``sampling.row_window``)."""
+    from ..sampling import row_window
+
+    window = row_window(window, height)
+    return () if window == (0, height) else window
+
+
 def corner_table(table, volume_shape, what, channels: int = 1):
     """The (D·H·W, 8·channels) float32 or bfloat16 corner table a
-    per-pixel kernel fetches from: raises for a scene without one (an
-    unpacked scene) or of another shape, and returns it contiguous."""
+    per-pixel kernel fetches from: raises for a scene without one (a
+    hand-built Scene: ``make_scene`` gives every scene on the card its
+    tables) or of another shape, and returns it contiguous."""
     if table is None:
         raise NotImplementedError(
-            f"the {what} kernel samples corner-packed tables only; build "
-            "the scene with pack=True")
+            f"the {what} kernel samples corner-packed tables only, and this "
+            "scene has none: build it with make_scene (pack=True, or any "
+            "scene on the card)")
     d, h, w = volume_shape[:3]
     if table.dtype not in (torch.float32, torch.bfloat16) \
             or tuple(table.shape) != (d * h * w, 8 * channels):

@@ -49,17 +49,18 @@ LAUNCHES = 0
 ROWS32 = 2 ** 31
 
 
-def lao_frame_plain(state, scene, params):
+def lao_frame_plain(state, scene, params, window=None):
     """One frame in plain PyTorch, written into ``state``."""
     from ..renderers import lao
 
     height, width = state.shape[:2]
     state.copy_(lao.generate(dataclasses.replace(scene, kernels=False),
-                             params, 0.0, height, width))
+                             params, 0.0, height, width, window=window))
 
 
 class _Args(ctypes.Structure):
-    """``VptLaoArgs`` of ``csrc/lao_march.cu``."""
+    """``VptLaoExt`` of ``csrc/lao_march.cu``: the ``VptLaoArgs`` fields,
+    the ext instances' and the row window."""
     _fields_ = ([(name, ctypes.c_void_p) for name in
                  ("table", "tf_table", "mvp", "rx", "taps")]
                 + [(name, ctypes.c_int) for name in
@@ -72,7 +73,7 @@ class _Args(ctypes.Structure):
                     "rconst")]
                 + [(name, ctypes.c_int) for name in ("device", "rows64")]
                 + [(name, ctypes.c_int) for name in
-                   ("channels", "filter", "baked")])
+                   ("channels", "filter", "baked", "row0", "full_height")])
 
 
 def _fields(scene):
@@ -86,8 +87,9 @@ def _transfer_table(scene):
     table = scene.transfer_packed
     if table is None:
         raise NotImplementedError(
-            "the LAO kernel reads the packed TF table only; build the scene "
-            "with pack=True")
+            "the LAO kernel reads the packed TF table only, and this scene "
+            "has none: build it with make_scene (pack=True, or any scene on "
+            "the card)")
     th, tw = scene.transfer.shape[:2]
     if table.dtype not in (torch.float32, torch.bfloat16) \
             or tuple(table.shape) != (th * tw, 16):
@@ -99,12 +101,15 @@ def _transfer_table(scene):
 
 
 def _prepare(scene, key):
-    """What every frame of ``key`` = (params, height, width) takes of the
-    scene: the checked tensors, the plain version's ``rx``, ``rconst``,
-    light and AO taps, and the ``VptLaoArgs``."""
+    """What every frame of ``key`` = (params, height, width), then (row0,
+    full_height) for a window other than the whole image
+    (``_build.window_key``), takes of the scene: the checked tensors, the
+    plain version's ``rx``, ``rconst``, light and AO taps, and the
+    ``VptLaoArgs``."""
     from ..renderers import lao
 
-    params, height, width = key
+    params, height, width, *window = key
+    row0, full_height = window or (0, height)
     lao.check_params(params, scene)
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the LAO kernel indexes pixels "
@@ -125,7 +130,8 @@ def _prepare(scene, key):
                              "instances take a packed TF table of the "
                              "corner table's dtype")
     device = scene.device
-    rx = lao.pixel_random(height, width, device).contiguous()
+    rx = lao.pixel_random(height, width, device,
+                          window=(row0, full_height)).contiguous()
     rconst = float(lao.random_constant(device))
     light = lao.light_of(scene, params).tolist()
     rows = lao.lao_taps(params)
@@ -145,7 +151,7 @@ def _prepare(scene, key):
                  f32(params.soft_shadows_weight), f32(params.light_radius),
                  f32(params.light_coefficient), *light, rconst,
                  scene.volume.get_device(), rows64, channels, filt,
-                 int(params.baked_gradient))
+                 int(params.baked_gradient), row0, full_height)
     lib = _build.library() if args.device >= 0 else None
     return _build.Prepared(
         tensors=(*tensors, tf, rx, taps), args=args,
@@ -159,19 +165,22 @@ def _prepare(scene, key):
 _scene_cache = _build.LastScene(_prepare, _fields)
 
 
-def lao_frame(state, scene, params, counts=None):
+def lao_frame(state, scene, params, counts=None, window=None):
     """One LAO frame written into ``state`` (H, W, 4).  ``counts``: None,
     or a CUDA int64 tensor of 2 on the state's device to which the frame
     adds its pixels' active slices (the lane-slices that do work) and the
     slices its warps step through (lane-slices over 32 times those is the
-    share of the lanes that work)."""
+    share of the lanes that work).  ``window``: None, or ``(row0,
+    full_height)``: the state holds those rows of the image
+    (``sampling.pixel_ndc``)."""
     if not state.is_cuda:
         if counts is not None:
             raise ValueError("the plain LAO frame counts nothing")
-        lao_frame_plain(state, scene, params)
+        lao_frame_plain(state, scene, params, window)
         return
     global LAUNCHES
-    p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2]))
+    p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2])
+                         + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{state.device}")

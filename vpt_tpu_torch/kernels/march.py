@@ -7,7 +7,7 @@ slices, folding the renderer's composite, then its integrate.  Here it is
 - :func:`march_frame_plain`, the renderer's plain PyTorch ``generate`` and
   ``integrate`` on the scene with ``kernels=False``, on any device;
 - the CUDA kernel ``csrc/march.cu``: one thread a pixel of an 8×4 warp
-  tile computes its ray from the pixel index, reads the corner rows of
+  tile computes its ray from the pixel index and the frame's row window, reads the corner rows of
   several slices ahead and folds them in order (the corner fetch of
   ``csrc/ray.cuh`` and the TF lookup of ``csrc/tf1d.cuh``) with the
   renderer's composite in registers, and integrates into the state in
@@ -55,13 +55,14 @@ def state_shape(mode, height, width):
     return (height, width) if mode == "mip" else (height, width, 4)
 
 
-def march_frame_plain(mode, state, scene, params, seed, frame_number):
+def march_frame_plain(mode, state, scene, params, seed, frame_number,
+                      window=None):
     """One frame of renderer ``mode`` in plain PyTorch, in place on
     ``state``."""
     module = _module(mode)
     height, width = state.shape[:2]
     frame = module.generate(dataclasses.replace(scene, kernels=False),
-                            params, seed, height, width)
+                            params, seed, height, width, window=window)
     module.integrate(state, frame, frame_number)
 
 
@@ -120,6 +121,7 @@ class _Args(ctypes.Structure):
                 ("height", ctypes.c_int), ("slices", ctypes.c_int),
                 ("step", ctypes.c_float), ("extinction", ctypes.c_float),
                 ("level", ctypes.c_float), ("device", ctypes.c_int),
+                ("row0", ctypes.c_int), ("full_height", ctypes.c_int),
                 ("boxes", ctypes.c_int), ("box", ctypes.c_float * 12),
                 ("tf_table", ctypes.c_void_p), ("th", ctypes.c_int),
                 ("channels", ctypes.c_int), ("filter", ctypes.c_int)]
@@ -150,10 +152,12 @@ def check_rows(volume_shape):
 
 
 def _prepare(scene, key):
-    """What every frame of ``key`` = (mode, params, height, width) takes of
-    the scene: the checked tensors, the ``VptMarchExt`` and the seed's
-    schedule function."""
-    mode, params, height, width = key
+    """What every frame of ``key`` = (mode, params, height, width), then
+    (row0, full_height) for a window other than the whole image
+    (``_build.window_key``), takes of the scene: the checked tensors, the
+    ``VptMarchExt`` and the seed's schedule function."""
+    mode, params, height, width, *window = key
+    row0, full_height = window or (0, height)
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the march kernel indexes "
                          "pixels with 32-bit integers")
@@ -167,7 +171,7 @@ def _prepare(scene, key):
     corners = [float(v) for box in boxes for v in box.reshape(-1).tolist()]
     args = _Args(table, row, mvp, bf16, d, h, w, tw, tf_mode, MODES[mode],
                  width, height, slices, step, extinction, level, device,
-                 len(boxes), (ctypes.c_float * 12)(*corners), *ext)
+                 row0, full_height, len(boxes), (ctypes.c_float * 12)(*corners), *ext)
     return _build.Prepared(
         tensors=tensors, args=args, address=ctypes.addressof(args),
         device=device, shape=torch.Size(state_shape(mode, height, width)),
@@ -180,16 +184,21 @@ def _prepare(scene, key):
 _scene_cache = _build.LastScene(_prepare, _fields)
 
 
-def march_frame(mode, state, scene, params, seed, frame_number):
+def march_frame(mode, state, scene, params, seed, frame_number,
+                window=None):
     """One frame of renderer ``mode`` ("eam", "mip", "depth" or "iso"),
-    generate and integrate, in place on ``state``."""
+    generate and integrate, in place on ``state``.  ``window``: None, or
+    ``(row0, full_height)``: the state holds those rows of the image
+    (``sampling.pixel_ndc``)."""
     if mode not in MODES:
         raise ValueError(f"unknown march mode {mode!r}")
     if not state.is_cuda:
-        march_frame_plain(mode, state, scene, params, seed, frame_number)
+        march_frame_plain(mode, state, scene, params, seed, frame_number,
+                          window)
         return
     global LAUNCHES
-    p = _scene_cache.get(scene, (mode, params) + tuple(state.shape[:2]))
+    p = _scene_cache.get(scene, (mode, params) + tuple(state.shape[:2])
+                         + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{state.device}")

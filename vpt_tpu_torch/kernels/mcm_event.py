@@ -10,17 +10,20 @@ There is no Pallas original: in ``vpt_tpu`` the frame is an XLA
   photon in registers for all ``steps`` events (flight, one corner row, the
   TF lookup of ``csrc/tf1d.cuh``, classification, then the deposit and
   reset or the scatter), computing its NDC and stream seed from the pixel
-  index.  A scene with a majorant grid runs the kernel's grid machine, an
+  index and the frame's row window (its first row and the image's
+  height).  A scene with a majorant grid runs the kernel's grid machine, an
   environment map larger than 1×1 its map instance, a two-channel or
   filtered volume an ext instance (``csrc/ray.cuh``: the filtered fetch,
   the two-channel row, the 2D TF lookup).
 
 :func:`event_frame` takes the plain loop for CPU state and launches the
 kernel for CUDA state; both update the state tensors in place.  For CUDA
-state it raises on what the kernel does not take: unpacked scenes, images
+state it raises on what the kernel does not take: scenes without corner
+tables (a hand-built one: ``make_scene`` gives every scene on the card
+its tables), images
 of 2^31 pixels or more, and filtered volumes in bfloat16 rows (make_scene
 builds them in float32).  What a launch needs of the scene it
-prepares once per (scene, resolution); a frame then does no tensor work
+prepares once per (scene, resolution, window); a frame then does no tensor work
 besides the launch.
 """
 
@@ -42,14 +45,15 @@ _VEC3 = ("position", "direction", "transmittance", "radiance")
 _SCALAR = ("bounces", "samples")
 
 
-def event_frame_plain(state, scene, params, seed):
+def event_frame_plain(state, scene, params, seed, window=None):
     """``params.steps`` events for every pixel in plain PyTorch."""
     from ..renderers import mcm
 
     height, width = state["position"].shape[:2]
     dev = state["position"].device
-    ndc = sampling.pixel_ndc(height, width, device=dev)
-    inv_res = mcm.inverse_resolution(height, width, dev)
+    ndc = sampling.pixel_ndc(height, width, device=dev, window=window)
+    inv_res = mcm.inverse_resolution(sampling.row_window(window, height)[1],
+                                     width, dev)
     # per-pixel stream: hash(uvec3(bits(mapped.xy), bits(seed))) (glsl:128)
     rstate = rng.seed_pixels(ndc * 0.5 + 0.5, np.float32(seed))
     use_skip = mcm.uses_skip(state, scene)
@@ -107,8 +111,12 @@ def majorant_grid(scene):
 
 def _prepare(scene, key):
     """Check the scene and build the scene's part of the launch arguments
-    for ``key`` = (use_skip, height, width): ``Prepared(tensors, args)``."""
-    use_skip, height, width = key
+    for ``key`` = (use_skip, height, width), followed by (row0,
+    full_height) for a window other than the whole image
+    (``_build.window_key``):
+    ``Prepared(tensors, args)``."""
+    use_skip, height, width, *window = key
+    row0, full_height = window or (0, height)
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the MCM event kernel indexes "
                          "pixels with 32-bit integers")
@@ -121,7 +129,8 @@ def _prepare(scene, key):
         else (grid.data_ptr(), scene.majorant.shape[0])
     return _build.Prepared(tensors=(*tensors, env, grid), args=(
         *args[:8], env.data_ptr(), eh, ew, *grid_args, args[8], width,
-        height), ext=args[9:])
+        height), ext=args[9:] + (row0, full_height),
+        inv_res=(1.0 / width, 1.0 / full_height))
 
 
 #: the last scene's preparation; a renderer launches one scene at one
@@ -129,11 +138,12 @@ def _prepare(scene, key):
 _scene_cache = _build.LastScene(_prepare, _fields)
 
 
-def launch_args(state, scene, params, seed):
+def launch_args(state, scene, params, seed, window=None):
     """The arguments of one ``vpt_mcm_event_frame`` call for CUDA
     ``state``: the state's pointers, the scene's part (prepared once per
-    scene and resolution), the frame's seed and ``params``, the current
-    stream."""
+    scene, resolution and row window), the frame's seed and ``params``,
+    the current stream.  ``window``: None, or ``(row0, full_height)``, the
+    state's rows of the image (``sampling.pixel_ndc``)."""
     from ..renderers import mcm
 
     position = state["position"]
@@ -144,26 +154,28 @@ def launch_args(state, scene, params, seed):
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{dev}")
     use_skip = mcm.uses_skip(state, scene)
-    prepared = _scene_cache.get(scene, (use_skip, height, width))
+    prepared = _scene_cache.get(scene, (use_skip, height, width)
+                                + _build.window_key(window, height))
     cheb = state["cheb"].data_ptr() if use_skip else None
     # ctypes rounds each Python float to the nearest float32, as
     # np.float32 and JAX's weak types do
     return (position.data_ptr(), state["direction"].data_ptr(),
             state["bounces"].data_ptr(), state["transmittance"].data_ptr(),
             state["radiance"].data_ptr(), state["samples"].data_ptr(), cheb,
-            *prepared.args, 1.0 / width, 1.0 / height, float(seed),
+            *prepared.args, *prepared.inv_res, float(seed),
             params.extinction, params.anisotropy, params.blur,
             mcm.skip_cell_size(scene), params.max_bounces, params.steps,
             int(use_skip), *prepared.ext, _build.stream_ptr(position))
 
 
-def event_frame(state, scene, params, seed):
-    """One frame of ``params.steps`` events, in place on ``state``."""
+def event_frame(state, scene, params, seed, window=None):
+    """One frame of ``params.steps`` events, in place on ``state``;
+    ``window`` as in :func:`launch_args`."""
     if not state["position"].is_cuda:
-        event_frame_plain(state, scene, params, seed)
+        event_frame_plain(state, scene, params, seed, window)
         return
     global LAUNCHES
-    args = launch_args(state, scene, params, seed)
+    args = launch_args(state, scene, params, seed, window)
     # the stream and the shared-memory opt-in belong to the state's device
     with torch.cuda.device(state["position"].device):
         _build.check("vpt_mcm_event_frame",

@@ -37,13 +37,13 @@ from . import _build
 LAUNCHES = 0
 
 
-def mcs_frame_plain(state, scene, params, seed, frame_number):
+def mcs_frame_plain(state, scene, params, seed, frame_number, window=None):
     """One frame in plain PyTorch, in place on ``state``."""
     from ..renderers import mcs
 
     height, width = state.shape[:2]
     frame = mcs.generate(dataclasses.replace(scene, kernels=False), params,
-                         seed, height, width)
+                         seed, height, width, window=window)
     mcs.integrate(state, frame, frame_number)
 
 
@@ -59,6 +59,7 @@ class _Args(ctypes.Structure):
                 ("extinction", ctypes.c_float), ("cell", ctypes.c_float),
                 ("use_skip", ctypes.c_int), ("device", ctypes.c_int),
                 ("env_h", ctypes.c_int), ("env_w", ctypes.c_int),
+                ("row0", ctypes.c_int), ("full_height", ctypes.c_int),
                 ("tf_table", ctypes.c_void_p), ("th", ctypes.c_int),
                 ("channels", ctypes.c_int), ("filter", ctypes.c_int)]
 
@@ -70,11 +71,14 @@ def _fields(scene):
 
 
 def _prepare(scene, key):
-    """What every frame of ``key`` = (params, height, width) takes of the
-    scene: the checked tensors and the ``VptMcsExt``."""
+    """What every frame of ``key`` = (params, height, width), then (row0,
+    full_height) for a window other than the whole image
+    (``_build.window_key``), takes of the scene: the checked tensors and
+    the ``VptMcsExt``."""
     from ..renderers import mcs
 
-    params, height, width = key
+    params, height, width, *window = key
+    row0, full_height = window or (0, height)
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the MCS kernel indexes pixels "
                          "with 32-bit integers")
@@ -88,7 +92,7 @@ def _prepare(scene, key):
     # ctypes rounds each Python float to the nearest float32
     args = _Args(table, row, mvp, env.data_ptr(), bf16, d, h, w, tw, tf_mode,
                  width, height, params.extinction, cell, int(use_skip),
-                 device, eh, ew, *ext)
+                 device, eh, ew, row0, full_height, *ext)
     return _build.Prepared(
         tensors=(*tensors, env), args=args, address=ctypes.addressof(args),
         device=device, shape=torch.Size((height, width, 4)),
@@ -100,19 +104,23 @@ def _prepare(scene, key):
 _scene_cache = _build.LastScene(_prepare, _fields)
 
 
-def mcs_frame(state, scene, params, seed, frame_number, counts=None):
+def mcs_frame(state, scene, params, seed, frame_number, counts=None,
+              window=None):
     """One frame of MCS, generate and integrate, in place on ``state``.
 
     ``counts``: None, or a CUDA int64 tensor of 2 on the state's device to
     which the kernel adds the frame's tracking steps (draws) and corner-row
-    fetches; the plain version takes none."""
+    fetches; the plain version takes none.  ``window``: None, or ``(row0,
+    full_height)``: the state holds those rows of the image
+    (``sampling.pixel_ndc``)."""
     if not state.is_cuda:
         if counts is not None:
             raise ValueError("the plain MCS frame counts nothing")
-        mcs_frame_plain(state, scene, params, seed, frame_number)
+        mcs_frame_plain(state, scene, params, seed, frame_number, window)
         return
     global LAUNCHES
-    p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2]))
+    p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2])
+                         + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{state.device}")

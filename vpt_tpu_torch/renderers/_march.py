@@ -11,6 +11,11 @@ card a whole frame is one launch of the march kernel
 The per-frame scalars of a schedule (its first parameter and its step) are
 float32 values computed on the host, where the plain version and the
 kernel's wrapper both take them.
+
+Each march renderer's ``generate`` and ``render_frame`` take a row window,
+``window=(row0, full_height)``: the frame renders the state's rows as the
+rows from ``row0`` of a ``full_height``-row image (:func:`rays`), which is
+how a rank of ``parallel.shard`` renders its block of rows.
 """
 
 from __future__ import annotations
@@ -61,13 +66,16 @@ def dot3(a, b):
         + a[..., 2] * b[..., 2]
 
 
-def rays(scene, height: int, width: int, interval=None):
+def rays(scene, height: int, width: int, interval=None, window=None):
     """Every pixel's clipped segment: ``(tb, miss, start, end)`` with
     ``tb`` the (H, W, 2) interval, ``miss`` where it is empty and
     ``start``/``end`` its (H, W, 3) end points.  ``interval(ray_from,
     direction)`` gives ``tb``: by default ``base.march_interval`` (the cube,
-    clamped to the scene's occupied box), ISO's and LAO's their own."""
-    ndc = sampling.pixel_ndc(height, width, device=scene.device)
+    clamped to the scene's occupied box), ISO's and LAO's their own.
+    ``window``: None, or ``(row0, full_height)``: the rays of the
+    ``height`` rows from ``row0`` of a ``full_height``-row image."""
+    ndc = sampling.pixel_ndc(height, width, device=scene.device,
+                             window=window)
     ray_from, ray_to = sampling.unproject(ndc, scene.mvp_inverse)
     direction = ray_to - ray_from
     if interval is None:

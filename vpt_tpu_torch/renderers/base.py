@@ -69,7 +69,10 @@ class Scene:
     ``tf_mxu`` lookup rounds its lerp weights to (``kernels/tf1d.py``).
     ``kernels``: False runs the plain PyTorch version of every kernel the
     scene's samplers reach, on any device: the reference the kernels are
-    held against on the card."""
+    held against on the card.
+    ``kernel_tables``: the corner tables are the kernels' alone, and the
+    samplers read the unpacked volume and TF texture (a ``pack=False``
+    scene on the card, :func:`make_scene`)."""
 
     volume: torch.Tensor               # (D, H, W, C) float32
     transfer: torch.Tensor             # (TH, TW, 4) float32
@@ -90,6 +93,7 @@ class Scene:
     filter: str = "linear"
     tf_mxu: Any = None                 # None, torch.float32 or bfloat16
     kernels: bool = True
+    kernel_tables: bool = False
 
     @property
     def device(self):
@@ -118,8 +122,10 @@ class Scene:
         """Whether the samplers read the corner table: a linear scene that
         has one.  A filtered scene's samplers read the volume through its
         filter (``sampling.volume_rg``), as ``vpt_tpu`` does; on the card
-        its float32 corner table is the kernels' alone."""
-        return self.volume_packed is not None and self.filter == "linear"
+        its float32 corner table is the kernels' alone, as is an unpacked
+        scene's (``kernel_tables``)."""
+        return self.volume_packed is not None and self.filter == "linear" \
+            and not self.kernel_tables
 
     def sample_value(self, position):
         """The raw channel-0 value at ``position``, (...) (LAO's
@@ -141,10 +147,10 @@ class Scene:
 
     def sample_transfer(self, uv):
         """The 2D bilinear TF lookup at (..., 2) ``uv`` = (value, y), (...,
-        4): the packed (TH·TW, 16) TF table when the scene has one (its
-        dtype's values, float32 weights: never the ``tf_mxu`` rounding),
-        else the (TH, TW, 4) texture."""
-        if self.transfer_packed is not None:
+        4): the packed (TH·TW, 16) TF table when the scene has one for
+        its samplers (its dtype's values, float32 weights: never the
+        ``tf_mxu`` rounding), else the (TH, TW, 4) texture."""
+        if self.transfer_packed is not None and not self.kernel_tables:
             return sampling.sample_texture2d_packed(
                 self.transfer_packed, tuple(self.transfer.shape), uv)
         return sampling.sample_texture2d(self.transfer, uv)
@@ -291,7 +297,7 @@ def fit_scene(scene_template, volume=None, tf=None):
         volume_packed=sampling.pack_corner_volume(vol[..., :2]),
         transfer_packed=transfer_packed,
         transfer_1d=transfer_row(tf_tex, transfer_packed),
-        tracking_packed=None, tf_mxu=None)
+        tracking_packed=None, tf_mxu=None, kernel_tables=False)
 
 
 def make_scene(volume, transfer, camera: Optional[Any] = None,
@@ -315,7 +321,12 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     the CPU, and on the card, whose kernels sample corner tables only, it
     packs the volume and the TF in float32 (their values are the unpacked
     ones), while the ``tf_mxu`` weights and the tracking table keep
-    ``pack_dtype``, as ``vpt_tpu`` keeps them unpacked.  A volume whose
+    ``pack_dtype``, as ``vpt_tpu`` keeps them unpacked.  ``pack=False``
+    on the card keeps the samplers unpacked, as ``vpt_tpu`` does, and
+    gives the kernels float32 corner tables of the unpacked values
+    (``Scene.kernel_tables``), so a frame equals the plain frame; they
+    cost 8× the volume's memory (its channels 0:2) in float32, beside the
+    volume itself.  A volume whose
     filter is not ``"linear"`` is never packed for the samplers
     (``vpt_tpu``'s rule); on the card it gets float32 tables all the same,
     which only the kernels read.
@@ -380,11 +391,15 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
     volume = volume.to(device)
     transfer = transfer.to(device)
     table_dtype = pack_dtype
+    kernel_tables = False
     if pack is None:
         pack = volume.shape[0] * volume.shape[1] * volume.shape[2] \
             <= PACK_MAX_VOXELS
         if not pack and kernels_sample(device):
             pack, table_dtype = True, None
+    elif not pack and linear and kernels_sample(device):
+        # the samplers stay unpacked; the kernels read float32 tables
+        pack, table_dtype, kernel_tables = True, None, True
     if not linear:
         # packed tables implement the linear filter only; the kernels
         # filter a float32 table of the unpacked values
@@ -457,6 +472,7 @@ def make_scene(volume, transfer, camera: Optional[Any] = None,
         iso_clamp_min=float(iso_clamp_min),
         filter=vol_filter,
         tf_mxu=mxu,
+        kernel_tables=kernel_tables,
     )
 
 

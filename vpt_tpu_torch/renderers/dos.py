@@ -235,12 +235,18 @@ def composite_slices(state, scene: Scene, params: Params, table):
 
 
 def render_frame(state, scene: Scene, params: Params, seed, frame_number,
-                 *, ndc=None, sample_occlusion=None):
+                 *, ndc=None, sample_occlusion=None, window=None):
     """``steps`` slices of the sweep, in the state (a dict, updated in
-    place)."""
+    place).  ``window`` other than the whole image raises: a band of rows
+    needs the occlusion halo of its neighbours (``parallel/dos_halo.py``,
+    not ported yet)."""
     del seed, frame_number
     if ndc is not None or sample_occlusion is not None:
         raise _not_ported("DOS's sharding hooks (ndc=, sample_occlusion=)",
+                          "queue 1 item 16")
+    height = state["color"].shape[0]
+    if sampling.row_window(window, height) != (0, height):
+        raise _not_ported("DOS with a row window (window=)",
                           "queue 1 item 16")
     dos_sweep.sweep_frame(state, scene, params)
     return state

@@ -43,9 +43,10 @@ def schedule(params: Params, seed):
     return _march.jittered_schedule(params.slices, params.random, seed)
 
 
-def generate(scene: Scene, params: Params, seed, height: int, width: int):
+def generate(scene: Scene, params: Params, seed, height: int, width: int,
+             *, window=None):
     """One jittered front-to-back march per pixel, (H, W, 4)."""
-    tb, miss, start, end = _march.rays(scene, height, width)
+    tb, miss, start, end = _march.rays(scene, height, width, window=window)
     t0, step = schedule(params, seed)
     ray_step_length = _march.segment_length(start, end) * float(step)
     extinction = float(np.float32(params.extinction))
@@ -77,9 +78,11 @@ def integrate(state, frame, frame_number):
     state.copy_(state + (frame - state) * float(frame_weight(frame_number)))
 
 
-def render_frame(state, scene: Scene, params: Params, seed, frame_number):
+def render_frame(state, scene: Scene, params: Params, seed, frame_number,
+                 *, window=None):
     """generate + integrate, in place on ``state``."""
-    march_kernel.march_frame("eam", state, scene, params, seed, frame_number)
+    march_kernel.march_frame("eam", state, scene, params, seed,
+                             frame_number, window=window)
     return state
 
 

@@ -76,12 +76,14 @@ def march_interval(scene: Scene, params: Params, ray_from, direction):
     return tb
 
 
-def generate(scene: Scene, params: Params, seed, height: int, width: int):
+def generate(scene: Scene, params: Params, seed, height: int, width: int,
+             *, window=None):
     """The frame's nearest hit (position, t), (H, W, 4); −1 where none."""
     _, miss, start, end = _march.rays(
         scene, height, width,
         lambda ray_from, direction: march_interval(scene, params, ray_from,
-                                                   direction))
+                                                   direction),
+        window=window)
     first, step = schedule(params, seed)
     isovalue = float(np.float32(params.isovalue))
     seg = end - start
@@ -113,8 +115,10 @@ def integrate(state, frame, frame_number):
     state.copy_(torch.where(take_frame, frame, state))
 
 
-def render_frame(state, scene: Scene, params: Params, seed, frame_number):
-    march_kernel.march_frame("iso", state, scene, params, seed, frame_number)
+def render_frame(state, scene: Scene, params: Params, seed, frame_number,
+                 *, window=None):
+    march_kernel.march_frame("iso", state, scene, params, seed,
+                             frame_number, window=window)
     return state
 
 

@@ -91,11 +91,12 @@ def lao_taps(params: Params):
                      for t2 in t2s], np.float32).reshape(-1, 3)
 
 
-def pixel_random(height: int, width: int, device):
+def pixel_random(height: int, width: int, device, window=None):
     """The reference's stateless per-pixel random value ``rand(ndc ·
     (3.14, 2.71)).x`` (:60, 115), (H, W) float32: the same for every seed
-    and frame."""
-    ndc = sampling.pixel_ndc(height, width, device=device)
+    and frame.  ``window``: None, or ``(row0, full_height)``: the
+    ``height`` rows from ``row0`` of a ``full_height``-row image."""
+    ndc = sampling.pixel_ndc(height, width, device=device, window=window)
     return rng.rand_vec2(ndc * constant(SEED, torch.float32, device))[..., 0]
 
 
@@ -116,14 +117,17 @@ def _norm(v):
     return torch.sqrt(torch.clamp(_march.dot3(v, v), min=1e-20))[..., None]
 
 
-def setup(scene: Scene, params: Params, height: int, width: int):
+def setup(scene: Scene, params: Params, height: int, width: int,
+          window=None):
     """What every slice of a frame reads: the rays, the per-pixel random
     value and what it fixes (the first ``t``, the AO direction, the shadow
-    tap's offset and length), the light, the AO taps."""
+    tap's offset and length), the light, the AO taps.  ``window`` as in
+    :func:`pixel_random`."""
     check_params(params, scene)
     # the cube alone: vpt_tpu's LAO clamps to no box
-    _, miss, start, end = _march.rays(scene, height, width, cube_interval)
-    rx = pixel_random(height, width, scene.device)
+    _, miss, start, end = _march.rays(scene, height, width, cube_interval,
+                                      window)
+    rx = pixel_random(height, width, scene.device, window)
     rconst = random_constant(scene.device)
     light = light_of(scene, params)
     step = np.float32(1.0 / params.slices)
@@ -215,11 +219,13 @@ def finish(ctx, acc):
     return torch.where(ctx.miss[..., None], black, frame)
 
 
-def generate(scene: Scene, params: Params, seed, height: int, width: int):
+def generate(scene: Scene, params: Params, seed, height: int, width: int,
+             *, window=None):
     """One frame in plain PyTorch, (H, W, 4); the seed changes nothing
-    (the reference's rand has a constant seed)."""
+    (the reference's rand has a constant seed).  ``window`` as in
+    :func:`pixel_random`."""
     del seed
-    ctx = setup(scene, params, height, width)
+    ctx = setup(scene, params, height, width, window)
     acc = torch.zeros((height, width, 4), dtype=torch.float32,
                       device=scene.device)
     for i in range(params.slices):
@@ -227,10 +233,11 @@ def generate(scene: Scene, params: Params, seed, height: int, width: int):
     return finish(ctx, acc)
 
 
-def render_frame(state, scene: Scene, params: Params, seed, frame_number):
+def render_frame(state, scene: Scene, params: Params, seed, frame_number,
+                 *, window=None):
     """LAO's integrate replaces the accumulator with the frame (integrate
-    fragment:226), in place."""
-    lao_march.lao_frame(state, scene, params)
+    fragment:226), in place; ``window`` as in :func:`pixel_random`."""
+    lao_march.lao_frame(state, scene, params, window=window)
     return state
 
 

@@ -67,14 +67,18 @@ def photon_reset(state, ndc, scene: Scene, params: Params, inv_res):
 
 
 def reset(params: Params, height: int, width: int, scene: Scene = None,
-          seed=0.0):
+          seed=0.0, *, window=None):
     """MCM reset: seed every photon through the stochastic unprojection on
-    the scene's device; radiance starts at 1."""
+    the scene's device; radiance starts at 1.  ``window``: None, or
+    ``(row0, full_height)`` for the ``height`` rows from ``row0`` of a
+    ``full_height``-row image (``sampling.pixel_ndc``), equal to those
+    rows of the whole image's state."""
     if scene is None:
         raise ValueError("MCM reset needs the scene (camera rays)")
     dev = scene.device
-    ndc = sampling.pixel_ndc(height, width, device=dev)
-    inv_res = inverse_resolution(height, width, dev)
+    ndc = sampling.pixel_ndc(height, width, device=dev, window=window)
+    inv_res = inverse_resolution(sampling.row_window(window, height)[1],
+                                 width, dev)
     state = rng.seed_pixels(ndc, np.float32(seed))
     state, position, direction = photon_reset(state, ndc, scene, params,
                                               inv_res)
@@ -213,12 +217,14 @@ def uses_skip(state, scene) -> bool:
         and "cheb" in state
 
 
-def render_frame(state, scene: Scene, params: Params, seed, frame_number=0):
+def render_frame(state, scene: Scene, params: Params, seed, frame_number=0,
+                 *, window=None):
     """One progressive frame of ``params.steps`` events per pixel, updating
     ``state`` in place: the CUDA event kernel for CUDA state, the plain
-    PyTorch event loop for CPU state (kernels/mcm_event.py)."""
+    PyTorch event loop for CPU state (kernels/mcm_event.py).  ``window``:
+    the state's rows of the image, as in :func:`reset`."""
     del frame_number  # the seed alone selects the frame's streams
-    mcm_event.event_frame(state, scene, params, seed)
+    mcm_event.event_frame(state, scene, params, seed, window=window)
     return state
 
 

@@ -70,10 +70,13 @@ def skip_cell_size(scene) -> float:
     return min(1.0 / d, 1.0 / h, 1.0 / w)
 
 
-def generate(scene: Scene, params: Params, seed, height: int, width: int):
-    """One single-scattering sample per pixel, (H, W, 4)."""
+def generate(scene: Scene, params: Params, seed, height: int, width: int,
+             *, window=None):
+    """One single-scattering sample per pixel, (H, W, 4).  ``window``:
+    None, or ``(row0, full_height)``: the ``height`` rows from ``row0`` of
+    a ``full_height``-row image (``sampling.pixel_ndc``)."""
     dev = scene.device
-    ndc = sampling.pixel_ndc(height, width, device=dev)
+    ndc = sampling.pixel_ndc(height, width, device=dev, window=window)
     ray_from, ray_to = sampling.unproject(ndc, scene.mvp_inverse)
     ray = ray_to - ray_from
     dir_unit = ray / torch.sqrt(torch.clamp(_march.dot3(ray, ray),
@@ -182,8 +185,10 @@ def integrate(state, frame, frame_number):
     state.copy_(state + (frame - state) / n)
 
 
-def render_frame(state, scene: Scene, params: Params, seed, frame_number):
-    mcs_frame.mcs_frame(state, scene, params, seed, frame_number)
+def render_frame(state, scene: Scene, params: Params, seed, frame_number,
+                 *, window=None):
+    mcs_frame.mcs_frame(state, scene, params, seed, frame_number,
+                        window=window)
     return state
 
 

@@ -36,9 +36,10 @@ def schedule(params: Params, seed):
     return _march.frame_offset(seed), np.float32(1.0 / params.steps)
 
 
-def generate(scene: Scene, params: Params, seed, height: int, width: int):
+def generate(scene: Scene, params: Params, seed, height: int, width: int,
+             *, window=None):
     """The frame's per-pixel maximum alpha, (H, W); 0 on a miss."""
-    _, miss, start, end = _march.rays(scene, height, width)
+    _, miss, start, end = _march.rays(scene, height, width, window=window)
     offset, step = schedule(params, seed)
 
     def composite(val, t, color):
@@ -59,8 +60,10 @@ def integrate(state, frame, frame_number):
     torch.maximum(state, frame, out=state)
 
 
-def render_frame(state, scene: Scene, params: Params, seed, frame_number):
-    march_kernel.march_frame("mip", state, scene, params, seed, frame_number)
+def render_frame(state, scene: Scene, params: Params, seed, frame_number,
+                 *, window=None):
+    march_kernel.march_frame("mip", state, scene, params, seed,
+                             frame_number, window=window)
     return state
 
 

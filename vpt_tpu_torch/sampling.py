@@ -96,17 +96,37 @@ def unproject_rand(state, ndc, mvp_inverse, inverse_resolution, blur):
     return (state, *_unproject(near_xy, far_xy, mvp_inverse))
 
 
-def pixel_ndc(height, width, device="cpu"):
+def pixel_ndc(height, width, device="cpu", window=None):
     """NDC coordinates of pixel centers, (H, W, 2); row 0 is the bottom of
     the image (y up, OpenGL convention).  The true quotient on every device:
     CUDA divides by a Python scalar through its reciprocal, so the divisor
-    is a tensor (see ``rng.exponential``)."""
-    def centers(n):
-        i = torch.arange(n, dtype=torch.float32, device=device) + 0.5
+    is a tensor (see ``rng.exponential``).
+
+    ``window``: None for the whole image, or ``(row0, full_height)``: the
+    ``height`` rows from ``row0`` of a ``full_height``-row image, equal bit
+    for bit to those rows of ``pixel_ndc(full_height, width)``."""
+    row0, full_height = row_window(window, height)
+
+    def centers(first, count, n):
+        i = torch.arange(first, first + count, dtype=torch.float32,
+                         device=device) + 0.5
         return i / torch.full_like(i, n) * 2.0 - 1.0
 
-    yy, xx = torch.meshgrid(centers(height), centers(width), indexing="ij")
+    yy, xx = torch.meshgrid(centers(row0, height, full_height),
+                            centers(0, width, width), indexing="ij")
     return torch.stack([xx, yy], dim=-1)
+
+
+def row_window(window, height):
+    """``(row0, full_height)`` of a frame of ``height`` rows: ``window``
+    checked, or ``(0, height)`` for None (the whole image)."""
+    if window is None:
+        return 0, height
+    row0, full_height = (int(v) for v in window)
+    if row0 < 0 or row0 + height > full_height:
+        raise ValueError(f"rows [{row0}, {row0 + height}) do not lie in an "
+                         f"image of {full_height} rows")
+    return row0, full_height
 
 
 # ---------------------------------------------------------------------------

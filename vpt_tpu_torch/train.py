@@ -138,15 +138,18 @@ def _with_camera(scene, camera_matrices):
 
 
 def render_eam(volume_data, tf_texture, camera_matrices, params: eam.Params,
-               seed, height: int, width: int):
+               seed, height: int, width: int, window=None):
     """One differentiable EAM frame (the plain frame ``eam.generate``: the
     march kernel K6 has no gradient) of ``volume_data`` (D, H, W, C) under
     ``tf_texture`` (TH, TW, 4) through ``camera_matrices`` =
     (mvp_inverse, model_view, projection), on :func:`eam_scene`.  Under
     ``torch.no_grad`` the same frame samples as a rendering scene (K3 and
-    the K1 TF lookup on the card), with the same values."""
+    the K1 TF lookup on the card), with the same values.  ``window``:
+    None, or ``(row0, full_height)``: the ``height`` rows from ``row0`` of
+    a ``full_height``-row image (a data-parallel rank's rows,
+    ``parallel.shard``)."""
     return eam.generate(eam_scene(volume_data, tf_texture, camera_matrices),
-                        params, seed, height, width)
+                        params, seed, height, width, window=window)
 
 
 @dataclasses.dataclass
