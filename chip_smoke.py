@@ -2,7 +2,8 @@
 MCS, DOS, LAO), its ``cli render``, its differentiable MCM and MCS fits,
 its ``cli fit`` (EAM, ISO depth, MCM with the occlusion completion), its
 ``cli view`` server, its ``cli animate``, its config-3 recipe, its
-data-parallel ``parallel`` package and its three demos once on one GPU.
+``parallel`` package (rows over ranks, the volume in halo slabs, DOS's
+row bands, the config-4 recipe) and its three demos once on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path [--part frames|fetch|sweep] TREE ...
@@ -82,6 +83,17 @@ prints no result:
    each band with its ``window=(row0, 512)``, stacked and held against
    the unwindowed frame, bit for bit (K10 within its 99.99%-within-1e-6
    bound);
+9b. the spatially sharded instances against their plain twins
+   (:func:`phase_slab_fetch`, :func:`phase_halo_event`,
+   :func:`phase_dos_band`), each timed beside the kernel it splits: K3's
+   slab instance (4 slabs of 256² positions on the headline and a
+   float32 blobs 128³, bit for bit to the plain twin and summed to the
+   whole-table fetch; interleaved and unmasked slabs refused on the card),
+   K5's halo instance
+   (512² frames on 2 slabs against the plain loop over the HaloScene and
+   on one slab against the whole-frame K5, bit for bit), K9's band
+   instance (two bands of a 512² frame against the plain band, bit for
+   bit, and the cooperative frame);
 10. each renderer through the user's entry points at 512²
    (``make_renderer``, 10 frames, a DOS sweep, ``display``, the
    ``reinhard`` tone mapper) on the headline scene, EAM also on the 256³
@@ -214,15 +226,21 @@ prints no result:
    seed=3)``, ``gray_ramp(alpha_scale=0.9)``, MCM extinction 30,
    anisotropy 0.2, steps 8, 1024²) in a world of one over ``nccl``
    (``parallel.distributed.initialize`` on a free local port):
-   ``make_mesh``, ``sharded_scene``, ``place_state``, 32 frames of
-   ``shard_render_frame`` (K5), ``shard_display`` and ``reinhard`` (K2),
-   one frame on the volume z-sharded between frames against the
-   replicated frame, two ``overlap.bucketed_train_step`` steps of the
-   data-parallel EAM fit at ``path fit eam``'s size (K3, K4; the second
-   timed), ``save_sharded(wait=False)`` / ``load_sharded`` of the state;
-   the frame time, events/s, the step time and the peak memory; after
-   the counts are read, one ``shard_render_frame`` from the reset state
-   against the plain loop (``_frames_agree``'s bounds) and the 1024²
+   ``make_mesh``, ``place_state``, 32 frames of
+   ``halo.sharded_render_frame`` on one slab (K5's halo instance),
+   ``shard_display`` and ``reinhard`` (K2), one frame on the volume
+   z-sharded between frames against the replicated frame, a 1024² DOS
+   frame through ``dos_halo`` on one band (K9's band instance), two
+   ``overlap.bucketed_train_step`` steps of the data-parallel EAM fit at
+   ``path fit eam``'s size (K3, K4; the second timed),
+   ``save_sharded(wait=False)`` / ``load_sharded`` of the state, and the
+   config-4 recipe's fit phase at 512³ / 1024² (3 SGD steps of
+   ``halo_grad.make_sharded_grad``: K3's slab instance, K4); the frame
+   time, events/s, the step times and the peak memories; after the
+   counts are read, a halo frame against ``shard_render_frame``'s K5
+   frame (bit for bit) and both timed in turns, one halo frame from the
+   reset state against the plain loop (``_frames_agree``'s bounds), the
+   DOS band frame against the cooperative K9 frame and the 1024²
    display's K2 against ``tonemap_plain``; then ``path parallel gloo``
    (:func:`phase_parallel_gloo`): two spawned ranks on the card over
    ``gloo`` (its collectives take CUDA tensors), MCM 512² × 4 frames with
@@ -231,7 +249,10 @@ prints no result:
    world-one frames, and ``shard.eam_value_and_grad`` with one
    ``shard.data_parallel_train_step`` (rows over ``data``: an all-reduce;
    z slabs over ``space``: a reduce-scatter) against one process's
-   ``train.render_eam`` gradient; ``path demos``
+   ``train.render_eam`` gradient, and with ``space = 2`` the halo MCM
+   frames of a 256³ volume (bit for bit to one process's K5 frames), the
+   sharded EAM gradient and a DOS frame on two bands through
+   ``dos_halo``; ``path demos``
    (:func:`phase_demos_path`): ``render_demo``, ``inverse_demo`` and
    ``depth_fit_demo`` at their default sizes, every launch counter at 0
    before each, then ``render_demo``'s eight images against their plain
@@ -572,7 +593,9 @@ def launch_counts():
     return tuple(m.LAUNCHES for m in (corner_gather, corner_scatter,
                                       mcm_event, tf1d, tonemap_kernel, march,
                                       iso_shade, mcs_frame, dos_sweep,
-                                      lao_march))
+                                      lao_march)) \
+        + (mcm_event.HALO_LAUNCHES, corner_gather.SLAB_LAUNCHES,
+           dos_sweep.BAND_LAUNCHES)
 
 
 def order_bound(counts, abs_sums):
@@ -4806,29 +4829,45 @@ def eam_fit_views(truth, count=4, res=256):
 def phase_parallel_path(dev, counters):
     """``path parallel``: config 4's full shapes on one card, in a world
     of one over ``nccl``: ``distributed.initialize``, ``make_mesh``,
-    ``sharded_scene``, ``place_state``, 32 frames of
-    ``shard_render_frame`` (K5), ``shard_display`` and ``reinhard`` (K2);
-    one frame on the volume z-sharded between frames against the
-    replicated frame; one ``bucketed_train_step`` of the data-parallel EAM
-    fit at ``path fit eam``'s size (K3, K4); ``save_sharded`` /
-    ``load_sharded`` of the state.  Every launch counter at 0 first.
-    Prints the frame time, events/s, the step time and the peak memory.
-    After the counts are read: one frame from the reset state through
-    ``shard_render_frame`` against the plain loop, and the display's K2
-    against ``tonemap_plain``.  Returns the launches and those two
-    comparisons' max abs errors by kernel."""
+    ``place_state``, 32 frames of ``halo.sharded_render_frame`` on one
+    slab (K5's halo instance), ``shard_display`` and ``reinhard`` (K2);
+    one frame on the volume z-sharded between frames
+    (``sharded_scene(shard_volume=True)``) against the replicated frame;
+    one ``bucketed_train_step`` of the data-parallel EAM fit at ``path fit
+    eam``'s size (K3, K4); ``save_sharded`` / ``load_sharded`` of the
+    state; a DOS frame of the 512³ scene at 1024² through
+    ``dos_halo.sharded_render_frame`` on one band (K9's band instance);
+    and phase 2 of the config-4 recipe (``config4_pod512.fit_phase``: the
+    sharded MCM gradient of the 512³ volume at 1024², K3's slab instance
+    and K4, 3 SGD steps with ``rehalo``: finite losses and a slab that
+    moved; whether the loss descends is printed, not required, since
+    vpt_tpu's recipe fails that check at its own default size).  Every
+    launch counter at 0 first.  Prints the frame time, events/s, the
+    step times and the peak memory.  After the counts are read: a halo
+    frame against ``shard_render_frame``'s replicated K5 frame (bit for
+    bit) and both timed in turns at 1024²; one halo frame from the reset
+    state against the plain loop; the DOS band frame against the plain
+    band (``band_slice_plain``, bit for bit) and the cooperative K9 frame;
+    K3's slab instance and K4 at the fit's shapes
+    (:func:`slab_kernels_agree`); the display's K2 against
+    ``tonemap_plain``.
+    Returns the launches and those comparisons' max abs errors by
+    kernel."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from vpt_tpu_torch import tonemap, transfer, volume
+    from vpt_tpu_torch.examples import config4_pod512
     from vpt_tpu_torch.kernels import tonemap_kernel
-    from vpt_tpu_torch.parallel import (distributed, make_mesh,
-                                        place_state, shard_display,
-                                        shard_render_frame, sharded_scene)
+    from vpt_tpu_torch.parallel import (distributed, gather_state,
+                                        make_mesh, place_state,
+                                        shard_display, shard_render_frame,
+                                        sharded_scene)
+    from vpt_tpu_torch.parallel import dos_halo, halo
     from vpt_tpu_torch.parallel import mesh as meshmod
     from vpt_tpu_torch.parallel import overlap, shard
-    from vpt_tpu_torch.renderers import make_scene, mcm
+    from vpt_tpu_torch.renderers import dos, make_scene, mcm
     from vpt_tpu_torch.runtime import checkpoint
 
     t_all = time.perf_counter()
@@ -4846,40 +4885,52 @@ def phase_parallel_path(dev, counters):
                            transfer.gray_ramp(alpha_scale=0.9))
         torch.cuda.synchronize()
         scene_s = time.perf_counter() - t0
+        table_bytes = scene.volume_packed.numel() * 4
         params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
         for module in counters.values():
             module.LAUNCHES = 0
-        sc = sharded_scene(scene, grid)
-        whole = mcm.reset(params, PARALLEL_RES, PARALLEL_RES, sc)
+        halo.COLLECTIVES.clear()
+        whole = mcm.reset(params, PARALLEL_RES, PARALLEL_RES, scene)
         state = place_state(whole, grid)
-        frame = shard_render_frame(mcm, grid, whole)
+        frame_fn, slabs = halo.sharded_render_frame(mcm, grid, scene, 1,
+                                                    whole)
         rs = np.random.default_rng(4)
         seeds = [np.float32(rs.random(dtype=np.float32))
                  for _ in range(PARALLEL_SPP)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for n, seed in enumerate(seeds, 1):
-            frame(state, sc, params, seed, n)
+            frame_fn(state, slabs, params, seed, n)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        shown = shard_display(mcm, grid, whole)(state, sc, params)
+        shown = shard_display(mcm, grid, whole)(state, scene, params)
         image = tonemap.ToneMapper("reinhard")(shown)
         torch.cuda.synchronize()
         _check_display("path parallel", shown, image, PARALLEL_RES)
         events = PARALLEL_RES * PARALLEL_RES * params.steps * PARALLEL_SPP
         samples = float(state["samples"].mean())
         check(samples > 1.0, f"path parallel: {samples} samples a pixel")
+        target = gather_state(state["radiance"], grid, PARALLEL_RES)
 
         # the volume z-sharded between frames: the replicated frame
-        slabs = sharded_scene(scene, grid, shard_volume=True)
+        frame = shard_render_frame(mcm, grid, whole)
+        zslabs = sharded_scene(scene, grid, shard_volume=True)
         a, b = _clone(state), _clone(state)
-        frame(a, sc, params, np.float32(0.77), PARALLEL_SPP + 1)
-        frame(b, slabs, params, np.float32(0.77), PARALLEL_SPP + 1)
+        frame(a, scene, params, np.float32(0.77), PARALLEL_SPP + 1)
+        frame(b, zslabs, params, np.float32(0.77), PARALLEL_SPP + 1)
         torch.cuda.synchronize()
         for k in a:
             check(torch.equal(a[k], b[k]), f"path parallel: the z-sharded "
                   f"frame's {k} differs from the replicated one")
-        del slabs, a, b
+        del zslabs, a, b
+
+        # DOS at 1024² on one band, through the halo exchange
+        dparams = dos.Params()
+        dwhole = dos.reset(dparams, PARALLEL_RES, PARALLEL_RES, scene)
+        dframe, dhalo = dos_halo.sharded_render_frame(
+            grid, scene, dparams, PARALLEL_RES, PARALLEL_RES, donate=False)
+        band = dframe(place_state(dwhole, grid), scene, dparams, 0.0, 1)
+        torch.cuda.synchronize()
 
         # the data-parallel EAM step, its gradient bucketed over data
         truth = volume.blobs_volume(64, seed=1).data
@@ -4930,21 +4981,79 @@ def phase_parallel_path(dev, counters):
             check(torch.equal(loaded[k], state[k]),
                   f"path parallel: checkpoint leaf {k} differs")
         state_bytes = sum(v.numel() * 4 for v in state.values())
+        forward_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # phase 2 of the config-4 recipe: the sharded gradient of the 512³
+        # volume on one slab, 3 SGD steps
+        del slabs, loaded
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        halo.COLLECTIVES.clear()
+        losses, fit_s, fit_coll, fitted = config4_pod512.fit_phase(
+            grid, scene, params, target, 3, 4, 1, "cuda",
+            say=lambda *a: print("path parallel config 4 fit:", *a,
+                                 flush=True))
+        fit_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(np.isfinite(losses)), f"path parallel: fit losses "
+              f"{losses}")
+        moved = float((fitted[0, :-1] - torch.clamp(
+            scene.volume * 0.6, 0.0, 1.0)).abs().max())
+        check(bool(torch.isfinite(fitted).all()) and moved > 0.0,
+              "path parallel: the fit's SGD steps left the slab as it was")
+        # the recipe's closing check (losses[-1] < losses[0]) is read, not
+        # required: vpt_tpu's recipe fails it at its own default size (a
+        # fixed seed's MC value is stepwise constant in the voxels;
+        # ROADMAP queue 3)
+        descended = losses[-1] < losses[0]
+        del fitted
         launches = {k: m.LAUNCHES for k, m in counters.items()}
-        check(launches["mcm_event"] == PARALLEL_SPP + 2,
+        check(launches["mcm_event"] == 2,
               f"path parallel: {launches['mcm_event']} K5 launches")
+        check(launches["mcm_event_halo"]
+              == (params.steps + 1) * PARALLEL_SPP,
+              f"path parallel: {launches['mcm_event_halo']} K5 halo "
+              "launches")
         check(launches["tonemap"] == 1, "path parallel: K2 launches")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-        # K5 at config 4's shapes against the plain loop, from the reset
-        # state, through shard_render_frame; K2's 1024² display against
-        # its plain tone map (comparison launches: not the path's)
+        # the halo frame against shard_render_frame's replicated K5 frame,
+        # and both timed in turns; against the plain loop from the reset
+        # state; DOS's band against the cooperative frame; K2's display
+        # against its plain tone map (comparison launches: not the path's)
+        slabs = halo.place_scene_slabs(scene, 1, 0)
+        a, b = _clone(state), _clone(state)
+        frame_fn(a, slabs, params, np.float32(0.91), PARALLEL_SPP + 1)
+        frame(b, scene, params, np.float32(0.91), PARALLEL_SPP + 1)
+        torch.cuda.synchronize()
+        for k in a:
+            check(torch.equal(a[k], b[k]), f"path parallel: the halo "
+                  f"frame's {k} differs from shard_render_frame's K5 frame")
+        turns = in_turns({
+            "halo": lambda: frame_fn(a, slabs, params, np.float32(0.5), 2),
+            "whole": lambda: frame(b, scene, params, np.float32(0.5), 2)},
+            10)
+
         def sharded(st, seed):
-            frame(st, sc, params, seed, 1)
+            frame_fn(st, slabs, params, seed, 1)
 
-        agree, k5_err = _frames_agree(sc, params, PARALLEL_RES, PARALLEL_RES,
-                                      1, "path parallel config 4",
+        agree, k5_err = _frames_agree(scene, params, PARALLEL_RES,
+                                      PARALLEL_RES, 1,
+                                      "path parallel config 4 halo",
                                       render=sharded)
+        plain_band = band_frame_plain(
+            place_state(dwhole, grid), scene, dparams, (0, PARALLEL_RES),
+            dos_halo._exchange(grid, "data", dhalo, 0))
+        torch.cuda.synchronize()
+        for k in band:
+            check(torch.equal(band[k], plain_band[k]), f"path parallel: the "
+                  f"1024^2 DOS band's {k} differs from band_slice_plain's")
+        del plain_band
+        coop = dos.reset(dparams, PARALLEL_RES, PARALLEL_RES, scene)
+        dos.render_frame(coop, scene, dparams, 0.0, 1)
+        torch.cuda.synchronize()
+        k9_err, k9_share = dos_bands_agree("path parallel", band, coop,
+                                           3e-5, 0.9)
+        slab_check = slab_kernels_agree(
+            scene, event_positions(state, scene, params, np.float32(0.3)))
         plain_image = tonemap_kernel.tonemap_plain(shown, "reinhard")
         torch.cuda.synchronize()
         k2_err = float((image - plain_image).abs().max())
@@ -4954,29 +5063,50 @@ def phase_parallel_path(dev, counters):
               f"path parallel: K2's {PARALLEL_RES}^2 display max abs err "
               f"{k2_err} against tonemap_plain")
         print(f"path parallel: config 4 full ({PARALLEL_VOLUME}^3 blobs, "
-              f"float32 tables {scene.volume_packed.numel() * 4} bytes, "
-              f"built in {scene_s:.3f} s), MCM {PARALLEL_RES}^2 steps 8 x "
-              f"{PARALLEL_SPP} frames through shard_render_frame: "
-              f"{run_s * 1e3 / PARALLEL_SPP:.4f} ms a frame (host clock), "
-              f"{events / run_s:.6g} events/s, mean samples {samples:.4f}; "
-              f"the z-sharded frame equal to the replicated one; from the "
-              f"reset state against the plain loop: samples agree {agree}, "
-              f"radiance max abs err {k5_err}; K2's display against "
+              f"float32 tables {table_bytes} bytes, a slab's {table_bytes} "
+              f"on one slab, built in {scene_s:.3f} s), MCM "
+              f"{PARALLEL_RES}^2 steps 8 x {PARALLEL_SPP} frames through "
+              f"halo.sharded_render_frame: {run_s * 1e3 / PARALLEL_SPP:.4f} "
+              f"ms a frame (host clock), {events / run_s:.6g} events/s, "
+              f"mean samples {samples:.4f}; in turns a halo frame "
+              f"{turns['halo']:.4f} ms ({params.steps + 1} launches, "
+              f"{halo.COLLECTIVES.get('all_reduce', 0)} all-reduces on one "
+              f"slab) against shard_render_frame's K5 frame "
+              f"{turns['whole']:.4f} ms, equal bit for bit; the z-sharded "
+              f"frame equal to the replicated one; from the reset state "
+              f"against the plain loop: samples agree {agree}, radiance max "
+              f"abs err {k5_err}; DOS 1024^2 through dos_halo (halo "
+              f"{dhalo} rows, one band) equal to band_slice_plain's bit for "
+              f"bit, against the cooperative K9 frame max abs err {k9_err} "
+              f"(bound 3e-5), {k9_share:.6f} of the values within 1e-6 "
+              f"(bound 0.9); {slab_check['text']}; K2's display against "
               f"tonemap_plain max abs err {k2_err} (atol 1e-6, rtol 1e-6); "
-              f"bucketed "
-              f"EAM step (64^3, 4 views 256^2, 64 slices) {step_s[0]:.4f} s "
-              f"first, {step_s[1]:.4f} s second, {k3} K3 and {k4} K4 a "
-              f"step, loss {float(loss):.6g}; save_sharded "
+              f"bucketed EAM step (64^3, 4 views 256^2, 64 slices) "
+              f"{step_s[0]:.4f} s first, {step_s[1]:.4f} s second, {k3} K3 "
+              f"and {k4} K4 a step, loss {float(loss):.6g}; save_sharded "
               f"{state_bytes} bytes {save_s:.3f} s ({issued_s:.3f} s to "
               f"return), load_sharded {load_s:.3f} s; peak memory "
-              f"{peak:.3f} GiB; launches: "
+              f"{forward_peak:.3f} GiB; config 4 fit ({PARALLEL_VOLUME}^3, "
+              f"{PARALLEL_RES}^2, 2 frames, 4 buckets, one slab): losses "
+              f"{', '.join(f'{x:.9g}' for x in losses)}, "
+              f"{', '.join(f'{x:.3f}' for x in fit_s)} s a step, "
+              f"descending {descended} (read, not required: ROADMAP queue "
+              f"3), the slab moved up to {moved:.3g}, "
+              f"collectives a step {fit_coll}, peak memory {fit_peak:.3f} "
+              f"GiB; launches: "
               + ", ".join(f"{k} {v}" for k, v in launches.items())
               + f"; {time.perf_counter() - t_all:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
-    del scene, sc, state, loaded
+    del scene, state, slabs, a, b
     torch.cuda.empty_cache()
-    return launches, {"mcm_event": k5_err, "tonemap": k2_err}
+    return launches, {"mcm_event": k5_err, "tonemap": k2_err,
+                      "mcm_event_halo": k5_err, "dos_band": k9_err,
+                      "corner_gather_slab": slab_check["k3_err"],
+                      "corner_scatter": slab_check["k4_err"]}, {
+        "halo_ms_1024": turns["halo"], "whole_ms_1024": turns["whole"],
+        "fit_losses": losses, "fit_step_s": fit_s,
+        "fit_peak_gib": fit_peak, "forward_peak_gib": forward_peak}
 
 
 #: the two-rank check's image and frames, on the one card over gloo
@@ -5073,6 +5203,100 @@ def gloo_fit(mesh, shard_volume):
     return float(loss), grad, stepped, float(step_loss)
 
 
+#: the two-rank halo check: the volume, the image and the frames
+GLOO_HALO_VOLUME, GLOO_HALO_RES, GLOO_HALO_FRAMES = 256, 512, 2
+
+
+def gloo_halo(mesh, scene):
+    """The two-rank check's halo frames (config 4's Params) on ``mesh``'s
+    ``space`` slabs, gathered over ``data``; with ``mesh`` None one
+    process's K5 frames on the whole scene."""
+    import numpy as np
+
+    from vpt_tpu_torch.parallel import gather_state, place_state
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.parallel.mesh import axis_size
+    from vpt_tpu_torch.renderers import mcm
+
+    params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
+    state = mcm.reset(params, GLOO_HALO_RES, GLOO_HALO_RES, scene)
+    if mesh is None:
+        for n in range(1, GLOO_HALO_FRAMES + 1):
+            mcm.render_frame(state, scene, params, np.float32(0.1 * n), n)
+        return state
+    frame_fn, slabs = halo.sharded_render_frame(
+        mcm, mesh, scene, axis_size(mesh, "space"), state)
+    rows = place_state(state, mesh)
+    for n in range(1, GLOO_HALO_FRAMES + 1):
+        frame_fn(rows, slabs, params, np.float32(0.1 * n), n)
+    return gather_state(rows, mesh, GLOO_HALO_RES)
+
+
+def gloo_eam_scene(truth_seed=2):
+    """The two-rank gradient check's scene: ``gloo_fit``'s 64³ volume,
+    TF and view as a Scene (``halo_grad`` reads the camera from it), its
+    target and Params."""
+    import dataclasses
+
+    from vpt_tpu_torch import volume
+    from vpt_tpu_torch.renderers import make_scene
+
+    truth = volume.blobs_volume(64, seed=1).data
+    tf, params, views, targets = eam_fit_views(truth, count=1,
+                                               res=GLOO_FIT_RES)
+    vol = volume.blobs_volume(64, seed=truth_seed).data
+    mvp_inverse, model_view, projection = views[0]
+    scene = dataclasses.replace(make_scene(vol, tf, pack=False),
+                                mvp_inverse=mvp_inverse,
+                                model_view=model_view, projection=projection)
+    return scene, targets[0], params
+
+
+def gloo_halo_grad(mesh):
+    """The sharded EAM gradient (``halo_grad.make_sharded_grad`` with
+    ``eam.generate`` as the estimator) of ``gloo_eam_scene`` on ``mesh``'s
+    ``space`` slabs: the loss and the whole gradient, joined."""
+    import numpy as np
+
+    from vpt_tpu_torch.parallel import shard
+    from vpt_tpu_torch.parallel.halo_grad import (make_sharded_grad,
+                                                  place_slabs)
+    from vpt_tpu_torch.parallel.mesh import axis_size
+    from vpt_tpu_torch.renderers import eam
+
+    scene, target, params = gloo_eam_scene()
+    slabs = axis_size(mesh, "space")
+
+    def expected(sc, p, h, w, frames, seed0=0.0, score_floor=None):
+        return eam.generate(sc, p, np.float32(seed0), h, w)
+
+    grad_fn = make_sharded_grad(mesh, scene, params, GLOO_FIT_RES,
+                                GLOO_FIT_RES, 1, slabs, expected=expected,
+                                num_buckets=2)
+    loss, body = grad_fn(place_slabs(scene.volume, mesh, slabs), target,
+                         0.0)
+    return float(loss), shard.gather_blocks(body, slabs, mesh, ("space",)
+                                            ).reshape(scene.volume.shape)
+
+
+def gloo_dos(mesh, scene):
+    """One DOS frame (default Params, 512²) through
+    ``dos_halo.sharded_render_frame`` on ``mesh``'s ``data`` bands,
+    gathered, and the halo width; with ``mesh`` None one process's
+    cooperative K9 frame."""
+    from vpt_tpu_torch.parallel import dos_halo, gather_state, place_state
+    from vpt_tpu_torch.renderers import dos
+
+    params = dos.Params()
+    state = dos.reset(params, GLOO_RES, GLOO_RES, scene)
+    if mesh is None:
+        return dos.render_frame(state, scene, params, 0.0, 1), 0
+    frame_fn, width = dos_halo.sharded_render_frame(mesh, scene, params,
+                                                    GLOO_RES, GLOO_RES)
+    rows = frame_fn(place_state(state, mesh), scene, params, 0.0, 1)
+    return gather_state(rows, mesh, GLOO_RES), width
+
+
 def gloo_rank(rank, world, store, out):
     """One rank of the two-rank check: a ``gloo`` group whose collectives
     take the card's tensors; rank 0 writes the gathered frames to
@@ -5097,13 +5321,37 @@ def gloo_rank(rank, world, store, out):
         # the data-parallel EAM step: all-reduced over data, and
         # reduce-scattered into z slabs over space
         fits = {"rows": gloo_fit(rows, False), "slabs": gloo_fit(slabs, True)}
+        # the spatially sharded half: halo frames on 2 slabs of a 256³
+        # scene, the sharded EAM gradient on 2 slabs, DOS on 2 bands
+        from vpt_tpu_torch import transfer, volume
+        from vpt_tpu_torch.kernels import dos_sweep
+        from vpt_tpu_torch.parallel import halo
+        from vpt_tpu_torch.renderers import make_scene
+
+        mcm_event.HALO_LAUNCHES = dos_sweep.BAND_LAUNCHES = 0
+        halo.COLLECTIVES.clear()
+        big = make_scene(volume.blobs_volume(GLOO_HALO_VOLUME, seed=3),
+                         transfer.gray_ramp(alpha_scale=0.9))
+        halo_state = gloo_halo(slabs, big)
+        del big
+        halo_launches = mcm_event.HALO_LAUNCHES
+        grad = gloo_halo_grad(slabs)
+        dos_state, dos_halo_rows = gloo_dos(rows, scene)
+        collectives = dict(halo.COLLECTIVES)
         torch.cuda.synchronize()
         if rank == 0:
             torch.save({"state": {k: v.cpu() for k, v in state.items()},
                         "image": image.cpu(), "k5": k5,
                         "fits": {k: tuple(x.cpu() if torch.is_tensor(x)
                                           else x for x in v)
-                                 for k, v in fits.items()}}, out)
+                                 for k, v in fits.items()},
+                        "halo": {k: v.cpu() for k, v in halo_state.items()},
+                        "halo_launches": halo_launches,
+                        "halo_grad": (grad[0], grad[1].cpu()),
+                        "dos": {k: v.cpu() for k, v in dos_state.items()},
+                        "dos_halo_rows": dos_halo_rows,
+                        "band_launches": dos_sweep.BAND_LAUNCHES,
+                        "collectives": collectives}, out)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -5114,19 +5362,43 @@ def phase_parallel_gloo(dev):
     CUDA tensors): the MCM frames with their rows split in two and an EAM
     frame on the volume z-sharded over ``space``, assembled, against the
     world-one frames of this process, bit for bit; the data-parallel EAM
-    gradient and step (:func:`gloo_fit`) against this process's."""
+    gradient and step (:func:`gloo_fit`) against this process's; the
+    spatially sharded half with ``space`` = 2 (every collective runs): the
+    halo MCM frames (:func:`gloo_halo`, 256³ at 512²) against one
+    process's K5 frames bit for bit, the sharded EAM gradient
+    (:func:`gloo_halo_grad`) against ``train.render_eam``'s within 1e-5 of
+    its largest entry, and a DOS frame through ``dos_halo`` on ``data`` =
+    2 (:func:`gloo_dos`) against the cooperative K9 frame within 1e-6
+    (:func:`dos_bands_agree`)."""
     import tempfile
 
+    import numpy as np
     import torch
     import torch.multiprocessing as mp
+
+    from vpt_tpu_torch import train, transfer, volume
+    from vpt_tpu_torch.renderers import make_scene
 
     t0 = time.perf_counter()
     scene = gloo_scene()
     want_state, want_image = gloo_frames(None, scene, False)
     want_loss, want_grad, want_step = (
         x.cpu() if torch.is_tensor(x) else x for x in gloo_fit(None, False))
+    want_dos, _ = gloo_dos(None, scene)
+    big = make_scene(volume.blobs_volume(GLOO_HALO_VOLUME, seed=3),
+                     transfer.gray_ramp(alpha_scale=0.9))
+    want_halo = gloo_halo(None, big)
+    del big
+    escene, etarget, eparams = gloo_eam_scene()
+    leaf = escene.volume.clone().requires_grad_(True)
+    cams = (escene.mvp_inverse, escene.model_view, escene.projection)
+    eloss = train.mse_rgb(train.render_eam(
+        leaf, escene.transfer, cams, eparams, np.float32(0.0), GLOO_FIT_RES,
+        GLOO_FIT_RES), etarget)
+    egrad, = torch.autograd.grad(eloss, leaf)
+    eloss, egrad = float(eloss.detach()), egrad.cpu()
     torch.cuda.synchronize()
-    del scene
+    del scene, escene, leaf
     torch.cuda.empty_cache()
     folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "smoke")
@@ -5164,6 +5436,37 @@ def phase_parallel_gloo(dev):
               f"gradient max abs err {errs[1]} (bound {grad_bound})")
         check(errs[2] <= step_bound, f"path parallel gloo: the {name} SGD "
               f"step's volume max abs err {errs[2]} (bound {step_bound})")
+    for k, v in want_halo.items():
+        check(torch.equal(got["halo"][k], v.cpu()),
+              f"path parallel gloo: the halo frame's {k} (2 slabs) differs "
+              "from one process's K5 frame")
+    check(got["halo_launches"] == (8 + 1) * GLOO_HALO_FRAMES,
+          f"path parallel gloo: {got['halo_launches']} K5 halo launches")
+    hloss, hgrad = got["halo_grad"]
+    hscale = float(egrad.abs().max())
+    herr = float((hgrad - egrad).abs().max())
+    check(hscale > 0.0 and herr <= 1e-5 * hscale,
+          f"path parallel gloo: the sharded EAM gradient max abs err {herr} "
+          f"(bound {1e-5 * hscale})")
+    check(abs(hloss - eloss) <= 1e-6 * max(abs(eloss), 1e-30) + 1e-9,
+          f"path parallel gloo: the sharded EAM loss {hloss} against "
+          f"{eloss}")
+    derr, dshare = dos_bands_agree("path parallel gloo", got["dos"],
+                                   want_dos, 1e-6, 1.0)
+    check(got["band_launches"] > 0, "path parallel gloo: no K9 band launch")
+    print(f"path parallel gloo: halo MCM {GLOO_HALO_VOLUME}^3 at "
+          f"{GLOO_HALO_RES}^2 x {GLOO_HALO_FRAMES} frames on 2 slabs "
+          f"({got['halo_launches']} K5 halo launches on rank 0) equal bit "
+          f"for bit to one process's K5 frames; the sharded EAM gradient "
+          f"(64^3 on 2 slabs, 2 buckets, one {GLOO_FIT_RES}^2 view) against "
+          f"train.render_eam's: loss err {abs(hloss - eloss):.3g}, gradient "
+          f"max abs err {herr:.3g} (bound {1e-5 * hscale:.3g}); DOS "
+          f"{GLOO_RES}^2 through dos_halo on 2 bands (halo "
+          f"{got['dos_halo_rows']} rows, {got['band_launches']} K9 band "
+          f"launches on rank 0) against the cooperative K9 frame max abs "
+          f"err {derr:.3g} (bound 1e-6), {dshare:.6f} within 1e-6; "
+          f"collectives on rank 0 "
+          f"{got['collectives']}", flush=True)
     print(f"path parallel gloo: 2 ranks on one card over gloo (CUDA "
           f"tensors): MCM {GLOO_RES}^2 x {GLOO_FRAMES} frames, rows split "
           f"in two ({got['k5']} K5 launches on rank 0), and an EAM frame on "
@@ -5179,6 +5482,450 @@ def phase_parallel_gloo(dev):
           f"{fit_errs['rows'][2]:.3g} / {fit_errs['slabs'][2]:.3g} (bounds "
           f"1e-6, {grad_bound:.3g}, {step_bound:.3g}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+class LaunchCounter:
+    """A counter of launches kept under another name in a module (a
+    kernel's second instance, e.g. ``mcm_event.HALO_LAUNCHES``), with the
+    ``LAUNCHES`` attribute the phases set to 0 and read."""
+
+    def __init__(self, module, name):
+        self._module, self._name = module, name
+
+    @property
+    def LAUNCHES(self):  # noqa: N802 — the modules' counter name
+        return getattr(self._module, self._name)
+
+    @LAUNCHES.setter
+    def LAUNCHES(self, value):  # noqa: N802
+        setattr(self._module, self._name, value)
+
+
+#: the slab fetch's positions (256² photons) and slabs
+SLAB_POSITIONS, SLAB_COUNT = 256 * 256, 4
+
+
+def halo_frame_bytes(steps, skip):
+    """Bytes a pixel of a frame of ``steps`` events over a HaloScene, the
+    least that any split of the event around the all-reduce moves: the
+    photon's state (56 bytes: position, direction, transmittance,
+    radiance, bounces, samples; 60 with cheb-skip) in and out once an
+    event, plus the value (out before the all-reduce, in after) and the
+    stream (out, in) across it; the frame's first flight reads only the
+    position, direction (and cheb), its last interaction writes no value
+    or stream.  K5's halo instance moves exactly this (csrc/mcm_event.cu,
+    ArgsHalo: the interaction redraws the flight from the saved stream
+    instead of storing the tentative position or the free path)."""
+    state = 60 if skip else 56
+    first = (28 if skip else 24) + 8
+    return first + (steps - 1) * 2 * (state + 8) + (state + 8) + state
+#: float32 operations of a slab fetch beyond the whole fetch's (the
+#: owner's division, clip and compare, the local plane)
+SLAB_OPS = 40
+
+
+def slab_scenes():
+    """The two scenes of the slab check: the headline's 128³ sphere (bf16
+    tables, cheb-skip, ``tf_mxu``) and a float32 blobs 128³."""
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import make_scene
+
+    headline = make_scene(volume.sphere_volume(128),
+                          transfer.gray_ramp(alpha_scale=0.8), tf_srgb=True,
+                          tracking="auto", pack_dtype=torch.bfloat16,
+                          tf_mxu=True)
+    f32 = make_scene(volume.blobs_volume(128, seed=3),
+                     transfer.gray_ramp(alpha_scale=0.8))
+    return {"headline": headline, "float32": f32}
+
+
+def phase_slab_fetch(scenes):
+    """K3's slab instance against its plain twin and the whole-table
+    fetch: on each scene, SLAB_COUNT slabs' masked fetches of 256²
+    positions (uniform in [-0.1, 1.1]³, NaN in a few) each equal the
+    plain twin bit for bit (values, cells with -1 where masked,
+    fractions), and their sum equals K3's whole-table fetch bit for bit;
+    interleaved thin slabs and an unmasked fetch raise on the card
+    (``resident.py``'s, not ported).  Then slab 0's fetch timed against the whole
+    fetch in turns (CUDA events and device time), its plain twin, and its
+    bound (the positions read, the values written, the distinct owned
+    rows read once).  Returns the row's numbers."""
+    import torch
+
+    from vpt_tpu_torch.kernels import corner_gather
+    from vpt_tpu_torch.parallel import halo
+
+    g = torch.Generator().manual_seed(11)
+    pos = torch.rand(SLAB_POSITIONS, 3, generator=g) * 1.2 - 0.1
+    pos[:4, 0] = float("nan")
+    pos = pos.cuda()
+    worst = 0.0
+    for label, scene in scenes.items():
+        shape = tuple(scene.volume.shape)
+        whole = corner_gather.corner_fetch(scene.volume_packed, shape, pos)
+        total = torch.zeros_like(whole)
+        for k in range(SLAB_COUNT):
+            rows = halo.slab_table(scene.volume_packed, shape, SLAB_COUNT, k)
+            got = corner_gather.slab_fetch(rows, shape, k, SLAB_COUNT, 1,
+                                           pos, save=True)
+            want = corner_gather.slab_fetch_plain(rows, shape, k, SLAB_COUNT,
+                                                  1, pos, save=True)
+            for a, b in zip(got, want):
+                check(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)),
+                      f"K3 slab {label} slab {k}/{SLAB_COUNT}: the kernel "
+                      "differs from its plain twin")
+            total = total + got[0]
+        torch.cuda.synchronize()
+        fine = ~torch.isnan(whole)
+        check(torch.equal(total[fine], whole[fine])
+              and torch.equal(torch.isnan(total), torch.isnan(whole)),
+              f"K3 slab {label}: {SLAB_COUNT} slabs do not sum to the "
+              "whole fetch")
+        worst = max(worst, float((total[fine] - whole[fine]).abs().max()))
+        thin = halo.slab_table(scene.volume_packed, shape, 2, 0, 2)
+        for args in ((thin, shape, 0, 2, 2, pos), (rows, shape, SLAB_COUNT - 1,
+                                                   SLAB_COUNT, 1, pos, False)):
+            try:
+                corner_gather.slab_fetch(*args)
+            except NotImplementedError:
+                continue
+            check(False, f"K3 slab {label}: the card took an interleaved "
+                  "or unmasked slab fetch")
+        print(f"corner_gather slab {label}: {SLAB_COUNT} slabs of "
+              f"{SLAB_POSITIONS} positions equal their plain twins and sum "
+              "to the whole-table fetch bit for bit; interleaved and "
+              "unmasked slabs refused", flush=True)
+    scene = scenes["headline"]
+    shape = tuple(scene.volume.shape)
+    rows = halo.slab_table(scene.volume_packed, shape, SLAB_COUNT, 0)
+    times = in_turns({
+        "slab": lambda: corner_gather.slab_fetch(rows, shape, 0, SLAB_COUNT,
+                                                 1, pos),
+        "whole": lambda: corner_gather.corner_fetch(scene.volume_packed,
+                                                    shape, pos)}, 200)
+    device = device_turns({
+        "slab": lambda: corner_gather.slab_fetch(rows, shape, 0, SLAB_COUNT,
+                                                 1, pos),
+        "whole": lambda: corner_gather.corner_fetch(scene.volume_packed,
+                                                    shape, pos)},
+        "fetch_kernel")
+    plain_ms = cuda_ms(lambda: corner_gather.slab_fetch_plain(
+        rows, shape, 0, SLAB_COUNT, 1, pos), 20)
+    _, cells, _ = corner_gather.slab_fetch(rows, shape, 0, SLAB_COUNT, 1,
+                                           pos, save=True)
+    owned = cells[cells >= 0]
+    row_bytes = rows.shape[1] * rows.element_size()
+    nbytes = SLAB_POSITIONS * (12 + 4) + owned.unique().numel() * row_bytes
+    ops = SLAB_POSITIONS * SLAB_OPS + owned.numel() * 30
+    bound_ms, bound_by = roofline(nbytes, ops)
+    print(f"corner_gather slab: slab 0 of {SLAB_COUNT} on the headline, "
+          f"{SLAB_POSITIONS} positions: {times['slab']:.4f} ms a call "
+          f"(whole-table fetch {times['whole']:.4f} ms), device "
+          f"{fmt_ms(device['slab'])} (whole {fmt_ms(device['whole'])}); "
+          f"plain twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes} bytes: {owned.numel()} owned samples, "
+          f"{owned.unique().numel()} distinct rows)", flush=True)
+    return {"max_abs_err": worst, "ms": times["slab"],
+            "device_ms": device["slab"], "whole_ms": times["whole"],
+            "whole_device_ms": device["whole"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_halo_event(scene):
+    """K5's halo instance against its plain twin: on each of 2 slabs of
+    the headline (no group: a slab's own masked values), 2 frames at 512²
+    equal ``event_frame_plain`` over the same HaloScene bit for bit; on
+    one slab the frames equal the whole-frame K5's bit for bit.  Then a
+    one-slab halo frame timed against the whole-frame K5 in turns at
+    512² (CUDA events; device time of its steps + 1 launches), the plain
+    twin's frame, and the bound: :func:`halo_frame_bytes` a pixel, the
+    distinct corner rows and the event kernel's operations
+    (:func:`event_bound`'s, which the whole frame's equal), with the
+    frame's share of it.  Returns the row's numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.renderers import mcm
+
+    params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    state = mcm.reset(params, 512, 512, scene)
+    worst = 0.0
+    for count in (2, 1):
+        for k in range(count):
+            hs = halo.halo_scene(scene, k, count)
+            got = {key: v.clone() for key, v in state.items()}
+            want = {key: v.clone() for key, v in state.items()}
+            for n in (1, 2):
+                seed = np.float32(0.1 * n)
+                mcm.render_frame(got, hs, params, seed, n)
+                if count == 1:
+                    mcm.render_frame(want, scene, params, seed, n)
+                else:
+                    mcm_event.event_frame_plain(
+                        want, dataclasses.replace(hs, kernels=False), params,
+                        seed)
+            torch.cuda.synchronize()
+            for key in want:
+                check(torch.equal(got[key], want[key]),
+                      f"K5 halo slab {k}/{count}: {key} differs from "
+                      + ("the whole-frame K5" if count == 1
+                         else "the plain twin"))
+            worst = max(worst, float((got["radiance"]
+                                      - want["radiance"]).abs().max()))
+    print("mcm_event halo: 2 frames at 512^2 on each of 2 slabs equal the "
+          "plain loop over the HaloScene bit for bit, and on one slab the "
+          "whole-frame K5 bit for bit", flush=True)
+    hs = halo.halo_scene(scene, 0, 1)
+    a = {key: v.clone() for key, v in state.items()}
+    b = {key: v.clone() for key, v in state.items()}
+    times = in_turns({
+        "halo": lambda: mcm_event.event_frame(a, hs, params, 0.3),
+        "whole": lambda: mcm_event.event_frame(b, scene, params, 0.3)}, 20)
+    device = device_turns({
+        "halo": lambda: mcm_event.event_frame(a, hs, params, 0.3),
+        "whole": lambda: mcm_event.event_frame(b, scene, params, 0.3)},
+        "mcm_", reps=10)
+    # the profiler's mean a launch: times the frame's steps + 1 launches
+    if device["halo"] is not None:
+        device["halo"] *= params.steps + 1
+    c = {key: v.clone() for key, v in state.items()}
+    plain_ms = cuda_ms(lambda: mcm_event.event_frame_plain(
+        c, dataclasses.replace(hs, kernels=False), params, 0.3), 2)
+    paths0 = float(state["samples"].sum(dtype=torch.float64))
+    d = {key: v.clone() for key, v in state.items()}
+    mcm_event.event_frame(d, scene, params, 0.3)
+    deposits = float(d["samples"].sum(dtype=torch.float64)) - paths0
+    work = event_work(scene, state, params, 0.3)
+    n = 512 * 512
+    _, _, whole_bytes, ops = event_bound(scene, n, params.steps, deposits,
+                                         work["rows"])
+    skip = "cheb" in state
+    nbytes = whole_bytes - 2 * n * (60 if skip else 56) \
+        + n * halo_frame_bytes(params.steps, skip)
+    bound_ms, bound_by = roofline(nbytes, ops)
+    share = None if device["halo"] is None else bound_ms / device["halo"]
+    occ = mcm_event.halo_occupancy(scene.tracking_packed.dtype,
+                                   scene.transfer_1d.shape[0])
+    print(f"mcm_event halo: one slab, headline 512^2 steps 8: "
+          f"{times['halo']:.4f} ms a frame ({params.steps + 1} launches; "
+          f"whole-frame K5 {times['whole']:.4f} ms), device "
+          f"{fmt_ms(device['halo'])} (whole {fmt_ms(device['whole'])}); "
+          f"plain twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes} bytes, "
+          f"{halo_frame_bytes(params.steps, skip)} a pixel of state, value "
+          f"and stream), "
+          + ("share not measured" if share is None
+             else f"{share:.3f} of it") +
+          f"; {occ['registers']} registers, {occ['local_bytes']} local "
+          f"bytes, {occ['blocks_per_sm']} blocks an SM", flush=True)
+    return {"max_abs_err": worst, "ms": times["halo"],
+            "device_ms": device["halo"], "whole_ms": times["whole"],
+            "whole_device_ms": device["whole"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bound_share": share, "registers": occ["registers"],
+            "local_bytes": occ["local_bytes"]}
+
+
+def dos_bands_agree(label, got, want, bound, share):
+    """A DOS frame of row bands against the cooperative K9 frame on a
+    float32 scene: vpt_tpu's sharded taps against its shifted ones, which
+    its ``_shifted_occlusion_taps`` says agree up to float-associativity
+    ulps.  The sharded tap's texel coordinate t·W − 0.5 rounds at ulp(W /
+    2) (6.1e-5 at 1024²) where the shifted tap's fraction is nearly exact,
+    so a tap's weight may differ by that and the occlusion by that times
+    the step between neighbouring texels, over every slice.  Colour and
+    occlusion within ``bound``, and at least ``share`` of their values
+    within 1e-6; the bounds are set from the readings PERF.md gives: 2
+    bands of 512² within 1e-6 (9.54e-7), one band of 1024² within the
+    port's float32 DOS bound against vpt_tpu, 3e-5 (1.31e-6), with 92.2%
+    of its values within 1e-6 (held at 90%); that band equals the plain
+    band bit for bit.  Returns the max abs error and the share."""
+    err, within = 0.0, 1.0
+    for key in ("color", "occlusion"):
+        diff = (got[key].cpu() - want[key].cpu()).abs()
+        err = max(err, float(diff.max()))
+        within = min(within, float((diff <= 1e-6).float().mean()))
+    check(err <= bound and within >= share,
+          f"{label}: the DOS bands {err} from the cooperative K9 frame, "
+          f"{within} of the values within 1e-6 (bounds {bound}, {share})")
+    return err, within
+
+
+def band_frame_plain(state, scene, params, window, extend):
+    """``dos.render_band`` with the plain band slice
+    (``dos_sweep.band_slice_plain``) in place of K9's band instance, on a
+    copy of the band's ``state``: the same slices, extensions and depth
+    advance.  Returns the copy."""
+    from vpt_tpu_torch.kernels import dos_sweep
+    from vpt_tpu_torch.renderers import dos
+
+    state = {k: v.clone() for k, v in state.items()}
+    active = dos.active_slices(state, params)
+    for k in range(active):
+        ext, ext_row0 = extend(state["occlusion"])
+        dos_sweep.band_slice_plain(state, ext, ext_row0, scene, params, k,
+                                   window)
+    state["depth"] = state["depth"] + float(active) * state["slice_distance"]
+    return state
+
+
+def event_positions(state, scene, params, seed):
+    """The (N, 3) tentative positions of one MCM event of every pixel's
+    photon in ``state``: the plain flight phase (``mcm.flight_phase``)
+    from the pixels' streams for ``seed``, as a frame's first event."""
+    from vpt_tpu_torch import rng, sampling
+    from vpt_tpu_torch.renderers import mcm
+
+    h, w = state["position"].shape[:2]
+    ndc = sampling.pixel_ndc(h, w, device=state["position"].device)
+    rstate = rng.seed_pixels(ndc * 0.5 + 0.5, seed)
+    skip = mcm.uses_skip(state, scene)
+    cell = mcm.skip_cell_size(scene) if skip else None
+    _, position = mcm.flight_phase(state, rstate, params, skip, cell)
+    return position.reshape(-1, 3).contiguous()
+
+
+def slab_kernels_agree(scene, pos):
+    """K3's slab instance and its backward K4 against their plain twins at
+    the config-4 fit's shapes: the 512³ float32 slab table of slab 0 of 1
+    (the fit's on one card) and of slab 1 of 2 (half its rows, the rest
+    masked out), ``pos`` one event's 1024² positions.  The fetch equals
+    ``slab_fetch_plain`` bit for bit (values, cells with -1 where masked,
+    fractions); ``corner_grad`` of a seeded cotangent on those cells into
+    the slab table equals ``corner_grad_plain`` within the float32
+    reordering bound (:func:`order_bound`).  Returns the max abs errors
+    and a line of text."""
+    import torch
+
+    from vpt_tpu_torch.kernels import corner_gather, corner_scatter
+    from vpt_tpu_torch.parallel import halo
+
+    shape = tuple(scene.volume.shape)
+    g = torch.Generator(device=pos.device).manual_seed(21)
+    ct = torch.randn(pos.shape[0], 1, device=pos.device, generator=g)
+    k3_err = k4_err = 0.0
+    parts = []
+    for count, k in ((1, 0), (2, 1)):
+        rows = halo.slab_table(scene.volume_packed, shape, count, k)
+        got = corner_gather.slab_fetch(rows, shape, k, count, 1, pos,
+                                       save=True)
+        want = corner_gather.slab_fetch_plain(rows, shape, k, count, 1, pos,
+                                              save=True)
+        for a, b, what in zip(got, want, ("value", "cell", "fraction")):
+            check(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)),
+                  f"path parallel: K3 slab {k}/{count}'s {what} differs "
+                  f"from slab_fetch_plain at {tuple(pos.shape)}")
+        k3_err = max(k3_err, float((got[0] - want[0]).abs().max()))
+        cells, f = got[1], got[2]
+        owned = cells[cells >= 0]
+        n = rows.shape[0]
+        del rows, want
+        diff = (corner_scatter.corner_grad(cells, f, ct, n, 1)
+                - corner_scatter.corner_grad_plain(cells, f, ct, n, 1)).abs()
+        bound = order_bound(
+            torch.bincount(owned, minlength=n)[:, None],
+            corner_scatter.corner_grad_plain(cells, f, ct.abs(), n, 1))
+        err = float(diff.max())
+        check(bool((diff <= bound).all()), f"path parallel: K4 into slab "
+              f"{k}/{count}'s table max abs err {err} beyond the reordering "
+              "bound")
+        k4_err = max(k4_err, err)
+        parts.append(f"slab {k} of {count} ({n} rows, {owned.numel()} of "
+                     f"{cells.numel()} samples owned): K3 slab equal to "
+                     f"slab_fetch_plain bit for bit, K4 max abs err {err:.3g} "
+                     f"(bound max {float(bound.max()):.3g})")
+        del got, cells, f, owned, diff, bound
+        torch.cuda.empty_cache()
+    return {"k3_err": k3_err, "k4_err": k4_err,
+            "text": "; ".join(parts)}
+
+
+def phase_dos_band(scene):
+    """K9's band instance against its plain twin: a 512² DOS sweep's first
+    frame (default Params) on two uneven bands (201 and 311 rows) with the
+    whole image as the extended buffer equals ``band_slice_plain`` bit for
+    bit and the cooperative K9 frame (vpt_tpu's sharded taps against the
+    shifted ones) within 5e-4, the port's DOS bound on bf16 tables with
+    ``tf_mxu`` (``tests/test_torch_dos.py``; float32 scenes: ``path
+    parallel gloo``'s 2 bands within 1e-6, ``path parallel``'s 1024² band
+    equal to the plain band bit for bit and within
+    :func:`dos_bands_agree`'s bounds of the cooperative frame).  Then one
+    band slice of the whole image timed (CUDA events and device time)
+    against the cooperative frame's time a slice (the same two clocks),
+    the plain twin's slice, and the bound of a slice (:func:`dos_work`'s
+    bytes and operations a slice of the frame).  Returns the row's
+    numbers."""
+    import torch
+
+    from vpt_tpu_torch.kernels import dos_sweep
+    from vpt_tpu_torch.renderers import dos
+
+    params = dos.Params()
+    size = 512
+    coop = dos.reset(params, size, size, scene)
+    dos.render_frame(coop, scene, params, 0.0, 1)
+    results = []
+    for plain in (False, True):
+        whole = dos.reset(params, size, size, scene)
+        bands = [(r0, {k: (v[r0:r1].clone() if k in ("color", "occlusion")
+                           else v.clone()) for k, v in whole.items()})
+                 for r0, r1 in ((0, 201), (201, size))]
+        run = dos_sweep.band_slice_plain if plain else dos_sweep.band_slice
+        active = dos.active_slices(bands[0][1], params)
+        for k in range(active):
+            ext = torch.cat([band["occlusion"] for _, band in bands])
+            for r0, band in bands:
+                run(band, ext, 0, scene, params, k, (r0, size))
+        torch.cuda.synchronize()
+        results.append({key: torch.cat([band[key] for _, band in bands])
+                        for key in ("color", "occlusion")})
+    err = 0.0
+    for key in ("color", "occlusion"):
+        check(torch.equal(results[0][key], results[1][key]),
+              f"K9 band: {key} differs from the plain twin")
+        gap = float((results[0][key] - coop[key]).abs().max())
+        check(gap <= 5e-4, f"K9 band: {key} {gap} from the cooperative "
+              "sweep (bound 5e-4, bf16 tables)")
+        err = max(err, gap)
+    state = dos.reset(params, size, size, scene)
+    ext = state["occlusion"].clone()
+    band_ms = cuda_ms(lambda: dos_sweep.band_slice(
+        state, ext, 0, scene, params, 0, (0, size)), 200)
+    band_device_ms = profiler_device_ms(lambda: dos_sweep.band_slice(
+        state, ext, 0, scene, params, 0, (0, size)), "dos_band")
+    frame = dos.reset(params, size, size, scene)
+    def coop_frame():
+        dos_sweep.sweep_frame({**frame, "depth": frame["depth"].clone()},
+                              scene, params)
+
+    coop_ms = cuda_ms(coop_frame, 20) / active
+    coop_device_ms = profiler_device_ms(coop_frame, "dos_sweep_kernel", 20)
+    if coop_device_ms is not None:
+        coop_device_ms /= active
+    plain_ms = cuda_ms(lambda: dos_sweep.band_slice_plain(
+        state, ext, 0, scene, params, 0, (0, size)), 5)
+    nbytes, ops, written, _ = dos_work(scene, params, size, size, 1)
+    nbytes, ops = nbytes / active, ops / active
+    bound_ms, bound_by = roofline(nbytes, ops)
+    print(f"dos_sweep band: two bands of a 512^2 sweep's first frame "
+          f"({active} slices) equal their plain twin bit for bit, the "
+          f"cooperative K9 within {err:.3g} (bound 5e-4); a whole-image "
+          f"band slice {band_ms:.4f} ms, device {fmt_ms(band_device_ms)} "
+          f"(the cooperative frame {coop_ms:.4f} ms a slice, device "
+          f"{fmt_ms(coop_device_ms)} a slice), plain twin {plain_ms:.4f} ms a "
+          f"slice; bound {bound_ms:.4f} ms a slice ({bound_by}, "
+          f"{nbytes:.6g} bytes)", flush=True)
+    return {"max_abs_err": err, "ms": band_ms, "device_ms": band_device_ms,
+            "coop_ms_per_slice": coop_ms,
+            "coop_device_ms_per_slice": coop_device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 #: the demos at their default sizes, and the kernels each must launch
@@ -5340,7 +6087,19 @@ def run():
                 "tonemap": tonemap_kernel, "corner_gather": corner_gather,
                 "corner_scatter": corner_scatter, "march_frame": march,
                 "iso_shade": iso_shade, "mcs_frame": mcs_frame,
-                "dos_sweep": dos_sweep, "lao_march": lao_march}
+                "dos_sweep": dos_sweep, "lao_march": lao_march,
+                "mcm_event_halo": LaunchCounter(mcm_event, "HALO_LAUNCHES"),
+                "corner_gather_slab": LaunchCounter(corner_gather,
+                                                    "SLAB_LAUNCHES"),
+                "dos_band": LaunchCounter(dos_sweep, "BAND_LAUNCHES")}
+    t0 = time.perf_counter()
+    scenes = slab_scenes()
+    k3_slab = phase_slab_fetch(scenes)
+    k5_halo = phase_halo_event(scenes["headline"])
+    k9_band = phase_dos_band(scenes["headline"])
+    del scenes
+    torch.cuda.empty_cache()
+    print(f"halo kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     rates, render_launches = phase_main_path(dev, counters)
     paths = phase_renderer_paths(dev, counters, headline)
     unpacked_launches, unpacked_errors = phase_unpacked_path(dev, counters)
@@ -5413,12 +6172,23 @@ def run():
     k4.update(rows_of["corner_scatter"])
     print(f"path config3: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    parallel_launches, parallel_errors = phase_parallel_path(dev, counters)
-    for row, name in ((k5, "mcm_event"), (k2, "tonemap")):
+    parallel_launches, parallel_errors, parallel_numbers = \
+        phase_parallel_path(dev, counters)
+    for row, name in ((k5, "mcm_event"), (k2, "tonemap"),
+                      (k5_halo, "mcm_event_halo"), (k9_band, "dos_band"),
+                      (k3_slab, "corner_gather_slab"),
+                      (k4, "corner_scatter")):
         row["parallel_max_abs_err"] = parallel_errors[name]
         row["max_abs_err"] = max(row["max_abs_err"], parallel_errors[name])
+    k5_halo["ms_1024_config4"] = parallel_numbers["halo_ms_1024"]
+    k5_halo["whole_ms_1024_config4"] = parallel_numbers["whole_ms_1024"]
+    k3_slab["config4_fit"] = {k: parallel_numbers[k] for k in (
+        "fit_losses", "fit_step_s", "fit_peak_gib")}
     print(f"path parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     phase_parallel_gloo(dev)
+    print(f"path parallel gloo: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     t0 = time.perf_counter()
     demos_launches = phase_demos_path(dev, counters)
     print(f"path demos: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -5441,7 +6211,8 @@ def run():
              ("mcm_event", "march_frame", "iso_shade", "mcs_frame",
               "dos_sweep", "lao_march")),
             ("parallel", parallel_launches,
-             ("mcm_event", "tonemap", "corner_gather", "corner_scatter")),
+             ("mcm_event", "tonemap", "corner_gather", "corner_scatter",
+              "mcm_event_halo", "corner_gather_slab", "dos_band")),
             ("demos", demos_launches,
              ("mcm_event", "march_frame", "iso_shade", "mcs_frame",
               "dos_sweep", "lao_march", "tonemap", "corner_gather",
@@ -5523,9 +6294,38 @@ def run():
                         "path, the ext instance on the channels and filters "
                         "paths, the baked instance on the baked path); runs "
                         "the ray.cuh corner fetch", **k10},
+        {"name": "mcm_event_halo", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/mcm_event.cu",
+         "replaces": "vpt_tpu/parallel/halo.py:199",
+         "launched_by": "halo.sharded_render_frame's MCM frame (steps + 1 "
+                        "launches a frame, each finishing an event and "
+                        "starting the next, the value's all-reduce between "
+                        "them; the parallel path's 32 frames of config 4); "
+                        "ms and device_ms a 512^2 headline frame of 8 "
+                        "events on one slab",
+         **k5_halo},
+        {"name": "corner_gather_slab", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/corner_gather.cu",
+         "replaces": "benchmarks/pallas_gather.py:26",
+         "launched_by": "halo_grad.make_sharded_grad: "
+                        "sampling.SlabCornerFetch forward, one masked slab "
+                        "fetch an event of the MCM expected image (the "
+                        "parallel path's config-4 fit); its backward is "
+                        "corner_scatter", **k3_slab},
+        {"name": "dos_band", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/dos_sweep.cu",
+         "replaces": "vpt_tpu/parallel/dos_halo.py:70",
+         "launched_by": "dos_halo.sharded_render_frame and "
+                        "shard.shard_render_frame of DOS: one launch an "
+                        "active slice of a band (the parallel path's 1024^2 "
+                        "frame); ms a slice of a 512^2 headline frame",
+         **k9_band},
     ]
     for row in rows:
-        if row["name"].startswith("corner"):
+        if row["name"] in ("mcm_event_halo", "corner_gather_slab",
+                           "dos_band"):
+            row["launches"] = parallel_launches[row["name"]]
+        elif row["name"].startswith("corner"):
             row["launches"] = fit_launches[row["name"]] \
                 + fit_mcs_launches[row["name"]] \
                 + sum(got[row["name"]] for got in inverse.values())

@@ -2247,3 +2247,288 @@ def test_parallel_world_of_one_over_nccl(cuda, tmp_path):
             assert torch.equal(loaded[k], want[k]), k
     finally:
         dist.destroy_process_group()
+
+
+# -- the spatially sharded half of parallel/: K5 halo, K3 slab, K9 band ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_slabs", [4, 2, 1],
+                         ids=["contiguous", "two", "one"])
+def test_slab_fetch_sums_to_the_whole_fetch(cuda, dtype, num_slabs):
+    """K3's slab instance: each slab's masked fetch equals its plain twin
+    bit for bit (values, cells with -1 where masked, fractions), and the
+    slabs' sum equals the whole table's fetch bit for bit, NaN and
+    out-of-range positions included; one launch a slab."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = make_scene(volume.blobs_volume(32, seed=3, device=cuda),
+                       transfer.gray_ramp(alpha_scale=0.9, device=cuda),
+                       pack_dtype=dtype, device=cuda)
+    shape = tuple(scene.volume.shape)
+    g = torch.Generator().manual_seed(5)
+    pos = torch.rand(65536, 3, generator=g) * 1.4 - 0.2
+    pos[:8] = torch.tensor([float("nan"), 0.5, 0.5]).expand(8, 3)
+    pos = pos.to(cuda)
+    whole = corner_gather.corner_fetch(scene.volume_packed, shape, pos)
+    total = torch.zeros_like(whole)
+    before = corner_gather.SLAB_LAUNCHES
+    for k in range(num_slabs):
+        rows = halo.slab_table(scene.volume_packed, shape, num_slabs, k)
+        got = corner_gather.slab_fetch(rows, shape, k, num_slabs, 1, pos,
+                                       save=True)
+        want = corner_gather.slab_fetch_plain(rows, shape, k, num_slabs, 1,
+                                              pos, save=True)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b) or torch.equal(torch.nan_to_num(a),
+                                                    torch.nan_to_num(b))
+        total = total + got[0]
+    assert corner_gather.SLAB_LAUNCHES == before + num_slabs
+    ok = ~torch.isnan(whole)
+    assert torch.equal(total[ok], whole[ok])
+    assert torch.equal(torch.isnan(total), torch.isnan(whole))
+
+
+def test_slab_kernels_refuse_thin_and_unmasked_slabs(cuda):
+    """Interleaved thin slabs and an unmasked slab-local fetch
+    (``HaloScene(collective=False)``), which only ``resident.py`` needs,
+    raise ``_not_ported`` on the card (ROADMAP queue 1 item 16 part 3),
+    in the slab fetch and in a halo frame, before any launch."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _headline_scene(16, cuda)
+    shape = tuple(scene.volume.shape)
+    pos = torch.rand(64, 3, generator=torch.Generator().manual_seed(2))
+    pos = pos.to(cuda)
+    thin = halo.slab_table(scene.volume_packed, shape, 2, 0, 2)
+    rows = halo.slab_table(scene.volume_packed, shape, 2, 0)
+    params = mcm.Params(steps=2)
+    before = (corner_gather.SLAB_LAUNCHES, mcm_event.HALO_LAUNCHES)
+    with pytest.raises(NotImplementedError, match="item 16 part 3"):
+        corner_gather.slab_fetch(thin, shape, 0, 2, 2, pos)
+    with pytest.raises(NotImplementedError, match="item 16 part 3"):
+        corner_gather.slab_fetch(rows, shape, 0, 2, 1, pos, masked=False)
+    for hs in (halo.halo_scene(scene, 0, 2, interleave=2),
+               halo.halo_scene(scene, 0, 2, collective=False)):
+        with pytest.raises(NotImplementedError, match="item 16 part 3"):
+            mcm.render_frame(mcm.reset(params, 8, 8, scene), hs, params,
+                             0.1, 1)
+    assert (corner_gather.SLAB_LAUNCHES, mcm_event.HALO_LAUNCHES) == before
+
+
+def test_slab_fetch_gradient_matches_plain(cuda):
+    """``SlabCornerFetch``: K3's slab forward and K4's backward into the
+    slab table (masked-out cells skipped) against the plain twin's
+    autograd, within the float32 reordering of K4's atomics (1e-5 of the
+    largest entry); the slabs' gradients sum to the whole table's."""
+    from vpt_tpu_torch.parallel import halo
+
+    vol = volume.blobs_volume(16, seed=2, device=cuda).data
+    table = sampling.pack_corner_volume(vol)
+    shape = tuple(vol.shape)
+    pos = torch.rand(20000, 3, generator=torch.Generator().manual_seed(3))
+    pos = (pos * 1.2 - 0.1).to(cuda)
+    weight = torch.rand(20000, 1, generator=torch.Generator().manual_seed(4))
+    weight = weight.to(cuda)
+    leaf = table.clone().requires_grad_(True)
+    whole, = torch.autograd.grad(
+        (sampling.sample_volume_packed(leaf, shape, pos) * weight).sum(),
+        leaf)
+    grads = []
+    for k in range(2):
+        rows = halo.slab_table(table, shape, 2, k).requires_grad_(True)
+        out = sampling.sample_slab_packed(rows, shape, k, 2, 1, pos)
+        got, = torch.autograd.grad((out * weight).sum(), rows)
+        plain = sampling.sample_slab_packed(rows, shape, k, 2, 1, pos,
+                                            fused=False)
+        want, = torch.autograd.grad((plain * weight).sum(), rows)
+        bound = 1e-5 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= bound
+        grads.append(got.reshape(-1, 256, 8))
+    ds = 8
+    joined = torch.cat([grads[0][:ds], grads[1][:ds]]).reshape(-1, 8)
+    assert float((joined - whole).abs().max()) <= 1e-5 * float(
+        whole.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["bf16_cheb", "f32_exact"])
+def test_halo_event_frame_matches_plain_and_whole(cuda, kind):
+    """K5's halo instance (steps + 1 launches a frame): on one slab it equals
+    the whole-frame K5 bit for bit; on each of 2 slabs (no group: the
+    rank's own masked values) it equals the plain loop over the same
+    HaloScene bit for bit; a 1024-texel environment map takes the map
+    instance."""
+    from vpt_tpu_torch.parallel import halo
+
+    if kind == "bf16_cheb":
+        scene = _headline_scene(32, cuda)
+    else:
+        scene = make_scene(volume.blobs_volume(32, seed=3, device=cuda),
+                           transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                           environment=environment.gradient_sky(
+                               16, 64, device=cuda), device=cuda)
+    params = mcm.Params(extinction=30.0, anisotropy=0.3, steps=8)
+    state = mcm.reset(params, 64, 48, scene)
+    whole = {k: v.clone() for k, v in state.items()}
+    one = {k: v.clone() for k, v in state.items()}
+    hs1 = halo.halo_scene(scene, 0, 1)
+    before = mcm_event.HALO_LAUNCHES
+    for n in range(1, 3):
+        mcm.render_frame(whole, scene, params, np.float32(0.1 * n), n)
+        mcm.render_frame(one, hs1, params, np.float32(0.1 * n), n)
+    torch.cuda.synchronize()
+    assert mcm_event.HALO_LAUNCHES == before + 2 * (params.steps + 1)
+    for k in whole:
+        assert torch.equal(one[k], whole[k]), k
+    for k in range(2):
+        hs = halo.halo_scene(scene, k, 2)
+        got = {key: v.clone() for key, v in state.items()}
+        want = {key: v.clone() for key, v in state.items()}
+        for n in range(1, 3):
+            mcm.render_frame(got, hs, params, np.float32(0.1 * n), n)
+            mcm_event.event_frame_plain(want, dataclasses.replace(
+                hs, kernels=False), params, np.float32(0.1 * n))
+        torch.cuda.synchronize()
+        for key in want:
+            assert torch.equal(got[key], want[key]), (k, key)
+
+
+@pytest.mark.parametrize("kind", ["f32", "headline"])
+def test_dos_band_matches_plain_and_cooperative(cuda, kind):
+    """K9's band instance (one launch a slice) on two uneven bands with
+    the whole image as the extended buffer equals its plain twin bit for
+    bit, and the cooperative sweep (vpt_tpu's sharded taps against the
+    shifted ones) within the port's DOS bounds (``tests/
+    test_torch_dos.py``): on float32 tables within 3e-5 and 99% of the
+    values within 1e-6, on the headline's bf16 tables with ``tf_mxu``
+    (whose lerp weights turn a one-ulp difference into a step of 2^-8,
+    ROADMAP queue 3) within 5e-4."""
+    scene = _scene(kind, cuda)
+    params = dos.Params(extinction=80.0, steps=20, slices=40, samples=6)
+    height = width = 96
+    coop = dos.reset(params, height, width, scene)
+    dos.render_frame(coop, scene, params, 0.0, 1)
+    results = []
+    for plain in (False, True):
+        whole = dos.reset(params, height, width, scene)
+        bands = [(r0, {k: (v[r0:r1].clone() if k in ("color", "occlusion")
+                           else v.clone()) for k, v in whole.items()})
+                 for r0, r1 in ((0, 37), (37, 96))]
+        before = dos_sweep.BAND_LAUNCHES
+        for k in range(dos.active_slices(bands[0][1], params)):
+            ext = torch.cat([b["occlusion"] for _, b in bands])
+            for r0, band in bands:
+                run = dos_sweep.band_slice_plain if plain \
+                    else dos_sweep.band_slice
+                run(band, ext, 0, scene, params, k, (r0, height))
+        torch.cuda.synchronize()
+        if not plain:
+            assert dos_sweep.BAND_LAUNCHES == before + 2 * params.steps
+        results.append({key: torch.cat([b[key] for _, b in bands])
+                        for key in ("color", "occlusion")})
+    bound = 3e-5 if kind == "f32" else 5e-4
+    for key in ("color", "occlusion"):
+        assert torch.equal(results[0][key], results[1][key]), key
+        diff = (results[0][key] - coop[key]).abs()
+        assert float(diff.max()) <= bound
+        if kind == "f32":
+            assert float((diff <= 1e-6).float().mean()) >= 0.99
+
+
+def test_halo_frames_refuse_what_has_no_kernel(cuda):
+    """On the card a HaloScene frame of a two-channel volume and a march
+    renderer's frame raise ``_not_ported`` (ROADMAP queue 2b) before any
+    launch; DOS's Python hooks raise, naming the sharded frame."""
+    from vpt_tpu_torch.parallel import halo
+
+    rg = make_scene(volume.with_gradient_magnitude(
+        volume.blobs_volume(16, seed=1, device=cuda)),
+        transfer.gray_ramp(device=cuda), device=cuda)
+    params = mcm.Params(steps=2)
+    before = (_launches(), mcm_event.HALO_LAUNCHES)
+    with pytest.raises(NotImplementedError, match="queue 2b item 10"):
+        mcm.render_frame(mcm.reset(params, 8, 8, rg),
+                         halo.halo_scene(rg, 0, 1), params, 0.1, 1)
+    scene = _headline_scene(16, cuda)
+    hs = halo.halo_scene(scene, 0, 1)
+    for module, item in ((eam, "6"), (mip, "6"), (depth, "6"), (iso, "6"),
+                         (mcs, "7"), (dos, "8"), (lao, "9")):
+        p = module.Params()
+        with pytest.raises(NotImplementedError, match=f"queue 2b item "
+                                                      f"{item}"):
+            module.render_frame(module.reset(p, 8, 8, scene), hs, p, 0.1, 1)
+    assert (_launches(), mcm_event.HALO_LAUNCHES) == before
+    p = dos.Params()
+    with pytest.raises(ValueError, match="dos_halo.sharded_render_frame"):
+        dos.render_frame(dos.reset(p, 8, 8, scene), scene, p, 0.1, 1,
+                         ndc=sampling.pixel_ndc(8, 8, device=cuda))
+
+
+def test_halo_world_of_one_over_nccl(cuda):
+    """``halo.sharded_render_frame`` on one slab in a world of one over
+    ``nccl`` equals ``shard_render_frame``'s K5 frame bit for bit; the
+    sharded EAM gradient on one slab equals ``train.render_eam``'s within
+    1e-5 of its largest entry, the loss within 1e-6; ``dos_halo`` on one
+    band equals the band path through ``shard_render_frame``."""
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.parallel import (distributed, make_mesh, place_state,
+                                        shard_render_frame)
+    from vpt_tpu_torch.parallel import dos_halo, halo
+    from vpt_tpu_torch.parallel.halo_grad import make_sharded_grad
+    from vpt_tpu_torch.parallel.halo_grad import place_slabs
+
+    assert distributed.initialize(f"localhost:{_free_port()}", 1, 0,
+                                  retries=1)
+    try:
+        grid = make_mesh(1)
+        scene = _headline_scene(32, cuda)
+        params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
+        whole = mcm.reset(params, 64, 48, scene)
+        frame_fn, slabs = halo.sharded_render_frame(mcm, grid, scene, 1,
+                                                    whole)
+        a, b = place_state(whole, grid), place_state(whole, grid)
+        frame = shard_render_frame(mcm, grid, whole)
+        for n in range(1, 3):
+            frame_fn(a, slabs, params, np.float32(0.1 * n), n)
+            frame(b, scene, params, np.float32(0.1 * n), n)
+        torch.cuda.synchronize()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+        vol = volume.blobs_volume(16, seed=5, device=cuda)
+        escene = make_scene(vol, transfer.gray_ramp(device=cuda),
+                            pack=False, device=cuda)
+        ep = eam.Params(slices=16, random=False, extinction=60.0)
+        target = torch.full((12, 12, 3), 0.4, device=cuda)
+
+        def expected(sc, p, h, w, frames, seed0=0.0, score_floor=None):
+            return eam.generate(sc, p, np.float32(seed0), h, w)
+
+        grad_fn = make_sharded_grad(grid, escene, ep, 12, 12, 1, 1,
+                                    expected=expected)
+        loss, body = grad_fn(place_slabs(vol.data, grid, 1), target, 0.0)
+        leaf = vol.data.clone().requires_grad_(True)
+        cams = (escene.mvp_inverse, escene.model_view, escene.projection)
+        want = train.render_eam(leaf, escene.transfer, cams, ep,
+                                np.float32(0.0), 12, 12)
+        want_loss = torch.mean((want[..., :3] - target) ** 2)
+        want_grad, = torch.autograd.grad(want_loss, leaf)
+        assert abs(float(loss) - want_loss.detach().item()) <= 1e-6
+        scale = float(want_grad.abs().max())
+        assert scale > 0
+        assert float((body[0] - want_grad).abs().max()) <= 1e-5 * scale
+
+        dp = dos.Params(extinction=80.0, steps=20, slices=40, samples=6)
+        dwhole = dos.reset(dp, 64, 64, scene)
+        dframe, _ = dos_halo.sharded_render_frame(grid, scene, dp, 64, 64,
+                                                  donate=False)
+        got = dframe(place_state(dwhole, grid), scene, dp, 0.0, 1)
+        plain = {k: v.clone() for k, v in dwhole.items()}
+        dos.render_band(plain, scene, dp, (0, 64),
+                        lambda occ: (occ.clone(), 0))
+        torch.cuda.synchronize()
+        for k in ("color", "occlusion", "depth"):
+            assert torch.equal(got[k], plain[k]), k
+    finally:
+        dist.destroy_process_group()

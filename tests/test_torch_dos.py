@@ -312,10 +312,19 @@ def test_the_sweep_ends_and_depth_advances_by_active_slices(scenes):
 
 
 def test_sharding_hooks_raise(scenes):
+    """The sharding hooks run on the CPU (``parallel/dos_halo.py`` is
+    ported): the whole image's NDC with no tap hook is the plain sweep;
+    a row window alone still raises, naming the sharded frames (the hooks
+    raise on the card: ``tests/test_torch_cuda.py``)."""
     _, tscene = scenes["f32"]
-    state = dos.reset(dos.Params(), 4, 4, tscene)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item "
-                                                  "16"):
-        dos.render_frame(state, tscene, dos.Params(), 0.1, 1,
-                         ndc=torch.zeros(4, 4, 2))
+    params = dos.Params(steps=6, slices=12, samples=3)
+    state = dos.reset(params, 4, 4, tscene)
+    hooked = {k: v.clone() for k, v in state.items()}
+    dos.render_frame(hooked, tscene, params, 0.1, 1,
+                     ndc=sampling.pixel_ndc(4, 4))
+    dos.render_frame(state, tscene, params, 0.1, 1)
+    for key in state:
+        assert torch.equal(hooked[key], state[key]), key
+    with pytest.raises(ValueError, match="dos_halo.sharded_render_frame"):
+        dos.render_frame(state, tscene, params, 0.1, 2, window=(0, 8))
     assert factory.get_module("dos") is dos

@@ -63,7 +63,8 @@ def test_build_flags_and_entry_points():
         "vpt_iso_shade_launch", "vpt_iso_shade_info", "vpt_mcs_frame",
         "vpt_mcs_launch", "vpt_mcs_info", "vpt_dos_frame",
         "vpt_dos_sweep_info", "vpt_lao_launch", "vpt_lao_count",
-        "vpt_lao_info"}
+        "vpt_lao_info", "vpt_mcm_halo_event", "vpt_mcm_halo_info",
+        "vpt_slab_fetch", "vpt_dos_band"}
     sources = " ".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))
     for name, argtypes in _build.SIGNATURES.items():
         # ctypes passes exactly the C function's parameters

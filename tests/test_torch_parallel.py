@@ -349,12 +349,14 @@ def test_window_rows_must_lie_in_the_image():
 
 
 def test_dos_window_still_raises(scenes):
-    """A DOS band of rows needs its neighbours' occlusion (not ported):
-    a window other than the whole image raises; the whole image
-    renders."""
+    """A DOS band of rows needs its neighbours' occlusion every slice,
+    which one frame call cannot reach: a window other than the whole
+    image raises, naming the sharded frames (``dos_halo`` and
+    ``shard_render_frame`` render bands, ``tests/test_torch_dos_halo.py``);
+    the whole image renders."""
     params = dos.Params(steps=4, slices=8)
     state = dos.reset(params, 8, 8, scenes["plain"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
+    with pytest.raises(ValueError, match="shard.shard_render_frame"):
         dos.render_frame(state, scenes["plain"], params, 0.0, 1,
                          window=(0, 16))
     dos.render_frame(state, scenes["plain"], params, 0.0, 1, window=(0, 8))

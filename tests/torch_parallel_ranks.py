@@ -9,6 +9,8 @@ holds what rank 0 returns against the single-process port and against
 
 from __future__ import annotations
 
+import contextlib
+import io
 import pathlib
 import traceback
 
@@ -229,3 +231,215 @@ def everything(rank, world, fields, ckpt_dir):
         out["loaded1"] = _np(got)
     dist.barrier()
     return out if rank == 0 else {"coordinate": out["coordinate"]}
+
+
+# -- the spatially sharded half of parallel/: halo, halo_grad, dos_halo ----
+
+#: the halo MCM cases: (name, scene kind, Params kwargs); the kinds are the
+#: parent's fields (``bf16_cheb``: bf16 tables and the cheb-skip table;
+#: ``f32``: float32 tables, the exact flight; ``f32_cheb``, ``bf16``)
+HALO_MCM = [
+    ("mcm_bf16_cheb", "bf16_cheb", dict(extinction=25.0, steps=8)),
+    ("mcm_f32_cheb", "f32_cheb", dict(extinction=25.0, steps=8)),
+    ("mcm_bf16", "bf16", dict(extinction=25.0, steps=8)),
+    ("mcm_f32", "f32", dict(extinction=25.0, steps=8)),
+]
+#: the march renderers' halo frames (plain twins over a HaloScene)
+HALO_MARCH = ("eam", "mip", "iso", "depth")
+HALO_SIZE = 16
+
+
+def halo_everything(rank, world, fields):
+    """The halo frames on a group of 2 ranks, ``space`` = 2: the MCM
+    cases (2 frames) and the march renderers' frames through
+    ``halo.sharded_render_frame``, each gathered over ``data`` (one rank:
+    the whole image), then the distributed demo's two frames.  Rank 0's
+    results go back."""
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.examples import distributed_demo
+    from vpt_tpu_torch.parallel import gather_state, make_mesh, place_state
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.renderers import factory, mcm
+
+    out = {}
+    scenes = {k: interop.scene_from_numpy(v, device="cpu")
+              for k, v in fields.items()}
+    mesh = make_mesh(world, space=world, device="cpu")
+    halo.COLLECTIVES.clear()
+    for name, kind, kwargs in HALO_MCM:
+        params = mcm.Params(**kwargs)
+        whole = mcm.reset(params, HALO_SIZE, HALO_SIZE, scenes[kind])
+        frame_fn, slabs = halo.sharded_render_frame(
+            mcm, mesh, scenes[kind], world, whole)
+        local = place_state(whole, mesh)
+        for n in (1, 2):
+            local = frame_fn(local, slabs, params, np.float32(0.7 * n), n)
+        out[name] = _np(gather_state(local, mesh, HALO_SIZE))
+    out["mcm_collectives"] = dict(halo.COLLECTIVES)
+    for key in HALO_MARCH:
+        module = factory.get_module(key)
+        params = module.Params()
+        whole = module.reset(params, HALO_SIZE, HALO_SIZE, scenes["f32"])
+        frame_fn, slabs = halo.sharded_render_frame(
+            module, mesh, scenes["f32"], world, whole)
+        local = frame_fn(place_state(whole, mesh), slabs, params,
+                         np.float32(0.3), 1)
+        out[key] = _np(gather_state(local, mesh, HALO_SIZE))
+    out["demo"] = distributed_demo.run(space=world, device="cpu",
+                                       verbose=False)
+    return out if rank == 0 else {}
+
+
+#: the sharded-gradient cases' sizes (``tests/test_halo_grad.py``'s)
+GRAD_SIZE, GRAD_FRAMES = 12, 3
+
+
+def _eam_expected(scene, params, height, width, frames, seed0=0.0,
+                  score_floor=None):
+    from vpt_tpu_torch.renderers import eam
+
+    return eam.generate(scene, params, np.float32(seed0), height, width)
+
+
+def _fit_loop(grad_fn, mesh, target, body0, steps, mom=None, lr=0.05,
+              beta=0.9):
+    """``tests/test_halo_grad.py``'s momentum SGD on the slab bodies."""
+    from vpt_tpu_torch.parallel.halo_grad import rehalo
+
+    body = body0
+    mom = torch.zeros_like(body0) if mom is None else mom
+    for i in steps:
+        slabs = rehalo(body, mesh)
+        _, g = grad_fn(slabs, target, np.float32(0.1 + 0.013 * i))
+        mom = beta * mom + g
+        body = torch.clamp(body - lr * mom, 0.0, 1.0)
+    return body, mom
+
+
+def halo_grad_everything(rank, world, fields, ckpt_dir):
+    """The sharded gradients on a group of 4 ranks, ``space`` = 4 (a 16³
+    volume, 4 planes a slab): the EAM gradient with 1 and 2 buckets, the
+    MCM gradient with 1, 2 and 4, ``rehalo``, an EAM fit checkpointed
+    after 3 of 6 steps and resumed, and the config-4 recipe at vpt_tpu's
+    reduced default.  Gradients come back joined over ``space``."""
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.examples import config4_pod512
+    from vpt_tpu_torch.parallel import halo, make_mesh, shard
+    from vpt_tpu_torch.parallel.halo_grad import (make_sharded_grad,
+                                                  place_slabs, rehalo)
+    from vpt_tpu_torch.renderers import eam, mcm
+    from vpt_tpu_torch.runtime import checkpoint
+
+    out = {}
+    scene = interop.scene_from_numpy(fields, device="cpu")
+    mesh = make_mesh(world, space=world, device="cpu")
+    target = torch.full((GRAD_SIZE, GRAD_SIZE, 3), 0.4)
+
+    def joined(g):
+        return _np(shard.gather_blocks(g, world, mesh, ("space",))
+                   .reshape(scene.volume.shape))
+
+    slabs = place_slabs(scene.volume, mesh, world)
+    eparams = eam.Params(slices=16, random=False, extinction=60.0)
+    for nb in (1, 2):
+        halo.COLLECTIVES.clear()
+        grad_fn = make_sharded_grad(mesh, scene, eparams, GRAD_SIZE,
+                                    GRAD_SIZE, GRAD_FRAMES, world,
+                                    expected=_eam_expected, num_buckets=nb)
+        loss, g = grad_fn(slabs, target, np.float32(0.0))
+        out[f"eam{nb}"] = (float(loss), joined(g))
+        out[f"eam{nb}_collectives"] = dict(halo.COLLECTIVES)
+    mparams = mcm.Params(extinction=25.0, steps=8)
+    for nb in (1, 2, 4):
+        grad_fn = make_sharded_grad(mesh, scene, mparams, GRAD_SIZE,
+                                    GRAD_SIZE, GRAD_FRAMES, world,
+                                    num_buckets=nb)
+        loss, g = grad_fn(slabs, target, np.float32(0.45))
+        out[f"mcm{nb}"] = (float(loss), joined(g))
+    out["rehalo"] = _np(shard.gather_blocks(
+        rehalo(slabs[:, :-1], mesh), world, mesh, ("space",)))
+
+    # the EAM fit: 6 steps against 3, a checkpoint of this rank's slab
+    # state, its load, and 3 more
+    grad_fn = make_sharded_grad(mesh, scene, eparams, GRAD_SIZE, GRAD_SIZE,
+                                GRAD_FRAMES, world, expected=_eam_expected)
+    body0 = slabs[:, :-1]
+    body, _ = _fit_loop(grad_fn, mesh, target, body0, range(6))
+    out["fit_losses"] = [
+        float(grad_fn(rehalo(b, mesh), target, np.float32(0.0))[0])
+        for b in (body0, body)]
+    body3, mom = _fit_loop(grad_fn, mesh, target, body0, range(3))
+    path = pathlib.Path(ckpt_dir) / f"slab{rank}"
+    checkpoint.save_sharded(path, "eam-fit", {"body": body3, "mom": mom},
+                            3, eparams)
+    key, state, frame_number, meta = checkpoint.load_sharded(path,
+                                                             device="cpu")
+    out["ckpt"] = (key, frame_number, meta["params"]["slices"])
+    resumed, _ = _fit_loop(grad_fn, mesh, target, state["body"],
+                           range(3, 6), mom=state["mom"])
+    out["resume_equal"] = bool(torch.equal(resumed, body))
+    out["fit_body"] = joined(body)
+
+    # the recipe at vpt_tpu's reduced default (64³, 128², 32 spp, 4 fit
+    # steps, 4 buckets): its printed lines, and its assertion's message
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        try:
+            config4_pod512.run(64, 128, spp=32, fit_steps=4, buckets=4,
+                               device="cpu")
+            out["config4_raised"] = None
+        except AssertionError as err:
+            out["config4_raised"] = str(err)
+    out["config4"] = printed.getvalue().splitlines()
+    return out if rank == 0 else {"resume_equal": out["resume_equal"]}
+
+
+#: the DOS cases: (name, Params kwargs, frames), a 64² image on 2 bands
+DOS_CASES = [
+    ("dos", dict(extinction=80.0, steps=30, slices=30, samples=4), 2),
+    ("dos_samples_h", dict(extinction=80.0, steps=10, slices=30,
+                           samples=64), 1),
+]
+DOS_SIZE = 64
+
+
+def dos_everything(rank, world, fields, inside_fields):
+    """The DOS bands on a group of 2 ranks, ``data`` = 2: each case through
+    ``dos_halo.sharded_render_frame`` and ``shard.shard_render_frame``
+    (the whole image gathered each slice), the halo width and the
+    camera-inside case through ``shard_render_frame``; gathered."""
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.parallel import (gather_state, make_mesh, place_state,
+                                        shard_render_frame)
+    from vpt_tpu_torch.parallel import dos_halo, halo
+    from vpt_tpu_torch.renderers import dos
+
+    out = {}
+    scene = interop.scene_from_numpy(fields, device="cpu")
+    inside = interop.scene_from_numpy(inside_fields, device="cpu")
+    mesh = make_mesh(world, axes=("data",), device="cpu")
+    for name, kwargs, frames in DOS_CASES:
+        params = dos.Params(**kwargs)
+        halo.COLLECTIVES.clear()
+        frame_fn, width = dos_halo.sharded_render_frame(
+            mesh, scene, params, DOS_SIZE, DOS_SIZE, donate=False)
+        whole = dos.reset(params, DOS_SIZE, DOS_SIZE, scene)
+        local = place_state(whole, mesh, DOS_SIZE)
+        got = []
+        for n in range(1, frames + 1):
+            local = frame_fn(local, scene, params, np.float32(0.0), n)
+            got.append(_np(gather_state(local, mesh, DOS_SIZE)))
+        out[name] = {"halo": width, "frames": got,
+                     "collectives": dict(halo.COLLECTIVES),
+                     "offsets_rows": int(local["offsets"].shape[0])}
+        frame = shard_render_frame(dos, mesh, whole)
+        local = place_state(whole, mesh, DOS_SIZE)
+        local = frame(local, scene, params, np.float32(0.0), 1)
+        out[name]["gathered"] = _np(gather_state(local, mesh, DOS_SIZE))
+    params = dos.Params(**DOS_CASES[0][1])
+    whole = dos.reset(params, DOS_SIZE, DOS_SIZE, inside)
+    local = shard_render_frame(dos, mesh, whole)(
+        place_state(whole, mesh, DOS_SIZE), inside, params, np.float32(0.0),
+        1)
+    out["inside"] = _np(gather_state(local, mesh, DOS_SIZE))
+    return out if rank == 0 else {}

@@ -25,10 +25,16 @@
 // -fmad=false, so the value is bit for bit the plain one.  A NaN
 // coordinate takes cell index 0 on its axis and a NaN fraction, as the
 // plain version does, so the value is NaN.
+//
+// The slab instance (vpt_slab_fetch) is the masked fetch of a spatially
+// sharded volume (vpt_tpu/parallel/halo.py:143-166, _trilinear_packed):
+// slab.cuh's slab-local cell, a read only where this rank owns the cell,
+// 0 and the saved cell -1 elsewhere.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "device_guard.cuh"
+#include "slab.cuh"
 #include "tf1d.cuh"
 
 namespace {
@@ -146,6 +152,57 @@ __global__ void corner_fetch_kernel(const T* __restrict__ table, int c,
   }
 }
 
+// The slab instance (parallel/halo.py, the sharded gradient's forward):
+// the table is this rank's slab of the corner table, (slab rows, 8 * c) for
+// a volume of d planes (slab.cuh's VptSlab), and a sample's cell and
+// ownership come from vpt_slab_cell.  A sample whose cell another rank
+// owns is 0 (no read) and saves the cell -1, which the corner scatter (K4)
+// skips; otherwise the value, cell and fractions are corner_fetch_kernel's
+// over the slab's rows, so the sum over the ranks of their masked values
+// is the whole table's value bit for bit.
+template <typename T, bool kOneChannel>
+__global__ void slab_fetch_kernel(const T* __restrict__ table, int c, int w,
+                                  int h, int d, VptSlab slab,
+                                  const float* __restrict__ position,
+                                  long long n, float* __restrict__ out,
+                                  long long* __restrict__ cells,
+                                  float* __restrict__ fractions) {
+  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const VptSlabCell sc = vpt_slab_cell(
+      d, h, w, slab, __ldg(position + 3 * j), __ldg(position + 3 * j + 1),
+      __ldg(position + 3 * j + 2));
+  if (cells != nullptr) {
+    cells[j] = sc.local ? (long long)sc.row : -1;
+    fractions[3 * j] = sc.fx;
+    fractions[3 * j + 1] = sc.fy;
+    fractions[3 * j + 2] = sc.fz;
+  }
+  if (!sc.local) {
+    for (int ch = 0; ch < c; ++ch) out[j * c + ch] = 0.0f;
+    return;
+  }
+  const float fx = sc.fx, fy = sc.fy, fz = sc.fz;
+  const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
+  const T* row = table + sc.row * 8 * c;
+  for (int ch = 0; ch < (kOneChannel ? 1 : c); ++ch) {
+    float v[8];
+    if (kOneChannel) {
+      load_row1(row, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = load(row, k * c + ch);
+    }
+    float cx0 = v[0] * gx + v[1] * fx;
+    float cx1 = v[2] * gx + v[3] * fx;
+    float cx2 = v[4] * gx + v[5] * fx;
+    float cx3 = v[6] * gx + v[7] * fx;
+    float cy0 = cx0 * gy + cx1 * fy;
+    float cy1 = cx2 * gy + cx3 * fy;
+    out[j * c + ch] = cy0 * gz + cy1 * fz;
+  }
+}
+
 unsigned blocks_for(long long threads_total, int threads) {
   return (unsigned)((threads_total + threads - 1) / threads);
 }
@@ -213,6 +270,47 @@ extern "C" int vpt_corner_fetch(const void* prepared, const void* position,
   } else {
     launch_fetch<float>(t.table, t.c, t.w, t.h, t.d, position, n, out, cells,
                         fractions, (cudaStream_t)stream);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The slab instance: prepared is a VptCornerTable of the slab's table (its
+// d the slab's planes), d the whole volume's planes and the slab (index,
+// count) as in slab_fetch_kernel; the rest as vpt_corner_fetch's.
+extern "C" int vpt_slab_fetch(const void* prepared, int d, int slab_index,
+                              int num_slabs, const void* position,
+                              long long n, void* out, void* cells,
+                              void* fractions, void* stream) {
+  if (n <= 0) return 0;
+  if (num_slabs < 1 || slab_index < 0 || slab_index >= num_slabs
+      || d % num_slabs != 0)
+    return (int)cudaErrorInvalidValue;
+  const VptCornerTable& t = *static_cast<const VptCornerTable*>(prepared);
+  VptDeviceGuard guard(t.device);
+  const VptSlab slab = {slab_index, num_slabs};
+  const int threads = 256;
+  const unsigned blocks = blocks_for(n, threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* pos = (const float*)position;
+  float* o = (float*)out;
+  long long* cl = (long long*)cells;
+  float* fr = (float*)fractions;
+  if (t.bf16) {
+    const uint16_t* tab = (const uint16_t*)t.table;
+    if (t.c == 1)
+      slab_fetch_kernel<uint16_t, true><<<blocks, threads, 0, st>>>(
+          tab, t.c, t.w, t.h, d, slab, pos, n, o, cl, fr);
+    else
+      slab_fetch_kernel<uint16_t, false><<<blocks, threads, 0, st>>>(
+          tab, t.c, t.w, t.h, d, slab, pos, n, o, cl, fr);
+  } else {
+    const float* tab = (const float*)t.table;
+    if (t.c == 1)
+      slab_fetch_kernel<float, true><<<blocks, threads, 0, st>>>(
+          tab, t.c, t.w, t.h, d, slab, pos, n, o, cl, fr);
+    else
+      slab_fetch_kernel<float, false><<<blocks, threads, 0, st>>>(
+          tab, t.c, t.w, t.h, d, slab, pos, n, o, cl, fr);
   }
   return (int)cudaGetLastError();
 }

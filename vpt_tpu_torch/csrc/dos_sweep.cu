@@ -66,6 +66,12 @@
 // clamp, the taps summed in order k = 0..N-1 then divided by N, reads
 // clamped at the edges, a tap's x fraction zeroed unless 0 <= x + bx <=
 // W-2 (y likewise with H), both tap shifts clamped by the width.
+//
+// The band instance (vpt_dos_band, VptDosBand below) runs one slice over
+// a band of rows for the row-sharded sweeps (parallel/dos_halo.py,
+// shard.shard_render_frame): dos_row, dos_fetch and dos_composite shared
+// with the cooperative kernel, vpt_tpu's sharded taps on a halo-extended
+// buffer.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -139,13 +145,11 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// Row k of dos.slice_table into row[0 .. 4 + 4N), by the 32 lanes of a
-// warp: every lane projects the slice, lane 0 writes the head and the
-// lanes write the taps in turn.
-__device__ __forceinline__ void dos_row(const VptDosArgs& a, float depth,
-                                        float sd, float max_depth,
-                                        const float* offsets, int k,
-                                        float* row, int lane) {
+// Slice k's depth dk = depth + k*sd and its projection corr of (1, 1,
+// -dk), divided by w (dos.slice_table's transform_point).
+__device__ __forceinline__ float dos_project(const VptDosArgs& a,
+                                             float depth, float sd, int k,
+                                             float corr[3]) {
   const float dk = depth + (float)k * sd;
   const float* m = a.projection;
   float out[4];
@@ -155,7 +159,20 @@ __device__ __forceinline__ void dos_row(const VptDosArgs& a, float depth,
     out[r] = 1.0f * __ldg(m + 4 * r) + 1.0f * __ldg(m + 4 * r + 1)
              + -dk * __ldg(m + 4 * r + 2) + 1.0f * __ldg(m + 4 * r + 3);
   }
-  const float corr[3] = {out[0] / out[3], out[1] / out[3], out[2] / out[3]};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) corr[j] = out[j] / out[3];
+  return dk;
+}
+
+// Row k of dos.slice_table into row[0 .. 4 + 4N), by the 32 lanes of a
+// warp: every lane projects the slice, lane 0 writes the head and the
+// lanes write the taps in turn.
+__device__ __forceinline__ void dos_row(const VptDosArgs& a, float depth,
+                                        float sd, float max_depth,
+                                        const float* offsets, int k,
+                                        float* row, int lane) {
+  float corr[3];
+  const float dk = dos_project(a, depth, sd, k, corr);
   const float extent = sd * a.tan_aperture;
   const float scale[2] = {corr[0] * extent, corr[1] * extent};
   const float dims[2] = {(float)a.width, (float)a.height};
@@ -232,6 +249,18 @@ __device__ __forceinline__ DosFetch dos_fetch(const A& a, float2 ndc,
   return f;
 }
 
+// The front-to-back composite of a written pixel's fetch into its colour,
+// under the previous occlusion prev.
+__device__ __forceinline__ float4 dos_composite(float4 col, const DosFetch& f,
+                                                float prev) {
+  const float keep = 1.0f - col.w;
+  col.x = col.x + f.r * prev * f.alpha * keep;
+  col.y = col.y + f.g * prev * f.alpha * keep;
+  col.z = col.z + f.b * prev * f.alpha * keep;
+  col.w = vpt_nmin(col.w + f.alpha, 1.0f);
+  return col;
+}
+
 // The slice's composite and new occlusion at pixel i, from the previous
 // buffer src into dst.
 __device__ __forceinline__ void dos_finish(const VptDosArgs& a,
@@ -245,12 +274,7 @@ __device__ __forceinline__ void dos_finish(const VptDosArgs& a,
     dst[i] = prev;
     return;
   }
-  float4 col = color[i];
-  const float keep = 1.0f - col.w;
-  col.x = col.x + f.r * prev * f.alpha * keep;
-  col.y = col.y + f.g * prev * f.alpha * keep;
-  col.z = col.z + f.b * prev * f.alpha * keep;
-  col.w = vpt_nmin(col.w + f.alpha, 1.0f);
+  const float4 col = dos_composite(color[i], f, prev);
 
   // the disk taps of the previous buffer
   const int x = i % width, y = i / width;
@@ -378,6 +402,125 @@ dos_sweep_ext_kernel(const VptDosExt a, const VptDosFrame f) {
   dos_sweep<kBf16, kTf, kC>(a, f);
 }
 
+// The band instance (parallel/dos_halo.py, shard.shard_render_frame of
+// DOS): one launch a slice over a rank's rows [row0, row0 + band_h) of the
+// image (a.height rows).  The previous slice's occlusion comes in ext, a
+// buffer of ext_h rows whose first is the image's row ext_row0: the rank's
+// rows and K halo rows from its neighbours on each side
+// (dos_halo.occlusion_halo_width), or the whole image.  Each block builds
+// the slice's row of dos.slice_table (dos_row) and its occlusion scale; a
+// pixel takes dos_fetch at its NDC in the whole image, composites into its
+// colour, and writes its new occlusion into the band's buffer (a pixel
+// that writes nothing keeps the previous value, which the band's buffer
+// holds).  The taps are vpt_tpu's sharded taps (dos_halo.py:103-121,
+// dos.py:181-188): tap = mapped + offset * scale, its texel clamped in the
+// whole image's texel space, then read from ext at its local row (clamped
+// to ext's rows), the bilinear lerp of the corner-packed texture, the taps
+// summed in order and divided by N.  Built with -fmad=false like the
+// plain twin (kernels/dos_sweep.band_slice_plain).
+struct VptDosBand {
+  float4* color;                // (band_h, width, 4), in place
+  float* occlusion;             // (band_h, width): the slice's occlusion
+  const float* ext;             // (ext_h, width): the previous slice's
+  const float* depth;           // 0-d: the frame's first slice's depth
+  const float* max_depth;       // 0-d
+  const float* slice_distance;  // 0-d
+  const float* offsets;         // (N, 2) disk offsets
+  int slice;                    // k, the slice of the frame
+  int row0, band_h, ext_row0, ext_h;
+};
+
+template <bool kBf16, int kTf, int kC, class A>
+__device__ __forceinline__ void dos_band(const A& a, const VptDosBand& b) {
+  extern __shared__ float s_row[];   // the slice's row: 4 + 4N floats
+  __shared__ float s_scale[2];
+  const float depth = *b.depth, sd = *b.slice_distance;
+  if (threadIdx.x < 32) {
+    dos_row(a, depth, sd, *b.max_depth, b.offsets, b.slice, s_row,
+            threadIdx.x);
+  }
+  if (threadIdx.x == 0) {
+    float corr[3];
+    dos_project(a, depth, sd, b.slice, corr);
+    const float extent = sd * a.tan_aperture;
+    s_scale[0] = corr[0] * extent;
+    s_scale[1] = corr[1] * extent;
+  }
+  __syncthreads();
+  const int width = a.width, height = a.height;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (s_row[1] <= 0.0f || i >= width * b.band_h) return;
+  const int x = i % width, y = i / width;
+  const float2 ndc = make_float2(vpt_pixel_ndc(x, width),
+                                 vpt_pixel_ndc(b.row0 + y, height));
+  const DosFetch f = dos_fetch<kBf16, kTf, kC>(a, ndc, s_row);
+  if (!f.write) return;
+  const float* ext = b.ext;
+  const float prev = ext[(b.row0 + y - b.ext_row0) * width + x];
+  b.color[i] = dos_composite(b.color[i], f, prev);
+  const float mx = ndc.x * 0.5f + 0.5f, my = ndc.y * 0.5f + 0.5f;
+  const float fw = (float)width, fh = (float)height;
+  float total = 0.0f;
+  for (int k = 0; k < a.samples; ++k) {
+    const float tx = mx + __ldg(b.offsets + 2 * k) * s_scale[0];
+    const float ty = my + __ldg(b.offsets + 2 * k + 1) * s_scale[1];
+    const float ux = vpt_clip(tx * fw - 0.5f, 0.0f, fw - 1.0f);
+    const float uy = vpt_clip(ty * fh - 0.5f, 0.0f, fh - 1.0f);
+    const float ix = floorf(ux), iy = floorf(uy);
+    const float fx = ux - ix, fy = uy - iy;
+    const int x0 = vpt_index(ix), x1 = min(x0 + 1, width - 1);
+    const int ly = clampi(vpt_index(iy) - b.ext_row0, 0, b.ext_h - 1);
+    const int ly1 = min(ly + 1, b.ext_h - 1);
+    const float cx0 = ext[ly * width + x0] * (1.0f - fx)
+                      + ext[ly * width + x1] * fx;
+    const float cx1 = ext[ly1 * width + x0] * (1.0f - fx)
+                      + ext[ly1 * width + x1] * fx;
+    const float tap = cx0 * (1.0f - fy) + cx1 * fy;
+    total = (k == 0) ? tap : total + tap;
+  }
+  b.occlusion[i] = total / (float)a.samples * f.transmittance;
+}
+
+template <bool kBf16, int kTf>
+__global__ void __launch_bounds__(kThreads)
+dos_band_kernel(const VptDosArgs a, const VptDosBand b) {
+  dos_band<kBf16, kTf, 0>(a, b);
+}
+
+template <bool kBf16, int kTf, int kC>
+__global__ void __launch_bounds__(kThreads)
+dos_band_ext_kernel(const VptDosExt a, const VptDosBand b) {
+  dos_band<kBf16, kTf, kC>(a, b);
+}
+
+// The band instance for the sweep's flags and TF mode, as pick's.
+template <bool kBf16>
+const void* pick_band_tf(int tf_mode) {
+  switch (tf_mode) {
+    case 0: return (const void*)dos_band_kernel<kBf16, 0>;
+    case 1: return (const void*)dos_band_kernel<kBf16, 1>;
+    case 2: return (const void*)dos_band_kernel<kBf16, 2>;
+    default: return nullptr;
+  }
+}
+
+const void* pick_band(int flags, int tf_mode) {
+  const int bf16 = flags & 1;
+  if (flags & 4)
+    return bf16 ? (const void*)dos_band_ext_kernel<true, 0, 2>
+                : (const void*)dos_band_ext_kernel<false, 0, 2>;
+  if (flags & 2) {
+    if (bf16) return nullptr;
+    switch (tf_mode) {
+      case 0: return (const void*)dos_band_ext_kernel<false, 0, 1>;
+      case 1: return (const void*)dos_band_ext_kernel<false, 1, 1>;
+      case 2: return (const void*)dos_band_ext_kernel<false, 2, 1>;
+      default: return nullptr;
+    }
+  }
+  return bf16 ? pick_band_tf<true>(tf_mode) : pick_band_tf<false>(tf_mode);
+}
+
 // The instantiation for a table type and TF lookup mode (tf1d.cuh's: a
 // compile-time constant, so the lookup carries no branch).
 template <bool kBf16>
@@ -497,4 +640,47 @@ extern "C" int vpt_dos_sweep_info(int flags, int tf_mode, int steps,
                         (int)smem, dos_chunk(steps, samples)};
   for (int k = 0; k < 8; ++k) out[k] = values[k];
   return 0;
+}
+
+// One slice of the band instance (see VptDosBand): prepared is the
+// VptDosExt of the scene, Params and the whole image (its height the
+// image's); color and occlusion the band's (band_h, width) state, updated
+// in place; ext the (ext_h, width) previous occlusion from the image's row
+// ext_row0; depth, max_depth, the slice distance and the offsets the
+// state's (the depth of the frame's first slice: the caller advances it
+// after the frame).  An inactive slice changes nothing.
+extern "C" int vpt_dos_band(const void* prepared, void* color,
+                            void* occlusion, const void* ext,
+                            const void* depth, const void* max_depth,
+                            const void* slice_distance, const void* offsets,
+                            int slice, int row0, int band_h, int ext_row0,
+                            int ext_h, void* stream) {
+  const VptDosExt& a = *static_cast<const VptDosExt*>(prepared);
+  VptDeviceGuard guard(a.device);
+  if (band_h <= 0) return 0;
+  if (is_ext(a) && (a.filter < 0 || a.filter > 2))
+    return (int)cudaErrorInvalidValue;
+  if (row0 < 0 || row0 + band_h > a.height || ext_h <= 0
+      || ext_row0 > row0 || ext_row0 + ext_h < row0 + band_h
+      || slice < 0 || slice >= a.steps)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = pick_band(flags_of(a), a.tf_mode);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  VptDosArgs args = a;
+  VptDosExt ext_args = a;
+  VptDosBand band = {static_cast<float4*>(color),
+                     static_cast<float*>(occlusion),
+                     static_cast<const float*>(ext),
+                     static_cast<const float*>(depth),
+                     static_cast<const float*>(max_depth),
+                     static_cast<const float*>(slice_distance),
+                     static_cast<const float*>(offsets),
+                     slice, row0, band_h, ext_row0, ext_h};
+  void* params[] = {is_ext(a) ? (void*)&ext_args : (void*)&args, &band};
+  const long long n = (long long)a.width * band_h;
+  return (int)cudaLaunchKernel(
+      kernel, dim3((unsigned)((n + kThreads - 1) / kThreads)),
+      dim3(kThreads), params,
+      (size_t)(kHead + 4 * a.samples) * sizeof(float),
+      (cudaStream_t)stream);
 }

@@ -47,6 +47,15 @@
 // kC = 0 branches are the headline's code, so its instances keep their
 // registers (bench_mcm_event.py --registers against the parent tree).
 //
+// The flight (mcm_flight), the colour of a fetched value (mcm_value_color)
+// and the interaction (mcm_interact) are device functions that the
+// whole-frame kernel and the halo instance (ArgsHalo below: a spatially
+// sharded volume, a launch an event and one more, with the all-reduce of
+// each photon's masked slab-local value between them) share; the
+// whole-frame instances keep
+// their registers (40) and their time (bench_mcm_event.py against the
+// parent tree, PERF.md §6).
+//
 // Measured against it (bench_mcm_event.py; PERF.md has the numbers): a
 // wavefront inside a block (the photons' state in shared memory, dense
 // reset and scatter queues built by ballots, a persistent one-wave grid at
@@ -67,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "ray.cuh"
+#include "slab.cuh"
 
 namespace {
 
@@ -204,6 +214,96 @@ __device__ __forceinline__ float grid_flight(const float2* grid, int n,
   return cell.x;
 }
 
+// The exact or cheb-skip flight (mcm.flight_phase, mcm.py:85-110): an
+// exponential free path, extended over (ch - 1) empty cells in skip mode,
+// to the tentative position q.  The whole-frame kernel and the halo
+// instance run it alike.
+template <class A>
+__device__ __forceinline__ void mcm_flight(uint32_t& s, const float p[3],
+                                           const float dir[3], float ch,
+                                           bool skip, const A& a,
+                                           float q[3]) {
+  float dist = vpt_exponential(s, a.extinction);
+  if (skip) dist = vpt_nmax(dist, vpt_nmax(ch - 1.0f, 0.0f) * a.cell);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) q[k] = p[k] + dist * dir[k];
+}
+
+// The colour of a fetched value v (the TF row's lookup) and, from a
+// cheb-skip table, its cheb distance, rounded half to even as jnp.round.
+// (In this order: the colour first, as the whole-frame kernel always had
+// it, keeps that kernel's 40 registers without a spill.)
+__device__ __forceinline__ float4 mcm_value_color(const float4* s_tf,
+                                                  const Args& a, float v,
+                                                  bool skip,
+                                                  float& cheb_new) {
+  const float4 vs = vpt_color(s_tf, a.tw, a.tf_mode, v, skip);
+  cheb_new = skip ? rintf(vpt_nmax(-v, 0.0f)) : 0.0f;
+  return vs;
+}
+
+// The interaction at q with the sampled colour vs (mcm.interact_phase,
+// mcm.py:113-184): classify (mcm.py:122-133), then deposit into the
+// running mean and re-seed, scatter, or pass a null collision, committing
+// the photon in place.  cheb_new is the landing cell's cheb distance (skip
+// mode); collide is false for a hop of the grid machine.  The whole-frame
+// kernel and the halo instance run it alike.
+template <bool kMap, class A>
+__device__ __forceinline__ void mcm_interact(
+    uint32_t& s, const A& a, const float* s_mvp, const float* s_env,
+    float ndcx, float ndcy, float maxb, const float q[3], float4 vs,
+    float cheb_new, bool collide, float p[3], float dir[3], float tr[3],
+    float rad[3], float& b, float& samples, float& ch) {
+  float alpha = vs.w;
+  float p_null = 1.0f - alpha;
+  float p_scatter = (b >= maxb)
+      ? 0.0f : alpha * vpt_nmax(vpt_nmax(vs.x, vs.y), vs.z);
+  float p_absorb = 1.0f - p_null - p_scatter;
+  float fortune = vpt_uniform(s);
+  bool oob = q[0] > 1.0f || q[0] < 0.0f || q[1] > 1.0f || q[1] < 0.0f
+             || q[2] > 1.0f || q[2] < 0.0f;
+  bool absorb = !oob && collide && fortune < p_absorb;
+  bool scatter = !oob && collide && !absorb
+                 && fortune < p_absorb + p_scatter;
+
+  if (oob || absorb) {
+    // deposit into the running mean, then re-seed the photon; an escape
+    // deposits the environment along the photon's direction
+    float env[3];
+    if constexpr (kMap) {
+      const float4 e = oob ? vpt_sample_environment(
+                                 reinterpret_cast<const float4*>(a.env),
+                                 a.env_h, a.env_w, dir[0], dir[1], dir[2])
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      env[0] = e.x; env[1] = e.y; env[2] = e.z;
+    } else {
+      env[0] = s_env[0]; env[1] = s_env[1]; env[2] = s_env[2];
+    }
+    samples = samples + 1.0f;
+    float den = vpt_nmax(samples, 1.0f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float r_new = oob ? tr[k] * env[k] : 0.0f;
+      rad[k] = rad[k] + (r_new - rad[k]) / den;
+      tr[k] = 1.0f;
+    }
+    photon_reset(s, ndcx, ndcy, a, s_mvp, p, dir);
+    b = 0.0f;
+    ch = 0.0f;
+  } else {
+    if (scatter) {
+      henyey_greenstein(s, a.anisotropy, dir);
+      b = b + 1.0f;
+      tr[0] = tr[0] * vs.x;
+      tr[1] = tr[1] * vs.y;
+      tr[2] = tr[2] * vs.z;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) p[k] = q[k];
+    ch = cheb_new;
+  }
+}
+
 // The three machines are template instances: kGrid the majorant grid's
 // flight (the exact and cheb-skip flights otherwise, by use_skip), kMap an
 // environment map larger than 1x1 (the headline's 1x1 texel sits in
@@ -287,19 +387,14 @@ __device__ __forceinline__ void mcm_event(const A& a) {
       // the collision's rate relative to the local majorant
       vs.w = mu > 0.0f ? vpt_nmin(vs.w / mu, 1.0f) : 0.0f;
     } else {
-      // flight: exponential free path, extended over empty cells in skip
-      // mode
-      float dist = vpt_exponential(s, a.extinction);
-      if (skip) dist = vpt_nmax(dist, vpt_nmax(ch - 1.0f, 0.0f) * a.cell);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) q[k] = p[k] + dist * dir[k];
+      mcm_flight(s, p, dir, ch, skip, a, q);
 
       // sample: one corner row, then the TF row
       if constexpr (kC == 0) {
-        float v = vpt_fetch<kBf16>(a.table, a.d, a.h, a.w, q[0], q[1],
-                                   q[2]);
-        vs = vpt_color(s_tf, a.tw, a.tf_mode, v, skip);
-        cheb_new = skip ? rintf(vpt_nmax(-v, 0.0f)) : 0.0f;
+        vs = mcm_value_color(s_tf, a, vpt_fetch<kBf16>(a.table, a.d, a.h,
+                                                       a.w, q[0], q[1],
+                                                       q[2]),
+                             skip, cheb_new);
       } else {
         vs = vpt_fetch_color<kBf16, kC>(a.table, a.d, a.h, a.w, a.filter,
                                         q[0], q[1], q[2], s_tf, a.tw,
@@ -307,55 +402,8 @@ __device__ __forceinline__ void mcm_event(const A& a) {
       }
     }
 
-    // classify (mcm.py:122-133)
-    float alpha = vs.w;
-    float p_null = 1.0f - alpha;
-    float p_scatter = (b >= maxb)
-        ? 0.0f : alpha * vpt_nmax(vpt_nmax(vs.x, vs.y), vs.z);
-    float p_absorb = 1.0f - p_null - p_scatter;
-    float fortune = vpt_uniform(s);
-    bool oob = q[0] > 1.0f || q[0] < 0.0f || q[1] > 1.0f || q[1] < 0.0f
-               || q[2] > 1.0f || q[2] < 0.0f;
-    bool absorb = !oob && collide && fortune < p_absorb;
-    bool scatter = !oob && collide && !absorb
-                   && fortune < p_absorb + p_scatter;
-
-    if (oob || absorb) {
-      // deposit into the running mean, then re-seed the photon; an escape
-      // deposits the environment along the photon's direction
-      float env[3];
-      if constexpr (kMap) {
-        const float4 e = oob ? vpt_sample_environment(
-                                   reinterpret_cast<const float4*>(a.env),
-                                   a.env_h, a.env_w, dir[0], dir[1], dir[2])
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        env[0] = e.x; env[1] = e.y; env[2] = e.z;
-      } else {
-        env[0] = s_env[0]; env[1] = s_env[1]; env[2] = s_env[2];
-      }
-      samples = samples + 1.0f;
-      float den = vpt_nmax(samples, 1.0f);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float r_new = oob ? tr[k] * env[k] : 0.0f;
-        rad[k] = rad[k] + (r_new - rad[k]) / den;
-        tr[k] = 1.0f;
-      }
-      photon_reset(s, ndcx, ndcy, a, s_mvp, p, dir);
-      b = 0.0f;
-      ch = 0.0f;
-    } else {
-      if (scatter) {
-        henyey_greenstein(s, a.anisotropy, dir);
-        b = b + 1.0f;
-        tr[0] = tr[0] * vs.x;
-        tr[1] = tr[1] * vs.y;
-        tr[2] = tr[2] * vs.z;
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) p[k] = q[k];
-      ch = cheb_new;
-    }
+    mcm_interact<kMap>(s, a, s_mvp, s_env, ndcx, ndcy, maxb, q, vs,
+                       cheb_new, collide, p, dir, tr, rad, b, samples, ch);
   }
 
 #pragma unroll
@@ -382,6 +430,120 @@ template <bool kBf16, bool kGrid, bool kMap, int kC>
 __global__ void __launch_bounds__(kThreads)
 mcm_event_ext_kernel(ArgsExt a) {
   mcm_event<kBf16, kGrid, kMap, kC>(a);
+}
+
+// The halo instance (parallel/halo.py, a HaloScene frame): the volume is
+// z slabs over the ranks of a group, each rank holding its slab's corner
+// rows, and a value is the sum over the ranks of their masked slab-local
+// fetches (vpt_tpu/parallel/halo.py:199-216), an all-reduce between the
+// fetch and its use.  So a frame of E events is E + 1 launches on the state
+// tensors, the wrapper all-reducing the values between them: launch e
+// finishes event e - 1 (interact: the TF lookup of the summed value, with
+// skip its cheb distance, then mcm_interact) and starts event e (flight:
+// mcm_flight and this rank's masked value, slab.cuh's cell; 0 where another
+// rank owns it).  Between launches a photon keeps its state, its stream as
+// it was before the flight and the value: the interact redraws the flight
+// from that stream (the same operations on the same inputs, so the same
+// position) instead of storing the tentative position, so an event moves
+// the state in and out once, plus the value and the stream across the
+// all-reduce (136 bytes a pixel with cheb-skip).  The state round-trips
+// device memory between launches (float32, exact), so a frame equals the
+// whole-frame kernel's when one rank owns every cell.  Instances: the
+// headline's fetch (one channel, linear; exact and cheb-skip flights by
+// use_skip), bf16 or float32 rows, a 1x1 or equirect environment; a
+// HaloScene has no majorant grid.
+struct ArgsHalo : Args {
+  uint32_t* rng;   // (n,) each photon's stream before its flight
+  float* value;    // (n,) the masked slab-local value, then the sum
+  VptSlab slab;
+  int interact;    // 1: finish the previous event (0: seed the streams)
+  int flight;      // 1: start the next event
+};
+
+template <bool kBf16, bool kMap>
+__global__ void __launch_bounds__(kThreads)
+mcm_halo_kernel(ArgsHalo a) {
+  extern __shared__ float4 s_tf[];
+  __shared__ float s_mvp[16];
+  __shared__ float s_env[3];
+  if (a.interact) {
+    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
+      s_tf[i] = a.tf_row[i];
+    if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
+    if (!kMap && threadIdx.x < 3)
+      s_env[threadIdx.x] = __ldg(a.env + threadIdx.x);
+    __syncthreads();
+  }
+  const long long n = (long long)a.width * a.height;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float p[3], dir[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p[k] = a.position[3 * i + k];
+    dir[k] = a.direction[3 * i + k];
+  }
+  const bool skip = a.use_skip != 0;
+  float ch = skip ? a.cheb[i] : 0.0f;
+  const int y = (int)i / a.width;
+  const float ndcx = vpt_pixel_ndc((int)i - y * a.width, a.width);
+  const float ndcy = vpt_pixel_ndc(a.row0 + y, a.full_height);
+  uint32_t s;
+  if (a.interact) {
+    float tr[3], rad[3], q[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      tr[k] = a.transmittance[3 * i + k];
+      rad[k] = a.radiance[3 * i + k];
+    }
+    float b = a.bounces[i];
+    float samples = a.samples[i];
+    s = a.rng[i];
+    mcm_flight(s, p, dir, ch, skip, a, q);
+    float cheb_new;
+    const float4 vs = mcm_value_color(s_tf, a, a.value[i], skip, cheb_new);
+    mcm_interact<kMap>(s, a, s_mvp, s_env, ndcx, ndcy, (float)a.max_bounces,
+                       q, vs, cheb_new, true, p, dir, tr, rad, b, samples,
+                       ch);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      a.position[3 * i + k] = p[k];
+      a.direction[3 * i + k] = dir[k];
+      a.transmittance[3 * i + k] = tr[k];
+      a.radiance[3 * i + k] = rad[k];
+    }
+    a.bounces[i] = b;
+    a.samples[i] = samples;
+    if (skip) a.cheb[i] = ch;
+  } else {
+    s = vpt_seed_pixel(ndcx, ndcy, a.seed);
+  }
+  if (a.flight) {
+    a.rng[i] = s;
+    float q[3];
+    mcm_flight(s, p, dir, ch, skip, a, q);
+    const VptSlabCell c = vpt_slab_cell(a.d, a.h, a.w, a.slab, q[0], q[1],
+                                        q[2]);
+    float v = 0.0f;
+    if (c.local) {
+      const VptCell<int64_t> cell = {c.row, c.fx, c.fy, c.fz};
+      v = vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(a.table, c.row), cell);
+    }
+    a.value[i] = v;
+  }
+}
+
+using KernelHalo = void (*)(ArgsHalo);
+
+// The halo instance for a bf16 (flags & 1) or float32 table and an
+// environment map larger than 1x1 (flags & 4) or the 1x1 texel.
+KernelHalo pick_halo(int flags) {
+  switch (flags & 5) {
+    case 0: return mcm_halo_kernel<false, false>;
+    case 1: return mcm_halo_kernel<true, false>;
+    case 4: return mcm_halo_kernel<false, true>;
+    default: return mcm_halo_kernel<true, true>;
+  }
 }
 
 // Without opting in, a block gets 48 KiB of shared memory, static and
@@ -578,4 +740,66 @@ extern "C" int vpt_mcm_event_info(int flags, int tw, int* out) {
   const size_t smem = tf_smem(flags, tw);
   return (int)((flags & 8) ? info(pick_ext(flags), smem, out)
                            : info(pick(flags), smem, out));
+}
+
+// One launch of the halo instance (see ArgsHalo): interact finishes the
+// previous event (the TF row, environment and inverse MVP; the value the
+// sum over the slabs), flight starts the next (table: the rank's slab of
+// the corner table the flight samples, the cheb-skip table with use_skip,
+// (slab rows, 8); d, h, w the whole volume's).  rng (n,) uint32 and value
+// (n,) float32 carry an event between launches; a launch without interact
+// seeds the streams (the frame's first).  The launch renders rows [row0,
+// row0 + height) of a full_height-row image, as vpt_mcm_event_frame's.
+extern "C" int vpt_mcm_halo_event(
+    void* position, void* direction, void* bounces, void* transmittance,
+    void* radiance, void* samples, void* cheb, const void* table,
+    int table_bf16, int d, int h, int w, const void* tf_row, int tw,
+    int tf_mode, const void* env, int env_h, int env_w, const void* mvp,
+    int width, int height, float inv_res_x, float inv_res_y, float seed,
+    float extinction, float anisotropy, float blur, float cell,
+    int max_bounces, int use_skip, int row0, int full_height, void* rng,
+    void* value, int slab_index, int num_slabs, int interact, int flight,
+    void* stream) {
+  if (width <= 0 || height <= 0) return 0;
+  if (row0 < 0 || full_height < row0 + height || num_slabs < 1
+      || slab_index < 0 || slab_index >= num_slabs || d % num_slabs != 0)
+    return (int)cudaErrorInvalidValue;
+  ArgsHalo a = {};
+  a.position = (float*)position;
+  a.direction = (float*)direction;
+  a.bounces = (float*)bounces;
+  a.transmittance = (float*)transmittance;
+  a.radiance = (float*)radiance;
+  a.samples = (float*)samples;
+  a.cheb = (float*)cheb;
+  a.table = table;
+  a.d = d; a.h = h; a.w = w;
+  a.tf_row = (const float4*)tf_row;
+  a.tw = tw;
+  a.tf_mode = tf_mode;
+  a.env = (const float*)env;
+  a.env_h = env_h; a.env_w = env_w;
+  a.mvp = (const float*)mvp;
+  a.width = width; a.height = height;
+  a.inv_res_x = inv_res_x; a.inv_res_y = inv_res_y;
+  a.seed = seed; a.extinction = extinction; a.anisotropy = anisotropy;
+  a.blur = blur; a.cell = cell;
+  a.max_bounces = max_bounces; a.steps = 1; a.use_skip = use_skip;
+  a.row0 = row0; a.full_height = full_height;
+  a.rng = (uint32_t*)rng;
+  a.value = (float*)value;
+  a.slab = {slab_index, num_slabs};
+  a.interact = interact;
+  a.flight = flight;
+  const int flags = (table_bf16 ? 1 : 0)
+                    | (env_h == 1 && env_w == 1 ? 0 : 4);
+  return (int)launch(pick_halo(flags), a, (size_t)tw * sizeof(float4),
+                     (cudaStream_t)stream);
+}
+
+// The launch shape of the halo instance for flags 1 (a bf16 table) and 4
+// (an environment map larger than 1x1) and a TF row of `tw` texels, as
+// vpt_mcm_event_info's.
+extern "C" int vpt_mcm_halo_info(int flags, int tw, int* out) {
+  return (int)info(pick_halo(flags), (size_t)tw * sizeof(float4), out);
 }

@@ -60,8 +60,20 @@ SIGNATURES = {
                             + [_F] * 7 + [_I, _I, _I, _P, _I, _I, _I, _I, _I,
                                           _P]),
     "vpt_mcm_event_info": [_I, _I, _P],
+    # a launch of the halo instance: state (7); table, bf16, D, H, W, TF
+    # row, TW, TF mode; env, EH, EW; MVP, width, height; 7 floats; max
+    # bounces, use_skip, row0, full height; rng, value; slab index, slabs,
+    # interact, flight; stream
+    "vpt_mcm_halo_event": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P,
+                                       _I, _I, _P, _I, _I]
+                           + [_F] * 7 + [_I] * 4 + [_P] * 2 + [_I] * 4
+                           + [_P]),
+    "vpt_mcm_halo_info": [_I, _I, _P],
     "vpt_gather_rows": [_P, _L, _I, _P, _L, _P, _P],
     "vpt_corner_fetch": [_P, _P, _L, _P, _P, _P, _P],
+    # prepared VptCornerTable of the slab, D, slab index, slabs,
+    # position, n, out, cells, fractions, stream
+    "vpt_slab_fetch": [_P, _I, _I, _I, _P, _L, _P, _P, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
     # prepared VptMarchExt, state; first, mix; stream
@@ -99,6 +111,10 @@ SIGNATURES = {
     # flags (1 bf16, 2 ext of one channel, 4 of two), TF mode, steps, disk
     # taps, device, out
     "vpt_dos_sweep_info": [_I, _I, _I, _I, _I, _P],
+    # prepared VptDosArgs of the whole image; the band's color and
+    # occlusion, ext, depth, max depth, slice distance, offsets; slice,
+    # row0, band rows, ext row0, ext rows; stream
+    "vpt_dos_band": [_P] * 8 + [_I] * 5 + [_P],
     # prepared VptLaoArgs, state; stream
     "vpt_lao_launch": [_P, _P, _P],
     # prepared VptLaoArgs, state, counts; stream
@@ -391,6 +407,38 @@ def scene_args(scene, table, what, ext: bool = False):
     return tensors, args + (
         None if tf_table is None else tf_table.data_ptr(), th, channels,
         filt)
+
+
+def is_halo(scene) -> bool:
+    """Whether ``scene`` is a ``parallel.halo.HaloScene`` (a rank's z slab
+    of the volume)."""
+    return hasattr(scene, "num_slabs")
+
+
+def refuse_halo(scene, what: str, item: str) -> None:
+    """Raise ``_not_ported`` for a frame of ``what`` over a HaloScene on
+    the card: that kernel reads one whole corner table (ROADMAP queue 2b
+    ``item``)."""
+    if is_halo(scene):
+        from ..renderers.base import _not_ported
+
+        raise _not_ported(f"{what} over a HaloScene on the card (its "
+                          "kernel split around the slab fetch)",
+                          f"queue 2b item {item}")
+
+
+def refuse_slab_layout(interleave: int, masked: bool) -> None:
+    """Raise ``_not_ported`` for what the slab kernels (K3's slab and K5's
+    halo instances) do not take on the card: interleaved thin slabs
+    (``HaloScene.interleave`` > 1) and an unmasked slab-local fetch
+    (``HaloScene(collective=False)``), which only ``resident.py`` needs
+    (ROADMAP queue 1 item 16 part 3); their plain twins take both."""
+    if interleave != 1 or not masked:
+        from ..renderers.base import _not_ported
+
+        what = ("interleaved thin slabs" if interleave != 1
+                else "an unmasked (collective=False) slab fetch")
+        raise _not_ported(f"{what} on the card", "queue 1 item 16 part 3")
 
 
 def environment_map(scene):

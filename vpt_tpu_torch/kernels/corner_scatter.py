@@ -50,7 +50,13 @@ def scatter_add_rows8_plain(table, idx, ct):
 
 def corner_grad_plain(idx, f, ct, rows: int, c: int):
     """(...) cells, (..., 3) fractions, (..., C) cotangents → the (rows, 8·C)
-    gradient of the corner table."""
+    gradient of the corner table.  A cell of -1 (a sample that
+    ``corner_gather.slab_fetch`` masked out) adds nothing, as the kernel
+    skips it."""
+    outside = idx < 0
+    if bool(outside.any()):
+        idx = torch.where(outside, torch.zeros_like(idx), idx)
+        ct = torch.where(outside[..., None], torch.zeros_like(ct), ct)
     ct8 = corner_weights(f)[..., :, None] * ct[..., None, :]
     grad = torch.zeros(rows, 8 * c, dtype=torch.float32, device=ct.device)
     return grad.index_add_(0, idx.reshape(-1), ct8.reshape(-1, 8 * c))

@@ -49,6 +49,8 @@ from . import _build
 
 #: kernel launches (one a frame) since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: launches of the band instance (one a slice), likewise
+BAND_LAUNCHES = 0
 #: the leading floats of a table row (``dos.TABLE_HEAD``)
 _HEAD = 4
 #: the most disk taps the kernel takes: a block holds at least one row of
@@ -64,6 +66,39 @@ def sweep_frame_plain(state, scene, params):
     dos.composite_slices(state, dataclasses.replace(scene, kernels=False),
                          params, table)
     dos.advance_depth(state, table)
+
+
+def band_slice_plain(state, ext, ext_row0: int, scene, params, k: int,
+                     window):
+    """Slice ``k`` of the frame on a band of rows in plain PyTorch, in
+    place on the band's colour and occlusion: ``window`` = (row0, H)
+    places the band in the image, ``ext`` (E, W) is the previous slice's
+    occlusion from the image's row ``ext_row0``
+    (``dos.extended_taps``); the row and occlusion scale are
+    ``dos.slice_table``'s and the taps vpt_tpu's sharded taps
+    (``dos.hook_taps``)."""
+    from .. import sampling
+    from ..renderers import dos
+
+    color = state["color"]
+    band_h, width = color.shape[:2]
+    height = sampling.row_window(window, band_h)[1]
+    scene = dataclasses.replace(scene, kernels=False)
+    table = dos.slice_table(state, scene, params)
+    scale = dos._slice_projection(state, scene, params)[2][k]
+    ndc = sampling.pixel_ndc(band_h, width, device=color.device,
+                             window=window)
+    taps = dos.hook_taps(ndc, state["offsets"], scale)
+
+    def tap_mean(occ):
+        return dos._mean_of_taps(dos.extended_taps(ext, ext_row0, taps,
+                                                   height, width))
+
+    color, occlusion = dos._slice_step(
+        color, state["occlusion"], scene, params, table[k], ndc,
+        state["slice_distance"], tap_mean)
+    state["color"].copy_(color)
+    state["occlusion"].copy_(occlusion)
 
 
 def slice_rows_plain(depth, max_depth, slice_distance, projection, offsets,
@@ -187,6 +222,7 @@ def sweep_frame(state, scene, params, table=None):
         sweep_frame_plain(state, scene, params)
         return
     global LAUNCHES
+    _build.refuse_halo(scene, "a DOS frame (K9)", "8")
     p = _scene_cache.get(scene, (params,) + tuple(color.shape[:2]))
     device = color.device
     if color.get_device() != p.device:
@@ -214,6 +250,56 @@ def sweep_frame(state, scene, params, table=None):
     if err:
         _build.check("vpt_dos_frame", err)
     LAUNCHES += 1
+
+
+def band_slice(state, ext, ext_row0: int, scene, params, k: int, window):
+    """Slice ``k`` of the frame on a band of rows, in place on the band's
+    colour and occlusion: K9's band instance for CUDA state (one launch),
+    :func:`band_slice_plain` for CPU state.  ``window`` = (row0, H) places
+    the band's rows in the image; ``ext`` is the previous slice's
+    occlusion, (E, W) float32 from the image's row ``ext_row0``, covering
+    the band (``dos.render_band`` builds it); the state's depth is the
+    frame's first slice's (``dos.render_band`` advances it after the
+    frame)."""
+    color, occlusion = state["color"], state["occlusion"]
+    if not color.is_cuda:
+        band_slice_plain(state, ext, ext_row0, scene, params, k, window)
+        return
+    global BAND_LAUNCHES
+    from .. import sampling
+
+    _build.refuse_halo(scene, "a DOS frame (K9)", "8")
+    band_h, width = color.shape[:2]
+    row0, height = sampling.row_window(window, band_h)
+    p = _scene_cache.get(scene, (params, height, width))
+    device = color.device
+    if color.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{device}")
+    _build.check_image(color, (band_h, width, 4), device, "the DOS color")
+    _build.check_image(occlusion, (band_h, width), device,
+                       "the DOS occlusion")
+    _build.check_aligned(color, "the DOS color")
+    _check_tensor(ext, (ext.shape[0], width), device, "extended occlusion")
+    if not (ext_row0 <= row0 and row0 + band_h <= ext_row0 + ext.shape[0]):
+        raise ValueError(f"the extended occlusion's rows [{ext_row0}, "
+                         f"{ext_row0 + ext.shape[0]}) do not cover the "
+                         f"band [{row0}, {row0 + band_h})")
+    if not 0 <= k < params.steps:
+        raise ValueError(f"slice {k} of a {params.steps}-slice frame")
+    offsets = state["offsets"]
+    _check_tensor(offsets, (params.samples, 2), device, "offsets")
+    scalars = [state[key] for key in ("depth", "max_depth",
+                                      "slice_distance")]
+    for key, value in zip(("depth", "max_depth", "slice_distance"), scalars):
+        _check_tensor(value, (), device, key)
+    err = _build.library().vpt_dos_band(
+        p.address, color.data_ptr(), occlusion.data_ptr(), ext.data_ptr(),
+        *(v.data_ptr() for v in scalars), offsets.data_ptr(), k, row0,
+        band_h, ext_row0, ext.shape[0], _build.current_stream(p.device))
+    if err:
+        _build.check("vpt_dos_band", err)
+    BAND_LAUNCHES += 1
 
 
 #: the fields of :func:`occupancy`, in the order ``vpt_dos_sweep_info``

@@ -101,6 +101,7 @@ def shade(state, scene, params):
     if not state.is_cuda:
         return iso_shade_plain(state, scene, params)
     global LAUNCHES
+    _build.refuse_halo(scene, "an ISO display (K7)", "6")
     p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2]))
     if state.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "

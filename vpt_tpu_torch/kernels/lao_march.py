@@ -179,6 +179,7 @@ def lao_frame(state, scene, params, counts=None, window=None):
         lao_frame_plain(state, scene, params, window)
         return
     global LAUNCHES
+    _build.refuse_halo(scene, "a LAO frame (K10)", "9")
     p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2])
                          + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:

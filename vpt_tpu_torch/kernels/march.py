@@ -197,6 +197,7 @@ def march_frame(mode, state, scene, params, seed, frame_number,
                           window)
         return
     global LAUNCHES
+    _build.refuse_halo(scene, f"an {mode.upper()} frame (K6)", "6")
     p = _scene_cache.get(scene, (mode, params) + tuple(state.shape[:2])
                          + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:

@@ -16,6 +16,15 @@ There is no Pallas original: in ``vpt_tpu`` the frame is an XLA
   filtered volume an ext instance (``csrc/ray.cuh``: the filtered fetch,
   the two-channel row, the 2D TF lookup).
 
+A frame over a ``parallel.halo.HaloScene`` (a rank's z slab of the
+volume) runs the kernel's halo instance on the card
+(:func:`halo_event_frame`): a launch an event and one more, each
+finishing the previous event with the value summed over the slabs and
+starting the next one by writing each photon's masked slab-local value,
+with the scene's all-reduce between them; its plain twin is
+:func:`event_frame_plain` over the same scene, whose samplers mask and
+sum alike.
+
 :func:`event_frame` takes the plain loop for CPU state and launches the
 kernel for CUDA state; both update the state tensors in place.  For CUDA
 state it raises on what the kernel does not take: scenes without corner
@@ -40,6 +49,8 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: launches of the halo instance (steps + 1 a frame), likewise
+HALO_LAUNCHES = 0
 
 _VEC3 = ("position", "direction", "transmittance", "radiance")
 _SCALAR = ("bounces", "samples")
@@ -170,9 +181,13 @@ def launch_args(state, scene, params, seed, window=None):
 
 def event_frame(state, scene, params, seed, window=None):
     """One frame of ``params.steps`` events, in place on ``state``;
-    ``window`` as in :func:`launch_args`."""
+    ``window`` as in :func:`launch_args`.  A HaloScene's frame on the card
+    is :func:`halo_event_frame`."""
     if not state["position"].is_cuda:
         event_frame_plain(state, scene, params, seed, window)
+        return
+    if _build.is_halo(scene):
+        halo_event_frame(state, scene, params, seed, window)
         return
     global LAUNCHES
     args = launch_args(state, scene, params, seed, window)
@@ -181,6 +196,116 @@ def event_frame(state, scene, params, seed, window=None):
         _build.check("vpt_mcm_event_frame",
                      _build.library().vpt_mcm_event_frame(*args))
     LAUNCHES += 1
+
+
+def _halo_fields(scene):
+    return (scene.slab_packed, scene.tracking_packed, scene.transfer_1d,
+            scene.environment, scene.mvp_inverse, scene.tf_mxu)
+
+
+def _prepare_halo(scene, key):
+    """What the halo instance's launches of ``key`` = (use_skip, height,
+    width, row0, full_height) take of a HaloScene: ``Prepared(tensors,
+    table, row, env, mvp, scratch)``; the scratch (the streams and values
+    between the launches) is the frame's."""
+    from . import tf1d
+
+    use_skip, height, width, row0, full_height = key
+    _build.refuse_slab_layout(scene.interleave, scene.collective)
+    if scene.channels != 1 or scene.filter != "linear":
+        from ..renderers.base import _not_ported
+
+        raise _not_ported("a two-channel or filtered HaloScene frame on the "
+                          "card (K5's halo ext instance)", "queue 2b item 10")
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the MCM event kernel indexes "
+                         "pixels with 32-bit integers")
+    table = scene.tracking_packed if use_skip else scene.slab_packed
+    d, h, w = scene.volume_shape[:3]
+    from ..parallel.halo import slab_depth
+
+    rows = slab_depth(d, scene.num_slabs, scene.interleave) * h * w
+    if table is None or table.dtype not in (torch.float32, torch.bfloat16) \
+            or tuple(table.shape) != (rows, 8):
+        raise ValueError("a HaloScene frame on the card samples the slab's "
+                         f"({rows}, 8) float32 or bfloat16 corner rows "
+                         "(halo.slab_table)")
+    table = table.contiguous()
+    _build.check_aligned(table, "the slab table")
+    row = scene.transfer_1d.to(torch.float32).contiguous()
+    tf1d.check_width(row.shape[0])
+    _build.check_aligned(row, "the TF row")
+    mvp = scene.mvp_inverse.to(torch.float32).contiguous()
+    env, eh, ew = _build.environment_map(scene)
+    dev = table.device
+    n = height * width
+    scratch = (torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.float32, device=dev))
+    return _build.Prepared(
+        tensors=(table, row, mvp, env), scratch=scratch,
+        scene_args=(table.data_ptr(), int(table.dtype == torch.bfloat16), d,
+                    h, w, row.data_ptr(), row.shape[0],
+                    tf1d.mode_code(scene.tf_mxu), env.data_ptr(), eh, ew,
+                    mvp.data_ptr(), width, height),
+        inv_res=(1.0 / width, 1.0 / full_height), window=(row0, full_height))
+
+
+_halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
+
+
+def halo_event_frame(state, scene, params, seed, window=None):
+    """One frame over a HaloScene on the card, in place on CUDA ``state``:
+    ``params.steps + 1`` launches, launch e finishing event e - 1 (the TF
+    lookup of the value summed over the scene's group, the interaction)
+    and starting event e (the flight and the masked value of its position
+    from this rank's slab rows), with ``HaloScene.reduce_`` between them.
+    Equal bit for bit to :func:`event_frame` on the whole scene: only the
+    owner's value is non-zero.  ``window`` as in :func:`launch_args`."""
+    global HALO_LAUNCHES
+    from ..renderers import mcm
+
+    position = state["position"]
+    dev = position.device
+    height, width = position.shape[:2]
+    _check_state(state, height, width, dev)
+    if scene.device != dev:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{dev}")
+    use_skip = mcm.uses_skip(state, scene)
+    p = _halo_cache.get(scene, (use_skip, height, width)
+                        + sampling.row_window(window, height))
+    rng_state, value = p.scratch
+    cheb = state["cheb"].data_ptr() if use_skip else None
+    stream = _build.stream_ptr(position)
+    head = (position.data_ptr(), state["direction"].data_ptr(),
+            state["bounces"].data_ptr(), state["transmittance"].data_ptr(),
+            state["radiance"].data_ptr(), state["samples"].data_ptr(), cheb,
+            *p.scene_args, *p.inv_res, float(seed), params.extinction,
+            params.anisotropy, params.blur, mcm.skip_cell_size(scene),
+            params.max_bounces, int(use_skip), *p.window, rng_state.data_ptr(),
+            value.data_ptr(), scene.slab_index, scene.num_slabs)
+    launch = _build.library().vpt_mcm_halo_event
+    steps = params.steps
+    if steps <= 0:
+        return
+    with torch.cuda.device(dev):
+        for step in range(steps + 1):
+            _build.check("vpt_mcm_halo_event",
+                         launch(*head, int(step > 0), int(step < steps),
+                                stream))
+            HALO_LAUNCHES += 1
+            if step < steps:
+                scene.reduce_(value)
+
+
+def halo_occupancy(table_dtype, tf_width: int, env_map: bool = False) -> dict:
+    """The launch shape of the halo instance on the current CUDA device,
+    as :func:`occupancy`'s.  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) | 4 * env_map
+    _build.check("vpt_mcm_halo_info", _build.library().vpt_mcm_halo_info(
+        flags, tf_width, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
 
 
 #: the fields of :func:`occupancy`, in the order ``vpt_mcm_event_info``

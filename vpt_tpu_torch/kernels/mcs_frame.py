@@ -119,6 +119,7 @@ def mcs_frame(state, scene, params, seed, frame_number, counts=None,
         mcs_frame_plain(state, scene, params, seed, frame_number, window)
         return
     global LAUNCHES
+    _build.refuse_halo(scene, "an MCS frame (K8)", "7")
     p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2])
                          + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:

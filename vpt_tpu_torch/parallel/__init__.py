@@ -1,8 +1,10 @@
-"""Multi-card rendering and fitting over ``torch.distributed`` (part 1 of
-``vpt_tpu/parallel/``: pixel-row data parallelism, sharded volumes between
-frames, the bucketed gradient reduction).  ``halo``, ``halo_grad``,
-``dos_halo`` and ``resident`` come with their kernels (ROADMAP queue 1
-item 16, parts 2 and 3)."""
+"""Multi-card rendering and fitting over ``torch.distributed``: pixel-row
+data parallelism and sharded volumes between frames (``shard``, ``mesh``,
+``distributed``, the bucketed gradient reduction of ``overlap``), and the
+spatially sharded volume (``halo``: slabs sampled by ownership masking;
+``halo_grad``: their gradient; ``dos_halo``: DOS's occlusion halo).
+``resident`` comes with K5's photon-migration entry points (ROADMAP queue
+1 item 16, part 3)."""
 
 from .mesh import make_mesh, pixel_sharding, replicated  # noqa: F401
 from .shard import (  # noqa: F401

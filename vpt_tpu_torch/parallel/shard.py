@@ -16,7 +16,7 @@ the volume and of its corner tables between frames, and each frame
 all-gathers them over ``space`` (the collective XLA's partitioner inserts
 for ``vpt_tpu``'s ``P("space", ...)`` volume), so the image is the
 replicated one.  The masked, slab-local fetch that saves the frame's
-memory too is ``halo.py``'s, not ported yet.
+memory too is ``halo.py``'s (``halo.sharded_render_frame``).
 
 :func:`data_parallel_train_step` is the EAM fit's step that ``vpt_tpu``'s
 ``train.make_train_step`` becomes under sharded inputs: each rank renders
@@ -140,28 +140,37 @@ def whole_scene(scene):
     return scene.gather() if isinstance(scene, ShardedScene) else scene
 
 
+#: state leaves that never split by rows, whatever their shape: DOS's
+#: (samples, 2) disk offsets (``vpt_tpu``'s ``dos_halo`` shards DOS's
+#: leaves by name, so ``samples == height`` splits nothing more)
+WHOLE_LEAVES = ("offsets",)
+
+
 def _leaves(state):
-    return list(state.values()) if isinstance(state, dict) else [state]
+    if isinstance(state, dict):
+        return [v for k, v in state.items() if k not in WHOLE_LEAVES]
+    return [state]
 
 
 def state_height(state) -> Optional[int]:
     """The image height of a renderer state: the largest leading dim of
     its leaves of two or more dims (``vpt_tpu``'s ``_state_sharding``
-    rule)."""
+    rule), :data:`WHOLE_LEAVES` aside."""
     return max((leaf.shape[0] for leaf in _leaves(state)
                 if getattr(leaf, "ndim", 0) >= 2), default=None)
 
 
 def _map_rows(state, height, fn):
     """``fn`` over each (H, W, ...) leaf (two or more dims, ``height``
-    rows), the others kept."""
+    rows), the others (and :data:`WHOLE_LEAVES`) kept."""
     def leaf(x):
         if getattr(x, "ndim", 0) >= 2 and x.shape[0] == height:
             return fn(x)
         return x
 
     if isinstance(state, dict):
-        return {k: leaf(v) for k, v in state.items()}
+        return {k: v if k in WHOLE_LEAVES else leaf(v)
+                for k, v in state.items()}
     return leaf(state)
 
 
@@ -192,15 +201,25 @@ def shard_render_frame(module, mesh, state_example, donate: bool = True):
     (:func:`place_state`): ``module.render_frame`` with the rank's row
     window, on the scene as :func:`sharded_scene` placed it (a sharded
     volume is gathered for the frame).  The state is updated in place
-    unless ``donate`` is False, which renders into a copy.  DOS's frame
-    raises for a window other than the whole image (its occlusion halo,
-    ``dos_halo.py``, is not ported yet)."""
+    unless ``donate`` is False, which renders into a copy.  DOS's band
+    of rows (``dos.render_band``) reads its neighbours' occlusion: each
+    slice all-gathers the whole occlusion buffer over ``data``, as JAX's
+    partitioner does, so it also takes a camera inside the volume
+    (``dos_halo.sharded_render_frame`` exchanges K rows instead); a band
+    of the whole image is the renderer's own frame."""
     height = state_height(state_example)
     window = (block_of(height, mesh)[0], height)
+    band = getattr(module, "render_band", None) \
+        if axis_size(mesh, "data") > 1 else None
+
+    def extend(occlusion):
+        return gather_blocks(occlusion, height, mesh), 0
 
     def frame(state, scene, params, seed, frame_number):
         if not donate:
             state = _map_rows(state, state_height(state), torch.clone)
+        if band is not None:
+            return band(state, whole_scene(scene), params, window, extend)
         return module.render_frame(state, whole_scene(scene), params, seed,
                                    frame_number, window=window)
 

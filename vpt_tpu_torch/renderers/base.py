@@ -221,6 +221,14 @@ AUTO_TRACKING_MIN_EMPTY = 0.05
 PACK_MAX_VOXELS = 256 ** 3
 
 
+def volume_shape(scene) -> tuple:
+    """The whole volume's (D, H, W, C): a ``parallel.halo.HaloScene``
+    holds only its slab and names the whole shape (``volume_shape``), as
+    ``vpt_tpu``'s renderers read it."""
+    shape = getattr(scene, "volume_shape", None)
+    return tuple(shape if shape is not None else scene.volume.shape)
+
+
 def kernels_sample(device) -> bool:
     """Whether frames on ``device`` run the CUDA kernels, which sample
     corner-packed tables only."""

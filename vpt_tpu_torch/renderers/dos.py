@@ -16,8 +16,14 @@ the CPU, which take the frame's per-slice constants from
 :func:`slice_table`, and one launch of the slice kernel (K9) a frame on
 the card, which computes the same constants itself, bit for bit.
 
-The sharding hooks of ``vpt_tpu`` (``ndc=``, ``sample_occlusion=``, for
-``parallel/dos_halo.py``) are not ported and raise.
+The sharding hooks of ``vpt_tpu`` (``ndc=``, ``sample_occlusion=``)
+work in the plain slices as JAX uses them (the taps at ``mapped + offset
+· scale``, sampled by the hook and averaged); a Python hook cannot enter
+K9, so on the card they raise.  A band of rows renders through
+:func:`render_band`, one slice at a time with the previous slice's
+occlusion extended past the band (``parallel/dos_halo.py``'s K-row halo,
+or ``parallel/shard.py``'s whole image): K9's band instance on the card,
+``kernels/dos_sweep.band_slice_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 from .. import math3d, rng, sampling
 from ..kernels import dos_sweep
 from ..utils import constant
-from .base import Scene, _not_ported, static_field
+from .base import Scene, static_field
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +171,22 @@ def _tan_aperture(params: Params, device):
 TABLE_HEAD = 4
 
 
+def _slice_projection(state, scene: Scene, params: Params):
+    """``(depths, corr, scale)`` of the frame's slices: ``depth_k``, the
+    projection of (1, 1, −depth_k) divided by w (steps, 3), and the
+    occlusion scale ``corr[:, :2] · Δ·tan(aperture)`` (steps, 2)."""
+    color = state["color"]
+    sd = state["slice_distance"]
+    idx = torch.arange(params.steps, dtype=torch.float32,
+                       device=color.device)
+    depths = state["depth"] + idx * sd
+    ones = torch.ones_like(depths)
+    corr = math3d.transform_point(scene.projection,
+                                  torch.stack([ones, ones, -depths], dim=-1))
+    scale = corr[:, :2] * (sd * _tan_aperture(params, color.device))
+    return depths, corr, scale
+
+
 def slice_table(state, scene: Scene, params: Params):
     """The frame's per-slice constants, (steps, 4 + 4·N) float32 on the
     state's device: per slice its NDC depth, 1.0 where it is active
@@ -179,13 +201,8 @@ def slice_table(state, scene: Scene, params: Params):
     h, w = color.shape[:2]
     n = params.steps
     sd = state["slice_distance"]
-    idx = torch.arange(n, dtype=torch.float32, device=color.device)
-    depths = state["depth"] + idx * sd
-    ones = torch.ones_like(depths)
-    corr = math3d.transform_point(scene.projection,
-                                  torch.stack([ones, ones, -depths], dim=-1))
+    depths, corr, scale = _slice_projection(state, scene, params)
     active = (depths <= state["max_depth"]).to(torch.float32)
-    scale = corr[:, :2] * (sd * _tan_aperture(params, color.device))
     base, frac = tap_shifts(state["offsets"], scale, h, w)      # (n, N, 2)
     head = torch.stack([corr[:, 2], active, sd.expand(n),
                         torch.zeros_like(depths)], dim=-1)
@@ -199,55 +216,167 @@ def advance_depth(state, table):
     state["depth"] = state["depth"] + n_active * state["slice_distance"]
 
 
-def composite_slices(state, scene: Scene, params: Params, table):
+def _slice_step(color, occlusion, scene: Scene, params: Params, row, ndc,
+                sd, tap_mean):
+    """One slice of the sweep at the pixels of ``ndc`` (H, W, 2): the
+    composite of the slice's colour into ``color`` and the new occlusion
+    ``tap_mean(occlusion) · transmittance``, where the slice's point lies
+    in the cube and ``row`` (a :func:`slice_table` row) is active; returns
+    ``(color, occlusion)``."""
+    h, w = ndc.shape[:2]
+    ones = torch.ones((h, w, 1), dtype=torch.float32, device=ndc.device)
+    extinction = float(np.float32(params.extinction))
+    pos = math3d.apply_mat4(scene.mvp_inverse, torch.cat(
+        [ndc, row[0].expand(h, w, 1), ones], dim=-1))
+    pos = pos[..., :3] / pos[..., 3:4]
+    ts = scene.sample_color(pos)
+    e = ts[..., 3] * extinction
+    transmittance = torch.exp(-e * sd)
+    alpha = 1.0 - transmittance
+    contrib = ts[..., :3] * occlusion[..., None] * alpha[..., None]
+    rgb = color[..., :3] + contrib * (1.0 - color[..., 3:4])
+    a = torch.clamp(color[..., 3] + alpha, max=1.0)
+    new_occlusion = tap_mean(occlusion) * transmittance
+    outside = ((pos > 1.0) | (pos < 0.0)).any(dim=-1)
+    write = (row[1] > 0.0) & ~outside
+    return (torch.where(write[..., None],
+                        torch.cat([rgb, a[..., None]], dim=-1), color),
+            torch.where(write, new_occlusion, occlusion))
+
+
+def _mean_of_taps(taps):
+    """The mean of (N, ...) taps: summed in order k = 0..N−1, then divided
+    by N (K9's order)."""
+    total = taps[0]
+    for k in range(1, taps.shape[0]):
+        total = total + taps[k]
+    return total / torch.full_like(total, taps.shape[0])
+
+
+def hook_taps(ndc, offsets, scale):
+    """vpt_tpu's tap positions of the sharding hook, (N, H, W, 2):
+    ``mapped + offsets · scale`` with ``mapped = ndc · 0.5 + 0.5``
+    (``vpt_tpu/renderers/dos.py:181-183``)."""
+    mapped = ndc * 0.5 + 0.5
+    return mapped[None] + (offsets * scale)[:, None, None, :]
+
+
+def composite_slices(state, scene: Scene, params: Params, table, ndc=None,
+                     sample_occlusion=None):
     """The frame's slices in plain PyTorch, in place on the state's color
-    and occlusion (``vpt_tpu``'s ``chunk_step``, a slice at a time)."""
+    and occlusion (``vpt_tpu``'s ``chunk_step``, a slice at a time).
+    ``ndc``: the pixels' NDC, (H, W, 2), by default the whole image's;
+    ``sample_occlusion(occlusion, taps)``: the sharding hook, (N, H, W)
+    occlusion samples at (N, H, W, 2) tap positions (:func:`hook_taps`),
+    whose mean replaces the shifted taps."""
     color, occlusion = state["color"], state["occlusion"]
     h, w = color.shape[:2]
-    dev = color.device
-    ndc = sampling.pixel_ndc(h, w, device=dev)
-    ones = torch.ones((h, w, 1), dtype=torch.float32, device=dev)
-    extinction = float(np.float32(params.extinction))
+    if ndc is None:
+        ndc = sampling.pixel_ndc(h, w, device=color.device)
     sd = state["slice_distance"]
     n_taps = state["offsets"].shape[0]
+    scales = None if sample_occlusion is None \
+        else _slice_projection(state, scene, params)[2]
     for k in range(params.steps):
         row = table[k]
-        pos = math3d.apply_mat4(scene.mvp_inverse, torch.cat(
-            [ndc, row[0].expand(h, w, 1), ones], dim=-1))
-        pos = pos[..., :3] / pos[..., 3:4]
-        ts = scene.sample_color(pos)
-        e = ts[..., 3] * extinction
-        transmittance = torch.exp(-e * sd)
-        alpha = 1.0 - transmittance
-        contrib = ts[..., :3] * occlusion[..., None] * alpha[..., None]
-        rgb = color[..., :3] + contrib * (1.0 - color[..., 3:4])
-        a = torch.clamp(color[..., 3] + alpha, max=1.0)
-        taps = row[TABLE_HEAD:].reshape(n_taps, 4)
-        new_occlusion = occlusion_taps(occlusion, taps[:, :2],
-                                       taps[:, 2:]) * transmittance
-        outside = ((pos > 1.0) | (pos < 0.0)).any(dim=-1)
-        write = (row[1] > 0.0) & ~outside
-        color = torch.where(write[..., None],
-                            torch.cat([rgb, a[..., None]], dim=-1), color)
-        occlusion = torch.where(write, new_occlusion, occlusion)
+        if sample_occlusion is None:
+            taps = row[TABLE_HEAD:].reshape(n_taps, 4)
+
+            def tap_mean(occ, taps=taps):
+                return occlusion_taps(occ, taps[:, :2], taps[:, 2:])
+        else:
+            taps = hook_taps(ndc, state["offsets"], scales[k])
+
+            def tap_mean(occ, taps=taps):
+                return _mean_of_taps(sample_occlusion(occ, taps))
+        color, occlusion = _slice_step(color, occlusion, scene, params, row,
+                                       ndc, sd, tap_mean)
     state["color"].copy_(color)
     state["occlusion"].copy_(occlusion)
+
+
+def extended_taps(ext, ext_row0: int, taps, height: int, width: int):
+    """The occlusion of a band's halo-extended buffer at tap positions
+    (``vpt_tpu/parallel/dos_halo.py:103-121``): ``ext`` (E, W) holds the
+    image's rows from ``ext_row0``; the taps (..., 2) clamp in the whole
+    ``height`` × ``width`` image's texel space, then read the buffer at
+    their local row (clamped to its rows) with the bilinear lerp of the
+    corner-packed texture."""
+    dims = constant((float(width), float(height)), torch.float32, ext.device)
+    hi = constant((float(width - 1), float(height - 1)), torch.float32,
+                  ext.device)
+    u = torch.clamp(taps * dims - 0.5, min=torch.zeros_like(hi), max=hi)
+    i0 = torch.floor(u)
+    f = u - i0
+    i0 = i0.to(torch.int64)
+    e = ext.shape[0]
+    x0 = torch.clamp(i0[..., 0], 0, width - 1)
+    x1 = torch.clamp(x0 + 1, max=width - 1)
+    ly = torch.clamp(i0[..., 1] - ext_row0, 0, e - 1)
+    ly1 = torch.clamp(ly + 1, max=e - 1)
+    fx, fy = f[..., 0], f[..., 1]
+    cx0 = ext[ly, x0] * (1 - fx) + ext[ly, x1] * fx
+    cx1 = ext[ly1, x0] * (1 - fx) + ext[ly1, x1] * fx
+    return cx0 * (1 - fy) + cx1 * fy
+
+
+def active_slices(state, params: Params) -> int:
+    """The frame's active slices (a prefix: ``depth_k`` only grows),
+    counted on the host from one read of the state's depth, far depth and
+    slice distance, with the float32 operations of K9's rows."""
+    depth, max_depth, sd = (np.float32(v) for v in torch.stack(
+        [state["depth"], state["max_depth"],
+         state["slice_distance"]]).tolist())
+    n = 0
+    while n < params.steps and depth + np.float32(n) * sd <= max_depth:
+        n += 1
+    return n
+
+
+def render_band(state, scene: Scene, params: Params, window, extend):
+    """One frame of ``steps`` slices on a band of rows (``window`` =
+    (row0, H)), in place on the band's state: for each active slice
+    ``extend(occlusion) -> (ext, ext_row0)`` gives the previous slice's
+    occlusion past the band (a collective for sharded bands), then K9's
+    band instance (the plain slice on the CPU) renders it; the depth then
+    advances by the active slices (:func:`advance_depth`'s value).  The
+    host reads the active-slice count once a frame."""
+    n_active = active_slices(state, params)
+    for k in range(n_active):
+        ext, ext_row0 = extend(state["occlusion"])
+        dos_sweep.band_slice(state, ext, ext_row0, scene, params, k, window)
+    state["depth"] = state["depth"] \
+        + float(n_active) * state["slice_distance"]
+    return state
 
 
 def render_frame(state, scene: Scene, params: Params, seed, frame_number,
                  *, ndc=None, sample_occlusion=None, window=None):
     """``steps`` slices of the sweep, in the state (a dict, updated in
-    place).  ``window`` other than the whole image raises: a band of rows
-    needs the occlusion halo of its neighbours (``parallel/dos_halo.py``,
-    not ported yet)."""
+    place).  ``ndc`` / ``sample_occlusion``: vpt_tpu's sharding hooks
+    (:func:`composite_slices`), plain PyTorch only: on the card they raise
+    (the sharded sweep is ``parallel.dos_halo.sharded_render_frame``).  A
+    ``window`` other than the whole image raises: a band of rows needs its
+    neighbours' occlusion every slice (``parallel.dos_halo.
+    sharded_render_frame`` or ``parallel.shard.shard_render_frame``)."""
     del seed, frame_number
-    if ndc is not None or sample_occlusion is not None:
-        raise _not_ported("DOS's sharding hooks (ndc=, sample_occlusion=)",
-                          "queue 1 item 16")
     height = state["color"].shape[0]
     if sampling.row_window(window, height) != (0, height):
-        raise _not_ported("DOS with a row window (window=)",
-                          "queue 1 item 16")
+        raise ValueError(
+            "a DOS band of rows needs its neighbours' occlusion every "
+            "slice: render it through parallel.dos_halo."
+            "sharded_render_frame or parallel.shard.shard_render_frame")
+    if ndc is not None or sample_occlusion is not None:
+        if state["color"].is_cuda:
+            raise ValueError(
+                "DOS's sharding hooks (ndc=, sample_occlusion=) are Python "
+                "and cannot enter the slice kernel (K9): the sharded sweep "
+                "on the card is parallel.dos_halo.sharded_render_frame")
+        table = slice_table(state, scene, params)
+        composite_slices(state, dataclasses.replace(scene, kernels=False),
+                         params, table, ndc, sample_occlusion)
+        advance_depth(state, table)
+        return state
     dos_sweep.sweep_frame(state, scene, params)
     return state
 

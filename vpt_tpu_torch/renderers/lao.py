@@ -32,7 +32,8 @@ from .. import math3d, rng, sampling
 from ..kernels import lao_march
 from ..utils import constant
 from . import _march
-from .base import Scene, cube_interval, state_device, static_field
+from .base import (Scene, cube_interval, state_device, static_field,
+                   volume_shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +75,7 @@ def reset(params: Params, height: int, width: int, scene: Scene = None):
 def check_params(params: Params, scene: Scene):
     """Raise, before any launch, for ``baked_gradient`` on a volume of
     fewer than two channels, as ``vpt_tpu`` does."""
-    if params.baked_gradient and scene.volume.shape[-1] < 2:
+    if params.baked_gradient and volume_shape(scene)[-1] < 2:
         raise ValueError(
             "baked_gradient needs a 2-channel (value, |grad|) volume — "
             "bake one with volume.with_lao_gradient")

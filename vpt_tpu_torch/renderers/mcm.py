@@ -34,7 +34,7 @@ import torch
 
 from .. import rng, sampling, skipgrid
 from ..kernels import mcm_event
-from .base import Scene, static_field
+from .base import Scene, static_field, volume_shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,8 +207,8 @@ def interact_phase(ph, rstate, position, vs, cheb_new, scene, params: Params,
 
 def skip_cell_size(scene) -> float:
     """The normalized cell size the cheb hop may use: the smallest of the
-    three axes' 1/N."""
-    d, h, w = scene.volume.shape[:3]
+    three axes' 1/N (of the whole volume for a HaloScene)."""
+    d, h, w = volume_shape(scene)[:3]
     return min(1.0 / d, 1.0 / h, 1.0 / w)
 
 

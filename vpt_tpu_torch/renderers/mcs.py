@@ -27,7 +27,7 @@ import torch
 from .. import rng, sampling
 from ..kernels import mcs_frame
 from . import _march
-from .base import Scene, state_device
+from .base import Scene, state_device, volume_shape
 
 #: the tracking loops' backstop; delta tracking ends after about
 #: extinction · path length events
@@ -65,8 +65,9 @@ def scatter_direction(seed) -> tuple:
 
 
 def skip_cell_size(scene) -> float:
-    """The cheb hop's cell: the smallest of the three axes' 1/N."""
-    d, h, w = scene.volume.shape[:3]
+    """The cheb hop's cell: the smallest of the three axes' 1/N (of the
+    whole volume for a HaloScene)."""
+    d, h, w = volume_shape(scene)[:3]
     return min(1.0 / d, 1.0 / h, 1.0 / w)
 
 

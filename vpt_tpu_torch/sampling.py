@@ -345,6 +345,58 @@ def sample_volume_packed(packed, shape, position, fused: bool = True):
     return corner_gather.corner_fetch(packed, shape, position)
 
 
+class SlabCornerFetch(torch.autograd.Function):
+    """The differentiable masked slab fetch of a spatially sharded volume
+    (``parallel/halo.py``): forward ``corner_gather.slab_fetch`` with
+    ``save=True`` (K3's slab instance: 0 where another slab owns the cell,
+    whose saved cell is -1), backward ``corner_scatter.corner_grad`` into
+    the slab table's gradient (K4, which skips the -1 cells: an owned
+    sample's ``w8(f) ⊗ ct``, nothing for the others, whose masked value
+    does not depend on the table).  Positions are detached, as
+    :class:`CornerFetch`'s."""
+
+    @staticmethod
+    def forward(ctx, table, shape, slab, position):
+        out, idx, f = corner_gather.slab_fetch(table, shape, *slab,
+                                               position, True, save=True)
+        ctx.save_for_backward(idx, f)
+        ctx.table_shape = tuple(table.shape)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, f = ctx.saved_tensors
+        rows, lanes = ctx.table_shape
+        grad = corner_scatter.corner_grad(idx, f, ct.contiguous(), rows,
+                                          lanes // 8)
+        return grad, None, None, None
+
+
+def sample_slab_packed(packed, shape, slab_index: int, num_slabs: int,
+                       interleave: int, position, masked: bool = True,
+                       fused: bool = True):
+    """The fetch from slab ``slab_index``'s rows of the corner table of a
+    (D, H, W, C) volume (``corner_gather.slab_fetch``): 0 where another
+    slab owns the cell when ``masked``.  Routed as
+    :func:`sample_volume_packed`: :class:`SlabCornerFetch` when autograd
+    records and the (float32) table requires grad (masked only), the
+    plain version for ``fused=False``, else the fetch."""
+    slab = (slab_index, num_slabs, interleave)
+    if not fused:
+        return corner_gather.slab_fetch_plain(packed, shape, *slab,
+                                              position, masked)
+    if torch.is_grad_enabled() and packed.requires_grad:
+        if packed.dtype != torch.float32 or not masked:
+            raise ValueError("the differentiable slab fetch takes masked "
+                             "float32 slab tables")
+        return SlabCornerFetch.apply(packed, tuple(shape), slab,
+                                     position.detach())
+    if torch.is_grad_enabled() and position.requires_grad:
+        raise ValueError("the fused fetch gives no gradient to positions: "
+                         "pass fused=False for one")
+    return corner_gather.slab_fetch(packed, shape, *slab, position, masked)
+
+
 def pack_corner_texture2d(texture):
     """(H, W, C) → (H·W, 4·C) rows of the 2×2 texel corners (x minor)."""
     h, w, c = texture.shape
