@@ -3,7 +3,8 @@ MCS, DOS, LAO), its ``cli render``, its differentiable MCM and MCS fits,
 its ``cli fit`` (EAM, ISO depth, MCM with the occlusion completion), its
 ``cli view`` server, its ``cli animate``, its config-3 recipe, its
 ``parallel`` package (rows over ranks, the volume in halo slabs, DOS's
-row bands, the config-4 recipe) and its three demos once on one GPU.
+row bands, photons resident on their slab's rank, the config-4 recipe)
+and its three demos once on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-path [--part frames|fetch|sweep] TREE ...
@@ -86,14 +87,17 @@ prints no result:
 9b. the spatially sharded instances against their plain twins
    (:func:`phase_slab_fetch`, :func:`phase_halo_event`,
    :func:`phase_dos_band`), each timed beside the kernel it splits: K3's
-   slab instance (4 slabs of 256² positions on the headline and a
-   float32 blobs 128³, bit for bit to the plain twin and summed to the
-   whole-table fetch; interleaved and unmasked slabs refused on the card),
-   K5's halo instance
-   (512² frames on 2 slabs against the plain loop over the HaloScene and
-   on one slab against the whole-frame K5, bit for bit), K9's band
-   instance (two bands of a 512² frame against the plain band, bit for
-   bit, and the cooperative frame);
+   slab instance (4 slabs of 256² positions on the headline, a float32
+   blobs 128³ and a two-channel blobs 128³, bit for bit to the plain twin
+   and summed to the whole-table fetch; 2 interleaved slabs, masked and
+   unmasked, and 2 unmasked contiguous ones bit for bit to the plain
+   twin), K5's halo instance (512² frames on 2 slabs against the plain
+   loop over the HaloScene and on one slab against the whole-frame K5,
+   bit for bit; :func:`phase_halo_layouts`: 2 interleaved and 2 unmasked
+   slabs against the plain loop, the two-channel instance on one slab
+   against K5's ext frame and on 2 against the plain loop, bit for bit,
+   and timed), K9's band instance (two bands of a 512² frame against the
+   plain band, bit for bit, and the cooperative frame);
 10. each renderer through the user's entry points at 512²
    (``make_renderer``, 10 frames, a DOS sweep, ``display``, the
    ``reinhard`` tone mapper) on the headline scene, EAM also on the 256³
@@ -252,7 +256,18 @@ prints no result:
    ``train.render_eam`` gradient, and with ``space = 2`` the halo MCM
    frames of a 256³ volume (bit for bit to one process's K5 frames), the
    sharded EAM gradient and a DOS frame on two bands through
-   ``dos_halo``; ``path demos``
+   ``dos_halo``, and ``path resident``'s two-rank cases
+   (:func:`gloo_resident`: contiguous and interleaved slabs against the
+   world-of-one frames bit for bit, ``fanout=2`` against the plain
+   resident frames in every pool field, a two-channel scene);
+   ``path resident`` (:func:`phase_resident_path`, in ``path
+   parallel``'s world of one after its counts, every launch counter at 0
+   first): 2 frames of ``resident.resident_render_frame`` on config 4 at
+   1024² (K5's resident instance) and on a two-channel 128³ scene at 512²
+   with 2 halo frames (the two-channel resident and halo instances),
+   against ``shard_render_frame``'s K5 frames and K5's ext frames bit for
+   bit, the pools against the plain resident frames', timed against K5
+   with their bounds (:func:`resident_frame_bytes`); ``path demos``
    (:func:`phase_demos_path`): ``render_demo``, ``inverse_demo`` and
    ``depth_fit_demo`` at their default sizes, every launch counter at 0
    before each, then ``render_demo``'s eight images against their plain
@@ -260,8 +275,9 @@ prints no result:
 13. every kernel launched on its path (8, 10, 10a–d, 11, 12, 12a–d);
     the JSON line says which call launched each, and ``launches_cli``,
     ``launches_view``, ``launches_animate``, ``launches_config3``,
-    ``launches_unpacked``, ``launches_parallel`` and ``launches_demos``
-    its launches on the calls of 10d, 11, 12c and 12d.
+    ``launches_unpacked``, ``launches_parallel``, ``launches_demos`` and
+    ``launches_resident`` its launches on the calls of 10d, 11, 12c and
+    12d.
 
 Then one JSON line with each kernel's launches, error, loop time per call
 (``ms``, CUDA events) and device time per launch (``device_ms``,
@@ -5096,9 +5112,16 @@ def phase_parallel_path(dev, counters):
               f"GiB; launches: "
               + ", ".join(f"{k} {v}" for k, v in launches.items())
               + f"; {time.perf_counter() - t_all:.1f} s", flush=True)
+        del slabs, a, b
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resident_launches, resident_rows = phase_resident_path(grid, scene,
+                                                               counters)
+        print(f"path resident: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     finally:
         dist.destroy_process_group()
-    del scene, state, slabs, a, b
+    del scene, state
     torch.cuda.empty_cache()
     return launches, {"mcm_event": k5_err, "tonemap": k2_err,
                       "mcm_event_halo": k5_err, "dos_band": k9_err,
@@ -5106,7 +5129,9 @@ def phase_parallel_path(dev, counters):
                       "corner_scatter": slab_check["k4_err"]}, {
         "halo_ms_1024": turns["halo"], "whole_ms_1024": turns["whole"],
         "fit_losses": losses, "fit_step_s": fit_s,
-        "fit_peak_gib": fit_peak, "forward_peak_gib": forward_peak}
+        "fit_peak_gib": fit_peak, "forward_peak_gib": forward_peak,
+        "resident_launches": resident_launches,
+        "resident_rows": resident_rows}
 
 
 #: the two-rank check's image and frames, on the one card over gloo
@@ -5333,6 +5358,12 @@ def gloo_rank(rank, world, store, out):
         big = make_scene(volume.blobs_volume(GLOO_HALO_VOLUME, seed=3),
                          transfer.gray_ramp(alpha_scale=0.9))
         halo_state = gloo_halo(slabs, big)
+        # path resident's two-rank cases, outside the halo's counts
+        counted = (dict(halo.COLLECTIVES), mcm_event.HALO_LAUNCHES)
+        resident_out = gloo_resident(slabs, big, rg_scene(128))
+        halo.COLLECTIVES.clear()
+        halo.COLLECTIVES.update(counted[0])
+        mcm_event.HALO_LAUNCHES = counted[1]
         del big
         halo_launches = mcm_event.HALO_LAUNCHES
         grad = gloo_halo_grad(slabs)
@@ -5351,7 +5382,8 @@ def gloo_rank(rank, world, store, out):
                         "dos": {k: v.cpu() for k, v in dos_state.items()},
                         "dos_halo_rows": dos_halo_rows,
                         "band_launches": dos_sweep.BAND_LAUNCHES,
-                        "collectives": collectives}, out)
+                        "collectives": collectives,
+                        "resident": resident_out}, out)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -5388,6 +5420,7 @@ def phase_parallel_gloo(dev):
     big = make_scene(volume.blobs_volume(GLOO_HALO_VOLUME, seed=3),
                      transfer.gray_ramp(alpha_scale=0.9))
     want_halo = gloo_halo(None, big)
+    want_rg = gloo_halo(None, rg_scene(128))
     del big
     escene, etarget, eparams = gloo_eam_scene()
     leaf = escene.volume.clone().requires_grad_(True)
@@ -5451,6 +5484,7 @@ def phase_parallel_gloo(dev):
     check(abs(hloss - eloss) <= 1e-6 * max(abs(eloss), 1e-30) + 1e-9,
           f"path parallel gloo: the sharded EAM loss {hloss} against "
           f"{eloss}")
+    check_gloo_resident(got["resident"], want_halo, want_rg)
     derr, dshare = dos_bands_agree("path parallel gloo", got["dos"],
                                    want_dos, 1e-6, 1.0)
     check(got["band_launches"] > 0, "path parallel gloo: no K9 band launch")
@@ -5505,28 +5539,32 @@ class LaunchCounter:
 SLAB_POSITIONS, SLAB_COUNT = 256 * 256, 4
 
 
-def halo_frame_bytes(steps, skip):
+def halo_frame_bytes(steps, skip, values=1):
     """Bytes a pixel of a frame of ``steps`` events over a HaloScene, the
     least that any split of the event around the all-reduce moves: the
     photon's state (56 bytes: position, direction, transmittance,
     radiance, bounces, samples; 60 with cheb-skip) in and out once an
-    event, plus the value (out before the all-reduce, in after) and the
-    stream (out, in) across it; the frame's first flight reads only the
-    position, direction (and cheb), its last interaction writes no value
-    or stream.  K5's halo instance moves exactly this (csrc/mcm_event.cu,
-    ArgsHalo: the interaction redraws the flight from the saved stream
-    instead of storing the tentative position or the free path)."""
+    event, plus the value (``values`` floats: 2 for a two-channel volume;
+    out before the all-reduce, in after) and the stream (out, in) across
+    it; the frame's first flight reads only the position, direction (and
+    cheb), its last interaction writes no value or stream.  K5's halo
+    instance moves exactly this (csrc/mcm_event.cu, ArgsHalo: the
+    interaction redraws the flight from the saved stream instead of
+    storing the tentative position or the free path)."""
     state = 60 if skip else 56
-    first = (28 if skip else 24) + 8
-    return first + (steps - 1) * 2 * (state + 8) + (state + 8) + state
+    carry = 4 * values + 4
+    first = (28 if skip else 24) + carry
+    return first + (steps - 1) * 2 * (state + carry) + (state + carry) \
+        + state
 #: float32 operations of a slab fetch beyond the whole fetch's (the
 #: owner's division, clip and compare, the local plane)
 SLAB_OPS = 40
 
 
 def slab_scenes():
-    """The two scenes of the slab check: the headline's 128³ sphere (bf16
-    tables, cheb-skip, ``tf_mxu``) and a float32 blobs 128³."""
+    """The scenes of the slab check: the headline's 128³ sphere (bf16
+    tables, cheb-skip, ``tf_mxu``), a float32 blobs 128³ and a
+    two-channel blobs 128³ (:func:`rg_scene`)."""
     import torch
 
     from vpt_tpu_torch import transfer, volume
@@ -5538,7 +5576,17 @@ def slab_scenes():
                           tf_mxu=True)
     f32 = make_scene(volume.blobs_volume(128, seed=3),
                      transfer.gray_ramp(alpha_scale=0.8))
-    return {"headline": headline, "float32": f32}
+    return {"headline": headline, "float32": f32, "rg": rg_scene(128)}
+
+
+def rg_scene(n):
+    """A two-channel scene: ``with_gradient_magnitude(blobs_volume(n))``
+    with the gray ramp (bf16 corner rows and packed 2D TF)."""
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import make_scene
+
+    return make_scene(volume.with_gradient_magnitude(
+        volume.blobs_volume(n, seed=3)), transfer.gray_ramp(alpha_scale=0.8))
 
 
 def phase_slab_fetch(scenes):
@@ -5547,8 +5595,9 @@ def phase_slab_fetch(scenes):
     positions (uniform in [-0.1, 1.1]³, NaN in a few) each equal the
     plain twin bit for bit (values, cells with -1 where masked,
     fractions), and their sum equals K3's whole-table fetch bit for bit;
-    interleaved thin slabs and an unmasked fetch raise on the card
-    (``resident.py``'s, not ported).  Then slab 0's fetch timed against the whole
+    interleaved thin slabs (interleave 2) and unmasked fetches
+    (``resident.py``'s) equal their plain twins bit for bit.  Then slab
+    0's fetch timed against the whole
     fetch in turns (CUDA events and device time), its plain twin, and its
     bound (the positions read, the values written, the distinct owned
     rows read once).  Returns the row's numbers."""
@@ -5584,19 +5633,25 @@ def phase_slab_fetch(scenes):
               f"K3 slab {label}: {SLAB_COUNT} slabs do not sum to the "
               "whole fetch")
         worst = max(worst, float((total[fine] - whole[fine]).abs().max()))
-        thin = halo.slab_table(scene.volume_packed, shape, 2, 0, 2)
-        for args in ((thin, shape, 0, 2, 2, pos), (rows, shape, SLAB_COUNT - 1,
-                                                   SLAB_COUNT, 1, pos, False)):
-            try:
-                corner_gather.slab_fetch(*args)
-            except NotImplementedError:
-                continue
-            check(False, f"K3 slab {label}: the card took an interleaved "
-                  "or unmasked slab fetch")
+        for m, masked in ((2, True), (2, False), (1, False)):
+            for k in range(2):
+                thin = halo.slab_table(scene.volume_packed, shape, 2, k, m)
+                got = corner_gather.slab_fetch(thin, shape, k, 2, m, pos,
+                                               masked, save=True)
+                want = corner_gather.slab_fetch_plain(thin, shape, k, 2, m,
+                                                      pos, masked, save=True)
+                for a, b in zip(got, want):
+                    check(torch.equal(torch.nan_to_num(a),
+                                      torch.nan_to_num(b)),
+                          f"K3 slab {label} slab {k}/2 interleave {m} "
+                          f"masked {masked}: the kernel differs from its "
+                          "plain twin")
+        torch.cuda.synchronize()
         print(f"corner_gather slab {label}: {SLAB_COUNT} slabs of "
               f"{SLAB_POSITIONS} positions equal their plain twins and sum "
-              "to the whole-table fetch bit for bit; interleaved and "
-              "unmasked slabs refused", flush=True)
+              "to the whole-table fetch bit for bit; 2 slabs interleaved "
+              "(m = 2, masked and unmasked) and contiguous unmasked equal "
+              "their plain twins bit for bit", flush=True)
     scene = scenes["headline"]
     shape = tuple(scene.volume.shape)
     rows = halo.slab_table(scene.volume_packed, shape, SLAB_COUNT, 0)
@@ -5638,12 +5693,8 @@ def phase_halo_event(scene):
     the headline (no group: a slab's own masked values), 2 frames at 512²
     equal ``event_frame_plain`` over the same HaloScene bit for bit; on
     one slab the frames equal the whole-frame K5's bit for bit.  Then a
-    one-slab halo frame timed against the whole-frame K5 in turns at
-    512² (CUDA events; device time of its steps + 1 launches), the plain
-    twin's frame, and the bound: :func:`halo_frame_bytes` a pixel, the
-    distinct corner rows and the event kernel's operations
-    (:func:`event_bound`'s, which the whole frame's equal), with the
-    frame's share of it.  Returns the row's numbers."""
+    one-slab halo frame timed against the whole-frame K5 at 512²
+    (:func:`halo_row`).  Returns the row's numbers."""
     import dataclasses
 
     import numpy as np
@@ -5681,55 +5732,481 @@ def phase_halo_event(scene):
     print("mcm_event halo: 2 frames at 512^2 on each of 2 slabs equal the "
           "plain loop over the HaloScene bit for bit, and on one slab the "
           "whole-frame K5 bit for bit", flush=True)
+    return {"max_abs_err": worst,
+            **halo_row("headline", scene, state, params)}
+
+
+def halo_row(label, scene, state, params):
+    """A one-slab halo frame from ``state`` timed against the whole-frame
+    K5 in turns (CUDA events; device time of its steps + 1 launches), the
+    plain twin's frame, and the bound: :func:`halo_frame_bytes` a pixel
+    (a value pair on a two-channel scene), the distinct corner rows and
+    the event kernel's operations (:func:`event_bound`'s, which the whole
+    frame's equal), with the frame's share of it.  Returns the row's
+    numbers but its error."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.parallel import halo
+
     hs = halo.halo_scene(scene, 0, 1)
-    a = {key: v.clone() for key, v in state.items()}
-    b = {key: v.clone() for key, v in state.items()}
-    times = in_turns({
-        "halo": lambda: mcm_event.event_frame(a, hs, params, 0.3),
-        "whole": lambda: mcm_event.event_frame(b, scene, params, 0.3)}, 20)
-    device = device_turns({
-        "halo": lambda: mcm_event.event_frame(a, hs, params, 0.3),
-        "whole": lambda: mcm_event.event_frame(b, scene, params, 0.3)},
-        "mcm_", reps=10)
+    a, b, c = _clone(state), _clone(state), _clone(state)
+    frames = {"halo": lambda: mcm_event.event_frame(a, hs, params, 0.3),
+              "whole": lambda: mcm_event.event_frame(b, scene, params, 0.3)}
+    times = in_turns(frames, 20)
+    device = device_turns(frames, "mcm_", reps=10)
     # the profiler's mean a launch: times the frame's steps + 1 launches
     if device["halo"] is not None:
         device["halo"] *= params.steps + 1
-    c = {key: v.clone() for key, v in state.items()}
     plain_ms = cuda_ms(lambda: mcm_event.event_frame_plain(
         c, dataclasses.replace(hs, kernels=False), params, 0.3), 2)
-    paths0 = float(state["samples"].sum(dtype=torch.float64))
-    d = {key: v.clone() for key, v in state.items()}
+    d = _clone(state)
     mcm_event.event_frame(d, scene, params, 0.3)
-    deposits = float(d["samples"].sum(dtype=torch.float64)) - paths0
+    deposits = float(d["samples"].sum(dtype=torch.float64)
+                     - state["samples"].sum(dtype=torch.float64))
     work = event_work(scene, state, params, 0.3)
-    n = 512 * 512
-    _, _, whole_bytes, ops = event_bound(scene, n, params.steps, deposits,
-                                         work["rows"])
+    height, width = state["samples"].shape
+    n = height * width
     skip = "cheb" in state
-    nbytes = whole_bytes - 2 * n * (60 if skip else 56) \
-        + n * halo_frame_bytes(params.steps, skip)
+    state_bytes = 60 if skip else 56
+    _, _, whole_bytes, ops = event_bound(scene, n, params.steps, deposits,
+                                         work["rows"],
+                                         state_bytes=state_bytes)
+    pixel = halo_frame_bytes(params.steps, skip, values=scene.channels)
+    nbytes = whole_bytes - 2 * n * state_bytes + n * pixel
     bound_ms, bound_by = roofline(nbytes, ops)
     share = None if device["halo"] is None else bound_ms / device["halo"]
-    occ = mcm_event.halo_occupancy(scene.tracking_packed.dtype,
-                                   scene.transfer_1d.shape[0])
-    print(f"mcm_event halo: one slab, headline 512^2 steps 8: "
-          f"{times['halo']:.4f} ms a frame ({params.steps + 1} launches; "
-          f"whole-frame K5 {times['whole']:.4f} ms), device "
-          f"{fmt_ms(device['halo'])} (whole {fmt_ms(device['whole'])}); "
-          f"plain twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by}, {nbytes} bytes, "
-          f"{halo_frame_bytes(params.steps, skip)} a pixel of state, value "
-          f"and stream), "
+    table = scene.tracking_packed if skip else scene.volume_packed
+    occ = mcm_event.halo_occupancy(table.dtype, scene.transfer_1d.shape[0],
+                                   channels=scene.channels)
+    print(f"mcm_event halo {label}: one slab, {height}x{width} steps "
+          f"{params.steps}: {times['halo']:.4f} ms a frame "
+          f"({params.steps + 1} launches; whole-frame K5 "
+          f"{times['whole']:.4f} ms), device {fmt_ms(device['halo'])} "
+          f"(whole {fmt_ms(device['whole'])}); plain twin {plain_ms:.4f} "
+          f"ms; bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes, "
+          f"{pixel} a pixel of state, value and stream), "
           + ("share not measured" if share is None
              else f"{share:.3f} of it") +
           f"; {occ['registers']} registers, {occ['local_bytes']} local "
           f"bytes, {occ['blocks_per_sm']} blocks an SM", flush=True)
-    return {"max_abs_err": worst, "ms": times["halo"],
-            "device_ms": device["halo"], "whole_ms": times["whole"],
-            "whole_device_ms": device["whole"], "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "bound_share": share, "registers": occ["registers"],
-            "local_bytes": occ["local_bytes"]}
+    return {"ms": times["halo"], "device_ms": device["halo"],
+            "whole_ms": times["whole"], "whole_device_ms": device["whole"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "bound_share": share,
+            "registers": occ["registers"], "local_bytes": occ["local_bytes"]}
+
+
+def phase_halo_layouts(scenes):
+    """K5's halo instance on the slab layouts and the two-channel fetch:
+    on the headline at 512², 2 slabs interleaved (m = 2) and 2 slabs
+    unmasked (``collective=False``) each equal the plain loop over the
+    same HaloScene bit for bit; on the two-channel 128³ scene
+    (:func:`rg_scene`) one slab's 2 frames equal K5's ext frames of the
+    whole scene bit for bit, and each of 2 slabs' (masked, the value pair
+    unsummed) its plain twin.  Then the two-channel halo frame on one slab
+    timed against the ext frame (:func:`halo_row`).  Returns the row's
+    numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.renderers import mcm
+
+    params = mcm.Params(extinction=40.0, anisotropy=0.3, steps=8)
+    head, rg = scenes["headline"], scenes["rg"]
+    state = mcm.reset(params, 512, 512, head)
+    for kw in ({"interleave": 2}, {"collective": False}):
+        for k in range(2):
+            hs = halo.halo_scene(head, k, 2, **kw)
+            got, want = _clone(state), _clone(state)
+            mcm.render_frame(got, hs, params, np.float32(0.1), 1)
+            mcm_event.event_frame_plain(
+                want, dataclasses.replace(hs, kernels=False), params,
+                np.float32(0.1))
+            torch.cuda.synchronize()
+            for key in want:
+                check(torch.equal(got[key], want[key]),
+                      f"K5 halo {kw} slab {k}/2: {key} differs from the "
+                      "plain twin")
+    state = mcm.reset(params, 512, 512, rg)
+    worst = 0.0
+    for count in (1, 2):
+        for k in range(count):
+            hs = halo.halo_scene(rg, k, count)
+            got, want = _clone(state), _clone(state)
+            for n in (1, 2):
+                seed = np.float32(0.1 * n)
+                mcm.render_frame(got, hs, params, seed, n)
+                if count == 1:
+                    mcm.render_frame(want, rg, params, seed, n)
+                else:
+                    mcm_event.event_frame_plain(
+                        want, dataclasses.replace(hs, kernels=False), params,
+                        seed)
+            torch.cuda.synchronize()
+            for key in want:
+                check(torch.equal(got[key], want[key]),
+                      f"K5 halo two-channel slab {k}/{count}: {key} differs "
+                      "from " + ("K5's ext frame" if count == 1
+                                 else "the plain twin"))
+            worst = max(worst, float((got["radiance"]
+                                      - want["radiance"]).abs().max()))
+    print("mcm_event halo layouts: 512^2 headline frames on 2 interleaved "
+          "(m = 2) and 2 unmasked slabs equal the plain loop over the "
+          "HaloScene bit for bit; two-channel 128^3 frames on one slab equal "
+          "K5's ext frames, on 2 slabs the plain twin, bit for bit",
+          flush=True)
+    return {"max_abs_err": worst,
+            **halo_row("two-channel 128^3", rg, state, params)}
+
+
+#: path resident's two-channel frames: the volume and the image
+RESIDENT_RG_VOLUME, RESIDENT_RG_RES = 128, 512
+
+
+def resident_frame_bytes(steps, skip, rows, moved=0):
+    """Bytes of one exact resident frame over ``rows`` pool rows, the least
+    that any split of the event around the migration moves: each event a
+    row's photon state (56 bytes, 60 with cheb-skip) in and out once (the
+    tentative position is the state's own position), its stream in and
+    out (8 bytes each way: the port's int64 layout) and its flags in
+    (occupied, pending) and pending out; its NDC once a frame (8 bytes,
+    the reseed); and each of ``moved`` migrating rows read at its sender
+    and written at its receiver (the state, NDC, pixel id, stream and
+    pending flag).  K5's resident instance moves this (csrc/mcm_event.cu,
+    ArgsResident)."""
+    state = 60 if skip else 56
+    row = state + 8 + 4 + 8 + 1
+    return rows * (steps * (2 * state + 2 * 8 + 3) + 8) + moved * 2 * row
+
+
+def resident_row(label, scene, pool, tables, frame_fn, plain_fn, whole,
+                 frame, params, res):
+    """The resident instance's row on ``scene`` at ``res``²: a resident
+    frame (``frame_fn`` on a copy of ``pool``) timed against ``frame``,
+    the K5 frame of the whole scene on a copy of ``whole``, in turns (CUDA
+    events; device time of its steps + 1 launches), the plain resident
+    frame (``plain_fn``), and the bound: :func:`resident_frame_bytes` in
+    place of the whole frame's state, the distinct corner rows and
+    :func:`event_bound`'s operations of a frame from the reset state."""
+    import torch
+
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.renderers import mcm
+
+    a, b, c = _clone(pool), _clone(whole), _clone(pool)
+    times = in_turns({
+        "resident": lambda: frame_fn(a, tables, params, 0.5, 3),
+        "whole": lambda: frame(b, scene, params, 0.5, 3)}, 5)
+    device = device_turns({
+        "resident": lambda: frame_fn(a, tables, params, 0.5, 3),
+        "whole": lambda: frame(b, scene, params, 0.5, 3)}, "mcm_", reps=5)
+    if device["resident"] is not None:
+        device["resident"] *= params.steps + 1
+    plain_ms = cuda_ms(lambda: plain_fn(c, params, 0.5), 1)
+    n = res * res
+    start = mcm.reset(params, res, res, scene)
+    d = _clone(start)
+    mcm_event.event_frame(d, scene, params, 0.3)
+    deposits = float(d["samples"].sum(dtype=torch.float64)
+                     - start["samples"].sum(dtype=torch.float64))
+    work = event_work(scene, start, params, 0.3)
+    skip = "cheb" in start
+    state = 60 if skip else 56
+    _, _, whole_bytes, ops = event_bound(scene, n, params.steps, deposits,
+                                         work["rows"], state_bytes=state)
+    nbytes = whole_bytes - 2 * n * state \
+        + resident_frame_bytes(params.steps, skip, n)
+    bound_ms, bound_by = roofline(nbytes, ops)
+    share = None if device["resident"] is None \
+        else bound_ms / device["resident"]
+    channels = scene.channels
+    occ = mcm_event.resident_occupancy(
+        scene.volume_packed.dtype, scene.transfer_1d.shape[0],
+        channels=channels)
+    print(f"mcm_event resident {label}: one slab, {res}^2 steps 8: "
+          f"{times['resident']:.4f} ms a frame ({params.steps + 1} "
+          f"launches; K5 {times['whole']:.4f} ms), device "
+          f"{fmt_ms(device['resident'])} (K5 {fmt_ms(device['whole'])}); "
+          f"plain resident frame {plain_ms:.4f} ms; bound {bound_ms:.4f} "
+          f"ms ({bound_by}, {nbytes} bytes, "
+          f"{resident_frame_bytes(params.steps, skip, 1)} a row), "
+          + ("share not measured" if share is None
+             else f"{share:.3f} of it") +
+          f"; {occ['registers']} registers, {occ['local_bytes']} local "
+          f"bytes, {occ['blocks_per_sm']} blocks an SM", flush=True)
+    return {"ms": times["resident"], "device_ms": device["resident"],
+            "whole_ms": times["whole"], "whole_device_ms": device["whole"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "bound_share": share,
+            "registers": occ["registers"], "local_bytes": occ["local_bytes"]}
+
+
+def phase_resident_path(grid, scene, counters):
+    """``path resident`` in ``path parallel``'s world of one over ``nccl``
+    (``grid``) on config 4's full scene (``scene``: 512³ blobs, float32
+    tables): with every launch counter at 0, ``resident_reset`` (the
+    default capacity) and 2 frames of ``resident_render_frame`` at 1024²
+    from the reset state (K5's resident instance, steps + 1 launches a
+    frame), then on a two-channel 128³ scene at 512² 2 resident frames and
+    2 frames of ``halo.sharded_render_frame`` (the two-channel resident and
+    halo instances); the counts read.  After them: the assembled resident
+    state against ``shard_render_frame``'s K5 frames bit for bit in every
+    field, the two-channel resident and halo states against K5's ext
+    frames, every pool field and counter against the plain resident
+    frames' (``kernels=False``), and each resident row timed
+    (:func:`resident_row`).  Returns the launches and the two rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch.parallel import halo, place_state, resident
+    from vpt_tpu_torch.parallel import shard_render_frame
+    from vpt_tpu_torch.renderers import mcm
+
+    t_all = time.perf_counter()
+    params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
+    res, rg_res = PARALLEL_RES, RESIDENT_RG_RES
+    rg = rg_scene(RESIDENT_RG_VOLUME)
+    seeds = [np.float32(0.1 * n) for n in (1, 2)]
+    torch.cuda.synchronize()
+    for module in counters.values():
+        module.LAUNCHES = 0
+    halo.COLLECTIVES.clear()
+    pool = resident.resident_reset(scene, params, res, res, grid, 1)
+    start = _clone(pool)
+    frame_fn, tables = resident.resident_render_frame(grid, scene, 1, res,
+                                                      res)
+    host_ms = []
+    for n, seed in enumerate(seeds, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame_fn(pool, tables, params, seed, n)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    rg_pool = resident.resident_reset(rg, params, rg_res, rg_res, grid, 1)
+    rg_start = _clone(rg_pool)
+    rg_fn, rg_tables = resident.resident_render_frame(grid, rg, 1, rg_res,
+                                                      rg_res)
+    rg_whole = mcm.reset(params, rg_res, rg_res, rg)
+    rg_halo_fn, rg_slabs = halo.sharded_render_frame(mcm, grid, rg, 1,
+                                                     rg_whole)
+    rg_halo = place_state(rg_whole, grid)
+    for n, seed in enumerate(seeds, 1):
+        rg_fn(rg_pool, rg_tables, params, seed, n)
+        rg_halo_fn(rg_halo, rg_slabs, params, seed, n)
+    torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES for k, m in counters.items()}
+    collectives = dict(halo.COLLECTIVES)
+    per_frame = params.steps + 1
+    for name, want in (("mcm_event_resident", 4 * per_frame),
+                       ("mcm_event_resident_rg", 2 * per_frame),
+                       ("mcm_event_halo", 2 * per_frame),
+                       ("mcm_event_halo_rg", 2 * per_frame),
+                       ("mcm_event", 0)):
+        check(launches[name] == want, f"path resident: {launches[name]} "
+              f"{name} launches, not {want}")
+    check(not collectives, f"path resident: a world of one issued "
+          f"{collectives}")
+
+    # after the counts: the K5 frames of the whole scene, the plain
+    # resident frames
+    whole = mcm.reset(params, res, res, scene)
+    frame = shard_render_frame(mcm, grid, whole)
+    want = place_state(whole, grid)
+    for n, seed in enumerate(seeds, 1):
+        frame(want, scene, params, seed, n)
+    got = resident.assemble(pool, res, res, grid)
+    torch.cuda.synchronize()
+    for k in want:
+        check(torch.equal(got[k], want[k]), f"path resident: the resident "
+              f"frame's {k} differs from shard_render_frame's K5 frame")
+    check(all(int(pool[c]) == 0 for c in ("migrated", "stalled", "dropped")),
+          "path resident: a world of one migrated, stalled or dropped")
+    rg_want = mcm.reset(params, rg_res, rg_res, rg)
+    for n, seed in enumerate(seeds, 1):
+        mcm.render_frame(rg_want, rg, params, seed, n)
+    rg_got = resident.assemble(rg_pool, rg_res, rg_res, grid)
+    torch.cuda.synchronize()
+    for k in rg_want:
+        check(torch.equal(rg_got[k], rg_want[k]), f"path resident: the "
+              f"two-channel resident frame's {k} differs from K5's ext "
+              "frame")
+        check(torch.equal(rg_halo[k], rg_want[k]), f"path resident: the "
+              f"two-channel halo frame's {k} differs from K5's ext frame")
+    plains = {}
+    for label, sc, kernel_pool, first, r in (
+            ("config 4", scene, pool, start, res),
+            ("two-channel", rg, rg_pool, rg_start, rg_res)):
+        pfn, ptables = resident.resident_render_frame(
+            grid, dataclasses.replace(sc, kernels=False), 1, r, r)
+        plain = _clone(first)
+        for n, seed in enumerate(seeds, 1):
+            pfn(plain, ptables, params, seed, n)
+        torch.cuda.synchronize()
+        for k in kernel_pool:
+            check(torch.equal(kernel_pool[k], plain[k]), f"path resident "
+                  f"{label}: the pool's {k} differs from the plain "
+                  "resident frame's")
+        plains[label] = (pfn, ptables)
+    radiance_err = float((got["radiance"] - want["radiance"]).abs().max())
+    rows = {}
+    for name, label, sc, kernel_pool, fn, tabs, r, w in (
+            ("mcm_event_resident", "config 4", scene, pool, frame_fn, tables,
+             res, want),
+            ("mcm_event_resident_rg", "two-channel", rg, rg_pool, rg_fn,
+             rg_tables, rg_res, rg_want)):
+        pfn, ptables = plains[label]
+
+        def plain_frame(p, prm, seed, pfn=pfn, ptables=ptables):
+            pfn(p, ptables, prm, seed, 3)
+
+        def k5_frame(st, sc_, prm, seed, n, sc=sc):
+            mcm.render_frame(st, sc, prm, seed, n)
+
+        rows[name] = resident_row(label, sc, kernel_pool, tabs, fn,
+                                  plain_frame, w, k5_frame, params, r)
+        rows[name]["max_abs_err"] = radiance_err if name.endswith(
+            "resident") else float((rg_got["radiance"]
+                                    - rg_want["radiance"]).abs().max())
+    rows["mcm_event_resident"]["host_ms_frames"] = host_ms
+    print(f"path resident: config 4 full ({PARALLEL_VOLUME}^3 blobs, "
+          f"float32 tables) at {res}^2 in a world of one over nccl, 2 "
+          f"frames from the reset state through resident_render_frame: "
+          f"{', '.join(f'{x:.3f}' for x in host_ms)} ms a frame (host "
+          f"clock), {per_frame} K5 resident launches a frame, equal bit for "
+          f"bit to shard_render_frame's K5 frames in every field and the "
+          f"pool to the plain resident frames'; a two-channel "
+          f"{RESIDENT_RG_VOLUME}^3 scene at {rg_res}^2: resident and halo "
+          f"frames equal to K5's ext frames bit for bit; bound share "
+          f"{rows['mcm_event_resident']['bound_share']}; launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"; {time.perf_counter() - t_all:.1f} s", flush=True)
+    return launches, rows
+
+
+def gloo_resident(mesh, big, rg):
+    """The two-rank resident check on ``mesh`` (``space`` = 2), 2 frames at
+    512² (config 4's Params): on ``big`` (256³) contiguous and interleaved
+    (m = 2) slabs stall-free and with ``fanout=2`` (stalls forced; also
+    the plain resident frames on the same ranks, ``kernels=False``), on
+    ``rg`` (two channels, 128³) contiguous; each case's assembled state,
+    counters and occupied rows summed over the ranks, collectives a frame
+    and host ms; whether every pool field equals the plain run's on both
+    ranks (fanout 2)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.kernels import mcm_event
+    from vpt_tpu_torch.parallel import halo, resident
+    from vpt_tpu_torch.renderers import mcm
+
+    params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
+    res, frames = GLOO_HALO_RES, GLOO_HALO_FRAMES
+    out = {}
+    mcm_event.RESIDENT_LAUNCHES = mcm_event.RESIDENT_RG_LAUNCHES = 0
+    for name, sc, kw in (("contiguous", big, {}),
+                         ("interleave2", big, {"interleave": 2}),
+                         ("fanout2", big, {"fanout": 2}),
+                         ("two-channel", rg, {})):
+        m = kw.get("interleave", 1)
+        pool = resident.resident_reset(sc, params, res, res, mesh, 2,
+                                       interleave=m)
+        start = _clone(pool)
+        fn, tables = resident.resident_render_frame(mesh, sc, 2, res, res,
+                                                    **kw)
+        halo.COLLECTIVES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for n in range(1, frames + 1):
+            fn(pool, tables, params, np.float32(0.1 * n), n)
+        torch.cuda.synchronize()
+        entry = {"host_ms": (time.perf_counter() - t0) * 1e3 / frames,
+                 "collectives": dict(halo.COLLECTIVES)}
+        sums = torch.stack([pool[c].to(torch.int64) for c in
+                            ("migrated", "stalled", "dropped")]
+                           + [pool["occupied"].sum()])
+        dist.all_reduce(sums)
+        entry["counters"] = sums.tolist()
+        entry["state"] = {k: v.cpu() for k, v in resident.assemble(
+            pool, res, res, mesh).items()}
+        if name == "fanout2":
+            pfn, ptables = resident.resident_render_frame(
+                mesh, dataclasses.replace(sc, kernels=False), 2, res, res,
+                **kw)
+            plain = start
+            for n in range(1, frames + 1):
+                pfn(plain, ptables, params, np.float32(0.1 * n), n)
+            same = torch.tensor([int(all(torch.equal(pool[k], plain[k])
+                                         for k in pool))], device="cuda")
+            dist.all_reduce(same)
+            entry["plain_equal"] = int(same) == dist.get_world_size()
+        out[name] = entry
+    out["launches"] = (mcm_event.RESIDENT_LAUNCHES,
+                       mcm_event.RESIDENT_RG_LAUNCHES)
+    return out
+
+
+def check_gloo_resident(got, want_halo, want_rg):
+    """``path resident``'s two-rank checks (:func:`gloo_resident`): the
+    stall-free states equal one process's K5 frames (which the world of
+    one's resident frames equal) bit for bit with nothing dropped, the
+    fanout-2 pools every field equal to the plain run's with stalls and
+    one photon a pixel, the two-channel state equal to K5's ext frames;
+    prints migrated and stalled a frame, the bytes on the wire an event
+    and the crossing share."""
+    n_pix = GLOO_HALO_RES * GLOO_HALO_RES
+    events = GLOO_HALO_FRAMES * 8
+    # a migrating row on the wire: its packed words (the state, NDC, pixel
+    # id, the stream's two words, pending)
+    row_bytes = 4 * (3 + 3 + 1 + 3 + 3 + 1 + 2 + 1 + 2 + 1)
+    lines = []
+    for name, entry in got.items():
+        if name == "launches":
+            continue
+        migrated, stalled, dropped, occupied = entry["counters"]
+        check(dropped == 0 and occupied == n_pix,
+              f"path resident gloo {name}: {dropped} dropped, {occupied} "
+              "photons")
+        want = want_rg if name == "two-channel" else want_halo
+        if name == "fanout2":
+            check(entry["plain_equal"], "path resident gloo fanout2: the "
+                  "pools differ from the plain resident frames'")
+            check(stalled > 0, "path resident gloo fanout2: nothing "
+                  "stalled")
+        else:
+            check(stalled == 0, f"path resident gloo {name}: {stalled} "
+                  "stalled")
+            for k, v in want.items():
+                check(bool((entry["state"][k] == v.cpu()).all()),
+                      f"path resident gloo {name}: {k} differs from the "
+                      "world-of-one frame")
+        lines.append(f"{name}: migrated {migrated / GLOO_HALO_FRAMES:g} and "
+                     f"stalled {stalled / GLOO_HALO_FRAMES:g} a frame, "
+                     f"{migrated * row_bytes / events:.1f} bytes on the wire "
+                     f"an event, crossing share "
+                     f"{migrated / (n_pix * events):.6f}, "
+                     f"{entry['host_ms']:.3f} ms a frame (host clock), "
+                     f"collectives {entry['collectives']}")
+    check(got["launches"][0] > 0 and got["launches"][1] > 0,
+          f"path resident gloo: launches {got['launches']}")
+    print(f"path resident gloo: 2 ranks on one card over gloo, space 2, "
+          f"{GLOO_HALO_RES}^2 x {GLOO_HALO_FRAMES} frames (256^3 blobs; the "
+          f"two-channel case 128^3), rank 0's K5 resident launches "
+          f"{got['launches'][0]} ({got['launches'][1]} two-channel); the "
+          "stall-free states equal to the world-of-one frames bit for bit, "
+          "fanout 2 equal to the plain resident frames in every pool field; "
+          + "; ".join(lines), flush=True)
 
 
 def dos_bands_agree(label, got, want, bound, share):
@@ -6091,11 +6568,18 @@ def run():
                 "mcm_event_halo": LaunchCounter(mcm_event, "HALO_LAUNCHES"),
                 "corner_gather_slab": LaunchCounter(corner_gather,
                                                     "SLAB_LAUNCHES"),
-                "dos_band": LaunchCounter(dos_sweep, "BAND_LAUNCHES")}
+                "dos_band": LaunchCounter(dos_sweep, "BAND_LAUNCHES"),
+                "mcm_event_resident": LaunchCounter(mcm_event,
+                                                    "RESIDENT_LAUNCHES"),
+                "mcm_event_halo_rg": LaunchCounter(mcm_event,
+                                                   "HALO_RG_LAUNCHES"),
+                "mcm_event_resident_rg": LaunchCounter(
+                    mcm_event, "RESIDENT_RG_LAUNCHES")}
     t0 = time.perf_counter()
     scenes = slab_scenes()
     k3_slab = phase_slab_fetch(scenes)
     k5_halo = phase_halo_event(scenes["headline"])
+    k5_halo_rg = phase_halo_layouts(scenes)
     k9_band = phase_dos_band(scenes["headline"])
     del scenes
     torch.cuda.empty_cache()
@@ -6184,6 +6668,10 @@ def run():
     k5_halo["whole_ms_1024_config4"] = parallel_numbers["whole_ms_1024"]
     k3_slab["config4_fit"] = {k: parallel_numbers[k] for k in (
         "fit_losses", "fit_step_s", "fit_peak_gib")}
+    resident_launches = parallel_numbers["resident_launches"]
+    k5_resident = parallel_numbers["resident_rows"]["mcm_event_resident"]
+    k5_resident_rg = parallel_numbers["resident_rows"][
+        "mcm_event_resident_rg"]
     print(f"path parallel: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_parallel_gloo(dev)
@@ -6216,7 +6704,10 @@ def run():
             ("demos", demos_launches,
              ("mcm_event", "march_frame", "iso_shade", "mcs_frame",
               "dos_sweep", "lao_march", "tonemap", "corner_gather",
-              "corner_scatter"))):
+              "corner_scatter")),
+            ("resident", resident_launches,
+             ("mcm_event_resident", "mcm_event_resident_rg",
+              "mcm_event_halo_rg"))):
         for name in names:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -6320,10 +6811,36 @@ def run():
                         "active slice of a band (the parallel path's 1024^2 "
                         "frame); ms a slice of a 512^2 headline frame",
          **k9_band},
+        {"name": "mcm_event_resident", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/mcm_event.cu",
+         "replaces": "vpt_tpu/parallel/resident.py:441",
+         "launched_by": "resident.resident_render_frame (steps + 1 "
+                        "launches an exact frame around the migrations; "
+                        "the resident path's 2 frames of config 4 at "
+                        "1024^2 in a world of one); ms and device_ms a "
+                        "frame there", **k5_resident},
+        {"name": "mcm_event_halo_rg", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/mcm_event.cu",
+         "replaces": "vpt_tpu/parallel/halo.py:199",
+         "launched_by": "halo.sharded_render_frame's MCM frame on a "
+                        "two-channel scene (the resident path's 2 frames "
+                        "of a 128^3 RG scene at 512^2); ms and device_ms a "
+                        "512^2 frame of that scene on one slab",
+         **k5_halo_rg},
+        {"name": "mcm_event_resident_rg", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/mcm_event.cu",
+         "replaces": "vpt_tpu/parallel/resident.py:441",
+         "launched_by": "resident.resident_render_frame on a two-channel "
+                        "scene (the resident path's 2 frames of a 128^3 RG "
+                        "scene at 512^2); ms and device_ms a frame there",
+         **k5_resident_rg},
     ]
     for row in rows:
-        if row["name"] in ("mcm_event_halo", "corner_gather_slab",
-                           "dos_band"):
+        if row["name"] in ("mcm_event_resident", "mcm_event_halo_rg",
+                           "mcm_event_resident_rg"):
+            row["launches"] = resident_launches[row["name"]]
+        elif row["name"] in ("mcm_event_halo", "corner_gather_slab",
+                             "dos_band"):
             row["launches"] = parallel_launches[row["name"]]
         elif row["name"].startswith("corner"):
             row["launches"] = fit_launches[row["name"]] \
@@ -6343,6 +6860,7 @@ def run():
         row["launches_unpacked"] = unpacked_launches[row["name"]]
         row["launches_parallel"] = parallel_launches[row["name"]]
         row["launches_demos"] = demos_launches[row["name"]]
+        row["launches_resident"] = resident_launches[row["name"]]
         if row["name"] in unpacked_errors:
             row["unpacked_max_abs_err"] = unpacked_errors[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"],

@@ -2289,11 +2289,12 @@ def test_slab_fetch_sums_to_the_whole_fetch(cuda, dtype, num_slabs):
     assert torch.equal(torch.isnan(total), torch.isnan(whole))
 
 
-def test_slab_kernels_refuse_thin_and_unmasked_slabs(cuda):
+def test_slab_kernels_take_thin_and_unmasked_slabs(cuda):
     """Interleaved thin slabs and an unmasked slab-local fetch
-    (``HaloScene(collective=False)``), which only ``resident.py`` needs,
-    raise ``_not_ported`` on the card (ROADMAP queue 1 item 16 part 3),
-    in the slab fetch and in a halo frame, before any launch."""
+    (``HaloScene(collective=False)``, ``resident.py``'s) run on the card:
+    K3's slab fetch equals its plain twin bit for bit (values, cells,
+    fractions), and a halo frame over such a HaloScene equals the plain
+    loop over it bit for bit; one launch a fetch, steps + 1 a frame."""
     from vpt_tpu_torch.parallel import halo
 
     scene = _headline_scene(16, cuda)
@@ -2304,16 +2305,25 @@ def test_slab_kernels_refuse_thin_and_unmasked_slabs(cuda):
     rows = halo.slab_table(scene.volume_packed, shape, 2, 0)
     params = mcm.Params(steps=2)
     before = (corner_gather.SLAB_LAUNCHES, mcm_event.HALO_LAUNCHES)
-    with pytest.raises(NotImplementedError, match="item 16 part 3"):
-        corner_gather.slab_fetch(thin, shape, 0, 2, 2, pos)
-    with pytest.raises(NotImplementedError, match="item 16 part 3"):
-        corner_gather.slab_fetch(rows, shape, 0, 2, 1, pos, masked=False)
+    for args in ((thin, shape, 0, 2, 2, pos, True),
+                 (rows, shape, 0, 2, 1, pos, False)):
+        got = corner_gather.slab_fetch(*args, save=True)
+        want = corner_gather.slab_fetch_plain(*args, save=True)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
     for hs in (halo.halo_scene(scene, 0, 2, interleave=2),
                halo.halo_scene(scene, 0, 2, collective=False)):
-        with pytest.raises(NotImplementedError, match="item 16 part 3"):
-            mcm.render_frame(mcm.reset(params, 8, 8, scene), hs, params,
-                             0.1, 1)
-    assert (corner_gather.SLAB_LAUNCHES, mcm_event.HALO_LAUNCHES) == before
+        state = mcm.reset(params, 8, 8, scene)
+        want = {k: v.clone() for k, v in state.items()}
+        mcm.render_frame(state, hs, params, 0.1, 1)
+        mcm_event.event_frame_plain(want, dataclasses.replace(
+            hs, kernels=False), params, np.float32(0.1))
+        torch.cuda.synchronize()
+        for k in want:
+            assert torch.equal(state[k], want[k]), k
+    assert (corner_gather.SLAB_LAUNCHES, mcm_event.HALO_LAUNCHES) == (
+        before[0] + 2, before[1] + 2 * (params.steps + 1))
 
 
 def test_slab_fetch_gradient_matches_plain(cuda):
@@ -2436,19 +2446,34 @@ def test_dos_band_matches_plain_and_cooperative(cuda, kind):
 
 
 def test_halo_frames_refuse_what_has_no_kernel(cuda):
-    """On the card a HaloScene frame of a two-channel volume and a march
-    renderer's frame raise ``_not_ported`` (ROADMAP queue 2b) before any
-    launch; DOS's Python hooks raise, naming the sharded frame."""
+    """On the card a HaloScene frame of a two-channel volume runs K5's
+    two-channel halo instance, equal to the ext frame and the plain loop
+    bit for bit on one slab; a march renderer's frame raises
+    ``_not_ported`` (ROADMAP queue 2b) before any launch; DOS's Python
+    hooks raise, naming the sharded frame."""
     from vpt_tpu_torch.parallel import halo
 
     rg = make_scene(volume.with_gradient_magnitude(
         volume.blobs_volume(16, seed=1, device=cuda)),
         transfer.gray_ramp(device=cuda), device=cuda)
     params = mcm.Params(steps=2)
+    # a two-channel HaloScene's frame runs K5's halo instance of two
+    # channels: on one slab it equals the ext frame and the plain loop
+    state = mcm.reset(params, 8, 8, rg)
+    whole = {k: v.clone() for k, v in state.items()}
+    plain = {k: v.clone() for k, v in state.items()}
+    halo_before = mcm_event.HALO_LAUNCHES
+    hs = halo.halo_scene(rg, 0, 1)
+    mcm.render_frame(state, hs, params, 0.1, 1)
+    mcm.render_frame(whole, rg, params, 0.1, 1)
+    mcm_event.event_frame_plain(plain, dataclasses.replace(
+        hs, kernels=False), params, np.float32(0.1))
+    torch.cuda.synchronize()
+    assert mcm_event.HALO_LAUNCHES == halo_before + params.steps + 1
+    for k in whole:
+        assert torch.equal(state[k], whole[k]), k
+        assert torch.equal(state[k], plain[k]), k
     before = (_launches(), mcm_event.HALO_LAUNCHES)
-    with pytest.raises(NotImplementedError, match="queue 2b item 10"):
-        mcm.render_frame(mcm.reset(params, 8, 8, rg),
-                         halo.halo_scene(rg, 0, 1), params, 0.1, 1)
     scene = _headline_scene(16, cuda)
     hs = halo.halo_scene(scene, 0, 1)
     for module, item in ((eam, "6"), (mip, "6"), (depth, "6"), (iso, "6"),
@@ -2530,5 +2555,61 @@ def test_halo_world_of_one_over_nccl(cuda):
         torch.cuda.synchronize()
         for k in ("color", "occlusion", "depth"):
             assert torch.equal(got[k], plain[k]), k
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["headline", "f32", "rg"])
+def test_resident_world_of_one_over_nccl(cuda, kind):
+    """``resident.resident_render_frame`` on one slab in a world of one
+    over ``nccl`` (K5's resident instance: steps + 1 launches an exact
+    frame, (m + 1) a round of the amortized mode): every pool field and
+    counter equals the plain resident frame's (``kernels=False``) bit for
+    bit, and the assembled state equals K5's frame of the whole scene."""
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.parallel import distributed, make_mesh, resident
+
+    if kind == "headline":
+        scene = _headline_scene(32, cuda)
+    elif kind == "f32":
+        scene = make_scene(volume.blobs_volume(32, seed=3, device=cuda),
+                           transfer.gray_ramp(alpha_scale=0.8, device=cuda),
+                           environment=environment.gradient_sky(
+                               16, 64, device=cuda), device=cuda)
+    else:
+        scene = make_scene(volume.with_gradient_magnitude(
+            volume.blobs_volume(32, seed=1, device=cuda)),
+            transfer.gray_ramp(alpha_scale=0.9, device=cuda), device=cuda)
+    assert distributed.initialize(f"localhost:{_free_port()}", 1, 0,
+                                  retries=1)
+    try:
+        grid = make_mesh(1)
+        params = mcm.Params(extinction=30.0, anisotropy=0.3, steps=8)
+        plain_scene = dataclasses.replace(scene, kernels=False)
+        for every, launches in ((1, params.steps + 1),
+                                (2, params.steps // 2 * 3)):
+            pool = resident.resident_reset(scene, params, 64, 48, grid, 1)
+            plain = {k: v.clone() for k, v in pool.items()}
+            fn, tables = resident.resident_render_frame(
+                grid, scene, 1, 64, 48, migrate_every=every)
+            pfn, ptables = resident.resident_render_frame(
+                grid, plain_scene, 1, 64, 48, migrate_every=every)
+            whole = mcm.reset(params, 64, 48, scene)
+            before = (mcm_event.RESIDENT_LAUNCHES, _launches())
+            for n in range(1, 3):
+                fn(pool, tables, params, np.float32(0.1 * n), n)
+            assert mcm_event.RESIDENT_LAUNCHES == before[0] + 2 * launches
+            assert _launches() == before[1]
+            for n in range(1, 3):
+                pfn(plain, ptables, params, np.float32(0.1 * n), n)
+                mcm.render_frame(whole, scene, params, np.float32(0.1 * n),
+                                 n)
+            torch.cuda.synchronize()
+            for k in pool:
+                assert torch.equal(pool[k], plain[k]), (every, k)
+            got = resident.assemble(pool, 64, 48, grid)
+            for k in whole:
+                assert torch.equal(got[k], whole[k]), (every, k)
     finally:
         dist.destroy_process_group()

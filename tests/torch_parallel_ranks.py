@@ -443,3 +443,101 @@ def dos_everything(rank, world, fields, inside_fields):
         1)
     out["inside"] = _np(gather_state(local, mesh, DOS_SIZE))
     return out if rank == 0 else {}
+
+
+#: the resident cases' image, frames and Params (``tests/test_resident.py``'s)
+RESIDENT_SIZE, RESIDENT_FRAMES = 16, 2
+RESIDENT_PARAMS = dict(extinction=25.0, steps=8)
+
+#: the stall-free resident frames: (name, scene kind, data, space,
+#: interleave), each from the port's own reset
+RESIDENT_STALL_FREE = [
+    ("d1s4", "f32", 1, 4, 1),
+    ("d2s2", "f32", 2, 2, 1),
+    ("unpacked", "unpacked", 1, 4, 1),
+    ("d2s2_unpacked", "unpacked", 2, 2, 1),
+    ("cheb", "cheb", 1, 4, 1),
+    ("interleave2", "f32", 1, 4, 2),
+    ("interleave4", "f32", 1, 4, 4),
+]
+
+#: the frames held against vpt_tpu's resident machine on a (1, 4) mesh,
+#: each from vpt_tpu's reset pool: (name, fanout, capacity, interleave,
+#: migrate_every); a capacity of 64 is group // S, the mutual-full case
+RESIDENT_JAX = [
+    ("fanout2", 2, None, 1, 1),
+    ("capacity_half", None, 128, 1, 1),
+    ("amortized", None, None, 2, 2),
+    ("mutual_full", None, 64, 1, 1),
+]
+
+
+def _resident_frames(frame_fn, pool, tables, params):
+    for n in range(1, RESIDENT_FRAMES + 1):
+        frame_fn(pool, tables, params, np.float32(0.1 * n), n)
+    return pool
+
+
+def resident_everything(rank, world, fields, jax_pools):
+    """The resident frames on a group of 4 ranks: the stall-free cases of
+    :data:`RESIDENT_STALL_FREE` from the port's reset, assembled over the
+    mesh, with each rank's counters; the cases of :data:`RESIDENT_JAX`
+    from vpt_tpu's reset pools (``jax_pools``, whole numpy pools), each
+    rank's pool block; the collectives of one exact frame; and the
+    amortized mode's refusal of steps it does not divide.  Every rank's
+    results go back."""
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.parallel import halo, make_mesh, resident
+    from vpt_tpu_torch.parallel.mesh import axis_index
+    from vpt_tpu_torch.renderers import mcm
+
+    scenes = {k: interop.scene_from_numpy(v, device="cpu")
+              for k, v in fields.items()}
+    params = mcm.Params(**RESIDENT_PARAMS)
+    h = w = RESIDENT_SIZE
+    out = {}
+    meshes = {}
+    for name, kind, data, space, m in RESIDENT_STALL_FREE:
+        if space not in meshes:
+            meshes[space] = make_mesh(world, space=space, device="cpu")
+        mesh = meshes[space]
+        pool = resident.resident_reset(scenes[kind], params, h, w, mesh,
+                                       space, interleave=m)
+        frame_fn, tables = resident.resident_render_frame(
+            mesh, scenes[kind], space, h, w, interleave=m)
+        halo.COLLECTIVES.clear()
+        frame_fn(pool, tables, params, np.float32(0.1), 1)
+        collectives = dict(halo.COLLECTIVES)
+        frame_fn(pool, tables, params, np.float32(0.2), 2)
+        out[name] = {"state": _np(resident.assemble(pool, h, w, mesh)),
+                     "counters": {c: int(pool[c]) for c in
+                                  ("migrated", "stalled", "dropped")},
+                     "collectives": collectives}
+    # one slab a data group: the amortized mode parks nothing
+    mesh = make_mesh(world, space=1, device="cpu")
+    for every in (1, 4):
+        pool = resident.resident_reset(scenes["f32"], params, h, w, mesh, 1)
+        frame_fn, tables = resident.resident_render_frame(
+            mesh, scenes["f32"], 1, h, w, migrate_every=every)
+        _resident_frames(frame_fn, pool, tables, params)
+        out[f"space1_every{every}"] = _np(resident.assemble(pool, h, w,
+                                                            mesh))
+    mesh = meshes[4]
+    index = (axis_index(mesh, "data"), axis_index(mesh, "space"))
+    for name, fanout, capacity, m, every in RESIDENT_JAX:
+        pool = interop.resident_pool_from_numpy(jax_pools[name], *index,
+                                                device="cpu")
+        frame_fn, tables = resident.resident_render_frame(
+            mesh, scenes["f32"], 4, h, w, fanout=fanout, interleave=m,
+            migrate_every=every)
+        _resident_frames(frame_fn, pool, tables, params)
+        out[name] = {"index": index, "pool": _np(pool)}
+    frame_fn, tables = resident.resident_render_frame(
+        mesh, scenes["f32"], 4, h, w, migrate_every=3)
+    pool = resident.resident_reset(scenes["f32"], params, h, w, mesh, 4)
+    try:
+        frame_fn(pool, tables, params, np.float32(0.1), 1)
+        out["not_divisible"] = None
+    except ValueError as exc:
+        out["not_divisible"] = str(exc)
+    return out

@@ -28,8 +28,9 @@
 //
 // The slab instance (vpt_slab_fetch) is the masked fetch of a spatially
 // sharded volume (vpt_tpu/parallel/halo.py:143-166, _trilinear_packed):
-// slab.cuh's slab-local cell, a read only where this rank owns the cell,
-// 0 and the saved cell -1 elsewhere.
+// slab.cuh's slab-local cell (contiguous or interleaved thin slabs), a read
+// only where this rank owns the cell, 0 and the saved cell -1 elsewhere;
+// unmasked, every position reads its slab-local row.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -155,11 +156,12 @@ __global__ void corner_fetch_kernel(const T* __restrict__ table, int c,
 // The slab instance (parallel/halo.py, the sharded gradient's forward):
 // the table is this rank's slab of the corner table, (slab rows, 8 * c) for
 // a volume of d planes (slab.cuh's VptSlab), and a sample's cell and
-// ownership come from vpt_slab_cell.  A sample whose cell another rank
-// owns is 0 (no read) and saves the cell -1, which the corner scatter (K4)
-// skips; otherwise the value, cell and fractions are corner_fetch_kernel's
-// over the slab's rows, so the sum over the ranks of their masked values
-// is the whole table's value bit for bit.
+// ownership come from vpt_slab_cell.  Masked, a sample whose cell another
+// rank owns is 0 (no read) and saves the cell -1, which the corner scatter
+// (K4) skips; otherwise the value, cell and fractions are
+// corner_fetch_kernel's over the slab's rows, so the sum over the ranks of
+// their masked values is the whole table's value bit for bit.  Unmasked
+// (slab.masked 0), every sample reads its slab-local row.
 template <typename T, bool kOneChannel>
 __global__ void slab_fetch_kernel(const T* __restrict__ table, int c, int w,
                                   int h, int d, VptSlab slab,
@@ -276,18 +278,19 @@ extern "C" int vpt_corner_fetch(const void* prepared, const void* position,
 
 // The slab instance: prepared is a VptCornerTable of the slab's table (its
 // d the slab's planes), d the whole volume's planes and the slab (index,
-// count) as in slab_fetch_kernel; the rest as vpt_corner_fetch's.
+// count, thin slabs a rank, masked) as in slab_fetch_kernel; the rest as
+// vpt_corner_fetch's.
 extern "C" int vpt_slab_fetch(const void* prepared, int d, int slab_index,
-                              int num_slabs, const void* position,
-                              long long n, void* out, void* cells,
-                              void* fractions, void* stream) {
+                              int num_slabs, int interleave, int masked,
+                              const void* position, long long n, void* out,
+                              void* cells, void* fractions, void* stream) {
   if (n <= 0) return 0;
-  if (num_slabs < 1 || slab_index < 0 || slab_index >= num_slabs
-      || d % num_slabs != 0)
+  if (num_slabs < 1 || interleave < 1 || slab_index < 0
+      || slab_index >= num_slabs || d % (num_slabs * interleave) != 0)
     return (int)cudaErrorInvalidValue;
   const VptCornerTable& t = *static_cast<const VptCornerTable*>(prepared);
   VptDeviceGuard guard(t.device);
-  const VptSlab slab = {slab_index, num_slabs};
+  const VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
   const int threads = 256;
   const unsigned blocks = blocks_for(n, threads);
   cudaStream_t st = (cudaStream_t)stream;

@@ -49,10 +49,13 @@
 //
 // The flight (mcm_flight), the colour of a fetched value (mcm_value_color)
 // and the interaction (mcm_interact) are device functions that the
-// whole-frame kernel and the halo instance (ArgsHalo below: a spatially
+// whole-frame kernel, the halo instance (ArgsHalo below: a spatially
 // sharded volume, a launch an event and one more, with the all-reduce of
-// each photon's masked slab-local value between them) share; the
-// whole-frame instances keep
+// each photon's masked slab-local value between them) and the resident
+// instance (ArgsResident below: photons in pools of rows on the rank that
+// owns their next sample, migrating between a flight and its interaction;
+// replaces the fori_loop of vpt_tpu/parallel/resident.py:441-478) share;
+// the whole-frame instances keep
 // their registers (40) and their time (bench_mcm_event.py against the
 // parent tree, PERF.md §6).
 //
@@ -438,7 +441,7 @@ mcm_event_ext_kernel(ArgsExt a) {
 // fetches (vpt_tpu/parallel/halo.py:199-216), an all-reduce between the
 // fetch and its use.  So a frame of E events is E + 1 launches on the state
 // tensors, the wrapper all-reducing the values between them: launch e
-// finishes event e - 1 (interact: the TF lookup of the summed value, with
+// finishes event e - 1 (interact: the colour of the summed value, with
 // skip its cheb distance, then mcm_interact) and starts event e (flight:
 // mcm_flight and this rank's masked value, slab.cuh's cell; 0 where another
 // rank owns it).  Between launches a photon keeps its state, its stream as
@@ -449,31 +452,74 @@ mcm_event_ext_kernel(ArgsExt a) {
 // all-reduce (136 bytes a pixel with cheb-skip).  The state round-trips
 // device memory between launches (float32, exact), so a frame equals the
 // whole-frame kernel's when one rank owns every cell.  Instances: the
-// headline's fetch (one channel, linear; exact and cheb-skip flights by
-// use_skip), bf16 or float32 rows, a 1x1 or equirect environment; a
-// HaloScene has no majorant grid.
-struct ArgsHalo : Args {
+// headline's fetch (kC = 0: one channel, linear; exact and cheb-skip
+// flights by use_skip) and the two-channel fetch (kC = 2: ray.cuh's
+// vpt_load_rows and vpt_lerp_rg over the slab cell, the pair (value,
+// channel 1) summed over the ranks, then the 2D TF lookup vpt_tf2d, as
+// mcm_event_ext_kernel's over the whole table), bf16 or float32 rows, a
+// 1x1 or equirect environment; contiguous or interleaved slabs, masked or
+// not (slab.cuh).  A HaloScene has no majorant grid and no filter.
+struct ArgsHalo : ArgsExt {
   uint32_t* rng;   // (n,) each photon's stream before its flight
-  float* value;    // (n,) the masked slab-local value, then the sum
+  float* value;    // (n, kC or 1) the masked slab-local value, then the sum
   VptSlab slab;
   int interact;    // 1: finish the previous event (0: seed the streams)
   int flight;      // 1: start the next event
 };
 
-template <bool kBf16, bool kMap>
+// (value, channel 1) of a slab cell's row (channel 1 is 0 for one channel).
+template <bool kBf16, int kC>
+__device__ __forceinline__ float2 slab_value(const void* table,
+                                             const VptSlabCell& c) {
+  const VptCell<int64_t> cell = {c.row, c.fx, c.fy, c.fz};
+  if constexpr (kC == 2) {
+    return vpt_lerp_rg<kBf16, 2>(vpt_load_rows<kBf16, 2>(table, c.row),
+                                 cell);
+  } else {
+    return make_float2(
+        vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(table, c.row), cell), 0.0f);
+  }
+}
+
+// The colour of a fetched (value, channel 1): mcm_value_color's for one
+// channel, the 2D TF lookup of the packed TF table for two (a two-channel
+// scene has no cheb-skip table).
+template <bool kBf16, int kC>
+__device__ __forceinline__ float4 slab_color(const float4* s_tf,
+                                             const ArgsExt& a, float2 v,
+                                             bool skip, float& cheb_new) {
+  if constexpr (kC == 2) {
+    cheb_new = 0.0f;
+    return vpt_tf2d<kBf16>(a.tf_table, a.tw, a.th, v.x, v.y);
+  } else {
+    return mcm_value_color(s_tf, a, v.x, skip, cheb_new);
+  }
+}
+
+// The TF row (one channel), the inverse MVP and the 1x1 environment texel
+// in shared memory, for a launch that runs interactions.
+template <bool kMap, int kC>
+__device__ __forceinline__ void load_interact_smem(const Args& a,
+                                                   float4* s_tf,
+                                                   float* s_mvp,
+                                                   float* s_env) {
+  if (kC != 2)
+    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
+      s_tf[i] = a.tf_row[i];
+  if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
+  if (!kMap && threadIdx.x < 3)
+    s_env[threadIdx.x] = __ldg(a.env + threadIdx.x);
+  __syncthreads();
+}
+
+template <bool kBf16, bool kMap, int kC>
 __global__ void __launch_bounds__(kThreads)
 mcm_halo_kernel(ArgsHalo a) {
   extern __shared__ float4 s_tf[];
   __shared__ float s_mvp[16];
   __shared__ float s_env[3];
-  if (a.interact) {
-    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
-      s_tf[i] = a.tf_row[i];
-    if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
-    if (!kMap && threadIdx.x < 3)
-      s_env[threadIdx.x] = __ldg(a.env + threadIdx.x);
-    __syncthreads();
-  }
+  if (a.interact) load_interact_smem<kMap, kC>(a, s_tf, s_mvp, s_env);
+  constexpr int kV = kC == 2 ? 2 : 1;  // values a photon
   const long long n = (long long)a.width * a.height;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -483,7 +529,7 @@ mcm_halo_kernel(ArgsHalo a) {
     p[k] = a.position[3 * i + k];
     dir[k] = a.direction[3 * i + k];
   }
-  const bool skip = a.use_skip != 0;
+  const bool skip = kC == 0 && a.use_skip != 0;
   float ch = skip ? a.cheb[i] : 0.0f;
   const int y = (int)i / a.width;
   const float ndcx = vpt_pixel_ndc((int)i - y * a.width, a.width);
@@ -501,7 +547,9 @@ mcm_halo_kernel(ArgsHalo a) {
     s = a.rng[i];
     mcm_flight(s, p, dir, ch, skip, a, q);
     float cheb_new;
-    const float4 vs = mcm_value_color(s_tf, a, a.value[i], skip, cheb_new);
+    const float2 v = make_float2(a.value[kV * i],
+                                 kV == 2 ? a.value[kV * i + 1] : 0.0f);
+    const float4 vs = slab_color<kBf16, kC>(s_tf, a, v, skip, cheb_new);
     mcm_interact<kMap>(s, a, s_mvp, s_env, ndcx, ndcy, (float)a.max_bounces,
                        q, vs, cheb_new, true, p, dir, tr, rad, b, samples,
                        ch);
@@ -524,26 +572,169 @@ mcm_halo_kernel(ArgsHalo a) {
     mcm_flight(s, p, dir, ch, skip, a, q);
     const VptSlabCell c = vpt_slab_cell(a.d, a.h, a.w, a.slab, q[0], q[1],
                                         q[2]);
-    float v = 0.0f;
-    if (c.local) {
-      const VptCell<int64_t> cell = {c.row, c.fx, c.fy, c.fz};
-      v = vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(a.table, c.row), cell);
-    }
-    a.value[i] = v;
+    float2 v = make_float2(0.0f, 0.0f);
+    if (c.local) v = slab_value<kBf16, kC>(a.table, c);
+    a.value[kV * i] = v.x;
+    if (kV == 2) a.value[kV * i + 1] = v.y;
   }
 }
 
 using KernelHalo = void (*)(ArgsHalo);
 
-// The halo instance for a bf16 (flags & 1) or float32 table and an
-// environment map larger than 1x1 (flags & 4) or the 1x1 texel.
-KernelHalo pick_halo(int flags) {
+// The halo instance for a bf16 (flags & 1) or float32 table, an
+// environment map larger than 1x1 (flags & 4) or the 1x1 texel, and two
+// channels (flags & 16) or the headline's fetch.
+template <int kC>
+KernelHalo pick_halo_fetch(int flags) {
   switch (flags & 5) {
-    case 0: return mcm_halo_kernel<false, false>;
-    case 1: return mcm_halo_kernel<true, false>;
-    case 4: return mcm_halo_kernel<false, true>;
-    default: return mcm_halo_kernel<true, true>;
+    case 0: return mcm_halo_kernel<false, false, kC>;
+    case 1: return mcm_halo_kernel<true, false, kC>;
+    case 4: return mcm_halo_kernel<false, true, kC>;
+    default: return mcm_halo_kernel<true, true, kC>;
   }
+}
+
+KernelHalo pick_halo(int flags) {
+  return (flags & 16) ? pick_halo_fetch<2>(flags) : pick_halo_fetch<0>(flags);
+}
+
+// The resident instance (parallel/resident.py, vpt_tpu/parallel/
+// resident.py:312-525): photons live in a pool of rows on the rank that
+// owns the slab holding their next sample and migrate between ranks (the
+// wrapper's all_to_all) between a flight and its interaction.  A launch
+// works over the pool's rows (width rows, height 1): each row carries its
+// photon's state, its pixel's NDC, id and stream (a uint32 in an int64,
+// the port's layout of a stream) and the flags occupied and pending (the
+// flight taken, the sample not yet).  Unlike the halo instance, the flight
+// stores the tentative position in position and the advanced stream in
+// rstate and sets pending, as vpt_tpu's do_flight does, since the photon
+// may change rank before its interaction.  A launch runs, in order:
+// - reseed (the frame's first launch): every row that is not pending takes
+//   its pixel's frame stream (the frame's per-pixel reseed; a pending row
+//   keeps its mid-event stream);
+// - interact: each ready row (occupied, pending, and owned here: the
+//   owner of its position's cell, or pixel_id % S out of the cube) samples
+//   this rank's slab unmasked (slab.cuh), takes the colour and commits the
+//   interaction (mcm_interact), and is no longer pending;
+// - flight: each occupied row that is not pending flies (mcm_flight);
+//   every occupied row is then pending.
+// An unoccupied row keeps its state: only the reseed gives it a stream and
+// the flight clears its pending flag, as vpt_tpu's frame does to every
+// row, so every pool field equals the plain frame's.  No migration falls
+// between an interaction and the next flight, so one launch finishes
+// event e and starts event e + 1: an exact frame of E events is E + 1
+// launches around E exchanges.  Instances: the headline's fetch or two
+// channels (kC), bf16 or float32 rows, a 1x1 or equirect environment.
+struct ArgsResident : ArgsExt {
+  long long* rstate;        // (n,) each row's stream
+  const float* ndc;         // (n, 2) its pixel's NDC
+  const int* pixel_id;      // (n,)
+  const uint8_t* occupied;  // (n,) bool
+  uint8_t* pending;         // (n,) bool
+  VptSlab slab;             // unmasked
+  int reseed, interact, flight;
+};
+
+template <bool kBf16, bool kMap, int kC>
+__global__ void __launch_bounds__(kThreads)
+mcm_resident_kernel(ArgsResident a) {
+  extern __shared__ float4 s_tf[];
+  __shared__ float s_mvp[16];
+  __shared__ float s_env[3];
+  if (a.interact) load_interact_smem<kMap, kC>(a, s_tf, s_mvp, s_env);
+  const long long n = a.width;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool pend = a.pending[i] != 0;
+  const bool fresh = a.reseed && !pend;
+  uint32_t s = fresh ? vpt_seed_pixel(a.ndc[2 * i], a.ndc[2 * i + 1],
+                                      a.seed)
+                     : (uint32_t)a.rstate[i];
+  if (!a.occupied[i]) {
+    if (fresh) a.rstate[i] = (long long)s;
+    if (a.flight && pend) a.pending[i] = 0;
+    return;
+  }
+  float p[3], dir[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p[k] = a.position[3 * i + k];
+    dir[k] = a.direction[3 * i + k];
+  }
+  const bool skip = kC == 0 && a.use_skip != 0;
+  float ch = skip ? a.cheb[i] : 0.0f;
+  bool moved = false;
+  if (a.interact && pend) {
+    const VptSlabCell c = vpt_slab_cell(a.d, a.h, a.w, a.slab, p[0], p[1],
+                                        p[2]);
+    const bool oob = p[0] > 1.0f || p[0] < 0.0f || p[1] > 1.0f
+                     || p[1] < 0.0f || p[2] > 1.0f || p[2] < 0.0f;
+    const int dest = oob ? a.pixel_id[i] % a.slab.count : c.owner;
+    if (dest == a.slab.index) {
+      float tr[3], rad[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        tr[k] = a.transmittance[3 * i + k];
+        rad[k] = a.radiance[3 * i + k];
+      }
+      float b = a.bounces[i];
+      float samples = a.samples[i];
+      float cheb_new;
+      const float4 vs = slab_color<kBf16, kC>(
+          s_tf, a, slab_value<kBf16, kC>(a.table, c), skip, cheb_new);
+      const float q[3] = {p[0], p[1], p[2]};
+      mcm_interact<kMap>(s, a, s_mvp, s_env, a.ndc[2 * i], a.ndc[2 * i + 1],
+                         (float)a.max_bounces, q, vs, cheb_new, true, p, dir,
+                         tr, rad, b, samples, ch);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        a.transmittance[3 * i + k] = tr[k];
+        a.radiance[3 * i + k] = rad[k];
+      }
+      a.bounces[i] = b;
+      a.samples[i] = samples;
+      pend = false;
+      moved = true;
+    }
+  }
+  if (a.flight) {
+    if (!pend) {
+      float q[3];
+      mcm_flight(s, p, dir, ch, skip, a, q);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) p[k] = q[k];
+      moved = true;
+    }
+    pend = true;
+  }
+  if (moved) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      a.position[3 * i + k] = p[k];
+      a.direction[3 * i + k] = dir[k];
+    }
+    if (skip) a.cheb[i] = ch;
+  }
+  if (moved || fresh) a.rstate[i] = (long long)s;
+  if (pend != (a.pending[i] != 0)) a.pending[i] = pend ? 1 : 0;
+}
+
+using KernelResident = void (*)(ArgsResident);
+
+// The resident instance for the bits of pick_halo.
+template <int kC>
+KernelResident pick_resident_fetch(int flags) {
+  switch (flags & 5) {
+    case 0: return mcm_resident_kernel<false, false, kC>;
+    case 1: return mcm_resident_kernel<true, false, kC>;
+    case 4: return mcm_resident_kernel<false, true, kC>;
+    default: return mcm_resident_kernel<true, true, kC>;
+  }
+}
+
+KernelResident pick_resident(int flags) {
+  return (flags & 16) ? pick_resident_fetch<2>(flags)
+                      : pick_resident_fetch<0>(flags);
 }
 
 // Without opting in, a block gets 48 KiB of shared memory, static and
@@ -742,36 +933,18 @@ extern "C" int vpt_mcm_event_info(int flags, int tw, int* out) {
                            : info(pick(flags), smem, out));
 }
 
-// One launch of the halo instance (see ArgsHalo): interact finishes the
-// previous event (the TF row, environment and inverse MVP; the value the
-// sum over the slabs), flight starts the next (table: the rank's slab of
-// the corner table the flight samples, the cheb-skip table with use_skip,
-// (slab rows, 8); d, h, w the whole volume's).  rng (n,) uint32 and value
-// (n,) float32 carry an event between launches; a launch without interact
-// seeds the streams (the frame's first).  The launch renders rows [row0,
-// row0 + height) of a full_height-row image, as vpt_mcm_event_frame's.
-extern "C" int vpt_mcm_halo_event(
-    void* position, void* direction, void* bounces, void* transmittance,
-    void* radiance, void* samples, void* cheb, const void* table,
-    int table_bf16, int d, int h, int w, const void* tf_row, int tw,
-    int tf_mode, const void* env, int env_h, int env_w, const void* mvp,
-    int width, int height, float inv_res_x, float inv_res_y, float seed,
-    float extinction, float anisotropy, float blur, float cell,
-    int max_bounces, int use_skip, int row0, int full_height, void* rng,
-    void* value, int slab_index, int num_slabs, int interact, int flight,
-    void* stream) {
-  if (width <= 0 || height <= 0) return 0;
-  if (row0 < 0 || full_height < row0 + height || num_slabs < 1
-      || slab_index < 0 || slab_index >= num_slabs || d % num_slabs != 0)
-    return (int)cudaErrorInvalidValue;
-  ArgsHalo a = {};
-  a.position = (float*)position;
-  a.direction = (float*)direction;
-  a.bounces = (float*)bounces;
-  a.transmittance = (float*)transmittance;
-  a.radiance = (float*)radiance;
-  a.samples = (float*)samples;
-  a.cheb = (float*)cheb;
+// The scene's part of a halo or resident launch (the Args fields both
+// take): table (the rank's slab of the corner table the events sample, the
+// cheb-skip table with use_skip, (slab rows, 8 * channels); d, h, w the
+// whole volume's), the TF row, the environment, the inverse MVP and, for
+// two channels, the packed (th*tw, 16) TF table of the table's type.
+static void slab_scene_args(ArgsExt& a, const void* table, int d, int h,
+                            int w, const void* tf_row, int tw, int tf_mode,
+                            const void* env, int env_h, int env_w,
+                            const void* mvp, const void* tf_table, int th,
+                            float inv_res_x, float inv_res_y, float seed,
+                            float extinction, float anisotropy, float blur,
+                            float cell, int max_bounces, int use_skip) {
   a.table = table;
   a.d = d; a.h = h; a.w = w;
   a.tf_row = (const float4*)tf_row;
@@ -780,26 +953,137 @@ extern "C" int vpt_mcm_halo_event(
   a.env = (const float*)env;
   a.env_h = env_h; a.env_w = env_w;
   a.mvp = (const float*)mvp;
-  a.width = width; a.height = height;
+  a.tf_table = tf_table;
+  a.th = th;
   a.inv_res_x = inv_res_x; a.inv_res_y = inv_res_y;
   a.seed = seed; a.extinction = extinction; a.anisotropy = anisotropy;
   a.blur = blur; a.cell = cell;
   a.max_bounces = max_bounces; a.steps = 1; a.use_skip = use_skip;
+}
+
+static void state_args(Args& a, void* position, void* direction,
+                       void* bounces, void* transmittance, void* radiance,
+                       void* samples, void* cheb) {
+  a.position = (float*)position;
+  a.direction = (float*)direction;
+  a.bounces = (float*)bounces;
+  a.transmittance = (float*)transmittance;
+  a.radiance = (float*)radiance;
+  a.samples = (float*)samples;
+  a.cheb = (float*)cheb;
+}
+
+// the flags of a halo or resident instance, or -1 for what none takes
+static int slab_flags(int table_bf16, int env_h, int env_w, int channels,
+                      int use_skip, const void* tf_table) {
+  if ((channels != 1 && channels != 2)
+      || (channels == 2 && (use_skip || tf_table == nullptr)))
+    return -1;
+  return (table_bf16 ? 1 : 0) | (env_h == 1 && env_w == 1 ? 0 : 4)
+         | (channels == 2 ? 16 : 0);
+}
+
+static bool slab_ok(int d, int slab_index, int num_slabs, int interleave) {
+  return num_slabs >= 1 && interleave >= 1 && slab_index >= 0
+         && slab_index < num_slabs && d % (num_slabs * interleave) == 0;
+}
+
+// One launch of the halo instance (see ArgsHalo): interact finishes the
+// previous event (the TF row or table, environment and inverse MVP; the
+// value the sum over the slabs), flight starts the next; the scene's
+// arguments as slab_scene_args's, channels 1 or 2 (two: tf_table, no
+// use_skip).  rng (n,) uint32 and value (n, channels) float32 carry an
+// event between launches; a launch without interact seeds the streams
+// (the frame's first).  The slab: its index of num_slabs, the thin slabs a
+// rank (interleave) and whether the fetch is masked (slab.cuh).  The
+// launch renders rows [row0, row0 + height) of a full_height-row image, as
+// vpt_mcm_event_frame's.
+extern "C" int vpt_mcm_halo_event(
+    void* position, void* direction, void* bounces, void* transmittance,
+    void* radiance, void* samples, void* cheb, const void* table,
+    int table_bf16, int d, int h, int w, const void* tf_row, int tw,
+    int tf_mode, const void* env, int env_h, int env_w, const void* mvp,
+    const void* tf_table, int th, int channels, int width, int height,
+    float inv_res_x, float inv_res_y, float seed, float extinction,
+    float anisotropy, float blur, float cell, int max_bounces, int use_skip,
+    int row0, int full_height, void* rng, void* value, int slab_index,
+    int num_slabs, int interleave, int masked, int interact, int flight,
+    void* stream) {
+  if (width <= 0 || height <= 0) return 0;
+  const int flags = slab_flags(table_bf16, env_h, env_w, channels,
+                               use_skip, tf_table);
+  if (row0 < 0 || full_height < row0 + height || flags < 0
+      || !slab_ok(d, slab_index, num_slabs, interleave))
+    return (int)cudaErrorInvalidValue;
+  ArgsHalo a = {};
+  state_args(a, position, direction, bounces, transmittance, radiance,
+             samples, cheb);
+  slab_scene_args(a, table, d, h, w, tf_row, tw, tf_mode, env, env_h, env_w,
+                  mvp, tf_table, th, inv_res_x, inv_res_y, seed, extinction,
+                  anisotropy, blur, cell, max_bounces, use_skip);
+  a.width = width; a.height = height;
   a.row0 = row0; a.full_height = full_height;
   a.rng = (uint32_t*)rng;
   a.value = (float*)value;
-  a.slab = {slab_index, num_slabs};
+  a.slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
   a.interact = interact;
   a.flight = flight;
-  const int flags = (table_bf16 ? 1 : 0)
-                    | (env_h == 1 && env_w == 1 ? 0 : 4);
-  return (int)launch(pick_halo(flags), a, (size_t)tw * sizeof(float4),
+  return (int)launch(pick_halo(flags), a, tf_smem(flags, tw),
                      (cudaStream_t)stream);
 }
 
-// The launch shape of the halo instance for flags 1 (a bf16 table) and 4
-// (an environment map larger than 1x1) and a TF row of `tw` texels, as
-// vpt_mcm_event_info's.
+// The launch shape of the halo instance for flags 1 (a bf16 table), 4 (an
+// environment map larger than 1x1) and 16 (two channels) and a TF row of
+// `tw` texels, as vpt_mcm_event_info's.
 extern "C" int vpt_mcm_halo_info(int flags, int tw, int* out) {
-  return (int)info(pick_halo(flags), (size_t)tw * sizeof(float4), out);
+  return (int)info(pick_halo(flags), tf_smem(flags, tw), out);
+}
+
+// One launch of the resident instance (see ArgsResident) over a pool of
+// `rows` rows: the state's seven pointers, the scene's arguments as
+// slab_scene_args's (channels 1 or 2), inv_res the whole image's; the
+// pool's rstate (rows,) int64, ndc (rows, 2) float32, pixel_id (rows,)
+// int32, occupied and pending (rows,) bool; this rank's slab (unmasked);
+// the launch's parts reseed, interact and flight.
+extern "C" int vpt_mcm_resident_event(
+    void* position, void* direction, void* bounces, void* transmittance,
+    void* radiance, void* samples, void* cheb, const void* table,
+    int table_bf16, int d, int h, int w, const void* tf_row, int tw,
+    int tf_mode, const void* env, int env_h, int env_w, const void* mvp,
+    const void* tf_table, int th, int channels, int rows, float inv_res_x,
+    float inv_res_y, float seed, float extinction, float anisotropy,
+    float blur, float cell, int max_bounces, int use_skip, void* rstate,
+    const void* ndc, const void* pixel_id, const void* occupied,
+    void* pending, int slab_index, int num_slabs, int interleave,
+    int reseed, int interact, int flight, void* stream) {
+  if (rows <= 0) return 0;
+  const int flags = slab_flags(table_bf16, env_h, env_w, channels,
+                               use_skip, tf_table);
+  if (flags < 0 || !slab_ok(d, slab_index, num_slabs, interleave))
+    return (int)cudaErrorInvalidValue;
+  ArgsResident a = {};
+  state_args(a, position, direction, bounces, transmittance, radiance,
+             samples, cheb);
+  slab_scene_args(a, table, d, h, w, tf_row, tw, tf_mode, env, env_h, env_w,
+                  mvp, tf_table, th, inv_res_x, inv_res_y, seed, extinction,
+                  anisotropy, blur, cell, max_bounces, use_skip);
+  a.width = rows; a.height = 1;
+  a.row0 = 0; a.full_height = 1;
+  a.rstate = (long long*)rstate;
+  a.ndc = (const float*)ndc;
+  a.pixel_id = (const int*)pixel_id;
+  a.occupied = (const uint8_t*)occupied;
+  a.pending = (uint8_t*)pending;
+  a.slab = {slab_index, num_slabs, interleave, 0};
+  a.reseed = reseed;
+  a.interact = interact;
+  a.flight = flight;
+  return (int)launch(pick_resident(flags), a, tf_smem(flags, tw),
+                     (cudaStream_t)stream);
+}
+
+// The launch shape of the resident instance for the flags of
+// vpt_mcm_halo_info.
+extern "C" int vpt_mcm_resident_info(int flags, int tw, int* out) {
+  return (int)info(pick_resident(flags), tf_smem(flags, tw), out);
 }

@@ -1,18 +1,27 @@
-// The slab-local, ownership-masked cell of a spatially sharded volume
-// (parallel/halo.py, HaloScene._cell_coords; vpt_tpu/parallel/halo.py
-// :168-197), shared by the MCM event kernel's halo instance (mcm_event.cu)
-// and the corner fetch's slab instance (corner_gather.cu).
+// The slab-local cell of a spatially sharded volume (parallel/halo.py,
+// HaloScene._cell_coords; vpt_tpu/parallel/halo.py:168-197), shared by the
+// MCM event kernel's halo and resident instances (mcm_event.cu) and the
+// corner fetch's slab instance (corner_gather.cu).
 //
 // A rank holds z planes of the volume and the matching rows of its corner
-// tables: the contiguous slab [k*ds, (k+1)*ds] (ds = D / S, one halo
-// plane, the last slab's repeating plane D - 1).  A position's cell is the
-// global GL CLAMP_TO_EDGE cell (ray.cuh's vpt_cell, the plain version's
-// operations in their order); the slab's row of it and whether this rank
-// owns it follow the plain rule: owner = clip(z0 / ds, 0, S - 1), zloc =
-// clip(z0 - k*ds, 0, ds - 1).  A cell never indexes its slab's halo plane
-// as z0, so every zloc addresses a row of the slab's table.  Interleaved
-// thin slabs (HaloScene.interleave > 1) have the plain rule only: the
-// wrappers refuse them on the card (ROADMAP item 16 part 3).
+// tables.  A position's cell is the global GL CLAMP_TO_EDGE cell (ray.cuh's
+// vpt_cell, the plain version's operations in their order); the slab's row
+// of it and the cell's owner follow the plain rule (corner_gather.
+// slab_cells):
+// - contiguous slabs (interleave 1): the slab [k*ds, (k+1)*ds] (ds = D / S,
+//   one halo plane, the last slab's repeating plane D - 1); owner =
+//   clip(z0 / ds, 0, S - 1), zloc = clip(z0 - k*ds, 0, ds - 1);
+// - interleaved thin slabs (interleave m > 1): the volume in m*S thin slabs
+//   of thin_ds = D / (m*S) planes, thin slab t = z0 / thin_ds held by rank
+//   t % S after its (t / S) predecessors there, each with its halo plane:
+//   owner = t % S, zloc = (t / S)*(thin_ds + 1) + (z0 - t*thin_ds).
+// A cell never indexes its slab's halo plane as z0, so every zloc of an
+// owned cell addresses a row of the slab's table; a cell another rank owns
+// still addresses a row of it (zloc is clipped, or its thin slab's place).
+// masked: the cell is local where this rank owns it (the halo's
+// ownership-masked fetch); unmasked, every cell is local (the resident
+// machine's fetch, whose caller owns every position it samples).  Both are
+// warp-uniform arguments.
 #pragma once
 
 #include <cstdint>
@@ -20,15 +29,17 @@
 
 #include "tf1d.cuh"
 
-// The slab a rank holds: its index k of the S slabs.
+// The slab a rank holds: its index k of the S slabs, the thin slabs a
+// rank (1: contiguous) and whether its fetch is masked by ownership.
 struct VptSlab {
-  int index, count;
+  int index, count, interleave, masked;
 };
 
 struct VptSlabCell {
   int64_t row;  // the row of the slab's corner table
   float fx, fy, fz;
-  bool local;   // this rank owns the cell
+  int owner;    // the rank that owns the cell
+  bool local;   // the fetch reads the cell (owned, or unmasked)
 };
 
 __device__ __forceinline__ VptSlabCell vpt_slab_cell(int d, int h, int w,
@@ -39,10 +50,19 @@ __device__ __forceinline__ VptSlabCell vpt_slab_cell(int d, int h, int w,
   const float uz = vpt_clip(pz * (float)d - 0.5f, 0.0f, (float)(d - 1));
   const float ix = floorf(ux), iy = floorf(uy), iz = floorf(uz);
   const int z0 = vpt_index(iz);
-  const int ds = d / slab.count;
+  int zloc;
   VptSlabCell c;
-  c.local = min(max(z0 / ds, 0), slab.count - 1) == slab.index;
-  const int zloc = min(max(z0 - slab.index * ds, 0), ds - 1);
+  if (slab.interleave == 1) {
+    const int ds = d / slab.count;
+    c.owner = min(max(z0 / ds, 0), slab.count - 1);
+    zloc = min(max(z0 - slab.index * ds, 0), ds - 1);
+  } else {
+    const int thin_ds = d / (slab.interleave * slab.count);
+    const int thin = z0 / thin_ds;
+    c.owner = thin % slab.count;
+    zloc = (thin / slab.count) * (thin_ds + 1) + (z0 - thin * thin_ds);
+  }
+  c.local = !slab.masked || c.owner == slab.index;
   c.row = ((int64_t)zloc * h + vpt_index(iy)) * w + vpt_index(ix);
   c.fx = ux - ix;
   c.fy = uy - iy;

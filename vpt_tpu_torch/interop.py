@@ -173,3 +173,41 @@ def fit_state_to_numpy(state) -> dict:
     return {"volume_data": tensor_to_numpy(state.volume_data),
             "tf_texture": tensor_to_numpy(state.tf_texture),
             "count": count, "mu": mu, "nu": nu, "step": int(state.step)}
+
+
+#: the dtypes a resident pool's leaves take in the port (the photon
+#: fields and ``ndc`` are float32; ``rstate`` holds a uint32 in an int64,
+#: ``rng.py``'s layout of a stream)
+_POOL_DTYPES = {"pixel_id": np.int32, "rstate": np.int64,
+                "occupied": np.bool_, "pending": np.bool_,
+                "migrated": np.int32, "stalled": np.int32,
+                "dropped": np.int32}
+
+
+def resident_pool_from_numpy(global_pool, data_index: int,
+                             space_index: int, device=None) -> dict:
+    """Rank (``data_index``, ``space_index``)'s block of ``vpt_tpu``'s
+    global ``(n_data, S, capacity, …)`` resident pool (numpy arrays, or
+    JAX arrays through ``np.asarray``) as the port's pool on ``device``
+    (default: the card): (capacity, c) rows, the uint32 ``rstate`` as an
+    int64, the counters as 0-d int32 tensors."""
+    device = resolve_device(device)
+    out = {}
+    for name, value in global_pool.items():
+        a = np.asarray(value)[data_index, space_index]
+        out[name] = tensor_from_numpy(
+            a.astype(_POOL_DTYPES.get(name, np.float32)), device)
+    return out
+
+
+def resident_pool_to_numpy(blocks) -> dict:
+    """The inverse of :func:`resident_pool_from_numpy`: ``blocks[d][s]``,
+    rank (d, s)'s pool, joined into ``vpt_tpu``'s global pool (``rstate``
+    as uint32)."""
+    names = blocks[0][0].keys()
+    out = {}
+    for name in names:
+        a = np.stack([np.stack([tensor_to_numpy(row[name]) for row in line])
+                      for line in blocks])
+        out[name] = a.astype(np.uint32) if name == "rstate" else a
+    return out

@@ -61,19 +61,30 @@ SIGNATURES = {
                                           _P]),
     "vpt_mcm_event_info": [_I, _I, _P],
     # a launch of the halo instance: state (7); table, bf16, D, H, W, TF
-    # row, TW, TF mode; env, EH, EW; MVP, width, height; 7 floats; max
-    # bounces, use_skip, row0, full height; rng, value; slab index, slabs,
-    # interact, flight; stream
+    # row, TW, TF mode; env, EH, EW; MVP; 2D TF table, TH, channels;
+    # width, height; 7 floats; max bounces, use_skip, row0, full height;
+    # rng, value; slab index, slabs, interleave, masked, interact, flight;
+    # stream
     "vpt_mcm_halo_event": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I, _P,
-                                       _I, _I, _P, _I, _I]
-                           + [_F] * 7 + [_I] * 4 + [_P] * 2 + [_I] * 4
+                                       _I, _I, _P, _P, _I, _I, _I, _I]
+                           + [_F] * 7 + [_I] * 4 + [_P] * 2 + [_I] * 6
                            + [_P]),
     "vpt_mcm_halo_info": [_I, _I, _P],
+    # a launch of the resident instance: state (7); table, bf16, D, H, W,
+    # TF row, TW, TF mode; env, EH, EW; MVP; 2D TF table, TH, channels;
+    # rows; 7 floats; max bounces, use_skip; rstate, ndc, pixel_id,
+    # occupied, pending; slab index, slabs, interleave, reseed, interact,
+    # flight; stream
+    "vpt_mcm_resident_event": ([_P] * 7 + [_P, _I, _I, _I, _I, _P, _I, _I,
+                                           _P, _I, _I, _P, _P, _I, _I, _I]
+                               + [_F] * 7 + [_I] * 2 + [_P] * 5 + [_I] * 6
+                               + [_P]),
+    "vpt_mcm_resident_info": [_I, _I, _P],
     "vpt_gather_rows": [_P, _L, _I, _P, _L, _P, _P],
     "vpt_corner_fetch": [_P, _P, _L, _P, _P, _P, _P],
     # prepared VptCornerTable of the slab, D, slab index, slabs,
-    # position, n, out, cells, fractions, stream
-    "vpt_slab_fetch": [_P, _I, _I, _I, _P, _L, _P, _P, _P, _P],
+    # interleave, masked, position, n, out, cells, fractions, stream
+    "vpt_slab_fetch": [_P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
     # prepared VptMarchExt, state; first, mix; stream
@@ -425,20 +436,6 @@ def refuse_halo(scene, what: str, item: str) -> None:
         raise _not_ported(f"{what} over a HaloScene on the card (its "
                           "kernel split around the slab fetch)",
                           f"queue 2b item {item}")
-
-
-def refuse_slab_layout(interleave: int, masked: bool) -> None:
-    """Raise ``_not_ported`` for what the slab kernels (K3's slab and K5's
-    halo instances) do not take on the card: interleaved thin slabs
-    (``HaloScene.interleave`` > 1) and an unmasked slab-local fetch
-    (``HaloScene(collective=False)``), which only ``resident.py`` needs
-    (ROADMAP queue 1 item 16 part 3); their plain twins take both."""
-    if interleave != 1 or not masked:
-        from ..renderers.base import _not_ported
-
-        what = ("interleaved thin slabs" if interleave != 1
-                else "an unmasked (collective=False) slab fetch")
-        raise _not_ported(f"{what} on the card", "queue 1 item 16 part 3")
 
 
 def environment_map(scene):

@@ -26,6 +26,9 @@ neighbouring threads read neighbouring 16-byte pieces of a row
   and a position whose cell another rank owns reads nothing and gives 0
   (with ``save``, the cell -1, which K4 skips), so the sum over the ranks
   of their masked values is :func:`corner_fetch`'s value, bit for bit.
+  The slabs are contiguous or interleaved thin slabs (``interleave``);
+  ``masked`` False reads every position from the slab's rows (the
+  resident machine's fetch, whose caller owns every position).
 
 Positions: a coordinate below the volume or above it clamps to the edge
 cell with fraction 0 (GL CLAMP_TO_EDGE); a NaN coordinate takes index 0 on
@@ -154,29 +157,36 @@ def corner_fetch(table, shape, position, save: bool = False):
     return (out, cells, fractions) if save else out
 
 
+def slab_owners(z0, depth: int, num_slabs: int, interleave: int = 1):
+    """The slab that owns each cell of (...) int64 planes ``z0`` of a
+    volume of ``depth`` planes: ``clip(z0 // Ds, 0, S − 1)`` for
+    contiguous slabs, ``(z0 // thin_ds) mod S`` with ``interleave`` m."""
+    if interleave == 1:
+        return torch.clamp(z0 // (depth // num_slabs), 0, num_slabs - 1)
+    return (z0 // (depth // (interleave * num_slabs))) % num_slabs
+
+
 def slab_cells(position, shape, slab_index: int, num_slabs: int,
                interleave: int = 1):
     """``(zloc, y0, x0, f, local)`` of (..., 3) positions in a (D, H, W,
     C) volume split into z slabs (``HaloScene._cell_coords``): the global
     cell's x and y, its plane in slab ``slab_index``'s rows, the (..., 3)
-    fractions, and whether that slab owns it.  Contiguous slabs (interleave
-    1): owner ``clip(z0 // Ds, 0, S − 1)``, plane ``clip(z0 − k·Ds, 0, Ds −
-    1)``; ``interleave`` m: thin slab ``t = z0 // thin_ds`` belongs to
-    ``t mod S`` and lies at plane ``(t div S)·(thin_ds + 1) + z0 −
-    t·thin_ds``."""
+    fractions, and whether that slab owns it (:func:`slab_owners`).
+    Contiguous slabs (interleave 1): plane ``clip(z0 − k·Ds, 0, Ds − 1)``;
+    ``interleave`` m: thin slab ``t = z0 // thin_ds`` belongs to ``t mod
+    S`` and lies at plane ``(t div S)·(thin_ds + 1) + z0 − t·thin_ds``."""
     from ..sampling import _clamp_index, _filter_coords
 
     d, h, w = shape[:3]
     i0f, f = _filter_coords(position, (w, h, d))
     x0, y0, z0 = _clamp_index(i0f, (w, h, d)).unbind(-1)
+    local = slab_owners(z0, d, num_slabs, interleave) == slab_index
     if interleave == 1:
         ds = d // num_slabs
-        local = torch.clamp(z0 // ds, 0, num_slabs - 1) == slab_index
         zloc = torch.clamp(z0 - slab_index * ds, 0, ds - 1)
     else:
         thin_ds = d // (interleave * num_slabs)
         thin = z0 // thin_ds
-        local = (thin % num_slabs) == slab_index
         zloc = (thin // num_slabs) * (thin_ds + 1) + (z0 - thin * thin_ds)
     return zloc, y0, x0, f, local
 
@@ -229,16 +239,14 @@ _slabs = _build.TableCache(_prepare_slab)
 def slab_fetch(table, shape, slab_index: int, num_slabs: int,
                interleave: int, position, masked: bool = True,
                save: bool = False):
-    """The masked fetch from slab ``slab_index``'s rows of the corner table
-    of a (D, H, W, C) volume (K3's slab instance for CUDA tensors, the
-    plain version for CPU ones); as :func:`slab_fetch_plain`.  The kernel
-    takes contiguous masked slabs: interleave > 1 or ``masked`` False
-    raises on the card (``_build.refuse_slab_layout``)."""
+    """The fetch from slab ``slab_index``'s rows of the corner table of a
+    (D, H, W, C) volume (K3's slab instance for CUDA tensors, the plain
+    version for CPU ones); as :func:`slab_fetch_plain`: contiguous or
+    interleaved thin slabs, masked by ownership or not."""
     if not table.is_cuda:
         return slab_fetch_plain(table, shape, slab_index, num_slabs,
                                 interleave, position, masked, save)
     global SLAB_LAUNCHES
-    _build.refuse_slab_layout(interleave, masked)
     d, h, w, c = (int(n) for n in shape)
     if table.shape[0] % (h * w):
         raise ValueError("a slab table holds whole planes of H*W rows")
@@ -255,8 +263,8 @@ def slab_fetch(table, shape, slab_index: int, num_slabs: int,
     if save:
         cells = position.new_empty(batch, dtype=torch.int64)
         fractions = position.new_empty(position.shape)
-    err = p.launch(p.address, d, slab_index, num_slabs,
-                   position.data_ptr(), position.numel() // 3,
+    err = p.launch(p.address, d, slab_index, num_slabs, interleave,
+                   int(masked), position.data_ptr(), position.numel() // 3,
                    out.data_ptr(), None if cells is None else cells.data_ptr(),
                    None if fractions is None else fractions.data_ptr(),
                    _build.current_stream(p.device))

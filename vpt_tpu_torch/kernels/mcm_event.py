@@ -23,7 +23,10 @@ finishing the previous event with the value summed over the slabs and
 starting the next one by writing each photon's masked slab-local value,
 with the scene's all-reduce between them; its plain twin is
 :func:`event_frame_plain` over the same scene, whose samplers mask and
-sum alike.
+sum alike.  A frame of ``parallel.resident`` (photons in pools of rows on
+the rank that owns their next sample) runs the kernel's resident instance
+(:func:`resident_event`, a launch an event and one more around the
+migrations); its plain twin is the module's plain frame.
 
 :func:`event_frame` takes the plain loop for CPU state and launches the
 kernel for CUDA state; both update the state tensors in place.  For CUDA
@@ -51,6 +54,11 @@ from . import _build
 LAUNCHES = 0
 #: launches of the halo instance (steps + 1 a frame), likewise
 HALO_LAUNCHES = 0
+#: launches of the resident instance (steps + 1 an exact frame), likewise
+RESIDENT_LAUNCHES = 0
+#: of those, the launches of the two-channel halo and resident instances
+HALO_RG_LAUNCHES = 0
+RESIDENT_RG_LAUNCHES = 0
 
 _VEC3 = ("position", "direction", "transmittance", "radiance")
 _SCALAR = ("bounces", "samples")
@@ -200,36 +208,31 @@ def event_frame(state, scene, params, seed, window=None):
 
 def _halo_fields(scene):
     return (scene.slab_packed, scene.tracking_packed, scene.transfer_1d,
-            scene.environment, scene.mvp_inverse, scene.tf_mxu)
+            scene.environment, scene.mvp_inverse, scene.tf_mxu,
+            scene.transfer_packed)
 
 
-def _prepare_halo(scene, key):
-    """What the halo instance's launches of ``key`` = (use_skip, height,
-    width, row0, full_height) take of a HaloScene: ``Prepared(tensors,
-    table, row, env, mvp, scratch)``; the scratch (the streams and values
-    between the launches) is the frame's."""
+def _slab_scene(scene, use_skip):
+    """What a halo or resident launch takes of a HaloScene: ``(tensors,
+    args)``, ``args`` = (the slab's corner or cheb-skip rows, bf16, D, H,
+    W, TF row, TW, TF mode, environment, EH, EW, inverse MVP, the packed
+    2D TF table or None, TH, channels) and ``tensors`` the tensors they
+    point into.  A two-channel scene samples its (rows, 16) slab rows and
+    looks the pair up in the packed TF table of the rows' dtype."""
     from . import tf1d
-
-    use_skip, height, width, row0, full_height = key
-    _build.refuse_slab_layout(scene.interleave, scene.collective)
-    if scene.channels != 1 or scene.filter != "linear":
-        from ..renderers.base import _not_ported
-
-        raise _not_ported("a two-channel or filtered HaloScene frame on the "
-                          "card (K5's halo ext instance)", "queue 2b item 10")
-    if height * width >= 2 ** 31:
-        raise ValueError(f"{height}x{width}: the MCM event kernel indexes "
-                         "pixels with 32-bit integers")
-    table = scene.tracking_packed if use_skip else scene.slab_packed
-    d, h, w = scene.volume_shape[:3]
     from ..parallel.halo import slab_depth
 
+    if scene.filter != "linear":
+        raise ValueError("a HaloScene has no filter")
+    channels = 1 if use_skip else scene.channels
+    table = scene.tracking_packed if use_skip else scene.slab_packed
+    d, h, w = scene.volume_shape[:3]
     rows = slab_depth(d, scene.num_slabs, scene.interleave) * h * w
     if table is None or table.dtype not in (torch.float32, torch.bfloat16) \
-            or tuple(table.shape) != (rows, 8):
+            or tuple(table.shape) != (rows, 8 * channels):
         raise ValueError("a HaloScene frame on the card samples the slab's "
-                         f"({rows}, 8) float32 or bfloat16 corner rows "
-                         "(halo.slab_table)")
+                         f"({rows}, {8 * channels}) float32 or bfloat16 "
+                         "corner rows (halo.slab_table)")
     table = table.contiguous()
     _build.check_aligned(table, "the slab table")
     row = scene.transfer_1d.to(torch.float32).contiguous()
@@ -237,16 +240,40 @@ def _prepare_halo(scene, key):
     _build.check_aligned(row, "the TF row")
     mvp = scene.mvp_inverse.to(torch.float32).contiguous()
     env, eh, ew = _build.environment_map(scene)
-    dev = table.device
+    tf_table, th = None, 0
+    if channels == 2:
+        tf_table = scene.transfer_packed
+        th, tw = scene.transfer.shape[:2]
+        if tf_table is None or tf_table.dtype != table.dtype \
+                or tuple(tf_table.shape) != (th * tw, 16):
+            raise ValueError("a two-channel HaloScene's kernels take the "
+                             "packed (TH*TW, 16) TF table in the slab "
+                             "rows' dtype")
+        tf_table = tf_table.contiguous()
+        _build.check_aligned(tf_table, "the packed TF table")
+    return (table, row, mvp, env, tf_table), (
+        table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
+        row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
+        env.data_ptr(), eh, ew, mvp.data_ptr(),
+        None if tf_table is None else tf_table.data_ptr(), th, channels)
+
+
+def _prepare_halo(scene, key):
+    """What the halo instance's launches of ``key`` = (use_skip, height,
+    width, row0, full_height) take of a HaloScene: ``Prepared(tensors,
+    scene_args, inv_res, window, scratch)``; the scratch (the streams and
+    the values, (n, channels), between the launches) is the frame's."""
+    use_skip, height, width, row0, full_height = key
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the MCM event kernel indexes "
+                         "pixels with 32-bit integers")
+    tensors, args = _slab_scene(scene, use_skip)
+    dev = tensors[0].device
     n = height * width
     scratch = (torch.empty(n, dtype=torch.int32, device=dev),
-               torch.empty(n, dtype=torch.float32, device=dev))
+               torch.empty(n * args[-1], dtype=torch.float32, device=dev))
     return _build.Prepared(
-        tensors=(table, row, mvp, env), scratch=scratch,
-        scene_args=(table.data_ptr(), int(table.dtype == torch.bfloat16), d,
-                    h, w, row.data_ptr(), row.shape[0],
-                    tf1d.mode_code(scene.tf_mxu), env.data_ptr(), eh, ew,
-                    mvp.data_ptr(), width, height),
+        tensors=tensors, scratch=scratch, scene_args=args + (width, height),
         inv_res=(1.0 / width, 1.0 / full_height), window=(row0, full_height))
 
 
@@ -260,8 +287,11 @@ def halo_event_frame(state, scene, params, seed, window=None):
     and starting event e (the flight and the masked value of its position
     from this rank's slab rows), with ``HaloScene.reduce_`` between them.
     Equal bit for bit to :func:`event_frame` on the whole scene: only the
-    owner's value is non-zero.  ``window`` as in :func:`launch_args`."""
-    global HALO_LAUNCHES
+    owner's value is non-zero.  The slabs may be interleaved, the fetch
+    unmasked (``HaloScene.collective`` False: no sum either), the volume
+    two-channel (a value pair a photon, the 2D TF lookup).  ``window`` as
+    in :func:`launch_args`."""
+    global HALO_LAUNCHES, HALO_RG_LAUNCHES
     from ..renderers import mcm
 
     position = state["position"]
@@ -283,28 +313,132 @@ def halo_event_frame(state, scene, params, seed, window=None):
             *p.scene_args, *p.inv_res, float(seed), params.extinction,
             params.anisotropy, params.blur, mcm.skip_cell_size(scene),
             params.max_bounces, int(use_skip), *p.window, rng_state.data_ptr(),
-            value.data_ptr(), scene.slab_index, scene.num_slabs)
+            value.data_ptr(), scene.slab_index, scene.num_slabs,
+            scene.interleave, int(scene.collective))
     launch = _build.library().vpt_mcm_halo_event
     steps = params.steps
     if steps <= 0:
         return
+    rg = p.scene_args[14] == 2
     with torch.cuda.device(dev):
         for step in range(steps + 1):
             _build.check("vpt_mcm_halo_event",
                          launch(*head, int(step > 0), int(step < steps),
                                 stream))
             HALO_LAUNCHES += 1
+            HALO_RG_LAUNCHES += rg
             if step < steps:
                 scene.reduce_(value)
 
 
-def halo_occupancy(table_dtype, tf_width: int, env_map: bool = False) -> dict:
+#: the resident pool's leaves a launch reads and writes: (name, dtype,
+#: lanes; 0 for a (rows,) leaf)
+RESIDENT_LEAVES = (("position", torch.float32, 3),
+                   ("direction", torch.float32, 3),
+                   ("bounces", torch.float32, 1),
+                   ("transmittance", torch.float32, 3),
+                   ("radiance", torch.float32, 3),
+                   ("samples", torch.float32, 1),
+                   ("ndc", torch.float32, 2),
+                   ("pixel_id", torch.int32, 0),
+                   ("rstate", torch.int64, 0),
+                   ("occupied", torch.bool, 0),
+                   ("pending", torch.bool, 0))
+
+
+def _prepare_resident(scene, key):
+    use_skip, = key
+    tensors, args = _slab_scene(scene, use_skip)
+    return _build.Prepared(tensors=tensors, scene_args=args)
+
+
+_resident_cache = _build.LastScene(_prepare_resident, _halo_fields)
+
+
+def check_pool(pool, device):
+    """Raise unless ``pool`` holds every leaf of :data:`RESIDENT_LEAVES`
+    (and a (rows, 1) float32 ``cheb`` where it has one) as a contiguous
+    tensor on ``device`` with the pool's row count below 2^31."""
+    rows = pool["position"].shape[0]
+    if rows >= 2 ** 31:
+        raise ValueError(f"{rows} pool rows: the resident kernel indexes "
+                         "rows with 32-bit integers")
+    leaves = RESIDENT_LEAVES + ((("cheb", torch.float32, 1),)
+                                if "cheb" in pool else ())
+    for name, dtype, lanes in leaves:
+        t = pool[name]
+        want = (rows, lanes) if lanes else (rows,)
+        if t.device != device or t.dtype != dtype \
+                or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"resident pool {name!r} must be a contiguous "
+                             f"{dtype} {want} tensor on {device}")
+
+
+def resident_event(pool, scene, params, seed, inv_res, reseed: bool,
+                   interact: bool, flight: bool):
+    """One launch of K5's resident instance over a rank's CUDA pool
+    (``parallel/resident.py``), in place: ``reseed`` gives every row that
+    is not pending its pixel's stream of ``seed``; ``interact`` finishes
+    the event of every ready row (occupied, pending, and owned by this
+    rank, ``scene.slab_index``: its cell's owner, or ``pixel_id % S`` out
+    of the cube) from the slab's rows, unmasked; ``flight`` flies every
+    occupied row that is not pending and leaves every occupied row
+    pending.  ``scene`` is this rank's HaloScene (its slab index, slab
+    count and ``interleave``); ``inv_res`` the whole image's ``(1 / W, 1 /
+    H)``.  The pool is checked by the caller (:func:`check_pool`)."""
+    global RESIDENT_LAUNCHES, RESIDENT_RG_LAUNCHES
+    from ..renderers import mcm
+
+    position = pool["position"]
+    use_skip = "cheb" in pool and scene.tracking_packed is not None
+    p = _resident_cache.get(scene, (use_skip,))
+    cheb = pool["cheb"].data_ptr() if use_skip else None
+    with torch.cuda.device(position.device):
+        _build.check("vpt_mcm_resident_event",
+                     _build.library().vpt_mcm_resident_event(
+                         position.data_ptr(), pool["direction"].data_ptr(),
+                         pool["bounces"].data_ptr(),
+                         pool["transmittance"].data_ptr(),
+                         pool["radiance"].data_ptr(),
+                         pool["samples"].data_ptr(), cheb, *p.scene_args,
+                         position.shape[0], *inv_res, float(seed),
+                         params.extinction, params.anisotropy, params.blur,
+                         mcm.skip_cell_size(scene), params.max_bounces,
+                         int(use_skip), pool["rstate"].data_ptr(),
+                         pool["ndc"].data_ptr(), pool["pixel_id"].data_ptr(),
+                         pool["occupied"].data_ptr(),
+                         pool["pending"].data_ptr(), scene.slab_index,
+                         scene.num_slabs, scene.interleave, int(reseed),
+                         int(interact), int(flight),
+                         _build.stream_ptr(position)))
+    RESIDENT_LAUNCHES += 1
+    RESIDENT_RG_LAUNCHES += p.scene_args[14] == 2
+
+
+def _slab_flags(table_dtype, env_map, channels):
+    return int(table_dtype == torch.bfloat16) | 4 * env_map \
+        | 16 * (channels == 2)
+
+
+def halo_occupancy(table_dtype, tf_width: int, env_map: bool = False,
+                   channels: int = 1) -> dict:
     """The launch shape of the halo instance on the current CUDA device,
     as :func:`occupancy`'s.  Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
-    flags = int(table_dtype == torch.bfloat16) | 4 * env_map
     _build.check("vpt_mcm_halo_info", _build.library().vpt_mcm_halo_info(
-        flags, tf_width, out))
+        _slab_flags(table_dtype, env_map, channels), tf_width, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
+
+
+def resident_occupancy(table_dtype, tf_width: int, env_map: bool = False,
+                       channels: int = 1) -> dict:
+    """The launch shape of the resident instance, as
+    :func:`halo_occupancy`'s."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    _build.check("vpt_mcm_resident_info",
+                 _build.library().vpt_mcm_resident_info(
+                     _slab_flags(table_dtype, env_map, channels), tf_width,
+                     out))
     return dict(zip(OCCUPANCY_FIELDS, out))
 
 

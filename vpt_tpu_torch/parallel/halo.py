@@ -17,13 +17,15 @@ renderer's plain frame runs through it unchanged, on any device, in the
 order JAX's does: the masked trilinear value is reduced first and the TF
 applied to the reduced value.  On the card an MCM frame runs K5's halo
 instance (``kernels/mcm_event.halo_event_frame``: a launch an event and
-one more, each writing every photon's masked slab-local value, with the
-all-reduce of that one float a pixel between launches); the other
+one more, each writing every photon's masked slab-local value, or the
+value pair of a two-channel volume, with the all-reduce of it between
+launches), over contiguous or interleaved slabs, masked or not; the other
 renderers' kernels read one whole corner table, and their frames over a
-:class:`HaloScene` raise on the card (ROADMAP queue 2b), as do
-``interleave`` > 1 and ``collective`` False (queue 1 item 16 part 3).  The differentiable masked fetch is
-``sampling.SlabCornerFetch`` (K3's slab instance forward, K4 backward);
-:class:`SpaceSum` is the all-reduce as an autograd function.
+:class:`HaloScene` raise on the card (ROADMAP queue 2b).  The
+differentiable masked fetch is ``sampling.SlabCornerFetch`` (K3's slab
+instance forward, K4 backward); :class:`SpaceSum` is the all-reduce as an
+autograd function.  ``resident.py`` samples a ``HaloScene(collective=
+False)``: no mask and no sum, every position owned by the rank.
 
 :data:`COLLECTIVES` counts the collectives this module, ``halo_grad`` and
 ``dos_halo`` issue, by kind, in place of JAX's count of them in the HLO.
@@ -147,8 +149,8 @@ class HaloScene:
     samples every position from the slab with no mask and no sum (the
     caller guarantees that the rank owns each of them: ``resident.py``).
     ``interleave`` m > 1: the rank holds m thin slabs (``slab_planes``).
-    The slab kernels take neither yet: on the card both raise, and their
-    plain twins run on the CPU.
+    The slab kernels (K3's slab, K5's halo and resident instances) take
+    both on the card, as their plain twins do on the CPU.
 
     ``slab`` is (planes, H, W, C); ``slab_packed`` and ``tracking_packed``
     the slab's rows of the corner and cheb-skip tables (:func:`slab_table`)
