@@ -97,7 +97,14 @@ prints no result:
    slabs against the plain loop, the two-channel instance on one slab
    against K5's ext frame and on 2 against the plain loop, bit for bit,
    and timed), K9's band instance (two bands of a 512² frame against the
-   plain band, bit for bit, and the cooperative frame);
+   plain band, bit for bit, and the cooperative frame); the halo
+   instances of K6 (EAM, MIP, Depth, ISO), K7 (ISO's display), K8 (MCS)
+   and K9 (DOS) (:func:`phase_halo_frames`: on the headline and a
+   two-channel 128³ at 512², one slab's frames bit for bit to the
+   whole-scene kernels', 2 slabs' (contiguous, interleave 2) within the
+   kernels' bounds of the plain twins, and each timed against its
+   whole-scene kernel in turns with its bound, :func:`march_halo_frame_bytes`
+   and its kin);
 10. each renderer through the user's entry points at 512²
    (``make_renderer``, 10 frames, a DOS sweep, ``display``, the
    ``reinhard`` tone mapper) on the headline scene, EAM also on the 256³
@@ -260,6 +267,16 @@ prints no result:
    (:func:`gloo_resident`: contiguous and interleaved slabs against the
    world-of-one frames bit for bit, ``fanout=2`` against the plain
    resident frames in every pool field, a two-channel scene);
+   ``path parallel halo frames`` (:func:`halo_frames_path`, in ``path
+   parallel``'s world of one, every launch counter at 0 first): one frame
+   each of EAM, MIP, Depth, ISO with its display, MCS and DOS of config 4
+   at 1024² through ``halo.sharded_render_frame`` (the halo instances of
+   K6-K9, no whole-scene kernel), then each against
+   ``shard_render_frame``'s whole-scene kernel frame bit for bit and its
+   plain twin within the kernel's bound, timed in turns; with ``space =
+   2`` the two ranks render the same six (:func:`gloo_halo_frames`, 256³
+   at 512²) bit for bit to one process's whole-scene kernel frames, with
+   their all-reduces a frame;
    ``path resident`` (:func:`phase_resident_path`, in ``path
    parallel``'s world of one after its counts, every launch counter at 0
    first): 2 frames of ``resident.resident_render_frame`` on config 4 at
@@ -275,9 +292,9 @@ prints no result:
 13. every kernel launched on its path (8, 10, 10a–d, 11, 12, 12a–d);
     the JSON line says which call launched each, and ``launches_cli``,
     ``launches_view``, ``launches_animate``, ``launches_config3``,
-    ``launches_unpacked``, ``launches_parallel``, ``launches_demos`` and
-    ``launches_resident`` its launches on the calls of 10d, 11, 12c and
-    12d.
+    ``launches_unpacked``, ``launches_parallel``, ``launches_demos``,
+    ``launches_resident`` and ``launches_halo_frames`` its launches on the
+    calls of 10d, 11, 12c and 12d.
 
 Then one JSON line with each kernel's launches, error, loop time per call
 (``ms``, CUDA events) and device time per launch (``device_ms``,
@@ -5115,6 +5132,11 @@ def phase_parallel_path(dev, counters):
         del slabs, a, b
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        frames_launches, frames_errors, frames_turns = halo_frames_path(
+            grid, scene, counters, PARALLEL_RES)
+        print(f"path halo frames: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
         resident_launches, resident_rows = phase_resident_path(grid, scene,
                                                                counters)
         print(f"path resident: {time.perf_counter() - t0:.1f} s",
@@ -5131,7 +5153,8 @@ def phase_parallel_path(dev, counters):
         "fit_losses": losses, "fit_step_s": fit_s,
         "fit_peak_gib": fit_peak, "forward_peak_gib": forward_peak,
         "resident_launches": resident_launches,
-        "resident_rows": resident_rows}
+        "resident_rows": resident_rows, "frames_launches": frames_launches,
+        "frames_errors": frames_errors, "frames_turns": frames_turns}
 
 
 #: the two-rank check's image and frames, on the one card over gloo
@@ -5361,6 +5384,7 @@ def gloo_rank(rank, world, store, out):
         # path resident's two-rank cases, outside the halo's counts
         counted = (dict(halo.COLLECTIVES), mcm_event.HALO_LAUNCHES)
         resident_out = gloo_resident(slabs, big, rg_scene(128))
+        frames_out = _cpu(gloo_halo_frames(slabs, big))
         halo.COLLECTIVES.clear()
         halo.COLLECTIVES.update(counted[0])
         mcm_event.HALO_LAUNCHES = counted[1]
@@ -5383,7 +5407,8 @@ def gloo_rank(rank, world, store, out):
                         "dos_halo_rows": dos_halo_rows,
                         "band_launches": dos_sweep.BAND_LAUNCHES,
                         "collectives": collectives,
-                        "resident": resident_out}, out)
+                        "resident": resident_out,
+                        "halo_frames": frames_out}, out)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -5421,6 +5446,7 @@ def phase_parallel_gloo(dev):
                      transfer.gray_ramp(alpha_scale=0.9))
     want_halo = gloo_halo(None, big)
     want_rg = gloo_halo(None, rg_scene(128))
+    want_frames = _cpu(gloo_halo_frames(None, big))
     del big
     escene, etarget, eparams = gloo_eam_scene()
     leaf = escene.volume.clone().requires_grad_(True)
@@ -5485,6 +5511,9 @@ def phase_parallel_gloo(dev):
           f"path parallel gloo: the sharded EAM loss {hloss} against "
           f"{eloss}")
     check_gloo_resident(got["resident"], want_halo, want_rg)
+    print("path parallel gloo: "
+          + check_gloo_halo_frames(got["halo_frames"], want_frames),
+          flush=True)
     derr, dshare = dos_bands_agree("path parallel gloo", got["dos"],
                                    want_dos, 1e-6, 1.0)
     check(got["band_launches"] > 0, "path parallel gloo: no K9 band launch")
@@ -5864,6 +5893,694 @@ def phase_halo_layouts(scenes):
           flush=True)
     return {"max_abs_err": worst,
             **halo_row("two-channel 128^3", rg, state, params)}
+
+
+# -- the halo instances of K6, K7, K8 and K9 ---------------------------------
+
+#: the renderers whose frames run a halo instance of K6-K9, and the
+#: instances' launch counters (``launches`` of the JSON rows)
+HALO_FRAME_KEYS = ("eam", "mip", "depth", "iso", "mcs", "dos")
+HALO_COUNTERS = {"march_halo": ("march", "HALO_LAUNCHES"),
+                 "iso_shade_halo": ("iso_shade", "HALO_LAUNCHES"),
+                 "mcs_halo": ("mcs_frame", "HALO_LAUNCHES"),
+                 "dos_halo": ("dos_sweep", "HALO_LAUNCHES")}
+#: the whole-scene kernel each halo instance splits, by its counter name
+HALO_WHOLE = {"march_halo": "march_frame", "iso_shade_halo": "iso_shade",
+              "mcs_halo": "mcs_frame", "dos_halo": "dos_sweep"}
+
+
+def halo_counters():
+    """The halo instances' :class:`LaunchCounter` entries, by JSON name."""
+    import importlib
+
+    return {name: LaunchCounter(importlib.import_module(
+        f"vpt_tpu_torch.kernels.{module}"), attr)
+        for name, (module, attr) in HALO_COUNTERS.items()}
+
+
+def march_halo_frame_bytes(slices, channels, state_bytes):
+    """Bytes a pixel of a K6 halo frame moves besides its corner rows, the
+    least that a split of the march around one all-reduce a chunk of 8
+    slices moves: the state in and out once (``state_bytes`` each), and
+    across each of the ceil(slices / 8) all-reduces the composite's carry
+    (16 bytes) out and in and the chunk's 8 values (4 bytes each, 8 for a
+    value pair) out and in.  K6's halo instance moves exactly this."""
+    chunks = -(-slices // 8)
+    return 2 * state_bytes + chunks * (2 * 16 + 2 * 8 * 4 * channels)
+
+
+def iso_halo_display_bytes(pixels, hits, channels):
+    """Bytes of a K7 halo display besides its corner rows: the state read
+    by each of its two launches, the image written, and a hit's seven
+    values (4 bytes, 8 a pair) out and in across the all-reduce."""
+    return pixels * 3 * 16 + hits * 2 * 7 * 4 * channels
+
+
+def mcs_halo_frame_bytes(pixels, fetches, channels):
+    """Bytes of a K8 halo frame besides its corner rows, a lower bound of
+    any split of the tracking around one all-reduce a fetch: the state in
+    and out once, and across each fetch's all-reduce the pixel's carry
+    (stream 4, phase 4, tracking 16) and value (4, 8 a pair) out and in
+    (the diffuse colour's round trip is not counted)."""
+    return pixels * 2 * 16 + fetches * 2 * (24 + 4 * channels)
+
+
+def dos_halo_frame_bytes(pixels, active, channels):
+    """Bytes a K9 halo frame moves besides the cooperative sweep's
+    (:func:`dos_work`): each active slice's value a pixel (4 bytes, 8 a
+    pair) out and in across the all-reduce of its chunk."""
+    return pixels * active * 2 * 4 * channels
+
+
+def kernel_means(fn, reps=10):
+    """{kernel name: mean device ms a launch} of the card's kernels over
+    ``reps`` calls of ``fn`` (torch.profiler, after a warm-up call); {}
+    when the window recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / e.count / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count
+            and e.device_time_total > 0}
+
+
+def halo_turns(halo, whole, launches, reps=10, rounds=2):
+    """Median device ms a call of ``halo`` and of ``whole`` ((callable,
+    kernel-name part) each), in turns (H W W H, ``rounds`` times): a call's
+    time is the profiler's mean a launch of each matching kernel times its
+    launches a call, ``launches(name)`` for the halo call (the profiler may
+    drop launches, so its total is not used); 1 for the whole frame.  None
+    where no window recorded the kernel."""
+    times = {"halo": [], "whole": []}
+    calls = {"halo": halo, "whole": whole}
+    for _ in range(rounds):
+        for name in ("halo", "whole", "whole", "halo"):
+            fn, part = calls[name]
+            means = {k: v for k, v in kernel_means(fn, reps).items()
+                     if part in k}
+            if means:
+                times[name].append(sum(
+                    v * (launches(k) if name == "halo" else 1)
+                    for k, v in means.items()))
+    return {k: sorted(t)[len(t) // 2] if t else None
+            for k, t in times.items()}
+
+
+def halo_frame_states(key, scene, params, height, width, slabs=(1, 0),
+                      display=False, **kw):
+    """One frame of renderer ``key`` from its reset over the HaloScene of
+    slab ``slabs`` = (count, index) (no group), and the same frame through
+    the whole-scene kernel and through the plain twin over the same
+    HaloScene: ``(halo, whole, plain)`` states; with ``display`` (ISO) the
+    three displays of the whole-scene kernel's frame."""
+    import dataclasses
+
+    from vpt_tpu_torch.kernels import dos_sweep, iso_shade, march, mcs_frame
+    from vpt_tpu_torch.parallel import halo
+
+    module = renderer_module(key)
+    count, index = slabs
+    hs = halo.halo_scene(scene, index, count, **kw)
+    ref = dataclasses.replace(hs, kernels=False)
+    state = module.reset(params, height, width, scene)
+    got, whole, plain = _clone(state), _clone(state), _clone(state)
+    seed = 0.0 if key == "dos" else 0.37
+    if display:
+        module.render_frame(whole, scene, params, seed, 1)
+        return (iso_shade.shade(whole, hs, params),
+                iso_shade.shade(whole, scene, params),
+                iso_shade.iso_shade_plain(whole, ref, params))
+    module.render_frame(got, hs, params, seed, 1)
+    module.render_frame(whole, scene, params, seed, 1)
+    if key == "mcs":
+        mcs_frame.mcs_frame_plain(plain, ref, params, seed, 1)
+    elif key == "dos":
+        dos_sweep.sweep_frame_plain(plain, ref, params)
+    else:
+        march.march_frame_plain(key, plain, ref, params, seed, 1)
+    return got, whole, plain
+
+
+def halo_states_agree(label, key, got, want, exact):
+    """``got`` equals ``want`` bit for bit (``exact``), else within the
+    kernel's bound of its plain version (PERF.md §2): at least 99.99% of
+    the values within 1e-6 (EAM, MIP, MCS, DOS: its colour and occlusion,
+    the depth equal), equal for Depth, ISO and ISO's display.  Returns the
+    largest difference."""
+    import torch
+
+    got = got if isinstance(got, dict) else {"state": got}
+    want = want if isinstance(want, dict) else {"state": want}
+    worst = 0.0
+    for k in want:
+        check(bool(torch.isfinite(got[k]).all()), f"{label}: {k} not "
+              "finite")
+        if exact or key in ("depth", "iso") or k not in ("state", "color",
+                                                         "occlusion"):
+            check(torch.equal(got[k], want[k]), f"{label}: {k} differs "
+                  + ("bit for bit" if exact else "from the plain twin"))
+            continue
+        diff = (got[k] - want[k]).abs()
+        share = float((diff <= 1e-6).float().mean())
+        check(share >= 0.9999, f"{label}: {k} {share:.6f} of the values "
+              "within 1e-6 (bound 0.9999)")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def halo_kernel_rows(label, scene, params_of, res=512):
+    """The halo instances of K6 (each mode), K7, K8 and K9 on ``scene`` at
+    ``res``²: on one slab each frame (ISO's display) equals the whole-scene
+    kernel's bit for bit; on 2 slabs (no group, contiguous and interleave
+    2) each slab's frame is within the kernel's bound of the plain twin
+    over the same HaloScene; then on one slab each timed in turns against
+    the whole-scene kernel (:func:`halo_turns`), with its launches a frame,
+    the loop ms, the plain twin's ms, registers and spills and its bound:
+    the whole frame's corner rows and operations (K6: :func:`march_work`,
+    K7: :func:`shade_work`, K8: the whole frame's own count of its fetches
+    and :func:`mcs_work`'s rows, K9: :func:`dos_work`) plus the
+    ``*_frame_bytes`` of the split.  Returns {JSON name: fields}."""
+    import dataclasses
+
+    import torch
+
+    from vpt_tpu_torch.kernels import dos_sweep, iso_shade, march, mcs_frame
+    from vpt_tpu_torch.kernels import tf1d
+    from vpt_tpu_torch.parallel import halo
+
+    n = res * res
+    channels = scene.channels
+    tf_mode = tf1d.mode_code(scene.tf_mxu)
+    hs = halo.halo_scene(scene, 0, 1)
+    ref = dataclasses.replace(hs, kernels=False)
+    worst = {name: 0.0 for name in HALO_COUNTERS}
+    name_of = {"eam": "march_halo", "mip": "march_halo",
+               "depth": "march_halo", "iso": "march_halo",
+               "mcs": "mcs_halo", "dos": "dos_halo"}
+    # equality on one slab, the plain twin on 2 slabs
+    for key in HALO_FRAME_KEYS:
+        params = params_of(key)
+        got, whole, _ = halo_frame_states(key, scene, params, res, res)
+        halo_states_agree(f"{label} {key} halo one slab", key, got, whole,
+                          True)
+        if key == "iso":
+            disp, want, _ = halo_frame_states(key, scene, params, res, res,
+                                              display=True)
+            halo_states_agree(f"{label} iso display halo one slab", key,
+                              disp, want, True)
+        for count, index, m in ((2, 0, 1), (2, 1, 2)):
+            got, _, plain = halo_frame_states(
+                key, scene, params, res, res, (count, index), interleave=m)
+            err = halo_states_agree(
+                f"{label} {key} halo slab {index}/{count} m{m}", key, got,
+                plain, False)
+            worst[name_of[key]] = max(worst[name_of[key]], err)
+            if key == "iso":
+                got, _, plain = halo_frame_states(
+                    key, scene, params, res, res, (count, index),
+                    display=True, interleave=m)
+                halo_states_agree(f"{label} iso display halo slab {index}/"
+                                  f"{count} m{m}", key, got, plain, False)
+        torch.cuda.synchronize()
+    print(f"{label} halo frames: EAM, MIP, Depth, ISO (frame, display), "
+          f"MCS, DOS at {res}^2 on one slab equal their whole-scene "
+          "kernels' bit for bit; on 2 slabs (contiguous, interleave 2) "
+          "within their kernels' bounds of the plain twins", flush=True)
+
+    rows = {}
+    table = scene.volume_packed
+    row_bytes = table.shape[1] * table.element_size()
+    # K6: every mode timed, the row's own numbers EAM's
+    k6 = {}
+    for key in ("eam", "mip", "depth", "iso"):
+        module = renderer_module(key)
+        params = params_of(key)
+        state = module.reset(params, res, res, scene)
+        module.render_frame(state, scene, params, 0.4, 1)
+        a, b, c = state.clone(), state.clone(), state.clone()
+        slices = params.slices if key in ("eam", "depth") else params.steps
+        per_frame = -(-slices // 8) + 1
+        t = halo_turns(
+            (lambda: march.march_frame(key, a, hs, params, 0.5, 2),
+             "march_halo_kernel"),
+            (lambda: march.march_frame(key, b, scene, params, 0.5, 2),
+             "march_kernel" if channels == 1 else "march_ext_kernel"),
+            lambda k: per_frame)
+        ms = in_turns({
+            "halo": lambda: march.march_frame(key, a, hs, params, 0.5, 2),
+            "whole": lambda: march.march_frame(key, b, scene, params, 0.5,
+                                               2)}, 10, rounds=1)
+        plain_ms = cuda_ms(lambda: march.march_frame_plain(
+            key, c, ref, params, 0.5, 2), 1)
+        samples, distinct, _, _ = march_work(key, scene, params, 0.5, res,
+                                             res)
+        nbytes = distinct * row_bytes + tf_row_bytes(scene) + n * \
+            march_halo_frame_bytes(slices, channels,
+                                   4 if key == "mip" else 16)
+        ops = samples * (MARCH_OPS_SAMPLE + SLAB_OPS) + n * MARCH_OPS_PIXEL
+        bound_ms, bound_by = roofline(nbytes, ops)
+        occ = march.halo_occupancy(key, table.dtype,
+                                   scene.transfer_1d.shape[0], tf_mode,
+                                   channels=channels)
+        share = None if t["halo"] is None else bound_ms / t["halo"]
+        print(f"march halo {label} {key}: one slab, {res}^2, {slices} "
+              f"slices: {ms['halo']:.4f} ms a frame ({per_frame} launches, "
+              f"{per_frame - 1} all-reduces with a group; whole-frame K6 "
+              f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (whole "
+              f"{fmt_ms(t['whole'])}"
+              + (f", {t['halo'] / t['whole']:.3f}x" if t["halo"]
+                 and t["whole"] else "")
+              + f"); plain twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by}, {nbytes} bytes: {samples} samples, {distinct} "
+              f"distinct rows, {march_halo_frame_bytes(slices, channels, 4 if key == 'mip' else 16)} "
+              "bytes a pixel of state, carry and values), "
+              + ("share not measured" if share is None
+                 else f"{share:.3f} of it")
+              + f"; {occ['registers']} registers, {occ['local_bytes']} "
+              f"spill bytes, {occ['blocks_per_sm']} blocks an SM",
+              flush=True)
+        k6[key] = {"ms": ms["halo"], "device_ms": t["halo"],
+                   "whole_ms": ms["whole"], "whole_device_ms": t["whole"],
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bound_share": share,
+                   "launches_a_frame": per_frame,
+                   "registers": occ["registers"],
+                   "local_bytes": occ["local_bytes"]}
+    row = dict(k6["eam"])
+    for key, fields in k6.items():
+        for k, v in fields.items():
+            row[f"{k}_{key}"] = v
+    rows["march_halo"] = row
+
+    # K7: ISO's display
+    iso = renderer_module("iso")
+    params = params_of("iso")
+    state = iso.reset(params, res, res, scene)
+    iso.render_frame(state, scene, params, 0.4, 1)
+    t = halo_turns((lambda: iso.display(state, hs, params), "iso_halo_"),
+                   (lambda: iso.display(state, scene, params),
+                    "iso_shade_kernel" if channels == 1
+                    else "iso_shade_ext_kernel"),
+                   lambda k: 1)
+    ms = in_turns({"halo": lambda: iso.display(state, hs, params),
+                   "whole": lambda: iso.display(state, scene, params)}, 20,
+                  rounds=1)
+    plain_ms = cuda_ms(lambda: iso_shade.iso_shade_plain(state, ref,
+                                                         params), 2)
+    hits, distinct = shade_work(scene, state, params.gradient_step)
+    nbytes = distinct * row_bytes + tf_row_bytes(scene) \
+        + iso_halo_display_bytes(n, hits, channels)
+    ops = hits * (7 * (SHADE_OPS_TAP + SLAB_OPS) + SHADE_OPS_PIXEL)
+    bound_ms, bound_by = roofline(nbytes, ops)
+    occ = [iso_shade.halo_occupancy(stage, table.dtype, tf_mode,
+                                    channels=channels) for stage in (0, 1)]
+    share = None if t["halo"] is None else bound_ms / t["halo"]
+    print(f"iso_shade halo {label}: one slab, {res}^2, {hits} hits: "
+          f"{ms['halo']:.4f} ms a display (2 launches, 1 all-reduce with a "
+          f"group; whole K7 {ms['whole']:.4f} ms), device "
+          f"{fmt_ms(t['halo'])} (whole {fmt_ms(t['whole'])}); plain twin "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{nbytes} bytes), "
+          + ("share not measured" if share is None else f"{share:.3f} of it")
+          + f"; fetch {occ[0]['registers']} registers, "
+          f"{occ[0]['local_bytes']} spill bytes; shade {occ[1]['registers']}"
+          f" registers, {occ[1]['local_bytes']} spill bytes", flush=True)
+    rows["iso_shade_halo"] = {
+        "ms": ms["halo"], "device_ms": t["halo"], "whole_ms": ms["whole"],
+        "whole_device_ms": t["whole"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": share,
+        "launches_a_frame": 2, "hits": hits,
+        "registers": [o["registers"] for o in occ],
+        "local_bytes": [o["local_bytes"] for o in occ]}
+
+    # K8: MCS
+    mcs = renderer_module("mcs")
+    params = params_of("mcs")
+    state = mcs.reset(params, res, res, scene)
+    a, b, c = state.clone(), state.clone(), state.clone()
+    per_frame = mcs_frame.halo_mcs_frame(state.clone(), hs, params, 0.5, 2)
+    t = halo_turns((lambda: mcs_frame.halo_mcs_frame(a, hs, params, 0.5, 2),
+                    "mcs_halo_kernel"),
+                   (lambda: mcs.render_frame(b, scene, params, 0.5, 2),
+                    "mcs_frame_kernel" if channels == 1
+                    else "mcs_frame_ext_kernel"),
+                   lambda k: per_frame)
+    ms = in_turns({
+        "halo": lambda: mcs_frame.halo_mcs_frame(a, hs, params, 0.5, 2),
+        "whole": lambda: mcs.render_frame(b, scene, params, 0.5, 2)}, 10,
+        rounds=1)
+    plain_ms = cuda_ms(lambda: mcs_frame.mcs_frame_plain(c, ref, params,
+                                                         0.5, 2), 1)
+    counts = torch.zeros(2, dtype=torch.int64, device=state.device)
+    mcs_frame.mcs_frame(state.clone(), scene, params, 0.5, 2, counts=counts)
+    steps, fetches = (int(v) for v in counts.tolist())
+    _, distinct = mcs_work(scene, params, 0.5, res, res)
+    use_skip = scene.tracking_packed is not None
+    mtable = scene.tracking_packed if use_skip else table
+    nbytes = distinct * mtable.shape[1] * mtable.element_size() \
+        + tf_row_bytes(scene) + mcs_halo_frame_bytes(n, fetches, channels)
+    ops = fetches * (MCS_OPS_STEP + SLAB_OPS) + n * MCS_OPS_PIXEL
+    bound_ms, bound_by = roofline(nbytes, ops)
+    occ = mcs_frame.halo_occupancy(mtable.dtype, scene.transfer_1d.shape[0],
+                                   channels=channels)
+    share = None if t["halo"] is None else bound_ms / t["halo"]
+    print(f"mcs halo {label}: one slab, {res}^2: {ms['halo']:.4f} ms a "
+          f"frame ({per_frame} launches and host reads of the live count, "
+          f"{per_frame - 1} all-reduces with a group; whole K8 "
+          f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (whole "
+          f"{fmt_ms(t['whole'])}); plain twin {plain_ms:.4f} ms; {steps} "
+          f"tracking steps, {fetches} fetches; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes} bytes), "
+          + ("share not measured" if share is None else f"{share:.3f} of it")
+          + f"; {occ['registers']} registers, {occ['local_bytes']} spill "
+          f"bytes, {occ['blocks_per_sm']} blocks an SM", flush=True)
+    rows["mcs_halo"] = {
+        "ms": ms["halo"], "device_ms": t["halo"], "whole_ms": ms["whole"],
+        "whole_device_ms": t["whole"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": share,
+        "launches_a_frame": per_frame, "fetches": fetches,
+        "registers": occ["registers"], "local_bytes": occ["local_bytes"]}
+
+    # K9: DOS, a sweep's first frame
+    dos = renderer_module("dos")
+    params = params_of("dos")
+
+    def dos_frame(s):
+        return lambda: dos.render_frame(dos.reset(params, res, res, scene),
+                                        s, params, 0.0, 1)
+
+    active = min(params.steps, params.slices)
+    per_chunk = -(-active // 8)
+    t = halo_turns((dos_frame(hs), "dos_halo_"),
+                   (dos_frame(scene), "dos_sweep"),
+                   lambda k: per_chunk)
+    ms = in_turns({"halo": dos_frame(hs), "whole": dos_frame(scene)}, 5,
+                  rounds=1)
+    plain_ms = cuda_ms(lambda: dos_sweep.sweep_frame_plain(
+        dos.reset(params, res, res, scene), ref, params), 1)
+    nbytes, ops, written, active = dos_work(scene, params, res, res, 1)
+    nbytes += dos_halo_frame_bytes(n, active, channels)
+    ops += n * active * SLAB_OPS
+    bound_ms, bound_by = roofline(nbytes, ops)
+    occ = [dos_sweep.halo_occupancy(stage, table.dtype, tf_mode,
+                                    params.samples, channels=channels)
+           for stage in (0, 1)]
+    share = None if t["halo"] is None else bound_ms / t["halo"]
+    print(f"dos halo {label}: one slab, {res}^2, a sweep's first frame "
+          f"({active} active slices, {written} written pixels): "
+          f"{ms['halo']:.4f} ms a frame ({2 * per_chunk} launches, "
+          f"{per_chunk} all-reduces with a group; cooperative K9 "
+          f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (whole "
+          f"{fmt_ms(t['whole'])}); plain twin {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes), "
+          + ("share not measured" if share is None else f"{share:.3f} of it")
+          + f"; fetch {occ[0]['registers']} registers, "
+          f"{occ[0]['local_bytes']} spill bytes; fold {occ[1]['registers']}"
+          f" registers, {occ[1]['local_bytes']} spill bytes, "
+          f"{occ[1]['blocks_per_sm']} blocks of 512 an SM", flush=True)
+    rows["dos_halo"] = {
+        "ms": ms["halo"], "device_ms": t["halo"], "whole_ms": ms["whole"],
+        "whole_device_ms": t["whole"], "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": share,
+        "launches_a_frame": 2 * per_chunk, "active_slices": active,
+        "registers": [o["registers"] for o in occ],
+        "local_bytes": [o["local_bytes"] for o in occ]}
+    for name, row in rows.items():
+        row["max_abs_err"] = worst[name]
+    return rows
+
+
+def phase_halo_frames(scenes):
+    """The halo instances of K6-K9 (:func:`halo_kernel_rows`) on the
+    headline (bf16 tables, ``tf_mxu``; MCS on its cheb-skip table) and on
+    the two-channel 128³ (:func:`rg_scene`) at 512², default Params (MCS
+    extinction 8; DOS a sweep's first frame).  Returns the JSON rows'
+    fields: the headline's, with the two-channel numbers under
+    ``rg_...``."""
+    def params_of(key):
+        module = renderer_module(key)
+        return module.Params(extinction=8.0) if key == "mcs" \
+            else module.Params()
+
+    rows = halo_kernel_rows("headline", scenes["headline"], params_of)
+    rg = halo_kernel_rows("two-channel 128^3", scenes["rg"], params_of)
+    for name, row in rows.items():
+        # no one PyTorch call computes a halo frame
+        row["library_ms"] = None
+        row["max_abs_err"] = max(row["max_abs_err"], rg[name]["max_abs_err"])
+        for k, v in rg[name].items():
+            if k != "max_abs_err":
+                row[f"rg_{k}"] = v
+    return rows
+
+
+def halo_frames_path(grid, scene, counters, res):
+    """``path parallel``'s halo frames, in its world of one: every launch
+    counter at 0, then one frame each of EAM, MIP, Depth, ISO with its
+    display, MCS and DOS of config 4 at ``res``² through
+    ``halo.sharded_render_frame`` on one slab (the halo instances of K6-K9)
+    and the counts read; none of the whole-scene kernels runs, and a world
+    of one issues no collective.  After the counts: each frame against
+    ``shard_render_frame``'s whole-scene kernel frame bit for bit and
+    against its plain twin over the same HaloScene within the kernel's
+    bound, and each halo frame timed against the whole-scene frame in
+    turns.  Returns (launches, errors by JSON name, numbers)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch.kernels import dos_sweep, iso_shade, march, mcs_frame
+    from vpt_tpu_torch.parallel import halo, place_state, shard_render_frame
+    from vpt_tpu_torch.parallel.mesh import axis_group
+
+    t0 = time.perf_counter()
+    for module in counters.values():
+        module.LAUNCHES = 0
+    halo.COLLECTIVES.clear()
+    frames, wholes, params_of, slabs = {}, {}, {}, None
+    for key in HALO_FRAME_KEYS:
+        module = renderer_module(key)
+        params = module.Params(extinction=8.0) if key == "mcs" \
+            else module.Params()
+        params_of[key] = params
+        wholes[key] = module.reset(params, res, res, scene)
+        frame_fn, slabs = halo.sharded_render_frame(module, grid, scene, 1,
+                                                    wholes[key])
+        # a copy: place_state keeps DOS's 0-d depth, which K9 advances
+        state = place_state(_clone(wholes[key]), grid)
+        frames[key] = frame_fn(state, slabs, params,
+                               np.float32(0.0 if key == "dos" else 0.37), 1)
+        if key == "iso":
+            hs = halo.halo_scene(scene, 0, 1, axis_group(grid, "space"),
+                                 slabs)
+            frames["display"] = module.display(frames[key], hs, params)
+    torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES for k, m in counters.items()}
+    collectives = dict(halo.COLLECTIVES)
+    run_s = time.perf_counter() - t0
+    for name in HALO_COUNTERS:
+        check(launches[name] > 0, f"path parallel halo frames: {name} was "
+              "not launched")
+        check(launches[HALO_WHOLE[name]] == 0, f"path parallel halo frames: "
+              f"{launches[HALO_WHOLE[name]]} launches of the whole-scene "
+              f"{HALO_WHOLE[name]}")
+    check(not collectives, f"path parallel halo frames: collectives in a "
+          f"world of one {collectives}")
+    check(launches["march_halo"] == sum(
+        -(-(params_of[k].slices if k in ("eam", "depth")
+            else params_of[k].steps) // 8) + 1
+        for k in ("eam", "mip", "depth", "iso")),
+        f"path parallel halo frames: {launches['march_halo']} K6 halo "
+        "launches")
+    check(launches["iso_shade_halo"] == 2, "path parallel halo frames: K7 "
+          "halo launches")
+
+    # against the whole-scene kernels and the plain twins, then timed
+    hs = halo.halo_scene(scene, 0, 1, axis_group(grid, "space"), slabs)
+    ref = dataclasses.replace(hs, kernels=False)
+    errors = {name: 0.0 for name in HALO_COUNTERS}
+    turns = {}
+    for key in HALO_FRAME_KEYS:
+        module = renderer_module(key)
+        params = params_of[key]
+        seed = np.float32(0.0 if key == "dos" else 0.37)
+        whole = shard_render_frame(module, grid, wholes[key])(
+            place_state(_clone(wholes[key]), grid), scene, params, seed, 1)
+        plain = place_state(_clone(wholes[key]), grid)
+        if key == "mcs":
+            mcs_frame.mcs_frame_plain(plain, ref, params, seed, 1)
+        elif key == "dos":
+            dos_sweep.sweep_frame_plain(plain, ref, params)
+        else:
+            march.march_frame_plain(key, plain, ref, params, seed, 1)
+        torch.cuda.synchronize()
+        name = {"mcs": "mcs_halo", "dos": "dos_halo"}.get(key, "march_halo")
+        halo_states_agree(f"path parallel halo {key}", key, frames[key],
+                          whole, True)
+        errors[name] = max(errors[name], halo_states_agree(
+            f"path parallel halo {key} plain", key, frames[key], plain,
+            False))
+        if key == "iso":
+            halo_states_agree("path parallel halo iso display", key,
+                              frames["display"],
+                              module.display(whole, scene, params), True)
+            halo_states_agree("path parallel halo iso display plain", key,
+                              frames["display"],
+                              iso_shade.iso_shade_plain(whole, ref, params),
+                              False)
+        del whole, plain
+        a, b = _clone(frames[key]), _clone(frames[key])
+        if key == "dos":
+            def run_halo(a=a):
+                module.render_frame(dos_reset(params, res, scene, a), hs,
+                                    params, 0.0, 1)
+
+            def run_whole(b=b):
+                module.render_frame(dos_reset(params, res, scene, b), scene,
+                                    params, 0.0, 1)
+        else:
+            def run_halo(a=a, module=module, params=params):
+                module.render_frame(a, hs, params, 0.5, 2)
+
+            def run_whole(b=b, module=module, params=params):
+                module.render_frame(b, scene, params, 0.5, 2)
+        turns[key] = in_turns({"halo": run_halo, "whole": run_whole}, 5,
+                              rounds=1)
+    del frames
+    torch.cuda.empty_cache()
+    print(f"path parallel halo frames: config 4 at {res}^2 on one slab, "
+          f"one frame each of EAM, MIP, Depth, ISO (and its display), MCS "
+          f"(extinction 8) and DOS through halo.sharded_render_frame in "
+          f"{run_s:.3f} s: equal bit for bit to shard_render_frame's "
+          f"whole-scene kernel frames, within the kernels' bounds of the "
+          f"plain twins (max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errors.items())
+          + "); in turns, ms a frame halo / whole: "
+          + ", ".join(f"{k} {v['halo']:.4f} / {v['whole']:.4f}"
+                      for k, v in turns.items())
+          + "; launches: " + ", ".join(f"{k} {launches[k]}"
+                                       for k in HALO_COUNTERS), flush=True)
+    return launches, errors, turns
+
+
+def dos_reset(params, res, scene, state):
+    """``state`` (a DOS state dict) reset in place to ``dos.reset``'s
+    values: a frame timed again starts the same sweep."""
+    from vpt_tpu_torch.renderers import dos
+
+    fresh = dos.reset(params, res, res, scene)
+    for k, v in fresh.items():
+        state[k].copy_(v)
+    return state
+
+
+def gloo_halo_frames(mesh, scene):
+    """The two-rank check's halo frames of EAM, MIP, Depth, ISO (and its
+    display), MCS and DOS (default Params; MCS extinction 8) on
+    ``mesh``'s ``space`` slabs at GLOO_HALO_RES², gathered, with each
+    frame's collectives; with ``mesh`` None one process's whole-scene
+    kernel frames (and K7's display)."""
+    import numpy as np
+
+    from vpt_tpu_torch.kernels import mcs_frame
+    from vpt_tpu_torch.parallel import gather_state, halo, place_state
+    from vpt_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
+
+    res = GLOO_HALO_RES
+    out = {}
+    for key in HALO_FRAME_KEYS:
+        module = renderer_module(key)
+        params = module.Params(extinction=8.0) if key == "mcs" \
+            else module.Params()
+        seed = np.float32(0.0 if key == "dos" else 0.37)
+        state = module.reset(params, res, res, scene)
+        if mesh is None:
+            out[key] = {"state": module.render_frame(state, scene, params,
+                                                     seed, 1)}
+            if key == "iso":
+                out[key]["display"] = module.display(out[key]["state"],
+                                                     scene, params)
+            continue
+        count = axis_size(mesh, "space")
+        frame_fn, slabs = halo.sharded_render_frame(module, mesh, scene,
+                                                    count, state)
+        halo.COLLECTIVES.clear()
+        before = mcs_frame.HALO_LAUNCHES
+        rows = frame_fn(place_state(state, mesh), slabs, params, seed, 1)
+        out[key] = {"collectives": dict(halo.COLLECTIVES),
+                    "mcs_launches": mcs_frame.HALO_LAUNCHES - before}
+        gathered = gather_state(rows, mesh, res)
+        if key == "iso":
+            hs = halo.halo_scene(scene, axis_index(mesh, "space"), count,
+                                 axis_group(mesh, "space"), slabs)
+            halo.COLLECTIVES.clear()
+            out[key]["display"] = module.display(gathered, hs, params)
+            out[key]["display_collectives"] = dict(halo.COLLECTIVES)
+        out[key]["state"] = gathered
+    return out
+
+
+def _cpu(tree):
+    """A nested dict of tensors (and other values) with every tensor on the
+    host."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree.cpu() if torch.is_tensor(tree) else tree
+
+
+def check_gloo_halo_frames(got, want):
+    """The two ranks' halo frames (2 slabs) against one process's
+    whole-scene kernel frames, bit for bit, with their collectives a
+    frame: K6 ceil(slices / 8), K7's display 1, K8 its launches − 1, K9
+    ceil(active / 8) all-reduces.  Returns a summary."""
+    import torch
+
+    parts = []
+    for key in HALO_FRAME_KEYS:
+        g, w = got[key], want[key]
+        names = ("state", "display") if key == "iso" else ("state",)
+        for name in names:
+            a = g[name] if isinstance(g[name], dict) else {"": g[name]}
+            b = w[name] if isinstance(w[name], dict) else {"": w[name]}
+            for k in b:
+                check(torch.equal(a[k], b[k]), f"path parallel gloo: "
+                      f"the halo {key} {name} {k} (2 slabs) differs from "
+                      "one process's whole-scene kernel frame")
+        reduces = g["collectives"].get("all_reduce", 0)
+        module = renderer_module(key)
+        params = module.Params()
+        if key in ("eam", "depth", "mip", "iso"):
+            slices = params.slices if key in ("eam", "depth") \
+                else params.steps
+            check(reduces == -(-slices // 8), f"path parallel gloo: {key} "
+                  f"halo frame {reduces} all-reduces")
+        elif key == "dos":
+            check(reduces == -(-min(params.steps, params.slices) // 8),
+                  f"path parallel gloo: DOS halo frame {reduces} "
+                  "all-reduces")
+        else:
+            check(reduces == g["mcs_launches"] - 1, f"path parallel gloo: "
+                  f"MCS halo frame {reduces} all-reduces in "
+                  f"{g['mcs_launches']} launches")
+        parts.append(f"{key} {reduces}")
+    check(got["iso"]["display_collectives"] == {"all_reduce": 1},
+          f"path parallel gloo: the ISO display's collectives "
+          f"{got['iso']['display_collectives']}")
+    return ("halo frames of EAM, MIP, Depth, ISO (its display: 1 "
+            "all-reduce), MCS and DOS on 2 slabs equal one process's "
+            "whole-scene kernel frames bit for bit; all-reduces a frame "
+            + ", ".join(parts))
 
 
 #: path resident's two-channel frames: the volume and the image
@@ -6574,13 +7291,17 @@ def run():
                 "mcm_event_halo_rg": LaunchCounter(mcm_event,
                                                    "HALO_RG_LAUNCHES"),
                 "mcm_event_resident_rg": LaunchCounter(
-                    mcm_event, "RESIDENT_RG_LAUNCHES")}
+                    mcm_event, "RESIDENT_RG_LAUNCHES"), **halo_counters()}
     t0 = time.perf_counter()
     scenes = slab_scenes()
     k3_slab = phase_slab_fetch(scenes)
     k5_halo = phase_halo_event(scenes["headline"])
     k5_halo_rg = phase_halo_layouts(scenes)
     k9_band = phase_dos_band(scenes["headline"])
+    t1 = time.perf_counter()
+    halo_rows = phase_halo_frames(scenes)
+    print(f"halo frame kernels: {time.perf_counter() - t1:.1f} s",
+          flush=True)
     del scenes
     torch.cuda.empty_cache()
     print(f"halo kernels: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6672,6 +7393,15 @@ def run():
     k5_resident = parallel_numbers["resident_rows"]["mcm_event_resident"]
     k5_resident_rg = parallel_numbers["resident_rows"][
         "mcm_event_resident_rg"]
+    frames_launches = parallel_numbers["frames_launches"]
+    for name, row in halo_rows.items():
+        err = parallel_numbers["frames_errors"][name]
+        row["parallel_max_abs_err"] = err
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    for key, turn in parallel_numbers["frames_turns"].items():
+        name = {"mcs": "mcs_halo", "dos": "dos_halo"}.get(key, "march_halo")
+        halo_rows[name][f"ms_1024_config4_{key}"] = turn["halo"]
+        halo_rows[name][f"whole_ms_1024_config4_{key}"] = turn["whole"]
     print(f"path parallel: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_parallel_gloo(dev)
@@ -6707,7 +7437,8 @@ def run():
               "corner_scatter")),
             ("resident", resident_launches,
              ("mcm_event_resident", "mcm_event_resident_rg",
-              "mcm_event_halo_rg"))):
+              "mcm_event_halo_rg")),
+            ("halo frames", frames_launches, tuple(HALO_COUNTERS))):
         for name in names:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -6834,6 +7565,39 @@ def run():
                         "scene (the resident path's 2 frames of a 128^3 RG "
                         "scene at 512^2); ms and device_ms a frame there",
          **k5_resident_rg},
+        {"name": "march_halo", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/march.cu",
+         "replaces": "vpt_tpu/parallel/halo.py:248",
+         "launched_by": "halo.sharded_render_frame's EAM, MIP, Depth and "
+                        "ISO frames (ceil(slices / 8) + 1 launches a frame, "
+                        "an all-reduce of a chunk's values between them; "
+                        "the halo frames path of config 4 at 1024^2); ms "
+                        "and device_ms a 512^2 headline EAM frame on one "
+                        "slab (every mode beside it)", **halo_rows[
+                            "march_halo"]},
+        {"name": "iso_shade_halo", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/iso_shade.cu",
+         "replaces": "vpt_tpu/parallel/halo.py:263",
+         "launched_by": "ISO's display over a HaloScene (2 launches around "
+                        "one all-reduce of the seven fetches; the halo "
+                        "frames path); ms and device_ms a 512^2 headline "
+                        "display on one slab", **halo_rows["iso_shade_halo"]},
+        {"name": "mcs_halo", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/mcs_frame.cu",
+         "replaces": "vpt_tpu/parallel/halo.py:199",
+         "launched_by": "halo.sharded_render_frame's MCS frame (a launch a "
+                        "fetch of the slowest pixel and one more; the halo "
+                        "frames path); ms and device_ms a 512^2 headline "
+                        "frame on one slab, extinction 8",
+         **halo_rows["mcs_halo"]},
+        {"name": "dos_halo", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/dos_sweep.cu",
+         "replaces": "vpt_tpu/parallel/halo.py:248",
+         "launched_by": "halo.sharded_render_frame's DOS frame (a fetch, an "
+                        "all-reduce and a cooperative fold a chunk of 8 "
+                        "active slices; the halo frames path); ms and "
+                        "device_ms a 512^2 headline sweep's first frame on "
+                        "one slab", **halo_rows["dos_halo"]},
     ]
     for row in rows:
         if row["name"] in ("mcm_event_resident", "mcm_event_halo_rg",
@@ -6842,6 +7606,8 @@ def run():
         elif row["name"] in ("mcm_event_halo", "corner_gather_slab",
                              "dos_band"):
             row["launches"] = parallel_launches[row["name"]]
+        elif row["name"] in HALO_COUNTERS:
+            row["launches"] = frames_launches[row["name"]]
         elif row["name"].startswith("corner"):
             row["launches"] = fit_launches[row["name"]] \
                 + fit_mcs_launches[row["name"]] \
@@ -6861,6 +7627,7 @@ def run():
         row["launches_parallel"] = parallel_launches[row["name"]]
         row["launches_demos"] = demos_launches[row["name"]]
         row["launches_resident"] = resident_launches[row["name"]]
+        row["launches_halo_frames"] = frames_launches[row["name"]]
         if row["name"] in unpacked_errors:
             row["unpacked_max_abs_err"] = unpacked_errors[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"],

@@ -2448,9 +2448,10 @@ def test_dos_band_matches_plain_and_cooperative(cuda, kind):
 def test_halo_frames_refuse_what_has_no_kernel(cuda):
     """On the card a HaloScene frame of a two-channel volume runs K5's
     two-channel halo instance, equal to the ext frame and the plain loop
-    bit for bit on one slab; a march renderer's frame raises
-    ``_not_ported`` (ROADMAP queue 2b) before any launch; DOS's Python
-    hooks raise, naming the sharded frame."""
+    bit for bit on one slab; every renderer but LAO runs its kernel's halo
+    instance, and LAO's frame raises ``_not_ported`` (ROADMAP queue 2b
+    item 9) before any launch; DOS's Python hooks raise, naming the
+    sharded frame."""
     from vpt_tpu_torch.parallel import halo
 
     rg = make_scene(volume.with_gradient_magnitude(
@@ -2473,20 +2474,186 @@ def test_halo_frames_refuse_what_has_no_kernel(cuda):
     for k in whole:
         assert torch.equal(state[k], whole[k]), k
         assert torch.equal(state[k], plain[k]), k
-    before = (_launches(), mcm_event.HALO_LAUNCHES)
     scene = _headline_scene(16, cuda)
     hs = halo.halo_scene(scene, 0, 1)
-    for module, item in ((eam, "6"), (mip, "6"), (depth, "6"), (iso, "6"),
-                         (mcs, "7"), (dos, "8"), (lao, "9")):
+    for module in (eam, mip, depth, iso, mcs, dos):
         p = module.Params()
-        with pytest.raises(NotImplementedError, match=f"queue 2b item "
-                                                      f"{item}"):
-            module.render_frame(module.reset(p, 8, 8, scene), hs, p, 0.1, 1)
-    assert (_launches(), mcm_event.HALO_LAUNCHES) == before
+        module.render_frame(module.reset(p, 8, 8, scene), hs, p, 0.1, 1)
+    before = (_launches(), _halo_launches())
+    p = lao.Params()
+    with pytest.raises(NotImplementedError, match="queue 2b item 9"):
+        lao.render_frame(lao.reset(p, 8, 8, scene), hs, p, 0.1, 1)
+    assert (_launches(), _halo_launches()) == before
     p = dos.Params()
     with pytest.raises(ValueError, match="dos_halo.sharded_render_frame"):
         dos.render_frame(dos.reset(p, 8, 8, scene), scene, p, 0.1, 1,
                          ndc=sampling.pixel_ndc(8, 8, device=cuda))
+
+
+def _halo_launches():
+    return (mcm_event.HALO_LAUNCHES, march.HALO_LAUNCHES,
+            iso_shade.HALO_LAUNCHES, mcs_frame.HALO_LAUNCHES,
+            dos_sweep.HALO_LAUNCHES)
+
+
+def _halo_kind(kind, cuda):
+    """The halo tests' scenes, 24³ (divisible by 2 slabs × interleave 2):
+    float32 tables, the headline's (bf16 tables, ``tf_mxu``, the cheb-skip
+    table) or two channels (bf16 rows, the packed 2D TF)."""
+    if kind == "rg":
+        return make_scene(volume.with_gradient_magnitude(
+            volume.blobs_volume(24, seed=3, device=cuda)),
+            transfer.gray_ramp(alpha_scale=0.8, device=cuda), device=cuda)
+    return _scene(kind, cuda)
+
+
+#: the halo layouts held to the plain twin: (slabs, interleave, masked)
+HALO_LAYOUTS = [(2, 1, True), (2, 2, True), (2, 1, False), (2, 2, False)]
+
+
+def _halo_layouts(scene):
+    """(label, HaloScene) of each of :data:`HALO_LAYOUTS`' slabs, no group:
+    a masked slab's values stay its own partial, as the plain twin's."""
+    from vpt_tpu_torch.parallel import halo
+
+    for count, interleave, masked in HALO_LAYOUTS:
+        for k in range(count):
+            yield (f"{k}/{count} m{interleave} masked {masked}",
+                   halo.halo_scene(scene, k, count, interleave=interleave,
+                                   collective=masked))
+
+
+def _halo_state(module, params, scene, height=40, width=48):
+    state = module.reset(params, height, width, scene)
+    if isinstance(state, dict):
+        return state, lambda: {k: v.clone() for k, v in state.items()}
+    return state, state.clone
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
+@pytest.mark.parametrize("key", ["eam", "mip", "depth", "iso"])
+def test_halo_march_frames(cuda, key, kind):
+    """K6's halo instance: on one slab, 2 frames equal the whole-scene
+    kernel's bit for bit in ceil(slices / 8) + 1 launches a frame (the
+    whole-scene counter still); on 2 slabs, contiguous and interleaved,
+    masked and not, each slab's frame is within K6's bound of the plain
+    twin over the same HaloScene (``assert_kernel_agrees``)."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _halo_kind(kind, cuda)
+    module = RENDERERS[key]
+    params = module.Params()
+    slices = params.slices if key in ("eam", "depth") else params.steps
+    state, fresh = _halo_state(module, params, scene)
+    got, want = fresh(), fresh()
+    hs = halo.halo_scene(scene, 0, 1)
+    before = (march.LAUNCHES, march.HALO_LAUNCHES)
+    for n in (1, 2):
+        module.render_frame(got, hs, params, 0.3 + 0.01 * n, n)
+    launched = (march.LAUNCHES, march.HALO_LAUNCHES)
+    for n in (1, 2):
+        module.render_frame(want, scene, params, 0.3 + 0.01 * n, n)
+    torch.cuda.synchronize()
+    assert launched == (before[0], before[1] + 2 * (-(-slices // 8) + 1))
+    assert torch.equal(got, want)
+    if key == "iso":
+        assert bool((got[..., 3] > 0).any())
+    for label, hs in _halo_layouts(scene):
+        got, want = fresh(), fresh()
+        module.render_frame(got, hs, params, 0.31, 1)
+        march.march_frame_plain(key, want, hs, params, 0.31, 1)
+        torch.cuda.synchronize()
+        assert_kernel_agrees(key, got, want)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
+def test_halo_iso_display(cuda, kind):
+    """K7's halo instance: on one slab the display equals the whole-scene
+    K7's bit for bit in 2 launches; on 2 slabs each slab's display equals
+    the plain twin's (K7's bound)."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _halo_kind(kind, cuda)
+    params = iso.Params()
+    state = iso.reset(params, 40, 48, scene)
+    for n in (1, 2):
+        iso.render_frame(state, scene, params, 0.3 + 0.01 * n, n)
+    hit = state[..., 3] > 0
+    assert bool(hit.any()) and bool((~hit).any())
+    before = (iso_shade.LAUNCHES, iso_shade.HALO_LAUNCHES)
+    got = iso.display(state, halo.halo_scene(scene, 0, 1), params)
+    assert (iso_shade.LAUNCHES, iso_shade.HALO_LAUNCHES) == (
+        before[0], before[1] + 2)
+    assert torch.equal(got, iso.display(state, scene, params))
+    for label, hs in _halo_layouts(scene):
+        got = iso.display(state, hs, params)
+        want = iso_shade.iso_shade_plain(state, hs, params)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), label
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
+def test_halo_mcs_frames(cuda, kind):
+    """K8's halo instance (the headline: the cheb-skip table): on one
+    slab, 2 frames equal the whole-scene K8's bit for bit, each frame the
+    slowest pixel's fetches + 1 launches; on 2 slabs each slab's frame is within K8's bound of the plain
+    twin."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _halo_kind(kind, cuda)
+    params = mcs.Params(extinction=8.0)
+    state = mcs.reset(params, 40, 48, scene)
+    got, want = state.clone(), state.clone()
+    hs = halo.halo_scene(scene, 0, 1)
+    before = (mcs_frame.LAUNCHES, mcs_frame.HALO_LAUNCHES)
+    launches = [mcs_frame.halo_mcs_frame(got, hs, params, 0.3 + 0.01 * n, n)
+                for n in (1, 2)]
+    assert (mcs_frame.LAUNCHES, mcs_frame.HALO_LAUNCHES) == (
+        before[0], before[1] + sum(launches))
+    assert min(launches) > 2
+    for n in (1, 2):
+        mcs.render_frame(want, scene, params, 0.3 + 0.01 * n, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for label, hs in _halo_layouts(scene):
+        got, want = state.clone(), state.clone()
+        mcs.render_frame(got, hs, params, 0.31, 1)
+        mcs_frame.mcs_frame_plain(want, hs, params, 0.31, 1)
+        torch.cuda.synchronize()
+        assert_kernel_agrees("mcs", got, want)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
+def test_halo_dos_frames(cuda, kind):
+    """K9's halo instance: on one slab, a sweep's 3 frames of 20 slices
+    (the last one partly active) equal the cooperative K9's bit for bit,
+    2 launches a chunk of 8 active slices; on 2 slabs each slab's frame is
+    within K9's bound of the plain twin (``assert_dos_agrees``)."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _halo_kind(kind, cuda)
+    params = dos.Params(extinction=80.0, steps=20, slices=50, samples=6)
+    state, fresh = _halo_state(dos, params, scene)
+    got, want = fresh(), fresh()
+    hs = halo.halo_scene(scene, 0, 1)
+    for n in (1, 2, 3):
+        active = dos.active_slices(got, params)
+        before = (dos_sweep.LAUNCHES, dos_sweep.HALO_LAUNCHES)
+        dos.render_frame(got, hs, params, 0.0, n)
+        assert (dos_sweep.LAUNCHES, dos_sweep.HALO_LAUNCHES) == (
+            before[0], before[1] + max(2 * -(-active // 8), 1))
+        dos.render_frame(want, scene, params, 0.0, n)
+    torch.cuda.synchronize()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert float(got["color"][..., 3].max()) > 0.0
+    for label, hs in _halo_layouts(scene):
+        got, want = fresh(), fresh()
+        dos.render_frame(got, hs, params, 0.0, 1)
+        dos_sweep.sweep_frame_plain(want, dataclasses.replace(
+            hs, kernels=False), params)
+        torch.cuda.synchronize()
+        assert_dos_agrees(got, want)
 
 
 def test_halo_world_of_one_over_nccl(cuda):

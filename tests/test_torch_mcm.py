@@ -335,7 +335,6 @@ def test_factory_keys():
 
     assert factory.get_module("mcm") is tmcm
     assert factory.get_module("eam") is eam
-    assert factory.NOT_PORTED == ()
     assert set(jrenderers.MODULES) <= set(factory.MODULES)
     for key in jrenderers.MODULES:
         assert factory.get_module(key).__name__ \

@@ -290,6 +290,67 @@ def halo_everything(rank, world, fields):
     return out if rank == 0 else {}
 
 
+#: the halo frames of every renderer with a halo instance on the card:
+#: (name, renderer key, scene kind, Params kwargs, frames); the kinds are
+#: the parent's fields (``f32``: float32 tables; ``cheb``: with the
+#: cheb-skip table; ``rg``: a two-channel volume)
+HALO_FRAME_CASES = [
+    ("eam_rg", "eam", "rg", dict(slices=20), 2),
+    ("iso", "iso", "f32", dict(steps=20, isovalue=0.3), 2),
+    ("mcs", "mcs", "f32", dict(extinction=8.0), 2),
+    ("mcs_cheb", "mcs", "cheb", dict(extinction=8.0), 2),
+    ("mcs_rg", "mcs", "rg", dict(extinction=8.0), 1),
+    ("dos", "dos", "f32", dict(extinction=80.0, steps=12, slices=24,
+                               samples=4), 2),
+]
+HALO_FRAME_SIZE = 16
+
+
+def halo_frame_seed(n):
+    return np.float32(0.25 + 0.3 * n)
+
+
+def halo_frames_everything(rank, world, fields):
+    """Every case of :data:`HALO_FRAME_CASES` on a group of 2 ranks,
+    ``space`` = 2, through ``halo.sharded_render_frame`` (the plain twins
+    over the HaloScene on the CPU), gathered, with the collectives of each
+    frame; ISO's display of its last state over the same rank's
+    HaloScene, with its collectives.  Rank 0's results go back."""
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.parallel import gather_state, make_mesh, place_state
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.parallel.mesh import axis_group, axis_index
+    from vpt_tpu_torch.renderers import factory, iso
+
+    out = {}
+    scenes = {k: interop.scene_from_numpy(v, device="cpu")
+              for k, v in fields.items()}
+    mesh = make_mesh(world, space=world, device="cpu")
+    size = HALO_FRAME_SIZE
+    for name, key, kind, kwargs, frames in HALO_FRAME_CASES:
+        module = factory.get_module(key)
+        params = module.Params(**kwargs)
+        whole = module.reset(params, size, size, scenes[kind])
+        frame_fn, slabs = halo.sharded_render_frame(module, mesh,
+                                                    scenes[kind], world,
+                                                    whole)
+        local = place_state(whole, mesh)
+        counts = []
+        for n in range(1, frames + 1):
+            halo.COLLECTIVES.clear()
+            local = frame_fn(local, slabs, params, halo_frame_seed(n), n)
+            counts.append(dict(halo.COLLECTIVES))
+        out[name] = {"state": _np(gather_state(local, mesh, size)),
+                     "collectives": counts}
+        if key == "iso":
+            hs = halo.halo_scene(scenes[kind], axis_index(mesh, "space"),
+                                 world, axis_group(mesh, "space"), slabs)
+            halo.COLLECTIVES.clear()
+            out[name]["display"] = _np(iso.display(local, hs, params))
+            out[name]["display_collectives"] = dict(halo.COLLECTIVES)
+    return out if rank == 0 else {}
+
+
 #: the sharded-gradient cases' sizes (``tests/test_halo_grad.py``'s)
 GRAD_SIZE, GRAD_FRAMES = 12, 3
 

@@ -67,6 +67,10 @@
 // clamped at the edges, a tap's x fraction zeroed unless 0 <= x + bx <=
 // W-2 (y likewise with H), both tap shifts clamped by the width.
 //
+// The halo instance (dos_halo_fetch_kernel, dos_halo_fold_kernel below)
+// runs a HaloScene's frame: dos_slices with the fetch split around an
+// all-reduce of each chunk of 8 slices' values.
+//
 // The band instance (vpt_dos_band, VptDosBand below) runs one slice over
 // a band of rows for the row-sharded sweeps (parallel/dos_halo.py,
 // shard.shard_render_frame): dos_row, dos_fetch and dos_composite shared
@@ -78,6 +82,7 @@
 
 #include "device_guard.cuh"
 #include "ray.cuh"
+#include "slab.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -207,28 +212,64 @@ __device__ __forceinline__ float2 dos_ndc(const VptDosArgs& a, int i) {
   return make_float2(vpt_pixel_ndc(x, a.width), vpt_pixel_ndc(y, a.height));
 }
 
-// kC is 0 for the headline's linear single-channel fetch (A is
-// VptDosArgs), else an ext instance's channels (A is VptDosExt): the
-// filtered cell, the row of kC channels and vpt_color_rg's colour.
-template <bool kBf16, int kTf, int kC, class A>
-__device__ __forceinline__ DosFetch dos_fetch(const A& a, float2 ndc,
-                                              const float* row) {
-  const float nz = row[0];
+// The point of a pixel at NDC ndc on a slice of NDC depth nz: unprojected
+// through the inverse MVP and divided by w; false outside the unit cube.
+template <class A>
+__device__ __forceinline__ bool dos_point(const A& a, float2 ndc, float nz,
+                                          float p[3]) {
   float h4[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     h4[r] = ndc.x * __ldg(a.mvp + 4 * r) + ndc.y * __ldg(a.mvp + 4 * r + 1)
             + nz * __ldg(a.mvp + 4 * r + 2) + 1.0f * __ldg(a.mvp + 4 * r + 3);
   }
-  float p[3];
   bool outside = false;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     p[k] = h4[k] / h4[3];
     outside = outside || p[k] > 1.0f || p[k] < 0.0f;
   }
+  return !outside;
+}
+
+// A written pixel's fetch from its colour c on a slice of slice distance
+// row[2]: alpha = 1 - exp(-a*sigma*ds).
+template <class A>
+__device__ __forceinline__ DosFetch dos_shade(const A& a, float4 c,
+                                              const float* row) {
   DosFetch f;
-  f.write = !outside;
+  f.write = true;
+  const float e = c.w * a.extinction;
+  f.transmittance = expf(-e * row[2]);
+  f.alpha = 1.0f - f.transmittance;
+  f.r = c.x;
+  f.g = c.y;
+  f.b = c.z;
+  return f;
+}
+
+// The colour of a fetched (value, channel 1) through the read-only cache:
+// the TF row's lookup in mode kTf, or for two channels the packed 2D TF's
+// (kC as in dos_fetch).
+template <bool kBf16, int kTf, int kC, class A>
+__device__ __forceinline__ float4 dos_color(const A& a, float2 v) {
+  if constexpr (kC == 0) {
+    return vpt_tf1d_lookup<true>(a.tf_row, a.tw, v.x, kTf);
+  } else {
+    return vpt_color_rg<kBf16, kC, true>(a.tf_row, a.tw, kTf, a.tf_table,
+                                         a.th, v);
+  }
+}
+
+// kC is 0 for the headline's linear single-channel fetch (A is
+// VptDosArgs), else an ext instance's channels (A is VptDosExt): the
+// filtered cell, the row of kC channels and vpt_color_rg's colour.
+template <bool kBf16, int kTf, int kC, class A>
+__device__ __forceinline__ DosFetch dos_fetch(const A& a, float2 ndc,
+                                              const float* row) {
+  float p[3];
+  DosFetch f;
+  f.write = dos_point(a, ndc, row[0], p);
   if (!f.write) return f;
   float4 c;
   if constexpr (kC == 0) {
@@ -240,13 +281,7 @@ __device__ __forceinline__ DosFetch dos_fetch(const A& a, float2 ndc,
                                          p[0], p[1], p[2], a.tf_row, a.tw,
                                          kTf, a.tf_table, a.th);
   }
-  const float e = c.w * a.extinction;
-  f.transmittance = expf(-e * row[2]);
-  f.alpha = 1.0f - f.transmittance;
-  f.r = c.x;
-  f.g = c.y;
-  f.b = c.z;
-  return f;
+  return dos_shade(a, c, row);
 }
 
 // The front-to-back composite of a written pixel's fetch into its colour,
@@ -314,15 +349,21 @@ __device__ __forceinline__ void dos_rows(const VptDosArgs& a, float depth,
   }
 }
 
-// One frame; kC and A as in dos_fetch.
-template <bool kBf16, int kTf, int kC, class A>
-__device__ __forceinline__ void dos_sweep(const A& a, const VptDosFrame& f) {
+// Slices k0 .. k0 + count - 1 of a frame, the first inactive one ending
+// the sweep; fetch(ndc, row, i, j) is pixel i's DosFetch at slice k0 + j
+// (row: its row of the table).  advance: the last launch of the frame,
+// which advances the depth by the frame's active slices (k0 + those it
+// ran).  kC and A as in dos_fetch.
+template <class A, class Fetch>
+__device__ __forceinline__ void dos_slices(const A& a, const VptDosFrame& f,
+                                           int k0, int count, bool advance,
+                                           Fetch fetch) {
   cg::grid_group grid = cg::this_grid();
-  // the rows of slices [k0, k0 + chunk) of the frame, built by the block
-  // at once (slice k's at (k - k0) * row_floats)
+  // the rows of slices [k0 + j0, k0 + j0 + chunk) of the frame, built by
+  // the block at once (slice k's at (k - k0 - j0) * row_floats)
   extern __shared__ float s_rows[];
   const int row_floats = kHead + 4 * a.samples;
-  const int chunk = dos_chunk(a.steps, a.samples);
+  const int chunk = dos_chunk(count, a.samples);
   const int n = a.width * a.height;
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   const int stride = gridDim.x * kThreads;
@@ -336,10 +377,10 @@ __device__ __forceinline__ void dos_sweep(const A& a, const VptDosFrame& f) {
               f.rows + (long long)k * row_floats, threadIdx.x & 31);
     }
   }
-  dos_rows(a, depth, sd, max_depth, f.offsets, 0, min(chunk, a.steps),
+  dos_rows(a, depth, sd, max_depth, f.offsets, k0, min(chunk, count),
            s_rows);
   __syncthreads();
-  bool active = a.steps > 0 && s_rows[1] > 0.0f;
+  bool active = count > 0 && s_rows[1] > 0.0f;
 
   // the thread's first pixel: its NDC and its fetch of the next slice
   float2 ndc = make_float2(0.0f, 0.0f);
@@ -347,7 +388,7 @@ __device__ __forceinline__ void dos_sweep(const A& a, const VptDosFrame& f) {
   const bool first = tid < n;
   if (first) {
     ndc = dos_ndc(a, tid);
-    if (active) ahead = dos_fetch<kBf16, kTf, kC>(a, ndc, s_rows);
+    if (active) ahead = fetch(ndc, s_rows, tid, 0);
   }
   float* src = f.occlusion;
   float* dst = f.scratch;
@@ -357,25 +398,25 @@ __device__ __forceinline__ void dos_sweep(const A& a, const VptDosFrame& f) {
     const float* row = s_rows + (ran % chunk) * row_floats;
     if (first) dos_finish(a, row, ahead, tid, f.color, src, dst);
     for (int i = tid + stride; i < n; i += stride) {
-      dos_finish(a, row, dos_fetch<kBf16, kTf, kC>(a, dos_ndc(a, i), row),
-                 i, f.color, src, dst);
+      dos_finish(a, row, fetch(dos_ndc(a, i), row, i, ran), i, f.color, src,
+                 dst);
     }
     ran += 1;
     float* written = dst;
     dst = src;
     src = written;
     active = false;
-    if (ran < a.steps) {
+    if (ran < count) {
       if (ran % chunk == 0) {
         // the next chunk of rows, once every thread is done with this one
         __syncthreads();
-        dos_rows(a, depth, sd, max_depth, f.offsets, ran,
-                 min(chunk, a.steps - ran), s_rows);
+        dos_rows(a, depth, sd, max_depth, f.offsets, k0 + ran,
+                 min(chunk, count - ran), s_rows);
         __syncthreads();
       }
       const float* next = s_rows + (ran % chunk) * row_floats;
       active = next[1] > 0.0f;
-      if (active && first) ahead = dos_fetch<kBf16, kTf, kC>(a, ndc, next);
+      if (active && first) ahead = fetch(ndc, next, tid, ran);
     }
   }
   // the last slice's buffer back into the state's (an odd number ran), and
@@ -384,7 +425,16 @@ __device__ __forceinline__ void dos_sweep(const A& a, const VptDosFrame& f) {
   if (ran % 2 == 1) {
     for (int i = tid; i < n; i += stride) f.occlusion[i] = f.scratch[i];
   }
-  if (tid == 0) *f.depth = depth + (float)ran * sd;
+  if (advance && tid == 0) *f.depth = depth + (float)(k0 + ran) * sd;
+}
+
+// One frame; kC and A as in dos_fetch.
+template <bool kBf16, int kTf, int kC, class A>
+__device__ __forceinline__ void dos_sweep(const A& a, const VptDosFrame& f) {
+  dos_slices(a, f, 0, a.steps, true,
+             [&](float2 ndc, const float* row, int, int) {
+               return dos_fetch<kBf16, kTf, kC>(a, ndc, row);
+             });
 }
 
 template <bool kBf16, int kTf>
@@ -400,6 +450,108 @@ template <bool kBf16, int kTf, int kC>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dos_sweep_ext_kernel(const VptDosExt a, const VptDosFrame f) {
   dos_sweep<kBf16, kTf, kC>(a, f);
+}
+
+// The halo instance (parallel/halo.py, a HaloScene frame): the volume is z
+// slabs over the ranks of a group, and a sample is the sum over the ranks
+// of their masked slab-local values (vpt_tpu/parallel/halo.py:199-250),
+// summed before the TF lookup.  vpt_tpu's sweep (dos.py:126-200) samples
+// kHaloChunk slices a sample_color, one psum each; so does this instance.
+// A frame of n active slices (a prefix, counted on the host) is ceil(n /
+// kHaloChunk) chunks, each a fetch launch, one all-reduce of the chunk's
+// values and a fold launch: dos_halo_fetch_kernel writes each pixel's
+// masked value at each of the chunk's slices (dos_point's point, slab.cuh's
+// cell; 0 outside the cube or where another rank owns the cell), and
+// dos_halo_fold_kernel runs the chunk's slices as the cooperative sweep
+// does (dos_slices: a grid barrier a slice, the composite and the disk taps
+// of dos_finish) with the fetch replaced by the summed value's colour
+// (dos_color, dos_shade); the last fold advances the depth.  The chunk's
+// slices depend on the previous ones' occlusion, so a fold is one
+// cooperative launch of up to kHaloChunk slices, as K9's frame is, and not
+// a launch a slice: the grid barrier costs less than a launch
+// (dos_band_kernel's host time a slice, PERF.md §6).  So on one slab a
+// frame equals K9's bit for bit.  A HaloScene has no filter: kC is 0 (one
+// channel, the TF row in mode kTf) or 2.
+constexpr int kHaloChunk = 8;
+
+template <bool kBf16, int kC>
+__global__ void __launch_bounds__(kThreads)
+dos_halo_fetch_kernel(const VptDosExt a, const VptDosFrame f,
+                      const VptSlab slab, float* __restrict__ value, int k0,
+                      int count) {
+  // the chunk's slices: NDC depth and active flag (dos_row's row[0, 1])
+  __shared__ float s_head[kHaloChunk][2];
+  if (threadIdx.x < count) {
+    float corr[3];
+    const float dk = dos_project(a, *f.depth, *f.slice_distance,
+                                 k0 + threadIdx.x, corr);
+    s_head[threadIdx.x][0] = corr[2];
+    s_head[threadIdx.x][1] = dk <= *f.max_depth ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  const int n = a.width * a.height;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  constexpr int kV = kC == 2 ? 2 : 1;
+  const float2 ndc = dos_ndc(a, i);
+  for (int j = 0; j < count; ++j) {
+    float2 v = make_float2(0.0f, 0.0f);
+    float p[3];
+    if (s_head[j][1] > 0.0f && dos_point(a, ndc, s_head[j][0], p)) {
+      const VptSlabCell cell = vpt_slab_cell(a.d, a.h, a.w, slab, p[0], p[1],
+                                             p[2]);
+      if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
+    }
+    float* out = value + kV * ((long long)j * n + i);
+    out[0] = v.x;
+    if (kV == 2) out[1] = v.y;
+  }
+}
+
+template <bool kBf16, int kTf, int kC>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dos_halo_fold_kernel(const VptDosExt a, const VptDosFrame f,
+                     const float* __restrict__ value, int k0, int count,
+                     int advance) {
+  constexpr int kV = kC == 2 ? 2 : 1;
+  const long long n = (long long)a.width * a.height;
+  dos_slices(a, f, k0, count, advance != 0,
+             [&](float2 ndc, const float* row, int i, int j) {
+               float p[3];
+               DosFetch d;
+               d.write = dos_point(a, ndc, row[0], p);
+               if (!d.write) return d;
+               const float* v = value + kV * ((long long)j * n + i);
+               return dos_shade(a, dos_color<kBf16, kTf, kC>(
+                   a, make_float2(v[0], kV == 2 ? v[1] : 0.0f)), row);
+             });
+}
+
+// The halo instances for a table type and the TF lookup mode (one channel)
+// or two channels; null for anything else.
+const void* pick_halo_fetch(int channels, int table_bf16) {
+  if (channels == 2)
+    return table_bf16 ? (const void*)dos_halo_fetch_kernel<true, 2>
+                      : (const void*)dos_halo_fetch_kernel<false, 2>;
+  if (channels != 1) return nullptr;
+  return table_bf16 ? (const void*)dos_halo_fetch_kernel<true, 0>
+                    : (const void*)dos_halo_fetch_kernel<false, 0>;
+}
+
+const void* pick_halo_fold(int channels, int table_bf16, int tf_mode) {
+  if (channels == 2)
+    return table_bf16 ? (const void*)dos_halo_fold_kernel<true, 0, 2>
+                      : (const void*)dos_halo_fold_kernel<false, 0, 2>;
+  if (channels != 1) return nullptr;
+  switch (tf_mode + 3 * table_bf16) {
+    case 0: return (const void*)dos_halo_fold_kernel<false, 0, 0>;
+    case 1: return (const void*)dos_halo_fold_kernel<false, 1, 0>;
+    case 2: return (const void*)dos_halo_fold_kernel<false, 2, 0>;
+    case 3: return (const void*)dos_halo_fold_kernel<true, 0, 0>;
+    case 4: return (const void*)dos_halo_fold_kernel<true, 1, 0>;
+    case 5: return (const void*)dos_halo_fold_kernel<true, 2, 0>;
+    default: return nullptr;
+  }
 }
 
 // The band instance (parallel/dos_halo.py, shard.shard_render_frame of
@@ -683,4 +835,89 @@ extern "C" int vpt_dos_band(const void* prepared, void* color,
       dim3(kThreads), params,
       (size_t)(kHead + 4 * a.samples) * sizeof(float),
       (cudaStream_t)stream);
+}
+
+// One launch of the halo instance (see dos_halo_fetch_kernel): prepared is
+// the VptDosExt of the HaloScene, Params and resolution (table: the rank's
+// slab rows; d, h, w the whole volume's; no filter; blocks the fold's
+// cooperative grid); color, occlusion, scratch, depth, max_depth, the slice
+// distance and the offsets as vpt_dos_frame's; the slab (its index of
+// num_slabs, the thin slabs a rank and whether the fetch is masked); value
+// the (kHaloChunk, width * height, channels) values; slices k0 .. k0 +
+// count - 1 of the frame (count <= kHaloChunk, all active); stage 0 writes
+// this rank's masked values, stage 1 folds the summed ones (advance: the
+// frame's last fold, which advances the depth by k0 + count slices).
+extern "C" int vpt_dos_halo_launch(
+    const void* prepared, void* color, void* occlusion, void* scratch,
+    void* depth, const void* max_depth, const void* slice_distance,
+    const void* offsets, int slab_index, int num_slabs, int interleave,
+    int masked, void* value, int k0, int count, int stage, int advance,
+    void* stream) {
+  const VptDosExt& a = *static_cast<const VptDosExt*>(prepared);
+  VptDeviceGuard guard(a.device);
+  if (a.filter != 0 || k0 < 0 || count < 0 || count > kHaloChunk
+      || k0 + count > a.steps || num_slabs < 1 || interleave < 1
+      || slab_index < 0 || slab_index >= num_slabs
+      || a.d % (num_slabs * interleave) != 0)
+    return (int)cudaErrorInvalidValue;
+  VptDosExt args = a;
+  VptDosFrame frame = {static_cast<float4*>(color),
+                       static_cast<float*>(occlusion),
+                       static_cast<float*>(scratch),
+                       static_cast<float*>(depth),
+                       static_cast<const float*>(max_depth),
+                       static_cast<const float*>(slice_distance),
+                       static_cast<const float*>(offsets), nullptr};
+  float* values = static_cast<float*>(value);
+  if (stage == 0) {
+    const void* kernel = pick_halo_fetch(a.channels, a.table_bf16);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
+    void* params[] = {&args, &frame, &slab, &values, &k0, &count};
+    const long long n = (long long)a.width * a.height;
+    if (n <= 0 || count == 0) return 0;
+    return (int)cudaLaunchKernel(
+        kernel, dim3((unsigned)((n + kThreads - 1) / kThreads)),
+        dim3(kThreads), params, 0, (cudaStream_t)stream);
+  }
+  if (stage != 1) return (int)cudaErrorInvalidValue;
+  const void* kernel = pick_halo_fold(a.channels, a.table_bf16, a.tf_mode);
+  if (kernel == nullptr || a.blocks <= 0) return (int)cudaErrorInvalidValue;
+  const float* folded = values;
+  void* params[] = {&args, &frame, &folded, &k0, &count, &advance};
+  return (int)cudaLaunchCooperativeKernel(
+      kernel, dim3((unsigned)a.blocks), dim3(kThreads), params,
+      shared_bytes(count, a.samples), (cudaStream_t)stream);
+}
+
+// The launch shape of the halo instance's stage (0 the fetch, 1 the fold)
+// for flags (1 bf16 rows, 4 two channels), the TF lookup mode and N =
+// samples disk taps on `device`: vpt_dos_sweep_info's values for a chunk of
+// kHaloChunk slices (the fold's cooperative grid is its resident blocks
+// times the SMs).  Launches nothing.
+extern "C" int vpt_dos_halo_info(int stage, int flags, int tf_mode,
+                                 int samples, int device, int* out) {
+  VptDeviceGuard guard(device);
+  const int channels = (flags & 4) ? 2 : 1;
+  const void* kernel = stage == 0 ? pick_halo_fetch(channels, flags & 1)
+                                  : pick_halo_fold(channels, flags & 1,
+                                                   tf_mode);
+  if (kernel == nullptr || samples < 1
+      || (kHead + 4 * samples) * sizeof(float) > kRowBytes)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = stage == 0 ? 0 : shared_bytes(kHaloChunk, samples);
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int values[] = {kThreads, per_sm, sms, attr.numRegs,
+                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                        (int)smem, kHaloChunk};
+  for (int k = 0; k < 8; ++k) out[k] = values[k];
+  return 0;
 }

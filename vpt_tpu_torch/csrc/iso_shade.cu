@@ -46,6 +46,9 @@
 // misses' stream, which a copy of the same bytes takes 0.67x of, and the
 // hit warps' chain (state, rows, TF, store) on about 1.5 waves of blocks.
 //
+// A HaloScene's display runs the halo instance (iso_halo_fetch_kernel and
+// iso_halo_shade_kernel below) around one all-reduce of the seven values.
+//
 // Numerics follow iso.shade (renderers/iso.py) operation by operation:
 // built with -fmad=false, the gradient's IEEE division by the float32 2h,
 // NaN-propagating max, sums left to right, rows indexed with 64 bits.
@@ -54,6 +57,7 @@
 
 #include "device_guard.cuh"
 #include "ray.cuh"
+#include "slab.cuh"
 
 // What a display takes of its scene, Params and resolution, filled once by
 // the wrapper (kernels/iso_shade.py, a ctypes Structure of this layout).
@@ -84,6 +88,45 @@ namespace {
 constexpr int kTaps = 7;
 constexpr int kThreads = 128;
 
+// Fetch j of a hit at p (+h and -h on x, then y, then z, then the hit).
+__device__ __forceinline__ void iso_tap(const float p[3], float step, int j,
+                                        float q[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) q[k] = p[k];
+  if (j < 6) q[j / 2] = (j % 2 == 0) ? p[j / 2] + step : p[j / 2] - step;
+}
+
+// The shade of a hit from color(j), the colour of fetch j: the central
+// differences of TF alpha (central_value_gradient), the normal, the Lambert
+// term and the material colour at the hit.
+template <class A, class Color>
+__device__ __forceinline__ float4 iso_lambert(const A& a, Color color) {
+  float g[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    g[k] = color(2 * k).w - color(2 * k + 1).w;
+    g[k] = g[k] / a.two_step;
+  }
+  const float len = sqrtf(vpt_nmax(g[0] * g[0] + g[1] * g[1] + g[2] * g[2],
+                                   1e-12f));
+  const float nx = g[0] / len, ny = g[1] / len, nz = g[2] / len;
+  const float lambert = vpt_nmax(nx * a.lx + ny * a.ly + nz * a.lz, 0.0f);
+  const float4 c = color(6);
+  return make_float4(c.x * lambert, c.y * lambert, c.z * lambert, 1.0f);
+}
+
+// The colour of a fetched (value, channel 1) through the read-only cache:
+// the TF row's lookup in mode kTf, or for two channels the packed 2D TF's.
+template <bool kBf16, int kTf, int kC, class A>
+__device__ __forceinline__ float4 iso_color(const A& a, float2 v) {
+  if constexpr (kC == 0) {
+    return vpt_tf1d_lookup<true>(a.tf_row, a.tw, v.x, kTf);
+  } else {
+    return vpt_color_rg<kBf16, kC, true>(a.tf_row, a.tw, kTf, a.tf_table,
+                                         a.th, v);
+  }
+}
+
 // kC is 0 for the headline's linear single-channel fetch, else an ext
 // instance's channels, whose cells take the filter.
 template <bool kBf16, int kTf, int kC, class A>
@@ -100,55 +143,25 @@ __device__ __forceinline__ void iso_shade(const A& a,
   const float p[3] = {s.x, s.y, s.z};
   VptCell<int64_t> cell[kTaps];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float q[3] = {p[0], p[1], p[2]}, r[3] = {p[0], p[1], p[2]};
-    q[k] = p[k] + a.step;
-    r[k] = p[k] - a.step;
+  for (int j = 0; j < kTaps; ++j) {
+    float q[3];
+    iso_tap(p, a.step, j, q);
     if constexpr (kC == 0) {
-      cell[2 * k] = vpt_cell<int64_t>(a.d, a.h, a.w, q[0], q[1], q[2]);
-      cell[2 * k + 1] = vpt_cell<int64_t>(a.d, a.h, a.w, r[0], r[1], r[2]);
+      cell[j] = vpt_cell<int64_t>(a.d, a.h, a.w, q[0], q[1], q[2]);
     } else {
-      cell[2 * k] = vpt_cell_filtered<int64_t>(a.d, a.h, a.w, q[0], q[1],
-                                               q[2], a.filter);
-      cell[2 * k + 1] = vpt_cell_filtered<int64_t>(a.d, a.h, a.w, r[0],
-                                                   r[1], r[2], a.filter);
+      cell[j] = vpt_cell_filtered<int64_t>(a.d, a.h, a.w, q[0], q[1], q[2],
+                                           a.filter);
     }
-  }
-  if constexpr (kC == 0) {
-    cell[6] = vpt_cell<int64_t>(a.d, a.h, a.w, p[0], p[1], p[2]);
-  } else {
-    cell[6] = vpt_cell_filtered<int64_t>(a.d, a.h, a.w, p[0], p[1], p[2],
-                                         a.filter);
   }
   VptRowOf<kBf16, kC> row[kTaps];
 #pragma unroll
   for (int j = 0; j < kTaps; ++j) {
     row[j] = vpt_load_rows<kBf16, kC>(a.table, cell[j].row);
   }
-  const auto color = [&](int j) {
-    if constexpr (kC == 0) {
-      return vpt_tf1d_lookup<true>(a.tf_row, a.tw,
-                                   vpt_lerp_row<kBf16>(row[j], cell[j]),
-                                   kTf);
-    } else {
-      return vpt_color_rg<kBf16, kC, true>(
-          a.tf_row, a.tw, kTf, a.tf_table, a.th,
-          vpt_lerp_rg<kBf16, kC>(row[j], cell[j]));
-    }
-  };
-  // central differences of TF alpha (central_value_gradient)
-  float g[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    g[k] = color(2 * k).w - color(2 * k + 1).w;
-    g[k] = g[k] / a.two_step;
-  }
-  const float len = sqrtf(vpt_nmax(g[0] * g[0] + g[1] * g[1] + g[2] * g[2],
-                                   1e-12f));
-  const float nx = g[0] / len, ny = g[1] / len, nz = g[2] / len;
-  const float lambert = vpt_nmax(nx * a.lx + ny * a.ly + nz * a.lz, 0.0f);
-  const float4 c = color(6);
-  out[i] = make_float4(c.x * lambert, c.y * lambert, c.z * lambert, 1.0f);
+  out[i] = iso_lambert(a, [&](int j) {
+    return iso_color<kBf16, kTf, kC>(a, vpt_lerp_rg<kBf16, kC>(row[j],
+                                                              cell[j]));
+  });
 }
 
 template <bool kBf16, int kTf>
@@ -165,6 +178,98 @@ __global__ void __launch_bounds__(kThreads)
 iso_shade_ext_kernel(const VptIsoShadeExt a, const float4* __restrict__ state,
                      float4* __restrict__ out) {
   iso_shade<kBf16, kTf, kC>(a, state, out);
+}
+
+// The halo instance (parallel/halo.py, a HaloScene display): a sample is
+// the sum over the ranks of their masked slab-local values
+// (vpt_tpu/parallel/halo.py:199-250), summed before the TF lookup.
+// vpt_tpu's display (iso.py:109-130) samples the seven fetches of a hit
+// one sample_color at a time, seven psums; here a display is two launches
+// around ONE all-reduce of the (7, n, kC or 1) values, the same sums in
+// fewer collectives: iso_halo_fetch_kernel writes the masked values of the
+// seven fetches of every hit pixel (slab.cuh's cell; 0 where another rank
+// owns it; a pixel without a hit writes nothing, and nothing reads it),
+// iso_halo_shade_kernel looks the summed values up and shades as
+// iso_shade does (iso_lambert), white where nothing was hit.  So on one
+// slab a display equals the whole-scene kernel's bit for bit.  A HaloScene
+// has no filter: kC is 0 (one channel, the TF row in mode kTf) or 2 (the
+// value pair, the 2D TF).
+template <bool kBf16, int kC>
+__global__ void __launch_bounds__(kThreads)
+iso_halo_fetch_kernel(const VptIsoShadeExt a, const VptSlab slab,
+                      const float4* __restrict__ state,
+                      float* __restrict__ value) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int n = a.width * a.height;
+  if (i >= n) return;
+  const float4 s = __ldg(state + i);
+  if (!(s.w > 0.0f)) return;
+  constexpr int kV = kC == 2 ? 2 : 1;
+  const float p[3] = {s.x, s.y, s.z};
+#pragma unroll
+  for (int j = 0; j < kTaps; ++j) {
+    float q[3];
+    iso_tap(p, a.step, j, q);
+    const VptSlabCell cell = vpt_slab_cell(a.d, a.h, a.w, slab, q[0], q[1],
+                                           q[2]);
+    float2 v = make_float2(0.0f, 0.0f);
+    if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
+    float* o = value + kV * ((long long)j * n + i);
+    o[0] = v.x;
+    if (kV == 2) o[1] = v.y;
+  }
+}
+
+template <bool kBf16, int kTf, int kC>
+__global__ void __launch_bounds__(kThreads)
+iso_halo_shade_kernel(const VptIsoShadeExt a,
+                      const float4* __restrict__ state,
+                      const float* __restrict__ value,
+                      float4* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int n = a.width * a.height;
+  if (i >= n) return;
+  const float4 s = __ldg(state + i);
+  if (!(s.w > 0.0f)) {
+    out[i] = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    return;
+  }
+  constexpr int kV = kC == 2 ? 2 : 1;
+  out[i] = iso_lambert(a, [&](int j) {
+    const float* v = value + kV * ((long long)j * n + i);
+    return iso_color<kBf16, kTf, kC>(
+        a, make_float2(v[0], kV == 2 ? v[1] : 0.0f));
+  });
+}
+
+using KernelHaloFetch = void (*)(const VptIsoShadeExt, const VptSlab,
+                                 const float4*, float*);
+using KernelHaloShade = void (*)(const VptIsoShadeExt, const float4*,
+                                 const float*, float4*);
+
+KernelHaloFetch pick_halo_fetch(int channels, int table_bf16) {
+  if (channels == 2)
+    return table_bf16 ? iso_halo_fetch_kernel<true, 2>
+                      : iso_halo_fetch_kernel<false, 2>;
+  if (channels != 1) return nullptr;
+  return table_bf16 ? iso_halo_fetch_kernel<true, 0>
+                    : iso_halo_fetch_kernel<false, 0>;
+}
+
+KernelHaloShade pick_halo_shade(int channels, int table_bf16, int tf_mode) {
+  if (channels == 2)
+    return table_bf16 ? iso_halo_shade_kernel<true, 0, 2>
+                      : iso_halo_shade_kernel<false, 0, 2>;
+  if (channels != 1) return nullptr;
+  switch (tf_mode + 3 * table_bf16) {
+    case 0: return iso_halo_shade_kernel<false, 0, 0>;
+    case 1: return iso_halo_shade_kernel<false, 1, 0>;
+    case 2: return iso_halo_shade_kernel<false, 2, 0>;
+    case 3: return iso_halo_shade_kernel<true, 0, 0>;
+    case 4: return iso_halo_shade_kernel<true, 1, 0>;
+    case 5: return iso_halo_shade_kernel<true, 2, 0>;
+    default: return nullptr;
+  }
 }
 
 // The instantiation for a table type and TF lookup mode (tf1d.cuh's: a
@@ -294,4 +399,54 @@ extern "C" int vpt_iso_shade_info(int flags, int tf_mode, int device,
     return (int)info(pick_ext((flags & 4) ? 2 : 1, bf16, tf_mode), device,
                      out);
   return (int)info(pick(bf16, tf_mode), device, out);
+}
+
+// One launch of the halo instance (see iso_halo_fetch_kernel): prepared is
+// the VptIsoShadeExt of the HaloScene, Params and resolution (table: the
+// rank's slab rows; d, h, w the whole volume's; no filter); the slab: its
+// index of num_slabs, the thin slabs a rank (interleave) and whether the
+// fetch is masked; value the (7, width * height, channels) values; stage 0
+// writes this rank's masked values, stage 1 shades the summed values into
+// out.
+extern "C" int vpt_iso_halo_launch(const void* prepared, int slab_index,
+                                   int num_slabs, int interleave, int masked,
+                                   void* value, const void* state, void* out,
+                                   int stage, void* stream) {
+  const VptIsoShadeExt& a = *static_cast<const VptIsoShadeExt*>(prepared);
+  VptDeviceGuard guard(a.device);
+  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
+  if (a.filter != 0 || num_slabs < 1 || interleave < 1 || slab_index < 0
+      || slab_index >= num_slabs || a.d % (num_slabs * interleave) != 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(
+      ((long long)a.width * a.height + kThreads - 1) / kThreads);
+  if (stage == 0) {
+    const KernelHaloFetch kernel = pick_halo_fetch(a.channels, a.table_bf16);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    const VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        a, slab, (const float4*)state, (float*)value);
+  } else if (stage == 1) {
+    const KernelHaloShade kernel = pick_halo_shade(a.channels, a.table_bf16,
+                                                   a.tf_mode);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        a, (const float4*)state, (const float*)value, (float4*)out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The launch shape of the halo instance's stage (0 the fetch, 1 the shade)
+// for flags (1 bf16 rows, 4 two channels) and the TF lookup mode on
+// `device`: vpt_iso_shade_info's values.  Launches nothing.
+extern "C" int vpt_iso_halo_info(int stage, int flags, int tf_mode,
+                                 int device, int* out) {
+  VptDeviceGuard guard(device);
+  const int channels = (flags & 4) ? 2 : 1;
+  if (stage == 0) return (int)info(pick_halo_fetch(channels, flags & 1),
+                                   device, out);
+  return (int)info(pick_halo_shade(channels, flags & 1, tf_mode), device,
+                   out);
 }

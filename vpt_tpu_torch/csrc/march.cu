@@ -61,6 +61,9 @@
 // so half the rows of two channels) and, for two channels, the 2D TF rows
 // through the read-only cache; make_scene builds no clamp box for them.
 //
+// A HaloScene's frame (a rank's z slab) runs march_halo_kernel (below): the
+// same fold, split around an all-reduce of each chunk of 8 slices' values.
+//
 // Numerics follow the plain PyTorch frame (renderers/eam.py, mip.py,
 // depth.py, iso.py) operation by operation: built with -fmad=false, IEEE
 // division and sqrt, NaN-propagating min/max.  MIP's fmod(x, 1) of its
@@ -72,6 +75,7 @@
 
 #include "device_guard.cuh"
 #include "ray.cuh"
+#include "slab.cuh"
 
 // What a launch takes of its scene, Params and resolution, filled once by
 // the wrapper (kernels/march.py, a ctypes Structure of this layout).
@@ -179,6 +183,186 @@ __device__ __forceinline__ void march_slices(const VptMarchArgs& a,
 template <bool kClamp>
 using ArgsOf = std::conditional_t<kClamp, VptMarchClamp, VptMarchArgs>;
 
+// A pixel's ray (_march.rays): unproject, the slab test clamped at 0 and,
+// with kClamp, the interval intersected with each of the launch's boxes;
+// the marched segment runs from start to start + seg.
+struct MarchRay {
+  float tb0, tb1;
+  float start[3], seg[3];
+  bool miss;
+};
+
+template <bool kClamp, class A>
+__device__ __forceinline__ MarchRay march_ray(const A& a, const float* s_mvp,
+                                              int x, int y) {
+  const float ndcx = vpt_pixel_ndc(x, a.width);
+  const float ndcy = vpt_pixel_ndc(a.row0 + y, a.full_height);
+  float from[3], to[3], dir[3];
+  vpt_unproject(s_mvp, ndcx, ndcy, ndcx, ndcy, from, to);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
+  float tnear, tfar;
+  vpt_intersect_cube(from, dir, &tnear, &tfar);
+  MarchRay r;
+  r.tb0 = vpt_nmax(tnear, 0.0f);
+  r.tb1 = vpt_nmax(tfar, 0.0f);
+  if constexpr (kClamp) {
+    // the interval intersected with each box's, clamped at 0, in the
+    // order the host lists them (base.march_interval, iso.march_interval)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      if (b < a.boxes) {
+        const float lo[3] = {a.box[6 * b], a.box[6 * b + 1],
+                             a.box[6 * b + 2]};
+        const float hi[3] = {a.box[6 * b + 3], a.box[6 * b + 4],
+                             a.box[6 * b + 5]};
+        float bn, bf;
+        vpt_intersect_box(from, dir, lo, hi, &bn, &bf);
+        r.tb0 = vpt_nmax(r.tb0, vpt_nmax(bn, 0.0f));
+        r.tb1 = vpt_nmin(r.tb1, vpt_nmax(bf, 0.0f));
+      }
+    }
+  }
+  r.miss = r.tb0 >= r.tb1;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.start[k] = from[k] + r.tb0 * dir[k];
+    r.seg[k] = (from[k] + r.tb1 * dir[k]) - r.start[k];
+  }
+  return r;
+}
+
+// EAM's and Depth's step length along the segment (0 for MIP and ISO)
+template <int kMode>
+__device__ __forceinline__ float march_step_length(const MarchRay& r,
+                                                   float step) {
+  if (kMode != kEam && kMode != kDepth) return 0.0f;
+  const float len = sqrtf(r.seg[0] * r.seg[0] + r.seg[1] * r.seg[1]
+                          + r.seg[2] * r.seg[2]);
+  return len * step;
+}
+
+// Slice j's schedule value of n: EAM and Depth first + j*step, MIP its
+// fmod(., 1), ISO first - (n-1-j)*step (the nearest hit: the schedule from
+// its near end, the largest s first).
+template <int kMode>
+__device__ __forceinline__ float march_t(float first, float step, int j,
+                                         int n) {
+  if (kMode == kMip) return wrap_unit(first + (float)j * step);
+  if (kMode == kIso) return first - (float)(n - 1 - j) * step;
+  return first + (float)j * step;
+}
+
+// The composite's carry of a pixel: EAM's accumulator; Depth's t and its
+// opacity (x, y); MIP's maximum (x); ISO's nearest hit (position, t), -1
+// while there is none.
+template <int kMode>
+__device__ __forceinline__ float4 march_carry(float first) {
+  if (kMode == kDepth) return make_float4(first, 0.0f, 0.0f, 0.0f);
+  if (kMode == kIso) return make_float4(-1.0f, -1.0f, -1.0f, -1.0f);
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// Whether a pixel still folds at schedule value ts: EAM's and Depth's
+// activity, MIP always, ISO until its hit (a hit's t, in the marched
+// segment, is never -1).
+template <int kMode>
+__device__ __forceinline__ bool march_live(const float4& c, float ts,
+                                           float level) {
+  if (kMode == kEam) return ts < 1.0f && c.w < 0.99f;
+  if (kMode == kDepth) return c.x < 1.0f && c.y < level;
+  if (kMode == kIso) return c.w == -1.0f;
+  return true;
+}
+
+// One slice of the renderer's composite at ts: false where the pixel
+// leaves its loop, before the slice (EAM, Depth: inactive for good, the
+// carry never changes after that) or after it (ISO's hit).  get() is the
+// slice's colour, looked up only where the fold reads it (MIP and ISO read
+// its alpha).
+template <int kMode, class Get>
+__device__ __forceinline__ bool march_fold(float4& c, float ts, Get get,
+                                           float rsl, const VptMarchArgs& a,
+                                           const MarchRay& r) {
+  if (kMode == kEam) {
+    if (!march_live<kEam>(c, ts, a.level)) return false;
+    const float4 col = get();
+    const float alpha = col.w * rsl * a.extinction;
+    const float k = 1.0f - c.w;
+    c.x = c.x + k * (col.x * alpha);
+    c.y = c.y + k * (col.y * alpha);
+    c.z = c.z + k * (col.z * alpha);
+    c.w = c.w + k * alpha;
+    return true;
+  } else if (kMode == kDepth) {
+    if (!march_live<kDepth>(c, ts, a.level)) return false;
+    c.y = c.y + (1.0f - c.y) * get().w * rsl * a.extinction;
+    c.x = c.x + a.step;
+    return true;
+  } else if (kMode == kMip) {
+    c.x = vpt_nmax(c.x, get().w);
+    return true;
+  } else {
+    if (get().w >= a.level) {
+      c = make_float4(r.start[0] + ts * r.seg[0], r.start[1] + ts * r.seg[1],
+                      r.start[2] + ts * r.seg[2], ts);
+      return false;
+    }
+    return true;
+  }
+}
+
+// The frame of a pixel's carry into its state, which held s0 (MIP: m0):
+// EAM's normalised colour and Depth's depth through the running mean
+// state + (frame - state) * (1/n), MIP's maximum, ISO's nearer hit.
+template <int kMode>
+__device__ __forceinline__ void march_store(float* __restrict__ state, int i,
+                                            float4 c, const MarchRay& r,
+                                            float level, float mix, float4 s0,
+                                            float m0) {
+  float4* st = reinterpret_cast<float4*>(state) + i;
+  if (kMode == kEam || kMode == kDepth) {
+    float4 frame;
+    if (kMode == kEam) {
+      if (c.w > 1.0f) {
+        const float den = vpt_nmax(c.w, 1e-6f);
+        c.x = c.x / den;
+        c.y = c.y / den;
+        c.z = c.z / den;
+      }
+      frame = r.miss ? make_float4(0.0f, 0.0f, 0.0f, 1.0f)
+                     : make_float4(c.x, c.y, c.z, 1.0f);
+    } else {
+      float depth = r.tb0 + c.x * (r.tb1 - r.tb0);
+      if (c.y < level || r.miss) depth = -1.0f;
+      frame = make_float4(depth, 0.0f, 0.0f, 1.0f);
+    }
+    s0.x = s0.x + (frame.x - s0.x) * mix;
+    s0.y = s0.y + (frame.y - s0.y) * mix;
+    s0.z = s0.z + (frame.z - s0.z) * mix;
+    s0.w = s0.w + (frame.w - s0.w) * mix;
+    *st = s0;
+  } else if (kMode == kMip) {
+    state[i] = vpt_nmax(m0, c.x);
+  } else {
+    // keep the nearer of the frame's and the accumulated hits
+    const bool take = (c.w > 0.0f && s0.w > 0.0f) ? c.w < s0.w : c.w > 0.0f;
+    if (take) *st = c;
+  }
+}
+
+// The colour of a fetched (value, channel 1): the TF row's lookup in mode
+// kTf, or for two channels the packed 2D TF's (kC as in march_slices).
+template <bool kBf16, int kTf, int kC, class A>
+__device__ __forceinline__ float4 march_color(const float4* s_tf, const A& a,
+                                              float2 v) {
+  if constexpr (kC == 0) {
+    return vpt_tf1d_lookup(s_tf, a.tw, v.x, kTf);
+  } else {
+    return vpt_color_rg<kBf16, kC>(s_tf, a.tw, kTf, a.tf_table, a.th, v);
+  }
+}
+
 // One frame of mode kMode; kC as in march_slices.
 template <int kMode, bool kBf16, int kTf, bool kClamp, int kC, class A>
 __device__ __forceinline__ void march(const A& a, float* __restrict__ state,
@@ -196,145 +380,31 @@ __device__ __forceinline__ void march(const A& a, float* __restrict__ state,
   if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
   const int i = y * a.width + x;
   // the state, read first, so that its latency overlaps the march's
-  float4* st = reinterpret_cast<float4*>(state) + i;
   float4 s0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float m0 = 0.0f;
-  if (kMode == kMip) m0 = state[i]; else s0 = *st;
+  if (kMode == kMip) m0 = state[i];
+  else s0 = reinterpret_cast<const float4*>(state)[i];
 
-  // the pixel's ray (_march.rays): unproject, slab test clamped at 0
-  const float ndcx = vpt_pixel_ndc(x, a.width);
-  const float ndcy = vpt_pixel_ndc(a.row0 + y, a.full_height);
-  float from[3], to[3], dir[3];
-  vpt_unproject(s_mvp, ndcx, ndcy, ndcx, ndcy, from, to);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
-  float tnear, tfar;
-  vpt_intersect_cube(from, dir, &tnear, &tfar);
-  float tb0 = vpt_nmax(tnear, 0.0f), tb1 = vpt_nmax(tfar, 0.0f);
-  if constexpr (kClamp) {
-    // the interval intersected with each box's, clamped at 0, in the
-    // order the host lists them (base.march_interval, iso.march_interval)
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      if (b < a.boxes) {
-        const float lo[3] = {a.box[6 * b], a.box[6 * b + 1],
-                             a.box[6 * b + 2]};
-        const float hi[3] = {a.box[6 * b + 3], a.box[6 * b + 4],
-                             a.box[6 * b + 5]};
-        float bn, bf;
-        vpt_intersect_box(from, dir, lo, hi, &bn, &bf);
-        tb0 = vpt_nmax(tb0, vpt_nmax(bn, 0.0f));
-        tb1 = vpt_nmin(tb1, vpt_nmax(bf, 0.0f));
-      }
-    }
-  }
-  const bool miss = tb0 >= tb1;
-  float start[3], seg[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    start[k] = from[k] + tb0 * dir[k];
-    seg[k] = (from[k] + tb1 * dir[k]) - start[k];
-  }
-  const int n = miss ? 0 : a.slices;
+  const MarchRay r = march_ray<kClamp>(a, s_mvp, x, y);
+  const int n = r.miss ? 0 : a.slices;
   const float step = a.step;
+  const float rsl = march_step_length<kMode>(r, step);
   using Row = VptRowOf<kBf16, kC>;
-  // the slice's color: the headline's lookup, or an ext instance's
-  const auto lookup = [&](const Row& row, const Cell& cell) {
-    if constexpr (kC == 0) {
-      return vpt_tf1d_lookup(s_tf, a.tw, vpt_lerp_row<kBf16>(row, cell),
-                             kTf);
-    } else {
-      return vpt_color_rg<kBf16, kC>(s_tf, a.tw, kTf, a.tf_table, a.th,
-                                     vpt_lerp_rg<kBf16, kC>(row, cell));
-    }
-  };
   int filter = 0;
   if constexpr (kC != 0) filter = a.filter;
-
-  if (kMode == kEam || kMode == kDepth) {
-    const float len = sqrtf(seg[0] * seg[0] + seg[1] * seg[1]
-                            + seg[2] * seg[2]);
-    const float rsl = len * step;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // EAM's carry
-    float t = first, dacc = 0.0f;                      // Depth's carry
-    march_slices<kBf16, kC>(
-        a, filter, n, start, seg,
-        [&](int s) { return first + (float)s * step; }, lookup,
-        [&](float ts, auto get) {
-          // inactive for good: the carry never changes after this
-          if (kMode == kEam && !(ts < 1.0f && acc.w < 0.99f)) return false;
-          if (kMode == kDepth && !(t < 1.0f && dacc < a.level)) return false;
-          const float4 c = get();
-          if (kMode == kEam) {
-            const float alpha = c.w * rsl * a.extinction;
-            const float k = 1.0f - acc.w;
-            acc.x = acc.x + k * (c.x * alpha);
-            acc.y = acc.y + k * (c.y * alpha);
-            acc.z = acc.z + k * (c.z * alpha);
-            acc.w = acc.w + k * alpha;
-          } else {
-            dacc = dacc + (1.0f - dacc) * c.w * rsl * a.extinction;
-            t = t + step;
-          }
-          return true;
-        });
-    float4 frame;
-    if (kMode == kEam) {
-      if (acc.w > 1.0f) {
-        const float den = vpt_nmax(acc.w, 1e-6f);
-        acc.x = acc.x / den;
-        acc.y = acc.y / den;
-        acc.z = acc.z / den;
-      }
-      frame = miss ? make_float4(0.0f, 0.0f, 0.0f, 1.0f)
-                   : make_float4(acc.x, acc.y, acc.z, 1.0f);
-    } else {
-      float depth = tb0 + t * (tb1 - tb0);
-      if (dacc < a.level || miss) depth = -1.0f;
-      frame = make_float4(depth, 0.0f, 0.0f, 1.0f);
-    }
-    // the running mean: state + (frame - state) * (1/n)
-    s0.x = s0.x + (frame.x - s0.x) * mix;
-    s0.y = s0.y + (frame.y - s0.y) * mix;
-    s0.z = s0.z + (frame.z - s0.z) * mix;
-    s0.w = s0.w + (frame.w - s0.w) * mix;
-    *st = s0;
-  } else if (kMode == kMip) {
-    float val = 0.0f;
-    march_slices<kBf16, kC>(
-        a, filter, n, start, seg,
-        [&](int s) { return wrap_unit(first + (float)s * step); },
-        [&](const Row& row, const Cell& cell) {
-          return lookup(row, cell).w;
-        },
-        [&](float, auto get) {
-          val = vpt_nmax(val, get());
-          return true;
-        });
-    state[i] = vpt_nmax(m0, val);
-  } else {  // kIso
-    // the nearest hit: the schedule first - s*step from its near end (the
-    // largest s), stopping at the first hit
-    float4 hit = make_float4(-1.0f, -1.0f, -1.0f, -1.0f);
-    march_slices<kBf16, kC>(
-        a, filter, n, start, seg,
-        [&](int j) { return first - (float)(n - 1 - j) * step; },
-        [&](const Row& row, const Cell& cell) {
-          return lookup(row, cell).w;
-        },
-        [&](float ts, auto get) {
-          if (get() >= a.level) {
-            hit = make_float4(start[0] + ts * seg[0], start[1] + ts * seg[1],
-                              start[2] + ts * seg[2], ts);
-            return false;
-          }
-          return true;
-        });
-    // keep the nearer of the frame's and the accumulated hits
-    const bool take = (hit.w > 0.0f && s0.w > 0.0f) ? hit.w < s0.w
-                                                   : hit.w > 0.0f;
-    if (take) *st = hit;
-  }
+  float4 c = march_carry<kMode>(first);
+  march_slices<kBf16, kC>(
+      a, filter, n, r.start, r.seg,
+      [&](int j) { return march_t<kMode>(first, step, j, n); },
+      // the slice's color: the headline's lookup, or an ext instance's
+      [&](const Row& row, const Cell& cell) {
+        return march_color<kBf16, kTf, kC>(
+            s_tf, a, vpt_lerp_rg<kBf16, kC>(row, cell));
+      },
+      [&](float ts, auto get) {
+        return march_fold<kMode>(c, ts, get, rsl, a, r);
+      });
+  march_store<kMode>(state, i, c, r, a.level, mix, s0, m0);
 }
 
 template <int kMode, bool kBf16, int kTf, bool kClamp>
@@ -352,6 +422,128 @@ __global__ void __launch_bounds__(kVptTileThreads, kMinBlocks)
 march_ext_kernel(const VptMarchExt a, float* __restrict__ state,
                  float first, float mix) {
   march<kMode, kBf16, kTf, false, kC>(a, state, first, mix);
+}
+
+// The halo instance (parallel/halo.py, a HaloScene frame): the volume is z
+// slabs over the ranks of a group, each rank holding its slab's corner rows,
+// and a sample is the sum over the ranks of their masked slab-local values
+// (vpt_tpu/parallel/halo.py:143-166, 199-250), an all-reduce between the
+// fetch and the TF lookup: the TF is not linear, so the ranks sum values,
+// never colours, and the masked zeros make the sum exact.  vpt_tpu's march
+// (_march.py:29-55) samples kHaloChunk slices a sample_color, one psum
+// each; so does this instance.  A frame of S slices is C = ceil(S /
+// kHaloChunk) + 1 launches on the state, the wrapper all-reducing the
+// values between them: launch e folds chunk e - 1's summed values in order
+// (march_fold, the TF lookup of march_color; launch 0 starts the carry),
+// then writes chunk e's masked values (slab.cuh's cell; 0 where another
+// rank owns it, and for every slice of a pixel that has left its loop:
+// every rank holds the same carry, so every rank skips it alike); the last
+// launch stores the frame (march_store).  Between launches a pixel keeps
+// its composite's carry (a float4, exact) in carry; its ray comes again
+// from the pixel index.  So on one slab a frame equals the whole-scene
+// kernel's bit for bit.  A HaloScene has no clamp box and no filter; its
+// volume has one channel (kC = 0, the TF row in mode kTf) or two (kC = 2:
+// the value pair summed, then the 2D TF), its slabs contiguous or
+// interleaved, the fetch masked or not (slab.cuh).
+constexpr int kHaloChunk = 8;
+
+template <int kMode, bool kBf16, int kTf, int kC>
+__global__ void __launch_bounds__(kVptTileThreads, kMinBlocks)
+march_halo_kernel(const VptMarchExt a, const VptSlab slab,
+                  float* __restrict__ value, float4* __restrict__ carry,
+                  float* __restrict__ state, float first, float mix,
+                  int chunk) {
+  extern __shared__ float4 s_tf[];
+  __shared__ float s_mvp[16];
+  if (kC != 2 && chunk > 0)
+    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
+      s_tf[i] = a.tf_row[i];
+  if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
+  __syncthreads();
+  int x, y;
+  if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
+  constexpr int kV = kC == 2 ? 2 : 1;  // values a sample
+  const int i = y * a.width + x;
+  const long long pixels = (long long)a.width * a.height;
+  const MarchRay r = march_ray<false>(a, s_mvp, x, y);
+  const int n = r.miss ? 0 : a.slices;
+  const float step = a.step;
+  const int chunks = (a.slices + kHaloChunk - 1) / kHaloChunk;
+  float4 c = chunk == 0 ? march_carry<kMode>(first) : carry[i];
+  if (chunk > 0) {
+    const float rsl = march_step_length<kMode>(r, step);
+    const int j0 = (chunk - 1) * kHaloChunk;
+    for (int k = 0; k < kHaloChunk && j0 + k < n; ++k) {
+      const float ts = march_t<kMode>(first, step, j0 + k, n);
+      if (!march_live<kMode>(c, ts, a.level)) break;
+      const float* v = value + kV * ((long long)k * pixels + i);
+      if (!march_fold<kMode>(c, ts, [&] {
+            return march_color<kBf16, kTf, kC>(
+                s_tf, a, make_float2(v[0], kV == 2 ? v[1] : 0.0f));
+          }, rsl, a, r))
+        break;
+    }
+  }
+  if (chunk < chunks) {
+    const int j0 = chunk * kHaloChunk;
+    const bool live =
+        j0 < n && march_live<kMode>(c, march_t<kMode>(first, step, j0, n),
+                                    a.level);
+#pragma unroll
+    for (int k = 0; k < kHaloChunk; ++k) {
+      float2 v = make_float2(0.0f, 0.0f);
+      if (live && j0 + k < n) {
+        const float ts = march_t<kMode>(first, step, j0 + k, n);
+        const VptSlabCell cell = vpt_slab_cell(
+            a.d, a.h, a.w, slab, r.start[0] + ts * r.seg[0],
+            r.start[1] + ts * r.seg[1], r.start[2] + ts * r.seg[2]);
+        if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
+      }
+      float* out = value + kV * ((long long)k * pixels + i);
+      out[0] = v.x;
+      if (kV == 2) out[1] = v.y;
+    }
+    carry[i] = c;
+  } else {
+    float4 s0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float m0 = 0.0f;
+    if (kMode == kMip) m0 = state[i];
+    else s0 = reinterpret_cast<const float4*>(state)[i];
+    march_store<kMode>(state, i, c, r, a.level, mix, s0, m0);
+  }
+}
+
+using KernelHalo = void (*)(const VptMarchExt, const VptSlab, float*,
+                            float4*, float*, float, float, int);
+
+// The halo instance for a mode, a table type, the TF lookup mode (one
+// channel) or two channels; null for anything else.
+template <int kMode>
+KernelHalo pick_halo_tf(int channels, int table_bf16, int tf_mode) {
+  if (channels == 2)
+    return table_bf16 ? march_halo_kernel<kMode, true, 0, 2>
+                      : march_halo_kernel<kMode, false, 0, 2>;
+  if (channels != 1) return nullptr;
+  switch (tf_mode + 3 * table_bf16) {
+    case 0: return march_halo_kernel<kMode, false, 0, 0>;
+    case 1: return march_halo_kernel<kMode, false, 1, 0>;
+    case 2: return march_halo_kernel<kMode, false, 2, 0>;
+    case 3: return march_halo_kernel<kMode, true, 0, 0>;
+    case 4: return march_halo_kernel<kMode, true, 1, 0>;
+    case 5: return march_halo_kernel<kMode, true, 2, 0>;
+    default: return nullptr;
+  }
+}
+
+KernelHalo pick_halo(int mode, int channels, int table_bf16, int tf_mode) {
+  if (tf_mode < 0 || tf_mode > 2) return nullptr;
+  switch (mode) {
+    case kEam: return pick_halo_tf<kEam>(channels, table_bf16, tf_mode);
+    case kMip: return pick_halo_tf<kMip>(channels, table_bf16, tf_mode);
+    case kDepth: return pick_halo_tf<kDepth>(channels, table_bf16, tf_mode);
+    case kIso: return pick_halo_tf<kIso>(channels, table_bf16, tf_mode);
+    default: return nullptr;
+  }
 }
 
 size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
@@ -560,4 +752,54 @@ extern "C" int vpt_march_info(int mode, int flags, int tw, int tf_mode,
                           chunk, device, out)
                    : info(pick<false>(mode, bf16, tf_mode), dynamic_smem(tw),
                           chunk, device, out));
+}
+
+// One launch of the halo instance (see march_halo_kernel): prepared is the
+// VptMarchExt of the HaloScene, Params and resolution (table: the rank's
+// slab rows, (slab planes * H * W, 8 * channels); d, h, w the whole
+// volume's; no boxes, no filter); the slab: its index of num_slabs, the thin
+// slabs a rank (interleave) and whether the fetch is masked; value the
+// (kHaloChunk, width * height, channels) values between the launches,
+// carry the (width * height, 4) carry; chunk e of 0 .. ceil(slices /
+// kHaloChunk), the last storing the frame; first and mix as
+// vpt_march_launch's.
+extern "C" int vpt_march_halo_launch(const void* prepared, int slab_index,
+                                     int num_slabs, int interleave,
+                                     int masked, void* value, void* carry,
+                                     void* state, float first, float mix,
+                                     int chunk, void* stream) {
+  const VptMarchExt& p = *static_cast<const VptMarchExt*>(prepared);
+  VptDeviceGuard guard(p.device);
+  if (p.width <= 0 || p.height <= 0) return cudaSuccess;
+  const int chunks = (p.slices + kHaloChunk - 1) / kHaloChunk;
+  if (p.boxes != 0 || p.filter != 0 || p.row0 < 0
+      || p.full_height < p.row0 + p.height || chunk < 0 || chunk > chunks
+      || num_slabs < 1 || interleave < 1 || slab_index < 0
+      || slab_index >= num_slabs || p.d % (num_slabs * interleave) != 0)
+    return (int)cudaErrorInvalidValue;
+  const KernelHalo kernel = pick_halo(p.mode, p.channels, p.table_bf16,
+                                      p.tf_mode);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = p.channels == 2 ? 0 : dynamic_smem(p.tw);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
+  const unsigned blocks = (unsigned)vpt_tile_blocks(p.width, p.height);
+  kernel<<<blocks, kVptTileThreads, smem, (cudaStream_t)stream>>>(
+      p, slab, (float*)value, (float4*)carry, (float*)state, first, mix,
+      chunk);
+  return (int)cudaGetLastError();
+}
+
+// The launch shape of the halo instance of mode `mode` for flags (1: bf16
+// rows, 8: two channels) and a TF row of `tw` texels in lookup mode
+// `tf_mode` on `device`: vpt_march_info's values, with chunk the slices of
+// a fetch (kHaloChunk).  Launches nothing.
+extern "C" int vpt_march_halo_info(int mode, int flags, int tw, int tf_mode,
+                                   int device, int* out) {
+  VptDeviceGuard guard(device);
+  const int channels = (flags & 8) ? 2 : 1;
+  return (int)info(pick_halo(mode, channels, flags & 1, tf_mode),
+                   channels == 2 ? 0 : dynamic_smem(tw), kHaloChunk, device,
+                   out);
 }

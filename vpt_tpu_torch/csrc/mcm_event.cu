@@ -467,20 +467,6 @@ struct ArgsHalo : ArgsExt {
   int flight;      // 1: start the next event
 };
 
-// (value, channel 1) of a slab cell's row (channel 1 is 0 for one channel).
-template <bool kBf16, int kC>
-__device__ __forceinline__ float2 slab_value(const void* table,
-                                             const VptSlabCell& c) {
-  const VptCell<int64_t> cell = {c.row, c.fx, c.fy, c.fz};
-  if constexpr (kC == 2) {
-    return vpt_lerp_rg<kBf16, 2>(vpt_load_rows<kBf16, 2>(table, c.row),
-                                 cell);
-  } else {
-    return make_float2(
-        vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(table, c.row), cell), 0.0f);
-  }
-}
-
 // The colour of a fetched (value, channel 1): mcm_value_color's for one
 // channel, the 2D TF lookup of the packed TF table for two (a two-channel
 // scene has no cheb-skip table).
@@ -573,7 +559,7 @@ mcm_halo_kernel(ArgsHalo a) {
     const VptSlabCell c = vpt_slab_cell(a.d, a.h, a.w, a.slab, q[0], q[1],
                                         q[2]);
     float2 v = make_float2(0.0f, 0.0f);
-    if (c.local) v = slab_value<kBf16, kC>(a.table, c);
+    if (c.local) v = vpt_slab_value<kBf16, kC>(a.table, c);
     a.value[kV * i] = v.x;
     if (kV == 2) a.value[kV * i + 1] = v.y;
   }
@@ -681,7 +667,7 @@ mcm_resident_kernel(ArgsResident a) {
       float samples = a.samples[i];
       float cheb_new;
       const float4 vs = slab_color<kBf16, kC>(
-          s_tf, a, slab_value<kBf16, kC>(a.table, c), skip, cheb_new);
+          s_tf, a, vpt_slab_value<kBf16, kC>(a.table, c), skip, cheb_new);
       const float q[3] = {p[0], p[1], p[2]};
       mcm_interact<kMap>(s, a, s_mvp, s_env, a.ndc[2 * i], a.ndc[2 * i + 1],
                          (float)a.max_bounces, q, vs, cheb_new, true, p, dir,

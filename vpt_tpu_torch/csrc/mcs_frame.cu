@@ -48,6 +48,9 @@
 // and corner-row fetches (one atomic a warp); the render path launches the
 // one without.
 //
+// A HaloScene's frame runs mcs_halo_kernel (below): the same tracking, a
+// launch a fetch around the all-reduce of its values.
+//
 // Numerics follow the plain PyTorch frame (renderers/mcs.py) operation by
 // operation: built with -fmad=false, IEEE division and sqrt, NaN-
 // propagating min/max, half-to-even rintf for the cheb distance.  logf is
@@ -58,6 +61,7 @@
 
 #include "device_guard.cuh"
 #include "ray.cuh"
+#include "slab.cuh"
 
 // What a launch takes of its scene, Params and resolution, filled once by
 // the wrapper (kernels/mcs_frame.py, a ctypes Structure of this layout).
@@ -118,6 +122,138 @@ __device__ __forceinline__ float4 color_at(const A& a, const float4* s_tf,
   }
 }
 
+// A pixel's view ray: its NDC, direction and cube interval (clamped at 0),
+// and where it enters, the segment from start to start + seg, its length
+// maxd and that length clamped away from 0 (maxc).
+struct McsRay {
+  float ndcx, ndcy;
+  float dir[3];
+  float tb0, tb1;
+  float start[3], seg[3];
+  float maxd, maxc;
+  bool miss;
+};
+
+template <class A>
+__device__ __forceinline__ McsRay mcs_ray(const A& a, const float* s_mvp,
+                                          int x, int y) {
+  McsRay r;
+  r.ndcx = vpt_pixel_ndc(x, a.width);
+  r.ndcy = vpt_pixel_ndc(a.row0 + y, a.full_height);
+  float from[3], to[3];
+  vpt_unproject(s_mvp, r.ndcx, r.ndcy, r.ndcx, r.ndcy, from, to);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.dir[k] = to[k] - from[k];
+  float tnear, tfar;
+  vpt_intersect_cube(from, r.dir, &tnear, &tfar);
+  r.tb0 = vpt_nmax(tnear, 0.0f);
+  r.tb1 = vpt_nmax(tfar, 0.0f);
+  r.miss = r.tb0 >= r.tb1;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.start[k] = from[k] + r.tb0 * r.dir[k];
+    r.seg[k] = (from[k] + r.tb1 * r.dir[k]) - r.start[k];
+  }
+  r.maxd = sqrtf(r.seg[0] * r.seg[0] + r.seg[1] * r.seg[1]
+                 + r.seg[2] * r.seg[2]);
+  r.maxc = vpt_nmax(r.maxd, 1e-20f);
+  return r;
+}
+
+// A free path drawn from stream s: the exponential, extended with the
+// cheb-skip table through the empty cells around the last landing.
+template <class A>
+__device__ __forceinline__ float mcs_free_path(uint32_t& s, const A& a,
+                                               bool skip, float cheb) {
+  float d = vpt_exponential(s, a.extinction);
+  if (skip) d = vpt_nmax(d, vpt_nmax(cheb - 1.0f, 0.0f) * a.cell);
+  return d;
+}
+
+// The scattering point at dist along the ray and its shadow segment to the
+// cube along the frame's direction, with its length clamped away from 0.
+struct McsShadow {
+  float sp[3], sseg[3];
+  float sdc;
+};
+
+__device__ __forceinline__ McsShadow mcs_shadow(const McsRay& r, float dist,
+                                                const VptMcsFrame& f) {
+  McsShadow sh;
+  const float t = dist / r.maxc;
+  const float sdir[3] = {f.sx, f.sy, f.sz};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) sh.sp[k] = r.start[k] + t * r.seg[k];
+  float tn2, tf2;
+  vpt_intersect_cube(sh.sp, sdir, &tn2, &tf2);
+  tf2 = vpt_nmax(tf2, 0.0f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    sh.sseg[k] = (sh.sp[k] + sdir[k] * tf2) - sh.sp[k];
+  const float sd = sqrtf(sh.sseg[0] * sh.sseg[0] + sh.sseg[1] * sh.sseg[1]
+                         + sh.sseg[2] * sh.sseg[2]);
+  sh.sdc = vpt_nmax(sd, 1e-20f);
+  return sh;
+}
+
+// The colour of a fetched value v (cheb_new: with skip, the cheb distance
+// it gives): the TF row's lookup, with the cheb-skip table's empty cells,
+// or for two channels (v, g) the packed 2D TF's.
+template <bool kBf16, int kC, class A>
+__device__ __forceinline__ float4 mcs_value_color(const A& a,
+                                                  const float4* s_tf,
+                                                  float2 v, bool skip,
+                                                  float* cheb_new) {
+  if constexpr (kC == 0) {
+    *cheb_new = rintf(vpt_nmax(-v.x, 0.0f));
+    return vpt_color(s_tf, a.tw, a.tf_mode, v.x, skip);
+  } else {
+    *cheb_new = 0.0f;
+    return vpt_color_rg<kBf16, kC>(s_tf, a.tw, a.tf_mode, a.tf_table, a.th,
+                                   v);
+  }
+}
+
+// A scattered pixel's frame: the diffuse colour times the light along the
+// frame's direction (the 1x1 texel env, or the map) times the
+// transmittance.
+template <bool kMap, class A>
+__device__ __forceinline__ float4 mcs_scattered(const A& a,
+                                                const VptMcsFrame& f,
+                                                float4 env, float4 diffuse,
+                                                float trans) {
+  const float4 light =
+      kMap ? vpt_sample_environment(reinterpret_cast<const float4*>(a.env),
+                                    a.env_h, a.env_w, f.sx, f.sy, f.sz)
+           : env;
+  return make_float4(diffuse.x * light.x * trans, diffuse.y * light.y * trans,
+                     diffuse.z * light.z * trans, diffuse.w * light.w * trans);
+}
+
+// What a pixel that misses or escapes sees: the 1x1 texel env, or the map
+// along the unit view ray (mcs.py's env_color).
+template <bool kMap, class A>
+__device__ __forceinline__ float4 mcs_unscattered(const A& a, float4 env,
+                                                  const McsRay& r) {
+  if (!kMap) return env;
+  const float norm = sqrtf(vpt_nmax(
+      r.dir[0] * r.dir[0] + r.dir[1] * r.dir[1] + r.dir[2] * r.dir[2],
+      1e-20f));
+  return vpt_sample_environment(reinterpret_cast<const float4*>(a.env),
+                                a.env_h, a.env_w, r.dir[0] / norm,
+                                r.dir[1] / norm, r.dir[2] / norm);
+}
+
+// The running mean: acc + (frame - acc) / n, the IEEE quotient.
+__device__ __forceinline__ float4 mcs_mean(float4 acc, float4 frame,
+                                           float n) {
+  acc.x = acc.x + (frame.x - acc.x) / n;
+  acc.y = acc.y + (frame.y - acc.y) / n;
+  acc.z = acc.z + (frame.z - acc.z) / n;
+  acc.w = acc.w + (frame.w - acc.w) / n;
+  return acc;
+}
+
 // kC as in color_at.
 template <bool kBf16, bool kCount, bool kMap, int kC, class A>
 __device__ __forceinline__ void mcs_frame(
@@ -141,133 +277,76 @@ __device__ __forceinline__ void mcs_frame(
   if (inside) {
     const int i = y * a.width + x;
     // the state, read first, so that its latency overlaps the tracking's
-    float4 acc = state[i];
+    const float4 acc = state[i];
     const bool skip = kC == 0 && a.use_skip != 0;
     const float4 env = kMap ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : s_env;
-
-    const float ndcx = vpt_pixel_ndc(x, a.width);
-    const float ndcy = vpt_pixel_ndc(a.row0 + y, a.full_height);
-    float from[3], to[3], dir[3];
-    vpt_unproject(s_mvp, ndcx, ndcy, ndcx, ndcy, from, to);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
-    float tnear, tfar;
-    vpt_intersect_cube(from, dir, &tnear, &tfar);
-    const float tb0 = vpt_nmax(tnear, 0.0f), tb1 = vpt_nmax(tfar, 0.0f);
+    const McsRay r = mcs_ray(a, s_mvp, x, y);
 
     // the 1x1 environment: what a miss or an escaped path sees
     float4 frame = env;
     bool scattered = false;
-    if (!(tb0 >= tb1)) {
-      float start[3], seg[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        start[k] = from[k] + tb0 * dir[k];
-        seg[k] = (from[k] + tb1 * dir[k]) - start[k];
-      }
-      const float maxd = sqrtf(seg[0] * seg[0] + seg[1] * seg[1]
-                               + seg[2] * seg[2]);
-      const float maxc = vpt_nmax(maxd, 1e-20f);
-      uint32_t s = vpt_seed_pixel(ndcx, ndcy, f.seed);
+    if (!r.miss) {
+      uint32_t s = vpt_seed_pixel(r.ndcx, r.ndcy, f.seed);
 
       // sampleDistance: a path that leaves the segment takes 1 draw in
       // that iteration, one that stays takes 2
       float dist = 0.0f, cheb = 0.0f;
       for (int it = 0; it < kMaxIters; ++it) {
         uint32_t s1 = s;
-        float d = vpt_exponential(s1, a.extinction);
-        if (skip) d = vpt_nmax(d, vpt_nmax(cheb - 1.0f, 0.0f) * a.cell);
-        const float ndist = dist + d;
+        const float ndist = dist + mcs_free_path(s1, a, skip, cheb);
         dist = ndist;
         if (kCount) ++steps;
-        if (ndist > maxc) {
+        if (ndist > r.maxc) {
           s = s1;
           break;
         }
-        const float fr = ndist / maxc;
+        const float fr = ndist / r.maxc;
         const float u = vpt_uniform(s1);
         s = s1;
         float v;
         const float alpha = color_at<kBf16, kC>(a, s_tf,
-                                                start[0] + fr * seg[0],
-                                                start[1] + fr * seg[1],
-                                                start[2] + fr * seg[2], skip,
-                                                &v).w;
+                                                r.start[0] + fr * r.seg[0],
+                                                r.start[1] + fr * r.seg[1],
+                                                r.start[2] + fr * r.seg[2],
+                                                skip, &v).w;
         if (kCount) ++fetches;
         if (skip) cheb = rintf(vpt_nmax(-v, 0.0f));
         if (u < alpha) break;                  // a collision
       }
 
-      if (!(dist > maxd)) {
+      if (!(dist > r.maxd)) {
         // the scattering point and its shadow segment to the cube
-        const float t = dist / maxc;
-        float sp[3], sseg[3];
-        const float sdir[3] = {f.sx, f.sy, f.sz};
-#pragma unroll
-        for (int k = 0; k < 3; ++k) sp[k] = start[k] + t * seg[k];
-        float tn2, tf2;
-        vpt_intersect_cube(sp, sdir, &tn2, &tf2);
-        tf2 = vpt_nmax(tf2, 0.0f);
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-          sseg[k] = (sp[k] + sdir[k] * tf2) - sp[k];
-        const float sd = sqrtf(sseg[0] * sseg[0] + sseg[1] * sseg[1]
-                               + sseg[2] * sseg[2]);
-        const float sdc = vpt_nmax(sd, 1e-20f);
+        const McsShadow sh = mcs_shadow(r, dist, f);
         float vd;
-        const float4 diffuse = color_at<kBf16, kC>(a, s_tf, sp[0], sp[1],
-                                                   sp[2], skip, &vd);
+        const float4 diffuse = color_at<kBf16, kC>(a, s_tf, sh.sp[0],
+                                                   sh.sp[1], sh.sp[2], skip,
+                                                   &vd);
         if (kCount) ++fetches;
 
         // sampleTransmittance: one draw an iteration
         float dist2 = 0.0f, trans = 1.0f;
         cheb = 0.0f;
         for (int it = 0; it < kMaxIters; ++it) {
-          float d = vpt_exponential(s, a.extinction);
-          if (skip) d = vpt_nmax(d, vpt_nmax(cheb - 1.0f, 0.0f) * a.cell);
-          const float ndist = dist2 + d;
+          const float ndist = dist2 + mcs_free_path(s, a, skip, cheb);
           dist2 = ndist;
           if (kCount) ++steps;
-          if (ndist > sdc) break;
-          const float fr = ndist / sdc;
+          if (ndist > sh.sdc) break;
+          const float fr = ndist / sh.sdc;
           float v;
-          const float alpha = color_at<kBf16, kC>(a, s_tf,
-                                                  sp[0] + fr * sseg[0],
-                                                  sp[1] + fr * sseg[1],
-                                                  sp[2] + fr * sseg[2], skip,
-                                                  &v).w;
+          const float alpha = color_at<kBf16, kC>(
+              a, s_tf, sh.sp[0] + fr * sh.sseg[0],
+              sh.sp[1] + fr * sh.sseg[1], sh.sp[2] + fr * sh.sseg[2], skip,
+              &v).w;
           if (kCount) ++fetches;
           trans = trans * (1.0f - alpha);
           if (skip) cheb = rintf(vpt_nmax(-v, 0.0f));
         }
-        // the light along the scatter direction
-        const float4 light =
-            kMap ? vpt_sample_environment(
-                       reinterpret_cast<const float4*>(a.env), a.env_h,
-                       a.env_w, f.sx, f.sy, f.sz)
-                 : env;
-        frame = make_float4(diffuse.x * light.x * trans,
-                            diffuse.y * light.y * trans,
-                            diffuse.z * light.z * trans,
-                            diffuse.w * light.w * trans);
+        frame = mcs_scattered<kMap>(a, f, env, diffuse, trans);
         scattered = true;
       }
     }
-    if (kMap && !scattered) {
-      // the map along the unit view ray (mcs.py's env_color)
-      const float norm = sqrtf(vpt_nmax(
-          dir[0] * dir[0] + dir[1] * dir[1] + dir[2] * dir[2], 1e-20f));
-      frame = vpt_sample_environment(reinterpret_cast<const float4*>(a.env),
-                                     a.env_h, a.env_w, dir[0] / norm,
-                                     dir[1] / norm, dir[2] / norm);
-    }
-
-    // the running mean: acc + (frame - acc) / n, the IEEE quotient
-    acc.x = acc.x + (frame.x - acc.x) / f.frame_number;
-    acc.y = acc.y + (frame.y - acc.y) / f.frame_number;
-    acc.z = acc.z + (frame.z - acc.z) / f.frame_number;
-    acc.w = acc.w + (frame.w - acc.w) / f.frame_number;
-    state[i] = acc;
+    if (kMap && !scattered) frame = mcs_unscattered<kMap>(a, env, r);
+    state[i] = mcs_mean(acc, frame, f.frame_number);
   }
   if (kCount) {
     // every lane of the block reaches this: a warp's sums, one atomic each
@@ -296,6 +375,207 @@ mcs_frame_ext_kernel(const VptMcsExt a, const VptMcsFrame f,
                      float4* __restrict__ state,
                      unsigned long long* __restrict__ counts) {
   mcs_frame<kBf16, kCount, kMap, kC>(a, f, state, counts);
+}
+
+// The halo instance (parallel/halo.py, a HaloScene frame): a sample is the
+// sum over the ranks of their masked slab-local values
+// (vpt_tpu/parallel/halo.py:199-250), an all-reduce between the fetch and
+// its use, so a frame is a launch a fetch: each pixel runs mcs_frame's
+// tracking as a machine whose every fetch ends a launch.  vpt_tpu's
+// while_loops (mcs.py:86-150) fetch at every pixel in every iteration until
+// all are done (the distance loop, the diffuse fetch, the transmittance
+// loop: a psum each); here launch e finishes each pixel's pending fetch
+// from the summed value (its colour and cheb distance; the collision test,
+// the diffuse colour or the transmittance), runs the pixel's tracking on to
+// its next fetch and writes that fetch's masked value (slab.cuh's cell; 0
+// where another rank owns it), or ends the pixel's frame (the running mean,
+// and a zero value from then on).  Each pixel takes mcs_frame's draws and
+// fetches in its order, with its kMaxIters cap on each loop, so on one slab
+// a frame equals the whole-scene kernel's bit for bit.  Each launch counts
+// its pixels that fetch (live[e & 1], one atomic a warp; it zeroes
+// live[(e + 1) & 1] for the next), and the host stops after the launch
+// that counts none: a frame is (the slowest pixel's fetches) + 1 launches
+// around as many all-reduces, never more than vpt_tpu's (distance
+// iterations + 1 + transmittance iterations).  Between launches a pixel
+// keeps its stream (rng), its phase and iteration (tag), its tracking
+// (track: dist, cheb, u or the transmittance, the shadow distance) and,
+// while it tracks its shadow, the diffuse colour; its ray and shadow
+// segment come again from the pixel index and dist.  A HaloScene has no
+// filter: kC is 0 (one channel, the cheb-skip table or not) or 2.
+struct VptMcsHalo {
+  uint32_t* rng;         // (n,) the stream
+  int* tag;              // (n,) McsPhase | iteration << 2
+  float4* track;         // (n,) dist, cheb, u or trans, dist2
+  float4* diffuse;       // (n,) the diffuse colour
+  float* value;          // (n, kC or 1) the pending fetch's value, summed
+  int* live;             // (2,) the pixels that fetch, by launch parity
+  VptSlab slab;
+  int launch;            // e; 0 starts the frame
+};
+
+enum McsPhase { kPath = 0, kDiffuse = 1, kShadow = 2, kDone = 3 };
+
+template <bool kBf16, bool kMap, int kC>
+__global__ void __launch_bounds__(kVptTileThreads)
+mcs_halo_kernel(const VptMcsExt a, const VptMcsFrame f, const VptMcsHalo h,
+                float4* __restrict__ state) {
+  extern __shared__ float4 s_tf[];
+  __shared__ float s_mvp[16];
+  if (kC != 2 && h.launch > 0)
+    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
+      s_tf[i] = a.tf_row[i];
+  if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
+  if (blockIdx.x == 0 && threadIdx.x == 0) h.live[(h.launch + 1) & 1] = 0;
+  __syncthreads();
+  constexpr int kV = kC == 2 ? 2 : 1;
+  int x, y;
+  bool fetch = false;
+  const bool inside = vpt_tile_pixel(a.width, a.height, &x, &y);
+  const int i = y * a.width + x;
+  int tag = kPath;
+  if (inside && h.launch > 0) tag = h.tag[i];
+  if (inside && (tag & 3) != kDone) {
+    const bool skip = kC == 0 && a.use_skip != 0;
+    const float4 env = kMap ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                            : make_float4(__ldg(a.env), __ldg(a.env + 1),
+                                          __ldg(a.env + 2),
+                                          __ldg(a.env + 3));
+    const McsRay r = mcs_ray(a, s_mvp, x, y);
+    int phase = tag & 3, it = tag >> 2;
+    uint32_t s;
+    float4 tr;                 // dist, cheb, u or trans, dist2
+    float4 diffuse = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    bool have_diffuse = false, path_ended = false, finish = false;
+    float4 frame = env;
+    float q[3] = {0.0f, 0.0f, 0.0f};  // the next fetch's position
+    if (h.launch == 0) {
+      s = vpt_seed_pixel(r.ndcx, r.ndcy, f.seed);
+      tr = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r.miss) {
+        frame = mcs_unscattered<kMap>(a, env, r);
+        finish = true;
+      }
+    } else {
+      // the pending fetch, from the value summed over the slabs
+      s = h.rng[i];
+      tr = h.track[i];
+      const float* pv = h.value + kV * (long long)i;
+      float cheb_new;
+      const float4 c = mcs_value_color<kBf16, kC>(
+          a, s_tf, make_float2(pv[0], kV == 2 ? pv[1] : 0.0f), skip,
+          &cheb_new);
+      if (phase == kPath) {
+        if (skip) tr.y = cheb_new;
+        path_ended = tr.z < c.w;         // a collision
+      } else if (phase == kDiffuse) {
+        diffuse = c;
+        have_diffuse = true;
+        phase = kShadow;
+        it = 0;
+        tr = make_float4(tr.x, 0.0f, 1.0f, 0.0f);
+      } else {
+        tr.z = tr.z * (1.0f - c.w);
+        if (skip) tr.y = cheb_new;
+      }
+    }
+    if (!finish && phase == kPath && !path_ended) {
+      // sampleDistance's next iteration: a path that leaves the segment
+      // takes 1 draw, one that stays takes 2 and a fetch
+      if (it < kMaxIters) {
+        uint32_t s1 = s;
+        const float ndist = tr.x + mcs_free_path(s1, a, skip, tr.y);
+        tr.x = ndist;
+        ++it;
+        if (ndist > r.maxc) {
+          s = s1;
+          path_ended = true;
+        } else {
+          const float fr = ndist / r.maxc;
+          tr.z = vpt_uniform(s1);
+          s = s1;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) q[k] = r.start[k] + fr * r.seg[k];
+          fetch = true;
+        }
+      } else {
+        path_ended = true;
+      }
+    }
+    if (path_ended) {
+      if (!(tr.x > r.maxd)) {
+        // the scattering point: the diffuse fetch
+        const McsShadow sh = mcs_shadow(r, tr.x, f);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) q[k] = sh.sp[k];
+        phase = kDiffuse;
+        fetch = true;
+      } else {
+        frame = mcs_unscattered<kMap>(a, env, r);
+        finish = true;
+      }
+    }
+    if (!finish && !fetch && phase == kShadow) {
+      // sampleTransmittance's next iteration: one draw
+      const McsShadow sh = mcs_shadow(r, tr.x, f);
+      bool ended = true;
+      if (it < kMaxIters) {
+        const float ndist = tr.w + mcs_free_path(s, a, skip, tr.y);
+        tr.w = ndist;
+        ++it;
+        if (!(ndist > sh.sdc)) {
+          const float fr = ndist / sh.sdc;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) q[k] = sh.sp[k] + fr * sh.sseg[k];
+          fetch = true;
+          ended = false;
+        }
+      }
+      if (ended) {
+        if (!have_diffuse) diffuse = h.diffuse[i];
+        frame = mcs_scattered<kMap>(a, f, env, diffuse, tr.z);
+        finish = true;
+      }
+    }
+    float2 v = make_float2(0.0f, 0.0f);
+    if (fetch) {
+      const VptSlabCell cell = vpt_slab_cell(a.d, a.h, a.w, h.slab, q[0],
+                                             q[1], q[2]);
+      if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
+      h.rng[i] = s;
+      h.tag[i] = phase | (it << 2);
+      h.track[i] = tr;
+      if (have_diffuse && phase == kShadow) h.diffuse[i] = diffuse;
+    } else {
+      state[i] = mcs_mean(state[i], frame, f.frame_number);
+      h.tag[i] = kDone;
+    }
+    float* out = h.value + kV * (long long)i;
+    out[0] = v.x;
+    if (kV == 2) out[1] = v.y;
+  }
+  // every lane of the block reaches this: a warp's count, one atomic each
+  const unsigned n = __reduce_add_sync(0xFFFFFFFFu, fetch ? 1u : 0u);
+  if ((threadIdx.x & 31) == 0 && n > 0) atomicAdd(h.live + (h.launch & 1),
+                                                  (int)n);
+}
+
+using KernelHalo = void (*)(const VptMcsExt, const VptMcsFrame,
+                            const VptMcsHalo, float4*);
+
+// The halo instance for a bf16 table (flags & 1), an environment map
+// larger than 1x1 (flags & 4) and two channels (flags & 16).
+template <int kC>
+KernelHalo pick_halo_map(int flags) {
+  switch (flags & 5) {
+    case 0: return mcs_halo_kernel<false, false, kC>;
+    case 1: return mcs_halo_kernel<true, false, kC>;
+    case 4: return mcs_halo_kernel<false, true, kC>;
+    default: return mcs_halo_kernel<true, true, kC>;
+  }
+}
+
+KernelHalo pick_halo(int flags) {
+  return (flags & 16) ? pick_halo_map<2>(flags) : pick_halo_map<0>(flags);
 }
 
 size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
@@ -471,4 +751,67 @@ extern "C" int vpt_mcs_info(int flags, int tw, int device, int* out) {
   const size_t smem = tf_smem(render, tw);
   return (int)((flags & 8) ? info(pick_ext(render), smem, device, out)
                            : info(pick(render & 5), smem, device, out));
+}
+
+// One launch of the halo instance (see VptMcsHalo): prepared is the
+// VptMcsExt of the HaloScene, Params and resolution (table: the rank's slab
+// rows of the corner or, with use_skip, the cheb-skip table; d, h, w the
+// whole volume's; no filter); seed, the scatter direction and n as
+// vpt_mcs_launch's; the slab (its index of num_slabs, the thin slabs a rank
+// and whether the fetch is masked); the scratch (rng, tag, track, diffuse
+// of (n,), value of (n, channels), live of 2); launch e, 0 for the frame's
+// first.  Writes to *live the pixels that fetch (a read back from the card
+// and a wait for the stream): 0 ends the frame.
+extern "C" int vpt_mcs_halo_launch(
+    const void* prepared, void* state, float seed, float sx, float sy,
+    float sz, float frame_number, int slab_index, int num_slabs,
+    int interleave, int masked, void* rng, void* tag, void* track,
+    void* diffuse, void* value, void* live_counts, int launch, int* live,
+    void* stream) {
+  const VptMcsExt& a = *static_cast<const VptMcsExt*>(prepared);
+  VptDeviceGuard guard(a.device);
+  *live = 0;
+  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
+  if ((a.channels != 1 && a.channels != 2) || a.filter != 0
+      || (a.channels == 2 && a.use_skip) || a.row0 < 0
+      || a.full_height < a.row0 + a.height || launch < 0 || num_slabs < 1
+      || interleave < 1 || slab_index < 0 || slab_index >= num_slabs
+      || a.d % (num_slabs * interleave) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int flags = (a.table_bf16 ? 1 : 0)
+                    | (a.env_h == 1 && a.env_w == 1 ? 0 : 4)
+                    | (a.channels == 2 ? 16 : 0);
+  const KernelHalo kernel = pick_halo(flags);
+  const size_t smem = tf_smem(flags, a.tw);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  int* counts = static_cast<int*>(live_counts);
+  if (launch == 0) {
+    err = cudaMemsetAsync(counts, 0, sizeof(int), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const VptMcsFrame f = {seed, sx, sy, sz, frame_number};
+  const VptMcsHalo h = {static_cast<uint32_t*>(rng), static_cast<int*>(tag),
+                        static_cast<float4*>(track),
+                        static_cast<float4*>(diffuse),
+                        static_cast<float*>(value), counts,
+                        {slab_index, num_slabs, interleave, masked ? 1 : 0},
+                        launch};
+  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
+  kernel<<<blocks, kVptTileThreads, smem, (cudaStream_t)stream>>>(
+      a, f, h, (float4*)state);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyAsync(live, counts + (launch & 1), sizeof(int),
+                        cudaMemcpyDeviceToHost, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaStreamSynchronize((cudaStream_t)stream);
+}
+
+// The launch shape of the halo instance for flags (1 a bf16 table, 4 an
+// environment map larger than 1x1, 16 two channels) and a TF row of `tw`
+// texels on `device`: vpt_mcs_info's values.  Launches nothing.
+extern "C" int vpt_mcs_halo_info(int flags, int tw, int device, int* out) {
+  VptDeviceGuard guard(device);
+  return (int)info(pick_halo(flags), tf_smem(flags, tw), device, out);
 }

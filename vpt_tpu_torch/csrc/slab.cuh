@@ -1,7 +1,10 @@
 // The slab-local cell of a spatially sharded volume (parallel/halo.py,
 // HaloScene._cell_coords; vpt_tpu/parallel/halo.py:168-197), shared by the
-// MCM event kernel's halo and resident instances (mcm_event.cu) and the
-// corner fetch's slab instance (corner_gather.cu).
+// MCM event kernel's halo and resident instances (mcm_event.cu), the halo
+// instances of the march, ISO shade, MCS and DOS kernels (march.cu,
+// iso_shade.cu, mcs_frame.cu, dos_sweep.cu) and the corner fetch's slab
+// instance (corner_gather.cu); vpt_slab_value, the value of a slab cell's
+// row, is the per-pixel kernels'.
 //
 // A rank holds z planes of the volume and the matching rows of its corner
 // tables.  A position's cell is the global GL CLAMP_TO_EDGE cell (ray.cuh's
@@ -27,7 +30,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tf1d.cuh"
+#include "ray.cuh"
 
 // The slab a rank holds: its index k of the S slabs, the thin slabs a
 // rank (1: contiguous) and whether its fetch is masked by ownership.
@@ -68,4 +71,21 @@ __device__ __forceinline__ VptSlabCell vpt_slab_cell(int d, int h, int w,
   c.fy = uy - iy;
   c.fz = uz - iz;
   return c;
+}
+
+// (value, channel 1) of a slab cell's row of a (slab rows, 8 * channels)
+// corner table, kC = 0 (one channel; channel 1 is 0) or 2: ray.cuh's row
+// read and lerp chain, as the whole-table fetch runs them on the global
+// cell's row, which holds the same corners.
+template <bool kBf16, int kC>
+__device__ __forceinline__ float2 vpt_slab_value(const void* table,
+                                                 const VptSlabCell& c) {
+  const VptCell<int64_t> cell = {c.row, c.fx, c.fy, c.fz};
+  if constexpr (kC == 2) {
+    return vpt_lerp_rg<kBf16, 2>(vpt_load_rows<kBf16, 2>(table, c.row),
+                                 cell);
+  } else {
+    return make_float2(
+        vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(table, c.row), cell), 0.0f);
+  }
 }

@@ -89,6 +89,12 @@ SIGNATURES = {
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
     # prepared VptMarchExt, state; first, mix; stream
     "vpt_march_launch": [_P, _P, _F, _F, _P],
+    # prepared VptMarchExt of a slab; slab index, slabs, interleave,
+    # masked; value, carry, state; first, mix; chunk; stream
+    "vpt_march_halo_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _F, _F, _I,
+                              _P],
+    # mode, flags (1 bf16, 8 two channels), TW, TF mode, device, out
+    "vpt_march_halo_info": [_I, _I, _I, _I, _I, _P],
     # mode, flags (1 bf16, 2 clamp boxes, 4 ext of one channel, 8 of two),
     # TW, TF mode, device, out
     "vpt_march_info": [_I, _I, _I, _I, _I, _P],
@@ -101,6 +107,11 @@ SIGNATURES = {
     "vpt_iso_shade_launch": [_P, _P, _P, _P],
     # flags (1 bf16, 2 ext of one channel, 4 of two), TF mode, device, out
     "vpt_iso_shade_info": [_I, _I, _I, _P],
+    # prepared VptIsoShadeExt of a slab; slab index, slabs, interleave,
+    # masked; value, state, out; stage (0 fetch, 1 shade); stream
+    "vpt_iso_halo_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # stage, flags (1 bf16, 4 two channels), TF mode, device, out
+    "vpt_iso_halo_info": [_I, _I, _I, _I, _P],
     # the argument list every build since the port exports: state, out;
     # table, bf16, D, H, W, TF row, TW, TF mode; width, height; h, 2h,
     # light xyz; stream
@@ -111,6 +122,14 @@ SIGNATURES = {
     # flags (1 bf16, 4 an environment map, 8 ext, 16 two channels), TW,
     # device, out
     "vpt_mcs_info": [_I, _I, _I, _P],
+    # prepared VptMcsExt of a slab, state; seed, direction xyz, n; slab
+    # index, slabs, interleave, masked; rng, tag, track, diffuse, value,
+    # live counts; launch, live (out); stream
+    "vpt_mcs_halo_launch": ([_P, _P] + [_F] * 5 + [_I] * 4 + [_P] * 6
+                            + [_I, _P, _P]),
+    # flags (1 bf16, 4 an environment map, 16 two channels), TW, device,
+    # out
+    "vpt_mcs_halo_info": [_I, _I, _I, _P],
     # the argument list every build since the port exports: state; table,
     # bf16, D, H, W, TF row, TW, TF mode, MVP, env; width, height; seed,
     # extinction, cell; use_skip; direction xyz, n; stream
@@ -126,6 +145,13 @@ SIGNATURES = {
     # occlusion, ext, depth, max depth, slice distance, offsets; slice,
     # row0, band rows, ext row0, ext rows; stream
     "vpt_dos_band": [_P] * 8 + [_I] * 5 + [_P],
+    # prepared VptDosExt of a slab; color, occlusion, scratch occlusion,
+    # depth, max depth, slice distance, offsets; slab index, slabs,
+    # interleave, masked; value; k0, count, stage, advance; stream
+    "vpt_dos_halo_launch": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
+    # stage, flags (1 bf16, 4 two channels), TF mode, disk taps, device,
+    # out
+    "vpt_dos_halo_info": [_I, _I, _I, _I, _I, _P],
     # prepared VptLaoArgs, state; stream
     "vpt_lao_launch": [_P, _P, _P],
     # prepared VptLaoArgs, state, counts; stream
@@ -428,14 +454,61 @@ def is_halo(scene) -> bool:
 
 def refuse_halo(scene, what: str, item: str) -> None:
     """Raise ``_not_ported`` for a frame of ``what`` over a HaloScene on
-    the card: that kernel reads one whole corner table (ROADMAP queue 2b
-    ``item``)."""
+    the card: that kernel reads one whole corner table and has no halo
+    instance yet (ROADMAP queue 2b ``item``)."""
     if is_halo(scene):
         from ..renderers.base import _not_ported
 
         raise _not_ported(f"{what} over a HaloScene on the card (its "
                           "kernel split around the slab fetch)",
                           f"queue 2b item {item}")
+
+
+def slab_scene(scene, use_skip: bool = False):
+    """What a kernel's halo or resident launch takes of a HaloScene:
+    ``(tensors, args)``, ``args`` = (the slab's corner rows, or with
+    ``use_skip`` its cheb-skip rows, bf16, D, H, W, TF row, TW, TF mode,
+    environment, EH, EW, inverse MVP, the packed 2D TF table or None, TH,
+    channels) and ``tensors`` the tensors they point into.  A two-channel
+    scene samples its (rows, 16) slab rows and looks the pair up in the
+    packed TF table of the rows' dtype."""
+    from . import tf1d
+    from ..parallel.halo import slab_depth
+
+    if scene.filter != "linear":
+        raise ValueError("a HaloScene has no filter")
+    channels = 1 if use_skip else scene.channels
+    table = scene.tracking_packed if use_skip else scene.slab_packed
+    d, h, w = scene.volume_shape[:3]
+    rows = slab_depth(d, scene.num_slabs, scene.interleave) * h * w
+    if table is None or table.dtype not in (torch.float32, torch.bfloat16) \
+            or tuple(table.shape) != (rows, 8 * channels):
+        raise ValueError("a HaloScene frame on the card samples the slab's "
+                         f"({rows}, {8 * channels}) float32 or bfloat16 "
+                         "corner rows (halo.slab_table)")
+    table = table.contiguous()
+    check_aligned(table, "the slab table")
+    row = scene.transfer_1d.to(torch.float32).contiguous()
+    tf1d.check_width(row.shape[0])
+    check_aligned(row, "the TF row")
+    mvp = scene.mvp_inverse.to(torch.float32).contiguous()
+    env, eh, ew = environment_map(scene)
+    tf_table, th = None, 0
+    if channels == 2:
+        tf_table = scene.transfer_packed
+        th, tw = scene.transfer.shape[:2]
+        if tf_table is None or tf_table.dtype != table.dtype \
+                or tuple(tf_table.shape) != (th * tw, 16):
+            raise ValueError("a two-channel HaloScene's kernels take the "
+                             "packed (TH*TW, 16) TF table in the slab "
+                             "rows' dtype")
+        tf_table = tf_table.contiguous()
+        check_aligned(tf_table, "the packed TF table")
+    return (table, row, mvp, env, tf_table), (
+        table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
+        row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
+        env.data_ptr(), eh, ew, mvp.data_ptr(),
+        None if tf_table is None else tf_table.data_ptr(), th, channels)
 
 
 def environment_map(scene):

@@ -34,7 +34,10 @@ prepares once (``VptDosArgs``, passed as one pointer), with
 ``tan(aperture)`` from ``dos._tan_aperture`` on the scene's device, so that
 the kernel's rows equal :func:`slice_table`'s bit for bit;
 :func:`slice_rows_plain` is the kernel's row computation in numpy float32
-scalars.  :data:`LAUNCHES` counts kernel launches: one a frame.
+scalars.  :data:`LAUNCHES` counts kernel launches: one a frame.  A frame
+over a ``parallel.halo.HaloScene`` (a rank's z slab) runs the kernel's
+halo instance on the card (:func:`halo_sweep_frame`); its plain twin is
+:func:`sweep_frame_plain` over the same scene.
 """
 
 from __future__ import annotations
@@ -51,6 +54,12 @@ from . import _build
 LAUNCHES = 0
 #: launches of the band instance (one a slice), likewise
 BAND_LAUNCHES = 0
+#: launches of the halo instance (two a chunk of HALO_CHUNK active
+#: slices), likewise
+HALO_LAUNCHES = 0
+#: slices a halo fetch samples (``kHaloChunk``; vpt_tpu's sweep samples 8
+#: slices a ``sample_color``, one ``psum`` each)
+HALO_CHUNK = 8
 #: the leading floats of a table row (``dos.TABLE_HEAD``)
 _HEAD = 4
 #: the most disk taps the kernel takes: a block holds at least one row of
@@ -221,8 +230,12 @@ def sweep_frame(state, scene, params, table=None):
             raise ValueError("the plain sweep writes no table")
         sweep_frame_plain(state, scene, params)
         return
+    if _build.is_halo(scene):
+        if table is not None:
+            raise ValueError("the DOS halo frame writes no table")
+        halo_sweep_frame(state, scene, params)
+        return
     global LAUNCHES
-    _build.refuse_halo(scene, "a DOS frame (K9)", "8")
     p = _scene_cache.get(scene, (params,) + tuple(color.shape[:2]))
     device = color.device
     if color.get_device() != p.device:
@@ -268,7 +281,10 @@ def band_slice(state, ext, ext_row0: int, scene, params, k: int, window):
     global BAND_LAUNCHES
     from .. import sampling
 
-    _build.refuse_halo(scene, "a DOS frame (K9)", "8")
+    if _build.is_halo(scene):
+        raise ValueError("a DOS band of rows takes the whole scene: a "
+                         "HaloScene's sweep renders the whole image "
+                         "(halo.sharded_render_frame with data = 1)")
     band_h, width = color.shape[:2]
     row0, height = sampling.row_window(window, band_h)
     p = _scene_cache.get(scene, (params, height, width))
@@ -300,6 +316,122 @@ def band_slice(state, ext, ext_row0: int, scene, params, k: int, window):
     if err:
         _build.check("vpt_dos_band", err)
     BAND_LAUNCHES += 1
+
+
+def _halo_fields(scene):
+    return (scene.slab_packed, scene.transfer_1d, scene.mvp_inverse,
+            scene.projection, scene.tf_mxu, scene.transfer_packed)
+
+
+def _prepare_halo(scene, key):
+    """What every halo frame of ``key`` = (params, height, width) takes of
+    a HaloScene: the ``VptDosExt`` of its slab rows with the fold's
+    cooperative grid, the second occlusion buffer and the chunk's
+    (HALO_CHUNK, n, channels) values."""
+    from ..renderers import dos
+
+    params, height, width = key
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the DOS kernel indexes pixels "
+                         "with 32-bit integers")
+    if not 1 <= params.samples <= MAX_SAMPLES or params.steps < 1:
+        raise ValueError(f"the DOS kernel takes 1 to {MAX_SAMPLES} disk "
+                         "taps and at least one slice a frame")
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, _, _, _, mvp, tf_table,
+              th, channels) = _build.slab_scene(scene)
+    projection = scene.projection.to(torch.float32).contiguous()
+    dev = tensors[0].device
+    occ = halo_occupancy(1, tensors[0].dtype, tf_mode, params.samples,
+                         dev.index, channels)
+    blocks = occ["blocks_per_sm"] * occ["sms"]
+    if blocks == 0:
+        raise RuntimeError("the DOS halo fold fits no block on an SM")
+    args = _Args(table, row, mvp, projection.data_ptr(), bf16, d, h, w, tw,
+                 tf_mode, width, height, params.samples, params.steps,
+                 float(np.float32(params.extinction)),
+                 float(dos._tan_aperture(params, scene.device)), blocks,
+                 dev.index, tf_table, th, channels, 0)
+    n = height * width
+    return _build.Prepared(
+        tensors=(*tensors, projection), args=args,
+        address=ctypes.addressof(args), device=dev.index,
+        color_shape=torch.Size((height, width, 4)),
+        occlusion_shape=torch.Size((height, width)),
+        scratch=torch.empty((height, width), dtype=torch.float32,
+                            device=dev),
+        value=torch.empty(HALO_CHUNK * n * channels, dtype=torch.float32,
+                          device=dev),
+        launch=_build.library().vpt_dos_halo_launch)
+
+
+_halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
+
+
+def halo_sweep_frame(state, scene, params):
+    """``params.steps`` slices of the sweep over a HaloScene on the card,
+    in place on the DOS state.  The host counts the frame's active slices
+    (``dos.active_slices``, one read of the state's depths); each chunk of
+    up to HALO_CHUNK of them is a launch of the halo instance's fetch (the
+    masked values of this rank's slab rows), one all-reduce
+    (``HaloScene.reduce_``) and a cooperative launch of its fold (the
+    chunk's slices as K9 runs them, from the summed values); the last fold
+    advances the depth.  So a frame is ceil(n / HALO_CHUNK) all-reduces for
+    n active slices, as vpt_tpu's ``psum`` a ``sample_color`` of 8 slices,
+    where the plain twin sums a slice at a time; with none active, one fold
+    that advances the depth by 0.  Equal bit for bit to
+    :func:`sweep_frame` on the whole scene."""
+    global HALO_LAUNCHES
+    from ..renderers import dos
+
+    color, occlusion = state["color"], state["occlusion"]
+    if not color.is_cuda:
+        sweep_frame_plain(state, scene, params)
+        return
+    p = _halo_cache.get(scene, (params,) + tuple(color.shape[:2]))
+    device = color.device
+    if color.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{device}")
+    _build.check_image(color, p.color_shape, device, "the DOS color")
+    _build.check_image(occlusion, p.occlusion_shape, device,
+                       "the DOS occlusion")
+    _build.check_aligned(color, "the DOS color")
+    offsets = state["offsets"]
+    _check_tensor(offsets, (params.samples, 2), device, "offsets")
+    scalars = [state[k] for k in ("depth", "max_depth", "slice_distance")]
+    for key, value in zip(("depth", "max_depth", "slice_distance"), scalars):
+        _check_tensor(value, (), device, key)
+    n_active = dos.active_slices(state, params)
+    stream = _build.current_stream(p.device)
+    head = (p.address, color.data_ptr(), occlusion.data_ptr(),
+            p.scratch.data_ptr(), *(v.data_ptr() for v in scalars),
+            offsets.data_ptr(), scene.slab_index, scene.num_slabs,
+            scene.interleave, int(scene.collective), p.value.data_ptr())
+    starts = list(range(0, n_active, HALO_CHUNK)) or [0]
+    for k0 in starts:
+        count = min(HALO_CHUNK, n_active - k0)
+        last = int(k0 == starts[-1])
+        if count > 0:
+            _build.check("vpt_dos_halo_launch",
+                         p.launch(*head, k0, count, 0, 0, stream))
+            HALO_LAUNCHES += 1
+            scene.reduce_(p.value)
+        _build.check("vpt_dos_halo_launch",
+                     p.launch(*head, k0, count, 1, last, stream))
+        HALO_LAUNCHES += 1
+
+
+def halo_occupancy(stage: int, table_dtype, tf_mode: int = 0,
+                   samples: int = 8, device: int = 0,
+                   channels: int = 1) -> dict:
+    """The launch shape of the halo instance's fetch (``stage`` 0) or
+    cooperative fold (1) for a chunk of HALO_CHUNK slices, as
+    :func:`occupancy`'s.  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) | 4 * (channels == 2)
+    _build.check("vpt_dos_halo_info", _build.library().vpt_dos_halo_info(
+        stage, flags, tf_mode, samples, device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
 
 
 #: the fields of :func:`occupancy`, in the order ``vpt_dos_sweep_info``

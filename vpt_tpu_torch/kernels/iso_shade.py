@@ -17,7 +17,10 @@ texture-space light and the material color at the hit.  Here it is
 
 :func:`shade` takes the plain version for CPU state and launches the kernel
 for CUDA state; it raises on what the kernel does not take (unpacked
-scenes, images of 2^31 pixels or more) and never falls back.  What a
+scenes, images of 2^31 pixels or more) and never falls back.  A display
+of a ``parallel.halo.HaloScene`` (a rank's z slab) runs the kernel's halo
+instance on the card (:func:`halo_shade`); its plain twin is
+:func:`iso_shade_plain` over the same scene.  What a
 display takes of the scene, the Params and the resolution it prepares once
 (``VptIsoShadeExt``, passed as one pointer): the table, the TF row, h and
 the float32 2h from ``_build.f32`` arithmetic, and the light direction that
@@ -35,6 +38,10 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: launches of the halo instance (2 a display), likewise
+HALO_LAUNCHES = 0
+#: the fetches of a hit: +h and −h on x, y, z, then the hit
+TAPS = 7
 
 
 def iso_shade_plain(state, scene, params):
@@ -100,8 +107,9 @@ def shade(state, scene, params):
     4): a new tensor."""
     if not state.is_cuda:
         return iso_shade_plain(state, scene, params)
+    if _build.is_halo(scene):
+        return halo_shade(state, scene, params)
     global LAUNCHES
-    _build.refuse_halo(scene, "an ISO display (K7)", "6")
     p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2]))
     if state.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
@@ -117,6 +125,82 @@ def shade(state, scene, params):
         _build.check("vpt_iso_shade_launch", err)
     LAUNCHES += 1
     return out
+
+
+def _halo_fields(scene):
+    return (scene.slab_packed, scene.transfer_1d, scene.tf_mxu,
+            scene.model_view, scene.transfer_packed)
+
+
+def _prepare_halo(scene, key):
+    """What every halo display of ``key`` = (params, height, width) takes
+    of a HaloScene: the ``VptIsoShadeExt`` of its slab rows and the
+    display's (TAPS, n, channels) values between its launches."""
+    from ..renderers import iso
+
+    params, height, width = key
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the ISO shade kernel indexes "
+                         "pixels with 32-bit integers")
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, _, _, _, _, tf_table,
+              th, channels) = _build.slab_scene(scene)
+    step = _build.f32(params.gradient_step)
+    light = tuple(iso.light_direction(scene, params).tolist())
+    dev = tensors[0].device
+    args = _Args(table, row, bf16, d, h, w, tw, tf_mode, width, height, step,
+                 _build.f32(2.0 * step), *light, dev.index, tf_table, th,
+                 channels, 0)
+    return _build.Prepared(
+        tensors=tensors, args=args, address=ctypes.addressof(args),
+        device=dev.index, shape=torch.Size((height, width, 4)),
+        value=torch.empty(TAPS * height * width * channels,
+                          dtype=torch.float32, device=dev),
+        launch=_build.library().vpt_iso_halo_launch)
+
+
+_halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
+
+
+def halo_shade(state, scene, params):
+    """The display of an ISO state over a HaloScene on the card: two
+    launches of the halo instance around ONE all-reduce
+    (``HaloScene.reduce_``) of the seven fetches' masked values of every
+    hit pixel, where vpt_tpu and the plain twin sum each of the seven
+    ``sample_color`` calls on its own (seven all-reduces): the same sums,
+    so on one slab the image equals :func:`shade`'s on the whole scene bit
+    for bit.  A new (H, W, 4) tensor."""
+    global HALO_LAUNCHES
+    if not state.is_cuda:
+        return iso_shade_plain(state, scene, params)
+    p = _halo_cache.get(scene, (params,) + tuple(state.shape[:2]))
+    if state.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{state.device}")
+    if state.dtype is not torch.float32 or state.shape != p.shape \
+            or not state.is_contiguous() or state.data_ptr() % 16:
+        raise ValueError("the iso state must be a contiguous float32 "
+                         f"{tuple(p.shape)} tensor on a 16-byte boundary")
+    out = state.new_empty(p.shape)
+    stream = _build.current_stream(p.device)
+    head = (p.address, scene.slab_index, scene.num_slabs, scene.interleave,
+            int(scene.collective), p.value.data_ptr(), state.data_ptr(),
+            out.data_ptr())
+    _build.check("vpt_iso_halo_launch", p.launch(*head, 0, stream))
+    scene.reduce_(p.value)
+    _build.check("vpt_iso_halo_launch", p.launch(*head, 1, stream))
+    HALO_LAUNCHES += 2
+    return out
+
+
+def halo_occupancy(stage: int, table_dtype, tf_mode: int = 0,
+                   device: int = 0, channels: int = 1) -> dict:
+    """The launch shape of the halo instance's fetch (``stage`` 0) or
+    shade (1), as :func:`occupancy`'s.  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) | 4 * (channels == 2)
+    _build.check("vpt_iso_halo_info", _build.library().vpt_iso_halo_info(
+        stage, flags, tf_mode, device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
 
 
 #: the fields of :func:`occupancy`, in the order ``vpt_iso_shade_info``

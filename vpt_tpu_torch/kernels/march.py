@@ -21,7 +21,11 @@ slices, folding the renderer's composite, then its integrate.  Here it is
 :func:`march_frame` takes the plain version for CPU state and launches the
 kernel for CUDA state; it raises on what the kernel does not take
 (unpacked scenes, images of 2^31 pixels or more, tables of 2^31 rows or
-more: it indexes both with 32-bit integers) and never falls back.  What a launch takes of the scene, the Params
+more: it indexes both with 32-bit integers) and never falls back.  A frame
+over a ``parallel.halo.HaloScene`` (a rank's z slab) runs the kernel's
+halo instance on the card (:func:`halo_march_frame`); its plain twin is
+:func:`march_frame_plain` over the same scene, whose samplers mask and sum
+alike.  What a launch takes of the scene, the Params
 and the resolution it prepares once (``VptMarchExt``, passed as one
 pointer); a frame then computes its two scalars, the schedule's first value
 and the running mean's weight 1/n, the float32 values of
@@ -40,6 +44,12 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: launches of the halo instance (ceil(slices / HALO_CHUNK) + 1 a frame),
+#: likewise
+HALO_LAUNCHES = 0
+#: slices a halo fetch samples (``kHaloChunk``; vpt_tpu's march samples
+#: 8 slices a ``sample_color``, one ``psum`` each)
+HALO_CHUNK = 8
 
 #: the kernel's code for each renderer's composite (``csrc/march.cu``)
 MODES = {"eam": 0, "mip": 1, "depth": 2, "iso": 3}
@@ -196,8 +206,11 @@ def march_frame(mode, state, scene, params, seed, frame_number,
         march_frame_plain(mode, state, scene, params, seed, frame_number,
                           window)
         return
+    if _build.is_halo(scene):
+        halo_march_frame(mode, state, scene, params, seed, frame_number,
+                         window)
+        return
     global LAUNCHES
-    _build.refuse_halo(scene, f"an {mode.upper()} frame (K6)", "6")
     p = _scene_cache.get(scene, (mode, params) + tuple(state.shape[:2])
                          + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:
@@ -215,12 +228,107 @@ def march_frame(mode, state, scene, params, seed, frame_number,
     LAUNCHES += 1
 
 
+def _halo_fields(scene):
+    return (scene.slab_packed, scene.transfer_1d, scene.mvp_inverse,
+            scene.tf_mxu, scene.transfer_packed)
+
+
+def _prepare_halo(scene, key):
+    """What every halo frame of ``key`` = (mode, params, height, width,
+    row0, full_height) takes of a HaloScene: the ``VptMarchExt`` of its
+    slab rows (no box, no filter), the seed's schedule function and the
+    frame's scratch: the chunk's values, (HALO_CHUNK, n, channels), and the
+    composite's carry, (n, 4), between the launches."""
+    mode, params, height, width, row0, full_height = key
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the march kernel indexes "
+                         "pixels with 32-bit integers")
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, _, _, _, mvp, tf_table,
+              th, channels) = _build.slab_scene(scene)
+    slices, step, _, extinction, level, _ = frame_scalars(mode, params, 0.0,
+                                                          1)
+    dev = tensors[0].device
+    device = dev.index if dev.type == "cuda" else -1
+    args = _Args(table, row, mvp, bf16, d, h, w, tw, tf_mode, MODES[mode],
+                 width, height, slices, step, extinction, level, device,
+                 row0, full_height, 0, (ctypes.c_float * 12)(), tf_table, th,
+                 channels, 0)
+    n = height * width
+    value = torch.empty(HALO_CHUNK * n * channels, dtype=torch.float32,
+                        device=dev)
+    carry = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    return _build.Prepared(
+        tensors=tensors, args=args, address=ctypes.addressof(args),
+        device=device, shape=torch.Size(state_shape(mode, height, width)),
+        align=4 if mode == "mip" else 16, first=first_of(mode, params, step),
+        chunks=-(-slices // HALO_CHUNK), value=value, carry=carry,
+        launch=_build.library().vpt_march_halo_launch)
+
+
+_halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
+
+
+def halo_march_frame(mode, state, scene, params, seed, frame_number,
+                     window=None):
+    """One frame of renderer ``mode`` over a HaloScene on the card, in
+    place on CUDA ``state``: ``C = ceil(slices / HALO_CHUNK)`` all-reduces
+    (``HaloScene.reduce_`` of the chunk's masked values, one a
+    ``HALO_CHUNK`` slices as vpt_tpu's ``psum`` a ``sample_color``, and as
+    the plain twin's sum a fetch) between ``C + 1`` launches of the halo
+    instance: launch e folds chunk e − 1's summed values (the TF lookup of
+    the sum, the renderer's composite) and writes chunk e's masked values
+    from this rank's slab rows; the last integrates the frame.  Equal bit
+    for bit to :func:`march_frame` on the whole scene: only the owner's
+    value is non-zero.  The slabs may be interleaved, the fetch unmasked,
+    the volume two-channel (a value pair a sample, the 2D TF lookup).
+    ``window`` as in :func:`march_frame`."""
+    global HALO_LAUNCHES
+    from .. import sampling
+
+    if not state.is_cuda:
+        march_frame_plain(mode, state, scene, params, seed, frame_number,
+                          window)
+        return
+    height, width = state.shape[:2]
+    p = _halo_cache.get(scene, (mode, params, height, width)
+                        + sampling.row_window(window, height))
+    if state.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{state.device}")
+    if state.dtype is not torch.float32 or state.shape != p.shape \
+            or not state.is_contiguous() or state.data_ptr() % p.align:
+        raise ValueError(f"the {mode} state must be a contiguous float32 "
+                         f"{tuple(p.shape)} tensor on a {p.align}-byte "
+                         "boundary")
+    first, mix = p.first(seed), frame_mix(frame_number)
+    stream = _build.current_stream(p.device)
+    head = (p.address, scene.slab_index, scene.num_slabs, scene.interleave,
+            int(scene.collective), p.value.data_ptr(), p.carry.data_ptr(),
+            state.data_ptr(), first, mix)
+    for chunk in range(p.chunks + 1):
+        _build.check("vpt_march_halo_launch", p.launch(*head, chunk, stream))
+        HALO_LAUNCHES += 1
+        if chunk < p.chunks:
+            scene.reduce_(p.value)
+
+
 #: the fields of :func:`occupancy`, in the order ``vpt_march_info`` writes
 #: them
 OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
                     "registers", "local_bytes", "static_smem_bytes",
                     "dynamic_smem_bytes", "chunk", "tile_width",
                     "tile_height", "warp_width")
+
+
+def halo_occupancy(mode, table_dtype, tf_width: int, tf_mode: int = 0,
+                   device: int = 0, channels: int = 1) -> dict:
+    """The halo instance's launch shape, as :func:`occupancy`'s (``chunk``:
+    the slices of a fetch).  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) | 8 * (channels == 2)
+    _build.check("vpt_march_halo_info", _build.library().vpt_march_halo_info(
+        MODES[mode], flags, tf_width, tf_mode, device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
 
 
 def occupancy(mode, table_dtype, tf_width: int, tf_mode: int = 0,

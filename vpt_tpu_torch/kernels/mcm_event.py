@@ -212,52 +212,6 @@ def _halo_fields(scene):
             scene.transfer_packed)
 
 
-def _slab_scene(scene, use_skip):
-    """What a halo or resident launch takes of a HaloScene: ``(tensors,
-    args)``, ``args`` = (the slab's corner or cheb-skip rows, bf16, D, H,
-    W, TF row, TW, TF mode, environment, EH, EW, inverse MVP, the packed
-    2D TF table or None, TH, channels) and ``tensors`` the tensors they
-    point into.  A two-channel scene samples its (rows, 16) slab rows and
-    looks the pair up in the packed TF table of the rows' dtype."""
-    from . import tf1d
-    from ..parallel.halo import slab_depth
-
-    if scene.filter != "linear":
-        raise ValueError("a HaloScene has no filter")
-    channels = 1 if use_skip else scene.channels
-    table = scene.tracking_packed if use_skip else scene.slab_packed
-    d, h, w = scene.volume_shape[:3]
-    rows = slab_depth(d, scene.num_slabs, scene.interleave) * h * w
-    if table is None or table.dtype not in (torch.float32, torch.bfloat16) \
-            or tuple(table.shape) != (rows, 8 * channels):
-        raise ValueError("a HaloScene frame on the card samples the slab's "
-                         f"({rows}, {8 * channels}) float32 or bfloat16 "
-                         "corner rows (halo.slab_table)")
-    table = table.contiguous()
-    _build.check_aligned(table, "the slab table")
-    row = scene.transfer_1d.to(torch.float32).contiguous()
-    tf1d.check_width(row.shape[0])
-    _build.check_aligned(row, "the TF row")
-    mvp = scene.mvp_inverse.to(torch.float32).contiguous()
-    env, eh, ew = _build.environment_map(scene)
-    tf_table, th = None, 0
-    if channels == 2:
-        tf_table = scene.transfer_packed
-        th, tw = scene.transfer.shape[:2]
-        if tf_table is None or tf_table.dtype != table.dtype \
-                or tuple(tf_table.shape) != (th * tw, 16):
-            raise ValueError("a two-channel HaloScene's kernels take the "
-                             "packed (TH*TW, 16) TF table in the slab "
-                             "rows' dtype")
-        tf_table = tf_table.contiguous()
-        _build.check_aligned(tf_table, "the packed TF table")
-    return (table, row, mvp, env, tf_table), (
-        table.data_ptr(), int(table.dtype == torch.bfloat16), d, h, w,
-        row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
-        env.data_ptr(), eh, ew, mvp.data_ptr(),
-        None if tf_table is None else tf_table.data_ptr(), th, channels)
-
-
 def _prepare_halo(scene, key):
     """What the halo instance's launches of ``key`` = (use_skip, height,
     width, row0, full_height) take of a HaloScene: ``Prepared(tensors,
@@ -267,7 +221,7 @@ def _prepare_halo(scene, key):
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the MCM event kernel indexes "
                          "pixels with 32-bit integers")
-    tensors, args = _slab_scene(scene, use_skip)
+    tensors, args = _build.slab_scene(scene, use_skip)
     dev = tensors[0].device
     n = height * width
     scratch = (torch.empty(n, dtype=torch.int32, device=dev),
@@ -348,7 +302,7 @@ RESIDENT_LEAVES = (("position", torch.float32, 3),
 
 def _prepare_resident(scene, key):
     use_skip, = key
-    tensors, args = _slab_scene(scene, use_skip)
+    tensors, args = _build.slab_scene(scene, use_skip)
     return _build.Prepared(tensors=tensors, scene_args=args)
 
 

@@ -22,6 +22,11 @@ passed as one pointer); a frame passes
 its seed, its scatter direction (``mcs.scatter_direction``, which the plain
 version takes too) and n.  Given ``counts``, the frame also adds its
 tracking steps and corner-row fetches to it.
+
+A frame over a ``parallel.halo.HaloScene`` (a rank's z slab) runs the
+kernel's halo instance on the card (:func:`halo_mcs_frame`): a launch a
+fetch of the slowest pixel, and one more; its plain twin is
+:func:`mcs_frame_plain` over the same scene.
 """
 
 from __future__ import annotations
@@ -35,6 +40,10 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: launches of the halo instance (the slowest pixel's fetches + 1 a
+#: frame, each followed by a host read of the card's count of pixels that
+#: fetch), likewise
+HALO_LAUNCHES = 0
 
 
 def mcs_frame_plain(state, scene, params, seed, frame_number, window=None):
@@ -118,8 +127,12 @@ def mcs_frame(state, scene, params, seed, frame_number, counts=None,
             raise ValueError("the plain MCS frame counts nothing")
         mcs_frame_plain(state, scene, params, seed, frame_number, window)
         return
+    if _build.is_halo(scene):
+        if counts is not None:
+            raise ValueError("the MCS halo frame counts nothing")
+        halo_mcs_frame(state, scene, params, seed, frame_number, window)
+        return
     global LAUNCHES
-    _build.refuse_halo(scene, "an MCS frame (K8)", "7")
     p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2])
                          + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:
@@ -142,6 +155,114 @@ def mcs_frame(state, scene, params, seed, frame_number, counts=None,
     if err:
         _build.check("vpt_mcs_launch", err)
     LAUNCHES += 1
+
+
+def _halo_fields(scene):
+    return (scene.slab_packed, scene.tracking_packed, scene.transfer_1d,
+            scene.mvp_inverse, scene.tf_mxu, scene.environment,
+            scene.transfer_packed)
+
+
+def _prepare_halo(scene, key):
+    """What every halo frame of ``key`` = (params, height, width, row0,
+    full_height) takes of a HaloScene: the ``VptMcsExt`` of its slab rows
+    (the cheb-skip rows where it has them) and the frame's scratch between
+    the launches: each pixel's stream, phase, tracking, diffuse colour and
+    pending value, and the card's two counts of pixels that fetch."""
+    from ..renderers import mcs
+
+    params, height, width, row0, full_height = key
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the MCS kernel indexes pixels "
+                         "with 32-bit integers")
+    use_skip = scene.tracking_packed is not None
+    tensors, (table, bf16, d, h, w, row, tw, tf_mode, env, eh, ew, mvp,
+              tf_table, th, channels) = _build.slab_scene(scene, use_skip)
+    cell = mcs.skip_cell_size(scene) if use_skip else 0.0
+    dev = tensors[0].device
+    args = _Args(table, row, mvp, env, bf16, d, h, w, tw, tf_mode, width,
+                 height, params.extinction, cell, int(use_skip), dev.index,
+                 eh, ew, row0, full_height, tf_table, th, channels, 0)
+    n = height * width
+    scratch = {"rng": torch.empty(n, dtype=torch.int32, device=dev),
+               "tag": torch.empty(n, dtype=torch.int32, device=dev),
+               "track": torch.empty((n, 4), dtype=torch.float32, device=dev),
+               "diffuse": torch.empty((n, 4), dtype=torch.float32,
+                                      device=dev),
+               "value": torch.empty(n * channels, dtype=torch.float32,
+                                    device=dev),
+               "live": torch.zeros(2, dtype=torch.int32, device=dev)}
+    return _build.Prepared(
+        tensors=tensors, args=args, address=ctypes.addressof(args),
+        device=dev.index, shape=torch.Size((height, width, 4)),
+        scratch=scratch, pointers=tuple(t.data_ptr() for t in (
+            scratch["rng"], scratch["tag"], scratch["track"],
+            scratch["diffuse"], scratch["value"], scratch["live"])),
+        direction=mcs.scatter_direction,
+        launch=_build.library().vpt_mcs_halo_launch)
+
+
+_halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
+
+
+def halo_mcs_frame(state, scene, params, seed, frame_number, window=None):
+    """One MCS frame over a HaloScene on the card, in place on CUDA
+    ``state``.  Each launch of the halo instance finishes every pixel's
+    pending fetch from the value summed over the scene's group, tracks
+    each pixel on to its next fetch (the free path, the diffuse colour,
+    the shadow's transmittance, in ``mcs.generate``'s order and with its
+    ``_MAX_TRACKING_ITERS`` on each loop) and writes that fetch's masked
+    value, or ends the pixel's frame; the host reads the card's count of
+    pixels that fetched (a wait for the stream a launch), equal on every
+    rank, and stops at 0, else all-reduces the values
+    (``HaloScene.reduce_``) and launches again.  So a frame is L + 1
+    launches around L all-reduces, L the most fetches a pixel takes: never
+    more than the plain twin's and vpt_tpu's loops, which sum a fetch of
+    every pixel at every iteration (the distance loop's iterations, the
+    diffuse fetch, the transmittance loop's) until all are done.  Equal bit
+    for bit to :func:`mcs_frame` on the whole scene.  Returns L + 1."""
+    global HALO_LAUNCHES
+    from .. import sampling
+
+    if not state.is_cuda:
+        mcs_frame_plain(state, scene, params, seed, frame_number, window)
+        return 0
+    height, width = state.shape[:2]
+    p = _halo_cache.get(scene, (params, height, width)
+                        + sampling.row_window(window, height))
+    if state.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{state.device}")
+    if state.dtype is not torch.float32 or state.shape != p.shape \
+            or not state.is_contiguous() or state.data_ptr() % 16:
+        raise ValueError("the mcs state must be a contiguous float32 "
+                         f"{tuple(p.shape)} tensor on a 16-byte boundary")
+    live = ctypes.c_int()
+    head = (p.address, state.data_ptr(), seed, *p.direction(seed),
+            frame_number, scene.slab_index, scene.num_slabs,
+            scene.interleave, int(scene.collective), *p.pointers)
+    stream = _build.current_stream(p.device)
+    launch = 0
+    while True:
+        _build.check("vpt_mcs_halo_launch", p.launch(
+            *head, launch, ctypes.byref(live), stream))
+        HALO_LAUNCHES += 1
+        launch += 1
+        if live.value == 0:
+            return launch
+        scene.reduce_(p.scratch["value"])
+
+
+def halo_occupancy(table_dtype, tf_width: int, device: int = 0,
+                   env_map: bool = False, channels: int = 1) -> dict:
+    """The halo instance's launch shape, as :func:`occupancy`'s.  Launches
+    nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) | 4 * env_map \
+        | 16 * (channels == 2)
+    _build.check("vpt_mcs_halo_info", _build.library().vpt_mcs_halo_info(
+        flags, tf_width, device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
 
 
 #: the fields of :func:`occupancy`, in the order ``vpt_mcs_info`` writes

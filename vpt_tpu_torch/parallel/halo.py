@@ -15,13 +15,26 @@ bit: a halo frame equals the replicated frame.
 :class:`HaloScene` duck-types the port's ``Scene`` samplers, so every
 renderer's plain frame runs through it unchanged, on any device, in the
 order JAX's does: the masked trilinear value is reduced first and the TF
-applied to the reduced value.  On the card an MCM frame runs K5's halo
-instance (``kernels/mcm_event.halo_event_frame``: a launch an event and
-one more, each writing every photon's masked slab-local value, or the
-value pair of a two-channel volume, with the all-reduce of it between
-launches), over contiguous or interleaved slabs, masked or not; the other
-renderers' kernels read one whole corner table, and their frames over a
-:class:`HaloScene` raise on the card (ROADMAP queue 2b).  The
+applied to the reduced value.  On the card every frame but LAO's runs a
+halo instance of its kernel, split around the masked slab-local fetch
+(the value, or the value pair of a two-channel volume) with
+:meth:`HaloScene.reduce_` (the all-reduce) between launches, over
+contiguous or interleaved slabs, masked or not:
+
+- MCM, K5's (``kernels/mcm_event.halo_event_frame``): steps + 1 launches,
+  one all-reduce an event;
+- EAM, MIP, Depth and ISO, K6's (``kernels/march.halo_march_frame``):
+  ceil(slices / 8) + 1 launches, one all-reduce a chunk of 8 slices;
+- ISO's display, K7's (``kernels/iso_shade.halo_shade``): 2 launches
+  around one all-reduce of the seven fetches (the plain twin sums each);
+- MCS, K8's (``kernels/mcs_frame.halo_mcs_frame``): a launch a fetch of
+  the slowest pixel and one more, the host reading the count of pixels
+  that fetch after each;
+- DOS, K9's (``kernels/dos_sweep.halo_sweep_frame``): a fetch launch, an
+  all-reduce and a cooperative fold a chunk of 8 active slices.
+
+LAO's kernel reads one whole corner table, and its frame over a
+:class:`HaloScene` raises on the card (ROADMAP queue 2b item 9).  The
 differentiable masked fetch is ``sampling.SlabCornerFetch`` (K3's slab
 instance forward, K4 backward); :class:`SpaceSum` is the all-reduce as an
 autograd function.  ``resident.py`` samples a ``HaloScene(collective=
@@ -361,8 +374,10 @@ def sharded_render_frame(module, mesh, scene, num_slabs: int, state_example,
     must be ``num_slabs``.  The frame renders the rows with their window
     (``render_frame(..., window=)``), in place, through a
     :class:`HaloScene`; ``module`` is any renderer whose frame reaches the
-    volume through the sampler interface (on the card: MCM, K5's halo
-    instance; the others raise, ROADMAP queue 2b).
+    volume through the sampler interface.  On the card MCM, EAM, MIP,
+    Depth, ISO (its ``display`` too), MCS and DOS run their kernels' halo
+    instances; LAO raises (ROADMAP queue 2b item 9), and DOS takes no row
+    window (``data`` = 1).
 
     A rank keeps only its slab's tables: (Ds+1)·H·W rows of 8·C lanes.
     For config 4's 512³ float32 volume on S = 2 slabs that is 257·512²·32

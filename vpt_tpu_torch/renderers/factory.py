@@ -8,15 +8,8 @@ from . import base, depth, dos, eam, iso, lao, mcm, mcs, mip
 MODULES = {"mip": mip, "iso": iso, "eam": eam, "dos": dos, "mcs": mcs,
            "mcm": mcm, "lao": lao, "depth": depth}
 
-#: renderers of vpt_tpu that the port does not have yet (none)
-NOT_PORTED = ()
-
 
 def get_module(key: str):
-    if key in NOT_PORTED:
-        raise NotImplementedError(
-            f"renderer {key!r} is not ported to vpt_tpu_torch yet "
-            "(ROADMAP.md queue 1)")
     if key not in MODULES:
         raise ValueError(
             f"unknown renderer {key!r}; available: {sorted(MODULES)}")
