@@ -5547,6 +5547,172 @@ def phase_parallel_gloo(dev):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+#: the four-rank check: rows over data = 2 and slabs over space = 2 on the
+#: one card over gloo, a 128³ volume at 256²
+GLOO4_VOLUME, GLOO4_RES = 128, 256
+
+
+def gloo4_cases():
+    """The four-rank check's frames: (renderer key, Params), default
+    Params."""
+    from vpt_tpu_torch.renderers import dos, lao
+
+    return (("lao", lao.Params()), ("dos", dos.Params()))
+
+
+def gloo4_rank(rank, world, store, out):
+    """One rank of the four-rank check: a ``gloo`` group whose collectives
+    take the card's tensors, a (2, 2) mesh.  The launch counts of K10 and
+    K9 are set to 0, then one LAO frame and one DOS frame (a sweep's
+    first) of :func:`gloo_scene` through ``halo.sharded_render_frame`` on
+    this rank's rows and slab (K10's halo instance; DOS's band of rows
+    through K9's halo band instance), and the counts and collectives read;
+    then the same rows through ``shard.shard_render_frame`` on the whole
+    scene (K10 with a row window, K9's band instance).  Rank 0 writes the
+    gathered frames, the counts and its collectives to ``out``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.kernels import dos_sweep, lao_march
+    from vpt_tpu_torch.parallel import (gather_state, halo, make_mesh,
+                                        place_state, shard_render_frame)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        scene = gloo_scene()
+        mesh = make_mesh(world, space=2)
+        cases = gloo4_cases()
+        wholes = {key: renderer_module(key).reset(params, GLOO4_RES,
+                                                  GLOO4_RES, scene)
+                  for key, params in cases}
+        torch.cuda.synchronize()
+        for name in ("LAUNCHES", "HALO_LAUNCHES"):
+            setattr(lao_march, name, 0)
+        for name in ("LAUNCHES", "BAND_LAUNCHES", "HALO_LAUNCHES",
+                     "HALO_BAND_LAUNCHES"):
+            setattr(dos_sweep, name, 0)
+        halo.COLLECTIVES.clear()
+        t0 = time.perf_counter()
+        halo_frames = {}
+        for key, params in cases:
+            frame_fn, slabs = halo.sharded_render_frame(
+                renderer_module(key), mesh, scene, 2, wholes[key])
+            halo_frames[key] = frame_fn(place_state(_clone(wholes[key]),
+                                                    mesh),
+                                        slabs, params, np.float32(0.0), 1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"lao_halo": lao_march.HALO_LAUNCHES,
+                    "lao_march": lao_march.LAUNCHES,
+                    "dos_halo_band": dos_sweep.HALO_BAND_LAUNCHES,
+                    "dos_band": dos_sweep.BAND_LAUNCHES,
+                    "dos_sweep": dos_sweep.LAUNCHES,
+                    "dos_halo": dos_sweep.HALO_LAUNCHES}
+        collectives = dict(halo.COLLECTIVES)
+        gathered = {key: gather_state(v, mesh, GLOO4_RES)
+                    for key, v in halo_frames.items()}
+        whole_frames = {}
+        for key, params in cases:
+            module = renderer_module(key)
+            rows = shard_render_frame(module, mesh, wholes[key])(
+                place_state(_clone(wholes[key]), mesh), scene, params,
+                np.float32(0.0), 1)
+            whole_frames[key] = gather_state(rows, mesh, GLOO4_RES)
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save({"halo": _cpu(gathered),
+                        "whole": _cpu(whole_frames), "launches": launches,
+                        "collectives": collectives, "seconds": seconds},
+                       out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_gloo4(dev):
+    """Four ranks on the one card over ``gloo``, ``data`` = 2 × ``space`` =
+    2 (:func:`gloo4_rank`): the LAO frame and the DOS sweep's first frame
+    of a 128³ scene at 256² through ``halo.sharded_render_frame``, with
+    their launch counts (K10's halo instance ceil(64 / 8) + 1 times a rank,
+    K9's halo band instance ceil(n / 8) + n for n active slices, no
+    whole-scene K10 or K9 instance) and rank 0's collectives (LAO one
+    all-reduce a chunk of 8 slices; DOS one all-gather over ``data`` a
+    slice and one all-reduce over ``space`` a chunk of 8 active slices);
+    each frame equals ``shard_render_frame``'s on the whole scene bit for
+    bit, LAO's equals one process's K10 frame bit for bit and DOS's is
+    within :func:`dos_bands_agree`'s bounds of the 1024² band (3e-5, 90%
+    of the values within 1e-6) of one process's cooperative K9 frame.
+    Returns (launches, errors by JSON name, seconds of the frames)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from vpt_tpu_torch.renderers import dos
+
+    t0 = time.perf_counter()
+    scene = gloo_scene()
+    want = {}
+    for key, params in gloo4_cases():
+        state = renderer_module(key).reset(params, GLOO4_RES, GLOO4_RES,
+                                           scene)
+        want[key] = _cpu(renderer_module(key).render_frame(
+            state, scene, params, np.float32(0.0), 1))
+    lao_params, dos_params = (p for _, p in gloo4_cases())
+    active = dos.active_slices(dos.reset(dos_params, GLOO4_RES, GLOO4_RES,
+                                         scene), dos_params)
+    torch.cuda.synchronize()
+    del scene
+    torch.cuda.empty_cache()
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "smoke")
+    os.makedirs(folder, exist_ok=True)
+    store = tempfile.mktemp(dir=folder, prefix="gloo4_store_")
+    out = os.path.join(folder, "gloo4_frames.pt")
+    mp.start_processes(gloo4_rank, args=(4, store, out), nprocs=4,
+                       start_method="spawn")
+    got = torch.load(out, weights_only=False)
+    launches = got["launches"]
+    chunks = -(-lao_params.slices // 8)
+    check(launches["lao_halo"] == chunks + 1 and launches["lao_march"] == 0,
+          f"path parallel gloo 4: K10 launches {launches}")
+    check(launches["dos_halo_band"] == -(-active // 8) + active
+          and launches["dos_band"] == launches["dos_sweep"]
+          == launches["dos_halo"] == 0,
+          f"path parallel gloo 4: K9 launches {launches} for {active} "
+          "active slices")
+    check(got["collectives"] == {"all_reduce": chunks + -(-active // 8),
+                                 "all_gather": active},
+          f"path parallel gloo 4: collectives {got['collectives']}")
+    for key in ("lao", "dos"):
+        a, b = got["halo"][key], got["whole"][key]
+        a, b = (a, b) if isinstance(a, dict) else ({"": a}, {"": b})
+        for k in b:
+            check(torch.equal(a[k], b[k]), f"path parallel gloo 4: the halo "
+                  f"{key} {k} differs from shard_render_frame's whole-scene "
+                  "frame")
+    check(torch.equal(got["halo"]["lao"], want["lao"]), "path parallel gloo "
+          "4: the halo LAO frame differs from one process's K10 frame")
+    derr, dshare = dos_bands_agree("path parallel gloo 4", got["halo"]["dos"],
+                                   want["dos"], 3e-5, 0.9)
+    print(f"path parallel gloo 4: 4 ranks on one card over gloo, data 2 x "
+          f"space 2, {GLOO4_VOLUME}^3 at {GLOO4_RES}^2: LAO ({chunks + 1} "
+          f"K10 halo launches a rank) and DOS's first frame ({active} active "
+          f"slices, {launches['dos_halo_band']} K9 halo band launches a "
+          f"rank) through halo.sharded_render_frame in "
+          f"{got['seconds']:.3f} s on rank 0, equal bit for bit to "
+          f"shard_render_frame's whole-scene frames; LAO equal to one "
+          f"process's K10 frame, DOS against the cooperative K9 frame max abs "
+          f"err {derr:.3g} (bound 3e-5), {dshare:.6f} within 1e-6; "
+          f"collectives on rank 0 {got['collectives']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, {"dos_halo_band": derr}, got["seconds"]
+
+
 class LaunchCounter:
     """A counter of launches kept under another name in a module (a
     kernel's second instance, e.g. ``mcm_event.HALO_LAUNCHES``), with the
@@ -5897,16 +6063,22 @@ def phase_halo_layouts(scenes):
 
 # -- the halo instances of K6, K7, K8 and K9 ---------------------------------
 
-#: the renderers whose frames run a halo instance of K6-K9, and the
+#: the renderers whose frames run a halo instance of K6-K9 (the two-rank
+#: check's), those of ``path parallel halo frames`` (K10's too), and the
 #: instances' launch counters (``launches`` of the JSON rows)
 HALO_FRAME_KEYS = ("eam", "mip", "depth", "iso", "mcs", "dos")
+HALO_PATH_KEYS = HALO_FRAME_KEYS + ("lao",)
 HALO_COUNTERS = {"march_halo": ("march", "HALO_LAUNCHES"),
                  "iso_shade_halo": ("iso_shade", "HALO_LAUNCHES"),
                  "mcs_halo": ("mcs_frame", "HALO_LAUNCHES"),
-                 "dos_halo": ("dos_sweep", "HALO_LAUNCHES")}
+                 "dos_halo": ("dos_sweep", "HALO_LAUNCHES"),
+                 "lao_halo": ("lao_march", "HALO_LAUNCHES")}
 #: the whole-scene kernel each halo instance splits, by its counter name
 HALO_WHOLE = {"march_halo": "march_frame", "iso_shade_halo": "iso_shade",
-              "mcs_halo": "mcs_frame", "dos_halo": "dos_sweep"}
+              "mcs_halo": "mcs_frame", "dos_halo": "dos_sweep",
+              "lao_halo": "lao_march"}
+#: the halo instance a renderer's halo frame runs, by renderer key
+HALO_NAME = {"mcs": "mcs_halo", "dos": "dos_halo", "lao": "lao_halo"}
 
 
 def halo_counters():
@@ -5972,24 +6144,26 @@ def kernel_means(fn, reps=10):
             and e.device_time_total > 0}
 
 
-def halo_turns(halo, whole, launches, reps=10, rounds=2):
+def halo_turns(halo, whole, launches, reps=10, rounds=2,
+               whole_launches=None):
     """Median device ms a call of ``halo`` and of ``whole`` ((callable,
     kernel-name part) each), in turns (H W W H, ``rounds`` times): a call's
     time is the profiler's mean a launch of each matching kernel times its
     launches a call, ``launches(name)`` for the halo call (the profiler may
-    drop launches, so its total is not used); 1 for the whole frame.  None
-    where no window recorded the kernel."""
+    drop launches, so its total is not used); ``whole_launches(name)``, by
+    default 1, for the whole frame.  None where no window recorded the
+    kernel."""
     times = {"halo": [], "whole": []}
     calls = {"halo": halo, "whole": whole}
+    counts = {"halo": launches, "whole": whole_launches or (lambda k: 1)}
     for _ in range(rounds):
         for name in ("halo", "whole", "whole", "halo"):
             fn, part = calls[name]
             means = {k: v for k, v in kernel_means(fn, reps).items()
                      if part in k}
             if means:
-                times[name].append(sum(
-                    v * (launches(k) if name == "halo" else 1)
-                    for k, v in means.items()))
+                times[name].append(sum(v * counts[name](k)
+                                       for k, v in means.items()))
     return {k: sorted(t)[len(t) // 2] if t else None
             for k, t in times.items()}
 
@@ -6342,13 +6516,307 @@ def phase_halo_frames(scenes):
     return rows
 
 
+def lao_halo_frame_bytes(active, pixels, chunks, values):
+    """Bytes a K10 halo frame moves besides K10's own (:func:`time_lao`'s:
+    the corner rows, rx and the frame, the TF table), the least that a
+    split of the march around one all-reduce a chunk of 8 slices moves:
+    each active pixel-slice's ``values`` tap values (4 bytes each) out
+    before the all-reduce and in after it, and each pixel's accumulator
+    (16 bytes) out and in across each of the ``chunks`` all-reduces.  K10's
+    halo instance moves this and each chunk's overshoot past a pixel's
+    exit."""
+    return active * values * 4 * 2 + pixels * chunks * 2 * 16
+
+
+def lao_halo_states(scene, params, res, slabs=(1, 0), plain=False, **kw):
+    """One LAO frame at ``res``² over the HaloScene of slab ``slabs`` =
+    (count, index) (no group), and the same frame through the whole-scene
+    K10, or with ``plain`` through the plain twin over the same HaloScene:
+    ``(halo frame, reference)``."""
+    from vpt_tpu_torch.kernels import lao_march
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.renderers import lao
+
+    count, index = slabs
+    hs = halo.halo_scene(scene, index, count, **kw)
+    got = lao.reset(params, res, res, scene)
+    want = got.clone()
+    lao.render_frame(got, hs, params, 0.5, 1)
+    if plain:
+        lao_march.lao_frame_plain(want, hs, params)
+    else:
+        lao.render_frame(want, scene, params, 0.5, 1)
+    return got, want
+
+
+def lao_halo_row(label, scene, params, res=512, timed=True):
+    """K10's halo instance on ``scene`` at ``res``²: on one slab its frame
+    equals K10's bit for bit in ceil(slices / 8) + 1 launches (K10's
+    counter still); on 2 slabs (no group, contiguous and interleave 2) each
+    slab's frame is within K10's bound of the plain twin over the same
+    HaloScene (:func:`halo_states_agree`).  With ``timed``, on one slab
+    timed in turns against K10 (:func:`halo_turns`), the loop ms, the plain
+    twin's ms, registers and spills and the bound: K10's (:func:`lao_work`,
+    :func:`lao_ops`) plus :func:`lao_halo_frame_bytes` and a slab cell's
+    operations a fetch.  Returns the row's fields."""
+    import torch
+
+    from vpt_tpu_torch.kernels import lao_march
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.renderers import lao
+
+    chunks = -(-params.slices // 8)
+    before = (lao_march.LAUNCHES, lao_march.HALO_LAUNCHES)
+    hs = halo.halo_scene(scene, 0, 1)
+    got = lao.reset(params, res, res, scene)
+    lao.render_frame(got, hs, params, 0.5, 1)
+    check((lao_march.LAUNCHES, lao_march.HALO_LAUNCHES)
+          == (before[0], before[1] + chunks + 1),
+          f"{label} K10 halo: launches {lao_march.HALO_LAUNCHES - before[1]}")
+    want = lao.reset(params, res, res, scene)
+    lao.render_frame(want, scene, params, 0.5, 1)
+    halo_states_agree(f"{label} lao halo one slab", "lao", got, want, True)
+    check(float(got[..., :3].max()) > 0.0, f"{label} K10 halo: a black "
+          "frame")
+    worst = 0.0
+    for count, index, m in ((2, 0, 1), (2, 1, 2)):
+        got, plain = lao_halo_states(scene, params, res, (count, index),
+                                     plain=True, interleave=m)
+        worst = max(worst, halo_states_agree(
+            f"{label} lao halo slab {index}/{count} m{m}", "lao", got,
+            plain, False))
+    torch.cuda.synchronize()
+    row = {"max_abs_err": worst}
+    if not timed:
+        print(f"{label} K10 halo: {res}^2 on one slab equal to K10 bit for "
+              f"bit ({chunks + 1} launches); on 2 slabs within K10's bound "
+              f"of the plain twin (max abs err {worst:.3g})", flush=True)
+        return row
+    a, b, c = (lao.reset(params, res, res, scene) for _ in range(3))
+    table = scene.volume_packed
+    whole_part = "lao_kernel" if scene.channels == 1 \
+        and not params.baked_gradient else "lao_ext_kernel"
+    t = halo_turns((lambda: lao.render_frame(a, hs, params, 0.5, 1),
+                    "lao_halo_kernel"),
+                   (lambda: lao.render_frame(b, scene, params, 0.5, 1),
+                    whole_part), lambda k: chunks + 1)
+    ms = in_turns({"halo": lambda: lao.render_frame(a, hs, params, 0.5, 1),
+                   "whole": lambda: lao.render_frame(b, scene, params, 0.5,
+                                                     1)}, 10, rounds=1)
+    plain_ms = cuda_ms(lambda: lao_march.lao_frame_plain(c, hs, params), 1)
+    samples, fetches, rows, hits, _ = lao_work(scene, params, res, res)
+    values = lao_march.halo_values(params)
+    n = res * res
+    nbytes = rows * table.shape[1] * table.element_size() + 20 * n \
+        + scene.transfer_packed.numel() * scene.transfer_packed.element_size() \
+        + lao_halo_frame_bytes(samples, n, chunks, values)
+    ops = lao_ops(scene, params, samples, fetches, hits) + fetches * SLAB_OPS
+    bound_ms, bound_by = roofline(nbytes, ops)
+    occ = lao_march.halo_occupancy(table.dtype, scene.transfer_packed.dtype,
+                                   channels=scene.channels,
+                                   baked=params.baked_gradient)
+    share = None if t["halo"] is None else bound_ms / t["halo"]
+    print(f"lao halo {label}: one slab, {res}^2, {params.slices} slices: "
+          f"{ms['halo']:.4f} ms a frame ({chunks + 1} launches, {chunks} "
+          f"all-reduces with a group of {values} values a pixel-slice; K10 "
+          f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (K10 "
+          f"{fmt_ms(t['whole'])}"
+          + (f", {t['halo'] / t['whole']:.3f}x" if t["halo"] and t["whole"]
+             else "")
+          + f"); plain twin {plain_ms:.4f} ms; {samples} active pixel-slices,"
+          f" {fetches} fetches of {rows} distinct rows; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes, {ops} "
+          "operations), "
+          + ("share not measured" if share is None else f"{share:.3f} of it")
+          + f"; {occ['registers']} registers, {occ['local_bytes']} spill "
+          f"bytes, {occ['blocks_per_sm']} blocks an SM", flush=True)
+    row.update({"ms": ms["halo"], "device_ms": t["halo"],
+                "whole_ms": ms["whole"], "whole_device_ms": t["whole"],
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_share": share,
+                "launches_a_frame": chunks + 1, "active_slices": samples,
+                "values_a_slice": values, "registers": occ["registers"],
+                "local_bytes": occ["local_bytes"]})
+    return row
+
+
+#: the halo band check's two uneven bands of a 512² image
+HALO_BANDS = ((0, 201), (201, 512))
+
+
+def band_pair_frame(scene, params, state, run, res=512):
+    """A sweep's frame from ``state`` on the two bands of
+    :data:`HALO_BANDS` in one process: each active slice the whole image's
+    previous occlusion as both bands' extended buffer, then
+    ``run(band, ext, 0, scene, params, k, window, n_active)`` on each (K9's
+    band instance, its halo instance over a HaloScene, or the plain band
+    twin).  Returns the whole frame's colour, occlusion and depth, and the
+    active slices."""
+    import torch
+
+    from vpt_tpu_torch.renderers import dos
+
+    bands = [{k: (v[r0:r1].clone() if k in ("color", "occlusion")
+                  else v.clone()) for k, v in state.items()}
+             for r0, r1 in HALO_BANDS]
+    active = dos.active_slices(bands[0], params)
+    for k in range(active):
+        ext = torch.cat([band["occlusion"] for band in bands])
+        for (r0, _), band in zip(HALO_BANDS, bands):
+            run(band, ext, 0, scene, params, k, (r0, res), active)
+    out = {key: torch.cat([band[key] for band in bands])
+           for key in ("color", "occlusion")}
+    out["depth"] = state["depth"] + float(active) * state["slice_distance"]
+    return out, active
+
+
+def dos_halo_band_row(label, scene, res=512, timed=True):
+    """K9's halo band instance on ``scene``: a 512² sweep's first frame
+    (default Params) on two uneven bands (:func:`band_pair_frame`) over
+    the HaloScene of one slab equals K9's band instance on the whole scene
+    bit for bit, in ceil(n / 8) fetches and n folds a band for n active
+    slices (the band instance's counter still); on 2 slabs (no group,
+    contiguous and interleave 2) within K9's bound of the plain band twin
+    over the same HaloScene.  With ``timed``, the band frame on one slab
+    timed in turns against the band instance's (:func:`halo_turns`: each
+    kernel's mean a launch times its launches), the loop ms, the plain
+    twin's ms and the bound: :func:`dos_work`'s frame plus the values out
+    and in across each chunk's all-reduce (:func:`dos_halo_frame_bytes`)
+    and a slab cell's operations a pixel-slice.  Returns the row's
+    fields."""
+    import torch
+
+    from vpt_tpu_torch.kernels import dos_sweep, tf1d
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.renderers import dos
+
+    params = dos.Params()
+    start = dos.reset(params, res, res, scene)
+    hs = halo.halo_scene(scene, 0, 1)
+
+    def plain(band, ext, ext_row0, sc, p, k, window, n_active):
+        dos_sweep.band_slice_plain(band, ext, ext_row0, sc, p, k, window)
+
+    before = (dos_sweep.BAND_LAUNCHES, dos_sweep.HALO_BAND_LAUNCHES)
+    got, active = band_pair_frame(hs, params, start, dos_sweep.band_slice,
+                                  res)
+    per_band = -(-active // 8) + active
+    check((dos_sweep.BAND_LAUNCHES, dos_sweep.HALO_BAND_LAUNCHES)
+          == (before[0], before[1] + 2 * per_band),
+          f"{label} K9 halo band: launches "
+          f"{dos_sweep.HALO_BAND_LAUNCHES - before[1]}")
+    want, _ = band_pair_frame(scene, params, start, dos_sweep.band_slice,
+                              res)
+    halo_states_agree(f"{label} dos halo band one slab", "dos", got, want,
+                      True)
+    check(float(got["color"][..., 3].max()) > 0.0, f"{label} K9 halo band: "
+          "no colour")
+    worst = 0.0
+    for count, index, m in ((2, 0, 1), (2, 1, 2)):
+        hs2 = halo.halo_scene(scene, index, count, interleave=m)
+        got, _ = band_pair_frame(hs2, params, start, dos_sweep.band_slice,
+                                 res)
+        want, _ = band_pair_frame(hs2, params, start, plain, res)
+        worst = max(worst, halo_states_agree(
+            f"{label} dos halo band slab {index}/{count} m{m}", "dos", got,
+            want, False))
+    torch.cuda.synchronize()
+    row = {"max_abs_err": worst}
+    if not timed:
+        print(f"{label} K9 halo band: two bands of {res}^2 on one slab equal "
+              f"to K9's band instance bit for bit ({2 * per_band} launches);"
+              f" on 2 slabs within K9's bound of the plain band twin (max abs"
+              f" err {worst:.3g})", flush=True)
+        return row
+
+    def halo_frame():
+        band_pair_frame(hs, params, start, dos_sweep.band_slice, res)
+
+    def band_frame():
+        band_pair_frame(scene, params, start, dos_sweep.band_slice, res)
+
+    t = halo_turns((halo_frame, "dos_halo_"), (band_frame, "dos_band_"),
+                   lambda k: 2 * (-(-active // 8) if "fetch" in k
+                                  else active),
+                   reps=5, whole_launches=lambda k: 2 * active)
+    ms = in_turns({"halo": halo_frame, "whole": band_frame}, 5, rounds=1)
+    plain_ms = cuda_ms(lambda: band_pair_frame(hs, params, start, plain, res),
+                       1)
+    n = res * res
+    nbytes, ops, written, _ = dos_work(scene, params, res, res, 1)
+    nbytes += dos_halo_frame_bytes(n, active, scene.channels)
+    ops += n * active * SLAB_OPS
+    bound_ms, bound_by = roofline(nbytes, ops)
+    table = scene.volume_packed
+    tf_mode = tf1d.mode_code(scene.tf_mxu)
+    occ = [dos_sweep.halo_occupancy(0, table.dtype, tf_mode, params.samples,
+                                    channels=scene.channels)]
+    share = None if t["halo"] is None else bound_ms / t["halo"]
+    print(f"dos halo band {label}: one slab, two bands of {res}^2, a sweep's "
+          f"first frame ({active} active slices, {written} written pixels): "
+          f"{ms['halo']:.4f} ms a frame ({2 * per_band} launches, "
+          f"{2 * -(-active // 8)} all-reduces with a group; K9's band "
+          f"instance {ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} "
+          f"(band instance {fmt_ms(t['whole'])}"
+          + (f", {t['halo'] / t['whole']:.3f}x" if t["halo"] and t["whole"]
+             else "")
+          + f"); plain twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes} bytes), "
+          + ("share not measured" if share is None else f"{share:.3f} of it")
+          + f"; fetch {occ[0]['registers']} registers, "
+          f"{occ[0]['local_bytes']} spill bytes", flush=True)
+    row.update({"ms": ms["halo"], "device_ms": t["halo"],
+                "whole_ms": ms["whole"], "whole_device_ms": t["whole"],
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_share": share,
+                "launches_a_frame": 2 * per_band, "active_slices": active,
+                "registers": occ[0]["registers"],
+                "local_bytes": occ[0]["local_bytes"]})
+    return row
+
+
+def phase_halo_lao_band(scenes):
+    """K10's halo instance (:func:`lao_halo_row`: the headline timed, the
+    two-channel 128³ and its baked-gradient twin held bit for bit and to
+    the plain twin) and K9's halo band instance (:func:`dos_halo_band_row`:
+    the headline timed, the two-channel 128³ held) at 512², default
+    Params.  Returns the JSON rows' fields by name, the two-channel
+    checks' errors under ``rg_max_abs_err``."""
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import lao, make_scene
+
+    t0 = time.perf_counter()
+    rows = {"lao_halo": lao_halo_row("headline", scenes["headline"],
+                                     lao.Params()),
+            "dos_halo_band": dos_halo_band_row("headline",
+                                               scenes["headline"])}
+    rg = {"lao_halo": lao_halo_row("two-channel 128^3", scenes["rg"],
+                                   lao.Params(), timed=False),
+          "dos_halo_band": dos_halo_band_row("two-channel 128^3",
+                                             scenes["rg"], timed=False)}
+    baked = make_scene(volume.with_lao_gradient(volume.blobs_volume(128,
+                                                                    seed=3)),
+                       transfer.gray_ramp(alpha_scale=0.8))
+    rg["lao_halo"]["max_abs_err"] = max(
+        rg["lao_halo"]["max_abs_err"],
+        lao_halo_row("baked 128^3", baked, lao.Params(baked_gradient=True),
+                     timed=False)["max_abs_err"])
+    for name, row in rows.items():
+        row["library_ms"] = None
+        row["rg_max_abs_err"] = rg[name]["max_abs_err"]
+        row["max_abs_err"] = max(row["max_abs_err"], row["rg_max_abs_err"])
+    print(f"halo LAO and DOS band kernels: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
 def halo_frames_path(grid, scene, counters, res):
     """``path parallel``'s halo frames, in its world of one: every launch
     counter at 0, then one frame each of EAM, MIP, Depth, ISO with its
-    display, MCS and DOS of config 4 at ``res``² through
-    ``halo.sharded_render_frame`` on one slab (the halo instances of K6-K9)
-    and the counts read; none of the whole-scene kernels runs, and a world
-    of one issues no collective.  After the counts: each frame against
+    display, MCS, DOS and LAO of config 4 at ``res``² through
+    ``halo.sharded_render_frame`` on one slab (the halo instances of
+    K6-K10) and the counts read; none of the whole-scene kernels runs, and
+    a world of one issues no collective.  After the counts: each frame against
     ``shard_render_frame``'s whole-scene kernel frame bit for bit and
     against its plain twin over the same HaloScene within the kernel's
     bound, and each halo frame timed against the whole-scene frame in
@@ -6358,7 +6826,8 @@ def halo_frames_path(grid, scene, counters, res):
     import numpy as np
     import torch
 
-    from vpt_tpu_torch.kernels import dos_sweep, iso_shade, march, mcs_frame
+    from vpt_tpu_torch.kernels import dos_sweep, iso_shade, lao_march, march
+    from vpt_tpu_torch.kernels import mcs_frame
     from vpt_tpu_torch.parallel import halo, place_state, shard_render_frame
     from vpt_tpu_torch.parallel.mesh import axis_group
 
@@ -6367,7 +6836,7 @@ def halo_frames_path(grid, scene, counters, res):
         module.LAUNCHES = 0
     halo.COLLECTIVES.clear()
     frames, wholes, params_of, slabs = {}, {}, {}, None
-    for key in HALO_FRAME_KEYS:
+    for key in HALO_PATH_KEYS:
         module = renderer_module(key)
         params = module.Params(extinction=8.0) if key == "mcs" \
             else module.Params()
@@ -6403,13 +6872,16 @@ def halo_frames_path(grid, scene, counters, res):
         "launches")
     check(launches["iso_shade_halo"] == 2, "path parallel halo frames: K7 "
           "halo launches")
+    check(launches["lao_halo"] == -(-params_of["lao"].slices // 8) + 1,
+          f"path parallel halo frames: {launches['lao_halo']} K10 halo "
+          "launches")
 
     # against the whole-scene kernels and the plain twins, then timed
     hs = halo.halo_scene(scene, 0, 1, axis_group(grid, "space"), slabs)
     ref = dataclasses.replace(hs, kernels=False)
     errors = {name: 0.0 for name in HALO_COUNTERS}
     turns = {}
-    for key in HALO_FRAME_KEYS:
+    for key in HALO_PATH_KEYS:
         module = renderer_module(key)
         params = params_of[key]
         seed = np.float32(0.0 if key == "dos" else 0.37)
@@ -6420,10 +6892,12 @@ def halo_frames_path(grid, scene, counters, res):
             mcs_frame.mcs_frame_plain(plain, ref, params, seed, 1)
         elif key == "dos":
             dos_sweep.sweep_frame_plain(plain, ref, params)
+        elif key == "lao":
+            lao_march.lao_frame_plain(plain, ref, params)
         else:
             march.march_frame_plain(key, plain, ref, params, seed, 1)
         torch.cuda.synchronize()
-        name = {"mcs": "mcs_halo", "dos": "dos_halo"}.get(key, "march_halo")
+        name = HALO_NAME.get(key, "march_halo")
         halo_states_agree(f"path parallel halo {key}", key, frames[key],
                           whole, True)
         errors[name] = max(errors[name], halo_states_agree(
@@ -6459,7 +6933,7 @@ def halo_frames_path(grid, scene, counters, res):
     torch.cuda.empty_cache()
     print(f"path parallel halo frames: config 4 at {res}^2 on one slab, "
           f"one frame each of EAM, MIP, Depth, ISO (and its display), MCS "
-          f"(extinction 8) and DOS through halo.sharded_render_frame in "
+          f"(extinction 8), DOS and LAO through halo.sharded_render_frame in "
           f"{run_s:.3f} s: equal bit for bit to shard_render_frame's "
           f"whole-scene kernel frames, within the kernels' bounds of the "
           f"plain twins (max abs err "
@@ -7291,7 +7765,10 @@ def run():
                 "mcm_event_halo_rg": LaunchCounter(mcm_event,
                                                    "HALO_RG_LAUNCHES"),
                 "mcm_event_resident_rg": LaunchCounter(
-                    mcm_event, "RESIDENT_RG_LAUNCHES"), **halo_counters()}
+                    mcm_event, "RESIDENT_RG_LAUNCHES"),
+                "dos_halo_band": LaunchCounter(dos_sweep,
+                                               "HALO_BAND_LAUNCHES"),
+                **halo_counters()}
     t0 = time.perf_counter()
     scenes = slab_scenes()
     k3_slab = phase_slab_fetch(scenes)
@@ -7302,6 +7779,9 @@ def run():
     halo_rows = phase_halo_frames(scenes)
     print(f"halo frame kernels: {time.perf_counter() - t1:.1f} s",
           flush=True)
+    new_rows = phase_halo_lao_band(scenes)
+    halo_rows["lao_halo"] = new_rows["lao_halo"]
+    k9_halo_band = new_rows["dos_halo_band"]
     del scenes
     torch.cuda.empty_cache()
     print(f"halo kernels: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -7399,13 +7879,20 @@ def run():
         row["parallel_max_abs_err"] = err
         row["max_abs_err"] = max(row["max_abs_err"], err)
     for key, turn in parallel_numbers["frames_turns"].items():
-        name = {"mcs": "mcs_halo", "dos": "dos_halo"}.get(key, "march_halo")
+        name = HALO_NAME.get(key, "march_halo")
         halo_rows[name][f"ms_1024_config4_{key}"] = turn["halo"]
         halo_rows[name][f"whole_ms_1024_config4_{key}"] = turn["whole"]
     print(f"path parallel: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_parallel_gloo(dev)
     print(f"path parallel gloo: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    gloo4_launches, gloo4_errors, gloo4_seconds = phase_parallel_gloo4(dev)
+    k9_halo_band["parallel_gloo4_max_abs_err"] = \
+        gloo4_errors["dos_halo_band"]
+    k9_halo_band["parallel_gloo4_frames_s"] = gloo4_seconds
+    print(f"path parallel gloo 4: {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     demos_launches = phase_demos_path(dev, counters)
@@ -7438,7 +7925,9 @@ def run():
             ("resident", resident_launches,
              ("mcm_event_resident", "mcm_event_resident_rg",
               "mcm_event_halo_rg")),
-            ("halo frames", frames_launches, tuple(HALO_COUNTERS))):
+            ("halo frames", frames_launches, tuple(HALO_COUNTERS)),
+            ("parallel gloo 4", gloo4_launches,
+             ("lao_halo", "dos_halo_band"))):
         for name in names:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -7598,6 +8087,26 @@ def run():
                         "active slices; the halo frames path); ms and "
                         "device_ms a 512^2 headline sweep's first frame on "
                         "one slab", **halo_rows["dos_halo"]},
+        {"name": "lao_halo", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/lao_march.cu",
+         "replaces": "vpt_tpu/parallel/halo.py:237",
+         "launched_by": "halo.sharded_render_frame's LAO frame "
+                        "(ceil(slices / 8) + 1 launches a frame, an "
+                        "all-reduce of a chunk's 28 tap values a "
+                        "pixel-slice between them; the halo frames path of "
+                        "config 4 at 1024^2 and the four-rank gloo path); "
+                        "ms and device_ms a 512^2 headline frame on one "
+                        "slab", **halo_rows["lao_halo"]},
+        {"name": "dos_halo_band", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/dos_sweep.cu",
+         "replaces": "vpt_tpu/parallel/halo.py:248",
+         "launched_by": "halo.sharded_render_frame's DOS frame with rows "
+                        "over data (dos.render_band: a fetch and an "
+                        "all-reduce a chunk of 8 active slices, a fold a "
+                        "slice; the four-rank gloo path, data 2 x space "
+                        "2); ms and device_ms a 512^2 headline sweep's "
+                        "first frame on two bands of one slab",
+         **k9_halo_band},
     ]
     for row in rows:
         if row["name"] in ("mcm_event_resident", "mcm_event_halo_rg",
@@ -7608,6 +8117,8 @@ def run():
             row["launches"] = parallel_launches[row["name"]]
         elif row["name"] in HALO_COUNTERS:
             row["launches"] = frames_launches[row["name"]]
+        elif row["name"] == "dos_halo_band":
+            row["launches"] = gloo4_launches[row["name"]]
         elif row["name"].startswith("corner"):
             row["launches"] = fit_launches[row["name"]] \
                 + fit_mcs_launches[row["name"]] \
@@ -7628,6 +8139,8 @@ def run():
         row["launches_demos"] = demos_launches[row["name"]]
         row["launches_resident"] = resident_launches[row["name"]]
         row["launches_halo_frames"] = frames_launches[row["name"]]
+        if row["name"] in gloo4_launches:
+            row["launches_parallel_gloo4"] = gloo4_launches[row["name"]]
         if row["name"] in unpacked_errors:
             row["unpacked_max_abs_err"] = unpacked_errors[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"],
@@ -7754,7 +8267,13 @@ def sweep_path_numbers():
     and on the card (the profiler's sum of the DOS kernels over 3 sweeps),
     the host µs of one DOS frame call that finds the queue empty, the
     device time of a sweep's first frame at 1², 64² and 512², and a LAO
-    frame's loop and device time."""
+    frame's loop and device time; where the tree has them (since the band
+    and halo instances), a sweep's first frame on the two bands of
+    :data:`HALO_BANDS` through K9's band instance and the first frame
+    over a one-slab HaloScene through K9's halo instance, device time a
+    frame.  ``hashes``: a digest of each result's bytes (the sweep's
+    state, the LAO frame, the band and halo frames), equal across trees
+    when their states are."""
     import torch
 
     from vpt_tpu_torch import transfer, volume
@@ -7807,7 +8326,50 @@ def sweep_path_numbers():
     out["lao frame_ms"] = cuda_ms(frame, 20)
     out["lao frame_device_ms"] = _device_ms_per_call(frame, "lao_", 20)
     out["lao host_us_frame"] = _host_call_us(frame, 100)
+    hashes = {"lao frame": _digest(lstate)}
+    renderer.reset(scene)
+    for i in range(frames):
+        renderer.render(scene, 0.2 + 0.001 * i)
+    hashes["dos sweep"] = _digest(renderer.state)
+    from vpt_tpu_torch.kernels import dos_sweep
+    from vpt_tpu_torch.parallel import halo
+
+    start = dos.reset(params, 512, 512, scene)
+
+    def band(b, ext, row0, sc, p, k, window, n_active):
+        dos_sweep.band_slice(b, ext, row0, sc, p, k, window)
+
+    def bands():
+        return band_pair_frame(scene, params, start, band)[0]
+
+    out["dos band_frame_device_ms"] = _device_ms_per_call(bands, "dos_band",
+                                                          10)
+    hashes["dos band frame"] = _digest(bands())
+    hs = halo.halo_scene(scene, 0, 1)
+
+    def halo_frame():
+        state = {k: v.clone() for k, v in start.items()}
+        dos.render_frame(state, hs, params, 0.1, 1)
+        return state
+
+    out["dos halo_frame_device_ms"] = _device_ms_per_call(
+        halo_frame, "dos_halo_", 10)
+    hashes["dos halo frame"] = _digest(halo_frame())
+    out["hashes"] = hashes
     return out
+
+
+def _digest(state):
+    """A digest of a state's (or a dict of states') bytes, key by key."""
+    import hashlib
+
+    h = hashlib.sha256()
+    items = sorted(state.items()) if isinstance(state, dict) \
+        else [("", state)]
+    for key, value in items:
+        h.update(key.encode())
+        h.update(value.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def fetch_path_numbers():
@@ -8071,6 +8633,10 @@ def launch_path(trees, part="all"):
         print(line, flush=True)
         results.append(json.loads(line)["launch_path"])
     tables = ["sweep"] if part == "sweep" else []
+    if part == "sweep":
+        for r in results:
+            r["hashes"] = r["sweep"].pop("hashes", {})
+        tables.append("hashes")
     if part in ("frames", "all"):
         for r in results:
             for key, row in r["frames"]["frames"].items():
@@ -8085,8 +8651,8 @@ def launch_path(trees, part="all"):
         for name in names:
             cells = [r[section].get(name) for r in results]
             print(f"{section:9s} {name:30s} " + " ".join(
-                "-" if v is None else f"{v:12.4f}" for v in cells),
-                flush=True)
+                "-" if v is None else v if isinstance(v, str)
+                else f"{v:12.4f}" for v in cells), flush=True)
     for r in results:
         if "differentiable_fetch_trace" not in r:
             continue

@@ -2448,9 +2448,9 @@ def test_dos_band_matches_plain_and_cooperative(cuda, kind):
 def test_halo_frames_refuse_what_has_no_kernel(cuda):
     """On the card a HaloScene frame of a two-channel volume runs K5's
     two-channel halo instance, equal to the ext frame and the plain loop
-    bit for bit on one slab; every renderer but LAO runs its kernel's halo
-    instance, and LAO's frame raises ``_not_ported`` (ROADMAP queue 2b
-    item 9) before any launch; DOS's Python hooks raise, naming the
+    bit for bit on one slab; every renderer runs its kernel's halo
+    instance, LAO's K10's halo instance (ceil(slices / 8) + 1 launches,
+    none of the whole-scene K10); DOS's Python hooks raise, naming the
     sharded frame."""
     from vpt_tpu_torch.parallel import halo
 
@@ -2479,11 +2479,12 @@ def test_halo_frames_refuse_what_has_no_kernel(cuda):
     for module in (eam, mip, depth, iso, mcs, dos):
         p = module.Params()
         module.render_frame(module.reset(p, 8, 8, scene), hs, p, 0.1, 1)
-    before = (_launches(), _halo_launches())
+    before = (_launches(), lao_march.HALO_LAUNCHES)
     p = lao.Params()
-    with pytest.raises(NotImplementedError, match="queue 2b item 9"):
-        lao.render_frame(lao.reset(p, 8, 8, scene), hs, p, 0.1, 1)
-    assert (_launches(), _halo_launches()) == before
+    lao.render_frame(lao.reset(p, 8, 8, scene), hs, p, 0.1, 1)
+    torch.cuda.synchronize()
+    assert (_launches(), lao_march.HALO_LAUNCHES) == (
+        before[0], before[1] + -(-p.slices // 8) + 1)
     p = dos.Params()
     with pytest.raises(ValueError, match="dos_halo.sharded_render_frame"):
         dos.render_frame(dos.reset(p, 8, 8, scene), scene, p, 0.1, 1,
@@ -2493,7 +2494,8 @@ def test_halo_frames_refuse_what_has_no_kernel(cuda):
 def _halo_launches():
     return (mcm_event.HALO_LAUNCHES, march.HALO_LAUNCHES,
             iso_shade.HALO_LAUNCHES, mcs_frame.HALO_LAUNCHES,
-            dos_sweep.HALO_LAUNCHES)
+            dos_sweep.HALO_LAUNCHES, dos_sweep.HALO_BAND_LAUNCHES,
+            lao_march.HALO_LAUNCHES)
 
 
 def _halo_kind(kind, cuda):
@@ -2652,6 +2654,121 @@ def test_halo_dos_frames(cuda, kind):
         dos.render_frame(got, hs, params, 0.0, 1)
         dos_sweep.sweep_frame_plain(want, dataclasses.replace(
             hs, kernels=False), params)
+        torch.cuda.synchronize()
+        assert_dos_agrees(got, want)
+
+
+#: K10's halo instances held to K10 on one slab: (label, scene kind,
+#: Params kwargs, halo_scene kwargs, row window of a 40-row state)
+LAO_HALO_CASES = [
+    ("bf16", "bf16", {}, {}, None),
+    ("f32", "f32", {}, {}, None),
+    ("rg", "rg", {}, {}, None),
+    ("baked", "baked", {"baked_gradient": True}, {}, None),
+    ("interleave2", "f32", {}, {"interleave": 2}, None),
+    ("unmasked", "bf16", {}, {"collective": False}, None),
+    ("window", "f32", {}, {}, (9, 56)),
+]
+
+
+def _lao_halo_scene(kind, cuda):
+    """The halo tests' scenes (:func:`_halo_kind`), and for ``baked`` the
+    f32 scene's volume with LAO's baked gradient (two channels)."""
+    if kind == "baked":
+        return make_scene(volume.with_lao_gradient(
+            volume.blobs_volume(24, seed=3, device=cuda)),
+            transfer.gray_ramp(alpha_scale=0.8, device=cuda), device=cuda)
+    return _halo_kind(kind, cuda)
+
+
+@pytest.mark.parametrize("case", LAO_HALO_CASES, ids=[c[0] for c in
+                                                      LAO_HALO_CASES])
+def test_halo_lao_frames(cuda, case):
+    """K10's halo instance: on one slab, 2 frames of 20 slices equal K10's
+    bit for bit, each in ceil(20 / 8) + 1 = 4 launches (K10's own counter
+    still): bf16 and float32 tables, two channels, the baked gradient,
+    interleave 2, the unmasked fetch and a row window.  On 2 slabs,
+    contiguous and interleave 2, masked and not, each slab's frame is
+    within K10's bound of the plain twin over the same HaloScene
+    (``assert_lao_agrees``)."""
+    from vpt_tpu_torch.parallel import halo
+
+    _, kind, kwargs, halo_kwargs, window = case
+    scene = _lao_halo_scene(kind, cuda)
+    params = lao.Params(slices=20, **kwargs)
+    hs = halo.halo_scene(scene, 0, 1, **halo_kwargs)
+    want = lao.reset(params, 40, 48, scene)
+    lao.render_frame(want, scene, params, 0.1, 1, window=window)
+    for n in (1, 2):
+        got = lao.reset(params, 40, 48, scene)
+        before = (lao_march.LAUNCHES, lao_march.HALO_LAUNCHES)
+        lao.render_frame(got, hs, params, 0.1, n, window=window)
+        assert (lao_march.LAUNCHES, lao_march.HALO_LAUNCHES) == (
+            before[0], before[1] + 4)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), n
+    assert float(want[..., :3].max()) > 0.0
+    if halo_kwargs or window:
+        return
+    for label, hs in _halo_layouts(scene):
+        got = lao.reset(params, 40, 48, scene)
+        plain = got.clone()
+        lao.render_frame(got, hs, params, 0.1, 1)
+        lao_march.lao_frame_plain(plain, hs, params)
+        torch.cuda.synchronize()
+        assert_lao_agrees(got, plain)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
+def test_halo_dos_bands(cuda, kind):
+    """K9's halo band instance: on one slab, two bands of a 48² frame (two
+    windows, the whole image as each slice's extended buffer) over a
+    sweep's 2 frames equal K9's band instance bit for bit, in ceil(n / 8)
+    fetches and n folds a band for n active slices (the band instance's
+    counter still); on 2 slabs each band is within K9's bound of the plain
+    band twin over the same HaloScene (``assert_dos_agrees``)."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _halo_kind(kind, cuda)
+    params = dos.Params(extinction=80.0, steps=20, slices=30, samples=6)
+    height = width = 48
+    windows = ((0, 19), (19, 48))
+
+    def bands_frame(sc, state, run):
+        bands = [{k: (v[r0:r1].clone() if k in ("color", "occlusion")
+                      else v.clone()) for k, v in state.items()}
+                 for r0, r1 in windows]
+        n_active = dos.active_slices(bands[0], params)
+        for k in range(n_active):
+            ext = torch.cat([b["occlusion"] for b in bands])
+            for (r0, _), band in zip(windows, bands):
+                run(band, ext, 0, sc, params, k, (r0, height), n_active)
+        out = {key: torch.cat([b[key] for b in bands])
+               for key in ("color", "occlusion")}
+        out["depth"] = state["depth"] + float(n_active) * \
+            state["slice_distance"]
+        return {**state, **out}, n_active
+
+    def plain(band, ext, ext_row0, sc, p, k, window, n_active):
+        dos_sweep.band_slice_plain(band, ext, ext_row0, sc, p, k, window)
+
+    hs = halo.halo_scene(scene, 0, 1)
+    got = want = dos.reset(params, height, width, scene)
+    for frame in (1, 2):
+        before = (dos_sweep.BAND_LAUNCHES, dos_sweep.HALO_BAND_LAUNCHES)
+        got, active = bands_frame(hs, got, dos_sweep.band_slice)
+        assert (dos_sweep.BAND_LAUNCHES, dos_sweep.HALO_BAND_LAUNCHES) == (
+            before[0], before[1] + 2 * (-(-active // 8) + active)), frame
+        want, _ = bands_frame(scene, want, dos_sweep.band_slice)
+        torch.cuda.synchronize()
+        for key in ("color", "occlusion", "depth"):
+            assert torch.equal(got[key], want[key]), (frame, key)
+    assert active < params.steps
+    assert float(got["color"][..., 3].max()) > 0.0
+    start = dos.reset(params, height, width, scene)
+    for label, hs in _halo_layouts(scene):
+        got, _ = bands_frame(hs, start, dos_sweep.band_slice)
+        want, _ = bands_frame(hs, start, plain)
         torch.cuda.synchronize()
         assert_dos_agrees(got, want)
 

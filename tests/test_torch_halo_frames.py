@@ -1,5 +1,5 @@
 """The halo frames of the renderers whose kernels have a halo instance on
-the card (EAM, ISO and its display, MCS, DOS; MCM in
+the card (EAM, ISO and its display, MCS, DOS, LAO; MCM in
 ``test_torch_halo.py``), through the port's ``halo.sharded_render_frame``,
 against the port's replicated frames and ``vpt_tpu``'s
 ``halo.sharded_render_frame``.
@@ -7,15 +7,15 @@ against the port's replicated frames and ``vpt_tpu``'s
 One 2-rank ``gloo`` group per module (``torch_parallel_ranks.
 halo_frames_everything``, ``space`` = 2) renders every case of
 ``HALO_FRAME_CASES`` at 16² on a 32³ volume with the plain twins over the
-HaloScene (the CPU runs no kernel): float32 tables, the cheb-skip table
-and a two-channel volume.  The tests hold what rank 0 gathered against
-the port's replicated frames bit for bit, and against ``vpt_tpu``'s
-sharded frames on 2 of the 8 CPU devices within the bound of the port's
-existing test of that renderer against ``vpt_tpu``, named in each test;
-and they pin each frame's all-reduces: one a sample call of the
-replicated frame (a chunk of 8 slices of the march, each tracking step's
-fetch of every pixel and the diffuse fetch of MCS, a slice of DOS, each
-of the display's seven fetches).
+HaloScene (the CPU runs no kernel): float32 tables, the cheb-skip table,
+a two-channel volume and LAO's baked gradient.  The tests hold what rank
+0 gathered against the port's replicated frames bit for bit, and against
+``vpt_tpu``'s sharded frames on 2 of the 8 CPU devices within the bound of
+the port's existing test of that renderer against ``vpt_tpu``, named in
+each test; and they pin each frame's all-reduces: one a sample call of
+the replicated frame (a chunk of 8 slices of the march, each tracking
+step's fetch of every pixel and the diffuse fetch of MCS, a slice of DOS,
+each of the display's seven fetches, each of LAO's 28 taps a slice).
 """
 
 import jax.numpy as jnp
@@ -32,7 +32,7 @@ from vpt_tpu.parallel.shard import place_state as jplace_state
 from vpt_tpu.renderers import factory as jfactory
 from vpt_tpu.renderers import make_scene as jmake_scene
 from vpt_tpu_torch import interop
-from vpt_tpu_torch.renderers import base, factory, iso
+from vpt_tpu_torch.renderers import base, factory, iso, lao
 
 SIZE = ranks.HALO_FRAME_SIZE
 CASES = {case[0]: case for case in ranks.HALO_FRAME_CASES}
@@ -51,8 +51,9 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def jscenes():
     """vpt_tpu's scenes: a 32³ blobs volume with float32 tables, with the
-    cheb-skip table (its TF floor exactly empty), and its two-channel
-    ``with_gradient_magnitude`` twin."""
+    cheb-skip table (its TF floor exactly empty), its two-channel
+    ``with_gradient_magnitude`` twin and its ``with_lao_gradient`` twin
+    (LAO's baked gradient)."""
     vol = jvolume.blobs_volume(32, seed=5)
     tf = np.asarray(jtransfer.gray_ramp(alpha_scale=1.0)).copy()
     cheb_tf = tf.copy()
@@ -60,7 +61,9 @@ def jscenes():
     return {"f32": jmake_scene(vol, jnp.asarray(tf)),
             "cheb": jmake_scene(vol, jnp.asarray(cheb_tf), tracking="cheb"),
             "rg": jmake_scene(jvolume.with_gradient_magnitude(vol),
-                              jnp.asarray(tf))}
+                              jnp.asarray(tf)),
+            "baked": jmake_scene(jvolume.with_lao_gradient(vol),
+                                 jnp.asarray(tf))}
 
 
 @pytest.fixture(scope="module")
@@ -88,14 +91,21 @@ def jmesh():
 
 def _count_samples(monkeypatch):
     """Count the replicated Scene's sample calls (each a fetch that the
-    HaloScene sums over ``space``)."""
+    HaloScene sums over ``space``): the outermost calls of its samplers,
+    so that a sample_color that reads sample_volume_rg counts once."""
     calls = [0]
-    for name in ("sample_color", "sample_color_tracking"):
+    depth = [0]
+    for name in ("sample_color", "sample_color_tracking", "sample_value",
+                 "sample_volume_rg"):
         method = getattr(base.Scene, name)
 
         def counted(self, *args, _method=method, **kwargs):
-            calls[0] += 1
-            return _method(self, *args, **kwargs)
+            calls[0] += depth[0] == 0
+            depth[0] += 1
+            try:
+                return _method(self, *args, **kwargs)
+            finally:
+                depth[0] -= 1
 
         monkeypatch.setattr(base.Scene, name, counted)
     return calls
@@ -171,7 +181,10 @@ def test_halo_frames_issue_an_all_reduce_a_sample_call(group, replicated,
     ``sample_color``, which K6's halo instance keeps), DOS one a slice
     (vpt_tpu and K9's halo instance: one a chunk of 8 active slices), MCS
     one a tracking step of every pixel and one for the diffuse fetch (K8's
-    halo instance: one a fetch of the slowest pixel, never more)."""
+    halo instance: one a fetch of the slowest pixel, never more), LAO one
+    a tap a slice, as vpt_tpu: the six gradient taps and the value (the
+    baked pair's one), the 20 AO taps and the shadow tap (K10's halo
+    instance: one a chunk of 8 slices)."""
     _, key, _, kwargs, _ = CASES[name]
     counts = [c.get("all_reduce", 0) for c in group[name]["collectives"]]
     assert all(set(c) <= {"all_reduce"} for c in
@@ -183,6 +196,12 @@ def test_halo_frames_issue_an_all_reduce_a_sample_call(group, replicated,
         assert counts == [-(-kwargs["steps"] // 8)] * len(counts)
     elif key == "dos":
         assert counts == [kwargs["steps"]] * len(counts)
+    elif key == "lao":
+        params = lao.Params(**kwargs)
+        taps = (1 if params.baked_gradient else 7) \
+            + len(lao.lao_taps(params)) + 1
+        assert taps == (22 if params.baked_gradient else 28)
+        assert counts == [kwargs["slices"] * taps] * len(counts)
     else:
         assert min(counts) > 2
 
@@ -196,11 +215,17 @@ def test_halo_frames_match_vpt_tpu(group, jax_frames, name):
     (``test_torch_mcs.assert_pixels_agree``, float32 tables); DOS the
     colour and occlusion within 3e-5, 99% of the values within 1e-6 and
     within 1e-5, the depths equal (``test_torch_dos.assert_state_close``,
-    float32 tables)."""
+    float32 tables); LAO every value within 1e-5 and 99% of the pixels
+    within 1e-6 (``test_torch_lao.test_generate_matches_jax``)."""
     _, key, _, _, _ = CASES[name]
     got, want = group[name]["state"], jax_frames[name]
     if key in ("eam", "iso"):
         assert np.allclose(got, want, rtol=0, atol=2e-6)
+    elif key == "lao":
+        diff = np.abs(got - want)
+        assert diff.max() <= 1e-5, diff.max()
+        assert (diff.max(-1) <= 1e-6).mean() >= 0.99, \
+            (diff.max(-1) <= 1e-6).mean()
     elif key == "mcs":
         close = (np.abs(got - want) <= 1e-6).all(-1)
         assert close.mean() >= 0.99, close.mean()

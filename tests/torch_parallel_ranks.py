@@ -302,6 +302,8 @@ HALO_FRAME_CASES = [
     ("mcs_rg", "mcs", "rg", dict(extinction=8.0), 1),
     ("dos", "dos", "f32", dict(extinction=80.0, steps=12, slices=24,
                                samples=4), 2),
+    ("lao", "lao", "f32", dict(slices=16), 1),
+    ("lao_baked", "lao", "baked", dict(slices=16, baked_gradient=True), 1),
 ]
 HALO_FRAME_SIZE = 16
 
@@ -348,6 +350,57 @@ def halo_frames_everything(rank, world, fields):
             halo.COLLECTIVES.clear()
             out[name]["display"] = _np(iso.display(local, hs, params))
             out[name]["display_collectives"] = dict(halo.COLLECTIVES)
+    return out if rank == 0 else {}
+
+
+#: the halo frames on rows over ``data`` and slabs over ``space``: (name,
+#: renderer key, Params kwargs, frames) of :data:`HALO_FRAME_CASES`' scene
+#: of float32 tables
+HALO_BAND_CASES = [
+    ("dos", "dos", dict(extinction=80.0, steps=12, slices=24, samples=4),
+     2),
+    ("lao", "lao", dict(slices=16), 1),
+]
+
+
+def halo_bands_everything(rank, world, fields):
+    """Every case of :data:`HALO_BAND_CASES` on a group of 4 ranks, ``data``
+    = 2 × ``space`` = 2, through ``halo.sharded_render_frame`` (the plain
+    twins over the HaloScene; DOS's bands through ``dos.render_band``),
+    gathered, with each frame's collectives and DOS's active slices, and
+    the same frames through ``shard.shard_render_frame`` on the whole
+    scene.  Rank 0's results go back."""
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.parallel import (gather_state, make_mesh, place_state,
+                                        shard_render_frame)
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.renderers import dos, factory
+
+    out = {}
+    scene = interop.scene_from_numpy(fields, device="cpu")
+    mesh = make_mesh(world, space=2, device="cpu")
+    size = HALO_FRAME_SIZE
+    for name, key, kwargs, frames in HALO_BAND_CASES:
+        module = factory.get_module(key)
+        params = module.Params(**kwargs)
+        whole = module.reset(params, size, size, scene)
+        frame_fn, slabs = halo.sharded_render_frame(module, mesh, scene, 2,
+                                                    whole)
+        local = place_state(whole, mesh)
+        counts, active = [], []
+        for n in range(1, frames + 1):
+            if key == "dos":
+                active.append(dos.active_slices(local, params))
+            halo.COLLECTIVES.clear()
+            local = frame_fn(local, slabs, params, halo_frame_seed(n), n)
+            counts.append(dict(halo.COLLECTIVES))
+        frame = shard_render_frame(module, mesh, whole)
+        rows = place_state(whole, mesh)
+        for n in range(1, frames + 1):
+            rows = frame(rows, scene, params, halo_frame_seed(n), n)
+        out[name] = {"state": _np(gather_state(local, mesh, size)),
+                     "whole": _np(gather_state(rows, mesh, size)),
+                     "collectives": counts, "active": active}
     return out if rank == 0 else {}
 
 

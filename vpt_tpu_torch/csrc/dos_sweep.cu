@@ -75,7 +75,10 @@
 // a band of rows for the row-sharded sweeps (parallel/dos_halo.py,
 // shard.shard_render_frame): dos_row, dos_fetch and dos_composite shared
 // with the cooperative kernel, vpt_tpu's sharded taps on a halo-extended
-// buffer.
+// buffer.  Its halo instance (vpt_dos_halo_band: dos_halo_fetch_kernel
+// over the band's rows a chunk of 8 slices, an all-reduce, then
+// dos_halo_band_kernel a slice) runs a HaloScene's band
+// (halo.sharded_render_frame with data > 1).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -478,7 +481,7 @@ template <bool kBf16, int kC>
 __global__ void __launch_bounds__(kThreads)
 dos_halo_fetch_kernel(const VptDosExt a, const VptDosFrame f,
                       const VptSlab slab, float* __restrict__ value, int k0,
-                      int count) {
+                      int count, int row0, int band_h) {
   // the chunk's slices: NDC depth and active flag (dos_row's row[0, 1])
   __shared__ float s_head[kHaloChunk][2];
   if (threadIdx.x < count) {
@@ -489,11 +492,14 @@ dos_halo_fetch_kernel(const VptDosExt a, const VptDosFrame f,
     s_head[threadIdx.x][1] = dk <= *f.max_depth ? 1.0f : 0.0f;
   }
   __syncthreads();
-  const int n = a.width * a.height;
+  // the pixels of rows [row0, row0 + band_h) of the image, as dos_band
+  // places them
+  const int n = a.width * band_h;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   constexpr int kV = kC == 2 ? 2 : 1;
-  const float2 ndc = dos_ndc(a, i);
+  const float2 ndc = make_float2(vpt_pixel_ndc(i % a.width, a.width),
+                                 vpt_pixel_ndc(row0 + i / a.width, a.height));
   for (int j = 0; j < count; ++j) {
     float2 v = make_float2(0.0f, 0.0f);
     float p[3];
@@ -582,8 +588,11 @@ struct VptDosBand {
   int row0, band_h, ext_row0, ext_h;
 };
 
-template <bool kBf16, int kTf, int kC, class A>
-__device__ __forceinline__ void dos_band(const A& a, const VptDosBand& b) {
+// fetch(ndc, row, i) is band pixel i's DosFetch at the slice (row: its
+// row of the table).
+template <class A, class Fetch>
+__device__ __forceinline__ void dos_band(const A& a, const VptDosBand& b,
+                                         Fetch fetch) {
   extern __shared__ float s_row[];   // the slice's row: 4 + 4N floats
   __shared__ float s_scale[2];
   const float depth = *b.depth, sd = *b.slice_distance;
@@ -605,7 +614,7 @@ __device__ __forceinline__ void dos_band(const A& a, const VptDosBand& b) {
   const int x = i % width, y = i / width;
   const float2 ndc = make_float2(vpt_pixel_ndc(x, width),
                                  vpt_pixel_ndc(b.row0 + y, height));
-  const DosFetch f = dos_fetch<kBf16, kTf, kC>(a, ndc, s_row);
+  const DosFetch f = fetch(ndc, s_row, i);
   if (!f.write) return;
   const float* ext = b.ext;
   const float prev = ext[(b.row0 + y - b.ext_row0) * width + x];
@@ -636,13 +645,42 @@ __device__ __forceinline__ void dos_band(const A& a, const VptDosBand& b) {
 template <bool kBf16, int kTf>
 __global__ void __launch_bounds__(kThreads)
 dos_band_kernel(const VptDosArgs a, const VptDosBand b) {
-  dos_band<kBf16, kTf, 0>(a, b);
+  dos_band(a, b, [&](float2 ndc, const float* row, int) {
+    return dos_fetch<kBf16, kTf, 0>(a, ndc, row);
+  });
 }
 
 template <bool kBf16, int kTf, int kC>
 __global__ void __launch_bounds__(kThreads)
 dos_band_ext_kernel(const VptDosExt a, const VptDosBand b) {
-  dos_band<kBf16, kTf, kC>(a, b);
+  dos_band(a, b, [&](float2 ndc, const float* row, int) {
+    return dos_fetch<kBf16, kTf, kC>(a, ndc, row);
+  });
+}
+
+// The halo band instance (parallel/halo.py: a HaloScene's frame on a band
+// of rows, data > 1): the band instance with the fetch replaced by the
+// summed value's colour (dos_color, dos_shade), as dos_halo_fold_kernel
+// replaces it in the cooperative sweep.  value holds a chunk of up to
+// kHaloChunk slices' summed values over the band's pixels
+// (dos_halo_fetch_kernel over rows [row0, row0 + band_h), then one
+// all-reduce), slot j this slice's.  So on one slab, with the same ext, a
+// slice equals the band instance's bit for bit.
+template <bool kBf16, int kTf, int kC>
+__global__ void __launch_bounds__(kThreads)
+dos_halo_band_kernel(const VptDosExt a, const VptDosBand b,
+                     const float* __restrict__ value, int j) {
+  constexpr int kV = kC == 2 ? 2 : 1;
+  const long long n = (long long)a.width * b.band_h;
+  dos_band(a, b, [&](float2 ndc, const float* row, int i) {
+    float p[3];
+    DosFetch d;
+    d.write = dos_point(a, ndc, row[0], p);
+    if (!d.write) return d;
+    const float* v = value + kV * ((long long)j * n + i);
+    return dos_shade(a, dos_color<kBf16, kTf, kC>(
+        a, make_float2(v[0], kV == 2 ? v[1] : 0.0f)), row);
+  });
 }
 
 // The band instance for the sweep's flags and TF mode, as pick's.
@@ -671,6 +709,24 @@ const void* pick_band(int flags, int tf_mode) {
     }
   }
   return bf16 ? pick_band_tf<true>(tf_mode) : pick_band_tf<false>(tf_mode);
+}
+
+// The halo band instance for a table type and the TF lookup mode (one
+// channel) or two channels; null for anything else.
+const void* pick_halo_band(int channels, int table_bf16, int tf_mode) {
+  if (channels == 2)
+    return table_bf16 ? (const void*)dos_halo_band_kernel<true, 0, 2>
+                      : (const void*)dos_halo_band_kernel<false, 0, 2>;
+  if (channels != 1) return nullptr;
+  switch (tf_mode + 3 * table_bf16) {
+    case 0: return (const void*)dos_halo_band_kernel<false, 0, 0>;
+    case 1: return (const void*)dos_halo_band_kernel<false, 1, 0>;
+    case 2: return (const void*)dos_halo_band_kernel<false, 2, 0>;
+    case 3: return (const void*)dos_halo_band_kernel<true, 0, 0>;
+    case 4: return (const void*)dos_halo_band_kernel<true, 1, 0>;
+    case 5: return (const void*)dos_halo_band_kernel<true, 2, 0>;
+    default: return nullptr;
+  }
 }
 
 // The instantiation for a table type and TF lookup mode (tf1d.cuh's: a
@@ -873,7 +929,9 @@ extern "C" int vpt_dos_halo_launch(
     const void* kernel = pick_halo_fetch(a.channels, a.table_bf16);
     if (kernel == nullptr) return (int)cudaErrorInvalidValue;
     VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
-    void* params[] = {&args, &frame, &slab, &values, &k0, &count};
+    int row0 = 0, band_h = a.height;
+    void* params[] = {&args, &frame, &slab, &values, &k0, &count, &row0,
+                      &band_h};
     const long long n = (long long)a.width * a.height;
     if (n <= 0 || count == 0) return 0;
     return (int)cudaLaunchKernel(
@@ -888,6 +946,70 @@ extern "C" int vpt_dos_halo_launch(
   return (int)cudaLaunchCooperativeKernel(
       kernel, dim3((unsigned)a.blocks), dim3(kThreads), params,
       shared_bytes(count, a.samples), (cudaStream_t)stream);
+}
+
+// One launch of the halo band instance (see dos_halo_band_kernel): prepared
+// is the VptDosExt of the HaloScene, Params and the whole image (its height
+// the image's; table the rank's slab rows; no filter); color, occlusion,
+// ext, depth, max_depth, the slice distance, the offsets, slice, row0,
+// band_h, ext_row0 and ext_h as vpt_dos_band's; the slab as
+// vpt_dos_halo_launch's; value the (kHaloChunk, width * band_h, channels)
+// values of slices k0 .. k0 + count - 1 (count <= kHaloChunk, all active).
+// Stage 0 writes this rank's masked values of those slices over the band's
+// pixels (slice and ext unused), stage 1 folds slice `slice` (k0 <= slice <
+// k0 + count) from its summed values.
+extern "C" int vpt_dos_halo_band(
+    const void* prepared, void* color, void* occlusion, const void* ext,
+    const void* depth, const void* max_depth, const void* slice_distance,
+    const void* offsets, int slab_index, int num_slabs, int interleave,
+    int masked, void* value, int slice, int k0, int count, int stage,
+    int row0, int band_h, int ext_row0, int ext_h, void* stream) {
+  const VptDosExt& a = *static_cast<const VptDosExt*>(prepared);
+  VptDeviceGuard guard(a.device);
+  if (band_h <= 0) return 0;
+  if (a.filter != 0 || k0 < 0 || count < 1 || count > kHaloChunk
+      || k0 + count > a.steps || row0 < 0 || row0 + band_h > a.height
+      || num_slabs < 1 || interleave < 1 || slab_index < 0
+      || slab_index >= num_slabs || a.d % (num_slabs * interleave) != 0)
+    return (int)cudaErrorInvalidValue;
+  VptDosExt args = a;
+  float* values = static_cast<float*>(value);
+  const long long n = (long long)a.width * band_h;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  if (stage == 0) {
+    const void* kernel = pick_halo_fetch(a.channels, a.table_bf16);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    VptDosFrame frame = {nullptr, nullptr, nullptr,
+                         const_cast<float*>(static_cast<const float*>(depth)),
+                         static_cast<const float*>(max_depth),
+                         static_cast<const float*>(slice_distance),
+                         static_cast<const float*>(offsets), nullptr};
+    VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
+    void* params[] = {&args, &frame, &slab, &values, &k0, &count, &row0,
+                      &band_h};
+    return (int)cudaLaunchKernel(kernel, dim3(blocks), dim3(kThreads),
+                                 params, 0, (cudaStream_t)stream);
+  }
+  if (stage != 1 || slice < k0 || slice >= k0 + count || ext_h <= 0
+      || ext_row0 > row0 || ext_row0 + ext_h < row0 + band_h)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = pick_halo_band(a.channels, a.table_bf16, a.tf_mode);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  VptDosBand band = {static_cast<float4*>(color),
+                     static_cast<float*>(occlusion),
+                     static_cast<const float*>(ext),
+                     static_cast<const float*>(depth),
+                     static_cast<const float*>(max_depth),
+                     static_cast<const float*>(slice_distance),
+                     static_cast<const float*>(offsets),
+                     slice, row0, band_h, ext_row0, ext_h};
+  const float* folded = values;
+  int j = slice - k0;
+  void* params[] = {&args, &band, &folded, &j};
+  return (int)cudaLaunchKernel(
+      kernel, dim3(blocks), dim3(kThreads), params,
+      (size_t)(kHead + 4 * a.samples) * sizeof(float),
+      (cudaStream_t)stream);
 }
 
 // The launch shape of the halo instance's stage (0 the fetch, 1 the fold)

@@ -53,6 +53,11 @@
 // (value, |grad|) in place of the seven gradient reads; the AO and shadow
 // taps stay.  Only the instances make_scene's rules reach are built.
 //
+// A HaloScene's frame (a rank's z slab) runs lao_halo_kernel (below): the
+// same fold on the same device functions (lao_ray, lao_light, lao_half,
+// lao_ao, lao_soft, lao_composite, lao_finish), split around an all-reduce
+// of each chunk of 8 slices' tap values.
+//
 // Numerics follow renderers/lao.py (setup, march_slice, finish) operation
 // by operation: built with -fmad=false, IEEE division and sqrt,
 // NaN-propagating min/max, sums of three left to right.
@@ -61,6 +66,7 @@
 
 #include "device_guard.cuh"
 #include "ray.cuh"
+#include "slab.cuh"
 
 // What a frame takes of its scene, Params and resolution, filled once by the
 // wrapper (kernels/lao_march.py, a ctypes Structure of this layout; fields
@@ -170,6 +176,142 @@ __device__ __forceinline__ float lao_tap(const VptRowOf<kBf16, kC>& r,
                                 c.fz, 1.0f - c.fz);
 }
 
+// A pixel's ray (_march.rays, the cube alone: LAO clamps to no box):
+// unproject, the slab test clamped at 0; the marched segment runs from start
+// to start + seg.
+struct LaoRay {
+  float start[3], seg[3];
+  bool miss;
+};
+
+__device__ __forceinline__ LaoRay lao_ray(const VptLaoArgs& a, int2 window,
+                                          int x, int y) {
+  float m[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) m[k] = __ldg(a.mvp + k);
+  const float ndcx = vpt_pixel_ndc(x, a.width);
+  const float ndcy = vpt_pixel_ndc(window.x + y, window.y);
+  float from[3], to[3], dir[3];
+  vpt_unproject(m, ndcx, ndcy, ndcx, ndcy, from, to);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
+  float tnear, tfar;
+  vpt_intersect_cube(from, dir, &tnear, &tfar);
+  const float tb0 = vpt_nmax(tnear, 0.0f), tb1 = vpt_nmax(tfar, 0.0f);
+  LaoRay r;
+  r.miss = tb0 >= tb1;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    r.start[k] = from[k] + tb0 * dir[k];
+    r.seg[k] = (from[k] + tb1 * dir[k]) - r.start[k];
+  }
+  return r;
+}
+
+// What the pixel's random value rx fixes (lao.setup): the first t, the AO
+// direction's scale rdir, the shadow tap's offset and its length.
+struct LaoLight {
+  float t0, rdir, soff[3], slen;
+};
+
+__device__ __forceinline__ LaoLight lao_light(const VptLaoArgs& a, float rx) {
+  LaoLight l;
+  l.t0 = vpt_clip(rx * a.step * 1.5f, 0.0f, 1.0f);
+  const float q = 2.0f * rx - 1.0f;
+  const float sign = q > 0.0f ? 1.0f : (q < 0.0f ? -1.0f : q);
+  l.rdir = sign * (rx / kSqrt3);
+  float sdir[3] = {-1.0f + a.lx * rx, a.ly + rx * a.lz,
+                   -1.0f + 2.0f * a.rconst};
+  const float snorm = norm3(sdir[0], sdir[1], sdir[2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    sdir[k] = sdir[k] / snorm * rx;
+    l.soff[k] = sdir[k] * a.light_radius;
+  }
+  l.slen = sqrtf(sdir[0] * sdir[0] + sdir[1] * sdir[1] + sdir[2] * sdir[2]);
+  return l;
+}
+
+// Whether a pixel's slice at t changes it (lao.slice_active): t < 1 and
+// alpha at most 0.9.  Once false it stays false: t only grows and the
+// state stops changing.
+__device__ __forceinline__ bool lao_live(float t, const float4& acc) {
+  return t < 1.0f && acc.w <= 0.9f;
+}
+
+// The position of the AO tap (t2, light_radius*t2, weight) of a slice at
+// p: along the normalised half-vector to the light.
+__device__ __forceinline__ void lao_half(const VptLaoArgs& a, float rdir,
+                                         const float p[3], float4 tap,
+                                         float half[3]) {
+  const float light[3] = {a.lx, a.ly, a.lz};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) half[k] = light[k] + rdir * tap.y - p[k];
+  const float hn = norm3(half[0], half[1], half[2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) half[k] = p[k] + half[k] / hn * tap.x;
+}
+
+// |grad| of the raw gradient's three differences
+__device__ __forceinline__ float lao_grad_mag(float gx, float gy, float gz) {
+  return sqrtf(gx * gx + gy * gy + gz * gz);
+}
+
+// The AO term of the taps' weighted sum inner: lao_samples folds of the
+// carried accumulator.
+__device__ __forceinline__ float lao_ao(const VptLaoArgs& a, float inner) {
+  float carried = 0.0f, total = 0.0f;
+  for (int n = 0; n < a.lao_samples; ++n) {
+    carried = vpt_clip((carried + inner) / a.light_coefficient, 0.0f, 1.0f);
+    total = total + carried;
+  }
+  return total / (float)a.lao_samples;
+}
+
+// The soft-shadow term of the shadow tap's value vs.
+__device__ __forceinline__ float lao_soft(float vs, float slen) {
+  float contrib = vs * (vs * 0.2f) * slen;
+  contrib = vpt_clip(contrib * 20.0f, 0.0f, 1.0f);
+  return vpt_clip((-0.2f + 1.2f * contrib) / 1.3f, 0.0f, 1.0f);
+}
+
+// The slice's colour composited into acc: the 2D TF of (value, |grad|),
+// the AO and the shadow tints.
+template <bool kTfBf16>
+__device__ __forceinline__ void lao_composite(const VptLaoArgs& a,
+                                              float4& acc, float value,
+                                              float grad_mag, float lao,
+                                              float soft) {
+  float4 c = vpt_tf2d<kTfBf16>(a.tf_table, a.tw, a.th, value, grad_mag);
+  const float w1 = lao * a.lao_weight;
+  c.x = c.x * (1.0f - w1) + c.x * 0.15f * w1;
+  c.y = c.y * (1.0f - w1) + c.y * 0.18f * w1;
+  c.z = c.z * (1.0f - w1) + c.z * 0.32f * w1;
+  const float w2 = soft * a.soft_weight;
+  c.x = c.x * (1.0f - w2) + c.x * 0.15f * w2;
+  c.y = c.y * (1.0f - w2) + c.y * 0.18f * w2;
+  c.z = c.z * (1.0f - w2) + c.z * 0.22f * w2;
+
+  const float keep = 1.0f - acc.w;
+  acc.x = acc.x + keep * c.x * value;
+  acc.y = acc.y + keep * c.y * value;
+  acc.z = acc.z + keep * c.z * value;
+  acc.w = acc.w + keep * value * a.extinction / 100.0f;
+}
+
+// The frame's pixel from the march's accumulator (lao.finish): the alpha >
+// 1 normalisation, alpha 1.  A miss, whose accumulator stays 0, gives (0,
+// 0, 0, 1).
+__device__ __forceinline__ float4 lao_finish(float4 acc) {
+  if (acc.w > 1.0f) {
+    const float den = vpt_nmax(acc.w, 1e-6f);
+    acc.x = acc.x / den;
+    acc.y = acc.y / den;
+    acc.z = acc.z / den;
+  }
+  return make_float4(acc.x, acc.y, acc.z, 1.0f);
+}
+
 // One frame; with kCount, counts gets the pixels' active slices and the
 // slices their warps step through (the leader of each group of lanes that
 // runs a slice together counts one).  kC as in lao_axis; with kBaked (kC =
@@ -187,61 +329,25 @@ __device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
   if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
   const int i = y * a.width + x;
 
-  // the pixel's ray (_march.rays): unproject, slab test clamped at 0
-  float m[16];
-#pragma unroll
-  for (int k = 0; k < 16; ++k) m[k] = __ldg(a.mvp + k);
-  const float ndcx = vpt_pixel_ndc(x, a.width);
-  const float ndcy = vpt_pixel_ndc(window.x + y, window.y);
-  float from[3], to[3], dir[3];
-  vpt_unproject(m, ndcx, ndcy, ndcx, ndcy, from, to);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) dir[k] = to[k] - from[k];
-  float tnear, tfar;
-  vpt_intersect_cube(from, dir, &tnear, &tfar);
-  const float tb0 = vpt_nmax(tnear, 0.0f), tb1 = vpt_nmax(tfar, 0.0f);
-  if (tb0 >= tb1) {
+  const LaoRay r = lao_ray(a, window, x, y);
+  if (r.miss) {
     state[i] = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
     return;
   }
-  float start[3], seg[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    start[k] = from[k] + tb0 * dir[k];
-    seg[k] = (from[k] + tb1 * dir[k]) - start[k];
-  }
-
-  // what the random value fixes (lao.setup)
-  const float rx = __ldg(a.rx + i);
-  const float t0 = vpt_clip(rx * a.step * 1.5f, 0.0f, 1.0f);
-  const float q = 2.0f * rx - 1.0f;
-  const float sign = q > 0.0f ? 1.0f : (q < 0.0f ? -1.0f : q);
-  const float rdir = sign * (rx / kSqrt3);
-  const float light[3] = {a.lx, a.ly, a.lz};
-  float sdir[3] = {-1.0f + a.lx * rx, a.ly + rx * a.lz,
-                   -1.0f + 2.0f * a.rconst};
-  const float snorm = norm3(sdir[0], sdir[1], sdir[2]);
-  float soff[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    sdir[k] = sdir[k] / snorm * rx;
-    soff[k] = sdir[k] * a.light_radius;
-  }
-  const float slen = sqrtf(sdir[0] * sdir[0] + sdir[1] * sdir[1]
-                           + sdir[2] * sdir[2]);
+  const LaoLight l = lao_light(a, __ldg(a.rx + i));
 
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   int s = 0;
   for (; s < a.slices; ++s) {
-    const float t = t0 + (float)s * a.step;
-    if (!(t < 1.0f && acc.w <= 0.9f)) break;
+    const float t = l.t0 + (float)s * a.step;
+    if (!lao_live(t, acc)) break;
     if constexpr (kCount) {
       const unsigned group = __activemask();
       if ((threadIdx.x & 31) == __ffs(group) - 1) atomicAdd(counts + 1, 1ull);
     }
     float p[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) p[k] = start[k] + t * seg[k];
+    for (int k = 0; k < 3; ++k) p[k] = r.start[k] + t * r.seg[k];
 
     float value, grad_mag;
     if constexpr (kBaked) {
@@ -272,7 +378,7 @@ __device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
       for (int j = 0; j < 7; ++j)
         row[j] = vpt_load_rows<kBf16, kC>(a.table, rows[j]);
       // cell j's coordinate on each axis: 0 (p - v), 1 (p) or 2 (p + v)
-      const float g[3] = {
+      grad_mag = lao_grad_mag(
           vpt_lerp_row_fg<kBf16>(row[0], ax.f[0], ax.g[0], ay.f[1], ay.g[1],
                                  az.f[1], az.g[1])
               - vpt_lerp_row_fg<kBf16>(row[1], ax.f[2], ax.g[2], ay.f[1],
@@ -284,8 +390,7 @@ __device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
           vpt_lerp_row_fg<kBf16>(row[4], ax.f[1], ax.g[1], ay.f[1], ay.g[1],
                                  az.f[0], az.g[0])
               - vpt_lerp_row_fg<kBf16>(row[5], ax.f[1], ax.g[1], ay.f[1],
-                                       ay.g[1], az.f[2], az.g[2])};
-      grad_mag = sqrtf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]);
+                                       ay.g[1], az.f[2], az.g[2]));
       value = vpt_lerp_row_fg<kBf16>(row[6], ax.f[1], ax.g[1], ay.f[1],
                                      ay.g[1], az.f[1], az.g[1]);
     }
@@ -304,11 +409,7 @@ __device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
           if (j0 + j >= a.n_taps) break;
           const float4 tap = __ldg(a.taps + j0 + j);
           float half[3];
-#pragma unroll
-          for (int k = 0; k < 3; ++k) half[k] = light[k] + rdir * tap.y - p[k];
-          const float hn = norm3(half[0], half[1], half[2]);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) half[k] = p[k] + half[k] / hn * tap.x;
+          lao_half(a, l.rdir, p, tap, half);
           tc[j] = lao_cell<Row, kC>(a, filter, half[0], half[1], half[2]);
           tr[j] = vpt_load_rows<kBf16, kC>(a.table, tc[j].row);
           tw[j] = tap.z;
@@ -319,51 +420,21 @@ __device__ __forceinline__ void lao_pixel(const VptLaoArgs& a, int filter,
           inner = inner + lao_tap<kBf16, kC>(tr[j], tc[j]) * tw[j];
         }
       }
-      float carried = 0.0f, total = 0.0f;
-      for (int n = 0; n < a.lao_samples; ++n) {
-        carried = vpt_clip((carried + inner) / a.light_coefficient, 0.0f,
-                           1.0f);
-        total = total + carried;
-      }
-      lao = total / (float)a.lao_samples;
+      lao = lao_ao(a, inner);
     }
 
     // the soft shadow
     float soft = 0.0f;
     if (a.soft_on) {
       const VptCell<Row> sc = lao_cell<Row, kC>(
-          a, filter, p[0] + soff[0], p[1] + soff[1], p[2] + soff[2]);
-      const float vs = lao_tap<kBf16, kC>(
-          vpt_load_rows<kBf16, kC>(a.table, sc.row), sc);
-      float contrib = vs * (vs * 0.2f) * slen;
-      contrib = vpt_clip(contrib * 20.0f, 0.0f, 1.0f);
-      soft = vpt_clip((-0.2f + 1.2f * contrib) / 1.3f, 0.0f, 1.0f);
+          a, filter, p[0] + l.soff[0], p[1] + l.soff[1], p[2] + l.soff[2]);
+      soft = lao_soft(lao_tap<kBf16, kC>(
+          vpt_load_rows<kBf16, kC>(a.table, sc.row), sc), l.slen);
     }
-
-    float4 c = vpt_tf2d<kTfBf16>(a.tf_table, a.tw, a.th, value, grad_mag);
-    const float w1 = lao * a.lao_weight;
-    c.x = c.x * (1.0f - w1) + c.x * 0.15f * w1;
-    c.y = c.y * (1.0f - w1) + c.y * 0.18f * w1;
-    c.z = c.z * (1.0f - w1) + c.z * 0.32f * w1;
-    const float w2 = soft * a.soft_weight;
-    c.x = c.x * (1.0f - w2) + c.x * 0.15f * w2;
-    c.y = c.y * (1.0f - w2) + c.y * 0.18f * w2;
-    c.z = c.z * (1.0f - w2) + c.z * 0.22f * w2;
-
-    const float keep = 1.0f - acc.w;
-    acc.x = acc.x + keep * c.x * value;
-    acc.y = acc.y + keep * c.y * value;
-    acc.z = acc.z + keep * c.z * value;
-    acc.w = acc.w + keep * value * a.extinction / 100.0f;
+    lao_composite<kTfBf16>(a, acc, value, grad_mag, lao, soft);
   }
   if constexpr (kCount) atomicAdd(counts, (unsigned long long)s);
-  if (acc.w > 1.0f) {
-    const float den = vpt_nmax(acc.w, 1e-6f);
-    acc.x = acc.x / den;
-    acc.y = acc.y / den;
-    acc.z = acc.z / den;
-  }
-  state[i] = make_float4(acc.x, acc.y, acc.z, 1.0f);
+  state[i] = lao_finish(acc);
 }
 
 template <bool kBf16, bool kTfBf16, class Row, bool kCount>
@@ -384,6 +455,216 @@ lao_ext_kernel(const VptLaoExt a, int2 window, float4* __restrict__ state,
                unsigned long long* __restrict__ counts) {
   lao_pixel<kBf16, kBf16, int, kCount, kC, kBaked>(a, a.filter, window,
                                                    state, counts);
+}
+
+// The halo instance (parallel/halo.py, a HaloScene frame): the volume is z
+// slabs over the ranks of a group, each rank holding its slab's corner rows,
+// and a sample is the sum over the ranks of their masked slab-local values
+// (vpt_tpu/parallel/halo.py:199-272: sample_value, raw_gradient and
+// sample_volume_rg, one psum each), an all-reduce between the fetch and
+// everything that is not linear in the value.  A pixel-slice sums its
+// lao_halo_values values: the six raw-gradient taps at p -+ e_k/32 and the
+// value at p (or, baked, the (value, |grad|) pair at p), the n_taps AO taps
+// and the shadow tap, each of channel 0 (a two-channel volume that is not
+// baked sums channel 0 only).  A frame of S slices is C = ceil(S /
+// kHaloChunk) + 1 launches on the state, the wrapper all-reducing the
+// values between them: launch e folds chunk e - 1's summed values in K10's
+// order (lao_fold_values: |grad|, the AO fold, the soft shadow, the 2D TF,
+// the tints and the composite) while the pixel is live, then writes chunk
+// e's masked values (lao_slab_fetch: slab.cuh's cell of each tap, so each
+// tap's owner is its own cell's: the gradient's z taps may lie in other
+// slabs than p); the last launch writes the frame (lao_finish).  Between
+// launches the state holds the pixel's accumulator (LAO's frame replaces
+// the state), and its ray, rx and tap directions come again from the pixel
+// index.  A pixel that is not live at a chunk's start reads nothing that
+// chunk and its slots hold zeros: every rank holds the same accumulator,
+// so every rank decides alike.  The value buffer starts at zero and stays
+// so outside the chunks of live pixels: a launch zeroes the slots of a
+// pixel that was live at the previous chunk's start and is not now, and
+// the last launch those of a pixel live at the last chunk's start, so a
+// pixel that stays dark writes nothing.  So on one slab a frame equals
+// K10's bit for bit: only the owner's value is non-zero, and the fold runs
+// K10's operations on the same values.  A HaloScene has no filter; its
+// volume has one channel (kC = 0) or two (kC = 2), its slabs contiguous or
+// interleaved, the fetch masked or not (slab.cuh).  Bound on the H100:
+// K10's, plus each fetched pixel-slice's values written and read back (224
+// bytes at 28 values) and each pixel's accumulator across each all-reduce;
+// the 512^2 headline's 5.4 M active pixel-slices make that 1.32 GB, 0.39
+// ms at 3.35 TB/s, where the instance takes ~2.2x K10's device time
+// (PERF.md §6): the slab cell's divisions and 64-bit rows, and the
+// values' stores and loads, on top of K10's issue-bound slice.
+constexpr int kHaloChunk = 8;
+
+// the values a pixel-slice of the halo instance sums: the gradient's seven
+// (or the baked pair), the AO taps and the shadow tap
+__host__ __device__ __forceinline__ int lao_halo_values(const VptLaoExt& a) {
+  return (a.baked ? 2 : 7) + (a.lao_on ? a.n_taps : 0) + (a.soft_on ? 1 : 0);
+}
+
+// Channel 0 of the tap at (px, py, pz) from this rank's slab rows, 0 where
+// another rank owns its cell: lao_tap's lerp of the slab cell's row.
+template <bool kBf16, int kC>
+__device__ __forceinline__ float lao_slab_tap(const VptLaoArgs& a,
+                                              VptSlab slab, float px,
+                                              float py, float pz) {
+  const VptSlabCell c = vpt_slab_cell(a.d, a.h, a.w, slab, px, py, pz);
+  if (!c.local) return 0.0f;
+  return vpt_lerp_row_fg<kBf16>(vpt_load_rows<kBf16, kC>(a.table, c.row),
+                                c.fx, 1.0f - c.fx, c.fy, 1.0f - c.fy, c.fz,
+                                1.0f - c.fz);
+}
+
+// A live slice's masked values at p into out[m * n], m = 0 ..
+// lao_halo_values - 1: the gradient's cells from the shared axes (each z
+// coordinate's slab plane and owner from slab.cuh's rule), then the AO and
+// shadow taps.
+template <bool kBf16, int kC, bool kBaked>
+__device__ __forceinline__ void lao_slab_fetch(const VptLaoArgs& a,
+                                               VptSlab slab,
+                                               const LaoLight& l,
+                                               const float p[3],
+                                               float* __restrict__ out,
+                                               long long n) {
+  int m;
+  if constexpr (kBaked) {
+    const VptSlabCell c = vpt_slab_cell(a.d, a.h, a.w, slab, p[0], p[1],
+                                        p[2]);
+    float2 rg = make_float2(0.0f, 0.0f);
+    if (c.local) rg = vpt_slab_value<kBf16, 2>(a.table, c);
+    out[0] = rg.x;
+    out[n] = rg.y;
+    m = 2;
+  } else {
+    const LaoAxis<int64_t> ax = lao_axis<int64_t, kC>(p[0], a.w, 1, 0);
+    const LaoAxis<int64_t> ay = lao_axis<int64_t, kC>(p[1], a.h, a.w, 0);
+    // the z axis's indices (stride 1), placed in the slab below
+    const LaoAxis<int64_t> az = lao_axis<int64_t, kC>(p[2], a.d, 1, 0);
+    int64_t zoff[3];
+    bool local[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      int owner;
+      zoff[j] = (int64_t)vpt_slab_z(a.d, slab, (int)az.off[j], &owner)
+                * a.h * a.w;
+      local[j] = vpt_slab_local(slab, owner);
+    }
+    // the cell at axis coordinates (xj, yj, zj) (0: p - v, 1: p, 2: p +
+    // v), 0 where another rank owns it
+    auto cell = [&](int xj, int yj, int zj) {
+      if (!local[zj]) return 0.0f;
+      return vpt_lerp_row_fg<kBf16>(
+          vpt_load_rows<kBf16, kC>(a.table,
+                                   zoff[zj] + ay.off[yj] + ax.off[xj]),
+          ax.f[xj], ax.g[xj], ay.f[yj], ay.g[yj], az.f[zj], az.g[zj]);
+    };
+    // K10's order: x - v, x + v, y - v, y + v, z - v, z + v, p
+    out[0] = cell(0, 1, 1);
+    out[n] = cell(2, 1, 1);
+    out[2 * n] = cell(1, 0, 1);
+    out[3 * n] = cell(1, 2, 1);
+    out[4 * n] = cell(1, 1, 0);
+    out[5 * n] = cell(1, 1, 2);
+    out[6 * n] = cell(1, 1, 1);
+    m = 7;
+  }
+  if (a.lao_on) {
+    for (int j = 0; j < a.n_taps; ++j) {
+      float half[3];
+      lao_half(a, l.rdir, p, __ldg(a.taps + j), half);
+      out[(m + j) * n] = lao_slab_tap<kBf16, kC>(a, slab, half[0], half[1],
+                                                 half[2]);
+    }
+    m += a.n_taps;
+  }
+  if (a.soft_on) {
+    out[m * n] = lao_slab_tap<kBf16, kC>(a, slab, p[0] + l.soff[0],
+                                         p[1] + l.soff[1], p[2] + l.soff[2]);
+  }
+}
+
+// One slice folded into acc from its summed values v[m * n] (the layout of
+// lao_slab_fetch), K10's operations in K10's order.
+template <bool kTfBf16, bool kBaked>
+__device__ __forceinline__ void lao_fold_values(const VptLaoArgs& a,
+                                                const LaoLight& l,
+                                                const float* __restrict__ v,
+                                                long long n, float4& acc) {
+  float value, grad_mag;
+  int m;
+  if constexpr (kBaked) {
+    value = v[0];
+    grad_mag = v[n];
+    m = 2;
+  } else {
+    grad_mag = lao_grad_mag(v[0] - v[n], v[2 * n] - v[3 * n],
+                            v[4 * n] - v[5 * n]);
+    value = v[6 * n];
+    m = 7;
+  }
+  float lao = 0.0f;
+  if (a.lao_on) {
+    float inner = 0.0f;
+    for (int j = 0; j < a.n_taps; ++j)
+      inner = inner + v[(m + j) * n] * __ldg(a.taps + j).z;
+    lao = lao_ao(a, inner);
+    m += a.n_taps;
+  }
+  const float soft = a.soft_on ? lao_soft(v[m * n], l.slen) : 0.0f;
+  lao_composite<kTfBf16>(a, acc, value, grad_mag, lao, soft);
+}
+
+// resident blocks an SM that the halo instance's register allocation must
+// allow: measured at 512^2 on the headline (chip_smoke.py's lao halo line),
+// uncapped 96 registers and 5 blocks ran 2.77x K10, 6 blocks (80
+// registers, 8 spilled bytes) 2.19x, 7 blocks (72, 40 bytes) 2.26x; reads
+// issued a group of AO taps ahead took 140 registers and 2.80x
+constexpr int kHaloMinBlocks = 6;
+
+template <bool kBf16, bool kTfBf16, int kC, bool kBaked>
+__global__ void __launch_bounds__(kVptTileThreads, kHaloMinBlocks)
+lao_halo_kernel(const VptLaoExt a, const VptSlab slab,
+                float* __restrict__ value, float4* __restrict__ state,
+                int chunk) {
+  int x, y;
+  if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
+  const int i = y * a.width + x;
+  const long long n = (long long)a.width * a.height;
+  const int nv = lao_halo_values(a);
+  const LaoRay r = lao_ray(a, make_int2(a.row0, a.full_height), x, y);
+  const int slices = r.miss ? 0 : a.slices;
+  const LaoLight l = lao_light(a, __ldg(a.rx + i));
+  const int chunks = (a.slices + kHaloChunk - 1) / kHaloChunk;
+  float4 acc = chunk == 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : state[i];
+  // live at the previous chunk's start: its slots hold that chunk's values
+  bool was_live = false;
+  if (chunk > 0) {
+    const int j0 = (chunk - 1) * kHaloChunk;
+    was_live = j0 < slices && lao_live(l.t0 + (float)j0 * a.step, acc);
+    for (int k = 0; was_live && k < kHaloChunk && j0 + k < slices; ++k) {
+      if (!lao_live(l.t0 + (float)(j0 + k) * a.step, acc)) break;
+      lao_fold_values<kTfBf16, kBaked>(
+          a, l, value + (long long)k * nv * n + i, n, acc);
+    }
+  }
+  const int j0 = chunk * kHaloChunk;
+  const bool live = chunk < chunks && j0 < slices
+                    && lao_live(l.t0 + (float)j0 * a.step, acc);
+  if (live || was_live) {
+    for (int k = 0; k < kHaloChunk; ++k) {
+      float* out = value + (long long)k * nv * n + i;
+      const int s = j0 + k;
+      const float t = l.t0 + (float)s * a.step;
+      if (live && s < slices && t < 1.0f) {
+        float p[3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) p[q] = r.start[q] + t * r.seg[q];
+        lao_slab_fetch<kBf16, kC, kBaked>(a, slab, l, p, out, n);
+      } else {
+        for (int m = 0; m < nv; ++m) out[m * n] = 0.0f;
+      }
+    }
+  }
+  state[i] = chunk < chunks ? acc : lao_finish(acc);
 }
 
 // The instantiation for the table types, the row index and counting.
@@ -433,6 +714,49 @@ KernelExt pick_ext(int channels, int table_bf16, int tf_bf16, int baked,
                    bool count) {
   return count ? pick_ext_count<true>(channels, table_bf16, tf_bf16, baked)
                : pick_ext_count<false>(channels, table_bf16, tf_bf16, baked);
+}
+
+// The halo instance: one channel of either table type and TF type, or two
+// channels (baked or not) whose TF has the rows' type; null for anything
+// else.
+using KernelHalo = void (*)(const VptLaoExt, const VptSlab, float*, float4*,
+                            int);
+
+KernelHalo pick_halo(int channels, int table_bf16, int tf_bf16, int baked) {
+  if (channels == 2 && table_bf16 == tf_bf16) {
+    if (table_bf16)
+      return baked ? lao_halo_kernel<true, true, 2, true>
+                   : lao_halo_kernel<true, true, 2, false>;
+    return baked ? lao_halo_kernel<false, false, 2, true>
+                 : lao_halo_kernel<false, false, 2, false>;
+  }
+  if (channels != 1 || baked) return nullptr;
+  if (table_bf16)
+    return tf_bf16 ? lao_halo_kernel<true, true, 0, false>
+                   : lao_halo_kernel<true, false, 0, false>;
+  return tf_bf16 ? lao_halo_kernel<false, true, 0, false>
+                 : lao_halo_kernel<false, false, 0, false>;
+}
+
+// The launch shape of a kernel on device: vpt_lao_info's values, with last
+// the AO taps read ahead (K10) or the slices of a fetch (the halo
+// instance).
+cudaError_t info(const void* kernel, int last, int device, int* out) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kVptTileThreads, 0);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
+                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
+                        kVptTileW, kVptTileH, kVptWarpW, last};
+  for (int k = 0; k < 10; ++k) out[k] = values[k];
+  return cudaSuccess;
 }
 
 // whether a launch runs an ext instance
@@ -501,19 +825,51 @@ extern "C" int vpt_lao_info(int flags, int tf_bf16, int rows64, int device,
                                    (flags & 4) ? 2 : 1, bf16, tf_bf16,
                                    (flags & 8) ? 1 : 0, false))
                    : (const void*)pick(bf16, tf_bf16, rows64, false);
+  return (int)info(kernel, kGroup, device, out);
+}
+
+// One launch of the halo instance (see lao_halo_kernel): prepared is the
+// VptLaoExt of the HaloScene, Params and resolution (table: the rank's slab
+// rows, (slab planes * H * W, 8 * channels); d, h, w the whole volume's;
+// no filter; rows64 unused: slab rows are indexed with 64 bits); the slab:
+// its index of num_slabs, the thin slabs a rank (interleave) and whether
+// the fetch is masked; value the (kHaloChunk, lao_halo_values, width *
+// height) values between the launches, zero before a frame's first;
+// state the (height, width, 4) frame, which holds the accumulator between
+// the launches; chunk e of 0 .. ceil(slices / kHaloChunk), the last
+// writing the frame.
+extern "C" int vpt_lao_halo_launch(const void* prepared, int slab_index,
+                                   int num_slabs, int interleave, int masked,
+                                   void* value, void* state, int chunk,
+                                   void* stream) {
+  const VptLaoExt& a = *static_cast<const VptLaoExt*>(prepared);
+  VptDeviceGuard guard(a.device);
+  if (a.width <= 0 || a.height <= 0) return 0;
+  const int chunks = (a.slices + kHaloChunk - 1) / kHaloChunk;
+  if (a.filter != 0 || a.row0 < 0 || a.full_height < a.row0 + a.height
+      || chunk < 0 || chunk > chunks || num_slabs < 1 || interleave < 1
+      || slab_index < 0 || slab_index >= num_slabs
+      || a.d % (num_slabs * interleave) != 0)
+    return (int)cudaErrorInvalidValue;
+  const KernelHalo kernel = pick_halo(a.channels, a.table_bf16, a.tf_bf16,
+                                      a.baked);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  int per_sm = 0, sms = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kVptTileThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  const int values[] = {kVptTileThreads, per_sm, sms, attr.numRegs,
-                        (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
-                        kVptTileW, kVptTileH, kVptWarpW, kGroup};
-  for (int k = 0; k < 10; ++k) out[k] = values[k];
-  return 0;
+  const VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
+  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
+  kernel<<<blocks, kVptTileThreads, 0, (cudaStream_t)stream>>>(
+      a, slab, static_cast<float*>(value), static_cast<float4*>(state),
+      chunk);
+  return (int)cudaGetLastError();
+}
+
+// The launch shape of the halo instance for `flags` (1 a slab table of
+// bf16 rows, else float32; 4 two channels, 8 baked) and a packed TF table
+// of bf16 (or float32) on `device`: vpt_lao_info's values, the last the
+// slices of a fetch (kHaloChunk).  Launches nothing.
+extern "C" int vpt_lao_halo_info(int flags, int tf_bf16, int device,
+                                 int* out) {
+  VptDeviceGuard guard(device);
+  return (int)info((const void*)pick_halo((flags & 4) ? 2 : 1, flags & 1,
+                                          tf_bf16, (flags & 8) ? 1 : 0),
+                   kHaloChunk, device, out);
 }

@@ -1,10 +1,10 @@
 // The slab-local cell of a spatially sharded volume (parallel/halo.py,
 // HaloScene._cell_coords; vpt_tpu/parallel/halo.py:168-197), shared by the
 // MCM event kernel's halo and resident instances (mcm_event.cu), the halo
-// instances of the march, ISO shade, MCS and DOS kernels (march.cu,
-// iso_shade.cu, mcs_frame.cu, dos_sweep.cu) and the corner fetch's slab
-// instance (corner_gather.cu); vpt_slab_value, the value of a slab cell's
-// row, is the per-pixel kernels'.
+// instances of the march, ISO shade, MCS, DOS and LAO kernels (march.cu,
+// iso_shade.cu, mcs_frame.cu, dos_sweep.cu, lao_march.cu) and the corner
+// fetch's slab instance (corner_gather.cu); vpt_slab_value, the value of a
+// slab cell's row, is the per-pixel kernels'.
 //
 // A rank holds z planes of the volume and the matching rows of its corner
 // tables.  A position's cell is the global GL CLAMP_TO_EDGE cell (ray.cuh's
@@ -45,6 +45,26 @@ struct VptSlabCell {
   bool local;   // the fetch reads the cell (owned, or unmasked)
 };
 
+// The slab-local plane of a cell whose global z index is z0, and in owner
+// the rank that owns the cell (the rules above).
+__device__ __forceinline__ int vpt_slab_z(int d, VptSlab slab, int z0,
+                                          int* owner) {
+  if (slab.interleave == 1) {
+    const int ds = d / slab.count;
+    *owner = min(max(z0 / ds, 0), slab.count - 1);
+    return min(max(z0 - slab.index * ds, 0), ds - 1);
+  }
+  const int thin_ds = d / (slab.interleave * slab.count);
+  const int thin = z0 / thin_ds;
+  *owner = thin % slab.count;
+  return (thin / slab.count) * (thin_ds + 1) + (z0 - thin * thin_ds);
+}
+
+// whether a slab's fetch reads a cell that owner owns
+__device__ __forceinline__ bool vpt_slab_local(VptSlab slab, int owner) {
+  return !slab.masked || owner == slab.index;
+}
+
 __device__ __forceinline__ VptSlabCell vpt_slab_cell(int d, int h, int w,
                                                      VptSlab slab, float px,
                                                      float py, float pz) {
@@ -52,20 +72,9 @@ __device__ __forceinline__ VptSlabCell vpt_slab_cell(int d, int h, int w,
   const float uy = vpt_clip(py * (float)h - 0.5f, 0.0f, (float)(h - 1));
   const float uz = vpt_clip(pz * (float)d - 0.5f, 0.0f, (float)(d - 1));
   const float ix = floorf(ux), iy = floorf(uy), iz = floorf(uz);
-  const int z0 = vpt_index(iz);
-  int zloc;
   VptSlabCell c;
-  if (slab.interleave == 1) {
-    const int ds = d / slab.count;
-    c.owner = min(max(z0 / ds, 0), slab.count - 1);
-    zloc = min(max(z0 - slab.index * ds, 0), ds - 1);
-  } else {
-    const int thin_ds = d / (slab.interleave * slab.count);
-    const int thin = z0 / thin_ds;
-    c.owner = thin % slab.count;
-    zloc = (thin / slab.count) * (thin_ds + 1) + (z0 - thin * thin_ds);
-  }
-  c.local = !slab.masked || c.owner == slab.index;
+  const int zloc = vpt_slab_z(d, slab, vpt_index(iz), &c.owner);
+  c.local = vpt_slab_local(slab, c.owner);
   c.row = ((int64_t)zloc * h + vpt_index(iy)) * w + vpt_index(ix);
   c.fx = ux - ix;
   c.fy = uy - iy;

@@ -152,6 +152,11 @@ SIGNATURES = {
     # stage, flags (1 bf16, 4 two channels), TF mode, disk taps, device,
     # out
     "vpt_dos_halo_info": [_I, _I, _I, _I, _I, _P],
+    # prepared VptDosExt of a slab and the whole image; the band's color
+    # and occlusion, ext, depth, max depth, slice distance, offsets; slab
+    # index, slabs, interleave, masked; value; slice, k0, count, stage,
+    # row0, band rows, ext row0, ext rows; stream
+    "vpt_dos_halo_band": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 8 + [_P],
     # prepared VptLaoArgs, state; stream
     "vpt_lao_launch": [_P, _P, _P],
     # prepared VptLaoArgs, state, counts; stream
@@ -159,6 +164,12 @@ SIGNATURES = {
     # flags (1 bf16 corner table, 2 ext of one channel, 4 of two, 8
     # baked), bf16 TF table, 64-bit rows, device, out
     "vpt_lao_info": [_I, _I, _I, _I, _P],
+    # prepared VptLaoExt of a slab; slab index, slabs, interleave, masked;
+    # value, state; chunk; stream
+    "vpt_lao_halo_launch": [_P, _I, _I, _I, _I, _P, _P, _I, _P],
+    # flags (1 bf16 slab rows, 4 two channels, 8 baked), bf16 TF table,
+    # device, out
+    "vpt_lao_halo_info": [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -450,18 +461,6 @@ def is_halo(scene) -> bool:
     """Whether ``scene`` is a ``parallel.halo.HaloScene`` (a rank's z slab
     of the volume)."""
     return hasattr(scene, "num_slabs")
-
-
-def refuse_halo(scene, what: str, item: str) -> None:
-    """Raise ``_not_ported`` for a frame of ``what`` over a HaloScene on
-    the card: that kernel reads one whole corner table and has no halo
-    instance yet (ROADMAP queue 2b ``item``)."""
-    if is_halo(scene):
-        from ..renderers.base import _not_ported
-
-        raise _not_ported(f"{what} over a HaloScene on the card (its "
-                          "kernel split around the slab fetch)",
-                          f"queue 2b item {item}")
 
 
 def slab_scene(scene, use_skip: bool = False):

@@ -37,7 +37,10 @@ the kernel's rows equal :func:`slice_table`'s bit for bit;
 scalars.  :data:`LAUNCHES` counts kernel launches: one a frame.  A frame
 over a ``parallel.halo.HaloScene`` (a rank's z slab) runs the kernel's
 halo instance on the card (:func:`halo_sweep_frame`); its plain twin is
-:func:`sweep_frame_plain` over the same scene.
+:func:`sweep_frame_plain` over the same scene.  A band of rows
+(:func:`band_slice`, a slice a launch of the band instance) over a
+HaloScene runs the band's halo instance, whose plain twin is
+:func:`band_slice_plain` over the same scene.
 """
 
 from __future__ import annotations
@@ -57,6 +60,9 @@ BAND_LAUNCHES = 0
 #: launches of the halo instance (two a chunk of HALO_CHUNK active
 #: slices), likewise
 HALO_LAUNCHES = 0
+#: launches of the halo band instance (a fetch a chunk of HALO_CHUNK
+#: active slices and a fold a slice), likewise
+HALO_BAND_LAUNCHES = 0
 #: slices a halo fetch samples (``kHaloChunk``; vpt_tpu's sweep samples 8
 #: slices a ``sample_color``, one ``psum`` each)
 HALO_CHUNK = 8
@@ -265,7 +271,8 @@ def sweep_frame(state, scene, params, table=None):
     LAUNCHES += 1
 
 
-def band_slice(state, ext, ext_row0: int, scene, params, k: int, window):
+def band_slice(state, ext, ext_row0: int, scene, params, k: int, window,
+               n_active=None):
     """Slice ``k`` of the frame on a band of rows, in place on the band's
     colour and occlusion: K9's band instance for CUDA state (one launch),
     :func:`band_slice_plain` for CPU state.  ``window`` = (row0, H) places
@@ -273,7 +280,9 @@ def band_slice(state, ext, ext_row0: int, scene, params, k: int, window):
     occlusion, (E, W) float32 from the image's row ``ext_row0``, covering
     the band (``dos.render_band`` builds it); the state's depth is the
     frame's first slice's (``dos.render_band`` advances it after the
-    frame)."""
+    frame).  Over a HaloScene on the card the band's halo instance runs
+    (:func:`_halo_band_slice`), which takes the frame's active slices
+    ``n_active``."""
     color, occlusion = state["color"], state["occlusion"]
     if not color.is_cuda:
         band_slice_plain(state, ext, ext_row0, scene, params, k, window)
@@ -281,13 +290,11 @@ def band_slice(state, ext, ext_row0: int, scene, params, k: int, window):
     global BAND_LAUNCHES
     from .. import sampling
 
-    if _build.is_halo(scene):
-        raise ValueError("a DOS band of rows takes the whole scene: a "
-                         "HaloScene's sweep renders the whole image "
-                         "(halo.sharded_render_frame with data = 1)")
     band_h, width = color.shape[:2]
     row0, height = sampling.row_window(window, band_h)
-    p = _scene_cache.get(scene, (params, height, width))
+    halo = _build.is_halo(scene)
+    p = (_halo_cache if halo else _scene_cache).get(
+        scene, (params, height, width))
     device = color.device
     if color.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
@@ -309,13 +316,55 @@ def band_slice(state, ext, ext_row0: int, scene, params, k: int, window):
                                       "slice_distance")]
     for key, value in zip(("depth", "max_depth", "slice_distance"), scalars):
         _check_tensor(value, (), device, key)
+    pointers = (color.data_ptr(), occlusion.data_ptr(), ext.data_ptr(),
+                *(v.data_ptr() for v in scalars), offsets.data_ptr())
+    if halo:
+        _halo_band_slice(p, pointers, scene, k, n_active, row0, band_h,
+                         ext_row0, ext.shape[0])
+        return
     err = _build.library().vpt_dos_band(
-        p.address, color.data_ptr(), occlusion.data_ptr(), ext.data_ptr(),
-        *(v.data_ptr() for v in scalars), offsets.data_ptr(), k, row0,
-        band_h, ext_row0, ext.shape[0], _build.current_stream(p.device))
+        p.address, *pointers, k, row0, band_h, ext_row0, ext.shape[0],
+        _build.current_stream(p.device))
     if err:
         _build.check("vpt_dos_band", err)
     BAND_LAUNCHES += 1
+
+
+def _halo_band_slice(p, pointers, scene, k, n_active, row0, band_h,
+                     ext_row0, ext_h):
+    """Slice ``k`` of a HaloScene's band on the card: at the first slice of
+    each chunk of up to HALO_CHUNK of the frame's ``n_active`` active
+    slices, a launch of the halo fetch over the band's pixels (this rank's
+    masked values of the chunk's slices) and one all-reduce of them
+    (``HaloScene.reduce_``); then a launch of the halo band fold, the band
+    instance's slice from the summed value.  So a frame is ceil(n / 8)
+    fetches and all-reduces and n folds; on one slab each slice equals the
+    band instance's bit for bit."""
+    global HALO_BAND_LAUNCHES
+    if n_active is None or not 0 <= k < n_active:
+        raise ValueError("a HaloScene's band slice takes the frame's active "
+                         "slices (dos.render_band counts them)")
+    k0 = k - k % HALO_CHUNK
+    count = min(HALO_CHUNK, n_active - k0)
+    # a band's own values: bands of one process interleave their slices
+    value = p.band_values.get((row0, band_h))
+    if value is None:
+        value = p.band_values[row0, band_h] = torch.empty(
+            HALO_CHUNK * band_h * p.args.width * p.args.channels,
+            dtype=torch.float32, device=p.value.device)
+    stream = _build.current_stream(p.device)
+    lib = _build.library()
+    head = (p.address, *pointers, scene.slab_index, scene.num_slabs,
+            scene.interleave, int(scene.collective), value.data_ptr(), k,
+            k0, count)
+    tail = (row0, band_h, ext_row0, ext_h, stream)
+    if k == k0:
+        _build.check("vpt_dos_halo_band",
+                     lib.vpt_dos_halo_band(*head, 0, *tail))
+        HALO_BAND_LAUNCHES += 1
+        scene.reduce_(value)
+    _build.check("vpt_dos_halo_band", lib.vpt_dos_halo_band(*head, 1, *tail))
+    HALO_BAND_LAUNCHES += 1
 
 
 def _halo_fields(scene):
@@ -360,7 +409,7 @@ def _prepare_halo(scene, key):
         scratch=torch.empty((height, width), dtype=torch.float32,
                             device=dev),
         value=torch.empty(HALO_CHUNK * n * channels, dtype=torch.float32,
-                          device=dev),
+                          device=dev), band_values={},
         launch=_build.library().vpt_dos_halo_launch)
 
 

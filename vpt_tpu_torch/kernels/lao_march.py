@@ -30,6 +30,12 @@ constant ``rconst``, the light and the AO taps, so that the kernel reads
 the bits the plain version computes and evaluates no ``cos``/``sin`` itself.
 Corner rows are indexed with 32-bit integers in tables of fewer than
 :data:`ROWS32` rows, else with 64.
+
+A frame over a ``parallel.halo.HaloScene`` (a rank's z slab) runs the
+kernel's halo instance on the card (:func:`halo_lao_frame`): ceil(slices /
+:data:`HALO_CHUNK`) + 1 launches around an all-reduce of each chunk's
+masked tap values; its plain twin is :func:`lao_frame_plain` over the same
+scene.
 """
 
 from __future__ import annotations
@@ -44,6 +50,11 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: launches of the halo instance (ceil(slices / HALO_CHUNK) + 1 a frame),
+#: likewise
+HALO_LAUNCHES = 0
+#: slices a halo fetch samples (``kHaloChunk``)
+HALO_CHUNK = 8
 #: corner tables of fewer rows than this index them with 32-bit integers,
 #: larger ones with 64
 ROWS32 = 2 ** 31
@@ -100,6 +111,45 @@ def _transfer_table(scene):
     return table
 
 
+def _frame_inputs(scene, params, height, width, row0, full_height):
+    """What the kernel reads of the plain version's setup, computed with
+    its own functions on the scene's device: the per-pixel random value
+    ``rx``, the constant ``rconst``, the light and the AO taps (a (T, 4)
+    float32 tensor of t2, light_radius·t2, the weight and 0)."""
+    from ..renderers import lao
+
+    device = scene.device
+    rx = lao.pixel_random(height, width, device,
+                          window=(row0, full_height)).contiguous()
+    rconst = float(lao.random_constant(device))
+    light = lao.light_of(scene, params).tolist()
+    rows = lao.lao_taps(params)
+    taps = torch.zeros((max(len(rows), 1), 4), dtype=torch.float32)
+    taps[:len(rows), :3] = torch.from_numpy(rows)
+    return rx, rconst, light, taps.to(device), len(rows)
+
+
+def _args(table, bf16, d, h, w, mvp, tf, th, tw, params, height, width,
+          inputs, device, rows64, channels, filt, row0, full_height):
+    """The ``VptLaoExt`` of a frame: the scene's pointers and sizes, the
+    Params, the resolution and its window, and :func:`_frame_inputs`."""
+    rx, rconst, light, taps, n_taps = inputs
+
+    def f32(v):
+        return float(np.float32(v))
+
+    return _Args(table, tf.data_ptr(), mvp, rx.data_ptr(), taps.data_ptr(),
+                 bf16, int(tf.dtype == torch.bfloat16), d, h, w, tw, th,
+                 width, height, params.slices, n_taps,
+                 params.num_lao_samples, int(params.local_ambient_occlusion),
+                 int(params.soft_shadows), f32(1.0 / params.slices),
+                 f32(params.extinction), f32(params.lao_weight),
+                 f32(params.soft_shadows_weight), f32(params.light_radius),
+                 f32(params.light_coefficient), *light, rconst, device,
+                 rows64, channels, filt, int(params.baked_gradient), row0,
+                 full_height)
+
+
 def _prepare(scene, key):
     """What every frame of ``key`` = (params, height, width), then (row0,
     full_height) for a window other than the whole image
@@ -129,30 +179,12 @@ def _prepare(scene, key):
             raise ValueError("the LAO kernel's two-channel and filtered "
                              "instances take a packed TF table of the "
                              "corner table's dtype")
-    device = scene.device
-    rx = lao.pixel_random(height, width, device,
-                          window=(row0, full_height)).contiguous()
-    rconst = float(lao.random_constant(device))
-    light = lao.light_of(scene, params).tolist()
-    rows = lao.lao_taps(params)
-    taps = torch.zeros((max(len(rows), 1), 4), dtype=torch.float32)
-    taps[:len(rows), :3] = torch.from_numpy(rows)
-    taps = taps.to(device)
-
-    def f32(v):
-        return float(np.float32(v))
-
-    args = _Args(table, tf.data_ptr(), mvp, rx.data_ptr(), taps.data_ptr(),
-                 bf16, int(tf.dtype == torch.bfloat16), d, h, w, tw, th,
-                 width, height, params.slices, len(rows),
-                 params.num_lao_samples, int(params.local_ambient_occlusion),
-                 int(params.soft_shadows), f32(1.0 / params.slices),
-                 f32(params.extinction), f32(params.lao_weight),
-                 f32(params.soft_shadows_weight), f32(params.light_radius),
-                 f32(params.light_coefficient), *light, rconst,
-                 scene.volume.get_device(), rows64, channels, filt,
-                 int(params.baked_gradient), row0, full_height)
+    inputs = _frame_inputs(scene, params, height, width, row0, full_height)
+    args = _args(table, bf16, d, h, w, mvp, tf, th, tw, params, height,
+                 width, inputs, scene.volume.get_device(), rows64, channels,
+                 filt, row0, full_height)
     lib = _build.library() if args.device >= 0 else None
+    rx, _, _, taps, _ = inputs
     return _build.Prepared(
         tensors=(*tensors, tf, rx, taps), args=args,
         address=ctypes.addressof(args), device=args.device,
@@ -178,8 +210,12 @@ def lao_frame(state, scene, params, counts=None, window=None):
             raise ValueError("the plain LAO frame counts nothing")
         lao_frame_plain(state, scene, params, window)
         return
+    if _build.is_halo(scene):
+        if counts is not None:
+            raise ValueError("the LAO halo frame counts nothing")
+        halo_lao_frame(state, scene, params, window)
+        return
     global LAUNCHES
-    _build.refuse_halo(scene, "a LAO frame (K10)", "9")
     p = _scene_cache.get(scene, (params,) + tuple(state.shape[:2])
                          + _build.window_key(window, state.shape[0]))
     if state.get_device() != p.device:
@@ -201,6 +237,100 @@ def lao_frame(state, scene, params, counts=None, window=None):
     if err:
         _build.check("vpt_lao_launch", err)
     LAUNCHES += 1
+
+
+def _halo_fields(scene):
+    return (scene.slab_packed, scene.transfer_packed, scene.mvp_inverse)
+
+
+def halo_values(params) -> int:
+    """The values a pixel-slice of the halo instance sums
+    (``lao_halo_values``): the raw gradient's six taps and the value (with
+    ``baked_gradient`` the (value, |∇|) pair), the AO taps and the shadow
+    tap; a two-channel volume sums channel 0 of each, or the baked
+    pair."""
+    from ..renderers import lao
+
+    return (2 if params.baked_gradient else 7) \
+        + (len(lao.lao_taps(params)) if params.local_ambient_occlusion
+           else 0) + int(params.soft_shadows)
+
+
+def _prepare_halo(scene, key):
+    """What every halo frame of ``key`` = (params, height, width, row0,
+    full_height) takes of a HaloScene: the ``VptLaoExt`` of its slab rows
+    (no filter) and the chunk's values, (HALO_CHUNK, values, n) float32,
+    zero before the first frame (the kernel keeps them so between
+    frames)."""
+    from ..renderers import lao
+
+    params, height, width, row0, full_height = key
+    lao.check_params(params, scene)
+    if height * width >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the LAO kernel indexes pixels "
+                         "with 32-bit integers")
+    tensors, (table, bf16, d, h, w, _, _, _, _, _, _, mvp, _, _,
+              channels) = _build.slab_scene(scene)
+    tf = _transfer_table(scene)
+    if channels == 2 and tf.dtype != tensors[0].dtype:
+        raise ValueError("the LAO halo instance of two channels takes a "
+                         "packed TF table of the slab rows' dtype")
+    th, tw = scene.transfer.shape[:2]
+    dev = tensors[0].device
+    device = dev.index if dev.type == "cuda" else -1
+    inputs = _frame_inputs(scene, params, height, width, row0, full_height)
+    args = _args(table, bf16, d, h, w, mvp, tf, th, tw, params, height,
+                 width, inputs, device, 0, channels, 0, row0, full_height)
+    rx, _, _, taps, _ = inputs
+    value = torch.zeros(HALO_CHUNK * halo_values(params) * height * width,
+                        dtype=torch.float32, device=dev)
+    return _build.Prepared(
+        tensors=(*tensors, tf, rx, taps), args=args,
+        address=ctypes.addressof(args), device=device,
+        shape=torch.Size((height, width, 4)),
+        chunks=-(-params.slices // HALO_CHUNK), value=value,
+        launch=_build.library().vpt_lao_halo_launch)
+
+
+_halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
+
+
+def halo_lao_frame(state, scene, params, window=None):
+    """One LAO frame over a HaloScene on the card, written into CUDA
+    ``state``: ``C = ceil(slices / HALO_CHUNK)`` all-reduces
+    (``HaloScene.reduce_`` of the chunk's masked tap values: the seven of
+    the raw gradient and the value, or the baked pair, the AO taps and the
+    shadow tap of each of HALO_CHUNK slices, where vpt_tpu and the plain
+    twin sum each tap's fetch a slice) between ``C + 1`` launches of the
+    halo instance: launch e folds chunk e − 1's summed values (K10's
+    fold) and writes chunk e's masked values from this rank's slab rows;
+    the state holds the accumulator between launches, and the last writes
+    the frame.  Equal bit for bit to :func:`lao_frame` on the whole scene:
+    only the owner's value is non-zero.  The slabs may be interleaved, the
+    fetch unmasked, the volume two-channel (channel 0, or the baked
+    pair).  ``window`` as in :func:`lao_frame`."""
+    global HALO_LAUNCHES
+    from .. import sampling
+
+    if not state.is_cuda:
+        lao_frame_plain(state, scene, params, window)
+        return
+    height, width = state.shape[:2]
+    p = _halo_cache.get(scene, (params, height, width)
+                        + sampling.row_window(window, height))
+    if state.get_device() != p.device:
+        raise ValueError(f"the scene lives on {scene.device}, the state on "
+                         f"{state.device}")
+    _build.check_image(state, p.shape, state.device, "the lao state")
+    _build.check_aligned(state, "the lao state")
+    stream = _build.current_stream(p.device)
+    head = (p.address, scene.slab_index, scene.num_slabs, scene.interleave,
+            int(scene.collective), p.value.data_ptr(), state.data_ptr())
+    for chunk in range(p.chunks + 1):
+        _build.check("vpt_lao_halo_launch", p.launch(*head, chunk, stream))
+        HALO_LAUNCHES += 1
+        if chunk < p.chunks:
+            scene.reduce_(p.value)
 
 
 #: the fields of :func:`occupancy`, in the order ``vpt_lao_info`` writes
@@ -227,4 +357,17 @@ def occupancy(table_dtype, tf_dtype=None, rows64: bool = False,
         | 8 * bool(baked)
     _build.check("vpt_lao_info", _build.library().vpt_lao_info(
         flags, int(tf_dtype == torch.bfloat16), int(rows64), device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
+
+
+def halo_occupancy(table_dtype, tf_dtype=None, device: int = 0,
+                   channels: int = 1, baked: bool = False) -> dict:
+    """The halo instance's launch shape, as :func:`occupancy`'s (``group``:
+    the slices of a fetch, HALO_CHUNK).  Launches nothing."""
+    tf_dtype = table_dtype if tf_dtype is None else tf_dtype
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    flags = int(table_dtype == torch.bfloat16) | 4 * (channels == 2) \
+        | 8 * bool(baked)
+    _build.check("vpt_lao_halo_info", _build.library().vpt_lao_halo_info(
+        flags, int(tf_dtype == torch.bfloat16), device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

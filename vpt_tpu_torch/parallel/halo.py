@@ -15,9 +15,9 @@ bit: a halo frame equals the replicated frame.
 :class:`HaloScene` duck-types the port's ``Scene`` samplers, so every
 renderer's plain frame runs through it unchanged, on any device, in the
 order JAX's does: the masked trilinear value is reduced first and the TF
-applied to the reduced value.  On the card every frame but LAO's runs a
-halo instance of its kernel, split around the masked slab-local fetch
-(the value, or the value pair of a two-channel volume) with
+applied to the reduced value.  On the card every frame runs a halo
+instance of its kernel, split around the masked slab-local fetch (the
+value, or the value pair of a two-channel volume) with
 :meth:`HaloScene.reduce_` (the all-reduce) between launches, over
 contiguous or interleaved slabs, masked or not:
 
@@ -31,11 +31,16 @@ contiguous or interleaved slabs, masked or not:
   the slowest pixel and one more, the host reading the count of pixels
   that fetch after each;
 - DOS, K9's (``kernels/dos_sweep.halo_sweep_frame``): a fetch launch, an
-  all-reduce and a cooperative fold a chunk of 8 active slices.
+  all-reduce and a cooperative fold a chunk of 8 active slices; with rows
+  over ``data`` as well, a band of rows (``dos.render_band``: each slice
+  all-gathers the occlusion over ``data``) through K9's halo band
+  instance (``dos_sweep.band_slice``): a fetch of the band and an
+  all-reduce a chunk of 8 active slices, a fold a slice;
+- LAO, K10's (``kernels/lao_march.halo_lao_frame``): ceil(slices / 8) + 1
+  launches, one all-reduce a chunk of 8 slices' 28 tap values (23 with
+  the baked gradient).
 
-LAO's kernel reads one whole corner table, and its frame over a
-:class:`HaloScene` raises on the card (ROADMAP queue 2b item 9).  The
-differentiable masked fetch is ``sampling.SlabCornerFetch`` (K3's slab
+The differentiable masked fetch is ``sampling.SlabCornerFetch`` (K3's slab
 instance forward, K4 backward); :class:`SpaceSum` is the all-reduce as an
 autograd function.  ``resident.py`` samples a ``HaloScene(collective=
 False)``: no mask and no sum, every position owned by the rank.
@@ -374,10 +379,13 @@ def sharded_render_frame(module, mesh, scene, num_slabs: int, state_example,
     must be ``num_slabs``.  The frame renders the rows with their window
     (``render_frame(..., window=)``), in place, through a
     :class:`HaloScene`; ``module`` is any renderer whose frame reaches the
-    volume through the sampler interface.  On the card MCM, EAM, MIP,
-    Depth, ISO (its ``display`` too), MCS and DOS run their kernels' halo
-    instances; LAO raises (ROADMAP queue 2b item 9), and DOS takes no row
-    window (``data`` = 1).
+    volume through the sampler interface.  On the card every renderer
+    (MCM, EAM, MIP, Depth, ISO and its ``display``, MCS, DOS, LAO) runs
+    its kernel's halo instance.  DOS's band of rows reads its neighbours'
+    occlusion, so with ``data`` > 1 its frame is ``dos.render_band``, each
+    slice all-gathering the whole occlusion buffer over ``data`` as
+    ``shard.shard_render_frame`` does (vpt_tpu's partitioner does the
+    same; it also takes a camera inside the volume).
 
     A rank keeps only its slab's tables: (Ds+1)·H·W rows of 8·C lanes.
     For config 4's 512³ float32 volume on S = 2 slabs that is 257·512²·32
@@ -385,7 +393,7 @@ def sharded_render_frame(module, mesh, scene, num_slabs: int, state_example,
     volume slab, 257·512²·4 B = 0.27 GB); the frame function holds the
     scene's TF, camera and environment, not its tables, so a caller may
     drop the scene."""
-    from .shard import state_height
+    from .shard import gather_blocks, state_height
 
     if axis_size(mesh, space_axis) != num_slabs:
         raise ValueError(f"{num_slabs} slabs on a {space_axis} axis of "
@@ -398,7 +406,13 @@ def sharded_render_frame(module, mesh, scene, num_slabs: int, state_example,
     fields = {name: getattr(scene, name) for name in _SCENE_FIELDS}
     volume_shape = tuple(scene.volume.shape)
     slabs = place_scene_slabs(scene, num_slabs, index)
+    band = getattr(module, "render_band", None) \
+        if axis_size(mesh, data_axis) > 1 else None
     last = {}
+
+    def extend(occlusion):
+        COLLECTIVES["all_gather"] += 1
+        return gather_blocks(occlusion, height, mesh, (data_axis,)), 0
 
     def frame_fn(state, slabs, params, seed, frame_number):
         key = tuple(id(t) for t in slabs)
@@ -406,6 +420,8 @@ def sharded_render_frame(module, mesh, scene, num_slabs: int, state_example,
             last["key"], last["scene"] = key, halo_scene(
                 fields, index, num_slabs, group, slabs,
                 volume_shape=volume_shape)
+        if band is not None:
+            return band(state, last["scene"], params, window, extend)
         return module.render_frame(state, last["scene"], params, seed,
                                    frame_number, window=window)
 

@@ -46,11 +46,6 @@ def static_field(**kwargs):
     return dataclasses.field(metadata={"static": True}, **kwargs)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to vpt_tpu_torch yet (ROADMAP.md {item})")
-
-
 @dataclasses.dataclass
 class Scene:
     """The volume, the transfer function, the environment map and the camera

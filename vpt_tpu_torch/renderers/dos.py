@@ -340,11 +340,15 @@ def render_band(state, scene: Scene, params: Params, window, extend):
     occlusion past the band (a collective for sharded bands), then K9's
     band instance (the plain slice on the CPU) renders it; the depth then
     advances by the active slices (:func:`advance_depth`'s value).  The
-    host reads the active-slice count once a frame."""
+    host reads the active-slice count once a frame.  Over a
+    ``parallel.halo.HaloScene`` (a rank's z slab) the band instance's halo
+    instance runs: a fetch and an all-reduce over ``space`` a chunk of 8
+    active slices (``dos_sweep.band_slice``)."""
     n_active = active_slices(state, params)
     for k in range(n_active):
         ext, ext_row0 = extend(state["occlusion"])
-        dos_sweep.band_slice(state, ext, ext_row0, scene, params, k, window)
+        dos_sweep.band_slice(state, ext, ext_row0, scene, params, k, window,
+                             n_active)
     state["depth"] = state["depth"] \
         + float(n_active) * state["slice_distance"]
     return state
