@@ -6,7 +6,10 @@ march kernel (K10).
     python3 bench_mcm_event.py [--kernel mcm_event|march|iso_shade|mcs|lao]
         [--variant NAME=PATH ...] [--frames 30]
         [--size 512] [--registers]
-    python3 bench_mcm_event.py --kernel dos --registers [--variant ...]
+    python3 bench_mcm_event.py --kernel dos|corner_gather --registers
+        [--variant ...]
+    python3 bench_mcm_event.py --kernel lao_halo [--variant ...]
+        [--scenes headline,blobs128 f32,config4]
 
 ``current`` is the kernel's source in ``vpt_tpu_torch/csrc/`` as it
 stands.  Each ``--variant`` is another source of the same kernel that
@@ -63,10 +66,14 @@ bound; one JSON line per reading and one ``summary`` line per (steps or
 mode, build) with its times over the baseline's (``--baseline``, default
 ``current``); and writes all of it as JSON to ``--out``.  With
 ``--registers`` it builds the sources and prints each build's registers
-and spills per kernel instance (ptxas), launching nothing: a build whose
-C interface differs from the tree's can be compared so.  The DOS slice
-kernel (K9) takes ``--registers`` only; ``chip_smoke.py --launch-path
---part sweep`` times its trees.
+and spills per kernel instance (ptxas) and a digest of its code
+(:func:`sass_digests`), launching nothing: a build whose C interface
+differs from the tree's can be compared so.  The DOS slice kernel (K9)
+and the corner gather (K3, whose slab instance shares ``slab.cuh``) take
+``--registers`` only; ``chip_smoke.py --launch-path --part sweep`` times
+K9's trees.  ``--kernel lao_halo`` times K10's halo instance of each
+build in turns on a one-slab HaloScene of each of ``--scenes``
+(:func:`bench_lao_halo`).
 """
 
 from __future__ import annotations
@@ -97,8 +104,11 @@ KERNELS = {
                   "iso_shade_kernel"),
     "lao": ("lao_march.cu", ("vpt_lao_launch",), "vpt_lao_info",
             "lao_kernel"),
+    "lao_halo": ("lao_march.cu", ("vpt_lao_launch", "vpt_lao_halo_launch"),
+                 None, "lao_halo"),
     "dos": ("dos_sweep.cu", ("vpt_dos_frame",), "vpt_dos_sweep_info",
             "dos_sweep_kernel"),
+    "corner_gather": ("corner_gather.cu", (), None, "slab_fetch_kernel"),
 }
 #: the H100's SMs and warp schedulers an SM (one warp-instruction a clock)
 SMS, SCHEDULERS = 132, 4
@@ -179,6 +189,32 @@ def sass_functions(lib_path, match: str) -> dict:
             target = int(branch.group(1), 16)
             back[target] = max(back.get(target, 0), at)
     return out
+
+
+def sass_digests(lib_path) -> dict:
+    """{mangled kernel name: digest of its instructions} from ``cuobjdump
+    -sass``, the addresses and encodings left out: two builds' kernels
+    whose digests agree run the same code (compare by name without the
+    anonymous namespace, whose mangled hash differs between trees)."""
+    import hashlib
+
+    from vpt_tpu_torch.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
+                           "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300)
+    out, name = {}, None
+    for line in proc.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            out[name] = hashlib.sha256()
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if ins and name is not None:
+            out[name].update(" ".join(ins.group(1).split()).encode())
+    return {k: h.hexdigest()[:16] for k, h in out.items()}
 
 
 def _span(addrs, span):
@@ -867,6 +903,193 @@ def bench_lao(libs, built, frames, rounds):
     return readings, shapes, failed
 
 
+def sass_tree(lib_path, match: str) -> dict:
+    """{mangled kernel name: {"instructions": n, "loops": [[first, last,
+    instructions, depth], ...]}} of the functions whose name holds
+    ``match`` (``cuobjdump -sass``): every backward branch's body and how
+    many other bodies hold it, to read a kernel's slice loops by."""
+    out = {}
+    for name, (addrs, back) in sass_functions(lib_path, match).items():
+        spans = sorted(back.items())
+        out[name] = {"instructions": len(addrs), "loops": [
+            [a, b, _span(addrs, (a, b)),
+             sum(1 for c, d in spans if (c, d) != (a, b) and c <= a
+                 and b <= d)] for a, b in spans]}
+    return out
+
+
+def halo_sass_slice(tree: dict, trips) -> int:
+    """SASS a pixel-slice of K10's halo kernel from :func:`sass_tree`: its
+    two largest outermost loops, in address order the fold's and the
+    fetch's slice loops, each with its largest inner loop (the AO taps)
+    counted ``trips`` = (fold, fetch) times and every other instruction of
+    the body once, as :func:`sass_slice` counts K10's: an upper estimate,
+    as that one."""
+    outer = sorted(sorted((lp for lp in tree["loops"] if lp[3] == 0),
+                          key=lambda lp: -lp[2])[:2])
+    total = 0
+    for (first, last, size, _), n in zip(outer, trips):
+        inner = [lp[2] for lp in tree["loops"]
+                 if lp[3] == 1 and first <= lp[0] and lp[1] <= last]
+        total += size + (n - 1) * max(inner, default=0)
+    return total
+
+
+def halo_taps(taps: int, kernel: str):
+    """(fold, fetch) trips of the AO loops in K10 halo's slice loops for
+    ``taps`` AO taps: the fetch reads a tap an iteration (``lao_march.cu``'s
+    ``#pragma unroll 1``); a kernel that takes a ``VptLaoHalo`` (each
+    rank's AO sum formed in the fetch) folds no taps (its largest inner
+    loop, the AO fold of ``lao_ao``, counts once, as in K10), an older one
+    (a ``VptLaoExt``) folded four taps an iteration (the compiler's
+    unroll)."""
+    return (1 if "VptLaoHalo" in kernel else -(-taps // 4)), taps
+
+
+def halo_chunks(lib, bf16: bool, slices: int) -> int:
+    """The chunks of a frame of ``slices`` slices of a build's K10 halo
+    instance: its ``vpt_lao_halo_info`` gives the slices of a fetch (the
+    value buffer, sized for 8, holds any smaller chunk)."""
+    from vpt_tpu_torch.kernels import _build
+
+    out = (ctypes.c_int * 10)()
+    fn = lib.vpt_lao_halo_info
+    fn.argtypes = _build.SIGNATURES["vpt_lao_halo_info"]
+    _build.check("vpt_lao_halo_info", fn(int(bf16), int(bf16), 0, out))
+    if not 1 <= out[9] <= 8:
+        raise RuntimeError(f"a fetch of {out[9]} slices")
+    return -(-slices // out[9])
+
+
+def halo_scenes(names):
+    """The K10 halo bench's scenes by name: the headline (bf16, 512²), a
+    float32 ``blobs_volume(128)`` (512²) and config 4's float32
+    ``blobs_volume(512)`` (1024²); (scene, size) each."""
+    import torch
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.renderers import make_scene
+
+    make = {
+        "headline": lambda: (headline_scene(), HEIGHT),
+        "blobs128 f32": lambda: (make_scene(
+            volume.blobs_volume(128), transfer.gray_ramp(alpha_scale=0.8),
+            pack=True, pack_dtype=torch.float32), HEIGHT),
+        "config4": lambda: (make_scene(
+            volume.blobs_volume(512), transfer.gray_ramp(alpha_scale=0.8),
+            pack=True, pack_dtype=torch.float32), 1024)}
+    return {name: make[name] for name in names}
+
+
+def bench_lao_halo(libs, built, frames, rounds, scene_names):
+    """K10's halo instance of every build in turns (``rounds``
+    palindromes) on a one-slab HaloScene of each scene, one frame a call
+    of ``vpt_lao_halo_launch`` for each chunk e = 0 .. C (one slab: no
+    all-reduce between them) from the tree's prepared ``VptLaoHalo``,
+    whose ``VptLaoExt`` prefix older builds read; beside each, the current
+    build's whole-scene K10 on the same scene.  A reading's device ms is
+    the build's halo kernel's mean a launch (torch.profiler) times its C +
+    1 launches a frame, ``ms`` the frame's CUDA-event time; each
+    build's frame is checked against K10's bit for bit (``state_equal_to_
+    k10``) and the current build's.  A build's shape holds its halo
+    kernel's registers and spills (ptxas), its SASS loop tree
+    (:func:`sass_tree`) and the SASS a pixel-slice (:func:`halo_sass_slice`
+    with :func:`halo_taps`) with the issue floor (that times the frame's
+    warp-slices as K10's own count gives them, over 4 schedulers x 132 SMs
+    at the SM clock)."""
+    import torch
+
+    import chip_smoke
+    from vpt_tpu_torch.kernels import _build, lao_march
+    from vpt_tpu_torch.parallel import halo
+    from vpt_tpu_torch.renderers import lao
+
+    readings, shapes, failed = [], {}, set()
+    params = lao.Params()
+    trees = {name: sass_tree(built[name][0], "lao_halo") for name in libs}
+    for label, make in halo_scenes(scene_names).items():
+        scene, size = make()
+        bf16 = scene.volume_packed.dtype == torch.bfloat16
+        hs = halo.halo_scene(scene, 0, 1)
+        p = lao_march._halo_cache.get(hs, (params, size, size, 0, size))
+        whole = lao_march._scene_cache.get(scene, (params, size, size))
+        k10 = torch.empty((size, size, 4), device="cuda")
+        counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+        lao_launcher(libs["current"], whole, k10, counts)()
+        lanes, warps = counts.tolist()
+        clock = sm_clock_mhz()[0]
+        # this scene's instance (mangled template arguments): <rows' and
+        # TF's type, one channel, not baked, 32-bit rows>, or in an older
+        # build without the row type
+        b = int(bf16)
+        tags = (f"ILb{b}ELb{b}ELi0ELb0EiE", f"ILb{b}ELb{b}ELi0ELb0EE")
+        for name in libs:
+            regs = ptxas_kernels(built[name][1], "lao_halo")
+            mine = {k: v for k, v in regs.items()
+                    if any(tag in k for tag in tags)}
+            tree = {k: v for k, v in trees[name].items() if k in mine}
+            taps = len(lao.lao_taps(params))
+            sass = sum(halo_sass_slice(v, halo_taps(taps, k))
+                       for k, v in tree.items())
+            shape = {"build": name, "mode": label,
+                     "registers": mine, "sass_tree": tree,
+                     "sass_per_slice": sass, "lane_slices": lanes,
+                     "warp_slices": warps,
+                     "issue_floor_ms": sass * warps / (
+                         SMS * SCHEDULERS * clock * 1e6) * 1e3}
+            shapes[(label, name)] = shape
+            print(json.dumps(shape), flush=True)
+        order = [n for n in libs if n != "current"]
+        reference = None
+        # values between the calls, zero between frames, of any build: 8
+        # slices of the most values a pixel-slice any design sums (each of
+        # the 28 taps in older builds)
+        value = torch.zeros(8 * (8 + len(lao.lao_taps(params))) * size * size,
+                            device="cuda")
+        k10_ms = chip_smoke.profiler_device_ms(
+            lao_launcher(libs["current"], whole, k10), "lao_kernel", frames)
+        for name in ["current", *order, *order[::-1], "current"] * rounds:
+            if name in failed:
+                continue
+            lib = libs[name]
+            state = torch.empty((size, size, 4), device="cuda")
+            stream = _build.current_stream(p.device)
+            chunks = halo_chunks(lib, bf16, params.slices)
+
+            def launch(lib=lib, state=state, chunks=chunks):
+                for e in range(chunks + 1):
+                    err = lib.vpt_lao_halo_launch(
+                        p.address, 0, 1, 1, 1, value.data_ptr(),
+                        state.data_ptr(), e, stream)
+                    if err:
+                        raise RuntimeError(f"vpt_lao_halo_launch: {err}")
+            try:
+                launch()
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                print(f"{name}: {exc}, left out", flush=True)
+                failed.add(name)
+                continue
+            if reference is None:
+                reference = state.clone()
+            means = chip_smoke.kernel_means(launch, frames)
+            dev = sum(v * (chunks + 1) for k, v in means.items()
+                      if "lao_halo" in k)
+            r = {"variant": name, "mode": label, "frames": frames,
+                 "state_equal_to_current": torch.equal(state, reference),
+                 "state_equal_to_k10": torch.equal(state, k10),
+                 "device_ms": dev or None, "k10_device_ms": k10_ms,
+                 "over_k10": dev / k10_ms if dev and k10_ms else None,
+                 "ms": chip_smoke.cuda_ms(launch, frames),
+                 "sm_clock_mhz": sm_clock_mhz()[0]}
+            readings.append(r)
+            print(json.dumps(r), flush=True)
+        del scene, hs, p, whole, value
+        lao_march._halo_cache._last = lao_march._scene_cache._last = None
+        torch.cuda.empty_cache()
+    return readings, shapes, failed
+
+
 def row_pixels(width, height):
     """(x, y, inside) of a launch of 128-thread blocks over the pixels in
     row-major order (the frame kernels before their pixel tiles)."""
@@ -889,6 +1112,9 @@ def main() -> int:
                     help="K6/K8: the image's width and height")
     ap.add_argument("--rounds", type=int, default=1,
                     help="K7, K10: palindromic rounds of readings")
+    ap.add_argument("--scenes", default="headline,blobs128 f32",
+                    help="K10 halo: the scenes (headline, blobs128 f32, "
+                         "config4), comma-separated")
     ap.add_argument("--baseline", default="current",
                     help="the build the summary divides by")
     ap.add_argument("--out", type=pathlib.Path)
@@ -896,9 +1122,9 @@ def main() -> int:
                     help="print each build's registers and spills per "
                          "kernel instance and launch nothing")
     args = ap.parse_args()
-    if args.kernel == "dos" and not args.registers:
-        ap.error("--kernel dos takes --registers only (chip_smoke.py "
-                 "--launch-path --part sweep times K9)")
+    if args.kernel in ("dos", "corner_gather") and not args.registers:
+        ap.error(f"--kernel {args.kernel} takes --registers only "
+                 "(chip_smoke.py --launch-path --part sweep times K9)")
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -924,11 +1150,12 @@ def main() -> int:
     if "current" not in built:
         return 1
     if args.registers:
-        # the headline's instances and the ext ones (name_ext_kernel)
-        stem = KERNELS[args.kernel][3].removesuffix("_kernel")
-        for name, (_, text) in built.items():
-            for kernel, regs in sorted(ptxas_kernels(text, stem).items()):
-                print(json.dumps({"build": name, "kernel": kernel, **regs}),
+        # every kernel of the source, with a digest of its code
+        for name, (path, text) in built.items():
+            digests = sass_digests(path)
+            for kernel, regs in sorted(ptxas_kernels(text, "").items()):
+                print(json.dumps({"build": name, "kernel": kernel, **regs,
+                                  "sass_digest": digests.get(kernel)}),
                       flush=True)
         return 0
     libs = {name: load(path, entries) for name, (path, _) in built.items()}
@@ -966,6 +1193,12 @@ def main() -> int:
             readings, frame_shapes, failed = bench_lao(
                 libs, built, args.frames, args.rounds)
             keys = ("device_ms", "ms", "sm_clock_mhz")
+        elif args.kernel == "lao_halo":
+            readings, frame_shapes, failed = bench_lao_halo(
+                libs, built, args.frames, args.rounds,
+                args.scenes.split(","))
+            keys = ("device_ms", "k10_device_ms", "over_k10", "ms",
+                    "sm_clock_mhz")
         else:
             readings, frame_shapes, failed = bench_frames(
                 args.kernel, libs, built, args.frames)

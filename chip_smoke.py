@@ -5641,11 +5641,13 @@ def phase_parallel_gloo4(dev):
     whole-scene K10 or K9 instance) and rank 0's collectives (LAO one
     all-reduce a chunk of 8 slices; DOS one all-gather over ``data`` a
     slice and one all-reduce over ``space`` a chunk of 8 active slices);
-    each frame equals ``shard_render_frame``'s on the whole scene bit for
-    bit, LAO's equals one process's K10 frame bit for bit and DOS's is
-    within :func:`dos_bands_agree`'s bounds of the 1024² band (3e-5, 90%
-    of the values within 1e-6) of one process's cooperative K9 frame.
-    Returns (launches, errors by JSON name, seconds of the frames)."""
+    DOS's frame equals ``shard_render_frame``'s on the whole scene bit for
+    bit and is within :func:`dos_bands_agree`'s bounds of the 1024² band
+    (3e-5, 90% of the values within 1e-6) of one process's cooperative K9
+    frame; LAO's, whose ranks sum their own AO taps before the all-reduce,
+    is within K10's bound (:func:`halo_states_agree`, and at most 1e-5) of
+    ``shard_render_frame``'s and of one process's K10 frame.  Returns
+    (launches, errors by JSON name, seconds of the frames)."""
     import tempfile
 
     import numpy as np
@@ -5677,8 +5679,11 @@ def phase_parallel_gloo4(dev):
                        start_method="spawn")
     got = torch.load(out, weights_only=False)
     launches = got["launches"]
+    from vpt_tpu_torch.kernels import lao_march
+
     chunks = -(-lao_params.slices // 8)
-    check(launches["lao_halo"] == chunks + 1 and launches["lao_march"] == 0,
+    check(launches["lao_halo"] == lao_march.halo_frame_launches(lao_params)
+          and launches["lao_march"] == 0,
           f"path parallel gloo 4: K10 launches {launches}")
     check(launches["dos_halo_band"] == -(-active // 8) + active
           and launches["dos_band"] == launches["dos_sweep"]
@@ -5688,15 +5693,23 @@ def phase_parallel_gloo4(dev):
     check(got["collectives"] == {"all_reduce": chunks + -(-active // 8),
                                  "all_gather": active},
           f"path parallel gloo 4: collectives {got['collectives']}")
-    for key in ("lao", "dos"):
-        a, b = got["halo"][key], got["whole"][key]
-        a, b = (a, b) if isinstance(a, dict) else ({"": a}, {"": b})
-        for k in b:
-            check(torch.equal(a[k], b[k]), f"path parallel gloo 4: the halo "
-                  f"{key} {k} differs from shard_render_frame's whole-scene "
-                  "frame")
-    check(torch.equal(got["halo"]["lao"], want["lao"]), "path parallel gloo "
-          "4: the halo LAO frame differs from one process's K10 frame")
+    a, b = got["halo"]["dos"], got["whole"]["dos"]
+    for k in b:
+        check(torch.equal(a[k], b[k]), f"path parallel gloo 4: the halo dos "
+              f"{k} differs from shard_render_frame's whole-scene frame")
+    # K10's halo instance sums each rank's AO taps before the all-reduce
+    # (csrc/lao_march.cu): over 2 slabs its frame is within K10's bound of
+    # the whole-scene frames (99.99% of the values within 1e-6, none
+    # further than 1e-5), bit for bit on one slab
+    lerr = max(halo_states_agree("path parallel gloo 4 lao against "
+                                 "shard_render_frame", "lao",
+                                 got["halo"]["lao"], got["whole"]["lao"],
+                                 False),
+               halo_states_agree("path parallel gloo 4 lao against one "
+                                 "process's K10", "lao", got["halo"]["lao"],
+                                 want["lao"], False))
+    check(lerr <= 1e-5, f"path parallel gloo 4: LAO max abs err {lerr:.3g} "
+          "(bound 1e-5)")
     derr, dshare = dos_bands_agree("path parallel gloo 4", got["halo"]["dos"],
                                    want["dos"], 3e-5, 0.9)
     print(f"path parallel gloo 4: 4 ranks on one card over gloo, data 2 x "
@@ -5704,13 +5717,15 @@ def phase_parallel_gloo4(dev):
           f"K10 halo launches a rank) and DOS's first frame ({active} active "
           f"slices, {launches['dos_halo_band']} K9 halo band launches a "
           f"rank) through halo.sharded_render_frame in "
-          f"{got['seconds']:.3f} s on rank 0, equal bit for bit to "
-          f"shard_render_frame's whole-scene frames; LAO equal to one "
-          f"process's K10 frame, DOS against the cooperative K9 frame max abs "
-          f"err {derr:.3g} (bound 3e-5), {dshare:.6f} within 1e-6; "
+          f"{got['seconds']:.3f} s on rank 0; DOS equal bit for bit to "
+          f"shard_render_frame's whole-scene frame, against the cooperative "
+          f"K9 frame max abs err {derr:.3g} (bound 3e-5), {dshare:.6f} "
+          f"within 1e-6; LAO within K10's bound of shard_render_frame's and "
+          f"one process's K10 frames (max abs err {lerr:.3g}, bound 1e-5); "
           f"collectives on rank 0 {got['collectives']}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return launches, {"dos_halo_band": derr}, got["seconds"]
+    return launches, {"dos_halo_band": derr, "lao_halo": lerr}, \
+        got["seconds"]
 
 
 class LaunchCounter:
@@ -5754,6 +5769,9 @@ def halo_frame_bytes(steps, skip, values=1):
 #: float32 operations of a slab fetch beyond the whole fetch's (the
 #: owner's division, clip and compare, the local plane)
 SLAB_OPS = 40
+#: likewise through the slab's plane map (K10 halo, K9's halo band fetch):
+#: the owner's compare and the select of 0; the map's load places the cell
+PLANE_OPS = 2
 
 
 def slab_scenes():
@@ -6520,11 +6538,11 @@ def lao_halo_frame_bytes(active, pixels, chunks, values):
     """Bytes a K10 halo frame moves besides K10's own (:func:`time_lao`'s:
     the corner rows, rx and the frame, the TF table), the least that a
     split of the march around one all-reduce a chunk of 8 slices moves:
-    each active pixel-slice's ``values`` tap values (4 bytes each) out
-    before the all-reduce and in after it, and each pixel's accumulator
-    (16 bytes) out and in across each of the ``chunks`` all-reduces.  K10's
-    halo instance moves this and each chunk's overshoot past a pixel's
-    exit."""
+    each active pixel-slice's ``values`` values (4 bytes each:
+    ``lao_march.halo_values``) out before the all-reduce and in after it,
+    and each pixel's accumulator (16 bytes) out and in across each of the
+    ``chunks`` all-reduces.  K10's halo instance moves this and each
+    chunk's overshoot past a pixel's exit."""
     return active * values * 4 * 2 + pixels * chunks * 2 * 16
 
 
@@ -6549,29 +6567,55 @@ def lao_halo_states(scene, params, res, slabs=(1, 0), plain=False, **kw):
     return got, want
 
 
+def halo_sass_per_slice(bf16):
+    """K10 halo's SASS a pixel-slice in this tree's library
+    (``bench_mcm_event.halo_sass_slice`` of the headline-type instance:
+    its fold's and fetch's slice loops, the fetch's AO loop counted once a
+    tap), by ``cuobjdump -sass``."""
+    import bench_mcm_event
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.renderers import lao
+
+    b = int(bf16)
+    tree = {k: v for k, v in bench_mcm_event.sass_tree(
+        _build.BUILD_DIR / _build.LIB_NAME, "lao_halo").items()
+        if f"ILb{b}ELb{b}ELi0ELb0EiE" in k}
+    check(len(tree) == 1, f"{len(tree)} K10 halo instances of the headline's "
+          "type in the library")
+    (name, loops), = tree.items()
+    return bench_mcm_event.halo_sass_slice(loops, bench_mcm_event.halo_taps(
+        len(lao.lao_taps(lao.Params())), name))
+
+
 def lao_halo_row(label, scene, params, res=512, timed=True):
     """K10's halo instance on ``scene`` at ``res``²: on one slab its frame
-    equals K10's bit for bit in ceil(slices / 8) + 1 launches (K10's
-    counter still); on 2 slabs (no group, contiguous and interleave 2) each
-    slab's frame is within K10's bound of the plain twin over the same
-    HaloScene (:func:`halo_states_agree`).  With ``timed``, on one slab
-    timed in turns against K10 (:func:`halo_turns`), the loop ms, the plain
-    twin's ms, registers and spills and the bound: K10's (:func:`lao_work`,
-    :func:`lao_ops`) plus :func:`lao_halo_frame_bytes` and a slab cell's
-    operations a fetch.  Returns the row's fields."""
+    equals K10's bit for bit in ``lao_march.halo_frame_launches`` launches
+    (K10's counter still); on 2 slabs (no group, contiguous and interleave
+    2) each slab's frame is within K10's bound of the plain twin over the
+    same HaloScene (:func:`halo_states_agree`).  With ``timed``, on one
+    slab timed in turns against K10 (:func:`halo_turns`), the loop ms, the
+    host µs a launch (a frame call that finds the queue empty, over its
+    launches), the plain twin's ms, registers and spills, the SASS a
+    pixel-slice and issue floor (:func:`halo_sass_per_slice`, K10's warp-
+    slices), that the fold/fetch split was not kept, and the bound: K10's
+    (:func:`lao_work`, :func:`lao_ops`) plus :func:`lao_halo_frame_bytes`
+    and the plane map's operations a fetch (:data:`PLANE_OPS`).  Returns
+    the row's fields."""
     import torch
 
+    import bench_mcm_event
     from vpt_tpu_torch.kernels import lao_march
     from vpt_tpu_torch.parallel import halo
     from vpt_tpu_torch.renderers import lao
 
     chunks = -(-params.slices // 8)
+    per_frame = lao_march.halo_frame_launches(params)
     before = (lao_march.LAUNCHES, lao_march.HALO_LAUNCHES)
     hs = halo.halo_scene(scene, 0, 1)
     got = lao.reset(params, res, res, scene)
     lao.render_frame(got, hs, params, 0.5, 1)
     check((lao_march.LAUNCHES, lao_march.HALO_LAUNCHES)
-          == (before[0], before[1] + chunks + 1),
+          == (before[0], before[1] + per_frame),
           f"{label} K10 halo: launches {lao_march.HALO_LAUNCHES - before[1]}")
     want = lao.reset(params, res, res, scene)
     lao.render_frame(want, scene, params, 0.5, 1)
@@ -6585,24 +6629,33 @@ def lao_halo_row(label, scene, params, res=512, timed=True):
         worst = max(worst, halo_states_agree(
             f"{label} lao halo slab {index}/{count} m{m}", "lao", got,
             plain, False))
+    check(worst <= 1e-5, f"{label} K10 halo: 2 slabs max abs err "
+          f"{worst:.3g} (bound 1e-5)")
     torch.cuda.synchronize()
     row = {"max_abs_err": worst}
     if not timed:
         print(f"{label} K10 halo: {res}^2 on one slab equal to K10 bit for "
-              f"bit ({chunks + 1} launches); on 2 slabs within K10's bound "
+              f"bit ({per_frame} launches); on 2 slabs within K10's bound "
               f"of the plain twin (max abs err {worst:.3g})", flush=True)
         return row
     a, b, c = (lao.reset(params, res, res, scene) for _ in range(3))
     table = scene.volume_packed
     whole_part = "lao_kernel" if scene.channels == 1 \
         and not params.baked_gradient else "lao_ext_kernel"
-    t = halo_turns((lambda: lao.render_frame(a, hs, params, 0.5, 1),
-                    "lao_halo_kernel"),
+
+    def launches_of(kernel):
+        return chunks + 1
+
+    def frame():
+        lao.render_frame(a, hs, params, 0.5, 1)
+
+    t = halo_turns((frame, "lao_halo_"),
                    (lambda: lao.render_frame(b, scene, params, 0.5, 1),
-                    whole_part), lambda k: chunks + 1)
-    ms = in_turns({"halo": lambda: lao.render_frame(a, hs, params, 0.5, 1),
+                    whole_part), launches_of)
+    ms = in_turns({"halo": frame,
                    "whole": lambda: lao.render_frame(b, scene, params, 0.5,
                                                      1)}, 10, rounds=1)
+    host_us = _host_call_us(frame, 50) / per_frame
     plain_ms = cuda_ms(lambda: lao_march.lao_frame_plain(c, hs, params), 1)
     samples, fetches, rows, hits, _ = lao_work(scene, params, res, res)
     values = lao_march.halo_values(params)
@@ -6610,32 +6663,47 @@ def lao_halo_row(label, scene, params, res=512, timed=True):
     nbytes = rows * table.shape[1] * table.element_size() + 20 * n \
         + scene.transfer_packed.numel() * scene.transfer_packed.element_size() \
         + lao_halo_frame_bytes(samples, n, chunks, values)
-    ops = lao_ops(scene, params, samples, fetches, hits) + fetches * SLAB_OPS
+    ops = lao_ops(scene, params, samples, fetches, hits) + fetches * PLANE_OPS
     bound_ms, bound_by = roofline(nbytes, ops)
     occ = lao_march.halo_occupancy(table.dtype, scene.transfer_packed.dtype,
                                    channels=scene.channels,
                                    baked=params.baked_gradient)
+    counts = torch.zeros(2, dtype=torch.int64, device=a.device)
+    lao_march.lao_frame(b, scene, params, counts)
+    warp_slices = int(counts[1])
+    sass = halo_sass_per_slice(table.dtype == torch.bfloat16)
+    clock = bench_mcm_event.sm_clock_mhz()[0]
+    floor_ms = sass * warp_slices / (bench_mcm_event.SMS
+                                     * bench_mcm_event.SCHEDULERS * clock
+                                     * 1e6) * 1e3
     share = None if t["halo"] is None else bound_ms / t["halo"]
     print(f"lao halo {label}: one slab, {res}^2, {params.slices} slices: "
-          f"{ms['halo']:.4f} ms a frame ({chunks + 1} launches, {chunks} "
-          f"all-reduces with a group of {values} values a pixel-slice; K10 "
-          f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (K10 "
-          f"{fmt_ms(t['whole'])}"
+          f"{ms['halo']:.4f} ms a frame ({per_frame} launches of one kernel "
+          f"that folds and fetches (the fold/fetch split measured slower, "
+          f"not kept), {chunks} all-reduces with a group of {values} values "
+          f"a pixel-slice; K10 {ms['whole']:.4f} ms), device "
+          f"{fmt_ms(t['halo'])} (K10 {fmt_ms(t['whole'])}"
           + (f", {t['halo'] / t['whole']:.3f}x" if t["halo"] and t["whole"]
              else "")
-          + f"); plain twin {plain_ms:.4f} ms; {samples} active pixel-slices,"
-          f" {fetches} fetches of {rows} distinct rows; bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes, {ops} "
-          "operations), "
+          + f"); host {host_us:.2f} us a launch; plain twin {plain_ms:.4f} "
+          f"ms; {samples} active pixel-slices, {fetches} fetches of {rows} "
+          f"distinct rows; bound {bound_ms:.4f} ms ({bound_by}, {nbytes} "
+          f"bytes, {ops} operations), "
           + ("share not measured" if share is None else f"{share:.3f} of it")
-          + f"; {occ['registers']} registers, {occ['local_bytes']} spill "
-          f"bytes, {occ['blocks_per_sm']} blocks an SM", flush=True)
+          + f"; {sass} SASS a pixel-slice, issue floor {floor_ms:.4f} ms "
+          f"({warp_slices} warp-slices at {clock} MHz); "
+          f"{occ['registers']} registers, {occ['local_bytes']} spill bytes, "
+          f"{occ['blocks_per_sm']} blocks an SM",
+          flush=True)
     row.update({"ms": ms["halo"], "device_ms": t["halo"],
                 "whole_ms": ms["whole"], "whole_device_ms": t["whole"],
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "bound_share": share,
-                "launches_a_frame": chunks + 1, "active_slices": samples,
-                "values_a_slice": values, "registers": occ["registers"],
+                "launches_a_frame": per_frame, "active_slices": samples,
+                "values_a_slice": values, "split_kept": False,
+                "host_us_a_launch": host_us, "sass_per_slice": sass,
+                "warp_slices": warp_slices, "issue_floor_ms": floor_ms,
+                "registers": occ["registers"],
                 "local_bytes": occ["local_bytes"]})
     return row
 
@@ -6644,14 +6712,15 @@ def lao_halo_row(label, scene, params, res=512, timed=True):
 HALO_BANDS = ((0, 201), (201, 512))
 
 
-def band_pair_frame(scene, params, state, run, res=512):
+def band_pair_frame(scene, params, state, run, res=512, host=None):
     """A sweep's frame from ``state`` on the two bands of
     :data:`HALO_BANDS` in one process: each active slice the whole image's
     previous occlusion as both bands' extended buffer, then
     ``run(band, ext, 0, scene, params, k, window, n_active)`` on each (K9's
     band instance, its halo instance over a HaloScene, or the plain band
-    twin).  Returns the whole frame's colour, occlusion and depth, and the
-    active slices."""
+    twin).  ``host``: None, or a list to which each ``run`` call's host
+    nanoseconds are appended.  Returns the whole frame's colour, occlusion
+    and depth, and the active slices."""
     import torch
 
     from vpt_tpu_torch.renderers import dos
@@ -6663,11 +6732,36 @@ def band_pair_frame(scene, params, state, run, res=512):
     for k in range(active):
         ext = torch.cat([band["occlusion"] for band in bands])
         for (r0, _), band in zip(HALO_BANDS, bands):
+            t0 = time.perf_counter_ns()
             run(band, ext, 0, scene, params, k, (r0, res), active)
+            if host is not None:
+                host.append(time.perf_counter_ns() - t0)
     out = {key: torch.cat([band[key] for band in bands])
            for key in ("color", "occlusion")}
     out["depth"] = state["depth"] + float(active) * state["slice_distance"]
     return out, active
+
+
+def band_calls_host_us(scene, params, start, res=512, reps=5):
+    """Host µs of one ``dos_sweep.band_slice`` call of
+    :func:`band_pair_frame`'s frame over ``scene`` (the calls alone, not
+    the ``torch.cat`` between them; the card synchronised before each
+    frame, the median of ``reps`` frames after a warm-up one) and the
+    calls a frame."""
+    import torch
+
+    from vpt_tpu_torch.kernels import dos_sweep
+
+    band_pair_frame(scene, params, start, dos_sweep.band_slice, res)
+    per_call = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        host = []
+        band_pair_frame(scene, params, start, dos_sweep.band_slice, res,
+                        host)
+        per_call.append(sum(host) / len(host) / 1e3)
+    torch.cuda.synchronize()
+    return sorted(per_call)[reps // 2], len(host)
 
 
 def dos_halo_band_row(label, scene, res=512, timed=True):
@@ -6679,11 +6773,13 @@ def dos_halo_band_row(label, scene, res=512, timed=True):
     contiguous and interleave 2) within K9's bound of the plain band twin
     over the same HaloScene.  With ``timed``, the band frame on one slab
     timed in turns against the band instance's (:func:`halo_turns`: each
-    kernel's mean a launch times its launches), the loop ms, the plain
-    twin's ms and the bound: :func:`dos_work`'s frame plus the values out
-    and in across each chunk's all-reduce (:func:`dos_halo_frame_bytes`)
-    and a slab cell's operations a pixel-slice.  Returns the row's
-    fields."""
+    kernel's mean a launch times its launches), the loop ms, the host µs of
+    the ``band_slice`` calls alone (a call, and a launch: a call launches
+    the fold and at a chunk's first slice the fetch) against the band
+    instance's a slice (:func:`band_calls_host_us`), the plain twin's ms
+    and the bound: :func:`dos_work`'s frame plus the values out and in
+    across each chunk's all-reduce (:func:`dos_halo_frame_bytes`) and the
+    plane map's operations a pixel-slice.  Returns the row's fields."""
     import torch
 
     from vpt_tpu_torch.kernels import dos_sweep, tf1d
@@ -6735,21 +6831,25 @@ def dos_halo_band_row(label, scene, res=512, timed=True):
     def band_frame():
         band_pair_frame(scene, params, start, dos_sweep.band_slice, res)
 
+    def launches_of(kernel):
+        return 2 * (-(-active // 8) if "fetch" in kernel else active)
+
     t = halo_turns((halo_frame, "dos_halo_"), (band_frame, "dos_band_"),
-                   lambda k: 2 * (-(-active // 8) if "fetch" in k
-                                  else active),
-                   reps=5, whole_launches=lambda k: 2 * active)
+                   launches_of, reps=5, whole_launches=lambda k: 2 * active)
     ms = in_turns({"halo": halo_frame, "whole": band_frame}, 5, rounds=1)
+    call_us, calls = band_calls_host_us(hs, params, start, res)
+    band_call_us, _ = band_calls_host_us(scene, params, start, res)
+    launch_us = call_us * calls / (2 * per_band)
     plain_ms = cuda_ms(lambda: band_pair_frame(hs, params, start, plain, res),
                        1)
     n = res * res
     nbytes, ops, written, _ = dos_work(scene, params, res, res, 1)
     nbytes += dos_halo_frame_bytes(n, active, scene.channels)
-    ops += n * active * SLAB_OPS
+    ops += n * active * PLANE_OPS
     bound_ms, bound_by = roofline(nbytes, ops)
     table = scene.volume_packed
     tf_mode = tf1d.mode_code(scene.tf_mxu)
-    occ = [dos_sweep.halo_occupancy(0, table.dtype, tf_mode, params.samples,
+    occ = [dos_sweep.halo_occupancy(2, table.dtype, tf_mode, params.samples,
                                     channels=scene.channels)]
     share = None if t["halo"] is None else bound_ms / t["halo"]
     print(f"dos halo band {label}: one slab, two bands of {res}^2, a sweep's "
@@ -6760,8 +6860,10 @@ def dos_halo_band_row(label, scene, res=512, timed=True):
           f"(band instance {fmt_ms(t['whole'])}"
           + (f", {t['halo'] / t['whole']:.3f}x" if t["halo"] and t["whole"]
              else "")
-          + f"); plain twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by}, {nbytes} bytes), "
+          + f"); host {call_us:.2f} us a band_slice call ({calls} a frame), "
+          f"{launch_us:.2f} us a launch (the band instance {band_call_us:.2f}"
+          f" us a slice); plain twin {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes), "
           + ("share not measured" if share is None else f"{share:.3f} of it")
           + f"; fetch {occ[0]['registers']} registers, "
           f"{occ[0]['local_bytes']} spill bytes", flush=True)
@@ -6770,6 +6872,8 @@ def dos_halo_band_row(label, scene, res=512, timed=True):
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "bound_share": share,
                 "launches_a_frame": 2 * per_band, "active_slices": active,
+                "host_us_a_call": call_us, "host_us_a_launch": launch_us,
+                "band_host_us_a_slice": band_call_us,
                 "registers": occ[0]["registers"],
                 "local_bytes": occ[0]["local_bytes"]})
     return row
@@ -6872,7 +6976,8 @@ def halo_frames_path(grid, scene, counters, res):
         "launches")
     check(launches["iso_shade_halo"] == 2, "path parallel halo frames: K7 "
           "halo launches")
-    check(launches["lao_halo"] == -(-params_of["lao"].slices // 8) + 1,
+    check(launches["lao_halo"]
+          == lao_march.halo_frame_launches(params_of["lao"]),
           f"path parallel halo frames: {launches['lao_halo']} K10 halo "
           "launches")
 
@@ -7891,6 +7996,8 @@ def run():
     gloo4_launches, gloo4_errors, gloo4_seconds = phase_parallel_gloo4(dev)
     k9_halo_band["parallel_gloo4_max_abs_err"] = \
         gloo4_errors["dos_halo_band"]
+    halo_rows["lao_halo"]["parallel_gloo4_max_abs_err"] = \
+        gloo4_errors["lao_halo"]
     k9_halo_band["parallel_gloo4_frames_s"] = gloo4_seconds
     print(f"path parallel gloo 4: {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -8355,6 +8462,35 @@ def sweep_path_numbers():
     out["dos halo_frame_device_ms"] = _device_ms_per_call(
         halo_frame, "dos_halo_", 10)
     hashes["dos halo frame"] = _digest(halo_frame())
+    if hasattr(dos_sweep, "HALO_BAND_LAUNCHES"):
+        # the halo band instance, where the tree has it: the two bands
+        # over the one-slab HaloScene, and the band_slice calls' host time
+        # alone
+        def halo_bands():
+            return band_pair_frame(hs, params, start, dos_sweep.band_slice)[0]
+
+        out["dos halo_band_frame_ms"] = cuda_ms(halo_bands, 5)
+        out["dos halo_band_frame_device_ms"] = _device_ms_per_call(
+            halo_bands, "dos_halo_", 5)
+        call_us, calls = band_calls_host_us(hs, params, start)
+        active = calls // len(HALO_BANDS)
+        launches = len(HALO_BANDS) * (-(-active // 8) + active)
+        out["dos halo_band host_us_call"] = call_us
+        out["dos halo_band host_us_launch"] = call_us * calls / launches
+        out["dos band host_us_slice"] = band_calls_host_us(scene, params,
+                                                           start)[0]
+        hashes["dos halo band frame"] = _digest(halo_bands())
+        # K10's halo instance over the one-slab HaloScene
+        lhs = halo.halo_scene(scene, 0, 1)
+
+        def lao_halo():
+            lao.render_frame(lstate, lhs, lparams, 0.5, 1)
+
+        out["lao halo_frame_ms"] = cuda_ms(lao_halo, 10)
+        out["lao halo_frame_device_ms"] = _device_ms_per_call(
+            lao_halo, "lao_halo", 10)
+        out["lao halo host_us_frame"] = _host_call_us(lao_halo, 50)
+        hashes["lao halo frame"] = _digest(lstate)
     out["hashes"] = hashes
     return out
 

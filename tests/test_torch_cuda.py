@@ -2445,13 +2445,13 @@ def test_dos_band_matches_plain_and_cooperative(cuda, kind):
             assert float((diff <= 1e-6).float().mean()) >= 0.99
 
 
-def test_halo_frames_refuse_what_has_no_kernel(cuda):
-    """On the card a HaloScene frame of a two-channel volume runs K5's
+def test_lao_halo_frame_launches_k10_halo_instance(cuda):
+    """On the card LAO's HaloScene frame launches K10's halo instance
+    (``lao_march.halo_frame_launches`` launches, none of the whole-scene
+    K10); besides, a HaloScene frame of a two-channel volume runs K5's
     two-channel halo instance, equal to the ext frame and the plain loop
-    bit for bit on one slab; every renderer runs its kernel's halo
-    instance, LAO's K10's halo instance (ceil(slices / 8) + 1 launches,
-    none of the whole-scene K10); DOS's Python hooks raise, naming the
-    sharded frame."""
+    bit for bit on one slab, every other renderer runs its kernel's halo
+    instance, and DOS's Python hooks raise, naming the sharded frame."""
     from vpt_tpu_torch.parallel import halo
 
     rg = make_scene(volume.with_gradient_magnitude(
@@ -2484,7 +2484,7 @@ def test_halo_frames_refuse_what_has_no_kernel(cuda):
     lao.render_frame(lao.reset(p, 8, 8, scene), hs, p, 0.1, 1)
     torch.cuda.synchronize()
     assert (_launches(), lao_march.HALO_LAUNCHES) == (
-        before[0], before[1] + -(-p.slices // 8) + 1)
+        before[0], before[1] + lao_march.halo_frame_launches(p))
     p = dos.Params()
     with pytest.raises(ValueError, match="dos_halo.sharded_render_frame"):
         dos.render_frame(dos.reset(p, 8, 8, scene), scene, p, 0.1, 1,
@@ -2659,56 +2659,95 @@ def test_halo_dos_frames(cuda, kind):
 
 
 #: K10's halo instances held to K10 on one slab: (label, scene kind,
-#: Params kwargs, halo_scene kwargs, row window of a 40-row state)
+#: Params kwargs, halo_scene kwargs, row window of a 40-row state); a label
+#: "rows64..." forces the 64-bit row instance
 LAO_HALO_CASES = [
     ("bf16", "bf16", {}, {}, None),
     ("f32", "f32", {}, {}, None),
     ("rg", "rg", {}, {}, None),
-    ("baked", "baked", {"baked_gradient": True}, {}, None),
+    ("baked", "baked", {}, {}, None),
     ("interleave2", "f32", {}, {"interleave": 2}, None),
     ("unmasked", "bf16", {}, {"collective": False}, None),
     ("window", "f32", {}, {}, (9, 56)),
+    ("slices13", "f32", {"slices": 13}, {}, None),
+    ("slices16", "bf16", {"slices": 16}, {}, None),
+    ("all-miss", "miss", {}, {}, None),
+    ("all-dark", "dark", {}, {}, None),
+    ("rows64", "bf16", {}, {}, None),
+    ("rows64-rg", "rg", {}, {}, None),
+    ("rows64-baked", "baked", {}, {}, None),
 ]
 
 
 def _lao_halo_scene(kind, cuda):
-    """The halo tests' scenes (:func:`_halo_kind`), and for ``baked`` the
-    f32 scene's volume with LAO's baked gradient (two channels)."""
+    """The halo tests' scenes (:func:`_halo_kind`); ``baked`` the f32
+    scene's volume with LAO's baked gradient (two channels); ``miss`` the
+    f32 scene seen by a camera beside the cube (every pixel a miss);
+    ``dark`` a zero volume (every hit pixel marches every slice and stays
+    black)."""
+    from vpt_tpu_torch.scene import default_camera
+
+    ramp = transfer.gray_ramp(alpha_scale=0.8, device=cuda)
     if kind == "baked":
         return make_scene(volume.with_lao_gradient(
-            volume.blobs_volume(24, seed=3, device=cuda)),
-            transfer.gray_ramp(alpha_scale=0.8, device=cuda), device=cuda)
+            volume.blobs_volume(24, seed=3, device=cuda)), ramp, device=cuda)
+    if kind == "miss":
+        return make_scene(volume.blobs_volume(24, seed=3, device=cuda), ramp,
+                          camera=default_camera((5.0, 0.0, 2.0), fovy=0.2),
+                          device=cuda)
+    if kind == "dark":
+        return make_scene(volume.Volume(torch.zeros((24, 24, 24, 1),
+                                                    device=cuda)), ramp,
+                          device=cuda)
     return _halo_kind(kind, cuda)
 
 
 @pytest.mark.parametrize("case", LAO_HALO_CASES, ids=[c[0] for c in
                                                       LAO_HALO_CASES])
-def test_halo_lao_frames(cuda, case):
-    """K10's halo instance: on one slab, 2 frames of 20 slices equal K10's
-    bit for bit, each in ceil(20 / 8) + 1 = 4 launches (K10's own counter
+def test_halo_lao_frames(cuda, case, monkeypatch):
+    """K10's halo instance: on one slab, 2 frames equal K10's bit for bit,
+    each in ``lao_march.halo_frame_launches`` launches (K10's own counter
     still): bf16 and float32 tables, two channels, the baked gradient,
-    interleave 2, the unmasked fetch and a row window.  On 2 slabs,
+    interleave 2, the unmasked fetch, a row window, 13 and 16 slices,
+    all-miss and all-dark frames, and 64-bit slab rows (forced by lowering
+    the limit) of one channel, two and the baked gradient.  On 2 slabs,
     contiguous and interleave 2, masked and not, each slab's frame is
     within K10's bound of the plain twin over the same HaloScene
     (``assert_lao_agrees``)."""
     from vpt_tpu_torch.parallel import halo
 
-    _, kind, kwargs, halo_kwargs, window = case
+    label, kind, kwargs, halo_kwargs, window = case
     scene = _lao_halo_scene(kind, cuda)
-    params = lao.Params(slices=20, **kwargs)
+    params = lao.Params(**{"slices": 20, "baked_gradient": kind == "baked",
+                           **kwargs})
     hs = halo.halo_scene(scene, 0, 1, **halo_kwargs)
     want = lao.reset(params, 40, 48, scene)
     lao.render_frame(want, scene, params, 0.1, 1, window=window)
+    if label.startswith("rows64"):
+        # K10's ext instances take 32-bit rows only: the limit drops after
+        # its frame
+        monkeypatch.setattr(lao_march, "ROWS32", 0)
     for n in (1, 2):
         got = lao.reset(params, 40, 48, scene)
         before = (lao_march.LAUNCHES, lao_march.HALO_LAUNCHES)
         lao.render_frame(got, hs, params, 0.1, n, window=window)
         assert (lao_march.LAUNCHES, lao_march.HALO_LAUNCHES) == (
-            before[0], before[1] + 4)
+            before[0], before[1] + lao_march.halo_frame_launches(params))
         torch.cuda.synchronize()
         assert torch.equal(got, want), n
-    assert float(want[..., :3].max()) > 0.0
-    if halo_kwargs or window:
+    prepared = lao_march._halo_cache.get(
+        hs, (params, 40, 48) + sampling.row_window(window, 40))
+    assert prepared.args.rows64 == int(label.startswith("rows64"))
+    # the values between frames stay zero
+    assert not bool(prepared.value.any())
+    if kind == "miss":
+        black = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda)
+        assert bool((want == black).all())
+    elif kind == "dark":
+        assert float(want[..., :3].abs().max()) == 0.0
+    else:
+        assert float(want[..., :3].max()) > 0.0
+    if halo_kwargs or window or kind in ("miss", "dark"):
         return
     for label, hs in _halo_layouts(scene):
         got = lao.reset(params, 40, 48, scene)
@@ -2719,35 +2758,49 @@ def test_halo_lao_frames(cuda, case):
         assert_lao_agrees(got, plain)
 
 
-@pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
-def test_halo_dos_bands(cuda, kind):
-    """K9's halo band instance: on one slab, two bands of a 48² frame (two
-    windows, the whole image as each slice's extended buffer) over a
-    sweep's 2 frames equal K9's band instance bit for bit, in ceil(n / 8)
-    fetches and n folds a band for n active slices (the band instance's
-    counter still); on 2 slabs each band is within K9's bound of the plain
-    band twin over the same HaloScene (``assert_dos_agrees``)."""
+#: K9's halo band instance's cases: (label, scene kind, frame's slices)
+DOS_BAND_CASES = [("f32", "f32", 20), ("bf16", "bf16", 20),
+                  ("rg", "rg", 20), ("steps13", "f32", 13),
+                  ("all-miss", "miss", 20), ("all-dark", "dark", 20)]
+
+
+def _bands_frame(sc, state, run, params, windows, height):
+    """A frame from ``state`` on the bands of ``windows`` of an image of
+    ``height`` rows in one process, each active slice the whole image's
+    previous occlusion as every band's extended buffer, ``run`` being
+    ``band_slice`` or its plain twin; the frame and its active slices."""
+    bands = [{k: (v[r0:r1].clone() if k in ("color", "occlusion")
+                  else v.clone()) for k, v in state.items()}
+             for r0, r1 in windows]
+    n_active = dos.active_slices(bands[0], params)
+    for k in range(n_active):
+        ext = torch.cat([b["occlusion"] for b in bands])
+        for (r0, _), band in zip(windows, bands):
+            run(band, ext, 0, sc, params, k, (r0, height), n_active)
+    out = {key: torch.cat([b[key] for b in bands])
+           for key in ("color", "occlusion")}
+    out["depth"] = state["depth"] + float(n_active) * state["slice_distance"]
+    return {**state, **out}, n_active
+
+
+@pytest.mark.parametrize("case", DOS_BAND_CASES,
+                         ids=[c[0] for c in DOS_BAND_CASES])
+def test_halo_dos_bands(cuda, case):
+    """K9's halo band instance: on one slab, two uneven bands of a 48²
+    frame (two windows, the whole image as each slice's extended buffer)
+    over a sweep's 2 frames equal K9's band instance bit for bit, in
+    ceil(n / 8) fetches and n folds a band for n active slices (the band
+    instance's counter still): float32 and bf16 tables, two channels, 13
+    slices a frame, all-miss and all-dark frames; on 2 slabs each band is
+    within K9's bound of the plain band twin over the same HaloScene
+    (``assert_dos_agrees``)."""
     from vpt_tpu_torch.parallel import halo
 
-    scene = _halo_kind(kind, cuda)
-    params = dos.Params(extinction=80.0, steps=20, slices=30, samples=6)
+    label, kind, steps = case
+    scene = _lao_halo_scene(kind, cuda)
+    params = dos.Params(extinction=80.0, steps=steps, slices=30, samples=6)
     height = width = 48
     windows = ((0, 19), (19, 48))
-
-    def bands_frame(sc, state, run):
-        bands = [{k: (v[r0:r1].clone() if k in ("color", "occlusion")
-                      else v.clone()) for k, v in state.items()}
-                 for r0, r1 in windows]
-        n_active = dos.active_slices(bands[0], params)
-        for k in range(n_active):
-            ext = torch.cat([b["occlusion"] for b in bands])
-            for (r0, _), band in zip(windows, bands):
-                run(band, ext, 0, sc, params, k, (r0, height), n_active)
-        out = {key: torch.cat([b[key] for b in bands])
-               for key in ("color", "occlusion")}
-        out["depth"] = state["depth"] + float(n_active) * \
-            state["slice_distance"]
-        return {**state, **out}, n_active
 
     def plain(band, ext, ext_row0, sc, p, k, window, n_active):
         dos_sweep.band_slice_plain(band, ext, ext_row0, sc, p, k, window)
@@ -2756,21 +2809,73 @@ def test_halo_dos_bands(cuda, kind):
     got = want = dos.reset(params, height, width, scene)
     for frame in (1, 2):
         before = (dos_sweep.BAND_LAUNCHES, dos_sweep.HALO_BAND_LAUNCHES)
-        got, active = bands_frame(hs, got, dos_sweep.band_slice)
+        got, active = _bands_frame(hs, got, dos_sweep.band_slice, params,
+                                   windows, height)
         assert (dos_sweep.BAND_LAUNCHES, dos_sweep.HALO_BAND_LAUNCHES) == (
             before[0], before[1] + 2 * (-(-active // 8) + active)), frame
-        want, _ = bands_frame(scene, want, dos_sweep.band_slice)
+        want, _ = _bands_frame(scene, want, dos_sweep.band_slice, params,
+                               windows, height)
         torch.cuda.synchronize()
         for key in ("color", "occlusion", "depth"):
             assert torch.equal(got[key], want[key]), (frame, key)
-    assert active < params.steps
-    assert float(got["color"][..., 3].max()) > 0.0
+    assert active == params.steps if steps == 13 else active < params.steps
+    # a miss writes nothing; the zero volume's TF alpha at 0 is 1/640
+    alpha = float(got["color"][..., 3].max())
+    assert alpha == 0.0 if kind == "miss" else alpha > 0.0
+    if kind in ("miss", "dark"):
+        return
     start = dos.reset(params, height, width, scene)
     for label, hs in _halo_layouts(scene):
-        got, _ = bands_frame(hs, start, dos_sweep.band_slice)
-        want, _ = bands_frame(hs, start, plain)
+        got, _ = _bands_frame(hs, start, dos_sweep.band_slice, params,
+                              windows, height)
+        want, _ = _bands_frame(hs, start, plain, params, windows, height)
         torch.cuda.synchronize()
         assert_dos_agrees(got, want)
+
+
+@pytest.mark.parametrize("kind", ["whole", "halo"])
+def test_dos_band_frame_is_prepared_once(cuda, kind):
+    """``dos_sweep.band_frame`` prepares a band's frame once: the same
+    state tensors and active slices find it again, a new depth tensor (the
+    next frame's) prepares another; ``dos.render_band`` runs its slices
+    through one frame and equals ``band_slice`` a slice; a slice refuses an
+    extended buffer that does not cover the band, a slice past the
+    frame's, and an extended buffer of another dtype or width."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _scene("f32", cuda)
+    sc = halo.halo_scene(scene, 0, 1) if kind == "halo" else scene
+    params = dos.Params(extinction=80.0, steps=20, slices=30, samples=6)
+    start = dos.reset(params, 32, 32, scene)
+    band = {k: (v[8:20].clone() if k in ("color", "occlusion")
+                else v.clone()) for k, v in start.items()}
+    n = dos.active_slices(band, params)
+    frame = dos_sweep.band_frame(band, sc, params, (8, 32), n)
+    assert dos_sweep.band_frame(band, sc, params, (8, 32), n) is frame
+    other = dict(band, depth=band["depth"].clone())
+    assert dos_sweep.band_frame(other, sc, params, (8, 32), n) is not frame
+    ext = start["occlusion"].clone()
+    with pytest.raises(RuntimeError, match="vpt_dos_band"):
+        frame.slice(ext[10:], 10, 0)
+    with pytest.raises(RuntimeError, match="vpt_dos_band"):
+        frame.slice(ext, 0, params.steps if kind == "whole" else n)
+    with pytest.raises(ValueError, match="extended occlusion"):
+        frame.slice(ext.double(), 0, 0)
+    with pytest.raises(ValueError, match="extended occlusion"):
+        frame.slice(ext[:, :16].contiguous(), 0, 0)
+    a = {k: v.clone() for k, v in band.items()}
+    b = {k: v.clone() for k, v in band.items()}
+    dos.render_band(a, sc, params, (8, 32), lambda occ: (
+        torch.cat([start["occlusion"][:8], occ, start["occlusion"][20:]]),
+        0))
+    for k in range(n):
+        ext = torch.cat([start["occlusion"][:8], b["occlusion"],
+                         start["occlusion"][20:]])
+        dos_sweep.band_slice(b, ext, 0, sc, params, k, (8, 32), n)
+    b["depth"] = b["depth"] + float(n) * b["slice_distance"]
+    torch.cuda.synchronize()
+    for key in ("color", "occlusion", "depth"):
+        assert torch.equal(a[key], b[key]), key
 
 
 def test_halo_world_of_one_over_nccl(cuda):

@@ -64,11 +64,12 @@ def test_build_flags_and_entry_points():
         "vpt_mcs_launch", "vpt_mcs_info", "vpt_dos_frame",
         "vpt_dos_sweep_info", "vpt_lao_launch", "vpt_lao_count",
         "vpt_lao_info", "vpt_mcm_halo_event", "vpt_mcm_halo_info",
-        "vpt_slab_fetch", "vpt_dos_band", "vpt_mcm_resident_event",
+        "vpt_slab_fetch", "vpt_dos_band_check", "vpt_dos_band_slice",
+        "vpt_dos_band_fetch", "vpt_mcm_resident_event",
         "vpt_mcm_resident_info", "vpt_march_halo_launch",
         "vpt_march_halo_info", "vpt_iso_halo_launch", "vpt_iso_halo_info",
         "vpt_mcs_halo_launch", "vpt_mcs_halo_info", "vpt_dos_halo_launch",
-        "vpt_dos_halo_info", "vpt_dos_halo_band", "vpt_lao_halo_launch",
+        "vpt_dos_halo_info", "vpt_lao_halo_launch",
         "vpt_lao_halo_info"}
     sources = " ".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))
     for name, argtypes in _build.SIGNATURES.items():

@@ -71,14 +71,18 @@
 // runs a HaloScene's frame: dos_slices with the fetch split around an
 // all-reduce of each chunk of 8 slices' values.
 //
-// The band instance (vpt_dos_band, VptDosBand below) runs one slice over
-// a band of rows for the row-sharded sweeps (parallel/dos_halo.py,
-// shard.shard_render_frame): dos_row, dos_fetch and dos_composite shared
-// with the cooperative kernel, vpt_tpu's sharded taps on a halo-extended
-// buffer.  Its halo instance (vpt_dos_halo_band: dos_halo_fetch_kernel
-// over the band's rows a chunk of 8 slices, an all-reduce, then
-// dos_halo_band_kernel a slice) runs a HaloScene's band
-// (halo.sharded_render_frame with data > 1).
+// The band instance (dos_band_kernel, VptDosBand below) runs one slice over a
+// band of rows for the row-sharded sweeps (parallel/dos_halo.py,
+// shard.shard_render_frame): dos_row, dos_fetch and dos_composite shared with
+// the cooperative kernel, vpt_tpu's sharded taps on a halo-extended buffer.
+// Its halo instance (dos_halo_band_fetch_kernel over the band's rows a chunk
+// of 8 slices, an all-reduce, then dos_halo_band_kernel a slice) runs a
+// HaloScene's band (halo.sharded_render_frame with data > 1).  A band's frame
+// is prepared once (VptDosBandFrame, checked by vpt_dos_band_check), and a
+// slice passes only what changes: the slice and the previous occlusion
+// (vpt_dos_band_slice; vpt_dos_band_fetch at a halo chunk's first slice).  The
+// host time a slice was its bound (~28 us a slice through the argument lists
+// this replaced; PERF.md §6).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -477,11 +481,13 @@ dos_sweep_ext_kernel(const VptDosExt a, const VptDosFrame f) {
 // channel, the TF row in mode kTf) or 2.
 constexpr int kHaloChunk = 8;
 
-template <bool kBf16, int kC>
-__global__ void __launch_bounds__(kThreads)
-dos_halo_fetch_kernel(const VptDosExt a, const VptDosFrame f,
-                      const VptSlab slab, float* __restrict__ value, int k0,
-                      int count, int row0, int band_h) {
+// The fetch's body over the pixels of rows [row0, row0 + band_h): each
+// pixel's value at each of the chunk's slices, place(p, &v) setting v to
+// the value of point p where this rank owns its cell.
+template <int kC, class Place>
+__device__ __forceinline__ void dos_halo_fetch(
+    const VptDosExt& a, const VptDosFrame& f, float* __restrict__ value,
+    int k0, int count, int row0, int band_h, Place place) {
   // the chunk's slices: NDC depth and active flag (dos_row's row[0, 1])
   __shared__ float s_head[kHaloChunk][2];
   if (threadIdx.x < count) {
@@ -503,15 +509,51 @@ dos_halo_fetch_kernel(const VptDosExt a, const VptDosFrame f,
   for (int j = 0; j < count; ++j) {
     float2 v = make_float2(0.0f, 0.0f);
     float p[3];
-    if (s_head[j][1] > 0.0f && dos_point(a, ndc, s_head[j][0], p)) {
-      const VptSlabCell cell = vpt_slab_cell(a.d, a.h, a.w, slab, p[0], p[1],
-                                             p[2]);
-      if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
-    }
+    if (s_head[j][1] > 0.0f && dos_point(a, ndc, s_head[j][0], p))
+      place(p, &v);
     float* out = value + kV * ((long long)j * n + i);
     out[0] = v.x;
     if (kV == 2) out[1] = v.y;
   }
+}
+
+// The frame's fetch: each cell placed by vpt_slab_z's rule.
+template <bool kBf16, int kC>
+__global__ void __launch_bounds__(kThreads)
+dos_halo_fetch_kernel(const VptDosExt a, const VptDosFrame f,
+                      const VptSlab slab, float* __restrict__ value, int k0,
+                      int count, int row0, int band_h) {
+  dos_halo_fetch<kC>(a, f, value, k0, count, row0, band_h,
+                     [&](const float* p, float2* v) {
+                       const VptSlabCell cell = vpt_slab_cell(
+                           a.d, a.h, a.w, slab, p[0], p[1], p[2]);
+                       if (cell.local)
+                         *v = vpt_slab_value<kBf16, kC>(a.table, cell);
+                     });
+}
+
+// The band's fetch: each cell placed through the slab's plane map
+// (slab.cuh's vpt_slab_plane, staged in shared memory), not through
+// vpt_slab_z's divisions: the same cells.
+template <bool kBf16, int kC>
+__global__ void __launch_bounds__(kThreads)
+dos_halo_band_fetch_kernel(const VptDosExt a, const VptDosFrame f,
+                      const VptSlab slab, const int2* __restrict__ planes,
+                      float* __restrict__ value, int k0, int count, int row0,
+                      int band_h) {
+  extern __shared__ int2 s_planes[];
+  vpt_stage_planes(s_planes, planes, a.d);
+  dos_halo_fetch<kC>(a, f, value, k0, count, row0, band_h,
+                     [&](const float* p, float2* v) {
+                       bool local;
+                       const VptCell<int64_t> cell =
+                           vpt_slab_plane_cell<int64_t>(
+                               a.d, a.h, a.w, slab, s_planes, p[0], p[1],
+                               p[2], &local);
+                       if (local)
+                         *v = vpt_slab_value<kBf16, kC, int64_t>(a.table,
+                                                                 cell);
+                     });
 }
 
 template <bool kBf16, int kTf, int kC>
@@ -534,12 +576,20 @@ dos_halo_fold_kernel(const VptDosExt a, const VptDosFrame f,
 }
 
 // The halo instances for a table type and the TF lookup mode (one channel)
-// or two channels; null for anything else.
-const void* pick_halo_fetch(int channels, int table_bf16) {
-  if (channels == 2)
+// or two channels, the frame's fetch or the band's (planes); null for
+// anything else.
+const void* pick_halo_fetch(int channels, int table_bf16, bool planes) {
+  if (channels == 2) {
+    if (planes)
+      return table_bf16 ? (const void*)dos_halo_band_fetch_kernel<true, 2>
+                        : (const void*)dos_halo_band_fetch_kernel<false, 2>;
     return table_bf16 ? (const void*)dos_halo_fetch_kernel<true, 2>
                       : (const void*)dos_halo_fetch_kernel<false, 2>;
+  }
   if (channels != 1) return nullptr;
+  if (planes)
+    return table_bf16 ? (const void*)dos_halo_band_fetch_kernel<true, 0>
+                      : (const void*)dos_halo_band_fetch_kernel<false, 0>;
   return table_bf16 ? (const void*)dos_halo_fetch_kernel<true, 0>
                     : (const void*)dos_halo_fetch_kernel<false, 0>;
 }
@@ -586,6 +636,27 @@ struct VptDosBand {
   const float* offsets;         // (N, 2) disk offsets
   int slice;                    // k, the slice of the frame
   int row0, band_h, ext_row0, ext_h;
+};
+
+// The halo instance's prepared arguments: VptDosExt and the slab's plane
+// map (appended; the other instances read the VptDosExt prefix).
+struct VptDosHalo : VptDosExt {
+  const int2* planes;  // (d) {slab-local plane, owner} of each global plane
+};
+
+// A band's frame, filled once a frame by the wrapper (kernels/dos_sweep.py,
+// a ctypes Structure of this layout) and checked once (vpt_dos_band_check):
+// the scene's prepared arguments and what every slice of the frame passes
+// but the slice and the previous occlusion (band.ext, band.slice,
+// band.ext_row0 and band.ext_h are the call's).  Over a HaloScene (halo)
+// also the band's values and the slab.
+struct VptDosBandFrame {
+  const VptDosHalo* args;  // VptDosExt of the scene (VptDosHalo with halo)
+  VptDosBand band;
+  float* value;            // halo: (kHaloChunk, width * band_h, channels)
+  VptSlab slab;            // halo: this rank's slab
+  int halo;                // 1: the band's halo instance
+  int n_active;            // the frame's active slices (halo), else steps
 };
 
 // fetch(ndc, row, i) is band pixel i's DosFetch at the slice (row: its
@@ -663,7 +734,7 @@ dos_band_ext_kernel(const VptDosExt a, const VptDosBand b) {
 // summed value's colour (dos_color, dos_shade), as dos_halo_fold_kernel
 // replaces it in the cooperative sweep.  value holds a chunk of up to
 // kHaloChunk slices' summed values over the band's pixels
-// (dos_halo_fetch_kernel over rows [row0, row0 + band_h), then one
+// (dos_halo_band_fetch_kernel over rows [row0, row0 + band_h), then one
 // all-reduce), slot j this slice's.  So on one slab, with the same ext, a
 // slice equals the band instance's bit for bit.
 template <bool kBf16, int kTf, int kC>
@@ -850,49 +921,6 @@ extern "C" int vpt_dos_sweep_info(int flags, int tf_mode, int steps,
   return 0;
 }
 
-// One slice of the band instance (see VptDosBand): prepared is the
-// VptDosExt of the scene, Params and the whole image (its height the
-// image's); color and occlusion the band's (band_h, width) state, updated
-// in place; ext the (ext_h, width) previous occlusion from the image's row
-// ext_row0; depth, max_depth, the slice distance and the offsets the
-// state's (the depth of the frame's first slice: the caller advances it
-// after the frame).  An inactive slice changes nothing.
-extern "C" int vpt_dos_band(const void* prepared, void* color,
-                            void* occlusion, const void* ext,
-                            const void* depth, const void* max_depth,
-                            const void* slice_distance, const void* offsets,
-                            int slice, int row0, int band_h, int ext_row0,
-                            int ext_h, void* stream) {
-  const VptDosExt& a = *static_cast<const VptDosExt*>(prepared);
-  VptDeviceGuard guard(a.device);
-  if (band_h <= 0) return 0;
-  if (is_ext(a) && (a.filter < 0 || a.filter > 2))
-    return (int)cudaErrorInvalidValue;
-  if (row0 < 0 || row0 + band_h > a.height || ext_h <= 0
-      || ext_row0 > row0 || ext_row0 + ext_h < row0 + band_h
-      || slice < 0 || slice >= a.steps)
-    return (int)cudaErrorInvalidValue;
-  const void* kernel = pick_band(flags_of(a), a.tf_mode);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  VptDosArgs args = a;
-  VptDosExt ext_args = a;
-  VptDosBand band = {static_cast<float4*>(color),
-                     static_cast<float*>(occlusion),
-                     static_cast<const float*>(ext),
-                     static_cast<const float*>(depth),
-                     static_cast<const float*>(max_depth),
-                     static_cast<const float*>(slice_distance),
-                     static_cast<const float*>(offsets),
-                     slice, row0, band_h, ext_row0, ext_h};
-  void* params[] = {is_ext(a) ? (void*)&ext_args : (void*)&args, &band};
-  const long long n = (long long)a.width * band_h;
-  return (int)cudaLaunchKernel(
-      kernel, dim3((unsigned)((n + kThreads - 1) / kThreads)),
-      dim3(kThreads), params,
-      (size_t)(kHead + 4 * a.samples) * sizeof(float),
-      (cudaStream_t)stream);
-}
-
 // One launch of the halo instance (see dos_halo_fetch_kernel): prepared is
 // the VptDosExt of the HaloScene, Params and resolution (table: the rank's
 // slab rows; d, h, w the whole volume's; no filter; blocks the fold's
@@ -926,7 +954,7 @@ extern "C" int vpt_dos_halo_launch(
                        static_cast<const float*>(offsets), nullptr};
   float* values = static_cast<float*>(value);
   if (stage == 0) {
-    const void* kernel = pick_halo_fetch(a.channels, a.table_bf16);
+    const void* kernel = pick_halo_fetch(a.channels, a.table_bf16, false);
     if (kernel == nullptr) return (int)cudaErrorInvalidValue;
     VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
     int row0 = 0, band_h = a.height;
@@ -948,72 +976,114 @@ extern "C" int vpt_dos_halo_launch(
       shared_bytes(count, a.samples), (cudaStream_t)stream);
 }
 
-// One launch of the halo band instance (see dos_halo_band_kernel): prepared
-// is the VptDosExt of the HaloScene, Params and the whole image (its height
-// the image's; table the rank's slab rows; no filter); color, occlusion,
-// ext, depth, max_depth, the slice distance, the offsets, slice, row0,
-// band_h, ext_row0 and ext_h as vpt_dos_band's; the slab as
-// vpt_dos_halo_launch's; value the (kHaloChunk, width * band_h, channels)
-// values of slices k0 .. k0 + count - 1 (count <= kHaloChunk, all active).
-// Stage 0 writes this rank's masked values of those slices over the band's
-// pixels (slice and ext unused), stage 1 folds slice `slice` (k0 <= slice <
-// k0 + count) from its summed values.
-extern "C" int vpt_dos_halo_band(
-    const void* prepared, void* color, void* occlusion, const void* ext,
-    const void* depth, const void* max_depth, const void* slice_distance,
-    const void* offsets, int slab_index, int num_slabs, int interleave,
-    int masked, void* value, int slice, int k0, int count, int stage,
-    int row0, int band_h, int ext_row0, int ext_h, void* stream) {
-  const VptDosExt& a = *static_cast<const VptDosExt*>(prepared);
-  VptDeviceGuard guard(a.device);
-  if (band_h <= 0) return 0;
-  if (a.filter != 0 || k0 < 0 || count < 1 || count > kHaloChunk
-      || k0 + count > a.steps || row0 < 0 || row0 + band_h > a.height
-      || num_slabs < 1 || interleave < 1 || slab_index < 0
-      || slab_index >= num_slabs || a.d % (num_slabs * interleave) != 0)
+namespace {
+
+// What a band frame fixes, checked once a frame (vpt_dos_band_check): the
+// band's rows of the image, the instance that runs it, and over a
+// HaloScene the slab, the plane map and the frame's active slices.
+int band_frame_check(const VptDosBandFrame& f) {
+  const VptDosHalo& a = *f.args;
+  const VptDosBand& b = f.band;
+  if (is_ext(a) && (a.filter < 0 || a.filter > 2))
     return (int)cudaErrorInvalidValue;
-  VptDosExt args = a;
-  float* values = static_cast<float*>(value);
-  const long long n = (long long)a.width * band_h;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  if (stage == 0) {
-    const void* kernel = pick_halo_fetch(a.channels, a.table_bf16);
-    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-    VptDosFrame frame = {nullptr, nullptr, nullptr,
-                         const_cast<float*>(static_cast<const float*>(depth)),
-                         static_cast<const float*>(max_depth),
-                         static_cast<const float*>(slice_distance),
-                         static_cast<const float*>(offsets), nullptr};
-    VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
-    void* params[] = {&args, &frame, &slab, &values, &k0, &count, &row0,
-                      &band_h};
-    return (int)cudaLaunchKernel(kernel, dim3(blocks), dim3(kThreads),
-                                 params, 0, (cudaStream_t)stream);
+  if (b.row0 < 0 || b.band_h < 0 || b.row0 + b.band_h > a.height)
+    return (int)cudaErrorInvalidValue;
+  if (!f.halo) {
+    if (f.n_active != a.steps || pick_band(flags_of(a), a.tf_mode) == nullptr)
+      return (int)cudaErrorInvalidValue;
+    return 0;
   }
-  if (stage != 1 || slice < k0 || slice >= k0 + count || ext_h <= 0
-      || ext_row0 > row0 || ext_row0 + ext_h < row0 + band_h)
+  const VptSlab& slab = f.slab;
+  if (a.filter != 0 || f.n_active < 0 || f.n_active > a.steps
+      || slab.count < 1 || slab.interleave < 1 || slab.index < 0
+      || slab.index >= slab.count || a.d % (slab.count * slab.interleave)
+      || a.planes == nullptr || a.d > kVptMaxPlanes || f.value == nullptr
+      || pick_halo_fetch(a.channels, a.table_bf16, true) == nullptr
+      || pick_halo_band(a.channels, a.table_bf16, a.tf_mode) == nullptr)
     return (int)cudaErrorInvalidValue;
-  const void* kernel = pick_halo_band(a.channels, a.table_bf16, a.tf_mode);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  VptDosBand band = {static_cast<float4*>(color),
-                     static_cast<float*>(occlusion),
-                     static_cast<const float*>(ext),
-                     static_cast<const float*>(depth),
-                     static_cast<const float*>(max_depth),
-                     static_cast<const float*>(slice_distance),
-                     static_cast<const float*>(offsets),
-                     slice, row0, band_h, ext_row0, ext_h};
-  const float* folded = values;
-  int j = slice - k0;
-  void* params[] = {&args, &band, &folded, &j};
-  return (int)cudaLaunchKernel(
-      kernel, dim3(blocks), dim3(kThreads), params,
-      (size_t)(kHead + 4 * a.samples) * sizeof(float),
-      (cudaStream_t)stream);
+  return 0;
 }
 
-// The launch shape of the halo instance's stage (0 the fetch, 1 the fold)
-// for flags (1 bf16 rows, 4 two channels), the TF lookup mode and N =
+}  // namespace
+
+// 0 where the band frame (see VptDosBandFrame) is one its slices can run,
+// else a CUDA error code.  Launches nothing.
+extern "C" int vpt_dos_band_check(const void* frame) {
+  return band_frame_check(*static_cast<const VptDosBandFrame*>(frame));
+}
+
+// The halo instance's fetch at a chunk's first active slice k (k a
+// multiple of kHaloChunk below the frame's active slices): this rank's
+// masked values of slices k .. k + count - 1 (count = min(kHaloChunk,
+// n_active - k)) over the band's pixels into the band's values, each cell
+// placed through the plane map.  The caller all-reduces the values before
+// the chunk's slices.
+extern "C" int vpt_dos_band_fetch(const void* frame, int k, void* stream) {
+  const VptDosBandFrame& f = *static_cast<const VptDosBandFrame*>(frame);
+  const VptDosHalo& a = *f.args;
+  VptDeviceGuard guard(a.device);
+  if (!f.halo || k < 0 || k >= f.n_active || k % kHaloChunk)
+    return (int)cudaErrorInvalidValue;
+  if (f.band.band_h == 0) return 0;
+  int k0 = k, count = min(kHaloChunk, f.n_active - k);
+  int row0 = f.band.row0, band_h = f.band.band_h;
+  VptDosFrame frame_args = {
+      nullptr, nullptr, nullptr, const_cast<float*>(f.band.depth),
+      f.band.max_depth, f.band.slice_distance, f.band.offsets, nullptr};
+  VptSlab slab = f.slab;
+  const int2* planes = a.planes;
+  float* values = f.value;
+  void* params[] = {(void*)&a, &frame_args, &slab, &planes, &values, &k0,
+                    &count, &row0, &band_h};
+  const long long n = (long long)a.width * band_h;
+  return (int)cudaLaunchKernel(
+      pick_halo_fetch(a.channels, a.table_bf16, true),
+      dim3((unsigned)((n + kThreads - 1) / kThreads)), dim3(kThreads),
+      params, (size_t)a.d * sizeof(int2), (cudaStream_t)stream);
+}
+
+// Slice k of the band frame: the band instance (dos_band_kernel), or over
+// a HaloScene the halo instance's fold of slice k's summed value
+// (dos_halo_band_kernel, after its chunk's fetch and all-reduce); ext the
+// (ext_h, width) previous occlusion from the image's row ext_row0, which
+// covers the band.  An inactive slice changes nothing.
+extern "C" int vpt_dos_band_slice(const void* frame, const void* ext,
+                                  int ext_row0, int ext_h, int k,
+                                  void* stream) {
+  const VptDosBandFrame& f = *static_cast<const VptDosBandFrame*>(frame);
+  const VptDosHalo& a = *f.args;
+  VptDeviceGuard guard(a.device);
+  VptDosBand band = f.band;
+  if (k < 0 || k >= f.n_active || ext == nullptr || ext_h <= 0
+      || ext_row0 > band.row0 || ext_row0 + ext_h < band.row0 + band.band_h)
+    return (int)cudaErrorInvalidValue;
+  if (band.band_h == 0) return 0;
+  band.ext = static_cast<const float*>(ext);
+  band.slice = k;
+  band.ext_row0 = ext_row0;
+  band.ext_h = ext_h;
+  const long long n = (long long)a.width * band.band_h;
+  const dim3 blocks((unsigned)((n + kThreads - 1) / kThreads));
+  const size_t row_bytes = (size_t)(kHead + 4 * a.samples) * sizeof(float);
+  if (!f.halo) {
+    // the kernel takes the prefix it knows (VptDosArgs or VptDosExt)
+    void* params[] = {(void*)&a, &band};
+    return (int)cudaLaunchKernel(pick_band(flags_of(a), a.tf_mode), blocks,
+                                 dim3(kThreads), params, row_bytes,
+                                 (cudaStream_t)stream);
+  }
+  const float* folded = f.value;
+  int j = k % kHaloChunk;
+  void* params[] = {(void*)&a, &band, &folded, &j};
+  return (int)cudaLaunchKernel(
+      pick_halo_band(a.channels, a.table_bf16, a.tf_mode), blocks,
+      dim3(kThreads), params, row_bytes, (cudaStream_t)stream);
+}
+
+// The launch shape of the halo instance's stage (0 the fetch, 1 the fold,
+// 2 a band's fetch through the plane map, whose d * 8 bytes of shared
+// memory a block come on top) for flags (1 bf16 rows, 4 two channels), the
+// TF lookup mode and N =
 // samples disk taps on `device`: vpt_dos_sweep_info's values for a chunk of
 // kHaloChunk slices (the fold's cooperative grid is its resident blocks
 // times the SMs).  Launches nothing.
@@ -1021,13 +1091,14 @@ extern "C" int vpt_dos_halo_info(int stage, int flags, int tf_mode,
                                  int samples, int device, int* out) {
   VptDeviceGuard guard(device);
   const int channels = (flags & 4) ? 2 : 1;
-  const void* kernel = stage == 0 ? pick_halo_fetch(channels, flags & 1)
-                                  : pick_halo_fold(channels, flags & 1,
-                                                   tf_mode);
+  const void* kernel =
+      stage == 1 ? pick_halo_fold(channels, flags & 1, tf_mode)
+                 : pick_halo_fetch(channels, flags & 1, stage == 2);
   if (kernel == nullptr || samples < 1
       || (kHead + 4 * samples) * sizeof(float) > kRowBytes)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = stage == 0 ? 0 : shared_bytes(kHaloChunk, samples);
+  if (stage < 0 || stage > 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = stage == 1 ? shared_bytes(kHaloChunk, samples) : 0;
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, kThreads, smem);

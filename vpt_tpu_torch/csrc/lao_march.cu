@@ -462,91 +462,118 @@ lao_ext_kernel(const VptLaoExt a, int2 window, float4* __restrict__ state,
 // and a sample is the sum over the ranks of their masked slab-local values
 // (vpt_tpu/parallel/halo.py:199-272: sample_value, raw_gradient and
 // sample_volume_rg, one psum each), an all-reduce between the fetch and
-// everything that is not linear in the value.  A pixel-slice sums its
-// lao_halo_values values: the six raw-gradient taps at p -+ e_k/32 and the
-// value at p (or, baked, the (value, |grad|) pair at p), the n_taps AO taps
-// and the shadow tap, each of channel 0 (a two-channel volume that is not
-// baked sums channel 0 only).  A frame of S slices is C = ceil(S /
-// kHaloChunk) + 1 launches on the state, the wrapper all-reducing the
-// values between them: launch e folds chunk e - 1's summed values in K10's
-// order (lao_fold_values: |grad|, the AO fold, the soft shadow, the 2D TF,
-// the tints and the composite) while the pixel is live, then writes chunk
-// e's masked values (lao_slab_fetch: slab.cuh's cell of each tap, so each
-// tap's owner is its own cell's: the gradient's z taps may lie in other
-// slabs than p); the last launch writes the frame (lao_finish).  Between
-// launches the state holds the pixel's accumulator (LAO's frame replaces
-// the state), and its ray, rx and tap directions come again from the pixel
-// index.  A pixel that is not live at a chunk's start reads nothing that
-// chunk and its slots hold zeros: every rank holds the same accumulator,
-// so every rank decides alike.  The value buffer starts at zero and stays
-// so outside the chunks of live pixels: a launch zeroes the slots of a
-// pixel that was live at the previous chunk's start and is not now, and
-// the last launch those of a pixel live at the last chunk's start, so a
-// pixel that stays dark writes nothing.  So on one slab a frame equals
-// K10's bit for bit: only the owner's value is non-zero, and the fold runs
-// K10's operations on the same values.  A HaloScene has no filter; its
-// volume has one channel (kC = 0) or two (kC = 2), its slabs contiguous or
-// interleaved, the fetch masked or not (slab.cuh).  Bound on the H100:
-// K10's, plus each fetched pixel-slice's values written and read back (224
-// bytes at 28 values) and each pixel's accumulator across each all-reduce;
-// the 512^2 headline's 5.4 M active pixel-slices make that 1.32 GB, 0.39
-// ms at 3.35 TB/s, where the instance takes ~2.2x K10's device time
-// (PERF.md §6): the slab cell's divisions and 64-bit rows, and the
-// values' stores and loads, on top of K10's issue-bound slice.
+// everything that is not linear in the value.  So a rank sums what is
+// linear in its values before the all-reduce, in K10's operations: a
+// pixel-slice's lao_halo_values values are the raw gradient's three
+// differences (p - e_k/32 minus p + e_k/32) and the value at p (or, baked,
+// the (value, |grad|) pair at p), the AO taps' weighted sum and the shadow
+// tap, each of channel 0 (a two-channel volume that is not baked sums
+// channel 0 only).  A tap's value comes from its cell's one owner and is 0
+// on every other rank, so the all-reduced differences, value and shadow
+// tap are exactly the plain twin's (x + 0 and a + (-b) round as x and a -
+// b); the AO sum is the owners' partial sums added, which rounds as the
+// plain twin's tap-by-tap sum only where one rank owns every tap (within
+// K10's bound of it otherwise).  A frame of S slices is C = ceil(S /
+// kHaloChunk) chunks; launch e = 0 .. C folds chunk e - 1's summed values
+// in K10's order (lao_fold_values: |grad|, the AO fold, the soft shadow,
+// the 2D TF, the tints and the composite) while the pixel is live, then
+// writes chunk e's masked values (lao_slab_fetch), the wrapper
+// all-reducing the values between launches; the last launch writes the
+// frame (lao_finish).  Between launches the state holds the pixel's
+// accumulator (LAO's frame replaces the state), and its ray, rx and tap
+// directions come again from the pixel index.  A pixel that is not live at
+// a chunk's start reads nothing that chunk and its slots hold zeros: every
+// rank holds the same accumulator, so every rank decides alike.  The value
+// buffer starts at zero and stays so outside the chunks of live pixels: a
+// launch zeroes the slots of a pixel that was live at the previous chunk's
+// start and is not now (the last launch those of a pixel live at the last
+// chunk's start), so a pixel that stays dark writes nothing.  So on one
+// slab a frame equals K10's bit for bit: only the owner's value is
+// non-zero, and the fetch and the fold run K10's operations on the same
+// values.  A HaloScene has no filter; its volume has one channel (kC = 0)
+// or two (kC = 2), its slabs contiguous or interleaved, the fetch masked
+// or not (slab.cuh).
+//
+// Bound on the H100: K10's, plus each fetched pixel-slice's values written
+// and read back (48 bytes at 6 values) and each pixel's accumulator across
+// each all-reduce (PERF.md §6).  As K10's, its floor is the issue rate of
+// its instructions.  Design: one kernel a launch that folds and fetches,
+// at K10's register budget; the fetch sums the linear terms, so a
+// pixel-slice's values are 6 and not the 28 taps (the 512^2 headline's
+// chunk of values 50 MB, not 235, which the 50 MB L2 about holds); a tap's
+// slab plane and owner come from the slab's plane map (slab.cuh's
+// vpt_slab_plane, staged in shared memory at the block's start: one load a
+// tap, no integer division); rows are indexed with 32 bits where the
+// slab's table has fewer than 2^31 rows (the wrapper's choice, K10's
+// rule).  Measured in turns and not kept (PERF.md §6): a fold kernel and a
+// lean fetch kernel a chunk, 6 or 8 blocks an SM, and the seven gradient
+// rows or groups of AO taps read before their lerps (which spill).
 constexpr int kHaloChunk = 8;
+// resident blocks an SM that the register allocation must allow: K10's 7
+// (72 registers)
+constexpr int kHaloMinBlocks = 7;
 
-// the values a pixel-slice of the halo instance sums: the gradient's seven
-// (or the baked pair), the AO taps and the shadow tap
+// The halo instance's prepared arguments: VptLaoExt and the slab's plane
+// map (appended; the other instances read the VptLaoExt prefix).
+struct VptLaoHalo : VptLaoExt {
+  const int2* planes;  // (d) {slab-local plane, owner} of each global plane
+};
+
+// the values a pixel-slice of the halo instance sums: the gradient's three
+// differences and the value (or the baked pair), the AO taps' weighted sum
+// and the shadow tap
 __host__ __device__ __forceinline__ int lao_halo_values(const VptLaoExt& a) {
-  return (a.baked ? 2 : 7) + (a.lao_on ? a.n_taps : 0) + (a.soft_on ? 1 : 0);
+  return (a.baked ? 2 : 4) + (a.lao_on ? 1 : 0) + (a.soft_on ? 1 : 0);
 }
 
 // Channel 0 of the tap at (px, py, pz) from this rank's slab rows, 0 where
 // another rank owns its cell: lao_tap's lerp of the slab cell's row.
-template <bool kBf16, int kC>
+template <bool kBf16, int kC, class Row>
 __device__ __forceinline__ float lao_slab_tap(const VptLaoArgs& a,
-                                              VptSlab slab, float px,
+                                              VptSlab slab,
+                                              const int2* planes, float px,
                                               float py, float pz) {
-  const VptSlabCell c = vpt_slab_cell(a.d, a.h, a.w, slab, px, py, pz);
-  if (!c.local) return 0.0f;
-  return vpt_lerp_row_fg<kBf16>(vpt_load_rows<kBf16, kC>(a.table, c.row),
-                                c.fx, 1.0f - c.fx, c.fy, 1.0f - c.fy, c.fz,
-                                1.0f - c.fz);
+  bool local;
+  const VptCell<Row> c = vpt_slab_plane_cell<Row>(a.d, a.h, a.w, slab,
+                                                  planes, px, py, pz, &local);
+  if (!local) return 0.0f;
+  return lao_tap<kBf16, kC>(vpt_load_rows<kBf16, kC>(a.table, c.row), c);
 }
 
 // A live slice's masked values at p into out[m * n], m = 0 ..
-// lao_halo_values - 1: the gradient's cells from the shared axes (each z
-// coordinate's slab plane and owner from slab.cuh's rule), then the AO and
-// shadow taps.
-template <bool kBf16, int kC, bool kBaked>
+// lao_halo_values - 1: the gradient's differences and the value from the
+// shared axes' cells (each z coordinate's slab plane and owner from the
+// plane map), then the AO taps' weighted sum and the shadow tap, each in
+// K10's operations.
+template <bool kBf16, int kC, bool kBaked, class Row>
 __device__ __forceinline__ void lao_slab_fetch(const VptLaoArgs& a,
                                                VptSlab slab,
+                                               const int2* planes,
                                                const LaoLight& l,
                                                const float p[3],
                                                float* __restrict__ out,
-                                               long long n) {
+                                               int n) {
   int m;
   if constexpr (kBaked) {
-    const VptSlabCell c = vpt_slab_cell(a.d, a.h, a.w, slab, p[0], p[1],
-                                        p[2]);
+    bool local;
+    const VptCell<Row> c = vpt_slab_plane_cell<Row>(
+        a.d, a.h, a.w, slab, planes, p[0], p[1], p[2], &local);
     float2 rg = make_float2(0.0f, 0.0f);
-    if (c.local) rg = vpt_slab_value<kBf16, 2>(a.table, c);
+    if (local) rg = vpt_slab_value<kBf16, 2, Row>(a.table, c);
     out[0] = rg.x;
     out[n] = rg.y;
     m = 2;
   } else {
-    const LaoAxis<int64_t> ax = lao_axis<int64_t, kC>(p[0], a.w, 1, 0);
-    const LaoAxis<int64_t> ay = lao_axis<int64_t, kC>(p[1], a.h, a.w, 0);
+    const LaoAxis<Row> ax = lao_axis<Row, kC>(p[0], a.w, (Row)1, 0);
+    const LaoAxis<Row> ay = lao_axis<Row, kC>(p[1], a.h, (Row)a.w, 0);
     // the z axis's indices (stride 1), placed in the slab below
-    const LaoAxis<int64_t> az = lao_axis<int64_t, kC>(p[2], a.d, 1, 0);
-    int64_t zoff[3];
+    const LaoAxis<Row> az = lao_axis<Row, kC>(p[2], a.d, (Row)1, 0);
+    Row zoff[3];
     bool local[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      int owner;
-      zoff[j] = (int64_t)vpt_slab_z(a.d, slab, (int)az.off[j], &owner)
-                * a.h * a.w;
-      local[j] = vpt_slab_local(slab, owner);
+      zoff[j] = (Row)vpt_slab_plane(planes, slab, (int)az.off[j], &local[j])
+                * ((Row)a.h * a.w);
     }
     // the cell at axis coordinates (xj, yj, zj) (0: p - v, 1: p, 2: p +
     // v), 0 where another rank owns it
@@ -557,28 +584,33 @@ __device__ __forceinline__ void lao_slab_fetch(const VptLaoArgs& a,
                                    zoff[zj] + ay.off[yj] + ax.off[xj]),
           ax.f[xj], ax.g[xj], ay.f[yj], ay.g[yj], az.f[zj], az.g[zj]);
     };
-    // K10's order: x - v, x + v, y - v, y + v, z - v, z + v, p
-    out[0] = cell(0, 1, 1);
-    out[n] = cell(2, 1, 1);
-    out[2 * n] = cell(1, 0, 1);
-    out[3 * n] = cell(1, 2, 1);
-    out[4 * n] = cell(1, 1, 0);
-    out[5 * n] = cell(1, 1, 2);
-    out[6 * n] = cell(1, 1, 1);
-    m = 7;
+    // K10's raw gradient (x - v minus x + v, y, z) and the value at p
+    out[0] = cell(0, 1, 1) - cell(2, 1, 1);
+    out[n] = cell(1, 0, 1) - cell(1, 2, 1);
+    out[2 * n] = cell(1, 1, 0) - cell(1, 1, 2);
+    out[3 * n] = cell(1, 1, 1);
+    m = 4;
   }
   if (a.lao_on) {
+    // K10's weighted sum of the taps, in order (one tap an iteration:
+    // bench_mcm_event.py counts a slice's SASS so)
+    float inner = 0.0f;
+#pragma unroll 1
     for (int j = 0; j < a.n_taps; ++j) {
+      const float4 tap = __ldg(a.taps + j);
       float half[3];
-      lao_half(a, l.rdir, p, __ldg(a.taps + j), half);
-      out[(m + j) * n] = lao_slab_tap<kBf16, kC>(a, slab, half[0], half[1],
-                                                 half[2]);
+      lao_half(a, l.rdir, p, tap, half);
+      inner = inner + lao_slab_tap<kBf16, kC, Row>(a, slab, planes, half[0],
+                                                   half[1], half[2])
+                          * tap.z;
     }
-    m += a.n_taps;
+    out[m * n] = inner;
+    ++m;
   }
   if (a.soft_on) {
-    out[m * n] = lao_slab_tap<kBf16, kC>(a, slab, p[0] + l.soff[0],
-                                         p[1] + l.soff[1], p[2] + l.soff[2]);
+    out[m * n] = lao_slab_tap<kBf16, kC, Row>(
+        a, slab, planes, p[0] + l.soff[0], p[1] + l.soff[1],
+        p[2] + l.soff[2]);
   }
 }
 
@@ -588,7 +620,7 @@ template <bool kTfBf16, bool kBaked>
 __device__ __forceinline__ void lao_fold_values(const VptLaoArgs& a,
                                                 const LaoLight& l,
                                                 const float* __restrict__ v,
-                                                long long n, float4& acc) {
+                                                int n, float4& acc) {
   float value, grad_mag;
   int m;
   if constexpr (kBaked) {
@@ -596,39 +628,28 @@ __device__ __forceinline__ void lao_fold_values(const VptLaoArgs& a,
     grad_mag = v[n];
     m = 2;
   } else {
-    grad_mag = lao_grad_mag(v[0] - v[n], v[2 * n] - v[3 * n],
-                            v[4 * n] - v[5 * n]);
-    value = v[6 * n];
-    m = 7;
+    grad_mag = lao_grad_mag(v[0], v[n], v[2 * n]);
+    value = v[3 * n];
+    m = 4;
   }
   float lao = 0.0f;
-  if (a.lao_on) {
-    float inner = 0.0f;
-    for (int j = 0; j < a.n_taps; ++j)
-      inner = inner + v[(m + j) * n] * __ldg(a.taps + j).z;
-    lao = lao_ao(a, inner);
-    m += a.n_taps;
-  }
+  if (a.lao_on) lao = lao_ao(a, v[m++ * n]);
   const float soft = a.soft_on ? lao_soft(v[m * n], l.slen) : 0.0f;
   lao_composite<kTfBf16>(a, acc, value, grad_mag, lao, soft);
 }
 
-// resident blocks an SM that the halo instance's register allocation must
-// allow: measured at 512^2 on the headline (chip_smoke.py's lao halo line),
-// uncapped 96 registers and 5 blocks ran 2.77x K10, 6 blocks (80
-// registers, 8 spilled bytes) 2.19x, 7 blocks (72, 40 bytes) 2.26x; reads
-// issued a group of AO taps ahead took 140 registers and 2.80x
-constexpr int kHaloMinBlocks = 6;
-
-template <bool kBf16, bool kTfBf16, int kC, bool kBaked>
+template <bool kBf16, bool kTfBf16, int kC, bool kBaked, class Row>
 __global__ void __launch_bounds__(kVptTileThreads, kHaloMinBlocks)
-lao_halo_kernel(const VptLaoExt a, const VptSlab slab,
+lao_halo_kernel(const VptLaoHalo a, const VptSlab slab,
                 float* __restrict__ value, float4* __restrict__ state,
                 int chunk) {
+  extern __shared__ int2 s_planes[];
+  vpt_stage_planes(s_planes, a.planes, a.d);
+  __syncthreads();
   int x, y;
   if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
   const int i = y * a.width + x;
-  const long long n = (long long)a.width * a.height;
+  const int n = a.width * a.height;
   const int nv = lao_halo_values(a);
   const LaoRay r = lao_ray(a, make_int2(a.row0, a.full_height), x, y);
   const int slices = r.miss ? 0 : a.slices;
@@ -642,8 +663,8 @@ lao_halo_kernel(const VptLaoExt a, const VptSlab slab,
     was_live = j0 < slices && lao_live(l.t0 + (float)j0 * a.step, acc);
     for (int k = 0; was_live && k < kHaloChunk && j0 + k < slices; ++k) {
       if (!lao_live(l.t0 + (float)(j0 + k) * a.step, acc)) break;
-      lao_fold_values<kTfBf16, kBaked>(
-          a, l, value + (long long)k * nv * n + i, n, acc);
+      lao_fold_values<kTfBf16, kBaked>(a, l, value + k * nv * n + i, n,
+                                       acc);
     }
   }
   const int j0 = chunk * kHaloChunk;
@@ -651,14 +672,15 @@ lao_halo_kernel(const VptLaoExt a, const VptSlab slab,
                     && lao_live(l.t0 + (float)j0 * a.step, acc);
   if (live || was_live) {
     for (int k = 0; k < kHaloChunk; ++k) {
-      float* out = value + (long long)k * nv * n + i;
+      float* out = value + k * nv * n + i;
       const int s = j0 + k;
       const float t = l.t0 + (float)s * a.step;
       if (live && s < slices && t < 1.0f) {
         float p[3];
 #pragma unroll
         for (int q = 0; q < 3; ++q) p[q] = r.start[q] + t * r.seg[q];
-        lao_slab_fetch<kBf16, kC, kBaked>(a, slab, l, p, out, n);
+        lao_slab_fetch<kBf16, kC, kBaked, Row>(a, slab, s_planes, l, p, out,
+                                               n);
       } else {
         for (int m = 0; m < nv; ++m) out[m * n] = 0.0f;
       }
@@ -716,26 +738,31 @@ KernelExt pick_ext(int channels, int table_bf16, int tf_bf16, int baked,
                : pick_ext_count<false>(channels, table_bf16, tf_bf16, baked);
 }
 
-// The halo instance: one channel of either table type and TF type, or two
-// channels (baked or not) whose TF has the rows' type; null for anything
-// else.
-using KernelHalo = void (*)(const VptLaoExt, const VptSlab, float*, float4*,
-                            int);
-
-KernelHalo pick_halo(int channels, int table_bf16, int tf_bf16, int baked) {
+// The halo instance for a (table, TF, channels, baked, row) type: one
+// channel of either table type and TF type, or two channels (baked or
+// not) whose TF has the rows' type; null for anything else.
+template <class Row>
+const void* pick_halo_row(int channels, int table_bf16, int tf_bf16,
+                          int baked) {
   if (channels == 2 && table_bf16 == tf_bf16) {
     if (table_bf16)
-      return baked ? lao_halo_kernel<true, true, 2, true>
-                   : lao_halo_kernel<true, true, 2, false>;
-    return baked ? lao_halo_kernel<false, false, 2, true>
-                 : lao_halo_kernel<false, false, 2, false>;
+      return baked ? (const void*)lao_halo_kernel<true, true, 2, true, Row>
+                   : (const void*)lao_halo_kernel<true, true, 2, false, Row>;
+    return baked ? (const void*)lao_halo_kernel<false, false, 2, true, Row>
+                 : (const void*)lao_halo_kernel<false, false, 2, false, Row>;
   }
   if (channels != 1 || baked) return nullptr;
   if (table_bf16)
-    return tf_bf16 ? lao_halo_kernel<true, true, 0, false>
-                   : lao_halo_kernel<true, false, 0, false>;
-  return tf_bf16 ? lao_halo_kernel<false, true, 0, false>
-                 : lao_halo_kernel<false, false, 0, false>;
+    return tf_bf16 ? (const void*)lao_halo_kernel<true, true, 0, false, Row>
+                   : (const void*)lao_halo_kernel<true, false, 0, false, Row>;
+  return tf_bf16 ? (const void*)lao_halo_kernel<false, true, 0, false, Row>
+                 : (const void*)lao_halo_kernel<false, false, 0, false, Row>;
+}
+
+const void* pick_halo(int channels, int table_bf16, int tf_bf16, int baked,
+                      int rows64) {
+  return rows64 ? pick_halo_row<int64_t>(channels, table_bf16, tf_bf16, baked)
+                : pick_halo_row<int>(channels, table_bf16, tf_bf16, baked);
 }
 
 // The launch shape of a kernel on device: vpt_lao_info's values, with last
@@ -828,48 +855,53 @@ extern "C" int vpt_lao_info(int flags, int tf_bf16, int rows64, int device,
   return (int)info(kernel, kGroup, device, out);
 }
 
-// One launch of the halo instance (see lao_halo_kernel): prepared is the
-// VptLaoExt of the HaloScene, Params and resolution (table: the rank's slab
-// rows, (slab planes * H * W, 8 * channels); d, h, w the whole volume's;
-// no filter; rows64 unused: slab rows are indexed with 64 bits); the slab:
-// its index of num_slabs, the thin slabs a rank (interleave) and whether
-// the fetch is masked; value the (kHaloChunk, lao_halo_values, width *
-// height) values between the launches, zero before a frame's first;
-// state the (height, width, 4) frame, which holds the accumulator between
-// the launches; chunk e of 0 .. ceil(slices / kHaloChunk), the last
-// writing the frame.
+// Call e of the halo instance (see lao_halo_kernel), one launch: prepared
+// is the VptLaoHalo of the HaloScene, Params and resolution (table: the
+// rank's slab rows, (slab planes * H * W, 8 * channels); d, h, w the whole
+// volume's; no filter; rows64: index the slab rows with 64 bits; planes
+// the slab's (d) plane map); the slab: its index of num_slabs, the thin
+// slabs a rank (interleave) and whether the fetch is masked; value the
+// (kHaloChunk, lao_halo_values, width * height) values between the calls,
+// zero before a frame's first; state the (height, width, 4) frame, which
+// holds the accumulator between the calls; chunk e of 0 .. ceil(slices /
+// kHaloChunk), the last writing the frame.
 extern "C" int vpt_lao_halo_launch(const void* prepared, int slab_index,
                                    int num_slabs, int interleave, int masked,
                                    void* value, void* state, int chunk,
                                    void* stream) {
-  const VptLaoExt& a = *static_cast<const VptLaoExt*>(prepared);
+  const VptLaoHalo& a = *static_cast<const VptLaoHalo*>(prepared);
   VptDeviceGuard guard(a.device);
   if (a.width <= 0 || a.height <= 0) return 0;
   const int chunks = (a.slices + kHaloChunk - 1) / kHaloChunk;
   if (a.filter != 0 || a.row0 < 0 || a.full_height < a.row0 + a.height
       || chunk < 0 || chunk > chunks || num_slabs < 1 || interleave < 1
       || slab_index < 0 || slab_index >= num_slabs
-      || a.d % (num_slabs * interleave) != 0)
+      || a.d % (num_slabs * interleave) != 0 || a.planes == nullptr
+      || a.d > kVptMaxPlanes)
     return (int)cudaErrorInvalidValue;
-  const KernelHalo kernel = pick_halo(a.channels, a.table_bf16, a.tf_bf16,
-                                      a.baked);
+  const void* kernel = pick_halo(a.channels, a.table_bf16, a.tf_bf16,
+                                 a.baked, a.rows64);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
-  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
-  kernel<<<blocks, kVptTileThreads, 0, (cudaStream_t)stream>>>(
-      a, slab, static_cast<float*>(value), static_cast<float4*>(state),
-      chunk);
-  return (int)cudaGetLastError();
+  VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
+  float* values = static_cast<float*>(value);
+  float4* frame = static_cast<float4*>(state);
+  void* params[] = {(void*)&a, &slab, &values, &frame, &chunk};
+  return (int)cudaLaunchKernel(
+      kernel, dim3((unsigned)vpt_tile_blocks(a.width, a.height)),
+      dim3(kVptTileThreads), params, (size_t)a.d * sizeof(int2),
+      (cudaStream_t)stream);
 }
 
 // The launch shape of the halo instance for `flags` (1 a slab table of
-// bf16 rows, else float32; 4 two channels, 8 baked) and a packed TF table
-// of bf16 (or float32) on `device`: vpt_lao_info's values, the last the
-// slices of a fetch (kHaloChunk).  Launches nothing.
+// bf16 rows, else float32; 4 two channels, 8 baked, 16 64-bit rows) and a
+// packed TF table of bf16 (or float32) on `device`: vpt_lao_info's values
+// without the plane map's d * 8 bytes of shared memory a block, the last
+// the slices of a fetch (kHaloChunk).  Launches nothing.
 extern "C" int vpt_lao_halo_info(int flags, int tf_bf16, int device,
                                  int* out) {
   VptDeviceGuard guard(device);
-  return (int)info((const void*)pick_halo((flags & 4) ? 2 : 1, flags & 1,
-                                          tf_bf16, (flags & 8) ? 1 : 0),
-                   kHaloChunk, device, out);
+  return (int)info(
+      pick_halo((flags & 4) ? 2 : 1, flags & 1, tf_bf16, (flags & 8) ? 1 : 0,
+                (flags & 16) ? 1 : 0),
+      kHaloChunk, device, out);
 }

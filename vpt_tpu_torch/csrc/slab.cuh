@@ -24,7 +24,9 @@
 // masked: the cell is local where this rank owns it (the halo's
 // ownership-masked fetch); unmasked, every cell is local (the resident
 // machine's fetch, whose caller owns every position it samples).  Both are
-// warp-uniform arguments.
+// warp-uniform arguments.  K10's halo instance and K9's halo band fetch
+// read the same integers from the slab's plane map (vpt_slab_plane), built
+// once on the host, in place of vpt_slab_z's integer divisions.
 #pragma once
 
 #include <cstdint>
@@ -65,6 +67,50 @@ __device__ __forceinline__ bool vpt_slab_local(VptSlab slab, int owner) {
   return !slab.masked || owner == slab.index;
 }
 
+// the most z planes of a plane map: its copy in a block's shared memory
+// stays under 48 KB (kernels/_build.MAX_PLANES)
+constexpr int kVptMaxPlanes = 6144;
+
+// The slab's plane map: for each global plane z0 of the volume, {the
+// slab-local plane, the owner} that vpt_slab_z gives, built once on the
+// host (kernels/_build.slab_plane_map) and staged in shared memory by the
+// kernels that read it, so that placing a cell takes one load and no
+// division.  The same integers as vpt_slab_z; local as vpt_slab_local.
+__device__ __forceinline__ int vpt_slab_plane(const int2* planes,
+                                              VptSlab slab, int z0,
+                                              bool* local) {
+  const int2 m = planes[z0];
+  *local = vpt_slab_local(slab, m.y);
+  return m.x;
+}
+
+// Copy the d planes of a plane map into shared memory, the block's threads
+// striding over them; the caller synchronises the block before reading.
+__device__ __forceinline__ void vpt_stage_planes(int2* s_planes,
+                                                 const int2* planes, int d) {
+  for (int z = threadIdx.x; z < d; z += blockDim.x) s_planes[z] = planes[z];
+}
+
+// vpt_slab_cell through a plane map: the same cell, fractions and local
+// flag, its row of the slab's table in Row (int where the table has fewer
+// than 2^31 rows, as ray.cuh's vpt_cell).
+template <class Row>
+__device__ __forceinline__ VptCell<Row> vpt_slab_plane_cell(
+    int d, int h, int w, VptSlab slab, const int2* planes, float px,
+    float py, float pz, bool* local) {
+  const float ux = vpt_clip(px * (float)w - 0.5f, 0.0f, (float)(w - 1));
+  const float uy = vpt_clip(py * (float)h - 0.5f, 0.0f, (float)(h - 1));
+  const float uz = vpt_clip(pz * (float)d - 0.5f, 0.0f, (float)(d - 1));
+  const float ix = floorf(ux), iy = floorf(uy), iz = floorf(uz);
+  const int zloc = vpt_slab_plane(planes, slab, vpt_index(iz), local);
+  VptCell<Row> c;
+  c.row = ((Row)zloc * h + vpt_index(iy)) * w + vpt_index(ix);
+  c.fx = ux - ix;
+  c.fy = uy - iy;
+  c.fz = uz - iz;
+  return c;
+}
+
 __device__ __forceinline__ VptSlabCell vpt_slab_cell(int d, int h, int w,
                                                      VptSlab slab, float px,
                                                      float py, float pz) {
@@ -86,15 +132,22 @@ __device__ __forceinline__ VptSlabCell vpt_slab_cell(int d, int h, int w,
 // corner table, kC = 0 (one channel; channel 1 is 0) or 2: ray.cuh's row
 // read and lerp chain, as the whole-table fetch runs them on the global
 // cell's row, which holds the same corners.
+template <bool kBf16, int kC, class Row>
+__device__ __forceinline__ float2 vpt_slab_value(const void* table,
+                                                 const VptCell<Row>& cell) {
+  if constexpr (kC == 2) {
+    return vpt_lerp_rg<kBf16, 2>(vpt_load_rows<kBf16, 2>(table, cell.row),
+                                 cell);
+  } else {
+    return make_float2(
+        vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(table, cell.row), cell),
+        0.0f);
+  }
+}
+
 template <bool kBf16, int kC>
 __device__ __forceinline__ float2 vpt_slab_value(const void* table,
                                                  const VptSlabCell& c) {
   const VptCell<int64_t> cell = {c.row, c.fx, c.fy, c.fz};
-  if constexpr (kC == 2) {
-    return vpt_lerp_rg<kBf16, 2>(vpt_load_rows<kBf16, 2>(table, c.row),
-                                 cell);
-  } else {
-    return make_float2(
-        vpt_lerp_row<kBf16>(vpt_load_row<kBf16>(table, c.row), cell), 0.0f);
-  }
+  return vpt_slab_value<kBf16, kC, int64_t>(table, cell);
 }

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import pathlib
 import struct
@@ -141,22 +142,19 @@ SIGNATURES = {
     # flags (1 bf16, 2 ext of one channel, 4 of two), TF mode, steps, disk
     # taps, device, out
     "vpt_dos_sweep_info": [_I, _I, _I, _I, _I, _P],
-    # prepared VptDosArgs of the whole image; the band's color and
-    # occlusion, ext, depth, max depth, slice distance, offsets; slice,
-    # row0, band rows, ext row0, ext rows; stream
-    "vpt_dos_band": [_P] * 8 + [_I] * 5 + [_P],
+    # a prepared VptDosBandFrame
+    "vpt_dos_band_check": [_P],
+    # a prepared VptDosBandFrame; ext, ext row0, ext rows, slice; stream
+    "vpt_dos_band_slice": [_P, _P, _I, _I, _I, _P],
+    # a prepared VptDosBandFrame of a HaloScene; slice; stream
+    "vpt_dos_band_fetch": [_P, _I, _P],
     # prepared VptDosExt of a slab; color, occlusion, scratch occlusion,
     # depth, max depth, slice distance, offsets; slab index, slabs,
     # interleave, masked; value; k0, count, stage, advance; stream
     "vpt_dos_halo_launch": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
-    # stage, flags (1 bf16, 4 two channels), TF mode, disk taps, device,
-    # out
+    # stage (0 fetch, 1 fold, 2 a band's fetch), flags (1 bf16, 4 two
+    # channels), TF mode, disk taps, device, out
     "vpt_dos_halo_info": [_I, _I, _I, _I, _I, _P],
-    # prepared VptDosExt of a slab and the whole image; the band's color
-    # and occlusion, ext, depth, max depth, slice distance, offsets; slab
-    # index, slabs, interleave, masked; value; slice, k0, count, stage,
-    # row0, band rows, ext row0, ext rows; stream
-    "vpt_dos_halo_band": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 8 + [_P],
     # prepared VptLaoArgs, state; stream
     "vpt_lao_launch": [_P, _P, _P],
     # prepared VptLaoArgs, state, counts; stream
@@ -164,11 +162,11 @@ SIGNATURES = {
     # flags (1 bf16 corner table, 2 ext of one channel, 4 of two, 8
     # baked), bf16 TF table, 64-bit rows, device, out
     "vpt_lao_info": [_I, _I, _I, _I, _P],
-    # prepared VptLaoExt of a slab; slab index, slabs, interleave, masked;
+    # prepared VptLaoHalo of a slab; slab index, slabs, interleave, masked;
     # value, state; chunk; stream
     "vpt_lao_halo_launch": [_P, _I, _I, _I, _I, _P, _P, _I, _P],
-    # flags (1 bf16 slab rows, 4 two channels, 8 baked), bf16 TF table,
-    # device, out
+    # flags (1 bf16 slab rows, 4 two channels, 8 baked, 16 64-bit rows),
+    # bf16 TF table, device, out (11 ints)
     "vpt_lao_halo_info": [_I, _I, _I, _P],
 }
 
@@ -340,7 +338,7 @@ class LastScene:
         fields = self._fields(scene)
         last = self._last
         if last is not None and last.scene() is scene and last.key == key \
-                and all(a is b for a, b in zip(last.fields, fields)):
+                and all(map(operator.is_, last.fields, fields)):
             return last.value
         value = self._prepare(scene, key)
         self._last = types.SimpleNamespace(
@@ -508,6 +506,49 @@ def slab_scene(scene, use_skip: bool = False):
         row.data_ptr(), row.shape[0], tf1d.mode_code(scene.tf_mxu),
         env.data_ptr(), eh, ew, mvp.data_ptr(),
         None if tf_table is None else tf_table.data_ptr(), th, channels)
+
+
+#: the most z planes of a slab's plane map (``kMaxPlanes``: its copy in a
+#: block's shared memory stays under 48 KB)
+MAX_PLANES = 6144
+
+
+def slab_plane_map(depth: int, num_slabs: int, slab_index: int,
+                   interleave: int = 1):
+    """The slab's plane map (``csrc/slab.cuh``'s ``vpt_slab_plane``): a
+    (depth, 2) int32 tensor on the CPU whose row z0 is (the slab-local
+    plane, the owning slab) of the volume's plane z0, ``vpt_slab_z``'s
+    integers: contiguous slabs (interleave 1) of ds = depth / S planes give
+    (clip(z0 − k·ds, 0, ds − 1), clip(z0 / ds, 0, S − 1)); ``interleave`` m
+    thin slabs of thin_ds = depth / (m·S) give ((t / S)·(thin_ds + 1) + z0
+    − t·thin_ds, t mod S) for t = z0 / thin_ds.  A kernel places a cell
+    with one load of it in place of those divisions."""
+    if not 0 < depth <= MAX_PLANES:
+        raise ValueError(f"a slab's plane map holds 1 to {MAX_PLANES} "
+                         f"planes, not {depth}")
+    if num_slabs < 1 or interleave < 1 or depth % (num_slabs * interleave) \
+            or not 0 <= slab_index < num_slabs:
+        raise ValueError(f"slab {slab_index} of {num_slabs} (interleave "
+                         f"{interleave}) of {depth} planes")
+    rows = []
+    for z0 in range(depth):
+        if interleave == 1:
+            ds = depth // num_slabs
+            rows.append((min(max(z0 - slab_index * ds, 0), ds - 1),
+                         min(max(z0 // ds, 0), num_slabs - 1)))
+        else:
+            thin_ds = depth // (interleave * num_slabs)
+            thin = z0 // thin_ds
+            rows.append(((thin // num_slabs) * (thin_ds + 1)
+                         + (z0 - thin * thin_ds), thin % num_slabs))
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def scene_plane_map(scene):
+    """:func:`slab_plane_map` of a HaloScene, on its slab table's device."""
+    return slab_plane_map(scene.volume_shape[0], scene.num_slabs,
+                          scene.slab_index, scene.interleave).to(
+        scene.slab_packed.device)
 
 
 def environment_map(scene):

@@ -40,13 +40,18 @@ halo instance on the card (:func:`halo_sweep_frame`); its plain twin is
 :func:`sweep_frame_plain` over the same scene.  A band of rows
 (:func:`band_slice`, a slice a launch of the band instance) over a
 HaloScene runs the band's halo instance, whose plain twin is
-:func:`band_slice_plain` over the same scene.
+:func:`band_slice_plain` over the same scene.  A band's frame is checked
+and prepared once (:func:`band_frame`, a ``VptDosBandFrame`` holding the
+state's pointers), so that a slice's call passes the slice and the
+previous occlusion only; the halo band's fetch places its cells through
+the slab's plane map (``_build.slab_plane_map``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -165,6 +170,28 @@ class _Args(ctypes.Structure):
                    ("th", "channels", "filter")])
 
 
+class _HaloArgs(_Args):
+    """``VptDosHalo``: ``VptDosExt`` and the slab's plane map."""
+    _fields_ = [("planes", ctypes.c_void_p)]
+
+
+class _BandFrameArgs(ctypes.Structure):
+    """``VptDosBandFrame`` of ``csrc/dos_sweep.cu``: the scene's prepared
+    arguments, the band (``VptDosBand``: the state's pointers, the slice,
+    the band's rows and the previous occlusion's, the last four set by each
+    slice's call), the band's values and the slab (over a HaloScene), and
+    the frame's active slices."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in
+                 ("args", "color", "occlusion", "ext", "depth", "max_depth",
+                  "slice_distance", "offsets")]
+                + [(name, ctypes.c_int) for name in
+                   ("slice", "row0", "band_h", "ext_row0", "ext_h")]
+                + [("value", ctypes.c_void_p)]
+                + [(name, ctypes.c_int) for name in
+                   ("slab_index", "num_slabs", "interleave", "masked",
+                    "halo", "n_active")])
+
+
 def _fields(scene):
     return (scene.volume_packed, scene.transfer_1d, scene.mvp_inverse,
             scene.projection, scene.tf_mxu, scene.transfer_packed,
@@ -210,6 +237,7 @@ def _prepare(scene, key):
         color_shape=torch.Size((height, width, 4)),
         occlusion_shape=torch.Size((height, width)),
         table_shape=(params.steps, _HEAD + 4 * params.samples), scratch={},
+        band_frames={},
         launch=_build.library().vpt_dos_frame if device >= 0 else None)
 
 
@@ -280,91 +308,132 @@ def band_slice(state, ext, ext_row0: int, scene, params, k: int, window,
     occlusion, (E, W) float32 from the image's row ``ext_row0``, covering
     the band (``dos.render_band`` builds it); the state's depth is the
     frame's first slice's (``dos.render_band`` advances it after the
-    frame).  Over a HaloScene on the card the band's halo instance runs
-    (:func:`_halo_band_slice`), which takes the frame's active slices
-    ``n_active``."""
-    color, occlusion = state["color"], state["occlusion"]
-    if not color.is_cuda:
+    frame).  Over a HaloScene on the card the band's halo instance runs,
+    which takes the frame's active slices ``n_active``.  The slice of
+    :func:`band_frame`'s frame of the band: a frame is prepared once and
+    found again while the band's state tensors stay the same."""
+    if not state["color"].is_cuda:
         band_slice_plain(state, ext, ext_row0, scene, params, k, window)
         return
-    global BAND_LAUNCHES
-    from .. import sampling
+    band_frame(state, scene, params, window, n_active).slice(ext, ext_row0,
+                                                             k)
 
+
+class BandFrame:
+    """A band's frame on the card, prepared and checked once
+    (:func:`band_frame`): a ``VptDosBandFrame`` that holds the scene's
+    prepared arguments and the band state's pointers, so that a slice's
+    call passes the slice and the previous occlusion only."""
+
+    def __init__(self, p, state, scene, row0, band_h, width, n_active,
+                 halo):
+        # the scene weakly: the preparation holds this frame
+        self.p, self.scene, self.halo = p, weakref.ref(scene), halo
+        self.tensors = tuple(state[key] for key in _BAND_KEYS)
+        self.width, self.n_active = width, n_active
+        self.device = p.device
+        value = None
+        if halo:
+            # a band's own values: bands of one process interleave their
+            # slices
+            value = p.band_values.get((row0, band_h))
+            if value is None:
+                value = p.band_values[row0, band_h] = torch.empty(
+                    HALO_CHUNK * band_h * width * p.args.channels,
+                    dtype=torch.float32, device=p.value.device)
+        self.value = value
+        self.args = _BandFrameArgs(
+            p.address, *(t.data_ptr() for t in self.tensors[:2]), None,
+            *(t.data_ptr() for t in self.tensors[2:]), 0, row0, band_h, 0,
+            0, None if value is None else value.data_ptr(),
+            *((scene.slab_index, scene.num_slabs, scene.interleave,
+               int(scene.collective)) if halo else (0, 0, 0, 0)),
+            int(halo), n_active)
+        self.address = ctypes.addressof(self.args)
+        lib = _build.library()
+        _build.check("vpt_dos_band_check", lib.vpt_dos_band_check(
+            self.address))
+        self._slice, self._fetch = lib.vpt_dos_band_slice, \
+            lib.vpt_dos_band_fetch
+
+    def holds(self, state, n_active) -> bool:
+        """Whether this frame is the one of ``state`` and ``n_active``."""
+        t = self.tensors
+        return (self.n_active == n_active and state["color"] is t[0]
+                and state["occlusion"] is t[1] and state["depth"] is t[2]
+                and state["max_depth"] is t[3]
+                and state["slice_distance"] is t[4]
+                and state["offsets"] is t[5])
+
+    def slice(self, ext, ext_row0: int, k: int):
+        """Slice ``k``: ``ext`` as :func:`band_slice`'s; over a HaloScene
+        at a chunk's first slice the fetch and the all-reduce before it."""
+        global BAND_LAUNCHES, HALO_BAND_LAUNCHES
+        if ext.dtype is not torch.float32 or ext.dim() != 2 \
+                or ext.shape[1] != self.width or not ext.is_contiguous() \
+                or ext.get_device() != self.device:
+            raise ValueError(f"the DOS extended occlusion must be a "
+                             f"contiguous float32 (E, {self.width}) tensor "
+                             "on the state's device")
+        stream = _build.current_stream(self.device)
+        if self.halo and k % HALO_CHUNK == 0:
+            _build.check("vpt_dos_band_fetch",
+                         self._fetch(self.address, k, stream))
+            HALO_BAND_LAUNCHES += 1
+            self.scene().reduce_(self.value)
+        _build.check("vpt_dos_band_slice", self._slice(
+            self.address, ext.data_ptr(), ext_row0, ext.shape[0], k, stream))
+        if self.halo:
+            HALO_BAND_LAUNCHES += 1
+        else:
+            BAND_LAUNCHES += 1
+
+
+#: the band state's tensors a band frame points into, in its order
+_BAND_KEYS = ("color", "occlusion", "depth", "max_depth", "slice_distance",
+              "offsets")
+
+
+def band_frame(state, scene, params, window, n_active=None) -> BandFrame:
+    """The :class:`BandFrame` of a band's CUDA ``state`` (``window`` =
+    (row0, H) places its rows in the image) over ``scene``: the one this
+    band last prepared while it holds the same state tensors, the scene's
+    same preparation and ``n_active``, else one checked and prepared now.
+    A HaloScene's band takes the frame's active slices ``n_active`` (a
+    fetch and an all-reduce a chunk of HALO_CHUNK of them, a fold each);
+    the band instance runs any of the frame's ``steps`` slices."""
+    color = state["color"]
     band_h, width = color.shape[:2]
-    row0, height = sampling.row_window(window, band_h)
+    row0, height = (0, band_h) if window is None \
+        else (int(window[0]), int(window[1]))
     halo = _build.is_halo(scene)
     p = (_halo_cache if halo else _scene_cache).get(
         scene, (params, height, width))
+    if not halo:
+        n_active = params.steps
+    frame = p.band_frames.get((row0, band_h))
+    if frame is not None and frame.holds(state, n_active):
+        return frame
+    from .. import sampling
+
+    row0, height = sampling.row_window(window, band_h)
+    if halo and (n_active is None or not 0 <= n_active <= params.steps):
+        raise ValueError("a HaloScene's band frame takes the frame's active "
+                         "slices (dos.render_band counts them)")
     device = color.device
     if color.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{device}")
     _build.check_image(color, (band_h, width, 4), device, "the DOS color")
-    _build.check_image(occlusion, (band_h, width), device,
+    _build.check_image(state["occlusion"], (band_h, width), device,
                        "the DOS occlusion")
     _build.check_aligned(color, "the DOS color")
-    _check_tensor(ext, (ext.shape[0], width), device, "extended occlusion")
-    if not (ext_row0 <= row0 and row0 + band_h <= ext_row0 + ext.shape[0]):
-        raise ValueError(f"the extended occlusion's rows [{ext_row0}, "
-                         f"{ext_row0 + ext.shape[0]}) do not cover the "
-                         f"band [{row0}, {row0 + band_h})")
-    if not 0 <= k < params.steps:
-        raise ValueError(f"slice {k} of a {params.steps}-slice frame")
-    offsets = state["offsets"]
-    _check_tensor(offsets, (params.samples, 2), device, "offsets")
-    scalars = [state[key] for key in ("depth", "max_depth",
-                                      "slice_distance")]
-    for key, value in zip(("depth", "max_depth", "slice_distance"), scalars):
-        _check_tensor(value, (), device, key)
-    pointers = (color.data_ptr(), occlusion.data_ptr(), ext.data_ptr(),
-                *(v.data_ptr() for v in scalars), offsets.data_ptr())
-    if halo:
-        _halo_band_slice(p, pointers, scene, k, n_active, row0, band_h,
-                         ext_row0, ext.shape[0])
-        return
-    err = _build.library().vpt_dos_band(
-        p.address, *pointers, k, row0, band_h, ext_row0, ext.shape[0],
-        _build.current_stream(p.device))
-    if err:
-        _build.check("vpt_dos_band", err)
-    BAND_LAUNCHES += 1
-
-
-def _halo_band_slice(p, pointers, scene, k, n_active, row0, band_h,
-                     ext_row0, ext_h):
-    """Slice ``k`` of a HaloScene's band on the card: at the first slice of
-    each chunk of up to HALO_CHUNK of the frame's ``n_active`` active
-    slices, a launch of the halo fetch over the band's pixels (this rank's
-    masked values of the chunk's slices) and one all-reduce of them
-    (``HaloScene.reduce_``); then a launch of the halo band fold, the band
-    instance's slice from the summed value.  So a frame is ceil(n / 8)
-    fetches and all-reduces and n folds; on one slab each slice equals the
-    band instance's bit for bit."""
-    global HALO_BAND_LAUNCHES
-    if n_active is None or not 0 <= k < n_active:
-        raise ValueError("a HaloScene's band slice takes the frame's active "
-                         "slices (dos.render_band counts them)")
-    k0 = k - k % HALO_CHUNK
-    count = min(HALO_CHUNK, n_active - k0)
-    # a band's own values: bands of one process interleave their slices
-    value = p.band_values.get((row0, band_h))
-    if value is None:
-        value = p.band_values[row0, band_h] = torch.empty(
-            HALO_CHUNK * band_h * p.args.width * p.args.channels,
-            dtype=torch.float32, device=p.value.device)
-    stream = _build.current_stream(p.device)
-    lib = _build.library()
-    head = (p.address, *pointers, scene.slab_index, scene.num_slabs,
-            scene.interleave, int(scene.collective), value.data_ptr(), k,
-            k0, count)
-    tail = (row0, band_h, ext_row0, ext_h, stream)
-    if k == k0:
-        _build.check("vpt_dos_halo_band",
-                     lib.vpt_dos_halo_band(*head, 0, *tail))
-        HALO_BAND_LAUNCHES += 1
-        scene.reduce_(value)
-    _build.check("vpt_dos_halo_band", lib.vpt_dos_halo_band(*head, 1, *tail))
-    HALO_BAND_LAUNCHES += 1
+    _check_tensor(state["offsets"], (params.samples, 2), device, "offsets")
+    for key in ("depth", "max_depth", "slice_distance"):
+        _check_tensor(state[key], (), device, key)
+    frame = p.band_frames[row0, band_h] = BandFrame(
+        p, state, scene, row0, band_h, width, n_active, halo)
+    return frame
 
 
 def _halo_fields(scene):
@@ -395,21 +464,23 @@ def _prepare_halo(scene, key):
     blocks = occ["blocks_per_sm"] * occ["sms"]
     if blocks == 0:
         raise RuntimeError("the DOS halo fold fits no block on an SM")
-    args = _Args(table, row, mvp, projection.data_ptr(), bf16, d, h, w, tw,
-                 tf_mode, width, height, params.samples, params.steps,
-                 float(np.float32(params.extinction)),
-                 float(dos._tan_aperture(params, scene.device)), blocks,
-                 dev.index, tf_table, th, channels, 0)
+    planes = _build.scene_plane_map(scene)
+    args = _HaloArgs(table, row, mvp, projection.data_ptr(), bf16, d, h, w,
+                     tw, tf_mode, width, height, params.samples,
+                     params.steps, float(np.float32(params.extinction)),
+                     float(dos._tan_aperture(params, scene.device)), blocks,
+                     dev.index, tf_table, th, channels, 0,
+                     planes.data_ptr())
     n = height * width
     return _build.Prepared(
-        tensors=(*tensors, projection), args=args,
+        tensors=(*tensors, projection, planes), args=args,
         address=ctypes.addressof(args), device=dev.index,
         color_shape=torch.Size((height, width, 4)),
         occlusion_shape=torch.Size((height, width)),
         scratch=torch.empty((height, width), dtype=torch.float32,
                             device=dev),
         value=torch.empty(HALO_CHUNK * n * channels, dtype=torch.float32,
-                          device=dev), band_values={},
+                          device=dev), band_values={}, band_frames={},
         launch=_build.library().vpt_dos_halo_launch)
 
 
@@ -473,9 +544,10 @@ def halo_sweep_frame(state, scene, params):
 def halo_occupancy(stage: int, table_dtype, tf_mode: int = 0,
                    samples: int = 8, device: int = 0,
                    channels: int = 1) -> dict:
-    """The launch shape of the halo instance's fetch (``stage`` 0) or
-    cooperative fold (1) for a chunk of HALO_CHUNK slices, as
-    :func:`occupancy`'s.  Launches nothing."""
+    """The launch shape of the halo instance's fetch (``stage`` 0), its
+    cooperative fold (1) or a band's fetch through the plane map (2; the
+    map's D·8 bytes of shared memory a block come on top) for a chunk of
+    HALO_CHUNK slices, as :func:`occupancy`'s.  Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
     flags = int(table_dtype == torch.bfloat16) | 4 * (channels == 2)
     _build.check("vpt_dos_halo_info", _build.library().vpt_dos_halo_info(

@@ -34,8 +34,10 @@ Corner rows are indexed with 32-bit integers in tables of fewer than
 A frame over a ``parallel.halo.HaloScene`` (a rank's z slab) runs the
 kernel's halo instance on the card (:func:`halo_lao_frame`): ceil(slices /
 :data:`HALO_CHUNK`) + 1 launches around an all-reduce of each chunk's
-masked tap values; its plain twin is :func:`lao_frame_plain` over the same
-scene.
+masked tap values, each tap placed in the slab through the slab's plane
+map (``_build.slab_plane_map``) and its row indexed with 32 bits below
+:data:`ROWS32` slab rows; its plain twin is :func:`lao_frame_plain` over
+the same scene.
 """
 
 from __future__ import annotations
@@ -87,6 +89,11 @@ class _Args(ctypes.Structure):
                    ("channels", "filter", "baked", "row0", "full_height")])
 
 
+class _HaloArgs(_Args):
+    """``VptLaoHalo``: ``VptLaoExt`` and the slab's plane map."""
+    _fields_ = [("planes", ctypes.c_void_p)]
+
+
 def _fields(scene):
     return (scene.volume_packed, scene.transfer_packed, scene.mvp_inverse,
             scene.filter)
@@ -130,7 +137,8 @@ def _frame_inputs(scene, params, height, width, row0, full_height):
 
 
 def _args(table, bf16, d, h, w, mvp, tf, th, tw, params, height, width,
-          inputs, device, rows64, channels, filt, row0, full_height):
+          inputs, device, rows64, channels, filt, row0, full_height,
+          cls=_Args):
     """The ``VptLaoExt`` of a frame: the scene's pointers and sizes, the
     Params, the resolution and its window, and :func:`_frame_inputs`."""
     rx, rconst, light, taps, n_taps = inputs
@@ -138,7 +146,7 @@ def _args(table, bf16, d, h, w, mvp, tf, th, tw, params, height, width,
     def f32(v):
         return float(np.float32(v))
 
-    return _Args(table, tf.data_ptr(), mvp, rx.data_ptr(), taps.data_ptr(),
+    return cls(table, tf.data_ptr(), mvp, rx.data_ptr(), taps.data_ptr(),
                  bf16, int(tf.dtype == torch.bfloat16), d, h, w, tw, th,
                  width, height, params.slices, n_taps,
                  params.num_lao_samples, int(params.local_ambient_occlusion),
@@ -245,23 +253,21 @@ def _halo_fields(scene):
 
 def halo_values(params) -> int:
     """The values a pixel-slice of the halo instance sums
-    (``lao_halo_values``): the raw gradient's six taps and the value (with
-    ``baked_gradient`` the (value, |∇|) pair), the AO taps and the shadow
-    tap; a two-channel volume sums channel 0 of each, or the baked
-    pair."""
-    from ..renderers import lao
-
-    return (2 if params.baked_gradient else 7) \
-        + (len(lao.lao_taps(params)) if params.local_ambient_occlusion
-           else 0) + int(params.soft_shadows)
+    (``lao_halo_values``): the raw gradient's three differences and the
+    value (with ``baked_gradient`` the (value, |∇|) pair), the AO taps'
+    weighted sum and the shadow tap; a two-channel volume sums channel 0
+    of each, or the baked pair."""
+    return (2 if params.baked_gradient else 4) \
+        + int(params.local_ambient_occlusion) + int(params.soft_shadows)
 
 
 def _prepare_halo(scene, key):
     """What every halo frame of ``key`` = (params, height, width, row0,
-    full_height) takes of a HaloScene: the ``VptLaoExt`` of its slab rows
-    (no filter) and the chunk's values, (HALO_CHUNK, values, n) float32,
-    zero before the first frame (the kernel keeps them so between
-    frames)."""
+    full_height) takes of a HaloScene: the ``VptLaoHalo`` of its slab rows
+    (no filter; 32-bit rows below :data:`ROWS32` slab rows, else 64) and
+    its plane map (``_build.slab_plane_map``), and the chunk's values,
+    (HALO_CHUNK, values, n) float32, zero before the first frame (the
+    kernel keeps them so between frames)."""
     from ..renderers import lao
 
     params, height, width, row0, full_height = key
@@ -269,6 +275,10 @@ def _prepare_halo(scene, key):
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the LAO kernel indexes pixels "
                          "with 32-bit integers")
+    values = HALO_CHUNK * halo_values(params) * height * width
+    if values >= 2 ** 31:
+        raise ValueError(f"{height}x{width}: the LAO halo instance indexes "
+                         f"its {values} chunk values with 32-bit integers")
     tensors, (table, bf16, d, h, w, _, _, _, _, _, _, mvp, _, _,
               channels) = _build.slab_scene(scene)
     tf = _transfer_table(scene)
@@ -278,14 +288,17 @@ def _prepare_halo(scene, key):
     th, tw = scene.transfer.shape[:2]
     dev = tensors[0].device
     device = dev.index if dev.type == "cuda" else -1
+    planes = _build.scene_plane_map(scene)
     inputs = _frame_inputs(scene, params, height, width, row0, full_height)
+    rows64 = int(tensors[0].shape[0] >= ROWS32)
     args = _args(table, bf16, d, h, w, mvp, tf, th, tw, params, height,
-                 width, inputs, device, 0, channels, 0, row0, full_height)
+                 width, inputs, device, rows64, channels, 0, row0,
+                 full_height, _HaloArgs)
+    args.planes = planes.data_ptr()
     rx, _, _, taps, _ = inputs
-    value = torch.zeros(HALO_CHUNK * halo_values(params) * height * width,
-                        dtype=torch.float32, device=dev)
+    value = torch.zeros(values, dtype=torch.float32, device=dev)
     return _build.Prepared(
-        tensors=(*tensors, tf, rx, taps), args=args,
+        tensors=(*tensors, tf, rx, taps, planes), args=args,
         address=ctypes.addressof(args), device=device,
         shape=torch.Size((height, width, 4)),
         chunks=-(-params.slices // HALO_CHUNK), value=value,
@@ -298,17 +311,19 @@ _halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
 def halo_lao_frame(state, scene, params, window=None):
     """One LAO frame over a HaloScene on the card, written into CUDA
     ``state``: ``C = ceil(slices / HALO_CHUNK)`` all-reduces
-    (``HaloScene.reduce_`` of the chunk's masked tap values: the seven of
-    the raw gradient and the value, or the baked pair, the AO taps and the
-    shadow tap of each of HALO_CHUNK slices, where vpt_tpu and the plain
+    (``HaloScene.reduce_`` of the chunk's masked values of each of
+    HALO_CHUNK slices: the raw gradient's three differences and the value,
+    or the baked pair, the AO taps' weighted sum and the shadow tap, each
+    summed over the rank's own taps first, where vpt_tpu and the plain
     twin sum each tap's fetch a slice) between ``C + 1`` launches of the
     halo instance: launch e folds chunk e − 1's summed values (K10's
     fold) and writes chunk e's masked values from this rank's slab rows;
     the state holds the accumulator between launches, and the last writes
     the frame.  Equal bit for bit to :func:`lao_frame` on the whole scene:
-    only the owner's value is non-zero.  The slabs may be interleaved, the
-    fetch unmasked, the volume two-channel (channel 0, or the baked
-    pair).  ``window`` as in :func:`lao_frame`."""
+    only the owner's value is non-zero; over several slabs the AO sum adds
+    the owners' partial sums (the rest is exact).  The slabs may be
+    interleaved, the fetch unmasked, the volume two-channel (channel 0, or
+    the baked pair).  ``window`` as in :func:`lao_frame`."""
     global HALO_LAUNCHES
     from .. import sampling
 
@@ -361,13 +376,22 @@ def occupancy(table_dtype, tf_dtype=None, rows64: bool = False,
 
 
 def halo_occupancy(table_dtype, tf_dtype=None, device: int = 0,
-                   channels: int = 1, baked: bool = False) -> dict:
-    """The halo instance's launch shape, as :func:`occupancy`'s (``group``:
-    the slices of a fetch, HALO_CHUNK).  Launches nothing."""
+                   channels: int = 1, baked: bool = False,
+                   rows64: bool = False) -> dict:
+    """The halo instance's launch shape, as :func:`occupancy`'s
+    (``group``: the slices of a fetch, HALO_CHUNK; the plane map's D·8
+    bytes of shared memory a block come on top), with 32-bit (or,
+    ``rows64``, 64-bit) slab rows.  Launches nothing."""
     tf_dtype = table_dtype if tf_dtype is None else tf_dtype
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
     flags = int(table_dtype == torch.bfloat16) | 4 * (channels == 2) \
-        | 8 * bool(baked)
+        | 8 * bool(baked) | 16 * bool(rows64)
     _build.check("vpt_lao_halo_info", _build.library().vpt_lao_halo_info(
         flags, int(tf_dtype == torch.bfloat16), device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))
+
+
+def halo_frame_launches(params) -> int:
+    """The halo instance's launches a frame of ``params``: ceil(slices /
+    HALO_CHUNK) + 1."""
+    return -(-params.slices // HALO_CHUNK) + 1

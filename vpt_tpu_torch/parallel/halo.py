@@ -37,8 +37,9 @@ contiguous or interleaved slabs, masked or not:
   instance (``dos_sweep.band_slice``): a fetch of the band and an
   all-reduce a chunk of 8 active slices, a fold a slice;
 - LAO, K10's (``kernels/lao_march.halo_lao_frame``): ceil(slices / 8) + 1
-  launches, one all-reduce a chunk of 8 slices' 28 tap values (23 with
-  the baked gradient).
+  launches, one all-reduce a chunk of 8 slices' 6 values (4 with the
+  baked gradient): the gradient's differences, the value, the AO taps'
+  weighted sum and the shadow tap, each rank's taps summed first.
 
 The differentiable masked fetch is ``sampling.SlabCornerFetch`` (K3's slab
 instance forward, K4 backward); :class:`SpaceSum` is the all-reduce as an

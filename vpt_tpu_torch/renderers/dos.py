@@ -343,12 +343,20 @@ def render_band(state, scene: Scene, params: Params, window, extend):
     host reads the active-slice count once a frame.  Over a
     ``parallel.halo.HaloScene`` (a rank's z slab) the band instance's halo
     instance runs: a fetch and an all-reduce over ``space`` a chunk of 8
-    active slices (``dos_sweep.band_slice``)."""
+    active slices.  On the card the band's frame is checked and prepared
+    once (``dos_sweep.band_frame``), and a slice passes only the previous
+    occlusion and its index."""
     n_active = active_slices(state, params)
+    if state["color"].is_cuda:
+        run = dos_sweep.band_frame(state, scene, params, window,
+                                   n_active).slice
+    else:
+        def run(ext, ext_row0, k):
+            dos_sweep.band_slice_plain(state, ext, ext_row0, scene, params, k,
+                                       window)
     for k in range(n_active):
         ext, ext_row0 = extend(state["occlusion"])
-        dos_sweep.band_slice(state, ext, ext_row0, scene, params, k, window,
-                             n_active)
+        run(ext, ext_row0, k)
     state["depth"] = state["depth"] \
         + float(n_active) * state["slice_distance"]
     return state
