@@ -7,7 +7,7 @@ row bands, photons resident on their slab's rank, the config-4 recipe)
 and its three demos once on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --launch-path [--part frames|fetch|sweep] TREE ...
+    python3 chip_smoke.py --launch-path [--part frames|fetch|sweep|gloo] TREE ...
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit.  With ``--launch-path`` it times the launch paths of the
@@ -15,7 +15,8 @@ TF-lookup and corner-fetch kernels (``--part fetch``), of the march, ISO
 shade and MCS kernels (``--part frames``), of all five (the default), or
 the DOS and LAO paths (``--part sweep``: a DOS sweep on the host clock and
 on the card, the host µs of a DOS frame call, a LAO frame's loop and
-device time) of each given
+device time; ``--part gloo``: the K8 halo frame's call on two gloo ranks
+of the card at each batch of :data:`GLOO_BATCHES`) of each given
 checkout of the port (:func:`launch_path_tree`, one process a tree) and
 does nothing else; an older checkout goes under the git-ignored
 ``build/``, e.g.
@@ -104,7 +105,8 @@ prints no result:
    whole-scene kernels', 2 slabs' (contiguous, interleave 2) within the
    kernels' bounds of the plain twins, and each timed against its
    whole-scene kernel in turns with its bound, :func:`march_halo_frame_bytes`
-   and its kin);
+   and its kin; K8's and K9's rows with their launches, host reads and
+   all-reduces a frame, K8's call at each batch of 2, 4 and 8);
 10. each renderer through the user's entry points at 512²
    (``make_renderer``, 10 frames, a DOS sweep, ``display``, the
    ``reinhard`` tone mapper) on the headline scene, EAM also on the 256³
@@ -276,7 +278,8 @@ prints no result:
    plain twin within the kernel's bound, timed in turns; with ``space =
    2`` the two ranks render the same six (:func:`gloo_halo_frames`, 256³
    at 512²) bit for bit to one process's whole-scene kernel frames, with
-   their all-reduces a frame;
+   their all-reduces, launches and host reads a frame equal on both
+   ranks;
    ``path resident`` (:func:`phase_resident_path`, in ``path
    parallel``'s world of one after its counts, every launch counter at 0
    first): 2 frames of ``resident.resident_render_frame`` on config 4 at
@@ -362,6 +365,26 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def synced_call_ms(fn, reps, setup=None):
+    """Median milliseconds of one call of ``fn`` on the host clock, the
+    card synchronised before the call and after it (the call's time to a
+    finished frame), over ``reps`` calls after one warm-up call; ``setup``,
+    if given, runs untimed before each call (a state's reset)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
 
 
 def profiler_device_ms(fn, match, reps=50):
@@ -5385,6 +5408,8 @@ def gloo_rank(rank, world, store, out):
         counted = (dict(halo.COLLECTIVES), mcm_event.HALO_LAUNCHES)
         resident_out = gloo_resident(slabs, big, rg_scene(128))
         frames_out = _cpu(gloo_halo_frames(slabs, big))
+        # each rank's halo frame counts, which must equal the other's
+        torch.save(halo_frame_counts(frames_out), f"{out}.counts{rank}")
         halo.COLLECTIVES.clear()
         halo.COLLECTIVES.update(counted[0])
         mcm_event.HALO_LAUNCHES = counted[1]
@@ -5512,7 +5537,8 @@ def phase_parallel_gloo(dev):
           f"{eloss}")
     check_gloo_resident(got["resident"], want_halo, want_rg)
     print("path parallel gloo: "
-          + check_gloo_halo_frames(got["halo_frames"], want_frames),
+          + check_gloo_halo_frames(got["halo_frames"], want_frames,
+                                   torch.load(f"{out}.counts1")),
           flush=True)
     derr, dshare = dos_bands_agree("path parallel gloo", got["dos"],
                                    want_dos, 1e-6, 1.0)
@@ -5769,7 +5795,7 @@ def halo_frame_bytes(steps, skip, values=1):
 #: float32 operations of a slab fetch beyond the whole fetch's (the
 #: owner's division, clip and compare, the local plane)
 SLAB_OPS = 40
-#: likewise through the slab's plane map (K10 halo, K9's halo band fetch):
+#: likewise through the slab's plane map (K10 halo, K9's halo fetch):
 #: the owner's compare and the select of 0; the map's load places the cell
 PLANE_OPS = 2
 
@@ -6248,6 +6274,20 @@ def halo_states_agree(label, key, got, want, exact):
     return worst
 
 
+def mcs_halo_slowest(state, hs, params, seed, n):
+    """L + 1 of a K8 halo frame from ``state`` (L the slowest pixel's
+    fetches): the frame's launches with a batch of one launch, a read
+    after each, on a copy of the state."""
+    from vpt_tpu_torch.kernels import mcs_frame
+
+    batch = mcs_frame.HALO_BATCH
+    mcs_frame.HALO_BATCH = 1
+    try:
+        return mcs_frame.halo_mcs_frame(state.clone(), hs, params, seed, n)
+    finally:
+        mcs_frame.HALO_BATCH = batch
+
+
 def halo_kernel_rows(label, scene, params_of, res=512):
     """The halo instances of K6 (each mode), K7, K8 and K9 on ``scene`` at
     ``res``²: on one slab each frame (ISO's display) equals the whole-scene
@@ -6418,17 +6458,41 @@ def halo_kernel_rows(label, scene, params_of, res=512):
     params = params_of("mcs")
     state = mcs.reset(params, res, res, scene)
     a, b, c = state.clone(), state.clone(), state.clone()
+    slowest = mcs_halo_slowest(state, hs, params, 0.5, 2)
+    reads = mcs_frame.HALO_READS
     per_frame = mcs_frame.halo_mcs_frame(state.clone(), hs, params, 0.5, 2)
+    reads = mcs_frame.HALO_READS - reads
+    batch = mcs_frame.HALO_BATCH
+    check(slowest <= per_frame <= slowest - 1 + batch
+          and reads <= -(-slowest // batch) + 1,
+          f"{label} mcs halo: {per_frame} launches, {reads} reads with "
+          f"L + 1 = {slowest}, B = {batch}")
     t = halo_turns((lambda: mcs_frame.halo_mcs_frame(a, hs, params, 0.5, 2),
-                    "mcs_halo_kernel"),
+                    "mcs_halo_"),
                    (lambda: mcs.render_frame(b, scene, params, 0.5, 2),
                     "mcs_frame_kernel" if channels == 1
                     else "mcs_frame_ext_kernel"),
-                   lambda k: per_frame)
+                   lambda k: per_frame - 1 if "tail" in k else 1)
     ms = in_turns({
         "halo": lambda: mcs_frame.halo_mcs_frame(a, hs, params, 0.5, 2),
         "whole": lambda: mcs.render_frame(b, scene, params, 0.5, 2)}, 10,
         rounds=1)
+    # the batch: each of 2, 4 and 8 timed in turns (the call's time to a
+    # finished frame, host clock)
+    def with_batch(k):
+        def call():
+            mcs_frame.HALO_BATCH = k
+            mcs_frame.halo_mcs_frame(a, hs, params, 0.5, 2)
+        return call
+
+    batch_ms = {}
+    for _ in range(2):
+        for k in (2, 4, 8, 8, 4, 2):
+            batch_ms.setdefault(k, []).append(synced_call_ms(with_batch(k),
+                                                             10))
+    mcs_frame.HALO_BATCH = batch
+    batch_ms = {k: sorted(v)[len(v) // 2] for k, v in batch_ms.items()}
+    call_ms = batch_ms[batch]
     plain_ms = cuda_ms(lambda: mcs_frame.mcs_frame_plain(c, ref, params,
                                                          0.5, 2), 1)
     counts = torch.zeros(2, dtype=torch.int64, device=state.device)
@@ -6443,23 +6507,38 @@ def halo_kernel_rows(label, scene, params_of, res=512):
     bound_ms, bound_by = roofline(nbytes, ops)
     occ = mcs_frame.halo_occupancy(mtable.dtype, scene.transfer_1d.shape[0],
                                    channels=channels)
+    tail = mcs_frame.halo_occupancy(mtable.dtype,
+                                    scene.transfer_1d.shape[0],
+                                    channels=channels, tail=True)
     share = None if t["halo"] is None else bound_ms / t["halo"]
-    print(f"mcs halo {label}: one slab, {res}^2: {ms['halo']:.4f} ms a "
-          f"frame ({per_frame} launches and host reads of the live count, "
-          f"{per_frame - 1} all-reduces with a group; whole K8 "
-          f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (whole "
-          f"{fmt_ms(t['whole'])}); plain twin {plain_ms:.4f} ms; {steps} "
-          f"tracking steps, {fetches} fetches; bound {bound_ms:.4f} ms "
-          f"({bound_by}, {nbytes} bytes), "
+    group_batch = mcs_frame.HALO_REDUCE_BATCH
+    group_launches = -(-slowest // group_batch) * group_batch
+    print(f"mcs halo {label}: one slab, {res}^2: {per_frame} launches "
+          f"(L + 1 = {slowest}, B = {batch}), {reads} host reads; with a "
+          f"group (B = {group_batch}) {group_launches} launches, "
+          f"{group_launches - 1} all-reduces; call {call_ms:.4f} ms "
+          f"(host clock; B = 2 / 4 / 8: "
+          + " / ".join(f"{batch_ms[k]:.4f}" for k in (2, 4, 8))
+          + f"), loop {ms['halo']:.4f} ms (whole K8 {ms['whole']:.4f} ms), "
+          f"device {fmt_ms(t['halo'])} (whole {fmt_ms(t['whole'])}); plain "
+          f"twin {plain_ms:.4f} ms; {steps} tracking steps, {fetches} "
+          f"fetches; bound {bound_ms:.4f} ms ({bound_by}, {nbytes} bytes), "
           + ("share not measured" if share is None else f"{share:.3f} of it")
-          + f"; {occ['registers']} registers, {occ['local_bytes']} spill "
-          f"bytes, {occ['blocks_per_sm']} blocks an SM", flush=True)
+          + f"; launch 0 {occ['registers']} registers, "
+          f"{occ['local_bytes']} spill bytes; tail {tail['registers']} "
+          f"registers, {tail['local_bytes']} spill bytes, "
+          f"{tail['blocks_per_sm']} blocks an SM", flush=True)
     rows["mcs_halo"] = {
-        "ms": ms["halo"], "device_ms": t["halo"], "whole_ms": ms["whole"],
-        "whole_device_ms": t["whole"], "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": share,
-        "launches_a_frame": per_frame, "fetches": fetches,
-        "registers": occ["registers"], "local_bytes": occ["local_bytes"]}
+        "ms": ms["halo"], "call_ms": call_ms, "device_ms": t["halo"],
+        "whole_ms": ms["whole"], "whole_device_ms": t["whole"],
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": share, "launches_a_frame": per_frame,
+        "slowest_plus_one": slowest, "batch": batch,
+        "host_reads_a_frame": reads,
+        "call_ms_by_batch": {str(k): v for k, v in batch_ms.items()},
+        "fetches": fetches, "registers": [occ["registers"],
+                                          tail["registers"]],
+        "local_bytes": [occ["local_bytes"], tail["local_bytes"]]}
 
     # K9: DOS, a sweep's first frame
     dos = renderer_module("dos")
@@ -6469,40 +6548,51 @@ def halo_kernel_rows(label, scene, params_of, res=512):
         return lambda: dos.render_frame(dos.reset(params, res, res, scene),
                                         s, params, 0.0, 1)
 
-    active = min(params.steps, params.slices)
-    per_chunk = -(-active // 8)
+    before = dos_sweep.HALO_LAUNCHES
+    dos_frame(hs)()
+    per_frame = dos_sweep.HALO_LAUNCHES - before
+    check(per_frame == 2, f"{label} dos halo: {per_frame} launches a frame")
     t = halo_turns((dos_frame(hs), "dos_halo_"),
-                   (dos_frame(scene), "dos_sweep"),
-                   lambda k: per_chunk)
+                   (dos_frame(scene), "dos_sweep"), lambda k: 1)
     ms = in_turns({"halo": dos_frame(hs), "whole": dos_frame(scene)}, 5,
                   rounds=1)
+    # the frame's call alone: the state reset in place, untimed, first
+    timed = dos.reset(params, res, res, scene)
+    call_ms = synced_call_ms(
+        lambda: dos.render_frame(timed, hs, params, 0.0, 1), 10,
+        setup=lambda: dos_reset(params, res, scene, timed))
     plain_ms = cuda_ms(lambda: dos_sweep.sweep_frame_plain(
         dos.reset(params, res, res, scene), ref, params), 1)
     nbytes, ops, written, active = dos_work(scene, params, res, res, 1)
     nbytes += dos_halo_frame_bytes(n, active, channels)
-    ops += n * active * SLAB_OPS
+    ops += n * active * PLANE_OPS
     bound_ms, bound_by = roofline(nbytes, ops)
     occ = [dos_sweep.halo_occupancy(stage, table.dtype, tf_mode,
-                                    params.samples, channels=channels)
+                                    params.samples, channels=channels,
+                                    steps=params.steps)
            for stage in (0, 1)]
     share = None if t["halo"] is None else bound_ms / t["halo"]
     print(f"dos halo {label}: one slab, {res}^2, a sweep's first frame "
           f"({active} active slices, {written} written pixels): "
-          f"{ms['halo']:.4f} ms a frame ({2 * per_chunk} launches, "
-          f"{per_chunk} all-reduces with a group; cooperative K9 "
-          f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (whole "
-          f"{fmt_ms(t['whole'])}); plain twin {plain_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes), "
+          f"{per_frame} launches, 1 all-reduce with a group, 0 host reads; "
+          f"call {call_ms:.4f} ms (host clock, the reset untimed), loop "
+          f"{ms['halo']:.4f} ms with a reset a frame (cooperative K9 "
+          f"{ms['whole']:.4f} ms), device "
+          f"{fmt_ms(t['halo'])} (whole {fmt_ms(t['whole'])}); plain twin "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {nbytes} "
+          "bytes), "
           + ("share not measured" if share is None else f"{share:.3f} of it")
           + f"; fetch {occ[0]['registers']} registers, "
           f"{occ[0]['local_bytes']} spill bytes; fold {occ[1]['registers']}"
           f" registers, {occ[1]['local_bytes']} spill bytes, "
           f"{occ[1]['blocks_per_sm']} blocks of 512 an SM", flush=True)
     rows["dos_halo"] = {
-        "ms": ms["halo"], "device_ms": t["halo"], "whole_ms": ms["whole"],
-        "whole_device_ms": t["whole"], "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": share,
-        "launches_a_frame": 2 * per_chunk, "active_slices": active,
+        "ms": ms["halo"], "call_ms": call_ms, "device_ms": t["halo"],
+        "whole_ms": ms["whole"], "whole_device_ms": t["whole"],
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": share, "launches_a_frame": per_frame,
+        "all_reduces_a_frame": 1, "host_reads_a_frame": 0,
+        "active_slices": active,
         "registers": [o["registers"] for o in occ],
         "local_bytes": [o["local_bytes"] for o in occ]}
     for name, row in rows.items():
@@ -6849,7 +6939,7 @@ def dos_halo_band_row(label, scene, res=512, timed=True):
     bound_ms, bound_by = roofline(nbytes, ops)
     table = scene.volume_packed
     tf_mode = tf1d.mode_code(scene.tf_mxu)
-    occ = [dos_sweep.halo_occupancy(2, table.dtype, tf_mode, params.samples,
+    occ = [dos_sweep.halo_occupancy(0, table.dtype, tf_mode, params.samples,
                                     channels=scene.channels)]
     share = None if t["halo"] is None else bound_ms / t["halo"]
     print(f"dos halo band {label}: one slab, two bands of {res}^2, a sweep's "
@@ -6938,6 +7028,7 @@ def halo_frames_path(grid, scene, counters, res):
     t0 = time.perf_counter()
     for module in counters.values():
         module.LAUNCHES = 0
+    mcs_frame.HALO_READS = 0
     halo.COLLECTIVES.clear()
     frames, wholes, params_of, slabs = {}, {}, {}, None
     for key in HALO_PATH_KEYS:
@@ -6958,6 +7049,7 @@ def halo_frames_path(grid, scene, counters, res):
             frames["display"] = module.display(frames[key], hs, params)
     torch.cuda.synchronize()
     launches = {k: m.LAUNCHES for k, m in counters.items()}
+    mcs_reads = mcs_frame.HALO_READS
     collectives = dict(halo.COLLECTIVES)
     run_s = time.perf_counter() - t0
     for name in HALO_COUNTERS:
@@ -6980,6 +7072,19 @@ def halo_frames_path(grid, scene, counters, res):
           == lao_march.halo_frame_launches(params_of["lao"]),
           f"path parallel halo frames: {launches['lao_halo']} K10 halo "
           "launches")
+    check(launches["dos_halo"] == 2, f"path parallel halo frames: "
+          f"{launches['dos_halo']} K9 halo launches")
+    # K8 halo: L + 1 to L + B launches in at most ceil((L + 1) / B) + 1
+    # reads, L + 1 the launches of the frame read after every launch
+    slowest = mcs_halo_slowest(
+        place_state(_clone(wholes["mcs"]), grid),
+        halo.halo_scene(scene, 0, 1, axis_group(grid, "space"), slabs),
+        params_of["mcs"], np.float32(0.37), 1)
+    batch = mcs_frame.HALO_BATCH
+    check(slowest <= launches["mcs_halo"] <= slowest - 1 + batch
+          and mcs_reads <= -(-slowest // batch) + 1,
+          f"path parallel halo frames: {launches['mcs_halo']} K8 halo "
+          f"launches, {mcs_reads} reads with L + 1 = {slowest}, B = {batch}")
 
     # against the whole-scene kernels and the plain twins, then timed
     hs = halo.halo_scene(scene, 0, 1, axis_group(grid, "space"), slabs)
@@ -7047,7 +7152,9 @@ def halo_frames_path(grid, scene, counters, res):
           + ", ".join(f"{k} {v['halo']:.4f} / {v['whole']:.4f}"
                       for k, v in turns.items())
           + "; launches: " + ", ".join(f"{k} {launches[k]}"
-                                       for k in HALO_COUNTERS), flush=True)
+                                       for k in HALO_COUNTERS)
+          + f" (K8 halo: L + 1 = {slowest}, {mcs_reads} host reads)",
+          flush=True)
     return launches, errors, turns
 
 
@@ -7070,7 +7177,7 @@ def gloo_halo_frames(mesh, scene):
     kernel frames (and K7's display)."""
     import numpy as np
 
-    from vpt_tpu_torch.kernels import mcs_frame
+    from vpt_tpu_torch.kernels import dos_sweep, mcs_frame
     from vpt_tpu_torch.parallel import gather_state, halo, place_state
     from vpt_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
 
@@ -7093,10 +7200,13 @@ def gloo_halo_frames(mesh, scene):
         frame_fn, slabs = halo.sharded_render_frame(module, mesh, scene,
                                                     count, state)
         halo.COLLECTIVES.clear()
-        before = mcs_frame.HALO_LAUNCHES
+        before = (mcs_frame.HALO_LAUNCHES, mcs_frame.HALO_READS,
+                  dos_sweep.HALO_LAUNCHES)
         rows = frame_fn(place_state(state, mesh), slabs, params, seed, 1)
         out[key] = {"collectives": dict(halo.COLLECTIVES),
-                    "mcs_launches": mcs_frame.HALO_LAUNCHES - before}
+                    "mcs_launches": mcs_frame.HALO_LAUNCHES - before[0],
+                    "mcs_reads": mcs_frame.HALO_READS - before[1],
+                    "dos_launches": dos_sweep.HALO_LAUNCHES - before[2]}
         gathered = gather_state(rows, mesh, res)
         if key == "iso":
             hs = halo.halo_scene(scene, axis_index(mesh, "space"), count,
@@ -7118,13 +7228,30 @@ def _cpu(tree):
     return tree.cpu() if torch.is_tensor(tree) else tree
 
 
-def check_gloo_halo_frames(got, want):
+def halo_frame_counts(frames):
+    """The launch and collective counts of :func:`gloo_halo_frames`'s
+    frames, by renderer key: what every rank of the group must count
+    alike."""
+    return {key: {k: v for k, v in out.items()
+                  if k not in ("state", "display")}
+            for key, out in frames.items()}
+
+
+def check_gloo_halo_frames(got, want, other):
     """The two ranks' halo frames (2 slabs) against one process's
     whole-scene kernel frames, bit for bit, with their collectives a
-    frame: K6 ceil(slices / 8), K7's display 1, K8 its launches − 1, K9
-    ceil(active / 8) all-reduces.  Returns a summary."""
+    frame: K6 ceil(slices / 8), K7's display 1, K8 its launches − 1 (in at
+    most ceil(launches / HALO_REDUCE_BATCH) + 1 host reads), K9 1 in 2
+    launches;
+    ``other``, the other rank's counts (:func:`halo_frame_counts`), equal
+    rank 0's.  Returns a summary."""
     import torch
 
+    from vpt_tpu_torch.kernels import mcs_frame
+
+    counts = halo_frame_counts(got)
+    check(counts == other, f"path parallel gloo: the ranks' halo frame "
+          f"counts differ: {counts} against {other}")
     parts = []
     for key in HALO_FRAME_KEYS:
         g, w = got[key], want[key]
@@ -7145,12 +7272,15 @@ def check_gloo_halo_frames(got, want):
             check(reduces == -(-slices // 8), f"path parallel gloo: {key} "
                   f"halo frame {reduces} all-reduces")
         elif key == "dos":
-            check(reduces == -(-min(params.steps, params.slices) // 8),
+            check(reduces == 1 and g["dos_launches"] == 2,
                   f"path parallel gloo: DOS halo frame {reduces} "
-                  "all-reduces")
+                  f"all-reduces in {g['dos_launches']} launches")
         else:
-            check(reduces == g["mcs_launches"] - 1, f"path parallel gloo: "
-                  f"MCS halo frame {reduces} all-reduces in "
+            check(reduces == g["mcs_launches"] - 1 and g["mcs_reads"]
+                  <= -(-g["mcs_launches"]
+                       // mcs_frame.HALO_REDUCE_BATCH) + 1,
+                  f"path parallel gloo: MCS halo frame {reduces} "
+                  f"all-reduces and {g['mcs_reads']} reads in "
                   f"{g['mcs_launches']} launches")
         parts.append(f"{key} {reduces}")
     check(got["iso"]["display_collectives"] == {"all_reduce": 1},
@@ -7159,7 +7289,10 @@ def check_gloo_halo_frames(got, want):
     return ("halo frames of EAM, MIP, Depth, ISO (its display: 1 "
             "all-reduce), MCS and DOS on 2 slabs equal one process's "
             "whole-scene kernel frames bit for bit; all-reduces a frame "
-            + ", ".join(parts))
+            + ", ".join(parts) + f" (MCS in {got['mcs']['mcs_launches']} "
+            f"launches and {got['mcs']['mcs_reads']} host reads, DOS in "
+            f"{got['dos']['dos_launches']} launches), the same on both "
+            "ranks")
 
 
 #: path resident's two-channel frames: the volume and the image
@@ -8182,16 +8315,19 @@ def run():
          "source": "vpt_tpu_torch/csrc/mcs_frame.cu",
          "replaces": "vpt_tpu/parallel/halo.py:199",
          "launched_by": "halo.sharded_render_frame's MCS frame (a launch a "
-                        "fetch of the slowest pixel and one more; the halo "
-                        "frames path); ms and device_ms a 512^2 headline "
-                        "frame on one slab, extinction 8",
+                        "fetch of the slowest pixel and one more, to the "
+                        "end of a batch of HALO_BATCH, HALO_REDUCE_BATCH "
+                        "where a group sums, between two host "
+                        "reads; the halo frames path); ms, call_ms and "
+                        "device_ms a 512^2 headline frame on one slab, "
+                        "extinction 8",
          **halo_rows["mcs_halo"]},
         {"name": "dos_halo", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/dos_sweep.cu",
          "replaces": "vpt_tpu/parallel/halo.py:248",
-         "launched_by": "halo.sharded_render_frame's DOS frame (a fetch, an "
-                        "all-reduce and a cooperative fold a chunk of 8 "
-                        "active slices; the halo frames path); ms and "
+         "launched_by": "halo.sharded_render_frame's DOS frame (a fetch of "
+                        "every slice, an all-reduce and a cooperative fold "
+                        "a frame; the halo frames path); ms, call_ms and "
                         "device_ms a 512^2 headline sweep's first frame on "
                         "one slab", **halo_rows["dos_halo"]},
         {"name": "lao_halo", "route": "cuda",
@@ -8319,6 +8455,138 @@ def trace_counts(fn):
                                 for e in events)}
 
 
+#: ``--part gloo``: the batches timed where the group sums (each the
+#: frame's launches between two host reads), its rounds in turns and the
+#: calls a turn
+GLOO_BATCHES, GLOO_BATCH_ROUNDS, GLOO_BATCH_CALLS = (1, 2, 4, 8), 4, 10
+
+
+def gloo_batch_rank(rank, world, store, out, tree):
+    """One rank of ``--part gloo``: the K8 halo frame of ``path parallel
+    gloo`` (the 256³ scene on ``space`` = 2 slabs at GLOO_HALO_RES²,
+    extinction 8, one frame) over a ``gloo`` group on the one card, with
+    each of GLOO_BATCHES as ``HALO_REDUCE_BATCH`` in turns (a tree without
+    it: its own frame), each call's time on the host clock between two
+    synchronisations, and of it the host's time inside
+    ``torch.distributed.all_reduce``; writes ``{out}{rank}.pt``: each
+    batch's turn medians of both (ms) and its launches, host reads and
+    all-reduces a frame."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.kernels import mcs_frame
+    from vpt_tpu_torch.parallel import halo, make_mesh
+    from vpt_tpu_torch.parallel.mesh import axis_group, axis_index
+    from vpt_tpu_torch.renderers import make_scene
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        scene = make_scene(volume.blobs_volume(GLOO_HALO_VOLUME, seed=3),
+                           transfer.gray_ramp(alpha_scale=0.9))
+        mesh = make_mesh(world, space=world)
+        hs = halo.halo_scene(scene, axis_index(mesh, "space"), world,
+                             axis_group(mesh, "space"))
+        mcs = renderer_module("mcs")
+        params = mcs.Params(extinction=8.0)
+        state = mcs.reset(params, GLOO_HALO_RES, GLOO_HALO_RES, scene)
+        batches = GLOO_BATCHES if hasattr(mcs_frame, "HALO_REDUCE_BATCH") \
+            else (0,)
+        spent = [0.0]
+        all_reduce = dist.all_reduce
+
+        def timed_all_reduce(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return all_reduce(*args, **kwargs)
+            finally:
+                spent[0] += time.perf_counter() - t0
+
+        dist.all_reduce = timed_all_reduce
+
+        def frame(k):
+            if k:
+                mcs_frame.HALO_REDUCE_BATCH = k
+            before = (mcs_frame.HALO_LAUNCHES,
+                      getattr(mcs_frame, "HALO_READS", 0),
+                      halo.COLLECTIVES.get("all_reduce", 0))
+            torch.cuda.synchronize()
+            spent[0] = 0.0
+            t0 = time.perf_counter()
+            mcs_frame.halo_mcs_frame(state, hs, params, np.float32(0.37), 1)
+            torch.cuda.synchronize()
+            ms = ((time.perf_counter() - t0) * 1e3, spent[0] * 1e3)
+            return ms, (mcs_frame.HALO_LAUNCHES - before[0],
+                        getattr(mcs_frame, "HALO_READS", 0) - before[1],
+                        halo.COLLECTIVES.get("all_reduce", 0) - before[2])
+
+        counts = {}
+        for k in batches:
+            for _ in range(3):
+                counts[k] = frame(k)[1]
+        turns = {k: [] for k in batches}
+        reduce_turns = {k: [] for k in batches}
+        for r in range(GLOO_BATCH_ROUNDS):
+            for k in (batches if r % 2 == 0 else batches[::-1]):
+                times = []
+                for _ in range(GLOO_BATCH_CALLS):
+                    ms, c = frame(k)
+                    check(c == counts[k], f"gloo batch {k}: counts {c} "
+                          f"against {counts[k]}")
+                    times.append(ms)
+                times.sort()
+                turns[k].append(times[len(times) // 2][0])
+                reduce_turns[k].append(sorted(
+                    t[1] for t in times)[len(times) // 2])
+        torch.save({"turns": turns, "reduce_turns": reduce_turns,
+                    "counts": counts}, f"{out}{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_batch_numbers(tree):
+    """``--part gloo`` for the tree this process imported: two gloo ranks
+    (:func:`gloo_batch_rank`), whose counts must agree; rank 0's call
+    times.  Returns the numbers by name."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from vpt_tpu_torch.kernels import _build
+
+    _build.library()   # built once, before the ranks load it
+    folder = os.path.join(os.path.abspath(tree), "build", "smoke")
+    os.makedirs(folder, exist_ok=True)
+    store = tempfile.mktemp(dir=folder, prefix="gloo_store_")
+    out = os.path.join(folder, "gloo_batch")
+    mp.start_processes(gloo_batch_rank, args=(2, store, out, tree),
+                       nprocs=2, start_method="spawn")
+    got = [torch.load(f"{out}{r}.pt", weights_only=False) for r in (0, 1)]
+    check(got[0]["counts"] == got[1]["counts"], "--part gloo: the ranks' "
+          f"counts differ: {got[0]['counts']} against {got[1]['counts']}")
+    numbers = {}
+    for k, turns in got[0]["turns"].items():
+        name = f"B={k}" if k else "own"
+        launches, reads, reduces = got[0]["counts"][k]
+        numbers[f"mcs_halo gloo call_ms {name}"] = \
+            sorted(turns)[len(turns) // 2]
+        numbers[f"mcs_halo gloo call_ms_range {name}"] = \
+            f"{min(turns):.4f}-{max(turns):.4f}"
+        reduces_ms = got[0]["reduce_turns"][k]
+        numbers[f"mcs_halo gloo all_reduce_ms {name}"] = \
+            sorted(reduces_ms)[len(reduces_ms) // 2]
+        numbers[f"mcs_halo gloo launches {name}"] = launches
+        numbers[f"mcs_halo gloo host_reads {name}"] = reads
+        numbers[f"mcs_halo gloo all_reduces {name}"] = reduces
+    return numbers
+
+
 def launch_path_tree(tree, part="all"):
     """The launch paths in the port found at ``tree`` (this checkout or
     another, such as an archived parent under ``build/``).  ``part``
@@ -8338,6 +8606,9 @@ def launch_path_tree(tree, part="all"):
     out = {"tree": tree}
     if part == "sweep":
         out["sweep"] = sweep_path_numbers()
+        return out
+    if part == "gloo":
+        out["gloo"] = gloo_batch_numbers(tree)
         return out
     if part in ("frames", "all"):
         out["frames"] = frame_path_numbers()
@@ -8461,7 +8732,39 @@ def sweep_path_numbers():
 
     out["dos halo_frame_device_ms"] = _device_ms_per_call(
         halo_frame, "dos_halo_", 10)
+    # its kernels apart: the fetch and the fold (or the tree's chunks')
+    for part in ("fetch", "fold"):
+        out[f"dos halo_frame_{part}_device_ms"] = _device_ms_per_call(
+            halo_frame, part + "_kernel", 10)
     hashes["dos halo frame"] = _digest(halo_frame())
+    # the halo frame's call to a finished frame (host clock; the state
+    # copied from the reset untimed first) at 512² and 1024², and its
+    # device time at 1024²
+    for size in (512, 1024):
+        fresh = dos.reset(params, size, size, scene)
+        timed = {k: v.clone() for k, v in fresh.items()}
+
+        def setup(fresh=fresh, timed=timed):
+            for k, v in fresh.items():
+                timed[k].copy_(v)
+
+        suffix = "" if size == 512 else f" {size}^2"
+        out["dos halo_frame_call_ms" + suffix] = synced_call_ms(
+            lambda timed=timed: dos.render_frame(timed, hs, params, 0.1, 1),
+            10, setup=setup)
+        if size == 1024:
+            def halo_frame_1024(fresh=fresh):
+                state = {k: v.clone() for k, v in fresh.items()}
+                dos.render_frame(state, hs, params, 0.1, 1)
+                return state
+
+            out["dos halo_frame_device_ms 1024^2"] = _device_ms_per_call(
+                halo_frame_1024, "dos_halo_", 5)
+            for part in ("fetch", "fold"):
+                out[f"dos halo_frame_{part}_device_ms 1024^2"] = \
+                    _device_ms_per_call(halo_frame_1024, part + "_kernel", 5)
+            hashes["dos halo frame 1024^2"] = _digest(halo_frame_1024())
+        del fresh, timed
     if hasattr(dos_sweep, "HALO_BAND_LAUNCHES"):
         # the halo band instance, where the tree has it: the two bands
         # over the one-slab HaloScene, and the band_slice calls' host time
@@ -8493,6 +8796,35 @@ def sweep_path_numbers():
         hashes["lao halo frame"] = _digest(lstate)
     out["hashes"] = hashes
     return out
+
+
+def _launch_us(fn, match, launches, reps=5):
+    """The device µs of each launch of one call of ``fn`` in the kernels
+    whose name holds ``match``, in launch order, from torch.profiler's
+    events over ``reps`` calls (after a warm-up call): the median of the
+    calls that recorded all ``launches``, as a string of numbers; "" when
+    none did."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and match in e.name),
+                    key=lambda e: e.time_range.start)
+    calls = [events[k:k + launches]
+             for k in range(0, len(events) - launches + 1, launches)]
+    if len(events) % launches or not calls:
+        return ""
+    mid = len(calls) // 2
+    return " ".join(
+        f"{sorted(c[j].time_range.elapsed_us() for c in calls)[mid]:.1f}"
+        for j in range(launches))
 
 
 def _digest(state):
@@ -8687,6 +9019,36 @@ def frame_path_numbers():
         "ms": cuda_ms(display, 200),
         "device_ms": profiler_device_ms(display, "iso_shade_kernel", 50),
         "host_us": _host_call_us(display)}
+    # K8's halo instance over a one-slab HaloScene (extinction 8), where the
+    # tree has it: a frame's call to a finished frame (host clock), its
+    # loop and device time, launches and host reads (one a launch in a
+    # tree without HALO_READS), and a digest of a frame from the reset
+    if hasattr(mcs_frame, "halo_mcs_frame"):
+        from vpt_tpu_torch.parallel import halo
+
+        hs = halo.halo_scene(scene, 0, 1)
+        hparams = mcs.Params(extinction=8.0)
+        for size in (512, 1024):
+            start = mcs.reset(hparams, size, size, scene)
+            state = start.clone()
+
+            def halo_call(state=state):
+                mcs_frame.halo_mcs_frame(state, hs, hparams, 0.5, 2)
+
+            reads = getattr(mcs_frame, "HALO_READS", None)
+            launches = mcs_frame.halo_mcs_frame(start.clone(), hs, hparams,
+                                                0.5, 2)
+            reads = launches if reads is None \
+                else mcs_frame.HALO_READS - reads
+            first = start.clone()
+            mcs_frame.halo_mcs_frame(first, hs, hparams, 0.5, 2)
+            frames[f"mcs_halo {size}^2"] = {
+                "call_ms": synced_call_ms(halo_call, 20),
+                "ms": cuda_ms(halo_call, 20),
+                "device_ms": _device_ms_per_call(halo_call, "mcs_halo_", 10),
+                "launches": launches, "host_reads": reads,
+                "launch_us": _launch_us(halo_call, "mcs_halo_", launches),
+                "digest": _digest(first)}
 
     pieces = {}
     params, mparams = eam.Params(), mcs.Params()
@@ -8768,7 +9130,7 @@ def launch_path(trees, part="all"):
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results.append(json.loads(line)["launch_path"])
-    tables = ["sweep"] if part == "sweep" else []
+    tables = [part] if part in ("sweep", "gloo") else []
     if part == "sweep":
         for r in results:
             r["hashes"] = r["sweep"].pop("hashes", {})

@@ -2594,12 +2594,23 @@ def test_halo_iso_display(cuda, kind):
         assert torch.equal(got, want), label
 
 
+def _mcs_halo_slowest(state, hs, params, seed, n, monkeypatch):
+    """L + 1 of a K8 halo frame from ``state``: its launches with a batch
+    of one launch (a read after each), on a copy."""
+    monkeypatch.setattr(mcs_frame, "HALO_BATCH", 1)
+    launches = mcs_frame.halo_mcs_frame(state.clone(), hs, params, seed, n)
+    monkeypatch.undo()
+    return launches
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
-def test_halo_mcs_frames(cuda, kind):
+def test_halo_mcs_frames(cuda, kind, monkeypatch):
     """K8's halo instance (the headline: the cheb-skip table): on one
-    slab, 2 frames equal the whole-scene K8's bit for bit, each frame the
-    slowest pixel's fetches + 1 launches; on 2 slabs each slab's frame is within K8's bound of the plain
-    twin."""
+    slab, 2 frames equal the whole-scene K8's bit for bit, each frame L + 1
+    to L + HALO_BATCH launches in at most ceil((L + 1) / HALO_BATCH) + 1
+    host reads, L + 1 the launches of a frame read after every launch (L
+    the slowest pixel's fetches); on 2 slabs each slab's frame is within
+    K8's bound of the plain twin."""
     from vpt_tpu_torch.parallel import halo
 
     scene = _halo_kind(kind, cuda)
@@ -2607,12 +2618,19 @@ def test_halo_mcs_frames(cuda, kind):
     state = mcs.reset(params, 40, 48, scene)
     got, want = state.clone(), state.clone()
     hs = halo.halo_scene(scene, 0, 1)
-    before = (mcs_frame.LAUNCHES, mcs_frame.HALO_LAUNCHES)
-    launches = [mcs_frame.halo_mcs_frame(got, hs, params, 0.3 + 0.01 * n, n)
-                for n in (1, 2)]
-    assert (mcs_frame.LAUNCHES, mcs_frame.HALO_LAUNCHES) == (
-        before[0], before[1] + sum(launches))
-    assert min(launches) > 2
+    batch = mcs_frame.HALO_BATCH
+    for n in (1, 2):
+        seed = 0.3 + 0.01 * n
+        slowest = _mcs_halo_slowest(got, hs, params, seed, n, monkeypatch)
+        before = (mcs_frame.LAUNCHES, mcs_frame.HALO_LAUNCHES,
+                  mcs_frame.HALO_READS)
+        launches = mcs_frame.halo_mcs_frame(got, hs, params, seed, n)
+        assert (mcs_frame.LAUNCHES, mcs_frame.HALO_LAUNCHES) == (
+            before[0], before[1] + launches)
+        assert slowest > 2
+        assert slowest <= launches <= slowest - 1 + batch
+        reads = mcs_frame.HALO_READS - before[2]
+        assert reads <= -(-slowest // batch) + 1
     for n in (1, 2):
         mcs.render_frame(want, scene, params, 0.3 + 0.01 * n, n)
     torch.cuda.synchronize()
@@ -2625,29 +2643,69 @@ def test_halo_mcs_frames(cuda, kind):
         assert_kernel_agrees("mcs", got, want)
 
 
-@pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
-def test_halo_dos_frames(cuda, kind):
-    """K9's halo instance: on one slab, a sweep's 3 frames of 20 slices
-    (the last one partly active) equal the cooperative K9's bit for bit,
-    2 launches a chunk of 8 active slices; on 2 slabs each slab's frame is
-    within K9's bound of the plain twin (``assert_dos_agrees``)."""
+@pytest.mark.parametrize("kind", ["bf16", "rg"])
+def test_halo_mcs_surplus_launches(cuda, kind, monkeypatch):
+    """Launches past a frame's end (a batch's surplus: their input count
+    is 0) change neither the state nor the values: two frames in a row
+    whose batches overrun L + 1 equal K8's two frames bit for bit, with
+    every batch of 2, 4, 8 and 16 (longer than the card's three count
+    slots) and the next frame starting clean."""
     from vpt_tpu_torch.parallel import halo
 
+    scene = _halo_kind(kind, cuda)
+    params = mcs.Params(extinction=8.0)
+    start = mcs.reset(params, 40, 48, scene)
+    want = start.clone()
+    for n in (1, 2):
+        mcs.render_frame(want, scene, params, 0.4 + 0.01 * n, n)
+    hs = halo.halo_scene(scene, 0, 1)
+    overran = False
+    for batch in (2, 4, 8, 16):
+        got = start.clone()
+        for n in (1, 2):
+            seed = 0.4 + 0.01 * n
+            slowest = _mcs_halo_slowest(got, hs, params, seed, n,
+                                        monkeypatch)
+            monkeypatch.setattr(mcs_frame, "HALO_BATCH", batch)
+            launches = mcs_frame.halo_mcs_frame(got, hs, params, seed, n)
+            monkeypatch.undo()
+            assert slowest <= launches <= slowest - 1 + batch
+            overran = overran or launches > slowest
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), batch
+    assert overran
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
+def test_halo_dos_frames(cuda, kind, monkeypatch):
+    """K9's halo instance: on one slab, a sweep's 3 frames of 20 slices
+    (the last one partly active) and a frame after its end (none active)
+    equal the cooperative K9's bit for bit, each frame 2 launches (one
+    fetch of every slice, one fold) around one all-reduce; on 2 slabs
+    each slab's frame is within K9's bound of the plain twin
+    (``assert_dos_agrees``)."""
+    from vpt_tpu_torch.parallel import halo
+
+    reduces = []
+    reduce_ = halo.HaloScene.reduce_
+    monkeypatch.setattr(halo.HaloScene, "reduce_", lambda self, partial: (
+        reduces.append(partial.numel()), reduce_(self, partial))[1])
     scene = _halo_kind(kind, cuda)
     params = dos.Params(extinction=80.0, steps=20, slices=50, samples=6)
     state, fresh = _halo_state(dos, params, scene)
     got, want = fresh(), fresh()
     hs = halo.halo_scene(scene, 0, 1)
-    for n in (1, 2, 3):
-        active = dos.active_slices(got, params)
-        before = (dos_sweep.LAUNCHES, dos_sweep.HALO_LAUNCHES)
+    for n in (1, 2, 3, 4):
+        before = (dos_sweep.LAUNCHES, dos_sweep.HALO_LAUNCHES, len(reduces))
         dos.render_frame(got, hs, params, 0.0, n)
-        assert (dos_sweep.LAUNCHES, dos_sweep.HALO_LAUNCHES) == (
-            before[0], before[1] + max(2 * -(-active // 8), 1))
+        assert (dos_sweep.LAUNCHES, dos_sweep.HALO_LAUNCHES,
+                len(reduces)) == (before[0], before[1] + 2, before[2] + 1)
+        assert reduces[-1] == params.steps * 40 * 48 * scene.channels
         dos.render_frame(want, scene, params, 0.0, n)
-    torch.cuda.synchronize()
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
+        torch.cuda.synchronize()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (n, k)
+    assert dos.active_slices(got, params) == 0
     assert float(got["color"][..., 3].max()) > 0.0
     for label, hs in _halo_layouts(scene):
         got, want = fresh(), fresh()
@@ -2656,6 +2714,32 @@ def test_halo_dos_frames(cuda, kind):
             hs, kernels=False), params)
         torch.cuda.synchronize()
         assert_dos_agrees(got, want)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "rg"])
+def test_halo_dos_frames_in_chunks(cuda, kind, monkeypatch):
+    """Past the values' cap a K9 halo frame goes in chunks of slices, a
+    fetch, an all-reduce and a fold each: with the cap at 7 slices' values
+    a sweep's frames of 20 slices (3 chunks; the last frame partly active,
+    its last chunk past the far depth) and one after its end equal the
+    cooperative K9's bit for bit."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _halo_kind(kind, cuda)
+    params = dos.Params(extinction=80.0, steps=20, slices=50, samples=6)
+    monkeypatch.setattr(dos_sweep, "HALO_VALUE_BYTES",
+                        7 * 4 * 40 * 48 * scene.channels)
+    state, fresh = _halo_state(dos, params, scene)
+    got, want = fresh(), fresh()
+    hs = halo.halo_scene(scene, 0, 1)
+    for n in (1, 2, 3, 4):
+        before = dos_sweep.HALO_LAUNCHES
+        dos.render_frame(got, hs, params, 0.0, n)
+        assert dos_sweep.HALO_LAUNCHES == before + 2 * 3
+        dos.render_frame(want, scene, params, 0.0, n)
+        torch.cuda.synchronize()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (n, k)
 
 
 #: K10's halo instances held to K10 on one slab: (label, scene kind,

@@ -68,7 +68,8 @@ def test_build_flags_and_entry_points():
         "vpt_dos_band_fetch", "vpt_mcm_resident_event",
         "vpt_mcm_resident_info", "vpt_march_halo_launch",
         "vpt_march_halo_info", "vpt_iso_halo_launch", "vpt_iso_halo_info",
-        "vpt_mcs_halo_launch", "vpt_mcs_halo_info", "vpt_dos_halo_launch",
+        "vpt_mcs_halo_check", "vpt_mcs_halo_run", "vpt_mcs_halo_info",
+        "vpt_dos_halo_launch",
         "vpt_dos_halo_info", "vpt_lao_halo_launch",
         "vpt_lao_halo_info"}
     sources = " ".join(p.read_text() for p in (PKG / "csrc").glob("*.cu"))

@@ -1,5 +1,5 @@
-"""The slab's plane map that K10's halo instance and K9's halo band fetch
-read in place of ``vpt_slab_z``'s divisions, the prepared band frame of
+"""The slab's plane map that K10's halo instance and K9's halo fetch (of a
+frame and of a band) read in place of ``vpt_slab_z``'s divisions, the prepared band frame of
 DOS's row bands, and the C layouts of the structs that carry them.
 
 ``_build.slab_plane_map`` is held, for every z plane of the volume, against
@@ -9,9 +9,9 @@ interleave ∈ {1, 2}, and an owned plane's local index against
 ``halo.slab_planes``.  On the CPU ``dos.render_band`` runs the plain band
 slice a slice: its frame is held against ``band_slice_plain``'s bit for bit
 (the prepared band frame itself runs only on the card).  The ctypes mirrors
-of ``VptLaoHalo``, ``VptDosHalo`` and ``VptDosBandFrame`` are held against
-the C declarations, member by member; a mismatch would show only on the
-card.
+of ``VptLaoHalo``, ``VptDosHalo``, ``VptDosBandFrame`` and K8's
+``VptMcsHaloFrame`` are held against the C declarations, member by member;
+a mismatch would show only on the card.
 """
 
 import re
@@ -25,6 +25,7 @@ import torch
 from vpt_tpu.parallel.halo import HaloScene as JHaloScene
 from vpt_tpu_torch import transfer, volume
 from vpt_tpu_torch.kernels import _build, corner_gather, dos_sweep, lao_march
+from vpt_tpu_torch.kernels import mcs_frame
 from vpt_tpu_torch.parallel import halo
 from vpt_tpu_torch.renderers import dos, make_scene
 
@@ -188,8 +189,9 @@ def _mirror(cls):
 
 @pytest.mark.parametrize("cls,struct", [
     (lao_march._HaloArgs, "VptLaoHalo"), (dos_sweep._HaloArgs, "VptDosHalo"),
-    (dos_sweep._BandFrameArgs, "VptDosBandFrame")],
-    ids=["VptLaoHalo", "VptDosHalo", "VptDosBandFrame"])
+    (dos_sweep._BandFrameArgs, "VptDosBandFrame"),
+    (mcs_frame._HaloFrameArgs, "VptMcsHaloFrame")],
+    ids=["VptLaoHalo", "VptDosHalo", "VptDosBandFrame", "VptMcsHaloFrame"])
 def test_prepared_halo_structs_match_the_c_layouts(cls, struct):
     """Each ctypes mirror declares the C struct's members in order and
     kind (the band frame's nested band and slab flattened: their C

@@ -67,9 +67,9 @@
 // clamped at the edges, a tap's x fraction zeroed unless 0 <= x + bx <=
 // W-2 (y likewise with H), both tap shifts clamped by the width.
 //
-// The halo instance (dos_halo_fetch_kernel, dos_halo_fold_kernel below)
-// runs a HaloScene's frame: dos_slices with the fetch split around an
-// all-reduce of each chunk of 8 slices' values.
+// The halo instance (dos_halo_band_fetch_kernel, dos_halo_fold_kernel
+// below) runs a HaloScene's frame: dos_slices with the fetch split around
+// one all-reduce of every slice's values.
 //
 // The band instance (dos_band_kernel, VptDosBand below) runs one slice over a
 // band of rows for the row-sharded sweeps (parallel/dos_halo.py,
@@ -463,37 +463,51 @@ dos_sweep_ext_kernel(const VptDosExt a, const VptDosFrame f) {
 // slabs over the ranks of a group, and a sample is the sum over the ranks
 // of their masked slab-local values (vpt_tpu/parallel/halo.py:199-250),
 // summed before the TF lookup.  vpt_tpu's sweep (dos.py:126-200) samples
-// kHaloChunk slices a sample_color, one psum each; so does this instance.
-// A frame of n active slices (a prefix, counted on the host) is ceil(n /
-// kHaloChunk) chunks, each a fetch launch, one all-reduce of the chunk's
-// values and a fold launch: dos_halo_fetch_kernel writes each pixel's
-// masked value at each of the chunk's slices (dos_point's point, slab.cuh's
-// cell; 0 outside the cube or where another rank owns the cell), and
-// dos_halo_fold_kernel runs the chunk's slices as the cooperative sweep
+// 8 slices a sample_color, one psum each; but a slice's sample points
+// depend only on the frame's depth, never on another slice's fold, so this
+// instance samples all of a frame's slices at once: one launch of
+// dos_halo_band_fetch_kernel over the whole image writes each pixel's
+// masked value at each slice (dos_point's point, the cell placed through
+// the slab's plane map; 0 where another rank owns the cell and at slices
+// past the far depth, which the kernel decides from the depth, and
+// dos_outside() outside the cube; a row of its grid a kHaloChunk of
+// slices, the band's one row), one all-reduce sums them, and
+// dos_halo_fold_kernel runs the frame's slices as the cooperative sweep
 // does (dos_slices: a grid barrier a slice, the composite and the disk taps
 // of dos_finish) with the fetch replaced by the summed value's colour
-// (dos_color, dos_shade); the last fold advances the depth.  The chunk's
-// slices depend on the previous ones' occlusion, so a fold is one
-// cooperative launch of up to kHaloChunk slices, as K9's frame is, and not
-// a launch a slice: the grid barrier costs less than a launch
-// (dos_band_kernel's host time a slice, PERF.md §6).  So on one slab a
-// frame equals K9's bit for bit.  A HaloScene has no filter: kC is 0 (one
-// channel, the TF row in mode kTf) or 2.
+// (dos_color, dos_shade), its write test read from the value.  A frame's
+// values past 1 GiB (kernels/dos_sweep.halo_chunk) go in chunks of slices,
+// a fetch, an all-reduce and a fold each, the last fold advancing the depth
+// by the frame's active slices.  So on one slab a frame equals K9's bit for
+// bit, with no read from the card.  A HaloScene has no filter: kC is 0 (one
+// channel, the TF row in mode kTf) or 2.  The row band's halo instance (a
+// band's fetch, dos_halo_band_kernel below) takes kHaloChunk slices a fetch.
 constexpr int kHaloChunk = 8;
 
+// The value a fetch writes where a pixel's point at an active slice lies
+// outside the cube: -inf, which every rank writes there and the sum keeps,
+// and which no finite volume's value is.  The frame's fold reads it in
+// place of a second dos_point.
+__device__ __forceinline__ float dos_outside() {
+  return __int_as_float(0xff800000);
+}
+
 // The fetch's body over the pixels of rows [row0, row0 + band_h): each
-// pixel's value at each of the chunk's slices, place(p, &v) setting v to
-// the value of point p where this rank owns its cell.
+// pixel's value at each of slices k0 .. k0 + count - 1, a block's row of
+// the grid (blockIdx.y) taking kHaloChunk of them, place(p, &v) setting v
+// to the value of point p where this rank owns its cell.
 template <int kC, class Place>
 __device__ __forceinline__ void dos_halo_fetch(
     const VptDosExt& a, const VptDosFrame& f, float* __restrict__ value,
     int k0, int count, int row0, int band_h, Place place) {
-  // the chunk's slices: NDC depth and active flag (dos_row's row[0, 1])
+  // the block's slices: NDC depth and active flag (dos_row's row[0, 1])
   __shared__ float s_head[kHaloChunk][2];
-  if (threadIdx.x < count) {
+  const int c0 = blockIdx.y * kHaloChunk;
+  const int m = min(kHaloChunk, count - c0);
+  if (threadIdx.x < m) {
     float corr[3];
     const float dk = dos_project(a, *f.depth, *f.slice_distance,
-                                 k0 + threadIdx.x, corr);
+                                 k0 + c0 + threadIdx.x, corr);
     s_head[threadIdx.x][0] = corr[2];
     s_head[threadIdx.x][1] = dk <= *f.max_depth ? 1.0f : 0.0f;
   }
@@ -506,35 +520,24 @@ __device__ __forceinline__ void dos_halo_fetch(
   constexpr int kV = kC == 2 ? 2 : 1;
   const float2 ndc = make_float2(vpt_pixel_ndc(i % a.width, a.width),
                                  vpt_pixel_ndc(row0 + i / a.width, a.height));
-  for (int j = 0; j < count; ++j) {
+  for (int j = 0; j < m; ++j) {
     float2 v = make_float2(0.0f, 0.0f);
     float p[3];
-    if (s_head[j][1] > 0.0f && dos_point(a, ndc, s_head[j][0], p))
-      place(p, &v);
-    float* out = value + kV * ((long long)j * n + i);
+    if (s_head[j][1] > 0.0f) {
+      if (dos_point(a, ndc, s_head[j][0], p))
+        place(p, &v);
+      else
+        v.x = dos_outside();
+    }
+    float* out = value + kV * ((long long)(c0 + j) * n + i);
     out[0] = v.x;
     if (kV == 2) out[1] = v.y;
   }
 }
 
-// The frame's fetch: each cell placed by vpt_slab_z's rule.
-template <bool kBf16, int kC>
-__global__ void __launch_bounds__(kThreads)
-dos_halo_fetch_kernel(const VptDosExt a, const VptDosFrame f,
-                      const VptSlab slab, float* __restrict__ value, int k0,
-                      int count, int row0, int band_h) {
-  dos_halo_fetch<kC>(a, f, value, k0, count, row0, band_h,
-                     [&](const float* p, float2* v) {
-                       const VptSlabCell cell = vpt_slab_cell(
-                           a.d, a.h, a.w, slab, p[0], p[1], p[2]);
-                       if (cell.local)
-                         *v = vpt_slab_value<kBf16, kC>(a.table, cell);
-                     });
-}
-
-// The band's fetch: each cell placed through the slab's plane map
-// (slab.cuh's vpt_slab_plane, staged in shared memory), not through
-// vpt_slab_z's divisions: the same cells.
+// The fetch of a frame and of a band: each cell placed through the slab's
+// plane map (slab.cuh's vpt_slab_plane, staged in shared memory), not
+// through vpt_slab_z's divisions: the same cells.
 template <bool kBf16, int kC>
 __global__ void __launch_bounds__(kThreads)
 dos_halo_band_fetch_kernel(const VptDosExt a, const VptDosFrame f,
@@ -556,6 +559,11 @@ dos_halo_band_fetch_kernel(const VptDosExt a, const VptDosFrame f,
                      });
 }
 
+// The fold of slices k0 .. k0 + count - 1 from their summed values (slot j
+// slice k0 + j's).  advance: the frame's last fold, which advances the depth
+// by the frame's active slices: dos_slices' own count where the fold
+// starts the frame, else counted here (a later chunk whose first slice lies
+// past the far depth runs none, and the active slices end before it).
 template <bool kBf16, int kTf, int kC>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 dos_halo_fold_kernel(const VptDosExt a, const VptDosFrame f,
@@ -563,35 +571,41 @@ dos_halo_fold_kernel(const VptDosExt a, const VptDosFrame f,
                      int advance) {
   constexpr int kV = kC == 2 ? 2 : 1;
   const long long n = (long long)a.width * a.height;
-  dos_slices(a, f, k0, count, advance != 0,
-             [&](float2 ndc, const float* row, int i, int j) {
-               float p[3];
-               DosFetch d;
-               d.write = dos_point(a, ndc, row[0], p);
-               if (!d.write) return d;
+  // read before dos_slices' first barrier, as it reads them
+  const float depth = *f.depth, sd = *f.slice_distance;
+  const float max_depth = *f.max_depth;
+  dos_slices(a, f, k0, count, advance != 0 && k0 == 0,
+             [&](float2, const float* row, int i, int j) {
+               // written where the fetch found the point inside the cube
+               // (dos_point's test, on every rank alike)
                const float* v = value + kV * ((long long)j * n + i);
+               DosFetch d;
+               d.write = v[0] != dos_outside();
+               if (!d.write) return d;
                return dos_shade(a, dos_color<kBf16, kTf, kC>(
                    a, make_float2(v[0], kV == 2 ? v[1] : 0.0f)), row);
              });
+  if (advance != 0 && k0 > 0 && blockIdx.x == 0 && threadIdx.x == 0) {
+    // dos_row's active test, slice by slice (dos_slices passed a grid
+    // barrier after every thread's read of the depth)
+    int active = 0;
+    while (active < k0 + count
+           && depth + (float)active * sd <= max_depth)
+      ++active;
+    *f.depth = depth + (float)active * sd;
+  }
 }
 
 // The halo instances for a table type and the TF lookup mode (one channel)
-// or two channels, the frame's fetch or the band's (planes); null for
+// or two channels: the fetch (of a frame or a band) or the fold; null for
 // anything else.
-const void* pick_halo_fetch(int channels, int table_bf16, bool planes) {
-  if (channels == 2) {
-    if (planes)
-      return table_bf16 ? (const void*)dos_halo_band_fetch_kernel<true, 2>
-                        : (const void*)dos_halo_band_fetch_kernel<false, 2>;
-    return table_bf16 ? (const void*)dos_halo_fetch_kernel<true, 2>
-                      : (const void*)dos_halo_fetch_kernel<false, 2>;
-  }
+const void* pick_halo_fetch(int channels, int table_bf16) {
+  if (channels == 2)
+    return table_bf16 ? (const void*)dos_halo_band_fetch_kernel<true, 2>
+                      : (const void*)dos_halo_band_fetch_kernel<false, 2>;
   if (channels != 1) return nullptr;
-  if (planes)
-    return table_bf16 ? (const void*)dos_halo_band_fetch_kernel<true, 0>
-                      : (const void*)dos_halo_band_fetch_kernel<false, 0>;
-  return table_bf16 ? (const void*)dos_halo_fetch_kernel<true, 0>
-                    : (const void*)dos_halo_fetch_kernel<false, 0>;
+  return table_bf16 ? (const void*)dos_halo_band_fetch_kernel<true, 0>
+                    : (const void*)dos_halo_band_fetch_kernel<false, 0>;
 }
 
 const void* pick_halo_fold(int channels, int table_bf16, int tf_mode) {
@@ -744,6 +758,11 @@ dos_halo_band_kernel(const VptDosExt a, const VptDosBand b,
   constexpr int kV = kC == 2 ? 2 : 1;
   const long long n = (long long)a.width * b.band_h;
   dos_band(a, b, [&](float2 ndc, const float* row, int i) {
+    // The write test is dos_point's, made again, where dos_halo_fold_kernel
+    // reads the fetch's dos_outside(): at an active slice both answer
+    // alike.  This instance keeps it so that its code, and with it the
+    // device time and SASS it is held to, stays as measured; moving it onto
+    // the value's test is ROADMAP 2c item 1's next K9 halo band step.
     float p[3];
     DosFetch d;
     d.write = dos_point(a, ndc, row[0], p);
@@ -921,28 +940,30 @@ extern "C" int vpt_dos_sweep_info(int flags, int tf_mode, int steps,
   return 0;
 }
 
-// One launch of the halo instance (see dos_halo_fetch_kernel): prepared is
-// the VptDosExt of the HaloScene, Params and resolution (table: the rank's
-// slab rows; d, h, w the whole volume's; no filter; blocks the fold's
-// cooperative grid); color, occlusion, scratch, depth, max_depth, the slice
-// distance and the offsets as vpt_dos_frame's; the slab (its index of
-// num_slabs, the thin slabs a rank and whether the fetch is masked); value
-// the (kHaloChunk, width * height, channels) values; slices k0 .. k0 +
-// count - 1 of the frame (count <= kHaloChunk, all active); stage 0 writes
-// this rank's masked values, stage 1 folds the summed ones (advance: the
-// frame's last fold, which advances the depth by k0 + count slices).
+// One launch of the halo instance (see dos_halo_band_fetch_kernel):
+// prepared is the VptDosHalo of the HaloScene, Params and resolution
+// (table: the rank's slab rows; d, h, w the whole volume's; no filter;
+// blocks the fold's cooperative grid; the slab's plane map); color,
+// occlusion, scratch, depth, max_depth, the slice distance and the offsets
+// as vpt_dos_frame's; the slab (its index of num_slabs, the thin slabs a
+// rank and whether the fetch is masked); value the (count, width * height,
+// channels) values; slices k0 .. k0 + count - 1 of the frame (the frame's
+// chunk: all of its steps where their values fit); stage 0 writes this
+// rank's masked values (0 at a slice past the far depth), stage 1 folds the
+// summed ones up to the first inactive slice (advance: the frame's last
+// fold, which advances the depth by the frame's active slices).
 extern "C" int vpt_dos_halo_launch(
     const void* prepared, void* color, void* occlusion, void* scratch,
     void* depth, const void* max_depth, const void* slice_distance,
     const void* offsets, int slab_index, int num_slabs, int interleave,
     int masked, void* value, int k0, int count, int stage, int advance,
     void* stream) {
-  const VptDosExt& a = *static_cast<const VptDosExt*>(prepared);
+  const VptDosHalo& a = *static_cast<const VptDosHalo*>(prepared);
   VptDeviceGuard guard(a.device);
-  if (a.filter != 0 || k0 < 0 || count < 0 || count > kHaloChunk
-      || k0 + count > a.steps || num_slabs < 1 || interleave < 1
-      || slab_index < 0 || slab_index >= num_slabs
-      || a.d % (num_slabs * interleave) != 0)
+  if (a.filter != 0 || k0 < 0 || count < 1 || k0 + count > a.steps
+      || num_slabs < 1 || interleave < 1 || slab_index < 0
+      || slab_index >= num_slabs || a.d % (num_slabs * interleave) != 0
+      || a.planes == nullptr || a.d > kVptMaxPlanes)
     return (int)cudaErrorInvalidValue;
   VptDosExt args = a;
   VptDosFrame frame = {static_cast<float4*>(color),
@@ -954,17 +975,20 @@ extern "C" int vpt_dos_halo_launch(
                        static_cast<const float*>(offsets), nullptr};
   float* values = static_cast<float*>(value);
   if (stage == 0) {
-    const void* kernel = pick_halo_fetch(a.channels, a.table_bf16, false);
+    const void* kernel = pick_halo_fetch(a.channels, a.table_bf16);
     if (kernel == nullptr) return (int)cudaErrorInvalidValue;
     VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
+    const int2* planes = a.planes;
     int row0 = 0, band_h = a.height;
-    void* params[] = {&args, &frame, &slab, &values, &k0, &count, &row0,
-                      &band_h};
+    void* params[] = {&args, &frame, &slab, &planes, &values, &k0, &count,
+                      &row0, &band_h};
     const long long n = (long long)a.width * a.height;
-    if (n <= 0 || count == 0) return 0;
+    if (n <= 0) return 0;
     return (int)cudaLaunchKernel(
-        kernel, dim3((unsigned)((n + kThreads - 1) / kThreads)),
-        dim3(kThreads), params, 0, (cudaStream_t)stream);
+        kernel, dim3((unsigned)((n + kThreads - 1) / kThreads),
+                     (unsigned)((count + kHaloChunk - 1) / kHaloChunk)),
+        dim3(kThreads), params, (size_t)a.d * sizeof(int2),
+        (cudaStream_t)stream);
   }
   if (stage != 1) return (int)cudaErrorInvalidValue;
   const void* kernel = pick_halo_fold(a.channels, a.table_bf16, a.tf_mode);
@@ -998,7 +1022,7 @@ int band_frame_check(const VptDosBandFrame& f) {
       || slab.count < 1 || slab.interleave < 1 || slab.index < 0
       || slab.index >= slab.count || a.d % (slab.count * slab.interleave)
       || a.planes == nullptr || a.d > kVptMaxPlanes || f.value == nullptr
-      || pick_halo_fetch(a.channels, a.table_bf16, true) == nullptr
+      || pick_halo_fetch(a.channels, a.table_bf16) == nullptr
       || pick_halo_band(a.channels, a.table_bf16, a.tf_mode) == nullptr)
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -1037,7 +1061,7 @@ extern "C" int vpt_dos_band_fetch(const void* frame, int k, void* stream) {
                     &count, &row0, &band_h};
   const long long n = (long long)a.width * band_h;
   return (int)cudaLaunchKernel(
-      pick_halo_fetch(a.channels, a.table_bf16, true),
+      pick_halo_fetch(a.channels, a.table_bf16),
       dim3((unsigned)((n + kThreads - 1) / kThreads)), dim3(kThreads),
       params, (size_t)a.d * sizeof(int2), (cudaStream_t)stream);
 }
@@ -1080,25 +1104,26 @@ extern "C" int vpt_dos_band_slice(const void* frame, const void* ext,
       dim3(kThreads), params, row_bytes, (cudaStream_t)stream);
 }
 
-// The launch shape of the halo instance's stage (0 the fetch, 1 the fold,
-// 2 a band's fetch through the plane map, whose d * 8 bytes of shared
-// memory a block come on top) for flags (1 bf16 rows, 4 two channels), the
-// TF lookup mode and N =
-// samples disk taps on `device`: vpt_dos_sweep_info's values for a chunk of
-// kHaloChunk slices (the fold's cooperative grid is its resident blocks
-// times the SMs).  Launches nothing.
+// The launch shape of the halo instance's stage (0 the fetch of a frame or
+// a band, through the plane map, whose d * 8 bytes of shared memory a block
+// come on top; 1 the fold) for flags (1 bf16 rows, 4 two channels), the TF
+// lookup mode, N = samples disk taps and a fold of `steps` slices on
+// `device`: vpt_dos_sweep_info's values (the fold's cooperative grid is its
+// resident blocks times the SMs, with the rows of `steps` slices in shared
+// memory).  Launches nothing.
 extern "C" int vpt_dos_halo_info(int stage, int flags, int tf_mode,
-                                 int samples, int device, int* out) {
+                                 int samples, int steps, int device,
+                                 int* out) {
   VptDeviceGuard guard(device);
   const int channels = (flags & 4) ? 2 : 1;
-  const void* kernel =
-      stage == 1 ? pick_halo_fold(channels, flags & 1, tf_mode)
-                 : pick_halo_fetch(channels, flags & 1, stage == 2);
-  if (kernel == nullptr || samples < 1
+  const void* kernel = stage == 1
+                           ? pick_halo_fold(channels, flags & 1, tf_mode)
+                           : pick_halo_fetch(channels, flags & 1);
+  if (kernel == nullptr || samples < 1 || steps < 1
       || (kHead + 4 * samples) * sizeof(float) > kRowBytes)
     return (int)cudaErrorInvalidValue;
-  if (stage < 0 || stage > 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = stage == 1 ? shared_bytes(kHaloChunk, samples) : 0;
+  if (stage < 0 || stage > 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = stage == 1 ? shared_bytes(steps, samples) : 0;
   int per_sm = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, kernel, kThreads, smem);
@@ -1110,7 +1135,8 @@ extern "C" int vpt_dos_halo_info(int stage, int flags, int tf_mode,
   if (err != cudaSuccess) return (int)err;
   const int values[] = {kThreads, per_sm, sms, attr.numRegs,
                         (int)attr.localSizeBytes, (int)attr.sharedSizeBytes,
-                        (int)smem, kHaloChunk};
+                        (int)smem,
+                        stage == 1 ? dos_chunk(steps, samples) : kHaloChunk};
   for (int k = 0; k < 8; ++k) out[k] = values[k];
   return 0;
 }

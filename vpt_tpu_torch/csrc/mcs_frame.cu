@@ -48,8 +48,10 @@
 // and corner-row fetches (one atomic a warp); the render path launches the
 // one without.
 //
-// A HaloScene's frame runs mcs_halo_kernel (below): the same tracking, a
-// launch a fetch around the all-reduce of its values.
+// A HaloScene's frame runs mcs_halo_kernel and mcs_halo_tail_kernel
+// (below): the same tracking, a launch a fetch around the all-reduce of its
+// values, the launches after the first over a device list of the pixels
+// that still fetch, the host reading the list's length once a batch.
 //
 // Numerics follow the plain PyTorch frame (renderers/mcs.py) operation by
 // operation: built with -fmad=false, IEEE division and sqrt, NaN-
@@ -389,193 +391,312 @@ mcs_frame_ext_kernel(const VptMcsExt a, const VptMcsFrame f,
 // the diffuse colour or the transmittance), runs the pixel's tracking on to
 // its next fetch and writes that fetch's masked value (slab.cuh's cell; 0
 // where another rank owns it), or ends the pixel's frame (the running mean,
-// and a zero value from then on).  Each pixel takes mcs_frame's draws and
-// fetches in its order, with its kMaxIters cap on each loop, so on one slab
-// a frame equals the whole-scene kernel's bit for bit.  Each launch counts
-// its pixels that fetch (live[e & 1], one atomic a warp; it zeroes
-// live[(e + 1) & 1] for the next), and the host stops after the launch
-// that counts none: a frame is (the slowest pixel's fetches) + 1 launches
-// around as many all-reduces, never more than vpt_tpu's (distance
-// iterations + 1 + transmittance iterations).  Between launches a pixel
-// keeps its stream (rng), its phase and iteration (tag), its tracking
-// (track: dist, cheb, u or the transmittance, the shadow distance) and,
-// while it tracks its shadow, the diffuse colour; its ray and shadow
-// segment come again from the pixel index and dist.  A HaloScene has no
-// filter: kC is 0 (one channel, the cheb-skip table or not) or 2.
+// and a zero value from then on, which every later all-reduce sums as 0).
+// Each pixel takes mcs_frame's draws and fetches in its order, with its
+// kMaxIters cap on each loop, so on one slab a frame equals the
+// whole-scene kernel's bit for bit.  Between launches a pixel keeps its
+// stream (rng), its phase and iteration (tag), its tracking (track: dist,
+// cheb, u or the transmittance, the shadow distance) and, while it tracks
+// its shadow, the diffuse colour; its ray and shadow segment come again
+// from the pixel index and dist.  A HaloScene has no filter: kC is 0 (one
+// channel, the cheb-skip table or not) or 2.
+//
+// Which pixels a launch visits: launch 0 (mcs_halo_kernel) runs the tile
+// grid over every pixel; each pixel that fetches appends its id to the
+// launch's list (one atomic a warp: its ballot's count at live[0], then each
+// fetching lane at the warp's base plus its rank).  Launch e > 0
+// (mcs_halo_tail_kernel) is a persistent grid (the instance's resident
+// blocks times the SMs) whose threads walk launch e - 1's list by grid
+// stride, its length read from the card, and build launch e's list and
+// count: the slowest pixel's tail costs a few blocks, not the tile grid.  A
+// block whose share of the list is empty returns before it stages the TF
+// row, so a launch after the frame's end changes nothing.  The values stay
+// indexed by pixel (the all-reduce sums n x channels floats whatever the
+// lists' order, which atomics set).  The host reads a launch's count only at
+// the end of a batch of launches (kernels/mcs_frame.halo_schedule): launch
+// e's count sits in live[e % kMcsSlots], which launch e + 1 reads and launch
+// e + 2 zeroes for its own successor; the read's copy goes on the stream
+// right after the batch's last launch, so it lands before that slot is
+// zeroed, whatever the batch's length.  The schedule depends on the counts
+// alone, which every rank reads alike.
 struct VptMcsHalo {
   uint32_t* rng;         // (n,) the stream
   int* tag;              // (n,) McsPhase | iteration << 2
   float4* track;         // (n,) dist, cheb, u or trans, dist2
   float4* diffuse;       // (n,) the diffuse colour
   float* value;          // (n, kC or 1) the pending fetch's value, summed
-  int* live;             // (2,) the pixels that fetch, by launch parity
+  int* live;             // (kMcsSlots,) launch e's count of the pixels that
+                         // fetch, in slot e % kMcsSlots
+  int* list;             // (2, n) their ids: launch e's in half e & 1
   VptSlab slab;
-  int launch;            // e; 0 starts the frame
+};
+
+// A halo frame, filled once by the wrapper (kernels/mcs_frame.py, a ctypes
+// Structure of this layout) and checked once (vpt_mcs_halo_check): the
+// scene's prepared arguments, the state, the scratch and the slab, the
+// frame's scalars (set each frame) and the tail's persistent grid.
+struct VptMcsHaloFrame {
+  const VptMcsExt* args;
+  float4* state;         // (height, width, 4), in place
+  VptMcsHalo halo;
+  VptMcsFrame frame;
+  int tail_blocks;       // the grid of launches after the first: the
+                         // persistent grid, or once the host has read a
+                         // count no more blocks than its entries (counts
+                         // only fall), set by the wrapper a batch
 };
 
 enum McsPhase { kPath = 0, kDiffuse = 1, kShadow = 2, kDone = 3 };
 
+// the count slots of a frame's launches (see VptMcsHalo): the one a launch
+// reads, the one it writes and the one it zeroes for the next
+constexpr int kMcsSlots = 3;
+
+// Pixel (x, y)'s step of launch e of a halo frame (kFirst: e = 0, which
+// starts its tracking; later launches finish its pending fetch first, with
+// the TF row in s_tf).  Returns whether it fetches: it then wrote the
+// fetch's masked value and its carry; otherwise it ended its frame.
+template <bool kBf16, bool kMap, int kC, bool kFirst>
+__device__ __forceinline__ bool mcs_halo_pixel(
+    const VptMcsExt& a, const VptMcsFrame& f, const VptMcsHalo& h,
+    float4* __restrict__ state, const float4* s_tf, const float* s_mvp,
+    int x, int y) {
+  constexpr int kV = kC == 2 ? 2 : 1;
+  bool fetch = false;
+  const int i = y * a.width + x;
+  // a later launch's carry, read at once: none of these loads waits for
+  // another
+  int tag = kPath;
+  uint32_t s_in = 0u;
+  float4 tr_in = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float2 v_in = make_float2(0.0f, 0.0f);
+  if (!kFirst) {
+    tag = h.tag[i];
+    s_in = h.rng[i];
+    tr_in = h.track[i];
+    const float* pv = h.value + kV * (long long)i;
+    v_in = make_float2(pv[0], kV == 2 ? pv[1] : 0.0f);
+  }
+  if ((tag & 3) == kDone) return false;
+  const bool skip = kC == 0 && a.use_skip != 0;
+  const float4 env = kMap ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                          : make_float4(__ldg(a.env), __ldg(a.env + 1),
+                                        __ldg(a.env + 2), __ldg(a.env + 3));
+  const McsRay r = mcs_ray(a, s_mvp, x, y);
+  int phase = tag & 3, it = tag >> 2;
+  uint32_t s;
+  float4 tr;                 // dist, cheb, u or trans, dist2
+  float4 diffuse = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  bool have_diffuse = false, path_ended = false, finish = false;
+  float4 frame = env;
+  float q[3] = {0.0f, 0.0f, 0.0f};  // the next fetch's position
+  if (kFirst) {
+    s = vpt_seed_pixel(r.ndcx, r.ndcy, f.seed);
+    tr = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r.miss) {
+      frame = mcs_unscattered<kMap>(a, env, r);
+      finish = true;
+    }
+  } else {
+    // the pending fetch, from the value summed over the slabs
+    s = s_in;
+    tr = tr_in;
+    float cheb_new;
+    const float4 c = mcs_value_color<kBf16, kC>(a, s_tf, v_in, skip,
+                                                &cheb_new);
+    if (phase == kPath) {
+      if (skip) tr.y = cheb_new;
+      path_ended = tr.z < c.w;         // a collision
+    } else if (phase == kDiffuse) {
+      diffuse = c;
+      have_diffuse = true;
+      phase = kShadow;
+      it = 0;
+      tr = make_float4(tr.x, 0.0f, 1.0f, 0.0f);
+    } else {
+      tr.z = tr.z * (1.0f - c.w);
+      if (skip) tr.y = cheb_new;
+    }
+  }
+  if (!finish && phase == kPath && !path_ended) {
+    // sampleDistance's next iteration: a path that leaves the segment
+    // takes 1 draw, one that stays takes 2 and a fetch
+    if (it < kMaxIters) {
+      uint32_t s1 = s;
+      const float ndist = tr.x + mcs_free_path(s1, a, skip, tr.y);
+      tr.x = ndist;
+      ++it;
+      if (ndist > r.maxc) {
+        s = s1;
+        path_ended = true;
+      } else {
+        const float fr = ndist / r.maxc;
+        tr.z = vpt_uniform(s1);
+        s = s1;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) q[k] = r.start[k] + fr * r.seg[k];
+        fetch = true;
+      }
+    } else {
+      path_ended = true;
+    }
+  }
+  if (path_ended) {
+    if (!(tr.x > r.maxd)) {
+      // the scattering point: the diffuse fetch
+      const McsShadow sh = mcs_shadow(r, tr.x, f);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) q[k] = sh.sp[k];
+      phase = kDiffuse;
+      fetch = true;
+    } else {
+      frame = mcs_unscattered<kMap>(a, env, r);
+      finish = true;
+    }
+  }
+  if (!finish && !fetch && phase == kShadow) {
+    // sampleTransmittance's next iteration: one draw
+    const McsShadow sh = mcs_shadow(r, tr.x, f);
+    bool ended = true;
+    if (it < kMaxIters) {
+      const float ndist = tr.w + mcs_free_path(s, a, skip, tr.y);
+      tr.w = ndist;
+      ++it;
+      if (!(ndist > sh.sdc)) {
+        const float fr = ndist / sh.sdc;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) q[k] = sh.sp[k] + fr * sh.sseg[k];
+        fetch = true;
+        ended = false;
+      }
+    }
+    if (ended) {
+      if (!have_diffuse) diffuse = h.diffuse[i];
+      frame = mcs_scattered<kMap>(a, f, env, diffuse, tr.z);
+      finish = true;
+    }
+  }
+  float2 v = make_float2(0.0f, 0.0f);
+  if (fetch) {
+    const VptSlabCell cell = vpt_slab_cell(a.d, a.h, a.w, h.slab, q[0],
+                                           q[1], q[2]);
+    if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
+    h.rng[i] = s;
+    h.tag[i] = phase | (it << 2);
+    h.track[i] = tr;
+    if (have_diffuse && phase == kShadow) h.diffuse[i] = diffuse;
+  } else {
+    state[i] = mcs_mean(state[i], frame, f.frame_number);
+    h.tag[i] = kDone;
+  }
+  float* out = h.value + kV * (long long)i;
+  out[0] = v.x;
+  if (kV == 2) out[1] = v.y;
+  return fetch;
+}
+
+// Pixel i onto a launch's list (its count *live) where it fetches: the
+// warp's ballot, one atomic a warp, each fetching lane at the warp's base
+// plus its rank among them.  Every lane of the warp calls it.
+__device__ __forceinline__ void mcs_append(int* live, int* list, bool fetch,
+                                           int i) {
+  const unsigned m = __ballot_sync(0xFFFFFFFFu, fetch);
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == 0 && m != 0) base = atomicAdd(live, __popc(m));
+  base = __shfl_sync(0xFFFFFFFFu, base, 0);
+  if (fetch) list[base + __popc(m & ((1u << lane) - 1u))] = i;
+}
+
+// Launch 0 of a halo frame: the tile grid over every pixel (live[0] zeroed
+// by the host before it).
 template <bool kBf16, bool kMap, int kC>
 __global__ void __launch_bounds__(kVptTileThreads)
 mcs_halo_kernel(const VptMcsExt a, const VptMcsFrame f, const VptMcsHalo h,
                 float4* __restrict__ state) {
+  __shared__ float s_mvp[16];
+  if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
+  if (blockIdx.x == 0 && threadIdx.x == 0) h.live[1] = 0;
+  __syncthreads();
+  int x, y;
+  const bool inside = vpt_tile_pixel(a.width, a.height, &x, &y);
+  const bool fetch = inside && mcs_halo_pixel<kBf16, kMap, kC, true>(
+      a, f, h, state, nullptr, s_mvp, x, y);
+  mcs_append(h.live, h.list, fetch, y * a.width + x);
+}
+
+// Launch e > 0: the persistent grid over launch e - 1's list.
+template <bool kBf16, bool kMap, int kC>
+__global__ void __launch_bounds__(kVptTileThreads)
+mcs_halo_tail_kernel(const VptMcsExt a, const VptMcsFrame f,
+                     const VptMcsHalo h, float4* __restrict__ state,
+                     int launch) {
   extern __shared__ float4 s_tf[];
   __shared__ float s_mvp[16];
-  if (kC != 2 && h.launch > 0)
-    for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
-      s_tf[i] = a.tf_row[i];
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    h.live[(launch + 1) % kMcsSlots] = 0;
+  const long long n = (long long)a.width * a.height;
+  const int* in = h.list + ((launch - 1) & 1) * n;
+  const int first = blockIdx.x * kVptTileThreads;
+  // the thread's first entry, read beside the count (an entry past it is
+  // a stale id, never used)
+  const int head = first + (int)threadIdx.x < n ? in[first + threadIdx.x] : 0;
+  const int count = h.live[(launch - 1) % kMcsSlots];
+  if (first >= count) return;          // this block's share is empty
+  if (kC != 2)
+    for (int k = threadIdx.x; k < a.tw; k += blockDim.x) s_tf[k] = a.tf_row[k];
   if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
-  if (blockIdx.x == 0 && threadIdx.x == 0) h.live[(h.launch + 1) & 1] = 0;
   __syncthreads();
-  constexpr int kV = kC == 2 ? 2 : 1;
-  int x, y;
-  bool fetch = false;
-  const bool inside = vpt_tile_pixel(a.width, a.height, &x, &y);
-  const int i = y * a.width + x;
-  int tag = kPath;
-  if (inside && h.launch > 0) tag = h.tag[i];
-  if (inside && (tag & 3) != kDone) {
-    const bool skip = kC == 0 && a.use_skip != 0;
-    const float4 env = kMap ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
-                            : make_float4(__ldg(a.env), __ldg(a.env + 1),
-                                          __ldg(a.env + 2),
-                                          __ldg(a.env + 3));
-    const McsRay r = mcs_ray(a, s_mvp, x, y);
-    int phase = tag & 3, it = tag >> 2;
-    uint32_t s;
-    float4 tr;                 // dist, cheb, u or trans, dist2
-    float4 diffuse = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    bool have_diffuse = false, path_ended = false, finish = false;
-    float4 frame = env;
-    float q[3] = {0.0f, 0.0f, 0.0f};  // the next fetch's position
-    if (h.launch == 0) {
-      s = vpt_seed_pixel(r.ndcx, r.ndcy, f.seed);
-      tr = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (r.miss) {
-        frame = mcs_unscattered<kMap>(a, env, r);
-        finish = true;
-      }
-    } else {
-      // the pending fetch, from the value summed over the slabs
-      s = h.rng[i];
-      tr = h.track[i];
-      const float* pv = h.value + kV * (long long)i;
-      float cheb_new;
-      const float4 c = mcs_value_color<kBf16, kC>(
-          a, s_tf, make_float2(pv[0], kV == 2 ? pv[1] : 0.0f), skip,
-          &cheb_new);
-      if (phase == kPath) {
-        if (skip) tr.y = cheb_new;
-        path_ended = tr.z < c.w;         // a collision
-      } else if (phase == kDiffuse) {
-        diffuse = c;
-        have_diffuse = true;
-        phase = kShadow;
-        it = 0;
-        tr = make_float4(tr.x, 0.0f, 1.0f, 0.0f);
-      } else {
-        tr.z = tr.z * (1.0f - c.w);
-        if (skip) tr.y = cheb_new;
-      }
+  int* out = h.list + (launch & 1) * n;
+  int* live = h.live + launch % kMcsSlots;
+  const int stride = gridDim.x * kVptTileThreads;
+  // a warp's lanes take neighbouring entries, and every lane of it runs
+  // each round (mcs_append's ballot)
+  for (int base = first + (threadIdx.x & ~31); base < count; base += stride) {
+    const int k = base + (threadIdx.x & 31);
+    int i = 0;
+    bool fetch = false;
+    if (k < count) {
+      i = k == first + (int)threadIdx.x ? head : in[k];
+      fetch = mcs_halo_pixel<kBf16, kMap, kC, false>(
+          a, f, h, state, s_tf, s_mvp, i % a.width, i / a.width);
     }
-    if (!finish && phase == kPath && !path_ended) {
-      // sampleDistance's next iteration: a path that leaves the segment
-      // takes 1 draw, one that stays takes 2 and a fetch
-      if (it < kMaxIters) {
-        uint32_t s1 = s;
-        const float ndist = tr.x + mcs_free_path(s1, a, skip, tr.y);
-        tr.x = ndist;
-        ++it;
-        if (ndist > r.maxc) {
-          s = s1;
-          path_ended = true;
-        } else {
-          const float fr = ndist / r.maxc;
-          tr.z = vpt_uniform(s1);
-          s = s1;
-#pragma unroll
-          for (int k = 0; k < 3; ++k) q[k] = r.start[k] + fr * r.seg[k];
-          fetch = true;
-        }
-      } else {
-        path_ended = true;
-      }
-    }
-    if (path_ended) {
-      if (!(tr.x > r.maxd)) {
-        // the scattering point: the diffuse fetch
-        const McsShadow sh = mcs_shadow(r, tr.x, f);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) q[k] = sh.sp[k];
-        phase = kDiffuse;
-        fetch = true;
-      } else {
-        frame = mcs_unscattered<kMap>(a, env, r);
-        finish = true;
-      }
-    }
-    if (!finish && !fetch && phase == kShadow) {
-      // sampleTransmittance's next iteration: one draw
-      const McsShadow sh = mcs_shadow(r, tr.x, f);
-      bool ended = true;
-      if (it < kMaxIters) {
-        const float ndist = tr.w + mcs_free_path(s, a, skip, tr.y);
-        tr.w = ndist;
-        ++it;
-        if (!(ndist > sh.sdc)) {
-          const float fr = ndist / sh.sdc;
-#pragma unroll
-          for (int k = 0; k < 3; ++k) q[k] = sh.sp[k] + fr * sh.sseg[k];
-          fetch = true;
-          ended = false;
-        }
-      }
-      if (ended) {
-        if (!have_diffuse) diffuse = h.diffuse[i];
-        frame = mcs_scattered<kMap>(a, f, env, diffuse, tr.z);
-        finish = true;
-      }
-    }
-    float2 v = make_float2(0.0f, 0.0f);
-    if (fetch) {
-      const VptSlabCell cell = vpt_slab_cell(a.d, a.h, a.w, h.slab, q[0],
-                                             q[1], q[2]);
-      if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
-      h.rng[i] = s;
-      h.tag[i] = phase | (it << 2);
-      h.track[i] = tr;
-      if (have_diffuse && phase == kShadow) h.diffuse[i] = diffuse;
-    } else {
-      state[i] = mcs_mean(state[i], frame, f.frame_number);
-      h.tag[i] = kDone;
-    }
-    float* out = h.value + kV * (long long)i;
-    out[0] = v.x;
-    if (kV == 2) out[1] = v.y;
+    mcs_append(live, out, fetch, i);
   }
-  // every lane of the block reaches this: a warp's count, one atomic each
-  const unsigned n = __reduce_add_sync(0xFFFFFFFFu, fetch ? 1u : 0u);
-  if ((threadIdx.x & 31) == 0 && n > 0) atomicAdd(h.live + (h.launch & 1),
-                                                  (int)n);
 }
 
 using KernelHalo = void (*)(const VptMcsExt, const VptMcsFrame,
                             const VptMcsHalo, float4*);
+using KernelTail = void (*)(const VptMcsExt, const VptMcsFrame,
+                            const VptMcsHalo, float4*, int);
 
 // The halo instance for a bf16 table (flags & 1), an environment map
-// larger than 1x1 (flags & 4) and two channels (flags & 16).
-template <int kC>
-KernelHalo pick_halo_map(int flags) {
+// larger than 1x1 (flags & 4) and two channels (flags & 16): launch 0's
+// tile grid, or (kTail) the persistent grid of the launches after it.
+template <bool kTail, int kC, bool kBf16, bool kMap>
+auto halo_kernel() {
+  if constexpr (kTail) return mcs_halo_tail_kernel<kBf16, kMap, kC>;
+  else return mcs_halo_kernel<kBf16, kMap, kC>;
+}
+
+template <bool kTail, int kC>
+auto pick_halo_map(int flags) {
   switch (flags & 5) {
-    case 0: return mcs_halo_kernel<false, false, kC>;
-    case 1: return mcs_halo_kernel<true, false, kC>;
-    case 4: return mcs_halo_kernel<false, true, kC>;
-    default: return mcs_halo_kernel<true, true, kC>;
+    case 0: return halo_kernel<kTail, kC, false, false>();
+    case 1: return halo_kernel<kTail, kC, true, false>();
+    case 4: return halo_kernel<kTail, kC, false, true>();
+    default: return halo_kernel<kTail, kC, true, true>();
   }
 }
 
 KernelHalo pick_halo(int flags) {
-  return (flags & 16) ? pick_halo_map<2>(flags) : pick_halo_map<0>(flags);
+  return (flags & 16) ? pick_halo_map<false, 2>(flags)
+                      : pick_halo_map<false, 0>(flags);
+}
+
+KernelTail pick_halo_tail(int flags) {
+  return (flags & 16) ? pick_halo_map<true, 2>(flags)
+                      : pick_halo_map<true, 0>(flags);
 }
 
 size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
@@ -753,65 +874,83 @@ extern "C" int vpt_mcs_info(int flags, int tw, int device, int* out) {
                            : info(pick(render & 5), smem, device, out));
 }
 
-// One launch of the halo instance (see VptMcsHalo): prepared is the
-// VptMcsExt of the HaloScene, Params and resolution (table: the rank's slab
-// rows of the corner or, with use_skip, the cheb-skip table; d, h, w the
-// whole volume's; no filter); seed, the scatter direction and n as
-// vpt_mcs_launch's; the slab (its index of num_slabs, the thin slabs a rank
-// and whether the fetch is masked); the scratch (rng, tag, track, diffuse
-// of (n,), value of (n, channels), live of 2); launch e, 0 for the frame's
-// first.  Writes to *live the pixels that fetch (a read back from the card
-// and a wait for the stream): 0 ends the frame.
-extern "C" int vpt_mcs_halo_launch(
-    const void* prepared, void* state, float seed, float sx, float sy,
-    float sz, float frame_number, int slab_index, int num_slabs,
-    int interleave, int masked, void* rng, void* tag, void* track,
-    void* diffuse, void* value, void* live_counts, int launch, int* live,
-    void* stream) {
-  const VptMcsExt& a = *static_cast<const VptMcsExt*>(prepared);
+namespace {
+
+// the halo instance's flags of a prepared VptMcsExt (pick_halo's)
+int halo_flags(const VptMcsExt& a) {
+  return (a.table_bf16 ? 1 : 0) | (a.env_h == 1 && a.env_w == 1 ? 0 : 4)
+         | (a.channels == 2 ? 16 : 0);
+}
+
+}  // namespace
+
+// 0 where the halo frame (see VptMcsHaloFrame: args the VptMcsExt of the
+// HaloScene, Params and resolution, table the rank's slab rows of the corner
+// or, with use_skip, the cheb-skip table, d, h, w the whole volume's, no
+// filter) is one its launches can run, else a CUDA error code; it lets the
+// tail's instance take its TF row's shared memory.  Launches nothing.
+extern "C" int vpt_mcs_halo_check(const void* frame) {
+  const VptMcsHaloFrame& fr = *static_cast<const VptMcsHaloFrame*>(frame);
+  const VptMcsExt& a = *fr.args;
   VptDeviceGuard guard(a.device);
-  *live = 0;
-  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
+  const VptSlab& slab = fr.halo.slab;
   if ((a.channels != 1 && a.channels != 2) || a.filter != 0
       || (a.channels == 2 && a.use_skip) || a.row0 < 0
-      || a.full_height < a.row0 + a.height || launch < 0 || num_slabs < 1
-      || interleave < 1 || slab_index < 0 || slab_index >= num_slabs
-      || a.d % (num_slabs * interleave) != 0)
+      || a.full_height < a.row0 + a.height || slab.count < 1
+      || slab.interleave < 1 || slab.index < 0 || slab.index >= slab.count
+      || a.d % (slab.count * slab.interleave) != 0 || fr.tail_blocks < 1
+      || fr.halo.live == nullptr || fr.halo.list == nullptr)
     return (int)cudaErrorInvalidValue;
-  const int flags = (a.table_bf16 ? 1 : 0)
-                    | (a.env_h == 1 && a.env_w == 1 ? 0 : 4)
-                    | (a.channels == 2 ? 16 : 0);
-  const KernelHalo kernel = pick_halo(flags);
-  const size_t smem = tf_smem(flags, a.tw);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int* counts = static_cast<int*>(live_counts);
-  if (launch == 0) {
-    err = cudaMemsetAsync(counts, 0, sizeof(int), (cudaStream_t)stream);
+  const int flags = halo_flags(a);
+  return (int)allow_smem(pick_halo_tail(flags), tf_smem(flags, a.tw));
+}
+
+// Launches e = launch .. launch + count - 1 of the checked halo frame, back
+// to back on the stream (the caller all-reduces the values between two when
+// its group sums them); launch 0 zeroes live[0] first.  read: null, or host
+// memory (pinned) into which the last launch's count of the pixels that
+// fetch is copied after it, on the stream: 0 ends the frame.
+extern "C" int vpt_mcs_halo_run(const void* frame, int launch, int count,
+                                void* read, void* stream) {
+  const VptMcsHaloFrame& fr = *static_cast<const VptMcsHaloFrame*>(frame);
+  const VptMcsExt& a = *fr.args;
+  VptDeviceGuard guard(a.device);
+  if (launch < 0 || count < 1) return (int)cudaErrorInvalidValue;
+  if (a.width <= 0 || a.height <= 0) {
+    if (read != nullptr) *static_cast<int*>(read) = 0;
+    return 0;
+  }
+  const int flags = halo_flags(a);
+  const cudaStream_t s = (cudaStream_t)stream;
+  for (int e = launch; e < launch + count; ++e) {
+    if (e == 0) {
+      const cudaError_t err = cudaMemsetAsync(fr.halo.live, 0, sizeof(int),
+                                              s);
+      if (err != cudaSuccess) return (int)err;
+      pick_halo(flags)<<<(unsigned)vpt_tile_blocks(a.width, a.height),
+                         kVptTileThreads, 0, s>>>(a, fr.frame, fr.halo,
+                                                  fr.state);
+    } else {
+      pick_halo_tail(flags)<<<(unsigned)fr.tail_blocks, kVptTileThreads,
+                              tf_smem(flags, a.tw), s>>>(
+          a, fr.frame, fr.halo, fr.state, e);
+    }
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const VptMcsFrame f = {seed, sx, sy, sz, frame_number};
-  const VptMcsHalo h = {static_cast<uint32_t*>(rng), static_cast<int*>(tag),
-                        static_cast<float4*>(track),
-                        static_cast<float4*>(diffuse),
-                        static_cast<float*>(value), counts,
-                        {slab_index, num_slabs, interleave, masked ? 1 : 0},
-                        launch};
-  const unsigned blocks = (unsigned)vpt_tile_blocks(a.width, a.height);
-  kernel<<<blocks, kVptTileThreads, smem, (cudaStream_t)stream>>>(
-      a, f, h, (float4*)state);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemcpyAsync(live, counts + (launch & 1), sizeof(int),
-                        cudaMemcpyDeviceToHost, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaStreamSynchronize((cudaStream_t)stream);
+  if (read == nullptr) return 0;
+  return (int)cudaMemcpyAsync(
+      read, fr.halo.live + (launch + count - 1) % kMcsSlots, sizeof(int),
+      cudaMemcpyDeviceToHost, s);
 }
 
 // The launch shape of the halo instance for flags (1 a bf16 table, 4 an
-// environment map larger than 1x1, 16 two channels) and a TF row of `tw`
-// texels on `device`: vpt_mcs_info's values.  Launches nothing.
+// environment map larger than 1x1, 16 two channels, 32 the tail's
+// persistent instance, which holds the TF row in shared memory) and a TF
+// row of `tw` texels on `device`: vpt_mcs_info's values.  Launches nothing.
 extern "C" int vpt_mcs_halo_info(int flags, int tw, int device, int* out) {
   VptDeviceGuard guard(device);
-  return (int)info(pick_halo(flags), tf_smem(flags, tw), device, out);
+  if (flags & 32)
+    return (int)info(pick_halo_tail(flags), tf_smem(flags, tw), device, out);
+  return (int)info(pick_halo(flags), 0, device, out);
 }

@@ -24,9 +24,10 @@
 // masked: the cell is local where this rank owns it (the halo's
 // ownership-masked fetch); unmasked, every cell is local (the resident
 // machine's fetch, whose caller owns every position it samples).  Both are
-// warp-uniform arguments.  K10's halo instance and K9's halo band fetch
-// read the same integers from the slab's plane map (vpt_slab_plane), built
-// once on the host, in place of vpt_slab_z's integer divisions.
+// warp-uniform arguments.  K10's halo instance and K9's halo fetch (of a
+// frame and of a band) read the same integers from the slab's plane map
+// (vpt_slab_plane), built once on the host, in place of vpt_slab_z's
+// integer divisions.
 #pragma once
 
 #include <cstdint>

@@ -123,13 +123,13 @@ SIGNATURES = {
     # flags (1 bf16, 4 an environment map, 8 ext, 16 two channels), TW,
     # device, out
     "vpt_mcs_info": [_I, _I, _I, _P],
-    # prepared VptMcsExt of a slab, state; seed, direction xyz, n; slab
-    # index, slabs, interleave, masked; rng, tag, track, diffuse, value,
-    # live counts; launch, live (out); stream
-    "vpt_mcs_halo_launch": ([_P, _P] + [_F] * 5 + [_I] * 4 + [_P] * 6
-                            + [_I, _P, _P]),
-    # flags (1 bf16, 4 an environment map, 16 two channels), TW, device,
-    # out
+    # a prepared VptMcsHaloFrame
+    "vpt_mcs_halo_check": [_P],
+    # a checked VptMcsHaloFrame; first launch, launches, read (pinned host
+    # int or null); stream
+    "vpt_mcs_halo_run": [_P, _I, _I, _P, _P],
+    # flags (1 bf16, 4 an environment map, 16 two channels, 32 the tail),
+    # TW, device, out
     "vpt_mcs_halo_info": [_I, _I, _I, _P],
     # the argument list every build since the port exports: state; table,
     # bf16, D, H, W, TF row, TW, TF mode, MVP, env; width, height; seed,
@@ -152,9 +152,9 @@ SIGNATURES = {
     # depth, max depth, slice distance, offsets; slab index, slabs,
     # interleave, masked; value; k0, count, stage, advance; stream
     "vpt_dos_halo_launch": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 4 + [_P],
-    # stage (0 fetch, 1 fold, 2 a band's fetch), flags (1 bf16, 4 two
-    # channels), TF mode, disk taps, device, out
-    "vpt_dos_halo_info": [_I, _I, _I, _I, _I, _P],
+    # stage (0 the fetch of a frame or a band, 1 the fold), flags (1 bf16,
+    # 4 two channels), TF mode, disk taps, the fold's slices, device, out
+    "vpt_dos_halo_info": [_I, _I, _I, _I, _I, _I, _P],
     # prepared VptLaoArgs, state; stream
     "vpt_lao_launch": [_P, _P, _P],
     # prepared VptLaoArgs, state, counts; stream

@@ -36,15 +36,17 @@ the kernel's rows equal :func:`slice_table`'s bit for bit;
 :func:`slice_rows_plain` is the kernel's row computation in numpy float32
 scalars.  :data:`LAUNCHES` counts kernel launches: one a frame.  A frame
 over a ``parallel.halo.HaloScene`` (a rank's z slab) runs the kernel's
-halo instance on the card (:func:`halo_sweep_frame`); its plain twin is
-:func:`sweep_frame_plain` over the same scene.  A band of rows
+halo instance on the card (:func:`halo_sweep_frame`: one fetch of every
+slice's masked values, one all-reduce and one cooperative fold a frame,
+no read from the card); its plain twin is :func:`sweep_frame_plain` over
+the same scene.  A band of rows
 (:func:`band_slice`, a slice a launch of the band instance) over a
 HaloScene runs the band's halo instance, whose plain twin is
 :func:`band_slice_plain` over the same scene.  A band's frame is checked
 and prepared once (:func:`band_frame`, a ``VptDosBandFrame`` holding the
 state's pointers), so that a slice's call passes the slice and the
-previous occlusion only; the halo band's fetch places its cells through
-the slab's plane map (``_build.slab_plane_map``).
+previous occlusion only; the halo fetch, a frame's and a band's, places
+its cells through the slab's plane map (``_build.slab_plane_map``).
 """
 
 from __future__ import annotations
@@ -62,15 +64,17 @@ from . import _build
 LAUNCHES = 0
 #: launches of the band instance (one a slice), likewise
 BAND_LAUNCHES = 0
-#: launches of the halo instance (two a chunk of HALO_CHUNK active
-#: slices), likewise
+#: launches of the halo instance (a fetch and a fold a frame; a chunk of
+#: :func:`halo_chunk` slices each past HALO_VALUE_BYTES), likewise
 HALO_LAUNCHES = 0
 #: launches of the halo band instance (a fetch a chunk of HALO_CHUNK
 #: active slices and a fold a slice), likewise
 HALO_BAND_LAUNCHES = 0
-#: slices a halo fetch samples (``kHaloChunk``; vpt_tpu's sweep samples 8
-#: slices a ``sample_color``, one ``psum`` each)
+#: slices a halo band's fetch samples (``kHaloChunk``; vpt_tpu's sweep
+#: samples 8 slices a ``sample_color``, one ``psum`` each)
 HALO_CHUNK = 8
+#: the most bytes of a halo frame's values that one fetch writes
+HALO_VALUE_BYTES = 1 << 30
 #: the leading floats of a table row (``dos.TABLE_HEAD``)
 _HEAD = 4
 #: the most disk taps the kernel takes: a block holds at least one row of
@@ -340,7 +344,7 @@ class BandFrame:
             if value is None:
                 value = p.band_values[row0, band_h] = torch.empty(
                     HALO_CHUNK * band_h * width * p.args.channels,
-                    dtype=torch.float32, device=p.value.device)
+                    dtype=torch.float32, device=p.scratch.device)
         self.value = value
         self.args = _BandFrameArgs(
             p.address, *(t.data_ptr() for t in self.tensors[:2]), None,
@@ -441,11 +445,31 @@ def _halo_fields(scene):
             scene.projection, scene.tf_mxu, scene.transfer_packed)
 
 
+def halo_chunk(steps: int, pixels: int, channels: int, cap=None) -> int:
+    """The slices a halo frame samples in one fetch: all of its ``steps``
+    where their values (4 bytes a pixel, channel and slice) fit in ``cap``
+    bytes (by default HALO_VALUE_BYTES), else the most that fit, at least
+    1."""
+    cap = HALO_VALUE_BYTES if cap is None else cap
+    per_slice = 4 * max(pixels, 1) * channels
+    return max(1, min(steps, cap // per_slice))
+
+
+def halo_chunks(steps: int, chunk: int):
+    """A halo frame's chunks of slices, as (first slice, slices, last)
+    tuples: one of all ``steps`` where ``chunk`` (:func:`halo_chunk`) holds
+    them, each a fetch, an all-reduce and a fold, the last fold advancing
+    the depth."""
+    return [(k0, min(chunk, steps - k0), k0 + chunk >= steps)
+            for k0 in range(0, steps, chunk)]
+
+
 def _prepare_halo(scene, key):
     """What every halo frame of ``key`` = (params, height, width) takes of
-    a HaloScene: the ``VptDosExt`` of its slab rows with the fold's
-    cooperative grid, the second occlusion buffer and the chunk's
-    (HALO_CHUNK, n, channels) values."""
+    a HaloScene: the ``VptDosHalo`` of its slab rows (its plane map) with
+    the fold's cooperative grid for a chunk of :func:`halo_chunk` slices,
+    the second occlusion buffer; the chunk's (chunk, n, channels) values
+    are allocated at the first frame (a band allocates its own)."""
     from ..renderers import dos
 
     params, height, width = key
@@ -459,8 +483,10 @@ def _prepare_halo(scene, key):
               th, channels) = _build.slab_scene(scene)
     projection = scene.projection.to(torch.float32).contiguous()
     dev = tensors[0].device
+    n = height * width
+    chunk = halo_chunk(params.steps, n, channels)
     occ = halo_occupancy(1, tensors[0].dtype, tf_mode, params.samples,
-                         dev.index, channels)
+                         dev.index, channels, steps=chunk)
     blocks = occ["blocks_per_sm"] * occ["sms"]
     if blocks == 0:
         raise RuntimeError("the DOS halo fold fits no block on an SM")
@@ -471,16 +497,14 @@ def _prepare_halo(scene, key):
                      float(dos._tan_aperture(params, scene.device)), blocks,
                      dev.index, tf_table, th, channels, 0,
                      planes.data_ptr())
-    n = height * width
     return _build.Prepared(
         tensors=(*tensors, projection, planes), args=args,
         address=ctypes.addressof(args), device=dev.index,
         color_shape=torch.Size((height, width, 4)),
         occlusion_shape=torch.Size((height, width)),
         scratch=torch.empty((height, width), dtype=torch.float32,
-                            device=dev),
-        value=torch.empty(HALO_CHUNK * n * channels, dtype=torch.float32,
-                          device=dev), band_values={}, band_frames={},
+                            device=dev), chunk=chunk, value=None,
+        values=chunk * n * channels, band_values={}, band_frames={},
         launch=_build.library().vpt_dos_halo_launch)
 
 
@@ -489,19 +513,20 @@ _halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
 
 def halo_sweep_frame(state, scene, params):
     """``params.steps`` slices of the sweep over a HaloScene on the card,
-    in place on the DOS state.  The host counts the frame's active slices
-    (``dos.active_slices``, one read of the state's depths); each chunk of
-    up to HALO_CHUNK of them is a launch of the halo instance's fetch (the
-    masked values of this rank's slab rows), one all-reduce
-    (``HaloScene.reduce_``) and a cooperative launch of its fold (the
-    chunk's slices as K9 runs them, from the summed values); the last fold
-    advances the depth.  So a frame is ceil(n / HALO_CHUNK) all-reduces for
-    n active slices, as vpt_tpu's ``psum`` a ``sample_color`` of 8 slices,
-    where the plain twin sums a slice at a time; with none active, one fold
-    that advances the depth by 0.  Equal bit for bit to
+    in place on the DOS state: a launch of the halo instance's fetch (this
+    rank's masked values of every slice of the frame, 0 past the far
+    depth, which the card decides from the state's depth), one all-reduce
+    of them (``HaloScene.reduce_``) and a cooperative launch of its fold
+    (the slices as K9 runs them, from the summed values, up to the first
+    past the far depth), which advances the depth.  So a frame is 2
+    launches and one all-reduce and reads nothing back, where vpt_tpu
+    ``psum``s a ``sample_color`` of 8 slices and the plain twin a slice at
+    a time; a frame after the sweep's end takes the same 2 and 1 and
+    changes nothing but the depth's advance by 0.  Values past
+    HALO_VALUE_BYTES go in chunks of :func:`halo_chunk` slices, each a
+    fetch, an all-reduce and a fold.  Equal bit for bit to
     :func:`sweep_frame` on the whole scene."""
     global HALO_LAUNCHES
-    from ..renderers import dos
 
     color, occlusion = state["color"], state["occlusion"]
     if not color.is_cuda:
@@ -521,37 +546,33 @@ def halo_sweep_frame(state, scene, params):
     scalars = [state[k] for k in ("depth", "max_depth", "slice_distance")]
     for key, value in zip(("depth", "max_depth", "slice_distance"), scalars):
         _check_tensor(value, (), device, key)
-    n_active = dos.active_slices(state, params)
+    if p.value is None:
+        p.value = torch.empty(p.values, dtype=torch.float32, device=device)
     stream = _build.current_stream(p.device)
     head = (p.address, color.data_ptr(), occlusion.data_ptr(),
             p.scratch.data_ptr(), *(v.data_ptr() for v in scalars),
             offsets.data_ptr(), scene.slab_index, scene.num_slabs,
             scene.interleave, int(scene.collective), p.value.data_ptr())
-    starts = list(range(0, n_active, HALO_CHUNK)) or [0]
-    for k0 in starts:
-        count = min(HALO_CHUNK, n_active - k0)
-        last = int(k0 == starts[-1])
-        if count > 0:
-            _build.check("vpt_dos_halo_launch",
-                         p.launch(*head, k0, count, 0, 0, stream))
-            HALO_LAUNCHES += 1
-            scene.reduce_(p.value)
+    for k0, count, last in halo_chunks(params.steps, p.chunk):
         _build.check("vpt_dos_halo_launch",
-                     p.launch(*head, k0, count, 1, last, stream))
-        HALO_LAUNCHES += 1
+                     p.launch(*head, k0, count, 0, 0, stream))
+        scene.reduce_(p.value)
+        _build.check("vpt_dos_halo_launch",
+                     p.launch(*head, k0, count, 1, int(last), stream))
+        HALO_LAUNCHES += 2
 
 
 def halo_occupancy(stage: int, table_dtype, tf_mode: int = 0,
                    samples: int = 8, device: int = 0,
-                   channels: int = 1) -> dict:
-    """The launch shape of the halo instance's fetch (``stage`` 0), its
-    cooperative fold (1) or a band's fetch through the plane map (2; the
-    map's D·8 bytes of shared memory a block come on top) for a chunk of
-    HALO_CHUNK slices, as :func:`occupancy`'s.  Launches nothing."""
+                   channels: int = 1, steps: int = HALO_CHUNK) -> dict:
+    """The launch shape of the halo instance's fetch (``stage`` 0, of a
+    frame or a band, through the plane map: the map's D·8 bytes of shared
+    memory a block come on top) or its cooperative fold of ``steps``
+    slices (1), as :func:`occupancy`'s.  Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
     flags = int(table_dtype == torch.bfloat16) | 4 * (channels == 2)
     _build.check("vpt_dos_halo_info", _build.library().vpt_dos_halo_info(
-        stage, flags, tf_mode, samples, device, out))
+        stage, flags, tf_mode, samples, steps, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))
 
 

@@ -25,8 +25,12 @@ tracking steps and corner-row fetches to it.
 
 A frame over a ``parallel.halo.HaloScene`` (a rank's z slab) runs the
 kernel's halo instance on the card (:func:`halo_mcs_frame`): a launch a
-fetch of the slowest pixel, and one more; its plain twin is
-:func:`mcs_frame_plain` over the same scene.
+fetch of the slowest pixel, and one more, the launches after the first over
+the card's list of the pixels that still fetch, issued in batches of
+:data:`HALO_BATCH` (:data:`HALO_REDUCE_BATCH` where the scene's group sums
+the values) between two host reads of the list's length
+(:func:`halo_schedule`); its plain twin is :func:`mcs_frame_plain` over the
+same scene.
 """
 
 from __future__ import annotations
@@ -40,10 +44,25 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
-#: launches of the halo instance (the slowest pixel's fetches + 1 a
-#: frame, each followed by a host read of the card's count of pixels that
-#: fetch), likewise
+#: launches of the halo instance (L + 1 to L + B a frame, L the slowest
+#: pixel's fetches, B the batch), likewise
 HALO_LAUNCHES = 0
+#: host reads of the halo instance's count of the pixels that fetch (one a
+#: batch of B launches), likewise
+HALO_READS = 0
+#: the halo frame's launches between two host reads where no collective
+#: sums the values (chosen on the H100 from 2, 4 and 8 by the call's time:
+#: PERF.md §6)
+HALO_BATCH = 8
+#: the same where the scene's group sums the values
+#: (``HaloScene.reduces``): each launch but the first then follows an
+#: all-reduce, which makes the host wait, so a surplus launch costs one
+#: more and a read little (chosen on the H100 from 1, 2, 4 and 8 by the
+#: call's time on two gloo ranks: PERF.md §6)
+HALO_REDUCE_BATCH = 1
+#: ``kMcsSlots`` of ``csrc/mcs_frame.cu``: the count slots a launch reads,
+#: writes and zeroes for the next
+_SLOTS = 3
 
 
 def mcs_frame_plain(state, scene, params, seed, frame_number, window=None):
@@ -163,12 +182,29 @@ def _halo_fields(scene):
             scene.transfer_packed)
 
 
+class _HaloFrameArgs(ctypes.Structure):
+    """``VptMcsHaloFrame`` of ``csrc/mcs_frame.cu``, its nested
+    ``VptMcsHalo`` (the scratch, the slab) and ``VptMcsFrame`` (the frame's
+    scalars) flattened: no C padding falls between them."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in
+                 ("args", "state", "rng", "tag", "track", "diffuse", "value",
+                  "live", "list")]
+                + [(name, ctypes.c_int) for name in
+                   ("slab_index", "num_slabs", "interleave", "masked")]
+                + [(name, ctypes.c_float) for name in
+                   ("seed", "sx", "sy", "sz", "frame_number")]
+                + [("tail_blocks", ctypes.c_int)])
+
+
 def _prepare_halo(scene, key):
     """What every halo frame of ``key`` = (params, height, width, row0,
-    full_height) takes of a HaloScene: the ``VptMcsExt`` of its slab rows
-    (the cheb-skip rows where it has them) and the frame's scratch between
-    the launches: each pixel's stream, phase, tracking, diffuse colour and
-    pending value, and the card's two counts of pixels that fetch."""
+    full_height) takes of a HaloScene, checked once
+    (``vpt_mcs_halo_check``): the ``VptMcsExt`` of its slab rows (the
+    cheb-skip rows where it has them) and the ``VptMcsHaloFrame`` around
+    it with the frame's scratch between the launches (each pixel's stream,
+    phase, tracking, diffuse colour and pending value; the card's count
+    slots and two lists of the pixels that fetch) and the tail's persistent
+    grid, the pinned word a read lands in and the event it waits on."""
     from ..renderers import mcs
 
     params, height, width, row0, full_height = key
@@ -191,37 +227,92 @@ def _prepare_halo(scene, key):
                                       device=dev),
                "value": torch.empty(n * channels, dtype=torch.float32,
                                     device=dev),
-               "live": torch.zeros(2, dtype=torch.int32, device=dev)}
+               "live": torch.zeros(_SLOTS, dtype=torch.int32, device=dev),
+               "list": torch.empty(2 * n, dtype=torch.int32, device=dev)}
+    occ = halo_occupancy(tensors[0].dtype, tw, dev.index,
+                         env_map=(eh, ew) != (1, 1), channels=channels,
+                         tail=True)
+    tail_blocks = occ["blocks_per_sm"] * occ["sms"]
+    if tail_blocks == 0:
+        raise RuntimeError("the MCS halo tail fits no block on an SM")
+    frame = _HaloFrameArgs(
+        ctypes.addressof(args), None,
+        *(scratch[k].data_ptr() for k in ("rng", "tag", "track", "diffuse",
+                                          "value", "live", "list")),
+        scene.slab_index, scene.num_slabs, scene.interleave,
+        int(scene.collective), 0.0, 0.0, 0.0, 0.0, 0.0, tail_blocks)
+    lib = _build.library()
+    _build.check("vpt_mcs_halo_check",
+                 lib.vpt_mcs_halo_check(ctypes.addressof(frame)))
+    read = torch.zeros(1, dtype=torch.int32, pin_memory=True)
     return _build.Prepared(
-        tensors=tensors, args=args, address=ctypes.addressof(args),
-        device=dev.index, shape=torch.Size((height, width, 4)),
-        scratch=scratch, pointers=tuple(t.data_ptr() for t in (
-            scratch["rng"], scratch["tag"], scratch["track"],
-            scratch["diffuse"], scratch["value"], scratch["live"])),
-        direction=mcs.scatter_direction,
-        launch=_build.library().vpt_mcs_halo_launch)
+        tensors=tensors, args=args, frame=frame, tail_blocks=tail_blocks,
+        tail_threads=occ["threads_per_block"],
+        address=ctypes.addressof(frame), device=dev.index,
+        shape=torch.Size((height, width, 4)), scratch=scratch,
+        read=read, count=ctypes.c_int.from_address(read.data_ptr()),
+        event=torch.cuda.Event(), direction=mcs.scatter_direction,
+        run=lib.vpt_mcs_halo_run)
 
 
 _halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
 
 
+def halo_schedule(launch, read, batch: int = HALO_BATCH):
+    """A halo frame's launches, in batches of ``batch`` between two host
+    reads: ``launch(e, k)`` issues launches e .. e + k - 1 back to back,
+    ``read()`` waits for the last one's count of the pixels that fetch,
+    and the frame ends after a batch whose last launch counts none.
+    Returns (launches, reads).  With L the slowest pixel's fetches
+    (launch L is the first to count none) a frame issues between L + 1 and
+    L + ``batch`` launches in ceil((L + 1) / ``batch``) reads.  It depends
+    on the counts alone: every rank of a group reads the same counts, so
+    every rank issues the same launches and all-reduces (never a poll of
+    the card, whose answer would depend on timing)."""
+    launches = reads = 0
+    while True:
+        launch(launches, batch)
+        launches += batch
+        reads += 1
+        if read() == 0:
+            return launches, reads
+
+
+def batch_calls(e: int, k: int, reduces: bool):
+    """The calls of ``vpt_mcs_halo_run`` that issue launches e .. e + k - 1
+    of a halo frame, as (first launch, launches, read after, all-reduce
+    before) tuples: one call of all k where the group sums nothing
+    (``reduces`` False), else one a launch, each but the frame's first
+    after the all-reduce of the values that the launch before it wrote;
+    the read after the batch's last launch.  So a frame's all-reduces are
+    its launches less one."""
+    if not reduces:
+        return [(e, k, True, False)]
+    return [(j, 1, j == e + k - 1, j > 0) for j in range(e, e + k)]
+
+
 def halo_mcs_frame(state, scene, params, seed, frame_number, window=None):
     """One MCS frame over a HaloScene on the card, in place on CUDA
-    ``state``.  Each launch of the halo instance finishes every pixel's
-    pending fetch from the value summed over the scene's group, tracks
-    each pixel on to its next fetch (the free path, the diffuse colour,
-    the shadow's transmittance, in ``mcs.generate``'s order and with its
+    ``state``.  Each launch of the halo instance finishes its pixels'
+    pending fetches from the values summed over the scene's group, tracks
+    each on to its next fetch (the free path, the diffuse colour, the
+    shadow's transmittance, in ``mcs.generate``'s order and with its
     ``_MAX_TRACKING_ITERS`` on each loop) and writes that fetch's masked
-    value, or ends the pixel's frame; the host reads the card's count of
-    pixels that fetched (a wait for the stream a launch), equal on every
-    rank, and stops at 0, else all-reduces the values
-    (``HaloScene.reduce_``) and launches again.  So a frame is L + 1
-    launches around L all-reduces, L the most fetches a pixel takes: never
-    more than the plain twin's and vpt_tpu's loops, which sum a fetch of
-    every pixel at every iteration (the distance loop's iterations, the
-    diffuse fetch, the transmittance loop's) until all are done.  Equal bit
-    for bit to :func:`mcs_frame` on the whole scene.  Returns L + 1."""
-    global HALO_LAUNCHES
+    value, or ends the pixel's frame; the first runs every pixel, each
+    later one the card's list of the pixels that fetched in the one
+    before.  The launches go out in batches (:func:`halo_schedule`), each
+    but the frame's first after an all-reduce of the values
+    (``HaloScene.reduce_``) where the group sums them; a read of the last
+    launch's count into pinned memory ends a batch, and a batch whose last
+    launch counts none ends the frame.  So a frame is L + 1 to L + B
+    launches (B :data:`HALO_REDUCE_BATCH` where the group sums, else
+    :data:`HALO_BATCH`), one fewer all-reduces, L the most fetches a pixel
+    takes: never more than the plain twin's and vpt_tpu's loops, which sum
+    a fetch of every pixel at every iteration (the distance loop's
+    iterations, the diffuse fetch, the transmittance loop's) until all are
+    done.  Equal bit for bit to :func:`mcs_frame` on the whole scene.
+    Returns the launches."""
+    global HALO_LAUNCHES, HALO_READS
     from .. import sampling
 
     if not state.is_cuda:
@@ -237,29 +328,52 @@ def halo_mcs_frame(state, scene, params, seed, frame_number, window=None):
             or not state.is_contiguous() or state.data_ptr() % 16:
         raise ValueError("the mcs state must be a contiguous float32 "
                          f"{tuple(p.shape)} tensor on a 16-byte boundary")
-    live = ctypes.c_int()
-    head = (p.address, state.data_ptr(), seed, *p.direction(seed),
-            frame_number, scene.slab_index, scene.num_slabs,
-            scene.interleave, int(scene.collective), *p.pointers)
+    frame = p.frame
+    frame.state = state.data_ptr()
+    frame.seed = seed
+    frame.sx, frame.sy, frame.sz = p.direction(seed)
+    frame.frame_number = frame_number
     stream = _build.current_stream(p.device)
-    launch = 0
-    while True:
-        _build.check("vpt_mcs_halo_launch", p.launch(
-            *head, launch, ctypes.byref(live), stream))
-        HALO_LAUNCHES += 1
-        launch += 1
-        if live.value == 0:
-            return launch
-        scene.reduce_(p.scratch["value"])
+    run, address, read_ptr = p.run, p.address, p.read.data_ptr()
+    value = p.scratch["value"]
+    reduces = scene.reduces
+    read_count = None
+
+    def launch(e, k):
+        # a pixel fetches at launch e only if it fetched at e - 1, so after
+        # a read the tail's grid needs no more blocks than the count
+        frame.tail_blocks = p.tail_blocks if read_count is None else min(
+            p.tail_blocks, max(1, -(-read_count // p.tail_threads)))
+        for first, count, last, reduce in batch_calls(e, k, reduces):
+            if reduce:
+                scene.reduce_(value)
+            _build.check("vpt_mcs_halo_run", run(
+                address, first, count, read_ptr if last else None, stream))
+
+    def read():
+        nonlocal read_count
+        p.event.record(torch.cuda.current_stream(p.device))
+        p.event.synchronize()
+        read_count = p.count.value
+        return read_count
+
+    launches, reads = halo_schedule(
+        launch, read, HALO_REDUCE_BATCH if reduces else HALO_BATCH)
+    HALO_LAUNCHES += launches
+    HALO_READS += reads
+    return launches
 
 
 def halo_occupancy(table_dtype, tf_width: int, device: int = 0,
-                   env_map: bool = False, channels: int = 1) -> dict:
-    """The halo instance's launch shape, as :func:`occupancy`'s.  Launches
-    nothing."""
+                   env_map: bool = False, channels: int = 1,
+                   tail: bool = False) -> dict:
+    """The halo instance's launch shape, as :func:`occupancy`'s: launch
+    0's tile grid, or with ``tail`` the persistent instance of the
+    launches after it (its grid is its blocks an SM times the SMs).
+    Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
     flags = int(table_dtype == torch.bfloat16) | 4 * env_map \
-        | 16 * (channels == 2)
+        | 16 * (channels == 2) | 32 * tail
     _build.check("vpt_mcs_halo_info", _build.library().vpt_mcs_halo_info(
         flags, tf_width, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

@@ -221,13 +221,19 @@ class HaloScene:
     def reduce(self, partial):
         """The sum of the masked partials over ``group`` (differentiable:
         :class:`SpaceSum`); the partial itself without a collective."""
-        if not self.collective or _group_size(self.group) == 1:
+        if not self.reduces:
             return partial
         return SpaceSum.apply(partial, self.group)
 
+    @property
+    def reduces(self) -> bool:
+        """Whether :meth:`reduce` and :meth:`reduce_` issue a collective:
+        the fetch is masked and the group holds more than one rank."""
+        return self.collective and _group_size(self.group) > 1
+
     def reduce_(self, partial):
         """:meth:`reduce` in place, outside autograd (K5's halo frame)."""
-        if self.collective:
+        if self.reduces:
             all_reduce_(partial, self.group)
         return partial
 
