@@ -217,6 +217,25 @@ def sass_digests(lib_path) -> dict:
     return {k: h.hexdigest()[:16] for k, h in out.items()}
 
 
+def same_name(kernel: str) -> str:
+    """A mangled kernel name without its anonymous namespace, whose hash
+    differs between trees."""
+    return re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "",
+                  kernel)
+
+
+def digest_summary(name, mine, theirs) -> dict:
+    """The kernels of build ``name`` against the current build's by name
+    (:func:`same_name`): how many keep the same SASS digest, and the names
+    that differ or are in one build only."""
+    both = sorted(set(mine) & set(theirs))
+    return {"build": name, "same_digest": sum(mine[k] == theirs[k]
+                                              for k in both),
+            "differs": [k for k in both if mine[k] != theirs[k]],
+            "current_only": sorted(set(mine) - set(theirs)),
+            f"{name}_only": sorted(set(theirs) - set(mine))}
+
+
 def _span(addrs, span):
     return sum(1 for a in addrs if span[0] <= a <= span[1])
 
@@ -1150,12 +1169,20 @@ def main() -> int:
     if "current" not in built:
         return 1
     if args.registers:
-        # every kernel of the source, with a digest of its code
+        # every kernel of the source, with a digest of its code, then each
+        # other build's kernels against the current build's by name
+        by_build = {}
         for name, (path, text) in built.items():
             digests = sass_digests(path)
+            by_build[name] = {same_name(k): v for k, v in digests.items()}
             for kernel, regs in sorted(ptxas_kernels(text, "").items()):
                 print(json.dumps({"build": name, "kernel": kernel, **regs,
                                   "sass_digest": digests.get(kernel)}),
+                      flush=True)
+        mine = by_build["current"]
+        for name, theirs in by_build.items():
+            if name != "current":
+                print(json.dumps(digest_summary(name, mine, theirs)),
                       flush=True)
         return 0
     libs = {name: load(path, entries) for name, (path, _) in built.items()}

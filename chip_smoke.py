@@ -6134,22 +6134,23 @@ def halo_counters():
         for name, (module, attr) in HALO_COUNTERS.items()}
 
 
-def march_halo_frame_bytes(slices, channels, state_bytes):
-    """Bytes a pixel of a K6 halo frame moves besides its corner rows, the
-    least that a split of the march around one all-reduce a chunk of 8
-    slices moves: the state in and out once (``state_bytes`` each), and
-    across each of the ceil(slices / 8) all-reduces the composite's carry
-    (16 bytes) out and in and the chunk's 8 values (4 bytes each, 8 for a
-    value pair) out and in.  K6's halo instance moves exactly this."""
-    chunks = -(-slices // 8)
-    return 2 * state_bytes + chunks * (2 * 16 + 2 * 8 * 4 * channels)
+def march_halo_frame_bytes(pixels, marched, slices, channels, state_bytes):
+    """Bytes of a K6 halo frame besides its corner rows, the least that a
+    split of the march around one all-reduce a frame moves: the state in
+    and out once (``state_bytes`` each, of every pixel), and each of the
+    ``slices`` samples' values (4 bytes, 8 for a pair) of every pixel whose
+    ray meets the cube (``marched``: a miss moves no value) out and in
+    across the all-reduce.  K6's halo instance moves exactly this (544
+    bytes a marched pixel at 64 slices of one channel)."""
+    return pixels * 2 * state_bytes + marched * slices * 2 * 4 * channels
 
 
 def iso_halo_display_bytes(pixels, hits, channels):
-    """Bytes of a K7 halo display besides its corner rows: the state read
-    by each of its two launches, the image written, and a hit's seven
-    values (4 bytes, 8 a pair) out and in across the all-reduce."""
-    return pixels * 3 * 16 + hits * 2 * 7 * 4 * channels
+    """Bytes of a K7 halo display besides its corner rows: every pixel's
+    state read once and the image written once (32 bytes a pixel), and a
+    hit's seven values (4 bytes, 8 a pair) out and in across the
+    all-reduce and its slot's pixel index written and read (8 bytes)."""
+    return pixels * 2 * 16 + hits * (2 * 7 * 4 * channels + 2 * 4)
 
 
 def mcs_halo_frame_bytes(pixels, fetches, channels):
@@ -6359,53 +6360,71 @@ def halo_kernel_rows(label, scene, params_of, res=512):
         module.render_frame(state, scene, params, 0.4, 1)
         a, b, c = state.clone(), state.clone(), state.clone()
         slices = params.slices if key in ("eam", "depth") else params.steps
-        per_frame = -(-slices // 8) + 1
+        per_frame = 2
+
+        def halo_call(a=a, key=key, params=params):
+            march.march_frame(key, a, hs, params, 0.5, 2)
+
         t = halo_turns(
-            (lambda: march.march_frame(key, a, hs, params, 0.5, 2),
-             "march_halo_kernel"),
+            (halo_call, "march_halo_"),
             (lambda: march.march_frame(key, b, scene, params, 0.5, 2),
              "march_kernel" if channels == 1 else "march_ext_kernel"),
-            lambda k: per_frame)
+            lambda k: 1)
+        split = {k.split("march_halo_")[1].split("_kernel")[0]: v
+                 for k, v in kernel_means(halo_call).items()
+                 if "march_halo_" in k}
         ms = in_turns({
-            "halo": lambda: march.march_frame(key, a, hs, params, 0.5, 2),
+            "halo": halo_call,
             "whole": lambda: march.march_frame(key, b, scene, params, 0.5,
                                                2)}, 10, rounds=1)
         plain_ms = cuda_ms(lambda: march.march_frame_plain(
             key, c, ref, params, 0.5, 2), 1)
-        samples, distinct, _, _ = march_work(key, scene, params, 0.5, res,
-                                             res)
-        nbytes = distinct * row_bytes + tf_row_bytes(scene) + n * \
-            march_halo_frame_bytes(slices, channels,
-                                   4 if key == "mip" else 16)
+        samples, distinct, _, miss = march_work(key, scene, params, 0.5,
+                                                res, res)
+        marched = n - int(miss.sum())
+        split_bytes = march_halo_frame_bytes(n, marched, slices, channels,
+                                             4 if key == "mip" else 16)
+        nbytes = distinct * row_bytes + tf_row_bytes(scene) + split_bytes
         ops = samples * (MARCH_OPS_SAMPLE + SLAB_OPS) + n * MARCH_OPS_PIXEL
         bound_ms, bound_by = roofline(nbytes, ops)
-        occ = march.halo_occupancy(key, table.dtype,
-                                   scene.transfer_1d.shape[0], tf_mode,
-                                   channels=channels)
+        occ = [march.halo_occupancy(key, table.dtype,
+                                    scene.transfer_1d.shape[0], tf_mode,
+                                    channels=channels, stage=stage,
+                                    depth=scene.volume.shape[0])
+               for stage in (0, 1)]
         share = None if t["halo"] is None else bound_ms / t["halo"]
         print(f"march halo {label} {key}: one slab, {res}^2, {slices} "
               f"slices: {ms['halo']:.4f} ms a frame ({per_frame} launches, "
-              f"{per_frame - 1} all-reduces with a group; whole-frame K6 "
+              f"1 all-reduce with a group; whole-frame K6 "
               f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (whole "
               f"{fmt_ms(t['whole'])}"
               + (f", {t['halo'] / t['whole']:.3f}x" if t["halo"]
                  and t["whole"] else "")
+              + "; fetch " + fmt_ms(split.get("fetch")) + ", fold "
+              + fmt_ms(split.get("fold"))
               + f"); plain twin {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
               f"({bound_by}, {nbytes} bytes: {samples} samples, {distinct} "
-              f"distinct rows, {march_halo_frame_bytes(slices, channels, 4 if key == 'mip' else 16)} "
-              "bytes a pixel of state, carry and values), "
+              f"distinct rows, {split_bytes} bytes of state and values), "
               + ("share not measured" if share is None
                  else f"{share:.3f} of it")
-              + f"; {occ['registers']} registers, {occ['local_bytes']} "
-              f"spill bytes, {occ['blocks_per_sm']} blocks an SM",
+              + f"; pixel-slices fetched {marched * slices}, folded "
+              f"{samples}; fetch {occ[0]['registers']} registers, "
+              f"{occ[0]['local_bytes']} spill bytes, "
+              f"{occ[0]['blocks_per_sm']} blocks an SM; fold "
+              f"{occ[1]['registers']} registers, {occ[1]['local_bytes']} "
+              f"spill bytes, {occ[1]['blocks_per_sm']} blocks an SM",
               flush=True)
         k6[key] = {"ms": ms["halo"], "device_ms": t["halo"],
+                   "fetch_device_ms": split.get("fetch"),
+                   "fold_device_ms": split.get("fold"),
                    "whole_ms": ms["whole"], "whole_device_ms": t["whole"],
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by, "bound_share": share,
                    "launches_a_frame": per_frame,
-                   "registers": occ["registers"],
-                   "local_bytes": occ["local_bytes"]}
+                   "fetched_pixel_slices": marched * slices,
+                   "folded_pixel_slices": samples,
+                   "registers": [o["registers"] for o in occ],
+                   "local_bytes": [o["local_bytes"] for o in occ]}
     row = dict(k6["eam"])
     for key, fields in k6.items():
         for k, v in fields.items():
@@ -6422,6 +6441,10 @@ def halo_kernel_rows(label, scene, params_of, res=512):
                     "iso_shade_kernel" if channels == 1
                     else "iso_shade_ext_kernel"),
                    lambda k: 1)
+    split = {k.split("iso_halo_")[1].split("_kernel")[0]: v
+             for k, v in kernel_means(
+                 lambda: iso.display(state, hs, params)).items()
+             if "iso_halo_" in k}
     ms = in_turns({"halo": lambda: iso.display(state, hs, params),
                    "whole": lambda: iso.display(state, scene, params)}, 20,
                   rounds=1)
@@ -6436,9 +6459,11 @@ def halo_kernel_rows(label, scene, params_of, res=512):
                                     channels=channels) for stage in (0, 1)]
     share = None if t["halo"] is None else bound_ms / t["halo"]
     print(f"iso_shade halo {label}: one slab, {res}^2, {hits} hits: "
-          f"{ms['halo']:.4f} ms a display (2 launches, 1 all-reduce with a "
-          f"group; whole K7 {ms['whole']:.4f} ms), device "
-          f"{fmt_ms(t['halo'])} (whole {fmt_ms(t['whole'])}); plain twin "
+          f"{ms['halo']:.4f} ms a display (2 launches, 1 all-reduce of "
+          f"{7 * hits * channels} values with a group; whole K7 "
+          f"{ms['whole']:.4f} ms), device {fmt_ms(t['halo'])} (whole "
+          f"{fmt_ms(t['whole'])}; fetch {fmt_ms(split.get('fetch'))}, shade "
+          f"{fmt_ms(split.get('shade'))}); plain twin "
           f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, "
           f"{nbytes} bytes), "
           + ("share not measured" if share is None else f"{share:.3f} of it")
@@ -6448,6 +6473,8 @@ def halo_kernel_rows(label, scene, params_of, res=512):
     rows["iso_shade_halo"] = {
         "ms": ms["halo"], "device_ms": t["halo"], "whole_ms": ms["whole"],
         "whole_device_ms": t["whole"], "plain_ms": plain_ms,
+        "fetch_device_ms": split.get("fetch"),
+        "shade_device_ms": split.get("shade"),
         "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": share,
         "launches_a_frame": 2, "hits": hits,
         "registers": [o["registers"] for o in occ],
@@ -7060,12 +7087,9 @@ def halo_frames_path(grid, scene, counters, res):
               f"{HALO_WHOLE[name]}")
     check(not collectives, f"path parallel halo frames: collectives in a "
           f"world of one {collectives}")
-    check(launches["march_halo"] == sum(
-        -(-(params_of[k].slices if k in ("eam", "depth")
-            else params_of[k].steps) // 8) + 1
-        for k in ("eam", "mip", "depth", "iso")),
-        f"path parallel halo frames: {launches['march_halo']} K6 halo "
-        "launches")
+    check(launches["march_halo"] == 2 * 4, f"path parallel halo frames: "
+          f"{launches['march_halo']} K6 halo launches (a fetch and a fold "
+          "a frame of EAM, MIP, Depth and ISO)")
     check(launches["iso_shade_halo"] == 2, "path parallel halo frames: K7 "
           "halo launches")
     check(launches["lao_halo"]
@@ -7177,7 +7201,7 @@ def gloo_halo_frames(mesh, scene):
     kernel frames (and K7's display)."""
     import numpy as np
 
-    from vpt_tpu_torch.kernels import dos_sweep, mcs_frame
+    from vpt_tpu_torch.kernels import dos_sweep, iso_shade, march, mcs_frame
     from vpt_tpu_torch.parallel import gather_state, halo, place_state
     from vpt_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size
 
@@ -7201,19 +7225,22 @@ def gloo_halo_frames(mesh, scene):
                                                     count, state)
         halo.COLLECTIVES.clear()
         before = (mcs_frame.HALO_LAUNCHES, mcs_frame.HALO_READS,
-                  dos_sweep.HALO_LAUNCHES)
+                  dos_sweep.HALO_LAUNCHES, march.HALO_LAUNCHES)
         rows = frame_fn(place_state(state, mesh), slabs, params, seed, 1)
         out[key] = {"collectives": dict(halo.COLLECTIVES),
                     "mcs_launches": mcs_frame.HALO_LAUNCHES - before[0],
                     "mcs_reads": mcs_frame.HALO_READS - before[1],
-                    "dos_launches": dos_sweep.HALO_LAUNCHES - before[2]}
+                    "dos_launches": dos_sweep.HALO_LAUNCHES - before[2],
+                    "march_launches": march.HALO_LAUNCHES - before[3]}
         gathered = gather_state(rows, mesh, res)
         if key == "iso":
             hs = halo.halo_scene(scene, axis_index(mesh, "space"), count,
                                  axis_group(mesh, "space"), slabs)
             halo.COLLECTIVES.clear()
+            iso_shade.HALO_HITS = None
             out[key]["display"] = module.display(gathered, hs, params)
             out[key]["display_collectives"] = dict(halo.COLLECTIVES)
+            out[key]["display_hits"] = iso_shade.HALO_HITS
         out[key]["state"] = gathered
     return out
 
@@ -7240,11 +7267,11 @@ def halo_frame_counts(frames):
 def check_gloo_halo_frames(got, want, other):
     """The two ranks' halo frames (2 slabs) against one process's
     whole-scene kernel frames, bit for bit, with their collectives a
-    frame: K6 ceil(slices / 8), K7's display 1, K8 its launches − 1 (in at
-    most ceil(launches / HALO_REDUCE_BATCH) + 1 host reads), K9 1 in 2
-    launches;
-    ``other``, the other rank's counts (:func:`halo_frame_counts`), equal
-    rank 0's.  Returns a summary."""
+    frame: K6 1 in 2 launches, K7's display 1 of 7 values a hit and
+    channel, K8 its launches − 1 (in at most ceil(launches /
+    HALO_REDUCE_BATCH) + 1 host reads), K9 1 in 2 launches; ``other``, the
+    other rank's counts (:func:`halo_frame_counts`), equal rank 0's.
+    Returns a summary."""
     import torch
 
     from vpt_tpu_torch.kernels import mcs_frame
@@ -7267,10 +7294,9 @@ def check_gloo_halo_frames(got, want, other):
         module = renderer_module(key)
         params = module.Params()
         if key in ("eam", "depth", "mip", "iso"):
-            slices = params.slices if key in ("eam", "depth") \
-                else params.steps
-            check(reduces == -(-slices // 8), f"path parallel gloo: {key} "
-                  f"halo frame {reduces} all-reduces")
+            check(reduces == 1 and g["march_launches"] == 2,
+                  f"path parallel gloo: {key} halo frame {reduces} "
+                  f"all-reduces in {g['march_launches']} launches")
         elif key == "dos":
             check(reduces == 1 and g["dos_launches"] == 2,
                   f"path parallel gloo: DOS halo frame {reduces} "
@@ -7286,8 +7312,13 @@ def check_gloo_halo_frames(got, want, other):
     check(got["iso"]["display_collectives"] == {"all_reduce": 1},
           f"path parallel gloo: the ISO display's collectives "
           f"{got['iso']['display_collectives']}")
+    hits = int((want["iso"]["state"][..., 3] > 0).sum())
+    check(got["iso"]["display_hits"] == hits, f"path parallel gloo: the "
+          f"ISO display all-reduced {got['iso']['display_hits']} hits' "
+          f"values, the state holds {hits}")
     return ("halo frames of EAM, MIP, Depth, ISO (its display: 1 "
-            "all-reduce), MCS and DOS on 2 slabs equal one process's "
+            f"all-reduce of {hits} hits' 7 values), MCS and DOS on 2 "
+            "slabs equal one process's "
             "whole-scene kernel frames bit for bit; all-reduces a frame "
             + ", ".join(parts) + f" (MCS in {got['mcs']['mcs_launches']} "
             f"launches and {got['mcs']['mcs_reads']} host reads, DOS in "
@@ -8298,19 +8329,20 @@ def run():
          "source": "vpt_tpu_torch/csrc/march.cu",
          "replaces": "vpt_tpu/parallel/halo.py:248",
          "launched_by": "halo.sharded_render_frame's EAM, MIP, Depth and "
-                        "ISO frames (ceil(slices / 8) + 1 launches a frame, "
-                        "an all-reduce of a chunk's values between them; "
-                        "the halo frames path of config 4 at 1024^2); ms "
-                        "and device_ms a 512^2 headline EAM frame on one "
-                        "slab (every mode beside it)", **halo_rows[
-                            "march_halo"]},
+                        "ISO frames (2 launches a frame, a fetch of every "
+                        "slice and a fold, one all-reduce of the values "
+                        "between them; the halo frames path of config 4 at "
+                        "1024^2); ms and device_ms a 512^2 headline EAM "
+                        "frame on one slab (every mode beside it)",
+         **halo_rows["march_halo"]},
         {"name": "iso_shade_halo", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/iso_shade.cu",
          "replaces": "vpt_tpu/parallel/halo.py:263",
          "launched_by": "ISO's display over a HaloScene (2 launches around "
-                        "one all-reduce of the seven fetches; the halo "
-                        "frames path); ms and device_ms a 512^2 headline "
-                        "display on one slab", **halo_rows["iso_shade_halo"]},
+                        "one all-reduce of the hits' seven fetches, their "
+                        "slots in pixel order; the halo frames path); ms "
+                        "and device_ms a 512^2 headline display on one "
+                        "slab", **halo_rows["iso_shade_halo"]},
         {"name": "mcs_halo", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/mcs_frame.cu",
          "replaces": "vpt_tpu/parallel/halo.py:199",
@@ -8465,19 +8497,20 @@ def gloo_batch_rank(rank, world, store, out, tree):
     """One rank of ``--part gloo``: the K8 halo frame of ``path parallel
     gloo`` (the 256³ scene on ``space`` = 2 slabs at GLOO_HALO_RES²,
     extinction 8, one frame) over a ``gloo`` group on the one card, with
-    each of GLOO_BATCHES as ``HALO_REDUCE_BATCH`` in turns (a tree without
-    it: its own frame), each call's time on the host clock between two
-    synchronisations, and of it the host's time inside
-    ``torch.distributed.all_reduce``; writes ``{out}{rank}.pt``: each
-    batch's turn medians of both (ms) and its launches, host reads and
-    all-reduces a frame."""
+    each of GLOO_BATCHES as ``HALO_REDUCE_BATCH`` (a tree without it: its
+    own frame), then K6's halo frame of EAM and K7's ISO display (of an
+    ISO frame's hits) on the same slabs, all in turns, each call's time on
+    the host clock between two synchronisations, and of it the host's time
+    inside ``torch.distributed.all_reduce``; writes ``{out}{rank}.pt``:
+    each call's turn medians of both (ms) and its launches, host reads and
+    all-reduces."""
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from vpt_tpu_torch import transfer, volume
-    from vpt_tpu_torch.kernels import mcs_frame
+    from vpt_tpu_torch.kernels import iso_shade, march, mcs_frame
     from vpt_tpu_torch.parallel import halo, make_mesh
     from vpt_tpu_torch.parallel.mesh import axis_group, axis_index
     from vpt_tpu_torch.renderers import make_scene
@@ -8508,30 +8541,57 @@ def gloo_batch_rank(rank, world, store, out, tree):
 
         dist.all_reduce = timed_all_reduce
 
+        # the EAM halo frame and the ISO display of an ISO frame's hits on
+        # the same slabs, as the tree's march and ISO display run them
+        eam, iso = renderer_module("eam"), renderer_module("iso")
+        eparams, iparams = eam.Params(), iso.Params()
+        estate = eam.reset(eparams, GLOO_HALO_RES, GLOO_HALO_RES, scene)
+        hits = iso.reset(iparams, GLOO_HALO_RES, GLOO_HALO_RES, scene)
+        iso.render_frame(hits, scene, iparams, np.float32(0.37), 1)
+        other = {
+            "eam": (march, lambda: eam.render_frame(
+                estate, hs, eparams, np.float32(0.37), 2)),
+            "iso_display": (iso_shade, lambda: iso.display(hits, hs,
+                                                           iparams))}
+
         def frame(k):
-            if k:
-                mcs_frame.HALO_REDUCE_BATCH = k
-            before = (mcs_frame.HALO_LAUNCHES,
-                      getattr(mcs_frame, "HALO_READS", 0),
-                      halo.COLLECTIVES.get("all_reduce", 0))
+            if k in other:
+                module, call = other[k]
+                before = (module.HALO_LAUNCHES, 0,
+                          halo.COLLECTIVES.get("all_reduce", 0))
+            else:
+                if k:
+                    mcs_frame.HALO_REDUCE_BATCH = k
+                before = (mcs_frame.HALO_LAUNCHES,
+                          getattr(mcs_frame, "HALO_READS", 0),
+                          halo.COLLECTIVES.get("all_reduce", 0))
+
+                def call():
+                    mcs_frame.halo_mcs_frame(state, hs, params,
+                                             np.float32(0.37), 1)
             torch.cuda.synchronize()
             spent[0] = 0.0
             t0 = time.perf_counter()
-            mcs_frame.halo_mcs_frame(state, hs, params, np.float32(0.37), 1)
+            call()
             torch.cuda.synchronize()
             ms = ((time.perf_counter() - t0) * 1e3, spent[0] * 1e3)
+            if k in other:
+                return ms, (other[k][0].HALO_LAUNCHES - before[0], None,
+                            halo.COLLECTIVES.get("all_reduce", 0)
+                            - before[2])
             return ms, (mcs_frame.HALO_LAUNCHES - before[0],
                         getattr(mcs_frame, "HALO_READS", 0) - before[1],
                         halo.COLLECTIVES.get("all_reduce", 0) - before[2])
 
+        calls = (*batches, *other)
         counts = {}
-        for k in batches:
+        for k in calls:
             for _ in range(3):
                 counts[k] = frame(k)[1]
-        turns = {k: [] for k in batches}
-        reduce_turns = {k: [] for k in batches}
+        turns = {k: [] for k in calls}
+        reduce_turns = {k: [] for k in calls}
         for r in range(GLOO_BATCH_ROUNDS):
-            for k in (batches if r % 2 == 0 else batches[::-1]):
+            for k in (calls if r % 2 == 0 else calls[::-1]):
                 times = []
                 for _ in range(GLOO_BATCH_CALLS):
                     ms, c = frame(k)
@@ -8572,18 +8632,21 @@ def gloo_batch_numbers(tree):
           f"counts differ: {got[0]['counts']} against {got[1]['counts']}")
     numbers = {}
     for k, turns in got[0]["turns"].items():
-        name = f"B={k}" if k else "own"
+        kernel, name = {"eam": ("march_halo", "eam"),
+                        "iso_display": ("iso_shade_halo", "display")}.get(
+            k, ("mcs_halo", f"B={k}" if k else "own"))
         launches, reads, reduces = got[0]["counts"][k]
-        numbers[f"mcs_halo gloo call_ms {name}"] = \
+        numbers[f"{kernel} gloo call_ms {name}"] = \
             sorted(turns)[len(turns) // 2]
-        numbers[f"mcs_halo gloo call_ms_range {name}"] = \
+        numbers[f"{kernel} gloo call_ms_range {name}"] = \
             f"{min(turns):.4f}-{max(turns):.4f}"
         reduces_ms = got[0]["reduce_turns"][k]
-        numbers[f"mcs_halo gloo all_reduce_ms {name}"] = \
+        numbers[f"{kernel} gloo all_reduce_ms {name}"] = \
             sorted(reduces_ms)[len(reduces_ms) // 2]
-        numbers[f"mcs_halo gloo launches {name}"] = launches
-        numbers[f"mcs_halo gloo host_reads {name}"] = reads
-        numbers[f"mcs_halo gloo all_reduces {name}"] = reduces
+        numbers[f"{kernel} gloo launches {name}"] = launches
+        if reads is not None:
+            numbers[f"{kernel} gloo host_reads {name}"] = reads
+        numbers[f"{kernel} gloo all_reduces {name}"] = reduces
     return numbers
 
 
@@ -8827,6 +8890,19 @@ def _launch_us(fn, match, launches, reps=5):
         for j in range(launches))
 
 
+def _kernel_split(fn, match):
+    """{"<part>_device_ms": mean device ms a launch} of each kernel of a
+    call of ``fn`` named ``<match>_<part>_kernel`` (:func:`kernel_means`);
+    a kernel named ``<match>_kernel`` reports as ``all``."""
+    out = {}
+    for name, ms in kernel_means(fn).items():
+        if match not in name:
+            continue
+        part = name.split(match, 1)[1].split("kernel", 1)[0].strip("_")
+        out[f"{part or 'all'}_device_ms"] = ms
+    return out
+
+
 def _digest(state):
     """A digest of a state's (or a dict of states') bytes, key by key."""
     import hashlib
@@ -8973,7 +9049,10 @@ def frame_path_numbers():
     alike, on the headline scene with default Params: for each renderer at
     512², and ISO's display of one ISO frame's hits, the loop time a call
     (``ms``, CUDA events), the device time and the host µs a call
-    (:func:`_host_call_us`); and the host µs of the wrapper's pieces over
+    (:func:`_host_call_us`); the halo instances of K8, K6 (each mode) and
+    K7 over a one-slab HaloScene at 512² and 1024² where the tree has them
+    (the call to a finished frame, loop and device time, launches, a
+    digest); and the host µs of the wrapper's pieces over
     10^4 calls each where the tree has them (a wrapper that builds the
     argument list every frame: ``frame_scalars``, ``_scene_cache.get``,
     ``check_image``, ``torch.cuda.device``, the ctypes call; one with a
@@ -9049,6 +9128,52 @@ def frame_path_numbers():
                 "launches": launches, "host_reads": reads,
                 "launch_us": _launch_us(halo_call, "mcs_halo_", launches),
                 "digest": _digest(first)}
+
+    # K6's halo instance in every mode and K7's (ISO's display of one ISO
+    # frame's hits) over a one-slab HaloScene, where the tree has them: a
+    # call to a finished frame (host clock), its loop and device time, its
+    # launches and a digest of a frame from the reset (of the display)
+    if hasattr(march, "halo_march_frame"):
+        from vpt_tpu_torch.parallel import halo
+
+        hs = halo.halo_scene(scene, 0, 1)
+        for size in (512, 1024):
+            for key, module in (("eam", eam), ("mip", mip),
+                                ("depth", depth), ("iso", iso)):
+                params = module.Params()
+                start = module.reset(params, size, size, scene)
+                state = start.clone()
+
+                def march_call(state=state, key=key, params=params):
+                    march.march_frame(key, state, hs, params, 0.5, 2)
+
+                first = start.clone()
+                launches = march.HALO_LAUNCHES
+                march.march_frame(key, first, hs, params, 0.5, 2)
+                launches = march.HALO_LAUNCHES - launches
+                frames[f"march_halo {key} {size}^2"] = {
+                    "call_ms": synced_call_ms(march_call, 20),
+                    "ms": cuda_ms(march_call, 20),
+                    "device_ms": _device_ms_per_call(march_call,
+                                                     "march_halo", 10),
+                    **_kernel_split(march_call, "march_halo"),
+                    "launches": launches, "digest": _digest(first)}
+            shown = iso.reset(iso_params, size, size, scene)
+            march.march_frame("iso", shown, scene, iso_params, 0.4, 1)
+
+            def halo_display(shown=shown):
+                return iso.display(shown, hs, iso_params)
+
+            launches = iso_shade.HALO_LAUNCHES
+            image = halo_display()
+            launches = iso_shade.HALO_LAUNCHES - launches
+            frames[f"iso_halo {size}^2"] = {
+                "call_ms": synced_call_ms(halo_display, 20),
+                "ms": cuda_ms(halo_display, 200),
+                "device_ms": _device_ms_per_call(halo_display, "iso_halo_",
+                                                 50),
+                **_kernel_split(halo_display, "iso_halo"),
+                "launches": launches, "digest": _digest(image)}
 
     pieces = {}
     params, mparams = eam.Params(), mcs.Params()

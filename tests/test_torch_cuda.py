@@ -2536,10 +2536,10 @@ def _halo_state(module, params, scene, height=40, width=48):
 @pytest.mark.parametrize("key", ["eam", "mip", "depth", "iso"])
 def test_halo_march_frames(cuda, key, kind):
     """K6's halo instance: on one slab, 2 frames equal the whole-scene
-    kernel's bit for bit in ceil(slices / 8) + 1 launches a frame (the
-    whole-scene counter still); on 2 slabs, contiguous and interleaved,
-    masked and not, each slab's frame is within K6's bound of the plain
-    twin over the same HaloScene (``assert_kernel_agrees``)."""
+    kernel's bit for bit in 2 launches a frame, a fetch of every slice and
+    a fold (the whole-scene counter still); on 2 slabs, contiguous and
+    interleaved, masked and not, each slab's frame is within K6's bound of
+    the plain twin over the same HaloScene (``assert_kernel_agrees``)."""
     from vpt_tpu_torch.parallel import halo
 
     scene = _halo_kind(kind, cuda)
@@ -2556,7 +2556,7 @@ def test_halo_march_frames(cuda, key, kind):
     for n in (1, 2):
         module.render_frame(want, scene, params, 0.3 + 0.01 * n, n)
     torch.cuda.synchronize()
-    assert launched == (before[0], before[1] + 2 * (-(-slices // 8) + 1))
+    assert launched == (before[0], before[1] + 2 * 2)
     assert torch.equal(got, want)
     if key == "iso":
         assert bool((got[..., 3] > 0).any())
@@ -2568,24 +2568,83 @@ def test_halo_march_frames(cuda, key, kind):
         assert_kernel_agrees(key, got, want)
 
 
+#: K6 halo frames past a small value cap: (renderer, scene kind, 64-bit
+#: slab rows forced)
+MARCH_CHUNK_CASES = [("eam", "bf16", False), ("mip", "f32", False),
+                     ("depth", "rg", False), ("iso", "bf16", False),
+                     ("eam", "f32", True), ("iso", "rg", True)]
+
+
+@pytest.mark.parametrize("key,kind,rows64", MARCH_CHUNK_CASES,
+                         ids=[f"{k}-{c}" + ("-rows64" if r else "")
+                              for k, c, r in MARCH_CHUNK_CASES])
+def test_halo_march_frames_in_chunks(cuda, key, kind, rows64, monkeypatch):
+    """Past the values' cap a K6 halo frame goes in chunks of slices, a
+    fetch, an all-reduce and a fold each, the carry kept between the
+    folds: with the cap at 7 slices' values a frame of 64 slices (50 for
+    ISO) is ceil(slices / 7) chunks, 2 launches each, and 2 frames equal
+    the whole-scene K6's bit for bit; so do frames with the fetch's 64-bit
+    slab rows forced (``march.ROWS32`` lowered)."""
+    from vpt_tpu_torch.parallel import halo
+
+    scene = _halo_kind(kind, cuda)
+    module = RENDERERS[key]
+    params = module.Params()
+    slices = params.slices if key in ("eam", "depth") else params.steps
+    monkeypatch.setattr(_build, "HALO_VALUE_BYTES",
+                        7 * 4 * 40 * 48 * scene.channels)
+    if rows64:
+        monkeypatch.setattr(march, "ROWS32", 1)
+    state, fresh = _halo_state(module, params, scene)
+    got, want = fresh(), fresh()
+    hs = halo.halo_scene(scene, 0, 1)
+    for n in (1, 2):
+        before = march.HALO_LAUNCHES
+        module.render_frame(got, hs, params, 0.3 + 0.01 * n, n)
+        assert march.HALO_LAUNCHES == before + 2 * -(-slices // 7)
+        module.render_frame(want, scene, params, 0.3 + 0.01 * n, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "rg"])
-def test_halo_iso_display(cuda, kind):
+def test_halo_iso_display(cuda, kind, monkeypatch):
     """K7's halo instance: on one slab the display equals the whole-scene
-    K7's bit for bit in 2 launches; on 2 slabs each slab's display equals
-    the plain twin's (K7's bound)."""
+    K7's bit for bit in 2 launches, and its hits' slots follow pixel order
+    (the card's count is the hits); so do a display with no hit (white)
+    and one where every pixel hits, and one with the fetch's 64-bit slab
+    rows forced (``iso_shade.ROWS32`` lowered); on 2 slabs each slab's
+    display equals the plain twin's (K7's bound)."""
     from vpt_tpu_torch.parallel import halo
 
     scene = _halo_kind(kind, cuda)
     params = iso.Params()
     state = iso.reset(params, 40, 48, scene)
+    empty = state.clone()
     for n in (1, 2):
         iso.render_frame(state, scene, params, 0.3 + 0.01 * n, n)
     hit = state[..., 3] > 0
     assert bool(hit.any()) and bool((~hit).any())
+    full = state.clone()
+    full[~hit] = state[hit][0]
+    hs = halo.halo_scene(scene, 0, 1)
     before = (iso_shade.LAUNCHES, iso_shade.HALO_LAUNCHES)
-    got = iso.display(state, halo.halo_scene(scene, 0, 1), params)
+    got = iso.display(state, hs, params)
     assert (iso_shade.LAUNCHES, iso_shade.HALO_LAUNCHES) == (
         before[0], before[1] + 2)
+    assert torch.equal(got, iso.display(state, scene, params))
+    p = iso_shade._halo_cache.get(hs, (params, 40, 48, 0, 1, 1, 1))
+    hits = int(hit.sum())
+    assert int(p.scratch["counts"][1]) == hits
+    assert torch.equal(p.pixel[:hits].long(),
+                       torch.nonzero(hit.reshape(-1)).reshape(-1))
+    for other in (empty, full):
+        got = iso.display(other, hs, params)
+        assert torch.equal(got, iso.display(other, scene, params))
+        assert int(p.scratch["counts"][1]) == int((other[..., 3] > 0).sum())
+    assert bool((iso.display(empty, hs, params) == 1.0).all())
+    monkeypatch.setattr(iso_shade, "ROWS32", 1)
+    got = iso.display(state, halo.halo_scene(scene, 0, 1), params)
     assert torch.equal(got, iso.display(state, scene, params))
     for label, hs in _halo_layouts(scene):
         got = iso.display(state, hs, params)
@@ -2727,7 +2786,7 @@ def test_halo_dos_frames_in_chunks(cuda, kind, monkeypatch):
 
     scene = _halo_kind(kind, cuda)
     params = dos.Params(extinction=80.0, steps=20, slices=50, samples=6)
-    monkeypatch.setattr(dos_sweep, "HALO_VALUE_BYTES",
+    monkeypatch.setattr(_build, "HALO_VALUE_BYTES",
                         7 * 4 * 40 * 48 * scene.channels)
     state, fresh = _halo_state(dos, params, scene)
     got, want = fresh(), fresh()

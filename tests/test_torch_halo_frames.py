@@ -176,15 +176,16 @@ def test_halo_frames_equal_the_replicated_frames(group, replicated, name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_halo_frames_issue_an_all_reduce_a_sample_call(group, replicated,
                                                        name):
-    """Each frame's all-reduces are the replicated frame's sample calls:
-    the march ceil(slices / 8) (vpt_tpu's chunk of 8 slices a
-    ``sample_color``, which K6's halo instance keeps), DOS one a slice
-    (vpt_tpu and K9's halo instance: one a chunk of 8 active slices), MCS
-    one a tracking step of every pixel and one for the diffuse fetch (K8's
-    halo instance: one a fetch of the slowest pixel, never more), LAO one
-    a tap a slice, as vpt_tpu: the six gradient taps and the value (the
-    baked pair's one), the 20 AO taps and the shadow tap (K10's halo
-    instance: one a chunk of 8 slices)."""
+    """Each frame's all-reduces are the replicated frame's sample calls,
+    as the plain twins on the CPU issue them: the march ceil(slices / 8)
+    (vpt_tpu's chunk of 8 slices a ``sample_color``; K6's halo instance
+    issues one a frame, the same sums), DOS one a slice (vpt_tpu; K9's
+    halo instance one a frame), MCS one a tracking step of every pixel and
+    one for the diffuse fetch (K8's halo instance: one a fetch of the
+    slowest pixel, never more), LAO one a tap a slice, as vpt_tpu: the six
+    gradient taps and the value (the baked pair's one), the 20 AO taps and
+    the shadow tap (K10's halo instance: one a chunk of 8 slices).  The
+    halo instances' own counts are held on the card."""
     _, key, _, kwargs, _ = CASES[name]
     counts = [c.get("all_reduce", 0) for c in group[name]["collectives"]]
     assert all(set(c) <= {"all_reduce"} for c in

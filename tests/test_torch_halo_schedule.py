@@ -4,8 +4,9 @@ K8's halo frame issues its launches in batches of ``HALO_BATCH`` between
 two reads of the card's count of the pixels that fetch
 (``mcs_frame.halo_schedule``), each launch but the first after an
 all-reduce where the group sums the values (``mcs_frame.batch_calls``).
-K9's halo frame samples all of its slices in one fetch unless their values
-pass ``HALO_VALUE_BYTES`` (``dos_sweep.halo_chunk``, ``halo_chunks``).  The
+K6's and K9's halo frames sample all of their slices in one fetch unless
+their values pass ``HALO_VALUE_BYTES`` (``_build.halo_chunk``,
+``halo_chunks``, the rule both share).  The
 schedules are pure functions of the counts and sizes, held here against
 the bounds the frames promise, with no JAX; the kernels run only on the
 card (``tests/test_torch_cuda.py``).  On the CPU a halo frame runs its
@@ -23,7 +24,7 @@ import pytest
 import torch
 
 from vpt_tpu_torch import transfer, volume
-from vpt_tpu_torch.kernels import dos_sweep, mcs_frame
+from vpt_tpu_torch.kernels import _build, dos_sweep, mcs_frame
 from vpt_tpu_torch.parallel import halo
 from vpt_tpu_torch.renderers import dos, make_scene, mcs
 
@@ -156,9 +157,17 @@ def test_dos_halo_chunk_is_steps_under_the_cap(steps, pixels, channels):
     values fit in 1 GiB, else the most slices that fit (at least one), in
     chunks that cover the frame's slices in order, each 2 launches, the
     last fold advancing the depth."""
-    chunk = dos_sweep.halo_chunk(steps, pixels, channels)
+    _assert_halo_chunks(steps, pixels, channels)
+
+
+def _assert_halo_chunks(steps, pixels, channels):
+    """``_build.halo_chunk``'s chunk of a frame of ``steps`` slices over
+    ``pixels`` pixels of ``channels`` values: every slice while they fit
+    in 1 GiB, else the most that fit (at least one), in chunks that cover
+    the slices in order, the last flagged."""
+    chunk = _build.halo_chunk(steps, pixels, channels)
     per_slice = 4 * pixels * channels
-    cap = dos_sweep.HALO_VALUE_BYTES
+    cap = _build.HALO_VALUE_BYTES
     assert cap == 1 << 30
     if steps * per_slice <= cap:
         assert chunk == steps
@@ -166,7 +175,7 @@ def test_dos_halo_chunk_is_steps_under_the_cap(steps, pixels, channels):
         assert chunk < steps
         assert chunk == 1 or chunk * per_slice <= cap
         assert (chunk + 1) * per_slice > cap
-    chunks = dos_sweep.halo_chunks(steps, chunk)
+    chunks = _build.halo_chunks(steps, chunk)
     assert [k for k0, n, _ in chunks for k in range(k0, k0 + n)] \
         == list(range(steps))
     assert [last for *_, last in chunks] == [False] * (len(chunks) - 1) \
@@ -177,11 +186,30 @@ def test_dos_halo_chunk_is_steps_under_the_cap(steps, pixels, channels):
 def test_dos_halo_chunk_under_a_small_cap():
     """The rule at a cap a test can reach: 12 slices of 10 pixels' values
     (40 bytes a slice) fit in 480 bytes, 13 do not."""
-    assert dos_sweep.halo_chunk(20, 10, 1, cap=480) == 12
-    assert dos_sweep.halo_chunk(20, 10, 1, cap=479) == 11
-    assert dos_sweep.halo_chunk(20, 10, 1, cap=10**6) == 20
-    assert dos_sweep.halo_chunk(20, 10**6, 2, cap=8) == 1
-    assert dos_sweep.halo_chunks(20, 12) == [(0, 12, False), (12, 8, True)]
+    assert _build.halo_chunk(20, 10, 1, cap=480) == 12
+    assert _build.halo_chunk(20, 10, 1, cap=479) == 11
+    assert _build.halo_chunk(20, 10, 1, cap=10**6) == 20
+    assert _build.halo_chunk(20, 10**6, 2, cap=8) == 1
+    assert _build.halo_chunks(20, 12) == [(0, 12, False), (12, 8, True)]
+
+
+#: the march renderers' halo frames: (slices, image side, channels) of
+#: EAM and Depth (64 slices), MIP (64 steps) and ISO (50 steps) at the
+#: headline's 512², config 4's 1024², and past the cap at 4096² and 8192²
+MARCH_SHAPES = [(s, side, c) for s in (50, 64) for side in (512, 1024)
+                for c in (1, 2)] + [(64, 4096, 1), (64, 4096, 2),
+                                    (50, 8192, 1), (64, 8192, 2)]
+
+
+@pytest.mark.parametrize("slices,side,channels", MARCH_SHAPES,
+                         ids=[f"{s}x{n}^2x{c}" for s, n, c in MARCH_SHAPES])
+def test_march_halo_chunk_is_slices_under_the_cap(slices, side, channels):
+    """K6's halo frame shares the rule: at the march's shapes every slice
+    in one fetch up to 1024², two channels included (512 MiB of values at
+    64 slices), chunks past the cap at 4096² and 8192²."""
+    _assert_halo_chunks(slices, side * side, channels)
+    chunk = _build.halo_chunk(slices, side * side, channels)
+    assert (chunk == slices) == (side <= 1024)
 
 
 #: the frames' image, height x width: ``test_torch_halo_frames``' size

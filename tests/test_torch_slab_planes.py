@@ -9,9 +9,10 @@ interleave ∈ {1, 2}, and an owned plane's local index against
 ``halo.slab_planes``.  On the CPU ``dos.render_band`` runs the plain band
 slice a slice: its frame is held against ``band_slice_plain``'s bit for bit
 (the prepared band frame itself runs only on the card).  The ctypes mirrors
-of ``VptLaoHalo``, ``VptDosHalo``, ``VptDosBandFrame`` and K8's
-``VptMcsHaloFrame`` are held against the C declarations, member by member;
-a mismatch would show only on the card.
+of ``VptLaoHalo``, ``VptDosHalo``, ``VptDosBandFrame``, K8's
+``VptMcsHaloFrame``, K6's ``VptMarchHalo`` and K7's ``VptIsoHalo`` are held
+against the C declarations, member by member; a mismatch would show only
+on the card.
 """
 
 import re
@@ -24,8 +25,8 @@ import torch
 
 from vpt_tpu.parallel.halo import HaloScene as JHaloScene
 from vpt_tpu_torch import transfer, volume
-from vpt_tpu_torch.kernels import _build, corner_gather, dos_sweep, lao_march
-from vpt_tpu_torch.kernels import mcs_frame
+from vpt_tpu_torch.kernels import _build, corner_gather, dos_sweep, iso_shade
+from vpt_tpu_torch.kernels import lao_march, march, mcs_frame
 from vpt_tpu_torch.parallel import halo
 from vpt_tpu_torch.renderers import dos, make_scene
 
@@ -156,7 +157,8 @@ _KINDS = {"int": "c_int", "float": "c_float"}
 def c_members(name):
     """The flattened ``(member, ctypes kind name)`` of ``struct name`` in
     ``csrc/``: a base struct's members first, a struct member's own
-    members in its place, pointers as ``c_void_p``."""
+    members in its place, pointers as ``c_void_p``, an ``x[n]`` array as
+    ctypes names its array type."""
     sources = " ".join(p.read_text() for p in sorted(CSRC.glob("*.cu"))
                        + sorted(CSRC.glob("*.cuh")))
     found = re.findall(r"struct " + name + r"(?: : (\w+))? \{(.*?)\n\};",
@@ -170,8 +172,12 @@ def c_members(name):
             continue
         ctype, names = re.match(r"((?:const )?\w+\*?) (.*)", decl).groups()
         for member in names.split(", "):
+            array = re.match(r"(\w+)\[(\d+)\]", member)
             if ctype.endswith("*"):
                 out.append((member, "c_void_p"))
+            elif array:
+                out.append((array.group(1), f"{_KINDS[ctype]}_Array_"
+                            f"{array.group(2)}"))
             elif ctype in _KINDS:
                 out.append((member, _KINDS[ctype]))
             else:
@@ -190,8 +196,10 @@ def _mirror(cls):
 @pytest.mark.parametrize("cls,struct", [
     (lao_march._HaloArgs, "VptLaoHalo"), (dos_sweep._HaloArgs, "VptDosHalo"),
     (dos_sweep._BandFrameArgs, "VptDosBandFrame"),
-    (mcs_frame._HaloFrameArgs, "VptMcsHaloFrame")],
-    ids=["VptLaoHalo", "VptDosHalo", "VptDosBandFrame", "VptMcsHaloFrame"])
+    (mcs_frame._HaloFrameArgs, "VptMcsHaloFrame"),
+    (march._HaloArgs, "VptMarchHalo"), (iso_shade._HaloArgs, "VptIsoHalo")],
+    ids=["VptLaoHalo", "VptDosHalo", "VptDosBandFrame", "VptMcsHaloFrame",
+         "VptMarchHalo", "VptIsoHalo"])
 def test_prepared_halo_structs_match_the_c_layouts(cls, struct):
     """Each ctypes mirror declares the C struct's members in order and
     kind (the band frame's nested band and slab flattened: their C

@@ -47,7 +47,8 @@
 // hit warps' chain (state, rows, TF, store) on about 1.5 waves of blocks.
 //
 // A HaloScene's display runs the halo instance (iso_halo_fetch_kernel and
-// iso_halo_shade_kernel below) around one all-reduce of the seven values.
+// iso_halo_shade_kernel below) around one all-reduce of its hits' seven
+// values.
 //
 // Numerics follow iso.shade (renderers/iso.py) operation by operation:
 // built with -fmad=false, the gradient's IEEE division by the float32 2h,
@@ -80,6 +81,21 @@ struct VptIsoShadeExt : VptIsoShadeArgs {
   int th;
   int channels;          // 1 or 2: with filter 0 and 1 channel, no ext
   int filter;            // ray.cuh's VptFilter
+};
+
+// A HaloScene's display (the halo instance below), prepared and checked
+// once (vpt_iso_halo_check): the VptIsoShadeExt of its slab rows and the
+// display's scratch.
+struct VptIsoHalo : VptIsoShadeExt {
+  const int2* planes;    // the slab's plane map, (d, 2) (slab.cuh)
+  float* value;          // (width * height, 7, channels): a slot's values
+  int* pixel;            // (width * height): a slot's pixel
+  uint64_t* status;      // (tiles): the fetch's look-back words
+  uint32_t* ticket;      // the fetch's next tile, 0 between displays
+  int* count;            // the display's hits
+  VptSlab slab;
+  int rows64;            // 1: index slab rows with 64 bits
+  int shade_blocks;      // the shade's grid where no count was read
 };
 
 namespace {
@@ -185,75 +201,243 @@ iso_shade_ext_kernel(const VptIsoShadeExt a, const float4* __restrict__ state,
 // (vpt_tpu/parallel/halo.py:199-250), summed before the TF lookup.
 // vpt_tpu's display (iso.py:109-130) samples the seven fetches of a hit
 // one sample_color at a time, seven psums; here a display is two launches
-// around ONE all-reduce of the (7, n, kC or 1) values, the same sums in
-// fewer collectives: iso_halo_fetch_kernel writes the masked values of the
-// seven fetches of every hit pixel (slab.cuh's cell; 0 where another rank
-// owns it; a pixel without a hit writes nothing, and nothing reads it),
-// iso_halo_shade_kernel looks the summed values up and shades as
-// iso_shade does (iso_lambert), white where nothing was hit.  So on one
-// slab a display equals the whole-scene kernel's bit for bit.  A HaloScene
-// has no filter: kC is 0 (one channel, the TF row in mode kTf) or 2 (the
-// value pair, the 2D TF).
-template <bool kBf16, int kC>
-__global__ void __launch_bounds__(kThreads)
-iso_halo_fetch_kernel(const VptIsoShadeExt a, const VptSlab slab,
-                      const float4* __restrict__ state,
-                      float* __restrict__ value) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int n = a.width * a.height;
-  if (i >= n) return;
-  const float4 s = __ldg(state + i);
-  if (!(s.w > 0.0f)) return;
-  constexpr int kV = kC == 2 ? 2 : 1;
+// around ONE all-reduce of the hits' values, the same sums in fewer
+// collectives, and only the hits move:
+// - iso_halo_fetch_kernel reads every pixel's state once, writes white
+//   where nothing was hit and gives each hit a slot by an ordered
+//   compaction: a block is a tile of kTileRounds x kThreads pixels (four
+//   a thread: fewer tiles take tickets and walk back, and a thread has
+//   four states in flight; two a thread took the fetch 1.05x at 512^2
+//   and 1.25x at 1024^2 on the H100, PERF.md §6), taken from a ticket
+//   (so a tile's predecessors were all taken before it, and the
+//   look-back always makes progress); warp ballots
+//   count its hits in pixel order, and the tile's offset is the count of
+//   the tiles before it by a decoupled look-back in the same launch (its
+//   first warp reading 32 predecessors at a time), while the other warps
+//   fetch their hits' taps.  So the slots follow pixel order, whatever
+//   order the blocks run in, and every rank of a group (the same state)
+//   lays out the same slots; an atomic slot counter would not.  A hit
+//   writes its pixel index and its seven fetches' masked values (0 where
+//   another rank owns the cell) at its slot, slot-major: the first 7 x
+//   hits x kV floats are the whole payload of the all-reduce.  The taps
+//   are placed through the slab's plane map (read through the cache: a
+//   tile holds few hits, so no block stages it) with 32-bit rows below
+//   2^31 slab rows, else 64.
+// - iso_halo_shade_kernel runs over the slots only, one thread a slot: the
+//   summed values' colours (iso_color) and the shade (iso_lambert) into
+//   the hit's pixel.
+// The last tile writes the hits' count on the card; where the group sums
+// them the wrapper reads it (4 bytes), all-reduces the payload alone and
+// sizes the shade's grid to the hits, else the shade reads the count on
+// the card.  So on one slab a display equals the whole-scene kernel's bit
+// for bit.  A HaloScene has no filter: kC is 0 (one channel, the TF row in
+// mode kTf) or 2 (the value pair, the 2D TF).
+
+// A tile's look-back word: its count (bits 0-31), its kind (bits 32-33:
+// kTileCount its own hits, kTilePrefix the hits of it and every tile
+// before it) and the display's epoch (bits 34-63), so that a word left by
+// an earlier display reads as not yet written.
+constexpr uint64_t kTileCount = 1, kTilePrefix = 2;
+// a tile is kTileRounds x kThreads pixels, a thread's pixel a round
+constexpr int kTileRounds = 4;
+
+__device__ __forceinline__ uint64_t iso_tile_word(uint32_t epoch,
+                                                  uint64_t kind,
+                                                  uint32_t count) {
+  return ((uint64_t)epoch << 34) | (kind << 32) | count;
+}
+
+__device__ __forceinline__ void iso_tile_publish(uint64_t* status, int tile,
+                                                 uint64_t word) {
+  atomicExch(reinterpret_cast<unsigned long long*>(status) + tile,
+             (unsigned long long)word);
+}
+
+// The hits of the tiles before tile, by the 32 lanes of its block's first
+// warp: the words of 32 predecessors at a time, newest first (lane l reads
+// tile t - 1 - l, waiting until the display wrote it), until one of them
+// holds its prefix; the counts up to the newest prefix are summed.  Tile
+// 0 holds its prefix from the start, so the walk ends.
+__device__ __forceinline__ uint32_t iso_tile_lookback(const uint64_t* status,
+                                                      int tile,
+                                                      uint32_t epoch) {
+  const int lane = threadIdx.x & 31;
+  uint32_t before = 0;
+  for (int last = tile - 1; last >= 0; last -= 32) {
+    const int t = last - lane;
+    // past tile 0: a prefix of no hits
+    uint64_t word = iso_tile_word(epoch, kTilePrefix, 0u);
+    if (t >= 0) {
+      do {
+        word = *reinterpret_cast<const volatile uint64_t*>(status + t);
+      } while ((uint32_t)(word >> 34) != epoch);
+    }
+    const unsigned prefix =
+        __ballot_sync(0xffffffffu, ((word >> 32) & 3) == kTilePrefix);
+    const int stop = prefix ? __ffs(prefix) - 1 : 31;
+    uint32_t count = lane <= stop ? (uint32_t)word : 0u;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      count += __shfl_xor_sync(0xffffffffu, count, step);
+    before += count;
+    if (prefix) break;
+  }
+  return before;
+}
+
+// The seven masked values of the hit at p (iso_tap's fetches placed
+// through the slab's plane map; 0 where another rank owns the cell).
+template <bool kBf16, int kC, class Row>
+__device__ __forceinline__ void iso_halo_taps(const VptIsoHalo& a,
+                                              const float4 s,
+                                              float2 (&v)[kTaps]) {
   const float p[3] = {s.x, s.y, s.z};
+  VptCell<Row> cell[kTaps];
+  bool local[kTaps];
 #pragma unroll
   for (int j = 0; j < kTaps; ++j) {
     float q[3];
     iso_tap(p, a.step, j, q);
-    const VptSlabCell cell = vpt_slab_cell(a.d, a.h, a.w, slab, q[0], q[1],
-                                           q[2]);
-    float2 v = make_float2(0.0f, 0.0f);
-    if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
-    float* o = value + kV * ((long long)j * n + i);
-    o[0] = v.x;
-    if (kV == 2) o[1] = v.y;
+    cell[j] = vpt_slab_plane_cell<Row>(a.d, a.h, a.w, a.slab, a.planes, q[0],
+                                       q[1], q[2], &local[j]);
+  }
+  VptRowOf<kBf16, kC> row[kTaps];
+#pragma unroll
+  for (int j = 0; j < kTaps; ++j)
+    if (local[j]) row[j] = vpt_load_rows<kBf16, kC>(a.table, cell[j].row);
+#pragma unroll
+  for (int j = 0; j < kTaps; ++j)
+    v[j] = local[j] ? vpt_lerp_rg<kBf16, kC>(row[j], cell[j])
+                    : make_float2(0.0f, 0.0f);
+}
+
+template <bool kBf16, int kC, class Row>
+__global__ void __launch_bounds__(kThreads)
+iso_halo_fetch_kernel(const VptIsoHalo a, const float4* __restrict__ state,
+                      float4* __restrict__ out, uint32_t epoch) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kV = kC == 2 ? 2 : 1;
+  // each (round, warp)'s count of hits
+  __shared__ uint32_t s_count[kTileRounds * kWarps];
+  __shared__ int s_tile;
+  __shared__ uint32_t s_before;
+  if (threadIdx.x == 0) {
+    s_tile = (int)atomicAdd(a.ticket, 1u);
+    // the last ticket: every block has taken its own, so the next display
+    // starts from 0
+    if (s_tile == (int)gridDim.x - 1) atomicExch(a.ticket, 0u);
+  }
+  __syncthreads();
+  const int tile = s_tile;
+  const int n = a.width * a.height;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the thread's pixels of the tile, one a round, their states at once
+  int i[kTileRounds];
+  float4 st[kTileRounds];
+#pragma unroll
+  for (int k = 0; k < kTileRounds; ++k) {
+    i[k] = (tile * kTileRounds + k) * kThreads + (int)threadIdx.x;
+    st[k] = i[k] < n ? __ldg(state + i[k])
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  // white where nothing was hit; a ballot of the hits a round and warp
+  bool hit[kTileRounds];
+  unsigned mask[kTileRounds];
+#pragma unroll
+  for (int k = 0; k < kTileRounds; ++k) {
+    hit[k] = i[k] < n && st[k].w > 0.0f;
+    if (i[k] < n && !hit[k]) out[i[k]] = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    mask[k] = __ballot_sync(0xffffffffu, hit[k]);
+    if (lane == 0) s_count[k * kWarps + warp] = __popc(mask[k]);
+  }
+  __syncthreads();
+  // each hit's place in the tile, in pixel order (round-major), and the
+  // tile's count
+  uint32_t total = 0, offset[kTileRounds];
+#pragma unroll
+  for (int e = 0; e < kTileRounds * kWarps; ++e) {
+#pragma unroll
+    for (int k = 0; k < kTileRounds; ++k)
+      if (e == k * kWarps + warp) offset[k] = total;
+    total += s_count[e];
+  }
+  // the tile's own count at once, for the tiles after it to look back on;
+  // then the first warp walks back and publishes the tile's prefix, which
+  // ends the walks of the tiles after it here
+  if (warp == 0) {
+    if (lane == 0)
+      iso_tile_publish(a.status, tile, iso_tile_word(
+          epoch, tile == 0 ? kTilePrefix : kTileCount, total));
+    const uint32_t before = iso_tile_lookback(a.status, tile, epoch);
+    if (lane == 0) {
+      if (tile > 0)
+        iso_tile_publish(a.status, tile,
+                         iso_tile_word(epoch, kTilePrefix, before + total));
+      if (tile == (int)gridDim.x - 1) *a.count = (int)(before + total);
+      s_before = before;
+    }
+  }
+  // the hits' seven masked values, while the walk runs
+  float2 v[kTileRounds][kTaps];
+#pragma unroll
+  for (int k = 0; k < kTileRounds; ++k)
+    if (hit[k]) iso_halo_taps<kBf16, kC, Row>(a, st[k], v[k]);
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < kTileRounds; ++k) {
+    if (!hit[k]) continue;
+    const uint32_t slot = s_before + offset[k] + __popc(mask[k] & below);
+    a.pixel[slot] = i[k];
+    float* o = a.value + (long long)slot * kTaps * kV;
+#pragma unroll
+    for (int j = 0; j < kTaps; ++j) {
+      o[kV * j] = v[k][j].x;
+      if (kV == 2) o[kV * j + 1] = v[k][j].y;
+    }
   }
 }
 
 template <bool kBf16, int kTf, int kC>
 __global__ void __launch_bounds__(kThreads)
-iso_halo_shade_kernel(const VptIsoShadeExt a,
-                      const float4* __restrict__ state,
-                      const float* __restrict__ value,
-                      float4* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int n = a.width * a.height;
-  if (i >= n) return;
-  const float4 s = __ldg(state + i);
-  if (!(s.w > 0.0f)) {
-    out[i] = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
-    return;
-  }
+iso_halo_shade_kernel(const VptIsoHalo a, float4* __restrict__ out) {
   constexpr int kV = kC == 2 ? 2 : 1;
-  out[i] = iso_lambert(a, [&](int j) {
-    const float* v = value + kV * ((long long)j * n + i);
-    return iso_color<kBf16, kTf, kC>(
-        a, make_float2(v[0], kV == 2 ? v[1] : 0.0f));
-  });
+  const int hits = *a.count;
+  // a slot's entry is read before its test against the count, so that the
+  // two loads overlap: the scratch holds a slot for every pixel, and an
+  // entry past the hits is left unused
+  for (int slot = blockIdx.x * kThreads + threadIdx.x;
+       slot < a.width * a.height; slot += gridDim.x * kThreads) {
+    const int pixel = a.pixel[slot];
+    const float* v = a.value + (long long)slot * kTaps * kV;
+    float2 value[kTaps];
+#pragma unroll
+    for (int j = 0; j < kTaps; ++j)
+      value[j] = make_float2(v[kV * j], kV == 2 ? v[kV * j + 1] : 0.0f);
+    if (slot >= hits) return;
+    out[pixel] = iso_lambert(a, [&](int j) {
+      return iso_color<kBf16, kTf, kC>(a, value[j]);
+    });
+  }
 }
 
-using KernelHaloFetch = void (*)(const VptIsoShadeExt, const VptSlab,
-                                 const float4*, float*);
-using KernelHaloShade = void (*)(const VptIsoShadeExt, const float4*,
-                                 const float*, float4*);
+using KernelHaloFetch = void (*)(const VptIsoHalo, const float4*, float4*,
+                                 uint32_t);
+using KernelHaloShade = void (*)(const VptIsoHalo, float4*);
 
-KernelHaloFetch pick_halo_fetch(int channels, int table_bf16) {
+template <class Row>
+KernelHaloFetch pick_halo_fetch_row(int channels, int table_bf16) {
   if (channels == 2)
-    return table_bf16 ? iso_halo_fetch_kernel<true, 2>
-                      : iso_halo_fetch_kernel<false, 2>;
+    return table_bf16 ? iso_halo_fetch_kernel<true, 2, Row>
+                      : iso_halo_fetch_kernel<false, 2, Row>;
   if (channels != 1) return nullptr;
-  return table_bf16 ? iso_halo_fetch_kernel<true, 0>
-                    : iso_halo_fetch_kernel<false, 0>;
+  return table_bf16 ? iso_halo_fetch_kernel<true, 0, Row>
+                    : iso_halo_fetch_kernel<false, 0, Row>;
+}
+
+KernelHaloFetch pick_halo_fetch(int channels, int table_bf16, int rows64) {
+  return rows64 ? pick_halo_fetch_row<int64_t>(channels, table_bf16)
+                : pick_halo_fetch_row<int>(channels, table_bf16);
 }
 
 KernelHaloShade pick_halo_shade(int channels, int table_bf16, int tf_mode) {
@@ -401,52 +585,84 @@ extern "C" int vpt_iso_shade_info(int flags, int tf_mode, int device,
   return (int)info(pick(bf16, tf_mode), device, out);
 }
 
-// One launch of the halo instance (see iso_halo_fetch_kernel): prepared is
-// the VptIsoShadeExt of the HaloScene, Params and resolution (table: the
-// rank's slab rows; d, h, w the whole volume's; no filter); the slab: its
-// index of num_slabs, the thin slabs a rank (interleave) and whether the
-// fetch is masked; value the (7, width * height, channels) values; stage 0
-// writes this rank's masked values, stage 1 shades the summed values into
-// out.
-extern "C" int vpt_iso_halo_launch(const void* prepared, int slab_index,
-                                   int num_slabs, int interleave, int masked,
-                                   void* value, const void* state, void* out,
-                                   int stage, void* stream) {
-  const VptIsoShadeExt& a = *static_cast<const VptIsoShadeExt*>(prepared);
+// 0 where the prepared halo display is one its launches can run, else a
+// CUDA error code: prepared is the VptIsoHalo of the HaloScene, Params and
+// resolution (table: the rank's slab rows; d, h, w the whole volume's; no
+// filter; the slab's plane map, the scratch, zeroed where the fetch
+// starts from it (the ticket, the look-back words), the slab and the rows'
+// index width), so a launch checks nothing of it.  Launches nothing.
+extern "C" int vpt_iso_halo_check(const void* prepared) {
+  const VptIsoHalo& a = *static_cast<const VptIsoHalo*>(prepared);
   VptDeviceGuard guard(a.device);
-  if (a.width <= 0 || a.height <= 0) return cudaSuccess;
-  if (a.filter != 0 || num_slabs < 1 || interleave < 1 || slab_index < 0
-      || slab_index >= num_slabs || a.d % (num_slabs * interleave) != 0)
+  const VptSlab& slab = a.slab;
+  if (a.filter != 0 || a.width < 0 || a.height < 0 || slab.count < 1
+      || slab.interleave < 1 || slab.index < 0 || slab.index >= slab.count
+      || a.d % (slab.count * slab.interleave) != 0 || a.planes == nullptr
+      || a.value == nullptr || a.pixel == nullptr || a.status == nullptr
+      || a.ticket == nullptr || a.count == nullptr || a.shade_blocks < 1)
     return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)(
-      ((long long)a.width * a.height + kThreads - 1) / kThreads);
+  if (pick_halo_fetch(a.channels, a.table_bf16, a.rows64) == nullptr
+      || pick_halo_shade(a.channels, a.table_bf16, a.tf_mode) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// A stage of a checked halo display: 0 the fetch (white into out where
+// state holds no hit, the hits' slots; epoch, 1 to 2^30 - 1, differs from
+// the display before's), then with read (pinned host memory) the copy of
+// the hits' count into it; 1 the shade of the summed values into out,
+// over ceil(hits / 128) blocks where hits >= 0 (the count read), else over
+// the prepared grid reading the count on the card.
+extern "C" int vpt_iso_halo_launch(const void* prepared, const void* state,
+                                   void* out, int epoch, int stage,
+                                   int hits, void* read, void* stream) {
+  const VptIsoHalo& a = *static_cast<const VptIsoHalo*>(prepared);
+  VptDeviceGuard guard(a.device);
+  if (epoch < 1 || epoch >= (1 << 30)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long n = (long long)a.width * a.height;
   if (stage == 0) {
-    const KernelHaloFetch kernel = pick_halo_fetch(a.channels, a.table_bf16);
-    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-    const VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
-    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        a, slab, (const float4*)state, (float*)value);
-  } else if (stage == 1) {
-    const KernelHaloShade kernel = pick_halo_shade(a.channels, a.table_bf16,
-                                                   a.tf_mode);
-    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        a, (const float4*)state, (const float*)value, (float4*)out);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (n > 0) {
+      const KernelHaloFetch fetch = pick_halo_fetch(a.channels,
+                                                    a.table_bf16, a.rows64);
+      if (fetch == nullptr) return (int)cudaErrorInvalidValue;
+      constexpr int kTile = kTileRounds * kThreads;
+      const unsigned tiles = (unsigned)((n + kTile - 1) / kTile);
+      fetch<<<tiles, kThreads, 0, s>>>(a, (const float4*)state,
+                                       (float4*)out, (uint32_t)epoch);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    } else if (read != nullptr) {
+      *static_cast<int*>(read) = 0;
+      return cudaSuccess;
+    }
+    if (read == nullptr) return cudaSuccess;
+    return (int)cudaMemcpyAsync(read, a.count, sizeof(int),
+                                cudaMemcpyDeviceToHost, s);
   }
+  if (stage != 1) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return cudaSuccess;
+  const KernelHaloShade shade = pick_halo_shade(a.channels, a.table_bf16,
+                                                a.tf_mode);
+  if (shade == nullptr) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = hits > 0
+      ? (unsigned)((hits + kThreads - 1) / kThreads)
+      : hits == 0 ? 1u : (unsigned)a.shade_blocks;
+  shade<<<blocks, kThreads, 0, s>>>(a, (float4*)out);
   return (int)cudaGetLastError();
 }
 
 // The launch shape of the halo instance's stage (0 the fetch, 1 the shade)
-// for flags (1 bf16 rows, 4 two channels) and the TF lookup mode on
-// `device`: vpt_iso_shade_info's values.  Launches nothing.
+// for flags (1 bf16 rows, 4 two channels, 16 64-bit rows, the fetch's) and
+// the TF lookup mode on `device`: vpt_iso_shade_info's values.  Launches
+// nothing.
 extern "C" int vpt_iso_halo_info(int stage, int flags, int tf_mode,
                                  int device, int* out) {
   VptDeviceGuard guard(device);
   const int channels = (flags & 4) ? 2 : 1;
-  if (stage == 0) return (int)info(pick_halo_fetch(channels, flags & 1),
-                                   device, out);
+  if (stage == 0)
+    return (int)info(pick_halo_fetch(channels, flags & 1,
+                                     (flags & 16) ? 1 : 0), device, out);
   return (int)info(pick_halo_shade(channels, flags & 1, tf_mode), device,
                    out);
 }

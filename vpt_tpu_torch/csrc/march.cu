@@ -61,8 +61,9 @@
 // so half the rows of two channels) and, for two channels, the 2D TF rows
 // through the read-only cache; make_scene builds no clamp box for them.
 //
-// A HaloScene's frame (a rank's z slab) runs march_halo_kernel (below): the
-// same fold, split around an all-reduce of each chunk of 8 slices' values.
+// A HaloScene's frame (a rank's z slab) runs the halo instance (below): a
+// fetch of every slice's masked value and the same fold, split around one
+// all-reduce of the values.
 //
 // Numerics follow the plain PyTorch frame (renderers/eam.py, mip.py,
 // depth.py, iso.py) operation by operation: built with -fmad=false, IEEE
@@ -113,6 +114,17 @@ struct VptMarchExt : VptMarchClamp {
   int th;
   int channels;          // 1 or 2: with filter 0 and 1 channel, no ext
   int filter;            // ray.cuh's VptFilter
+};
+
+// A HaloScene's frame (the halo instance below), prepared and checked once
+// (vpt_march_halo_check): the VptMarchExt of its slab rows and what the
+// frame fixes besides.
+struct VptMarchHalo : VptMarchExt {
+  const int2* planes;    // the slab's plane map, (d, 2) (slab.cuh)
+  VptSlab slab;
+  int rows64;            // 1: index slab rows with 64 bits
+  int fetch_rows;        // grid rows of the fetch, a share of the slices
+                         // each
 };
 
 namespace {
@@ -430,123 +442,237 @@ march_ext_kernel(const VptMarchExt a, float* __restrict__ state,
 // (vpt_tpu/parallel/halo.py:143-166, 199-250), an all-reduce between the
 // fetch and the TF lookup: the TF is not linear, so the ranks sum values,
 // never colours, and the masked zeros make the sum exact.  vpt_tpu's march
-// (_march.py:29-55) samples kHaloChunk slices a sample_color, one psum
-// each; so does this instance.  A frame of S slices is C = ceil(S /
-// kHaloChunk) + 1 launches on the state, the wrapper all-reducing the
-// values between them: launch e folds chunk e - 1's summed values in order
-// (march_fold, the TF lookup of march_color; launch 0 starts the carry),
-// then writes chunk e's masked values (slab.cuh's cell; 0 where another
-// rank owns it, and for every slice of a pixel that has left its loop:
-// every rank holds the same carry, so every rank skips it alike); the last
-// launch stores the frame (march_store).  Between launches a pixel keeps
-// its composite's carry (a float4, exact) in carry; its ray comes again
-// from the pixel index.  So on one slab a frame equals the whole-scene
-// kernel's bit for bit.  A HaloScene has no clamp box and no filter; its
-// volume has one channel (kC = 0, the TF row in mode kTf) or two (kC = 2:
-// the value pair summed, then the 2D TF), its slabs contiguous or
-// interleaved, the fetch masked or not (slab.cuh).
-constexpr int kHaloChunk = 8;
+// (_march.py:29-55) psums a sample_color of 8 slices at a time; but a
+// slice's position depends on the frame's scalars and the pixel's ray
+// alone, never on the carry, so this instance samples every slice of the
+// frame at once, and a frame is two launches around ONE all-reduce:
+// - march_halo_fetch_kernel writes this rank's masked value of every slice
+//   of every pixel whose ray meets the cube, (S, n, kV) floats (0 where
+//   another rank owns the cell; a ray that misses writes nothing, and
+//   nothing reads it).  One thread a pixel of the tile grid computes its
+//   ray and walks its grid row's share of the slices, reading the rows of
+//   kChunk slices ahead of their lerps (march_slices' read-ahead), each
+//   cell placed through the slab's plane map in shared memory (slab.cuh's
+//   vpt_slab_plane_cell: no division) with a 32-bit row below 2^31 slab
+//   rows, else 64.  Not K9's layout (a grid row a turn of 8 slices): a
+//   march ray costs ~66 float operations and 14 divisions, two slices'
+//   work, where a DOS point costs a few.  The host splits the slices over
+//   two grid rows (fetch_rows) only where the tile grid is under two waves
+//   of the fetch's resident blocks (the 512^2 headline: 0.87x the fetch's
+//   time, PERF.md §6), and keeps one ray a pixel otherwise (1024^2: two
+//   rows cost 1.08x).
+// - march_halo_fold_kernel folds the summed values in order from the
+//   pixel's state, its carry in registers and the TF row in shared memory
+//   (march_live, march_fold, march_color), to where the renderer's loop
+//   stops (MIP: every slice), and stores the frame (march_store).  The
+//   values' addresses do not depend on the carry, so the fold loads
+//   kHaloAhead slices' values a turn, the next turn's issued before the
+//   current turn is folded.
+// Values past kernels/_build.HALO_VALUE_BYTES go in chunks of slices, a
+// fetch, an all-reduce and a fold each; there the fold of a chunk that is
+// not the last keeps the carry (a float4, exact) in device memory for the
+// next.  So on one slab a frame equals the whole-scene kernel's bit for
+// bit.  The fetch also reads slices the fold never reaches (EAM and Depth
+// once inactive, ISO past its hit), as vpt_tpu samples them.  A HaloScene
+// has no clamp box and no filter; its volume has one channel (kC = 0, the
+// TF row in mode kTf) or two (kC = 2: the value pair summed, then the 2D
+// TF), its slabs contiguous or interleaved, the fetch masked or not.
+
+// values a turn of the fold loads ahead
+constexpr int kHaloAhead = 8;
+
+// Slice j's schedule value of n for a launch's mode (march_t's), a
+// warp-uniform branch: the fetch is one instance for every mode.
+__device__ __forceinline__ float march_t_of(int mode, float first,
+                                            float step, int j, int n) {
+  switch (mode) {
+    case kMip: return march_t<kMip>(first, step, j, n);
+    case kIso: return march_t<kIso>(first, step, j, n);
+    default: return march_t<kEam>(first, step, j, n);
+  }
+}
+
+template <bool kBf16, int kC, class Row>
+__global__ void __launch_bounds__(kVptTileThreads)
+march_halo_fetch_kernel(const VptMarchHalo a, float* __restrict__ value,
+                        float first, int k0, int count) {
+  extern __shared__ int2 s_planes[];
+  __shared__ float s_mvp[16];
+  vpt_stage_planes(s_planes, a.planes, a.d);
+  if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
+  __syncthreads();
+  int x, y;
+  if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
+  const MarchRay r = march_ray<false>(a, s_mvp, x, y);
+  if (r.miss) return;
+  constexpr int kV = kC == 2 ? 2 : 1;  // values a sample
+  constexpr int C = kChunkOf<kBf16, kC>;
+  const long long stride = kV * (long long)a.width * a.height;
+  float* out = value + kV * ((long long)y * a.width + x);
+  // this grid row's slices of the chunk
+  const int per_row = (count + (int)gridDim.y - 1) / (int)gridDim.y;
+  const int end = min(count, ((int)blockIdx.y + 1) * per_row);
+  for (int j0 = (int)blockIdx.y * per_row; j0 < end; j0 += C) {
+    VptCell<Row> cell[C];
+    bool local[C];
+    VptRowOf<kBf16, kC> row[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const float ts = march_t_of(a.mode, first, a.step, k0 + j0 + k,
+                                  a.slices);
+      cell[k] = vpt_slab_plane_cell<Row>(
+          a.d, a.h, a.w, a.slab, s_planes, r.start[0] + ts * r.seg[0],
+          r.start[1] + ts * r.seg[1], r.start[2] + ts * r.seg[2], &local[k]);
+      if (j0 + k < end && local[k])
+        row[k] = vpt_load_rows<kBf16, kC>(a.table, cell[k].row);
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      if (j0 + k >= end) break;
+      float2 v = make_float2(0.0f, 0.0f);
+      if (local[k]) v = vpt_lerp_rg<kBf16, kC>(row[k], cell[k]);
+      float* o = out + (j0 + k) * stride;
+      o[0] = v.x;
+      if (kV == 2) o[1] = v.y;
+    }
+  }
+}
+
+// A pixel's values of slices j = 0 .. m - 1 of a chunk (v: slice 0's,
+// slice j's at v + j * stride), folded in order by fold(j, value) until it
+// returns false (the pixel leaves its loop): kHaloAhead values a turn, the
+// next turn's loads issued before the current turn is folded.
+template <int kV, class Fold>
+__device__ __forceinline__ void march_halo_values(const float* __restrict__ v,
+                                                  long long stride, int m,
+                                                  Fold fold) {
+  float2 cur[kHaloAhead], next[kHaloAhead];
+  auto load = [&](float2 (&out)[kHaloAhead], int j) {
+#pragma unroll
+    for (int k = 0; k < kHaloAhead; ++k) {
+      if (j + k < m) {
+        const float* p = v + (j + k) * stride;
+        out[k] = make_float2(p[0], kV == 2 ? p[1] : 0.0f);
+      }
+    }
+  };
+  load(cur, 0);
+  for (int j0 = 0; j0 < m; j0 += kHaloAhead) {
+    load(next, j0 + kHaloAhead);
+#pragma unroll
+    for (int k = 0; k < kHaloAhead; ++k) {
+      if (j0 + k >= m || !fold(j0 + k, cur[k])) return;
+    }
+#pragma unroll
+    for (int k = 0; k < kHaloAhead; ++k) cur[k] = next[k];
+  }
+}
 
 template <int kMode, bool kBf16, int kTf, int kC>
 __global__ void __launch_bounds__(kVptTileThreads, kMinBlocks)
-march_halo_kernel(const VptMarchExt a, const VptSlab slab,
-                  float* __restrict__ value, float4* __restrict__ carry,
-                  float* __restrict__ state, float first, float mix,
-                  int chunk) {
+march_halo_fold_kernel(const VptMarchHalo a, const float* __restrict__ value,
+                       float4* __restrict__ carry, float* __restrict__ state,
+                       float first, float mix, int k0, int count) {
   extern __shared__ float4 s_tf[];
   __shared__ float s_mvp[16];
-  if (kC != 2 && chunk > 0)
+  if (kC != 2)
     for (int i = threadIdx.x; i < a.tw; i += blockDim.x)
       s_tf[i] = a.tf_row[i];
   if (threadIdx.x < 16) s_mvp[threadIdx.x] = __ldg(a.mvp + threadIdx.x);
   __syncthreads();
   int x, y;
   if (!vpt_tile_pixel(a.width, a.height, &x, &y)) return;
-  constexpr int kV = kC == 2 ? 2 : 1;  // values a sample
+  constexpr int kV = kC == 2 ? 2 : 1;
   const int i = y * a.width + x;
-  const long long pixels = (long long)a.width * a.height;
-  const MarchRay r = march_ray<false>(a, s_mvp, x, y);
-  const int n = r.miss ? 0 : a.slices;
-  const float step = a.step;
-  const int chunks = (a.slices + kHaloChunk - 1) / kHaloChunk;
-  float4 c = chunk == 0 ? march_carry<kMode>(first) : carry[i];
-  if (chunk > 0) {
-    const float rsl = march_step_length<kMode>(r, step);
-    const int j0 = (chunk - 1) * kHaloChunk;
-    for (int k = 0; k < kHaloChunk && j0 + k < n; ++k) {
-      const float ts = march_t<kMode>(first, step, j0 + k, n);
-      if (!march_live<kMode>(c, ts, a.level)) break;
-      const float* v = value + kV * ((long long)k * pixels + i);
-      if (!march_fold<kMode>(c, ts, [&] {
-            return march_color<kBf16, kTf, kC>(
-                s_tf, a, make_float2(v[0], kV == 2 ? v[1] : 0.0f));
-          }, rsl, a, r))
-        break;
-    }
-  }
-  if (chunk < chunks) {
-    const int j0 = chunk * kHaloChunk;
-    const bool live =
-        j0 < n && march_live<kMode>(c, march_t<kMode>(first, step, j0, n),
-                                    a.level);
-#pragma unroll
-    for (int k = 0; k < kHaloChunk; ++k) {
-      float2 v = make_float2(0.0f, 0.0f);
-      if (live && j0 + k < n) {
-        const float ts = march_t<kMode>(first, step, j0 + k, n);
-        const VptSlabCell cell = vpt_slab_cell(
-            a.d, a.h, a.w, slab, r.start[0] + ts * r.seg[0],
-            r.start[1] + ts * r.seg[1], r.start[2] + ts * r.seg[2]);
-        if (cell.local) v = vpt_slab_value<kBf16, kC>(a.table, cell);
-      }
-      float* out = value + kV * ((long long)k * pixels + i);
-      out[0] = v.x;
-      if (kV == 2) out[1] = v.y;
-    }
-    carry[i] = c;
-  } else {
-    float4 s0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    float m0 = 0.0f;
+  const bool last = k0 + count == a.slices;
+  // the state, read first, so that its latency overlaps the fold's
+  float4 s0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float m0 = 0.0f;
+  if (last) {
     if (kMode == kMip) m0 = state[i];
     else s0 = reinterpret_cast<const float4*>(state)[i];
-    march_store<kMode>(state, i, c, r, a.level, mix, s0, m0);
   }
+  const MarchRay r = march_ray<false>(a, s_mvp, x, y);
+  const int n = r.miss ? 0 : a.slices;
+  const int m = r.miss ? 0 : count;  // the chunk's slices this pixel folds
+  const float step = a.step;
+  const float rsl = march_step_length<kMode>(r, step);
+  float4 c = k0 == 0 ? march_carry<kMode>(first) : carry[i];
+  march_halo_values<kV>(
+      value + kV * (long long)i, kV * (long long)a.width * a.height, m,
+      [&](int j, float2 v) {
+        const float ts = march_t<kMode>(first, step, k0 + j, n);
+        return march_live<kMode>(c, ts, a.level)
+               && march_fold<kMode>(c, ts, [&] {
+                    return march_color<kBf16, kTf, kC>(s_tf, a, v);
+                  }, rsl, a, r);
+      });
+  if (last) march_store<kMode>(state, i, c, r, a.level, mix, s0, m0);
+  else carry[i] = c;
 }
 
-using KernelHalo = void (*)(const VptMarchExt, const VptSlab, float*,
-                            float4*, float*, float, float, int);
+using KernelHaloFetch = void (*)(const VptMarchHalo, float*, float, int,
+                                 int);
+using KernelHaloFold = void (*)(const VptMarchHalo, const float*, float4*,
+                                float*, float, float, int, int);
 
-// The halo instance for a mode, a table type, the TF lookup mode (one
-// channel) or two channels; null for anything else.
-template <int kMode>
-KernelHalo pick_halo_tf(int channels, int table_bf16, int tf_mode) {
+// The fetch for a table type, one channel or two and the row index's width;
+// null for anything else.
+template <class Row>
+KernelHaloFetch pick_halo_fetch_row(int channels, int table_bf16) {
   if (channels == 2)
-    return table_bf16 ? march_halo_kernel<kMode, true, 0, 2>
-                      : march_halo_kernel<kMode, false, 0, 2>;
+    return table_bf16 ? march_halo_fetch_kernel<true, 2, Row>
+                      : march_halo_fetch_kernel<false, 2, Row>;
+  if (channels != 1) return nullptr;
+  return table_bf16 ? march_halo_fetch_kernel<true, 0, Row>
+                    : march_halo_fetch_kernel<false, 0, Row>;
+}
+
+KernelHaloFetch pick_halo_fetch(int channels, int table_bf16, int rows64) {
+  return rows64 ? pick_halo_fetch_row<int64_t>(channels, table_bf16)
+                : pick_halo_fetch_row<int>(channels, table_bf16);
+}
+
+// The fold for a mode, a table type, the TF lookup mode (one channel) or
+// two channels; null for anything else.
+template <int kMode>
+KernelHaloFold pick_halo_fold_tf(int channels, int table_bf16, int tf_mode) {
+  if (channels == 2)
+    return table_bf16 ? march_halo_fold_kernel<kMode, true, 0, 2>
+                      : march_halo_fold_kernel<kMode, false, 0, 2>;
   if (channels != 1) return nullptr;
   switch (tf_mode + 3 * table_bf16) {
-    case 0: return march_halo_kernel<kMode, false, 0, 0>;
-    case 1: return march_halo_kernel<kMode, false, 1, 0>;
-    case 2: return march_halo_kernel<kMode, false, 2, 0>;
-    case 3: return march_halo_kernel<kMode, true, 0, 0>;
-    case 4: return march_halo_kernel<kMode, true, 1, 0>;
-    case 5: return march_halo_kernel<kMode, true, 2, 0>;
+    case 0: return march_halo_fold_kernel<kMode, false, 0, 0>;
+    case 1: return march_halo_fold_kernel<kMode, false, 1, 0>;
+    case 2: return march_halo_fold_kernel<kMode, false, 2, 0>;
+    case 3: return march_halo_fold_kernel<kMode, true, 0, 0>;
+    case 4: return march_halo_fold_kernel<kMode, true, 1, 0>;
+    case 5: return march_halo_fold_kernel<kMode, true, 2, 0>;
     default: return nullptr;
   }
 }
 
-KernelHalo pick_halo(int mode, int channels, int table_bf16, int tf_mode) {
+KernelHaloFold pick_halo_fold(int mode, int channels, int table_bf16,
+                              int tf_mode) {
   if (tf_mode < 0 || tf_mode > 2) return nullptr;
   switch (mode) {
-    case kEam: return pick_halo_tf<kEam>(channels, table_bf16, tf_mode);
-    case kMip: return pick_halo_tf<kMip>(channels, table_bf16, tf_mode);
-    case kDepth: return pick_halo_tf<kDepth>(channels, table_bf16, tf_mode);
-    case kIso: return pick_halo_tf<kIso>(channels, table_bf16, tf_mode);
+    case kEam: return pick_halo_fold_tf<kEam>(channels, table_bf16, tf_mode);
+    case kMip: return pick_halo_fold_tf<kMip>(channels, table_bf16, tf_mode);
+    case kDepth:
+      return pick_halo_fold_tf<kDepth>(channels, table_bf16, tf_mode);
+    case kIso: return pick_halo_fold_tf<kIso>(channels, table_bf16, tf_mode);
     default: return nullptr;
   }
 }
 
 size_t dynamic_smem(int tw) { return (size_t)tw * sizeof(float4); }
+
+// dynamic shared bytes of the halo fetch (the plane map) and of the fold
+// (the TF row; none for two channels)
+size_t planes_smem(int d) { return (size_t)d * sizeof(int2); }
+size_t fold_smem(const VptMarchExt& p) {
+  return p.channels == 2 ? 0 : dynamic_smem(p.tw);
+}
 
 // The instantiation for a launch's mode, table type and TF lookup mode
 // (tf1d.cuh's: a compile-time constant, so the lookup carries no branch).
@@ -754,52 +880,95 @@ extern "C" int vpt_march_info(int mode, int flags, int tw, int tf_mode,
                           chunk, device, out));
 }
 
-// One launch of the halo instance (see march_halo_kernel): prepared is the
-// VptMarchExt of the HaloScene, Params and resolution (table: the rank's
-// slab rows, (slab planes * H * W, 8 * channels); d, h, w the whole
-// volume's; no boxes, no filter); the slab: its index of num_slabs, the thin
-// slabs a rank (interleave) and whether the fetch is masked; value the
-// (kHaloChunk, width * height, channels) values between the launches,
-// carry the (width * height, 4) carry; chunk e of 0 .. ceil(slices /
-// kHaloChunk), the last storing the frame; first and mix as
-// vpt_march_launch's.
-extern "C" int vpt_march_halo_launch(const void* prepared, int slab_index,
-                                     int num_slabs, int interleave,
-                                     int masked, void* value, void* carry,
-                                     void* state, float first, float mix,
-                                     int chunk, void* stream) {
-  const VptMarchExt& p = *static_cast<const VptMarchExt*>(prepared);
+// 0 where the prepared halo frame is one its launches can run, else a CUDA
+// error code: prepared is the VptMarchHalo of the HaloScene, Params and
+// resolution (table: the rank's slab rows, (slab planes * H * W, 8 *
+// channels); d, h, w the whole volume's; no boxes, no filter; the slab's
+// plane map, the slab and the rows' index width).  It lets the fetch take
+// the plane map's shared memory and the fold its TF row's, so a launch
+// checks nothing of the preparation.  Launches nothing.
+extern "C" int vpt_march_halo_check(const void* prepared) {
+  const VptMarchHalo& p = *static_cast<const VptMarchHalo*>(prepared);
   VptDeviceGuard guard(p.device);
-  if (p.width <= 0 || p.height <= 0) return cudaSuccess;
-  const int chunks = (p.slices + kHaloChunk - 1) / kHaloChunk;
-  if (p.boxes != 0 || p.filter != 0 || p.row0 < 0
-      || p.full_height < p.row0 + p.height || chunk < 0 || chunk > chunks
-      || num_slabs < 1 || interleave < 1 || slab_index < 0
-      || slab_index >= num_slabs || p.d % (num_slabs * interleave) != 0)
+  const VptSlab& slab = p.slab;
+  if (p.boxes != 0 || p.filter != 0 || p.width < 0 || p.height < 0
+      || p.row0 < 0 || p.full_height < p.row0 + p.height || p.slices < 1
+      || slab.count < 1 || slab.interleave < 1 || slab.index < 0
+      || slab.index >= slab.count || p.d < 1 || p.d > kVptMaxPlanes
+      || p.d % (slab.count * slab.interleave) != 0 || p.planes == nullptr
+      || p.fetch_rows < 1)
     return (int)cudaErrorInvalidValue;
-  const KernelHalo kernel = pick_halo(p.mode, p.channels, p.table_bf16,
-                                      p.tf_mode);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = p.channels == 2 ? 0 : dynamic_smem(p.tw);
-  cudaError_t err = allow_smem(kernel, smem);
+  const KernelHaloFetch fetch = pick_halo_fetch(p.channels, p.table_bf16,
+                                                p.rows64);
+  const KernelHaloFold fold = pick_halo_fold(p.mode, p.channels,
+                                             p.table_bf16, p.tf_mode);
+  if (fetch == nullptr || fold == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(fetch, planes_smem(p.d));
   if (err != cudaSuccess) return (int)err;
-  const VptSlab slab = {slab_index, num_slabs, interleave, masked ? 1 : 0};
-  const unsigned blocks = (unsigned)vpt_tile_blocks(p.width, p.height);
-  kernel<<<blocks, kVptTileThreads, smem, (cudaStream_t)stream>>>(
-      p, slab, (float*)value, (float4*)carry, (float*)state, first, mix,
-      chunk);
-  return (int)cudaGetLastError();
+  return (int)allow_smem(fold, fold_smem(p));
 }
 
-// The launch shape of the halo instance of mode `mode` for flags (1: bf16
-// rows, 8: two channels) and a TF row of `tw` texels in lookup mode
-// `tf_mode` on `device`: vpt_march_info's values, with chunk the slices of
-// a fetch (kHaloChunk).  Launches nothing.
-extern "C" int vpt_march_halo_info(int mode, int flags, int tw, int tf_mode,
-                                   int device, int* out) {
+// The stages (1: the fetch, 2: the fold, 3: both, back to back) of the
+// chunk of slices k0 .. k0 + count - 1 of a checked halo frame (see
+// march_halo_fetch_kernel): value the chunk's (count, width * height,
+// channels) values, which the caller all-reduces between the stages where
+// its group sums them; carry the (width * height, 4) carry between chunks
+// (null where one chunk holds every slice); state the frame's, which the
+// fold of the last chunk stores; first and mix as vpt_march_launch's.
+extern "C" int vpt_march_halo_launch(const void* prepared, void* value,
+                                     void* carry, void* state, float first,
+                                     float mix, int k0, int count,
+                                     int stages, void* stream) {
+  const VptMarchHalo& p = *static_cast<const VptMarchHalo*>(prepared);
+  VptDeviceGuard guard(p.device);
+  if (k0 < 0 || count < 1 || k0 + count > p.slices || stages < 1
+      || stages > 3 || (count < p.slices && carry == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (p.width <= 0 || p.height <= 0) return cudaSuccess;
+  const unsigned blocks = (unsigned)vpt_tile_blocks(p.width, p.height);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (stages & 1) {
+    const KernelHaloFetch fetch = pick_halo_fetch(p.channels, p.table_bf16,
+                                                  p.rows64);
+    if (fetch == nullptr) return (int)cudaErrorInvalidValue;
+    const dim3 grid(blocks, (unsigned)min(p.fetch_rows, count));
+    fetch<<<grid, kVptTileThreads, planes_smem(p.d), s>>>(
+        p, (float*)value, first, k0, count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (stages & 2) {
+    const KernelHaloFold fold = pick_halo_fold(p.mode, p.channels,
+                                               p.table_bf16, p.tf_mode);
+    if (fold == nullptr) return (int)cudaErrorInvalidValue;
+    fold<<<blocks, kVptTileThreads, fold_smem(p), s>>>(
+        p, (const float*)value, (float4*)carry, (float*)state, first, mix,
+        k0, count);
+    return (int)cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+// The launch shape of the halo instance's stage (0: the fetch, 1: the
+// fold) of mode `mode` for flags (1: bf16 rows, 8: two channels, 16: 64-bit
+// rows, the fetch's), a TF row of `tw` texels in lookup mode `tf_mode` and
+// a volume of `d` planes on `device`: vpt_march_info's values, with chunk
+// the fetch's rows read ahead (kChunk) or the fold's values a turn
+// (kHaloAhead).  Launches nothing.
+extern "C" int vpt_march_halo_info(int stage, int mode, int flags, int tw,
+                                   int tf_mode, int d, int device,
+                                   int* out) {
   VptDeviceGuard guard(device);
-  const int channels = (flags & 8) ? 2 : 1;
-  return (int)info(pick_halo(mode, channels, flags & 1, tf_mode),
-                   channels == 2 ? 0 : dynamic_smem(tw), kHaloChunk, device,
-                   out);
+  const int channels = (flags & 8) ? 2 : 1, bf16 = flags & 1;
+  if (stage == 0) {
+    const int chunk = bf16 ? kChunk<true> : kChunk<false>;
+    return (int)info(pick_halo_fetch(channels, bf16, (flags & 16) ? 1 : 0),
+                     planes_smem(d), channels == 2 ? chunk / 2 : chunk,
+                     device, out);
+  }
+  VptMarchExt p;
+  p.channels = channels;
+  p.tw = tw;
+  return (int)info(pick_halo_fold(mode, channels, bf16, tf_mode),
+                   fold_smem(p), kHaloAhead, device, out);
 }

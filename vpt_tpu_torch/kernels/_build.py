@@ -90,12 +90,14 @@ SIGNATURES = {
     "vpt_corner_grad": [_P, _L, _I, _P, _P, _P, _L, _P],
     # prepared VptMarchExt, state; first, mix; stream
     "vpt_march_launch": [_P, _P, _F, _F, _P],
-    # prepared VptMarchExt of a slab; slab index, slabs, interleave,
-    # masked; value, carry, state; first, mix; chunk; stream
-    "vpt_march_halo_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _F, _F, _I,
-                              _P],
-    # mode, flags (1 bf16, 8 two channels), TW, TF mode, device, out
-    "vpt_march_halo_info": [_I, _I, _I, _I, _I, _P],
+    # a prepared VptMarchHalo
+    "vpt_march_halo_check": [_P],
+    # a checked VptMarchHalo; value, carry, state; first, mix; k0, count,
+    # stages (1 fetch, 2 fold); stream
+    "vpt_march_halo_launch": [_P, _P, _P, _P, _F, _F, _I, _I, _I, _P],
+    # stage (0 fetch, 1 fold), mode, flags (1 bf16, 8 two channels, 16
+    # 64-bit rows), TW, TF mode, D, device, out
+    "vpt_march_halo_info": [_I, _I, _I, _I, _I, _I, _I, _P],
     # mode, flags (1 bf16, 2 clamp boxes, 4 ext of one channel, 8 of two),
     # TW, TF mode, device, out
     "vpt_march_info": [_I, _I, _I, _I, _I, _P],
@@ -108,10 +110,13 @@ SIGNATURES = {
     "vpt_iso_shade_launch": [_P, _P, _P, _P],
     # flags (1 bf16, 2 ext of one channel, 4 of two), TF mode, device, out
     "vpt_iso_shade_info": [_I, _I, _I, _P],
-    # prepared VptIsoShadeExt of a slab; slab index, slabs, interleave,
-    # masked; value, state, out; stage (0 fetch, 1 shade); stream
-    "vpt_iso_halo_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
-    # stage, flags (1 bf16, 4 two channels), TF mode, device, out
+    # a prepared VptIsoHalo
+    "vpt_iso_halo_check": [_P],
+    # a checked VptIsoHalo; state, out; epoch; stage (0 fetch, 1 shade),
+    # hits (-1: read on the card), pinned host int or null; stream
+    "vpt_iso_halo_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
+    # stage, flags (1 bf16, 4 two channels, 16 64-bit rows), TF mode,
+    # device, out
     "vpt_iso_halo_info": [_I, _I, _I, _I, _P],
     # the argument list every build since the port exports: state, out;
     # table, bf16, D, H, W, TF row, TW, TF mode; width, height; h, 2h,
@@ -549,6 +554,29 @@ def scene_plane_map(scene):
     return slab_plane_map(scene.volume_shape[0], scene.num_slabs,
                           scene.slab_index, scene.interleave).to(
         scene.slab_packed.device)
+
+
+#: the most bytes of a halo frame's values that one fetch writes
+HALO_VALUE_BYTES = 1 << 30
+
+
+def halo_chunk(steps: int, pixels: int, channels: int, cap=None) -> int:
+    """The slices a halo frame (K6's, K9's) samples in one fetch: all of its
+    ``steps`` where their values (4 bytes a pixel, channel and slice) fit
+    in ``cap`` bytes (by default HALO_VALUE_BYTES), else the most that fit,
+    at least 1."""
+    cap = HALO_VALUE_BYTES if cap is None else cap
+    per_slice = 4 * max(pixels, 1) * channels
+    return max(1, min(steps, cap // per_slice))
+
+
+def halo_chunks(steps: int, chunk: int):
+    """A halo frame's chunks of slices, as (first slice, slices, last)
+    tuples: one of all ``steps`` where ``chunk`` (:func:`halo_chunk`) holds
+    them, each a fetch, an all-reduce and a fold, the last fold ending the
+    frame."""
+    return [(k0, min(chunk, steps - k0), k0 + chunk >= steps)
+            for k0 in range(0, steps, chunk)]
 
 
 def environment_map(scene):

@@ -65,7 +65,8 @@ LAUNCHES = 0
 #: launches of the band instance (one a slice), likewise
 BAND_LAUNCHES = 0
 #: launches of the halo instance (a fetch and a fold a frame; a chunk of
-#: :func:`halo_chunk` slices each past HALO_VALUE_BYTES), likewise
+#: ``_build.halo_chunk`` slices each past ``_build.HALO_VALUE_BYTES``),
+#: likewise
 HALO_LAUNCHES = 0
 #: launches of the halo band instance (a fetch a chunk of HALO_CHUNK
 #: active slices and a fold a slice), likewise
@@ -73,8 +74,6 @@ HALO_BAND_LAUNCHES = 0
 #: slices a halo band's fetch samples (``kHaloChunk``; vpt_tpu's sweep
 #: samples 8 slices a ``sample_color``, one ``psum`` each)
 HALO_CHUNK = 8
-#: the most bytes of a halo frame's values that one fetch writes
-HALO_VALUE_BYTES = 1 << 30
 #: the leading floats of a table row (``dos.TABLE_HEAD``)
 _HEAD = 4
 #: the most disk taps the kernel takes: a block holds at least one row of
@@ -445,31 +444,13 @@ def _halo_fields(scene):
             scene.projection, scene.tf_mxu, scene.transfer_packed)
 
 
-def halo_chunk(steps: int, pixels: int, channels: int, cap=None) -> int:
-    """The slices a halo frame samples in one fetch: all of its ``steps``
-    where their values (4 bytes a pixel, channel and slice) fit in ``cap``
-    bytes (by default HALO_VALUE_BYTES), else the most that fit, at least
-    1."""
-    cap = HALO_VALUE_BYTES if cap is None else cap
-    per_slice = 4 * max(pixels, 1) * channels
-    return max(1, min(steps, cap // per_slice))
-
-
-def halo_chunks(steps: int, chunk: int):
-    """A halo frame's chunks of slices, as (first slice, slices, last)
-    tuples: one of all ``steps`` where ``chunk`` (:func:`halo_chunk`) holds
-    them, each a fetch, an all-reduce and a fold, the last fold advancing
-    the depth."""
-    return [(k0, min(chunk, steps - k0), k0 + chunk >= steps)
-            for k0 in range(0, steps, chunk)]
-
-
 def _prepare_halo(scene, key):
     """What every halo frame of ``key`` = (params, height, width) takes of
     a HaloScene: the ``VptDosHalo`` of its slab rows (its plane map) with
-    the fold's cooperative grid for a chunk of :func:`halo_chunk` slices,
-    the second occlusion buffer; the chunk's (chunk, n, channels) values
-    are allocated at the first frame (a band allocates its own)."""
+    the fold's cooperative grid for a chunk of ``_build.halo_chunk``
+    slices, the second occlusion buffer; the chunk's (chunk, n,
+    channels) values are allocated at the first frame (a band allocates
+    its own)."""
     from ..renderers import dos
 
     params, height, width = key
@@ -484,7 +465,7 @@ def _prepare_halo(scene, key):
     projection = scene.projection.to(torch.float32).contiguous()
     dev = tensors[0].device
     n = height * width
-    chunk = halo_chunk(params.steps, n, channels)
+    chunk = _build.halo_chunk(params.steps, n, channels)
     occ = halo_occupancy(1, tensors[0].dtype, tf_mode, params.samples,
                          dev.index, channels, steps=chunk)
     blocks = occ["blocks_per_sm"] * occ["sms"]
@@ -523,8 +504,8 @@ def halo_sweep_frame(state, scene, params):
     ``psum``s a ``sample_color`` of 8 slices and the plain twin a slice at
     a time; a frame after the sweep's end takes the same 2 and 1 and
     changes nothing but the depth's advance by 0.  Values past
-    HALO_VALUE_BYTES go in chunks of :func:`halo_chunk` slices, each a
-    fetch, an all-reduce and a fold.  Equal bit for bit to
+    ``_build.HALO_VALUE_BYTES`` go in chunks of ``_build.halo_chunk``
+    slices, each a fetch, an all-reduce and a fold.  Equal bit for bit to
     :func:`sweep_frame` on the whole scene."""
     global HALO_LAUNCHES
 
@@ -553,7 +534,7 @@ def halo_sweep_frame(state, scene, params):
             p.scratch.data_ptr(), *(v.data_ptr() for v in scalars),
             offsets.data_ptr(), scene.slab_index, scene.num_slabs,
             scene.interleave, int(scene.collective), p.value.data_ptr())
-    for k0, count, last in halo_chunks(params.steps, p.chunk):
+    for k0, count, last in _build.halo_chunks(params.steps, p.chunk):
         _build.check("vpt_dos_halo_launch",
                      p.launch(*head, k0, count, 0, 0, stream))
         scene.reduce_(p.value)

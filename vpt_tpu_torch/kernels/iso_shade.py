@@ -40,6 +40,13 @@ from . import _build
 LAUNCHES = 0
 #: launches of the halo instance (2 a display), likewise
 HALO_LAUNCHES = 0
+#: the hits of the last halo display whose values were all-reduced (their
+#: count read from the card), or None
+HALO_HITS = None
+#: slab rows from which the halo fetch indexes them with 64 bits
+ROWS32 = 2 ** 31
+#: pixels of a tile of the halo fetch (``kTileRounds`` x 128)
+HALO_TILE = 512
 #: the fetches of a hit: +h and −h on x, y, z, then the hit
 TAPS = 7
 
@@ -132,13 +139,30 @@ def _halo_fields(scene):
             scene.model_view, scene.transfer_packed)
 
 
+class _HaloArgs(_Args):
+    """``VptIsoHalo``: ``VptIsoShadeExt``, the slab's plane map, the
+    display's scratch, the slab, the rows' index width and the shade's
+    grid where no count is read."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in
+                 ("planes", "value", "pixel", "status", "ticket", "count")]
+                + [(name, ctypes.c_int) for name in
+                   ("slab_index", "num_slabs", "interleave", "masked",
+                    "rows64", "shade_blocks")])
+
+
 def _prepare_halo(scene, key):
-    """What every halo display of ``key`` = (params, height, width) takes
-    of a HaloScene: the ``VptIsoShadeExt`` of its slab rows and the
-    display's (TAPS, n, channels) values between its launches."""
+    """What every halo display of ``key`` = (params, height, width, slab
+    index, slabs, interleave, masked) takes of a HaloScene, checked once
+    (``vpt_iso_halo_check``): the ``VptIsoHalo`` of its slab rows (32-bit
+    rows below :data:`ROWS32` slab rows, else 64) and plane map, and the
+    display's scratch: the slots' (n, TAPS, channels) values and pixels,
+    the fetch's look-back words (one a tile of :data:`HALO_TILE` pixels),
+    its ticket and the hits' count (zeroed), the pinned word the count is
+    read into and the event it waits on; the shade's grid where no count
+    is read is one wave of the card."""
     from ..renderers import iso
 
-    params, height, width = key
+    params, height, width, *slab = key
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the ISO shade kernel indexes "
                          "pixels with 32-bit integers")
@@ -147,32 +171,59 @@ def _prepare_halo(scene, key):
     step = _build.f32(params.gradient_step)
     light = tuple(iso.light_direction(scene, params).tolist())
     dev = tensors[0].device
-    args = _Args(table, row, bf16, d, h, w, tw, tf_mode, width, height, step,
-                 _build.f32(2.0 * step), *light, dev.index, tf_table, th,
-                 channels, 0)
+    n = height * width
+    planes = _build.scene_plane_map(scene)
+    scratch = {"value": torch.empty(n * TAPS * channels, dtype=torch.float32,
+                                    device=dev),
+               "pixel": torch.empty(n, dtype=torch.int32, device=dev),
+               "status": torch.zeros(max(1, -(-n // HALO_TILE)),
+                                     dtype=torch.int64, device=dev),
+               "counts": torch.zeros(2, dtype=torch.int32, device=dev)}
+    rows64 = int(tensors[0].shape[0] >= ROWS32)
+    occ = halo_occupancy(1, tensors[0].dtype, tf_mode, dev.index, channels)
+    shade_blocks = max(1, min(-(-n // occ["threads_per_block"]),
+                              occ["blocks_per_sm"] * occ["sms"]))
+    counts = scratch["counts"].data_ptr()
+    args = _HaloArgs(table, row, bf16, d, h, w, tw, tf_mode, width, height,
+                     step, _build.f32(2.0 * step), *light, dev.index,
+                     tf_table, th, channels, 0, planes.data_ptr(),
+                     scratch["value"].data_ptr(), scratch["pixel"].data_ptr(),
+                     scratch["status"].data_ptr(), counts, counts + 4, *slab,
+                     rows64, shade_blocks)
+    lib = _build.library()
+    _build.check("vpt_iso_halo_check",
+                 lib.vpt_iso_halo_check(ctypes.addressof(args)))
+    read = torch.zeros(1, dtype=torch.int32, pin_memory=True)
     return _build.Prepared(
-        tensors=tensors, args=args, address=ctypes.addressof(args),
+        tensors=(*tensors, planes), args=args, address=ctypes.addressof(args),
         device=dev.index, shape=torch.Size((height, width, 4)),
-        value=torch.empty(TAPS * height * width * channels,
-                          dtype=torch.float32, device=dev),
-        launch=_build.library().vpt_iso_halo_launch)
+        scratch=scratch, value=scratch["value"], pixel=scratch["pixel"],
+        channels=channels, epoch=0, read=read,
+        count=ctypes.c_int.from_address(read.data_ptr()),
+        event=torch.cuda.Event(), launch=lib.vpt_iso_halo_launch)
 
 
 _halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
 
 
 def halo_shade(state, scene, params):
-    """The display of an ISO state over a HaloScene on the card: two
-    launches of the halo instance around ONE all-reduce
-    (``HaloScene.reduce_``) of the seven fetches' masked values of every
-    hit pixel, where vpt_tpu and the plain twin sum each of the seven
-    ``sample_color`` calls on its own (seven all-reduces): the same sums,
-    so on one slab the image equals :func:`shade`'s on the whole scene bit
+    """The display of an ISO state over a HaloScene on the card: a launch
+    of the halo instance's fetch (white where nothing was hit; each hit's
+    pixel and its seven fetches' masked values at its slot, the slots in
+    pixel order on every rank), one all-reduce of the hits' values alone
+    (``HaloScene.reduce_``; the hits' count read from the card first, 4
+    bytes; nothing read and nothing summed without a group, nor where
+    nothing was hit) and a launch of its shade over the slots, where
+    vpt_tpu and the plain twin sum each of the seven ``sample_color``
+    calls of every pixel on its own (seven all-reduces): the same sums, so
+    on one slab the image equals :func:`shade`'s on the whole scene bit
     for bit.  A new (H, W, 4) tensor."""
-    global HALO_LAUNCHES
+    global HALO_LAUNCHES, HALO_HITS
     if not state.is_cuda:
         return iso_shade_plain(state, scene, params)
-    p = _halo_cache.get(scene, (params,) + tuple(state.shape[:2]))
+    p = _halo_cache.get(scene, (params,) + tuple(state.shape[:2])
+                        + (scene.slab_index, scene.num_slabs,
+                           scene.interleave, int(scene.collective)))
     if state.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{state.device}")
@@ -182,22 +233,33 @@ def halo_shade(state, scene, params):
                          f"{tuple(p.shape)} tensor on a 16-byte boundary")
     out = state.new_empty(p.shape)
     stream = _build.current_stream(p.device)
-    head = (p.address, scene.slab_index, scene.num_slabs, scene.interleave,
-            int(scene.collective), p.value.data_ptr(), state.data_ptr(),
-            out.data_ptr())
-    _build.check("vpt_iso_halo_launch", p.launch(*head, 0, stream))
-    scene.reduce_(p.value)
-    _build.check("vpt_iso_halo_launch", p.launch(*head, 1, stream))
+    p.epoch = p.epoch % (2 ** 30 - 1) + 1
+    reduces = scene.reduces
+    head = (p.address, state.data_ptr(), out.data_ptr(), p.epoch)
+    _build.check("vpt_iso_halo_launch", p.launch(
+        *head, 0, 0, p.read.data_ptr() if reduces else None, stream))
+    hits = -1
+    if reduces:
+        p.event.record(torch.cuda.current_stream(p.device))
+        p.event.synchronize()
+        hits = HALO_HITS = p.count.value
+        if hits:
+            scene.reduce_(p.value[:TAPS * hits * p.channels])
+    _build.check("vpt_iso_halo_launch",
+                 p.launch(*head, 1, hits, None, stream))
     HALO_LAUNCHES += 2
     return out
 
 
 def halo_occupancy(stage: int, table_dtype, tf_mode: int = 0,
-                   device: int = 0, channels: int = 1) -> dict:
-    """The launch shape of the halo instance's fetch (``stage`` 0) or
-    shade (1), as :func:`occupancy`'s.  Launches nothing."""
+                   device: int = 0, channels: int = 1,
+                   rows64: bool = False) -> dict:
+    """The launch shape of the halo instance's fetch (``stage`` 0, 64-bit
+    rows or not) or shade (1), as :func:`occupancy`'s.  Launches
+    nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
-    flags = int(table_dtype == torch.bfloat16) | 4 * (channels == 2)
+    flags = int(table_dtype == torch.bfloat16) | 4 * (channels == 2) \
+        | 16 * rows64
     _build.check("vpt_iso_halo_info", _build.library().vpt_iso_halo_info(
         stage, flags, tf_mode, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))

@@ -44,12 +44,14 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
-#: launches of the halo instance (ceil(slices / HALO_CHUNK) + 1 a frame),
+#: launches of the halo instance (a fetch and a fold a frame, a chunk of
+#: ``_build.halo_chunk`` slices each past ``_build.HALO_VALUE_BYTES``),
 #: likewise
 HALO_LAUNCHES = 0
-#: slices a halo fetch samples (``kHaloChunk``; vpt_tpu's march samples
-#: 8 slices a ``sample_color``, one ``psum`` each)
-HALO_CHUNK = 8
+#: slab rows from which the halo fetch indexes them with 64 bits
+ROWS32 = 2 ** 31
+#: the halo instance's stages (``vpt_march_halo_launch``)
+FETCH, FOLD = 1, 2
 
 #: the kernel's code for each renderer's composite (``csrc/march.cu``)
 MODES = {"eam": 0, "mip": 1, "depth": 2, "iso": 3}
@@ -233,13 +235,39 @@ def _halo_fields(scene):
             scene.tf_mxu, scene.transfer_packed)
 
 
+class _HaloArgs(_Args):
+    """``VptMarchHalo``: ``VptMarchExt``, the slab's plane map, the slab
+    and the rows' index width."""
+    _fields_ = [("planes", ctypes.c_void_p), ("slab_index", ctypes.c_int),
+                ("num_slabs", ctypes.c_int), ("interleave", ctypes.c_int),
+                ("masked", ctypes.c_int), ("rows64", ctypes.c_int),
+                ("fetch_rows", ctypes.c_int)]
+
+
+def fetch_rows(width: int, height: int, occupancy: dict) -> int:
+    """The grid rows of the halo fetch, each a share of the frame's slices:
+    2 where the tile grid (16×8-pixel blocks) is under two waves of the
+    fetch's resident blocks (``occupancy``: :func:`halo_occupancy` of
+    stage 0), so that more blocks hide its latency at the cost of a second
+    ray a pixel; else 1."""
+    tiles = -(-width // occupancy["tile_width"]) \
+        * -(-height // occupancy["tile_height"])
+    wave = occupancy["blocks_per_sm"] * occupancy["sms"]
+    return 2 if tiles < 2 * wave else 1
+
+
 def _prepare_halo(scene, key):
     """What every halo frame of ``key`` = (mode, params, height, width,
-    row0, full_height) takes of a HaloScene: the ``VptMarchExt`` of its
-    slab rows (no box, no filter), the seed's schedule function and the
-    frame's scratch: the chunk's values, (HALO_CHUNK, n, channels), and the
-    composite's carry, (n, 4), between the launches."""
-    mode, params, height, width, row0, full_height = key
+    row0, full_height, slab index, slabs, interleave, masked) takes of a
+    HaloScene, checked once (``vpt_march_halo_check``): the
+    ``VptMarchHalo`` of its slab rows (no box, no filter; 32-bit rows below
+    :data:`ROWS32` slab rows, else 64), plane map and the fetch's grid rows
+    (:func:`fetch_rows`), the seed's schedule
+    function, the frame's chunks of slices (``_build.halo_chunks``: one
+    unless the values pass ``_build.HALO_VALUE_BYTES``) and their values,
+    (chunk, n, channels), and the composite's carry, (n, 4), between
+    chunks where there are several."""
+    mode, params, height, width, row0, full_height, *slab = key
     if height * width >= 2 ** 31:
         raise ValueError(f"{height}x{width}: the march kernel indexes "
                          "pixels with 32-bit integers")
@@ -248,21 +276,33 @@ def _prepare_halo(scene, key):
     slices, step, _, extinction, level, _ = frame_scalars(mode, params, 0.0,
                                                           1)
     dev = tensors[0].device
-    device = dev.index if dev.type == "cuda" else -1
-    args = _Args(table, row, mvp, bf16, d, h, w, tw, tf_mode, MODES[mode],
-                 width, height, slices, step, extinction, level, device,
-                 row0, full_height, 0, (ctypes.c_float * 12)(), tf_table, th,
-                 channels, 0)
+    planes = _build.scene_plane_map(scene)
+    rows64 = tensors[0].shape[0] >= ROWS32
+    occ = halo_occupancy(mode, tensors[0].dtype, tw, tf_mode, dev.index,
+                         channels, stage=0, depth=d, rows64=rows64)
+    args = _HaloArgs(table, row, mvp, bf16, d, h, w, tw, tf_mode,
+                     MODES[mode], width, height, slices, step, extinction,
+                     level, dev.index, row0, full_height, 0,
+                     (ctypes.c_float * 12)(), tf_table, th, channels, 0,
+                     planes.data_ptr(), *slab, int(rows64),
+                     fetch_rows(width, height, occ))
+    lib = _build.library()
+    _build.check("vpt_march_halo_check",
+                 lib.vpt_march_halo_check(ctypes.addressof(args)))
     n = height * width
-    value = torch.empty(HALO_CHUNK * n * channels, dtype=torch.float32,
+    chunk = _build.halo_chunk(slices, n, channels)
+    value = torch.empty(chunk * n * channels, dtype=torch.float32,
                         device=dev)
-    carry = torch.empty((n, 4), dtype=torch.float32, device=dev)
     return _build.Prepared(
-        tensors=tensors, args=args, address=ctypes.addressof(args),
-        device=device, shape=torch.Size(state_shape(mode, height, width)),
+        tensors=(*tensors, planes), args=args,
+        address=ctypes.addressof(args), device=dev.index,
+        shape=torch.Size(state_shape(mode, height, width)),
         align=4 if mode == "mip" else 16, first=first_of(mode, params, step),
-        chunks=-(-slices // HALO_CHUNK), value=value, carry=carry,
-        launch=_build.library().vpt_march_halo_launch)
+        chunks=[(k0, count, value[:count * n * channels])
+                for k0, count, _ in _build.halo_chunks(slices, chunk)],
+        value=value, carry=None if chunk == slices else torch.empty(
+            (n, 4), dtype=torch.float32, device=dev),
+        launch=lib.vpt_march_halo_launch)
 
 
 _halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
@@ -271,13 +311,16 @@ _halo_cache = _build.LastScene(_prepare_halo, _halo_fields)
 def halo_march_frame(mode, state, scene, params, seed, frame_number,
                      window=None):
     """One frame of renderer ``mode`` over a HaloScene on the card, in
-    place on CUDA ``state``: ``C = ceil(slices / HALO_CHUNK)`` all-reduces
-    (``HaloScene.reduce_`` of the chunk's masked values, one a
-    ``HALO_CHUNK`` slices as vpt_tpu's ``psum`` a ``sample_color``, and as
-    the plain twin's sum a fetch) between ``C + 1`` launches of the halo
-    instance: launch e folds chunk e − 1's summed values (the TF lookup of
-    the sum, the renderer's composite) and writes chunk e's masked values
-    from this rank's slab rows; the last integrates the frame.  Equal bit
+    place on CUDA ``state``: a launch of the halo instance's fetch (this
+    rank's masked value of every slice of every pixel whose ray meets the
+    cube, from its slab rows), one all-reduce of them
+    (``HaloScene.reduce_``, none without a group) and a launch of its fold
+    (the TF lookup of the sums and the renderer's composite, to where its
+    loop stops, then the frame's integrate).  So a frame is 2 launches and
+    one all-reduce, where vpt_tpu ``psum``s a ``sample_color`` of 8
+    slices and the plain twin sums a fetch of 8 (ceil(slices / 8) each);
+    the sums are the same.  Values past ``_build.HALO_VALUE_BYTES`` go in
+    chunks of slices, each a fetch, an all-reduce and a fold.  Equal bit
     for bit to :func:`march_frame` on the whole scene: only the owner's
     value is non-zero.  The slabs may be interleaved, the fetch unmasked,
     the volume two-channel (a value pair a sample, the 2D TF lookup).
@@ -291,7 +334,9 @@ def halo_march_frame(mode, state, scene, params, seed, frame_number,
         return
     height, width = state.shape[:2]
     p = _halo_cache.get(scene, (mode, params, height, width)
-                        + sampling.row_window(window, height))
+                        + sampling.row_window(window, height)
+                        + (scene.slab_index, scene.num_slabs,
+                           scene.interleave, int(scene.collective)))
     if state.get_device() != p.device:
         raise ValueError(f"the scene lives on {scene.device}, the state on "
                          f"{state.device}")
@@ -300,16 +345,22 @@ def halo_march_frame(mode, state, scene, params, seed, frame_number,
         raise ValueError(f"the {mode} state must be a contiguous float32 "
                          f"{tuple(p.shape)} tensor on a {p.align}-byte "
                          "boundary")
-    first, mix = p.first(seed), frame_mix(frame_number)
+    head = (p.address, p.value.data_ptr(),
+            None if p.carry is None else p.carry.data_ptr(),
+            state.data_ptr(), p.first(seed), frame_mix(frame_number))
     stream = _build.current_stream(p.device)
-    head = (p.address, scene.slab_index, scene.num_slabs, scene.interleave,
-            int(scene.collective), p.value.data_ptr(), p.carry.data_ptr(),
-            state.data_ptr(), first, mix)
-    for chunk in range(p.chunks + 1):
-        _build.check("vpt_march_halo_launch", p.launch(*head, chunk, stream))
-        HALO_LAUNCHES += 1
-        if chunk < p.chunks:
-            scene.reduce_(p.value)
+    reduces = scene.reduces
+    for k0, count, values in p.chunks:
+        if reduces:
+            _build.check("vpt_march_halo_launch",
+                         p.launch(*head, k0, count, FETCH, stream))
+            scene.reduce_(values)
+            _build.check("vpt_march_halo_launch",
+                         p.launch(*head, k0, count, FOLD, stream))
+        else:
+            _build.check("vpt_march_halo_launch",
+                         p.launch(*head, k0, count, FETCH | FOLD, stream))
+        HALO_LAUNCHES += 2
 
 
 #: the fields of :func:`occupancy`, in the order ``vpt_march_info`` writes
@@ -321,13 +372,18 @@ OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms",
 
 
 def halo_occupancy(mode, table_dtype, tf_width: int, tf_mode: int = 0,
-                   device: int = 0, channels: int = 1) -> dict:
-    """The halo instance's launch shape, as :func:`occupancy`'s (``chunk``:
-    the slices of a fetch).  Launches nothing."""
+                   device: int = 0, channels: int = 1, stage: int = 1,
+                   depth: int = 128, rows64: bool = False) -> dict:
+    """The launch shape of the halo instance's fetch (``stage`` 0, for a
+    volume of ``depth`` planes: its plane map's shared memory, and 64-bit
+    rows or not) or fold (1), as :func:`occupancy`'s (``chunk``: the
+    fetch's rows read ahead of their lerps, the fold's values a turn).
+    Launches nothing."""
     out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
-    flags = int(table_dtype == torch.bfloat16) | 8 * (channels == 2)
+    flags = int(table_dtype == torch.bfloat16) | 8 * (channels == 2) \
+        | 16 * rows64
     _build.check("vpt_march_halo_info", _build.library().vpt_march_halo_info(
-        MODES[mode], flags, tf_width, tf_mode, device, out))
+        stage, MODES[mode], flags, tf_width, tf_mode, depth, device, out))
     return dict(zip(OCCUPANCY_FIELDS, out))
 
 

@@ -24,14 +24,16 @@ contiguous or interleaved slabs, masked or not:
 - MCM, K5's (``kernels/mcm_event.halo_event_frame``): steps + 1 launches,
   one all-reduce an event;
 - EAM, MIP, Depth and ISO, K6's (``kernels/march.halo_march_frame``):
-  ceil(slices / 8) + 1 launches, one all-reduce a chunk of 8 slices;
+  a fetch of every slice and a fold, one all-reduce between them (the
+  plain twin sums a fetch of 8 slices at a time);
 - ISO's display, K7's (``kernels/iso_shade.halo_shade``): 2 launches
-  around one all-reduce of the seven fetches (the plain twin sums each);
+  around one all-reduce of the hits' seven fetches, their slots in pixel
+  order (the plain twin sums each fetch of every pixel);
 - MCS, K8's (``kernels/mcs_frame.halo_mcs_frame``): a launch a fetch of
-  the slowest pixel and one more, the host reading the count of pixels
-  that fetch after each;
-- DOS, K9's (``kernels/dos_sweep.halo_sweep_frame``): a fetch launch, an
-  all-reduce and a cooperative fold a chunk of 8 active slices; with rows
+  the slowest pixel and up to a batch more, the host reading the count
+  of pixels that fetch once a batch;
+- DOS, K9's (``kernels/dos_sweep.halo_sweep_frame``): a fetch of every
+  slice, an all-reduce and a cooperative fold a frame; with rows
   over ``data`` as well, a band of rows (``dos.render_band``: each slice
   all-gathers the occlusion over ``data``) through K9's halo band
   instance (``dos_sweep.band_slice``): a fetch of the band and an
