@@ -7,7 +7,8 @@ row bands, photons resident on their slab's rank, the config-4 recipe)
 and its three demos once on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --launch-path [--part frames|fetch|sweep|gloo] TREE ...
+    python3 chip_smoke.py --launch-path [--part PART] TREE ...
+    (PART: frames, fetch, sweep, gloo or bucketed)
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit.  With ``--launch-path`` it times the launch paths of the
@@ -16,7 +17,9 @@ shade and MCS kernels (``--part frames``), of all five (the default), or
 the DOS and LAO paths (``--part sweep``: a DOS sweep on the host clock and
 on the card, the host µs of a DOS frame call, a LAO frame's loop and
 device time; ``--part gloo``: the K8 halo frame's call on two gloo ranks
-of the card at each batch of :data:`GLOO_BATCHES`) of each given
+of the card at each batch of :data:`GLOO_BATCHES`; ``--part bucketed``:
+the bucketed EAM step in a world of one over ``nccl`` and on two gloo
+ranks, and config 4's fit step, :func:`bucketed_path_numbers`) of each given
 checkout of the port (:func:`launch_path_tree`, one process a tree) and
 does nothing else; an older checkout goes under the git-ignored
 ``build/``, e.g.
@@ -45,6 +48,9 @@ prints no result:
    ``index_add_``, with indices heavy in duplicates, at the probe's and the
    fit's shapes: atomics sum in another order, so the two must agree
    within the float32 bound of reordering each sum (:func:`order_bound`);
+   K4's bucket instance against its plain version within that bound on
+   the four buckets of a bucketed EAM step at ``path parallel``'s shape
+   and on bucket 0 of config 4's slab (:func:`phase_bucket_kernel`);
 7. one value-and-grad of the fit's loss at 64², ``blobs_volume(32)``, steps
    8 × 2 frames, the kernels against the plain versions on the card;
 8. the forward main path with every launch counter at 0: ``make_scene``
@@ -245,10 +251,13 @@ prints no result:
    z-sharded between frames against the replicated frame, a 1024² DOS
    frame through ``dos_halo`` on one band (K9's band instance), two
    ``overlap.bucketed_train_step`` steps of the data-parallel EAM fit at
-   ``path fit eam``'s size (K3, K4; the second timed),
+   ``path fit eam``'s size (K3, K4's bucket instance: 4 launches a step,
+   each bucket's reduction issued before the next launch, the order
+   printed; the second timed, its peak memory),
    ``save_sharded(wait=False)`` / ``load_sharded`` of the state, and the
    config-4 recipe's fit phase at 512³ / 1024² (3 SGD steps of
-   ``halo_grad.make_sharded_grad``: K3's slab instance, K4); the frame
+   ``halo_grad.make_sharded_grad``: K3's slab instance, K4's bucket
+   instance, its launches a step); the frame
    time, events/s, the step times and the peak memories; after the
    counts are read, a halo frame against ``shard_render_frame``'s K5
    frame (bit for bit) and both timed in turns, one halo frame from the
@@ -268,7 +277,13 @@ prints no result:
    ``dos_halo``, and ``path resident``'s two-rank cases
    (:func:`gloo_resident`: contiguous and interleaved slabs against the
    world-of-one frames bit for bit, ``fanout=2`` against the plain
-   resident frames in every pool field, a two-channel scene);
+   resident frames in every pool field, a two-channel scene), and two
+   bucketed EAM steps at 256³ with rows over ``data`` = 2
+   (:func:`gloo_bucketed`: each bucket's reduction issued and finished,
+   the last K4 bucket launch's end, the overlap window); ``path parallel
+   gloo 4`` also runs ``halo_grad.make_sharded_grad`` with 1 and 4
+   buckets on data 2 × space 2 (:func:`gloo4_halo_grad`: one data
+   all-reduce a bucket);
    ``path parallel halo frames`` (:func:`halo_frames_path`, in ``path
    parallel``'s world of one, every launch counter at 0 first): one frame
    each of EAM, MIP, Depth, ISO with its display, MCS and DOS of config 4
@@ -311,6 +326,7 @@ line
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -840,6 +856,147 @@ def phase_corner_kernels(dev):
           "bound_by": k4_by, "library_ms": None,
           "scatter_device_ms": scatter_ms}
     return k3, k4
+
+
+def bucket_check(label, idx, f, ct, r0, r1, c):
+    """K4's bucket instance against its plain version on one bucket's
+    inputs, within the reordering bound (:func:`order_bound`): (max abs
+    err, entries in the bucket)."""
+    import torch
+
+    from vpt_tpu_torch.kernels import corner_scatter
+
+    got = corner_scatter.corner_grad_bucket(idx, f, ct, r0, r1, c)
+    want = corner_scatter.corner_grad_bucket_plain(idx, f, ct, r0, r1, c)
+    inside = (idx >= r0) & (idx < r1)
+    bound = order_bound(
+        torch.bincount(idx[inside] - r0, minlength=r1 - r0)[:, None],
+        corner_scatter.corner_grad_bucket_plain(idx, f, ct.abs(), r0, r1,
+                                                c))
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= bound).all()), f"corner_grad_bucket {label}: max "
+          f"abs err {err} beyond the reordering bound")
+    return err, int(inside.sum())
+
+
+def bucket_bound(idx, inside, rows, c):
+    """The bound of one call of K4's bucket instance: every entry's cell
+    read once (8 B), the bucket's entries' fractions and cotangents once,
+    its (rows, 8·C) gradient written once; ~20 operations an entry in the
+    bucket."""
+    return roofline(idx.numel() * 8 + inside * (12 + 4 * c) + rows * 32 * c,
+                    20 * inside)
+
+
+def phase_bucket_kernel(dev):
+    """K4's bucket instance (``corner_scatter.corner_grad_bucket``) against
+    its plain version at the shapes of its two paths: the four buckets of
+    one bucketed EAM value-and-grad of ``path parallel`` (64³, 4 views of
+    256², 64 slices: the entries its fetches saved, captured from the
+    call), and bucket 0 of config 4's fit (a slab of 513 planes of 512²
+    in 4 buckets: 128 planes of rows) from a million positions drawn
+    uniformly in the 512³ volume; each within the reordering bound, each
+    bucket of the EAM step and config 4's bucket timed (CUDA events, the
+    profiler's device time of the call: the zero fill and the scatter)
+    beside the plain version and the bound (:func:`bucket_bound`).
+    Returns the JSON row's fields (its times those of the EAM step's
+    bucket 0, the call the main path makes)."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import sampling, train, volume
+    from vpt_tpu_torch.kernels import corner_scatter
+    from vpt_tpu_torch.parallel import overlap
+
+    truth = volume.blobs_volume(64, seed=1).data
+    tf, eparams, views, targets = eam_fit_views(truth)
+
+    def loss_of_volume(v):
+        return sum(train.mse_rgb(train.render_eam(
+            v, tf, cams, eparams, np.float32(0.0), 256, 256), target)
+            for cams, target in zip(views, targets)) / len(views)
+
+    calls = []
+    real = corner_scatter.corner_grad_bucket
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+
+    corner_scatter.corner_grad_bucket = capture
+    try:
+        overlap.value_and_grad_bucketed(
+            loss_of_volume,
+            overlap.split_volume(torch.full_like(truth, 0.2), 4))
+    finally:
+        corner_scatter.corner_grad_bucket = real
+    check(len(calls) == 4, f"corner_grad_bucket: {len(calls)} calls in a "
+          "bucketed EAM step")
+    errs, lines = [], []
+    for b, args in enumerate(calls):
+        idx, f, ct, r0, r1, c = args
+        err, inside = bucket_check(f"EAM bucket {b}", *args)
+        errs.append(err)
+        ms = cuda_ms(lambda: real(*args), 20)
+        device_ms = profiler_device_ms(lambda: real(*args), "", reps=20)
+        bound, by = bucket_bound(idx, inside, r1 - r0, c)
+        lines.append((ms, device_ms, bound, by, inside))
+        if b == 0:
+            scatter_ms = profiler_device_ms(lambda: real(*args),
+                                            "corner_grad_kernel", reps=20)
+            plain_ms = cuda_ms(lambda: corner_scatter.corner_grad_bucket_plain(
+                *args), 5)
+            n_all = idx.numel()
+    print(f"corner_scatter corner_grad_bucket, a bucketed EAM step (64^3, 4 "
+          f"views 256^2, 64 slices, 4 buckets of {calls[0][4]} rows, {n_all} "
+          f"saved entries): max abs err {max(errs):.3g} (within the reordering "
+          "bound); by bucket " + "; ".join(
+              f"{b}: {ms:.4f} ms a call, device {fmt_ms(dms)}, bound "
+              f"{bd:.4f} ms ({by}, {inside} entries)"
+              for b, (ms, dms, bd, by, inside) in enumerate(lines))
+          + f"; bucket 0's scatter alone {fmt_ms(scatter_ms)}, plain "
+          f"{plain_ms:.4f} ms; no one PyTorch call computes it", flush=True)
+    ms, device_ms, bound, by, _ = lines[0]
+    row = {"max_abs_err": max(errs), "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": None, "scatter_device_ms": scatter_ms,
+           "eam_bucket_ms": [x[0] for x in lines],
+           "eam_bucket_device_ms": [x[1] for x in lines],
+           "eam_bucket_bound_ms": [x[2] for x in lines]}
+    del calls
+
+    # config 4's rows: bucket 0 of a 513-plane slab of 512² in 4 buckets
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 512
+    pos = torch.rand(1 << 20, 3, device=dev, generator=g)
+    cells, f = sampling.corner_cells(pos, (n, n, n, 1))
+    ct = torch.randn(1 << 20, 1, device=dev, generator=g)
+    r1 = 128 * n * n
+    err, inside = bucket_check("config 4 bucket 0", cells, f, ct, 0, r1, 1)
+
+    def call():
+        return real(cells, f, ct, 0, r1, 1)
+
+    c4_ms = cuda_ms(call, 10)
+    c4_device_ms = profiler_device_ms(call, "", reps=10)
+    c4_plain_ms = cuda_ms(lambda: corner_scatter.corner_grad_bucket_plain(
+        cells, f, ct, 0, r1, 1), 3)
+    c4_bound, c4_by = bucket_bound(cells, inside, r1, 1)
+    print(f"corner_scatter corner_grad_bucket, config 4's bucket 0 (128 "
+          f"planes of {n}^2: {r1} rows, a {r1 * 32 / 2 ** 30:g} GiB "
+          f"gradient; 2^20 positions, {inside} in the bucket): max abs err {err:.3g} (within the "
+          f"reordering bound); {c4_ms:.4f} ms a call, device "
+          f"{fmt_ms(c4_device_ms)}, plain {c4_plain_ms:.4f} ms, bound "
+          f"{c4_bound:.4f} ms ({c4_by})", flush=True)
+    row.update({"max_abs_err": max(row["max_abs_err"], err),
+                "config4_ms": c4_ms, "config4_device_ms": c4_device_ms,
+                "config4_plain_ms": c4_plain_ms,
+                "config4_bound_ms": c4_bound})
+    del pos, cells, f, ct
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_fit_check(dev):
@@ -4882,6 +5039,106 @@ def eam_fit_views(truth, count=4, res=256):
     return tf, params, views, targets
 
 
+def bucketed_eam_step(mesh, n):
+    """``path parallel``'s bucketed EAM step (``path fit eam``'s 4 views of
+    256², 64 slices; 4 buckets, Adam) on ``blobs_volume(n)`` from a flat
+    0.2, rows over ``mesh``'s ``data`` axis, as every tree since PR 16
+    takes it: ``step()`` runs one, chaining the volume and the optimizer
+    state, and returns the loss."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import volume
+    from vpt_tpu_torch.parallel import overlap, shard
+    from vpt_tpu_torch.parallel.mesh import axis_group
+
+    truth = volume.blobs_volume(n, seed=1).data
+    tf, eparams, views, targets = eam_fit_views(truth)
+
+    def loss_of_volume(v):
+        return sum(shard.eam_loss_rows(v, tf, cams, target, eparams,
+                                       np.float32(0.0), mesh)
+                   for cams, target in zip(views, targets)) / len(views)
+
+    train_step = overlap.bucketed_train_step(
+        lambda p: torch.optim.Adam(p, lr=0.05), loss_of_volume, 4,
+        group=axis_group(mesh, "data"))
+    carry = [torch.full_like(truth, 0.2), None]
+
+    def step():
+        loss, carry[0], carry[1] = train_step(*carry)
+        return loss
+
+    return step
+
+
+class BucketTimeline:
+    """The bucketed backward's K4 bucket launches and gradient reductions
+    in the order issued, ``order``: ("scatter", i) after the i-th launch
+    returns, ("reduce", i) as the i-th reduction is issued; and, from
+    :meth:`times` after the step and a synchronisation, each reduction's
+    issue on the host clock, its completion on the host clock (its work's
+    future, where the backend completes one: gloo's), and each launch's
+    end on the card (a CUDA event after it), all in ms from the
+    timeline's start (the card idle, an event recorded at once)."""
+
+    def __init__(self):
+        import torch
+
+        from vpt_tpu_torch.kernels import corner_scatter
+        from vpt_tpu_torch.parallel import overlap
+
+        self.order, self.issued, self.finished, self.ends = [], [], {}, []
+        self._modules = (corner_scatter, overlap)
+        self._real = (corner_scatter.corner_grad_bucket,
+                      overlap._all_reduce_async)
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        self.e0 = torch.cuda.Event(enable_timing=True)
+        self.e0.record()
+
+    def __enter__(self):
+        import torch
+
+        scatter, reduce = self._real
+
+        def timed_scatter(*args):
+            out = scatter(*args)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.ends.append(end)
+            self.order.append(("scatter", len(self.ends) - 1))
+            return out
+
+        def timed_reduce(grad, group):
+            i = len(self.issued)
+            self.issued.append(time.perf_counter())
+            self.order.append(("reduce", i))
+            work = reduce(grad, group)
+
+            def done(_, i=i):
+                self.finished[i] = time.perf_counter()
+
+            work.get_future().then(done)
+            return work
+
+        self._modules[0].corner_grad_bucket = timed_scatter
+        self._modules[1]._all_reduce_async = timed_reduce
+        return self
+
+    def __exit__(self, *exc):
+        self._modules[0].corner_grad_bucket = self._real[0]
+        self._modules[1]._all_reduce_async = self._real[1]
+
+    def times(self):
+        return {"issued_ms": [(t - self.t0) * 1e3 for t in self.issued],
+                "finished_ms": [(self.finished[i] - self.t0) * 1e3
+                                if i in self.finished else None
+                                for i in range(len(self.issued))],
+                "scatter_end_ms": [self.e0.elapsed_time(e)
+                                   for e in self.ends]}
+
+
 def phase_parallel_path(dev, counters):
     """``path parallel``: config 4's full shapes on one card, in a world
     of one over ``nccl``: ``distributed.initialize``, ``make_mesh``,
@@ -4921,8 +5178,6 @@ def phase_parallel_path(dev, counters):
                                         shard_display, shard_render_frame,
                                         sharded_scene)
     from vpt_tpu_torch.parallel import dos_halo, halo
-    from vpt_tpu_torch.parallel import mesh as meshmod
-    from vpt_tpu_torch.parallel import overlap, shard
     from vpt_tpu_torch.renderers import dos, make_scene, mcm
     from vpt_tpu_torch.runtime import checkpoint
 
@@ -4989,31 +5244,34 @@ def phase_parallel_path(dev, counters):
         torch.cuda.synchronize()
 
         # the data-parallel EAM step, its gradient bucketed over data
-        truth = volume.blobs_volume(64, seed=1).data
-        tf, eparams, views, targets = eam_fit_views(truth)
-
-        def loss_of_volume(v):
-            return sum(shard.eam_loss_rows(v, tf, cams, target, eparams,
-                                           np.float32(0.0), grid)
-                       for cams, target in zip(views, targets)) / len(views)
-
-        step = overlap.bucketed_train_step(
-            lambda p: torch.optim.Adam(p, lr=0.05), loss_of_volume, 4,
-            group=meshmod.axis_group(grid, "data"))
-        vol = torch.full_like(truth, 0.2)
+        step = bucketed_eam_step(grid, 64)
         before = (counters["corner_gather"].LAUNCHES,
-                  counters["corner_scatter"].LAUNCHES)
+                  counters["corner_scatter"].LAUNCHES,
+                  counters["corner_scatter_bucket"].LAUNCHES)
         step_s = []
-        opt_state = None
-        for _ in range(2):
+        torch.cuda.synchronize()
+        peak_before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for i in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss, vol, opt_state = step(vol, opt_state)
+            with BucketTimeline() if i else contextlib.nullcontext() \
+                    as order:
+                loss = step()
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             check(bool(torch.isfinite(loss)), "path parallel: loss")
-        k3 = (counters["corner_gather"].LAUNCHES - before[0]) // 2
-        k4 = (counters["corner_scatter"].LAUNCHES - before[1]) // 2
+        eam_peak = torch.cuda.max_memory_allocated()
+        k3, k4_whole, k4 = ((counters[k].LAUNCHES - b) // 2 for k, b in zip(
+            ("corner_gather", "corner_scatter", "corner_scatter_bucket"),
+            before))
+        check(k4 == 4 and k4_whole == 0, f"path parallel: the bucketed EAM "
+              f"step launched K4's bucket instance {k4} times and the whole "
+              f"table's {k4_whole} times a step")
+        check(order.order == [x for b in range(4)
+                              for x in (("scatter", b), ("reduce", b))],
+              f"path parallel: the bucketed EAM step's order {order.order}")
 
         # a sharded checkpoint of the state, written in the background
         ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -5037,7 +5295,8 @@ def phase_parallel_path(dev, counters):
             check(torch.equal(loaded[k], state[k]),
                   f"path parallel: checkpoint leaf {k} differs")
         state_bytes = sum(v.numel() * 4 for v in state.values())
-        forward_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        forward_peak = max(peak_before, torch.cuda.max_memory_allocated()) \
+            / 2 ** 30
 
         # phase 2 of the config-4 recipe: the sharded gradient of the 512³
         # volume on one slab, 3 SGD steps
@@ -5045,11 +5304,14 @@ def phase_parallel_path(dev, counters):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         halo.COLLECTIVES.clear()
+        fit_before = counters["corner_scatter_bucket"].LAUNCHES
         losses, fit_s, fit_coll, fitted = config4_pod512.fit_phase(
             grid, scene, params, target, 3, 4, 1, "cuda",
             say=lambda *a: print("path parallel config 4 fit:", *a,
                                  flush=True))
         fit_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        fit_k4 = (counters["corner_scatter_bucket"].LAUNCHES - fit_before) \
+            / len(fit_s)
         check(all(np.isfinite(losses)), f"path parallel: fit losses "
               f"{losses}")
         moved = float((fitted[0, :-1] - torch.clamp(
@@ -5137,15 +5399,22 @@ def phase_parallel_path(dev, counters):
               f"(bound 3e-5), {k9_share:.6f} of the values within 1e-6 "
               f"(bound 0.9); {slab_check['text']}; K2's display against "
               f"tonemap_plain max abs err {k2_err} (atol 1e-6, rtol 1e-6); "
-              f"bucketed EAM step (64^3, 4 views 256^2, 64 slices) "
-              f"{step_s[0]:.4f} s first, {step_s[1]:.4f} s second, {k3} K3 "
-              f"and {k4} K4 a step, loss {float(loss):.6g}; save_sharded "
+              f"bucketed EAM step (64^3, 4 views 256^2, 64 slices, 4 "
+              f"buckets) {step_s[0]:.4f} s first, {step_s[1]:.4f} s second, "
+              f"{k3} K3, {k4} K4 bucket and {k4_whole} whole-table K4 "
+              f"launches a step, peak memory {eam_peak / 2 ** 30:.3f} GiB "
+              f"({(eam_peak - held) / 2 ** 30:.3f} above the "
+              f"{held / 2 ** 30:.3f} held before it), the second step's "
+              f"scatters and reductions issued "
+              + ", ".join(f"{k} {b}" for k, b in order.order)
+              + f", loss {float(loss):.6g}; save_sharded "
               f"{state_bytes} bytes {save_s:.3f} s ({issued_s:.3f} s to "
               f"return), load_sharded {load_s:.3f} s; peak memory "
               f"{forward_peak:.3f} GiB; config 4 fit ({PARALLEL_VOLUME}^3, "
               f"{PARALLEL_RES}^2, 2 frames, 4 buckets, one slab): losses "
               f"{', '.join(f'{x:.9g}' for x in losses)}, "
               f"{', '.join(f'{x:.3f}' for x in fit_s)} s a step, "
+              f"{fit_k4:g} K4 bucket launches a step, "
               f"descending {descended} (read, not required: ROADMAP queue "
               f"3), the slab moved up to {moved:.3g}, "
               f"collectives a step {fit_coll}, peak memory {fit_peak:.3f} "
@@ -5175,6 +5444,10 @@ def phase_parallel_path(dev, counters):
         "halo_ms_1024": turns["halo"], "whole_ms_1024": turns["whole"],
         "fit_losses": losses, "fit_step_s": fit_s,
         "fit_peak_gib": fit_peak, "forward_peak_gib": forward_peak,
+        "fit_k4_bucket_per_step": fit_k4, "eam_step_s": step_s,
+        "eam_peak_gib": eam_peak / 2 ** 30,
+        "eam_peak_above_gib": (eam_peak - held) / 2 ** 30,
+        "eam_k4_bucket_per_step": k4, "eam_k3_per_step": k3,
         "resident_launches": resident_launches,
         "resident_rows": resident_rows, "frames_launches": frames_launches,
         "frames_errors": frames_errors, "frames_turns": frames_turns}
@@ -5350,6 +5623,35 @@ def gloo_halo_grad(mesh):
                                             ).reshape(scene.volume.shape)
 
 
+#: the two-rank bucketed EAM step: its volume (``path parallel``'s views,
+#: Params and buckets)
+GLOO_BUCKET_VOLUME, GLOO_BUCKETS = 256, 4
+
+
+def gloo_bucketed(mesh):
+    """Two steps of :func:`bucketed_eam_step` on a GLOO_BUCKET_VOLUME³
+    volume, rows over ``mesh``'s ``data`` (one gradient reduction a bucket
+    over gloo), the second recorded by a :class:`BucketTimeline`: its
+    seconds, the losses, the K4 bucket launches a step, the order and the
+    times."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch.kernels import corner_scatter
+
+    step = bucketed_eam_step(mesh, GLOO_BUCKET_VOLUME)
+    before = corner_scatter.BUCKET_LAUNCHES
+    losses = [float(step())]
+    with BucketTimeline() as timeline:
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - timeline.t0
+    return {"losses": losses, "step_s": seconds,
+            "k4_bucket": (corner_scatter.BUCKET_LAUNCHES - before) // 2,
+            "order": timeline.order, **timeline.times(),
+            "finite": bool(np.isfinite(losses).all())}
+
+
 def gloo_dos(mesh, scene):
     """One DOS frame (default Params, 512²) through
     ``dos_halo.sharded_render_frame`` on ``mesh``'s ``data`` bands,
@@ -5418,6 +5720,9 @@ def gloo_rank(rank, world, store, out):
         grad = gloo_halo_grad(slabs)
         dos_state, dos_halo_rows = gloo_dos(rows, scene)
         collectives = dict(halo.COLLECTIVES)
+        t0 = time.perf_counter()
+        bucketed = gloo_bucketed(rows)
+        bucketed["seconds"] = time.perf_counter() - t0
         torch.cuda.synchronize()
         if rank == 0:
             torch.save({"state": {k: v.cpu() for k, v in state.items()},
@@ -5432,11 +5737,49 @@ def gloo_rank(rank, world, store, out):
                         "dos_halo_rows": dos_halo_rows,
                         "band_launches": dos_sweep.BAND_LAUNCHES,
                         "collectives": collectives,
+                        "bucketed": bucketed,
                         "resident": resident_out,
                         "halo_frames": frames_out}, out)
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def gloo_bucketed_line(got):
+    """``path parallel gloo``'s bucketed EAM step (:func:`gloo_bucketed`),
+    checked (finite, 4 K4 bucket launches, a reduction issued after each
+    launch and before the next) and put in words: each bucket's reduction
+    issued and finished, the last launch's end, and the overlap window
+    from bucket 0's issue to that end, in ms from the recorded step's
+    start."""
+    import numpy as np
+
+    k = GLOO_BUCKETS
+    check(got["finite"] and all(np.isfinite(got["losses"])),
+          f"path parallel gloo: the bucketed step's losses {got['losses']}")
+    check(got["k4_bucket"] == k, f"path parallel gloo: {got['k4_bucket']} "
+          "K4 bucket launches a step")
+    check(got["order"] == [x for b in range(k)
+                           for x in (("scatter", b), ("reduce", b))],
+          f"path parallel gloo: the bucketed step's order {got['order']}")
+    last = got["scatter_end_ms"][-1]
+    window = last - got["issued_ms"][0]
+    return (f"bucketed EAM step ({GLOO_BUCKET_VOLUME}^3, 4 views 256^2, 64 "
+            f"slices, {k} buckets, rows over data = 2): losses "
+            f"{', '.join(f'{x:.6g}' for x in got['losses'])}, the second "
+            f"step {got['step_s']:.4f} s on rank 0, {got['k4_bucket']} K4 "
+            "bucket launches a step; from the step's start, bucket b's "
+            "reduction issued / finished (host clock, the work's future) "
+            "and its K4 launch's end (CUDA event): " + "; ".join(
+                f"{b}: {i:.3f} / "
+                + ("not measured" if f is None else f"{f:.3f}")
+                + f" ms, K4 end {e:.3f} ms"
+                for b, (i, f, e) in enumerate(zip(
+                    got["issued_ms"], got["finished_ms"],
+                    got["scatter_end_ms"])))
+            + f"; the last K4 ended at {last:.3f} ms: overlap window "
+            f"{window:.3f} ms from bucket 0's issue; {got['seconds']:.1f} s "
+            "for both steps and their set-up")
 
 
 def phase_parallel_gloo(dev):
@@ -5543,6 +5886,8 @@ def phase_parallel_gloo(dev):
     derr, dshare = dos_bands_agree("path parallel gloo", got["dos"],
                                    want_dos, 1e-6, 1.0)
     check(got["band_launches"] > 0, "path parallel gloo: no K9 band launch")
+    print("path parallel gloo: " + gloo_bucketed_line(got["bucketed"]),
+          flush=True)
     print(f"path parallel gloo: halo MCM {GLOO_HALO_VOLUME}^3 at "
           f"{GLOO_HALO_RES}^2 x {GLOO_HALO_FRAMES} frames on 2 slabs "
           f"({got['halo_launches']} K5 halo launches on rank 0) equal bit "
@@ -5648,14 +5993,94 @@ def gloo4_rank(rank, world, store, out):
                 np.float32(0.0), 1)
             whole_frames[key] = gather_state(rows, mesh, GLOO4_RES)
         torch.cuda.synchronize()
+        grads = gloo4_halo_grad(mesh, scene)
         if rank == 0:
             torch.save({"halo": _cpu(gathered),
                         "whole": _cpu(whole_frames), "launches": launches,
-                        "collectives": collectives, "seconds": seconds},
-                       out)
+                        "collectives": collectives, "seconds": seconds,
+                        "halo_grad": grads}, out)
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+#: the four-rank sharded gradient's bucket counts
+GLOO4_BUCKETS = (1, 4)
+
+
+def gloo4_halo_grad(mesh, scene):
+    """``halo_grad.make_sharded_grad`` of an EAM loss (64 slices, a target
+    of 0.4) on the four-rank mesh's 2 slabs of :func:`gloo_scene` at
+    GLOO4_RES², rows over ``data`` = 2, with each of GLOO4_BUCKETS: the
+    loss, the gradient joined over ``space`` (host), the planes of each
+    gradient reduction over ``data`` in the order issued, the step's
+    collectives, its seconds and its buckets' depth."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch.parallel import halo, halo_grad, shard
+    from vpt_tpu_torch.renderers import eam
+
+    params = eam.Params(slices=64, random=False)
+
+    def expected(sc, p, h, w, frames, seed0=0.0, score_floor=None):
+        return eam.generate(sc, p, np.float32(seed0), h, w)
+
+    target = torch.full((GLOO4_RES, GLOO4_RES, 3), 0.4, device="cuda")
+    slabs = halo_grad.place_slabs(scene.volume, mesh, 2)
+    reduced, real = [], halo_grad.all_reduce_async
+
+    def counting(t, group):
+        reduced.append(int(t.shape[0]))
+        return real(t, group)
+
+    halo_grad.all_reduce_async = counting
+    out = {}
+    try:
+        for nb in GLOO4_BUCKETS:
+            grad_fn = halo_grad.make_sharded_grad(
+                mesh, scene, params, GLOO4_RES, GLOO4_RES, 1, 2,
+                expected=expected, num_buckets=nb)
+            reduced.clear()
+            halo.COLLECTIVES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = grad_fn(slabs, target, 0.0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out[nb] = (float(loss), shard.gather_blocks(
+                g, 2, mesh, ("space",)).reshape(scene.volume.shape).cpu(),
+                list(reduced), dict(halo.COLLECTIVES), seconds,
+                scene.volume.shape[0] // 2 // nb)
+    finally:
+        halo_grad.all_reduce_async = real
+    return out
+
+
+def gloo4_halo_grad_line(got):
+    """The four-rank sharded gradient (:func:`gloo4_halo_grad`) checked:
+    one reduction over ``data`` a bucket (the last bucket's with the halo
+    plane), the buckets' gradient within 1e-5 of the largest entry of the
+    one-bucket gradient and the same loss; put in words."""
+    words = []
+    base_loss, base = got[1][:2]
+    scale = float(base.abs().max())
+    check(scale > 0.0, "path parallel gloo 4: the sharded gradient is 0")
+    for nb, (loss, grad, reduced, collectives, seconds, depth) in \
+            got.items():
+        check(reduced == [depth] * (nb - 1) + [depth + 1],
+              f"path parallel gloo 4: {nb} buckets reduced planes "
+              f"{reduced} over data")
+        err = float((grad - base).abs().max())
+        check(loss == base_loss and err <= 1e-5 * scale,
+              f"path parallel gloo 4: {nb} buckets' loss {loss} / "
+              f"{base_loss}, gradient max abs err {err:.3g}")
+        words.append(f"{nb} bucket(s): {len(reduced)} data all-reduces a "
+                     f"step (planes {reduced}), collectives {collectives}, "
+                     f"{seconds:.3f} s, gradient max abs err {err:.3g} "
+                     "against one bucket's")
+    return ("halo_grad.make_sharded_grad (EAM, 64 slices, 2 slabs, data "
+            f"2) on {GLOO4_VOLUME}^3 at {GLOO4_RES}^2: " + "; ".join(words))
 
 
 def phase_parallel_gloo4(dev):
@@ -5738,6 +6163,8 @@ def phase_parallel_gloo4(dev):
           "(bound 1e-5)")
     derr, dshare = dos_bands_agree("path parallel gloo 4", got["halo"]["dos"],
                                    want["dos"], 3e-5, 0.9)
+    print("path parallel gloo 4: " + gloo4_halo_grad_line(got["halo_grad"]),
+          flush=True)
     print(f"path parallel gloo 4: 4 ranks on one card over gloo, data 2 x "
           f"space 2, {GLOO4_VOLUME}^3 at {GLOO4_RES}^2: LAO ({chunks + 1} "
           f"K10 halo launches a rank) and DOS's first frame ({active} active "
@@ -7984,6 +8411,10 @@ def run():
     k1 = phase_tf1d(dev)
     k5 = phase_mcm_event(dev)
     k3, k4 = phase_corner_kernels(dev)
+    t0 = time.perf_counter()
+    k4_bucket = phase_bucket_kernel(dev)
+    print(f"corner_grad_bucket: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     phase_fit_check(dev)
 
     from vpt_tpu_torch import transfer, volume
@@ -8029,6 +8460,8 @@ def run():
                 "corner_gather_slab": LaunchCounter(corner_gather,
                                                     "SLAB_LAUNCHES"),
                 "dos_band": LaunchCounter(dos_sweep, "BAND_LAUNCHES"),
+                "corner_scatter_bucket": LaunchCounter(corner_scatter,
+                                                       "BUCKET_LAUNCHES"),
                 "mcm_event_resident": LaunchCounter(mcm_event,
                                                     "RESIDENT_LAUNCHES"),
                 "mcm_event_halo_rg": LaunchCounter(mcm_event,
@@ -8138,6 +8571,10 @@ def run():
     k5_halo["whole_ms_1024_config4"] = parallel_numbers["whole_ms_1024"]
     k3_slab["config4_fit"] = {k: parallel_numbers[k] for k in (
         "fit_losses", "fit_step_s", "fit_peak_gib")}
+    k4_bucket["parallel"] = {k: parallel_numbers[k] for k in (
+        "fit_step_s", "fit_peak_gib", "fit_k4_bucket_per_step",
+        "eam_step_s", "eam_peak_gib", "eam_peak_above_gib",
+        "eam_k4_bucket_per_step", "eam_k3_per_step")}
     resident_launches = parallel_numbers["resident_launches"]
     k5_resident = parallel_numbers["resident_rows"]["mcm_event_resident"]
     k5_resident_rg = parallel_numbers["resident_rows"][
@@ -8187,8 +8624,9 @@ def run():
              ("mcm_event", "march_frame", "iso_shade", "mcs_frame",
               "dos_sweep", "lao_march")),
             ("parallel", parallel_launches,
-             ("mcm_event", "tonemap", "corner_gather", "corner_scatter",
-              "mcm_event_halo", "corner_gather_slab", "dos_band")),
+             ("mcm_event", "tonemap", "corner_gather",
+              "corner_scatter_bucket", "mcm_event_halo",
+              "corner_gather_slab", "dos_band")),
             ("demos", demos_launches,
              ("mcm_event", "march_frame", "iso_shade", "mcs_frame",
               "dos_sweep", "lao_march", "tonemap", "corner_gather",
@@ -8246,6 +8684,17 @@ def run():
                         "tracking step (fit mcs path); cli fit: the "
                         "backward of each CornerFetch above (fit eam, fit "
                         "iso and inpaint paths)", **k4},
+        {"name": "corner_scatter_bucket", "route": "cuda",
+         "source": "vpt_tpu_torch/csrc/corner_scatter.cu",
+         "replaces": "benchmarks/pallas_scatter_bwd.py:41",
+         "launched_by": "the backward of a sampling.BucketedTable's join: "
+                        "one corner_grad_bucket a z bucket in ascending z, "
+                        "each bucket's reduction issued before the next "
+                        "launch (the parallel path: "
+                        "overlap.bucketed_train_step's EAM steps, 4 a step, "
+                        "and halo_grad.make_sharded_grad's config-4 fit "
+                        "steps, 4 a step); ms and device_ms bucket 0 of a "
+                        "bucketed EAM step", **k4_bucket},
         {"name": "march_frame", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/march.cu",
          "replaces": "vpt_tpu/renderers/_march.py:29",
@@ -8293,7 +8742,7 @@ def run():
                         "sampling.SlabCornerFetch forward, one masked slab "
                         "fetch an event of the MCM expected image (the "
                         "parallel path's config-4 fit); its backward is "
-                        "corner_scatter", **k3_slab},
+                        "corner_scatter_bucket", **k3_slab},
         {"name": "dos_band", "route": "cuda",
          "source": "vpt_tpu_torch/csrc/dos_sweep.cu",
          "replaces": "vpt_tpu/parallel/dos_halo.py:70",
@@ -8388,7 +8837,7 @@ def run():
                            "mcm_event_resident_rg"):
             row["launches"] = resident_launches[row["name"]]
         elif row["name"] in ("mcm_event_halo", "corner_gather_slab",
-                             "dos_band"):
+                             "dos_band", "corner_scatter_bucket"):
             row["launches"] = parallel_launches[row["name"]]
         elif row["name"] in HALO_COUNTERS:
             row["launches"] = frames_launches[row["name"]]
@@ -8650,6 +9099,170 @@ def gloo_batch_numbers(tree):
     return numbers
 
 
+#: ``--part bucketed``: the steps timed a call (after one warm-up step)
+BUCKETED_STEPS = 5
+
+
+def timed_steps(step, count):
+    """The host seconds of ``count`` calls of ``step`` after one, each
+    between two synchronisations; the card's peak memory above what was
+    held before them, GiB; the last loss."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    for _ in range(count):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds, (torch.cuda.max_memory_allocated() - held) / 2 ** 30, \
+        float(loss)
+
+
+def k4_counts():
+    """(whole-table K4 launches, K4 bucket launches) so far; a tree
+    without the bucket instance counts 0 of it."""
+    from vpt_tpu_torch.kernels import corner_scatter
+
+    return corner_scatter.LAUNCHES, getattr(corner_scatter,
+                                            "BUCKET_LAUNCHES", 0)
+
+
+def bucketed_gloo_rank(rank, world, store, out, tree):
+    """One rank of ``--part bucketed``'s two gloo ranks: the bucketed EAM
+    step at GLOO_BUCKET_VOLUME³ (:func:`bucketed_eam_step`, rows over
+    ``data`` = 2), BUCKETED_STEPS timed; writes ``{out}{rank}.pt``."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import torch.distributed as dist
+
+    from vpt_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        step = bucketed_eam_step(make_mesh(world, axes=("data",)),
+                                 GLOO_BUCKET_VOLUME)
+        before = k4_counts()
+        seconds, peak, loss = timed_steps(step, BUCKETED_STEPS)
+        k4 = [(a - b) // (BUCKETED_STEPS + 1)
+              for a, b in zip(k4_counts(), before)]
+        torch.save({"seconds": seconds, "peak": peak, "loss": loss,
+                    "k4": k4}, f"{out}{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def bucketed_path_numbers(tree):
+    """``--part bucketed`` for the tree this process imported: in a world
+    of one over ``nccl``, ``path parallel``'s bucketed EAM step (64³) and
+    config 4's fit step (``config4_pod512.fit_phase``: 512³ blobs, one
+    slab, 4 buckets, 2 frames of the MCM expected image at 1024² against
+    a flat target, 3 SGD steps), then on two gloo ranks the bucketed EAM
+    step at GLOO_BUCKET_VOLUME³: each step's median host seconds and
+    range, the peak memory above what was held, the K4 launches a step
+    (whole table, bucket instance).  The 512³ volume is cached under
+    ``build/smoke`` for the trees after the first."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from vpt_tpu_torch import transfer, volume
+    from vpt_tpu_torch.examples import config4_pod512
+    from vpt_tpu_torch.kernels import _build
+    from vpt_tpu_torch.parallel import distributed, make_mesh
+    from vpt_tpu_torch.renderers import make_scene, mcm
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    numbers = {}
+    _build.library()
+    check(distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                                 retries=2, retry_delay=1.0),
+          "--part bucketed: no process group")
+    try:
+        grid = make_mesh(1)
+        step = bucketed_eam_step(grid, 64)
+        before = k4_counts()
+        seconds, peak, loss = timed_steps(step, BUCKETED_STEPS)
+        k4 = [(a - b) // (BUCKETED_STEPS + 1)
+              for a, b in zip(k4_counts(), before)]
+        numbers.update({
+            "eam nccl step_s": median(seconds),
+            "eam nccl step_s_range": f"{min(seconds):.4f}-"
+                                     f"{max(seconds):.4f}",
+            "eam nccl peak_above_gib": peak, "eam nccl loss": loss,
+            "eam nccl k4_whole": k4[0], "eam nccl k4_bucket": k4[1]})
+        del step
+        torch.cuda.empty_cache()
+
+        cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "smoke", "blobs512.pt")
+        if os.path.exists(cache):
+            data = torch.load(cache).cuda()
+        else:
+            data = volume.blobs_volume(PARALLEL_VOLUME, seed=3).data
+            os.makedirs(os.path.dirname(cache), exist_ok=True)
+            torch.save(data.cpu(), cache)
+        scene = make_scene(data, transfer.gray_ramp(alpha_scale=0.9))
+        del data
+        params = mcm.Params(extinction=30.0, anisotropy=0.2, steps=8)
+        target = torch.full((PARALLEL_RES, PARALLEL_RES, 3), 0.05,
+                            device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = k4_counts()
+        losses, fit_s, _, fitted = config4_pod512.fit_phase(
+            grid, scene, params, target, 3, 4, 1, "cuda",
+            say=lambda *a: None)
+        check(all(np.isfinite(losses)), f"--part bucketed: config 4 fit "
+              f"losses {losses}")
+        k4 = [(a - b) // len(fit_s) for a, b in zip(k4_counts(), before)]
+        numbers.update({
+            "config4 fit step_s": median(fit_s),
+            "config4 fit step_s_range": f"{min(fit_s):.4f}-"
+                                        f"{max(fit_s):.4f}",
+            "config4 fit peak_gib": torch.cuda.max_memory_allocated()
+            / 2 ** 30,
+            "config4 fit peak_above_gib": (torch.cuda.max_memory_allocated()
+                                           - held) / 2 ** 30,
+            "config4 fit k4_whole": k4[0], "config4 fit k4_bucket": k4[1]})
+        del scene, fitted
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    folder = os.path.join(os.path.abspath(tree), "build", "smoke")
+    os.makedirs(folder, exist_ok=True)
+    store = tempfile.mktemp(dir=folder, prefix="gloo_store_")
+    out = os.path.join(folder, "bucketed_gloo")
+    mp.start_processes(bucketed_gloo_rank, args=(2, store, out, tree),
+                       nprocs=2, start_method="spawn")
+    got = [torch.load(f"{out}{r}.pt", weights_only=False) for r in (0, 1)]
+    for r, g in enumerate(got):
+        numbers[f"eam gloo rank{r} step_s"] = median(g["seconds"])
+        numbers[f"eam gloo rank{r} step_s_range"] = \
+            f"{min(g['seconds']):.4f}-{max(g['seconds']):.4f}"
+    numbers.update({"eam gloo peak_above_gib": got[0]["peak"],
+                    "eam gloo loss": got[0]["loss"],
+                    "eam gloo k4_whole": got[0]["k4"][0],
+                    "eam gloo k4_bucket": got[0]["k4"][1]})
+    return numbers
+
+
 def launch_path_tree(tree, part="all"):
     """The launch paths in the port found at ``tree`` (this checkout or
     another, such as an archived parent under ``build/``).  ``part``
@@ -8672,6 +9285,9 @@ def launch_path_tree(tree, part="all"):
         return out
     if part == "gloo":
         out["gloo"] = gloo_batch_numbers(tree)
+        return out
+    if part == "bucketed":
+        out["bucketed"] = bucketed_path_numbers(tree)
         return out
     if part in ("frames", "all"):
         out["frames"] = frame_path_numbers()
@@ -9255,7 +9871,7 @@ def launch_path(trees, part="all"):
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results.append(json.loads(line)["launch_path"])
-    tables = [part] if part in ("sweep", "gloo") else []
+    tables = [part] if part in ("sweep", "gloo", "bucketed") else []
     if part == "sweep":
         for r in results:
             r["hashes"] = r["sweep"].pop("hashes", {})

@@ -692,6 +692,101 @@ def test_scatter_kernels_match_plain(cuda):
     assert bool(((got - want).abs() <= bound).all())
 
 
+def test_corner_grad_bucket_kernel_matches_plain(cuda):
+    """K4's bucket instance: rows [r0, r1) of the table's gradient from
+    every entry (cells of other rows and -1 cells skipped), against
+    ``corner_grad_bucket_plain`` within the reordering bound, one
+    ``BUCKET_LAUNCHES`` a call and no ``LAUNCHES``; the ranges stacked
+    cover ``corner_grad``'s whole gradient within the same bound."""
+    g = torch.Generator().manual_seed(17)
+    rows, c, n = 4096, 2, 1 << 16
+    cells = (torch.randint(-1, 300, (n,), generator=g) * 13).clamp(
+        min=-1).to(cuda)
+    f = torch.rand(n, 3, generator=g).to(cuda)
+    ct = torch.randn(n, c, generator=g).to(cuda)
+    counts = torch.bincount(cells.clamp(min=0), minlength=rows)[:, None]
+    abs_sums = corner_scatter.corner_grad_plain(cells, f, ct.abs(), rows, c)
+    bound = _order_bound(counts, abs_sums)
+    before = (corner_scatter.LAUNCHES, corner_scatter.BUCKET_LAUNCHES)
+    cuts = [0, 1000, 1001, 2600, rows]
+    parts = []
+    for r0, r1 in zip(cuts, cuts[1:]):
+        got = corner_scatter.corner_grad_bucket(cells, f, ct, r0, r1, c)
+        want = corner_scatter.corner_grad_bucket_plain(cells, f, ct, r0, r1,
+                                                       c)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (r1 - r0, 8 * c)
+        assert bool(((got - want).abs() <= bound[r0:r1]).all())
+        parts.append(got)
+    assert (corner_scatter.LAUNCHES, corner_scatter.BUCKET_LAUNCHES) == (
+        before[0], before[1] + len(cuts) - 1)
+    whole = corner_scatter.corner_grad(cells, f, ct, rows, c)
+    torch.cuda.synchronize()
+    assert bool(((torch.cat(parts) - whole).abs() <= 2 * bound).all())
+
+
+def test_bucketed_gradient_matches_monolithic(cuda):
+    """``overlap.value_and_grad_bucketed`` on the card: 4 launches of K4's
+    bucket instance and none of the whole-table K4 a step, one K3 a fetch
+    as the monolithic step; the voxel gradient within the reordering bound
+    of the monolithic one's terms (a fetch of 65536 positions weighted at
+    random from a 32³ volume), then an EAM loss's within 5e-5."""
+    from vpt_tpu_torch.parallel import overlap
+
+    g = torch.Generator().manual_seed(18)
+    vol = torch.rand(32, 32, 32, 1, generator=g).to(cuda)
+    shape = tuple(vol.shape)
+    pos = (torch.rand(65536, 3, generator=g) * 1.2 - 0.1).to(cuda)
+    w = torch.randn(65536, 1, generator=g).to(cuda)
+
+    def loss_of_volume(v):
+        return (sampling.sample_volume_packed(sampling.pack_fit_table(v),
+                                              shape, pos) * w).sum()
+
+    leaf = vol.clone().requires_grad_(True)
+    whole, = torch.autograd.grad(loss_of_volume(leaf), leaf)
+    before = (corner_gather.LAUNCHES, corner_scatter.LAUNCHES,
+              corner_scatter.BUCKET_LAUNCHES)
+    _, grads = overlap.value_and_grad_bucketed(
+        loss_of_volume, overlap.split_volume(vol, 4))
+    torch.cuda.synchronize()
+    assert (corner_gather.LAUNCHES - before[0],
+            corner_scatter.LAUNCHES - before[1],
+            corner_scatter.BUCKET_LAUNCHES - before[2]) == (1, 0, 4)
+    cells, f = sampling.corner_cells(pos, shape)
+    rows = 32 ** 3
+    terms = torch.bincount(cells, minlength=rows)[:, None].expand(
+        rows, 8).float().contiguous()
+    counts = sampling.fold_corner_grad(terms, 32, 32, 32, True) + 8
+    abs_sums = sampling.fold_corner_grad(corner_scatter.corner_grad_plain(
+        cells, f, w.abs(), rows, 1), 32, 32, 32, True)
+    got = torch.cat(grads)
+    assert float(whole.abs().max()) > 0
+    assert bool(((got - whole).abs()
+                 <= _order_bound(counts, abs_sums)).all())
+
+    tf = transfer.gray_ramp(alpha_scale=1.0, device=cuda)
+    scene = make_scene(volume.blobs_volume(16, seed=2, device=cuda), tf,
+                       device=cuda)
+    cams = (scene.mvp_inverse, scene.model_view, scene.projection)
+    ep = eam.Params(slices=16, random=False)
+
+    def eam_loss(v):
+        return torch.sum(train.render_eam(v, tf, cams, ep, np.float32(0.0),
+                                          32, 32)[..., :3] ** 2)
+
+    leaf = scene.volume.clone().requires_grad_(True)
+    whole, = torch.autograd.grad(eam_loss(leaf), leaf)
+    before = (corner_gather.LAUNCHES, corner_scatter.BUCKET_LAUNCHES)
+    _, grads = overlap.value_and_grad_bucketed(
+        eam_loss, overlap.split_volume(scene.volume, 4))
+    torch.cuda.synchronize()
+    assert (corner_gather.LAUNCHES - before[0],
+            corner_scatter.BUCKET_LAUNCHES - before[1]) == (2, 4)
+    assert float(whole.abs().max()) > 1e-3
+    assert float((torch.cat(grads) - whole).abs().max()) <= 5e-5
+
+
 def test_fetch_gradient_matches_plain_autograd(cuda):
     """CornerFetch (K3 forward, K4 backward) against the plain gather and
     lerp under autograd, whose backward is the index scatter-add: values

@@ -508,6 +508,41 @@ def halo_grad_everything(rank, world, fields, ckpt_dir):
     return out if rank == 0 else {"resume_equal": out["resume_equal"]}
 
 
+#: the bucket counts of the data-parallel sharded gradient
+DATA_BUCKETS = (1, 2, 4)
+
+
+def halo_grad_data_everything(rank, world, fields):
+    """The sharded EAM gradient (``halo_grad.make_sharded_grad``) on a
+    (data 2, space 2) mesh of 4 ranks (a 16³ volume in 2 slabs of 8
+    planes), with 1, 2 and 4 buckets: each one's loss, gradient joined over
+    ``space`` and the collectives of its step."""
+    from vpt_tpu_torch import interop
+    from vpt_tpu_torch.parallel import halo, make_mesh, shard
+    from vpt_tpu_torch.parallel.halo_grad import (make_sharded_grad,
+                                                  place_slabs)
+    from vpt_tpu_torch.renderers import eam
+
+    scene = interop.scene_from_numpy(fields, device="cpu")
+    mesh = make_mesh(world, space=2, device="cpu")
+    target = torch.full((GRAD_SIZE, GRAD_SIZE, 3), 0.4)
+    slabs = place_slabs(scene.volume, mesh, 2)
+    params = eam.Params(slices=16, random=False, extinction=60.0)
+    out = {"coordinate": mesh.get_coordinate()}
+    for nb in DATA_BUCKETS:
+        grad_fn = make_sharded_grad(mesh, scene, params, GRAD_SIZE,
+                                    GRAD_SIZE, GRAD_FRAMES, 2,
+                                    expected=_eam_expected, num_buckets=nb)
+        halo.COLLECTIVES.clear()
+        loss, g = grad_fn(slabs, target, np.float32(0.0))
+        out[f"collectives{nb}"] = dict(halo.COLLECTIVES)
+        out[f"eam{nb}"] = (float(loss), _np(
+            shard.gather_blocks(g, 2, mesh, ("space",))
+            .reshape(scene.volume.shape)))
+    return out if rank == 0 else {"coordinate": out["coordinate"],
+                                  "collectives4": out["collectives4"]}
+
+
 #: the DOS cases: (name, Params kwargs, frames), a 64² image on 2 bands
 DOS_CASES = [
     ("dos", dict(extinction=80.0, steps=30, slices=30, samples=4), 2),

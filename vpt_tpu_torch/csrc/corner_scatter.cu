@@ -19,6 +19,13 @@
 // (N, 8C) cotangent never reaches device memory.  Offsets are int64.
 // Indices outside the table are skipped.  Atomics add in a varying order,
 // so sums agree with the plain version to rounding.
+//
+// The bucket instance (vpt_corner_grad with r0 > 0 or fewer rows than the
+// table) is the same kernel with a row offset: the gradient of rows
+// [r0, r0 + rows) of the table, from every saved entry of a bucketed fit
+// step (sampling.BucketedTable), entries outside the range skipped.  A
+// bucketed step launches it once a z bucket, so every entry's cell is read
+// once a bucket; the entries of other buckets cost that 8-byte read alone.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -36,8 +43,8 @@ __global__ void scatter_add_rows8_kernel(float* __restrict__ table,
   atomicAdd(table + r * 8 + (e & 7), ct[e]);
 }
 
-__global__ void corner_grad_kernel(float* __restrict__ grad, long long rows,
-                                   int c, const long long* __restrict__ idx,
+__global__ void corner_grad_kernel(float* __restrict__ grad, long long r0,
+                                   long long rows, int c, const long long* __restrict__ idx,
                                    const float* __restrict__ f,
                                    const float* __restrict__ ct,
                                    long long n) {
@@ -45,7 +52,7 @@ __global__ void corner_grad_kernel(float* __restrict__ grad, long long rows,
   if (e >= n * 8) return;
   long long j = e >> 3;
   int k = (int)(e & 7);  // corner (z, y, x), x minor
-  long long r = idx[j];
+  long long r = idx[j] - r0;
   if (r < 0 || r >= rows) return;
   float fx = f[3 * j], fy = f[3 * j + 1], fz = f[3 * j + 2];
   float wx = (k & 1) ? fx : 1.0f - fx;
@@ -73,14 +80,16 @@ extern "C" int vpt_scatter_add_rows8(void* table, long long rows8,
   return (int)cudaGetLastError();
 }
 
-extern "C" int vpt_corner_grad(void* grad, long long rows, int c,
-                               const void* idx, const void* f, const void* ct,
-                               long long n, void* stream) {
+// The gradient of rows [r0, r0 + rows) of the table (r0 = 0 and the
+// table's rows: the whole gradient).
+extern "C" int vpt_corner_grad(void* grad, long long r0, long long rows,
+                               int c, const void* idx, const void* f,
+                               const void* ct, long long n, void* stream) {
   if (n <= 0) return 0;
   const int threads = 256;
   corner_grad_kernel<<<blocks_for(n * 8, threads), threads, 0,
                        (cudaStream_t)stream>>>(
-      (float*)grad, rows, c, (const long long*)idx, (const float*)f,
+      (float*)grad, r0, rows, c, (const long long*)idx, (const float*)f,
       (const float*)ct, n);
   return (int)cudaGetLastError();
 }

@@ -6,14 +6,18 @@ The TPU probe ``make_fused_scatter`` adds 8-lane cotangent rows into a
 += ct[j, k]``, one serial read-modify-write per update.  That is an 8-lane
 scatter-add into row ``idx`` of the table's unfolded (rows·16, 8) view.  On
 the H100 no fold is needed: each lane is one ``atomicAdd`` at an int64
-offset (``csrc/corner_scatter.cu``).  Two entry points:
+offset (``csrc/corner_scatter.cu``).  Three entry points:
 
 - :func:`scatter_add_rows8` is the probe's function, in place on the table;
 - :func:`corner_grad` is the backward of the fit's fused fetch
   (``corner_gather.corner_fetch``): ``grad[idx[j], 8c] += w8(f[j]) ⊗
   ct[j]``, with the trilinear corner weights ``w8`` computed in the kernel,
   as ``vpt_tpu.sampling._select_trilerp_bwd`` forms them, so the (N, 8·C)
-  cotangent never exists in memory.
+  cotangent never exists in memory;
+- :func:`corner_grad_bucket` is its bucket instance, the same kernel with
+  a row offset: the gradient of rows [r0, r1) alone, from every saved
+  entry of a bucketed fit step (``sampling.BucketedTable``), which launches
+  it once a z bucket.
 
 Atomics add in an order that changes from run to run, so the kernels agree
 with the plain versions to rounding, not bit for bit.  Each function takes
@@ -30,6 +34,8 @@ from . import _build
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
+#: launches of the bucket instance (:func:`corner_grad_bucket`), likewise
+BUCKET_LAUNCHES = 0
 
 
 def corner_weights(f):
@@ -60,6 +66,16 @@ def corner_grad_plain(idx, f, ct, rows: int, c: int):
     ct8 = corner_weights(f)[..., :, None] * ct[..., None, :]
     grad = torch.zeros(rows, 8 * c, dtype=torch.float32, device=ct.device)
     return grad.index_add_(0, idx.reshape(-1), ct8.reshape(-1, 8 * c))
+
+
+def corner_grad_bucket_plain(idx, f, ct, r0: int, r1: int, c: int):
+    """The (r1 − r0, 8·C) gradient of rows [r0, r1) of the corner table:
+    :func:`corner_grad_plain` of the entries whose cell lies in the range,
+    shifted by r0."""
+    idx, f, ct = idx.reshape(-1), f.reshape(-1, 3), ct.reshape(-1, c)
+    inside = (idx >= r0) & (idx < r1)
+    return corner_grad_plain(idx[inside] - r0, f[inside], ct[inside],
+                             r1 - r0, c)
 
 
 def scatter_add_rows8(table, idx, ct):
@@ -94,19 +110,39 @@ def corner_grad(idx, f, ct, rows: int, c: int):
     if not ct.is_cuda:
         return corner_grad_plain(idx, f, ct, rows, c)
     global LAUNCHES
+    grad = _launch_corner_grad(idx, f, ct, 0, rows, c, "corner_grad")
+    LAUNCHES += 1
+    return grad
+
+
+def corner_grad_bucket(idx, f, ct, r0: int, r1: int, c: int):
+    """The (r1 − r0, 8·C) float32 gradient of rows [r0, r1) of the corner
+    table, from the cells ``idx``, fractions ``f`` and cotangents ``ct``
+    of every fetch of it (cells outside the range add nothing)."""
+    if not ct.is_cuda:
+        return corner_grad_bucket_plain(idx, f, ct, r0, r1, c)
+    global BUCKET_LAUNCHES
+    if not 0 <= r0 <= r1:
+        raise ValueError(f"corner_grad_bucket: rows [{r0}, {r1})")
+    grad = _launch_corner_grad(idx, f, ct, r0, r1 - r0, c,
+                               "corner_grad_bucket")
+    BUCKET_LAUNCHES += 1
+    return grad
+
+
+def _launch_corner_grad(idx, f, ct, r0, rows, c, what):
     if idx.dtype != torch.int64 or f.dtype != torch.float32 \
             or ct.dtype != torch.float32:
-        raise ValueError("corner_grad needs int64 indices, float32 "
+        raise ValueError(f"{what} needs int64 indices, float32 "
                          "fractions and float32 cotangents")
     if tuple(f.shape) != tuple(idx.shape) + (3,) \
             or tuple(ct.shape) != tuple(idx.shape) + (c,) \
             or not (idx.device == f.device == ct.device):
-        raise ValueError("corner_grad: (...) indices, (..., 3) fractions "
+        raise ValueError(f"{what}: (...) indices, (..., 3) fractions "
                          "and (..., C) cotangents on one CUDA device")
     idx, f, ct = idx.contiguous(), f.contiguous(), ct.contiguous()
     grad = torch.zeros(rows, 8 * c, dtype=torch.float32, device=ct.device)
     _build.check("vpt_corner_grad", _build.library().vpt_corner_grad(
-        grad.data_ptr(), rows, c, idx.data_ptr(), f.data_ptr(),
+        grad.data_ptr(), r0, rows, c, idx.data_ptr(), f.data_ptr(),
         ct.data_ptr(), idx.numel(), _build.stream_ptr(ct)))
-    LAUNCHES += 1
     return grad

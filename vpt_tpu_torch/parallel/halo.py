@@ -86,6 +86,15 @@ def all_reduce_(t, group):
     return t
 
 
+def all_reduce_async(t, group):
+    """``t`` summed over ``group`` in place, asynchronously (counted): the
+    handle to wait on."""
+    import torch.distributed as dist
+
+    COLLECTIVES["all_reduce"] += 1
+    return dist.all_reduce(t, group=group, async_op=True)
+
+
 class SpaceSum(torch.autograd.Function):
     """The sum of each rank's masked partial over ``group``, differentiable.
 

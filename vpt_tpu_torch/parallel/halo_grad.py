@@ -9,8 +9,9 @@ mechanisms compose:
 1. **Forward halo sampling**: the masked slab fetch (K3's slab instance,
    ``sampling.SlabCornerFetch``) and its sum over ``space``
    (``halo.SpaceSum``), whose backward hands each rank the cotangent of
-   the positions it owns; K4 scatters them into the slab's corner-table
-   gradient (a non-owned sample's cell is -1, which K4 skips).
+   the positions it owns; K4's bucket instance scatters them into the
+   slab's corner-table gradient a bucket at a time (item 3; a non-owned
+   sample's cell is -1, which K4 skips).
 2. **Halo-plane gradient exchange**: slab k's halo plane is slab k+1's
    first plane, so after the backward pass its gradient goes to slab k+1
    and is added there (the last slab's halo repeats its own edge plane,
@@ -18,14 +19,19 @@ mechanisms compose:
    sends it by ``ppermute``; here it rides one ``all_gather`` of the halo
    planes over ``space`` (``shard._all_gather``; point-to-point sends are
    left to a measured change).
-3. **Buckets**: the slab splits into z buckets that are separate leaves
-   (``_split_slab``).  With ``data`` > 1 every rank of a ``space`` line
-   renders the same rows, and the loss and gradient are all-reduced over
-   ``data``.
+3. **Bucketed data-axis reduction**: the slab splits into z buckets that
+   are separate leaves (``_split_slab``; the last holds the halo plane),
+   joined by a ``sampling.BucketedTable``.  The masked fetches keep their
+   entries, and after the backward march the buckets' gradients are
+   scattered (K4's bucket instance), folded and, with ``data`` > 1 (every
+   rank of a ``space`` line renders the same rows), each all-reduced over
+   ``data`` asynchronously as soon as it is final, before the next
+   bucket's scatter: one reduction a bucket, as in ``overlap.py``.  The
+   loss is all-reduced over ``data`` after the backward pass.
 
-The slab's corner table is packed in the graph once a step
-(``sampling.pack_corner_volume``, as ``renderers.base.fit_scene`` packs
-the fits' tables); JAX's ``scatter_fold_log2`` wide rows are a TPU
+The slab's corner table is packed in the graph once a step through the
+buckets (``sampling.pack_fit_table``, as ``renderers.base.fit_scene``
+packs the fits' tables); JAX's ``scatter_fold_log2`` wide rows are a TPU
 layout, not ported (K4 scatters into the unfolded rows).
 """
 
@@ -37,19 +43,22 @@ import torch
 
 from .. import sampling
 from ..renderers.base import transfer_row
-from .halo import COLLECTIVES, HaloScene, all_reduce_, slab_of
+from .halo import (COLLECTIVES, HaloScene, all_reduce_, all_reduce_async,
+                   slab_of)
 from .mesh import axis_group, axis_index, axis_size, block_of
 
 
 def _split_slab(slab, num_buckets: int):
-    """(Ds+1, H, W, C) haloed slab → [body buckets…, halo plane]: each a
-    leaf of its own."""
+    """(Ds+1, H, W, C) haloed slab → its ``num_buckets`` body buckets, the
+    last with the halo plane after its Ds / k planes: each a leaf of its
+    own, whose gradient is reduced over ``data`` once (JAX makes the halo
+    plane a leaf of its own, a psum more)."""
     ds = slab.shape[0] - 1
     if ds % num_buckets:
         raise ValueError(f"slab depth {ds} not divisible by {num_buckets}")
     bs = ds // num_buckets
-    return [slab[i * bs:(i + 1) * bs] for i in range(num_buckets)] \
-        + [slab[ds:ds + 1]]
+    return [slab[i * bs:(i + 1) * bs] for i in range(num_buckets - 1)] \
+        + [slab[(num_buckets - 1) * bs:]]
 
 
 def _join_slab(parts):
@@ -116,13 +125,20 @@ def make_sharded_grad(mesh, scene, params, height: int, width: int,
         slab = slabs[0]
         parts = [p.detach().requires_grad_(True)
                  for p in _split_slab(slab, num_buckets)]
-        joined = _join_slab(parts)
+        handles = []
+
+        def reduce(bucket, grad):
+            handles.append(all_reduce_async(grad, data_group))
+
+        table = sampling.BucketedTable(
+            [p.shape[0] for p in parts],
+            None if data_group is None else reduce)
+        joined = table.join(parts)
         hscene = HaloScene(
             slab=joined, slab_index=index, num_slabs=num_slabs,
             volume_shape=volume_shape, transfer=transfer,
             transfer_1d=transfer_row(transfer, transfer_packed),
-            group=group,
-            slab_packed=sampling.pack_corner_volume(joined[..., :2]),
+            group=group, slab_packed=sampling.pack_fit_table(joined),
             transfer_packed=transfer_packed, **camera)
         img = expected(hscene, params, height, width, frames, seed0=seed0,
                        score_floor=score_floor)
@@ -134,12 +150,14 @@ def make_sharded_grad(mesh, scene, params, height: int, width: int,
         else:
             err = (pred[rows[0]:rows[1]] - want[rows[0]:rows[1]]) ** 2
             loss = torch.sum(err) / float(height * width * 3)
-        grads = torch.autograd.grad(loss, parts)
+        loss.backward()
+        grads = table.gradients()
+        for handle in handles:
+            handle.wait()
         g = _join_slab(grads)                       # (Ds+1, H, W, C)
         loss = loss.detach()
         if data_group is not None:
             all_reduce_(loss, data_group)
-            all_reduce_(g, data_group)
         # the halo plane's gradient belongs to the next slab's first plane;
         # the last slab's halo repeats its own edge plane
         halo_g = g[ds]

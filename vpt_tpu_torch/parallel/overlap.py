@@ -1,24 +1,29 @@
 """Bucketed gradient reduction: the voxel gradient reduced per z bucket,
-from autograd's hooks.
+each bucket's reduction issued as soon as its gradient is final.
 
 Mirrors ``vpt_tpu/parallel/overlap.py``.  One all-reduce of the whole
 grid's gradient after the backward pass serializes communication after
-compute; splitting the volume into z buckets is meant to let each
-bucket's reduction start as soon as its gradient is complete (DDP's
-bucketed all-reduce).  In PyTorch's idiom each bucket is a leaf, a
-post-accumulate-grad hook starts its gradient's
-``all_reduce(async_op=True)``, and the step waits on the handles before
-the optimizer.
+compute; splitting the volume into z buckets lets each bucket's reduction
+start while the next bucket's gradient is still being computed (DDP's
+bucketed all-reduce; JAX's scheduler interleaves the per-bucket
+scatter-add and psum that the transpose emits for each bucket input).
 
-This structure overlaps nothing yet.  The loss sees the buckets through
-:func:`join_volume` (one ``torch.cat``), so every bucket's gradient comes
-out of that one ``CatBackward``, after the renderer's whole backward pass
-(K4's scatter into the joined volume) has finished: the hooks all fire
-together at the end, and the result costs what one ``all_reduce`` of the
-joined gradient costs.  An overlap needs buckets that the renderer's
-graph reads as leaves of their own (a fetch a bucket, so that a bucket's
-backward can finish before another's), and a measurement on more than
-one card.
+The buckets are leaves joined by a ``sampling.BucketedTable``: the loss
+receives their join, the (D, H, W, C) volume, and the fits' table packing
+(``renderers.base.fit_scene`` → ``sampling.pack_fit_table``) finds the
+buckets behind it through the join's ``grad_fn`` and packs the corner
+table through them.  Every fused fetch of that table (K3) keeps its cells,
+fractions and cotangents in its backward and scatters nothing.  Once the
+last fetch's backward has run, the join's backward walks the buckets in
+ascending z: K4's bucket instance over bucket b's rows
+(``kernels/corner_scatter.corner_grad_bucket``), the fold of those rows'
+gradient into bucket b's voxels, whose gradient is then final (a voxel of
+plane z takes gradient from the rows of planes z − 1 and z), and with a
+process ``group`` its ``all_reduce(async_op=True)``, before bucket b + 1's
+scatter is launched.  The step waits on the handles before the optimizer.
+A loss that reads the volume by another route too (a plain fetch, the
+voxels themselves) still gets each bucket's whole gradient: that share
+arrives with the join's backward and is added before the reduction.
 
 Usage::
 
@@ -37,6 +42,8 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from .. import sampling
+
 
 def split_volume(volume, num_buckets: int) -> List[torch.Tensor]:
     """(D, H, W, C) → list of (D/k, H, W, C) z buckets (views)."""
@@ -51,37 +58,39 @@ def join_volume(buckets: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat(list(buckets), dim=0)
 
 
+def _all_reduce_async(grad, group):
+    """The asynchronous sum of ``grad`` over ``group``, in place: its
+    handle."""
+    import torch.distributed as dist
+
+    return dist.all_reduce(grad, group=group, async_op=True)
+
+
 def value_and_grad_bucketed(loss_of_volume: Callable, buckets, *args,
                             group=None, **kwargs):
     """``(loss, [gradient of each bucket])`` of a volume loss.
 
-    Each bucket becomes a leaf; with a process ``group``, the hook of a
-    bucket starts the asynchronous sum of its gradient over the group as
-    soon as autograd has accumulated it (for every bucket at once, at the
-    end of the backward pass: see the module's note), and the call waits
-    on every handle before it returns.  ``loss`` is this process's (the caller sums
-    it over the group if it wants the total)."""
-    import torch.distributed as dist
-
+    Each bucket becomes a leaf of a ``sampling.BucketedTable``, whose
+    backward gives each bucket's gradient its own scatter (K4's bucket
+    instance) in ascending z; with a process ``group``, the sum of a
+    bucket's gradient over the group is issued as soon as that gradient
+    is final, before the next bucket's scatter, and the call waits on
+    every handle before it returns.  ``loss`` is this process's (the
+    caller sums it over the group if it wants the total)."""
     leaves = [b.detach().requires_grad_(True) for b in buckets]
     handles = []
-    if group is not None:
-        def reduce(leaf):
-            handles.append(dist.all_reduce(leaf.grad, group=group,
-                                           async_op=True))
 
-        hooks = [leaf.register_post_accumulate_grad_hook(reduce)
-                 for leaf in leaves]
-    loss = loss_of_volume(join_volume(leaves), *args, **kwargs)
-    try:
-        loss.backward()
-    finally:
-        if group is not None:
-            for hook in hooks:
-                hook.remove()
+    def reduce(index, grad):
+        handles.append(_all_reduce_async(grad, group))
+
+    table = sampling.BucketedTable([leaf.shape[0] for leaf in leaves],
+                                   None if group is None else reduce)
+    loss = loss_of_volume(table.join(leaves), *args, **kwargs)
+    loss.backward()
+    grads = table.gradients()
     for handle in handles:
         handle.wait()
-    return loss.detach(), [leaf.grad for leaf in leaves]
+    return loss.detach(), grads
 
 
 def bucketed_train_step(optimizer: Callable, loss_of_volume: Callable,

@@ -291,13 +291,15 @@ def fit_scene(scene_template, volume=None, tf=None):
     them (in the graph, so gradients reach the leaves), sampled through the
     bilinear packed TF (``transfer_mxu=None`` in JAX's fit scenes).  The
     packing is bit for bit the unpacked fetch, which ``vpt_tpu``'s EAM and
-    ISO fits sample."""
+    ISO fits sample.  A volume joined from z buckets
+    (``sampling.BucketedTable``, ``parallel.overlap``) packs through its
+    buckets, whose gradients then come back one bucket at a time."""
     vol = scene_template.volume if volume is None else volume
     tf_tex = scene_template.transfer if tf is None else tf
     transfer_packed = sampling.pack_corner_texture2d(tf_tex)
     return dataclasses.replace(
         scene_template, volume=vol, transfer=tf_tex,
-        volume_packed=sampling.pack_corner_volume(vol[..., :2]),
+        volume_packed=sampling.pack_fit_table(vol),
         transfer_packed=transfer_packed,
         transfer_1d=transfer_row(tf_tex, transfer_packed),
         tracking_packed=None, tf_mxu=None, kernel_tables=False)

@@ -4,9 +4,9 @@ Mirrors the main-path subset of ``vpt_tpu/sampling.py``: ray setup
 (``pixel_ndc``, ``intersect_cube``, ``intersect_box``, ``unproject``,
 ``unproject_rand``), the GL LINEAR + CLAMP_TO_EDGE volume and texture
 fetches with their corner-packed tables, the nearest and cubic volume
-filters (``volume_rg``), the equirect environment lookup,
-ISO's and LAO's central-difference gradients and Henyey-Greenstein
-sampling.  Every
+filters (``volume_rg``), the equirect environment lookup, ISO's and
+LAO's central-difference gradients (``value_gradient`` over a raw volume
+and TF too), Henyey-Greenstein sampling, ``max3`` and ``mean3``.  Every
 operation runs in the JAX package's order so that the float32 results
 agree.
 
@@ -19,7 +19,11 @@ The packed volume fetch (:func:`sample_volume_packed`) is the corner fetch
 of ``kernels/corner_gather.py`` (K3), which takes positions: on a table
 that requires grad it runs through :class:`CornerFetch`, the port of
 ``vpt_tpu.sampling._select_trilerp`` (the fit's fused VJP), whose backward
-is the corner scatter-add of ``kernels/corner_scatter.py`` (K4).
+is the corner scatter-add of ``kernels/corner_scatter.py`` (K4).  A table
+packed from z buckets (:class:`BucketedTable`, the bucketed fits of
+``parallel/overlap.py`` and ``parallel/halo_grad.py``) defers that
+scatter: its fetches keep their entries, and the buckets' gradients are
+scattered, folded and reduced one bucket at a time in ascending z.
 
 The per-axis bounds of the texture fetches are tensors built once per
 (sizes, device) (``utils.constant``): a CUDA tensor built from Python
@@ -301,23 +305,29 @@ class CornerFetch(torch.autograd.Function):
     and fractions are saved, as ``vpt_tpu.sampling._select_trilerp_fwd``
     saves them; positions are detached (no gradient reaches them), the
     contract of the MC gradient estimators
-    (``vpt_tpu/sampling.py:415-421``)."""
+    (``vpt_tpu/sampling.py:415-421``).  From a :class:`BucketedTable`'s
+    table (``buckets``) the backward keeps the cells, fractions and
+    cotangents for the buckets' scatter and scatters nothing."""
 
     @staticmethod
-    def forward(ctx, table, shape, position):
+    def forward(ctx, table, shape, position, buckets=None):
         out, idx, f = corner_gather.corner_fetch(table, shape, position,
                                                  save=True)
         ctx.save_for_backward(idx, f)
         ctx.table_shape = tuple(table.shape)
+        ctx.buckets = buckets
         return out
 
     @staticmethod
     def backward(ctx, ct):
         idx, f = ctx.saved_tensors
+        if ctx.buckets is not None:
+            ctx.buckets.record(idx, f, ct)
+            return None, None, None, None
         rows, lanes = ctx.table_shape
         grad = corner_scatter.corner_grad(idx, f, ct.contiguous(), rows,
                                           lanes // 8)
-        return grad, None, None
+        return grad, None, None, None
 
 
 def sample_volume_packed(packed, shape, position, fused: bool = True):
@@ -338,7 +348,8 @@ def sample_volume_packed(packed, shape, position, fused: bool = True):
         if packed.dtype != torch.float32:
             raise ValueError("the differentiable fetch takes float32 corner "
                              f"tables, not {packed.dtype}")
-        return CornerFetch.apply(packed, tuple(shape), position.detach())
+        return CornerFetch.apply(packed, tuple(shape), position.detach(),
+                                 buckets_of_table(packed))
     if torch.is_grad_enabled() and position.requires_grad:
         raise ValueError("the fused fetch gives no gradient to positions: "
                          "pass fused=False for one")
@@ -352,24 +363,28 @@ class SlabCornerFetch(torch.autograd.Function):
     whose saved cell is -1), backward ``corner_scatter.corner_grad`` into
     the slab table's gradient (K4, which skips the -1 cells: an owned
     sample's ``w8(f) ⊗ ct``, nothing for the others, whose masked value
-    does not depend on the table).  Positions are detached, as
-    :class:`CornerFetch`'s."""
+    does not depend on the table).  Positions are detached, and a
+    :class:`BucketedTable`'s entries kept, as :class:`CornerFetch`'s."""
 
     @staticmethod
-    def forward(ctx, table, shape, slab, position):
+    def forward(ctx, table, shape, slab, position, buckets=None):
         out, idx, f = corner_gather.slab_fetch(table, shape, *slab,
                                                position, True, save=True)
         ctx.save_for_backward(idx, f)
         ctx.table_shape = tuple(table.shape)
+        ctx.buckets = buckets
         return out
 
     @staticmethod
     def backward(ctx, ct):
         idx, f = ctx.saved_tensors
+        if ctx.buckets is not None:
+            ctx.buckets.record(idx, f, ct)
+            return None, None, None, None, None
         rows, lanes = ctx.table_shape
         grad = corner_scatter.corner_grad(idx, f, ct.contiguous(), rows,
                                           lanes // 8)
-        return grad, None, None, None
+        return grad, None, None, None, None
 
 
 def sample_slab_packed(packed, shape, slab_index: int, num_slabs: int,
@@ -390,11 +405,195 @@ def sample_slab_packed(packed, shape, slab_index: int, num_slabs: int,
             raise ValueError("the differentiable slab fetch takes masked "
                              "float32 slab tables")
         return SlabCornerFetch.apply(packed, tuple(shape), slab,
-                                     position.detach())
+                                     position.detach(),
+                                     buckets_of_table(packed))
     if torch.is_grad_enabled() and position.requires_grad:
         raise ValueError("the fused fetch gives no gradient to positions: "
                          "pass fused=False for one")
     return corner_gather.slab_fetch(packed, shape, *slab, position, masked)
+
+
+# ---------------------------------------------------------------------------
+# Bucketed corner tables: the voxel gradient a z bucket at a time
+# ---------------------------------------------------------------------------
+
+class BucketedTable:
+    """The fits' corner table over a volume joined from z buckets, whose
+    gradient comes back one bucket at a time, each as soon as it is final.
+
+    :meth:`join` concatenates the buckets (each a leaf of its own) into the
+    (D, H, W, C) volume a loss reads, through one autograd node
+    (:class:`_JoinBuckets`); :func:`pack_fit_table`, which the fits pack
+    their tables with (``renderers.base.fit_scene``,
+    ``parallel.halo_grad``), finds the buckets behind that volume through
+    its ``grad_fn`` and packs the corner table through
+    :class:`_PackBuckets`.  A fused fetch of that table
+    (:class:`CornerFetch`, :class:`SlabCornerFetch`: K3 forward) keeps its
+    cells, fractions and cotangents here in its backward and scatters
+    nothing.  The join's backward runs once every fetch has run its own;
+    then, for the buckets in ascending z, it launches K4's bucket instance
+    over bucket b's rows (``corner_scatter.corner_grad_bucket``), folds
+    that table gradient into bucket b's voxels (:func:`fold_corner_grad`)
+    and calls ``reduce(b, grad)`` before bucket b + 1's scatter.
+
+    Ascending z is what makes a bucket final: the rows of plane z read the
+    voxels of planes z and z + 1, so the voxels of plane z take gradient
+    from the rows of planes z − 1 and z.  Bucket b's last rows add to
+    bucket b + 1's first plane, which carries over; the last bucket's
+    rows clamp onto its own last plane.  A gradient that reaches the table
+    or the joined volume by another route (a plain ``fused=False`` fetch,
+    a read of the volume) arrives whole and is added to each bucket's
+    share before its reduction.
+
+    ``reduce`` (None: no reduction) receives each bucket's gradient
+    tensor, which it may sum in place asynchronously; :meth:`gradients`
+    returns them after the backward pass."""
+
+    def __init__(self, depths, reduce=None):
+        self.depths = [int(n) for n in depths]
+        self.reduce = reduce
+        self.entries = []
+        self.table_grad = None
+        self.grads = None
+
+    def join(self, buckets):
+        """The (D, H, W, C) volume of the buckets in z order."""
+        if [int(b.shape[0]) for b in buckets] != self.depths:
+            raise ValueError(f"buckets of {[b.shape[0] for b in buckets]} "
+                             f"planes for a table of {self.depths}")
+        return _JoinBuckets.apply(self, *buckets)
+
+    def record(self, idx, f, ct):
+        """A fetch's saved cells and fractions and its cotangent."""
+        self.entries.append((idx.reshape(-1), f.reshape(-1, 3),
+                             ct.reshape(-1, ct.shape[-1])))
+
+    def add_table_grad(self, grad):
+        self.table_grad = grad if self.table_grad is None \
+            else self.table_grad + grad
+
+    def gradients(self):
+        """Each bucket's voxel gradient, after the backward pass."""
+        if self.grads is None:
+            raise RuntimeError("the backward pass did not reach the "
+                               "buckets' join")
+        return self.grads
+
+    def _backward(self, grad_volume, shape, device):
+        _, h, w, channels = shape
+        c = min(channels, 2)
+        plane = h * w
+        entries, self.entries = self.entries, []
+        table_grad, self.table_grad = self.table_grad, None
+        saved = [torch.cat([e[i] for e in entries]) for i in range(3)] \
+            if entries else None
+        del entries
+        grads, carry, z0 = [], None, 0
+        for b, n in enumerate(self.depths):
+            z1 = z0 + n
+            r0, r1 = z0 * plane, z1 * plane
+            if saved is not None:
+                tg = corner_scatter.corner_grad_bucket(*saved, r0, r1, c)
+                if table_grad is not None:
+                    tg += table_grad[r0:r1]
+            elif table_grad is not None:
+                tg = table_grad[r0:r1]
+            else:
+                tg = torch.zeros(r1 - r0, 8 * c, device=device)
+            last = b == len(self.depths) - 1
+            vox = fold_corner_grad(tg, n, h, w, last)
+            del tg
+            g = vox.new_zeros((n, h, w, channels))
+            g[..., :c] = vox[:n]
+            if carry is not None:
+                g[0, ..., :c] += carry
+            carry = None if last else vox[n]
+            if grad_volume is not None:
+                g += grad_volume[z0:z1]
+            grads.append(g)
+            if self.reduce is not None:
+                self.reduce(b, g)
+            z0 = z1
+        self.grads = grads
+
+
+class _JoinBuckets(torch.autograd.Function):
+    """The join of a :class:`BucketedTable`'s buckets; its backward takes
+    their gradients (``BucketedTable._backward``) and hands autograd none:
+    a bucket's gradient may be in flight in its reduction."""
+
+    @staticmethod
+    def forward(ctx, table, *buckets):
+        ctx.set_materialize_grads(False)
+        ctx.joins = table
+        volume = torch.cat(buckets, dim=0)
+        ctx.shape, ctx.device = tuple(volume.shape), volume.device
+        return volume
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.joins._backward(grad, ctx.shape, ctx.device)
+        return (None,) * (1 + len(ctx.joins.depths))
+
+
+class _PackBuckets(torch.autograd.Function):
+    """:func:`pack_corner_volume` of a :class:`BucketedTable`'s joined
+    volume (channels 0:2); the gradient of its fetches goes to the table's
+    entries, and only another route's whole table gradient comes back
+    here."""
+
+    @staticmethod
+    def forward(ctx, table, volume):
+        ctx.set_materialize_grads(False)
+        ctx.packs = table
+        return pack_corner_volume(volume[..., :2])
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad is not None:
+            ctx.packs.add_table_grad(grad)
+        return None, None
+
+
+def buckets_of_table(table):
+    """The :class:`BucketedTable` whose packed table ``table`` is, or
+    None."""
+    return getattr(table.grad_fn, "packs", None)
+
+
+def pack_fit_table(volume):
+    """The fits' float32 corner table of ``volume``'s channels 0:2, packed
+    in the graph so that gradients reach the volume: through its
+    :class:`BucketedTable` when ``volume`` is one's join."""
+    buckets = getattr(volume.grad_fn, "joins", None)
+    if buckets is None:
+        return pack_corner_volume(volume[..., :2])
+    return _PackBuckets.apply(buckets, volume)
+
+
+def fold_corner_grad(grad, planes: int, h: int, w: int, edge: bool):
+    """The transpose of :func:`pack_corner_volume` over ``planes`` planes
+    of rows: their (planes·H·W, 8·C) gradient → the (planes + 1, H, W, C)
+    gradient of the voxels they read, the last plane being the next
+    plane's share (the rows' +1 corners in z); with ``edge`` (the
+    volume's last planes, whose +1 corners clamp onto their own plane)
+    the (planes, H, W, C) gradient.  The +1 corners in y and x clamp at
+    the edges, as the packing does."""
+    c = grad.shape[1] // 8
+    g = grad.reshape(planes, h, w, 2, 2, 2, c)
+    out = grad.new_zeros((planes + 1, h + 1, w + 1, c))
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                out[dz:dz + planes, dy:dy + h, dx:dx + w] += \
+                    g[:, :, :, dz, dy, dx]
+    out[:, h - 1] += out[:, h]
+    out[:, :, w - 1] += out[:, :, w]
+    out = out[:, :h, :w]
+    if edge:
+        out[planes - 1] += out[planes]
+        return out[:planes]
+    return out
 
 
 def pack_corner_texture2d(texture):
@@ -454,6 +653,14 @@ def central_value_gradient(sample_color_fn, position, h):
     return grad / torch.full_like(grad, float(2 * h))
 
 
+def value_gradient(volume, tf, position, h):
+    """:func:`central_value_gradient` of the TF alpha over a raw (D, H, W,
+    C) volume and (TH, TW, 4) TF texture (:func:`sample_volume_color`), on
+    their device: ``vpt_tpu.sampling.value_gradient``."""
+    return central_value_gradient(
+        lambda p: sample_volume_color(volume, tf, p), position, h)
+
+
 def central_raw_gradient(sample_value_fn, position, voxel_size):
     """LAO's negated central difference of the raw value
     (LAORenderer.glsl:73-80), (..., 3): ``value(p − e_i·vs) − value(p +
@@ -511,3 +718,7 @@ def henyey_greenstein(state, g, direction):
 
 def max3(v):
     return torch.amax(v, dim=-1)
+
+
+def mean3(v):
+    return torch.mean(v, dim=-1)
