@@ -1,7 +1,7 @@
-"""Time a per-pixel kernel of the port against other builds of it, in turns,
-on the render headline, on one GPU: the MCM event kernel (K5), the march
-kernel (K6), the ISO shade kernel (K7), the MCS kernel (K8) or the LAO
-march kernel (K10).
+"""Time a kernel of the port against other builds of it, in turns, on one
+GPU: on the render headline the MCM event kernel (K5), the march kernel
+(K6), the ISO shade kernel (K7), the MCS kernel (K8) or the LAO march
+kernel (K10); on the fits' calls the corner-gradient kernel (K4).
 
     python3 bench_mcm_event.py [--kernel mcm_event|march|iso_shade|mcs|lao]
         [--variant NAME=PATH ...] [--frames 30]
@@ -10,6 +10,8 @@ march kernel (K10).
         [--variant ...]
     python3 bench_mcm_event.py --kernel lao_halo [--variant ...]
         [--scenes headline,blobs128 f32,config4]
+    python3 bench_mcm_event.py --kernel corner_scatter [--variant ...]
+        [--rounds 2] [--registers]
 
 ``current`` is the kernel's source in ``vpt_tpu_torch/csrc/`` as it
 stands.  Each ``--variant`` is another source of the same kernel that
@@ -73,7 +75,15 @@ and the corner gather (K3, whose slab instance shares ``slab.cuh``) take
 ``--registers`` only; ``chip_smoke.py --launch-path --part sweep`` times
 K9's trees.  ``--kernel lao_halo`` times K10's halo instance of each
 build in turns on a one-slab HaloScene of each of ``--scenes``
-(:func:`bench_lao_halo`).
+(:func:`bench_lao_halo`).  ``--kernel corner_scatter`` times K4's
+corner-gradient kernel of each build (``vpt_corner_grad``, whose
+argument list every build with K4's bucket instance exports) in turns,
+the variants first (P C C P, ``--rounds`` 2: four readings a build), on
+the four buckets of a bucketed EAM step, config 4's bucket 0, K4's row
+shape and ``path fit eam``'s call shape (:func:`bench_corner_scatter`);
+with ``--registers`` it adds each build's residency from
+``vpt_corner_grad_info`` where the build exports it (ptxas gives
+registers and shared bytes).
 """
 
 from __future__ import annotations
@@ -109,6 +119,8 @@ KERNELS = {
     "dos": ("dos_sweep.cu", ("vpt_dos_frame",), "vpt_dos_sweep_info",
             "dos_sweep_kernel"),
     "corner_gather": ("corner_gather.cu", (), None, "slab_fetch_kernel"),
+    "corner_scatter": ("corner_scatter.cu", ("vpt_corner_grad",),
+                       "vpt_corner_grad_info", "corner_grad_kernel"),
 }
 #: the H100's SMs and warp schedulers an SM (one warp-instruction a clock)
 SMS, SCHEDULERS = 132, 4
@@ -152,10 +164,12 @@ def ptxas_kernels(text: str, match: str) -> dict:
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", block)
         regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
         out[name.group(1)] = {
             "registers": int(regs.group(1)) if regs else None,
             "spill_stores": int(spill.group(1)) if spill else None,
-            "spill_loads": int(spill.group(2)) if spill else None}
+            "spill_loads": int(spill.group(2)) if spill else None,
+            "smem_bytes": int(smem.group(1)) if smem else 0}
     return out
 
 
@@ -1109,6 +1123,151 @@ def bench_lao_halo(libs, built, frames, rounds, scene_names):
     return readings, shapes, failed
 
 
+def scatter_cases():
+    """The corner-gradient calls (K4) the bench times, each (cells,
+    fractions, cotangents, r0, rows, C) on the card, made as
+    ``chip_smoke.py`` makes them: the four buckets of one bucketed EAM
+    value-and-grad (64³ blobs, 4 views of 256², 64 slices, 4 buckets; the
+    entries its fetches saved), config 4's bucket 0 (2^20 uniform
+    positions in 512³, rows [0, 128·512²)), the whole-table call at K4's
+    row shape (a 256³ table, 256² positions crowded into a cube 13 cells
+    a side) and at ``path fit eam``'s call shape (64³, the middle of the 8
+    fetches of one view's value-and-grad from a flat 0.1)."""
+    import torch
+
+    import chip_smoke
+    from vpt_tpu_torch import sampling, volume
+
+    dev = torch.device("cuda", 0)
+    truth = volume.blobs_volume(64, seed=1).data
+    tf, eparams, views, targets = chip_smoke.eam_fit_views(truth)
+    cases = {f"eam bucket {b}": (idx, f, ct, r0, r1 - r0, c)
+             for b, (idx, f, ct, r0, r1, c) in enumerate(
+                 chip_smoke.eam_bucket_calls(truth, tf, eparams, views,
+                                             targets))}
+    cases["config4 bucket 0"] = chip_smoke.config4_bucket_call(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    crowd = 0.45 + 0.05 * torch.rand(256 * 256, 3, device=dev, generator=g)
+    cells, f = sampling.corner_cells(crowd, (256, 256, 256, 1))
+    ct = torch.randn(256 * 256, 1, device=dev, generator=g)
+    cases["k4 row shape"] = (cells, f, ct, 0, 256 ** 3, 1)
+    idx, f, ct, rows, c = chip_smoke.fit_eam_calls(truth, tf, eparams,
+                                                   views[0], targets[0])[4]
+    cases["fit eam call"] = (idx, f, ct, 0, rows, c)
+    return cases
+
+
+def bench_corner_scatter(libs, rounds, baseline, reps=20):
+    """K4's corner-gradient kernel of every build in turns on each case of
+    :func:`scatter_cases`: per case, the builds in palindromes (the
+    variants, current, current, the variants reversed; ``rounds`` times),
+    each reading a call's device ms (torch.profiler over ``reps`` calls:
+    the zero fill of the gradient and the scatter, as the wrapper calls
+    it; and the scatter kernel alone) and its CUDA-event ms, through
+    ``vpt_corner_grad``'s argument list, which every build with the
+    bucket instance's row offset exports; each build's gradient held
+    against the plain version within the float32 reordering bound
+    (``chip_smoke.order_bound``).  Returns
+    the readings and a summary line a (case, build) with the medians and
+    the bound of the case (``chip_smoke.bucket_bound``) and its device ms
+    over the ``baseline`` build's, plus a line for the four EAM buckets
+    together."""
+    import torch
+
+    import chip_smoke
+    from vpt_tpu_torch.kernels import _build, corner_scatter
+
+    cases = scatter_cases()
+    names = [n for n in libs if n != "current"]
+    order = [*names, "current", "current", *names[::-1]] * rounds
+    readings, summary, failed = [], [], set()
+    for label, (idx, f, ct, r0, rows, c) in cases.items():
+        inside = (idx >= r0) & (idx < r0 + rows)
+        bound_ms, by = chip_smoke.bucket_bound(idx, int(inside.sum()), rows,
+                                               c)
+        want = corner_scatter.corner_grad_bucket_plain(idx, f, ct, r0,
+                                                       r0 + rows, c)
+        limit = chip_smoke.order_bound(
+            torch.bincount(idx[inside] - r0, minlength=rows)[:, None],
+            corner_scatter.corner_grad_bucket_plain(idx, f, ct.abs(), r0,
+                                                    r0 + rows, c))
+        for name in order:
+            if name in failed:
+                continue
+            lib = libs[name]
+
+            def call(lib=lib):
+                grad = torch.zeros(rows, 8 * c, device=idx.device)
+                err = lib.vpt_corner_grad(
+                    grad.data_ptr(), r0, rows, c, idx.data_ptr(),
+                    f.data_ptr(), ct.data_ptr(), idx.numel(),
+                    _build.stream_ptr(idx))
+                if err:
+                    raise RuntimeError(f"vpt_corner_grad: error {err}")
+                return grad
+            try:
+                got = call()
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                print(f"{name}: {exc}, left out", flush=True)
+                failed.add(name)
+                continue
+            diff = (got - want).abs()
+            del got
+            r = {"variant": name, "mode": label, "rows": rows, "c": c,
+                 "entries": idx.numel(), "in_range": int(inside.sum()),
+                 "max_abs_err": float(diff.max()),
+                 "within_order_bound": bool((diff <= limit).all()),
+                 "device_ms": chip_smoke.profiler_device_ms(call, "", reps),
+                 "scatter_device_ms": chip_smoke.profiler_device_ms(
+                     call, "corner_grad", reps),
+                 "ms": chip_smoke.cuda_ms(call, reps),
+                 "bound_ms": bound_ms, "bound_by": by}
+            del diff
+            readings.append(r)
+            print(json.dumps(r), flush=True)
+        del want, limit
+        torch.cuda.empty_cache()
+
+    def median(values):
+        values = sorted(v for v in values if v is not None)
+        return values[len(values) // 2] if values else None
+
+    for label in cases:
+        for name in libs:
+            mine = [r for r in readings
+                    if r["mode"] == label and r["variant"] == name]
+            if not mine:
+                continue
+            line = {"summary": name, "mode": label, "readings": len(mine),
+                    "within_order_bound": all(r["within_order_bound"]
+                                              for r in mine),
+                    "bound_ms": mine[0]["bound_ms"],
+                    **{k: median([r[k] for r in mine])
+                       for k in ("device_ms", "scatter_device_ms", "ms")}}
+            line["share_of_bound"] = line["bound_ms"] / line["device_ms"] \
+                if line["device_ms"] else None
+            summary.append(line)
+    buckets = [k for k in cases if k.startswith("eam bucket")]
+    for name in libs:
+        mine = [x for x in summary if x["summary"] == name
+                and x["mode"] in buckets]
+        if len(mine) == len(buckets):
+            summary.append({
+                "summary": name, "mode": "eam four buckets",
+                **{k: sum(x[k] for x in mine) if all(
+                    x[k] is not None for x in mine) else None
+                   for k in ("device_ms", "scatter_device_ms", "ms",
+                             "bound_ms")}})
+    for line in summary:
+        base = next((x for x in summary if x["mode"] == line["mode"]
+                     and x["summary"] == baseline), None)
+        if base and base.get("device_ms") and line.get("device_ms"):
+            line[f"device_ms_over_{baseline}"] = \
+                line["device_ms"] / base["device_ms"]
+    return readings, summary, failed
+
+
 def row_pixels(width, height):
     """(x, y, inside) of a launch of 128-thread blocks over the pixels in
     row-major order (the frame kernels before their pixel tiles)."""
@@ -1129,8 +1288,9 @@ def main() -> int:
                     help="frames of a reading")
     ap.add_argument("--size", type=int, default=512,
                     help="K6/K8: the image's width and height")
-    ap.add_argument("--rounds", type=int, default=1,
-                    help="K7, K10: palindromic rounds of readings")
+    ap.add_argument("--rounds", type=int,
+                    help="K4, K7, K10: palindromic rounds of readings "
+                         "(default 2 for K4, else 1)")
     ap.add_argument("--scenes", default="headline,blobs128 f32",
                     help="K10 halo: the scenes (headline, blobs128 f32, "
                          "config4), comma-separated")
@@ -1179,6 +1339,26 @@ def main() -> int:
                 print(json.dumps({"build": name, "kernel": kernel, **regs,
                                   "sass_digest": digests.get(kernel)}),
                       flush=True)
+        if args.kernel == "corner_scatter":
+            # residency from the build's info entry point, where it has one
+            from vpt_tpu_torch.kernels import corner_scatter
+
+            for name, (path, _) in built.items():
+                lib = ctypes.CDLL(str(path))
+                if not hasattr(lib, "vpt_corner_grad_info"):
+                    print(json.dumps({"build": name, "shape": "no "
+                                      "vpt_corner_grad_info"}), flush=True)
+                    continue
+                lib.vpt_corner_grad_info.argtypes = \
+                    _build.SIGNATURES["vpt_corner_grad_info"]
+                for c in (1, 2):
+                    out = (ctypes.c_int
+                           * len(corner_scatter.OCCUPANCY_FIELDS))()
+                    err = lib.vpt_corner_grad_info(c, 0, out)
+                    print(json.dumps({"build": name, "c": c, "error": err,
+                                      **dict(zip(corner_scatter
+                                                 .OCCUPANCY_FIELDS, out))}),
+                          flush=True)
         mine = by_build["current"]
         for name, theirs in by_build.items():
             if name != "current":
@@ -1187,7 +1367,10 @@ def main() -> int:
         return 0
     libs = {name: load(path, entries) for name, (path, _) in built.items()}
     shapes = {}
-    if args.kernel == "mcm_event":
+    if args.kernel == "corner_scatter":
+        readings, summary, failed = bench_corner_scatter(
+            libs, args.rounds or 2, args.baseline)
+    elif args.kernel == "mcm_event":
         scene = headline_scene()
         tw = scene.transfer_1d.shape[0]
         for name in list(libs):
@@ -1213,16 +1396,16 @@ def main() -> int:
     else:
         if args.kernel == "iso_shade":
             readings, frame_shapes, failed = bench_shade(
-                libs, built, args.frames, args.rounds)
+                libs, built, args.frames, args.rounds or 1)
             keys = ("device_ms", "device_ms_cold", "ms", "copy_device_ms",
                     "copy_device_ms_cold", "sm_clock_mhz")
         elif args.kernel == "lao":
             readings, frame_shapes, failed = bench_lao(
-                libs, built, args.frames, args.rounds)
+                libs, built, args.frames, args.rounds or 1)
             keys = ("device_ms", "ms", "sm_clock_mhz")
         elif args.kernel == "lao_halo":
             readings, frame_shapes, failed = bench_lao_halo(
-                libs, built, args.frames, args.rounds,
+                libs, built, args.frames, args.rounds or 1,
                 args.scenes.split(","))
             keys = ("device_ms", "k10_device_ms", "over_k10", "ms",
                     "sm_clock_mhz")

@@ -50,7 +50,10 @@ prints no result:
    within the float32 bound of reordering each sum (:func:`order_bound`);
    K4's bucket instance against its plain version within that bound on
    the four buckets of a bucketed EAM step at ``path parallel``'s shape
-   and on bucket 0 of config 4's slab (:func:`phase_bucket_kernel`);
+   and on bucket 0 of config 4's slab, and the whole-table K4 at ``path
+   fit eam``'s call shape, each timed beside ``index_add_`` of the
+   precomputed rows and counted (entries a row, distinct rows a window
+   of entries: :func:`entry_counts`) (:func:`phase_bucket_kernel`);
 7. one value-and-grad of the fit's loss at 64², ``blobs_volume(32)``, steps
    8 × 2 frames, the kernels against the plain versions on the card;
 8. the forward main path with every launch counter at 0: ``make_scene``
@@ -838,11 +841,13 @@ def phase_corner_kernels(dev):
     scatter_ms = profiler_device_ms(grad, "corner_grad_kernel")
     plain_ms = cuda_ms(
         lambda: corner_scatter.corner_grad_plain(cells, f, ct, rows, 1), 20)
+    library = scatter_library_ms(cells, f, ct, 0, rows, 1)
     # its contract is a dense (rows, 8) float32 gradient, written once; the
     # cells, fractions and cotangents read once; the 8 weights and products
     # are ~20 operations a photon
     k4_bound, k4_by = roofline(rows * 8 * 4 + cells.numel() * (8 + 12 + 4),
                             20 * cells.numel())
+    shape_of = {c: corner_scatter.occupancy(c) for c in (1, 2)}
     print(f"corner_scatter corner_grad 256^3 table, 256^2 photons on "
           f"{int(cells.unique().numel())} cells: max abs err {err} (within "
           f"the reordering bound, max {float(bound.max()):.3g}); {ms:.4f} "
@@ -850,12 +855,129 @@ def phase_corner_kernels(dev):
           f"scatter; the scatter alone {fmt_ms(scatter_ms)}), plain "
           f"{plain_ms:.4f} ms (both allocate and zero the 512 MiB "
           f"gradient); bound {k4_bound:.4f} ms ({k4_by}: the dense gradient "
-          "written once); no one PyTorch call computes it", flush=True)
+          f"written once); {library['text']}; the kernel's shape "
+          + "; ".join(f"C = {c}: {json.dumps(v)}"
+                      for c, v in shape_of.items()), flush=True)
     k4 = {"max_abs_err": max(err, err_probe), "ms": ms,
           "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": k4_bound,
-          "bound_by": k4_by, "library_ms": None,
-          "scatter_device_ms": scatter_ms}
+          "bound_by": k4_by, "library_ms": library["ms"],
+          "library_device_ms": library["device_ms"],
+          "library": "index_add_ of the precomputed (n, 8C) weighted rows "
+                     "into the zeroed gradient: the scatter alone",
+          "scatter_device_ms": scatter_ms,
+          "occupancy": {f"c{c}": v for c, v in shape_of.items()}}
     return k3, k4
+
+
+def scatter_library_ms(idx, f, ct, r0, r1, c):
+    """The one PyTorch call that does K4's scatter: ``index_add_`` of the
+    in-range entries' (n, 8·C) weighted rows, computed beforehand as the
+    plain version forms them, into a zeroed (r1 − r0, 8·C) gradient; the
+    scatter alone, the fill and the weights outside the timing.  Its
+    time a call (CUDA events) and its device time (torch.profiler)."""
+    import torch
+
+    from vpt_tpu_torch.kernels import corner_scatter
+
+    idx, f, ct = idx.reshape(-1), f.reshape(-1, 3), ct.reshape(-1, c)
+    inside = (idx >= r0) & (idx < r1)
+    rel = idx[inside] - r0
+    weighted = (corner_scatter.corner_weights(f[inside])[:, :, None]
+                * ct[inside][:, None, :]).reshape(-1, 8 * c)
+    grad = torch.zeros(r1 - r0, 8 * c, device=idx.device)
+
+    def call():
+        return grad.index_add_(0, rel, weighted)
+
+    ms = cuda_ms(call, 20)
+    device_ms = profiler_device_ms(call, "", reps=20)
+    del grad, weighted, rel
+    return {"ms": ms, "device_ms": device_ms,
+            "text": f"index_add_ of the precomputed weighted rows into the "
+                    f"zeroed gradient (the scatter alone, no fill) {ms:.4f} "
+                    f"ms a call, device {fmt_ms(device_ms)}"}
+
+
+def _captured(module, name, run):
+    """The argument lists of every call of ``module.<name>`` while
+    ``run()`` runs, each call passed on to the function."""
+    calls, real = [], getattr(module, name)
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+
+    setattr(module, name, capture)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+def eam_bucket_calls(truth, tf, eparams, views, targets):
+    """The 4 calls of K4's bucket instance in one bucketed EAM
+    value-and-grad from a flat 0.2 (``path parallel``'s step: 4 buckets),
+    each (cells, fractions, cotangents, r0, r1, C): the entries the
+    fetches saved.  Checks there are 4."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import train
+    from vpt_tpu_torch.kernels import corner_scatter
+    from vpt_tpu_torch.parallel import overlap
+
+    def loss_of_volume(v):
+        return sum(train.mse_rgb(train.render_eam(
+            v, tf, cams, eparams, np.float32(0.0), 256, 256), target)
+            for cams, target in zip(views, targets)) / len(views)
+
+    calls = _captured(corner_scatter, "corner_grad_bucket",
+                      lambda: overlap.value_and_grad_bucketed(
+                          loss_of_volume,
+                          overlap.split_volume(torch.full_like(truth, 0.2),
+                                               4)))
+    check(len(calls) == 4, f"corner_grad_bucket: {len(calls)} calls in a "
+          "bucketed EAM step")
+    return calls
+
+
+def fit_eam_calls(truth, tf, eparams, cams, target):
+    """The 8 calls of the whole-table K4 (``corner_grad``) in one view's
+    value-and-grad of ``train.render_eam`` from ``path fit eam``'s flat 0.1
+    (256², 64 slices, one a fetch of 8), each (cells, fractions,
+    cotangents, rows, C).  Checks there are 8."""
+    import numpy as np
+    import torch
+
+    from vpt_tpu_torch import train
+    from vpt_tpu_torch.kernels import corner_scatter
+
+    def value_and_grad():
+        leaf = torch.full_like(truth, 0.1).requires_grad_(True)
+        train.mse_rgb(train.render_eam(leaf, tf, cams, eparams,
+                                       np.float32(0.0), 256, 256),
+                      target).backward()
+
+    calls = _captured(corner_scatter, "corner_grad", value_and_grad)
+    check(len(calls) == 8, f"corner_grad: {len(calls)} calls in one view's "
+          "EAM value-and-grad (64 slices, 8 a fetch)")
+    return calls
+
+
+def config4_bucket_call(dev):
+    """Bucket 0 of config 4's fit (a slab of 513 planes of 512² in 4
+    buckets: 128 planes of rows) from 2^20 positions drawn uniformly in
+    the 512³ volume: (cells, fractions, cotangents, 0, r1, 1)."""
+    import torch
+
+    from vpt_tpu_torch import sampling
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    pos = torch.rand(1 << 20, 3, device=dev, generator=g)
+    cells, f = sampling.corner_cells(pos, (512, 512, 512, 1))
+    ct = torch.randn(1 << 20, 1, device=dev, generator=g)
+    return cells, f, ct, 0, 128 * 512 * 512, 1
 
 
 def bucket_check(label, idx, f, ct, r0, r1, c):
@@ -890,6 +1012,78 @@ def bucket_bound(idx, inside, rows, c):
                     20 * inside)
 
 
+#: the windows of consecutive entries :func:`entry_counts` counts rows in
+COUNT_WINDOWS = (32, 256, 512, 2048, 4096)
+
+
+def entry_counts(idx, r0, r1, c, chunk, slots):
+    """What K4's design rests on, for one call over rows [r0, r1): the
+    entries in the range, the rows they touch, the entries a touched row
+    (mean, max), and for each window of :data:`COUNT_WINDOWS` consecutive
+    entries (aligned at entry 0, as the kernel's chunks are) the distinct
+    in-range rows it holds (mean and 99th percentile over the windows
+    holding one, and the largest); then the global atomics the call
+    issues: one float atomic a lane before (8·C an in-range entry), and
+    under the chunked design 2·C float4 atomics a distinct row of each
+    ``chunk``-entry chunk (the kernel's chunk at full size,
+    ``corner_scatter.occupancy``; a chunk whose rows overflow its
+    ``slots``-row table adds the rows past it directly, 2·C a warp's
+    row), and the chunks holding more rows than the table."""
+    import torch
+
+    idx = idx.reshape(-1)
+    inside = (idx >= r0) & (idx < r1)
+    rel = torch.where(inside, idx - r0, torch.full_like(idx, -1))
+    per_row = torch.bincount(rel[inside], minlength=r1 - r0)
+    touched = per_row[per_row > 0]
+    out = {"entries": int(inside.sum()), "rows_touched": touched.numel(),
+           "per_row_mean": float(touched.float().mean())
+           if touched.numel() else 0.0,
+           "per_row_max": int(touched.max()) if touched.numel() else 0}
+    for w in sorted(set(COUNT_WINDOWS) | {chunk}):
+        m = -(-idx.numel() // w)
+        key = torch.full((m * w,), -1, dtype=torch.int64, device=idx.device)
+        key[:idx.numel()] = rel
+        s = key.view(m, w).sort(dim=1).values
+        distinct = ((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum(1) \
+            + (s[:, 0] >= 0)
+        held = distinct[distinct > 0].float()
+        if w == chunk:
+            out["chunk_rows_total"] = int(distinct.sum())
+            out["chunks_over_table"] = int((distinct > slots).sum())
+        out[f"rows_per_{w}"] = (
+            float(held.mean()), float(torch.quantile(held, 0.99)),
+            int(held.max())) if held.numel() else (0.0, 0.0, 0)
+        del key, s, distinct
+    out["atomics_before"] = out["entries"] * 8 * c
+    out["vector_atomics_design"] = out["chunk_rows_total"] * 2 * c
+    return out
+
+
+def kernel_counts(idx, r0, r1, c):
+    """:func:`entry_counts` at the chunk and table size of the built
+    kernel (``corner_scatter.occupancy``)."""
+    from vpt_tpu_torch.kernels import corner_scatter
+
+    shape = corner_scatter.occupancy(c)
+    return entry_counts(idx, r0, r1, c, shape["chunk_entries"],
+                        shape["table_slots"])
+
+
+def counts_text(counts):
+    return (f"{counts['entries']} entries on {counts['rows_touched']} rows, "
+            f"{counts['per_row_mean']:.2f} a row (max "
+            f"{counts['per_row_max']}); distinct rows a window (mean, p99, "
+            "max) " + ", ".join(
+                f"{w}: {counts[f'rows_per_{w}'][0]:.1f} / "
+                f"{counts[f'rows_per_{w}'][1]:.0f} / "
+                f"{counts[f'rows_per_{w}'][2]}" for w in COUNT_WINDOWS)
+            + f"; {counts['chunks_over_table']} chunks over the table's "
+            f"rows; global atomics {counts['atomics_before']} float a lane "
+            f"before, {counts['vector_atomics_design']} float4 a chunk's "
+            "row now")
+
+
 def phase_bucket_kernel(dev):
     """K4's bucket instance (``corner_scatter.corner_grad_bucket``) against
     its plain version at the shapes of its two paths: the four buckets of
@@ -900,41 +1094,26 @@ def phase_bucket_kernel(dev):
     uniformly in the 512³ volume; each within the reordering bound, each
     bucket of the EAM step and config 4's bucket timed (CUDA events, the
     profiler's device time of the call: the zero fill and the scatter)
-    beside the plain version and the bound (:func:`bucket_bound`).
-    Returns the JSON row's fields (its times those of the EAM step's
-    bucket 0, the call the main path makes)."""
-    import numpy as np
+    beside the plain version, the bound (:func:`bucket_bound`) and
+    ``index_add_`` (:func:`scatter_library_ms`), with the counts the
+    kernel's design rests on (:func:`entry_counts`).  Then the whole-table
+    K4 (``corner_grad``) at ``path fit eam``'s call shape: the 8 calls of
+    one view's value-and-grad (64³, 256², 64 slices, one a fetch of 8
+    slices), each timed, and the middle fetch's (slices 32–39) checked,
+    counted and timed against its bound and ``index_add_``.  Returns the
+    JSON row's fields (its times those of the EAM step's bucket 0, the
+    call the main path makes) and the whole-table K4's fields at the fit's
+    call shape."""
     import torch
 
-    from vpt_tpu_torch import sampling, train, volume
+    from vpt_tpu_torch import volume
     from vpt_tpu_torch.kernels import corner_scatter
-    from vpt_tpu_torch.parallel import overlap
 
     truth = volume.blobs_volume(64, seed=1).data
     tf, eparams, views, targets = eam_fit_views(truth)
-
-    def loss_of_volume(v):
-        return sum(train.mse_rgb(train.render_eam(
-            v, tf, cams, eparams, np.float32(0.0), 256, 256), target)
-            for cams, target in zip(views, targets)) / len(views)
-
-    calls = []
+    calls = eam_bucket_calls(truth, tf, eparams, views, targets)
     real = corner_scatter.corner_grad_bucket
-
-    def capture(*args):
-        calls.append(args)
-        return real(*args)
-
-    corner_scatter.corner_grad_bucket = capture
-    try:
-        overlap.value_and_grad_bucketed(
-            loss_of_volume,
-            overlap.split_volume(torch.full_like(truth, 0.2), 4))
-    finally:
-        corner_scatter.corner_grad_bucket = real
-    check(len(calls) == 4, f"corner_grad_bucket: {len(calls)} calls in a "
-          "bucketed EAM step")
-    errs, lines = [], []
+    errs, lines, counts = [], [], []
     for b, args in enumerate(calls):
         idx, f, ct, r0, r1, c = args
         err, inside = bucket_check(f"EAM bucket {b}", *args)
@@ -943,11 +1122,13 @@ def phase_bucket_kernel(dev):
         device_ms = profiler_device_ms(lambda: real(*args), "", reps=20)
         bound, by = bucket_bound(idx, inside, r1 - r0, c)
         lines.append((ms, device_ms, bound, by, inside))
+        counts.append(kernel_counts(idx, r0, r1, c))
         if b == 0:
             scatter_ms = profiler_device_ms(lambda: real(*args),
                                             "corner_grad_kernel", reps=20)
             plain_ms = cuda_ms(lambda: corner_scatter.corner_grad_bucket_plain(
                 *args), 5)
+            library = scatter_library_ms(*args)
             n_all = idx.numel()
     print(f"corner_scatter corner_grad_bucket, a bucketed EAM step (64^3, 4 "
           f"views 256^2, 64 slices, 4 buckets of {calls[0][4]} rows, {n_all} "
@@ -957,23 +1138,27 @@ def phase_bucket_kernel(dev):
               f"{bd:.4f} ms ({by}, {inside} entries)"
               for b, (ms, dms, bd, by, inside) in enumerate(lines))
           + f"; bucket 0's scatter alone {fmt_ms(scatter_ms)}, plain "
-          f"{plain_ms:.4f} ms; no one PyTorch call computes it", flush=True)
+          f"{plain_ms:.4f} ms; {library['text']}", flush=True)
+    for b, got in enumerate(counts):
+        print(f"corner_scatter counts, EAM bucket {b}: {counts_text(got)}",
+              flush=True)
     ms, device_ms, bound, by, _ = lines[0]
     row = {"max_abs_err": max(errs), "ms": ms, "device_ms": device_ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-           "library_ms": None, "scatter_device_ms": scatter_ms,
+           "library_ms": library["ms"],
+           "library_device_ms": library["device_ms"],
+           "library": "index_add_ of the precomputed (n, 8C) weighted rows "
+                      "of the bucket into the zeroed gradient: the scatter "
+                      "alone", "scatter_device_ms": scatter_ms,
            "eam_bucket_ms": [x[0] for x in lines],
            "eam_bucket_device_ms": [x[1] for x in lines],
-           "eam_bucket_bound_ms": [x[2] for x in lines]}
+           "eam_bucket_bound_ms": [x[2] for x in lines],
+           "eam_bucket_counts": counts}
     del calls
 
     # config 4's rows: bucket 0 of a 513-plane slab of 512² in 4 buckets
-    g = torch.Generator(device=dev).manual_seed(5)
     n = 512
-    pos = torch.rand(1 << 20, 3, device=dev, generator=g)
-    cells, f = sampling.corner_cells(pos, (n, n, n, 1))
-    ct = torch.randn(1 << 20, 1, device=dev, generator=g)
-    r1 = 128 * n * n
+    cells, f, ct, _, r1, _ = config4_bucket_call(dev)
     err, inside = bucket_check("config 4 bucket 0", cells, f, ct, 0, r1, 1)
 
     def call():
@@ -984,19 +1169,83 @@ def phase_bucket_kernel(dev):
     c4_plain_ms = cuda_ms(lambda: corner_scatter.corner_grad_bucket_plain(
         cells, f, ct, 0, r1, 1), 3)
     c4_bound, c4_by = bucket_bound(cells, inside, r1, 1)
+    c4_counts = kernel_counts(cells, 0, r1, 1)
+    c4_library = scatter_library_ms(cells, f, ct, 0, r1, 1)
     print(f"corner_scatter corner_grad_bucket, config 4's bucket 0 (128 "
           f"planes of {n}^2: {r1} rows, a {r1 * 32 / 2 ** 30:g} GiB "
           f"gradient; 2^20 positions, {inside} in the bucket): max abs err {err:.3g} (within the "
           f"reordering bound); {c4_ms:.4f} ms a call, device "
           f"{fmt_ms(c4_device_ms)}, plain {c4_plain_ms:.4f} ms, bound "
-          f"{c4_bound:.4f} ms ({c4_by})", flush=True)
+          f"{c4_bound:.4f} ms ({c4_by}); {c4_library['text']}", flush=True)
+    print(f"corner_scatter counts, config 4 bucket 0: "
+          f"{counts_text(c4_counts)}", flush=True)
     row.update({"max_abs_err": max(row["max_abs_err"], err),
                 "config4_ms": c4_ms, "config4_device_ms": c4_device_ms,
                 "config4_plain_ms": c4_plain_ms,
-                "config4_bound_ms": c4_bound})
-    del pos, cells, f, ct
+                "config4_bound_ms": c4_bound,
+                "config4_library_ms": c4_library["ms"],
+                "config4_library_device_ms": c4_library["device_ms"],
+                "config4_counts": c4_counts})
+    del cells, f, ct
     torch.cuda.empty_cache()
-    return row
+    return row, fit_eam_call_kernel(truth, tf, eparams, views[0], targets[0])
+
+
+def fit_eam_call_kernel(truth, tf, eparams, cams, target):
+    """The whole-table K4 (``corner_grad``) at ``path fit eam``'s call
+    shape: one view's value-and-grad of ``train.render_eam`` (64³ from
+    ``path fit eam``'s flat 0.1, 256², 64 slices) captures the 8 calls of
+    ``CornerFetch``'s backward (one a fetch of 8 slices of 256²); each is
+    timed (the profiler's device time of the call: the zero fill and the
+    scatter), and the middle one (slices 32–39) is held against its plain
+    version within the reordering bound, counted (:func:`entry_counts`)
+    and timed against the bound (:func:`bucket_bound`'s rule over the
+    whole table) and ``index_add_``.  Returns its fields."""
+    import torch
+
+    from vpt_tpu_torch.kernels import corner_scatter
+
+    calls = fit_eam_calls(truth, tf, eparams, cams, target)
+    real = corner_scatter.corner_grad
+    each = [profiler_device_ms(lambda a=a: real(*a), "", reps=20)
+            for a in calls]
+    idx, f, ct, rows, c = calls[4]
+    got = real(*calls[4])
+    want = corner_scatter.corner_grad_plain(*calls[4])
+    bound = order_bound(
+        torch.bincount(idx[idx >= 0], minlength=rows)[:, None],
+        corner_scatter.corner_grad_plain(idx, f, ct.abs(), rows, c))
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    check(bool((diff <= bound).all()), f"corner_grad at path fit eam's call "
+          f"shape: max abs err {err} beyond the reordering bound")
+    inside = int(((idx >= 0) & (idx < rows)).sum())
+    del got, want, bound, diff
+    ms = cuda_ms(lambda: real(*calls[4]), 20)
+    device_ms = profiler_device_ms(lambda: real(*calls[4]), "", reps=20)
+    scatter_ms = profiler_device_ms(lambda: real(*calls[4]),
+                                    "corner_grad_kernel", reps=20)
+    bound, by = bucket_bound(idx, inside, rows, c)
+    counts = kernel_counts(idx, 0, rows, c)
+    library = scatter_library_ms(idx, f, ct, 0, rows, c)
+    print(f"corner_scatter corner_grad at path fit eam's call shape (64^3, "
+          f"{rows} rows, one fetch of 8 slices of 256^2, {idx.numel()} "
+          f"entries): the 8 calls of one view, device "
+          + ", ".join(fmt_ms(x) for x in each)
+          + f"; the middle call (slices 32-39): max abs err {err:.3g} "
+          f"(within the reordering bound), {ms:.4f} ms a call, device "
+          f"{fmt_ms(device_ms)} (the scatter alone {fmt_ms(scatter_ms)}), "
+          f"bound {bound:.4f} ms ({by}); {library['text']}", flush=True)
+    print(f"corner_scatter counts, path fit eam's call: "
+          f"{counts_text(counts)}", flush=True)
+    return {"fit_eam_call_max_abs_err": err, "fit_eam_call_ms": ms,
+            "fit_eam_call_device_ms": device_ms,
+            "fit_eam_call_scatter_device_ms": scatter_ms,
+            "fit_eam_call_bound_ms": bound,
+            "fit_eam_call_library_ms": library["ms"],
+            "fit_eam_call_library_device_ms": library["device_ms"],
+            "fit_eam_calls_device_ms": each, "fit_eam_call_counts": counts}
 
 
 def phase_fit_check(dev):
@@ -5442,6 +5691,8 @@ def phase_parallel_path(dev, counters):
                       "corner_gather_slab": slab_check["k3_err"],
                       "corner_scatter": slab_check["k4_err"]}, {
         "halo_ms_1024": turns["halo"], "whole_ms_1024": turns["whole"],
+        "slab_fit_device_ms": slab_check["k3_device_ms"],
+        "slab_fit_bound_ms": slab_check["k3_bound_ms"],
         "fit_losses": losses, "fit_step_s": fit_s,
         "fit_peak_gib": fit_peak, "forward_peak_gib": forward_peak,
         "fit_k4_bucket_per_step": fit_k4, "eam_step_s": step_s,
@@ -8189,6 +8440,19 @@ def slab_kernels_agree(scene, pos):
         cells, f = got[1], got[2]
         owned = cells[cells >= 0]
         n = rows.shape[0]
+        if count == 1:
+            # the fit's fetch on one card timed: the distinct rows read
+            # once, each position read and its value, cell and fractions
+            # written once (phase_corner_kernels' K3 bound)
+            slab_ms = profiler_device_ms(
+                lambda: corner_gather.slab_fetch(rows, shape, k, count, 1,
+                                                 pos, save=True),
+                "slab_fetch_kernel")
+            slab_bound, slab_by = roofline(
+                int(owned.unique().numel()) * rows.shape[1] * 4
+                + cells.numel() * (12 + 4 + 8 + 12), 42 * cells.numel())
+            timing = (f"K3 slab {fmt_ms(slab_ms)} of device a fetch, bound "
+                      f"{slab_bound:.4f} ms ({slab_by})")
         del rows, want
         diff = (corner_scatter.corner_grad(cells, f, ct, n, 1)
                 - corner_scatter.corner_grad_plain(cells, f, ct, n, 1)).abs()
@@ -8203,11 +8467,12 @@ def slab_kernels_agree(scene, pos):
         parts.append(f"slab {k} of {count} ({n} rows, {owned.numel()} of "
                      f"{cells.numel()} samples owned): K3 slab equal to "
                      f"slab_fetch_plain bit for bit, K4 max abs err {err:.3g} "
-                     f"(bound max {float(bound.max()):.3g})")
+                     f"(bound max {float(bound.max()):.3g})"
+                     + (f", {timing}" if count == 1 else ""))
         del got, cells, f, owned, diff, bound
         torch.cuda.empty_cache()
-    return {"k3_err": k3_err, "k4_err": k4_err,
-            "text": "; ".join(parts)}
+    return {"k3_err": k3_err, "k4_err": k4_err, "k3_device_ms": slab_ms,
+            "k3_bound_ms": slab_bound, "text": "; ".join(parts)}
 
 
 def phase_dos_band(scene):
@@ -8412,7 +8677,10 @@ def run():
     k5 = phase_mcm_event(dev)
     k3, k4 = phase_corner_kernels(dev)
     t0 = time.perf_counter()
-    k4_bucket = phase_bucket_kernel(dev)
+    k4_bucket, k4_fit_call = phase_bucket_kernel(dev)
+    k4.update(k4_fit_call)
+    k4["max_abs_err"] = max(k4["max_abs_err"],
+                            k4_fit_call["fit_eam_call_max_abs_err"])
     print(f"corner_grad_bucket: {time.perf_counter() - t0:.1f} s",
           flush=True)
     phase_fit_check(dev)
@@ -8570,7 +8838,8 @@ def run():
     k5_halo["ms_1024_config4"] = parallel_numbers["halo_ms_1024"]
     k5_halo["whole_ms_1024_config4"] = parallel_numbers["whole_ms_1024"]
     k3_slab["config4_fit"] = {k: parallel_numbers[k] for k in (
-        "fit_losses", "fit_step_s", "fit_peak_gib")}
+        "fit_losses", "fit_step_s", "fit_peak_gib", "slab_fit_device_ms",
+        "slab_fit_bound_ms")}
     k4_bucket["parallel"] = {k: parallel_numbers[k] for k in (
         "fit_step_s", "fit_peak_gib", "fit_k4_bucket_per_step",
         "eam_step_s", "eam_peak_gib", "eam_peak_above_gib",

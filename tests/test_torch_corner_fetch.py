@@ -172,12 +172,21 @@ def test_corner_fetch_edges_and_nan():
     assert np.array_equal(np.nan_to_num(want), value.nan_to_num().numpy())
 
 
+@pytest.mark.parametrize("crowded", [False, True])
 @pytest.mark.parametrize("channels", [1, 2])
-def test_corner_grad_matches_jax_vjp(channels):
+def test_corner_grad_matches_jax_vjp(channels, crowded):
+    """Spread positions, and (``crowded``) 128 positions in 4 cells, so
+    each corner row sums ~32 entries, as a fit's entries crowd in the
+    chunks the corner-gradient kernel sums on chip (128, not 257: the
+    sums stay near 4, where atol 1e-6 is two float32 ulps); the whole
+    table's gradient and the bucket plain version's rows, stacked over
+    three buckets, against ``jax.vjp``."""
     r = np.random.default_rng(4)
     vol = r.uniform(0, 1, (6, 7, 5, channels)).astype(np.float32)
     packed = np.array(js.pack_corner_volume(jnp.asarray(vol)))
     pos = _positions(seed=3)
+    if crowded:
+        pos = (0.45 + 0.1 * r.uniform(size=(128, 3))).astype(np.float32)
     ct = r.normal(size=(len(pos), channels)).astype(np.float32)
     _, vjp = jax.vjp(lambda t: js.sample_volume_packed(t, vol.shape,
                                                        jnp.asarray(pos)),
@@ -194,6 +203,13 @@ def test_corner_grad_matches_jax_vjp(channels):
     grad = corner_scatter.corner_grad(idx, f, torch.from_numpy(ct),
                                       len(packed), channels)
     assert np.allclose(grad.numpy(), want, rtol=0, atol=1e-6)
+    cuts = [0, 71, 100, len(packed)]
+    stacked = torch.cat([corner_scatter.corner_grad_bucket_plain(
+        idx, f, torch.from_numpy(ct), r0, r1, channels)
+        for r0, r1 in zip(cuts, cuts[1:])])
+    assert np.allclose(stacked.numpy(), want, rtol=0, atol=1e-6)
+    if crowded:
+        assert len(np.unique(idx.numpy())) <= 4
 
 
 def test_fetch_contract():

@@ -725,6 +725,108 @@ def test_corner_grad_bucket_kernel_matches_plain(cuda):
     assert bool(((torch.cat(parts) - whole).abs() <= 2 * bound).all())
 
 
+def _corner_grad_agrees(cells, f, ct, r0, r1, c, rows):
+    """K4's bucket instance over rows [r0, r1) against
+    ``corner_grad_bucket_plain``, and where the range is the whole table
+    ``corner_grad`` against ``corner_grad_plain``, within the reordering
+    bound; one ``BUCKET_LAUNCHES`` or one ``LAUNCHES`` a call, as
+    before."""
+    inside = (cells >= r0) & (cells < r1)
+    bound = _order_bound(
+        torch.bincount(cells[inside] - r0, minlength=r1 - r0)[:, None],
+        corner_scatter.corner_grad_bucket_plain(cells, f, ct.abs(), r0, r1,
+                                                c))
+    before = (corner_scatter.LAUNCHES, corner_scatter.BUCKET_LAUNCHES)
+    got = corner_scatter.corner_grad_bucket(cells, f, ct, r0, r1, c)
+    want = corner_scatter.corner_grad_bucket_plain(cells, f, ct, r0, r1, c)
+    torch.cuda.synchronize()
+    assert (corner_scatter.LAUNCHES, corner_scatter.BUCKET_LAUNCHES) == (
+        before[0], before[1] + 1)
+    assert got.shape == want.shape == (r1 - r0, 8 * c)
+    assert bool(((got - want).abs() <= bound).all())
+    if (r0, r1) == (0, rows):
+        got = corner_scatter.corner_grad(cells, f, ct, rows, c)
+        want = corner_scatter.corner_grad_plain(cells, f, ct, rows, c)
+        torch.cuda.synchronize()
+        assert (corner_scatter.LAUNCHES, corner_scatter.BUCKET_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        assert bool(((got - want).abs() <= bound).all())
+    return want
+
+
+def _grad_inputs(cells, c, seed):
+    g = torch.Generator().manual_seed(seed)
+    n = cells.numel()
+    return (cells.to("cuda"), torch.rand(n, 3, generator=g).to("cuda"),
+            torch.randn(n, c, generator=g).to("cuda"))
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_corner_grad_heavy_contention(cuda, c):
+    """2^20 entries on 16 rows: every chunk's entries sum into a few
+    slots of the block's table (~65 000 updates a row)."""
+    g = torch.Generator().manual_seed(31)
+    rows = 4096
+    cells = torch.randint(0, 16, (1 << 20,), generator=g) * 251
+    cells, f, ct = _grad_inputs(cells, c, 32)
+    want = _corner_grad_agrees(cells, f, ct, 0, rows, c, rows)
+    assert float(want.abs().max()) > 1
+    _corner_grad_agrees(cells, f, ct, 1000, 3000, c, rows)
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_corner_grad_rows_past_the_table(cuda, c):
+    """More distinct rows in a chunk than a block's table holds: enough
+    entries that every resident block takes a whole chunk
+    (``occupancy``'s chunk entries a block), each a distinct row, more
+    than the table's slots, so the rows that find no slot add directly;
+    in order and shuffled."""
+    shape = corner_scatter.occupancy(c)
+    chunk, slots = shape["chunk_entries"], shape["table_slots"]
+    assert chunk > slots and shape["blocks_per_sm"] >= 1
+    n = shape["blocks_per_sm"] * shape["sms"] * chunk
+    rows = 1 << 22
+    g = torch.Generator().manual_seed(33)
+    for cells in (torch.arange(n) * 3, torch.randperm(rows, generator=g)[:n]):
+        cells, f, ct = _grad_inputs(cells, c, 34)
+        _corner_grad_agrees(cells, f, ct, 0, rows, c, rows)
+        _corner_grad_agrees(cells, f, ct, 5000, 3000000, c, rows)
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_corner_grad_skips_masked_and_other_rows(cuda, c):
+    """-1 cells (masked slab samples) and cells of other buckets add
+    nothing; a bucket that no entry reaches is zero."""
+    g = torch.Generator().manual_seed(35)
+    rows = 8192
+    cells = torch.randint(-1, 600, (300000,), generator=g) * 13
+    cells[cells < 0] = -1
+    cells, f, ct = _grad_inputs(cells, c, 36)
+    for r0, r1 in ((0, rows), (0, 1000), (1000, 2600), (2600, rows)):
+        _corner_grad_agrees(cells, f, ct, r0, r1, c, rows)
+    assert not bool(_corner_grad_agrees(cells, f, ct, 7801, 7806, c,
+                                        rows).any())
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_corner_grad_edge_sizes(cuda, c):
+    """One entry, entries not a multiple of the chunk (so the last chunk
+    is ragged: a chunk is 128 to 512 entries, by the call's size), and an
+    empty range; a channel count the kernel has no instance for raises."""
+    g = torch.Generator().manual_seed(37)
+    rows = 1000
+    chunk = corner_scatter.occupancy(c)["chunk_entries"]
+    for n in (1, 127, 129, chunk + 1, 5 * chunk + 77, 900 * chunk + 33):
+        cells = torch.randint(0, rows, (n,), generator=g)
+        cells, f, ct = _grad_inputs(cells, c, 38 + n)
+        _corner_grad_agrees(cells, f, ct, 0, rows, c, rows)
+        _corner_grad_agrees(cells, f, ct, 200, 800, c, rows)
+        _corner_grad_agrees(cells, f, ct, 500, 500, c, rows)
+    with pytest.raises(ValueError, match="1 or 2 channels"):
+        corner_scatter.corner_grad(cells, f[:, :3], torch.zeros(
+            cells.numel(), 3, device=cuda), rows, 3)
+
+
 def test_bucketed_gradient_matches_monolithic(cuda):
     """``overlap.value_and_grad_bucketed`` on the card: 4 launches of K4's
     bucket instance and none of the whole-table K4 a step, one K3 a fetch

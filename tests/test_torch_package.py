@@ -58,7 +58,8 @@ def test_build_flags_and_entry_points():
     assert set(_build.SIGNATURES) == {
         "vpt_tf1d_lookup", "vpt_tf1d_info", "vpt_tonemap", "vpt_mcm_event",
         "vpt_mcm_event_frame", "vpt_mcm_event_info", "vpt_gather_rows", "vpt_corner_fetch",
-        "vpt_scatter_add_rows8", "vpt_corner_grad", "vpt_march_frame",
+        "vpt_scatter_add_rows8", "vpt_corner_grad", "vpt_corner_grad_info",
+        "vpt_march_frame",
         "vpt_march_launch", "vpt_march_info", "vpt_iso_shade",
         "vpt_iso_shade_launch", "vpt_iso_shade_info", "vpt_mcs_frame",
         "vpt_mcs_launch", "vpt_mcs_info", "vpt_dos_frame",

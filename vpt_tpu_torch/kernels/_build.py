@@ -88,6 +88,7 @@ SIGNATURES = {
     "vpt_slab_fetch": [_P, _I, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P],
     "vpt_scatter_add_rows8": [_P, _L, _P, _P, _L, _P],
     "vpt_corner_grad": [_P, _L, _L, _I, _P, _P, _P, _L, _P],
+    "vpt_corner_grad_info": [_I, _I, _P],
     # prepared VptMarchExt, state; first, mix; stream
     "vpt_march_launch": [_P, _P, _F, _F, _P],
     # a prepared VptMarchHalo

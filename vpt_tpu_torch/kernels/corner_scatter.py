@@ -5,10 +5,11 @@ The TPU probe ``make_fused_scatter`` adds 8-lane cotangent rows into a
 (rows, 128) table folded 16 cells to a row, ``table[idx>>4, 8·(idx&15)+k]
 += ct[j, k]``, one serial read-modify-write per update.  That is an 8-lane
 scatter-add into row ``idx`` of the table's unfolded (rows·16, 8) view.  On
-the H100 no fold is needed: each lane is one ``atomicAdd`` at an int64
-offset (``csrc/corner_scatter.cu``).  Three entry points:
+the H100 no fold is needed (``csrc/corner_scatter.cu``).  Three entry
+points:
 
-- :func:`scatter_add_rows8` is the probe's function, in place on the table;
+- :func:`scatter_add_rows8` is the probe's function, in place on the table,
+  one ``atomicAdd`` a lane at an int64 offset;
 - :func:`corner_grad` is the backward of the fit's fused fetch
   (``corner_gather.corner_fetch``): ``grad[idx[j], 8c] += w8(f[j]) ⊗
   ct[j]``, with the trilinear corner weights ``w8`` computed in the kernel,
@@ -19,7 +20,11 @@ offset (``csrc/corner_scatter.cu``).  Three entry points:
   entry of a bucketed fit step (``sampling.BucketedTable``), which launches
   it once a z bucket.
 
-Atomics add in an order that changes from run to run, so the kernels agree
+The corner-gradient kernel sums a warp's entries of one row, then a
+block's chunk of entries by row in a table in shared memory, and adds
+each row to the gradient in float4 atomics (a row that finds no slot
+adds directly), so its sums are taken in an order that changes from run
+to run: the kernels agree
 with the plain versions to rounding, not bit for bit.  Each function takes
 its plain PyTorch version for CPU tensors and launches the kernel for CUDA
 tensors; it never falls back.  The kernels skip an index outside the table
@@ -28,9 +33,16 @@ tensors; it never falls back.  The kernels skip an index outside the table
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
+
+#: what :func:`occupancy` returns, in order
+OCCUPANCY_FIELDS = ("threads_per_block", "blocks_per_sm", "sms", "registers",
+                    "local_bytes", "static_smem_bytes", "chunk_entries",
+                    "table_slots")
 
 #: kernel launches since the last reset (set to 0 to reset)
 LAUNCHES = 0
@@ -130,7 +142,22 @@ def corner_grad_bucket(idx, f, ct, r0: int, r1: int, c: int):
     return grad
 
 
+def occupancy(c: int = 1, device: int = 0) -> dict:
+    """The corner-gradient kernel's launch shape for ``c`` channels (1 or
+    2) on CUDA ``device``: threads a block, resident blocks an SM, SMs,
+    registers and local (spill) bytes a thread, static shared bytes a
+    block, the most entries a block's chunk holds (a small call's chunks
+    are shorter) and the rows its table holds.  Launches nothing."""
+    out = (ctypes.c_int * len(OCCUPANCY_FIELDS))()
+    _build.check("vpt_corner_grad_info",
+                 _build.library().vpt_corner_grad_info(c, device, out))
+    return dict(zip(OCCUPANCY_FIELDS, out))
+
+
 def _launch_corner_grad(idx, f, ct, r0, rows, c, what):
+    if c not in (1, 2) or rows >= 2 ** 32 - 1:
+        raise ValueError(f"{what} takes 1 or 2 channels and fewer than "
+                         f"2^32 - 1 rows, not {c} and {rows}")
     if idx.dtype != torch.int64 or f.dtype != torch.float32 \
             or ct.dtype != torch.float32:
         raise ValueError(f"{what} needs int64 indices, float32 "
