@@ -80,10 +80,11 @@ corner-gradient kernel of each build (``vpt_corner_grad``, whose
 argument list every build with K4's bucket instance exports) in turns,
 the variants first (P C C P, ``--rounds`` 2: four readings a build), on
 the four buckets of a bucketed EAM step, config 4's bucket 0, K4's row
-shape and ``path fit eam``'s call shape (:func:`bench_corner_scatter`);
-with ``--registers`` it adds each build's residency from
-``vpt_corner_grad_info`` where the build exports it (ptxas gives
-registers and shared bytes).
+shape and ``path fit eam``'s call shape (:func:`bench_corner_scatter`),
+and K4's row shape again at C = 3, 4 and 5 (a build that refuses a
+channel count is left out of that case alone); with ``--registers`` it
+adds each build's residency from ``vpt_corner_grad_info`` for C = 1 to
+5 where the build exports it (ptxas gives registers and shared bytes).
 """
 
 from __future__ import annotations
@@ -1131,8 +1132,10 @@ def scatter_cases():
     entries its fetches saved), config 4's bucket 0 (2^20 uniform
     positions in 512³, rows [0, 128·512²)), the whole-table call at K4's
     row shape (a 256³ table, 256² positions crowded into a cube 13 cells
-    a side) and at ``path fit eam``'s call shape (64³, the middle of the 8
-    fetches of one view's value-and-grad from a flat 0.1)."""
+    a side; also with C cotangents for each C above 2 that
+    ``chip_smoke.py`` holds) and at ``path fit eam``'s call shape (64³,
+    the middle of the 8 fetches of one view's value-and-grad from a flat
+    0.1)."""
     import torch
 
     import chip_smoke
@@ -1151,6 +1154,10 @@ def scatter_cases():
     cells, f = sampling.corner_cells(crowd, (256, 256, 256, 1))
     ct = torch.randn(256 * 256, 1, device=dev, generator=g)
     cases["k4 row shape"] = (cells, f, ct, 0, 256 ** 3, 1)
+    for c in chip_smoke.WIDE_ROWS:
+        cases[f"k4 row shape c{c}"] = (
+            cells, f, torch.randn(256 * 256, c, device=dev, generator=g), 0,
+            256 ** 3, c)
     idx, f, ct, rows, c = chip_smoke.fit_eam_calls(truth, tf, eparams,
                                                    views[0], targets[0])[4]
     cases["fit eam call"] = (idx, f, ct, 0, rows, c)
@@ -1162,8 +1169,9 @@ def bench_corner_scatter(libs, rounds, baseline, reps=20):
     :func:`scatter_cases`: per case, the builds in palindromes (the
     variants, current, current, the variants reversed; ``rounds`` times),
     each reading a call's device ms (torch.profiler over ``reps`` calls:
-    the zero fill of the gradient and the scatter, as the wrapper calls
-    it; and the scatter kernel alone) and its CUDA-event ms, through
+    the zero fill of the gradient, in as many launches as PyTorch splits
+    it into, and the scatter, as the wrapper calls it; and the scatter
+    kernel alone) and its CUDA-event ms, through
     ``vpt_corner_grad``'s argument list, which every build with the
     bucket instance's row offset exports; each build's gradient held
     against the plain version within the float32 reordering bound
@@ -1171,7 +1179,9 @@ def bench_corner_scatter(libs, rounds, baseline, reps=20):
     the readings and a summary line a (case, build) with the medians and
     the bound of the case (``chip_smoke.bucket_bound``) and its device ms
     over the ``baseline`` build's, plus a line for the four EAM buckets
-    together."""
+    together.  A build whose call fails in a case is left out of that
+    case (an older build refuses channel counts it has no instance
+    for)."""
     import torch
 
     import chip_smoke
@@ -1192,7 +1202,7 @@ def bench_corner_scatter(libs, rounds, baseline, reps=20):
             corner_scatter.corner_grad_bucket_plain(idx, f, ct.abs(), r0,
                                                     r0 + rows, c))
         for name in order:
-            if name in failed:
+            if (name, label) in failed:
                 continue
             lib = libs[name]
 
@@ -1209,8 +1219,8 @@ def bench_corner_scatter(libs, rounds, baseline, reps=20):
                 got = call()
                 torch.cuda.synchronize()
             except RuntimeError as exc:
-                print(f"{name}: {exc}, left out", flush=True)
-                failed.add(name)
+                print(f"{name}: {exc}, left out of {label}", flush=True)
+                failed.add((name, label))
                 continue
             diff = (got - want).abs()
             del got
@@ -1218,7 +1228,8 @@ def bench_corner_scatter(libs, rounds, baseline, reps=20):
                  "entries": idx.numel(), "in_range": int(inside.sum()),
                  "max_abs_err": float(diff.max()),
                  "within_order_bound": bool((diff <= limit).all()),
-                 "device_ms": chip_smoke.profiler_device_ms(call, "", reps),
+                 "device_ms": chip_smoke.profiler_device_ms(
+                     call, "", reps, counted=True),
                  "scatter_device_ms": chip_smoke.profiler_device_ms(
                      call, "corner_grad", reps),
                  "ms": chip_smoke.cuda_ms(call, reps),
@@ -1351,7 +1362,7 @@ def main() -> int:
                     continue
                 lib.vpt_corner_grad_info.argtypes = \
                     _build.SIGNATURES["vpt_corner_grad_info"]
-                for c in (1, 2):
+                for c in (1, 2, 3, 4, 5):
                     out = (ctypes.c_int
                            * len(corner_scatter.OCCUPANCY_FIELDS))()
                     err = lib.vpt_corner_grad_info(c, 0, out)

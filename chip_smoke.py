@@ -406,7 +406,7 @@ def synced_call_ms(fn, reps, setup=None):
     return sorted(times)[len(times) // 2]
 
 
-def profiler_device_ms(fn, match, reps=50):
+def profiler_device_ms(fn, match, reps=50, counted=False):
     """Device milliseconds per call of ``fn`` in the kernels whose name
     holds ``match`` ("" for every kernel it runs), from torch.profiler over
     ``reps`` calls after one warm-up call: the kernels' own time on the
@@ -414,7 +414,10 @@ def profiler_device_ms(fn, match, reps=50):
     costs the host more than the card.  Each kernel that matches counts
     once a call, at its mean over the launches the profiler recorded (it
     may drop some, and at times records none: then it profiles once
-    more).  None when neither window recorded one."""
+    more); with ``counted``, its mean times its launches a call, the
+    recorded launches over ``reps`` rounded (at least 1), for a call that
+    launches a kernel more than once (PyTorch splits a fill of 2^31 bytes
+    or more into launches).  None when neither window recorded one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -428,7 +431,9 @@ def profiler_device_ms(fn, match, reps=50):
             torch.cuda.synchronize()
         # the card's own events only: a runtime call (cudaLaunchKernel)
         # carries its kernel's time too
-        means = [e.device_time_total / e.count for e in prof.key_averages()
+        means = [e.device_time_total / e.count
+                 * (max(1, round(e.count / reps)) if counted else 1)
+                 for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and match in e.key
                  and e.count and e.device_time_total > 0]
         if means:
@@ -682,8 +687,10 @@ def order_bound(counts, abs_sums):
 
 def phase_corner_kernels(dev):
     """K3 and K4 against their plain versions at the probes' and the fit's
-    shapes.  Returns the JSON fields of both; their times are those of the
-    fit's entry points (corner_fetch, corner_grad) at 256³ / 256²."""
+    shapes, and K4 at C = 3, 4 and 5 (:func:`wide_channel_kernels`).
+    Returns the JSON fields of K3, of K4 and of each wider K4 instance by
+    its C; their times are those of the fit's entry points
+    (corner_fetch, corner_grad) at 256³ / 256²."""
     import torch
 
     from vpt_tpu_torch import sampling
@@ -847,7 +854,7 @@ def phase_corner_kernels(dev):
     # are ~20 operations a photon
     k4_bound, k4_by = roofline(rows * 8 * 4 + cells.numel() * (8 + 12 + 4),
                             20 * cells.numel())
-    shape_of = {c: corner_scatter.occupancy(c) for c in (1, 2)}
+    shape_of = {c: corner_scatter.occupancy(c) for c in range(1, 6)}
     print(f"corner_scatter corner_grad 256^3 table, 256^2 photons on "
           f"{int(cells.unique().numel())} cells: max abs err {err} (within "
           f"the reordering bound, max {float(bound.max()):.3g}); {ms:.4f} "
@@ -866,7 +873,218 @@ def phase_corner_kernels(dev):
                      "into the zeroed gradient: the scatter alone",
           "scatter_device_ms": scatter_ms,
           "occupancy": {f"c{c}": v for c, v in shape_of.items()}}
-    return k3, k4
+    t0 = time.perf_counter()
+    wide = wide_channel_kernels(dev, cells, f, rows, shape_of)
+    print(f"corner_scatter C = 3, 4, 5: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return k3, k4, wide
+
+
+#: the JSON row of each K4 instance above two channels, by its C: the
+#: whole-row corner_grad_kernel<3> and <4>, and at 5 the channel-group
+#: instance corner_grad_group_kernel
+WIDE_ROWS = {3: "corner_scatter_c3", 4: "corner_scatter_c4",
+             5: "corner_scatter_groups"}
+
+
+def wide_channel_kernels(dev, cells, f, rows, shape_of):
+    """K4 at C = 3 and 4 (``corner_grad_kernel<3>``, ``<4>``) and 5 (the
+    channel-group instance) at K4's row shape: the cells and fractions of
+    256² photons crowded into a cube 13 cells a side of a 256³ table, C
+    cotangents a photon.  The whole-table call and the bucket instance
+    over the 8 planes of rows [120·256², 128·256²), which hold about half
+    the entries, each against its plain version within the reordering
+    bound, timed (CUDA events; the profiler's device time of the call, the
+    zero fill and the scatter, and of the scatter alone) beside the plain
+    version, the bound (:func:`bucket_bound`: the dense (rows, 8·C) fill
+    and the entries) and ``index_add_`` (:func:`scatter_library_ms`).
+    Returns each C's JSON row fields."""
+    import torch
+
+    from vpt_tpu_torch.kernels import corner_scatter
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    plane = 256 * 256
+    b0, b1 = 120 * plane, 128 * plane
+    counts = torch.bincount(cells, minlength=rows)[:, None]
+    out = {}
+    for c in WIDE_ROWS:
+        ct = torch.randn(cells.numel(), c, device=dev, generator=g)
+        errs = []
+        for r0, r1 in ((0, rows), (b0, b1)):
+            got = corner_scatter.corner_grad(cells, f, ct, rows, c) \
+                if r1 - r0 == rows \
+                else corner_scatter.corner_grad_bucket(cells, f, ct, r0, r1, c)
+            want = corner_scatter.corner_grad_bucket_plain(cells, f, ct, r0,
+                                                           r1, c)
+            bound = order_bound(counts[r0:r1],
+                                corner_scatter.corner_grad_bucket_plain(
+                                    cells, f, ct.abs(), r0, r1, c))
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            errs.append(float(diff.max()))
+            check(bool((diff <= bound).all()),
+                  f"corner_grad C = {c}, rows [{r0}, {r1}): max abs err "
+                  f"{errs[-1]} beyond the reordering bound")
+            del got, want, bound, diff
+
+        def whole(ct=ct, c=c):
+            return corner_scatter.corner_grad(cells, f, ct, rows, c)
+
+        def bucket(ct=ct, c=c):
+            return corner_scatter.corner_grad_bucket(cells, f, ct, b0, b1, c)
+
+        ms = cuda_ms(whole, 20)
+        device_ms = profiler_device_ms(whole, "", reps=20, counted=True)
+        scatter_ms = profiler_device_ms(whole, "corner_grad", reps=20)
+        plain_ms = cuda_ms(lambda: corner_scatter.corner_grad_plain(
+            cells, f, ct, rows, c), 5)
+        library = scatter_library_ms(cells, f, ct, 0, rows, c)
+        bound_ms, by = bucket_bound(cells, cells.numel(), rows, c)
+        inside = int(((cells >= b0) & (cells < b1)).sum())
+        bucket_ms = cuda_ms(bucket, 20)
+        bucket_device_ms = profiler_device_ms(bucket, "", reps=20,
+                                              counted=True)
+        bucket_scatter_ms = profiler_device_ms(bucket, "corner_grad",
+                                               reps=20)
+        bucket_plain_ms = cuda_ms(
+            lambda: corner_scatter.corner_grad_bucket_plain(
+                cells, f, ct, b0, b1, c), 5)
+        bucket_library = scatter_library_ms(cells, f, ct, b0, b1, c)
+        bucket_bound_ms, bucket_by = bucket_bound(cells, inside, b1 - b0, c)
+        print(f"corner_scatter corner_grad C = {c} ("
+              f"{'channel groups of 4' if c > 4 else 'whole rows'}), 256^3 "
+              f"table, 256^2 photons on {int(cells.unique().numel())} "
+              f"cells: max abs err {errs[0]:.3g} (within the reordering "
+              f"bound); {ms:.4f} ms a call, device {fmt_ms(device_ms)} (the "
+              f"scatter alone {fmt_ms(scatter_ms)}), plain {plain_ms:.4f} "
+              f"ms; bound {bound_ms:.4f} ms ({by}); {library['text']}; the "
+              f"bucket instance on rows [{b0}, {b1}) ({inside} entries): max "
+              f"abs err {errs[1]:.3g}, {bucket_ms:.4f} ms a call, device "
+              f"{fmt_ms(bucket_device_ms)} (the scatter alone "
+              f"{fmt_ms(bucket_scatter_ms)}), plain {bucket_plain_ms:.4f} "
+              f"ms, bound {bucket_bound_ms:.4f} ms ({bucket_by}), "
+              f"index_add_ {bucket_library['ms']:.4f} ms; the kernel's "
+              f"shape {json.dumps(shape_of[c])}", flush=True)
+        out[c] = {"max_abs_err": max(errs), "ms": ms, "device_ms": device_ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                  "library_ms": library["ms"],
+                  "library_device_ms": library["device_ms"],
+                  "library": "index_add_ of the precomputed (n, 8C) weighted "
+                             "rows into the zeroed gradient: the scatter "
+                             "alone", "channels": c,
+                  "scatter_device_ms": scatter_ms,
+                  "bucket_ms": bucket_ms,
+                  "bucket_device_ms": bucket_device_ms,
+                  "bucket_scatter_device_ms": bucket_scatter_ms,
+                  "bucket_plain_ms": bucket_plain_ms,
+                  "bucket_bound_ms": bucket_bound_ms,
+                  "bucket_library_ms": bucket_library["ms"],
+                  "occupancy": shape_of[c]}
+        del ct
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_wide_fetch_path(dev, counters):
+    """``path wide channels``: for C = 3, 4 and 5, every launch counter at
+    0, then a float32 corner table of a (64, 64, 64, C) volume through the
+    differentiable fetches a user calls, ``sampling.sample_volume_packed``
+    (``CornerFetch``) and ``sample_slab_packed`` on slab 1 of 2
+    (``SlabCornerFetch``), 256² positions each, and ``.backward()``; then
+    K4's bucket instance over the first fetch's cells in 4 z buckets,
+    each folded into its voxels (``fold_corner_grad``, the carry passed
+    on).  The table gradients against the plain backward
+    (``corner_grad_plain`` of the fetches' cells) within the reordering
+    bound, the buckets' fold against the fold of the plain whole
+    gradient.  Returns each C's launches under its JSON row's name: K4's
+    (whole-table and bucket) of that C's run, and the fetch's K3."""
+    import torch
+
+    from vpt_tpu_torch import sampling
+    from vpt_tpu_torch.kernels import corner_gather, corner_scatter
+    from vpt_tpu_torch.parallel import halo
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    n = 64
+    launches = {}
+    for c, name in WIDE_ROWS.items():
+        vol = torch.rand(n, n, n, c, device=dev, generator=g)
+        shape = tuple(vol.shape)
+        table = sampling.pack_corner_volume(vol)
+        pos = torch.rand(256 * 256, 3, device=dev, generator=g) * 1.2 - 0.1
+        weight = torch.randn(256 * 256, c, device=dev, generator=g)
+        slab = halo.slab_table(table, shape, 2, 1)
+        for module in counters.values():
+            module.LAUNCHES = 0
+        leaf = table.clone().requires_grad_(True)
+        (sampling.sample_volume_packed(leaf, shape, pos) * weight).sum() \
+            .backward()
+        slab_leaf = slab.clone().requires_grad_(True)
+        (sampling.sample_slab_packed(slab_leaf, shape, 1, 2, 1, pos)
+         * weight).sum().backward()
+        cells, f = sampling.corner_cells(pos, shape)
+        parts, carry, cuts = [], None, (0, 16, 32, 48, n)
+        for b, (z0, z1) in enumerate(zip(cuts, cuts[1:])):
+            last = b == len(cuts) - 2
+            vox = sampling.fold_corner_grad(corner_scatter.corner_grad_bucket(
+                cells, f, weight, z0 * n * n, z1 * n * n, c), z1 - z0, n, n,
+                last)
+            part = vox[:z1 - z0].clone()
+            if carry is not None:
+                part[0] += carry
+            carry = None if last else vox[-1]
+            parts.append(part)
+        torch.cuda.synchronize()
+        held = {k: m.LAUNCHES for k, m in counters.items()}
+        check(held["corner_scatter"] == 2 and
+              held["corner_scatter_bucket"] == 4
+              and held["corner_gather"] == 1
+              and held["corner_gather_slab"] == 1,
+              f"path wide channels C = {c}: launches {held}")
+        _, slab_cells, slab_f = corner_gather.slab_fetch_plain(
+            slab, shape, 1, 2, 1, pos, True, save=True)
+        errs = []
+        for got, idx, fr, n_rows in ((leaf.grad, cells, f, table.shape[0]),
+                                     (slab_leaf.grad, slab_cells, slab_f,
+                                      slab.shape[0])):
+            want = corner_scatter.corner_grad_plain(idx, fr, weight, n_rows,
+                                                    c)
+            abs_sums = corner_scatter.corner_grad_plain(idx, fr,
+                                                        weight.abs(),
+                                                        n_rows, c)
+            bound = order_bound(torch.bincount(idx[idx >= 0],
+                                               minlength=n_rows)[:, None],
+                                abs_sums)
+            diff = (got - want).abs()
+            errs.append(float(diff.max()))
+            check(bool((diff <= bound).all()),
+                  f"path wide channels C = {c}: the table's gradient "
+                  f"{errs[-1]} from the plain backward's")
+            if got is leaf.grad:
+                folded = torch.cat(parts)
+                fold_bound = sampling.fold_corner_grad(
+                    bound + 16 * 2.0 ** -24 * abs_sums, n, n, n, True)
+                fold_err = (folded - sampling.fold_corner_grad(
+                    want, n, n, n, True)).abs()
+                errs.append(float(fold_err.max()))
+                check(bool((fold_err <= fold_bound).all()),
+                      f"path wide channels C = {c}: the buckets' fold "
+                      f"{errs[-1]} from the whole gradient's")
+        launches[name] = held["corner_scatter"] \
+            + held["corner_scatter_bucket"]
+        print(f"path wide channels C = {c}: a (64^3, {c}) table, 256^2 "
+              f"positions through sample_volume_packed and "
+              f"sample_slab_packed, .backward(): K3 {held['corner_gather']}, "
+              f"K3 slab {held['corner_gather_slab']}, K4 "
+              f"{held['corner_scatter']}, K4 bucket "
+              f"{held['corner_scatter_bucket']} (4 z buckets folded); table "
+              f"gradients within the reordering bound (max abs err "
+              f"{errs[0]:.3g}, slab {errs[2]:.3g}), the buckets' fold "
+              f"{errs[1]:.3g}", flush=True)
+        del vol, table, slab, leaf, slab_leaf, parts
+    torch.cuda.empty_cache()
+    return launches
 
 
 def scatter_library_ms(idx, f, ct, r0, r1, c):
@@ -8675,7 +8893,7 @@ def run():
     k2 = phase_tonemap(dev)
     k1 = phase_tf1d(dev)
     k5 = phase_mcm_event(dev)
-    k3, k4 = phase_corner_kernels(dev)
+    k3, k4, k4_wide = phase_corner_kernels(dev)
     t0 = time.perf_counter()
     k4_bucket, k4_fit_call = phase_bucket_kernel(dev)
     k4.update(k4_fit_call)
@@ -8874,6 +9092,10 @@ def run():
     t0 = time.perf_counter()
     demos_launches = phase_demos_path(dev, counters)
     print(f"path demos: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    wide_launches = phase_wide_fetch_path(dev, counters)
+    print(f"path wide channels: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for path, launches, names in (
             ("forward render", render_launches,
              ("mcm_event", "tf1d_lookup", "tonemap", "corner_gather")),
@@ -8905,7 +9127,8 @@ def run():
               "mcm_event_halo_rg")),
             ("halo frames", frames_launches, tuple(HALO_COUNTERS)),
             ("parallel gloo 4", gloo4_launches,
-             ("lao_halo", "dos_halo_band"))):
+             ("lao_halo", "dos_halo_band")),
+            ("wide channels", wide_launches, tuple(WIDE_ROWS.values()))):
         for name in names:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the {path} path")
@@ -9138,6 +9361,20 @@ def run():
             row["unpacked_max_abs_err"] = unpacked_errors[row["name"]]
             row["max_abs_err"] = max(row["max_abs_err"],
                                      unpacked_errors[row["name"]])
+    for c, name in WIDE_ROWS.items():
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "vpt_tpu_torch/csrc/corner_scatter.cu",
+            "replaces": "benchmarks/pallas_scatter_bwd.py:41",
+            "launched_by": f"sampling.CornerFetch and SlabCornerFetch "
+                           f"backward of a {c}-channel table, and "
+                           f"corner_grad_bucket over its z buckets (path "
+                           f"wide channels); "
+                           + ("corner_grad_group_kernel, channel groups of "
+                              "4" if c > 4 else f"corner_grad_kernel<{c}>")
+                           + "; ms and device_ms the whole-table call at "
+                             "K4's row shape",
+            "launches": wide_launches[name], **k4_wide[c]})
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all, the "
           "build included", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

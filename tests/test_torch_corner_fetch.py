@@ -8,13 +8,18 @@ them (``sampling.CornerFetch``), against vpt_tpu on the CPU.
   the scatter adds in another order, so atol 1e-5 on sums of O(1) terms.
 - The corner fetch, which takes positions, against
   ``vpt_tpu.sampling.sample_volume_packed`` (and its ``fused_vjp=True``
-  value), bit for bit, for float32 and bfloat16 tables and one or two
+  value), bit for bit, for float32 and bfloat16 tables of one to five
   channels: the same float32 filter coordinates and lerp chain in the same
   order.  Its saved cells and fractions are ``corner_cells``'; edge,
   out-of-range and NaN positions behave as the module states.
-- Its gradient against ``jax.vjp`` of the packed fetch, atol 1e-6: the
-  analytic ``w8 ⊗ ct`` cotangent against JAX's transposed lerp chain,
-  equal up to reassociation.
+- Its gradient against ``jax.vjp`` of the packed fetch, atol 1e-6, one
+  to five channels: the analytic ``w8 ⊗ ct`` cotangent against JAX's
+  transposed lerp chain, equal up to reassociation; 257 positions in 4
+  cells within the float32 reordering bound of each sum instead.
+- K4's bucket instance over three z buckets, each folded into its voxels
+  (``sampling.fold_corner_grad``, the carry passed on), against
+  ``jax.vjp`` of the packed fetch with respect to the volume, three to
+  five channels.
 """
 
 import importlib.util
@@ -108,7 +113,7 @@ def test_scatter_add_rows8_matches_the_probe_and_xla():
     assert not np.allclose(table.numpy(), table0, atol=1e-3)
 
 
-@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_corner_fetch_bitwise_against_jax(dtype, channels):
     r = np.random.default_rng(7)
@@ -172,44 +177,105 @@ def test_corner_fetch_edges_and_nan():
     assert np.array_equal(np.nan_to_num(want), value.nan_to_num().numpy())
 
 
-@pytest.mark.parametrize("crowded", [False, True])
-@pytest.mark.parametrize("channels", [1, 2])
+def _order_bound(counts, abs_sums):
+    """|a - b| for two float32 sums of the same n terms in different
+    orders (``chip_smoke.order_bound``): each lies within
+    (n - 1)·2^-24·Σ|x| of the exact sum."""
+    return 2.0 * counts * 2.0 ** -24 * abs_sums
+
+
+@pytest.mark.parametrize("crowded", [
+    pytest.param(0, id="False"), pytest.param(128, id="True"),
+    pytest.param(257, id="257")])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 5])
 def test_corner_grad_matches_jax_vjp(channels, crowded):
     """Spread positions, and (``crowded``) 128 positions in 4 cells, so
     each corner row sums ~32 entries, as a fit's entries crowd in the
-    chunks the corner-gradient kernel sums on chip (128, not 257: the
-    sums stay near 4, where atol 1e-6 is two float32 ulps); the whole
-    table's gradient and the bucket plain version's rows, stacked over
-    three buckets, against ``jax.vjp``."""
+    chunks the corner-gradient kernel sums on chip (the sums stay near 4,
+    where atol 1e-6 is two float32 ulps), or 257 positions in 4 cells,
+    whose sums reach ~7: those within the float32 reordering bound of
+    each sum's terms (2·n·2^-24·Σ|terms|), as the kernel's sums are held
+    on the card; the whole table's gradient and the bucket plain
+    version's rows, stacked over three buckets, against ``jax.vjp``."""
     r = np.random.default_rng(4)
     vol = r.uniform(0, 1, (6, 7, 5, channels)).astype(np.float32)
     packed = np.array(js.pack_corner_volume(jnp.asarray(vol)))
     pos = _positions(seed=3)
     if crowded:
-        pos = (0.45 + 0.1 * r.uniform(size=(128, 3))).astype(np.float32)
+        pos = (0.45 + 0.1 * r.uniform(size=(crowded, 3))).astype(
+            np.float32)
     ct = r.normal(size=(len(pos), channels)).astype(np.float32)
     _, vjp = jax.vjp(lambda t: js.sample_volume_packed(t, vol.shape,
                                                        jnp.asarray(pos)),
                      jnp.asarray(packed))
     want = np.asarray(vjp(jnp.asarray(ct))[0])
 
+    idx, f = ts.corner_cells(torch.from_numpy(pos), vol.shape)
+    if crowded > 128:
+        limit = _order_bound(
+            torch.bincount(idx, minlength=len(packed))[:, None],
+            corner_scatter.corner_grad_plain(
+                idx, f, torch.from_numpy(np.abs(ct)), len(packed),
+                channels)).numpy()
+    else:
+        limit = 1e-6
+
     table = torch.from_numpy(packed).requires_grad_(True)
     out = ts.sample_volume_packed(table, vol.shape, torch.from_numpy(pos))
     out.backward(torch.from_numpy(ct))
-    assert np.allclose(table.grad.numpy(), want, rtol=0, atol=1e-6)
+    assert table.grad.shape == (len(packed), 8 * channels)
+    assert (np.abs(table.grad.numpy() - want) <= limit).all()
 
     # corner_grad_plain on the cells and fractions the fetch computes
-    idx, f = ts.corner_cells(torch.from_numpy(pos), vol.shape)
     grad = corner_scatter.corner_grad(idx, f, torch.from_numpy(ct),
                                       len(packed), channels)
-    assert np.allclose(grad.numpy(), want, rtol=0, atol=1e-6)
+    assert (np.abs(grad.numpy() - want) <= limit).all()
     cuts = [0, 71, 100, len(packed)]
     stacked = torch.cat([corner_scatter.corner_grad_bucket_plain(
         idx, f, torch.from_numpy(ct), r0, r1, channels)
         for r0, r1 in zip(cuts, cuts[1:])])
-    assert np.allclose(stacked.numpy(), want, rtol=0, atol=1e-6)
+    assert (np.abs(stacked.numpy() - want) <= limit).all()
     if crowded:
         assert len(np.unique(idx.numpy())) <= 4
+
+
+@pytest.mark.parametrize("channels", [3, 4, 5])
+def test_bucket_fold_matches_jax_volume_vjp(channels):
+    """A table of three to five channels through the bucketed transpose:
+    K4's bucket instance (its plain version here) over three z buckets
+    of a 6×7×5 volume's rows, each bucket's rows folded into its voxels
+    by ``sampling.fold_corner_grad`` with the carry of the bucket before,
+    equals ``jax.vjp`` of ``sample_volume_packed(pack_corner_volume(v))``
+    with respect to the volume within atol 1e-5 (the bound of
+    ``tests/test_torch_bucketed.py``'s fold against the packing's
+    transpose): the fold and the scatter take any channel count."""
+    r = np.random.default_rng(9)
+    shape = (6, 7, 5, channels)
+    vol = r.uniform(0, 1, shape).astype(np.float32)
+    pos = _positions(seed=10)
+    ct = r.normal(size=(len(pos), channels)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: js.sample_volume_packed(
+        js.pack_corner_volume(v), shape, jnp.asarray(pos)),
+        jnp.asarray(vol))
+    want = np.asarray(vjp(jnp.asarray(ct))[0])
+
+    idx, f = ts.corner_cells(torch.from_numpy(pos), shape)
+    d, h, w = shape[:3]
+    cuts, parts, carry = [0, 2, 5, d], [], None
+    for b, (z0, z1) in enumerate(zip(cuts, cuts[1:])):
+        last = b == len(cuts) - 2
+        rows = corner_scatter.corner_grad_bucket(
+            idx, f, torch.from_numpy(ct), z0 * h * w, z1 * h * w, channels)
+        assert rows.shape == ((z1 - z0) * h * w, 8 * channels)
+        vox = ts.fold_corner_grad(rows, z1 - z0, h, w, last)
+        part = vox[:z1 - z0].clone()
+        if carry is not None:
+            part[0] += carry
+        carry = None if last else vox[-1]
+        parts.append(part)
+    got = torch.cat(parts).numpy()
+    assert got.shape == want.shape
+    assert np.allclose(got, want, rtol=0, atol=1e-5)
 
 
 def test_fetch_contract():

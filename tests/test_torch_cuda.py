@@ -557,7 +557,7 @@ def test_gather_rows_kernel_equals_plain(cuda, lanes):
 
 @pytest.mark.parametrize("save", [False, True], ids=["value", "save"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
 def test_corner_fetch_kernel_bitwise(cuda, channels, dtype, save):
     """The fetch computes the cells and fractions and runs the plain
     chain's float32 operations in its order without contraction: equal to
@@ -692,14 +692,16 @@ def test_scatter_kernels_match_plain(cuda):
     assert bool(((got - want).abs() <= bound).all())
 
 
-def test_corner_grad_bucket_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("c", [2, 4])
+def test_corner_grad_bucket_kernel_matches_plain(cuda, c):
     """K4's bucket instance: rows [r0, r1) of the table's gradient from
     every entry (cells of other rows and -1 cells skipped), against
     ``corner_grad_bucket_plain`` within the reordering bound, one
     ``BUCKET_LAUNCHES`` a call and no ``LAUNCHES``; the ranges stacked
-    cover ``corner_grad``'s whole gradient within the same bound."""
+    cover ``corner_grad``'s whole gradient within the same bound; two and
+    four channels."""
     g = torch.Generator().manual_seed(17)
-    rows, c, n = 4096, 2, 1 << 16
+    rows, n = 4096, 1 << 16
     cells = (torch.randint(-1, 300, (n,), generator=g) * 13).clamp(
         min=-1).to(cuda)
     f = torch.rand(n, 3, generator=g).to(cuda)
@@ -761,7 +763,7 @@ def _grad_inputs(cells, c, seed):
             torch.randn(n, c, generator=g).to("cuda"))
 
 
-@pytest.mark.parametrize("c", [1, 2])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
 def test_corner_grad_heavy_contention(cuda, c):
     """2^20 entries on 16 rows: every chunk's entries sum into a few
     slots of the block's table (~65 000 updates a row)."""
@@ -774,7 +776,7 @@ def test_corner_grad_heavy_contention(cuda, c):
     _corner_grad_agrees(cells, f, ct, 1000, 3000, c, rows)
 
 
-@pytest.mark.parametrize("c", [1, 2])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
 def test_corner_grad_rows_past_the_table(cuda, c):
     """More distinct rows in a chunk than a block's table holds: enough
     entries that every resident block takes a whole chunk
@@ -793,7 +795,7 @@ def test_corner_grad_rows_past_the_table(cuda, c):
         _corner_grad_agrees(cells, f, ct, 5000, 3000000, c, rows)
 
 
-@pytest.mark.parametrize("c", [1, 2])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
 def test_corner_grad_skips_masked_and_other_rows(cuda, c):
     """-1 cells (masked slab samples) and cells of other buckets add
     nothing; a bucket that no entry reaches is zero."""
@@ -808,11 +810,12 @@ def test_corner_grad_skips_masked_and_other_rows(cuda, c):
                                         rows).any())
 
 
-@pytest.mark.parametrize("c", [1, 2])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
 def test_corner_grad_edge_sizes(cuda, c):
     """One entry, entries not a multiple of the chunk (so the last chunk
     is ragged: a chunk is 128 to 512 entries, by the call's size), and an
-    empty range; a channel count the kernel has no instance for raises."""
+    empty range; after them three channels on the last size agree as
+    well, and zero channels raise."""
     g = torch.Generator().manual_seed(37)
     rows = 1000
     chunk = corner_scatter.occupancy(c)["chunk_entries"]
@@ -822,9 +825,92 @@ def test_corner_grad_edge_sizes(cuda, c):
         _corner_grad_agrees(cells, f, ct, 0, rows, c, rows)
         _corner_grad_agrees(cells, f, ct, 200, 800, c, rows)
         _corner_grad_agrees(cells, f, ct, 500, 500, c, rows)
-    with pytest.raises(ValueError, match="1 or 2 channels"):
-        corner_scatter.corner_grad(cells, f[:, :3], torch.zeros(
-            cells.numel(), 3, device=cuda), rows, 3)
+    three = torch.randn(cells.numel(), 3, generator=g).to(cuda)
+    _corner_grad_agrees(cells, f, three, 0, rows, 3, rows)
+    with pytest.raises(ValueError, match="at least one channel"):
+        corner_scatter.corner_grad(cells, f, torch.zeros(
+            cells.numel(), 0, device=cuda), rows, 0)
+
+
+def test_four_channel_fetch_backward_launches_k4(cuda):
+    """A 4-channel float32 corner table through the differentiable fetches
+    and ``.backward()``: ``sample_volume_packed`` (``CornerFetch``) and
+    ``sample_slab_packed`` on slab 1 of 2 (``SlabCornerFetch``) each
+    launch K3 once and K4 once, the table's gradient within the
+    reordering bound of the plain backward (``corner_grad_plain`` of the
+    fetch's cells and fractions); K4's bucket instance over three z
+    buckets of the fetch's cells (one ``BUCKET_LAUNCHES`` each), folded
+    bucket by bucket with the carry (``fold_corner_grad``), equals the
+    fold of the plain whole gradient within the same bound folded."""
+    from vpt_tpu_torch.parallel import halo
+
+    g = torch.Generator().manual_seed(41)
+    c = 4
+    vol = torch.rand(12, 10, 14, c, generator=g).to(cuda)
+    shape = tuple(vol.shape)
+    d, h, w = shape[:3]
+    table = sampling.pack_corner_volume(vol)
+    rows = table.shape[0]
+    pos = (torch.rand(30000, 3, generator=g) * 1.2 - 0.1).to(cuda)
+    weight = torch.randn(30000, c, generator=g).to(cuda)
+
+    def plain_and_bound(cells, f, n_rows):
+        inside = cells >= 0
+        want = corner_scatter.corner_grad_plain(cells, f, weight, n_rows, c)
+        abs_sums = corner_scatter.corner_grad_plain(cells, f, weight.abs(),
+                                                    n_rows, c)
+        counts = torch.bincount(cells[inside], minlength=n_rows)[:, None]
+        return want, abs_sums, _order_bound(counts, abs_sums)
+
+    leaf = table.clone().requires_grad_(True)
+    before = (corner_gather.LAUNCHES, corner_scatter.LAUNCHES)
+    (sampling.sample_volume_packed(leaf, shape, pos) * weight).sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert (corner_gather.LAUNCHES, corner_scatter.LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    cells, f = sampling.corner_cells(pos, shape)
+    want, abs_sums, bound = plain_and_bound(cells, f, rows)
+    assert leaf.grad.shape == (rows, 8 * c)
+    assert bool(((leaf.grad - want).abs() <= bound).all())
+
+    slab = halo.slab_table(table, shape, 2, 1).requires_grad_(True)
+    before = (corner_gather.SLAB_LAUNCHES, corner_scatter.LAUNCHES)
+    (sampling.sample_slab_packed(slab, shape, 1, 2, 1, pos) * weight) \
+        .sum().backward()
+    torch.cuda.synchronize()
+    assert (corner_gather.SLAB_LAUNCHES, corner_scatter.LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    _, slab_cells, slab_f = corner_gather.slab_fetch_plain(
+        slab.detach(), shape, 1, 2, 1, pos, True, save=True)
+    assert bool((slab_cells < 0).any()) and bool((slab_cells >= 0).any())
+    slab_want, _, slab_bound = plain_and_bound(slab_cells, slab_f,
+                                               slab.shape[0])
+    assert bool(((slab.grad - slab_want).abs() <= slab_bound).all())
+
+    plane = h * w
+    before = (corner_scatter.LAUNCHES, corner_scatter.BUCKET_LAUNCHES)
+    cuts = [0, 3, 7, d]
+    parts, carry = [], None
+    for b, (z0, z1) in enumerate(zip(cuts, cuts[1:])):
+        last = b == len(cuts) - 2
+        tg = corner_scatter.corner_grad_bucket(cells, f, weight, z0 * plane,
+                                               z1 * plane, c)
+        vox = sampling.fold_corner_grad(tg, z1 - z0, h, w, last)
+        part = vox[:z1 - z0].clone()
+        if carry is not None:
+            part[0] += carry
+        carry = None if last else vox[-1]
+        parts.append(part)
+    torch.cuda.synchronize()
+    assert (corner_scatter.LAUNCHES, corner_scatter.BUCKET_LAUNCHES) == (
+        before[0], before[1] + 3)
+    got = torch.cat(parts)
+    assert got.shape == shape
+    whole = sampling.fold_corner_grad(want, d, h, w, True)
+    fold_bound = sampling.fold_corner_grad(
+        bound + 16 * 2.0 ** -24 * abs_sums, d, h, w, True)
+    assert bool(((got - whole).abs() <= fold_bound).all())
 
 
 def test_bucketed_gradient_matches_monolithic(cuda):

@@ -23,8 +23,9 @@ points:
 The corner-gradient kernel sums a warp's entries of one row, then a
 block's chunk of entries by row in a table in shared memory, and adds
 each row to the gradient in float4 atomics (a row that finds no slot
-adds directly), so its sums are taken in an order that changes from run
-to run: the kernels agree
+adds directly); it takes any channel count, a table of more than four
+channels in groups of four (a float atomic a lane).  Its sums are taken
+in an order that changes from run to run: the kernels agree
 with the plain versions to rounding, not bit for bit.  Each function takes
 its plain PyTorch version for CPU tensors and launches the kernel for CUDA
 tensors; it never falls back.  The kernels skip an index outside the table
@@ -143,8 +144,9 @@ def corner_grad_bucket(idx, f, ct, r0: int, r1: int, c: int):
 
 
 def occupancy(c: int = 1, device: int = 0) -> dict:
-    """The corner-gradient kernel's launch shape for ``c`` channels (1 or
-    2) on CUDA ``device``: threads a block, resident blocks an SM, SMs,
+    """The corner-gradient kernel's launch shape for ``c`` ≥ 1 channels on
+    CUDA ``device`` (the whole-row instance for c ≤ 4, the channel-group
+    instance above): threads a block, resident blocks an SM, SMs,
     registers and local (spill) bytes a thread, static shared bytes a
     block, the most entries a block's chunk holds (a small call's chunks
     are shorter) and the rows its table holds.  Launches nothing."""
@@ -155,9 +157,9 @@ def occupancy(c: int = 1, device: int = 0) -> dict:
 
 
 def _launch_corner_grad(idx, f, ct, r0, rows, c, what):
-    if c not in (1, 2) or rows >= 2 ** 32 - 1:
-        raise ValueError(f"{what} takes 1 or 2 channels and fewer than "
-                         f"2^32 - 1 rows, not {c} and {rows}")
+    if c < 1 or rows >= 2 ** 32 - 1:
+        raise ValueError(f"{what} takes at least one channel and fewer "
+                         f"than 2^32 - 1 rows, not {c} and {rows}")
     if idx.dtype != torch.int64 or f.dtype != torch.float32 \
             or ct.dtype != torch.float32:
         raise ValueError(f"{what} needs int64 indices, float32 "
